@@ -1,0 +1,97 @@
+"""State carried across from the JAX package, at the numpy level.
+
+These functions turn the kernel inputs of pipelinedp_tpu, once extracted to
+numpy arrays and plain Python values, into the port's, so one state can be
+fed to both packages: the encoded columns, the KernelConfig fields, the
+noise stds, the SelectionParams fields and the uint32[2] threefry key.
+Nothing here imports the JAX package; the caller does the extracting
+(e.g. `dataclasses.asdict` of its KernelConfig).
+"""
+
+from typing import Any, Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from pipelinedp_tpu_torch import columnar
+from pipelinedp_tpu_torch import executor
+from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+from pipelinedp_tpu_torch.ops import selection_ops
+
+# KernelConfig fields of the JAX package that this slice does not run, with
+# the value that means "off".
+_UNPORTED_DEFAULTS = {
+    "total_bound": 0, "vector_size": 0, "vector_max_norm": 0.0,
+    "vector_norm_kind": None, "quantiles": (), "tree_height": 0,
+    "branching": 0, "quantile_chunk": 0, "secure": False,
+    "numeric_mode": "fast",
+}
+
+
+def encoded_data(pid: np.ndarray, pk: np.ndarray, values: np.ndarray,
+                 partition_vocab: Sequence[Any], n_privacy_ids: int,
+                 public_encoded: bool = False) -> columnar.EncodedData:
+    """The JAX package's EncodedData arrays as the port's EncodedData."""
+    return columnar.EncodedData(
+        pid=np.asarray(pid, dtype=np.int32),
+        pk=np.asarray(pk, dtype=np.int32),
+        values=np.asarray(values, dtype=np.float64),
+        partition_vocab=partition_vocab,
+        n_privacy_ids=int(n_privacy_ids),
+        public_encoded=bool(public_encoded))
+
+
+def selection_params(fields: Mapping[str, Any]) -> selection_ops.SelectionParams:
+    """SelectionParams from the JAX package's SelectionParams fields."""
+    return selection_ops.SelectionParams(**dict(fields))
+
+
+def kernel_config(fields: Mapping[str, Any]) -> executor.KernelConfig:
+    """KernelConfig from the JAX package's KernelConfig fields (plan
+    entries and selection as mappings or dataclass-like objects, the
+    noise kind as a NoiseKind of either package or its value)."""
+    fields = dict(fields)
+    for name, off in _UNPORTED_DEFAULTS.items():
+        if name in fields and fields.pop(name) not in (off, None):
+            raise NotImplementedError(
+                f"KernelConfig.{name} is not ported yet (ROADMAP.md Queue 1)")
+    plan = tuple(
+        executor.MetricPlanEntry(kind=e["kind"], outputs=tuple(e["outputs"]),
+                                 n_stds=int(e["n_stds"]))
+        for e in (_as_dict(entry) for entry in fields.pop("plan")))
+    selection = fields.pop("selection")
+    noise_kind = fields.pop("noise_kind")
+    return executor.KernelConfig(
+        plan=plan,
+        selection=(None if selection is None else
+                   selection_params(_as_dict(selection))),
+        noise_kind=NoiseKind(getattr(noise_kind, "value", noise_kind)),
+        **fields)
+
+
+def noise_stds(stds) -> np.ndarray:
+    """Noise stds in plan order, float64."""
+    return np.asarray(stds, dtype=np.float64).reshape(-1)
+
+
+def threefry_key(key) -> np.ndarray:
+    """A raw threefry key (uint32[2])."""
+    key = np.asarray(key, dtype=np.uint32).reshape(-1)
+    if key.shape != (2,):
+        raise ValueError(f"a threefry key has two uint32 words, got {key}")
+    return key
+
+
+def row_tensors(pid, pk, values, valid, device, dtype: torch.dtype):
+    """Padded row arrays (numpy) as the kernels' tensors."""
+    return (torch.as_tensor(np.asarray(pid, dtype=np.int32)).to(device),
+            torch.as_tensor(np.asarray(pk, dtype=np.int32)).to(device),
+            torch.as_tensor(np.asarray(values)).to(device=device,
+                                                    dtype=dtype),
+            torch.as_tensor(np.asarray(valid, dtype=bool)).to(device))
+
+
+def _as_dict(obj) -> Dict[str, Any]:
+    if isinstance(obj, Mapping):
+        return dict(obj)
+    return {k: getattr(obj, k) for k in obj.__dataclass_fields__}

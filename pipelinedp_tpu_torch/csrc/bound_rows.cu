@@ -1,0 +1,267 @@
+// C2 bound_rows: contribution bounding over the sorted row stream.
+//
+// Replaces, from pipelinedp_tpu: the segment scans of ops/segment_ops.py
+// (:16 segment_starts_and_ids, :35 boundary_mask, :45
+// segment_rank_of_segments, :59 segment_start_positions, :66
+// next_segment_start) and the row half of executor.py's
+// bounded_row_columns (:387-436: Linf rank, L0 pair rank, value clipping,
+// pair-sum clipping, nsum / nsum2), together K4 and the row half of K5.
+//
+// Rows are read in bounding-sort order through `perm` (C1's keys sorted
+// lexicographically); output i belongs to sorted position i. Per row:
+//   rank      = i - (start of its (pid, pk) pair)          a max-scan
+//   pair_rank = pairs started in its pid before its own   a segmented
+//               count of pair starts, reset at pid starts
+//   keep      = valid & rank < linf (when capped) & pair_rank < l0
+// Both scans run as one three-pass tile scan: per-tile aggregates, one
+// block scanning the aggregates in order, then a pass that rescans each
+// tile from its prefix and writes the row outputs. The pair total for
+// pair-sum clipping is summed in row order by the pair's first thread.
+// With `k1 == nullptr` every row is its own pair (contribution bounds
+// already enforced) and no scan runs.
+//
+// Bound: bytes. Each pass reads perm, k1, k2 (8 B each) for its rows; the
+// last pass also reads value and valid and writes key2 (4 B), pair_start
+// (1 B) and up to three F columns. The reads through perm are gathers
+// (a 32 B sector for an 8 B key), which is what the layout costs; the
+// scans themselves are a few integer operations a row.
+#include "common.cuh"
+
+namespace {
+
+struct BoundAgg {
+  long long a;  // max of pair-start positions (-1 = none)
+  long long c;  // pair starts since the last pid start
+  int f;        // a pid starts inside
+};
+
+struct BoundOp {
+  using T = BoundAgg;
+  static __device__ __forceinline__ T identity() { return T{-1, 0, 0}; }
+  static __device__ __forceinline__ T combine(T x, T y) {
+    return T{x.a > y.a ? x.a : y.a, y.f ? y.c : x.c + y.c, x.f | y.f};
+  }
+  static __device__ __forceinline__ T shfl_up(T v, int d) {
+    v.a = __shfl_up_sync(pdp::kFullMask, v.a, d);
+    v.c = __shfl_up_sync(pdp::kFullMask, v.c, d);
+    v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
+    return v;
+  }
+};
+
+struct Keys {
+  const long long* perm;
+  const long long* k1;
+  const long long* k2;
+  __device__ __forceinline__ long long row(long long i) const {
+    return perm ? perm[i] : i;
+  }
+};
+
+// Boundary flags of sorted position i: a new (pid, pk) pair, a new pid.
+__device__ __forceinline__ void flags_at(const Keys& keys, long long i,
+                                         bool* new_pair, bool* new_pid) {
+  if (i == 0) {
+    *new_pair = *new_pid = true;
+    return;
+  }
+  const long long r = keys.row(i), q = keys.row(i - 1);
+  const long long a1 = keys.k1[r], b1 = keys.k1[q];
+  *new_pid = (a1 >> 32) != (b1 >> 32);
+  *new_pair = a1 != b1 || keys.k2[r] != keys.k2[q];
+}
+
+__device__ __forceinline__ BoundAgg element(const Keys& keys, long long i) {
+  bool new_pair, new_pid;
+  flags_at(keys, i, &new_pair, &new_pid);
+  return BoundAgg{new_pair ? i : -1, new_pair ? 1 : 0, new_pid ? 1 : 0};
+}
+
+__global__ void tile_aggregates(Keys keys, long long n, BoundAgg* aggs) {
+  __shared__ BoundAgg smem[32];
+  const long long base =
+      static_cast<long long>(blockIdx.x) * pdp::kTile +
+      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  BoundAgg acc = BoundOp::identity();
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    if (base + k < n) acc = BoundOp::combine(acc, element(keys, base + k));
+  }
+  BoundAgg total;
+  pdp::block_exclusive_scan<BoundOp>(acc, smem, &total);
+  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
+}
+
+template <typename F>
+struct Params {
+  long long n;
+  int n_partitions;
+  long long linf;  // 0 = no per-partition row cap
+  long long l0;
+  int clip_per_value, clip_pair_sum;
+  F min_v, max_v, min_s, max_s, mid;
+};
+
+template <typename F>
+__device__ __forceinline__ F clip(F x, F lo, F hi) {
+  x = x > lo ? x : lo;
+  return x < hi ? x : hi;
+}
+
+template <typename F>
+__device__ __forceinline__ F clipped_value(const Params<F>& p, F v) {
+  return p.clip_per_value ? clip(v, p.min_v, p.max_v) : v;
+}
+
+// Writes the outputs of sorted position i given its rank in the pair and
+// the pair's rank in its pid.
+template <typename F>
+__device__ __forceinline__ void emit(const Params<F>& p, const Keys& keys,
+                                     const F* values, const uint8_t* valid,
+                                     const int32_t* pk, long long i,
+                                     bool new_pair, long long rank,
+                                     long long pair_rank, int32_t* key2,
+                                     uint8_t* pair_start, F* sum, F* nsum,
+                                     F* nsum2) {
+  const long long r = keys.row(i);
+  const bool v = valid[r] != 0;
+  const bool pair_kept = pair_rank < p.l0;
+  const bool keep = v && (p.linf == 0 || rank < p.linf) && pair_kept;
+  const F clipped = clipped_value(p, values[r]);
+  const int32_t spk =
+      keys.k2 ? static_cast<int32_t>(keys.k2[r] & 0xFFFFFFFFll)
+              : (v ? pk[r] : p.n_partitions);
+  key2[i] = keep ? spk : p.n_partitions;
+  const bool starts = new_pair && keep;
+  pair_start[i] = starts ? 1 : 0;
+  if (sum) {
+    F contrib = keep ? clipped : F(0);
+    if (p.clip_pair_sum) {
+      F total = contrib;
+      if (starts && keys.k1) {
+        const long long k1 = keys.k1[r], k2 = keys.k2[r];
+        for (long long j = i + 1; j < p.n; ++j) {
+          if (p.linf != 0 && j - i >= p.linf) break;
+          const long long rj = keys.row(j);
+          if (keys.k1[rj] != k1 || keys.k2[rj] != k2) break;
+          if (valid[rj]) total = total + clipped_value(p, values[rj]);
+        }
+      }
+      contrib = starts ? clip(total, p.min_s, p.max_s) : F(0);
+    }
+    sum[i] = contrib;
+  }
+  if (nsum) {
+    const F centered = keep ? clipped - p.mid : F(0);
+    nsum[i] = centered;
+    if (nsum2) nsum2[i] = centered * centered;
+  }
+}
+
+template <typename F>
+__global__ void finalize_rows(Params<F> p, Keys keys,
+                              const BoundAgg* __restrict__ prefixes,
+                              const F* __restrict__ values,
+                              const uint8_t* __restrict__ valid,
+                              const int32_t* __restrict__ pk,
+                              int32_t* __restrict__ key2,
+                              uint8_t* __restrict__ pair_start,
+                              F* __restrict__ sum, F* __restrict__ nsum,
+                              F* __restrict__ nsum2) {
+  __shared__ BoundAgg smem[32];
+  const long long base =
+      static_cast<long long>(blockIdx.x) * pdp::kTile +
+      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  if (!keys.k1) {  // every row is its own pair: nothing to scan
+#pragma unroll
+    for (int k = 0; k < pdp::kItems; ++k) {
+      if (base + k < p.n)
+        emit(p, keys, values, valid, pk, base + k, true, 0, 0, key2,
+             pair_start, sum, nsum, nsum2);
+    }
+    return;
+  }
+  BoundAgg elems[pdp::kItems];
+  BoundAgg acc = BoundOp::identity();
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    elems[k] = base + k < p.n ? element(keys, base + k) : BoundOp::identity();
+    acc = BoundOp::combine(acc, elems[k]);
+  }
+  BoundAgg total;
+  const BoundAgg excl = pdp::block_exclusive_scan<BoundOp>(acc, smem, &total);
+  BoundAgg state = BoundOp::combine(prefixes[blockIdx.x], excl);
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    const long long i = base + k;
+    if (i >= p.n) break;
+    state = BoundOp::combine(state, elems[k]);
+    emit(p, keys, values, valid, pk, i, elems[k].a >= 0, i - state.a,
+         state.c - 1, key2, pair_start, sum, nsum, nsum2);
+  }
+}
+
+template <typename F>
+int launch(const void* perm, const void* k1, const void* k2, const void* pk,
+           const void* values, const void* valid, long long n,
+           int n_partitions, long long linf, long long l0,
+           int clip_per_value, int clip_pair_sum, const double* scalars,
+           void* scratch, void* key2, void* pair_start, void* sum,
+           void* nsum, void* nsum2, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = pdp::n_tiles(n);
+  Keys keys{static_cast<const long long*>(perm),
+            static_cast<const long long*>(k1),
+            static_cast<const long long*>(k2)};
+  BoundAgg* aggs = static_cast<BoundAgg*>(scratch);
+  if (keys.k1) {
+    tile_aggregates<<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
+        keys, n, aggs);
+    pdp::scan_tile_aggregates<BoundOp><<<1, 1024, 0, s>>>(aggs, tiles);
+  }
+  Params<F> p{n,
+              n_partitions,
+              linf,
+              l0,
+              clip_per_value,
+              clip_pair_sum,
+              static_cast<F>(scalars[0]),
+              static_cast<F>(scalars[1]),
+              static_cast<F>(scalars[2]),
+              static_cast<F>(scalars[3]),
+              static_cast<F>(scalars[4])};
+  finalize_rows<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
+      p, keys, aggs, static_cast<const F*>(values),
+      static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(pk),
+      static_cast<int32_t*>(key2), static_cast<uint8_t*>(pair_start),
+      static_cast<F*>(sum), static_cast<F*>(nsum), static_cast<F*>(nsum2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Scratch the caller allocates for n rows: one aggregate per tile.
+extern "C" long long bound_rows_scratch_bytes(long long n) {
+  return pdp::n_tiles(n) * static_cast<long long>(sizeof(BoundAgg));
+}
+
+// scalars = (min_v, max_v, min_s, max_s, mid). k1/k2 null: rows are their
+// own pairs and pk supplies the partition (contribution bounds enforced).
+extern "C" int bound_rows(const void* perm, const void* k1, const void* k2,
+                          const void* pk, const void* values,
+                          const void* valid, long long n, int n_partitions,
+                          long long linf, long long l0, int clip_per_value,
+                          int clip_pair_sum, const double* scalars,
+                          void* scratch, void* key2, void* pair_start,
+                          void* sum, void* nsum, void* nsum2, int f64,
+                          void* stream) {
+  return f64 ? launch<double>(perm, k1, k2, pk, values, valid, n,
+                              n_partitions, linf, l0, clip_per_value,
+                              clip_pair_sum, scalars, scratch, key2,
+                              pair_start, sum, nsum, nsum2, stream)
+             : launch<float>(perm, k1, k2, pk, values, valid, n,
+                             n_partitions, linf, l0, clip_per_value,
+                             clip_pair_sum, scalars, scratch, key2,
+                             pair_start, sum, nsum, nsum2, stream);
+}

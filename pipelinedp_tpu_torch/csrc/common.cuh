@@ -1,0 +1,246 @@
+// Device helpers shared by the port's kernels (sm_90a, built with
+// --fmad=false: no multiply-add contraction, so every float expression
+// rounds where the JAX package's XLA program rounds it).
+//
+//  * threefry2x32 and JAX's uniform / normal / laplace transforms, bit-for-bit
+//    on the random words (pipelinedp_tpu_torch/ops/threefry.py is the plain
+//    twin; jax/_src/prng.py and jax/_src/random.py are the reference);
+//  * XLA's erf_inv polynomial (Giles);
+//  * a block-wide exclusive scan over an associative operator, and the
+//    single-block kernel that scans per-tile aggregates (pass 2 of the
+//    three-pass tile scans in bound_rows.cu and reduce_partitions.cu).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace pdp {
+
+constexpr int kThreads = 256;   // threads per block of the tile scans
+constexpr int kItems = 8;       // consecutive rows per thread
+constexpr int kTile = kThreads * kItems;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds, on the counter words (x0, x1).
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[s & 1][j]);
+      x1 ^= x0;
+    }
+    x0 += ks[(s + 1) % 3];
+    x1 += ks[(s + 2) % 3] + static_cast<uint32_t>(s + 1);
+  }
+}
+
+// Floats in [0, 1) from element i of a draw under key (k0, k1): JAX's
+// partitionable layout hashes the counter pair (i >> 32, i & 0xffffffff);
+// a 32-bit word is x0 ^ x1, a 64-bit word x0 << 32 | x1. The mantissa is
+// filled from the word's top bits under exponent 0, then 1 is subtracted.
+template <typename F>
+__device__ __forceinline__ F unit_float(uint32_t k0, uint32_t k1, uint64_t i);
+
+template <>
+__device__ __forceinline__ float unit_float<float>(uint32_t k0, uint32_t k1,
+                                                   uint64_t i) {
+  uint32_t x0 = static_cast<uint32_t>(i >> 32), x1 = static_cast<uint32_t>(i);
+  threefry2x32(k0, k1, x0, x1);
+  const uint32_t bits = ((x0 ^ x1) >> 9) | 0x3F800000u;
+  return __uint_as_float(bits) - 1.0f;
+}
+
+template <>
+__device__ __forceinline__ double unit_float<double>(uint32_t k0, uint32_t k1,
+                                                     uint64_t i) {
+  uint32_t x0 = static_cast<uint32_t>(i >> 32), x1 = static_cast<uint32_t>(i);
+  threefry2x32(k0, k1, x0, x1);
+  const uint64_t word = (static_cast<uint64_t>(x0) << 32) | x1;
+  const uint64_t bits = (word >> 12) | 0x3FF0000000000000ull;
+  return __longlong_as_double(static_cast<long long>(bits)) - 1.0;
+}
+
+// jax.random.uniform(key, shape, F, lo, hi)[i]: max(lo, u * (hi - lo) + lo).
+template <typename F>
+__device__ __forceinline__ F uniform(uint32_t k0, uint32_t k1, uint64_t i,
+                                     F lo, F hi) {
+  const F u = unit_float<F>(k0, k1, i);
+  const F r = u * (hi - lo) + lo;
+  return r > lo ? r : lo;
+}
+
+// -1 + epsneg of F, the low end of JAX's normal and laplace uniforms (it
+// equals nextafter(-1, 0) in both widths).
+template <typename F> __device__ __forceinline__ F open_low();
+template <> __device__ __forceinline__ float open_low<float>() {
+  return -1.0f + 5.9604645e-08f;
+}
+template <> __device__ __forceinline__ double open_low<double>() {
+  return -1.0 + 1.1102230246251565e-16;
+}
+
+__device__ __forceinline__ float log1p_(float x) { return log1pf(x); }
+__device__ __forceinline__ double log1p_(double x) { return log1p(x); }
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+
+// XLA's erf_inv (ErfInv32): Giles' single-precision polynomial.
+__device__ __forceinline__ float erf_inv(float x) {
+  const float lt5[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
+                        -4.39150654e-06f, 0.00021858087f, -0.00125372503f,
+                        -0.00417768164f, 0.246640727f, 1.50140941f};
+  const float ge5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
+                        -0.00367342844f, 0.00573950773f, -0.0076224613f,
+                        0.00943887047f, 1.00167406f, 2.83297682f};
+  float w = -log1pf(x * -x);
+  const bool lt = w < 5.0f;
+  w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
+  float p = lt ? lt5[0] : ge5[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = (lt ? lt5[i] : ge5[i]) + p * w;
+  return fabsf(x) == 1.0f ? x * __int_as_float(0x7f800000) : p * x;
+}
+
+// XLA's erf_inv (ErfInv64): Giles' double-precision polynomials.
+__device__ __forceinline__ double erf_inv(double x) {
+  const double a[23] = {
+      -3.6444120640178196996e-21, -1.685059138182016589e-19,
+      1.2858480715256400167e-18,  1.115787767802518096e-17,
+      -1.333171662854620906e-16,  2.0972767875968561637e-17,
+      6.6376381343583238325e-15,  -4.0545662729752068639e-14,
+      -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+      -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+      1.051212273321532285e-09,   -4.1126339803469836976e-09,
+      -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+      -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+      0.0001867342080340571352,   -0.00074070253416626697512,
+      -0.0060336708714301490533,  0.24015818242558961693,
+      1.6536545626831027356};
+  const double b[19] = {
+      2.2137376921775787049e-09,  9.0756561938885390979e-08,
+      -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+      1.5027403968909827627e-06,  -4.013867526981545969e-06,
+      2.9234449089955446044e-06,  1.2475304481671778723e-05,
+      -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+      2.4031110387097893999e-05,  -0.0003550375203628474796,
+      0.00095328937973738049703,  -0.0016882755560235047313,
+      0.0024914420961078508066,   -0.0037512085075692412107,
+      0.005370914553590063617,    1.0052589676941592334,
+      3.0838856104922207635};
+  const double c[17] = {
+      -2.7109920616438573243e-11, -2.5556418169965252055e-10,
+      1.5076572693500548083e-09,  -3.7894654401267369937e-09,
+      7.6157012080783393804e-09,  -1.4960026627149240478e-08,
+      2.9147953450901080826e-08,  -6.7711997758452339498e-08,
+      2.2900482228026654717e-07,  -9.9298272942317002539e-07,
+      4.5260625972231537039e-06,  -1.9681778105531670567e-05,
+      7.5995277030017761139e-05,  -0.00021503011930044477347,
+      -0.00013871931833623122026, 1.0103004648645343977,
+      4.8499064014085844221};
+  double w = -log1p(x * -x);
+  const bool lt625 = w < 6.25, lt16 = w < 16.0;
+  w = lt625 ? w - 3.125 : sqrt(w) - (lt16 ? 3.25 : 5.0);
+  double p = lt625 ? a[0] : (lt16 ? b[0] : c[0]);
+#pragma unroll
+  for (int i = 1; i < 17; ++i)
+    p = (lt625 ? a[i] : (lt16 ? b[i] : c[i])) + p * w;
+#pragma unroll
+  for (int i = 17; i < 19; ++i)
+    if (lt16) p = (lt625 ? a[i] : b[i]) + p * w;
+#pragma unroll
+  for (int i = 19; i < 23; ++i)
+    if (lt625) p = a[i] + p * w;
+  return fabs(x) == 1.0 ? x * __longlong_as_double(0x7ff0000000000000ll)
+                        : p * x;
+}
+
+// jax.random.normal(key, shape, F)[i] = sqrt(2) * erf_inv(u).
+template <typename F>
+__device__ __forceinline__ F normal(uint32_t k0, uint32_t k1, uint64_t i) {
+  const F u = uniform<F>(k0, k1, i, open_low<F>(), F(1));
+  return static_cast<F>(1.4142135623730951) * erf_inv(u);
+}
+
+// jax.random.laplace(key, shape, F)[i] = sign(u) * log1p(-|u|).
+template <typename F>
+__device__ __forceinline__ F laplace(uint32_t k0, uint32_t k1, uint64_t i) {
+  const F u = uniform<F>(k0, k1, i, open_low<F>(), F(1));
+  const F sign = u > F(0) ? F(1) : (u < F(0) ? F(-1) : F(0));
+  return sign * log1p_(-(u < F(0) ? -u : u));
+}
+
+// ---------------------------------------------------------------------------
+// Block scan. Op provides: type T, T identity(), T combine(T a, T b) (a
+// precedes b; need not commute) and T shfl_up(T v, int delta).
+
+template <class Op>
+__device__ __forceinline__ typename Op::T warp_inclusive_scan(
+    typename Op::T v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const typename Op::T t = Op::shfl_up(v, d);
+    if (lane >= d) v = Op::combine(t, v);
+  }
+  return v;
+}
+
+// Exclusive scan of one value per thread over the block (blockDim.x a
+// multiple of 32, at most 1024). smem holds 32 T. Returns the thread's
+// exclusive prefix; *total receives the block aggregate. Starts and ends
+// with a barrier, so consecutive calls may reuse smem.
+template <class Op>
+__device__ __forceinline__ typename Op::T block_exclusive_scan(
+    typename Op::T v, typename Op::T* smem, typename Op::T* total) {
+  using T = typename Op::T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  __syncthreads();
+  const T inc = warp_inclusive_scan<Op>(v);
+  if (lane == 31) smem[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    T w = lane < n_warps ? smem[lane] : Op::identity();
+    w = warp_inclusive_scan<Op>(w);
+    if (lane < n_warps) smem[lane] = w;
+  }
+  __syncthreads();
+  T excl = Op::shfl_up(inc, 1);
+  if (lane == 0) excl = Op::identity();
+  const T warp_prefix = warp > 0 ? smem[warp - 1] : Op::identity();
+  *total = smem[n_warps - 1];
+  __syncthreads();
+  return Op::combine(warp_prefix, excl);
+}
+
+// Pass 2 of a tile scan: one block turns the per-tile aggregates into
+// exclusive per-tile prefixes, in place, walking them in order.
+template <class Op>
+__global__ void scan_tile_aggregates(typename Op::T* aggs, long long n_tiles) {
+  using T = typename Op::T;
+  __shared__ T smem[32];
+  T carry = Op::identity();
+  for (long long base = 0; base < n_tiles; base += blockDim.x) {
+    const long long i = base + threadIdx.x;
+    const T v = i < n_tiles ? aggs[i] : Op::identity();
+    T total;
+    const T excl = block_exclusive_scan<Op>(v, smem, &total);
+    if (i < n_tiles) aggs[i] = Op::combine(carry, excl);
+    carry = Op::combine(carry, total);
+  }
+}
+
+inline long long n_tiles(long long n) { return (n + kTile - 1) / kTile; }
+
+}  // namespace pdp

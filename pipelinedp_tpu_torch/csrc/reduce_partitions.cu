@@ -1,0 +1,182 @@
+// C3 reduce_partitions: dense per-partition columns from the bounded rows.
+//
+// Replaces the partition half of K5: pipelinedp_tpu/executor.py
+// reduce_rows_to_partitions (:455-514), which takes cumsum differences
+// (ops/segment_ops.py:78 chunked_cumsum) at searchsorted partition starts.
+//
+// Rows arrive sorted by key2 = keep ? partition : n_partitions
+// (executor.py:476-484): `skey2` is that sorted key and `perm` maps each
+// sorted position to its bounded row. The reduction is a segmented sum
+// over the sorted stream, as a three-pass tile scan: per-tile aggregates,
+// one block scanning them in order, then a pass that rescans each tile
+// from its prefix. The last row of each partition's run writes that
+// partition's count, pid_count, sum, nsum and nsum2; partitions with no
+// kept row keep the zeros the caller filled. The tiles, the order in which
+// a block combines its threads and the order of the tile prefixes are all
+// fixed, and no float atomics are used: the same inputs give the same bits
+// on every run. Work per tile is fixed too, so a hot partition spreads
+// over as many blocks as it has rows.
+//
+// Bound: bytes. Each pass reads skey2 (4 B) and, in the last pass, perm
+// (8 B) and through it pair_start (1 B) and up to three F columns; the
+// outputs are 5 F columns of n_partitions. The reads through perm are
+// gathers.
+#include "common.cuh"
+
+namespace {
+
+template <typename F>
+struct Seg {
+  long long cnt, pc;
+  F s, ns, ns2;
+  int f;  // a segment starts inside
+};
+
+template <typename F>
+struct SegOp {
+  using T = Seg<F>;
+  static __device__ __forceinline__ T identity() {
+    return T{0, 0, F(0), F(0), F(0), 0};
+  }
+  static __device__ __forceinline__ T combine(T x, T y) {
+    if (y.f) return T{y.cnt, y.pc, y.s, y.ns, y.ns2, 1};
+    return T{x.cnt + y.cnt, x.pc + y.pc, x.s + y.s, x.ns + y.ns,
+             x.ns2 + y.ns2, x.f};
+  }
+  static __device__ __forceinline__ T shfl_up(T v, int d) {
+    v.cnt = __shfl_up_sync(pdp::kFullMask, v.cnt, d);
+    v.pc = __shfl_up_sync(pdp::kFullMask, v.pc, d);
+    v.s = __shfl_up_sync(pdp::kFullMask, v.s, d);
+    v.ns = __shfl_up_sync(pdp::kFullMask, v.ns, d);
+    v.ns2 = __shfl_up_sync(pdp::kFullMask, v.ns2, d);
+    v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
+    return v;
+  }
+};
+
+template <typename F>
+struct Rows {
+  const int32_t* skey2;
+  const long long* perm;
+  const uint8_t* pair_start;
+  const F* sum;
+  const F* nsum;
+  const F* nsum2;
+  long long n;
+
+  __device__ __forceinline__ Seg<F> element(long long i) const {
+    const long long r = perm[i];
+    return Seg<F>{1,
+                  pair_start[r],
+                  sum ? sum[r] : F(0),
+                  nsum ? nsum[r] : F(0),
+                  nsum2 ? nsum2[r] : F(0),
+                  (i == 0 || skey2[i] != skey2[i - 1]) ? 1 : 0};
+  }
+};
+
+template <typename F>
+__global__ void tile_aggregates(Rows<F> rows, Seg<F>* aggs) {
+  __shared__ Seg<F> smem[32];
+  const long long base =
+      static_cast<long long>(blockIdx.x) * pdp::kTile +
+      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  Seg<F> acc = SegOp<F>::identity();
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    if (base + k < rows.n) acc = SegOp<F>::combine(acc, rows.element(base + k));
+  }
+  Seg<F> total;
+  pdp::block_exclusive_scan<SegOp<F>>(acc, smem, &total);
+  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
+}
+
+template <typename F>
+__global__ void write_partitions(Rows<F> rows, const Seg<F>* prefixes,
+                                 int n_partitions, F* __restrict__ count,
+                                 F* __restrict__ pid_count,
+                                 F* __restrict__ sum, F* __restrict__ nsum,
+                                 F* __restrict__ nsum2) {
+  __shared__ Seg<F> smem[32];
+  const long long base =
+      static_cast<long long>(blockIdx.x) * pdp::kTile +
+      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  Seg<F> elems[pdp::kItems];
+  Seg<F> acc = SegOp<F>::identity();
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    elems[k] = base + k < rows.n ? rows.element(base + k)
+                                 : SegOp<F>::identity();
+    acc = SegOp<F>::combine(acc, elems[k]);
+  }
+  Seg<F> total;
+  const Seg<F> excl =
+      pdp::block_exclusive_scan<SegOp<F>>(acc, smem, &total);
+  Seg<F> state = SegOp<F>::combine(prefixes[blockIdx.x], excl);
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    const long long i = base + k;
+    if (i >= rows.n) break;
+    state = SegOp<F>::combine(state, elems[k]);
+    const int32_t key = rows.skey2[i];
+    const bool last = i + 1 == rows.n || rows.skey2[i + 1] != key;
+    if (last && key >= 0 && key < n_partitions) {
+      count[key] = static_cast<F>(state.cnt);
+      pid_count[key] = static_cast<F>(state.pc);
+      if (sum) sum[key] = state.s;
+      if (nsum) nsum[key] = state.ns;
+      if (nsum2) nsum2[key] = state.ns2;
+    }
+  }
+}
+
+template <typename F>
+int launch(const void* skey2, const void* perm, const void* pair_start,
+           const void* row_sum, const void* row_nsum, const void* row_nsum2,
+           long long n, int n_partitions, void* scratch, void* count,
+           void* pid_count, void* sum, void* nsum, void* nsum2,
+           void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = pdp::n_tiles(n);
+  Rows<F> rows{static_cast<const int32_t*>(skey2),
+               static_cast<const long long*>(perm),
+               static_cast<const uint8_t*>(pair_start),
+               static_cast<const F*>(row_sum),
+               static_cast<const F*>(row_nsum),
+               static_cast<const F*>(row_nsum2),
+               n};
+  Seg<F>* aggs = static_cast<Seg<F>*>(scratch);
+  tile_aggregates<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
+      rows, aggs);
+  pdp::scan_tile_aggregates<SegOp<F>><<<1, 1024, 0, s>>>(aggs, tiles);
+  write_partitions<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
+      rows, aggs, n_partitions, static_cast<F*>(count),
+      static_cast<F*>(pid_count), static_cast<F*>(sum),
+      static_cast<F*>(nsum), static_cast<F*>(nsum2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" long long reduce_partitions_scratch_bytes(long long n, int f64) {
+  const long long each = f64 ? sizeof(Seg<double>) : sizeof(Seg<float>);
+  return pdp::n_tiles(n) * each;
+}
+
+// Outputs must be zero-filled by the caller: partitions without a kept row
+// are not written.
+extern "C" int reduce_partitions(const void* skey2, const void* perm,
+                                 const void* pair_start, const void* row_sum,
+                                 const void* row_nsum, const void* row_nsum2,
+                                 long long n, int n_partitions, void* scratch,
+                                 void* count, void* pid_count, void* sum,
+                                 void* nsum, void* nsum2, int f64,
+                                 void* stream) {
+  return f64 ? launch<double>(skey2, perm, pair_start, row_sum, row_nsum,
+                              row_nsum2, n, n_partitions, scratch, count,
+                              pid_count, sum, nsum, nsum2, stream)
+             : launch<float>(skey2, perm, pair_start, row_sum, row_nsum,
+                             row_nsum2, n, n_partitions, scratch, count,
+                             pid_count, sum, nsum, nsum2, stream);
+}

@@ -1,0 +1,277 @@
+// C4 release_epilogue: partition selection, noise, metric formulas and the
+// release sentinel's flag word, one thread per partition.
+//
+// Replaces, from pipelinedp_tpu: ops/selection_ops.py keep_probabilities /
+// sample_keep_decisions (:69, :108, K6), executor.py finalize (:551-639,
+// K7) with its jax.random draws (K1), and the flag reduction of
+// numeric.py _column_flags / _flags_from_kept (:80-107, K9).
+//
+// Per partition p:
+//   keep    private selection: est = ceil(row_count / max_rows), the keep
+//           probability of the strategy, uniform(key_sel)[p] < probability;
+//           public: 1
+//   noise   slot s draws element p under its key (the host derives
+//           fold_in(fold_in(key_noise, entry), sub) for each slot):
+//           Laplace sign(u) * log1p(-|u|) * std / sqrt(2), Gaussian
+//           sqrt(2) * erf_inv(u) * std
+//   outputs count / privacy_id_count / sum / mean / variance with the
+//           formulas and operation order of finalize
+//   flags   NaN (1), Inf (2), |x| >= max/2 (4) over kept partitions, one
+//           atomicOr of integers per block (order-free, so deterministic).
+//
+// Bound: operations at small P, bytes at large P: it reads up to 5 F
+// columns and writes up to 5 plus keep; each noise draw is one threefry
+// (~100 integer operations) and a log1p or an erf_inv polynomial.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxEntries = 8;
+constexpr int kMaxSlots = 8;
+
+enum Kind { kCount = 0, kPidCount = 1, kSum = 2, kMean = 3, kVariance = 4 };
+enum Out { oCount = 1, oPid = 2, oSum = 4, oMean = 8, oVariance = 16 };
+
+struct Params {
+  int n_entries;
+  int kind[kMaxEntries];
+  int outputs[kMaxEntries];
+  int offset[kMaxEntries];
+  double std[kMaxSlots];
+  unsigned key[kMaxSlots][2];
+  int gaussian;
+  int degenerate;
+  double mid, min_v;
+  int private_selection;
+  unsigned key_sel[2];
+  double max_rows;
+  // Selection scalars (ops/selection_ops.selection_scalars order).
+  double sel[14];
+};
+
+// jnp.maximum / jnp.minimum: a NaN operand propagates.
+template <typename F>
+__device__ __forceinline__ F max_nan(F a, F b) {
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+template <typename F>
+__device__ __forceinline__ F min_nan(F a, F b) {
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+}
+
+__device__ __forceinline__ float exp_(float x) { return expf(x); }
+__device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float erfc_(float x) { return erfcf(x); }
+__device__ __forceinline__ double erfc_(double x) { return erfc(x); }
+__device__ __forceinline__ float ceil_(float x) { return ceilf(x); }
+__device__ __forceinline__ double ceil_(double x) { return ceil(x); }
+
+// ops/selection_ops.keep_probabilities for one privacy-id count estimate.
+template <typename F>
+__device__ F keep_probability(const Params& P, F est) {
+  const double* s = P.sel;
+  const int kind = static_cast<int>(s[0]);
+  const F n = est - static_cast<F>(s[1]);
+  F prob;
+  if (kind == 0) {
+    const F eps1 = static_cast<F>(s[2]), n_cross = static_cast<F>(s[4]);
+    const F n_eff = max_nan(n, F(1));
+    const F n1 = min_nan(n_eff, n_cross);
+    const F log_pi1 = static_cast<F>(s[6]) + (n1 - F(1)) * eps1 +
+                      pdp::log1p_(-exp_(-n1 * eps1)) - static_cast<F>(s[7]);
+    const F pi1 = exp_(min_nan(log_pi1, F(0)));
+    const F k = max_nan(n_eff - n_cross, F(0));
+    const F decay = exp_(-k * eps1);
+    const F geo = s[10] != 0.0
+                      ? static_cast<F>(s[8]) * (F(1) - decay) /
+                            static_cast<F>(s[9])
+                      : F(0);
+    const F q = decay * static_cast<F>(s[13]) - static_cast<F>(s[3]) * geo;
+    const F pi2 = F(1) - max_nan(q, F(0));
+    prob = min_nan(max_nan(n_eff <= n_cross ? pi1 : pi2, F(0)), F(1));
+  } else if (kind == 1) {
+    const F z = (n - static_cast<F>(s[11])) / static_cast<F>(s[12]);
+    const F az = z < F(0) ? -z : z;
+    prob = z >= F(0) ? F(1) - F(0.5) * exp_(-az) : F(0.5) * exp_(-az);
+  } else {
+    const F z = (static_cast<F>(s[11]) - n) / static_cast<F>(s[12]);
+    prob = F(0.5) * erfc_(z / static_cast<F>(1.4142135623730951));
+  }
+  return n <= F(0) ? F(0) : prob;
+}
+
+template <typename F>
+__device__ __forceinline__ F noised(const Params& P, F col, int slot,
+                                    uint64_t p) {
+  const F std = static_cast<F>(P.std[slot]);
+  const unsigned k0 = P.key[slot][0], k1 = P.key[slot][1];
+  if (P.gaussian) return col + pdp::normal<F>(k0, k1, p) * std;
+  const F b = std / pdp::sqrt_(F(2));
+  return col + pdp::laplace<F>(k0, k1, p) * b;
+}
+
+template <typename F>
+__device__ __forceinline__ unsigned value_flags(F v) {
+  const F limit = static_cast<F>(sizeof(F) == 4 ? 1.7014117331926443e38
+                                                : 8.988465674311579e307);
+  if (v != v) return 1u;
+  const F a = v < F(0) ? -v : v;
+  if (a == static_cast<F>(INFINITY)) return 2u;
+  return a >= limit ? 4u : 0u;
+}
+
+template <typename F>
+__global__ void epilogue_kernel(Params P, int n_partitions,
+                                const F* __restrict__ count,
+                                const F* __restrict__ pid_count,
+                                const F* __restrict__ sum,
+                                const F* __restrict__ nsum,
+                                const F* __restrict__ nsum2,
+                                uint8_t* __restrict__ keep_out,
+                                F* __restrict__ o_count,
+                                F* __restrict__ o_pid,
+                                F* __restrict__ o_sum,
+                                F* __restrict__ o_mean,
+                                F* __restrict__ o_var,
+                                unsigned* __restrict__ flags) {
+  __shared__ unsigned block_flags;
+  if (threadIdx.x == 0) block_flags = 0u;
+  __syncthreads();
+  const long long p =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  unsigned f = 0u;
+  if (p < n_partitions) {
+    bool keep = true;
+    if (P.private_selection) {
+      const F est = static_cast<F>(static_cast<long long>(
+          ceil_(pid_count[p] / static_cast<F>(P.max_rows))));
+      const F prob = keep_probability<F>(P, est);
+      const F u = pdp::uniform<F>(P.key_sel[0], P.key_sel[1],
+                                  static_cast<uint64_t>(p), F(0), F(1));
+      keep = u < prob;
+    }
+    keep_out[p] = keep ? 1 : 0;
+    const F mid = static_cast<F>(P.mid);
+    F r_count = 0, r_pid = 0, r_sum = 0, r_mean = 0, r_var = 0;
+    for (int e = 0; e < P.n_entries; ++e) {
+      const int off = P.offset[e];
+      const uint64_t q = static_cast<uint64_t>(p);
+      switch (P.kind[e]) {
+        case kCount:
+          r_count = noised<F>(P, count[p], off, q);
+          break;
+        case kPidCount:
+          r_pid = noised<F>(P, pid_count[p], off, q);
+          break;
+        case kSum:
+          r_sum = noised<F>(P, sum[p], off, q);
+          break;
+        case kMean: {
+          const F dp_count = noised<F>(P, count[p], off, q);
+          const F dp_nsum = noised<F>(P, nsum[p], off + 1, q);
+          const F denom = max_nan(dp_count, F(1));
+          r_mean = mid + dp_nsum / denom;
+          if (P.outputs[e] & oCount) r_count = dp_count;
+          if (P.outputs[e] & oSum) r_sum = r_mean * dp_count;
+          break;
+        }
+        case kVariance: {
+          const F dp_count = noised<F>(P, count[p], off, q);
+          const F denom = max_nan(dp_count, F(1));
+          F nmean, nsqmean;
+          if (P.degenerate) {
+            nmean = static_cast<F>(P.min_v);
+            nsqmean = nmean * nmean;
+          } else {
+            nmean = noised<F>(P, nsum[p], off + 1, q) / denom;
+            nsqmean = noised<F>(P, nsum2[p], off + 2, q) / denom;
+          }
+          r_var = nsqmean - nmean * nmean;
+          const F dp_mean = P.degenerate ? nmean + F(0) : nmean + mid;
+          if (P.outputs[e] & oMean) r_mean = dp_mean;
+          if (P.outputs[e] & oCount) r_count = dp_count;
+          if (P.outputs[e] & oSum) r_sum = dp_mean * dp_count;
+          break;
+        }
+      }
+    }
+    if (o_count) o_count[p] = r_count;
+    if (o_pid) o_pid[p] = r_pid;
+    if (o_sum) o_sum[p] = r_sum;
+    if (o_mean) o_mean[p] = r_mean;
+    if (o_var) o_var[p] = r_var;
+    if (keep) {
+      if (o_count) f |= value_flags(r_count);
+      if (o_pid) f |= value_flags(r_pid);
+      if (o_sum) f |= value_flags(r_sum);
+      if (o_mean) f |= value_flags(r_mean);
+      if (o_var) f |= value_flags(r_var);
+    }
+  }
+  f = __reduce_or_sync(pdp::kFullMask, f);
+  if ((threadIdx.x & 31) == 0 && f) atomicOr(&block_flags, f);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_flags) atomicOr(flags, block_flags);
+}
+
+}  // namespace
+
+// plan: n_entries x (kind, output mask, std offset); stds / keys: one per
+// noise slot; sel: the 14 selection scalars; misc = (gaussian, degenerate,
+// private_selection); scal = (mid, min_v, max_rows). Outputs: keep (u8),
+// up to five F columns (null when absent), flags (one zeroed u32).
+extern "C" int release_epilogue(
+    const int* plan, int n_entries, const double* stds,
+    const unsigned* keys, int n_slots, const double* sel,
+    const unsigned* key_sel, const int* misc, const double* scal,
+    int n_partitions, const void* count, const void* pid_count,
+    const void* sum, const void* nsum, const void* nsum2, void* keep,
+    void* o_count, void* o_pid, void* o_sum, void* o_mean, void* o_var,
+    void* flags, int f64, void* stream) {
+  if (n_entries > kMaxEntries || n_slots > kMaxSlots) return -1;
+  if (n_partitions <= 0) return 0;
+  Params P{};
+  P.n_entries = n_entries;
+  for (int e = 0; e < n_entries; ++e) {
+    P.kind[e] = plan[3 * e];
+    P.outputs[e] = plan[3 * e + 1];
+    P.offset[e] = plan[3 * e + 2];
+  }
+  for (int s = 0; s < n_slots; ++s) {
+    P.std[s] = stds[s];
+    P.key[s][0] = keys[2 * s];
+    P.key[s][1] = keys[2 * s + 1];
+  }
+  P.gaussian = misc[0];
+  P.degenerate = misc[1];
+  P.private_selection = misc[2];
+  P.mid = scal[0];
+  P.min_v = scal[1];
+  P.max_rows = scal[2];
+  P.key_sel[0] = key_sel[0];
+  P.key_sel[1] = key_sel[1];
+  for (int i = 0; i < 14; ++i) P.sel[i] = sel[i];
+  const int threads = 256;
+  const unsigned blocks = (n_partitions + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    epilogue_kernel<double><<<blocks, threads, 0, s>>>(
+        P, n_partitions, static_cast<const double*>(count),
+        static_cast<const double*>(pid_count),
+        static_cast<const double*>(sum), static_cast<const double*>(nsum),
+        static_cast<const double*>(nsum2), static_cast<uint8_t*>(keep),
+        static_cast<double*>(o_count), static_cast<double*>(o_pid),
+        static_cast<double*>(o_sum), static_cast<double*>(o_mean),
+        static_cast<double*>(o_var), static_cast<unsigned*>(flags));
+  } else {
+    epilogue_kernel<float><<<blocks, threads, 0, s>>>(
+        P, n_partitions, static_cast<const float*>(count),
+        static_cast<const float*>(pid_count),
+        static_cast<const float*>(sum), static_cast<const float*>(nsum),
+        static_cast<const float*>(nsum2), static_cast<uint8_t*>(keep),
+        static_cast<float*>(o_count), static_cast<float*>(o_pid),
+        static_cast<float*>(o_sum), static_cast<float*>(o_mean),
+        static_cast<float*>(o_var), static_cast<unsigned*>(flags));
+  }
+  return static_cast<int>(cudaGetLastError());
+}

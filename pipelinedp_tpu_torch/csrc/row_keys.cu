@@ -1,0 +1,89 @@
+// C1 row_keys: the bounding sort's keys and the per-row uniform, one
+// thread per row.
+//
+// Replaces, from pipelinedp_tpu/executor.py: the sentinel masking at
+// :347-348, `_hash_mix` / `_pair_hash` (:277, :287, the salted murmur3 pair
+// hash) and `jax.random.uniform(key_linf, (n,))` (:382, threefry K1).
+//
+// Output keys, sorted lexicographically, give the order of the JAX
+// package's 5-key bounding sort (pid, hash0, hash1, pk, u):
+//   k1 = pid << 32 | hash0                      (pid >= 0, so signed order)
+//   k2 = (hash1 ^ 0x80000000) << 32 | pk        (signed order = unsigned)
+//   u  = uniform(key_linf)[i]                   (F = float or double)
+// Invalid rows take pid = INT32_MAX and pk = n_partitions, as in JAX.
+//
+// Bound: bytes. Reads pid, pk (4 B each) and valid (1 B), writes k1, k2
+// (8 B each) and u (sizeof(F)); the 20 threefry rounds and 8 hash mixes
+// are ~150 integer operations a row, well under the card's integer rate at
+// these bytes. Consecutive threads take consecutive rows, so every load
+// and store is coalesced.
+#include "common.cuh"
+
+namespace {
+
+__device__ __forceinline__ uint32_t hash_mix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+template <typename F>
+__global__ void row_keys_kernel(const int32_t* __restrict__ pid,
+                                const int32_t* __restrict__ pk,
+                                const uint8_t* __restrict__ valid,
+                                long long n, int32_t n_partitions,
+                                uint4 salts, uint32_t key0, uint32_t key1,
+                                long long* __restrict__ k1,
+                                long long* __restrict__ k2,
+                                F* __restrict__ u) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const bool v = valid[i] != 0;
+    const uint32_t p = v ? static_cast<uint32_t>(pid[i]) : 0x7FFFFFFFu;
+    const uint32_t q = v ? static_cast<uint32_t>(pk[i])
+                         : static_cast<uint32_t>(n_partitions);
+    const uint32_t h = hash_mix(p * 0x9E3779B9u + salts.x);
+    const uint32_t lane0 = hash_mix(h ^ hash_mix(q + salts.y));
+    const uint32_t h2 = hash_mix(p * 0x85EBCA6Bu + salts.z);
+    const uint32_t lane1 = hash_mix(h2 ^ hash_mix(q + salts.w));
+    k1[i] = static_cast<long long>((static_cast<uint64_t>(p) << 32) | lane0);
+    k2[i] = static_cast<long long>(
+        (static_cast<uint64_t>(lane1 ^ 0x80000000u) << 32) | q);
+    u[i] = pdp::uniform<F>(key0, key1, static_cast<uint64_t>(i), F(0), F(1));
+  }
+}
+
+template <typename F>
+int launch(const void* pid, const void* pk, const void* valid, long long n,
+           int n_partitions, const unsigned* salts, unsigned key0,
+           unsigned key1, void* k1, void* k2, void* u, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const long long want = (n + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
+  row_keys_kernel<F><<<blocks, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(pid), static_cast<const int32_t*>(pk),
+      static_cast<const uint8_t*>(valid), n, n_partitions,
+      make_uint4(salts[0], salts[1], salts[2], salts[3]), key0, key1,
+      static_cast<long long*>(k1), static_cast<long long*>(k2),
+      static_cast<F*>(u));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int row_keys(const void* pid, const void* pk, const void* valid,
+                        long long n, int n_partitions, const unsigned* salts,
+                        unsigned key0, unsigned key1, void* k1, void* k2,
+                        void* u, int f64, void* stream) {
+  return f64 ? launch<double>(pid, pk, valid, n, n_partitions, salts, key0,
+                              key1, k1, k2, u, stream)
+             : launch<float>(pid, pk, valid, n, n_partitions, salts, key0,
+                             key1, k1, k2, u, stream);
+}

@@ -1,0 +1,74 @@
+"""TorchBackend: the port's single-device columnar backend.
+
+Port of the dense route of pipelinedp_tpu/pipeline_backend.py TPUBackend.
+DPEngine.aggregate on a TorchBackend lowers to the port's executor
+(executor.lazy_aggregate): four CUDA kernels plus torch sorts on the card.
+"""
+
+from typing import Optional, Union
+
+import torch
+
+_LATER_SECURE = ("ROADMAP.md Queue 1 item 7 (secure_noise=True: "
+                 "ops/secure_noise.py)")
+_LATER_SAFE = ("ROADMAP.md Queue 1 item 7 (numeric_mode='safe': the "
+               "compensated segment sums)")
+
+
+class TorchBackend:
+    """Runs DP aggregations through the port's kernels on one device.
+
+    Args:
+      device: "cuda" (the default) or "cpu". The CPU runs each kernel's
+        plain PyTorch version and exists for the tests. With no device
+        given, a machine without CUDA raises: the backend never moves to
+        the CPU on its own.
+      noise_seed: seeds every random choice of a release (None: fresh).
+        The same seed releases the same partitions and noise words as
+        pipelinedp_tpu.TPUBackend(noise_seed=...).
+      large_partition_threshold: above this many partitions the JAX
+        package takes its blocked route, which is not ported yet.
+      dtype: the working float width: torch.float32 (the card's mode) or
+        torch.float64 (parity with the JAX package under x64).
+      secure_noise, numeric_mode: options of the JAX backend this slice
+        does not run yet; anything but the defaults raises.
+    """
+
+    def __init__(self,
+                 device: Union[str, torch.device, None] = None,
+                 noise_seed: Optional[int] = None,
+                 large_partition_threshold: int = 1 << 21,
+                 dtype: torch.dtype = torch.float32,
+                 secure_noise: bool = False,
+                 numeric_mode: str = "fast"):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchBackend: CUDA is not available. The port runs on "
+                    "the card; pass device='cpu' explicitly to run the "
+                    "kernels' plain versions.")
+            device = "cuda"
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"TorchBackend: device {device} requested but "
+                               f"CUDA is not available.")
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"TorchBackend: unsupported device {device}")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"TorchBackend: dtype must be torch.float32 or "
+                             f"torch.float64, got {dtype}")
+        if secure_noise:
+            raise NotImplementedError(
+                f"TorchBackend(secure_noise=True) is not ported yet: "
+                f"{_LATER_SECURE}")
+        if numeric_mode == "safe":
+            raise NotImplementedError(
+                f"TorchBackend(numeric_mode='safe') is not ported yet: "
+                f"{_LATER_SAFE}")
+        if numeric_mode != "fast":
+            raise ValueError(f"TorchBackend: numeric_mode must be 'fast' or "
+                             f"'safe', got {numeric_mode!r}")
+        self.device = device
+        self.noise_seed = noise_seed
+        self.large_partition_threshold = large_partition_threshold
+        self.dtype = dtype

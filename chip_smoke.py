@@ -6,12 +6,15 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build   every kernel of pipelinedp_tpu_torch/csrc with nvcc (sm_90a)
-  2. kernels C1-C4 each against its plain PyTorch version on the card,
-             on a small input and at the main path's full-size shapes;
-             median time over warmed repeats (CUDA events)
-  3. parity  a small aggregation on the card in float64 against the same
-             aggregation on the CPU (the kernels' plain versions)
+  1. build   every kernel of pipelinedp_tpu_torch/csrc with nvcc (sm_90a),
+             one nvcc per source, all started together
+  2. kernels C1-C6 each against its plain PyTorch version on the card,
+             on a small input and at the main path's full-size shapes
+             (C5 on the bounding, partition, total-bound and selection
+             keys; C6 at 17,770 and 2^21 partitions); median time over
+             warmed repeats (CUDA events)
+  3. parity  a small aggregation and a small selection on the card in
+             float64 against the same on the CPU (the plain versions)
   4. main    DPEngine.aggregate on TorchBackend() (cuda, float32) at full
              size: 2^24 Netflix-Prize-shaped rows (480,189 privacy ids,
              17,770 movies, Zipf popularity, ratings 1-5), pre-encoded by
@@ -20,10 +23,18 @@ Phases (any failure raises and the script exits non-zero):
                (b) COUNT+SUM+PRIVACY_ID_COUNT, Laplace, private selection
                (c) epsilon = 1e6 with bounds at the data's true per-user
                    maxima, checked against a numpy group-by
-             Each run starts with the launch counts at 0 and fails if a
-             kernel of the path did not launch.
-  5. stages  run (a)'s release step by step with CUDA events between the
+               (d) COUNT+SUM+MEAN, Laplace, public, max_contributions = 64
+               (e) as (d) with max_contributions = the data's largest
+                   count per user at epsilon = 1e6, checked as (c)
+  5. select  DPEngine.select_partitions at full size, l0 = 64, for the
+             three selection strategies
+             Each run of 4 and 5 starts with the launch counts at 0 and
+             fails if a kernel of its path did not launch.
+  6. stages  run (a)'s release step by step with CUDA events between the
              stages: where its time goes.
+  7. profile one run (a) and one select under torch.profiler: the
+             device's busy time (kernels and copies), its idle share of
+             the release's wall time, and the largest device entries.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -133,7 +144,8 @@ def main() -> int:
 
     # 1. build -------------------------------------------------------------
     build_s = cuda_build.build_all()
-    print(f"build: 4 kernels in {build_s:.1f} s ({card})", flush=True)
+    print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
+          f"{build_s:.1f} s ({card})", flush=True)
 
     # Data for the full-size phases.
     rng = np.random.default_rng(SEED)
@@ -152,14 +164,19 @@ def main() -> int:
 
     # 3. parity ------------------------------------------------------------
     parity_phase(torch, tdp, rng)
+    select_parity_phase(torch, tdp, rng)
 
-    # 4. main path ---------------------------------------------------------
+    # 4.-5. main paths -----------------------------------------------------
     launches = main_phase(torch, tdp, encoded, kernels, card)
+    for name, count in select_phase(torch, tdp, encoded, kernels,
+                                    card).items():
+        launches[name] += count
     stage_phase(torch, dev, encoded, executor, card)
+    profile_phase(torch, tdp, encoded, card)
     for entry in report:
         entry["launches"] = launches[entry["name"]]
         print(f"kernel {entry['name']}: max_abs_err={entry['max_abs_err']} "
-              f"ms={entry['ms']:.4f} launches per aggregate="
+              f"ms={entry['ms']:.4f} launches over the main-path runs="
               f"{entry['launches']} ({card})", flush=True)
 
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -177,14 +194,48 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sort_passes(words) -> int:
+    """8-bit passes C5 makes over these words (integers and non-negative
+    floats): per word, the bits that differ from row 0, as runs of
+    adjacent bits with the constant gaps between them dropped (the
+    narrowest gaps kept where there are more than 4 runs)."""
+    passes = 0
+    for word in words:
+        raw = word.cpu().numpy()
+        raw = raw.view(np.uint64 if raw.itemsize == 8 else np.uint32)
+        diff = int(np.bitwise_or.reduce(raw ^ raw[0])) if raw.size else 0
+        bits = [b for b in range(64) if diff >> b & 1]
+        runs = []
+        for b in bits:
+            if runs and runs[-1][1] == b:
+                runs[-1][1] = b + 1
+            else:
+                runs.append([b, b + 1])
+        while len(runs) > 4:
+            j = min(range(1, len(runs)),
+                    key=lambda r: runs[r][0] - runs[r - 1][1])
+            runs[j - 1][1] = runs.pop(j)[1]
+        passes += -(-sum(hi - lo for lo, hi in runs) // 8)
+    return passes
+
+
+def torch_sort_chain(torch, words):
+    """The stable torch.argsort chain the port ran before C5 (library
+    yardstick)."""
+    perm = torch.argsort(words[-1], stable=True)
+    for word in reversed(words[:-1]):
+        perm = perm[torch.argsort(word[perm], stable=True)]
+    return perm
+
+
 def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
-    """C1-C4 against their plain versions on the card, small then full."""
+    """C1-C6 against their plain versions on the card, small then full."""
     f32 = torch.float32
     params_cfg = dict(linf=1, l0=64, clip_per_value=True,
                       clip_pair_sum=False)
     key = np.array([7, 11], dtype=np.uint32)
     rows_key, final_key = threefry.split(key, 2)
-    _, key_linf, key_l0 = threefry.split(rows_key, 3)
+    key_total, key_linf, key_l0 = threefry.split(rows_key, 3)
     salts = threefry.bits(key_l0, 4)
     report = []
 
@@ -200,18 +251,34 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
         P = encoded.n_partitions
         pid, pk, values, valid = inputs(n_rows)
         n = pid.shape[0]
-        # C1
+        # C1, both entries
         c1 = lambda: kernels.row_keys(pid, pk, valid, salts, key_linf, P,  # noqa: E731
                                       f32)
         c1p = lambda: kernels.row_keys_plain(pid, pk, valid, salts,  # noqa: E731
                                              key_linf, P, f32)
         k1, k2, u = c1()
         p1, p2, pu = c1p()
+        pid_sent, u0 = kernels.total_bound_keys(pid, valid, key_total, f32)
+        q_sent, q_u0 = kernels.total_bound_keys_plain(pid, valid, key_total,
+                                                      f32)
         err1 = max(check_equal("row_keys k1", k1, p1),
                    check_equal("row_keys k2", k2, p2),
-                   check_equal("row_keys u", u, pu))
-        perm = executor.sort_rows(k1, k2, u)
-        # C2
+                   check_equal("row_keys u", u, pu),
+                   check_equal("total_bound_keys pid", pid_sent, q_sent),
+                   check_equal("total_bound_keys u", u0, q_u0))
+        # C5 on the four key sets of the path: the same permutation.
+        perm = kernels.radix_sort([k1, k2, u])
+        perm0, spid0 = kernels.radix_sort([pid_sent, u0], sorted_top=True)
+        q_perm0, q_spid0 = kernels.radix_sort_plain([pid_sent, u0], True)
+        err5 = max(check_equal("radix_sort bounding", perm,
+                               kernels.radix_sort_plain([k1, k2, u])),
+                   check_equal("radix_sort selection",
+                               kernels.radix_sort([k1, k2]),
+                               kernels.radix_sort_plain([k1, k2])),
+                   check_equal("radix_sort total_bound", perm0, q_perm0),
+                   check_equal("radix_sort total_bound sorted pid", spid0,
+                               q_spid0))
+        # C2, all three forms
         cols = ("sum", "nsum", "nsum2")
         c2_args = dict(n_partitions=P, scalars=(1.0, 5.0, 0.0, 0.0, 3.0),
                        columns=cols, **params_cfg)
@@ -221,12 +288,35 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                                                valid, **c2_args)
         key2, pair_start, row_cols = c2()
         q_key2, q_start, q_cols = c2p()
+        sel_args = dict(n_partitions=P, linf=0, l0=64, clip_per_value=False,
+                        clip_pair_sum=False, scalars=(0.0,) * 5, columns=())
+        s_key2, s_start, _ = kernels.bound_rows(perm, k1, k2, pk, None,
+                                                valid, **sel_args)
+        qs_key2, qs_start, _ = kernels.bound_rows_plain(perm, k1, k2, pk,
+                                                        None, valid,
+                                                        **sel_args)
+        total = kernels.total_bound_rows(perm0, spid0, pk, values, valid,
+                                         total_bound=64, n_partitions=P)
+        q_total = kernels.total_bound_rows_plain(perm0, spid0, pk, values,
+                                                 valid, total_bound=64,
+                                                 n_partitions=P)
         err2 = max([check_equal("bound_rows key2", key2, q_key2),
                     check_equal("bound_rows pair_start", pair_start,
-                                q_start)] +
+                                q_start),
+                    check_equal("bound_rows selection key2", s_key2,
+                                qs_key2),
+                    check_equal("bound_rows selection pair_start", s_start,
+                                qs_start)] +
                    [check_equal(f"bound_rows {c}", row_cols[c], q_cols[c])
-                    for c in cols])
-        skey2, perm2 = torch.sort(key2, stable=True)
+                    for c in cols] +
+                   [check_equal(f"total_bound_rows {c}", a, b)
+                    for c, a, b in zip(("pid", "pk", "values", "valid"),
+                                       total, q_total)])
+        perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
+        q_perm2, q_skey2 = kernels.radix_sort_plain([key2], True)
+        err5 = max(err5, check_equal("radix_sort partition", perm2, q_perm2),
+                   check_equal("radix_sort partition sorted key2", skey2,
+                               q_skey2))
         # C3: float sums are taken in another order than the plain
         # version's index_add_; tolerance 1e-5 of the partition's sum of
         # magnitudes.
@@ -278,16 +368,40 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
             err4 = max(err4, check_close(f"release {name}", outs[name],
                                          q_outs[name], rtol=1e-5,
                                          atol=1e-5))
+        # C6 at the main path's P (about half kept, the widest plan's five
+        # columns) and at the dense route's largest P, 2^21.
+        gen = torch.Generator(device=dev).manual_seed(n)
+        err6 = 0.0
+        compact_args = {}
+        for n_parts in (P, 1 << 21):
+            half = torch.rand(n_parts, device=dev, generator=gen) < 0.5
+            ccols = {o: torch.randn(n_parts, device=dev, generator=gen)
+                     for o in ("count", "privacy_id_count", "sum", "mean",
+                               "variance")}
+            got = kernels.compact_kept(half, ccols)
+            want = kernels.compact_kept_plain(half, ccols)
+            err6 = max([check_equal(f"compact_kept P={n_parts} n_kept",
+                                    got[0], want[0]),
+                        check_equal(f"compact_kept P={n_parts} order",
+                                    got[1], want[1])] +
+                       [check_equal(f"compact_kept P={n_parts} {o}",
+                                    got[2][o], want[2][o]) for o in ccols])
+            compact_args[n_parts] = (half, ccols)
         torch.cuda.synchronize()
         errors = {"row_keys": err1, "bound_rows": err2,
-                  "reduce_partitions": err3, "release_epilogue": err4}
-        print(f"kernels[{label}, n={n}, P={P}]: all four agree with their "
-              f"plain versions, max abs err " +
+                  "reduce_partitions": err3, "release_epilogue": err4,
+                  "radix_sort": err5, "compact_kept": err6}
+        print(f"kernels[{label}, n={n}, P={P}]: all six agree with their "
+              f"plain versions (C5 on the bounding, selection, total-bound "
+              f"and partition keys; C6 at P={P} and 2^21), max abs err " +
               json.dumps(errors), flush=True)
         if label != "full":
             continue
         fsz = 4
         n_cols = len(cols)
+        bounding = [k1, k2, u]
+        half, ccols = compact_args[P]
+        n_kept = int(half.sum())
         timing = {
             "row_keys": (c1, c1p, None,
                          bound(n * (4 + 4 + 1) + n * (8 + 8 + fsz),
@@ -301,6 +415,19 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
             "release_epilogue": (c4, c4p, None,
                                  bound(P * 5 * fsz + P * (1 + 5 * fsz) + 4,
                                        P * 700)),
+            # Each key word read once, the int64 permutation written once;
+            # ~12 integer operations a row and pass (digit, count, rank,
+            # address).
+            "radix_sort": (lambda: kernels.radix_sort(bounding),
+                           lambda: kernels.radix_sort_plain(bounding),
+                           lambda: torch_sort_chain(torch, bounding),
+                           bound(n * (8 + 8 + fsz) + n * 8,
+                                 n * 12 * sort_passes(bounding))),
+            "compact_kept": (lambda: kernels.compact_kept(half, ccols),
+                             lambda: kernels.compact_kept_plain(half, ccols),
+                             lambda: kernels.compact_kept_plain(half, ccols),
+                             bound(P * (1 + 5 * fsz) + P * (8 + 5 * fsz) + 8,
+                                   P * 10)),
         }
         src = torch.stack([torch.ones_like(values), pair_start.float()] +
                           [row_cols[c] for c in cols], 1)[perm2]
@@ -312,17 +439,23 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
 
         sources = {"row_keys": "row_keys.cu", "bound_rows": "bound_rows.cu",
                    "reduce_partitions": "reduce_partitions.cu",
-                   "release_epilogue": "release_epilogue.cu"}
+                   "release_epilogue": "release_epilogue.cu",
+                   "radix_sort": "radix_sort.cu",
+                   "compact_kept": "compact_kept.cu"}
         replaces = {
             "row_keys": "pipelinedp_tpu/executor.py:287",
             "bound_rows": "pipelinedp_tpu/executor.py:313",
             "reduce_partitions": "pipelinedp_tpu/executor.py:455",
             "release_epilogue": "pipelinedp_tpu/executor.py:551",
+            "radix_sort": "pipelinedp_tpu/executor.py:307",
+            "compact_kept": "pipelinedp_tpu/executor.py:936",
         }
         for name, (fn, plain, lib, (b_ms, b_by)) in timing.items():
-            ms = cuda_ms(fn, repeats=20)
-            plain_ms = cuda_ms(plain, repeats=5, warmup=1)
-            lib_ms = cuda_ms(library_c3, repeats=20) if lib else None
+            ms = cuda_ms(fn, repeats=10)
+            plain_ms = cuda_ms(plain, repeats=3, warmup=1)
+            if lib == "index_add":
+                lib = library_c3
+            lib_ms = cuda_ms(lib, repeats=10) if lib else None
             print(f"kernel {name}: max_abs_err={errors[name]} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                   f"library_ms={lib_ms}", flush=True)
@@ -332,6 +465,24 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                 "replaces": replaces[name], "launches": 0,
                 "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        # The other shapes of C5 and C6 on the path, beside the torch chain.
+        for kname, words in (("selection", [k1, k2]),
+                             ("total_bound", [pid_sent, u0]),
+                             ("partition", [key2])):
+            b_ms, b_by = bound(n * sum(w.element_size() for w in words) +
+                               n * 8, n * 12 * sort_passes(words))
+            print(f"kernel radix_sort[{kname}]: ms="
+                  f"{cuda_ms(lambda: kernels.radix_sort(words), 10):.4f} "
+                  f"passes={sort_passes(words)} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"torch_chain_ms="
+                  f"{cuda_ms(lambda: torch_sort_chain(torch, words), 10):.4f}",
+                  flush=True)
+        big_keep, big_cols = compact_args[1 << 21]
+        print(f"kernel compact_kept[P=2^21, {int(big_keep.sum())} kept]: ms="
+              f"{cuda_ms(lambda: kernels.compact_kept(big_keep, big_cols), 10):.4f}"
+              f" argsort_gather_ms="
+              f"{cuda_ms(lambda: kernels.compact_kept_plain(big_keep, big_cols), 10):.4f}"
+              f" (P={P}: {n_kept} kept)", flush=True)
     return report
 
 
@@ -382,25 +533,71 @@ def parity_phase(torch, tdp, rng):
               flush=True)
 
 
+def select_parity_phase(torch, tdp, rng):
+    """A small selection on the card (float64) against the plain versions
+    on the CPU: the identical list of kept partitions."""
+    n = 4096
+    users = rng.integers(0, 600, n)
+    movies = (rng.integers(0, 60, n)**2) // 60
+    rows = list(zip(users.tolist(), movies.tolist()))
+    for strategy in ("TRUNCATED_GEOMETRIC", "LAPLACE_THRESHOLDING",
+                     "GAUSSIAN_THRESHOLDING"):
+        kept = []
+        for device in ("cuda", "cpu"):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                device=device, noise_seed=5, dtype=torch.float64))
+            params = tdp.SelectPartitionsParams(
+                max_partitions_contributed=3,
+                partition_selection_strategy=getattr(
+                    tdp.PartitionSelectionStrategy, strategy))
+            ex = tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                                    partition_extractor=lambda r: r[1])
+            res = engine.select_partitions(rows, params, ex)
+            acc.compute_budgets()
+            kept.append(list(res))
+        gpu, cpu = kept
+        if gpu != cpu or not gpu or len(gpu) == len(set(movies.tolist())):
+            raise AssertionError(f"select parity {strategy}: cuda kept "
+                                 f"{len(gpu)}, cpu kept {len(cpu)}")
+        print(f"parity[select_partitions, {strategy}]: {len(gpu)} of "
+              f"{len(set(movies.tolist()))} partitions kept, cuda float64 "
+              f"list identical to cpu float64", flush=True)
+
+
+def check_launches(label, counts, kernels, want=None):
+    """Every kernel of the path launched (and, where given, as often as
+    `want` says)."""
+    missing = [k for k in kernels.KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label} did not launch {missing}")
+    for name, n in (want or {}).items():
+        if counts[name] != n:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times, expected {n}")
+
+
 def main_phase(torch, tdp, encoded, kernels, card):
-    """The full-size aggregations through DPEngine.aggregate."""
-    # True per-user maxima, for run (c).
+    """The full-size aggregations through DPEngine.aggregate. Returns the
+    launch counts summed over its runs."""
+    # True per-user maxima, for runs (c) and (e).
     pair_key = encoded.pid.astype(np.int64) * N_MOVIES + encoded.pk
     pairs, pair_rows = np.unique(pair_key, return_counts=True)
     l0_true = int(np.bincount(pairs // N_MOVIES).max())
     linf_true = int(pair_rows.max())
+    rows_true = int(np.bincount(encoded.pid).max())
     print(f"data maxima: {l0_true} movies per user, {linf_true} ratings per "
-          f"(user, movie)", flush=True)
+          f"(user, movie), {rows_true} ratings per user", flush=True)
+    total = dict.fromkeys(kernels.KERNELS, 0)
 
-    def aggregate(metrics, noise, public, eps, l0, linf, seed):
+    def aggregate(label, metrics, noise, public, eps, seed, **bounds):
         acc = tdp.NaiveBudgetAccountant(total_epsilon=eps, total_delta=1e-6)
         engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=seed))
         params = tdp.AggregateParams(
             metrics=[getattr(tdp.Metrics, m) for m in metrics],
-            noise_kind=getattr(tdp.NoiseKind, noise),
-            max_partitions_contributed=l0,
-            max_contributions_per_partition=linf, min_value=1.0,
-            max_value=5.0)
+            noise_kind=getattr(tdp.NoiseKind, noise), min_value=1.0,
+            max_value=5.0, **bounds)
         ex = tdp.DataExtractors()
         kernels.reset_launch_counts()
         res = engine.aggregate(encoded, params, ex,
@@ -413,21 +610,31 @@ def main_phase(torch, tdp, encoded, kernels, card):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         counts = dict(kernels.launch_counts)
-        missing = [k for k, v in counts.items() if v == 0]
-        if missing:
-            raise AssertionError(f"main path did not launch {missing}")
+        # With max_contributions, C1 and C2 run their total-bound entries
+        # too and C5 sorts by (pid, u0) first.
+        check_launches(f"run ({label})", counts, kernels,
+                       dict(row_keys=2, bound_rows=2, radix_sort=3)
+                       if "max_contributions" in bounds else
+                       dict(row_keys=1, bound_rows=1, radix_sort=2))
+        for name, n in counts.items():
+            total[name] += n
         return out, seconds, counts
 
+    per_partition = dict(max_partitions_contributed=64,
+                         max_contributions_per_partition=1)
     runs = {
-        "a": (("COUNT", "SUM", "MEAN", "VARIANCE"), "GAUSSIAN", True),
-        "b": (("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE", False),
+        "a": (("COUNT", "SUM", "MEAN", "VARIANCE"), "GAUSSIAN", True,
+              per_partition),
+        "b": (("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE", False,
+              per_partition),
+        "d": (("COUNT", "SUM", "MEAN"), "LAPLACE", True,
+              dict(max_contributions=64)),
     }
-    launches = None
-    for label, (metrics, noise, public) in runs.items():
+    for label, (metrics, noise, public, bounds) in runs.items():
         times = []
         for rep in range(3):
-            out, seconds, counts = aggregate(metrics, noise, public, 1.0, 64,
-                                             1, seed=rep)
+            out, seconds, counts = aggregate(label, metrics, noise, public,
+                                             1.0, rep, **bounds)
             times.append(seconds)
             bad = [k for k, v in out.items()
                    if not all(math.isfinite(x) for x in v)]
@@ -435,45 +642,125 @@ def main_phase(torch, tdp, encoded, kernels, card):
                 raise AssertionError(f"run ({label}): {len(out)} partitions, "
                                      f"{len(bad)} with non-finite values")
         ms = statistics.median(times) * 1e3
-        launches = counts
         print(f"main ({label}) {'+'.join(metrics)} {noise} "
-              f"{'public' if public else 'private'}: {len(out)} partitions "
-              f"released, {ms:.1f} ms, {N_ROWS / (ms / 1e3):.4g} rows/s "
-              f"(median of 3, first call included in none: "
+              f"{'public' if public else 'private'} {bounds}: {len(out)} "
+              f"partitions released, {ms:.1f} ms, "
+              f"{N_ROWS / (ms / 1e3):.4g} rows/s (median of 3: "
               f"{[round(t * 1e3, 1) for t in times]} ms; {card}); launches "
               f"per aggregate {counts}", flush=True)
 
-    # (c) exactness at epsilon = 1e6 against a numpy group-by.
-    metrics = ("COUNT", "SUM", "PRIVACY_ID_COUNT")
-    out, seconds, _ = aggregate(metrics, "LAPLACE", True, 1e6, l0_true,
-                                linf_true, seed=9)
     P = encoded.n_partitions
+    vocab = list(encoded.partition_vocab)
     true_count = np.bincount(encoded.pk, minlength=P).astype(np.float64)
     true_sum = np.bincount(encoded.pk, weights=encoded.values, minlength=P)
     true_pid = np.bincount(pairs % N_MOVIES, minlength=P)
+
+    def check(label, out, name, truth, tol):
+        got = np.array([getattr(out[m], name) for m in vocab])
+        err = np.abs(got - truth)
+        if (err > tol).any():
+            i = int(np.argmax(err - tol))
+            raise AssertionError(f"run ({label}) {name}: partition "
+                                 f"{vocab[i]} {got[i]} vs numpy {truth[i]}")
+        return float((err / np.maximum(1.0, np.abs(truth))).max())
+
+    # (c) exactness at epsilon = 1e6 against a numpy group-by.
+    out, seconds, _ = aggregate("c", ("COUNT", "SUM", "PRIVACY_ID_COUNT"),
+                                "LAPLACE", True, 1e6, 9,
+                                max_partitions_contributed=l0_true,
+                                max_contributions_per_partition=linf_true)
     # Laplace noise std of each of the three mechanisms: sqrt(2) l1 / eps.
     eps_each = 1e6 / 3
     std = {"count": math.sqrt(2) * l0_true * linf_true / eps_each,
            "sum": math.sqrt(2) * l0_true * linf_true * 5.0 / eps_each,
            "privacy_id_count": math.sqrt(2) * l0_true / eps_each}
-    vocab = list(encoded.partition_vocab)
-    worst = {}
-    for name, truth in (("count", true_count), ("sum", true_sum),
-                        ("privacy_id_count", true_pid)):
-        got = np.array([getattr(out[m], name) for m in vocab])
-        # 16 noise stds (a false alarm below 1e-5 over all partitions) plus
-        # float32 rounding of sums past 2^24.
-        tol = 16 * std[name] + 1e-6 * np.abs(truth)
-        err = np.abs(got - truth)
-        if (err > tol).any():
-            i = int(np.argmax(err - tol))
-            raise AssertionError(f"run (c) {name}: partition {vocab[i]} "
-                                 f"{got[i]} vs numpy {truth[i]}")
-        worst[name] = float((err / np.maximum(1.0, truth)).max())
+    # 16 noise stds (a false alarm below 1e-5 over all partitions) plus
+    # float32 rounding of sums past 2^24.
+    worst = {name: check("c", out, name, truth,
+                         16 * std[name] + 1e-6 * np.abs(truth))
+             for name, truth in (("count", true_count), ("sum", true_sum),
+                                 ("privacy_id_count", true_pid))}
     print(f"main (c) epsilon=1e6, l0={l0_true}, linf={linf_true}: "
           f"{len(out)} partitions match the numpy group-by (max rel err "
           f"{json.dumps(worst)}) in {seconds * 1e3:.1f} ms", flush=True)
-    return launches
+
+    # (e) the total bound at the data's largest count per user keeps every
+    # row: exact at epsilon = 1e6. MEAN releases count, sum and mean from
+    # two Laplace mechanisms (count and the centred sum, mid = 3).
+    bounds = dict(max_contributions=rows_true)
+    out, seconds, _ = aggregate("e", ("COUNT", "SUM", "MEAN"), "LAPLACE",
+                                True, 1e6, 11, **bounds)
+    from pipelinedp_tpu_torch import combiners, executor
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=1e6, total_delta=1e-6)
+    compound = combiners.create_compound_combiner(tdp.AggregateParams(
+        metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM, tdp.Metrics.MEAN],
+        noise_kind=tdp.NoiseKind.LAPLACE, min_value=1.0, max_value=5.0,
+        **bounds), acc)
+    acc.compute_budgets()
+    if [e.kind for e in executor.build_plan(compound)] != ["mean"]:
+        raise AssertionError("run (e): expected one MEAN plan entry")
+    std_count, std_nsum = executor.compute_noise_stds(compound)
+    worst = {
+        "count": check("e", out, "count", true_count,
+                       16 * std_count + 1e-6 * true_count),
+        # sum = mid * dp_count + dp_nsum where dp_count >= 1
+        "sum": check("e", out, "sum", true_sum,
+                     16 * (3 * std_count + std_nsum) +
+                     1e-6 * np.abs(true_sum)),
+        # mean = mid + dp_nsum / dp_count, |nsum / count| <= 2
+        "mean": check("e", out, "mean", true_sum / true_count,
+                      16 * (std_nsum + 2 * std_count) /
+                      np.maximum(true_count - 16 * std_count, 1.0) + 1e-5),
+    }
+    print(f"main (e) epsilon=1e6, max_contributions={rows_true}: "
+          f"{len(out)} partitions match the numpy group-by (max rel err "
+          f"{json.dumps(worst)}; noise stds count {std_count:.4g}, nsum "
+          f"{std_nsum:.4g}) in {seconds * 1e3:.1f} ms", flush=True)
+    return total
+
+
+def select_phase(torch, tdp, encoded, kernels, card):
+    """DPEngine.select_partitions at full size for the three strategies.
+    Returns the launch counts summed over its runs."""
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    vocab = set(encoded.partition_vocab)
+    for strategy in ("TRUNCATED_GEOMETRIC", "LAPLACE_THRESHOLDING",
+                     "GAUSSIAN_THRESHOLDING"):
+        times, kept_n = [], []
+        for rep in range(3):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=rep))
+            params = tdp.SelectPartitionsParams(
+                max_partitions_contributed=64,
+                partition_selection_strategy=getattr(
+                    tdp.PartitionSelectionStrategy, strategy))
+            kernels.reset_launch_counts()
+            res = engine.select_partitions(encoded, params,
+                                           tdp.DataExtractors())
+            acc.compute_budgets()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            kept = list(res)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            counts = dict(kernels.launch_counts)
+            check_launches(f"select ({strategy})", counts, kernels,
+                           dict(row_keys=1, bound_rows=1, radix_sort=2))
+            for name, n in counts.items():
+                total[name] += n
+            if not kept or len(set(kept)) != len(kept) or \
+                    not set(kept) <= vocab:
+                raise AssertionError(f"select ({strategy}): {len(kept)} "
+                                     f"partitions kept")
+            kept_n.append(len(kept))
+        ms = statistics.median(times) * 1e3
+        print(f"select {strategy} l0=64 eps=1 delta=1e-6: {kept_n} of "
+              f"{len(vocab)} partitions kept, {ms:.1f} ms, "
+              f"{N_ROWS / (ms / 1e3):.4g} rows/s (median of 3: "
+              f"{[round(t * 1e3, 1) for t in times]} ms; {card}); launches "
+              f"per select {counts}", flush=True)
+    return total
 
 
 def stage_phase(torch, dev, encoded, executor, card):
@@ -520,7 +807,7 @@ def stage_phase(torch, dev, encoded, executor, card):
             clip_pair_sum=cfg.clip_pair_sum, scalars=scal,
             columns=executor.reduce_column_names(cfg))
         events[4].record()
-        skey2, perm2 = torch.sort(key2, stable=True)
+        perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
         events[5].record()
         cols = kernels.reduce_partitions(skey2, perm2, pair_start, row_cols,
                                          cfg.n_partitions, torch.float32)
@@ -549,6 +836,64 @@ def stage_phase(torch, dev, encoded, executor, card):
     med["decode_host"] = round(statistics.median(decode_ms[1:]), 4)
     print(f"stages (a) float32, ms, median of 3 ({card}): "
           f"{json.dumps(med)} sum {sum(med.values()):.3f}", flush=True)
+
+
+
+def profile_phase(torch, tdp, encoded, card):
+    """Run (a) and a select under torch.profiler (graph build and budgets
+    outside the window): device busy time = the sum of device entries
+    (one stream, so they do not overlap), idle share = 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run_a():
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=21))
+        res = engine.aggregate(encoded, tdp.AggregateParams(
+            metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM, tdp.Metrics.MEAN,
+                     tdp.Metrics.VARIANCE],
+            noise_kind=tdp.NoiseKind.GAUSSIAN, max_partitions_contributed=64,
+            max_contributions_per_partition=1, min_value=1.0, max_value=5.0),
+            tdp.DataExtractors(), list(encoded.partition_vocab))
+        acc.compute_budgets()
+        return res
+
+    def run_select():
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=21))
+        res = engine.select_partitions(
+            encoded, tdp.SelectPartitionsParams(max_partitions_contributed=64),
+            tdp.DataExtractors())
+        acc.compute_budgets()
+        return res
+
+    for label, setup in (("aggregate (a)", run_a), ("select", run_select)):
+        res = setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            list(res)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not device:
+            raise AssertionError(f"profile {label}: no device time traced")
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"profile {label}: wall {wall_ms:.1f} ms under the profiler, "
+              f"device busy {busy_ms:.2f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f} ({card}); largest [name, ms, "
+              f"calls]: " +
+              json.dumps([[short_kernel_name(e.key),
+                           round(e.self_device_time_total / 1e3, 4), e.count]
+                          for e in top]), flush=True)
+
+
+def short_kernel_name(key: str) -> str:
+    """A kernel's name without its parameter list (copies keep theirs)."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key if key.startswith("Memcpy") else key.split("(")[0]
 
 
 if __name__ == "__main__":

@@ -1,17 +1,19 @@
 """pipelinedp_tpu_torch: the PyTorch / CUDA port of pipelinedp_tpu.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference. This slice runs DPEngine.aggregate on the dense columnar route:
-COUNT, PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE with Laplace or Gaussian
-noise, public partitions or private partition selection, on four CUDA
-kernels built for sm_90a at first use (kernels.py, csrc/). The package
-imports torch, numpy and scipy, never jax.
+reference. It runs DPEngine.aggregate on the dense columnar route (COUNT,
+PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE with Laplace or Gaussian noise,
+public partitions or private partition selection, per-partition or total
+contribution bounds) and DPEngine.select_partitions, on six CUDA kernels
+built for sm_90a at first use (kernels.py, csrc/). The package imports
+torch, numpy and scipy, never jax.
 """
 
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    MechanismType, Metric,
                                                    Metrics, NoiseKind,
-                                                   PartitionSelectionStrategy)
+                                                   PartitionSelectionStrategy,
+                                                   SelectPartitionsParams)
 from pipelinedp_tpu_torch.budget_accounting import (BudgetAccountant,
                                                     NaiveBudgetAccountant)
 from pipelinedp_tpu_torch.data_extractors import DataExtractors
@@ -23,5 +25,5 @@ __all__ = [
     "AggregateParams", "BudgetAccountant", "DataExtractors", "DPEngine",
     "ExplainComputationReport", "MechanismType", "Metric", "Metrics",
     "NaiveBudgetAccountant", "NoiseKind", "PartitionSelectionStrategy",
-    "TorchBackend"
+    "SelectPartitionsParams", "TorchBackend"
 ]

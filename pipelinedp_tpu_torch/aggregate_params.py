@@ -252,6 +252,23 @@ class AggregateParams:
         return parameters_to_readable_string(self)
 
 
+@dataclass
+class SelectPartitionsParams:
+    """Parameters of DPEngine.select_partitions() (reference :368-395)."""
+    max_partitions_contributed: int
+    budget_weight: float = 1
+    partition_selection_strategy: PartitionSelectionStrategy = (
+        PartitionSelectionStrategy.TRUNCATED_GEOMETRIC)
+    pre_threshold: Optional[int] = None
+
+    def __post_init__(self):
+        if self.pre_threshold is not None:
+            _check_is_positive_int(self.pre_threshold, "pre_threshold")
+
+    def __str__(self):
+        return "Private Partitions"
+
+
 def _not_a_proper_number(num: Any) -> bool:
     return math.isnan(num) or math.isinf(num)
 

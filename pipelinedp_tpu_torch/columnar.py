@@ -26,7 +26,9 @@ class EncodedData:
     """Columnar dataset + decode vocabularies."""
     pid: np.ndarray  # int32[n]
     pk: np.ndarray  # int32[n], -1 marks rows in no (public) partition
-    values: np.ndarray  # float64[n] (or float64[n, d] for vector values)
+    # float64[n] (or float64[n, d] for vector values); None when encoded
+    # for partition selection, which never reads values.
+    values: Optional[np.ndarray]
     # partition id -> original partition key (list or ndarray)
     partition_vocab: Sequence[Any]
     n_privacy_ids: int
@@ -170,7 +172,7 @@ def encode_with_vocab(raw: np.ndarray, vocab: Sequence[Any]) -> np.ndarray:
 def encode_columns(
         pid_raw: Sequence[Any],
         pk_raw: Sequence[Any],
-        values: Sequence[float],
+        values: Optional[Sequence[float]],
         public_partitions: Optional[Sequence[Any]] = None,
         nonfinite: str = "error") -> EncodedData:
     """Vectorized encoding of raw key/value COLUMNS (no per-row Python).
@@ -179,7 +181,8 @@ def encode_columns(
     columns (numpy arrays of keys/values) and every vocabulary assignment
     runs as one hash-factorization pass. Non-finite VALUES are rejected
     here (nonfinite="error", the default) or dropped with a warning
-    (nonfinite="drop") — see nonfinite_value_rows.
+    (nonfinite="drop") — see nonfinite_value_rows. values=None encodes
+    keys only (partition selection).
     """
     pid_raw = _as_key_array(pid_raw)
     pk_raw = _as_key_array(pk_raw)
@@ -189,8 +192,10 @@ def encode_columns(
         pk = encode_with_vocab(pk_raw, partition_vocab)
     else:
         pk, partition_vocab = factorize(pk_raw)
-    values = np.asarray(values, dtype=np.float64)
-    bad = nonfinite_value_rows(values, nonfinite)
+    if values is not None:
+        values = np.asarray(values, dtype=np.float64)
+    bad = None if values is None else nonfinite_value_rows(values,
+                                                           nonfinite)
     if bad is not None:
         # Dropped rows are marked invalid the same way rows outside the
         # public partitions are: pk = -1 (EncodedData.valid reads pk >= 0).
@@ -210,13 +215,15 @@ def encode_columns(
 
 def encode(col,
            data_extractors: DataExtractors,
-           public_partitions: Optional[Sequence[Any]] = None) -> EncodedData:
+           public_partitions: Optional[Sequence[Any]] = None,
+           with_values: bool = True) -> EncodedData:
     """Extracts and integer-encodes (privacy_id, partition_key, value) rows.
 
     With public partitions, the partition vocabulary is fixed to them and
     rows in other partitions are marked invalid (pk = -1) — the columnar
     analogue of DPEngine._drop_partitions + _add_empty_public_partitions
-    (empty public partitions exist as all-zero columns).
+    (empty public partitions exist as all-zero columns). with_values=False
+    (partition selection) calls no value extractor and keeps no values.
     """
     if isinstance(col, EncodedData):
         # Pre-encoded input (encode_columns): extractors are not consulted;
@@ -246,5 +253,6 @@ def encode(col,
     # vocabulary work is vectorized in encode_columns.
     pid_raw = [pid_extractor(row) for row in col]
     pk_raw = [pk_extractor(row) for row in col]
-    values = [value_extractor(row) for row in col]
+    values = ([value_extractor(row) for row in col] if with_values else
+              None)
     return encode_columns(pid_raw, pk_raw, values, public_partitions)

@@ -21,7 +21,7 @@ from pipelinedp_tpu_torch.ops import selection_ops
 # KernelConfig fields of the JAX package that this slice does not run, with
 # the value that means "off".
 _UNPORTED_DEFAULTS = {
-    "total_bound": 0, "vector_size": 0, "vector_max_norm": 0.0,
+    "vector_size": 0, "vector_max_norm": 0.0,
     "vector_norm_kind": None, "quantiles": (), "tree_height": 0,
     "branching": 0, "quantile_chunk": 0, "secure": False,
     "numeric_mode": "fast",

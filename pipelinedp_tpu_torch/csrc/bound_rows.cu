@@ -18,7 +18,17 @@
 // tile from its prefix and writes the row outputs. The pair total for
 // pair-sum clipping is summed in row order by the pair's first thread.
 // With `k1 == nullptr` every row is its own pair (contribution bounds
-// already enforced) and no scan runs.
+// already enforced) and no scan runs. l0 = 0 means no cross-partition cap
+// (the total bound replaces it). Standalone selection passes no values and
+// asks for no columns: it needs key2 and pair_start only.
+//
+// A second entry, total_bound_rows, is the total contribution bound of
+// executor.py:366-378 (max_contributions = K): over the rows in (pid, u)
+// order (perm and the sorted pid from radix_sort) it ranks each row within
+// its pid by the same tile scan (a max-scan of pid-start positions) and
+// writes the carried columns in that order, with valid0 = valid & rank < K
+// and the sentinels pid = INT32_MAX, pk = n_partitions where !valid0. The
+// gather of the payloads is that same pass: no separate gather runs.
 //
 // Bound: bytes. Each pass reads perm, k1, k2 (8 B each) for its rows; the
 // last pass also reads value and valid and writes key2 (4 B), pair_start
@@ -125,9 +135,9 @@ __device__ __forceinline__ void emit(const Params<F>& p, const Keys& keys,
                                      F* nsum2) {
   const long long r = keys.row(i);
   const bool v = valid[r] != 0;
-  const bool pair_kept = pair_rank < p.l0;
+  const bool pair_kept = p.l0 == 0 || pair_rank < p.l0;
   const bool keep = v && (p.linf == 0 || rank < p.linf) && pair_kept;
-  const F clipped = clipped_value(p, values[r]);
+  const F clipped = values ? clipped_value(p, values[r]) : F(0);
   const int32_t spk =
       keys.k2 ? static_cast<int32_t>(keys.k2[r] & 0xFFFFFFFFll)
               : (v ? pk[r] : p.n_partitions);
@@ -201,6 +211,91 @@ __global__ void finalize_rows(Params<F> p, Keys keys,
   }
 }
 
+// Total bound: new_pid(i) ? i : -1 over the rows in (pid, u) order.
+__device__ __forceinline__ long long pid_start(const int32_t* spid,
+                                               long long i) {
+  return i == 0 || spid[i] != spid[i - 1] ? i : -1;
+}
+
+__global__ void pid_start_aggregates(const int32_t* __restrict__ spid,
+                                     long long n, long long* aggs) {
+  __shared__ long long smem[32];
+  const long long base =
+      static_cast<long long>(blockIdx.x) * pdp::kTile +
+      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  long long acc = -1;
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    if (base + k < n)
+      acc = pdp::MaxPosOp::combine(acc, pid_start(spid, base + k));
+  }
+  long long total;
+  pdp::block_exclusive_scan<pdp::MaxPosOp>(acc, smem, &total);
+  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
+}
+
+template <typename F>
+__global__ void total_bound_finalize(
+    const long long* __restrict__ perm, const int32_t* __restrict__ spid,
+    const long long* __restrict__ prefixes, long long n,
+    long long total_bound, int n_partitions, const int32_t* __restrict__ pk,
+    const F* __restrict__ values, const uint8_t* __restrict__ valid,
+    int32_t* __restrict__ pid_out, int32_t* __restrict__ pk_out,
+    F* __restrict__ values_out, uint8_t* __restrict__ valid_out) {
+  __shared__ long long smem[32];
+  const long long base =
+      static_cast<long long>(blockIdx.x) * pdp::kTile +
+      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  long long starts[pdp::kItems];
+  long long acc = -1;
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    starts[k] = base + k < n ? pid_start(spid, base + k) : -1;
+    acc = pdp::MaxPosOp::combine(acc, starts[k]);
+  }
+  long long total;
+  const long long excl =
+      pdp::block_exclusive_scan<pdp::MaxPosOp>(acc, smem, &total);
+  long long state = pdp::MaxPosOp::combine(prefixes[blockIdx.x], excl);
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    const long long i = base + k;
+    if (i >= n) break;
+    state = pdp::MaxPosOp::combine(state, starts[k]);
+    const long long r = perm[i];
+    const bool v = valid[r] != 0 && i - state < total_bound;
+    pid_out[i] = v ? spid[i] : 0x7FFFFFFF;
+    pk_out[i] = v ? pk[r] : n_partitions;
+    values_out[i] = values[r];
+    valid_out[i] = v ? 1 : 0;
+  }
+}
+
+template <typename F>
+int launch_total(const void* perm, const void* spid, const void* pk,
+                 const void* values, const void* valid, long long n,
+                 long long total_bound, int n_partitions, void* scratch,
+                 void* pid_out, void* pk_out, void* values_out,
+                 void* valid_out, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = pdp::n_tiles(n);
+  long long* aggs = static_cast<long long*>(scratch);
+  const int32_t* sp = static_cast<const int32_t*>(spid);
+  pid_start_aggregates<<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
+      sp, n, aggs);
+  pdp::scan_tile_aggregates<pdp::MaxPosOp><<<1, 1024, 0, s>>>(aggs, tiles,
+                                                              nullptr);
+  total_bound_finalize<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
+                            s>>>(
+      static_cast<const long long*>(perm), sp, aggs, n, total_bound,
+      n_partitions, static_cast<const int32_t*>(pk),
+      static_cast<const F*>(values), static_cast<const uint8_t*>(valid),
+      static_cast<int32_t*>(pid_out), static_cast<int32_t*>(pk_out),
+      static_cast<F*>(values_out), static_cast<uint8_t*>(valid_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename F>
 int launch(const void* perm, const void* k1, const void* k2, const void* pk,
            const void* values, const void* valid, long long n,
@@ -218,7 +313,8 @@ int launch(const void* perm, const void* k1, const void* k2, const void* pk,
   if (keys.k1) {
     tile_aggregates<<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
         keys, n, aggs);
-    pdp::scan_tile_aggregates<BoundOp><<<1, 1024, 0, s>>>(aggs, tiles);
+    pdp::scan_tile_aggregates<BoundOp><<<1, 1024, 0, s>>>(aggs, tiles,
+                                                          nullptr);
   }
   Params<F> p{n,
               n_partitions,
@@ -241,7 +337,8 @@ int launch(const void* perm, const void* k1, const void* k2, const void* pk,
 
 }  // namespace
 
-// Scratch the caller allocates for n rows: one aggregate per tile.
+// Scratch the caller allocates for n rows: one aggregate per tile (of
+// either entry).
 extern "C" long long bound_rows_scratch_bytes(long long n) {
   return pdp::n_tiles(n) * static_cast<long long>(sizeof(BoundAgg));
 }
@@ -264,4 +361,23 @@ extern "C" int bound_rows(const void* perm, const void* k1, const void* k2,
                              n_partitions, linf, l0, clip_per_value,
                              clip_pair_sum, scalars, scratch, key2,
                              pair_start, sum, nsum, nsum2, stream);
+}
+
+// perm / spid: radix_sort of (pid_sent, u) with the sorted pid_sent;
+// outputs in that order: pid and pk with sentinels, values, valid0.
+extern "C" int total_bound_rows(const void* perm, const void* spid,
+                                const void* pk, const void* values,
+                                const void* valid, long long n,
+                                long long total_bound, int n_partitions,
+                                void* scratch, void* pid_out, void* pk_out,
+                                void* values_out, void* valid_out, int f64,
+                                void* stream) {
+  return f64 ? launch_total<double>(perm, spid, pk, values, valid, n,
+                                    total_bound, n_partitions, scratch,
+                                    pid_out, pk_out, values_out, valid_out,
+                                    stream)
+             : launch_total<float>(perm, spid, pk, values, valid, n,
+                                   total_bound, n_partitions, scratch,
+                                   pid_out, pk_out, values_out, valid_out,
+                                   stream);
 }

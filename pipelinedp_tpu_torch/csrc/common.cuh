@@ -8,7 +8,9 @@
 //  * XLA's erf_inv polynomial (Giles);
 //  * a block-wide exclusive scan over an associative operator, and the
 //    single-block kernel that scans per-tile aggregates (pass 2 of the
-//    three-pass tile scans in bound_rows.cu and reduce_partitions.cu).
+//    three-pass tile scans in bound_rows.cu, reduce_partitions.cu,
+//    radix_sort.cu and compact_kept.cu), with integer-sum and max
+//    operators.
 #pragma once
 
 #include <cstdint>
@@ -224,22 +226,59 @@ __device__ __forceinline__ typename Op::T block_exclusive_scan(
   return Op::combine(warp_prefix, excl);
 }
 
-// Pass 2 of a tile scan: one block turns the per-tile aggregates into
-// exclusive per-tile prefixes, in place, walking them in order.
+// One block turns n values into their exclusive prefixes, in place,
+// walking them in order; *total (when not null) receives the aggregate of
+// all n. smem holds 32 T.
 template <class Op>
-__global__ void scan_tile_aggregates(typename Op::T* aggs, long long n_tiles) {
+__device__ __forceinline__ void block_scan_in_place(typename Op::T* aggs,
+                                                    long long n,
+                                                    typename Op::T* smem,
+                                                    typename Op::T* total) {
   using T = typename Op::T;
-  __shared__ T smem[32];
   T carry = Op::identity();
-  for (long long base = 0; base < n_tiles; base += blockDim.x) {
+  for (long long base = 0; base < n; base += blockDim.x) {
     const long long i = base + threadIdx.x;
-    const T v = i < n_tiles ? aggs[i] : Op::identity();
-    T total;
-    const T excl = block_exclusive_scan<Op>(v, smem, &total);
-    if (i < n_tiles) aggs[i] = Op::combine(carry, excl);
-    carry = Op::combine(carry, total);
+    const T v = i < n ? aggs[i] : Op::identity();
+    T chunk;
+    const T excl = block_exclusive_scan<Op>(v, smem, &chunk);
+    if (i < n) aggs[i] = Op::combine(carry, excl);
+    carry = Op::combine(carry, chunk);
   }
+  if (total != nullptr && threadIdx.x == 0) *total = carry;
 }
+
+// Pass 2 of a tile scan: one block turns the per-tile aggregates into
+// exclusive per-tile prefixes, in place. With `total` not null it also
+// writes the aggregate of all tiles there.
+template <class Op>
+__global__ void scan_tile_aggregates(typename Op::T* aggs, long long n_tiles,
+                                     typename Op::T* total) {
+  __shared__ typename Op::T smem[32];
+  block_scan_in_place<Op>(aggs, n_tiles, smem, total);
+}
+
+// Integer sum, for counting scans.
+template <typename I>
+struct SumOp {
+  using T = I;
+  static __device__ __forceinline__ T identity() { return T(0); }
+  static __device__ __forceinline__ T combine(T a, T b) { return a + b; }
+  static __device__ __forceinline__ T shfl_up(T v, int d) {
+    return __shfl_up_sync(kFullMask, v, d);
+  }
+};
+
+// Maximum, for the position of the last segment start (-1 = none).
+struct MaxPosOp {
+  using T = long long;
+  static __device__ __forceinline__ T identity() { return -1; }
+  static __device__ __forceinline__ T combine(T a, T b) {
+    return a > b ? a : b;
+  }
+  static __device__ __forceinline__ T shfl_up(T v, int d) {
+    return __shfl_up_sync(kFullMask, v, d);
+  }
+};
 
 inline long long n_tiles(long long n) { return (n + kTile - 1) / kTile; }
 

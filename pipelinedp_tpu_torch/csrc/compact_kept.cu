@@ -1,0 +1,154 @@
+// C6 compact_kept: kept-first compaction of the released partitions.
+//
+// Replaces K8, pipelinedp_tpu/executor.py compact_release (:936): a stable
+// argsort of ~keep (kept ids ascending, then dropped ids ascending, the
+// kept prefix exactly nonzero(keep)) and a gather of every output column
+// into that order; also the same compaction at the end of
+// select_partitions_release_kernel (:1128).
+//
+// A flag scan and a scatter, as a three-pass tile scan: per-tile kept
+// counts, one block scanning them in order (and writing the total
+// n_kept), then a pass in which each row learns kept_before, the kept
+// rows before it, and writes itself to
+//   keep ? kept_before : n_kept + (i - kept_before)
+// in `order` and in every output column. Inside a tile a warp takes 32
+// neighbouring rows a step; a ballot and its popcounts rank them, and one
+// warp scans the per-(step, warp) counts. Tiles are independent, so any
+// P up to the dense route's 2^21 spreads over many blocks.
+//
+// Bound: bytes. Reads keep (1 B) and the columns, writes order (8 B) and
+// the columns once each. Writes of dropped rows are as coalesced as the
+// reads; kept rows are written densely in order.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxColumns = 8;
+constexpr int kWarps = pdp::kThreads / 32;
+static_assert(pdp::kItems * kWarps == 64, "two (step, warp) counts a lane");
+
+struct Columns {
+  const void* in[kMaxColumns];
+  void* out[kMaxColumns];
+  int n;
+};
+
+// Row k * kThreads + threadIdx.x of the block's tile: a striped layout,
+// so each step of a warp reads and writes 32 neighbouring rows.
+__device__ __forceinline__ long long row_of(int k) {
+  return static_cast<long long>(blockIdx.x) * pdp::kTile +
+         static_cast<long long>(k) * pdp::kThreads + threadIdx.x;
+}
+
+__global__ void kept_per_tile(const uint8_t* __restrict__ keep, long long n,
+                              long long* __restrict__ aggs) {
+  __shared__ long long smem[32];
+  long long c = 0;
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    const long long i = row_of(k);
+    if (i < n && keep[i]) ++c;
+  }
+  long long total;
+  pdp::block_exclusive_scan<pdp::SumOp<long long>>(c, smem, &total);
+  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
+}
+
+template <typename W>
+__global__ void scatter_kept(const uint8_t* __restrict__ keep, long long n,
+                             const long long* __restrict__ prefixes,
+                             const long long* __restrict__ n_kept_total,
+                             Columns cols, long long* __restrict__ order,
+                             long long* __restrict__ n_kept) {
+  // Kept rows of each (step, warp) of the tile, then their exclusive
+  // prefix in row order (step-major, then warp).
+  __shared__ int step_warp[pdp::kItems * kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  unsigned ballot[pdp::kItems];
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    const long long i = row_of(k);
+    ballot[k] = __ballot_sync(pdp::kFullMask, i < n && keep[i]);
+    if (lane == 0) step_warp[k * kWarps + warp] = __popc(ballot[k]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // kItems * kWarps = 64 counts: two per lane, scanned by the warp.
+    const int a = step_warp[2 * lane], b = step_warp[2 * lane + 1];
+    int inc = a + b;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(pdp::kFullMask, inc, d);
+      if (lane >= d) inc += t;
+    }
+    const int excl = inc - a - b;
+    step_warp[2 * lane] = excl;
+    step_warp[2 * lane + 1] = excl + a;
+  }
+  __syncthreads();
+  const long long tile_prefix = prefixes[blockIdx.x];
+  const long long kept_all = *n_kept_total;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *n_kept = kept_all;
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    const long long i = row_of(k);
+    if (i >= n) break;
+    const bool kept = (ballot[k] >> lane) & 1u;
+    const long long before = tile_prefix + step_warp[k * kWarps + warp] +
+                             __popc(ballot[k] & lanes_below);
+    const long long dst = kept ? before : kept_all + (i - before);
+    order[dst] = i;
+    for (int j = 0; j < cols.n; ++j) {
+      static_cast<W*>(cols.out[j])[dst] =
+          static_cast<const W*>(cols.in[j])[i];
+    }
+  }
+}
+
+}  // namespace
+
+// Scratch for P partitions: one count per tile plus the total.
+extern "C" long long compact_kept_scratch_bytes(long long n) {
+  return (pdp::n_tiles(n) + 1) * static_cast<long long>(sizeof(long long));
+}
+
+// keep: u8[n]; in_cols / out_cols: n_cols device pointers (host arrays) of
+// elements of `elem_bytes` (4 or 8); order: int64[n]; n_kept: one int64.
+extern "C" int compact_kept(const void* keep, long long n,
+                            const void* const* in_cols, void* const* out_cols,
+                            int n_cols, int elem_bytes, void* scratch,
+                            void* order, void* n_kept, void* stream) {
+  if (n_cols < 0 || n_cols > kMaxColumns) return -1;
+  if (elem_bytes != 4 && elem_bytes != 8) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long* aggs = static_cast<long long*>(scratch);
+  if (n <= 0) {
+    cudaMemsetAsync(n_kept, 0, sizeof(long long), s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long tiles = pdp::n_tiles(n);
+  Columns cols{};
+  cols.n = n_cols;
+  for (int c = 0; c < n_cols; ++c) {
+    cols.in[c] = in_cols[c];
+    cols.out[c] = out_cols[c];
+  }
+  const uint8_t* flags = static_cast<const uint8_t*>(keep);
+  kept_per_tile<<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
+      flags, n, aggs);
+  pdp::scan_tile_aggregates<pdp::SumOp<long long>><<<1, 1024, 0, s>>>(
+      aggs, tiles, aggs + tiles);
+  if (elem_bytes == 8) {
+    scatter_kept<uint64_t><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
+                             s>>>(flags, n, aggs, aggs + tiles, cols,
+                                  static_cast<long long*>(order),
+                                  static_cast<long long*>(n_kept));
+  } else {
+    scatter_kept<uint32_t><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
+                             s>>>(flags, n, aggs, aggs + tiles, cols,
+                                  static_cast<long long*>(order),
+                                  static_cast<long long*>(n_kept));
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -149,7 +149,8 @@ int launch(const void* skey2, const void* perm, const void* pair_start,
   Seg<F>* aggs = static_cast<Seg<F>*>(scratch);
   tile_aggregates<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
       rows, aggs);
-  pdp::scan_tile_aggregates<SegOp<F>><<<1, 1024, 0, s>>>(aggs, tiles);
+  pdp::scan_tile_aggregates<SegOp<F>><<<1, 1024, 0, s>>>(aggs, tiles,
+                                                         nullptr);
   write_partitions<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
       rows, aggs, n_partitions, static_cast<F*>(count),
       static_cast<F*>(pid_count), static_cast<F*>(sum),

@@ -11,6 +11,11 @@
 //   k2 = (hash1 ^ 0x80000000) << 32 | pk        (signed order = unsigned)
 //   u  = uniform(key_linf)[i]                   (F = float or double)
 // Invalid rows take pid = INT32_MAX and pk = n_partitions, as in JAX.
+// Standalone selection sorts by (k1, k2) alone and passes u = null.
+//
+// A second entry, total_keys, writes the total-bound sort key of
+// executor.py:366-370 (max_contributions): pid (INT32_MAX where invalid)
+// and uniform(key_total)[i], sorted by (pid, u) before the bounding sort.
 //
 // Bound: bytes. Reads pid, pk (4 B each) and valid (1 B), writes k1, k2
 // (8 B each) and u (sizeof(F)); the 20 threefry rounds and 8 hash mixes
@@ -54,8 +59,29 @@ __global__ void row_keys_kernel(const int32_t* __restrict__ pid,
     k1[i] = static_cast<long long>((static_cast<uint64_t>(p) << 32) | lane0);
     k2[i] = static_cast<long long>(
         (static_cast<uint64_t>(lane1 ^ 0x80000000u) << 32) | q);
+    if (u) u[i] = pdp::uniform<F>(key0, key1, static_cast<uint64_t>(i), F(0),
+                                  F(1));
+  }
+}
+
+template <typename F>
+__global__ void total_keys_kernel(const int32_t* __restrict__ pid,
+                                  const uint8_t* __restrict__ valid,
+                                  long long n, uint32_t key0, uint32_t key1,
+                                  int32_t* __restrict__ pid_sent,
+                                  F* __restrict__ u) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    pid_sent[i] = valid[i] ? pid[i] : 0x7FFFFFFF;
     u[i] = pdp::uniform<F>(key0, key1, static_cast<uint64_t>(i), F(0), F(1));
   }
+}
+
+unsigned blocks_for(long long n, int threads) {
+  const long long want = (n + threads - 1) / threads;
+  return static_cast<unsigned>(want < (1 << 20) ? want : (1 << 20));
 }
 
 template <typename F>
@@ -64,15 +90,26 @@ int launch(const void* pid, const void* pk, const void* valid, long long n,
            unsigned key1, void* k1, void* k2, void* u, void* stream) {
   if (n <= 0) return 0;
   const int threads = 256;
-  const long long want = (n + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
-  row_keys_kernel<F><<<blocks, threads, 0,
+  row_keys_kernel<F><<<blocks_for(n, threads), threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(pid), static_cast<const int32_t*>(pk),
       static_cast<const uint8_t*>(valid), n, n_partitions,
       make_uint4(salts[0], salts[1], salts[2], salts[3]), key0, key1,
       static_cast<long long*>(k1), static_cast<long long*>(k2),
       static_cast<F*>(u));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename F>
+int launch_total(const void* pid, const void* valid, long long n,
+                 unsigned key0, unsigned key1, void* pid_sent, void* u,
+                 void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  total_keys_kernel<F><<<blocks_for(n, threads), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(pid), static_cast<const uint8_t*>(valid), n,
+      key0, key1, static_cast<int32_t*>(pid_sent), static_cast<F*>(u));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -86,4 +123,14 @@ extern "C" int row_keys(const void* pid, const void* pk, const void* valid,
                               key1, k1, k2, u, stream)
              : launch<float>(pid, pk, valid, n, n_partitions, salts, key0,
                              key1, k1, k2, u, stream);
+}
+
+// key = key_total; writes pid_sent (int32) and u (F = float or double).
+extern "C" int total_keys(const void* pid, const void* valid, long long n,
+                          unsigned key0, unsigned key1, void* pid_sent,
+                          void* u, int f64, void* stream) {
+  return f64 ? launch_total<double>(pid, valid, n, key0, key1, pid_sent, u,
+                                    stream)
+             : launch_total<float>(pid, valid, n, key0, key1, pid_sent, u,
+                                   stream);
 }

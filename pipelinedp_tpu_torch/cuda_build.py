@@ -22,22 +22,27 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue")
+SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
+           "radix_sort", "compact_kept")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_U = ctypes.c_uint
 _SIGNATURES = {
     "row_keys": {
-        "row_keys": (_I, [_P, _P, _P, _LL, _I, _P, ctypes.c_uint,
-                          ctypes.c_uint, _P, _P, _P, _I, _P]),
+        "row_keys": (_I, [_P, _P, _P, _LL, _I, _P, _U, _U, _P, _P, _P, _I,
+                          _P]),
+        "total_keys": (_I, [_P, _P, _LL, _U, _U, _P, _P, _I, _P]),
     },
     "bound_rows": {
         "bound_rows_scratch_bytes": (_LL, [_LL]),
         "bound_rows": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _I,
                             _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
+        "total_bound_rows": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P,
+                                  _P, _P, _P, _I, _P]),
     },
     "reduce_partitions": {
         "reduce_partitions_scratch_bytes": (_LL, [_LL, _I]),
@@ -48,6 +53,15 @@ _SIGNATURES = {
         "release_epilogue": (_I, [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _I, _P]),
+    },
+    "radix_sort": {
+        "radix_sort_scratch_bytes": (_LL, [_LL]),
+        "radix_sort_varying": (_I, [_P, _P, _I, _LL, _P, _P]),
+        "radix_sort": (_I, [_P, _P, _I, _LL, _P, _P, _P, _P, _P]),
+    },
+    "compact_kept": {
+        "compact_kept_scratch_bytes": (_LL, [_LL]),
+        "compact_kept": (_I, [_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P]),
     },
 }
 

@@ -1,10 +1,10 @@
 """DPEngine: the DP aggregation entry point of the port.
 
-Port of pipelinedp_tpu/dp_engine.py's aggregate on the columnar route
-(:121-138): parameter and budget-accountant checks, then the aggregation
-lowers to the port's executor, which requests every budget at graph-build
-time and runs the kernels when the returned collection is first iterated,
-after BudgetAccountant.compute_budgets().
+Port of pipelinedp_tpu/dp_engine.py's aggregate and select_partitions on
+the columnar route (:121-138, :207-246): parameter and budget-accountant
+checks, then the call lowers to the port's executor, which requests every
+budget at graph-build time and runs the kernels when the returned
+collection is first iterated, after BudgetAccountant.compute_budgets().
 """
 
 from typing import Optional
@@ -13,7 +13,8 @@ from pipelinedp_tpu_torch import budget_accounting
 from pipelinedp_tpu_torch import executor
 from pipelinedp_tpu_torch import pipeline_backend
 from pipelinedp_tpu_torch import report_generator
-from pipelinedp_tpu_torch.aggregate_params import AggregateParams, Metrics
+from pipelinedp_tpu_torch.aggregate_params import (AggregateParams, Metrics,
+                                                   SelectPartitionsParams)
 from pipelinedp_tpu_torch.data_extractors import DataExtractors
 
 
@@ -62,7 +63,7 @@ class DPEngine:
         """
         self._check_aggregate_params(col, params, data_extractors)
         self._check_budget_accountant_compatibility()
-        executor.check_supported(params)
+        executor.check_supported(params, public_partitions)
         with self._budget_accountant.scope(weight=params.budget_weight):
             self._report_generators.append(
                 report_generator.ReportGenerator(params, "aggregate",
@@ -82,6 +83,53 @@ class DPEngine:
                 params.budget_weight)
         return self._guard_lazy_execution(col)
 
+    def select_partitions(self, col, params: SelectPartitionsParams,
+                          data_extractors: DataExtractors):
+        """Returns a lazy collection of DP-selected partition keys.
+
+        Args:
+          col: collection of same-typed elements, or a pre-encoded
+            columnar.EncodedData.
+          params: the L0 bound, strategy, pre_threshold and budget weight.
+          data_extractors: how to obtain (privacy_id, partition_key) from an
+            element; values are never read.
+        """
+        self._check_select_private_partitions(col, params, data_extractors)
+        self._check_budget_accountant_compatibility()
+        with self._budget_accountant.scope(weight=params.budget_weight):
+            self._report_generators.append(
+                report_generator.ReportGenerator(params, "select_partitions"))
+            col = executor.lazy_select_partitions(
+                backend=self._backend,
+                col=col,
+                params=params,
+                data_extractors=data_extractors,
+                budget_accountant=self._budget_accountant,
+                report_generator=self._current_report_generator)
+            self._budget_accountant._compute_budget_for_aggregation(
+                params.budget_weight)
+        return self._guard_lazy_execution(col)
+
+    def _check_select_private_partitions(
+            self, col, params: SelectPartitionsParams,
+            data_extractors: DataExtractors):
+        if col is None or _is_empty(col):
+            raise ValueError("col must be non-empty")
+        if params is None:
+            raise ValueError(
+                "params must be set to a valid SelectPartitionsParams")
+        if not isinstance(params, SelectPartitionsParams):
+            raise TypeError(
+                "params must be set to a valid SelectPartitionsParams")
+        if (not isinstance(params.max_partitions_contributed, int) or
+                params.max_partitions_contributed <= 0):
+            raise ValueError("params.max_partitions_contributed must be set "
+                             "(to a positive integer)")
+        if data_extractors is None:
+            raise ValueError("data_extractors must be set to a DataExtractors")
+        if not isinstance(data_extractors, DataExtractors):
+            raise TypeError("data_extractors must be set to a DataExtractors")
+
     def _check_aggregate_params(self, col, params: AggregateParams,
                                 data_extractors: DataExtractors):
         if col is None or _is_empty(col):
@@ -90,6 +138,15 @@ class DPEngine:
             raise ValueError("params must be set to a valid AggregateParams")
         if not isinstance(params, AggregateParams):
             raise TypeError("params must be set to a valid AggregateParams")
+        if params.max_contributions is not None:
+            supported = [
+                Metrics.PRIVACY_ID_COUNT, Metrics.COUNT, Metrics.SUM,
+                Metrics.MEAN
+            ]
+            not_supported = set(params.metrics).difference(supported)
+            if not_supported:
+                raise NotImplementedError(
+                    f"max_contributions is not supported for {not_supported}")
         if data_extractors is None:
             raise ValueError("data_extractors must be set to a DataExtractors")
         if not isinstance(data_extractors, DataExtractors):
@@ -123,7 +180,7 @@ class DPEngine:
             if grew:
                 raise AssertionError(
                     f"{grew} mechanism(s) registered with the "
-                    f"BudgetAccountant while iterating an aggregation "
+                    f"BudgetAccountant while iterating a lazy "
                     f"result: mechanisms must register at graph-build "
                     f"time, never during execution — this would "
                     f"double-spend the privacy budget.")

@@ -5,13 +5,19 @@ bounding, the per-partition reduction, private partition selection, noise
 and kept-first compaction run over columnar tensors on one device:
 
     rows (pid, pk, value)
+      [max_contributions: C1 total_bound_keys -> C5 sort by (pid, u0)
+       -> C2 total_bound_rows: first K rows of each pid, reordered]
       -> C1 row_keys: sort keys (pid|hash0, hash1|pk) + row uniform u
-      -> sort by (k1, k2, u)               # torch.sort, stable, LSD
+      -> C5 radix_sort by (k1, k2, u)
       -> C2 bound_rows: Linf rank < linf, L0 pair rank < l0, clipping
-      -> sort by kept partition            # torch.sort, stable
+      -> C5 radix_sort by kept partition
       -> C3 reduce_partitions: dense count/pid_count/sum/nsum/nsum2
       -> C4 release_epilogue: selection, noise, metric formulas, flags
-      -> kept-first compaction             # torch.argsort, stable
+      -> C6 compact_kept: kept-first compaction
+
+Standalone partition selection (lazy_select_partitions) runs the same
+kernels without values: C1 (no u), C5 by (k1, k2), C2 with linf = 0, C5
+by kept partition, C3's pid_count, C4 with an empty plan, C6.
 
 Random choices come from the JAX package's threefry keys (ops/threefry.py),
 derived on the host in the same order, so one seed gives the same bounded
@@ -24,6 +30,7 @@ mode the tests compare with the JAX package run under x64; float32 is the
 card's mode, as the TPU's was.
 """
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -44,8 +51,6 @@ from pipelinedp_tpu_torch.ops import threefry
 
 # Out-of-scope features name the ROADMAP item that ports them.
 _LATER = {
-    "max_contributions": "ROADMAP.md Queue 1: the total contribution bound "
-                         "(max_contributions)",
     "metric": "ROADMAP.md Queue 1 item 7 (metric and mode breadth)",
     "custom": "ROADMAP.md Queue 1 item 14 (custom combiners on the generic "
               "backends)",
@@ -67,7 +72,8 @@ class KernelConfig:
     """Static configuration of one dense release."""
     n_partitions: int
     linf: int  # 0 = no per-partition row sampling
-    l0: int
+    l0: int  # 0 = no cross-partition bound (max_contributions)
+    total_bound: int  # max_contributions; 0 = none
     sample_per_partition: bool
     clip_per_value: bool
     clip_pair_sum: bool
@@ -80,16 +86,19 @@ class KernelConfig:
     degenerate_range: bool  # min_value == max_value
 
 
-def check_supported(params: AggregateParams) -> None:
+def check_supported(params: AggregateParams, public_partitions) -> None:
     """Raises NotImplementedError for what this slice of the port does not
     run yet."""
     if params.custom_combiners:
         raise NotImplementedError(
             f"custom combiners are not ported yet: {_LATER['custom']}")
-    if params.max_contributions is not None:
+    if params.max_contributions is not None and public_partitions is None:
         raise NotImplementedError(
-            f"max_contributions is not ported yet: "
-            f"{_LATER['max_contributions']}")
+            "max_contributions with private partition selection: the JAX "
+            "package fails there (its selection takes "
+            "max_partitions_contributed, which is unset), so the port has "
+            "no reference to match; see ROADMAP.md Queue 3. Pass "
+            "public_partitions.")
     for metric in params.metrics or []:
         if metric == Metrics.VECTOR_SUM or metric.is_percentile:
             raise NotImplementedError(
@@ -156,11 +165,14 @@ def make_kernel_config(
     """Builds the release config from aggregation parameters."""
     max_rows = 1
     if params.contribution_bounds_already_enforced:
-        max_rows = params.max_contributions_per_partition or 1
+        max_rows = (params.max_contributions or
+                    params.max_contributions_per_partition or 1)
     return KernelConfig(
         n_partitions=n_partitions,
         linf=params.max_contributions_per_partition or 0,
-        l0=params.max_partitions_contributed or 0,
+        l0=(0 if params.max_contributions else
+            (params.max_partitions_contributed or 0)),
+        total_bound=params.max_contributions or 0,
         sample_per_partition=compound.expects_per_partition_sampling(),
         clip_per_value=params.bounds_per_contribution_are_set,
         clip_pair_sum=params.bounds_per_partition_are_set,
@@ -200,10 +212,11 @@ def pad_rows(encoded: columnar.EncodedData):
     pad = row_bucket(n) - n
     if pad == 0:
         return encoded.pid, encoded.pk, encoded.values, encoded.valid
+    values = (None if encoded.values is None else
+              np.concatenate([encoded.values, np.zeros(pad, np.float64)]))
     return (np.concatenate([encoded.pid, np.zeros(pad, np.int32)]),
             np.concatenate([encoded.pk, np.full(pad, -1, np.int32)]),
-            np.concatenate([encoded.values, np.zeros(pad, np.float64)]),
-            np.concatenate([encoded.valid, np.zeros(pad, bool)]))
+            values, np.concatenate([encoded.valid, np.zeros(pad, bool)]))
 
 
 def reduce_column_names(cfg: KernelConfig) -> List[str]:
@@ -220,11 +233,26 @@ def reduce_column_names(cfg: KernelConfig) -> List[str]:
 
 def sort_rows(k1: torch.Tensor, k2: torch.Tensor,
               u: torch.Tensor) -> torch.Tensor:
-    """Permutation sorting rows by (k1, k2, u): stable sorts from the least
-    significant key up (the JAX package's lax.sort over 5 keys)."""
-    perm = torch.argsort(u, stable=True)
-    perm = perm[torch.argsort(k2[perm], stable=True)]
-    return perm[torch.argsort(k1[perm], stable=True)]
+    """Permutation sorting rows by (k1, k2, u), stable (C5; the JAX
+    package's lax.sort over 5 keys)."""
+    return kernels.radix_sort([k1, k2, u])
+
+
+def bound_total_contributions(pid: torch.Tensor, pk: torch.Tensor,
+                              values: torch.Tensor, valid: torch.Tensor,
+                              key_total, total_bound: int,
+                              n_partitions: int):
+    """The total contribution bound (max_contributions): a uniform subset
+    of at most total_bound rows of each pid, ranked by one stable sort over
+    (pid, uniform(key_total)). Returns (pid, pk, values, valid) in that
+    order with the dropped rows invalid; the bounding sort's row uniforms
+    are drawn by position in this order, as in the JAX package."""
+    pid_sent, u0 = kernels.total_bound_keys(pid, valid, key_total,
+                                            values.dtype)
+    perm0, spid0 = kernels.radix_sort([pid_sent, u0], sorted_top=True)
+    return kernels.total_bound_rows(perm0, spid0, pk, values, valid,
+                                    total_bound=total_bound,
+                                    n_partitions=n_partitions)
 
 
 def bounded_row_columns(pid: torch.Tensor, pk: torch.Tensor,
@@ -239,7 +267,7 @@ def bounded_row_columns(pid: torch.Tensor, pk: torch.Tensor,
     elsewhere.
     """
     P = cfg.n_partitions
-    _, key_linf, key_l0 = threefry.split(rows_key, 3)
+    key_total, key_linf, key_l0 = threefry.split(rows_key, 3)
     scalars = (min_v, max_v, min_s, max_s, mid)
     common = dict(n_partitions=P, l0=cfg.l0,
                   clip_per_value=cfg.clip_per_value,
@@ -249,6 +277,9 @@ def bounded_row_columns(pid: torch.Tensor, pk: torch.Tensor,
         # Each row is its own contribution group: no bounding sort.
         return kernels.bound_rows(None, None, None, pk, values, valid,
                                   linf=0, **common)
+    if cfg.total_bound:
+        pid, pk, values, valid = bound_total_contributions(
+            pid, pk, values, valid, key_total, cfg.total_bound, P)
     k1, k2, u = kernels.row_keys(pid, pk, valid, threefry.bits(key_l0, 4),
                                  key_linf, P, values.dtype)
     perm = sort_rows(k1, k2, u)
@@ -263,7 +294,7 @@ def reduce_rows_to_partitions(key2: torch.Tensor, pair_start: torch.Tensor,
                               dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """Phase 1b: dense [0, n_partitions) partition columns from the bounded
     row stream (one stable sort by kept partition, then C3)."""
-    skey2, perm = torch.sort(key2, stable=True)
+    perm, skey2 = kernels.radix_sort([key2], sorted_top=True)
     cols = kernels.reduce_partitions(skey2, perm, pair_start, reduce_cols,
                                      n_partitions, dtype)
     cols['row_count'] = cols['pid_count']
@@ -299,11 +330,10 @@ def finalize(cols: Dict[str, torch.Tensor], min_v, mid, stds: np.ndarray,
 
 
 def compact_release(outputs: Dict[str, torch.Tensor], keep: torch.Tensor):
-    """Kept-first compaction: a stable argsort of ~keep puts kept partitions
-    first in ascending id order (exactly nonzero(keep)). Returns (n_kept,
-    order int64[P], outputs in that order)."""
-    order = torch.argsort((~keep).to(torch.uint8), stable=True)
-    return keep.sum(), order, {n: c[order] for n, c in outputs.items()}
+    """Kept-first compaction (C6): kept partitions first in ascending id
+    order (exactly nonzero(keep)). Returns (n_kept, order int64[P],
+    outputs in that order)."""
+    return kernels.compact_kept(keep, outputs)
 
 
 def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
@@ -325,10 +355,12 @@ def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
 
 def to_device(encoded: columnar.EncodedData, device: torch.device,
               dtype: torch.dtype):
-    """pad_rows + one host-to-device copy per column."""
+    """pad_rows + one host-to-device copy per column (values None when the
+    encoding has none)."""
     pid, pk, values, valid = pad_rows(encoded)
     return (torch.as_tensor(pid, dtype=torch.int32).to(device),
             torch.as_tensor(pk, dtype=torch.int32).to(device),
+            None if values is None else
             torch.as_tensor(values).to(device=device, dtype=dtype),
             torch.as_tensor(valid).to(device))
 
@@ -352,16 +384,22 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
         report_generator.add_stage(
             "Public partition selection: dropped non public partitions")
     if not params.contribution_bounds_already_enforced:
-        if compound.expects_per_partition_sampling():
+        if params.max_contributions:
             report_generator.add_stage(
-                f"Per-partition contribution bounding: for each privacy_id "
-                f"and each partition, randomly select "
-                f"max(actual_contributions_per_partition, "
-                f"{params.max_contributions_per_partition}) contributions.")
-        report_generator.add_stage(
-            f"Cross-partition contribution bounding: for each privacy_id "
-            f"randomly select max(actual_partition_contributed, "
-            f"{params.max_partitions_contributed}) partitions")
+                f"User contribution bounding: randomly selected not "
+                f"more than {params.max_contributions} contributions")
+        else:
+            if compound.expects_per_partition_sampling():
+                report_generator.add_stage(
+                    f"Per-partition contribution bounding: for each "
+                    f"privacy_id and each partition, randomly select "
+                    f"max(actual_contributions_per_partition, "
+                    f"{params.max_contributions_per_partition}) "
+                    f"contributions.")
+            report_generator.add_stage(
+                f"Cross-partition contribution bounding: for each privacy_id "
+                f"randomly select max(actual_partition_contributed, "
+                f"{params.max_partitions_contributed}) partitions")
     if private:
         strategy = params.partition_selection_strategy
         pre_threshold_str = (f", pre_threshold={params.pre_threshold}"
@@ -428,3 +466,86 @@ def decode_release_results(n_kept, order, outputs, flags,
         yield (partition_vocab[idx],
                dp_combiners._create_named_tuple_instance(
                    "MetricsTuple", field_order, values))
+
+
+def select_partitions_release_kernel(pid: torch.Tensor, pk: torch.Tensor,
+                                     valid: torch.Tensor, rng_key, l0: int,
+                                     n_partitions: int,
+                                     selection: selection_ops.SelectionParams,
+                                     dtype: torch.dtype):
+    """Standalone DP partition selection with kept-first compaction (the
+    JAX package's select_partitions_release_kernel, :1107).
+
+    Pairs are deduplicated and each pid's partitions L0-sampled by the
+    bounding machinery without values: C1 keys (no uniform), C5 by
+    (k1, k2), C2 with no row cap; the kept pair starts per partition (C5
+    by kept partition, C3's pid_count, exact integers) are the privacy-id
+    counts the JAX package scatter-adds; C4 draws the keep decisions with
+    an empty metric plan and C6 compacts. Returns (n_kept, order).
+    """
+    key_l0, key_sel = threefry.split(rng_key, 2)
+    k1, k2, _ = kernels.row_keys(pid, pk, valid, threefry.bits(key_l0, 4),
+                                 None, n_partitions, None)
+    perm = kernels.radix_sort([k1, k2])
+    key2, pair_start, _ = kernels.bound_rows(
+        perm, k1, k2, pk, None, valid, n_partitions=n_partitions, linf=0,
+        l0=l0, clip_per_value=False, clip_pair_sum=False,
+        scalars=(0.0,) * 5, columns=())
+    cols = reduce_rows_to_partitions(key2, pair_start, {}, n_partitions,
+                                     dtype)
+    keep, _, _ = kernels.release_epilogue(
+        cols, [], np.zeros(0), np.zeros((0, 2), np.uint32), NoiseKind.LAPLACE,
+        False, 0.0, 0.0, selection, key_sel, 1)
+    n_kept, order, _ = kernels.compact_kept(keep, {})
+    return n_kept, order
+
+
+def lazy_select_partitions(backend, col, params, data_extractors,
+                           budget_accountant, report_generator):
+    """Graph-time setup + lazily executed partition selection (dense,
+    single-device route of the JAX package's lazy_select_partitions).
+
+    The budget is requested NOW (graph time); the kernels run when the
+    returned generator is first iterated, after compute_budgets().
+    """
+    budget = budget_accountant.request_budget(
+        mechanism_type=MechanismType.GENERIC)
+    strategy = params.partition_selection_strategy
+    pre_threshold_str = (f", pre_threshold={params.pre_threshold}"
+                         if params.pre_threshold else "")
+    report_generator.add_stage(
+        lambda: f"Private Partition selection: using {strategy.value} "
+        f"method with (eps={budget.eps}, delta={budget.delta}"
+        f"{pre_threshold_str})")
+
+    def generator():
+        # Selection never reads values: they are neither extracted nor
+        # copied to the device (a pre-encoded input's are dropped here).
+        encoded = dataclasses.replace(
+            columnar.encode(col, data_extractors, with_values=False),
+            values=None)
+        selection = selection_ops.selection_params_from_host(
+            strategy, budget.eps, budget.delta,
+            params.max_partitions_contributed, params.pre_threshold)
+        n_partitions = encoded.n_partitions
+        if n_partitions > backend.large_partition_threshold:
+            raise NotImplementedError(
+                f"{n_partitions} partitions exceed large_partition_threshold="
+                f"{backend.large_partition_threshold}: {_LATER['large_p']}")
+        key = noise_ops.make_noise_key(backend.noise_seed)
+        pid, pk, _, valid = to_device(encoded, backend.device, backend.dtype)
+        with budget_accountant.no_new_mechanisms(
+                "partition selection execution"):
+            n_kept, order = select_partitions_release_kernel(
+                pid, pk, valid, key, params.max_partitions_contributed,
+                n_partitions, selection, backend.dtype)
+        yield from decode_selected_partitions(n_kept, order,
+                                              encoded.partition_vocab)
+
+    return generator()
+
+
+def decode_selected_partitions(n_kept, order, partition_vocab):
+    """Kept partition keys: one host copy of n_kept, then O(kept) ids."""
+    for idx in order[:int(n_kept.cpu())].cpu().numpy():
+        yield partition_vocab[idx]

@@ -1,18 +1,22 @@
-"""The four CUDA kernels of the dense release path, their wrappers and their
-plain PyTorch versions.
+"""The six CUDA kernels of the dense release and selection paths, their
+wrappers and their plain PyTorch versions.
 
-    C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform
-    C2 bound_rows         csrc/bound_rows.cu         L0/Linf bounding, row columns
+    C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform;
+                                                     total-bound keys (total_bound_keys)
+    C2 bound_rows         csrc/bound_rows.cu         L0/Linf bounding, row columns;
+                                                     total bound (total_bound_rows)
     C3 reduce_partitions  csrc/reduce_partitions.cu  dense partition columns
     C4 release_epilogue   csrc/release_epilogue.cu   selection, noise, metrics, flags
+    C5 radix_sort         csrc/radix_sort.cu         stable multi-word LSD radix sort
+    C6 compact_kept       csrc/compact_kept.cu       kept-first compaction
 
 Each wrapper launches its kernel on the current CUDA stream when its inputs
 lie on a CUDA device, and computes the plain version when they lie on the
 CPU (the tests' path). On a CUDA tensor it never falls back: a failed build
 or launch raises. Outputs and scratch are allocated here with torch; the
 kernels allocate nothing. `launch_counts` counts wrapper calls that
-launched a kernel (C2 and C3 issue three CUDA launches each: a tile scan's
-aggregate, prefix and final passes).
+launched a kernel, under the name of the kernel's source (a tile scan
+issues three CUDA launches; a radix sort three a pass).
 """
 
 import ctypes
@@ -29,7 +33,8 @@ from pipelinedp_tpu_torch.ops import segment_ops
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
 
-KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue")
+KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
+           "radix_sort", "compact_kept")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -37,6 +42,7 @@ PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
 OUTPUT_BITS = {"count": 1, "privacy_id_count": 2, "sum": 4, "mean": 8,
                "variance": 16}
 _M32 = 0xFFFFFFFF
+_INT32_MAX = 0x7FFFFFFF
 
 
 def reset_launch_counts() -> None:
@@ -90,14 +96,15 @@ def _f64(dtype: torch.dtype) -> int:
 
 def row_keys(pid: torch.Tensor, pk: torch.Tensor, valid: torch.Tensor,
              salts: np.ndarray, key, n_partitions: int,
-             dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor,
-                                          torch.Tensor]:
+             dtype: Optional[torch.dtype]
+             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Bounding-sort keys (k1, k2) and the row uniform u, per row.
 
     k1 = pid << 32 | hash0 and k2 = (hash1 ^ 2^31) << 32 | pk, with
     invalid rows at pid = INT32_MAX, pk = n_partitions: sorting by
     (k1, k2, u) is the JAX package's sort by (pid, hash0, hash1, pk, u).
-    salts: jax.random.bits(key_l0, (4,)); key: key_linf.
+    salts: jax.random.bits(key_l0, (4,)); key: key_linf. With dtype None
+    no uniform is drawn and u is None (standalone selection).
     """
     n = pid.shape[0]
     _check(pid, torch.int32, n, "pid")
@@ -108,12 +115,14 @@ def row_keys(pid: torch.Tensor, pk: torch.Tensor, valid: torch.Tensor,
                               dtype)
     k1 = torch.empty(n, dtype=torch.int64, device=pid.device)
     k2 = torch.empty_like(k1)
-    u = torch.empty(n, dtype=dtype, device=pid.device)
+    u = None if dtype is None else torch.empty(n, dtype=dtype,
+                                               device=pid.device)
     salts_c = (ctypes.c_uint * 4)(*[int(s) for s in salts])
+    key = (0, 0) if key is None else key
     status = cuda_build.library("row_keys").row_keys(
         _ptr(pid), _ptr(pk), _ptr(valid), n, n_partitions, salts_c,
-        int(key[0]), int(key[1]), _ptr(k1), _ptr(k2), _ptr(u), _f64(dtype),
-        _stream(pid.device))
+        int(key[0]), int(key[1]), _ptr(k1), _ptr(k2), _ptr(u),
+        0 if dtype is None else _f64(dtype), _stream(pid.device))
     _raise_on(status, "row_keys")
     launch_counts["row_keys"] += 1
     return k1, k2, u
@@ -144,8 +153,36 @@ def row_keys_plain(pid, pk, valid, salts, key, n_partitions, dtype):
     lane0, lane1 = pair_hash(p, q, salts)
     k1 = (p << 32) | lane0
     k2 = ((lane1 - 0x80000000) << 32) | q
-    u = threefry.uniform(key, pid.shape[0], dtype, device=pid.device)
+    u = (None if dtype is None else
+         threefry.uniform(key, pid.shape[0], dtype, device=pid.device))
     return k1, k2, u
+
+
+def total_bound_keys(pid: torch.Tensor, valid: torch.Tensor, key,
+                     dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The total-bound sort key (C1's second entry): pid_sent = pid where
+    valid, INT32_MAX elsewhere, and u = uniform(key_total)[i] of the
+    working dtype; sorting by (pid_sent, u) is the JAX package's sort at
+    executor.py:370."""
+    n = pid.shape[0]
+    _check(pid, torch.int32, n, "pid")
+    _check(valid, torch.bool, n, "valid")
+    if not _on_cuda(pid, valid):
+        return total_bound_keys_plain(pid, valid, key, dtype)
+    pid_sent = torch.empty(n, dtype=torch.int32, device=pid.device)
+    u = torch.empty(n, dtype=dtype, device=pid.device)
+    status = cuda_build.library("row_keys").total_keys(
+        _ptr(pid), _ptr(valid), n, int(key[0]), int(key[1]), _ptr(pid_sent),
+        _ptr(u), _f64(dtype), _stream(pid.device))
+    _raise_on(status, "row_keys")
+    launch_counts["row_keys"] += 1
+    return pid_sent, u
+
+
+def total_bound_keys_plain(pid, valid, key, dtype):
+    pid_sent = torch.where(valid, pid, _INT32_MAX).to(torch.int32)
+    return pid_sent, threefry.uniform(key, pid.shape[0], dtype,
+                                      device=pid.device)
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +191,7 @@ def row_keys_plain(pid, pk, valid, salts, key, n_partitions, dtype):
 
 def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
                k2: Optional[torch.Tensor], pk: torch.Tensor,
-               values: torch.Tensor, valid: torch.Tensor, *,
+               values: Optional[torch.Tensor], valid: torch.Tensor, *,
                n_partitions: int, linf: int, l0: int, clip_per_value: bool,
                clip_pair_sum: bool, scalars: Sequence[float],
                columns: Sequence[str]):
@@ -163,15 +200,18 @@ def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
     perm: the sorted order (row index per sorted position). With k1 = k2 =
     perm = None every row is its own pair (contribution bounds already
     enforced) and pk gives its partition. linf: per-pair row cap (0 =
-    none); l0: pairs kept per pid. scalars = (min_v, max_v, min_s, max_s,
-    mid) as Python floats. columns: the reduce columns to emit, a subset
-    of ("sum", "nsum", "nsum2").
+    none); l0: pairs kept per pid (0 = none). scalars = (min_v, max_v,
+    min_s, max_s, mid) as Python floats. columns: the reduce columns to
+    emit, a subset of ("sum", "nsum", "nsum2"); with values None (standalone
+    selection) there are none.
 
     Returns (key2 int32[n], pair_start bool[n], {column: F[n]}) in sorted
     order; key2 = partition of a kept row, n_partitions otherwise.
     """
     n = valid.shape[0]
-    dtype = values.dtype
+    if values is None and columns:
+        raise ValueError("bound_rows: columns need values")
+    dtype = torch.float32 if values is None else values.dtype
     _f64(dtype)
     for t, dt, what in ((perm, torch.int64, "perm"), (k1, torch.int64, "k1"),
                         (k2, torch.int64, "k2"), (pk, torch.int32, "pk"),
@@ -184,7 +224,7 @@ def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
                                 clip_per_value=clip_per_value,
                                 clip_pair_sum=clip_pair_sum, scalars=scalars,
                                 columns=columns)
-    dev = values.device
+    dev = valid.device
     lib = cuda_build.library("bound_rows")
     key2 = torch.empty(n, dtype=torch.int32, device=dev)
     pair_start = torch.empty(n, dtype=torch.bool, device=dev)
@@ -205,9 +245,6 @@ def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
 
 def bound_rows_plain(perm, k1, k2, pk, values, valid, *, n_partitions, linf,
                      l0, clip_per_value, clip_pair_sum, scalars, columns):
-    dtype, dev = values.dtype, values.device
-    min_v, max_v, min_s, max_s, mid = (
-        torch.tensor(s, dtype=dtype, device=dev) for s in scalars)
     if k1 is None:  # rows are their own pairs
         svalid, sval = valid, values
         spk = torch.where(valid, pk, n_partitions)
@@ -215,18 +252,24 @@ def bound_rows_plain(perm, k1, k2, pk, values, valid, *, n_partitions, linf,
         new_pair = torch.ones_like(valid)
     else:
         sk1, sk2 = k1[perm], k2[perm]
-        svalid, sval = valid[perm], values[perm]
+        svalid = valid[perm]
+        sval = None if values is None else values[perm]
         spk = (sk2 & _M32).to(torch.int32)
         new_pair = segment_ops.boundary_mask(sk1, sk2)
         _, rank = segment_ops.segment_starts_and_ids(new_pair)
         row_mask = svalid & (rank < linf) if linf else svalid
         new_pid = segment_ops.boundary_mask(sk1 >> 32)
         pair_rank = segment_ops.segment_rank_of_segments(new_pair, new_pid)
-        keep = row_mask & (pair_rank < l0)
+        keep = row_mask & (pair_rank < l0) if l0 else row_mask
     pair_start = new_pair & keep
     key2 = torch.where(keep, spk, n_partitions).to(torch.int32)
-    clipped = torch.clamp(sval, min_v, max_v) if clip_per_value else sval
     cols = {}
+    if not columns:
+        return key2, pair_start, cols
+    dtype, dev = values.dtype, values.device
+    min_v, max_v, min_s, max_s, mid = (
+        torch.tensor(s, dtype=dtype, device=dev) for s in scalars)
+    clipped = torch.clamp(sval, min_v, max_v) if clip_per_value else sval
     if "sum" in columns:
         contrib = torch.where(keep, clipped, 0.0)
         if clip_pair_sum:
@@ -245,6 +288,58 @@ def bound_rows_plain(perm, k1, k2, pk, values, valid, *, n_partitions, linf,
         if "nsum2" in columns:
             cols["nsum2"] = centered * centered
     return key2, pair_start, cols
+
+
+def total_bound_rows(perm: torch.Tensor, spid: torch.Tensor,
+                     pk: torch.Tensor, values: torch.Tensor,
+                     valid: torch.Tensor, *, total_bound: int,
+                     n_partitions: int):
+    """The total contribution bound (C2's second entry).
+
+    perm / spid: the stable sort of total_bound_keys by (pid_sent, u) and
+    the sorted pid_sent. Keeps the first total_bound rows of each pid in
+    that order. Returns (pid, pk, values, valid) in that order: valid0 =
+    valid & rank < total_bound, and pid = INT32_MAX, pk = n_partitions
+    where not valid0 (executor.py:371-378 of the JAX package).
+    """
+    n = valid.shape[0]
+    dtype = values.dtype
+    _f64(dtype)
+    for t, dt, what in ((perm, torch.int64, "perm"),
+                        (spid, torch.int32, "spid"), (pk, torch.int32, "pk"),
+                        (values, dtype, "values"),
+                        (valid, torch.bool, "valid")):
+        _check(t, dt, n, what)
+    if not _on_cuda(perm, spid, pk, values, valid):
+        return total_bound_rows_plain(perm, spid, pk, values, valid,
+                                      total_bound=total_bound,
+                                      n_partitions=n_partitions)
+    dev = valid.device
+    lib = cuda_build.library("bound_rows")
+    pid_out = torch.empty(n, dtype=torch.int32, device=dev)
+    pk_out = torch.empty(n, dtype=torch.int32, device=dev)
+    values_out = torch.empty(n, dtype=dtype, device=dev)
+    valid_out = torch.empty(n, dtype=torch.bool, device=dev)
+    scratch = torch.empty(max(1, lib.bound_rows_scratch_bytes(n)),
+                          dtype=torch.uint8, device=dev)
+    status = lib.total_bound_rows(
+        _ptr(perm), _ptr(spid), _ptr(pk), _ptr(values), _ptr(valid), n,
+        total_bound, n_partitions, _ptr(scratch), _ptr(pid_out),
+        _ptr(pk_out), _ptr(values_out), _ptr(valid_out), _f64(dtype),
+        _stream(dev))
+    _raise_on(status, "bound_rows")
+    launch_counts["bound_rows"] += 1
+    return pid_out, pk_out, values_out, valid_out
+
+
+def total_bound_rows_plain(perm, spid, pk, values, valid, *, total_bound,
+                           n_partitions):
+    _, rank = segment_ops.segment_starts_and_ids(
+        segment_ops.boundary_mask(spid))
+    valid0 = valid[perm] & (rank < total_bound)
+    return (torch.where(valid0, spid, _INT32_MAX).to(torch.int32),
+            torch.where(valid0, pk[perm], n_partitions).to(torch.int32),
+            values[perm], valid0)
 
 
 # ---------------------------------------------------------------------------
@@ -430,3 +525,105 @@ def release_epilogue_plain(cols, plan, stds, slot_keys, noise_kind,
     flags = torch.tensor([numeric.flags_from_mask(outputs, keep)],
                          dtype=torch.int32, device=dev)
     return keep, outputs, flags
+
+
+# ---------------------------------------------------------------------------
+# C5 radix_sort
+
+_SORT_KINDS = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+               torch.float64: 3}
+
+
+def radix_sort(words: Sequence[torch.Tensor], sorted_top: bool = False):
+    """The stable permutation sorting rows by `words`, most significant
+    first (1 to 3 int32 / int64 / float32 / float64 columns of one length).
+
+    Integers sort by value; floats by value with -0.0 before +0.0 (the
+    sorts of the port see no negative zero or NaN). Returns perm int64[n],
+    or (perm, words[0][perm]) with sorted_top.
+    """
+    if not 1 <= len(words) <= 3:
+        raise ValueError(f"radix_sort takes 1 to 3 key words, got "
+                         f"{len(words)}")
+    n = words[0].shape[0]
+    for j, word in enumerate(words):
+        if word.dtype not in _SORT_KINDS:
+            raise ValueError(f"radix_sort: word {j} has dtype {word.dtype}")
+        _check(word, word.dtype, n, f"word {j}")
+    if not _on_cuda(*words):
+        return radix_sort_plain(words, sorted_top)
+    if n >= 1 << 31:
+        raise ValueError(f"radix_sort: {n} rows exceed 2^31")
+    dev = words[0].device
+    lib = cuda_build.library("radix_sort")
+    ptrs = (ctypes.c_void_p * len(words))(*[w.data_ptr() for w in words])
+    kinds = (ctypes.c_int * len(words))(*[_SORT_KINDS[w.dtype]
+                                          for w in words])
+    stream = _stream(dev)
+    masks = torch.zeros(len(words), dtype=torch.int64, device=dev)
+    _raise_on(lib.radix_sort_varying(ptrs, kinds, len(words), n, _ptr(masks),
+                                     stream), "radix_sort")
+    # One small copy: the number of passes follows the bits that vary.
+    host_masks = (ctypes.c_ulonglong * len(words))(
+        *[m & 0xFFFFFFFFFFFFFFFF for m in masks.cpu().tolist()])
+    scratch = torch.empty(max(1, lib.radix_sort_scratch_bytes(n)),
+                          dtype=torch.uint8, device=dev)
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    top = torch.empty_like(words[0]) if sorted_top else None
+    _raise_on(lib.radix_sort(ptrs, kinds, len(words), n, host_masks,
+                             _ptr(scratch), _ptr(perm), _ptr(top), stream),
+              "radix_sort")
+    launch_counts["radix_sort"] += 1
+    return (perm, top) if sorted_top else perm
+
+
+def radix_sort_plain(words, sorted_top=False):
+    perm = torch.arange(words[0].shape[0], device=words[0].device)
+    for word in reversed(words):
+        perm = perm[torch.argsort(word[perm], stable=True)]
+    return (perm, words[0][perm]) if sorted_top else perm
+
+
+# ---------------------------------------------------------------------------
+# C6 compact_kept
+
+
+def compact_kept(keep: torch.Tensor, columns: Dict[str, torch.Tensor]):
+    """Kept-first compaction: order holds the kept ids ascending, then the
+    dropped ids ascending (argsort(~keep, stable=True); its kept prefix is
+    nonzero(keep)), and every column is gathered into that order.
+
+    Returns (n_kept int64[], order int64[P], {name: column in order}).
+    """
+    p = keep.shape[0]
+    _check(keep, torch.bool, p, "keep")
+    elem = {c.element_size() for c in columns.values()}
+    for name, col in columns.items():
+        _check(col, col.dtype, p, name)
+    if len(elem) > 1 or not elem <= {4, 8}:
+        raise ValueError(f"compact_kept: columns must share a 4- or 8-byte "
+                         f"dtype, got {[c.dtype for c in columns.values()]}")
+    if not _on_cuda(keep, *columns.values()):
+        return compact_kept_plain(keep, columns)
+    dev = keep.device
+    lib = cuda_build.library("compact_kept")
+    out = {name: torch.empty_like(col) for name, col in columns.items()}
+    order = torch.empty(p, dtype=torch.int64, device=dev)
+    n_kept = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(1, lib.compact_kept_scratch_bytes(p)),
+                          dtype=torch.uint8, device=dev)
+    in_c = (ctypes.c_void_p * len(columns))(
+        *[c.data_ptr() for c in columns.values()])
+    out_c = (ctypes.c_void_p * len(columns))(
+        *[out[name].data_ptr() for name in columns])
+    status = lib.compact_kept(_ptr(keep), p, in_c, out_c, len(columns),
+                              elem.pop() if elem else 8, _ptr(scratch),
+                              _ptr(order), _ptr(n_kept), _stream(dev))
+    _raise_on(status, "compact_kept")
+    launch_counts["compact_kept"] += 1
+    return n_kept, order, out
+
+
+def compact_kept_plain(keep, columns):
+    order = torch.argsort((~keep).to(torch.uint8), stable=True)
+    return keep.sum(), order, {n: c[order] for n, c in columns.items()}

@@ -1,8 +1,9 @@
 """TorchBackend: the port's single-device columnar backend.
 
 Port of the dense route of pipelinedp_tpu/pipeline_backend.py TPUBackend.
-DPEngine.aggregate on a TorchBackend lowers to the port's executor
-(executor.lazy_aggregate): four CUDA kernels plus torch sorts on the card.
+DPEngine.aggregate and DPEngine.select_partitions on a TorchBackend lower to
+the port's executor (executor.lazy_aggregate, lazy_select_partitions): six
+CUDA kernels on the card.
 """
 
 from typing import Optional, Union

@@ -230,6 +230,72 @@ def test_huge_epsilon_release_is_exact():
             len({r[0] for r in mine}), abs=1e-2)
 
 
+def test_max_contributions_total_bound():
+    # tests/test_dp_engine.py::test_max_contributions_total_bound.
+    rows = [("u1", "A", 1.0)] * 6 + [("u1", "B", 1.0)] * 6
+    got = assert_same_release(rows, dict(metrics=["COUNT"],
+                                         max_contributions=4),
+                              public=["A", "B"])
+    assert got["A"].count + got["B"].count == pytest.approx(4, abs=0.05)
+
+
+MAX_CONTRIBUTIONS_METRICS = {
+    "count": ["COUNT"],
+    "privacy_id_count": ["PRIVACY_ID_COUNT"],
+    "sum": ["SUM"],
+    "mean": ["MEAN", "COUNT", "SUM"],
+}
+
+
+@pytest.mark.parametrize("metrics", sorted(MAX_CONTRIBUTIONS_METRICS))
+@pytest.mark.parametrize("noise", ["LAPLACE", "GAUSSIAN"])
+def test_max_contributions_matches_tpu_backend(metrics, noise):
+    rows = random_rows(9)  # ~10 rows a user: a bound of 6 bites
+    params = dict(metrics=MAX_CONTRIBUTIONS_METRICS[metrics],
+                  noise_kind=noise, max_contributions=6, min_value=0.0,
+                  max_value=5.0)
+    assert_same_release(rows, params, public=[f"p{i}" for i in range(20)],
+                        eps=3.0, delta=1e-6)
+
+
+def test_max_contributions_at_huge_epsilon_is_exact():
+    rows = random_rows(4, 600)
+    per_user = {}
+    for u, _, _ in rows:
+        per_user[u] = per_user.get(u, 0) + 1
+    params = dict(metrics=["COUNT", "SUM", "PRIVACY_ID_COUNT"],
+                  noise_kind="LAPLACE",
+                  max_contributions=max(per_user.values()), min_value=-1.0,
+                  max_value=6.0)
+    public = sorted({r[1] for r in rows})
+    got = assert_same_release(rows, params, public=public, eps=1e9)
+    for p in public:
+        mine = [r for r in rows if r[1] == p]
+        assert got[p].count == pytest.approx(len(mine), abs=1e-2)
+        assert got[p].sum == pytest.approx(sum(r[2] for r in mine), abs=1e-2)
+        assert got[p].privacy_id_count == pytest.approx(
+            len({r[0] for r in mine}), abs=1e-2)
+
+
+def test_max_contributions_with_private_selection_is_refused():
+    # The JAX package fails here with a TypeError (its selection reads the
+    # unset max_partitions_contributed); the port refuses up front.
+    params = dict(metrics=["COUNT"], max_contributions=3)
+    with pytest.raises(TypeError):
+        run(pdp, SIMPLE_ROWS, params)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 3"):
+        run(tdp, SIMPLE_ROWS, params)
+
+
+@pytest.mark.parametrize("mod", [pdp, tdp], ids=["jax", "torch"])
+def test_max_contributions_variance_raises_as_in_jax(mod):
+    with pytest.raises(NotImplementedError,
+                       match="max_contributions is not supported"):
+        run(mod, SIMPLE_ROWS, dict(metrics=["VARIANCE"], max_contributions=3,
+                                   min_value=0.0, max_value=5.0),
+            public=["A"])
+
+
 @pytest.mark.parametrize("public", [True, False], ids=["public", "private"])
 def test_pre_encoded_columns_carried_across(public):
     # The JAX package's encoded columns, carried across by

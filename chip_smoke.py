@@ -12,9 +12,13 @@ Phases (any failure raises and the script exits non-zero):
              on a small input and at the main path's full-size shapes
              (C5 on the bounding, partition, total-bound and selection
              keys; C6 at 17,770 and 2^21 partitions); median time over
-             warmed repeats (CUDA events)
-  3. parity  a small aggregation and a small selection on the card in
-             float64 against the same on the CPU (the plain versions)
+             warmed repeats (CUDA events). Then C7 (leaf histogram, level
+             roll-ups, lazy child counts), C8 (dense and lazy descent),
+             C9 (L1, L2, L-inf) and C3's vector entry, at 4096 rows and
+             2^24 rows, with torch.bincount beside C7
+  3. parity  small aggregations (PERCENTILE in both regimes, VECTOR_SUM
+             among them) and a small selection on the card in float64
+             against the same on the CPU (the plain versions)
   4. main    DPEngine.aggregate on TorchBackend() (cuda, float32) at full
              size: 2^24 Netflix-Prize-shaped rows (480,189 privacy ids,
              17,770 movies, Zipf popularity, ratings 1-5), pre-encoded by
@@ -26,15 +30,28 @@ Phases (any failure raises and the script exits non-zero):
                (d) COUNT+SUM+MEAN, Laplace, public, max_contributions = 64
                (e) as (d) with max_contributions = the data's largest
                    count per user at epsilon = 1e6, checked as (c)
+               (f) PERCENTILE 10/50/90 + COUNT, Gaussian, public: the lazy
+                   quantile regime (17,770 partitions)
+               (g) as (f) at epsilon = 1e6 with the true maxima, each
+                   percentile checked against the partition's order
+                   statistics
+               (h) PERCENTILE 50 + COUNT, Laplace, private selection,
+                   grouped by a release year drawn per movie (1890-2005):
+                   the dense quantile regime
+               (i) VECTOR_SUM (one-hot rating, D = 5) + COUNT, Gaussian,
+                   public, L2 norm ball of 1000: some partitions clipped
+               (j) as (i) at epsilon = 1e6, norm 1e9 and the true maxima,
+                   checked per coordinate against a numpy group-by
   5. select  DPEngine.select_partitions at full size, l0 = 64, for the
              three selection strategies
              Each run of 4 and 5 starts with the launch counts at 0 and
              fails if a kernel of its path did not launch.
-  6. stages  run (a)'s release step by step with CUDA events between the
-             stages: where its time goes.
-  7. profile one run (a) and one select under torch.profiler: the
-             device's busy time (kernels and copies), its idle share of
-             the release's wall time, and the largest device entries.
+  6. stages  runs (a), (f) and (i) with CUDA events around every kernel
+             wrapper the executor calls: where their time goes.
+  7. profile one run (a), one run (f) and one select under
+             torch.profiler: the device's busy time (kernels and copies),
+             its idle share of the release's wall time, and the largest
+             device entries.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -55,6 +72,12 @@ N_MOVIES = 17_770
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 SEED = 20261017
+# The kernels every aggregation and selection launches (C1-C6); the
+# percentile and vector paths add theirs.
+BASE_KERNELS = ("row_keys", "bound_rows", "reduce_partitions",
+                "release_epilogue", "radix_sort", "compact_kept")
+PERCENTILE_PATH = BASE_KERNELS + ("quantile_counts", "quantile_descend")
+VECTOR_PATH = BASE_KERNELS + ("vector_release",)
 
 
 def card_line() -> str:
@@ -159,19 +182,28 @@ def main() -> int:
         raise AssertionError(f"{encoded.n_partitions} movies drawn, "
                              f"expected {N_MOVIES}")
 
+    years = by_release_year(encoded)
+    onehot = one_hot_ratings(encoded)
+
     # 2. kernels -----------------------------------------------------------
     report = kernel_phase(torch, dev, encoded, kernels, executor, threefry)
+    report += quantile_vector_kernel_phase(torch, dev, encoded, years,
+                                           kernels, threefry)
 
     # 3. parity ------------------------------------------------------------
     parity_phase(torch, tdp, rng)
+    quantile_vector_parity_phase(torch, tdp, rng)
     select_parity_phase(torch, tdp, rng)
 
     # 4.-5. main paths -----------------------------------------------------
     launches = main_phase(torch, tdp, encoded, kernels, card)
-    for name, count in select_phase(torch, tdp, encoded, kernels,
-                                    card).items():
-        launches[name] += count
-    stage_phase(torch, dev, encoded, executor, card)
+    for phase in (quantile_vector_main_phase(torch, dev, tdp, encoded, years,
+                                             onehot, kernels, executor,
+                                             card),
+                  select_phase(torch, tdp, encoded, kernels, card)):
+        for name, count in phase.items():
+            launches[name] += count
+    kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card)
     profile_phase(torch, tdp, encoded, card)
     for entry in report:
         entry["launches"] = launches[entry["name"]]
@@ -402,6 +434,10 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
         bounding = [k1, k2, u]
         half, ccols = compact_args[P]
         n_kept = int(half.sum())
+        # Rows the bounding kept: the only rows whose columns C3 needs.
+        kept_rows = int((skey2 < P).sum())
+        print(f"bounded rows kept: {kept_rows} of {n} (l0 = 64, linf = 1)",
+              flush=True)
         timing = {
             "row_keys": (c1, c1p, None,
                          bound(n * (4 + 4 + 1) + n * (8 + 8 + fsz),
@@ -410,8 +446,9 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                            bound(n * (8 + 8 + 8 + fsz + 1) +
                                  n * (4 + 1 + n_cols * fsz), n * 40)),
             "reduce_partitions": (c3, c3p, "index_add",
-                                  bound(n * (4 + 8 + 1 + n_cols * fsz) +
-                                        P * 5 * fsz, n * 8)),
+                                  bound(n * 4 + kept_rows *
+                                        (8 + 1 + n_cols * fsz) +
+                                        P * 5 * fsz, kept_rows * 8)),
             "release_epilogue": (c4, c4p, None,
                                  bound(P * 5 * fsz + P * (1 + 5 * fsz) + 4,
                                        P * 700)),
@@ -478,12 +515,658 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                   f"{cuda_ms(lambda: torch_sort_chain(torch, words), 10):.4f}",
                   flush=True)
         big_keep, big_cols = compact_args[1 << 21]
+        b_ms, b_by = bound((1 << 21) * (1 + 5 * fsz) +
+                           (1 << 21) * (8 + 5 * fsz) + 8, (1 << 21) * 10)
         print(f"kernel compact_kept[P=2^21, {int(big_keep.sum())} kept]: ms="
               f"{cuda_ms(lambda: kernels.compact_kept(big_keep, big_cols), 10):.4f}"
               f" argsort_gather_ms="
               f"{cuda_ms(lambda: kernels.compact_kept_plain(big_keep, big_cols), 10):.4f}"
-              f" (P={P}: {n_kept} kept)", flush=True)
+              f" bound_ms={b_ms:.4f} ({b_by}) (P={P}: {n_kept} kept)",
+              flush=True)
     return report
+
+
+def by_release_year(encoded):
+    """The table grouped by a release year drawn per movie from the seed,
+    over 1890-2005 (the range of the Netflix Prize's movie_titles.txt):
+    at most 116 partitions, the dense quantile regime at full row count."""
+    import dataclasses
+    year = np.random.default_rng([SEED, 1]).integers(1890, 2006, N_MOVIES)
+    vocab, code = np.unique(year, return_inverse=True)
+    return dataclasses.replace(encoded, pk=code.astype(np.int32)[encoded.pk],
+                               partition_vocab=[int(y) for y in vocab])
+
+
+def one_hot_ratings(encoded):
+    """The table with each rating as a one-hot vector (D = 5): a movie's
+    vector sum is its rating histogram."""
+    import dataclasses
+    values = np.zeros((encoded.n_rows, 5))
+    values[np.arange(encoded.n_rows), encoded.values.astype(np.int64) - 1] = 1
+    return dataclasses.replace(encoded, values=values)
+
+
+QUANTILES = (0.1, 0.5, 0.9)
+
+
+def quantile_vector_kernel_phase(torch, dev, encoded, years, kernels,
+                                 threefry):
+    """C7, C8, C9 and C3's vector entry against their plain versions on the
+    card, at 4096 rows and at 2^24, on the bounded rows of the main path
+    (movies: the lazy regime and the vector sums; release years: the dense
+    regime)."""
+    from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+    from pipelinedp_tpu_torch.ops import quantile_tree
+    f32 = torch.float32
+    key = np.array([7, 11], dtype=np.uint32)
+    rows_key, _ = threefry.split(key, 2)
+    _, key_linf, key_l0 = threefry.split(rows_key, 3)
+    salts = threefry.bits(key_l0, 4)
+    qkey = threefry.fold_in(key, 7919)
+    h, B = quantile_tree.DEFAULT_TREE_HEIGHT, \
+        quantile_tree.DEFAULT_BRANCHING_FACTOR
+    L = B**h
+    n_q = len(QUANTILES)
+    lo, hi = 1.0, 5.0
+    std_lazy = quantile_tree.per_level_noise_std(0.5, 5e-7, 64, 1, h,
+                                                 NoiseKind.GAUSSIAN)
+    std_dense = quantile_tree.per_level_noise_std(0.5, 0.0, 16, 4, h,
+                                                  NoiseKind.LAPLACE)
+    report = []
+
+    def bounded(enc, n_rows, l0, linf):
+        sl = slice(0, n_rows)
+        pid = torch.as_tensor(enc.pid[sl]).to(dev)
+        pk = torch.as_tensor(enc.pk[sl]).to(dev)
+        values = torch.as_tensor(enc.values[sl]).to(dev, f32)
+        valid = torch.as_tensor(enc.valid[sl]).to(dev)
+        P = enc.n_partitions
+        k1, k2, u = kernels.row_keys(pid, pk, valid, salts, key_linf, P, f32)
+        perm = kernels.radix_sort([k1, k2, u])
+        key2, pair_start, _ = kernels.bound_rows(
+            perm, k1, k2, pk, None, valid, n_partitions=P, linf=linf, l0=l0,
+            clip_per_value=False, clip_pair_sum=False, scalars=(0.0,) * 5,
+            columns=())
+        perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
+        return P, values, perm, perm2, skey2, pair_start
+
+    for label, n_rows in (("small", 4096), ("full", encoded.n_rows)):
+        errors = {}
+        # --- dense regime: release years -----------------------------------
+        Py, yvals, yperm, yperm2, yskey2, _ = bounded(years, n_rows, 16, 4)
+        c7a = lambda: kernels.quantile_leaf_counts(  # noqa: E731
+            yskey2, yperm2, yperm, yvals, n_partitions=Py, n_leaves=L,
+            min_v=lo, max_v=hi)
+        c7a_plain = lambda: kernels.quantile_leaf_counts_plain(  # noqa: E731
+            yskey2, yperm2, yperm, yvals, n_partitions=Py, n_leaves=L,
+            min_v=lo, max_v=hi)
+        hist = c7a()
+        err7 = check_equal("quantile_leaf_counts", hist, c7a_plain())
+        c7b = lambda: kernels.quantile_level_counts(  # noqa: E731
+            hist, tree_height=h, branching=B)
+        c7b_plain = lambda: kernels.quantile_level_counts_plain(  # noqa: E731
+            hist, tree_height=h, branching=B)
+        levels = c7b()
+        for l, (a, b) in enumerate(zip(levels, c7b_plain()), 1):
+            check_equal(f"quantile_level_counts level {l}", a, b)
+        ckey = threefry.fold_in(qkey, 0)
+        level_keys = np.stack([threefry.fold_in(ckey, l) for l in range(h)])
+        ykeep = torch.ones(Py, dtype=torch.bool, device=dev)
+
+        def c8_dense(plain=False, leaves=None):
+            fn = (kernels.quantile_descend_dense_plain if plain else
+                  kernels.quantile_descend_dense)
+            flags = torch.zeros(1, dtype=torch.int32, device=dev)
+            out = fn(levels, QUANTILES, std=std_dense, level_keys=level_keys,
+                     gaussian=False, min_v=lo, max_v=hi, keep=ykeep,
+                     flags=flags, dtype=f32, leaves=leaves)
+            return out, flags
+
+        leaves_k = torch.empty(Py, n_q, dtype=torch.int32, device=dev)
+        leaves_p = torch.empty_like(leaves_k)
+        out_k, flags_k = c8_dense(leaves=leaves_k)
+        out_p, flags_p = c8_dense(plain=True, leaves=leaves_p)
+        dense_mismatch = int((leaves_k != leaves_p).sum())
+        print(f"kernels[{label}] quantile_descend dense (P={Py}): "
+              f"{dense_mismatch} of {Py * n_q} walks end at another leaf "
+              f"than the plain version's", flush=True)
+        if dense_mismatch:
+            raise AssertionError("quantile_descend dense: leaves differ")
+        err8 = max(check_close("quantile_descend dense", out_k, out_p,
+                               rtol=1e-5),
+                   check_equal("quantile_descend dense flags", flags_k,
+                               flags_p))
+        # --- lazy regime and vector sums: movies -----------------------------
+        P, values, perm, perm2, skey2, pair_start = bounded(encoded, n_rows,
+                                                            64, 1)
+        keep = torch.ones(P, dtype=torch.bool, device=dev)
+        tree = dict(tree_height=h, branching=B, min_v=lo, max_v=hi)
+        step_args = dict(tree_height=h, std=std_lazy, gaussian=True,
+                         min_v=lo, max_v=hi, keep=keep)
+        state = kernels.DescentState(P, n_q, f32, dev)
+        flags_k = torch.zeros(1, dtype=torch.int32, device=dev)
+        flags_p = torch.zeros(1, dtype=torch.int32, device=dev)
+        counts_by_level = []
+        for level in range(1, h + 1):
+            node = state.node.clone()
+            counts = kernels.quantile_child_counts(skey2, perm2, perm, values,
+                                                   node, level=level, **tree)
+            err7 = max(err7, check_equal(
+                f"quantile_child_counts level {level}", counts,
+                kernels.quantile_child_counts_plain(
+                    skey2, perm2, perm, values, node, level=level, **tree)))
+            counts_by_level.append(counts)
+            before = kernels.DescentState(P, n_q, f32, dev)
+            for name in ("node", "target", "total", "mass"):
+                setattr(before, name, getattr(state, name).clone())
+            lkey = threefry.fold_in(qkey, level)
+            out_k = kernels.quantile_descend_step(
+                counts, state, QUANTILES, level=level, level_key=lkey,
+                flags=flags_k, **step_args)
+            out_p = kernels.quantile_descend_step_plain(
+                counts, before, QUANTILES, level=level, level_key=lkey,
+                flags=flags_p, **step_args)
+            lazy_mismatch = int((state.node != before.node).sum())
+            if lazy_mismatch:
+                raise AssertionError(f"quantile_descend lazy level {level}: "
+                                     f"{lazy_mismatch} walks at another node")
+            err8 = max(err8, check_close(f"quantile_descend lazy level "
+                                         f"{level} target", state.target,
+                                         before.target, rtol=1e-5, atol=1e-3))
+        print(f"kernels[{label}] quantile_descend lazy (P={P}): 0 of "
+              f"{P * n_q} walks end at another leaf than the plain "
+              f"version's", flush=True)
+        err8 = max(err8, check_close("quantile_descend lazy", out_k, out_p,
+                                     rtol=1e-5),
+                   check_equal("quantile_descend lazy flags", flags_k,
+                               flags_p))
+        onehot = torch.nn.functional.one_hot(
+            values.long() - 1, 5).to(f32).contiguous()
+        c3v = lambda: kernels.reduce_partitions(  # noqa: E731
+            skey2, perm2, pair_start, {}, P, f32, (perm, onehot))
+        c3v_plain = lambda: kernels.reduce_partitions_plain(  # noqa: E731
+            skey2, perm2, pair_start, {}, P, f32, (perm, onehot))
+        vsum = c3v()["vsum"]
+        # Integer-valued coordinates below 2^24: exact in any order.
+        err3 = check_equal("reduce_partitions vsum", vsum,
+                           c3v_plain()["vsum"])
+        err9 = 0.0
+        vstd = 460.0
+        c9 = {}
+        for norm in ("l1", "l2", "linf"):
+            args = dict(max_norm=1000.0, norm_kind=norm, std=vstd,
+                        key=np.array([3, 4], np.uint32), gaussian=True)
+            f_k = torch.zeros(1, dtype=torch.int32, device=dev)
+            f_p = torch.zeros(1, dtype=torch.int32, device=dev)
+            got = kernels.vector_release(vsum, keep, f_k, **args)
+            want = kernels.vector_release_plain(vsum, keep, f_p, **args)
+            # float32 noise words (log1p, erf_inv) a few ulp apart: 1e-5
+            # of the value plus the noise scale.
+            tol = 1e-5 * (want.abs() + vstd)
+            err = float((got - want).abs().max())
+            if bool(((got - want).abs() > tol).any()):
+                raise AssertionError(f"vector_release {norm}: max diff {err}")
+            err9 = max(err9, err, check_equal(f"vector_release {norm} flags",
+                                              f_k, f_p))
+            c9[norm] = (lambda a=args: kernels.vector_release(
+                vsum, keep, torch.zeros(1, dtype=torch.int32, device=dev),
+                **a), lambda a=args: kernels.vector_release_plain(
+                vsum, keep, torch.zeros(1, dtype=torch.int32, device=dev),
+                **a))
+        torch.cuda.synchronize()
+        errors = {"quantile_counts": err7, "quantile_descend": err8,
+                  "vector_release": err9, "reduce_partitions vector": err3}
+        print(f"kernels[{label}, n={n_rows}]: C7 (a)-(c), C8 dense "
+              f"(P={Py}) and lazy (P={P}), C9 (l1, l2, linf) and C3's "
+              f"vector entry agree with their plain versions, max abs err " +
+              json.dumps(errors), flush=True)
+        if label != "full":
+            continue
+        n = n_rows
+        fsz = 4
+        # C7 (a): every row's skey2 read once, and the perm, row_perm and
+        # value of the rows the bounding kept (the only rows counted); the
+        # histogram written once; ~20 operations a kept row.
+        kept = yskey2 < Py
+        ykept = int(kept.sum())
+        mkept = int((skey2 < P).sum())
+        print(f"bounded rows kept of {n}: {ykept} by release year (l0 = 16, "
+              f"linf = 4), {mkept} by movie (l0 = 64, linf = 1); the bounds "
+              f"of C7 and C3's vector entry count these", flush=True)
+        leaf = kernels.leaf_indices(kernels.sorted_rows(yperm2, yperm, yvals),
+                                    lo, hi, L)
+        hist_keys = (yskey2.long() * L + leaf)[kept]
+        lib7 = lambda: torch.bincount(hist_keys, minlength=Py * L)  # noqa: E731
+        b7 = bound(n * 4 + ykept * (8 + 8 + fsz) + Py * L * 4, ykept * 20)
+
+        level_keys_lazy = [threefry.fold_in(qkey, level)
+                           for level in range(1, h + 1)]
+
+        def lazy_descent(fn):
+            st = kernels.DescentState(P, n_q, f32, dev)
+            fl = torch.zeros(1, dtype=torch.int32, device=dev)
+            for level, counts in enumerate(counts_by_level, 1):
+                out = fn(counts, st, QUANTILES, level=level,
+                         level_key=level_keys_lazy[level - 1], flags=fl,
+                         **step_args)
+            return out
+
+        # C8 lazy: per visited node two fold_ins and a draw (three
+        # threefry, ~100 operations each) and an erf_inv (~50); counts
+        # and state read and written once a level.
+        visits = P * n_q * B * h
+        b8 = bound(visits * 4 + h * P * n_q * 2 * (4 + 3 * fsz) +
+                   P * n_q * fsz, visits * 350)
+        b9 = bound(P * 5 * fsz * 2 + P, P * 5 * 150)
+        timing = {
+            "quantile_counts": (c7a, c7a_plain, lib7, b7,
+                                "quantile_counts.cu",
+                                "pipelinedp_tpu/executor.py:825"),
+            "quantile_descend": (lambda: lazy_descent(
+                kernels.quantile_descend_step),
+                lambda: lazy_descent(kernels.quantile_descend_step_plain),
+                None, b8, "quantile_descend.cu",
+                "pipelinedp_tpu/executor.py:652"),
+            "vector_release": (c9["l2"][0], c9["l2"][1], None, b9,
+                               "vector_release.cu",
+                               "pipelinedp_tpu/executor.py:537"),
+        }
+        for name, (fn, plain, lib, (b_ms, b_by), src, repl) in \
+                timing.items():
+            ms = cuda_ms(fn, repeats=10)
+            plain_ms = cuda_ms(plain, repeats=3, warmup=1)
+            lib_ms = cuda_ms(lib, repeats=10) if lib else None
+            print(f"kernel {name}: max_abs_err={errors[name]} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"library_ms={lib_ms}", flush=True)
+            report.append({
+                "name": name, "route": "cuda",
+                "source": f"pipelinedp_tpu_torch/csrc/{src}",
+                "replaces": repl, "launches": 0,
+                "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        # The other entries of C7, C8 and C3 on the path.
+        b_ms, b_by = bound(sum(t.numel() for t in levels) * 4, Py * L)
+        print(f"kernel quantile_counts[level roll-ups, P={Py}]: ms="
+              f"{cuda_ms(c7b, 10):.4f} bound_ms={b_ms:.4f} ({b_by})",
+              flush=True)
+        node = torch.zeros(P, n_q, dtype=torch.int32, device=dev)
+        b_ms, b_by = bound(n * 4 + mkept * (8 + 8 + fsz) +
+                           P * n_q * (4 + B * 4), mkept * (20 + 2 * n_q))
+        print(f"kernel quantile_counts[child counts, one level, P={P}]: ms="
+              f"{cuda_ms(lambda: kernels.quantile_child_counts(skey2, perm2, perm, values, node, level=1, **tree), 10):.4f}"
+              f" bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        b_ms, b_by = bound(Py * n_q * (h * B * 4 + fsz), Py * n_q * B * h * 150)
+        print(f"kernel quantile_descend[dense, P={Py}]: ms="
+              f"{cuda_ms(lambda: c8_dense(), 10):.4f} plain_ms="
+              f"{cuda_ms(lambda: c8_dense(plain=True), 3, 1):.4f} bound_ms="
+              f"{b_ms:.4f} ({b_by})", flush=True)
+        for norm in ("l1", "linf"):
+            print(f"kernel vector_release[{norm}]: ms="
+                  f"{cuda_ms(c9[norm][0], 10):.4f} plain_ms="
+                  f"{cuda_ms(c9[norm][1], 3, 1):.4f}", flush=True)
+        src = onehot[perm][perm2]
+        key_long = skey2.long()
+
+        def library_c3v():
+            out = torch.zeros(P + 1, 5, device=dev)
+            return out.index_add_(0, key_long, src)
+
+        b_ms, b_by = bound(n * 4 + mkept * (8 + 1 + 8 + 5 * fsz) +
+                           P * (2 + 5) * fsz, mkept * 13)
+        print(f"kernel reduce_partitions[count, pid_count + vector D=5]: ms="
+              f"{cuda_ms(c3v, 10):.4f} plain_ms={cuda_ms(c3v_plain, 3, 1):.4f}"
+              f" bound_ms={b_ms:.4f} ({b_by}) library_ms (index_add_ of the "
+              f"gathered rows)={cuda_ms(library_c3v, 10):.4f}", flush=True)
+    return report
+
+
+def quantile_vector_parity_phase(torch, tdp, rng):
+    """PERCENTILE in the dense and the lazy regime and VECTOR_SUM on the
+    card (float64) against the plain versions on the CPU: the same
+    partitions, values within 1e-9 relative. The last case asks for 49
+    percentiles (52 output columns), more than one C6 scatter takes."""
+    n = 4096
+    users = rng.integers(0, 300, n)
+    ratings = rng.integers(1, 6, n).astype(np.float64)
+    eight = rng.integers(0, 8, n)
+    cases = (
+        ("PERCENTILE dense", eight, ratings,
+         lambda M: [M.PERCENTILE(10), M.PERCENTILE(50), M.PERCENTILE(90),
+                    M.COUNT], dict(min_value=1.0, max_value=5.0), "GAUSSIAN",
+         False),
+        ("PERCENTILE lazy", rng.integers(0, 600, n), ratings,
+         lambda M: [M.PERCENTILE(50), M.COUNT],
+         dict(min_value=1.0, max_value=5.0), "LAPLACE", True),
+        ("VECTOR_SUM", rng.integers(0, 8, n),
+         np.eye(5)[ratings.astype(np.int64) - 1],
+         lambda M: [M.VECTOR_SUM, M.COUNT],
+         dict(vector_size=5, vector_max_norm=40.0,
+              vector_norm_kind=tdp.NormKind.L2), "GAUSSIAN", False),
+        ("PERCENTILE x49 + COUNT, SUM, PRIVACY_ID_COUNT", eight, ratings,
+         lambda M: [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT] +
+         [M.PERCENTILE(p) for p in range(2, 100, 2)],
+         dict(min_value=1.0, max_value=5.0), "LAPLACE", False),
+    )
+    for label, parts, values, metrics, bounds, noise, public in cases:
+        rows = list(zip(users.tolist(), parts.tolist(), list(values)))
+        results = []
+        for device in ("cuda", "cpu"):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=2.0,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                device=device, noise_seed=5, dtype=torch.float64))
+            params = tdp.AggregateParams(
+                metrics=metrics(tdp.Metrics),
+                noise_kind=getattr(tdp.NoiseKind, noise),
+                max_partitions_contributed=4,
+                max_contributions_per_partition=2, **bounds)
+            ex = tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                                    partition_extractor=lambda r: r[1],
+                                    value_extractor=lambda r: r[2])
+            res = engine.aggregate(rows, params, ex,
+                                   sorted(set(parts.tolist()))
+                                   if public else None)
+            acc.compute_budgets()
+            results.append(dict(res))
+        gpu, cpu = results
+        if set(gpu) != set(cpu) or not gpu:
+            raise AssertionError(f"parity {label}: released partitions "
+                                 f"differ ({len(gpu)} vs {len(cpu)})")
+        worst = 0.0
+        for k in cpu:
+            for a, b in zip(gpu[k], cpu[k]):
+                err = np.abs(np.asarray(a) - b) / np.maximum(1.0, np.abs(b))
+                worst = max(worst, float(np.max(err)))
+        if worst > 1e-9:
+            raise AssertionError(f"parity {label}: rel err {worst}")
+        print(f"parity[{label}, {noise}, "
+              f"{'public' if public else 'private'}]: {len(gpu)} partitions,"
+              f" cuda float64 vs cpu float64 max rel err {worst:.3g}",
+              flush=True)
+
+
+def quantile_vector_main_phase(torch, dev, tdp, encoded, years, onehot,
+                               kernels, executor, card):
+    """Runs (f)-(j) through DPEngine.aggregate. Returns the launch counts
+    summed over its runs."""
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    pair_key = encoded.pid.astype(np.int64) * N_MOVIES + encoded.pk
+    l0_true = int(np.bincount(np.unique(pair_key) // N_MOVIES).max())
+
+    def aggregate(label, enc, metrics, noise, public, eps, seed, path, want,
+                  **params):
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=eps, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=seed))
+        params = tdp.AggregateParams(metrics=metrics(tdp.Metrics),
+                                     noise_kind=getattr(tdp.NoiseKind, noise),
+                                     **params)
+        kernels.reset_launch_counts()
+        res = engine.aggregate(enc, params, tdp.DataExtractors(),
+                               list(enc.partition_vocab) if public else None)
+        acc.compute_budgets()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = dict(res)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = dict(kernels.launch_counts)
+        check_launches(f"run ({label})", counts, kernels, want, path)
+        for name, n in counts.items():
+            total[name] += n
+        bad = [k for k, v in out.items()
+               if not np.all(np.isfinite(np.hstack([np.ravel(x) for x in v])))]
+        if bad or not out:
+            raise AssertionError(f"run ({label}): {len(out)} partitions, "
+                                 f"{len(bad)} with non-finite values")
+        return out, seconds, counts
+
+    percentiles = lambda M: [M.PERCENTILE(10), M.PERCENTILE(50),  # noqa: E731
+                             M.PERCENTILE(90), M.COUNT]
+    per_movie = dict(max_partitions_contributed=64,
+                     max_contributions_per_partition=1)
+    ratings = dict(min_value=1.0, max_value=5.0)
+    vector = dict(vector_size=5, vector_norm_kind=tdp.NormKind.L2)
+    # Lazy: C7's child counts and C8's step once a level (4 each); dense:
+    # C7's histogram and roll-ups (2), one C8 launch.
+    lazy = dict(row_keys=1, bound_rows=1, radix_sort=2, quantile_counts=4,
+                quantile_descend=4)
+    dense = dict(row_keys=1, bound_rows=1, radix_sort=2, quantile_counts=2,
+                 quantile_descend=1)
+    vec = dict(row_keys=1, bound_rows=1, radix_sort=2, reduce_partitions=1,
+               vector_release=1)
+    runs = {
+        "f": (encoded, percentiles, "GAUSSIAN", True, PERCENTILE_PATH, lazy,
+              dict(per_movie, **ratings)),
+        "h": (years, lambda M: [M.PERCENTILE(50), M.COUNT], "LAPLACE", False,
+              PERCENTILE_PATH, dense,
+              dict(max_partitions_contributed=16,
+                   max_contributions_per_partition=4, **ratings)),
+        "i": (onehot, lambda M: [M.VECTOR_SUM, M.COUNT], "GAUSSIAN", True,
+              VECTOR_PATH, vec,
+              dict(per_movie, vector_max_norm=1000.0, **vector)),
+    }
+    for label, (enc, metrics, noise, public, path, want, params) in \
+            runs.items():
+        times = []
+        for rep in range(3):
+            out, seconds, counts = aggregate(label, enc, metrics, noise,
+                                             public, 1.0, rep, path, want,
+                                             **params)
+            times.append(seconds)
+        ms = statistics.median(times) * 1e3
+        print(f"main ({label}) {noise} {'public' if public else 'private'} "
+              f"P={enc.n_partitions}: {len(out)} partitions released, "
+              f"{ms:.1f} ms, {N_ROWS / (ms / 1e3):.4g} rows/s (median of 3: "
+              f"{[round(t * 1e3, 1) for t in times]} ms; {card}); launches "
+              f"per aggregate {counts}", flush=True)
+        if label == "f":
+            lo_ok = all(1.0 <= getattr(v, f"percentile_{round(q * 100)}")
+                        <= 5.0 for v in out.values() for q in QUANTILES)
+            if not lo_ok or len(out) != N_MOVIES:
+                raise AssertionError("run (f): percentiles outside [1, 5]")
+        if label == "h" and not 0 < len(out) <= len(years.partition_vocab):
+            raise AssertionError(f"run (h): {len(out)} years released")
+        if label == "i":
+            clipped = clipped_partitions(torch, dev, executor, enc, params,
+                                         rep)
+            print(f"main (i): {clipped} of {enc.n_partitions} partitions' "
+                  f"bounded vector sums lie outside the L2 ball of 1000 and "
+                  f"were clipped", flush=True)
+            if not 0 < clipped < enc.n_partitions:
+                raise AssertionError(f"run (i): {clipped} partitions clipped")
+
+    # (g) order statistics at epsilon = 1e6 with the true maxima.
+    out, seconds, _ = aggregate("g", encoded, percentiles, "GAUSSIAN", True,
+                                1e6, 9, PERCENTILE_PATH, lazy,
+                                max_partitions_contributed=l0_true,
+                                max_contributions_per_partition=1, **ratings)
+    # The nodes' noise is not negligible even at epsilon = 1e6: a level
+    # gets 1e6 / 2 / 4 of it with an L2 sensitivity of sqrt(7135), and the
+    # analytic Gaussian sigma is then ~0.17 a node. A descent sums up to B
+    # noisy siblings a level, and the zero-count siblings, clamped at 0,
+    # add about 0.4 sigma each: so the released rank may move by k = 16
+    # sigma sqrt(B h) + 0.4 sigma B h ranks. The bound is the order
+    # statistics at ranks floor(q n) - 1 - k and ceil(q n) + k, widened by
+    # one leaf; how many percentiles needed k > 0 is printed.
+    from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+    from pipelinedp_tpu_torch.ops import quantile_tree
+    h, B = quantile_tree.DEFAULT_TREE_HEIGHT, \
+        quantile_tree.DEFAULT_BRANCHING_FACTOR
+    sigma = quantile_tree.per_level_noise_std(1e6 / 2, 1e-6 / 2, l0_true, 1,
+                                              h, NoiseKind.GAUSSIAN)
+    k = int(math.ceil(16 * sigma * math.sqrt(B * h) + 0.4 * sigma * B * h))
+    order = np.lexsort((encoded.values, encoded.pk))
+    sorted_vals = encoded.values[order]
+    sizes = np.bincount(encoded.pk, minlength=N_MOVIES)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    width = 4.0 / 16**4
+    vocab = list(encoded.partition_vocab)
+    beyond = 0
+    for q in QUANTILES:
+        got = np.array([getattr(out[m], f"percentile_{round(q * 100)}")
+                        for m in vocab])
+        for slack in (0, k):
+            lo_rank = np.clip(np.floor(q * sizes).astype(np.int64) - 1 -
+                              slack, 0, sizes - 1)
+            hi_rank = np.clip(np.ceil(q * sizes).astype(np.int64) + slack, 0,
+                              sizes - 1)
+            lo_v = sorted_vals[starts + lo_rank] - width
+            hi_v = sorted_vals[starts + hi_rank] + width
+            bad = (got < lo_v) | (got > hi_v)
+            if slack == 0:
+                beyond += int(bad.sum())
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise AssertionError(f"run (g) q={q}: movie {vocab[i]} "
+                                 f"{got[i]} outside [{lo_v[i]}, {hi_v[i]}]")
+    print(f"main (g) epsilon=1e6, l0={l0_true}, linf=1: {len(out)} "
+          f"partitions' percentiles 10/50/90 lie between their order "
+          f"statistics at ranks floor(q n) - 1 - k and ceil(q n) + k, k = "
+          f"{k} (node noise std {sigma:.4g}), widened by one leaf "
+          f"({width:.3g}); {beyond} of {3 * len(out)} needed k > 0, in "
+          f"{seconds * 1e3:.1f} ms", flush=True)
+
+    # (j) exact rating histograms at epsilon = 1e6, no clipping.
+    out, seconds, _ = aggregate("j", onehot, lambda M: [M.VECTOR_SUM,
+                                                        M.COUNT],
+                                "GAUSSIAN", True, 1e6, 11, VECTOR_PATH, vec,
+                                max_partitions_contributed=l0_true,
+                                max_contributions_per_partition=1,
+                                vector_max_norm=1e9, **vector)
+    truth = np.bincount(
+        encoded.pk.astype(np.int64) * 5 + encoded.values.astype(np.int64) - 1,
+        minlength=N_MOVIES * 5).reshape(N_MOVIES, 5).astype(np.float64)
+    got = np.stack([out[m].vector_sum for m in vocab])
+    from pipelinedp_tpu_torch import dp_computations
+    sigma = dp_computations.gaussian_sigma(1e6 / 2 / 5, 1e-6 / 2 / 5,
+                                           math.sqrt(l0_true))
+    # 16 noise stds plus float32 rounding (the sums are exact integers).
+    tol = 16 * sigma + 1e-6 * np.abs(truth)
+    err = np.abs(got - truth)
+    if (err > tol).any():
+        i = np.unravel_index(int(np.argmax(err - tol)), err.shape)
+        raise AssertionError(f"run (j): movie {vocab[i[0]]} coordinate "
+                             f"{i[1]}: {got[i]} vs numpy {truth[i]}")
+    print(f"main (j) epsilon=1e6, l0={l0_true}: {len(out)} rating "
+          f"histograms match the numpy group-by per coordinate (max abs err "
+          f"{float(err.max()):.4g}, noise std {sigma:.4g}) in "
+          f"{seconds * 1e3:.1f} ms", flush=True)
+    return total
+
+
+def clipped_partitions(torch, dev, executor, enc, params, seed):
+    """How many of run (i)'s partitions (the release with noise_seed=seed)
+    had bounded vector sums outside the norm ball: the executor's bounding
+    and reduction with the release's own keys."""
+    import pipelinedp_tpu_torch as tdp
+    from pipelinedp_tpu_torch import combiners
+    from pipelinedp_tpu_torch.ops import noise as noise_ops
+    from pipelinedp_tpu_torch.ops import threefry
+    aparams = tdp.AggregateParams(metrics=[tdp.Metrics.VECTOR_SUM,
+                                           tdp.Metrics.COUNT], **params)
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    compound = combiners.create_compound_combiner(aparams, acc)
+    acc.compute_budgets()
+    cfg = executor.make_kernel_config(aparams, compound, enc.n_partitions,
+                                      False, None)
+    pid, pk, values, valid = executor.to_device(enc, dev, torch.float32)
+    rows_key, _ = threefry.split(noise_ops.make_noise_key(seed), 2)
+    key2, pair_start, cols, rows = executor.bounded_row_columns(
+        pid, pk, values, valid, *executor.kernel_scalars(aparams), rows_key,
+        cfg)
+    dense, _ = executor.reduce_rows_to_partitions(
+        key2, pair_start, cols, cfg.n_partitions, torch.float32, rows)
+    norms = torch.linalg.vector_norm(dense["vsum"].double(), dim=1)
+    return int((norms > cfg.vector_max_norm).sum())
+
+
+def kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card):
+    """Runs (a), (f) and (i) through DPEngine.aggregate with CUDA events
+    around every kernel wrapper the executor calls: device time by kernel,
+    beside the host-to-device copy and the host's share (setup and decode).
+    radix_sort[1] is the bounding sort, radix_sort[2] the partition sort."""
+    names = ("row_keys", "radix_sort", "bound_rows", "reduce_partitions",
+             "release_epilogue", "vector_release", "quantile_leaf_counts",
+             "quantile_level_counts", "quantile_child_counts",
+             "quantile_descend_dense", "quantile_descend_step",
+             "compact_kept")
+    runs = {
+        "a": (encoded, lambda M: [M.COUNT, M.SUM, M.MEAN, M.VARIANCE],
+              dict(min_value=1.0, max_value=5.0)),
+        "f": (encoded, lambda M: [M.PERCENTILE(10), M.PERCENTILE(50),
+                                  M.PERCENTILE(90), M.COUNT],
+              dict(min_value=1.0, max_value=5.0)),
+        "i": (onehot, lambda M: [M.VECTOR_SUM, M.COUNT],
+              dict(vector_size=5, vector_norm_kind=tdp.NormKind.L2,
+                   vector_max_norm=1000.0)),
+    }
+    for label, (enc, metrics, bounds) in runs.items():
+        medians = {}
+        for rep in range(4):
+            records = []
+            originals = {n: getattr(kernels, n) for n in names}
+
+            sorts = []
+
+            def timed(name, fn):
+                def call(*args, **kwargs):
+                    label = name
+                    if name == "radix_sort":
+                        sorts.append(None)
+                        label = f"radix_sort[{len(sorts)}]"
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = fn(*args, **kwargs)
+                    end.record()
+                    records.append((label, start, end))
+                    return out
+                return call
+
+            to_device = executor.to_device
+            for n in names:
+                setattr(kernels, n, timed(n, originals[n]))
+            executor.to_device = timed("h2d", to_device)
+            try:
+                acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0,
+                                                total_delta=1e-6)
+                engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=rep))
+                res = engine.aggregate(
+                    enc, tdp.AggregateParams(
+                        metrics=metrics(tdp.Metrics),
+                        noise_kind=tdp.NoiseKind.GAUSSIAN,
+                        max_partitions_contributed=64,
+                        max_contributions_per_partition=1, **bounds),
+                    tdp.DataExtractors(), list(enc.partition_vocab))
+                acc.compute_budgets()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = list(res)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - start) * 1e3
+            finally:
+                for n in names:
+                    setattr(kernels, n, originals[n])
+                executor.to_device = to_device
+            if len(out) != enc.n_partitions:
+                raise AssertionError(f"stages ({label}): {len(out)} "
+                                     f"partitions decoded")
+            stage = {}
+            for name, s, e in records:
+                stage[name] = stage.get(name, 0.0) + s.elapsed_time(e)
+            stage["wall"] = wall
+            for name, ms in stage.items():
+                medians.setdefault(name, []).append(ms)
+        # The first of the four runs warms the allocator.
+        med = {name: round(statistics.median(t[1:]), 4)
+               for name, t in medians.items()}
+        device = sum(v for k, v in med.items() if k not in ("wall", "h2d"))
+        print(f"stages ({label}) float32, ms by kernel wrapper, median of 3 "
+              f"({card}): {json.dumps(med)}; kernels {device:.3f} ms, h2d "
+              f"{med['h2d']:.3f} ms, the rest of the wall time (host setup "
+              f"and decode) {med['wall'] - device - med['h2d']:.3f} ms",
+              flush=True)
 
 
 def parity_phase(torch, tdp, rng):
@@ -566,10 +1249,10 @@ def select_parity_phase(torch, tdp, rng):
               f"list identical to cpu float64", flush=True)
 
 
-def check_launches(label, counts, kernels, want=None):
+def check_launches(label, counts, kernels, want=None, path=BASE_KERNELS):
     """Every kernel of the path launched (and, where given, as often as
     `want` says)."""
-    missing = [k for k in kernels.KERNELS if counts[k] == 0]
+    missing = [k for k in path if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label} did not launch {missing}")
     for name, n in (want or {}).items():
@@ -763,86 +1446,11 @@ def select_phase(torch, tdp, encoded, kernels, card):
     return total
 
 
-def stage_phase(torch, dev, encoded, executor, card):
-    """Run (a)'s release stage by stage, CUDA events between stages."""
-    import pipelinedp_tpu_torch as tdp
-    from pipelinedp_tpu_torch import combiners, kernels
-    from pipelinedp_tpu_torch.ops import threefry
-    params = tdp.AggregateParams(
-        metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM, tdp.Metrics.MEAN,
-                 tdp.Metrics.VARIANCE], noise_kind=tdp.NoiseKind.GAUSSIAN,
-        max_partitions_contributed=64, max_contributions_per_partition=1,
-        min_value=1.0, max_value=5.0)
-    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
-    compound = combiners.create_compound_combiner(params, acc)
-    acc.compute_budgets()
-    cfg = executor.make_kernel_config(params, compound, encoded.n_partitions,
-                                      False, None)
-    stds = executor.compute_noise_stds(compound)
-    scal = executor.kernel_scalars(params)
-    rows_key, final_key = threefry.split(np.array([0, 3], np.uint32), 2)
-    _, key_linf, key_l0 = threefry.split(rows_key, 3)
-    salts = threefry.bits(key_l0, 4)
-    names = ("h2d", "row_keys", "bounding_sort", "bound_rows",
-             "partition_sort", "reduce_partitions", "release_epilogue",
-             "compaction")
-    totals = {name: [] for name in names}
-    decode_ms = []
-    for _ in range(4):
-        events = [torch.cuda.Event(enable_timing=True) for _ in names]
-        events.append(torch.cuda.Event(enable_timing=True))
-        torch.cuda.synchronize()
-        events[0].record()
-        pid, pk, values, valid = executor.to_device(encoded, dev,
-                                                    torch.float32)
-        events[1].record()
-        k1, k2, u = kernels.row_keys(pid, pk, valid, salts, key_linf,
-                                     cfg.n_partitions, torch.float32)
-        events[2].record()
-        perm = executor.sort_rows(k1, k2, u)
-        events[3].record()
-        key2, pair_start, row_cols = kernels.bound_rows(
-            perm, k1, k2, pk, values, valid, n_partitions=cfg.n_partitions,
-            linf=cfg.linf, l0=cfg.l0, clip_per_value=cfg.clip_per_value,
-            clip_pair_sum=cfg.clip_pair_sum, scalars=scal,
-            columns=executor.reduce_column_names(cfg))
-        events[4].record()
-        perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
-        events[5].record()
-        cols = kernels.reduce_partitions(skey2, perm2, pair_start, row_cols,
-                                         cfg.n_partitions, torch.float32)
-        cols["row_count"] = cols["pid_count"]
-        events[6].record()
-        outputs, keep, flags = executor.finalize(cols, scal[0], scal[4],
-                                                 stds, final_key, cfg)
-        events[7].record()
-        n_kept, order, compacted = executor.compact_release(outputs, keep)
-        events[8].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(names):
-            totals[name].append(events[i].elapsed_time(events[i + 1]))
-        start = time.perf_counter()
-        released = list(executor.decode_release_results(
-            n_kept, order, compacted, flags, encoded.partition_vocab,
-            compound))
-        decode_ms.append((time.perf_counter() - start) * 1e3)
-        if len(released) != cfg.n_partitions:
-            raise AssertionError(f"stages: {len(released)} partitions "
-                                 f"decoded")
-    # The first of the four runs warms the allocator; report the median of
-    # the other three.
-    med = {name: round(statistics.median(t[1:]), 4)
-           for name, t in totals.items()}
-    med["decode_host"] = round(statistics.median(decode_ms[1:]), 4)
-    print(f"stages (a) float32, ms, median of 3 ({card}): "
-          f"{json.dumps(med)} sum {sum(med.values()):.3f}", flush=True)
-
-
-
 def profile_phase(torch, tdp, encoded, card):
-    """Run (a) and a select under torch.profiler (graph build and budgets
-    outside the window): device busy time = the sum of device entries
-    (one stream, so they do not overlap), idle share = 1 - busy / wall."""
+    """Runs (a), (f) and a select under torch.profiler (graph build and
+    budgets outside the window): device busy time = the sum of device
+    entries (one stream, so they do not overlap), idle share = 1 - busy /
+    wall."""
     from torch.profiler import ProfilerActivity, profile
 
     def run_a():
@@ -851,6 +1459,18 @@ def profile_phase(torch, tdp, encoded, card):
         res = engine.aggregate(encoded, tdp.AggregateParams(
             metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM, tdp.Metrics.MEAN,
                      tdp.Metrics.VARIANCE],
+            noise_kind=tdp.NoiseKind.GAUSSIAN, max_partitions_contributed=64,
+            max_contributions_per_partition=1, min_value=1.0, max_value=5.0),
+            tdp.DataExtractors(), list(encoded.partition_vocab))
+        acc.compute_budgets()
+        return res
+
+    def run_f():
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=21))
+        res = engine.aggregate(encoded, tdp.AggregateParams(
+            metrics=[tdp.Metrics.PERCENTILE(10), tdp.Metrics.PERCENTILE(50),
+                     tdp.Metrics.PERCENTILE(90), tdp.Metrics.COUNT],
             noise_kind=tdp.NoiseKind.GAUSSIAN, max_partitions_contributed=64,
             max_contributions_per_partition=1, min_value=1.0, max_value=5.0),
             tdp.DataExtractors(), list(encoded.partition_vocab))
@@ -866,7 +1486,8 @@ def profile_phase(torch, tdp, encoded, card):
         acc.compute_budgets()
         return res
 
-    for label, setup in (("aggregate (a)", run_a), ("select", run_select)):
+    for label, setup in (("aggregate (a)", run_a), ("aggregate (f)", run_f),
+                         ("select", run_select)):
         res = setup()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -880,7 +1501,7 @@ def profile_phase(torch, tdp, encoded, card):
         if not device:
             raise AssertionError(f"profile {label}: no device time traced")
         busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
         print(f"profile {label}: wall {wall_ms:.1f} ms under the profiler, "
               f"device busy {busy_ms:.2f} ms, idle share "
               f"{1 - busy_ms / wall_ms:.3f} ({card}); largest [name, ms, "

@@ -2,16 +2,18 @@
 
 The port grows slice by slice beside the JAX package, which stays the
 reference. It runs DPEngine.aggregate on the dense columnar route (COUNT,
-PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE with Laplace or Gaussian noise,
-public partitions or private partition selection, per-partition or total
-contribution bounds) and DPEngine.select_partitions, on six CUDA kernels
-built for sm_90a at first use (kernels.py, csrc/). The package imports
-torch, numpy and scipy, never jax.
+PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE, PERCENTILE and VECTOR_SUM with
+Laplace or Gaussian noise, public partitions or private partition
+selection, per-partition or total contribution bounds) and
+DPEngine.select_partitions, on nine CUDA kernels built for sm_90a at first
+use (kernels.py, csrc/). The package imports torch, numpy and scipy, never
+jax.
 """
 
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    MechanismType, Metric,
                                                    Metrics, NoiseKind,
+                                                   NormKind,
                                                    PartitionSelectionStrategy,
                                                    SelectPartitionsParams)
 from pipelinedp_tpu_torch.budget_accounting import (BudgetAccountant,
@@ -24,6 +26,7 @@ from pipelinedp_tpu_torch.report_generator import ExplainComputationReport
 __all__ = [
     "AggregateParams", "BudgetAccountant", "DataExtractors", "DPEngine",
     "ExplainComputationReport", "MechanismType", "Metric", "Metrics",
-    "NaiveBudgetAccountant", "NoiseKind", "PartitionSelectionStrategy",
+    "NaiveBudgetAccountant", "NoiseKind", "NormKind",
+    "PartitionSelectionStrategy",
     "SelectPartitionsParams", "TorchBackend"
 ]

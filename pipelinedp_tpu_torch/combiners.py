@@ -1,7 +1,8 @@
 """Combiners: the metric plan of the port's dense aggregation.
 
-Port of pipelinedp_tpu/combiners.py:176-656 (Count, PrivacyIdCount, Sum,
-Mean, Variance, Compound, create_compound_combiner). The port has no
+Port of pipelinedp_tpu/combiners.py:176-721 (Count, PrivacyIdCount, Sum,
+Mean, Variance, Quantile, VectorSum, Compound, create_compound_combiner).
+The port has no
 generic element-wise backend, so a combiner here carries what the fused
 release needs: its budget requests (made at graph-build time), its metric
 names in output order, its mechanism calibration (read after
@@ -20,6 +21,7 @@ from pipelinedp_tpu_torch import aggregate_params
 from pipelinedp_tpu_torch import budget_accounting
 from pipelinedp_tpu_torch import dp_computations
 from pipelinedp_tpu_torch.aggregate_params import Metrics
+from pipelinedp_tpu_torch.ops import quantile_tree
 
 ExplainComputationReport = Union[Callable, str, List[Union[Callable, str]]]
 
@@ -56,6 +58,23 @@ class CombinerParams:
     @property
     def delta(self):
         return self._mechanism_spec.delta
+
+    @property
+    def mechanism_spec(self) -> budget_accounting.MechanismSpec:
+        return self._mechanism_spec
+
+    @property
+    def additive_vector_noise_params(
+            self) -> dp_computations.AdditiveVectorNoiseParams:
+        p = self.aggregate_params
+        return dp_computations.AdditiveVectorNoiseParams(
+            eps_per_coordinate=self.eps / p.vector_size,
+            delta_per_coordinate=self.delta / p.vector_size,
+            max_norm=p.vector_max_norm,
+            l0_sensitivity=p.max_partitions_contributed,
+            linf_sensitivity=p.max_contributions_per_partition,
+            norm_kind=p.vector_norm_kind,
+            noise_kind=p.noise_kind)
 
 
 class MechanismContainerMixin(abc.ABC):
@@ -215,6 +234,71 @@ class VarianceCombiner(Combiner):
             p.min_value, p.max_value, p.noise_kind)
 
 
+class QuantileCombiner(Combiner):
+    """DP percentiles from a quantile tree per partition: B^h leaves over
+    [min_value, max_value], noise on every node with the budget split
+    equally across the h levels, and a root-to-leaf descent."""
+
+    def __init__(self,
+                 params: CombinerParams,
+                 percentiles_to_compute: List[float],
+                 tree_height: int = quantile_tree.DEFAULT_TREE_HEIGHT,
+                 branching_factor: int = (
+                     quantile_tree.DEFAULT_BRANCHING_FACTOR)):
+        self._params = params
+        self._percentiles = percentiles_to_compute
+        self._quantiles_to_compute = [p / 100 for p in percentiles_to_compute]
+        self._tree_height = tree_height
+        self._branching_factor = branching_factor
+
+    def metrics_names(self) -> List[str]:
+
+        def format_metric_name(p: float):
+            int_p = int(round(p))
+            p_str = str(int_p) if int_p == p else str(p).replace('.', '_')
+            return f"percentile_{p_str}"
+
+        return list(map(format_metric_name, self._percentiles))
+
+    def explain_computation(self) -> ExplainComputationReport:
+        return lambda: (f"Computed percentiles {self._percentiles} with "
+                        f"(eps={self._params.eps} delta={self._params.delta})")
+
+    def mechanism_spec(self) -> budget_accounting.MechanismSpec:
+        return self._params.mechanism_spec
+
+    def noise_std(self) -> float:
+        """The per-node noise stddev of every tree level."""
+        p = self._params.aggregate_params
+        return quantile_tree.per_level_noise_std(
+            self._params.eps, self._params.delta,
+            p.max_partitions_contributed, p.max_contributions_per_partition,
+            self._tree_height, p.noise_kind)
+
+
+class VectorSumCombiner(Combiner):
+    """DP elementwise sum of fixed-size vectors: the partition's sum is
+    clipped to the norm ball, then noised per coordinate."""
+
+    def __init__(self, params: CombinerParams):
+        self._params = params
+
+    def metrics_names(self) -> List[str]:
+        return ['vector_sum']
+
+    def explain_computation(self) -> ExplainComputationReport:
+        return lambda: (f"Computed vector sum with (eps={self._params.eps} "
+                        f"delta={self._params.delta})")
+
+    def mechanism_spec(self) -> budget_accounting.MechanismSpec:
+        return self._params.mechanism_spec
+
+    def noise_std(self) -> float:
+        """The per-coordinate noise stddev."""
+        return dp_computations.vector_noise_std(
+            self._params.additive_vector_noise_params)
+
+
 # Cache for namedtuple result types, guarded against concurrent creation
 # of two distinct classes for one key.
 _named_tuple_cache_lock = threading.Lock()
@@ -308,4 +392,13 @@ def create_compound_combiner(
             combiners.append(SumCombiner(request(), params))
     if Metrics.PRIVACY_ID_COUNT in params.metrics:
         combiners.append(PrivacyIdCountCombiner(request(), params))
+    if Metrics.VECTOR_SUM in params.metrics:
+        combiners.append(VectorSumCombiner(CombinerParams(request(), params)))
+    percentiles_to_compute = [
+        metric.parameter for metric in params.metrics if metric.is_percentile
+    ]
+    if percentiles_to_compute:
+        combiners.append(
+            QuantileCombiner(CombinerParams(request(), params),
+                             percentiles_to_compute))
     return CompoundCombiner(combiners)

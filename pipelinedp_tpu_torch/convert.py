@@ -15,17 +15,12 @@ import torch
 
 from pipelinedp_tpu_torch import columnar
 from pipelinedp_tpu_torch import executor
-from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+from pipelinedp_tpu_torch.aggregate_params import NoiseKind, NormKind
 from pipelinedp_tpu_torch.ops import selection_ops
 
-# KernelConfig fields of the JAX package that this slice does not run, with
-# the value that means "off".
-_UNPORTED_DEFAULTS = {
-    "vector_size": 0, "vector_max_norm": 0.0,
-    "vector_norm_kind": None, "quantiles": (), "tree_height": 0,
-    "branching": 0, "quantile_chunk": 0, "secure": False,
-    "numeric_mode": "fast",
-}
+# KernelConfig fields of the JAX package that the port does not run yet,
+# with the value that means "off".
+_UNPORTED_DEFAULTS = {"secure": False, "numeric_mode": "fast"}
 
 
 def encoded_data(pid: np.ndarray, pk: np.ndarray, values: np.ndarray,
@@ -49,7 +44,7 @@ def selection_params(fields: Mapping[str, Any]) -> selection_ops.SelectionParams
 def kernel_config(fields: Mapping[str, Any]) -> executor.KernelConfig:
     """KernelConfig from the JAX package's KernelConfig fields (plan
     entries and selection as mappings or dataclass-like objects, the
-    noise kind as a NoiseKind of either package or its value)."""
+    noise and norm kinds as enums of either package or their values)."""
     fields = dict(fields)
     for name, off in _UNPORTED_DEFAULTS.items():
         if name in fields and fields.pop(name) not in (off, None):
@@ -61,11 +56,15 @@ def kernel_config(fields: Mapping[str, Any]) -> executor.KernelConfig:
         for e in (_as_dict(entry) for entry in fields.pop("plan")))
     selection = fields.pop("selection")
     noise_kind = fields.pop("noise_kind")
+    norm_kind = fields.pop("vector_norm_kind", None)
     return executor.KernelConfig(
         plan=plan,
         selection=(None if selection is None else
                    selection_params(_as_dict(selection))),
         noise_kind=NoiseKind(getattr(noise_kind, "value", noise_kind)),
+        vector_norm_kind=(None if norm_kind is None else
+                          NormKind(getattr(norm_kind, "value", norm_kind))),
+        quantiles=tuple(fields.pop("quantiles", ())),
         **fields)
 
 

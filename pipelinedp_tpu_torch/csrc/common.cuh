@@ -5,7 +5,10 @@
 //  * threefry2x32 and JAX's uniform / normal / laplace transforms, bit-for-bit
 //    on the random words (pipelinedp_tpu_torch/ops/threefry.py is the plain
 //    twin; jax/_src/prng.py and jax/_src/random.py are the reference);
+//  * jax.random.fold_in on the device;
 //  * XLA's erf_inv polynomial (Giles);
+//  * NaN-propagating max / min (jnp.maximum / jnp.minimum), the release
+//    sentinel's flag bits of a value and their block-wide OR;
 //  * a block-wide exclusive scan over an associative operator, and the
 //    single-block kernel that scans per-tile aggregates (pass 2 of the
 //    three-pass tile scans in bound_rows.cu, reduce_partitions.cu,
@@ -45,6 +48,16 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
     x0 += ks[(s + 1) % 3];
     x1 += ks[(s + 2) % 3] + static_cast<uint32_t>(s + 1);
   }
+}
+
+// jax.random.fold_in(key, data): the key hashed on the counter (0, data).
+__device__ __forceinline__ void fold_in(uint32_t k0, uint32_t k1,
+                                        uint32_t data, uint32_t& o0,
+                                        uint32_t& o1) {
+  uint32_t x0 = 0u, x1 = data;
+  threefry2x32(k0, k1, x0, x1);
+  o0 = x0;
+  o1 = x1;
 }
 
 // Floats in [0, 1) from element i of a draw under key (k0, k1): JAX's
@@ -180,6 +193,56 @@ __device__ __forceinline__ F laplace(uint32_t k0, uint32_t k1, uint64_t i) {
   const F u = uniform<F>(k0, k1, i, open_low<F>(), F(1));
   const F sign = u > F(0) ? F(1) : (u < F(0) ? F(-1) : F(0));
   return sign * log1p_(-(u < F(0) ? -u : u));
+}
+
+// Additive noise of std `std` is a draw times noise_scale: std for a
+// normal draw, b = std / sqrt(2) for a laplace draw (ops/noise.py).
+template <typename F>
+__device__ __forceinline__ F noise_scale(double std, bool gaussian) {
+  const F s = static_cast<F>(std);
+  return gaussian ? s : s / sqrt_(F(2));
+}
+
+// Element i of jax.random.normal (gaussian) or jax.random.laplace.
+template <typename F>
+__device__ __forceinline__ F draw(uint32_t k0, uint32_t k1, uint64_t i,
+                                  bool gaussian) {
+  return gaussian ? normal<F>(k0, k1, i) : laplace<F>(k0, k1, i);
+}
+
+// jnp.maximum / jnp.minimum: a NaN operand propagates.
+template <typename F>
+__device__ __forceinline__ F max_nan(F a, F b) {
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+template <typename F>
+__device__ __forceinline__ F min_nan(F a, F b) {
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+}
+
+// The release sentinel's bits of one released value (numeric.py): NaN 1,
+// Inf 2, |x| >= half the type's maximum 4.
+template <typename F>
+__device__ __forceinline__ unsigned value_flags(F v) {
+  const F limit = static_cast<F>(sizeof(F) == 4 ? 1.7014117331926443e38
+                                                : 8.988465674311579e307);
+  if (v != v) return 1u;
+  const F a = v < F(0) ? -v : v;
+  if (a == static_cast<F>(INFINITY)) return 2u;
+  return a >= limit ? 4u : 0u;
+}
+
+// ORs every thread's flag bits into *flags: a warp reduction, one shared
+// word per block and one integer atomicOr per block (order-free, so the
+// word is deterministic). Every thread of the block must call it.
+__device__ __forceinline__ void block_or_flags(unsigned f, unsigned* flags) {
+  __shared__ unsigned block_flags;
+  if (threadIdx.x == 0) block_flags = 0u;
+  __syncthreads();
+  f = __reduce_or_sync(kFullMask, f);
+  if ((threadIdx.x & 31) == 0 && f) atomicOr(&block_flags, f);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_flags) atomicOr(flags, block_flags);
 }
 
 // ---------------------------------------------------------------------------

@@ -16,6 +16,10 @@
 // warp scans the per-(step, warp) counts. Tiles are independent, so any
 // P up to the dense route's 2^21 spreads over many blocks.
 //
+// A column holds `width` elements a partition (1, or D for a vector sum's
+// [P, D]); a row moves whole. Any number of columns: the scatter runs
+// once per group of kMaxColumns.
+//
 // Bound: bytes. Reads keep (1 B) and the columns, writes order (8 B) and
 // the columns once each. Writes of dropped rows are as coalesced as the
 // reads; kept rows are written densely in order.
@@ -23,13 +27,14 @@
 
 namespace {
 
-constexpr int kMaxColumns = 8;
+constexpr int kMaxColumns = 32;
 constexpr int kWarps = pdp::kThreads / 32;
 static_assert(pdp::kItems * kWarps == 64, "two (step, warp) counts a lane");
 
 struct Columns {
   const void* in[kMaxColumns];
   void* out[kMaxColumns];
+  int width[kMaxColumns];
   int n;
 };
 
@@ -100,8 +105,11 @@ __global__ void scatter_kept(const uint8_t* __restrict__ keep, long long n,
     const long long dst = kept ? before : kept_all + (i - before);
     order[dst] = i;
     for (int j = 0; j < cols.n; ++j) {
-      static_cast<W*>(cols.out[j])[dst] =
-          static_cast<const W*>(cols.in[j])[i];
+      const int w = cols.width[j];
+      for (int c = 0; c < w; ++c) {
+        static_cast<W*>(cols.out[j])[dst * w + c] =
+            static_cast<const W*>(cols.in[j])[i * w + c];
+      }
     }
   }
 }
@@ -114,12 +122,14 @@ extern "C" long long compact_kept_scratch_bytes(long long n) {
 }
 
 // keep: u8[n]; in_cols / out_cols: n_cols device pointers (host arrays) of
-// elements of `elem_bytes` (4 or 8); order: int64[n]; n_kept: one int64.
+// elements of `elem_bytes` (4 or 8), widths[j] elements a partition;
+// order: int64[n]; n_kept: one int64.
 extern "C" int compact_kept(const void* keep, long long n,
                             const void* const* in_cols, void* const* out_cols,
-                            int n_cols, int elem_bytes, void* scratch,
-                            void* order, void* n_kept, void* stream) {
-  if (n_cols < 0 || n_cols > kMaxColumns) return -1;
+                            const int* widths, int n_cols, int elem_bytes,
+                            void* scratch, void* order, void* n_kept,
+                            void* stream) {
+  if (n_cols < 0) return -1;
   if (elem_bytes != 4 && elem_bytes != 8) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   long long* aggs = static_cast<long long*>(scratch);
@@ -128,27 +138,34 @@ extern "C" int compact_kept(const void* keep, long long n,
     return static_cast<int>(cudaGetLastError());
   }
   const long long tiles = pdp::n_tiles(n);
-  Columns cols{};
-  cols.n = n_cols;
-  for (int c = 0; c < n_cols; ++c) {
-    cols.in[c] = in_cols[c];
-    cols.out[c] = out_cols[c];
-  }
   const uint8_t* flags = static_cast<const uint8_t*>(keep);
   kept_per_tile<<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
       flags, n, aggs);
   pdp::scan_tile_aggregates<pdp::SumOp<long long>><<<1, 1024, 0, s>>>(
       aggs, tiles, aggs + tiles);
-  if (elem_bytes == 8) {
-    scatter_kept<uint64_t><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
-                             s>>>(flags, n, aggs, aggs + tiles, cols,
-                                  static_cast<long long*>(order),
-                                  static_cast<long long*>(n_kept));
-  } else {
-    scatter_kept<uint32_t><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
-                             s>>>(flags, n, aggs, aggs + tiles, cols,
-                                  static_cast<long long*>(order),
-                                  static_cast<long long*>(n_kept));
-  }
+  // One scatter per group of up to kMaxColumns columns (a kernel argument
+  // holds their pointers); each rewrites the same order and n_kept.
+  int first = 0;
+  do {
+    Columns cols{};
+    cols.n = n_cols - first < kMaxColumns ? n_cols - first : kMaxColumns;
+    for (int c = 0; c < cols.n; ++c) {
+      cols.in[c] = in_cols[first + c];
+      cols.out[c] = out_cols[first + c];
+      cols.width[c] = widths[first + c];
+    }
+    if (elem_bytes == 8) {
+      scatter_kept<uint64_t><<<static_cast<unsigned>(tiles), pdp::kThreads,
+                               0, s>>>(flags, n, aggs, aggs + tiles, cols,
+                                       static_cast<long long*>(order),
+                                       static_cast<long long*>(n_kept));
+    } else {
+      scatter_kept<uint32_t><<<static_cast<unsigned>(tiles), pdp::kThreads,
+                               0, s>>>(flags, n, aggs, aggs + tiles, cols,
+                                       static_cast<long long*>(order),
+                                       static_cast<long long*>(n_kept));
+    }
+    first += cols.n;
+  } while (first < n_cols);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,228 @@
+// C7 quantile_counts: integer quantile-tree counts of the kept rows.
+//
+// Replaces the count half of K12, pipelinedp_tpu/executor.py: the leaf
+// scatter-add and level roll-ups of quantile_outputs' dense chunk
+// (:859-880), the per-level child segment sums of the lazy descent
+// (_lazy_quantile_outputs, :796-808), and the leaf of each row
+// (_leaf_indices, :270, at :402-405).
+//
+// Rows come in partition-sorted order (C5 after C2): sorted row i belongs
+// to partition skey2[i] (kept when < n_partitions), and its value is
+// values[row_perm[perm[i]]] (values[perm[i]] when row_perm is null), the
+// unclipped value of the bounding-sorted row. Its leaf is
+//   trunc((v - min) / (span > 0 ? span : 1) * L), clipped to [0, L),
+// with the saturating, NaN-to-0 float-to-int conversion of XLA
+// (__float2int_rz / __double2int_rz; a C++ cast overflows undefined).
+//
+// Three entries:
+//   quantile_leaf_counts   the leaf histogram int32[P, L]
+//   quantile_level_counts  level l from level l + 1: sums of B children
+//   quantile_child_counts  for every (partition, quantile) the counts of
+//                          the B children at one level of the node
+//                          node[p, q], over the rows below it: all
+//                          quantiles in one pass over the rows
+// Counts are integers, so atomics give the same result in any order. The
+// sorted order puts a warp's 32 rows in one or two partitions, where a
+// rating-like value falls on a few leaves: __match_any_sync groups the
+// lanes of equal counters and one lane adds the group's size, one atomic
+// per (warp, counter) instead of one a row.
+//
+// Bound: bytes. Each row reads skey2 (4 B), perm and row_perm (8 B each)
+// and its value (F), gathered; the histogram is P * L * 4 B, zero-filled
+// by the caller. The roll-ups read every level once.
+#include "common.cuh"
+
+namespace {
+
+template <typename F>
+struct Rows {
+  const int32_t* skey2;
+  const long long* perm;
+  const long long* row_perm;
+  const F* values;
+  long long n;
+  int n_partitions;
+  int n_leaves;
+  F lo, den;  // min_value; the span, or 1 where the span is not > 0
+
+  __device__ __forceinline__ F value(long long i) const {
+    long long r = perm[i];
+    if (row_perm) r = row_perm[r];
+    return values[r];
+  }
+};
+
+__device__ __forceinline__ int to_int_rz(float x) { return __float2int_rz(x); }
+__device__ __forceinline__ int to_int_rz(double x) {
+  return __double2int_rz(x);
+}
+
+template <typename F>
+__device__ __forceinline__ int leaf_of(const Rows<F>& rows, F v) {
+  const F frac = (v - rows.lo) / rows.den;
+  const int leaf = to_int_rz(frac * static_cast<F>(rows.n_leaves));
+  return leaf < 0 ? 0 : (leaf > rows.n_leaves - 1 ? rows.n_leaves - 1 : leaf);
+}
+
+template <typename F>
+Rows<F> make_rows(const void* skey2, const void* perm, const void* row_perm,
+                  const void* values, long long n, int n_partitions,
+                  int n_leaves, double min_v, double max_v) {
+  const F lo = static_cast<F>(min_v);
+  const F span = static_cast<F>(max_v) - lo;
+  return Rows<F>{static_cast<const int32_t*>(skey2),
+                 static_cast<const long long*>(perm),
+                 static_cast<const long long*>(row_perm),
+                 static_cast<const F*>(values),
+                 n,
+                 n_partitions,
+                 n_leaves,
+                 lo,
+                 span > F(0) ? span : F(1)};
+}
+
+// One thread a sorted row; every lane of a warp reaches the match.
+template <typename F>
+__global__ void leaf_counts_kernel(Rows<F> rows, int* __restrict__ hist) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long key = -1;
+  if (i < rows.n) {
+    const int p = rows.skey2[i];
+    if (p >= 0 && p < rows.n_partitions)
+      key = static_cast<long long>(p) * rows.n_leaves +
+            leaf_of(rows, rows.value(i));
+  }
+  const unsigned peers =
+      __match_any_sync(pdp::kFullMask, static_cast<unsigned long long>(key));
+  if (key >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(hist + key, __popc(peers));
+}
+
+__global__ void rollup_kernel(const int* __restrict__ finer,
+                              int* __restrict__ coarser, long long n_coarse,
+                              int branching) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_coarse) return;
+  const int* c = finer + i * branching;
+  int s = 0;
+  for (int b = 0; b < branching; ++b) s += c[b];
+  coarser[i] = s;
+}
+
+template <typename F>
+__global__ void child_counts_kernel(Rows<F> rows, int shift, int branching,
+                                    const int* __restrict__ node, int n_q,
+                                    int* __restrict__ counts) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long key = -1;
+  int p = 0, row_node = 0;
+  if (i < rows.n) {
+    p = rows.skey2[i];
+    if (p >= 0 && p < rows.n_partitions) {
+      row_node = leaf_of(rows, rows.value(i)) / shift;
+      key = (static_cast<long long>(p) << 32) | row_node;
+    }
+  }
+  const unsigned peers =
+      __match_any_sync(pdp::kFullMask, static_cast<unsigned long long>(key));
+  if (key < 0 || (threadIdx.x & 31) != __ffs(peers) - 1) return;
+  const int parent = row_node / branching, child = row_node % branching;
+  const int size = __popc(peers);
+  const long long base = static_cast<long long>(p) * n_q;
+  for (int q = 0; q < n_q; ++q) {
+    if (node[base + q] == parent)
+      atomicAdd(counts + (base + q) * branching + child, size);
+  }
+}
+
+unsigned blocks_for(long long n, int threads) {
+  return static_cast<unsigned>((n + threads - 1) / threads);
+}
+
+template <typename F>
+int launch_leaf(const void* skey2, const void* perm, const void* row_perm,
+                const void* values, long long n, int n_partitions,
+                int n_leaves, double min_v, double max_v, void* hist,
+                cudaStream_t s) {
+  if (n <= 0) return 0;
+  const Rows<F> rows = make_rows<F>(skey2, perm, row_perm, values, n,
+                                    n_partitions, n_leaves, min_v, max_v);
+  leaf_counts_kernel<F><<<blocks_for(n, 256), 256, 0, s>>>(
+      rows, static_cast<int*>(hist));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename F>
+int launch_child(const void* skey2, const void* perm, const void* row_perm,
+                 const void* values, long long n, int n_partitions,
+                 int n_leaves, int shift, int branching, const void* node,
+                 int n_q, double min_v, double max_v, void* counts,
+                 cudaStream_t s) {
+  if (n <= 0) return 0;
+  const Rows<F> rows = make_rows<F>(skey2, perm, row_perm, values, n,
+                                    n_partitions, n_leaves, min_v, max_v);
+  child_counts_kernel<F><<<blocks_for(n, 256), 256, 0, s>>>(
+      rows, shift, branching, static_cast<const int*>(node), n_q,
+      static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// hist: int32[n_partitions, n_leaves], zero-filled by the caller.
+extern "C" int quantile_leaf_counts(const void* skey2, const void* perm,
+                                    const void* row_perm, const void* values,
+                                    long long n, int n_partitions,
+                                    int n_leaves, double min_v, double max_v,
+                                    void* hist, int f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f64 ? launch_leaf<double>(skey2, perm, row_perm, values, n,
+                                   n_partitions, n_leaves, min_v, max_v,
+                                   hist, s)
+             : launch_leaf<float>(skey2, perm, row_perm, values, n,
+                                  n_partitions, n_leaves, min_v, max_v, hist,
+                                  s);
+}
+
+// levels: tree_height device pointers (a host array), levels[l - 1] =
+// int32[n_partitions, B^l]; the last (the leaves) is read, the others are
+// written, finest first.
+extern "C" int quantile_level_counts(void* const* levels, int n_partitions,
+                                     int tree_height, int branching,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long width = 1;
+  for (int l = 1; l < tree_height; ++l) width *= branching;
+  for (int l = tree_height - 1; l >= 1; --l) {
+    const long long n_coarse = static_cast<long long>(n_partitions) * width;
+    if (n_coarse > 0) {
+      rollup_kernel<<<blocks_for(n_coarse, 256), 256, 0, s>>>(
+          static_cast<const int*>(levels[l]), static_cast<int*>(levels[l - 1]),
+          n_coarse, branching);
+    }
+    width /= branching;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// node: int32[n_partitions, n_q], nodes of level (level - 1); shift =
+// B^(h - level); counts: int32[n_partitions, n_q, B], zero-filled by the
+// caller.
+extern "C" int quantile_child_counts(const void* skey2, const void* perm,
+                                     const void* row_perm, const void* values,
+                                     long long n, int n_partitions,
+                                     int n_leaves, int shift, int branching,
+                                     const void* node, int n_q, double min_v,
+                                     double max_v, void* counts, int f64,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f64 ? launch_child<double>(skey2, perm, row_perm, values, n,
+                                    n_partitions, n_leaves, shift, branching,
+                                    node, n_q, min_v, max_v, counts, s)
+             : launch_child<float>(skey2, perm, row_perm, values, n,
+                                   n_partitions, n_leaves, shift, branching,
+                                   node, n_q, min_v, max_v, counts, s);
+}

@@ -17,10 +17,17 @@
 // on every run. Work per tile is fixed too, so a hot partition spreads
 // over as many blocks as it has rows.
 //
+// A second entry, reduce_vectors, sums VECTOR_SUM's D value coordinates
+// per partition (executor.py:408-411 and the vsum stack at :509-511): the
+// same tile scan over the same sorted stream, four coordinates a pass set,
+// with each sorted row's coordinates gathered through both permutations
+// (partition sort, then bounding sort) instead of a bounded n x D copy.
+//
 // Bound: bytes. Each pass reads skey2 (4 B) and, in the last pass, perm
 // (8 B) and through it pair_start (1 B) and up to three F columns; the
 // outputs are 5 F columns of n_partitions. The reads through perm are
-// gathers.
+// gathers. The vector entry reads perm and row_perm (8 B each) and D F
+// values a row, and writes D F values a partition.
 #include "common.cuh"
 
 namespace {
@@ -158,7 +165,165 @@ int launch(const void* skey2, const void* perm, const void* pair_start,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- Vector entry: kVec coordinates per scan, one segment flag. ---------
+
+constexpr int kVec = 4;
+
+template <typename F>
+struct VSeg {
+  F v[kVec];
+  int f;  // a segment starts inside
+};
+
+template <typename F>
+struct VSegOp {
+  using T = VSeg<F>;
+  static __device__ __forceinline__ T identity() {
+    T t;
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) t.v[c] = F(0);
+    t.f = 0;
+    return t;
+  }
+  static __device__ __forceinline__ T combine(T x, T y) {
+    if (y.f) return y;
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) x.v[c] = x.v[c] + y.v[c];
+    return x;
+  }
+  static __device__ __forceinline__ T shfl_up(T v, int d) {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c)
+      v.v[c] = __shfl_up_sync(pdp::kFullMask, v.v[c], d);
+    v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
+    return v;
+  }
+};
+
+template <typename F>
+struct VRows {
+  const int32_t* skey2;
+  const long long* perm;
+  const long long* row_perm;  // null: the bounded rows are the value rows
+  const F* values;            // [n, dim]
+  long long n;
+  int dim, d0;
+
+  __device__ __forceinline__ VSeg<F> element(long long i) const {
+    long long r = perm[i];
+    if (row_perm) r = row_perm[r];
+    const F* row = values + r * dim;
+    VSeg<F> e;
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) e.v[c] = d0 + c < dim ? row[d0 + c] : F(0);
+    e.f = (i == 0 || skey2[i] != skey2[i - 1]) ? 1 : 0;
+    return e;
+  }
+};
+
+template <typename F>
+__global__ void vector_tile_aggregates(VRows<F> rows, VSeg<F>* aggs) {
+  __shared__ VSeg<F> smem[32];
+  const long long base =
+      static_cast<long long>(blockIdx.x) * pdp::kTile +
+      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  VSeg<F> acc = VSegOp<F>::identity();
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    if (base + k < rows.n)
+      acc = VSegOp<F>::combine(acc, rows.element(base + k));
+  }
+  VSeg<F> total;
+  pdp::block_exclusive_scan<VSegOp<F>>(acc, smem, &total);
+  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
+}
+
+template <typename F>
+__global__ void write_vectors(VRows<F> rows, const VSeg<F>* prefixes,
+                              int n_partitions, F* __restrict__ vsum) {
+  __shared__ VSeg<F> smem[32];
+  const long long base =
+      static_cast<long long>(blockIdx.x) * pdp::kTile +
+      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  VSeg<F> elems[pdp::kItems];
+  VSeg<F> acc = VSegOp<F>::identity();
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    elems[k] = base + k < rows.n ? rows.element(base + k)
+                                 : VSegOp<F>::identity();
+    acc = VSegOp<F>::combine(acc, elems[k]);
+  }
+  VSeg<F> total;
+  const VSeg<F> excl =
+      pdp::block_exclusive_scan<VSegOp<F>>(acc, smem, &total);
+  VSeg<F> state = VSegOp<F>::combine(prefixes[blockIdx.x], excl);
+#pragma unroll
+  for (int k = 0; k < pdp::kItems; ++k) {
+    const long long i = base + k;
+    if (i >= rows.n) break;
+    state = VSegOp<F>::combine(state, elems[k]);
+    const int32_t key = rows.skey2[i];
+    const bool last = i + 1 == rows.n || rows.skey2[i + 1] != key;
+    if (last && key >= 0 && key < n_partitions) {
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        if (rows.d0 + c < rows.dim)
+          vsum[static_cast<long long>(key) * rows.dim + rows.d0 + c] =
+              state.v[c];
+      }
+    }
+  }
+}
+
+template <typename F>
+int launch_vectors(const void* skey2, const void* perm, const void* row_perm,
+                   const void* values, long long n, int dim,
+                   int n_partitions, void* scratch, void* vsum,
+                   void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = pdp::n_tiles(n);
+  VSeg<F>* aggs = static_cast<VSeg<F>*>(scratch);
+  for (int d0 = 0; d0 < dim; d0 += kVec) {
+    VRows<F> rows{static_cast<const int32_t*>(skey2),
+                  static_cast<const long long*>(perm),
+                  static_cast<const long long*>(row_perm),
+                  static_cast<const F*>(values),
+                  n,
+                  dim,
+                  d0};
+    vector_tile_aggregates<F><<<static_cast<unsigned>(tiles), pdp::kThreads,
+                                0, s>>>(rows, aggs);
+    // 512 threads: the float64 aggregate needs more than the 64 registers
+    // a thread of a 1024-thread block may have.
+    pdp::scan_tile_aggregates<VSegOp<F>><<<1, 512, 0, s>>>(aggs, tiles,
+                                                           nullptr);
+    write_vectors<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
+        rows, aggs, n_partitions, static_cast<F*>(vsum));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" long long reduce_vectors_scratch_bytes(long long n, int f64) {
+  const long long each = f64 ? sizeof(VSeg<double>) : sizeof(VSeg<float>);
+  return pdp::n_tiles(n) * each;
+}
+
+// Vector sums: skey2 / perm as for reduce_partitions; row_perm (nullable)
+// maps a bounded row to its row of values [*, dim]. vsum: [n_partitions,
+// dim], zero-filled by the caller.
+extern "C" int reduce_vectors(const void* skey2, const void* perm,
+                              const void* row_perm, const void* values,
+                              long long n, int dim, int n_partitions,
+                              void* scratch, void* vsum, int f64,
+                              void* stream) {
+  return f64 ? launch_vectors<double>(skey2, perm, row_perm, values, n, dim,
+                                      n_partitions, scratch, vsum, stream)
+             : launch_vectors<float>(skey2, perm, row_perm, values, n, dim,
+                                     n_partitions, scratch, vsum, stream);
+}
 
 extern "C" long long reduce_partitions_scratch_bytes(long long n, int f64) {
   const long long each = f64 ? sizeof(Seg<double>) : sizeof(Seg<float>);

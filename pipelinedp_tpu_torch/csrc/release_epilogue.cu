@@ -49,16 +49,6 @@ struct Params {
   double sel[14];
 };
 
-// jnp.maximum / jnp.minimum: a NaN operand propagates.
-template <typename F>
-__device__ __forceinline__ F max_nan(F a, F b) {
-  return a != a ? a : (b != b ? b : (a > b ? a : b));
-}
-template <typename F>
-__device__ __forceinline__ F min_nan(F a, F b) {
-  return a != a ? a : (b != b ? b : (a < b ? a : b));
-}
-
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
 __device__ __forceinline__ float erfc_(float x) { return erfcf(x); }
@@ -75,20 +65,21 @@ __device__ F keep_probability(const Params& P, F est) {
   F prob;
   if (kind == 0) {
     const F eps1 = static_cast<F>(s[2]), n_cross = static_cast<F>(s[4]);
-    const F n_eff = max_nan(n, F(1));
-    const F n1 = min_nan(n_eff, n_cross);
+    const F n_eff = pdp::max_nan(n, F(1));
+    const F n1 = pdp::min_nan(n_eff, n_cross);
     const F log_pi1 = static_cast<F>(s[6]) + (n1 - F(1)) * eps1 +
                       pdp::log1p_(-exp_(-n1 * eps1)) - static_cast<F>(s[7]);
-    const F pi1 = exp_(min_nan(log_pi1, F(0)));
-    const F k = max_nan(n_eff - n_cross, F(0));
+    const F pi1 = exp_(pdp::min_nan(log_pi1, F(0)));
+    const F k = pdp::max_nan(n_eff - n_cross, F(0));
     const F decay = exp_(-k * eps1);
     const F geo = s[10] != 0.0
                       ? static_cast<F>(s[8]) * (F(1) - decay) /
                             static_cast<F>(s[9])
                       : F(0);
     const F q = decay * static_cast<F>(s[13]) - static_cast<F>(s[3]) * geo;
-    const F pi2 = F(1) - max_nan(q, F(0));
-    prob = min_nan(max_nan(n_eff <= n_cross ? pi1 : pi2, F(0)), F(1));
+    const F pi2 = F(1) - pdp::max_nan(q, F(0));
+    prob = pdp::min_nan(pdp::max_nan(n_eff <= n_cross ? pi1 : pi2, F(0)),
+                        F(1));
   } else if (kind == 1) {
     const F z = (n - static_cast<F>(s[11])) / static_cast<F>(s[12]);
     const F az = z < F(0) ? -z : z;
@@ -111,16 +102,6 @@ __device__ __forceinline__ F noised(const Params& P, F col, int slot,
 }
 
 template <typename F>
-__device__ __forceinline__ unsigned value_flags(F v) {
-  const F limit = static_cast<F>(sizeof(F) == 4 ? 1.7014117331926443e38
-                                                : 8.988465674311579e307);
-  if (v != v) return 1u;
-  const F a = v < F(0) ? -v : v;
-  if (a == static_cast<F>(INFINITY)) return 2u;
-  return a >= limit ? 4u : 0u;
-}
-
-template <typename F>
 __global__ void epilogue_kernel(Params P, int n_partitions,
                                 const F* __restrict__ count,
                                 const F* __restrict__ pid_count,
@@ -134,9 +115,6 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
                                 F* __restrict__ o_mean,
                                 F* __restrict__ o_var,
                                 unsigned* __restrict__ flags) {
-  __shared__ unsigned block_flags;
-  if (threadIdx.x == 0) block_flags = 0u;
-  __syncthreads();
   const long long p =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   unsigned f = 0u;
@@ -169,7 +147,7 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
         case kMean: {
           const F dp_count = noised<F>(P, count[p], off, q);
           const F dp_nsum = noised<F>(P, nsum[p], off + 1, q);
-          const F denom = max_nan(dp_count, F(1));
+          const F denom = pdp::max_nan(dp_count, F(1));
           r_mean = mid + dp_nsum / denom;
           if (P.outputs[e] & oCount) r_count = dp_count;
           if (P.outputs[e] & oSum) r_sum = r_mean * dp_count;
@@ -177,7 +155,7 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
         }
         case kVariance: {
           const F dp_count = noised<F>(P, count[p], off, q);
-          const F denom = max_nan(dp_count, F(1));
+          const F denom = pdp::max_nan(dp_count, F(1));
           F nmean, nsqmean;
           if (P.degenerate) {
             nmean = static_cast<F>(P.min_v);
@@ -201,17 +179,14 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
     if (o_mean) o_mean[p] = r_mean;
     if (o_var) o_var[p] = r_var;
     if (keep) {
-      if (o_count) f |= value_flags(r_count);
-      if (o_pid) f |= value_flags(r_pid);
-      if (o_sum) f |= value_flags(r_sum);
-      if (o_mean) f |= value_flags(r_mean);
-      if (o_var) f |= value_flags(r_var);
+      if (o_count) f |= pdp::value_flags(r_count);
+      if (o_pid) f |= pdp::value_flags(r_pid);
+      if (o_sum) f |= pdp::value_flags(r_sum);
+      if (o_mean) f |= pdp::value_flags(r_mean);
+      if (o_var) f |= pdp::value_flags(r_var);
     }
   }
-  f = __reduce_or_sync(pdp::kFullMask, f);
-  if ((threadIdx.x & 31) == 0 && f) atomicOr(&block_flags, f);
-  __syncthreads();
-  if (threadIdx.x == 0 && block_flags) atomicOr(flags, block_flags);
+  pdp::block_or_flags(f, flags);
 }
 
 }  // namespace

@@ -23,7 +23,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
-           "radix_sort", "compact_kept")
+           "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
+           "vector_release")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -31,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
+_D = ctypes.c_double
 _SIGNATURES = {
     "row_keys": {
         "row_keys": (_I, [_P, _P, _P, _LL, _I, _P, _U, _U, _P, _P, _P, _I,
@@ -48,6 +50,8 @@ _SIGNATURES = {
         "reduce_partitions_scratch_bytes": (_LL, [_LL, _I]),
         "reduce_partitions": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P, _P,
                                    _P, _P, _P, _P, _I, _P]),
+        "reduce_vectors_scratch_bytes": (_LL, [_LL, _I]),
+        "reduce_vectors": (_I, [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _P]),
     },
     "release_epilogue": {
         "release_epilogue": (_I, [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
@@ -61,7 +65,26 @@ _SIGNATURES = {
     },
     "compact_kept": {
         "compact_kept_scratch_bytes": (_LL, [_LL]),
-        "compact_kept": (_I, [_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P]),
+        "compact_kept": (_I, [_P, _LL, _P, _P, _P, _I, _I, _P, _P, _P,
+                              _P]),
+    },
+    "quantile_counts": {
+        "quantile_leaf_counts": (_I, [_P, _P, _P, _P, _LL, _I, _I, _D, _D,
+                                      _P, _I, _P]),
+        "quantile_level_counts": (_I, [_P, _I, _I, _I, _P]),
+        "quantile_child_counts": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                                       _P, _I, _D, _D, _P, _I, _P]),
+    },
+    "quantile_descend": {
+        "quantile_descend_dense": (_I, [_P, _LL, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _P, _I, _P]),
+        "quantile_descend_step": (_I, [_P, _LL, _I, _P, _P, _P, _P, _U, _U,
+                                       _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _P]),
+    },
+    "vector_release": {
+        "vector_release": (_I, [_P, _LL, _I, _I, _D, _D, _U, _U, _I, _P, _P,
+                                _P, _I, _P]),
     },
 }
 

@@ -2,8 +2,10 @@
 
 Port of the host calibration in pipelinedp_tpu/dp_computations.py: the
 analytic Gaussian sigma (`gaussian_sigma`, :159), the variance noise stds
-(`compute_dp_var_noise_stds`, :378), the mechanisms' standard deviations
-and descriptions, and the `compute_sensitivities_*` functions (:1133 on).
+(`compute_dp_var_noise_stds`, :378), VECTOR_SUM's per-coordinate noise
+(`AdditiveVectorNoiseParams`, `vector_noise_std`, :232-270), the
+mechanisms' standard deviations and descriptions, and the
+`compute_sensitivities_*` functions (:1133 on).
 numpy/scipy only; the noise itself is drawn on the device by the release
 kernel, so these mechanisms carry no host sampler.
 """
@@ -129,6 +131,33 @@ def compute_dp_var_noise_stds(eps: float, delta: float, l0: int, linf: int,
     mid2 = compute_middle(sq_lo, sq_hi)
     nsum2_std = noise_std(e3, d3, l0, linf * abs(mid2 - sq_lo), noise_kind)
     return count_std, nsum_std, nsum2_std
+
+
+@dataclass
+class AdditiveVectorNoiseParams:
+    """Calibration of VECTOR_SUM's per-coordinate noise
+    (pipelinedp_tpu/dp_computations.py:232)."""
+    eps_per_coordinate: float
+    delta_per_coordinate: float
+    max_norm: float
+    l0_sensitivity: float
+    linf_sensitivity: float
+    norm_kind: aggregate_params.NormKind
+    noise_kind: NoiseKind
+
+
+def vector_noise_std(noise_params: AdditiveVectorNoiseParams) -> float:
+    """Per-coordinate noise stddev of the vector sum."""
+    if noise_params.noise_kind == NoiseKind.LAPLACE:
+        l1 = compute_l1_sensitivity(noise_params.l0_sensitivity,
+                                    noise_params.linf_sensitivity)
+        return math.sqrt(2.0) * l1 / noise_params.eps_per_coordinate
+    if noise_params.noise_kind == NoiseKind.GAUSSIAN:
+        l2 = compute_l2_sensitivity(noise_params.l0_sensitivity,
+                                    noise_params.linf_sensitivity)
+        return gaussian_sigma(noise_params.eps_per_coordinate,
+                              noise_params.delta_per_coordinate, l2)
+    raise ValueError("Noise kind must be either Laplace or Gaussian.")
 
 
 class AdditiveMechanism(abc.ABC):

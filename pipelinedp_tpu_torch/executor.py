@@ -12,7 +12,12 @@ and kept-first compaction run over columnar tensors on one device:
       -> C2 bound_rows: Linf rank < linf, L0 pair rank < l0, clipping
       -> C5 radix_sort by kept partition
       -> C3 reduce_partitions: dense count/pid_count/sum/nsum/nsum2
+         [VECTOR_SUM: the D-column sums, gathered through both sorts]
       -> C4 release_epilogue: selection, noise, metric formulas, flags
+      [VECTOR_SUM: C9 vector_release: norm-ball clip, noise, flags]
+      [PERCENTILE, P <= quantile_chunk: C7 leaf histogram + level roll-ups
+       -> C8 descent through every level; else per level: C7 child counts
+       -> C8 one descent step]
       -> C6 compact_kept: kept-first compaction
 
 Standalone partition selection (lazy_select_partitions) runs the same
@@ -44,16 +49,18 @@ from pipelinedp_tpu_torch import kernels
 from pipelinedp_tpu_torch import numeric
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    MechanismType, Metrics,
-                                                   NoiseKind)
+                                                   NoiseKind, NormKind)
 from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
 
 # Out-of-scope features name the ROADMAP item that ports them.
 _LATER = {
-    "metric": "ROADMAP.md Queue 1 item 7 (metric and mode breadth)",
     "custom": "ROADMAP.md Queue 1 item 14 (custom combiners on the generic "
               "backends)",
+    "vector_percentile": "ROADMAP.md Queue 1 item 14 (VECTOR_SUM together "
+                         "with a percentile leaves the columnar path for "
+                         "the generic backends)",
     "large_p": "ROADMAP.md Queue 1 item 8 (parallel/large_p.py, the blocked "
                "route above large_partition_threshold)",
 }
@@ -62,7 +69,8 @@ _LATER = {
 @dataclass(frozen=True)
 class MetricPlanEntry:
     """Static description of one child combiner's device computation."""
-    kind: str  # count | privacy_id_count | sum | mean | variance
+    kind: str  # count | privacy_id_count | sum | mean | variance |
+    #            vector_sum | quantiles
     outputs: Tuple[str, ...]  # metric names in the child's output order
     n_stds: int  # number of noise stddevs the entry consumes
 
@@ -84,6 +92,19 @@ class KernelConfig:
     max_rows_per_privacy_id: int
     plan: Tuple[MetricPlanEntry, ...]
     degenerate_range: bool  # min_value == max_value
+    # VECTOR_SUM: values are [n, vector_size] rows; each partition's sum is
+    # clipped to the norm ball and noised per coordinate (C9).
+    vector_size: int = 0  # 0 = scalar values
+    vector_max_norm: float = 0.0
+    vector_norm_kind: Optional[NormKind] = None
+    # PERCENTILE: a quantile tree of height tree_height and branching
+    # `branching` per partition (C7, C8); quantile_chunk partitions fit one
+    # leaf histogram of ~2^25 cells, and more partitions than that take the
+    # lazy descent, as in the JAX package.
+    quantiles: Tuple[float, ...] = ()
+    tree_height: int = 0
+    branching: int = 0
+    quantile_chunk: int = 0
 
 
 def check_supported(params: AggregateParams, public_partitions) -> None:
@@ -99,10 +120,11 @@ def check_supported(params: AggregateParams, public_partitions) -> None:
             "max_partitions_contributed, which is unset), so the port has "
             "no reference to match; see ROADMAP.md Queue 3. Pass "
             "public_partitions.")
-    for metric in params.metrics or []:
-        if metric == Metrics.VECTOR_SUM or metric.is_percentile:
-            raise NotImplementedError(
-                f"{metric} is not ported yet: {_LATER['metric']}")
+    metrics = params.metrics or []
+    if Metrics.VECTOR_SUM in metrics and any(m.is_percentile
+                                            for m in metrics):
+        raise NotImplementedError(
+            f"VECTOR_SUM with PERCENTILE: {_LATER['vector_percentile']}")
 
 
 def build_plan(
@@ -130,6 +152,11 @@ def build_plan(
                 m for m in ('count', 'sum', 'mean') if m in names
             ]
             plan.append(MetricPlanEntry('variance', tuple(outputs), 3))
+        elif isinstance(child, dp_combiners.VectorSumCombiner):
+            plan.append(MetricPlanEntry('vector_sum', ('vector_sum',), 1))
+        elif isinstance(child, dp_combiners.QuantileCombiner):
+            plan.append(
+                MetricPlanEntry('quantiles', tuple(child.metrics_names()), 1))
         else:
             raise NotImplementedError(
                 f"Combiner {type(child).__name__} has no columnar lowering")
@@ -152,6 +179,9 @@ def compute_noise_stds(compound: dp_combiners.CompoundCombiner) -> np.ndarray:
             stds.append(mech.sum_mechanism.std)
         elif isinstance(child, dp_combiners.VarianceCombiner):
             stds.extend(child.noise_stds())
+        elif isinstance(child, (dp_combiners.VectorSumCombiner,
+                                dp_combiners.QuantileCombiner)):
+            stds.append(child.noise_std())
         else:
             raise NotImplementedError(type(child))
     return np.asarray(stds, dtype=np.float64)
@@ -163,10 +193,25 @@ def make_kernel_config(
         selection_params: Optional[selection_ops.SelectionParams]
 ) -> KernelConfig:
     """Builds the release config from aggregation parameters."""
+    vector = Metrics.VECTOR_SUM in (params.metrics or [])
     max_rows = 1
     if params.contribution_bounds_already_enforced:
         max_rows = (params.max_contributions or
                     params.max_contributions_per_partition or 1)
+    degenerate = (params.min_value is not None and
+                  params.min_value == params.max_value)
+    quantiles: Tuple[float, ...] = ()
+    tree_height = branching = quantile_chunk = 0
+    qc = next((c for c in compound.combiners
+               if isinstance(c, dp_combiners.QuantileCombiner)), None)
+    if qc is not None:
+        if degenerate:
+            raise ValueError("max_value must be > min_value")
+        quantiles = tuple(qc._quantiles_to_compute)
+        tree_height = qc._tree_height
+        branching = qc._branching_factor
+        quantile_chunk = max(1, min(n_partitions,
+                                    (1 << 25) // branching**tree_height))
     return KernelConfig(
         n_partitions=n_partitions,
         linf=params.max_contributions_per_partition or 0,
@@ -174,16 +219,22 @@ def make_kernel_config(
             (params.max_partitions_contributed or 0)),
         total_bound=params.max_contributions or 0,
         sample_per_partition=compound.expects_per_partition_sampling(),
-        clip_per_value=params.bounds_per_contribution_are_set,
-        clip_pair_sum=params.bounds_per_partition_are_set,
+        clip_per_value=params.bounds_per_contribution_are_set and not vector,
+        clip_pair_sum=params.bounds_per_partition_are_set and not vector,
         bounds_enforced=params.contribution_bounds_already_enforced,
         noise_kind=params.noise_kind,
         private_selection=private_selection,
         selection=selection_params,
         max_rows_per_privacy_id=max_rows,
         plan=build_plan(compound),
-        degenerate_range=(params.min_value is not None and
-                          params.min_value == params.max_value))
+        degenerate_range=degenerate,
+        vector_size=(params.vector_size or 0) if vector else 0,
+        vector_max_norm=(params.vector_max_norm or 0.0) if vector else 0.0,
+        vector_norm_kind=params.vector_norm_kind if vector else None,
+        quantiles=quantiles,
+        tree_height=tree_height,
+        branching=branching,
+        quantile_chunk=quantile_chunk)
 
 
 def kernel_scalars(params: AggregateParams):
@@ -212,15 +263,19 @@ def pad_rows(encoded: columnar.EncodedData):
     pad = row_bucket(n) - n
     if pad == 0:
         return encoded.pid, encoded.pk, encoded.values, encoded.valid
-    values = (None if encoded.values is None else
-              np.concatenate([encoded.values, np.zeros(pad, np.float64)]))
+    values = (None if encoded.values is None else np.concatenate([
+        encoded.values,
+        np.zeros((pad,) + encoded.values.shape[1:], np.float64)]))
     return (np.concatenate([encoded.pid, np.zeros(pad, np.int32)]),
             np.concatenate([encoded.pk, np.full(pad, -1, np.int32)]),
             values, np.concatenate([encoded.valid, np.zeros(pad, bool)]))
 
 
 def reduce_column_names(cfg: KernelConfig) -> List[str]:
-    """The row columns bounded_row_columns emits for this config."""
+    """The row columns bounded_row_columns emits for this config (none
+    for vector sums: C3 gathers their coordinates itself)."""
+    if cfg.vector_size:
+        return []
     names = []
     if any(e.kind == 'sum' for e in cfg.plan):
         names.append('sum')
@@ -261,44 +316,54 @@ def bounded_row_columns(pid: torch.Tensor, pk: torch.Tensor,
                         cfg: KernelConfig):
     """Phase 1a: contribution bounding -> per-row reduction columns.
 
-    Returns (key2, pair_start, reduce_cols) in the bounding-sort order of
-    the JAX package's bounded_row_columns: key2 is the row's partition
+    Returns (key2, pair_start, reduce_cols, rows) in the bounding-sort order
+    of the JAX package's bounded_row_columns: key2 is the row's partition
     where it is kept (keep_row = key2 < n_partitions) and n_partitions
-    elsewhere.
+    elsewhere. rows = (row_perm, values): the value of bounded row r is
+    values[row_perm[r]] (values[r] when row_perm is None), unclipped; the
+    vector sums and the quantile trees read it through this permutation.
     """
     P = cfg.n_partitions
     key_total, key_linf, key_l0 = threefry.split(rows_key, 3)
     scalars = (min_v, max_v, min_s, max_s, mid)
+    columns = reduce_column_names(cfg)
+    # Vector rows reach no C2 column: C2 reads values only for columns.
+    row_values = None if cfg.vector_size else values
     common = dict(n_partitions=P, l0=cfg.l0,
                   clip_per_value=cfg.clip_per_value,
                   clip_pair_sum=cfg.clip_pair_sum, scalars=scalars,
-                  columns=reduce_column_names(cfg))
+                  columns=columns)
     if cfg.bounds_enforced:
         # Each row is its own contribution group: no bounding sort.
-        return kernels.bound_rows(None, None, None, pk, values, valid,
-                                  linf=0, **common)
+        key2, pair_start, cols = kernels.bound_rows(
+            None, None, None, pk, row_values, valid, linf=0, **common)
+        return key2, pair_start, cols, (None, values)
     if cfg.total_bound:
         pid, pk, values, valid = bound_total_contributions(
             pid, pk, values, valid, key_total, cfg.total_bound, P)
+        row_values = values
     k1, k2, u = kernels.row_keys(pid, pk, valid, threefry.bits(key_l0, 4),
                                  key_linf, P, values.dtype)
     perm = sort_rows(k1, k2, u)
     linf = cfg.linf if cfg.sample_per_partition else 0
-    return kernels.bound_rows(perm, k1, k2, pk, values, valid, linf=linf,
-                              **common)
+    key2, pair_start, cols = kernels.bound_rows(perm, k1, k2, pk, row_values,
+                                                valid, linf=linf, **common)
+    return key2, pair_start, cols, (perm, values)
 
 
 def reduce_rows_to_partitions(key2: torch.Tensor, pair_start: torch.Tensor,
                               reduce_cols: Dict[str, torch.Tensor],
-                              n_partitions: int,
-                              dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+                              n_partitions: int, dtype: torch.dtype,
+                              vector_rows=None):
     """Phase 1b: dense [0, n_partitions) partition columns from the bounded
-    row stream (one stable sort by kept partition, then C3)."""
+    row stream (one stable sort by kept partition, then C3; vector_rows =
+    bounded_row_columns' rows for VECTOR_SUM). Returns (cols, (perm,
+    skey2)): the columns and the partition-sorted row order."""
     perm, skey2 = kernels.radix_sort([key2], sorted_top=True)
     cols = kernels.reduce_partitions(skey2, perm, pair_start, reduce_cols,
-                                     n_partitions, dtype)
+                                     n_partitions, dtype, vector_rows)
     cols['row_count'] = cols['pid_count']
-    return cols
+    return cols, (perm, skey2)
 
 
 def slot_keys(key_noise, plan: Sequence[MetricPlanEntry]) -> np.ndarray:
@@ -314,19 +379,88 @@ def slot_keys(key_noise, plan: Sequence[MetricPlanEntry]) -> np.ndarray:
 def finalize(cols: Dict[str, torch.Tensor], min_v, mid, stds: np.ndarray,
              final_key, cfg: KernelConfig):
     """Phase 2: DP partition selection + noise + metric formulas + the
-    sentinel flag word (C4). Returns (outputs, keep, flags)."""
+    sentinel flag word (C4; a vector_sum entry's release is C9's, after
+    C4, ORing its bits into the same word). Returns (outputs, keep,
+    flags)."""
     key_sel, key_noise = threefry.split(final_key, 2)
     plan = []
     offset = 0
     for entry in cfg.plan:
         plan.append((entry.kind, entry.outputs, offset))
         offset += entry.n_stds
+    keys = slot_keys(key_noise, cfg.plan)
     keep, outputs, flags = kernels.release_epilogue(
-        cols, plan, stds, slot_keys(key_noise, cfg.plan), cfg.noise_kind,
-        cfg.degenerate_range, mid, min_v,
-        cfg.selection if cfg.private_selection else None, key_sel,
+        cols, plan, stds, keys, cfg.noise_kind, cfg.degenerate_range, mid,
+        min_v, cfg.selection if cfg.private_selection else None, key_sel,
         cfg.max_rows_per_privacy_id)
+    for kind, _, off in plan:
+        if kind == 'vector_sum':
+            outputs['vector_sum'] = kernels.vector_release(
+                cols['vsum'], keep, flags, max_norm=cfg.vector_max_norm,
+                norm_kind=cfg.vector_norm_kind.value, std=stds[off],
+                key=keys[off],
+                gaussian=cfg.noise_kind == NoiseKind.GAUSSIAN)
     return outputs, keep, flags
+
+
+def quantile_std_index(plan: Sequence[MetricPlanEntry]) -> int:
+    """Index of the quantile entry's noise std within the stds array."""
+    offset = 0
+    for entry in plan:
+        if entry.kind == 'quantiles':
+            return offset
+        offset += entry.n_stds
+    raise ValueError("plan has no quantiles entry")
+
+
+def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
+                     stds: np.ndarray, qkey, keep: torch.Tensor,
+                     flags: torch.Tensor, cfg: KernelConfig,
+                     dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Per-partition DP percentiles (the JAX package's quantile_outputs,
+    :825): sorted_rows = (perm, skey2), the partition-sorted order of the
+    bounded rows; values_rows = (row_perm, values) from
+    bounded_row_columns. Flag bits of the kept partitions' percentiles are
+    ORed into flags.
+
+    With one leaf-histogram chunk covering every partition (P <=
+    quantile_chunk), C7 builds the whole tree's counts and C8 descends
+    every level in one launch, noising node j of level l at counter
+    p * B^l + j under fold_in(fold_in(qkey, 0), l - 1). Above that, each
+    level's child counts (C7) and one descent step (C8) alternate: h
+    passes over the rows for every quantile together.
+    """
+    perm, skey2 = sorted_rows
+    row_perm, values = values_rows
+    P, h, B = cfg.n_partitions, cfg.tree_height, cfg.branching
+    std = float(stds[quantile_std_index(cfg.plan)])
+    gaussian = cfg.noise_kind == NoiseKind.GAUSSIAN
+    tree = dict(tree_height=h, branching=B, min_v=min_v, max_v=max_v)
+    descent = dict(std=std, gaussian=gaussian, min_v=min_v, max_v=max_v,
+                   keep=keep, flags=flags)
+    if -(-P // max(cfg.quantile_chunk, 1)) <= 1:
+        leaf_counts = kernels.quantile_leaf_counts(
+            skey2, perm, row_perm, values, n_partitions=P, n_leaves=B**h,
+            min_v=min_v, max_v=max_v)
+        levels = kernels.quantile_level_counts(leaf_counts, tree_height=h,
+                                               branching=B)
+        ckey = threefry.fold_in(qkey, 0)
+        level_keys = np.stack([threefry.fold_in(ckey, l) for l in range(h)])
+        per_quantile = kernels.quantile_descend_dense(
+            levels, cfg.quantiles, level_keys=level_keys, dtype=dtype,
+            **descent)
+    else:
+        state = kernels.DescentState(P, len(cfg.quantiles), dtype,
+                                     skey2.device)
+        for level in range(1, h + 1):
+            counts = kernels.quantile_child_counts(
+                skey2, perm, row_perm, values, state.node, level=level,
+                **tree)
+            per_quantile = kernels.quantile_descend_step(
+                counts, state, cfg.quantiles, level=level, tree_height=h,
+                level_key=threefry.fold_in(qkey, level), **descent)
+    names = next(e.outputs for e in cfg.plan if e.kind == 'quantiles')
+    return {name: per_quantile[j] for j, name in enumerate(names)}
 
 
 def compact_release(outputs: Dict[str, torch.Tensor], keep: torch.Tensor):
@@ -340,15 +474,21 @@ def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
                              max_s, mid, stds: np.ndarray, rng_key,
                              cfg: KernelConfig):
     """The dense release: bounding, partition columns, selection, noise,
-    compaction. Key derivation follows the JAX package's _aggregate_trace.
-    Returns (n_kept, order, outputs kept-first, flags)."""
+    percentiles, compaction. Key derivation follows the JAX package's
+    _aggregate_trace. Returns (n_kept, order, outputs kept-first, flags)."""
     rows_key, final_key = threefry.split(rng_key, 2)
-    key2, pair_start, reduce_cols = bounded_row_columns(
+    key2, pair_start, reduce_cols, rows = bounded_row_columns(
         pid, pk, values, valid, min_v, max_v, min_s, max_s, mid, rows_key,
         cfg)
-    cols = reduce_rows_to_partitions(key2, pair_start, reduce_cols,
-                                     cfg.n_partitions, values.dtype)
+    cols, sorted_rows = reduce_rows_to_partitions(
+        key2, pair_start, reduce_cols, cfg.n_partitions, values.dtype,
+        rows if cfg.vector_size else None)
     outputs, keep, flags = finalize(cols, min_v, mid, stds, final_key, cfg)
+    if cfg.quantiles:
+        outputs.update(quantile_outputs(
+            sorted_rows, rows, min_v, max_v, stds,
+            threefry.fold_in(rng_key, 7919), keep, flags, cfg,
+            values.dtype))
     n_kept, order, outputs_sorted = compact_release(outputs, keep)
     return n_kept, order, outputs_sorted, flags
 
@@ -416,6 +556,11 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
 
     def generator():
         encoded = columnar.encode(col, data_extractors, public_list)
+        if Metrics.VECTOR_SUM in (params.metrics or []):
+            expected = (params.vector_size,)
+            got = encoded.values.shape[1:]
+            if got != expected:
+                raise TypeError(f"Shape mismatch: {got} != {expected}")
         selection_params = None
         if private:
             selection_params = selection_ops.selection_params_from_host(
@@ -462,7 +607,11 @@ def decode_release_results(n_kept, order, outputs, flags,
     for row, idx in enumerate(ids):
         if idx >= n_real:
             continue
-        values = tuple(float(cols[name][row]) for name in field_order)
+        # A vector column (vector_sum) decodes to a float64 ndarray.
+        values = tuple(
+            np.asarray(cols[name][row], dtype=np.float64)
+            if cols[name].ndim > 1 else float(cols[name][row])
+            for name in field_order)
         yield (partition_vocab[idx],
                dp_combiners._create_named_tuple_instance(
                    "MetricsTuple", field_order, values))
@@ -491,8 +640,8 @@ def select_partitions_release_kernel(pid: torch.Tensor, pk: torch.Tensor,
         perm, k1, k2, pk, None, valid, n_partitions=n_partitions, linf=0,
         l0=l0, clip_per_value=False, clip_pair_sum=False,
         scalars=(0.0,) * 5, columns=())
-    cols = reduce_rows_to_partitions(key2, pair_start, {}, n_partitions,
-                                     dtype)
+    cols, _ = reduce_rows_to_partitions(key2, pair_start, {}, n_partitions,
+                                        dtype)
     keep, _, _ = kernels.release_epilogue(
         cols, [], np.zeros(0), np.zeros((0, 2), np.uint32), NoiseKind.LAPLACE,
         False, 0.0, 0.0, selection, key_sel, 1)

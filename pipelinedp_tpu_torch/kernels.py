@@ -1,14 +1,21 @@
-"""The six CUDA kernels of the dense release and selection paths, their
+"""The nine CUDA kernels of the dense release and selection paths, their
 wrappers and their plain PyTorch versions.
 
     C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform;
                                                      total-bound keys (total_bound_keys)
     C2 bound_rows         csrc/bound_rows.cu         L0/Linf bounding, row columns;
                                                      total bound (total_bound_rows)
-    C3 reduce_partitions  csrc/reduce_partitions.cu  dense partition columns
+    C3 reduce_partitions  csrc/reduce_partitions.cu  dense partition columns;
+                                                     vector sums (D columns)
     C4 release_epilogue   csrc/release_epilogue.cu   selection, noise, metrics, flags
     C5 radix_sort         csrc/radix_sort.cu         stable multi-word LSD radix sort
     C6 compact_kept       csrc/compact_kept.cu       kept-first compaction
+    C7 quantile_counts    csrc/quantile_counts.cu    quantile-tree counts: leaf
+                                                     histogram, level roll-ups,
+                                                     child counts of a level
+    C8 quantile_descend   csrc/quantile_descend.cu   node noise + descent (both
+                                                     regimes), percentile flags
+    C9 vector_release     csrc/vector_release.cu     norm-ball clip, noise, flags
 
 Each wrapper launches its kernel on the current CUDA stream when its inputs
 lie on a CUDA device, and computes the plain version when they lie on the
@@ -20,7 +27,7 @@ issues three CUDA launches; a radix sort three a pass).
 """
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +41,18 @@ from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
 
 KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
-           "radix_sort", "compact_kept")
+           "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
+           "vector_release")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
               "variance": 4}
 OUTPUT_BITS = {"count": 1, "privacy_id_count": 2, "sum": 4, "mean": 8,
                "variance": 16}
+# Plan entries whose outputs other kernels release (C9, C8): C4 draws no
+# noise for them, but their noise slots still count in the slot offsets.
+SKIPPED_KINDS = ("vector_sum", "quantiles")
+NORM_KINDS = {"linf": 0, "l1": 1, "l2": 2}
 _M32 = 0xFFFFFFFF
 _INT32_MAX = 0x7FFFFFFF
 
@@ -349,12 +361,18 @@ def total_bound_rows_plain(perm, spid, pk, values, valid, *, total_bound,
 def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
                       pair_start: torch.Tensor,
                       row_cols: Dict[str, torch.Tensor],
-                      n_partitions: int, dtype: torch.dtype):
+                      n_partitions: int, dtype: torch.dtype,
+                      vector_rows: Optional[Tuple[Optional[torch.Tensor],
+                                                  torch.Tensor]] = None):
     """Dense per-partition columns from rows sorted by key2.
 
     skey2: key2 sorted ascending; perm: bounded-row index per sorted
-    position; row_cols: the bounded rows' sum / nsum / nsum2. Returns
-    {count, pid_count, [sum, nsum, nsum2]} as dtype[n_partitions].
+    position; row_cols: the bounded rows' sum / nsum / nsum2. vector_rows:
+    (row_perm, values[n0, D]) for VECTOR_SUM, where the bounded row at
+    position r is values[row_perm[r]] (row_perm None: values[r]); the D
+    coordinates are gathered through both permutations, no bounded copy is
+    written. Returns {count, pid_count, [sum, nsum, nsum2], [vsum]} as
+    dtype[n_partitions] (vsum dtype[n_partitions, D]).
     """
     n = skey2.shape[0]
     _check(skey2, torch.int32, n, "skey2")
@@ -362,9 +380,17 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
     _check(pair_start, torch.bool, n, "pair_start")
     for name, col in row_cols.items():
         _check(col, dtype, n, name)
-    if not _on_cuda(skey2, perm, pair_start, *row_cols.values()):
+    row_perm, vec = vector_rows if vector_rows is not None else (None, None)
+    if vec is not None:
+        _check(row_perm, torch.int64, n, "row_perm")
+        if vec.dtype != dtype or vec.dim() != 2 or not vec.is_contiguous():
+            raise ValueError(f"vector values: expected contiguous "
+                             f"{dtype}[n, D], got {vec.dtype}"
+                             f"{list(vec.shape)}")
+    if not _on_cuda(skey2, perm, pair_start, row_perm, vec,
+                    *row_cols.values()):
         return reduce_partitions_plain(skey2, perm, pair_start, row_cols,
-                                       n_partitions, dtype)
+                                       n_partitions, dtype, vector_rows)
     dev = skey2.device
     lib = cuda_build.library("reduce_partitions")
     out = {name: torch.zeros(n_partitions, dtype=dtype, device=dev)
@@ -379,17 +405,29 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
         _ptr(out["pid_count"]), _ptr(out.get("sum")), _ptr(out.get("nsum")),
         _ptr(out.get("nsum2")), _f64(dtype), _stream(dev))
     _raise_on(status, "reduce_partitions")
+    if vec is not None:
+        dim = vec.shape[1]
+        out["vsum"] = torch.zeros(n_partitions, dim, dtype=dtype, device=dev)
+        vscratch = torch.empty(
+            max(1, lib.reduce_vectors_scratch_bytes(n, _f64(dtype))),
+            dtype=torch.uint8, device=dev)
+        status = lib.reduce_vectors(
+            _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(vec), n, dim,
+            n_partitions, _ptr(vscratch), _ptr(out["vsum"]), _f64(dtype),
+            _stream(dev))
+        _raise_on(status, "reduce_partitions")
     launch_counts["reduce_partitions"] += 1
     return out
 
 
 def reduce_partitions_plain(skey2, perm, pair_start, row_cols, n_partitions,
-                            dtype):
+                            dtype, vector_rows=None):
     slots = n_partitions + 1  # slot n_partitions collects dropped rows
     key = skey2.to(torch.int64).clamp(0, n_partitions)
 
     def segment_sum(values):
-        out = torch.zeros(slots, dtype=values.dtype, device=values.device)
+        out = torch.zeros((slots,) + values.shape[1:], dtype=values.dtype,
+                          device=values.device)
         return out.index_add_(0, key, values)[:n_partitions]
 
     out = {
@@ -399,7 +437,16 @@ def reduce_partitions_plain(skey2, perm, pair_start, row_cols, n_partitions,
     }
     for name, col in row_cols.items():
         out[name] = segment_sum(col[perm])
+    if vector_rows is not None:
+        out["vsum"] = segment_sum(sorted_rows(perm, *vector_rows))
     return out
+
+
+def sorted_rows(perm: torch.Tensor, row_perm: Optional[torch.Tensor],
+                values: torch.Tensor) -> torch.Tensor:
+    """The values of the rows in partition-sorted order: sorted position i
+    holds bounded row perm[i], which is values[row_perm[perm[i]]]."""
+    return values[perm if row_perm is None else row_perm[perm]]
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +464,8 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
 
     cols: dense count / pid_count / [sum, nsum, nsum2] of the working
     dtype. plan: (kind, outputs, std offset) per metric entry, in
-    executor.build_plan order. stds / slot_keys: the noise std and threefry
+    executor.build_plan order; entries of SKIPPED_KINDS are released by
+    C8 / C9 and skipped here. stds / slot_keys: the noise std and threefry
     key of every slot (slot_keys[s] = fold_in(fold_in(key_noise, entry),
     sub)). selection: None for public partitions.
 
@@ -427,10 +475,12 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
     count = cols["count"]
     p = count.shape[0]
     dtype = count.dtype
-    for name, col in cols.items():
+    scalar_cols = {k: c for k, c in cols.items() if k != "vsum"}
+    for name, col in scalar_cols.items():
         _check(col, dtype, p, name)
+    plan = [entry for entry in plan if entry[0] not in SKIPPED_KINDS]
     names = [o for _, outputs, _ in plan for o in outputs]
-    if not _on_cuda(*cols.values()):
+    if not _on_cuda(*scalar_cols.values()):
         return release_epilogue_plain(cols, plan, stds, slot_keys,
                                       noise_kind, degenerate, mid, min_v,
                                       selection, key_sel, max_rows)
@@ -488,6 +538,8 @@ def release_epilogue_plain(cols, plan, stds, slot_keys, noise_kind,
 
     outputs = {}
     for kind, outs, off in plan:
+        if kind in SKIPPED_KINDS:
+            continue
         if kind == "count":
             outputs["count"] = noised(count, off)
         elif kind == "privacy_id_count":
@@ -591,7 +643,8 @@ def radix_sort_plain(words, sorted_top=False):
 def compact_kept(keep: torch.Tensor, columns: Dict[str, torch.Tensor]):
     """Kept-first compaction: order holds the kept ids ascending, then the
     dropped ids ascending (argsort(~keep, stable=True); its kept prefix is
-    nonzero(keep)), and every column is gathered into that order.
+    nonzero(keep)), and every column is gathered into that order. A column
+    is [P] or [P, D] (a vector per partition, gathered whole).
 
     Returns (n_kept int64[], order int64[P], {name: column in order}).
     """
@@ -599,7 +652,10 @@ def compact_kept(keep: torch.Tensor, columns: Dict[str, torch.Tensor]):
     _check(keep, torch.bool, p, "keep")
     elem = {c.element_size() for c in columns.values()}
     for name, col in columns.items():
-        _check(col, col.dtype, p, name)
+        if col.dim() not in (1, 2) or col.shape[0] != p or \
+                not col.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous [{p}] or "
+                             f"[{p}, D], got {list(col.shape)}")
     if len(elem) > 1 or not elem <= {4, 8}:
         raise ValueError(f"compact_kept: columns must share a 4- or 8-byte "
                          f"dtype, got {[c.dtype for c in columns.values()]}")
@@ -616,9 +672,12 @@ def compact_kept(keep: torch.Tensor, columns: Dict[str, torch.Tensor]):
         *[c.data_ptr() for c in columns.values()])
     out_c = (ctypes.c_void_p * len(columns))(
         *[out[name].data_ptr() for name in columns])
-    status = lib.compact_kept(_ptr(keep), p, in_c, out_c, len(columns),
-                              elem.pop() if elem else 8, _ptr(scratch),
-                              _ptr(order), _ptr(n_kept), _stream(dev))
+    widths = (ctypes.c_int * len(columns))(
+        *[1 if c.dim() == 1 else c.shape[1] for c in columns.values()])
+    status = lib.compact_kept(_ptr(keep), p, in_c, out_c, widths,
+                              len(columns), elem.pop() if elem else 8,
+                              _ptr(scratch), _ptr(order), _ptr(n_kept),
+                              _stream(dev))
     _raise_on(status, "compact_kept")
     launch_counts["compact_kept"] += 1
     return n_kept, order, out
@@ -627,3 +686,509 @@ def compact_kept(keep: torch.Tensor, columns: Dict[str, torch.Tensor]):
 def compact_kept_plain(keep, columns):
     order = torch.argsort((~keep).to(torch.uint8), stable=True)
     return keep.sum(), order, {n: c[order] for n, c in columns.items()}
+
+
+# ---------------------------------------------------------------------------
+# C7 quantile_counts
+
+
+def leaf_indices(values: torch.Tensor, min_v: float, max_v: float,
+                 n_leaves: int) -> torch.Tensor:
+    """The quantile-tree leaf of each value (executor._leaf_indices of the
+    JAX package, :270): trunc((v - min) / span * L) clipped to [0, L). The
+    float-to-int conversion saturates and maps NaN to 0, as XLA's does;
+    clamping to [-1, L] before truncating gives the same leaf."""
+    dtype = values.dtype
+    lo = torch.tensor(min_v, dtype=dtype, device=values.device)
+    span = torch.tensor(max_v, dtype=dtype, device=values.device) - lo
+    frac = (values - lo) / torch.where(span > 0, span, torch.ones_like(span))
+    x = frac * n_leaves
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    leaf = x.clamp(-1.0, float(n_leaves)).to(torch.int64)
+    return leaf.clamp(0, n_leaves - 1)
+
+
+def _check_rows(skey2, perm, row_perm, values):
+    n = skey2.shape[0]
+    _check(skey2, torch.int32, n, "skey2")
+    _check(perm, torch.int64, n, "perm")
+    _check(row_perm, torch.int64, n, "row_perm")
+    _check(values, values.dtype, n, "values")
+    _f64(values.dtype)
+
+
+def _kept_leaves(skey2, perm, row_perm, values, n_partitions, n_leaves,
+                 min_v, max_v):
+    """(partition, leaf) of every kept row, in partition-sorted order."""
+    kept = skey2 < n_partitions
+    leaf = leaf_indices(sorted_rows(perm, row_perm, values), min_v, max_v,
+                        n_leaves)
+    return skey2[kept].to(torch.int64), leaf[kept]
+
+
+def quantile_leaf_counts(skey2: torch.Tensor, perm: torch.Tensor,
+                         row_perm: Optional[torch.Tensor],
+                         values: torch.Tensor, *, n_partitions: int,
+                         n_leaves: int, min_v: float,
+                         max_v: float) -> torch.Tensor:
+    """C7 (a): the leaf histogram int32[P, L] of the kept rows.
+
+    Rows come in partition-sorted order (C5's perm / skey2 after C2); the
+    value of sorted row i is values[row_perm[perm[i]]] (row_perm None:
+    values[perm[i]]), unclipped, and its leaf is leaf_indices(value).
+    Integer counts: exact and independent of the order of the additions.
+    """
+    _check_rows(skey2, perm, row_perm, values)
+    if not _on_cuda(skey2, perm, row_perm, values):
+        return quantile_leaf_counts_plain(
+            skey2, perm, row_perm, values, n_partitions=n_partitions,
+            n_leaves=n_leaves, min_v=min_v, max_v=max_v)
+    dev = skey2.device
+    hist = torch.zeros(n_partitions, n_leaves, dtype=torch.int32, device=dev)
+    status = cuda_build.library("quantile_counts").quantile_leaf_counts(
+        _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(values),
+        skey2.shape[0], n_partitions, n_leaves, float(min_v), float(max_v),
+        _ptr(hist), _f64(values.dtype), _stream(dev))
+    _raise_on(status, "quantile_counts")
+    launch_counts["quantile_counts"] += 1
+    return hist
+
+
+def quantile_leaf_counts_plain(skey2, perm, row_perm, values, *,
+                               n_partitions, n_leaves, min_v, max_v):
+    p, leaf = _kept_leaves(skey2, perm, row_perm, values, n_partitions,
+                           n_leaves, min_v, max_v)
+    hist = torch.bincount(p * n_leaves + leaf,
+                          minlength=n_partitions * n_leaves)
+    return hist.to(torch.int32).reshape(n_partitions, n_leaves)
+
+
+def quantile_level_counts(leaf_counts: torch.Tensor, *, tree_height: int,
+                          branching: int) -> List[torch.Tensor]:
+    """C7 (b): the counts of every tree level from the leaf histogram.
+
+    Returns levels[l - 1] = int32[P, B^l] for l = 1..h; levels[h - 1] is
+    leaf_counts itself. Node j of level l is the int32 sum of nodes
+    j*B .. j*B + B - 1 of level l + 1: exact, as the JAX package's
+    reshape(...).sum(-1) roll-ups are.
+    """
+    p = leaf_counts.shape[0]
+    n_leaves = branching**tree_height
+    if leaf_counts.dtype != torch.int32 or \
+            tuple(leaf_counts.shape) != (p, n_leaves) or \
+            not leaf_counts.is_contiguous():
+        raise ValueError(f"leaf_counts: expected contiguous int32[{p}, "
+                         f"{n_leaves}], got {leaf_counts.dtype}"
+                         f"{list(leaf_counts.shape)}")
+    if not _on_cuda(leaf_counts):
+        return quantile_level_counts_plain(leaf_counts,
+                                           tree_height=tree_height,
+                                           branching=branching)
+    dev = leaf_counts.device
+    levels = [torch.empty(p, branching**l, dtype=torch.int32, device=dev)
+              for l in range(1, tree_height)] + [leaf_counts]
+    ptrs = (ctypes.c_void_p * tree_height)(*[t.data_ptr() for t in levels])
+    status = cuda_build.library("quantile_counts").quantile_level_counts(
+        ptrs, p, tree_height, branching, _stream(dev))
+    _raise_on(status, "quantile_counts")
+    launch_counts["quantile_counts"] += 1
+    return levels
+
+
+def quantile_level_counts_plain(leaf_counts, *, tree_height, branching):
+    p = leaf_counts.shape[0]
+    levels = [leaf_counts]
+    for l in range(tree_height - 1, 0, -1):
+        levels.append(levels[-1].reshape(p, branching**l, branching).sum(
+            -1, dtype=torch.int32))
+    return levels[::-1]
+
+
+def quantile_child_counts(skey2: torch.Tensor, perm: torch.Tensor,
+                          row_perm: Optional[torch.Tensor],
+                          values: torch.Tensor, node: torch.Tensor, *,
+                          level: int, tree_height: int, branching: int,
+                          min_v: float, max_v: float) -> torch.Tensor:
+    """C7 (c): for every partition p and quantile q, the counts of the B
+    children at `level` (1..h) of node[p, q] (a node of level - 1), over
+    the kept rows whose level-`level` node lies under it: int32[P, n_q, B].
+    One pass over the rows serves every quantile; the counts equal the JAX
+    package's per-quantile segment sums (_lazy_quantile_outputs, :796).
+    """
+    _check_rows(skey2, perm, row_perm, values)
+    p, n_q = node.shape
+    if node.dtype != torch.int32 or not node.is_contiguous():
+        raise ValueError(f"node: expected contiguous int32[P, n_q], got "
+                         f"{node.dtype}{list(node.shape)}")
+    if not 1 <= level <= tree_height:
+        raise ValueError(f"level {level} outside 1..{tree_height}")
+    if not _on_cuda(skey2, perm, row_perm, values, node):
+        return quantile_child_counts_plain(
+            skey2, perm, row_perm, values, node, level=level,
+            tree_height=tree_height, branching=branching, min_v=min_v,
+            max_v=max_v)
+    dev = skey2.device
+    counts = torch.zeros(p, n_q, branching, dtype=torch.int32, device=dev)
+    status = cuda_build.library("quantile_counts").quantile_child_counts(
+        _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(values),
+        skey2.shape[0], p, branching**tree_height,
+        branching**(tree_height - level), branching, _ptr(node), n_q,
+        float(min_v), float(max_v), _ptr(counts), _f64(values.dtype),
+        _stream(dev))
+    _raise_on(status, "quantile_counts")
+    launch_counts["quantile_counts"] += 1
+    return counts
+
+
+def quantile_child_counts_plain(skey2, perm, row_perm, values, node, *,
+                                level, tree_height, branching, min_v, max_v):
+    p_all, n_q = node.shape
+    p, leaf = _kept_leaves(skey2, perm, row_perm, values, p_all,
+                           branching**tree_height, min_v, max_v)
+    row_node = leaf // branching**(tree_height - level)
+    match = node.to(torch.int64)[p] == (row_node // branching)[:, None]
+    slot = ((p[:, None] * n_q + torch.arange(n_q, device=p.device)) *
+            branching + (row_node % branching)[:, None])
+    counts = torch.bincount(slot[match], minlength=p_all * n_q * branching)
+    return counts.to(torch.int32).reshape(p_all, n_q, branching)
+
+
+# ---------------------------------------------------------------------------
+# C8 quantile_descend
+
+
+class DescentState:
+    """Per (partition, quantile) state of the lazy descent between levels:
+    the node reached (int32, a node of the last level descended), the
+    remaining target rank, the tree's noisy total and the noisy count of
+    the node reached (dtype)."""
+
+    def __init__(self, n_partitions: int, n_q: int, dtype: torch.dtype,
+                 device):
+        shape = (n_partitions, n_q)
+        self.node = torch.zeros(shape, dtype=torch.int32, device=device)
+        self.target = torch.zeros(shape, dtype=dtype, device=device)
+        self.total = torch.zeros(shape, dtype=dtype, device=device)
+        self.mass = torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis from 0, left to right: XLA's order on the
+    CPU for reduce and for cumsum's reduce_window."""
+    acc = torch.zeros_like(x[..., 0])
+    for b in range(x.shape[-1]):
+        acc = acc + x[..., b]
+    return acc
+
+
+def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros_like(x[..., 0])
+    out = []
+    for b in range(x.shape[-1]):
+        acc = acc + x[..., b]
+        out.append(acc)
+    return torch.stack(out, -1)
+
+
+def _noise_scale(std: float, dtype, gaussian: bool) -> torch.Tensor:
+    s = torch.tensor(std, dtype=dtype)
+    return s if gaussian else s / torch.sqrt(torch.tensor(2.0, dtype=dtype))
+
+
+def _noisy_children(counts: torch.Tensor, draws: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """max(count + draw * scale, 0), NaN kept (jnp.maximum)."""
+    noisy = counts.to(draws.dtype) + draws * scale.to(draws.device)
+    return torch.where(torch.isnan(noisy), noisy,
+                       noisy.clamp(min=0.0))
+
+
+def _descend_step(children: torch.Tensor, state: DescentState, level: int,
+                  quantiles: Sequence[float]) -> None:
+    """One level of the JAX package's _descend_trees (:652), in place:
+    children = the noisy, clamped counts [P, n_q, B] of state.node's
+    children."""
+    dtype, dev = children.dtype, children.device
+    B = children.shape[-1]
+    tiny = torch.tensor(1e-12, dtype=dtype, device=dev)
+    if level == 1:
+        q = torch.tensor(list(quantiles), dtype=dtype, device=dev)
+        state.total = _seq_sum(children)
+        state.target = q * state.total
+    else:
+        state.target = state.target / torch.maximum(state.mass, tiny) * \
+            _seq_sum(children)
+    cum = _seq_cumsum(children)
+    child = torch.minimum((cum < state.target[..., None]).sum(-1),
+                          torch.tensor(B - 1, device=dev))
+    before = torch.where(
+        child > 0, torch.gather(cum, -1, (child - 1).clamp(min=0)[..., None])
+        [..., 0], torch.zeros((), dtype=dtype, device=dev))
+    state.target = state.target - before
+    state.node = (state.node.to(torch.int64) * B + child).to(torch.int32)
+    state.mass = torch.gather(children, -1, child[..., None])[..., 0]
+
+
+def _descend_values(state: DescentState, n_leaves: int, min_v: float,
+                    max_v: float) -> torch.Tensor:
+    """The percentile of each (partition, quantile) after the last level:
+    leaf interpolation, or the range's middle where the total is <= 0."""
+    dtype, dev = state.target.dtype, state.target.device
+    lo = torch.tensor(min_v, dtype=dtype, device=dev)
+    hi = torch.tensor(max_v, dtype=dtype, device=dev)
+    width = (hi - lo) / n_leaves
+    mid = lo + (hi - lo) / 2
+    leaf_count = torch.maximum(state.mass,
+                               torch.tensor(1e-12, dtype=dtype, device=dev))
+    leaf_lo = lo + state.node.to(dtype) * width
+    frac = torch.minimum(torch.maximum(state.target / leaf_count,
+                                       torch.zeros((), dtype=dtype,
+                                                   device=dev)),
+                         torch.ones((), dtype=dtype, device=dev))
+    value = torch.minimum(torch.maximum(leaf_lo + frac * width, lo), hi)
+    return torch.where(state.total <= 0, mid, value)
+
+
+def _finish_quantiles(values: torch.Tensor, quantiles: Sequence[float],
+                      keep: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """cummax over the quantiles in ascending order (stable), then the
+    columns as [n_q, P] and their flag bits over the kept partitions ORed
+    into flags."""
+    order = np.argsort(np.asarray(quantiles), kind="stable")
+    mono = torch.cummax(values[:, torch.as_tensor(order)], dim=1).values
+    out = torch.empty_like(values)
+    out[:, torch.as_tensor(order)] = mono
+    out = out.t().contiguous()
+    flags |= numeric.column_flags(out.t(), keep)
+    return out
+
+
+def _check_descend(keep, flags, quantiles, tree_height, branching):
+    """The tree's shape limits hold on both paths, so the card and the CPU
+    serve the same requests; DPEngine.aggregate always builds the default
+    tree (height 4, branching 16)."""
+    _check(flags, torch.int32, 1, "flags")
+    if not quantiles or not 1 <= tree_height <= 8 or \
+            not 2 <= branching <= 64:
+        raise ValueError(f"quantile_descend takes at least one quantile, "
+                         f"height 1-8 and branching 2-64, got "
+                         f"{len(quantiles)}, {tree_height}, {branching}")
+    _check(keep, torch.bool, keep.shape[0], "keep")
+
+
+def _descend_params(quantiles, std, gaussian, min_v, max_v, tree_height,
+                    branching, n_q, device):
+    """C8's parameters: the quantiles and their stable ascending order as
+    device arrays (any number of quantiles), the scalars on the host."""
+    order = np.argsort(np.asarray(quantiles), kind="stable")
+    return (torch.tensor([float(q) for q in quantiles], dtype=torch.float64,
+                         device=device),
+            torch.tensor(order, dtype=torch.int32, device=device),
+            (ctypes.c_double * 3)(float(std), float(min_v), float(max_v)),
+            (ctypes.c_int * 4)(n_q, tree_height, branching, int(gaussian)))
+
+
+def quantile_descend_dense(levels: Sequence[torch.Tensor],
+                           quantiles: Sequence[float], *, std: float,
+                           level_keys: np.ndarray, gaussian: bool,
+                           min_v: float, max_v: float, keep: torch.Tensor,
+                           flags: torch.Tensor, dtype: torch.dtype,
+                           leaves: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """C8, dense regime (quantile_outputs of the JAX package, :846-905):
+    every (partition, quantile) descends its tree through all levels in
+    one launch. levels: C7 (b)'s counts; node j of level l draws its noise
+    at counter p * B^l + j under level_keys[l - 1] (the words JAX draws for
+    the whole level, computed only for the visited nodes). Returns the
+    percentiles as dtype[n_q, P] (quantile j's column is row j) and ORs
+    their flag bits over the kept partitions into flags; leaves (int32[P,
+    n_q], optional) receives the leaf each walk ends at.
+    """
+    tree_height = len(levels)
+    p = levels[0].shape[0]
+    branching = levels[0].shape[1]
+    _check_descend(keep, flags, quantiles, tree_height, branching)
+    _f64(dtype)
+    for l, t in enumerate(levels, 1):
+        if t.dtype != torch.int32 or tuple(t.shape) != (p, branching**l) or \
+                not t.is_contiguous():
+            raise ValueError(f"level {l}: expected int32[{p}, "
+                             f"{branching**l}], got {t.dtype}"
+                             f"{list(t.shape)}")
+    n_q = len(quantiles)
+    if leaves is not None and (leaves.dtype != torch.int32 or
+                               tuple(leaves.shape) != (p, n_q) or
+                               not leaves.is_contiguous()):
+        raise ValueError(f"leaves: expected contiguous int32[{p}, {n_q}]")
+    if not _on_cuda(keep, flags, leaves, *levels):
+        return quantile_descend_dense_plain(
+            levels, quantiles, std=std, level_keys=level_keys,
+            gaussian=gaussian, min_v=min_v, max_v=max_v, keep=keep,
+            flags=flags, dtype=dtype, leaves=leaves)
+    dev = keep.device
+    out = torch.empty(n_q, p, dtype=dtype, device=dev)
+    scratch = torch.empty(p, n_q, dtype=dtype, device=dev)
+    ptrs = (ctypes.c_void_p * tree_height)(*[t.data_ptr() for t in levels])
+    keys = (ctypes.c_uint * (2 * tree_height))(
+        *[int(w) for w in np.asarray(level_keys).reshape(-1)])
+    q_t, order_t, scal_c, dims_c = _descend_params(
+        quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
+        dev)
+    status = cuda_build.library("quantile_descend").quantile_descend_dense(
+        ptrs, p, _ptr(q_t), _ptr(order_t), scal_c, dims_c, keys, _ptr(keep),
+        _ptr(scratch), _ptr(leaves), _ptr(out), _ptr(flags), _f64(dtype),
+        _stream(dev))
+    _raise_on(status, "quantile_descend")
+    launch_counts["quantile_descend"] += 1
+    return out
+
+
+def quantile_descend_dense_plain(levels, quantiles, *, std, level_keys,
+                                 gaussian, min_v, max_v, keep, flags, dtype,
+                                 leaves=None):
+    p, branching = levels[0].shape
+    n_q = len(quantiles)
+    dev = keep.device
+    scale = _noise_scale(std, dtype, gaussian)
+    state = DescentState(p, n_q, dtype, dev)
+    rows = torch.arange(p, device=dev)[:, None, None]
+    b = torch.arange(branching, device=dev)
+    for level, counts in enumerate(levels, 1):
+        j = state.node.to(torch.int64)[..., None] * branching + b
+        counter = rows * branching**level + j
+        draws = threefry.draws_at(level_keys[level - 1], counter, dtype,
+                                  gaussian)
+        children = _noisy_children(
+            torch.gather(counts.to(torch.int64), 1,
+                         j.reshape(p, -1)).reshape(j.shape), draws, scale)
+        _descend_step(children, state, level, quantiles)
+    if leaves is not None:
+        leaves.copy_(state.node)
+    values = _descend_values(state, branching**len(levels), min_v, max_v)
+    return _finish_quantiles(values, quantiles, keep, flags)
+
+
+def quantile_descend_step(counts: torch.Tensor, state: DescentState,
+                          quantiles: Sequence[float], *, level: int,
+                          tree_height: int, std: float, level_key,
+                          gaussian: bool, min_v: float, max_v: float,
+                          keep: torch.Tensor, flags: torch.Tensor
+                          ) -> Optional[torch.Tensor]:
+    """C8, lazy regime (_lazy_quantile_outputs of the JAX package, :767):
+    one level of every (partition, quantile)'s descent from C7 (c)'s child
+    counts. The children of node[p, q] at `level` draw their noise at
+    counter 0 under fold_in(fold_in(level_key, p), node id), level_key =
+    fold_in(qkey, level), derived on the device: a node visited by several
+    quantiles gets the same noise. Updates state in place; at the last
+    level returns the percentiles as dtype[n_q, P] and ORs their flag bits
+    over the kept partitions into flags (else returns None).
+    """
+    p, n_q, branching = counts.shape
+    _check_descend(keep, flags, quantiles, tree_height, branching)
+    if counts.dtype != torch.int32 or not counts.is_contiguous() or \
+            tuple(state.node.shape) != (p, n_q):
+        raise ValueError(f"counts: expected contiguous int32[{p}, {n_q}, "
+                         f"B] matching the state, got {counts.dtype}"
+                         f"{list(counts.shape)}")
+    dtype = state.target.dtype
+    if not _on_cuda(counts, state.node, state.target, keep, flags):
+        return quantile_descend_step_plain(
+            counts, state, quantiles, level=level, tree_height=tree_height,
+            std=std, level_key=level_key, gaussian=gaussian, min_v=min_v,
+            max_v=max_v, keep=keep, flags=flags)
+    dev = counts.device
+    last = level == tree_height
+    out = torch.empty(n_q, p, dtype=dtype, device=dev) if last else None
+    scratch = torch.empty(p, n_q, dtype=dtype, device=dev) if last else None
+    q_t, order_t, scal_c, dims_c = _descend_params(
+        quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
+        dev)
+    status = cuda_build.library("quantile_descend").quantile_descend_step(
+        _ptr(counts), p, level, _ptr(q_t), _ptr(order_t), scal_c, dims_c,
+        int(level_key[0]), int(level_key[1]), _ptr(state.node),
+        _ptr(state.target), _ptr(state.total), _ptr(state.mass), _ptr(keep),
+        _ptr(scratch), _ptr(out), _ptr(flags), _f64(dtype), _stream(dev))
+    _raise_on(status, "quantile_descend")
+    launch_counts["quantile_descend"] += 1
+    return out
+
+
+def quantile_descend_step_plain(counts, state, quantiles, *, level,
+                                tree_height, std, level_key, gaussian, min_v,
+                                max_v, keep, flags):
+    p, n_q, branching = counts.shape
+    dtype, dev = state.target.dtype, counts.device
+    node_id = (state.node.to(torch.int64)[..., None] * branching +
+               torch.arange(branching, device=dev))
+    pkey = threefry.fold_in_each(level_key, torch.arange(p, device=dev))
+    nkey = threefry.fold_in_each((pkey[0][:, None, None],
+                                  pkey[1][:, None, None]), node_id)
+    draws = threefry.draws_at(nkey, torch.zeros_like(node_id), dtype,
+                              gaussian)
+    children = _noisy_children(counts, draws,
+                               _noise_scale(std, dtype, gaussian))
+    _descend_step(children, state, level, quantiles)
+    if level < tree_height:
+        return None
+    values = _descend_values(state, branching**tree_height, min_v, max_v)
+    return _finish_quantiles(values, quantiles, keep, flags)
+
+
+# ---------------------------------------------------------------------------
+# C9 vector_release
+
+
+def vector_release(vsum: torch.Tensor, keep: torch.Tensor,
+                   flags: torch.Tensor, *, max_norm: float, norm_kind: str,
+                   std: float, key, gaussian: bool) -> torch.Tensor:
+    """VECTOR_SUM's release: each partition's vector sum clipped to the
+    norm ball (the JAX package's _clip_rows_to_norm_ball, :537: L1 or L2
+    scale by min(1, max_norm / norm), L-inf clip per coordinate), plus
+    noise at counter p * D + d under the entry's slot key (finalize,
+    :612-616). ORs the flag bits of the kept partitions' outputs into
+    flags. Returns dtype[P, D].
+    """
+    p = keep.shape[0]
+    _check(keep, torch.bool, p, "keep")
+    _check(flags, torch.int32, 1, "flags")
+    if vsum.dim() != 2 or vsum.shape[0] != p or not vsum.is_contiguous():
+        raise ValueError(f"vsum: expected contiguous [{p}, D], got "
+                         f"{list(vsum.shape)}")
+    _f64(vsum.dtype)
+    if norm_kind not in NORM_KINDS:
+        raise NotImplementedError(
+            f"Vector Norm of kind '{norm_kind}' is not supported")
+    if not _on_cuda(vsum, keep, flags):
+        return vector_release_plain(vsum, keep, flags, max_norm=max_norm,
+                                    norm_kind=norm_kind, std=std, key=key,
+                                    gaussian=gaussian)
+    dev = vsum.device
+    out = torch.empty_like(vsum)
+    status = cuda_build.library("vector_release").vector_release(
+        _ptr(vsum), p, vsum.shape[1], NORM_KINDS[norm_kind],
+        float(max_norm), float(std), int(key[0]), int(key[1]),
+        int(gaussian), _ptr(keep), _ptr(out), _ptr(flags),
+        _f64(vsum.dtype), _stream(dev))
+    _raise_on(status, "vector_release")
+    launch_counts["vector_release"] += 1
+    return out
+
+
+def vector_release_plain(vsum, keep, flags, *, max_norm, norm_kind, std, key,
+                         gaussian):
+    dtype, dev = vsum.dtype, vsum.device
+    p, dim = vsum.shape
+    bound = torch.tensor(max_norm, dtype=dtype, device=dev)
+    if norm_kind == "linf":
+        clipped = torch.minimum(torch.maximum(vsum, -bound), bound)
+    else:
+        norm = (_seq_sum(vsum.abs()) if norm_kind == "l1" else
+                torch.sqrt(_seq_sum(vsum * vsum)))
+        one = torch.ones((), dtype=dtype, device=dev)
+        scale = torch.minimum(one, bound / torch.where(norm > 0, norm, one))
+        clipped = vsum * scale[:, None]
+    counter = torch.arange(p * dim, device=dev).reshape(p, dim)
+    draws = threefry.draws_at(key, counter, dtype, gaussian)
+    out = clipped + draws * _noise_scale(std, dtype, gaussian).to(dev)
+    flags |= numeric.column_flags(out, keep)
+    return out

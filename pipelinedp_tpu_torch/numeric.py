@@ -6,7 +6,9 @@ release that every replay gate would pass, so the release fails closed:
 nothing is decoded and the job raises a typed error.
 
 The flag word (NaN = 1, Inf = 2, saturation = 4) over the kept partitions
-is reduced on the device by the release kernel (csrc/release_epilogue.cu);
+is reduced on the device by the release kernels (csrc/release_epilogue.cu,
+and for percentiles and vector sums csrc/quantile_descend.cu and
+csrc/vector_release.cu, which OR their bits into the same word);
 `flags_from_kept` is its plain version. `check_release` classifies the
 word on the host.
 """
@@ -34,7 +36,10 @@ FLAG_SAT = 4
 
 
 def column_flags(col: torch.Tensor, gate: torch.Tensor) -> int:
-    """Flag word of one released column under a bool gate."""
+    """Flag word of one released column ([P] or [P, D]) under a bool[P]
+    gate; a row of a 2-D column is gated by its partition."""
+    if col.dim() > 1:
+        gate = gate[:, None]
     limit = torch.finfo(col.dtype).max / 2
     flags = 0
     if bool((torch.isnan(col) & gate).any()):

@@ -34,14 +34,17 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _M32
 
 
-def threefry2x32(key: Sequence[int], x0: torch.Tensor,
+def threefry2x32(key, x0: torch.Tensor,
                  x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32 (20 rounds) of counter words (x0, x1) under `key`.
 
-    x0, x1: int64 tensors holding uint32 values. Returns two int64 tensors
-    of uint32 words (jax/_src/prng.py `_threefry2x32_lowering`).
+    x0, x1: int64 tensors holding uint32 values; key: two uint32 words, as
+    ints or as int64 tensors that broadcast with the counters (one key per
+    element). Returns two int64 tensors of uint32 words
+    (jax/_src/prng.py `_threefry2x32_lowering`).
     """
-    k0, k1 = int(key[0]) & _M32, int(key[1]) & _M32
+    k0, k1 = (w & _M32 if isinstance(w, torch.Tensor) else int(w) & _M32
+              for w in key)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -69,10 +72,16 @@ def split(key, num: int = 2) -> np.ndarray:
     return np.stack([b0.numpy(), b1.numpy()], axis=1).astype(np.uint32)
 
 
+def fold_in_each(key, data: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fold_in(key, d) for every uint32 d of `data` (int64), under one key
+    or one key per element (a pair of int64 tensors): the two key words."""
+    return threefry2x32(key, torch.zeros_like(data), data & _M32)
+
+
 def fold_in(key, data: int) -> np.ndarray:
     """jax.random.fold_in(key, data) for a uint32 `data`."""
-    b0, b1 = threefry2x32(key, torch.tensor([0], dtype=torch.int64),
-                          torch.tensor([int(data) & _M32], dtype=torch.int64))
+    b0, b1 = fold_in_each(key, torch.tensor([int(data)], dtype=torch.int64))
     return _as_key((b0.item(), b1.item()))
 
 
@@ -89,7 +98,11 @@ def bits(key, n: int) -> np.ndarray:
 
 def _unit_floats(key, n: int, dtype: torch.dtype, device) -> torch.Tensor:
     """Floats in [1, 2) minus 1: JAX's mantissa fill of the random word."""
-    b0, b1 = _counter_words(key, n, device)
+    return _words_to_unit(*_counter_words(key, n, device), dtype)
+
+
+def _words_to_unit(b0: torch.Tensor, b1: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
     if dtype == torch.float64:
         mant = (b0 << 20) | (b1 >> 12)  # (b0 << 32 | b1) >> 12
         fbits = mant | 0x3FF0000000000000
@@ -100,14 +113,18 @@ def _unit_floats(key, n: int, dtype: torch.dtype, device) -> torch.Tensor:
     raise TypeError(f"uniform supports float32/float64, got {dtype}")
 
 
+def _scale_unit(floats: torch.Tensor, minval: float,
+                maxval: float) -> torch.Tensor:
+    lo = torch.tensor(minval, dtype=floats.dtype, device=floats.device)
+    hi = torch.tensor(maxval, dtype=floats.dtype, device=floats.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
 def uniform(key, n: int, dtype: torch.dtype = torch.float64,
             minval: float = 0.0, maxval: float = 1.0,
             device=None) -> torch.Tensor:
     """jax.random.uniform(key, (n,), dtype, minval, maxval)."""
-    floats = _unit_floats(key, n, dtype, device)
-    lo = torch.tensor(minval, dtype=dtype, device=device)
-    hi = torch.tensor(maxval, dtype=dtype, device=device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return _scale_unit(_unit_floats(key, n, dtype, device), minval, maxval)
 
 
 def open_interval_low(dtype: torch.dtype) -> float:
@@ -200,15 +217,34 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, result)
 
 
+def _normal_of(u: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(math.sqrt(2), dtype=u.dtype) * erf_inv(u)
+
+
+def _laplace_of(u: torch.Tensor) -> torch.Tensor:
+    return torch.sign(u) * torch.log1p(-u.abs())
+
+
 def normal(key, n: int, dtype: torch.dtype = torch.float64,
            device=None) -> torch.Tensor:
     """jax.random.normal(key, (n,), dtype)."""
-    u = uniform(key, n, dtype, open_interval_low(dtype), 1.0, device)
-    return torch.tensor(math.sqrt(2), dtype=dtype) * erf_inv(u)
+    return _normal_of(uniform(key, n, dtype, open_interval_low(dtype), 1.0,
+                              device))
 
 
 def laplace(key, n: int, dtype: torch.dtype = torch.float64,
             device=None) -> torch.Tensor:
     """jax.random.laplace(key, (n,), dtype)."""
-    u = uniform(key, n, dtype, open_interval_low(dtype), 1.0, device)
-    return torch.sign(u) * torch.log1p(-u.abs())
+    return _laplace_of(uniform(key, n, dtype, open_interval_low(dtype), 1.0,
+                               device))
+
+
+def draws_at(key, counters: torch.Tensor, dtype: torch.dtype,
+             gaussian: bool) -> torch.Tensor:
+    """Element `counters[...]` of jax.random.normal (gaussian) or
+    jax.random.laplace draws, under one key or one key per element (a
+    pair of int64 tensors): only the words asked for are computed."""
+    b0, b1 = threefry2x32(key, counters >> 32, counters & _M32)
+    u = _scale_unit(_words_to_unit(b0, b1, dtype), open_interval_low(dtype),
+                    1.0)
+    return _normal_of(u) if gaussian else _laplace_of(u)

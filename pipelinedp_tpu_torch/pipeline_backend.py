@@ -2,7 +2,7 @@
 
 Port of the dense route of pipelinedp_tpu/pipeline_backend.py TPUBackend.
 DPEngine.aggregate and DPEngine.select_partitions on a TorchBackend lower to
-the port's executor (executor.lazy_aggregate, lazy_select_partitions): six
+the port's executor (executor.lazy_aggregate, lazy_select_partitions): nine
 CUDA kernels on the card.
 """
 
@@ -10,9 +10,9 @@ from typing import Optional, Union
 
 import torch
 
-_LATER_SECURE = ("ROADMAP.md Queue 1 item 7 (secure_noise=True: "
+_LATER_SECURE = ("ROADMAP.md Queue 1 item 7b (secure_noise=True: "
                  "ops/secure_noise.py)")
-_LATER_SAFE = ("ROADMAP.md Queue 1 item 7 (numeric_mode='safe': the "
+_LATER_SAFE = ("ROADMAP.md Queue 1 item 7b (numeric_mode='safe': the "
                "compensated segment sums)")
 
 

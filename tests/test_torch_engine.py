@@ -11,6 +11,7 @@ Bounds stated here:
     check the JAX package.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,7 +19,9 @@ import torch
 import pipelinedp_tpu as pdp
 import pipelinedp_tpu_torch as tdp
 from pipelinedp_tpu import columnar as jax_columnar
+from pipelinedp_tpu import numeric as jax_numeric
 from pipelinedp_tpu_torch import convert
+from pipelinedp_tpu_torch import numeric
 
 pytestmark = pytest.mark.torch_port
 
@@ -365,15 +368,16 @@ def test_budget_misuse_raises_as_in_jax(mod):
 OUT_OF_SCOPE = {
     "max_contributions": dict(metrics=[tdp.Metrics.COUNT],
                               max_contributions=3),
-    "vector_sum": dict(metrics=[tdp.Metrics.VECTOR_SUM],
-                       max_partitions_contributed=1,
-                       max_contributions_per_partition=1, vector_size=2,
-                       vector_max_norm=1.0,
-                       vector_norm_kind=tdp.aggregate_params.NormKind.L2),
-    "percentile": dict(metrics=[tdp.Metrics.PERCENTILE(50)],
-                       max_partitions_contributed=1,
-                       max_contributions_per_partition=1, min_value=0.0,
-                       max_value=1.0),
+    # The JAX package takes this pair off its columnar path.
+    "vector_sum_with_percentile": dict(
+        metrics=[tdp.Metrics.VECTOR_SUM, tdp.Metrics.PERCENTILE(50)],
+        max_partitions_contributed=1, max_contributions_per_partition=1,
+        vector_size=2, vector_max_norm=1.0,
+        vector_norm_kind=tdp.NormKind.L2),
+    "custom_combiners": dict(metrics=[],
+                             max_partitions_contributed=1,
+                             max_contributions_per_partition=1,
+                             custom_combiners=[object()]),
 }
 
 
@@ -385,6 +389,46 @@ def test_out_of_scope_params_raise_not_implemented(name):
         engine.aggregate(SIMPLE_ROWS, tdp.AggregateParams(**OUT_OF_SCOPE[name]),
                          tdp.DataExtractors(lambda r: r[0], lambda r: r[1],
                                             lambda r: r[2]))
+
+
+@pytest.mark.parametrize("metric", ["PERCENTILE", "VECTOR_SUM"])
+@pytest.mark.parametrize("mod", [pdp, tdp], ids=["jax", "torch"])
+def test_max_contributions_new_metrics_raise_as_in_jax(mod, metric):
+    if metric == "PERCENTILE":
+        params = mod.AggregateParams(metrics=[mod.Metrics.PERCENTILE(50)],
+                                     max_contributions=3, min_value=0.0,
+                                     max_value=5.0)
+    else:
+        params = mod.AggregateParams(metrics=[mod.Metrics.VECTOR_SUM],
+                                     max_contributions=3, vector_size=1,
+                                     vector_max_norm=1.0,
+                                     vector_norm_kind=mod.NormKind.L2)
+    acc = mod.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    backend = (pdp.TPUBackend(noise_seed=1) if mod is pdp else
+               tdp.TorchBackend(device="cpu", noise_seed=1))
+    with pytest.raises(NotImplementedError,
+                       match="max_contributions is not supported"):
+        mod.DPEngine(acc, backend).aggregate(
+            SIMPLE_ROWS, params,
+            mod.DataExtractors(lambda r: r[0], lambda r: r[1],
+                               lambda r: r[2]), ["A"])
+
+
+def test_release_sentinel_gates_2d_columns_by_rows():
+    # A vector column's row belongs to its partition: a NaN in a dropped
+    # partition's row trips nothing, in a kept one it trips NaN.
+    col = torch.tensor([[1.0, 2.0], [float("nan"), 0.0], [3.0, float("inf")]],
+                       dtype=torch.float64)
+    keep = torch.tensor([True, False, False])
+    assert numeric.column_flags(col, keep) == 0
+    keep = torch.tensor([True, True, False])
+    assert numeric.column_flags(col, keep) == numeric.FLAG_NAN
+    assert numeric.flags_from_kept({"v": col}, 3) == (
+        numeric.FLAG_NAN | numeric.FLAG_INF)
+    for n_kept in range(4):
+        assert numeric.flags_from_kept({"v": col}, n_kept) == int(
+            jax_numeric._flags_from_kept({"v": jnp.asarray(col.numpy())},
+                                         jnp.asarray(n_kept)))
 
 
 def test_out_of_scope_backend_options_and_large_p_raise():

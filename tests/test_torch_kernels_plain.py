@@ -107,7 +107,7 @@ def run_bounding(name, integer_values, seed=3):
         jnp.asarray(pid), jnp.asarray(pk), jnp.asarray(values),
         jnp.asarray(valid), *scalars(params), j_rows_key, jcfg)
     tensors = convert.row_tensors(pid, pk, values, valid, "cpu", F64)
-    key2, t_start, tcols = executor.bounded_row_columns(
+    key2, t_start, tcols, _ = executor.bounded_row_columns(
         *tensors, *scalars(params), convert.threefry_key(rows_key), cfg)
     return (params, jcfg, cfg, (np.asarray(spk), np.asarray(keep),
                                 np.asarray(pair_start), jcols),
@@ -170,8 +170,8 @@ def test_reduce_rows_to_partitions_matches_jax(name, integer_values):
     want = jax_executor.reduce_rows_to_partitions(
         jnp.asarray(spk), jnp.asarray(keep), jnp.asarray(pair_start), jcols,
         N_PARTITIONS, 0)
-    got = executor.reduce_rows_to_partitions(key2, t_start, tcols,
-                                             N_PARTITIONS, F64)
+    got, _ = executor.reduce_rows_to_partitions(key2, t_start, tcols,
+                                                N_PARTITIONS, F64)
     for col in ("count", "pid_count", "row_count"):
         np.testing.assert_array_equal(got[col].numpy(), np.asarray(want[col]))
     for col in jcols:

@@ -197,7 +197,7 @@ def test_total_bound_rows_match_bounded_row_columns(name):
         jnp.asarray(pid), jnp.asarray(pk), jnp.asarray(values),
         jnp.asarray(valid), *scal, jax.random.split(key, 2)[0], jcfg)
     keep = np.asarray(keep)
-    key2, t_start, tcols = executor.bounded_row_columns(
+    key2, t_start, tcols, _ = executor.bounded_row_columns(
         *convert.row_tensors(pid, pk, values, valid, "cpu", F64), *scal,
         threefry.split(key, 2)[0], cfg)
     # The bound bites: some users lose rows, and every user keeps at most

@@ -15,10 +15,20 @@ Phases (any failure raises and the script exits non-zero):
              warmed repeats (CUDA events). Then C7 (leaf histogram, level
              roll-ups, lazy child counts), C8 (dense and lazy descent),
              C9 (L1, L2, L-inf) and C3's vector entry, at 4096 rows and
-             2^24 rows, with torch.bincount beside C7
+             2^24 rows, with torch.bincount beside C7. Then the modes'
+             entries: C3 compensated (rating x 1000: every sum equal to
+             float32 of the exact int64 sum and, but for nsum2, whose
+             difference is measured, to the plain version; the fast
+             entry's error beside), C4 secure (1 and 3 slots), C9 secure,
+             C8 secure (dense and lazy), exactly equal to their plain
+             versions, and
+             a chi-square test of 2^20 secure draws against the table
   3. parity  small aggregations (PERCENTILE in both regimes, VECTOR_SUM
              among them) and a small selection on the card in float64
-             against the same on the CPU (the plain versions)
+             against the same on the CPU (the plain versions); the same
+             for secure_noise=True (every metric, both quantile regimes)
+             and numeric_mode="safe" (float64, and float32 with secure
+             noise)
   4. main    DPEngine.aggregate on TorchBackend() (cuda, float32) at full
              size: 2^24 Netflix-Prize-shaped rows (480,189 privacy ids,
              17,770 movies, Zipf popularity, ratings 1-5), pre-encoded by
@@ -42,11 +52,21 @@ Phases (any failure raises and the script exits non-zero):
                    public, L2 norm ball of 1000: some partitions clipped
                (j) as (i) at epsilon = 1e6, norm 1e9 and the true maxima,
                    checked per coordinate against a numpy group-by
+               (k)-(o) (b), (a), (f), (i), (c) with secure_noise=True: the
+                   same kept set as (b), values on their grids, monotone
+                   percentiles, (o) within 16 noise stds + a grid step of
+                   numpy
+               (p) numeric_mode="safe", float32, COUNT+SUM of rating x
+                   1000 at epsilon 1e6 and 1e12 and the true maxima: sums
+                   past 2^24 within 16 noise stds + 1 float32 ulp of the
+                   numpy int64 group-by, and at 1e12 (noise std ~0.4)
+                   every sum past 2^25 equal to float32 of the exact sum;
+                   the fast mode's error beside it
   5. select  DPEngine.select_partitions at full size, l0 = 64, for the
              three selection strategies
              Each run of 4 and 5 starts with the launch counts at 0 and
              fails if a kernel of its path did not launch.
-  6. stages  runs (a), (f) and (i) with CUDA events around every kernel
+  6. stages  runs (a), (f), (i) and (l) with CUDA events around every kernel
              wrapper the executor calls: where their time goes.
   7. profile one run (a), one run (f) and one select under
              torch.profiler: the device's busy time (kernels and copies),
@@ -73,7 +93,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 OPS_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 SEED = 20261017
 # The kernels every aggregation and selection launches (C1-C6); the
-# percentile and vector paths add theirs.
+# percentile and vector paths add theirs; secure noise and safe mode take
+# the _secure / _compensated entries instead (secure_safe_main_phase).
 BASE_KERNELS = ("row_keys", "bound_rows", "reduce_partitions",
                 "release_epilogue", "radix_sort", "compact_kept")
 PERCENTILE_PATH = BASE_KERNELS + ("quantile_counts", "quantile_descend")
@@ -139,13 +160,30 @@ def check_close(name, got, want, rtol, atol=0.0):
     return float(err.max()) if err.numel() else 0.0
 
 
-def check_equal(name, got, want):
+def abs_diff(got, want) -> float:
+    """The largest |got - want| over two tensors of one shape: NaN against
+    NaN and equal infinities count 0, any other NaN or Inf difference
+    inf."""
     import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {tuple(got.shape)} and "
+                             f"{tuple(want.shape)} differ")
+    g, w = got.double(), want.double()
+    same = (g == w) | (g.isnan() & w.isnan())
+    d = torch.where(same, torch.zeros_like(g), (g - w).abs())
+    d = torch.nan_to_num(d, nan=math.inf)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def check_equal(name, got, want):
+    """got equals want exactly; returns the largest difference measured."""
+    import torch
+    err = abs_diff(got, want)
     if not torch.equal(got, want):
         diff = int((got != want).sum())
         raise AssertionError(f"{name}: {diff} entries differ from the plain "
-                             f"version")
-    return 0.0
+                             f"version (largest difference {err})")
+    return err
 
 
 def main() -> int:
@@ -189,17 +227,22 @@ def main() -> int:
     report = kernel_phase(torch, dev, encoded, kernels, executor, threefry)
     report += quantile_vector_kernel_phase(torch, dev, encoded, years,
                                            kernels, threefry)
+    report += secure_safe_kernel_phase(torch, dev, encoded, years, kernels,
+                                       executor, threefry)
 
     # 3. parity ------------------------------------------------------------
     parity_phase(torch, tdp, rng)
     quantile_vector_parity_phase(torch, tdp, rng)
     select_parity_phase(torch, tdp, rng)
+    secure_safe_parity_phase(torch, tdp, kernels, rng)
 
     # 4.-5. main paths -----------------------------------------------------
     launches = main_phase(torch, tdp, encoded, kernels, card)
     for phase in (quantile_vector_main_phase(torch, dev, tdp, encoded, years,
                                              onehot, kernels, executor,
                                              card),
+                  secure_safe_main_phase(torch, tdp, encoded, years, onehot,
+                                         kernels, card),
                   select_phase(torch, tdp, encoded, kernels, card)):
         for name, count in phase.items():
             launches[name] += count
@@ -494,7 +537,7 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                 lib = library_c3
             lib_ms = cuda_ms(lib, repeats=10) if lib else None
             print(f"kernel {name}: max_abs_err={errors[name]} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
                   f"library_ms={lib_ms}", flush=True)
             report.append({
                 "name": name, "route": "cuda",
@@ -510,7 +553,7 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                                n * 8, n * 12 * sort_passes(words))
             print(f"kernel radix_sort[{kname}]: ms="
                   f"{cuda_ms(lambda: kernels.radix_sort(words), 10):.4f} "
-                  f"passes={sort_passes(words)} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"passes={sort_passes(words)} bound_ms={b_ms:.3g} ({b_by}) "
                   f"torch_chain_ms="
                   f"{cuda_ms(lambda: torch_sort_chain(torch, words), 10):.4f}",
                   flush=True)
@@ -521,7 +564,7 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
               f"{cuda_ms(lambda: kernels.compact_kept(big_keep, big_cols), 10):.4f}"
               f" argsort_gather_ms="
               f"{cuda_ms(lambda: kernels.compact_kept_plain(big_keep, big_cols), 10):.4f}"
-              f" bound_ms={b_ms:.4f} ({b_by}) (P={P}: {n_kept} kept)",
+              f" bound_ms={b_ms:.3g} ({b_by}) (P={P}: {n_kept} kept)",
               flush=True)
     return report
 
@@ -777,7 +820,7 @@ def quantile_vector_kernel_phase(torch, dev, encoded, years, kernels,
             plain_ms = cuda_ms(plain, repeats=3, warmup=1)
             lib_ms = cuda_ms(lib, repeats=10) if lib else None
             print(f"kernel {name}: max_abs_err={errors[name]} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
                   f"library_ms={lib_ms}", flush=True)
             report.append({
                 "name": name, "route": "cuda",
@@ -787,20 +830,31 @@ def quantile_vector_kernel_phase(torch, dev, encoded, years, kernels,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         # The other entries of C7, C8 and C3 on the path.
         b_ms, b_by = bound(sum(t.numel() for t in levels) * 4, Py * L)
+
+        def library_c7b():
+            # One reshape(P, -1, B).sum(-1) a level, as the JAX package
+            # rolls the levels up.
+            x, out = hist, []
+            for _ in range(h - 1):
+                x = x.reshape(Py, -1, B).sum(-1, dtype=torch.int32)
+                out.append(x)
+            return out
+
         print(f"kernel quantile_counts[level roll-ups, P={Py}]: ms="
-              f"{cuda_ms(c7b, 10):.4f} bound_ms={b_ms:.4f} ({b_by})",
-              flush=True)
+              f"{cuda_ms(c7b, 10):.4f} bound_ms={b_ms:.3g} ({b_by}) "
+              f"library_ms (reshape(P, -1, B).sum(-1) a level)="
+              f"{cuda_ms(library_c7b, 10):.4f}", flush=True)
         node = torch.zeros(P, n_q, dtype=torch.int32, device=dev)
         b_ms, b_by = bound(n * 4 + mkept * (8 + 8 + fsz) +
                            P * n_q * (4 + B * 4), mkept * (20 + 2 * n_q))
         print(f"kernel quantile_counts[child counts, one level, P={P}]: ms="
               f"{cuda_ms(lambda: kernels.quantile_child_counts(skey2, perm2, perm, values, node, level=1, **tree), 10):.4f}"
-              f" bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f" bound_ms={b_ms:.3g} ({b_by})", flush=True)
         b_ms, b_by = bound(Py * n_q * (h * B * 4 + fsz), Py * n_q * B * h * 150)
         print(f"kernel quantile_descend[dense, P={Py}]: ms="
               f"{cuda_ms(lambda: c8_dense(), 10):.4f} plain_ms="
               f"{cuda_ms(lambda: c8_dense(plain=True), 3, 1):.4f} bound_ms="
-              f"{b_ms:.4f} ({b_by})", flush=True)
+              f"{b_ms:.3g} ({b_by})", flush=True)
         for norm in ("l1", "linf"):
             print(f"kernel vector_release[{norm}]: ms="
                   f"{cuda_ms(c9[norm][0], 10):.4f} plain_ms="
@@ -816,7 +870,7 @@ def quantile_vector_kernel_phase(torch, dev, encoded, years, kernels,
                            P * (2 + 5) * fsz, mkept * 13)
         print(f"kernel reduce_partitions[count, pid_count + vector D=5]: ms="
               f"{cuda_ms(c3v, 10):.4f} plain_ms={cuda_ms(c3v_plain, 3, 1):.4f}"
-              f" bound_ms={b_ms:.4f} ({b_by}) library_ms (index_add_ of the "
+              f" bound_ms={b_ms:.3g} ({b_by}) library_ms (index_add_ of the "
               f"gathered rows)={cuda_ms(library_c3v, 10):.4f}", flush=True)
     return report
 
@@ -1082,7 +1136,7 @@ def clipped_partitions(torch, dev, executor, enc, params, seed):
 
 
 def kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card):
-    """Runs (a), (f) and (i) through DPEngine.aggregate with CUDA events
+    """Runs (a), (f), (i) and (l) through DPEngine.aggregate with CUDA events
     around every kernel wrapper the executor calls: device time by kernel,
     beside the host-to-device copy and the host's share (setup and decode).
     radix_sort[1] is the bounding sort, radix_sort[2] the partition sort."""
@@ -1093,15 +1147,17 @@ def kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card):
              "compact_kept")
     runs = {
         "a": (encoded, lambda M: [M.COUNT, M.SUM, M.MEAN, M.VARIANCE],
-              dict(min_value=1.0, max_value=5.0)),
+              dict(min_value=1.0, max_value=5.0), {}),
         "f": (encoded, lambda M: [M.PERCENTILE(10), M.PERCENTILE(50),
                                   M.PERCENTILE(90), M.COUNT],
-              dict(min_value=1.0, max_value=5.0)),
+              dict(min_value=1.0, max_value=5.0), {}),
         "i": (onehot, lambda M: [M.VECTOR_SUM, M.COUNT],
               dict(vector_size=5, vector_norm_kind=tdp.NormKind.L2,
-                   vector_max_norm=1000.0)),
+                   vector_max_norm=1000.0), {}),
+        "l": (encoded, lambda M: [M.COUNT, M.SUM, M.MEAN, M.VARIANCE],
+              dict(min_value=1.0, max_value=5.0), dict(secure_noise=True)),
     }
-    for label, (enc, metrics, bounds) in runs.items():
+    for label, (enc, metrics, bounds, mode) in runs.items():
         medians = {}
         for rep in range(4):
             records = []
@@ -1131,7 +1187,8 @@ def kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card):
             try:
                 acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0,
                                                 total_delta=1e-6)
-                engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=rep))
+                engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=rep,
+                                                            **mode))
                 res = engine.aggregate(
                     enc, tdp.AggregateParams(
                         metrics=metrics(tdp.Metrics),
@@ -1247,6 +1304,717 @@ def select_parity_phase(torch, tdp, rng):
         print(f"parity[select_partitions, {strategy}]: {len(gpu)} of "
               f"{len(set(movies.tolist()))} partitions kept, cuda float64 "
               f"list identical to cpu float64", flush=True)
+
+
+def table_stats(thr_row, gran):
+    """The atoms' pmf of one packed secure table (host numpy) and the noise
+    std it gives on its grid."""
+    thr = thr_row.cpu().numpy().view(np.uint64)
+    cdf = np.concatenate([[0.0], thr.astype(np.float64) * 2.0**-64])
+    pmf = np.diff(cdf)
+    k = (thr.size - 1) // 2
+    atoms = np.arange(-k, k + 1, dtype=np.float64)
+    return pmf, float(gran) * math.sqrt(float((pmf * atoms**2).sum()))
+
+
+def secure_safe_kernel_phase(torch, dev, encoded, years, kernels, executor,
+                             threefry):
+    """The compensated entry of C3 and the secure entries of C4, C8 and C9
+    against their plain versions on the card, at 4096 rows and at 2^24
+    rows; a chi-square test of the secure draws against the table."""
+    from scipy import stats
+    from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+    from pipelinedp_tpu_torch.ops import quantile_tree
+    f32 = torch.float32
+    key = np.array([7, 11], dtype=np.uint32)
+    rows_key, final_key = threefry.split(key, 2)
+    _, key_linf, key_l0 = threefry.split(rows_key, 3)
+    salts = threefry.bits(key_l0, 4)
+    qkey = threefry.fold_in(key, 7919)
+    h, B = quantile_tree.DEFAULT_TREE_HEIGHT, \
+        quantile_tree.DEFAULT_BRANCHING_FACTOR
+    n_q = len(QUANTILES)
+    cols = ("sum", "nsum", "nsum2")
+    report = []
+    # Each entry's largest |kernel - plain| over every comparison it makes.
+    errs = dict.fromkeys(("reduce_partitions_compensated",
+                          "release_epilogue_secure", "quantile_descend_secure",
+                          "vector_release_secure"), 0.0)
+
+    def record(name, err):
+        errs[name] = max(errs[name], err)
+
+    def bounded(enc, n_rows, l0, linf, scale, columns):
+        sl = slice(0, n_rows)
+        pid = torch.as_tensor(enc.pid[sl]).to(dev)
+        pk = torch.as_tensor(enc.pk[sl]).to(dev)
+        values = torch.as_tensor(enc.values[sl] * scale).to(dev, f32)
+        valid = torch.as_tensor(enc.valid[sl]).to(dev)
+        P = enc.n_partitions
+        k1, k2, u = kernels.row_keys(pid, pk, valid, salts, key_linf, P, f32)
+        perm = kernels.radix_sort([k1, k2, u])
+        key2, pair_start, row_cols = kernels.bound_rows(
+            perm, k1, k2, pk, values if columns else None, valid,
+            n_partitions=P, linf=linf, l0=l0, clip_per_value=True,
+            clip_pair_sum=False, scalars=(1000.0, 5000.0, 0.0, 0.0, 3000.0),
+            columns=columns)
+        perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
+        return P, values, perm, perm2, skey2, pair_start, row_cols
+
+    def exact_sums(skey2, perm2, col, P):
+        """int64 partition sums of an integer-valued column."""
+        out = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+        out.index_add_(0, skey2.long().clamp(0, P), col[perm2].to(torch.int64))
+        return out[:P]
+
+    for label, n_rows in (("small", 4096), ("full", encoded.n_rows)):
+        # --- C3 compensated: rating x 1000, three columns and the vector --
+        P, values, perm, perm2, skey2, pair_start, row_cols = bounded(
+            encoded, n_rows, 64, 1, 1000.0, cols)
+        c3c = lambda: kernels.reduce_partitions(  # noqa: E731
+            skey2, perm2, pair_start, row_cols, P, f32, compensated=True)
+        c3c_plain = lambda: kernels.reduce_partitions_plain(  # noqa: E731
+            skey2, perm2, pair_start, row_cols, P, f32, compensated=True)
+        comp, comp_p = c3c(), c3c_plain()
+        fast = kernels.reduce_partitions(skey2, perm2, pair_start, row_cols,
+                                         P, f32)
+        fast_err, top, plain_off, nsum2_err = {}, 0, 0, 0.0
+        for c in cols:
+            exact = exact_sums(skey2, perm2, row_cols[c], P)
+            top = max(top, int(exact.abs().max()))
+            check_equal(f"reduce_partitions compensated {c} vs float32("
+                        f"exact sum)", comp[c], exact.to(f32))
+            if c == "nsum2":
+                # The plain version differences prefixes of the whole
+                # column (the JAX package's scheme): past ~2^45 its low
+                # word nears 2^24 and may round. The kernel is held to the
+                # exact sum above; its distance from the plain version is
+                # measured into max_abs_err.
+                plain_off = int((comp_p[c] != comp[c]).sum())
+                nsum2_err = abs_diff(comp[c], comp_p[c])
+                record("reduce_partitions_compensated", nsum2_err)
+            else:
+                record("reduce_partitions_compensated", check_equal(
+                    f"reduce_partitions compensated {c}", comp[c], comp_p[c]))
+            fast_err[c] = float((fast[c].double() - exact.double()).abs()
+                                .max())
+        onehot = (torch.nn.functional.one_hot(
+            (values / 1000.0).long() - 1, 5) * 1000).to(f32).contiguous()
+        vargs = (skey2, perm2, pair_start, {}, P, f32, (perm, onehot))
+        vcomp = kernels.reduce_partitions(*vargs, compensated=True)["vsum"]
+        record("reduce_partitions_compensated", check_equal(
+            "reduce_partitions compensated vsum", vcomp,
+            kernels.reduce_partitions_plain(*vargs, compensated=True)["vsum"]))
+        vexact = torch.zeros(P + 1, 5, dtype=torch.int64, device=dev)
+        vexact.index_add_(0, skey2.long().clamp(0, P),
+                          onehot[perm][perm2].to(torch.int64))
+        check_equal("reduce_partitions compensated vsum vs float32(exact)",
+                    vcomp, vexact[:P].to(f32))
+        fast_err["vsum"] = float((kernels.reduce_partitions(*vargs)["vsum"]
+                                  .double() - vexact[:P].double()).abs()
+                                 .max())
+        # An overflowing run is Inf (not the NaN of its residues), and the
+        # runs after it keep their sums: each run is summed directly.
+        ov = kernels.reduce_partitions(
+            torch.tensor([0, 0, 1, 1, 2, 2], dtype=torch.int32, device=dev),
+            torch.arange(6, device=dev), torch.ones(6, dtype=torch.bool,
+                                                    device=dev),
+            {"sum": torch.tensor([1.0, 2.0, 3e38, 3e38, 4.0, 5.0],
+                                 device=dev)}, 3,
+            f32, compensated=True)["sum"].tolist()
+        if ov != [3.0, float("inf"), 9.0]:
+            raise AssertionError(f"reduce_partitions compensated overflow: "
+                                 f"{ov}")
+        print(f"kernels[{label}, n={n_rows}] C3 compensated: every partition "
+              f"sum of rating x 1000 (sum, nsum, nsum2, vector D=5; largest "
+              f"|sum| {top}) equals float32(exact int64 sum) and the plain "
+              f"version (nsum2: {plain_off} of {P} partitions where the "
+              f"plain version's prefix differences are not exact, largest "
+              f"difference {nsum2_err}); an "
+              f"overflowing run is Inf, the next one's sum intact. The fast "
+              f"entry on the same rows: "
+              f"largest abs error {json.dumps(fast_err)}", flush=True)
+        # --- C4 secure at P = 17,770, one slot and three ------------------
+        dense = kernels.reduce_partitions(skey2, perm2, pair_start,
+                                          row_cols, P, f32)
+        dense["row_count"] = dense["pid_count"]
+        key_sel, key_noise = threefry.split(final_key, 2)
+        c4 = {}
+        for n_slots, plan, stds, sens in (
+                (1, [("count", ("count",), 0)], [2.0], [1.0]),
+                (3, [("variance", ("variance", "count", "sum", "mean"), 0)],
+                 [2.0, 900.0, 4.5e6], [1.0, 2000.0, 4e6])):
+            stds = np.array(stds)
+            tables = executor.build_secure_tables(
+                stds, np.array(sens), NoiseKind.GAUSSIAN, None, dev)
+            slot = np.stack([threefry.fold_in(threefry.fold_in(key_noise, 0),
+                                              j) for j in range(n_slots)])
+            args = (dense, plan, stds, slot, NoiseKind.GAUSSIAN, False,
+                    3000.0, 1000.0, None, key_sel, 1)
+            keep, outs, flags = kernels.release_epilogue(*args,
+                                                         tables=tables)
+            q_keep, q_outs, q_flags = kernels.release_epilogue_plain(
+                *args, tables=tables)
+            check_equal(f"release_epilogue secure ({n_slots} slots) flags",
+                        flags, q_flags)
+            check_equal(f"release_epilogue secure ({n_slots} slots) keep",
+                        keep, q_keep)
+            for name in outs:
+                record("release_epilogue_secure", check_equal(
+                    f"release_epilogue secure ({n_slots} slots) {name}",
+                    outs[name], q_outs[name]))
+            c4[n_slots] = (
+                lambda a=args, t=tables: kernels.release_epilogue(
+                    *a, tables=t),
+                lambda a=args, t=tables: kernels.release_epilogue_plain(
+                    *a, tables=t))
+        # --- C9 secure, P x 5 ---------------------------------------------
+        vsum = kernels.reduce_partitions(*vargs)["vsum"]
+        vkeep = torch.ones(P, dtype=torch.bool, device=dev)
+        vtables = executor.build_secure_tables(
+            np.array([460.0]), np.array([8.0]), NoiseKind.GAUSSIAN, None, dev)
+        vt = (vtables[0][0], float(vtables[1][0]))
+        c9 = {}
+        for plain in (False, True):
+            fn = (kernels.vector_release_plain if plain else
+                  kernels.vector_release)
+            c9[plain] = lambda fn=fn: fn(
+                vsum, vkeep, torch.zeros(1, dtype=torch.int32, device=dev),
+                max_norm=1e5, norm_kind="l2", std=460.0,
+                key=np.array([3, 4], np.uint32), gaussian=True, tables=vt)
+        record("vector_release_secure", check_equal(
+            "vector_release secure", c9[False](), c9[True]()))
+        # --- C8 secure: dense (release years) and lazy (movies) ------------
+        qtables = executor.build_secure_tables(
+            np.array([3.1]), np.array([4.0]), NoiseKind.LAPLACE, None, dev)
+        qt = (qtables[0][0], float(qtables[1][0]))
+        Py, yvals, yperm, yperm2, yskey2, _, _ = bounded(years, n_rows, 16,
+                                                         4, 1.0, ())
+        hist = kernels.quantile_leaf_counts(yskey2, yperm2, yperm, yvals,
+                                            n_partitions=Py,
+                                            n_leaves=B**h, min_v=1.0,
+                                            max_v=5.0)
+        levels = kernels.quantile_level_counts(hist, tree_height=h,
+                                               branching=B)
+        ckey = threefry.fold_in(qkey, 0)
+        level_keys = np.stack([threefry.fold_in(ckey, l) for l in range(h)])
+        ykeep = torch.ones(Py, dtype=torch.bool, device=dev)
+
+        def c8_dense(plain=False, leaves=None):
+            fn = (kernels.quantile_descend_dense_plain if plain else
+                  kernels.quantile_descend_dense)
+            return fn(levels, QUANTILES, std=3.1, level_keys=level_keys,
+                      gaussian=False, min_v=1.0, max_v=5.0, keep=ykeep,
+                      flags=torch.zeros(1, dtype=torch.int32, device=dev),
+                      dtype=f32, leaves=leaves, tables=qt)
+
+        leaves_k = torch.empty(Py, n_q, dtype=torch.int32, device=dev)
+        leaves_p = torch.empty_like(leaves_k)
+        record("quantile_descend_secure", check_equal(
+            "quantile_descend secure dense", c8_dense(False, leaves_k),
+            c8_dense(True, leaves_p)))
+        check_equal("quantile_descend secure dense leaves", leaves_k,
+                    leaves_p)
+        P, mvals, mperm, mperm2, mskey2, _, _ = bounded(encoded, n_rows, 64,
+                                                        1, 1.0, ())
+        keep = torch.ones(P, dtype=torch.bool, device=dev)
+        tree = dict(tree_height=h, branching=B, min_v=1.0, max_v=5.0)
+        step = dict(tree_height=h, std=3.1, gaussian=False, min_v=1.0,
+                    max_v=5.0, keep=keep, tables=qt)
+        state = kernels.DescentState(P, n_q, f32, dev)
+        counts_by_level = []
+        for level in range(1, h + 1):
+            counts = kernels.quantile_child_counts(
+                mskey2, mperm2, mperm, mvals, state.node.clone(),
+                level=level, **tree)
+            counts_by_level.append(counts)
+            before = kernels.DescentState(P, n_q, f32, dev)
+            for name in ("node", "target", "total", "mass"):
+                setattr(before, name, getattr(state, name).clone())
+            lkey = threefry.fold_in(qkey, level)
+            fl_k = torch.zeros(1, dtype=torch.int32, device=dev)
+            fl_p = torch.zeros(1, dtype=torch.int32, device=dev)
+            out_k = kernels.quantile_descend_step(
+                counts, state, QUANTILES, level=level, level_key=lkey,
+                flags=fl_k, **step)
+            out_p = kernels.quantile_descend_step_plain(
+                counts, before, QUANTILES, level=level, level_key=lkey,
+                flags=fl_p, **step)
+            for name in ("node", "target", "total", "mass"):
+                record("quantile_descend_secure", check_equal(
+                    f"quantile_descend secure lazy level {level} {name}",
+                    getattr(state, name), getattr(before, name)))
+        record("quantile_descend_secure", check_equal(
+            "quantile_descend secure lazy", out_k, out_p))
+        check_equal("quantile_descend secure lazy flags", fl_k, fl_p)
+        torch.cuda.synchronize()
+        print(f"kernels[{label}, n={n_rows}] secure: C4 (1 and 3 slots, "
+              f"P={P}), C9 (P={P} x 5), C8 dense (P={Py}) and lazy (P={P} x "
+              f"{n_q} walks) equal their plain versions exactly (atoms, "
+              f"leaves, released values)", flush=True)
+        if label != "full":
+            continue
+        # --- chi-square of 2^20 secure draws from the kernel ---------------
+        n_draw = 1 << 20
+        zero = torch.zeros(n_draw, dtype=f32, device=dev)
+        ctables = executor.build_secure_tables(
+            np.array([3.0]), np.array([1.0]), NoiseKind.LAPLACE, None, dev)
+        _, draws, _ = kernels.release_epilogue(
+            {"count": zero, "pid_count": zero}, [("count", ("count",), 0)],
+            np.array([3.0]), np.array([[5, 6]], np.uint32),
+            NoiseKind.LAPLACE, False, 0.0, 0.0, None, None, 1,
+            tables=ctables)
+        gran = float(ctables[1][0])
+        pmf, _ = table_stats(ctables[0][0], gran)
+        k = (pmf.size - 1) // 2
+        atoms = torch.round(draws["count"].double() / gran).long() + k
+        observed = torch.bincount(atoms, minlength=pmf.size).cpu().numpy()
+        expected = pmf * n_draw
+        big = expected >= 5
+        obs = np.append(observed[big], observed[~big].sum())
+        exp = np.append(expected[big], expected[~big].sum())
+        chi2 = float(((obs - exp)**2 / exp).sum())
+        dof = int(big.sum())
+        p_value = float(stats.chi2.sf(chi2, dof))
+        print(f"kernels secure draws: {n_draw} Laplace draws (grid {gran}) "
+              f"against the table's pmf: chi2 = {chi2:.1f} on {dof} degrees "
+              f"of freedom, p = {p_value:.3g}", flush=True)
+        if p_value < 1e-6:
+            raise AssertionError(f"secure draws: chi-square p = {p_value}")
+        # --- times ----------------------------------------------------------
+        fsz = 4
+        kept_rows = int((skey2 < P).sum())
+        src64 = torch.stack([row_cols[c].double() for c in cols], 1)[perm2]
+        key_long = skey2.long()
+
+        def library_c3c():
+            # index_add_ in float64, then float32: one rounding a sum.
+            out = torch.zeros(P + 1, 3, dtype=torch.float64, device=dev)
+            return out.index_add_(0, key_long, src64).float()
+
+        level_keys_lazy = [threefry.fold_in(qkey, level)
+                           for level in range(1, h + 1)]
+
+        def lazy_descent(fn):
+            st = kernels.DescentState(P, n_q, f32, dev)
+            fl = torch.zeros(1, dtype=torch.int32, device=dev)
+            for level, counts in enumerate(counts_by_level, 1):
+                out = fn(counts, st, QUANTILES, level=level,
+                         level_key=level_keys_lazy[level - 1], flags=fl,
+                         **step)
+            return out
+
+        # C3 compensated: C3's bytes; ~30 operations a kept row (a TwoSum
+        # of 6 and a low-word add per column). C4 secure: per slot two
+        # threefry (~200 integer operations) and a 13-round search (~40),
+        # ~100 for the formulas; the table rows read once. C8 secure
+        # (lazy): per visited node four threefry (the node key, its split,
+        # as JAX derives it) and a search (~450). C9 secure: per coordinate
+        # two threefry and a search (~250).
+        visits = P * n_q * B * h
+        table_bytes = 4097 * 8
+        timing = {
+            "reduce_partitions_compensated": (
+                c3c, c3c_plain, library_c3c,
+                bound(n_rows * 4 + kept_rows * (8 + 1 + 3 * fsz) +
+                      P * 5 * fsz, kept_rows * 30),
+                "reduce_partitions.cu", "pipelinedp_tpu/ops/segment_ops.py:122"),
+            "release_epilogue_secure": (
+                c4[3][0], c4[3][1], None,
+                bound(P * 5 * fsz + P * (1 + 4 * fsz) + 3 * table_bytes,
+                      P * (3 * 240 + 100)),
+                "release_epilogue.cu", "pipelinedp_tpu/ops/secure_noise.py:191"),
+            "quantile_descend_secure": (
+                lambda: lazy_descent(kernels.quantile_descend_step),
+                lambda: lazy_descent(kernels.quantile_descend_step_plain),
+                None,
+                bound(visits * 4 + h * P * n_q * 2 * (4 + 3 * fsz) +
+                      P * n_q * fsz + table_bytes, visits * 450),
+                "quantile_descend.cu", "pipelinedp_tpu/ops/secure_noise.py:174"),
+            "vector_release_secure": (
+                c9[False], c9[True], None,
+                bound(P * 5 * fsz * 2 + P + table_bytes, P * 5 * 250),
+                "vector_release.cu", "pipelinedp_tpu/ops/secure_noise.py:191"),
+        }
+        for name, (fn, plain, lib, (b_ms, b_by), src, repl) in \
+                timing.items():
+            ms = cuda_ms(fn, repeats=10)
+            plain_ms = cuda_ms(plain, repeats=3, warmup=1)
+            lib_ms = cuda_ms(lib, repeats=10) if lib else None
+            print(f"kernel {name}: max_abs_err={errs[name]} ms={ms:.4f} "
+                  f"plain_ms="
+                  f"{plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) library_ms="
+                  f"{lib_ms}", flush=True)
+            report.append({
+                "name": name, "route": "cuda",
+                "source": f"pipelinedp_tpu_torch/csrc/{src}",
+                "replaces": repl, "launches": 0, "max_abs_err": errs[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms})
+        b_ms, b_by = bound(P * 2 * fsz + P * (1 + fsz) + table_bytes,
+                           P * 340)
+        print(f"kernel release_epilogue_secure[1 slot, P={P}]: ms="
+              f"{cuda_ms(c4[1][0], 10):.4f} plain_ms="
+              f"{cuda_ms(c4[1][1], 3, 1):.4f} bound_ms={b_ms:.3g} ({b_by})",
+              flush=True)
+        b_ms, b_by = bound(Py * n_q * (h * B * 4 + fsz) + table_bytes,
+                           Py * n_q * B * h * 250)
+        print(f"kernel quantile_descend_secure[dense, P={Py}]: ms="
+              f"{cuda_ms(lambda: c8_dense(), 10):.4f} plain_ms="
+              f"{cuda_ms(lambda: c8_dense(plain=True), 3, 1):.4f} bound_ms="
+              f"{b_ms:.3g} ({b_by})", flush=True)
+        b_ms, b_by = bound(n_rows * 4 + kept_rows * (8 + 8 + 5 * fsz) +
+                           P * 7 * fsz, kept_rows * 50)
+        print(f"kernel reduce_partitions_compensated[count, pid_count + "
+              f"vector D=5]: ms="
+              f"{cuda_ms(lambda: kernels.reduce_partitions(*vargs, compensated=True), 10):.4f}"
+              f" bound_ms={b_ms:.3g} ({b_by})", flush=True)
+    return report
+
+
+def secure_safe_parity_phase(torch, tdp, kernels, rng):
+    """secure_noise=True and numeric_mode="safe" on the card against the
+    same on the CPU: the same partitions, values within 1e-9 relative (in
+    practice equal). float64 for every secure metric and for safe mode
+    (whose float64 sums take the plain entry, as in the JAX package);
+    float32 for safe mode with secure noise, where C3's compensated entry
+    runs and the table draws leave no libm between card and CPU: equal."""
+    n = 4096
+    users = rng.integers(0, 300, n)
+    ratings = rng.integers(1, 6, n).astype(np.float64)
+    eight = rng.integers(0, 8, n)
+    M = tdp.Metrics
+    f64, f32 = torch.float64, torch.float32
+    ratings_b = dict(min_value=1.0, max_value=5.0)
+    secure = dict(secure_noise=True)
+    cases = (
+        ("secure COUNT+SUM+MEAN+VARIANCE+PRIVACY_ID_COUNT", eight, ratings,
+         [M.COUNT, M.SUM, M.MEAN, M.VARIANCE, M.PRIVACY_ID_COUNT], ratings_b,
+         "GAUSSIAN", True, secure, f64),
+        ("secure COUNT+SUM+PRIVACY_ID_COUNT, snap_grid_bits=2", eight,
+         ratings, [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT], ratings_b, "LAPLACE",
+         False, dict(secure_noise=True, snap_grid_bits=2), f64),
+        ("secure PERCENTILE dense", eight, ratings,
+         [M.PERCENTILE(10), M.PERCENTILE(50), M.PERCENTILE(90), M.COUNT],
+         ratings_b, "GAUSSIAN", True, secure, f64),
+        ("secure PERCENTILE lazy", rng.integers(0, 600, n), ratings,
+         [M.PERCENTILE(50), M.COUNT], ratings_b, "LAPLACE", True, secure,
+         f64),
+        ("secure VECTOR_SUM", eight, np.eye(5)[ratings.astype(np.int64) - 1],
+         [M.VECTOR_SUM, M.COUNT],
+         dict(vector_size=5, vector_max_norm=40.0,
+              vector_norm_kind=tdp.NormKind.L2), "GAUSSIAN", True, secure,
+         f64),
+        ("safe COUNT+SUM+MEAN+VARIANCE", eight, ratings * 1000,
+         [M.COUNT, M.SUM, M.MEAN, M.VARIANCE],
+         dict(min_value=1000.0, max_value=5000.0), "LAPLACE", True,
+         dict(numeric_mode="safe"), f64),
+        ("safe + secure COUNT+SUM+MEAN+VARIANCE", eight, ratings * 1000,
+         [M.COUNT, M.SUM, M.MEAN, M.VARIANCE],
+         dict(min_value=1000.0, max_value=5000.0), "GAUSSIAN", True,
+         dict(numeric_mode="safe", secure_noise=True), f32),
+        ("safe + secure VECTOR_SUM", eight,
+         np.eye(5)[ratings.astype(np.int64) - 1] * 1000,
+         [M.VECTOR_SUM, M.COUNT],
+         dict(vector_size=5, vector_max_norm=1e6,
+              vector_norm_kind=tdp.NormKind.Linf), "LAPLACE", True,
+         dict(numeric_mode="safe", secure_noise=True), f32),
+    )
+    for label, parts, values, metrics, bounds, noise, public, mode, dtype \
+            in cases:
+        rows = list(zip(users.tolist(), parts.tolist(), list(values)))
+        want = ["release_epilogue_secure"] if mode.get("secure_noise") else []
+        if mode.get("numeric_mode") == "safe" and dtype == f32:
+            want.append("reduce_partitions_compensated")
+        results = []
+        for device in ("cuda", "cpu"):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=2.0,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                device=device, noise_seed=5, dtype=dtype, **mode))
+            params = tdp.AggregateParams(
+                metrics=metrics, noise_kind=getattr(tdp.NoiseKind, noise),
+                max_partitions_contributed=4,
+                max_contributions_per_partition=2, **bounds)
+            ex = tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                                    partition_extractor=lambda r: r[1],
+                                    value_extractor=lambda r: r[2])
+            kernels.reset_launch_counts()
+            res = engine.aggregate(rows, params, ex,
+                                   sorted(set(parts.tolist()))
+                                   if public else None)
+            acc.compute_budgets()
+            results.append(dict(res))
+            if device == "cuda":
+                check_launches(f"parity {label}", dict(kernels.launch_counts),
+                               kernels, None, want)
+        gpu, cpu = results
+        if set(gpu) != set(cpu) or not gpu:
+            raise AssertionError(f"parity {label}: released partitions "
+                                 f"differ ({len(gpu)} vs {len(cpu)})")
+        worst = 0.0
+        for k in cpu:
+            for a, b in zip(gpu[k], cpu[k]):
+                err = np.abs(np.asarray(a) - b) / np.maximum(1.0, np.abs(b))
+                worst = max(worst, float(np.max(err)))
+        if worst > 1e-9:
+            raise AssertionError(f"parity {label}: rel err {worst}")
+        print(f"parity[{label}, {noise}, "
+              f"{'public' if public else 'private'}, {dtype}]: {len(gpu)} "
+              f"partitions, cuda vs cpu max rel err {worst:.3g}", flush=True)
+
+
+def slot_grids(tdp, params, eps, delta, snap_grid_bits=None):
+    """The secure tables' grid and noise std of each plan entry's first
+    slot, by output name (count, privacy_id_count, sum, vector_sum), as
+    the release builds them."""
+    from pipelinedp_tpu_torch import combiners, executor
+    from pipelinedp_tpu_torch.ops import secure_noise
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=eps, total_delta=delta)
+    compound = combiners.create_compound_combiner(params, acc)
+    acc.compute_budgets()
+    stds = executor.compute_noise_stds(compound)
+    sens = executor.compute_noise_sensitivities(compound, params)
+    thr_hi, thr_lo, gran = secure_noise.build_tables(
+        stds, params.noise_kind, sensitivities=sens,
+        grid_floor=None if snap_grid_bits is None else 2.0**snap_grid_bits)
+    import torch
+    thr = torch.as_tensor(secure_noise.pack_tables(thr_hi, thr_lo))
+    grids, offset = {}, 0
+    for entry in executor.build_plan(compound):
+        name = {"count": "count", "privacy_id_count": "privacy_id_count",
+                "sum": "sum", "vector_sum": "vector_sum",
+                "variance": "count", "mean": "count"}.get(entry.kind)
+        if name is not None and name not in grids:
+            grids[name] = (float(gran[offset]),
+                           table_stats(thr[offset], gran[offset])[1])
+        offset += entry.n_stds
+    return grids, stds
+
+
+def on_grid(label, out, name, grid):
+    got = np.array([np.ravel(getattr(v, name)) for v in out.values()])
+    off = np.abs(got / grid - np.round(got / grid))
+    if (off > 0).any():
+        raise AssertionError(f"run ({label}) {name}: {int((off > 0).sum())} "
+                             f"values off the grid {grid}")
+    return got.size
+
+
+def secure_safe_main_phase(torch, tdp, encoded, years, onehot, kernels,
+                           card):
+    """Runs (k)-(p) through DPEngine.aggregate at full size. Returns the
+    launch counts summed over its runs."""
+    import dataclasses
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    pair_key = encoded.pid.astype(np.int64) * N_MOVIES + encoded.pk
+    pairs, pair_rows = np.unique(pair_key, return_counts=True)
+    l0_true = int(np.bincount(pairs // N_MOVIES).max())
+    linf_true = int(pair_rows.max())
+    P = encoded.n_partitions
+    vocab = list(encoded.partition_vocab)
+    secure_base = tuple(k for k in BASE_KERNELS if k != "release_epilogue") \
+        + ("release_epilogue_secure",)
+
+    def aggregate(label, enc, metrics, noise, public, eps, seed, path,
+                  backend, reps=1, **bounds):
+        """reps releases with seeds seed, seed + 1, ...: each checked,
+        the median time printed; returns the first one's output."""
+        params = tdp.AggregateParams(
+            metrics=metrics(tdp.Metrics),
+            noise_kind=getattr(tdp.NoiseKind, noise), **bounds)
+        outs, times = [], []
+        for rep in range(reps):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=eps,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                noise_seed=seed + rep, **backend))
+            kernels.reset_launch_counts()
+            res = engine.aggregate(enc, params, tdp.DataExtractors(),
+                                   list(enc.partition_vocab) if public
+                                   else None)
+            acc.compute_budgets()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = dict(res)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            counts = dict(kernels.launch_counts)
+            check_launches(f"run ({label})", counts, kernels, None, path)
+            if backend.get("secure_noise") and counts["release_epilogue"] or \
+                    backend.get("numeric_mode") == "safe" and \
+                    counts["reduce_partitions"]:
+                raise AssertionError(f"run ({label}) launched a plain "
+                                     f"entry: {counts}")
+            for name, n in counts.items():
+                total[name] += n
+            bad = [k for k, v in out.items() if not np.all(np.isfinite(
+                np.hstack([np.ravel(x) for x in v])))]
+            if bad or not out:
+                raise AssertionError(f"run ({label}): {len(out)} "
+                                     f"partitions, {len(bad)} with "
+                                     f"non-finite values")
+            outs.append(out)
+        ms = statistics.median(times) * 1e3
+        print(f"main ({label}) {noise} {'public' if public else 'private'} "
+              f"{backend}: {len(outs[0])} partitions released, {ms:.1f} ms, "
+              f"{N_ROWS / (ms / 1e3):.4g} rows/s (median of {reps}: "
+              f"{[round(t * 1e3, 1) for t in times]} ms; {card}); launches "
+              f"{counts}", flush=True)
+        return outs[0], params
+
+    secure = dict(secure_noise=True)
+    per_movie = dict(max_partitions_contributed=64,
+                     max_contributions_per_partition=1)
+    ratings = dict(min_value=1.0, max_value=5.0)
+    cps = lambda M: [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT]  # noqa: E731
+    # (k) = (b) with secure noise: the same kept set (selection draws no
+    # table noise), every released value on its grid.
+    out_b, _ = aggregate("b, seed 0", encoded, cps, "LAPLACE", False, 1.0, 0,
+                         BASE_KERNELS, {}, **per_movie, **ratings)
+    out_k, params = aggregate("k", encoded, cps, "LAPLACE", False, 1.0, 0,
+                              secure_base, secure, reps=3, **per_movie,
+                              **ratings)
+    if set(out_k) != set(out_b):
+        raise AssertionError(f"run (k): kept {len(out_k)} partitions, (b) "
+                             f"kept {len(out_b)}")
+    grids, _ = slot_grids(tdp, params, 1.0, 1e-6)
+    checked = sum(on_grid("k", out_k, name, grids[name][0])
+                  for name in ("count", "sum", "privacy_id_count"))
+    print(f"main (k): the same {len(out_k)} partitions as (b) kept; "
+          f"{checked} released values on their grids "
+          f"{ {n: g for n, (g, _) in grids.items()} }", flush=True)
+    # (l) = (a) with secure noise: COUNT on its grid.
+    out_l, params = aggregate(
+        "l", encoded, lambda M: [M.COUNT, M.SUM, M.MEAN, M.VARIANCE],
+        "GAUSSIAN", True, 1.0, 0, secure_base, secure, reps=3, **per_movie,
+        **ratings)
+    grids, _ = slot_grids(tdp, params, 1.0, 1e-6)
+    on_grid("l", out_l, "count", grids["count"][0])
+    print(f"main (l): {len(out_l)} counts on their grid "
+          f"{grids['count'][0]}", flush=True)
+    # (m) = (f) with secure noise: lazy percentiles, monotone.
+    secure_q = PERCENTILE_PATH + ("release_epilogue_secure",
+                                  "quantile_descend_secure")
+    secure_q = tuple(k for k in secure_q
+                     if k not in ("release_epilogue", "quantile_descend"))
+    out_m, _ = aggregate(
+        "m", encoded, lambda M: [M.PERCENTILE(10), M.PERCENTILE(50),
+                                 M.PERCENTILE(90), M.COUNT],
+        "GAUSSIAN", True, 1.0, 0, secure_q, secure, reps=3, **per_movie,
+        **ratings)
+    q = np.array([[v.percentile_10, v.percentile_50, v.percentile_90]
+                  for v in out_m.values()])
+    if len(out_m) != P or (np.diff(q, axis=1) < 0).any() or \
+            (q < 1.0).any() or (q > 5.0).any():
+        raise AssertionError("run (m): percentiles not monotone in [1, 5]")
+    print(f"main (m): {len(out_m)} partitions' secure percentiles 10 <= 50 "
+          f"<= 90 within [1, 5]", flush=True)
+    # (n) = (i) with secure noise: vector coordinates on the grid.
+    secure_v = tuple(k for k in VECTOR_PATH
+                     if k not in ("release_epilogue", "vector_release")) + (
+        "release_epilogue_secure", "vector_release_secure")
+    out_n, params = aggregate(
+        "n", onehot, lambda M: [M.VECTOR_SUM, M.COUNT], "GAUSSIAN", True,
+        1.0, 0, secure_v, secure, reps=3, vector_size=5,
+        vector_norm_kind=tdp.NormKind.L2, vector_max_norm=1000.0,
+        **per_movie)
+    grids, _ = slot_grids(tdp, params, 1.0, 1e-6)
+    n_vec = on_grid("n", out_n, "vector_sum", grids["vector_sum"][0])
+    print(f"main (n): {n_vec} vector coordinates on their grid "
+          f"{grids['vector_sum'][0]}", flush=True)
+    # (o) = (c) with secure noise at eps 1e6: the numpy group-by within 16
+    # noise stds (the table's) plus one grid step.
+    out_o, params = aggregate(
+        "o", encoded, cps, "LAPLACE", True, 1e6, 9, secure_base, secure,
+        max_partitions_contributed=l0_true,
+        max_contributions_per_partition=linf_true, **ratings)
+    grids, _ = slot_grids(tdp, params, 1e6, 1e-6)
+    truth = {"count": np.bincount(encoded.pk, minlength=P).astype(float),
+             "sum": np.bincount(encoded.pk, weights=encoded.values,
+                                minlength=P),
+             "privacy_id_count": np.bincount(pairs % N_MOVIES,
+                                             minlength=P).astype(float)}
+    worst = {}
+    for name, want in truth.items():
+        grid, std = grids[name]
+        got = np.array([getattr(out_o[m], name) for m in vocab])
+        err = np.abs(got - want)
+        tol = 16 * std + grid + 1e-6 * np.abs(want)
+        if (err > tol).any():
+            i = int(np.argmax(err - tol))
+            raise AssertionError(f"run (o) {name}: partition {vocab[i]} "
+                                 f"{got[i]} vs numpy {want[i]}")
+        worst[name] = [float(err.max()), grid, std]
+    print(f"main (o) epsilon=1e6, secure: {len(out_o)} partitions match the "
+          f"numpy group-by within 16 noise stds + one grid step ([max abs "
+          f"err, grid, noise std] {json.dumps(worst)})", flush=True)
+    # (p) numeric_mode="safe", float32, COUNT+SUM of rating x 1000, past the
+    # 2^24 cliff; the same run in fast mode beside it (a record). At
+    # epsilon 1e6 the sum's Gaussian noise (L2 sensitivity sqrt(7135) *
+    # 5000) has a std of ~424, above the float32 ulp (32) of the largest
+    # sums; at 1e12 it is ~0.4, so the accumulation error shows.
+    scaled = dataclasses.replace(encoded, values=encoded.values * 1000)
+    true_sum = np.bincount(encoded.pk, weights=encoded.values * 1000,
+                           minlength=P)
+    safe_base = tuple(k for k in BASE_KERNELS if k != "reduce_partitions") \
+        + ("reduce_partitions_compensated",)
+    bounds = dict(max_partitions_contributed=l0_true,
+                  max_contributions_per_partition=linf_true,
+                  min_value=1000.0, max_value=5000.0)
+    cs = lambda M: [M.COUNT, M.SUM]  # noqa: E731
+    ulp = np.spacing(np.abs(true_sum).astype(np.float32)).astype(np.float64)
+    top = int(np.argmax(true_sum))
+    for eps in (1e6, 1e12):
+        label = "p" if eps == 1e6 else "p, eps 1e12"
+        out_p, params = aggregate(label, scaled, cs, "GAUSSIAN", True, eps,
+                                  13, safe_base, dict(numeric_mode="safe"),
+                                  **bounds)
+        _, stds = slot_grids(tdp, params, eps, 1e-6)
+        sum_std = float(stds[1])
+        err = np.abs(np.array([out_p[m].sum for m in vocab]) - true_sum)
+        tol = 16 * sum_std + ulp
+        if (err > tol).any():
+            i = int(np.argmax(err - tol))
+            raise AssertionError(f"run ({label}): partition {vocab[i]} sum "
+                                 f"{true_sum[i] + err[i]} vs numpy int64 "
+                                 f"{true_sum[i]} (tol {tol[i]})")
+        out_f, _ = aggregate(f"{label}, fast", scaled, cs, "GAUSSIAN", True,
+                             eps, 13, BASE_KERNELS, {}, **bounds)
+        # The record: the sums past 2^25 (ulp >= 4, where noise of std
+        # 0.4 rounds away) against float32 of the exact sum, in ulps.
+        big = true_sum >= 2.0**25
+        f32_sum = true_sum.astype(np.float32).astype(np.float64)
+        off = {}
+        for mode, out in (("safe", out_p), ("fast", out_f)):
+            dev_ulps = np.abs(np.array([out[m].sum for m in vocab]) -
+                              f32_sum)[big] / ulp[big]
+            off[mode] = [int((dev_ulps > 0).sum()),
+                         float(dev_ulps.max()) if dev_ulps.size else 0.0]
+        print(f"main ({label}) safe, float32, rating x 1000, l0={l0_true}, "
+              f"linf={linf_true}: {len(out_p)} sums within 16 noise stds "
+              f"({sum_std:.4g}) + 1 float32 ulp of the numpy int64 group-by "
+              f"(largest sum {true_sum[top]:.0f}, ulp {ulp[top]:.0f}; max "
+              f"abs err {float(err.max()):.4g}). Of the {int(big.sum())} "
+              f"sums past 2^25, [how many differ from float32(exact sum), "
+              f"the largest difference in ulps]: safe {off['safe']}, fast "
+              f"{off['fast']} (fast: a record, not a gate)", flush=True)
+        if eps == 1e12:
+            # Past 2^25 half an ulp is >= 2, about five noise stds (a
+            # draw past it: ~2e-6 a sum): a sum that is float32(exact
+            # sum) comes back unchanged, and one that rounded like the
+            # fast entry's shows.
+            if not big.any() or 2.0 / sum_std < 4.5:
+                raise AssertionError(f"run ({label}): no sum past 2^25 or "
+                                     f"noise std {sum_std} too large for "
+                                     f"the exactness gate")
+            if off["safe"][0]:
+                raise AssertionError(f"run ({label}): {off['safe'][0]} safe "
+                                     f"sums past 2^25 differ from float32("
+                                     f"exact sum), by up to "
+                                     f"{off['safe'][1]} ulps")
+    return total
+
 
 
 def check_launches(label, counts, kernels, want=None, path=BASE_KERNELS):

@@ -18,11 +18,6 @@ from pipelinedp_tpu_torch import executor
 from pipelinedp_tpu_torch.aggregate_params import NoiseKind, NormKind
 from pipelinedp_tpu_torch.ops import selection_ops
 
-# KernelConfig fields of the JAX package that the port does not run yet,
-# with the value that means "off".
-_UNPORTED_DEFAULTS = {"secure": False, "numeric_mode": "fast"}
-
-
 def encoded_data(pid: np.ndarray, pk: np.ndarray, values: np.ndarray,
                  partition_vocab: Sequence[Any], n_privacy_ids: int,
                  public_encoded: bool = False) -> columnar.EncodedData:
@@ -44,12 +39,9 @@ def selection_params(fields: Mapping[str, Any]) -> selection_ops.SelectionParams
 def kernel_config(fields: Mapping[str, Any]) -> executor.KernelConfig:
     """KernelConfig from the JAX package's KernelConfig fields (plan
     entries and selection as mappings or dataclass-like objects, the
-    noise and norm kinds as enums of either package or their values)."""
+    noise and norm kinds as enums of either package or their values; secure
+    and numeric_mode carry across as they are)."""
     fields = dict(fields)
-    for name, off in _UNPORTED_DEFAULTS.items():
-        if name in fields and fields.pop(name) not in (off, None):
-            raise NotImplementedError(
-                f"KernelConfig.{name} is not ported yet (ROADMAP.md Queue 1)")
     plan = tuple(
         executor.MetricPlanEntry(kind=e["kind"], outputs=tuple(e["outputs"]),
                                  n_stds=int(e["n_stds"]))

@@ -5,8 +5,11 @@
 //  * threefry2x32 and JAX's uniform / normal / laplace transforms, bit-for-bit
 //    on the random words (pipelinedp_tpu_torch/ops/threefry.py is the plain
 //    twin; jax/_src/prng.py and jax/_src/random.py are the reference);
-//  * jax.random.fold_in on the device;
+//  * jax.random.fold_in and jax.random.bits on the device;
 //  * XLA's erf_inv polynomial (Giles);
+//  * the secure-noise release (K13: snap to a power-of-two grid plus a
+//    discrete atom found by a 64-bit inverse-CDF table search), shared by
+//    release_epilogue.cu, quantile_descend.cu and vector_release.cu;
 //  * NaN-propagating max / min (jnp.maximum / jnp.minimum), the release
 //    sentinel's flag bits of a value and their block-wide OR;
 //  * a block-wide exclusive scan over an associative operator, and the
@@ -26,13 +29,16 @@ constexpr int kItems = 8;       // consecutive rows per thread
 constexpr int kTile = kThreads * kItems;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+__host__ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-// Threefry-2x32, 20 rounds, on the counter words (x0, x1).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
+// Threefry-2x32, 20 rounds, on the counter words (x0, x1). Also a host
+// function, so a launch can derive a slot's keys once (secure_key).
+__host__ __device__ __forceinline__ void threefry2x32(uint32_t k0,
+                                                      uint32_t k1,
+                                                      uint32_t& x0,
+                                                      uint32_t& x1) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   x0 += ks[0];
@@ -51,13 +57,23 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
 }
 
 // jax.random.fold_in(key, data): the key hashed on the counter (0, data).
-__device__ __forceinline__ void fold_in(uint32_t k0, uint32_t k1,
-                                        uint32_t data, uint32_t& o0,
-                                        uint32_t& o1) {
+__host__ __device__ __forceinline__ void fold_in(uint32_t k0, uint32_t k1,
+                                                 uint32_t data, uint32_t& o0,
+                                                 uint32_t& o1) {
   uint32_t x0 = 0u, x1 = data;
   threefry2x32(k0, k1, x0, x1);
   o0 = x0;
   o1 = x1;
+}
+
+// Element i of jax.random.bits(key, shape, uint32): the partitionable
+// layout hashes the counter pair (i >> 32, i & 0xffffffff); the word is
+// x0 ^ x1.
+__device__ __forceinline__ uint32_t bits32(uint32_t k0, uint32_t k1,
+                                           uint64_t i) {
+  uint32_t x0 = static_cast<uint32_t>(i >> 32), x1 = static_cast<uint32_t>(i);
+  threefry2x32(k0, k1, x0, x1);
+  return x0 ^ x1;
 }
 
 // Floats in [0, 1) from element i of a draw under key (k0, k1): JAX's
@@ -208,6 +224,73 @@ template <typename F>
 __device__ __forceinline__ F draw(uint32_t k0, uint32_t k1, uint64_t i,
                                   bool gaussian) {
   return gaussian ? normal<F>(k0, k1, i) : laplace<F>(k0, k1, i);
+}
+
+// ---------------------------------------------------------------------------
+// Secure noise (K13): pipelinedp_tpu/ops/secure_noise.py _lex_search (:140)
+// and snapped_release (:174).
+//
+// A slot's table holds 2K + 1 u64 thresholds thr[i] = cumsum(pmf)[i] *
+// 2^64 (the host packs the JAX package's (hi, lo) u32 pairs as hi << 32 |
+// lo, so the lexicographic pair compare is the u64 compare); the last
+// entry is 2^64 - 1. The atom of the u64 word u is the first i with
+// thr[i] > u, found by binary search over [0, 2K] (12-13 rounds for 4097
+// entries; the JAX package's fixed 14 rounds end at the same index). The
+// tables are a few 32 KB rows read through the read-only cache.
+__device__ __forceinline__ int table_search(
+    const unsigned long long* __restrict__ thr, int len,
+    unsigned long long u) {
+  int lo = 0, hi = len - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(thr + mid) <= u) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return hi;
+}
+
+__device__ __forceinline__ float rint_(float x) { return rintf(x); }
+__device__ __forceinline__ double rint_(double x) { return rint(x); }
+
+// The keys of a secure draw: (k1, k2) = split(key), and split(key)[j] is
+// fold_in(key, j) in JAX's partitionable layout. A launch whose key is
+// fixed (a slot, a level, a vector entry) splits it once on the host; the
+// lazy regime's per-node keys are split on the device, once a node.
+struct SecureKey {
+  uint32_t hi[2], lo[2];
+};
+
+__host__ __device__ __forceinline__ SecureKey secure_key(uint32_t k0,
+                                                         uint32_t k1) {
+  SecureKey s;
+  fold_in(k0, k1, 0u, s.hi[0], s.hi[1]);
+  fold_in(k0, k1, 1u, s.lo[0], s.lo[1]);
+  return s;
+}
+
+// The words of a secure draw at element i: uhi = bits(k1)[i], ulo =
+// bits(k2)[i].
+__device__ __forceinline__ void secure_words(const SecureKey& k, uint64_t i,
+                                             uint32_t& uhi, uint32_t& ulo) {
+  uhi = bits32(k.hi[0], k.hi[1], i);
+  ulo = bits32(k.lo[0], k.lo[1], i);
+}
+
+// snap(col) + (atom - K) * gran: col rounded half to even to the grid
+// (jnp.round; gran is a power of two, so the division and the product are
+// exact) plus the atom of the words (uhi, ulo) on the grid. gran is the
+// slot's grid in the working type, as the JAX package casts it.
+template <typename F>
+__device__ __forceinline__ F snapped_release(
+    F col, uint32_t uhi, uint32_t ulo,
+    const unsigned long long* __restrict__ thr, int len, F gran) {
+  const F snapped = rint_(col / gran) * gran;
+  const int idx = table_search(
+      thr, len, (static_cast<unsigned long long>(uhi) << 32) | ulo);
+  return snapped + static_cast<F>(idx - (len - 1) / 2) * gran;
 }
 
 // jnp.maximum / jnp.minimum: a NaN operand propagates.

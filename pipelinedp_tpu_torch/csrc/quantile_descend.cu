@@ -24,6 +24,11 @@
 //                 node id c draws at counter 0 under fold_in(fold_in(
 //                 level_key, p), c), derived here, so a node visited by
 //                 several quantiles gets the same noise.
+// Secure noise (K13, :748-758 and :885-893): a node's count is snapped to
+// the quantile slot's grid plus the atom its table search gives, with the
+// words of split(level key) at the dense counter, or of
+// bits(fold_in(node key, 0)) and bits(fold_in(node key, 1)) in the lazy
+// regime; the clamp at 0 and the descent are the same.
 // A second kernel, one thread per partition, takes the running maximum
 // over the quantiles in ascending order, writes quantile j's column to
 // out[j, :] and ORs the flag bits of kept partitions into the flag word.
@@ -45,6 +50,12 @@ struct Params {
   const int* order;  // device, their indices in ascending order (stable)
   double std, min_v, max_v;
   unsigned key[kMaxH][2];  // dense: per-level keys; lazy: key[0]
+  // Secure noise: the quantile slot's packed table (null: continuous
+  // noise) and its grid.
+  const unsigned long long* table;
+  int table_len;
+  double gran;
+  pdp::SecureKey skey[kMaxH];  // dense: split(key[l]), derived at launch
 };
 
 // State of one (partition, quantile) walk.
@@ -102,6 +113,20 @@ __device__ __forceinline__ F noisy(int count, F draw, F scale) {
   return pdp::max_nan(static_cast<F>(count) + draw * scale, F(0));
 }
 
+// A secure node: max(snap(count) + atom * gran, 0), the atom's words
+// drawn at element i under the split key k.
+template <typename F>
+__device__ __forceinline__ F snapped_node(const Params& P, int count,
+                                          const pdp::SecureKey& k,
+                                          uint64_t i) {
+  uint32_t uhi, ulo;
+  pdp::secure_words(k, i, uhi, ulo);
+  return pdp::max_nan(
+      pdp::snapped_release<F>(static_cast<F>(count), uhi, ulo, P.table,
+                              P.table_len, static_cast<F>(P.gran)),
+      F(0));
+}
+
 struct Levels {
   const int* level[kMaxH];  // level[l - 1]: int32[P, B^l]
 };
@@ -126,11 +151,11 @@ __global__ void dense_kernel(Params P, Levels levels, F* __restrict__ vals,
     const unsigned k0 = P.key[level - 1][0], k1 = P.key[level - 1][1];
     for (int b = 0; b < B; ++b) {
       const long long node = w.node * B + b;
-      children[b] = noisy<F>(
-          counts[node],
-          pdp::draw<F>(k0, k1, static_cast<uint64_t>(p * width + node),
-                       P.gaussian),
-          scale);
+      const uint64_t i = static_cast<uint64_t>(p * width + node);
+      children[b] =
+          P.table ? snapped_node<F>(P, counts[node], P.skey[level - 1], i)
+                  : noisy<F>(counts[node], pdp::draw<F>(k0, k1, i, P.gaussian),
+                             scale);
     }
     descend<F>(children, B, level, q, w);
   }
@@ -157,8 +182,11 @@ __global__ void step_kernel(Params P, const int* __restrict__ counts,
   for (int b = 0; b < B; ++b) {
     uint32_t nk0, nk1;
     pdp::fold_in(pk0, pk1, static_cast<uint32_t>(w.node * B + b), nk0, nk1);
-    children[b] = noisy<F>(counts[idx * B + b],
-                           pdp::draw<F>(nk0, nk1, 0, P.gaussian), scale);
+    const int count = counts[idx * B + b];
+    children[b] =
+        P.table ? snapped_node<F>(P, count, pdp::secure_key(nk0, nk1), 0)
+                : noisy<F>(count, pdp::draw<F>(nk0, nk1, 0, P.gaussian),
+                           scale);
   }
   descend<F>(children, B, level, static_cast<F>(P.q[j]), w);
   node[idx] = static_cast<int>(w.node);
@@ -195,8 +223,12 @@ __global__ void finish_kernel(Params P, const F* __restrict__ vals,
 }
 
 Params make_params(long long n_partitions, const double* quantiles,
-                   const int* order, const double* scal, const int* dims) {
+                   const int* order, const double* scal, const int* dims,
+                   const void* table, int table_len, double gran) {
   Params P{};
+  P.table = static_cast<const unsigned long long*>(table);
+  P.table_len = table_len;
+  P.gran = gran;
   P.n_partitions = n_partitions;
   P.n_q = dims[0];
   P.height = dims[1];
@@ -212,7 +244,8 @@ Params make_params(long long n_partitions, const double* quantiles,
 
 bool valid(const Params& P) {
   return P.n_q >= 1 && P.height >= 1 &&
-         P.height <= kMaxH && P.branching >= 2 && P.branching <= kMaxB;
+         P.height <= kMaxH && P.branching >= 2 && P.branching <= kMaxB &&
+         (P.table == nullptr || (P.table_len >= 1 && P.table_len % 2 == 1));
 }
 
 unsigned blocks_for(long long n, int threads) {
@@ -260,7 +293,8 @@ int launch_step(const Params& P, const void* counts, int level, void* node,
 // (n_q, tree_height, branching, gaussian); level_keys: 2 * tree_height
 // words; scratch: F[n_partitions * n_q]; leaves (nullable): int32
 // [n_partitions, n_q], the leaf each walk ends at; out: F[n_q,
-// n_partitions]; flags: the release's flag word.
+// n_partitions]; flags: the release's flag word. Secure noise: table
+// u64[table_len] (null: continuous noise) and its grid.
 extern "C" int quantile_descend_dense(void* const* levels,
                                       long long n_partitions,
                                       const double* quantiles,
@@ -269,8 +303,10 @@ extern "C" int quantile_descend_dense(void* const* levels,
                                       const unsigned* level_keys,
                                       const void* keep, void* scratch,
                                       void* leaves, void* out, void* flags,
-                                      int f64, void* stream) {
-  Params P = make_params(n_partitions, quantiles, order, scal, dims);
+                                      const void* table, int table_len,
+                                      double gran, int f64, void* stream) {
+  Params P = make_params(n_partitions, quantiles, order, scal, dims, table,
+                         table_len, gran);
   if (!valid(P)) return -1;
   if (n_partitions <= 0) return 0;
   Levels lv{};
@@ -278,6 +314,7 @@ extern "C" int quantile_descend_dense(void* const* levels,
     lv.level[l] = static_cast<const int*>(levels[l]);
     P.key[l][0] = level_keys[2 * l];
     P.key[l][1] = level_keys[2 * l + 1];
+    if (P.table) P.skey[l] = pdp::secure_key(P.key[l][0], P.key[l][1]);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? launch_dense<double>(P, lv, keep, scratch, leaves, out, flags,
@@ -291,6 +328,8 @@ extern "C" int quantile_descend_dense(void* const* levels,
 // place; level_key = fold_in(qkey, level). At the last level (out not
 // null) writes the percentiles to out F[n_q, n_partitions], through
 // scratch F[n_partitions * n_q], and ORs their flag bits into flags.
+// Secure noise: table u64[table_len] (null: continuous noise) and its
+// grid.
 extern "C" int quantile_descend_step(const void* counts,
                                      long long n_partitions, int level,
                                      const double* quantiles,
@@ -299,9 +338,11 @@ extern "C" int quantile_descend_step(const void* counts,
                                      unsigned level_key1, void* node,
                                      void* target, void* total, void* mass,
                                      const void* keep, void* scratch,
-                                     void* out, void* flags, int f64,
-                                     void* stream) {
-  Params P = make_params(n_partitions, quantiles, order, scal, dims);
+                                     void* out, void* flags,
+                                     const void* table, int table_len,
+                                     double gran, int f64, void* stream) {
+  Params P = make_params(n_partitions, quantiles, order, scal, dims, table,
+                         table_len, gran);
   if (!valid(P) || level < 1 || level > P.height) return -1;
   if (n_partitions <= 0) return 0;
   P.key[0][0] = level_key0;

@@ -23,6 +23,19 @@
 // with each sorted row's coordinates gathered through both permutations
 // (partition sort, then bounding sort) instead of a bounded n x D copy.
 //
+// The compensated entry (numeric_mode="safe", K14: ops/segment_ops.py
+// compensated_cumsum / compensated_segment_diff, :100-157, used at
+// executor.py:488-494) carries each float32 sum as a TwoSum pair (hi, lo)
+// through the same scan: hi the rounded sum, lo the exact residues of its
+// additions, added in plain float. A partition's sum is emitted as hi + lo
+// rounded once: exact for integer-valued sums to ~2^48, where a float32
+// sum drops low bits past 2^24. Each run is summed directly, so no long
+// prefix is differenced; an overflowed hi is emitted as is (Inf, or NaN
+// where +Inf and -Inf met), never the NaN of its residues. The file is
+// built with --fmad=false and no fast-math: a contracted or reassociated
+// TwoSum loses the residue. float64 and the integer counts take the plain
+// entry, as in the JAX package (segment_ops.py:132-133).
+//
 // Bound: bytes. Each pass reads skey2 (4 B) and, in the last pass, perm
 // (8 B) and through it pair_start (1 B) and up to three F columns; the
 // outputs are 5 F columns of n_partitions. The reads through perm are
@@ -32,36 +45,75 @@
 
 namespace {
 
+// A float sum: plain (C false) or compensated (C true).
+template <typename F, bool C>
+struct Acc;
+
 template <typename F>
-struct Seg {
-  long long cnt, pc;
-  F s, ns, ns2;
-  int f;  // a segment starts inside
+struct Acc<F, false> {
+  F v;
+  static __device__ __forceinline__ Acc of(F x) { return Acc{x}; }
+  __device__ __forceinline__ Acc plus(const Acc& o) const {
+    return Acc{v + o.v};
+  }
+  __device__ __forceinline__ F value() const { return v; }
+  __device__ __forceinline__ Acc shfl_up(int d) const {
+    return Acc{__shfl_up_sync(pdp::kFullMask, v, d)};
+  }
 };
 
 template <typename F>
+struct Acc<F, true> {
+  F hi, lo;
+  static __device__ __forceinline__ Acc of(F x) { return Acc{x, F(0)}; }
+  // _comp_combine: (s, e) = TwoSum(hi, o.hi), lo' = e + (lo + o.lo).
+  __device__ __forceinline__ Acc plus(const Acc& o) const {
+    const F s = hi + o.hi;
+    const F bv = s - hi;
+    const F av = s - bv;
+    const F e = (hi - av) + (o.hi - bv);
+    return Acc{s, e + (lo + o.lo)};
+  }
+  __device__ __forceinline__ F value() const {
+    return isfinite(hi) ? hi + lo : hi;
+  }
+  __device__ __forceinline__ Acc shfl_up(int d) const {
+    return Acc{__shfl_up_sync(pdp::kFullMask, hi, d),
+               __shfl_up_sync(pdp::kFullMask, lo, d)};
+  }
+};
+
+template <typename F, bool C>
+struct Seg {
+  long long cnt, pc;
+  Acc<F, C> s, ns, ns2;
+  int f;  // a segment starts inside
+};
+
+template <typename F, bool C>
 struct SegOp {
-  using T = Seg<F>;
+  using T = Seg<F, C>;
   static __device__ __forceinline__ T identity() {
-    return T{0, 0, F(0), F(0), F(0), 0};
+    const Acc<F, C> z = Acc<F, C>::of(F(0));
+    return T{0, 0, z, z, z, 0};
   }
   static __device__ __forceinline__ T combine(T x, T y) {
     if (y.f) return T{y.cnt, y.pc, y.s, y.ns, y.ns2, 1};
-    return T{x.cnt + y.cnt, x.pc + y.pc, x.s + y.s, x.ns + y.ns,
-             x.ns2 + y.ns2, x.f};
+    return T{x.cnt + y.cnt, x.pc + y.pc, x.s.plus(y.s), x.ns.plus(y.ns),
+             x.ns2.plus(y.ns2), x.f};
   }
   static __device__ __forceinline__ T shfl_up(T v, int d) {
     v.cnt = __shfl_up_sync(pdp::kFullMask, v.cnt, d);
     v.pc = __shfl_up_sync(pdp::kFullMask, v.pc, d);
-    v.s = __shfl_up_sync(pdp::kFullMask, v.s, d);
-    v.ns = __shfl_up_sync(pdp::kFullMask, v.ns, d);
-    v.ns2 = __shfl_up_sync(pdp::kFullMask, v.ns2, d);
+    v.s = v.s.shfl_up(d);
+    v.ns = v.ns.shfl_up(d);
+    v.ns2 = v.ns2.shfl_up(d);
     v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
     return v;
   }
 };
 
-template <typename F>
+template <typename F, bool C>
 struct Rows {
   const int32_t* skey2;
   const long long* perm;
@@ -71,73 +123,73 @@ struct Rows {
   const F* nsum2;
   long long n;
 
-  __device__ __forceinline__ Seg<F> element(long long i) const {
+  __device__ __forceinline__ Seg<F, C> element(long long i) const {
     const long long r = perm[i];
-    return Seg<F>{1,
-                  pair_start[r],
-                  sum ? sum[r] : F(0),
-                  nsum ? nsum[r] : F(0),
-                  nsum2 ? nsum2[r] : F(0),
-                  (i == 0 || skey2[i] != skey2[i - 1]) ? 1 : 0};
+    return Seg<F, C>{1,
+                     pair_start[r],
+                     Acc<F, C>::of(sum ? sum[r] : F(0)),
+                     Acc<F, C>::of(nsum ? nsum[r] : F(0)),
+                     Acc<F, C>::of(nsum2 ? nsum2[r] : F(0)),
+                     (i == 0 || skey2[i] != skey2[i - 1]) ? 1 : 0};
   }
 };
 
-template <typename F>
-__global__ void tile_aggregates(Rows<F> rows, Seg<F>* aggs) {
-  __shared__ Seg<F> smem[32];
+template <typename F, bool C>
+__global__ void tile_aggregates(Rows<F, C> rows, Seg<F, C>* aggs) {
+  using Op = SegOp<F, C>;
+  __shared__ Seg<F, C> smem[32];
   const long long base =
       static_cast<long long>(blockIdx.x) * pdp::kTile +
       static_cast<long long>(threadIdx.x) * pdp::kItems;
-  Seg<F> acc = SegOp<F>::identity();
+  Seg<F, C> acc = Op::identity();
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
-    if (base + k < rows.n) acc = SegOp<F>::combine(acc, rows.element(base + k));
+    if (base + k < rows.n) acc = Op::combine(acc, rows.element(base + k));
   }
-  Seg<F> total;
-  pdp::block_exclusive_scan<SegOp<F>>(acc, smem, &total);
+  Seg<F, C> total;
+  pdp::block_exclusive_scan<Op>(acc, smem, &total);
   if (threadIdx.x == 0) aggs[blockIdx.x] = total;
 }
 
-template <typename F>
-__global__ void write_partitions(Rows<F> rows, const Seg<F>* prefixes,
+template <typename F, bool C>
+__global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
                                  int n_partitions, F* __restrict__ count,
                                  F* __restrict__ pid_count,
                                  F* __restrict__ sum, F* __restrict__ nsum,
                                  F* __restrict__ nsum2) {
-  __shared__ Seg<F> smem[32];
+  using Op = SegOp<F, C>;
+  __shared__ Seg<F, C> smem[32];
   const long long base =
       static_cast<long long>(blockIdx.x) * pdp::kTile +
       static_cast<long long>(threadIdx.x) * pdp::kItems;
-  Seg<F> elems[pdp::kItems];
-  Seg<F> acc = SegOp<F>::identity();
+  Seg<F, C> elems[pdp::kItems];
+  Seg<F, C> acc = Op::identity();
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
-    elems[k] = base + k < rows.n ? rows.element(base + k)
-                                 : SegOp<F>::identity();
-    acc = SegOp<F>::combine(acc, elems[k]);
+    elems[k] = base + k < rows.n ? rows.element(base + k) : Op::identity();
+    acc = Op::combine(acc, elems[k]);
   }
-  Seg<F> total;
-  const Seg<F> excl =
-      pdp::block_exclusive_scan<SegOp<F>>(acc, smem, &total);
-  Seg<F> state = SegOp<F>::combine(prefixes[blockIdx.x], excl);
+  Seg<F, C> total;
+  const Seg<F, C> excl = pdp::block_exclusive_scan<Op>(acc, smem, &total);
+  Seg<F, C> state = Op::combine(prefixes[blockIdx.x], excl);
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
     const long long i = base + k;
     if (i >= rows.n) break;
-    state = SegOp<F>::combine(state, elems[k]);
+    state = Op::combine(state, elems[k]);
     const int32_t key = rows.skey2[i];
     const bool last = i + 1 == rows.n || rows.skey2[i + 1] != key;
     if (last && key >= 0 && key < n_partitions) {
       count[key] = static_cast<F>(state.cnt);
       pid_count[key] = static_cast<F>(state.pc);
-      if (sum) sum[key] = state.s;
-      if (nsum) nsum[key] = state.ns;
-      if (nsum2) nsum2[key] = state.ns2;
+      if (sum) sum[key] = state.s.value();
+      if (nsum) nsum[key] = state.ns.value();
+      if (nsum2) nsum2[key] = state.ns2.value();
     }
   }
 }
 
-template <typename F>
+template <typename F, bool C>
 int launch(const void* skey2, const void* perm, const void* pair_start,
            const void* row_sum, const void* row_nsum, const void* row_nsum2,
            long long n, int n_partitions, void* scratch, void* count,
@@ -146,19 +198,20 @@ int launch(const void* skey2, const void* perm, const void* pair_start,
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = pdp::n_tiles(n);
-  Rows<F> rows{static_cast<const int32_t*>(skey2),
+  Rows<F, C> rows{static_cast<const int32_t*>(skey2),
                static_cast<const long long*>(perm),
                static_cast<const uint8_t*>(pair_start),
                static_cast<const F*>(row_sum),
                static_cast<const F*>(row_nsum),
                static_cast<const F*>(row_nsum2),
                n};
-  Seg<F>* aggs = static_cast<Seg<F>*>(scratch);
-  tile_aggregates<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
-      rows, aggs);
-  pdp::scan_tile_aggregates<SegOp<F>><<<1, 1024, 0, s>>>(aggs, tiles,
-                                                         nullptr);
-  write_partitions<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
+  Seg<F, C>* aggs = static_cast<Seg<F, C>*>(scratch);
+  tile_aggregates<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
+                          s>>>(rows, aggs);
+  pdp::scan_tile_aggregates<SegOp<F, C>><<<1, 1024, 0, s>>>(aggs, tiles,
+                                                            nullptr);
+  write_partitions<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
+                           s>>>(
       rows, aggs, n_partitions, static_cast<F*>(count),
       static_cast<F*>(pid_count), static_cast<F*>(sum),
       static_cast<F*>(nsum), static_cast<F*>(nsum2));
@@ -169,38 +222,37 @@ int launch(const void* skey2, const void* perm, const void* pair_start,
 
 constexpr int kVec = 4;
 
-template <typename F>
+template <typename F, bool C>
 struct VSeg {
-  F v[kVec];
+  Acc<F, C> v[kVec];
   int f;  // a segment starts inside
 };
 
-template <typename F>
+template <typename F, bool C>
 struct VSegOp {
-  using T = VSeg<F>;
+  using T = VSeg<F, C>;
   static __device__ __forceinline__ T identity() {
     T t;
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) t.v[c] = F(0);
+    for (int c = 0; c < kVec; ++c) t.v[c] = Acc<F, C>::of(F(0));
     t.f = 0;
     return t;
   }
   static __device__ __forceinline__ T combine(T x, T y) {
     if (y.f) return y;
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) x.v[c] = x.v[c] + y.v[c];
+    for (int c = 0; c < kVec; ++c) x.v[c] = x.v[c].plus(y.v[c]);
     return x;
   }
   static __device__ __forceinline__ T shfl_up(T v, int d) {
 #pragma unroll
-    for (int c = 0; c < kVec; ++c)
-      v.v[c] = __shfl_up_sync(pdp::kFullMask, v.v[c], d);
+    for (int c = 0; c < kVec; ++c) v.v[c] = v.v[c].shfl_up(d);
     v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
     return v;
   }
 };
 
-template <typename F>
+template <typename F, bool C>
 struct VRows {
   const int32_t* skey2;
   const long long* perm;
@@ -209,59 +261,59 @@ struct VRows {
   long long n;
   int dim, d0;
 
-  __device__ __forceinline__ VSeg<F> element(long long i) const {
+  __device__ __forceinline__ VSeg<F, C> element(long long i) const {
     long long r = perm[i];
     if (row_perm) r = row_perm[r];
     const F* row = values + r * dim;
-    VSeg<F> e;
+    VSeg<F, C> e;
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) e.v[c] = d0 + c < dim ? row[d0 + c] : F(0);
+    for (int c = 0; c < kVec; ++c)
+      e.v[c] = Acc<F, C>::of(d0 + c < dim ? row[d0 + c] : F(0));
     e.f = (i == 0 || skey2[i] != skey2[i - 1]) ? 1 : 0;
     return e;
   }
 };
 
-template <typename F>
-__global__ void vector_tile_aggregates(VRows<F> rows, VSeg<F>* aggs) {
-  __shared__ VSeg<F> smem[32];
+template <typename F, bool C>
+__global__ void vector_tile_aggregates(VRows<F, C> rows, VSeg<F, C>* aggs) {
+  using Op = VSegOp<F, C>;
+  __shared__ VSeg<F, C> smem[32];
   const long long base =
       static_cast<long long>(blockIdx.x) * pdp::kTile +
       static_cast<long long>(threadIdx.x) * pdp::kItems;
-  VSeg<F> acc = VSegOp<F>::identity();
+  VSeg<F, C> acc = Op::identity();
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
-    if (base + k < rows.n)
-      acc = VSegOp<F>::combine(acc, rows.element(base + k));
+    if (base + k < rows.n) acc = Op::combine(acc, rows.element(base + k));
   }
-  VSeg<F> total;
-  pdp::block_exclusive_scan<VSegOp<F>>(acc, smem, &total);
+  VSeg<F, C> total;
+  pdp::block_exclusive_scan<Op>(acc, smem, &total);
   if (threadIdx.x == 0) aggs[blockIdx.x] = total;
 }
 
-template <typename F>
-__global__ void write_vectors(VRows<F> rows, const VSeg<F>* prefixes,
+template <typename F, bool C>
+__global__ void write_vectors(VRows<F, C> rows, const VSeg<F, C>* prefixes,
                               int n_partitions, F* __restrict__ vsum) {
-  __shared__ VSeg<F> smem[32];
+  using Op = VSegOp<F, C>;
+  __shared__ VSeg<F, C> smem[32];
   const long long base =
       static_cast<long long>(blockIdx.x) * pdp::kTile +
       static_cast<long long>(threadIdx.x) * pdp::kItems;
-  VSeg<F> elems[pdp::kItems];
-  VSeg<F> acc = VSegOp<F>::identity();
+  VSeg<F, C> elems[pdp::kItems];
+  VSeg<F, C> acc = Op::identity();
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
-    elems[k] = base + k < rows.n ? rows.element(base + k)
-                                 : VSegOp<F>::identity();
-    acc = VSegOp<F>::combine(acc, elems[k]);
+    elems[k] = base + k < rows.n ? rows.element(base + k) : Op::identity();
+    acc = Op::combine(acc, elems[k]);
   }
-  VSeg<F> total;
-  const VSeg<F> excl =
-      pdp::block_exclusive_scan<VSegOp<F>>(acc, smem, &total);
-  VSeg<F> state = VSegOp<F>::combine(prefixes[blockIdx.x], excl);
+  VSeg<F, C> total;
+  const VSeg<F, C> excl = pdp::block_exclusive_scan<Op>(acc, smem, &total);
+  VSeg<F, C> state = Op::combine(prefixes[blockIdx.x], excl);
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
     const long long i = base + k;
     if (i >= rows.n) break;
-    state = VSegOp<F>::combine(state, elems[k]);
+    state = Op::combine(state, elems[k]);
     const int32_t key = rows.skey2[i];
     const bool last = i + 1 == rows.n || rows.skey2[i + 1] != key;
     if (last && key >= 0 && key < n_partitions) {
@@ -269,13 +321,13 @@ __global__ void write_vectors(VRows<F> rows, const VSeg<F>* prefixes,
       for (int c = 0; c < kVec; ++c) {
         if (rows.d0 + c < rows.dim)
           vsum[static_cast<long long>(key) * rows.dim + rows.d0 + c] =
-              state.v[c];
+              state.v[c].value();
       }
     }
   }
 }
 
-template <typename F>
+template <typename F, bool C>
 int launch_vectors(const void* skey2, const void* perm, const void* row_perm,
                    const void* values, long long n, int dim,
                    int n_partitions, void* scratch, void* vsum,
@@ -283,66 +335,87 @@ int launch_vectors(const void* skey2, const void* perm, const void* row_perm,
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = pdp::n_tiles(n);
-  VSeg<F>* aggs = static_cast<VSeg<F>*>(scratch);
+  VSeg<F, C>* aggs = static_cast<VSeg<F, C>*>(scratch);
   for (int d0 = 0; d0 < dim; d0 += kVec) {
-    VRows<F> rows{static_cast<const int32_t*>(skey2),
+    VRows<F, C> rows{static_cast<const int32_t*>(skey2),
                   static_cast<const long long*>(perm),
                   static_cast<const long long*>(row_perm),
                   static_cast<const F*>(values),
                   n,
                   dim,
                   d0};
-    vector_tile_aggregates<F><<<static_cast<unsigned>(tiles), pdp::kThreads,
-                                0, s>>>(rows, aggs);
-    // 512 threads: the float64 aggregate needs more than the 64 registers
-    // a thread of a 1024-thread block may have.
-    pdp::scan_tile_aggregates<VSegOp<F>><<<1, 512, 0, s>>>(aggs, tiles,
-                                                           nullptr);
-    write_vectors<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
-        rows, aggs, n_partitions, static_cast<F*>(vsum));
+    vector_tile_aggregates<F, C><<<static_cast<unsigned>(tiles),
+                                   pdp::kThreads, 0, s>>>(rows, aggs);
+    // 512 threads: the float64 aggregate (and the compensated float32
+    // one, as wide) needs more than the 64 registers a thread of a
+    // 1024-thread block may have.
+    pdp::scan_tile_aggregates<VSegOp<F, C>><<<1, 512, 0, s>>>(aggs, tiles,
+                                                              nullptr);
+    write_vectors<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
+                          s>>>(rows, aggs, n_partitions,
+                               static_cast<F*>(vsum));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" long long reduce_vectors_scratch_bytes(long long n, int f64) {
-  const long long each = f64 ? sizeof(VSeg<double>) : sizeof(VSeg<float>);
+extern "C" long long reduce_vectors_scratch_bytes(long long n, int f64,
+                                                  int comp) {
+  const long long each = f64 ? sizeof(VSeg<double, false>)
+                             : (comp ? sizeof(VSeg<float, true>)
+                                     : sizeof(VSeg<float, false>));
   return pdp::n_tiles(n) * each;
 }
 
 // Vector sums: skey2 / perm as for reduce_partitions; row_perm (nullable)
 // maps a bounded row to its row of values [*, dim]. vsum: [n_partitions,
-// dim], zero-filled by the caller.
+// dim], zero-filled by the caller. comp: compensated float32 sums (ignored
+// for float64).
 extern "C" int reduce_vectors(const void* skey2, const void* perm,
                               const void* row_perm, const void* values,
                               long long n, int dim, int n_partitions,
-                              void* scratch, void* vsum, int f64,
+                              void* scratch, void* vsum, int f64, int comp,
                               void* stream) {
-  return f64 ? launch_vectors<double>(skey2, perm, row_perm, values, n, dim,
-                                      n_partitions, scratch, vsum, stream)
-             : launch_vectors<float>(skey2, perm, row_perm, values, n, dim,
-                                     n_partitions, scratch, vsum, stream);
+  if (f64)
+    return launch_vectors<double, false>(skey2, perm, row_perm, values, n,
+                                         dim, n_partitions, scratch, vsum,
+                                         stream);
+  return comp ? launch_vectors<float, true>(skey2, perm, row_perm, values, n,
+                                            dim, n_partitions, scratch, vsum,
+                                            stream)
+              : launch_vectors<float, false>(skey2, perm, row_perm, values,
+                                             n, dim, n_partitions, scratch,
+                                             vsum, stream);
 }
 
-extern "C" long long reduce_partitions_scratch_bytes(long long n, int f64) {
-  const long long each = f64 ? sizeof(Seg<double>) : sizeof(Seg<float>);
+extern "C" long long reduce_partitions_scratch_bytes(long long n, int f64,
+                                                     int comp) {
+  const long long each = f64 ? sizeof(Seg<double, false>)
+                             : (comp ? sizeof(Seg<float, true>)
+                                     : sizeof(Seg<float, false>));
   return pdp::n_tiles(n) * each;
 }
 
 // Outputs must be zero-filled by the caller: partitions without a kept row
-// are not written.
+// are not written. comp: compensated float32 sums (ignored for float64).
 extern "C" int reduce_partitions(const void* skey2, const void* perm,
                                  const void* pair_start, const void* row_sum,
                                  const void* row_nsum, const void* row_nsum2,
                                  long long n, int n_partitions, void* scratch,
                                  void* count, void* pid_count, void* sum,
-                                 void* nsum, void* nsum2, int f64,
+                                 void* nsum, void* nsum2, int f64, int comp,
                                  void* stream) {
-  return f64 ? launch<double>(skey2, perm, pair_start, row_sum, row_nsum,
-                              row_nsum2, n, n_partitions, scratch, count,
-                              pid_count, sum, nsum, nsum2, stream)
-             : launch<float>(skey2, perm, pair_start, row_sum, row_nsum,
-                             row_nsum2, n, n_partitions, scratch, count,
-                             pid_count, sum, nsum, nsum2, stream);
+  if (f64)
+    return launch<double, false>(skey2, perm, pair_start, row_sum, row_nsum,
+                                 row_nsum2, n, n_partitions, scratch, count,
+                                 pid_count, sum, nsum, nsum2, stream);
+  return comp ? launch<float, true>(skey2, perm, pair_start, row_sum,
+                                    row_nsum, row_nsum2, n, n_partitions,
+                                    scratch, count, pid_count, sum, nsum,
+                                    nsum2, stream)
+              : launch<float, false>(skey2, perm, pair_start, row_sum,
+                                     row_nsum, row_nsum2, n, n_partitions,
+                                     scratch, count, pid_count, sum, nsum,
+                                     nsum2, stream);
 }

@@ -13,7 +13,10 @@
 //   noise   slot s draws element p under its key (the host derives
 //           fold_in(fold_in(key_noise, entry), sub) for each slot):
 //           Laplace sign(u) * log1p(-|u|) * std / sqrt(2), Gaussian
-//           sqrt(2) * erf_inv(u) * std
+//           sqrt(2) * erf_inv(u) * std. Secure noise (K13, finalize's
+//           secure branch, :585-590): snap(col) + atom * gran[s], the atom
+//           searched in slot s's table with the words bits(k1)[p],
+//           bits(k2)[p] of (k1, k2) = split(slot key)
 //   outputs count / privacy_id_count / sum / mean / variance with the
 //           formulas and operation order of finalize
 //   flags   NaN (1), Inf (2), |x| >= max/2 (4) over kept partitions, one
@@ -21,7 +24,10 @@
 //
 // Bound: operations at small P, bytes at large P: it reads up to 5 F
 // columns and writes up to 5 plus keep; each noise draw is one threefry
-// (~100 integer operations) and a log1p or an erf_inv polynomial.
+// (~100 integer operations) and a log1p or an erf_inv polynomial, a secure
+// draw two threefry (the slot's split is made once, at launch) and a
+// 12-13 round table search (dependent loads from
+// the read-only cache).
 #include "common.cuh"
 
 namespace {
@@ -47,6 +53,12 @@ struct Params {
   double max_rows;
   // Selection scalars (ops/selection_ops.selection_scalars order).
   double sel[14];
+  // Secure noise: the slots' packed tables [n_slots, table_len] (null:
+  // continuous noise) and each slot's grid.
+  const unsigned long long* table;
+  int table_len;
+  double gran[kMaxSlots];
+  pdp::SecureKey skey[kMaxSlots];  // split(key[s]), derived at launch
 };
 
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
@@ -94,6 +106,13 @@ __device__ F keep_probability(const Params& P, F est) {
 template <typename F>
 __device__ __forceinline__ F noised(const Params& P, F col, int slot,
                                     uint64_t p) {
+  if (P.table) {
+    uint32_t uhi, ulo;
+    pdp::secure_words(P.skey[slot], p, uhi, ulo);
+    return pdp::snapped_release<F>(
+        col, uhi, ulo, P.table + static_cast<long long>(slot) * P.table_len,
+        P.table_len, static_cast<F>(P.gran[slot]));
+  }
   const F std = static_cast<F>(P.std[slot]);
   const unsigned k0 = P.key[slot][0], k1 = P.key[slot][1];
   if (P.gaussian) return col + pdp::normal<F>(k0, k1, p) * std;
@@ -194,7 +213,9 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
 // plan: n_entries x (kind, output mask, std offset); stds / keys: one per
 // noise slot; sel: the 14 selection scalars; misc = (gaussian, degenerate,
 // private_selection); scal = (mid, min_v, max_rows). Outputs: keep (u8),
-// up to five F columns (null when absent), flags (one zeroed u32).
+// up to five F columns (null when absent), flags (one zeroed u32). Secure
+// noise: table u64[n_slots, table_len] (null: continuous noise), gran one
+// grid a slot.
 extern "C" int release_epilogue(
     const int* plan, int n_entries, const double* stds,
     const unsigned* keys, int n_slots, const double* sel,
@@ -202,8 +223,10 @@ extern "C" int release_epilogue(
     int n_partitions, const void* count, const void* pid_count,
     const void* sum, const void* nsum, const void* nsum2, void* keep,
     void* o_count, void* o_pid, void* o_sum, void* o_mean, void* o_var,
-    void* flags, int f64, void* stream) {
+    void* flags, const void* table, int table_len, const double* gran,
+    int f64, void* stream) {
   if (n_entries > kMaxEntries || n_slots > kMaxSlots) return -1;
+  if (table != nullptr && (table_len < 1 || table_len % 2 == 0)) return -1;
   if (n_partitions <= 0) return 0;
   Params P{};
   P.n_entries = n_entries;
@@ -216,7 +239,13 @@ extern "C" int release_epilogue(
     P.std[s] = stds[s];
     P.key[s][0] = keys[2 * s];
     P.key[s][1] = keys[2 * s + 1];
+    if (table != nullptr) {
+      P.gran[s] = gran[s];
+      P.skey[s] = pdp::secure_key(P.key[s][0], P.key[s][1]);
+    }
   }
+  P.table = static_cast<const unsigned long long*>(table);
+  P.table_len = table_len;
   P.gaussian = misc[0];
   P.degenerate = misc[1];
   P.private_selection = misc[2];

@@ -47,16 +47,17 @@ _SIGNATURES = {
                                   _P, _P, _P, _I, _P]),
     },
     "reduce_partitions": {
-        "reduce_partitions_scratch_bytes": (_LL, [_LL, _I]),
+        "reduce_partitions_scratch_bytes": (_LL, [_LL, _I, _I]),
         "reduce_partitions": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P, _P,
-                                   _P, _P, _P, _P, _I, _P]),
-        "reduce_vectors_scratch_bytes": (_LL, [_LL, _I]),
-        "reduce_vectors": (_I, [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _P]),
+                                   _P, _P, _P, _P, _I, _I, _P]),
+        "reduce_vectors_scratch_bytes": (_LL, [_LL, _I, _I]),
+        "reduce_vectors": (_I, [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _I,
+                                _P]),
     },
     "release_epilogue": {
         "release_epilogue": (_I, [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _I, _P]),
+                                  _P, _P, _P, _I, _P, _I, _P]),
     },
     "radix_sort": {
         "radix_sort_scratch_bytes": (_LL, [_LL]),
@@ -77,14 +78,14 @@ _SIGNATURES = {
     },
     "quantile_descend": {
         "quantile_descend_dense": (_I, [_P, _LL, _P, _P, _P, _P, _P, _P, _P,
-                                        _P, _P, _P, _I, _P]),
+                                        _P, _P, _P, _P, _I, _D, _I, _P]),
         "quantile_descend_step": (_I, [_P, _LL, _I, _P, _P, _P, _P, _U, _U,
-                                       _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _P]),
+                                       _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _D, _I, _P]),
     },
     "vector_release": {
         "vector_release": (_I, [_P, _LL, _I, _I, _D, _D, _U, _U, _I, _P, _P,
-                                _P, _I, _P]),
+                                _P, _P, _I, _D, _I, _P]),
     },
 }
 

@@ -5,21 +5,29 @@ analytic Gaussian sigma (`gaussian_sigma`, :159), the variance noise stds
 (`compute_dp_var_noise_stds`, :378), VECTOR_SUM's per-coordinate noise
 (`AdditiveVectorNoiseParams`, `vector_noise_std`, :232-270), the
 mechanisms' standard deviations and descriptions, and the
-`compute_sensitivities_*` functions (:1133 on).
-numpy/scipy only; the noise itself is drawn on the device by the release
-kernel, so these mechanisms carry no host sampler.
+`compute_sensitivities_*` functions (:1133 on). numpy/scipy only; the
+noise of a release is drawn on the device by the release kernels, so the
+continuous mechanisms carry no host sampler.
+
+The discrete mechanisms (:711-1075: GeometricMechanism,
+SnappedLaplaceMechanism, SnappedGaussianMechanism,
+create_discrete_mechanism) do sample on the host: bound to a threefry key,
+their uniforms come from the port's threefry (`_threefry_uniforms`), so a
+key gives the JAX package's draws bit for bit.
 """
 
 import abc
 import math
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
+import numpy as np
 from scipy.special import log_ndtr
 
 from pipelinedp_tpu_torch import aggregate_params
 from pipelinedp_tpu_torch import budget_accounting
 from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+from pipelinedp_tpu_torch.ops import threefry
 
 
 def compute_squares_interval(min_value: float,
@@ -133,6 +141,30 @@ def compute_dp_var_noise_stds(eps: float, delta: float, l0: int, linf: int,
     return count_std, nsum_std, nsum2_std
 
 
+def noise_sensitivity(l0_sensitivity: float, linf_sensitivity: float,
+                      noise_kind: NoiseKind) -> float:
+    """The norm sensitivity matching `noise_std`'s mechanism: l1 for
+    Laplace, l2 for Gaussian (the secure-noise grid calibration reads
+    it)."""
+    if noise_kind == NoiseKind.LAPLACE:
+        return compute_l1_sensitivity(l0_sensitivity, linf_sensitivity)
+    if noise_kind == NoiseKind.GAUSSIAN:
+        return compute_l2_sensitivity(l0_sensitivity, linf_sensitivity)
+    raise ValueError("Only Laplace and Gaussian noise is supported.")
+
+
+def compute_dp_var_noise_sensitivities(
+        l0: int, linf: int, min_value: float, max_value: float,
+        noise_kind: NoiseKind) -> Tuple[float, float, float]:
+    """Per-slot norm sensitivities matching compute_dp_var_noise_stds."""
+    mid = compute_middle(min_value, max_value)
+    sq_lo, sq_hi = compute_squares_interval(min_value, max_value)
+    mid2 = compute_middle(sq_lo, sq_hi)
+    return (noise_sensitivity(l0, linf, noise_kind),
+            noise_sensitivity(l0, linf * abs(mid - min_value), noise_kind),
+            noise_sensitivity(l0, linf * abs(mid2 - sq_lo), noise_kind))
+
+
 @dataclass
 class AdditiveVectorNoiseParams:
     """Calibration of VECTOR_SUM's per-coordinate noise
@@ -158,6 +190,14 @@ def vector_noise_std(noise_params: AdditiveVectorNoiseParams) -> float:
         return gaussian_sigma(noise_params.eps_per_coordinate,
                               noise_params.delta_per_coordinate, l2)
     raise ValueError("Noise kind must be either Laplace or Gaussian.")
+
+
+def vector_noise_sensitivity(
+        noise_params: AdditiveVectorNoiseParams) -> float:
+    """Per-coordinate norm sensitivity matching vector_noise_std."""
+    return noise_sensitivity(noise_params.l0_sensitivity,
+                             noise_params.linf_sensitivity,
+                             noise_params.noise_kind)
 
 
 class AdditiveMechanism(abc.ABC):
@@ -368,3 +408,324 @@ def compute_sensitivities_for_normalized_sum(
     return Sensitivities(l0=params.max_partitions_contributed,
                          linf=max_abs_value *
                          params.max_contributions_per_partition)
+
+
+# ---------------------------------------------------------------------------
+# Discrete / snapped mechanisms: floating-point-safe host noise.
+#
+# Continuous samplers of IEEE doubles leak through the uneven value grid
+# (Mironov, CCS 2012). These mechanisms release only values on a declared
+# grid: GeometricMechanism (the discrete Laplace, integers) for counts;
+# SnappedLaplaceMechanism / SnappedGaussianMechanism (clamp -> noise ->
+# round to a power-of-two grid g) for real values, calibrated against the
+# widened sensitivity Delta + g, so the granted epsilon stays a sound bound.
+
+# Default snapping grid: pow2_ceil(noise scale) * 2**-_SNAP_FRACTION_BITS.
+_SNAP_FRACTION_BITS = 16
+
+# Clamp bound for snapped releases: the largest magnitude at which
+# round-to-grid is still exact in float64 (53-bit significand).
+_SNAP_CLAMP_GRID_UNITS = float(1 << 52)
+
+_rng: Optional[np.random.Generator] = None
+
+
+def seed_mechanism_rng(
+        seed: "Union[None, int, np.random.Generator]") -> None:
+    """Seeds (or injects) the host generator of unbound mechanisms."""
+    global _rng
+    _rng = (seed if isinstance(seed, np.random.Generator) else
+            np.random.default_rng(seed))
+
+
+def mechanism_rng() -> np.random.Generator:
+    """The host generator of unbound mechanisms, created on first use from
+    a fresh SeedSequence when no seed was injected."""
+    global _rng
+    if _rng is None:
+        _rng = np.random.default_rng(np.random.SeedSequence())
+    return _rng
+
+
+def _pow2_round_up(x: float) -> float:
+    return 2.0**math.ceil(math.log2(x))
+
+
+def _threefry_uniforms(key, n: int, draw_index: int) -> np.ndarray:
+    """n uniforms in (0, 1) from a threefry key and a draw counter: 64 bits
+    each, assembled from two u32 words of bits(fold_in(key, draw_index),
+    (2n,)); the +0.5 offset keeps draws strictly inside (0, 1)."""
+    sub = threefry.fold_in(key, draw_index)
+    words = threefry.bits(sub, 2 * n).astype(np.uint64)
+    u64 = (words[0::2] << np.uint64(32)) | words[1::2]
+    return (u64.astype(np.float64) + 0.5) * (2.0**-64)
+
+
+class _KeyedDrawMixin:
+    """Counter-folded deterministic uniforms: bind_key() makes every later
+    draw a pure function of (key, draw index); unbound, draws come from
+    mechanism_rng()."""
+
+    _key = None
+    _draws = 0
+
+    def bind_key(self, key) -> None:
+        self._key = key
+        self._draws = 0
+
+    def _uniforms(self, n: int) -> np.ndarray:
+        if self._key is not None:
+            u = _threefry_uniforms(self._key, n, self._draws)
+            self._draws += 1
+            return u
+        return mechanism_rng().random(n)
+
+
+class GeometricMechanism(_KeyedDrawMixin, AdditiveMechanism):
+    """Two-sided geometric (discrete Laplace) mechanism for counts.
+
+    P(Z = z) proportional to alpha**|z| with alpha = exp(-eps / Delta),
+    sampled as the difference of two geometric variables by exact inverse
+    CDF: every release is an exact integer, grid step 1.
+    """
+
+    def __init__(self, epsilon: float, l1_sensitivity: float, key=None):
+        self._epsilon = epsilon
+        # A fractional l1 is rounded up: over-noise, never under-noise.
+        self._l1_sensitivity = float(math.ceil(l1_sensitivity))
+        if key is not None:
+            self.bind_key(key)
+
+    @classmethod
+    def create_from_epsilon(cls, epsilon: float, l1_sensitivity: float,
+                            key=None) -> 'GeometricMechanism':
+        return GeometricMechanism(epsilon, l1_sensitivity, key=key)
+
+    @property
+    def alpha(self) -> float:
+        return math.exp(-self._epsilon / self._l1_sensitivity)
+
+    def add_noise(self, value: Union[int, float]) -> float:
+        a = self.alpha
+        u1, u2 = self._uniforms(2)
+        if a <= 0.0:
+            g1 = g2 = 0  # eps/Delta past exp underflow: noise is 0 w.p. ~1
+        else:
+            log_a = math.log(a)
+            g1 = int(math.floor(math.log(u1) / log_a))
+            g2 = int(math.floor(math.log(u2) / log_a))
+        return float(int(round(value)) + g1 - g2)
+
+    @property
+    def epsilon(self) -> float:
+        return self._epsilon
+
+    @property
+    def grid(self) -> float:
+        return 1.0
+
+    @property
+    def noise_kind(self) -> NoiseKind:
+        return NoiseKind.LAPLACE
+
+    @property
+    def noise_parameter(self) -> float:
+        return self.alpha
+
+    @property
+    def std(self) -> float:
+        a = self.alpha
+        return math.sqrt(2.0 * a) / (1.0 - a)
+
+    @property
+    def sensitivity(self) -> float:
+        return self._l1_sensitivity
+
+    def describe(self) -> str:
+        return (f"Geometric (discrete Laplace) mechanism:  alpha="
+                f"{self.alpha}  eps={self._epsilon}  l1_sensitivity="
+                f"{self.sensitivity}  grid=1")
+
+
+class _SnappedMechanism(_KeyedDrawMixin, AdditiveMechanism):
+    """Shared clamp -> noise -> round-to-grid release path."""
+
+    _grid: float
+
+    def _snap(self, noisy: float) -> float:
+        g = self._grid
+        bound = _SNAP_CLAMP_GRID_UNITS * g
+        clamped = min(max(noisy, -bound), bound)
+        # g is a power of two: x / g and the product are exact, so the
+        # release lands exactly on the grid.
+        return round(clamped / g) * g
+
+    @property
+    def grid(self) -> float:
+        return self._grid
+
+
+class SnappedLaplaceMechanism(_SnappedMechanism):
+    """Snapped Laplace: grid g = pow2_ceil(b) * 2**-16 (floored at
+    2**snap_grid_bits when given), scale calibrated against Delta + g."""
+
+    def __init__(self, epsilon: float, l1_sensitivity: float,
+                 snap_grid_bits: Optional[int] = None, key=None):
+        self._epsilon = epsilon
+        self._raw_sensitivity = l1_sensitivity
+        base_b = l1_sensitivity / epsilon
+        g = _pow2_round_up(base_b) * 2.0**-_SNAP_FRACTION_BITS
+        if snap_grid_bits is not None:
+            g = max(g, 2.0**int(snap_grid_bits))
+        self._grid = g
+        self._l1_sensitivity = l1_sensitivity + g  # snap widening
+        self._b = self._l1_sensitivity / epsilon
+        if key is not None:
+            self.bind_key(key)
+
+    def add_noise(self, value: Union[int, float]) -> float:
+        (u,) = self._uniforms(1)
+        # Laplace inverse CDF on one uniform in (0, 1).
+        if u < 0.5:
+            noise = self._b * math.log(2.0 * u)
+        else:
+            noise = -self._b * math.log(2.0 * (1.0 - u))
+        return self._snap(float(value) + noise)
+
+    @property
+    def epsilon(self) -> float:
+        return self._epsilon
+
+    @property
+    def noise_kind(self) -> NoiseKind:
+        return NoiseKind.LAPLACE
+
+    @property
+    def noise_parameter(self) -> float:
+        return self._b
+
+    @property
+    def std(self) -> float:
+        return self._b * math.sqrt(2)
+
+    @property
+    def sensitivity(self) -> float:
+        return self._l1_sensitivity
+
+    def describe(self) -> str:
+        return (f"Snapped Laplace mechanism:  parameter={self._b}  eps="
+                f"{self._epsilon}  l1_sensitivity={self._l1_sensitivity} "
+                f"(raw {self._raw_sensitivity} + grid)  grid={self._grid}")
+
+
+class SnappedGaussianMechanism(_SnappedMechanism):
+    """Snapped Gaussian: sigma (analytic Gaussian mechanism) calibrated
+    against the widened sensitivity Delta + g."""
+
+    def __init__(self, epsilon: float, delta: float, l2_sensitivity: float,
+                 snap_grid_bits: Optional[int] = None, key=None):
+        self._epsilon = epsilon
+        self._delta = delta
+        self._raw_sensitivity = l2_sensitivity
+        base_sigma = gaussian_sigma(epsilon, delta, l2_sensitivity)
+        g = _pow2_round_up(base_sigma) * 2.0**-_SNAP_FRACTION_BITS
+        if snap_grid_bits is not None:
+            g = max(g, 2.0**int(snap_grid_bits))
+        self._grid = g
+        self._l2_sensitivity = l2_sensitivity + g  # snap widening
+        self._sigma = gaussian_sigma(epsilon, delta, self._l2_sensitivity)
+        if key is not None:
+            self.bind_key(key)
+
+    @classmethod
+    def create_from_std_deviation(cls, normalized_stddev: float,
+                                  l2_sensitivity: float,
+                                  snap_grid_bits: Optional[int] = None,
+                                  key=None) -> 'SnappedGaussianMechanism':
+        """normalized_stddev = stddev / l2_sensitivity; sigma is widened by
+        the same Delta -> Delta + g factor as the eps / delta path."""
+        sigma = normalized_stddev * l2_sensitivity
+        mech = cls.__new__(cls)
+        mech._epsilon = 0.0
+        mech._delta = 0.0
+        mech._raw_sensitivity = l2_sensitivity
+        g = _pow2_round_up(sigma) * 2.0**-_SNAP_FRACTION_BITS
+        if snap_grid_bits is not None:
+            g = max(g, 2.0**int(snap_grid_bits))
+        mech._grid = g
+        mech._l2_sensitivity = l2_sensitivity + g
+        mech._sigma = sigma * mech._l2_sensitivity / l2_sensitivity
+        if key is not None:
+            mech.bind_key(key)
+        return mech
+
+    def add_noise(self, value: Union[int, float]) -> float:
+        u1, u2 = self._uniforms(2)
+        # Box-Muller on two uniforms in (0, 1).
+        z = math.sqrt(-2.0 * math.log(u1)) * math.cos(2.0 * math.pi * u2)
+        return self._snap(float(value) + self._sigma * z)
+
+    @property
+    def epsilon(self) -> float:
+        return self._epsilon
+
+    @property
+    def delta(self) -> float:
+        return self._delta
+
+    @property
+    def noise_kind(self) -> NoiseKind:
+        return NoiseKind.GAUSSIAN
+
+    @property
+    def noise_parameter(self) -> float:
+        return self._sigma
+
+    @property
+    def std(self) -> float:
+        return self._sigma
+
+    @property
+    def sensitivity(self) -> float:
+        return self._l2_sensitivity
+
+    def describe(self) -> str:
+        return (f"Snapped Gaussian mechanism:  parameter={self._sigma}  eps="
+                f"{self._epsilon}  delta={self._delta}  l2_sensitivity="
+                f"{self._l2_sensitivity} (raw {self._raw_sensitivity} + "
+                f"grid)  grid={self._grid}")
+
+
+def create_discrete_mechanism(mechanism_spec: budget_accounting.MechanismSpec,
+                              sensitivities: Sensitivities,
+                              *,
+                              value_is_integer: bool = False,
+                              snap_grid_bits: Optional[int] = None,
+                              key=None) -> AdditiveMechanism:
+    """Floating-point-safe AdditiveMechanism from a budget-finalized spec:
+    integer-valued Laplace queries (value_is_integer, e.g. COUNT) get the
+    geometric mechanism on grid 1, real-valued ones the snapped mechanism
+    of the spec's noise kind. `key` (a threefry key) makes the draws
+    deterministic; snap_grid_bits floors the grid at 2**snap_grid_bits.
+    The port's specs carry (eps, delta); specs given by a noise standard
+    deviation come with PLD accounting (ROADMAP.md Queue 1 item 10)."""
+    noise_kind = mechanism_spec.mechanism_type.to_noise_kind()
+    if noise_kind == NoiseKind.LAPLACE:
+        if sensitivities.l1 is None:
+            raise ValueError("L1 or (L0 and Linf) sensitivities must be set "
+                             "for the geometric/snapped Laplace mechanism.")
+        if value_is_integer:
+            return GeometricMechanism(mechanism_spec.eps, sensitivities.l1,
+                                      key=key)
+        return SnappedLaplaceMechanism(mechanism_spec.eps, sensitivities.l1,
+                                       snap_grid_bits=snap_grid_bits, key=key)
+    if noise_kind == NoiseKind.GAUSSIAN:
+        if sensitivities.l2 is None:
+            raise ValueError("L2 or (L0 and Linf) sensitivities must be set "
+                             "for the snapped Gaussian mechanism.")
+        return SnappedGaussianMechanism(mechanism_spec.eps,
+                                        mechanism_spec.delta,
+                                        sensitivities.l2,
+                                        snap_grid_bits=snap_grid_bits,
+                                        key=key)
+    raise AssertionError(f"{noise_kind} not supported.")

@@ -33,6 +33,15 @@ iterated, after BudgetAccountant.compute_budgets().
 The working float width is the backend's `dtype`: float64 is the parity
 mode the tests compare with the JAX package run under x64; float32 is the
 card's mode, as the TPU's was.
+
+Two backend options change the release, as in the JAX package:
+secure_noise=True releases every noised column (metric slots, vector
+coordinates, quantile-tree nodes) on a power-of-two grid with discrete
+noise from 64-bit inverse-CDF tables built on the host after the budgets
+(ops/secure_noise.py; the C4, C8 and C9 entries with tables=), and
+numeric_mode="safe" sums float32 partition columns through compensated
+(TwoSum) pairs (C3's compensated entry) and makes the release sentinel
+refuse Inf and saturation with NumericOverflowError.
 """
 
 import dataclasses
@@ -51,6 +60,7 @@ from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    MechanismType, Metrics,
                                                    NoiseKind, NormKind)
 from pipelinedp_tpu_torch.ops import noise as noise_ops
+from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
 
@@ -105,6 +115,12 @@ class KernelConfig:
     tree_height: int = 0
     branching: int = 0
     quantile_chunk: int = 0
+    # secure_noise: snapped discrete noise from the slots' tables on every
+    # noised column (C4, C8, C9 with tables=).
+    secure: bool = False
+    # "fast", or "safe": compensated float32 partition sums (C3) and the
+    # sentinel's overflow classification.
+    numeric_mode: str = "fast"
 
 
 def check_supported(params: AggregateParams, public_partitions) -> None:
@@ -187,11 +203,60 @@ def compute_noise_stds(compound: dp_combiners.CompoundCombiner) -> np.ndarray:
     return np.asarray(stds, dtype=np.float64)
 
 
+def compute_noise_sensitivities(compound: dp_combiners.CompoundCombiner,
+                                params: AggregateParams) -> np.ndarray:
+    """Per-slot norm sensitivities, in the order of compute_noise_stds (l1
+    for Laplace slots, l2 for Gaussian): the secure-noise tables widen
+    each slot's grid-unit scale by the +1 grid unit snapping adds."""
+    sens: List[float] = []
+    l0 = params.max_partitions_contributed
+    linf = params.max_contributions_per_partition
+    for child in compound.combiners:
+        if isinstance(
+                child,
+            (dp_combiners.CountCombiner, dp_combiners.PrivacyIdCountCombiner,
+             dp_combiners.SumCombiner)):
+            sens.append(child.get_mechanism().sensitivity)
+        elif isinstance(child, dp_combiners.MeanCombiner):
+            mech = child.get_mechanism()
+            sens.append(mech.count_mechanism.sensitivity)
+            sens.append(mech.sum_mechanism.sensitivity)
+        elif isinstance(child, dp_combiners.VarianceCombiner):
+            sens.extend(dp_computations.compute_dp_var_noise_sensitivities(
+                l0, linf, params.min_value, params.max_value,
+                params.noise_kind))
+        elif isinstance(child, dp_combiners.VectorSumCombiner):
+            sens.append(dp_computations.vector_noise_sensitivity(
+                child._params.additive_vector_noise_params))
+        elif isinstance(child, dp_combiners.QuantileCombiner):
+            # Per tree level each privacy id touches <= l0 partitions x
+            # linf rows, one node per row.
+            sens.append(float(l0 * linf) if params.noise_kind ==
+                        NoiseKind.LAPLACE else np.sqrt(l0) * linf)
+        else:
+            raise NotImplementedError(type(child))
+    return np.asarray(sens, dtype=np.float64)
+
+
+def build_secure_tables(stds: np.ndarray, sensitivities: np.ndarray,
+                        noise_kind: NoiseKind, snap_grid_bits,
+                        device) -> Tuple[torch.Tensor, np.ndarray]:
+    """The slots' secure-noise tables on the device: (thr int64[S, 2K+1],
+    the packed u64 thresholds, and gran float64[S], each slot's grid),
+    with the grid floored at 2**snap_grid_bits where it is set."""
+    thr_hi, thr_lo, gran = secure_noise.build_tables(
+        stds, noise_kind, sensitivities=sensitivities,
+        grid_floor=(None if snap_grid_bits is None else
+                    2.0**int(snap_grid_bits)))
+    thr = torch.as_tensor(secure_noise.pack_tables(thr_hi, thr_lo))
+    return thr.to(device), gran
+
+
 def make_kernel_config(
         params: AggregateParams, compound: dp_combiners.CompoundCombiner,
         n_partitions: int, private_selection: bool,
-        selection_params: Optional[selection_ops.SelectionParams]
-) -> KernelConfig:
+        selection_params: Optional[selection_ops.SelectionParams],
+        secure: bool = False, numeric_mode: str = "fast") -> KernelConfig:
     """Builds the release config from aggregation parameters."""
     vector = Metrics.VECTOR_SUM in (params.metrics or [])
     max_rows = 1
@@ -234,7 +299,9 @@ def make_kernel_config(
         quantiles=quantiles,
         tree_height=tree_height,
         branching=branching,
-        quantile_chunk=quantile_chunk)
+        quantile_chunk=quantile_chunk,
+        secure=secure,
+        numeric_mode=numeric_mode)
 
 
 def kernel_scalars(params: AggregateParams):
@@ -354,14 +421,16 @@ def bounded_row_columns(pid: torch.Tensor, pk: torch.Tensor,
 def reduce_rows_to_partitions(key2: torch.Tensor, pair_start: torch.Tensor,
                               reduce_cols: Dict[str, torch.Tensor],
                               n_partitions: int, dtype: torch.dtype,
-                              vector_rows=None):
+                              vector_rows=None, numeric_mode: str = "fast"):
     """Phase 1b: dense [0, n_partitions) partition columns from the bounded
     row stream (one stable sort by kept partition, then C3; vector_rows =
-    bounded_row_columns' rows for VECTOR_SUM). Returns (cols, (perm,
-    skey2)): the columns and the partition-sorted row order."""
+    bounded_row_columns' rows for VECTOR_SUM; numeric_mode "safe" takes
+    C3's compensated entry). Returns (cols, (perm, skey2)): the columns and
+    the partition-sorted row order."""
     perm, skey2 = kernels.radix_sort([key2], sorted_top=True)
     cols = kernels.reduce_partitions(skey2, perm, pair_start, reduce_cols,
-                                     n_partitions, dtype, vector_rows)
+                                     n_partitions, dtype, vector_rows,
+                                     compensated=numeric_mode == "safe")
     cols['row_count'] = cols['pid_count']
     return cols, (perm, skey2)
 
@@ -376,12 +445,21 @@ def slot_keys(key_noise, plan: Sequence[MetricPlanEntry]) -> np.ndarray:
     return np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
 
 
+def _require_tables(cfg: KernelConfig, secure_tables) -> None:
+    if cfg.secure and secure_tables is None:
+        raise ValueError("cfg.secure requires secure_tables "
+                         "(executor.build_secure_tables)")
+
+
 def finalize(cols: Dict[str, torch.Tensor], min_v, mid, stds: np.ndarray,
-             final_key, cfg: KernelConfig):
+             final_key, cfg: KernelConfig, secure_tables=None):
     """Phase 2: DP partition selection + noise + metric formulas + the
     sentinel flag word (C4; a vector_sum entry's release is C9's, after
-    C4, ORing its bits into the same word). Returns (outputs, keep,
+    C4, ORing its bits into the same word). secure_tables: (thr, gran) of
+    build_secure_tables, required when cfg.secure. Returns (outputs, keep,
     flags)."""
+    _require_tables(cfg, secure_tables)
+    tables = secure_tables if cfg.secure else None
     key_sel, key_noise = threefry.split(final_key, 2)
     plan = []
     offset = 0
@@ -392,15 +470,22 @@ def finalize(cols: Dict[str, torch.Tensor], min_v, mid, stds: np.ndarray,
     keep, outputs, flags = kernels.release_epilogue(
         cols, plan, stds, keys, cfg.noise_kind, cfg.degenerate_range, mid,
         min_v, cfg.selection if cfg.private_selection else None, key_sel,
-        cfg.max_rows_per_privacy_id)
+        cfg.max_rows_per_privacy_id, tables)
     for kind, _, off in plan:
         if kind == 'vector_sum':
             outputs['vector_sum'] = kernels.vector_release(
                 cols['vsum'], keep, flags, max_norm=cfg.vector_max_norm,
                 norm_kind=cfg.vector_norm_kind.value, std=stds[off],
                 key=keys[off],
-                gaussian=cfg.noise_kind == NoiseKind.GAUSSIAN)
+                gaussian=cfg.noise_kind == NoiseKind.GAUSSIAN,
+                tables=_slot_table(tables, off))
     return outputs, keep, flags
+
+
+def _slot_table(tables, slot: int):
+    """One slot's (thr row, grid) of the secure tables (None stays None)."""
+    return None if tables is None else (tables[0][slot],
+                                        float(tables[1][slot]))
 
 
 def quantile_std_index(plan: Sequence[MetricPlanEntry]) -> int:
@@ -416,7 +501,8 @@ def quantile_std_index(plan: Sequence[MetricPlanEntry]) -> int:
 def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
                      stds: np.ndarray, qkey, keep: torch.Tensor,
                      flags: torch.Tensor, cfg: KernelConfig,
-                     dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+                     dtype: torch.dtype,
+                     secure_tables=None) -> Dict[str, torch.Tensor]:
     """Per-partition DP percentiles (the JAX package's quantile_outputs,
     :825): sorted_rows = (perm, skey2), the partition-sorted order of the
     bounded rows; values_rows = (row_perm, values) from
@@ -428,16 +514,20 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
     every level in one launch, noising node j of level l at counter
     p * B^l + j under fold_in(fold_in(qkey, 0), l - 1). Above that, each
     level's child counts (C7) and one descent step (C8) alternate: h
-    passes over the rows for every quantile together.
+    passes over the rows for every quantile together. With cfg.secure the
+    nodes take the quantile slot's secure table (secure_tables).
     """
+    _require_tables(cfg, secure_tables)
     perm, skey2 = sorted_rows
     row_perm, values = values_rows
     P, h, B = cfg.n_partitions, cfg.tree_height, cfg.branching
-    std = float(stds[quantile_std_index(cfg.plan)])
+    qidx = quantile_std_index(cfg.plan)
     gaussian = cfg.noise_kind == NoiseKind.GAUSSIAN
     tree = dict(tree_height=h, branching=B, min_v=min_v, max_v=max_v)
-    descent = dict(std=std, gaussian=gaussian, min_v=min_v, max_v=max_v,
-                   keep=keep, flags=flags)
+    descent = dict(std=float(stds[qidx]), gaussian=gaussian, min_v=min_v,
+                   max_v=max_v, keep=keep, flags=flags,
+                   tables=_slot_table(secure_tables if cfg.secure else None,
+                                      qidx))
     if -(-P // max(cfg.quantile_chunk, 1)) <= 1:
         leaf_counts = kernels.quantile_leaf_counts(
             skey2, perm, row_perm, values, n_partitions=P, n_leaves=B**h,
@@ -472,7 +562,7 @@ def compact_release(outputs: Dict[str, torch.Tensor], keep: torch.Tensor):
 
 def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
                              max_s, mid, stds: np.ndarray, rng_key,
-                             cfg: KernelConfig):
+                             cfg: KernelConfig, secure_tables=None):
     """The dense release: bounding, partition columns, selection, noise,
     percentiles, compaction. Key derivation follows the JAX package's
     _aggregate_trace. Returns (n_kept, order, outputs kept-first, flags)."""
@@ -482,13 +572,14 @@ def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
         cfg)
     cols, sorted_rows = reduce_rows_to_partitions(
         key2, pair_start, reduce_cols, cfg.n_partitions, values.dtype,
-        rows if cfg.vector_size else None)
-    outputs, keep, flags = finalize(cols, min_v, mid, stds, final_key, cfg)
+        rows if cfg.vector_size else None, cfg.numeric_mode)
+    outputs, keep, flags = finalize(cols, min_v, mid, stds, final_key, cfg,
+                                    secure_tables)
     if cfg.quantiles:
         outputs.update(quantile_outputs(
             sorted_rows, rows, min_v, max_v, stds,
             threefry.fold_in(rng_key, 7919), keep, flags, cfg,
-            values.dtype))
+            values.dtype, secure_tables))
     n_kept, order, outputs_sorted = compact_release(outputs, keep)
     return n_kept, order, outputs_sorted, flags
 
@@ -573,8 +664,15 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                 f"{n_partitions} partitions exceed large_partition_threshold="
                 f"{backend.large_partition_threshold}: {_LATER['large_p']}")
         cfg = make_kernel_config(params, compound, n_partitions, private,
-                                 selection_params)
+                                 selection_params,
+                                 secure=backend.secure_noise,
+                                 numeric_mode=backend.numeric_mode)
         stds = compute_noise_stds(compound)
+        secure_tables = None
+        if cfg.secure:
+            secure_tables = build_secure_tables(
+                stds, compute_noise_sensitivities(compound, params),
+                params.noise_kind, backend.snap_grid_bits, backend.device)
         key = noise_ops.make_noise_key(backend.noise_seed)
         min_v, max_v, min_s, max_s, mid = kernel_scalars(params)
         pid, pk, values, valid = to_device(encoded, backend.device,
@@ -582,23 +680,27 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
         with budget_accountant.no_new_mechanisms("dense release execution"):
             n_kept, order, outputs, flags = aggregate_release_kernel(
                 pid, pk, values, valid, min_v, max_v, min_s, max_s, mid,
-                stds, key, cfg)
+                stds, key, cfg, secure_tables)
         yield from decode_release_results(n_kept, order, outputs, flags,
-                                          encoded.partition_vocab, compound)
+                                          encoded.partition_vocab, compound,
+                                          cfg.numeric_mode)
 
     return generator()
 
 
 def decode_release_results(n_kept, order, outputs, flags,
                            partition_vocab: Sequence[Any],
-                           compound: dp_combiners.CompoundCombiner):
+                           compound: dp_combiners.CompoundCombiner,
+                           numeric_mode: str = "fast"):
     """Compacted release -> [(partition_key, MetricsTuple)]. One host copy
-    of (n_kept, flags) gates the release: the sentinel raises before any
-    value is decoded; then O(kept) ids and values are copied."""
+    of (n_kept, flags) gates the release: the sentinel raises, as
+    numeric_mode classifies the flag word, before any value is decoded;
+    then O(kept) ids and values are copied."""
     gate = torch.stack([n_kept.to(torch.int64),
                         flags.reshape(()).to(torch.int64)]).cpu()
     k, flag_word = int(gate[0]), int(gate[1]) & 0xFFFFFFFF
-    numeric.check_release(flag_word, outputs, context="dense release")
+    numeric.check_release(flag_word, outputs, context="dense release",
+                          numeric_mode=numeric_mode)
     ids = order[:k].cpu().numpy()
     cols = {name: col[:k].cpu().numpy() for name, col in outputs.items()}
     field_order = tuple(

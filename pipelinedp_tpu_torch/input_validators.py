@@ -1,5 +1,5 @@
 """Input validation helpers of the port (pipelinedp_tpu/input_validators.py:
-the validators the dense aggregation path calls)."""
+the validators the dense aggregation path and TorchBackend call)."""
 
 import math
 import numbers
@@ -27,3 +27,43 @@ def validate_epsilon_delta(epsilon: float, delta: float, obj_name: str) -> None:
     if delta >= 1:
         raise ValueError(f"{obj_name}: delta must be less than 1, but "
                          f"delta={delta} given.")
+
+
+def validate_numeric_mode(numeric_mode, obj_name: str) -> None:
+    """Validates the accumulation numeric mode: "fast" or "safe".
+
+    Raises:
+        ValueError: numeric_mode is not one of the two modes ("fast" is
+        the historical bit-identical f32 segment reduction; "safe" runs
+        the compensated (TwoSum hi/lo) scan — exact for integer-valued
+        workloads to ~2^48 — and arms the release sentinel's overflow
+        classification).
+    """
+    if numeric_mode not in ("fast", "safe"):
+        raise ValueError(
+            f"{obj_name}: numeric_mode must be 'fast' or 'safe', but "
+            f"{numeric_mode!r} given — 'fast' keeps the bit-identical "
+            f"historical accumulation, 'safe' switches the fused kernels "
+            f"to compensated summation and fails closed (typed "
+            f"NumericOverflowError, nothing released) on overflow.")
+
+
+def validate_snap_grid_bits(snap_grid_bits, obj_name: str) -> None:
+    """Validates the snapping-grid floor exponent: an integer in [-64, 64].
+
+    Raises:
+        ValueError: snap_grid_bits is not an integer in range (it floors
+        the power-of-two snapping grid at 2**snap_grid_bits for the
+        discrete/snapped mechanisms and the secure-noise tables; a
+        float or a bool here is a bug, not a coarser grid).
+    """
+    if (not isinstance(snap_grid_bits, numbers.Number) or
+            isinstance(snap_grid_bits, bool) or
+            snap_grid_bits != int(snap_grid_bits) or
+            not -64 <= snap_grid_bits <= 64):
+        raise ValueError(
+            f"{obj_name}: snap_grid_bits must be an integer in "
+            f"[-64, 64], but {snap_grid_bits!r} given — releases snap to "
+            f"the power-of-two grid max(mechanism grid, "
+            f"2**snap_grid_bits), so the exponent must be a bounded "
+            f"integer (None disables the floor).")

@@ -17,13 +17,23 @@ wrappers and their plain PyTorch versions.
                                                      regimes), percentile flags
     C9 vector_release     csrc/vector_release.cu     norm-ball clip, noise, flags
 
+Two modes add entries (numeric_mode="safe" and secure_noise=True):
+
+    C3 compensated        reduce_partitions(compensated=True): float32 sums
+                          carried as TwoSum (hi, lo) pairs
+    C4 / C8 / C9 secure   release_epilogue, quantile_descend_*,
+                          vector_release with tables=: snapped discrete
+                          noise, the table search pdp::snapped_release of
+                          csrc/common.cuh
+
 Each wrapper launches its kernel on the current CUDA stream when its inputs
 lie on a CUDA device, and computes the plain version when they lie on the
 CPU (the tests' path). On a CUDA tensor it never falls back: a failed build
 or launch raises. Outputs and scratch are allocated here with torch; the
 kernels allocate nothing. `launch_counts` counts wrapper calls that
-launched a kernel, under the name of the kernel's source (a tile scan
-issues three CUDA launches; a radix sort three a pass).
+launched a kernel, under the name of the kernel's source, or of its
+compensated / secure entry (a tile scan issues three CUDA launches; a
+radix sort three a pass).
 """
 
 import ctypes
@@ -36,13 +46,16 @@ from pipelinedp_tpu_torch import cuda_build
 from pipelinedp_tpu_torch import numeric
 from pipelinedp_tpu_torch.aggregate_params import NoiseKind
 from pipelinedp_tpu_torch.ops import noise as noise_ops
+from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import segment_ops
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
 
 KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
-           "vector_release")
+           "vector_release", "reduce_partitions_compensated",
+           "release_epilogue_secure", "quantile_descend_secure",
+           "vector_release_secure")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -100,6 +113,21 @@ def _f64(dtype: torch.dtype) -> int:
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"working dtype must be float32/float64, got {dtype}")
     return int(dtype == torch.float64)
+
+
+def _check_table(thr: torch.Tensor, rows: Optional[int]) -> None:
+    """A packed secure-noise table: int64 [rows, 2K+1] (rows None: one
+    slot's [2K+1]), contiguous, of odd length."""
+    shape = (thr.shape[-1],) if rows is None else (rows, thr.shape[-1])
+    if thr.dtype != torch.int64 or tuple(thr.shape) != shape or \
+            not thr.is_contiguous() or thr.shape[-1] % 2 != 1:
+        raise ValueError(f"secure table: expected contiguous int64{list(shape)}"
+                         f" of odd length, got {thr.dtype}{list(thr.shape)}")
+
+
+def _clamp0(x: torch.Tensor) -> torch.Tensor:
+    """jnp.maximum(x, 0): NaN kept."""
+    return torch.where(torch.isnan(x), x, x.clamp(min=0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +391,8 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
                       row_cols: Dict[str, torch.Tensor],
                       n_partitions: int, dtype: torch.dtype,
                       vector_rows: Optional[Tuple[Optional[torch.Tensor],
-                                                  torch.Tensor]] = None):
+                                                  torch.Tensor]] = None,
+                      compensated: bool = False):
     """Dense per-partition columns from rows sorted by key2.
 
     skey2: key2 sorted ascending; perm: bounded-row index per sorted
@@ -373,7 +402,14 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
     coordinates are gathered through both permutations, no bounded copy is
     written. Returns {count, pid_count, [sum, nsum, nsum2], [vsum]} as
     dtype[n_partitions] (vsum dtype[n_partitions, D]).
+
+    compensated (numeric_mode="safe"): float32 sums are carried as TwoSum
+    (hi, lo) pairs and emitted as hi + lo rounded once, exact for
+    integer-valued sums to ~2^48; an overflowed sum is Inf, never NaN.
+    float64 sums take the plain entry, as the JAX package's do
+    (segment_ops.py:132-133).
     """
+    compensated = compensated and dtype == torch.float32
     n = skey2.shape[0]
     _check(skey2, torch.int32, n, "skey2")
     _check(perm, torch.int64, n, "perm")
@@ -390,42 +426,59 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
     if not _on_cuda(skey2, perm, pair_start, row_perm, vec,
                     *row_cols.values()):
         return reduce_partitions_plain(skey2, perm, pair_start, row_cols,
-                                       n_partitions, dtype, vector_rows)
+                                       n_partitions, dtype, vector_rows,
+                                       compensated)
     dev = skey2.device
     lib = cuda_build.library("reduce_partitions")
     out = {name: torch.zeros(n_partitions, dtype=dtype, device=dev)
            for name in ("count", "pid_count", *row_cols)}
     scratch = torch.empty(
-        max(1, lib.reduce_partitions_scratch_bytes(n, _f64(dtype))),
+        max(1, lib.reduce_partitions_scratch_bytes(n, _f64(dtype),
+                                                   int(compensated))),
         dtype=torch.uint8, device=dev)
     status = lib.reduce_partitions(
         _ptr(skey2), _ptr(perm), _ptr(pair_start), _ptr(row_cols.get("sum")),
         _ptr(row_cols.get("nsum")), _ptr(row_cols.get("nsum2")), n,
         n_partitions, _ptr(scratch), _ptr(out["count"]),
         _ptr(out["pid_count"]), _ptr(out.get("sum")), _ptr(out.get("nsum")),
-        _ptr(out.get("nsum2")), _f64(dtype), _stream(dev))
+        _ptr(out.get("nsum2")), _f64(dtype), int(compensated), _stream(dev))
     _raise_on(status, "reduce_partitions")
     if vec is not None:
         dim = vec.shape[1]
         out["vsum"] = torch.zeros(n_partitions, dim, dtype=dtype, device=dev)
         vscratch = torch.empty(
-            max(1, lib.reduce_vectors_scratch_bytes(n, _f64(dtype))),
+            max(1, lib.reduce_vectors_scratch_bytes(n, _f64(dtype),
+                                                    int(compensated))),
             dtype=torch.uint8, device=dev)
         status = lib.reduce_vectors(
             _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(vec), n, dim,
             n_partitions, _ptr(vscratch), _ptr(out["vsum"]), _f64(dtype),
-            _stream(dev))
+            int(compensated), _stream(dev))
         _raise_on(status, "reduce_partitions")
-    launch_counts["reduce_partitions"] += 1
+    launch_counts["reduce_partitions_compensated" if compensated else
+                  "reduce_partitions"] += 1
     return out
 
 
 def reduce_partitions_plain(skey2, perm, pair_start, row_cols, n_partitions,
-                            dtype, vector_rows=None):
+                            dtype, vector_rows=None, compensated=False):
     slots = n_partitions + 1  # slot n_partitions collects dropped rows
     key = skey2.to(torch.int64).clamp(0, n_partitions)
+    compensated = compensated and dtype == torch.float32
+    if compensated:
+        # The JAX package's safe mode: compensated prefixes over the
+        # partition-sorted rows, differenced at the partition starts.
+        starts = torch.searchsorted(
+            key, torch.arange(n_partitions + 1, device=key.device))
 
     def segment_sum(values):
+        if compensated and values.is_floating_point():
+            cols = values.reshape(values.shape[0], -1)
+            sums = [segment_ops.compensated_segment_diff(
+                *segment_ops.compensated_cumsum(cols[:, d].contiguous()),
+                starts) for d in range(cols.shape[1])]
+            return torch.stack(sums, 1).reshape(
+                (n_partitions,) + values.shape[1:])
         out = torch.zeros((slots,) + values.shape[1:], dtype=values.dtype,
                           device=values.device)
         return out.index_add_(0, key, values)[:n_partitions]
@@ -459,7 +512,7 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
                      noise_kind: NoiseKind, degenerate: bool, mid: float,
                      min_v: float,
                      selection: Optional[selection_ops.SelectionParams],
-                     key_sel, max_rows: int):
+                     key_sel, max_rows: int, tables=None):
     """Selection, noise, metric formulas and the sentinel flag word.
 
     cols: dense count / pid_count / [sum, nsum, nsum2] of the working
@@ -467,7 +520,10 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
     executor.build_plan order; entries of SKIPPED_KINDS are released by
     C8 / C9 and skipped here. stds / slot_keys: the noise std and threefry
     key of every slot (slot_keys[s] = fold_in(fold_in(key_noise, entry),
-    sub)). selection: None for public partitions.
+    sub)). selection: None for public partitions. tables (secure noise):
+    (thr int64[S, 2K+1], gran float64[S]), the packed table and grid of
+    every slot; slot s then releases snap(col) + atom * gran[s], the atom
+    searched with the words of split(slot_keys[s]) at element p.
 
     Returns (keep bool[P], {output: F[P]}, flags int32[1]): the flag word
     (numeric.FLAG_*) over the kept partitions' outputs.
@@ -480,10 +536,13 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
         _check(col, dtype, p, name)
     plan = [entry for entry in plan if entry[0] not in SKIPPED_KINDS]
     names = [o for _, outputs, _ in plan for o in outputs]
-    if not _on_cuda(*scalar_cols.values()):
+    if tables is not None:
+        _check_table(tables[0], len(stds))
+    if not _on_cuda(*scalar_cols.values(),
+                    None if tables is None else tables[0]):
         return release_epilogue_plain(cols, plan, stds, slot_keys,
                                       noise_kind, degenerate, mid, min_v,
-                                      selection, key_sel, max_rows)
+                                      selection, key_sel, max_rows, tables)
     dev = count.device
     keep = torch.empty(p, dtype=torch.bool, device=dev)
     outputs = {o: torch.empty(p, dtype=dtype, device=dev) for o in names}
@@ -503,6 +562,9 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
     misc_c = (ctypes.c_int * 3)(int(noise_kind == NoiseKind.GAUSSIAN),
                                 int(degenerate), int(selection is not None))
     scal_c = (ctypes.c_double * 3)(float(mid), float(min_v), float(max_rows))
+    secure = tables is not None
+    gran_c = (ctypes.c_double * len(stds))(
+        *([float(g) for g in tables[1]] if secure else [0.0] * len(stds)))
     status = cuda_build.library("release_epilogue").release_epilogue(
         plan_c, len(plan), stds_c, keys_c, len(stds), sel_c, key_sel_c,
         misc_c, scal_c, p, _ptr(count), _ptr(cols["pid_count"]),
@@ -510,15 +572,18 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
         _ptr(cols.get("nsum2")), _ptr(keep), _ptr(outputs.get("count")),
         _ptr(outputs.get("privacy_id_count")), _ptr(outputs.get("sum")),
         _ptr(outputs.get("mean")), _ptr(outputs.get("variance")),
-        _ptr(flags), _f64(dtype), _stream(dev))
+        _ptr(flags), _ptr(tables[0]) if secure else None,
+        tables[0].shape[-1] if secure else 0, gran_c, _f64(dtype),
+        _stream(dev))
     _raise_on(status, "release_epilogue")
-    launch_counts["release_epilogue"] += 1
+    launch_counts["release_epilogue_secure" if secure else
+                  "release_epilogue"] += 1
     return keep, outputs, flags
 
 
 def release_epilogue_plain(cols, plan, stds, slot_keys, noise_kind,
                            degenerate, mid, min_v, selection, key_sel,
-                           max_rows):
+                           max_rows, tables=None):
     count = cols["count"]
     p, dtype, dev = count.shape[0], count.dtype, count.device
     if selection is not None:
@@ -532,6 +597,10 @@ def release_epilogue_plain(cols, plan, stds, slot_keys, noise_kind,
     one = torch.tensor(1.0, dtype=dtype, device=dev)
 
     def noised(col, slot):
+        if tables is not None:
+            return secure_noise.snapped_noisy(col, slot_keys[slot],
+                                              tables[0][slot],
+                                              float(tables[1][slot]))
         std = torch.tensor(float(stds[slot]), dtype=dtype, device=dev)
         return col + noise_ops.additive_noise(slot_keys[slot], p, std,
                                               noise_kind)
@@ -898,9 +967,7 @@ def _noise_scale(std: float, dtype, gaussian: bool) -> torch.Tensor:
 def _noisy_children(counts: torch.Tensor, draws: torch.Tensor,
                     scale: torch.Tensor) -> torch.Tensor:
     """max(count + draw * scale, 0), NaN kept (jnp.maximum)."""
-    noisy = counts.to(draws.dtype) + draws * scale.to(draws.device)
-    return torch.where(torch.isnan(noisy), noisy,
-                       noisy.clamp(min=0.0))
+    return _clamp0(counts.to(draws.dtype) + draws * scale.to(draws.device))
 
 
 def _descend_step(children: torch.Tensor, state: DescentState, level: int,
@@ -993,8 +1060,8 @@ def quantile_descend_dense(levels: Sequence[torch.Tensor],
                            level_keys: np.ndarray, gaussian: bool,
                            min_v: float, max_v: float, keep: torch.Tensor,
                            flags: torch.Tensor, dtype: torch.dtype,
-                           leaves: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           leaves: Optional[torch.Tensor] = None,
+                           tables=None) -> torch.Tensor:
     """C8, dense regime (quantile_outputs of the JAX package, :846-905):
     every (partition, quantile) descends its tree through all levels in
     one launch. levels: C7 (b)'s counts; node j of level l draws its noise
@@ -1002,7 +1069,10 @@ def quantile_descend_dense(levels: Sequence[torch.Tensor],
     the whole level, computed only for the visited nodes). Returns the
     percentiles as dtype[n_q, P] (quantile j's column is row j) and ORs
     their flag bits over the kept partitions into flags; leaves (int32[P,
-    n_q], optional) receives the leaf each walk ends at.
+    n_q], optional) receives the leaf each walk ends at. tables (secure
+    noise): (thr int64[2K+1], gran), the quantile slot's packed table and
+    grid; a node's count is then snapped and noised with the words of
+    split(level_keys[l - 1]) at the same counter (:885-893).
     """
     tree_height = len(levels)
     p = levels[0].shape[0]
@@ -1020,11 +1090,14 @@ def quantile_descend_dense(levels: Sequence[torch.Tensor],
                                tuple(leaves.shape) != (p, n_q) or
                                not leaves.is_contiguous()):
         raise ValueError(f"leaves: expected contiguous int32[{p}, {n_q}]")
-    if not _on_cuda(keep, flags, leaves, *levels):
+    thr = None if tables is None else tables[0]
+    if thr is not None:
+        _check_table(thr, None)
+    if not _on_cuda(keep, flags, leaves, thr, *levels):
         return quantile_descend_dense_plain(
             levels, quantiles, std=std, level_keys=level_keys,
             gaussian=gaussian, min_v=min_v, max_v=max_v, keep=keep,
-            flags=flags, dtype=dtype, leaves=leaves)
+            flags=flags, dtype=dtype, leaves=leaves, tables=tables)
     dev = keep.device
     out = torch.empty(n_q, p, dtype=dtype, device=dev)
     scratch = torch.empty(p, n_q, dtype=dtype, device=dev)
@@ -1034,18 +1107,21 @@ def quantile_descend_dense(levels: Sequence[torch.Tensor],
     q_t, order_t, scal_c, dims_c = _descend_params(
         quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
         dev)
+    secure = thr is not None
     status = cuda_build.library("quantile_descend").quantile_descend_dense(
         ptrs, p, _ptr(q_t), _ptr(order_t), scal_c, dims_c, keys, _ptr(keep),
-        _ptr(scratch), _ptr(leaves), _ptr(out), _ptr(flags), _f64(dtype),
-        _stream(dev))
+        _ptr(scratch), _ptr(leaves), _ptr(out), _ptr(flags), _ptr(thr),
+        thr.shape[0] if secure else 0, float(tables[1]) if secure else 0.0,
+        _f64(dtype), _stream(dev))
     _raise_on(status, "quantile_descend")
-    launch_counts["quantile_descend"] += 1
+    launch_counts["quantile_descend_secure" if secure else
+                  "quantile_descend"] += 1
     return out
 
 
 def quantile_descend_dense_plain(levels, quantiles, *, std, level_keys,
                                  gaussian, min_v, max_v, keep, flags, dtype,
-                                 leaves=None):
+                                 leaves=None, tables=None):
     p, branching = levels[0].shape
     n_q = len(quantiles)
     dev = keep.device
@@ -1056,11 +1132,17 @@ def quantile_descend_dense_plain(levels, quantiles, *, std, level_keys,
     for level, counts in enumerate(levels, 1):
         j = state.node.to(torch.int64)[..., None] * branching + b
         counter = rows * branching**level + j
-        draws = threefry.draws_at(level_keys[level - 1], counter, dtype,
-                                  gaussian)
-        children = _noisy_children(
-            torch.gather(counts.to(torch.int64), 1,
-                         j.reshape(p, -1)).reshape(j.shape), draws, scale)
+        node_counts = torch.gather(counts.to(torch.int64), 1,
+                                   j.reshape(p, -1)).reshape(j.shape)
+        if tables is not None:
+            children = _clamp0(secure_noise.snapped_release(
+                node_counts.to(dtype),
+                *secure_noise.split_words(level_keys[level - 1], counter),
+                tables[0], float(tables[1])))
+        else:
+            draws = threefry.draws_at(level_keys[level - 1], counter, dtype,
+                                      gaussian)
+            children = _noisy_children(node_counts, draws, scale)
         _descend_step(children, state, level, quantiles)
     if leaves is not None:
         leaves.copy_(state.node)
@@ -1072,8 +1154,8 @@ def quantile_descend_step(counts: torch.Tensor, state: DescentState,
                           quantiles: Sequence[float], *, level: int,
                           tree_height: int, std: float, level_key,
                           gaussian: bool, min_v: float, max_v: float,
-                          keep: torch.Tensor, flags: torch.Tensor
-                          ) -> Optional[torch.Tensor]:
+                          keep: torch.Tensor, flags: torch.Tensor,
+                          tables=None) -> Optional[torch.Tensor]:
     """C8, lazy regime (_lazy_quantile_outputs of the JAX package, :767):
     one level of every (partition, quantile)'s descent from C7 (c)'s child
     counts. The children of node[p, q] at `level` draw their noise at
@@ -1081,7 +1163,11 @@ def quantile_descend_step(counts: torch.Tensor, state: DescentState,
     fold_in(qkey, level), derived on the device: a node visited by several
     quantiles gets the same noise. Updates state in place; at the last
     level returns the percentiles as dtype[n_q, P] and ORs their flag bits
-    over the kept partitions into flags (else returns None).
+    over the kept partitions into flags (else returns None). tables
+    (secure noise): (thr int64[2K+1], gran), the quantile slot's packed
+    table and grid; a child's count is then snapped and noised with the
+    words bits(fold_in(node key, 0)) and bits(fold_in(node key, 1))
+    (:748-758).
     """
     p, n_q, branching = counts.shape
     _check_descend(keep, flags, quantiles, tree_height, branching)
@@ -1091,11 +1177,14 @@ def quantile_descend_step(counts: torch.Tensor, state: DescentState,
                          f"B] matching the state, got {counts.dtype}"
                          f"{list(counts.shape)}")
     dtype = state.target.dtype
-    if not _on_cuda(counts, state.node, state.target, keep, flags):
+    thr = None if tables is None else tables[0]
+    if thr is not None:
+        _check_table(thr, None)
+    if not _on_cuda(counts, state.node, state.target, keep, flags, thr):
         return quantile_descend_step_plain(
             counts, state, quantiles, level=level, tree_height=tree_height,
             std=std, level_key=level_key, gaussian=gaussian, min_v=min_v,
-            max_v=max_v, keep=keep, flags=flags)
+            max_v=max_v, keep=keep, flags=flags, tables=tables)
     dev = counts.device
     last = level == tree_height
     out = torch.empty(n_q, p, dtype=dtype, device=dev) if last else None
@@ -1107,15 +1196,18 @@ def quantile_descend_step(counts: torch.Tensor, state: DescentState,
         _ptr(counts), p, level, _ptr(q_t), _ptr(order_t), scal_c, dims_c,
         int(level_key[0]), int(level_key[1]), _ptr(state.node),
         _ptr(state.target), _ptr(state.total), _ptr(state.mass), _ptr(keep),
-        _ptr(scratch), _ptr(out), _ptr(flags), _f64(dtype), _stream(dev))
+        _ptr(scratch), _ptr(out), _ptr(flags), _ptr(thr),
+        0 if thr is None else thr.shape[0],
+        0.0 if thr is None else float(tables[1]), _f64(dtype), _stream(dev))
     _raise_on(status, "quantile_descend")
-    launch_counts["quantile_descend"] += 1
+    launch_counts["quantile_descend" if thr is None else
+                  "quantile_descend_secure"] += 1
     return out
 
 
 def quantile_descend_step_plain(counts, state, quantiles, *, level,
                                 tree_height, std, level_key, gaussian, min_v,
-                                max_v, keep, flags):
+                                max_v, keep, flags, tables=None):
     p, n_q, branching = counts.shape
     dtype, dev = state.target.dtype, counts.device
     node_id = (state.node.to(torch.int64)[..., None] * branching +
@@ -1123,10 +1215,16 @@ def quantile_descend_step_plain(counts, state, quantiles, *, level,
     pkey = threefry.fold_in_each(level_key, torch.arange(p, device=dev))
     nkey = threefry.fold_in_each((pkey[0][:, None, None],
                                   pkey[1][:, None, None]), node_id)
-    draws = threefry.draws_at(nkey, torch.zeros_like(node_id), dtype,
-                              gaussian)
-    children = _noisy_children(counts, draws,
-                               _noise_scale(std, dtype, gaussian))
+    zero = torch.zeros_like(node_id)
+    if tables is not None:
+        uhi = threefry.bits_at(threefry.fold_in_each(nkey, zero), zero)
+        ulo = threefry.bits_at(threefry.fold_in_each(nkey, zero + 1), zero)
+        children = _clamp0(secure_noise.snapped_release(
+            counts.to(dtype), uhi, ulo, tables[0], float(tables[1])))
+    else:
+        draws = threefry.draws_at(nkey, zero, dtype, gaussian)
+        children = _noisy_children(counts, draws,
+                                   _noise_scale(std, dtype, gaussian))
     _descend_step(children, state, level, quantiles)
     if level < tree_height:
         return None
@@ -1140,13 +1238,17 @@ def quantile_descend_step_plain(counts, state, quantiles, *, level,
 
 def vector_release(vsum: torch.Tensor, keep: torch.Tensor,
                    flags: torch.Tensor, *, max_norm: float, norm_kind: str,
-                   std: float, key, gaussian: bool) -> torch.Tensor:
+                   std: float, key, gaussian: bool,
+                   tables=None) -> torch.Tensor:
     """VECTOR_SUM's release: each partition's vector sum clipped to the
     norm ball (the JAX package's _clip_rows_to_norm_ball, :537: L1 or L2
     scale by min(1, max_norm / norm), L-inf clip per coordinate), plus
     noise at counter p * D + d under the entry's slot key (finalize,
     :612-616). ORs the flag bits of the kept partitions' outputs into
-    flags. Returns dtype[P, D].
+    flags. Returns dtype[P, D]. tables (secure noise): (thr int64[2K+1],
+    gran), the entry's packed table and grid; each clipped coordinate is
+    then snapped and noised with the words of split(key) at counter
+    p * D + d.
     """
     p = keep.shape[0]
     _check(keep, torch.bool, p, "keep")
@@ -1158,24 +1260,30 @@ def vector_release(vsum: torch.Tensor, keep: torch.Tensor,
     if norm_kind not in NORM_KINDS:
         raise NotImplementedError(
             f"Vector Norm of kind '{norm_kind}' is not supported")
-    if not _on_cuda(vsum, keep, flags):
+    thr = None if tables is None else tables[0]
+    if thr is not None:
+        _check_table(thr, None)
+    if not _on_cuda(vsum, keep, flags, thr):
         return vector_release_plain(vsum, keep, flags, max_norm=max_norm,
                                     norm_kind=norm_kind, std=std, key=key,
-                                    gaussian=gaussian)
+                                    gaussian=gaussian, tables=tables)
     dev = vsum.device
     out = torch.empty_like(vsum)
     status = cuda_build.library("vector_release").vector_release(
         _ptr(vsum), p, vsum.shape[1], NORM_KINDS[norm_kind],
         float(max_norm), float(std), int(key[0]), int(key[1]),
-        int(gaussian), _ptr(keep), _ptr(out), _ptr(flags),
-        _f64(vsum.dtype), _stream(dev))
+        int(gaussian), _ptr(keep), _ptr(out), _ptr(flags), _ptr(thr),
+        0 if thr is None else thr.shape[0],
+        0.0 if thr is None else float(tables[1]), _f64(vsum.dtype),
+        _stream(dev))
     _raise_on(status, "vector_release")
-    launch_counts["vector_release"] += 1
+    launch_counts["vector_release" if thr is None else
+                  "vector_release_secure"] += 1
     return out
 
 
 def vector_release_plain(vsum, keep, flags, *, max_norm, norm_kind, std, key,
-                         gaussian):
+                         gaussian, tables=None):
     dtype, dev = vsum.dtype, vsum.device
     p, dim = vsum.shape
     bound = torch.tensor(max_norm, dtype=dtype, device=dev)
@@ -1187,8 +1295,12 @@ def vector_release_plain(vsum, keep, flags, *, max_norm, norm_kind, std, key,
         one = torch.ones((), dtype=dtype, device=dev)
         scale = torch.minimum(one, bound / torch.where(norm > 0, norm, one))
         clipped = vsum * scale[:, None]
-    counter = torch.arange(p * dim, device=dev).reshape(p, dim)
-    draws = threefry.draws_at(key, counter, dtype, gaussian)
-    out = clipped + draws * _noise_scale(std, dtype, gaussian).to(dev)
+    if tables is not None:
+        out = secure_noise.snapped_noisy(clipped, key, tables[0],
+                                         float(tables[1]))
+    else:
+        counter = torch.arange(p * dim, device=dev).reshape(p, dim)
+        draws = threefry.draws_at(key, counter, dtype, gaussian)
+        out = clipped + draws * _noise_scale(std, dtype, gaussian).to(dev)
     flags |= numeric.column_flags(out, keep)
     return out

@@ -10,7 +10,13 @@ is reduced on the device by the release kernels (csrc/release_epilogue.cu,
 and for percentiles and vector sums csrc/quantile_descend.cu and
 csrc/vector_release.cu, which OR their bits into the same word);
 `flags_from_kept` is its plain version. `check_release` classifies the
-word on the host.
+word on the host, by numeric_mode:
+
+  * "fast" (default): NaN or Inf raises ReleaseIntegrityError; the
+    saturation bit alone is advisory.
+  * "safe": Inf or saturation raises NumericOverflowError, NaN
+    ReleaseIntegrityError: overflow is refused before it rounds to a
+    finite but wrong release.
 """
 
 from typing import Dict, Iterable
@@ -79,15 +85,27 @@ def release_flag_bits(flags: int):
 
 
 def check_release(flags: int, columns: Iterable[str],
-                  context: str = "release") -> None:
-    """Raises ReleaseIntegrityError when the flag word of the released
-    columns holds NaN or Inf (numeric_mode="fast": saturation alone is
-    advisory, as in the JAX package)."""
-    if not flags & (FLAG_NAN | FLAG_INF):
+                  context: str = "release",
+                  numeric_mode: str = "fast") -> None:
+    """Raises on a tripped flag word of the released columns, classified
+    as the JAX package's check_release classifies it (numeric.py:158-182):
+    NumericOverflowError for Inf or saturation in numeric_mode="safe",
+    ReleaseIntegrityError for NaN, and for Inf in "fast" mode."""
+    overflow = bool(flags & (FLAG_INF | FLAG_SAT))
+    poisoned = bool(flags & FLAG_NAN)
+    if numeric_mode == "safe":
+        tripped = overflow or poisoned
+    else:
+        tripped = bool(flags & FLAG_INF) or poisoned
+    if not tripped:
         return
     bits = ", ".join(release_flag_bits(flags))
-    raise ReleaseIntegrityError(
-        f"release sentinel tripped at {context}: released columns carry "
-        f"{bits} (numeric_mode='fast'). Failing closed: nothing released, "
-        f"budget forfeited conservatively. Columns checked: "
-        f"{sorted(columns)}.")
+    msg = (f"release sentinel tripped at {context}: released columns carry "
+           f"{bits} (numeric_mode={numeric_mode!r}). Failing closed: "
+           f"nothing released, budget forfeited conservatively. Columns "
+           f"checked: {sorted(columns)}.")
+    if numeric_mode == "safe" and overflow and not poisoned:
+        raise NumericOverflowError(
+            msg + " Overflow-safe accumulation detected saturation/Inf "
+            "before release; reduce input magnitude or clip bounds.")
+    raise ReleaseIntegrityError(msg)

@@ -91,6 +91,14 @@ def random_bits32(key, n: int, device=None) -> torch.Tensor:
     return b0 ^ b1
 
 
+def bits_at(key, counters: torch.Tensor) -> torch.Tensor:
+    """Element `counters[...]` of jax.random.bits(key, shape, uint32) (the
+    flat index into the draw), under one key or one key per element: int64
+    tensors holding uint32 words."""
+    b0, b1 = threefry2x32(key, counters >> 32, counters & _M32)
+    return b0 ^ b1
+
+
 def bits(key, n: int) -> np.ndarray:
     """jax.random.bits(key, (n,), jnp.uint32) on the host."""
     return random_bits32(key, n, "cpu").numpy().astype(np.uint32)

@@ -10,10 +10,7 @@ from typing import Optional, Union
 
 import torch
 
-_LATER_SECURE = ("ROADMAP.md Queue 1 item 7b (secure_noise=True: "
-                 "ops/secure_noise.py)")
-_LATER_SAFE = ("ROADMAP.md Queue 1 item 7b (numeric_mode='safe': the "
-               "compensated segment sums)")
+from pipelinedp_tpu_torch import input_validators
 
 
 class TorchBackend:
@@ -31,8 +28,15 @@ class TorchBackend:
         package takes its blocked route, which is not ported yet.
       dtype: the working float width: torch.float32 (the card's mode) or
         torch.float64 (parity with the JAX package under x64).
-      secure_noise, numeric_mode: options of the JAX backend this slice
-        does not run yet; anything but the defaults raises.
+      secure_noise: release every noised column on a power-of-two grid
+        with discrete noise drawn from 64-bit inverse-CDF tables
+        (ops/secure_noise.py), as TPUBackend(secure_noise=True) does.
+      numeric_mode: "fast" (the default) or "safe": float32 partition sums
+        carried as compensated (TwoSum hi, lo) pairs, exact for
+        integer-valued sums to ~2^48, and a release sentinel that raises
+        NumericOverflowError on Inf or saturation.
+      snap_grid_bits: floors the secure-noise grid at 2**snap_grid_bits
+        (None: the tables' own grid).
     """
 
     def __init__(self,
@@ -41,7 +45,8 @@ class TorchBackend:
                  large_partition_threshold: int = 1 << 21,
                  dtype: torch.dtype = torch.float32,
                  secure_noise: bool = False,
-                 numeric_mode: str = "fast"):
+                 numeric_mode: str = "fast",
+                 snap_grid_bits: Optional[int] = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -58,18 +63,14 @@ class TorchBackend:
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"TorchBackend: dtype must be torch.float32 or "
                              f"torch.float64, got {dtype}")
-        if secure_noise:
-            raise NotImplementedError(
-                f"TorchBackend(secure_noise=True) is not ported yet: "
-                f"{_LATER_SECURE}")
-        if numeric_mode == "safe":
-            raise NotImplementedError(
-                f"TorchBackend(numeric_mode='safe') is not ported yet: "
-                f"{_LATER_SAFE}")
-        if numeric_mode != "fast":
-            raise ValueError(f"TorchBackend: numeric_mode must be 'fast' or "
-                             f"'safe', got {numeric_mode!r}")
+        input_validators.validate_numeric_mode(numeric_mode, "TorchBackend")
+        if snap_grid_bits is not None:
+            input_validators.validate_snap_grid_bits(snap_grid_bits,
+                                                     "TorchBackend")
         self.device = device
         self.noise_seed = noise_seed
         self.large_partition_threshold = large_partition_threshold
         self.dtype = dtype
+        self.secure_noise = secure_noise
+        self.numeric_mode = numeric_mode
+        self.snap_grid_bits = snap_grid_bits

@@ -432,9 +432,16 @@ def test_release_sentinel_gates_2d_columns_by_rows():
 
 
 def test_out_of_scope_backend_options_and_large_p_raise():
-    for kwargs in (dict(secure_noise=True), dict(numeric_mode="safe")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # secure_noise and numeric_mode="safe" are ported: accepted, kept on
+    # the backend and validated as TPUBackend validates them.
+    backend = tdp.TorchBackend(device="cpu", secure_noise=True,
+                               numeric_mode="safe", snap_grid_bits=-3)
+    assert (backend.secure_noise, backend.numeric_mode,
+            backend.snap_grid_bits) == (True, "safe", -3)
+    for kwargs in (dict(numeric_mode="exact"), dict(snap_grid_bits=0.5)):
+        with pytest.raises(ValueError, match="TorchBackend"):
             tdp.TorchBackend(device="cpu", **kwargs)
+    # The blocked large-P route is not ported.
     acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
     engine = tdp.DPEngine(acc, tdp.TorchBackend(
         device="cpu", large_partition_threshold=1))

@@ -72,10 +72,39 @@ Phases (any failure raises and the script exits non-zero):
              torch.profiler: the device's busy time (kernels and copies),
              its idle share of the release's wall time, and the largest
              device entries.
+The blocked large-P route (pipelinedp_tpu_torch/parallel/
+large_p.py) adds to these phases:
+  2. kernels C10 block_offsets against torch.searchsorted over the full
+             pass-1 stream of (q), C11 gather_rows against index_select
+             at the first chunk of (w), and the windowed entries of C3
+             (three float columns, vector D = 5, compensated) and C7 (a
+             16-leaf histogram, the default tree's level-1 child counts)
+             on block 1 of (q)'s stream, a full block of 2^20 partitions
+  3. parity  blocked DPEngine.aggregate (public, private, PERCENTILE,
+             VECTOR_SUM, secure, safe) and select_partitions on the card
+             against the CPU, threshold 16, 8 partitions a block, P = 44
+  4. main    (q) the JAX package's large-P benchmark shape
+             (benchmarks/bench_large_p.py): 2^24 rows, 10^6 users,
+             partition keys floor(u^6 * 10^7) (~4.5M partitions, 5 blocks
+             of 2^20), values U[0, 5], COUNT+SUM, Laplace, private, l0 =
+             4, linf = 8, eps 1, median of 3 with phase_times;
+             (r) (q) at eps 1e6 with the true maxima against a numpy
+             group-by; (s) PERCENTILE 50 + COUNT (lazy descents per
+             block); (t) COUNT+MEAN+VARIANCE with secure noise, counts on
+             their grid; (u) values x 1000, numeric_mode="safe", float32,
+             eps 1e12: sums past 2^25 equal float32 of the exact sum (fast
+             twin beside it); (v) = (c) on the blocked route (4096
+             partitions a block); (w) = (r) through aggregate_blocked with
+             row_chunk = 2^22, the host-staged regime
+  5. select  blocked select_partitions on (q)'s data, three strategies
+  6. stages  (q) and (v) with CUDA events around every kernel wrapper and
+             a host clock around the key derivation, beside aggregate_blocked's
+             phase_times (waits, drains) and the decode
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -196,6 +225,7 @@ def main() -> int:
     import pipelinedp_tpu_torch as tdp
     from pipelinedp_tpu_torch import columnar, cuda_build, executor, kernels
     from pipelinedp_tpu_torch.ops import threefry
+    from pipelinedp_tpu_torch.parallel import large_p
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -222,6 +252,15 @@ def main() -> int:
 
     years = by_release_year(encoded)
     onehot = one_hot_ratings(encoded)
+    enc_start = time.perf_counter()
+    qenc = columnar.encode_columns(*zipfish_rows())
+    qmax = data_maxima(qenc.pid, qenc.pk, qenc.n_partitions)
+    nmax = data_maxima(encoded.pid, encoded.pk, encoded.n_partitions)
+    print(f"data (q): {qenc.n_rows} rows, {qenc.n_privacy_ids} privacy ids, "
+          f"{qenc.n_partitions} partitions ({-(-qenc.n_partitions // LARGE_BLOCK)}"
+          f" blocks of 2^20), {qmax[0]} partitions per id at most, {qmax[1]} "
+          f"rows per (id, partition) at most; encoded in "
+          f"{time.perf_counter() - enc_start:.1f} s", flush=True)
 
     # 2. kernels -----------------------------------------------------------
     report = kernel_phase(torch, dev, encoded, kernels, executor, threefry)
@@ -229,12 +268,15 @@ def main() -> int:
                                            kernels, threefry)
     report += secure_safe_kernel_phase(torch, dev, encoded, years, kernels,
                                        executor, threefry)
+    report += large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p,
+                                   threefry, tdp, card)
 
     # 3. parity ------------------------------------------------------------
     parity_phase(torch, tdp, rng)
     quantile_vector_parity_phase(torch, tdp, rng)
     select_parity_phase(torch, tdp, rng)
     secure_safe_parity_phase(torch, tdp, kernels, rng)
+    large_p_parity_phase(torch, tdp, rng)
 
     # 4.-5. main paths -----------------------------------------------------
     launches = main_phase(torch, tdp, encoded, kernels, card)
@@ -243,10 +285,14 @@ def main() -> int:
                                              card),
                   secure_safe_main_phase(torch, tdp, encoded, years, onehot,
                                          kernels, card),
-                  select_phase(torch, tdp, encoded, kernels, card)):
+                  select_phase(torch, tdp, encoded, kernels, card),
+                  large_p_main_phase(torch, tdp, qenc, qmax, encoded, nmax,
+                                     kernels, large_p, card)):
         for name, count in phase.items():
             launches[name] += count
     kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card)
+    large_p_stage_phase(torch, tdp, qenc, encoded, nmax, kernels, large_p,
+                        threefry, card)
     profile_phase(torch, tdp, encoded, card)
     for entry in report:
         entry["launches"] = launches[entry["name"]]
@@ -554,7 +600,9 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
             print(f"kernel radix_sort[{kname}]: ms="
                   f"{cuda_ms(lambda: kernels.radix_sort(words), 10):.4f} "
                   f"passes={sort_passes(words)} bound_ms={b_ms:.3g} ({b_by}) "
-                  f"torch_chain_ms="
+                  f"plain_ms="
+                  f"{cuda_ms(lambda: kernels.radix_sort_plain(words), 3, 1):.4f}"
+                  f" torch_chain_ms="
                   f"{cuda_ms(lambda: torch_sort_chain(torch, words), 10):.4f}",
                   flush=True)
         big_keep, big_cols = compact_args[1 << 21]
@@ -841,7 +889,8 @@ def quantile_vector_kernel_phase(torch, dev, encoded, years, kernels,
             return out
 
         print(f"kernel quantile_counts[level roll-ups, P={Py}]: ms="
-              f"{cuda_ms(c7b, 10):.4f} bound_ms={b_ms:.3g} ({b_by}) "
+              f"{cuda_ms(c7b, 10):.4f} plain_ms="
+              f"{cuda_ms(c7b_plain, 3, 1):.4f} bound_ms={b_ms:.3g} ({b_by}) "
               f"library_ms (reshape(P, -1, B).sum(-1) a level)="
               f"{cuda_ms(library_c7b, 10):.4f}", flush=True)
         node = torch.zeros(P, n_q, dtype=torch.int32, device=dev)
@@ -849,6 +898,8 @@ def quantile_vector_kernel_phase(torch, dev, encoded, years, kernels,
                            P * n_q * (4 + B * 4), mkept * (20 + 2 * n_q))
         print(f"kernel quantile_counts[child counts, one level, P={P}]: ms="
               f"{cuda_ms(lambda: kernels.quantile_child_counts(skey2, perm2, perm, values, node, level=1, **tree), 10):.4f}"
+              f" plain_ms="
+              f"{cuda_ms(lambda: kernels.quantile_child_counts_plain(skey2, perm2, perm, values, node, level=1, **tree), 3, 1):.4f}"
               f" bound_ms={b_ms:.3g} ({b_by})", flush=True)
         b_ms, b_by = bound(Py * n_q * (h * B * 4 + fsz), Py * n_q * B * h * 150)
         print(f"kernel quantile_descend[dense, P={Py}]: ms="
@@ -1665,9 +1716,24 @@ def secure_safe_kernel_phase(torch, dev, encoded, years, kernels, executor,
               f"{b_ms:.3g} ({b_by})", flush=True)
         b_ms, b_by = bound(n_rows * 4 + kept_rows * (8 + 8 + 5 * fsz) +
                            P * 7 * fsz, kept_rows * 50)
+        # Library yardstick: float64 index_add_ of the gathered
+        # coordinates, then .float() (coordinates and count, pid_count).
+        vsrc = torch.cat([torch.ones(n_rows, 1, device=dev),
+                          pair_start[perm2].float()[:, None],
+                          onehot[perm][perm2]], 1).double()
+        vkey = skey2.long().clamp(0, P)
+
+        def library_vcomp():
+            out = torch.zeros(P + 1, vsrc.shape[1], dtype=torch.float64,
+                              device=dev)
+            return out.index_add_(0, vkey, vsrc)[:P].float()
+
         print(f"kernel reduce_partitions_compensated[count, pid_count + "
               f"vector D=5]: ms="
               f"{cuda_ms(lambda: kernels.reduce_partitions(*vargs, compensated=True), 10):.4f}"
+              f" plain_ms="
+              f"{cuda_ms(lambda: kernels.reduce_partitions_plain(*vargs, compensated=True), 3, 1):.4f}"
+              f" library_ms={cuda_ms(library_vcomp, 10):.4f}"
               f" bound_ms={b_ms:.3g} ({b_by})", flush=True)
     return report
 
@@ -2015,6 +2081,826 @@ def secure_safe_main_phase(torch, tdp, encoded, years, onehot, kernels,
                                      f"{off['safe'][1]} ulps")
     return total
 
+
+# ---------------------------------------------------------------------------
+# The blocked large-P route
+
+# (q)'s shape: the JAX package's large-P benchmark (benchmarks/
+# bench_large_p.py, _common.zipfish_data): 2^24 rows, 10^6 users,
+# partition keys floor(u^6 * 10^7), values U[0, 5].
+LARGE_ROWS = 1 << 24
+LARGE_USERS = 1_000_000
+LARGE_SPACE = 10_000_000
+LARGE_BLOCK = 1 << 20
+# The kernels of every blocked aggregation and selection: the dense
+# route's, with C3 through its windowed entry and C10 for the windows.
+BLOCKED_KERNELS = ("row_keys", "bound_rows", "radix_sort", "block_offsets",
+                   "reduce_partitions_windowed", "release_epilogue",
+                   "compact_kept")
+
+
+def zipfish_rows():
+    """(q)'s rows, from the benchmark's own seed."""
+    rng = np.random.default_rng(5)
+    pid = rng.integers(0, LARGE_USERS, LARGE_ROWS).astype(np.int32)
+    pk = (np.power(rng.random(LARGE_ROWS), 6.0) * LARGE_SPACE).astype(
+        np.int32)
+    return pid, pk, rng.uniform(0, 5, LARGE_ROWS)
+
+
+def data_maxima(pid, pk, P):
+    """(largest partitions per privacy id, largest rows per (id,
+    partition), pair keys and their row counts) of encoded rows."""
+    pairs, pair_rows = np.unique(pid.astype(np.int64) * P + pk,
+                                 return_counts=True)
+    return (int(np.bincount(pairs // P).max()), int(pair_rows.max()), pairs,
+            pair_rows)
+
+
+def release_spec(tdp, params, P, eps, private):
+    """The port's (cfg, stds, scalars) of one blocked release, built as
+    lazy_aggregate builds them (selection budget requested when private)."""
+    from pipelinedp_tpu_torch import combiners, executor
+    from pipelinedp_tpu_torch.ops import selection_ops
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=eps, total_delta=1e-6)
+    compound = combiners.create_compound_combiner(params, acc)
+    budget = (acc.request_budget(tdp.MechanismType.GENERIC) if private else
+              None)
+    acc.compute_budgets()
+    selection = (selection_ops.selection_params_from_host(
+        params.partition_selection_strategy, budget.eps, budget.delta,
+        params.max_partitions_contributed, params.pre_threshold)
+        if private else None)
+    cfg = executor.make_kernel_config(params, compound, P, private,
+                                      selection)
+    return cfg, executor.compute_noise_stds(compound), \
+        executor.kernel_scalars(params)
+
+
+def scan_tolerance(count, truth):
+    """float32 rounding of a partition sum from C3's tile scan: one ulp of
+    the sum for each sequential addition (the tiles of 2048 rows the
+    partition spans, plus 16 inside a tile)."""
+    ulp = np.spacing(np.abs(truth).astype(np.float32)).astype(np.float64)
+    return (count / 2048.0 + 16.0) * ulp
+
+
+class PhaseProbe:
+    """Hands aggregate_blocked a phase_times dict on every call the engine
+    makes and notes when it returned (decode = the time after it)."""
+
+    def __init__(self, large_p):
+        self.large_p = large_p
+        self.records = []
+
+    def __enter__(self):
+        self.original = original = self.large_p.aggregate_blocked
+
+        def probed(*args, **kwargs):
+            phase_times = kwargs["phase_times"] = {}
+            out = original(*args, **kwargs)
+            phase_times["returned_at"] = time.perf_counter()
+            self.records.append(phase_times)
+            return out
+
+        self.large_p.aggregate_blocked = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.large_p.aggregate_blocked = self.original
+
+
+def std_by_output(cfg, stds):
+    """Each plan entry's first noise std, by its first output's name."""
+    out, offset = {}, 0
+    for entry in cfg.plan:
+        out[entry.outputs[0]] = float(stds[offset])
+        offset += entry.n_stds
+    return out
+
+
+def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
+                         tdp, card):
+    """C10, C11 and the windowed entries of C3 and C7 against their plain
+    versions on the card, at the main path's shapes: C10 over (q)'s full
+    pass-1 stream, C11 at the first chunk of (w), C3 and C7 on block 1 of
+    (q)'s stream (a full block of 2^20 partitions)."""
+    f32 = torch.float32
+    P = qenc.n_partitions
+    key = np.array([7, 11], dtype=np.uint32)
+    report = []
+    M = tdp.Metrics
+    params = tdp.AggregateParams(
+        metrics=[M.COUNT, M.SUM, M.MEAN, M.VARIANCE],
+        noise_kind=tdp.NoiseKind.LAPLACE, max_partitions_contributed=4,
+        max_contributions_per_partition=8, min_value=0.0, max_value=5.0)
+    cfg, _, scalars = release_spec(tdp, params, P, 1.0, True)
+    rows = large_p._device_rows(qenc.pid, qenc.pk, qenc.values, qenc.valid,
+                                dev, f32)
+    stream = large_p._bound_compact(*rows, scalars, key, cfg)
+    n = stream.skey2.shape[0]
+    n_blocks = -(-P // LARGE_BLOCK)
+    bounds = torch.as_tensor(np.minimum(
+        large_p._block_boundaries(0, LARGE_BLOCK, n_blocks), P)).to(dev)
+    # C10 at the full stream.
+    offsets = kernels.block_offsets(stream.skey2, bounds)
+    err10 = check_equal("block_offsets", offsets,
+                        kernels.block_offsets_plain(stream.skey2, bounds))
+    m = bounds.shape[0]
+    depth = max(1, int(n).bit_length())
+    c10 = (lambda: kernels.block_offsets(stream.skey2, bounds),  # noqa: E731
+           lambda: kernels.block_offsets_plain(stream.skey2, bounds),
+           lambda: torch.searchsorted(stream.skey2, bounds),
+           # Each boundary's search reads ~log2(n) stream words.
+           bound(m * depth * 4 + m * 4 + m * 8, m * depth * 3))
+    # C3 windowed on block 1: three float columns, vector D = 5 (one-hot of
+    # the value's integer part), compensated (values x 1000, integers).
+    host_off = offsets.cpu().numpy()
+    lo, hi = int(host_off[1]), int(host_off[2])
+    base, C = LARGE_BLOCK, LARGE_BLOCK
+    sk, pw = stream.skey2[lo:hi], stream.perm[lo:hi]
+    cols = stream.cols
+    c3 = lambda: kernels.reduce_partitions(  # noqa: E731
+        sk, pw, stream.pair_start, cols, C, f32, base=base)
+    c3p = lambda: kernels.reduce_partitions_plain(  # noqa: E731
+        sk, pw, stream.pair_start, cols, C, f32, base=base)
+    dense, q_dense = c3(), c3p()
+    scale = kernels.reduce_partitions_plain(
+        sk, pw, stream.pair_start, {c: v.abs() for c, v in cols.items()}, C,
+        f32, base=base)
+    err3 = max(check_equal("reduce windowed count", dense["count"],
+                           q_dense["count"]),
+               check_equal("reduce windowed pid_count", dense["pid_count"],
+                           q_dense["pid_count"]))
+    for c in cols:
+        diff = (dense[c].double() - q_dense[c].double()).abs()
+        if bool((diff > 1e-5 * scale[c].double() + 1e-6).any()):
+            raise AssertionError(f"reduce_partitions windowed {c}: max diff "
+                                 f"{float(diff.max())} over tolerance")
+        err3 = max(err3, float(diff.max()))
+    onehot = torch.nn.functional.one_hot(
+        stream.values.long().clamp(0, 4), 5).to(f32).contiguous()
+    vrows = (stream.row_perm, onehot)
+    vec = kernels.reduce_partitions(sk, pw, stream.pair_start, {}, C, f32,
+                                    vrows, base=base)["vsum"]
+    err3 = max(err3, check_equal(
+        "reduce windowed vsum", vec, kernels.reduce_partitions_plain(
+            sk, pw, stream.pair_start, {}, C, f32, vrows, base=base)["vsum"]))
+    w_rows = hi - lo
+    window_cols = torch.stack([torch.ones(w_rows, device=dev),
+                               stream.pair_start[pw].float()] +
+                              [cols[c][pw] for c in cols], 1)
+    rel = (sk.long() - base).clamp(0, C)
+
+    def library_c3():
+        out = torch.zeros(C + 1, window_cols.shape[1], device=dev)
+        return out.index_add_(0, rel, window_cols)
+
+    c3_entry = (c3, c3p, library_c3,
+                bound(w_rows * (4 + 8 + 1 + 3 * 4) + C * 5 * 4, w_rows * 8))
+    # Compensated: the sum column of values x 1000 rounded to integers.
+    milli = dataclasses.replace(qenc, values=np.round(qenc.values * 1000.0))
+    s_params = tdp.AggregateParams(
+        metrics=[M.COUNT, M.SUM], noise_kind=tdp.NoiseKind.LAPLACE,
+        max_partitions_contributed=4, max_contributions_per_partition=8,
+        min_value=0.0, max_value=5000.0)
+    s_cfg, _, s_scalars = release_spec(tdp, s_params, P, 1.0, True)
+    s_stream = large_p._bound_compact(
+        *large_p._device_rows(milli.pid, milli.pk, milli.values, milli.valid,
+                              dev, f32), s_scalars, key, s_cfg)
+    s_off = kernels.block_offsets(s_stream.skey2, bounds).cpu().numpy()
+    slo, shi = int(s_off[1]), int(s_off[2])
+    s_args = (s_stream.skey2[slo:shi], s_stream.perm[slo:shi],
+              s_stream.pair_start, s_stream.cols, C, f32)
+    c3c = lambda: kernels.reduce_partitions(  # noqa: E731
+        *s_args, compensated=True, base=base)
+    c3c_plain = lambda: kernels.reduce_partitions_plain(  # noqa: E731
+        *s_args, compensated=True, base=base)
+    comp = c3c()
+    err3c = check_equal("reduce windowed compensated sum", comp["sum"],
+                        c3c_plain()["sum"])
+    s_rel = (s_stream.skey2[slo:shi].long() - base).clamp(0, C)
+    s_vals = s_stream.cols["sum"][s_stream.perm[slo:shi]]
+    exact = torch.zeros(C + 1, dtype=torch.int64, device=dev).index_add_(
+        0, s_rel, s_vals.to(torch.int64))[:C]
+    check_equal("reduce windowed compensated sum vs float32(exact)",
+                comp["sum"], exact.to(f32))
+    fast_err = float((kernels.reduce_partitions(*s_args, base=base)["sum"]
+                      .double() - exact.double()).abs().max())
+    s_rows = shi - slo
+
+    def library_c3c():
+        out = torch.zeros(C + 1, dtype=torch.float64, device=dev)
+        return out.index_add_(0, s_rel, s_vals.double())[:C].float()
+
+    c3c_entry = (c3c, c3c_plain, library_c3c,
+                 bound(s_rows * (4 + 8 + 1 + 4) + C * 3 * 4, s_rows * 30))
+    print(f"kernels[windowed, block 1 of (q): {w_rows} rows, C={C}]: C3 "
+          f"windowed (3 columns, vector D=5) and compensated agree with "
+          f"their plain versions; compensated sums equal float32(exact), "
+          f"the fast entry's largest error {fast_err}", flush=True)
+    # C7 windowed: a 16-leaf histogram (height 1; the default tree's
+    # 2^20 x 65536 leaf histogram does not fit the card) and the default
+    # tree's level-1 child counts, as the lazy descent takes them.
+    from pipelinedp_tpu_torch.ops import quantile_tree
+    h, B = quantile_tree.DEFAULT_TREE_HEIGHT, \
+        quantile_tree.DEFAULT_BRANCHING_FACTOR
+    qargs = (sk, pw, stream.row_perm, stream.values)
+    leaf = kernels.quantile_leaf_counts(*qargs, n_partitions=C, n_leaves=B,
+                                        min_v=0.0, max_v=5.0, base=base)
+    err7 = check_equal("quantile leaf counts windowed", leaf,
+                       kernels.quantile_leaf_counts_plain(
+                           *qargs, n_partitions=C, n_leaves=B, min_v=0.0,
+                           max_v=5.0, base=base))
+    node = torch.zeros(C, 1, dtype=torch.int32, device=dev)
+    tree = dict(level=1, tree_height=h, branching=B, min_v=0.0, max_v=5.0,
+                base=base)
+    c7 = lambda: kernels.quantile_child_counts(*qargs, node,  # noqa: E731
+                                               **tree)
+    c7p = lambda: kernels.quantile_child_counts_plain(  # noqa: E731
+        *qargs, node, **tree)
+    err7 = max(err7, check_equal("quantile child counts windowed", c7(),
+                                 c7p()))
+    slot = rel * B + kernels.leaf_indices(
+        kernels.sorted_rows(pw, stream.row_perm, stream.values), 0.0, 5.0,
+        B**h) // B**(h - 1)
+    c7_entry = (c7, c7p,
+                lambda: torch.bincount(slot, minlength=(C + 1) * B),
+                bound(w_rows * (4 + 8 + 8 + 4) + C * B * 4, w_rows * 20))
+    # C11 at the first chunk of (w): (r)'s bounds, chunks of 2^22 rows.
+    order = np.argsort(qenc.pid, kind="stable")
+    ends = large_p._chunk_ends(qenc.pid[order], 1 << 22)
+    first = order[:ends[0]]
+    l0_true, linf_true = qmax[:2]
+    r_params = tdp.AggregateParams(
+        metrics=[M.COUNT, M.SUM], noise_kind=tdp.NoiseKind.LAPLACE,
+        max_partitions_contributed=l0_true,
+        max_contributions_per_partition=linf_true, min_value=0.0,
+        max_value=5.0)
+    r_cfg, _, r_scalars = release_spec(tdp, r_params, P, 1e6, True)
+    chunk = large_p._bound_compact(
+        *large_p._device_rows(qenc.pid[first], qenc.pk[first],
+                              qenc.values[first], qenc.valid[first], dev,
+                              f32), r_scalars, threefry.fold_in(key, 0),
+        r_cfg)
+    k = int(kernels.block_offsets(
+        chunk.skey2, torch.tensor([P], dtype=torch.int32, device=dev))[0])
+    idx = chunk.perm[:k]
+    gcols = [chunk.pair_start, chunk.cols["sum"]]
+    err11 = max(check_equal(f"gather_rows column {j}", a, b) for j, (a, b)
+                in enumerate(zip(kernels.gather_rows(idx, gcols),
+                                 kernels.gather_rows_plain(idx, gcols))))
+    # The value rows, through the gathered bounding order (row_perm o perm),
+    # as the percentile and vector runs gather them.
+    row_idx = kernels.gather_rows(idx, [chunk.row_perm])[0]
+    err11 = max(err11, check_equal(
+        "gather_rows value rows", kernels.gather_rows(row_idx,
+                                                      [chunk.values])[0],
+        chunk.values[chunk.row_perm[idx]]))
+    c11_entry = (lambda: kernels.gather_rows(idx, gcols),
+                 lambda: kernels.gather_rows_plain(idx, gcols), None,
+                 bound(k * 8 + 2 * k * (1 + 4), k * 4))
+    torch.cuda.synchronize()
+    print(f"kernels[blocked, (q): n={n}, P={P}, {n_blocks} blocks; chunk 0 "
+          f"of (w): {ends[0]} rows, {k} kept]: C10, C11 and the windowed C3 "
+          f"/ C7 agree with their plain versions", flush=True)
+    entries = {
+        "block_offsets": (c10, err10, "block_offsets.cu",
+                          "pipelinedp_tpu/parallel/large_p.py:1519"),
+        "gather_rows": (c11_entry, err11, "gather_rows.cu",
+                        "pipelinedp_tpu/parallel/large_p.py:671"),
+        "reduce_partitions_windowed": (
+            c3_entry, err3, "reduce_partitions.cu",
+            "pipelinedp_tpu/parallel/large_p.py:183"),
+        "reduce_partitions_compensated_windowed": (
+            c3c_entry, err3c, "reduce_partitions.cu",
+            "pipelinedp_tpu/parallel/large_p.py:183"),
+        "quantile_counts_windowed": (
+            c7_entry, err7, "quantile_counts.cu",
+            "pipelinedp_tpu/parallel/large_p.py:205"),
+    }
+    for name, ((fn, plain, lib, (b_ms, b_by)), err, src, repl) in \
+            entries.items():
+        ms = cuda_ms(fn, repeats=10)
+        plain_ms = cuda_ms(plain, repeats=3, warmup=1)
+        lib_ms = cuda_ms(lib, repeats=10) if lib else None
+        print(f"kernel {name}: max_abs_err={err} ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) library_ms="
+              f"{lib_ms} ({card})", flush=True)
+        report.append({
+            "name": name, "route": "cuda",
+            "source": f"pipelinedp_tpu_torch/csrc/{src}", "replaces": repl,
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms})
+    vb_ms, vb_by = bound(w_rows * (4 + 8 + 8 + 5 * 4) + C * 5 * 4,
+                         w_rows * 10)
+    lb_ms, lb_by = bound(w_rows * (4 + 8 + 8 + 4) + C * B * 4, w_rows * 20)
+    # Yardsticks: index_add_ of the gathered coordinates (with count and
+    # pid_count), bincount of the precomputed (partition, leaf) slots.
+    vsrc = torch.cat([torch.ones(w_rows, 1, device=dev),
+                      stream.pair_start[pw].float()[:, None],
+                      onehot[stream.row_perm[pw]]], 1)
+    leaf_slot = rel * B + kernels.leaf_indices(
+        kernels.sorted_rows(pw, stream.row_perm, stream.values), 0.0, 5.0, B)
+
+    def library_vec():
+        out = torch.zeros(C + 1, vsrc.shape[1], device=dev)
+        return out.index_add_(0, rel, vsrc)
+
+    print(f"kernel reduce_partitions_windowed[vector D=5]: ms="
+          f"{cuda_ms(lambda: kernels.reduce_partitions(sk, pw, stream.pair_start, {}, C, f32, vrows, base=base), 10):.4f}"
+          f" plain_ms="
+          f"{cuda_ms(lambda: kernels.reduce_partitions_plain(sk, pw, stream.pair_start, {}, C, f32, vrows, base=base), 3, 1):.4f}"
+          f" library_ms={cuda_ms(library_vec, 10):.4f}"
+          f" bound_ms={vb_ms:.3g} ({vb_by}); quantile_counts_windowed[16-leaf"
+          f" histogram]: ms="
+          f"{cuda_ms(lambda: kernels.quantile_leaf_counts(*qargs, n_partitions=C, n_leaves=B, min_v=0.0, max_v=5.0, base=base), 10):.4f}"
+          f" plain_ms="
+          f"{cuda_ms(lambda: kernels.quantile_leaf_counts_plain(*qargs, n_partitions=C, n_leaves=B, min_v=0.0, max_v=5.0, base=base), 3, 1):.4f}"
+          f" library_ms="
+          f"{cuda_ms(lambda: torch.bincount(leaf_slot, minlength=(C + 1) * B), 10):.4f}"
+          f" bound_ms={lb_ms:.3g} ({lb_by}) ({card})", flush=True)
+    return report
+
+
+def large_p_parity_phase(torch, tdp, rng):
+    """Small blocked releases and selections on the card (float64) against
+    the same on the CPU, large_partition_threshold=16, block_partitions=8
+    and 44 partitions (44 % 8 = 4): the same kept partitions, values within
+    1e-9 relative (secure noise: equal)."""
+    n = 4096
+    users = rng.integers(0, 600, n).tolist()
+    parts = (rng.random(n)**4 * 44).astype(int).tolist()
+    values = rng.uniform(0, 5, n)
+    scalar = list(zip(users, parts, values.tolist()))
+    vector = list(zip(users, parts, [[v, 5.0 - v, 1.0] for v in values]))
+    M = tdp.Metrics
+    cases = {
+        "public": (scalar, [M.COUNT, M.SUM, M.MEAN, M.VARIANCE], True, {},
+                   dict(noise_kind=tdp.NoiseKind.GAUSSIAN)),
+        "private": (scalar, [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT], False, {},
+                    {}),
+        "percentile": (scalar, [M.PERCENTILE(50), M.COUNT], False, {}, {}),
+        "vector": (vector, [M.VECTOR_SUM, M.COUNT], False, {},
+                   dict(vector_size=3, vector_max_norm=6.0,
+                        vector_norm_kind=tdp.NormKind.L2, min_value=None,
+                        max_value=None)),
+        "secure": (scalar, [M.COUNT, M.SUM, M.MEAN], False,
+                   dict(secure_noise=True), {}),
+        "safe": (scalar, [M.COUNT, M.SUM], True, dict(numeric_mode="safe"),
+                 {}),
+    }
+    blocked = dict(large_partition_threshold=16, block_partitions=8)
+    for label, (rows, metrics, public, backend, extra) in cases.items():
+        results = []
+        for device in ("cuda", "cpu"):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=4.0,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                device=device, noise_seed=5, dtype=torch.float64, **blocked,
+                **backend))
+            bounds = dict(max_partitions_contributed=3,
+                          max_contributions_per_partition=2, min_value=0.0,
+                          max_value=5.0)
+            bounds.update(extra)
+            res = engine.aggregate(
+                rows, tdp.AggregateParams(metrics=metrics, **bounds),
+                tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                                   partition_extractor=lambda r: r[1],
+                                   value_extractor=lambda r: r[2]),
+                list(range(44)) if public else None)
+            acc.compute_budgets()
+            results.append(dict(res))
+        gpu, cpu = results
+        if sorted(gpu) != sorted(cpu) or not gpu:
+            raise AssertionError(f"blocked parity {label}: kept partitions "
+                                 f"differ ({len(gpu)} vs {len(cpu)})")
+        worst = 0.0
+        for k in cpu:
+            for a, b in zip(gpu[k], cpu[k]):
+                d = np.abs(np.asarray(a) - np.asarray(b)) / np.maximum(
+                    1.0, np.abs(np.asarray(b)))
+                worst = max(worst, float(np.max(d)))
+        limit = 0.0 if backend.get("secure_noise") else 1e-9
+        if worst > limit:
+            raise AssertionError(f"blocked parity {label}: rel err {worst}")
+        print(f"parity[blocked {label}, threshold 16, block 8, P=44]: "
+              f"{len(gpu)} partitions, cuda float64 vs cpu float64 max rel "
+              f"err {worst:.3g}", flush=True)
+    for strategy in ("TRUNCATED_GEOMETRIC", "LAPLACE_THRESHOLDING",
+                     "GAUSSIAN_THRESHOLDING"):
+        kept = []
+        for device in ("cuda", "cpu"):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                device=device, noise_seed=5, dtype=torch.float64, **blocked))
+            res = engine.select_partitions(
+                scalar, tdp.SelectPartitionsParams(
+                    max_partitions_contributed=3,
+                    partition_selection_strategy=getattr(
+                        tdp.PartitionSelectionStrategy, strategy)),
+                tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                                   partition_extractor=lambda r: r[1]))
+            acc.compute_budgets()
+            kept.append(list(res))
+        if kept[0] != kept[1] or not kept[0] or len(kept[0]) == 44:
+            raise AssertionError(f"blocked select parity {strategy}: cuda "
+                                 f"kept {len(kept[0])}, cpu {len(kept[1])}")
+        print(f"parity[blocked select_partitions, {strategy}]: {len(kept[0])}"
+              f" of 44 kept, cuda list identical to cpu", flush=True)
+
+
+def large_p_main_phase(torch, tdp, qenc, qmax, netflix, nmax, kernels,
+                       large_p, card):
+    """Runs (q)-(w) and the blocked selects at full size. Returns the
+    launch counts summed over the runs that go through DPEngine."""
+    from pipelinedp_tpu_torch.ops import noise as noise_ops
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    P = qenc.n_partitions
+    n_blocks = -(-P // LARGE_BLOCK)
+    vocab = np.asarray(qenc.partition_vocab)
+    vocab_order = np.argsort(vocab, kind="stable")
+    M = tdp.Metrics
+
+    def ids_of(out):
+        keys = np.fromiter(out.keys(), dtype=vocab.dtype, count=len(out))
+        return vocab_order[np.searchsorted(vocab[vocab_order], keys)]
+
+    def aggregate(label, enc, metrics, public, eps, seed, path, backend,
+                  bounds, reps=1, noise="LAPLACE", want=None):
+        params = tdp.AggregateParams(
+            metrics=metrics, noise_kind=getattr(tdp.NoiseKind, noise),
+            **bounds)
+        outs, times, phases = [], [], []
+        for rep in range(reps):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=eps,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                noise_seed=seed + rep, **backend))
+            kernels.reset_launch_counts()
+            res = engine.aggregate(enc, params, tdp.DataExtractors(),
+                                   list(enc.partition_vocab) if public
+                                   else None)
+            acc.compute_budgets()
+            torch.cuda.synchronize()
+            with PhaseProbe(large_p) as probe:
+                start = time.perf_counter()
+                out = dict(res)
+                torch.cuda.synchronize()
+                end = time.perf_counter()
+            counts = dict(kernels.launch_counts)
+            check_launches(f"run ({label})", counts, kernels, want, path)
+            if counts["reduce_partitions"] or counts[
+                    "reduce_partitions_compensated"]:
+                raise AssertionError(f"run ({label}) ran the dense C3 entry: "
+                                     f"{counts}")
+            for name, c in counts.items():
+                total[name] += c
+            bad = [k for k, v in out.items() if not np.all(np.isfinite(
+                np.hstack([np.ravel(x) for x in v])))]
+            if bad or not out:
+                raise AssertionError(f"run ({label}): {len(out)} partitions, "
+                                     f"{len(bad)} with non-finite values")
+            pt = dict(probe.records[-1])
+            pt["decode"] = end - pt.pop("returned_at")
+            outs.append(out)
+            times.append(end - start)
+            phases.append(pt)
+        ms = statistics.median(times) * 1e3
+        pt = phases[int(np.argsort(times)[len(times) // 2])]
+        print(f"main ({label}) {noise} {'public' if public else 'private'} "
+              f"{backend} {bounds}: P={enc.n_partitions}, "
+              f"{pt['blocks_dispatched']} blocks dispatched, {len(outs[0])} "
+              f"partitions released, {ms:.1f} ms, "
+              f"{enc.n_rows / (ms / 1e3):.4g} rows/s (median of {reps}: "
+              f"{[round(t * 1e3, 1) for t in times]} ms; {card}); "
+              f"phase_times (s) of the median run "
+              f"{json.dumps({k: round(v, 4) for k, v in pt.items()})}; "
+              f"launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+        return outs[0], params, pt
+
+    priv = dict(max_partitions_contributed=4,
+                max_contributions_per_partition=8, min_value=0.0,
+                max_value=5.0)
+    blocks = dict(block_offsets=1, reduce_partitions_windowed=n_blocks,
+                  release_epilogue=n_blocks, compact_kept=n_blocks)
+    # (q) COUNT+SUM, Laplace, private selection, eps 1.
+    out_q, _, pt = aggregate("q", qenc, [M.COUNT, M.SUM], False, 1.0, 0,
+                             BLOCKED_KERNELS, {}, priv, reps=3, want=blocks)
+    if pt["blocks_dispatched"] != n_blocks:
+        raise AssertionError(f"run (q): {pt['blocks_dispatched']} blocks "
+                             f"dispatched, expected {n_blocks}")
+    # (r) eps 1e6 with the true maxima: a numpy group-by.
+    l0_true, linf_true = qmax[:2]
+    exact_bounds = dict(max_partitions_contributed=l0_true,
+                        max_contributions_per_partition=linf_true,
+                        min_value=0.0, max_value=5.0)
+    out_r, params_r, _ = aggregate("r", qenc, [M.COUNT, M.SUM], False, 1e6,
+                                   9, BLOCKED_KERNELS, {}, exact_bounds)
+    cfg_r, stds_r, scalars_r = release_spec(tdp, params_r, P, 1e6, True)
+    std_r = std_by_output(cfg_r, stds_r)
+    true_count = np.bincount(qenc.pk, minlength=P).astype(np.float64)
+    true_sum = np.bincount(qenc.pk, weights=qenc.values, minlength=P)
+
+    def check_group_by(label, ids, got):
+        worst = {}
+        for name, truth in (("count", true_count), ("sum", true_sum)):
+            std = std_r[name]
+            want = truth[ids]
+            err = np.abs(got[name] - want)
+            tol = 16 * std + scan_tolerance(true_count[ids], want)
+            if (err > tol).any():
+                i = int(np.argmax(err - tol))
+                raise AssertionError(f"run ({label}) {name}: partition id "
+                                     f"{ids[i]} {got[name][i]} vs numpy "
+                                     f"{want[i]} (tol {tol[i]})")
+            worst[name] = float((err / np.maximum(1.0, want)).max())
+        return worst
+
+    ids_r = ids_of(out_r)
+    got_r = {name: np.array([getattr(v, name) for v in out_r.values()])
+             for name in ("count", "sum")}
+    worst = check_group_by("r", ids_r, got_r)
+    print(f"main (r) epsilon=1e6, l0={l0_true}, linf={linf_true}: "
+          f"{len(out_r)} kept partitions match the numpy group-by within 16 "
+          f"noise stds + float32 scan rounding (max rel err "
+          f"{json.dumps(worst)})", flush=True)
+    # (s) PERCENTILE 50 + COUNT: lazy descents per block.
+    q_path = BLOCKED_KERNELS + ("quantile_counts_windowed",
+                                "quantile_descend")
+    out_s, _, _ = aggregate("s", qenc, [M.PERCENTILE(50), M.COUNT], False,
+                            1.0, 0, q_path, {}, priv)
+    pct = np.array([v.percentile_50 for v in out_s.values()])
+    if (pct < 0.0).any() or (pct > 5.0).any():
+        raise AssertionError("run (s): percentiles outside [0, 5]")
+    print(f"main (s): {len(out_s)} partitions' percentile 50 within [0, 5] "
+          f"(median {float(np.median(pct)):.4f})", flush=True)
+    # (t) MEAN + VARIANCE (+ COUNT) with secure noise: the count on its
+    # grid (mean and variance are formulas of grid values).
+    secure_path = tuple(k for k in BLOCKED_KERNELS
+                        if k != "release_epilogue") + (
+        "release_epilogue_secure",)
+    out_t, params_t, _ = aggregate("t", qenc, [M.COUNT, M.MEAN, M.VARIANCE],
+                                   False, 1.0, 0, secure_path,
+                                   dict(secure_noise=True), priv)
+    grids, _ = slot_grids(tdp, params_t, 1.0, 1e-6)
+    on_grid("t", out_t, "count", grids["count"][0])
+    print(f"main (t): {len(out_t)} secure counts on their grid "
+          f"{grids['count'][0]}", flush=True)
+    # (u) values x 1000 (integers), numeric_mode="safe", float32, eps 1e12
+    # and the true maxima: sums past 2^25 equal float32 of the exact sum;
+    # the fast mode beside it (a record).
+    milli = dataclasses.replace(qenc, values=np.round(qenc.values * 1000.0))
+    exact_milli = np.bincount(qenc.pk, weights=milli.values, minlength=P)
+    safe_path = tuple(k for k in BLOCKED_KERNELS
+                      if k != "reduce_partitions_windowed") + (
+        "reduce_partitions_compensated_windowed",)
+    u_bounds = dict(exact_bounds, max_value=5000.0)
+    off = {}
+    for mode, path in (("safe", safe_path), ("fast", BLOCKED_KERNELS)):
+        out_u, _, _ = aggregate(f"u, {mode}", milli, [M.COUNT, M.SUM], False,
+                                1e12, 13, path, dict(numeric_mode=mode),
+                                u_bounds)
+        ids_u = ids_of(out_u)
+        sums = np.array([v.sum for v in out_u.values()])
+        big = exact_milli[ids_u] >= 2.0**25
+        f32 = exact_milli[ids_u].astype(np.float32).astype(np.float64)
+        ulp = np.spacing(np.abs(exact_milli[ids_u]).astype(
+            np.float32)).astype(np.float64)
+        dev_ulps = np.abs(sums - f32)[big] / ulp[big]
+        off[mode] = [int(big.sum()), int((dev_ulps > 0).sum()),
+                     float(dev_ulps.max()) if dev_ulps.size else 0.0]
+    if not off["safe"][0] or off["safe"][1]:
+        raise AssertionError(f"run (u): safe sums past 2^25 [count, "
+                             f"differing from float32(exact), largest ulps] "
+                             f"{off['safe']}")
+    print(f"main (u) safe, float32, values x 1000, eps 1e12: of the "
+          f"{off['safe'][0]} kept sums past 2^25, [count, how many differ "
+          f"from float32(exact sum), the largest difference in ulps]: safe "
+          f"{off['safe']}, fast {off['fast']} (fast: a record, not a gate)",
+          flush=True)
+    # (v) = (c) on the blocked route: Netflix, public, 4096 partitions a
+    # block (17,770 = 4 x 4096 + 1386), eps 1e6 and the true maxima.
+    nP = netflix.n_partitions
+    nl0, nlinf, npairs, _ = nmax
+    v_bounds = dict(max_partitions_contributed=nl0,
+                    max_contributions_per_partition=nlinf, min_value=1.0,
+                    max_value=5.0)
+    v_blocks = -(-nP // 4096)
+    out_v, params_v, pt = aggregate(
+        "v", netflix, [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT], True, 1e6, 9,
+        BLOCKED_KERNELS, dict(large_partition_threshold=4096,
+                              block_partitions=4096), v_bounds,
+        want=dict(block_offsets=1, reduce_partitions_windowed=v_blocks,
+                  compact_kept=v_blocks))
+    if pt["blocks_dispatched"] != v_blocks or len(out_v) != nP:
+        raise AssertionError(f"run (v): {pt['blocks_dispatched']} blocks, "
+                             f"{len(out_v)} partitions")
+    cfg_v, stds_v, _ = release_spec(tdp, params_v, nP, 1e6, False)
+    std_v = std_by_output(cfg_v, stds_v)
+    nvocab = list(netflix.partition_vocab)
+    truths = {"count": np.bincount(netflix.pk, minlength=nP).astype(float),
+              "sum": np.bincount(netflix.pk, weights=netflix.values,
+                                 minlength=nP),
+              "privacy_id_count": np.bincount(npairs % nP,
+                                              minlength=nP).astype(float)}
+    worst = {}
+    for name, truth in truths.items():
+        std = std_v[name]
+        got = np.array([getattr(out_v[m], name) for m in nvocab])
+        err = np.abs(got - truth)
+        tol = 16 * std + scan_tolerance(truths["count"], truth)
+        if (err > tol).any():
+            i = int(np.argmax(err - tol))
+            raise AssertionError(f"run (v) {name}: partition {nvocab[i]} "
+                                 f"{got[i]} vs numpy {truth[i]}")
+        worst[name] = float((err / np.maximum(1.0, np.abs(truth))).max())
+    print(f"main (v) the Netflix exactness run on the blocked route, "
+          f"{v_blocks} blocks of 4096: {len(out_v)} partitions match the "
+          f"numpy group-by (max rel err {json.dumps(worst)})", flush=True)
+    # (w) = (r) through aggregate_blocked with row_chunk = 2^22: the
+    # host-staged regime (C11 gathers each chunk's survivors).
+    kernels.reset_launch_counts()
+    phase_w = {}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    kept_w, outs_w = large_p.aggregate_blocked(
+        qenc.pid, qenc.pk, qenc.values, qenc.valid, *scalars_r, stds_r,
+        noise_ops.make_noise_key(9), cfg_r, block_partitions=LARGE_BLOCK,
+        row_chunk=1 << 22, phase_times=phase_w, device="cuda",
+        dtype=torch.float32)
+    torch.cuda.synchronize()
+    w_s = time.perf_counter() - start
+    counts = dict(kernels.launch_counts)
+    n_chunks = len(large_p._chunk_ends(np.sort(qenc.pid), 1 << 22))
+    check_launches("run (w)", counts, kernels,
+                   dict(gather_rows=n_chunks, block_offsets=n_chunks + 1),
+                   BLOCKED_KERNELS + ("gather_rows",))
+    for name, c in counts.items():
+        total[name] += c
+    if not np.array_equal(kept_w, np.sort(ids_r)):
+        raise AssertionError(f"run (w): kept {len(kept_w)} partitions, (r) "
+                             f"kept {len(ids_r)}, or another set")
+    worst = check_group_by("w", kept_w, outs_w)
+    print(f"main (w) host-staged, row_chunk=2^22 ({n_chunks} chunks): the "
+          f"same {len(kept_w)} partitions as (r), matching the numpy "
+          f"group-by (max rel err {json.dumps(worst)}) in {w_s * 1e3:.1f} ms "
+          f"({card}); phase_times (s) "
+          f"{json.dumps({k: round(v, 4) for k, v in phase_w.items()})}; "
+          f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
+    # Blocked selects on (q)'s data.
+    for strategy in ("TRUNCATED_GEOMETRIC", "LAPLACE_THRESHOLDING",
+                     "GAUSSIAN_THRESHOLDING"):
+        times, kept_n = [], []
+        for rep in range(3):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=rep))
+            kernels.reset_launch_counts()
+            res = engine.select_partitions(
+                qenc, tdp.SelectPartitionsParams(
+                    max_partitions_contributed=4,
+                    partition_selection_strategy=getattr(
+                        tdp.PartitionSelectionStrategy, strategy)),
+                tdp.DataExtractors())
+            acc.compute_budgets()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            kept = list(res)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            counts = dict(kernels.launch_counts)
+            check_launches(f"blocked select ({strategy})", counts, kernels,
+                           dict(block_offsets=1, reduce_partitions=0),
+                           BLOCKED_KERNELS)
+            for name, c in counts.items():
+                total[name] += c
+            if not kept or len(set(kept)) != len(kept) or len(kept) >= P:
+                raise AssertionError(f"blocked select ({strategy}): "
+                                     f"{len(kept)} partitions kept")
+            kept_n.append(len(kept))
+        ms = statistics.median(times) * 1e3
+        print(f"select blocked {strategy} l0=4 eps=1 on (q)'s data: {kept_n} "
+              f"of {P} partitions kept, {ms:.1f} ms, "
+              f"{qenc.n_rows / (ms / 1e3):.4g} rows/s (median of 3: "
+              f"{[round(t * 1e3, 1) for t in times]} ms; {card}); launches "
+              f"per select { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+    return total
+
+
+def large_p_stage_phase(torch, tdp, qenc, netflix, nmax, kernels, large_p,
+                        threefry, card):
+    """Runs (q) and (v) with CUDA events around every kernel wrapper and a
+    host clock around the host key derivation (threefry's fold_in, split
+    and bits): pass 1 (C1, C5 bounding, C2, C5 partition, C10), the
+    blocks' kernels, the host's key work, waits, drains and the decode."""
+    names = ("row_keys", "radix_sort", "bound_rows", "block_offsets",
+             "reduce_partitions", "release_epilogue", "compact_kept")
+    M = tdp.Metrics
+    runs = {
+        "q": (qenc, [M.COUNT, M.SUM], None, {},
+              dict(max_partitions_contributed=4,
+                   max_contributions_per_partition=8, min_value=0.0,
+                   max_value=5.0)),
+        "v": (netflix, [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT],
+              list(netflix.partition_vocab),
+              dict(large_partition_threshold=4096, block_partitions=4096),
+              dict(max_partitions_contributed=nmax[0],
+                   max_contributions_per_partition=nmax[1], min_value=1.0,
+                   max_value=5.0)),
+    }
+    key_fns = ("fold_in", "split", "bits")
+    for label, (enc, metrics, public, backend, bounds) in runs.items():
+        medians = {}
+        for rep in range(4):
+            records, sorts = [], []
+            host = {"host_keys": 0.0}
+            depth = [0]
+            originals = {n: getattr(kernels, n) for n in names}
+            key_originals = {n: getattr(threefry, n) for n in key_fns}
+
+            def timed(name, fn):
+                def call(*args, **kwargs):
+                    tag = name
+                    if name == "radix_sort":
+                        sorts.append(None)
+                        tag = ("radix_sort[bounding]" if len(sorts) == 1
+                               else "radix_sort[partition]")
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = fn(*args, **kwargs)
+                    end.record()
+                    records.append((tag, start, end))
+                    return out
+                return call
+
+            def host_timed(fn):
+                def call(*args, **kwargs):
+                    depth[0] += 1
+                    t = time.perf_counter()
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        depth[0] -= 1
+                        if depth[0] == 0:
+                            host["host_keys"] += time.perf_counter() - t
+                return call
+
+            for n in names:
+                setattr(kernels, n, timed(n, originals[n]))
+            for n in key_fns:
+                setattr(threefry, n, host_timed(key_originals[n]))
+            try:
+                acc = tdp.NaiveBudgetAccountant(
+                    total_epsilon=1.0 if label == "q" else 1e6,
+                    total_delta=1e-6)
+                engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=rep,
+                                                            **backend))
+                res = engine.aggregate(enc, tdp.AggregateParams(
+                    metrics=metrics, noise_kind=tdp.NoiseKind.LAPLACE,
+                    **bounds), tdp.DataExtractors(), public)
+                acc.compute_budgets()
+                host["host_keys"] = 0.0
+                torch.cuda.synchronize()
+                with PhaseProbe(large_p) as probe:
+                    start = time.perf_counter()
+                    out = list(res)
+                    torch.cuda.synchronize()
+                    end = time.perf_counter()
+            finally:
+                for n in names:
+                    setattr(kernels, n, originals[n])
+                for n in key_fns:
+                    setattr(threefry, n, key_originals[n])
+            if not out:
+                raise AssertionError(f"stages ({label}): nothing released")
+            pt = probe.records[-1]
+            stage = {}
+            for name, s, e in records:
+                stage[name] = stage.get(name, 0.0) + s.elapsed_time(e)
+            stage.update({
+                "host_keys": host["host_keys"] * 1e3,
+                "p1_bound_compact (wall)": pt["p1_bound_compact"] * 1e3,
+                "block_offsets (wall)": pt["block_offsets"] * 1e3,
+                "p2_dispatch (wall)": pt["p2_dispatch"] * 1e3,
+                "p2_sync_wait (wall)": pt["p2_sync_wait"] * 1e3,
+                "p2_drain (wall)": pt["p2_drain"] * 1e3,
+                "decode (wall)": (end - pt["returned_at"]) * 1e3,
+                "wall": (end - start) * 1e3})
+            for name, ms in stage.items():
+                medians.setdefault(name, []).append(ms)
+        med = {name: round(statistics.median(t[1:]), 4)
+               for name, t in medians.items()}
+        device = sum(v for k, v in med.items()
+                     if "(wall)" not in k and k not in ("wall", "host_keys"))
+        print(f"stages ({label}) blocked, float32, ms, median of 3 ({card}): "
+              f"{json.dumps(med)}; kernels {device:.3f} ms of {med['wall']:.3f}"
+              f" ms wall", flush=True)
 
 
 def check_launches(label, counts, kernels, want=None, path=BASE_KERNELS):

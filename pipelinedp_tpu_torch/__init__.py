@@ -5,9 +5,10 @@ reference. It runs DPEngine.aggregate on the dense columnar route (COUNT,
 PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE, PERCENTILE and VECTOR_SUM with
 Laplace or Gaussian noise, public partitions or private partition
 selection, per-partition or total contribution bounds) and
-DPEngine.select_partitions, on nine CUDA kernels built for sm_90a at first
-use (kernels.py, csrc/). The package imports torch, numpy and scipy, never
-jax.
+DPEngine.select_partitions, and above large_partition_threshold both on the
+blocked route (parallel/large_p.py), on eleven CUDA kernels built for
+sm_90a at first use (kernels.py, csrc/). The package imports torch, numpy
+and scipy, never jax.
 """
 
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,

@@ -14,6 +14,15 @@
 // with the saturating, NaN-to-0 float-to-int conversion of XLA
 // (__float2int_rz / __double2int_rz; a C++ cast overflows undefined).
 //
+// The windowed form (the blocked route, K15b: pipelinedp_tpu/parallel/
+// large_p.py _block_trace, :195-205, whose block rows are rebased to
+// spk - base) takes the rows of one partition block: the caller passes
+// skey2 + lo and perm + lo, sorted row i belongs to partition
+// skey2[i] - base, and rows outside [0, n_partitions) count nowhere. perm
+// may be null: sorted row i is then bounded row i (the host-staged
+// stream, whose values are already in sorted order). The dense route
+// passes base 0 and a permutation.
+//
 // Three entries:
 //   quantile_leaf_counts   the leaf histogram int32[P, L]
 //   quantile_level_counts  level l from level l + 1: sums of B children
@@ -41,12 +50,19 @@ struct Rows {
   const long long* row_perm;
   const F* values;
   long long n;
+  long long base;  // partition of sorted row i: skey2[i] - base
   int n_partitions;
   int n_leaves;
   F lo, den;  // min_value; the span, or 1 where the span is not > 0
 
+  // The partition of sorted row i, or -1 outside [0, n_partitions).
+  __device__ __forceinline__ long long partition(long long i) const {
+    const long long p = static_cast<long long>(skey2[i]) - base;
+    return p >= 0 && p < n_partitions ? p : -1;
+  }
+
   __device__ __forceinline__ F value(long long i) const {
-    long long r = perm[i];
+    long long r = perm ? perm[i] : i;
     if (row_perm) r = row_perm[r];
     return values[r];
   }
@@ -66,8 +82,9 @@ __device__ __forceinline__ int leaf_of(const Rows<F>& rows, F v) {
 
 template <typename F>
 Rows<F> make_rows(const void* skey2, const void* perm, const void* row_perm,
-                  const void* values, long long n, int n_partitions,
-                  int n_leaves, double min_v, double max_v) {
+                  const void* values, long long n, long long base,
+                  int n_partitions, int n_leaves, double min_v,
+                  double max_v) {
   const F lo = static_cast<F>(min_v);
   const F span = static_cast<F>(max_v) - lo;
   return Rows<F>{static_cast<const int32_t*>(skey2),
@@ -75,6 +92,7 @@ Rows<F> make_rows(const void* skey2, const void* perm, const void* row_perm,
                  static_cast<const long long*>(row_perm),
                  static_cast<const F*>(values),
                  n,
+                 base,
                  n_partitions,
                  n_leaves,
                  lo,
@@ -88,10 +106,8 @@ __global__ void leaf_counts_kernel(Rows<F> rows, int* __restrict__ hist) {
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long key = -1;
   if (i < rows.n) {
-    const int p = rows.skey2[i];
-    if (p >= 0 && p < rows.n_partitions)
-      key = static_cast<long long>(p) * rows.n_leaves +
-            leaf_of(rows, rows.value(i));
+    const long long p = rows.partition(i);
+    if (p >= 0) key = p * rows.n_leaves + leaf_of(rows, rows.value(i));
   }
   const unsigned peers =
       __match_any_sync(pdp::kFullMask, static_cast<unsigned long long>(key));
@@ -118,12 +134,13 @@ __global__ void child_counts_kernel(Rows<F> rows, int shift, int branching,
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long key = -1;
-  int p = 0, row_node = 0;
+  long long p = 0;
+  int row_node = 0;
   if (i < rows.n) {
-    p = rows.skey2[i];
-    if (p >= 0 && p < rows.n_partitions) {
+    p = rows.partition(i);
+    if (p >= 0) {
       row_node = leaf_of(rows, rows.value(i)) / shift;
-      key = (static_cast<long long>(p) << 32) | row_node;
+      key = (p << 32) | row_node;
     }
   }
   const unsigned peers =
@@ -131,7 +148,7 @@ __global__ void child_counts_kernel(Rows<F> rows, int shift, int branching,
   if (key < 0 || (threadIdx.x & 31) != __ffs(peers) - 1) return;
   const int parent = row_node / branching, child = row_node % branching;
   const int size = __popc(peers);
-  const long long base = static_cast<long long>(p) * n_q;
+  const long long base = p * n_q;
   for (int q = 0; q < n_q; ++q) {
     if (node[base + q] == parent)
       atomicAdd(counts + (base + q) * branching + child, size);
@@ -144,11 +161,11 @@ unsigned blocks_for(long long n, int threads) {
 
 template <typename F>
 int launch_leaf(const void* skey2, const void* perm, const void* row_perm,
-                const void* values, long long n, int n_partitions,
-                int n_leaves, double min_v, double max_v, void* hist,
-                cudaStream_t s) {
+                const void* values, long long n, long long base,
+                int n_partitions, int n_leaves, double min_v, double max_v,
+                void* hist, cudaStream_t s) {
   if (n <= 0) return 0;
-  const Rows<F> rows = make_rows<F>(skey2, perm, row_perm, values, n,
+  const Rows<F> rows = make_rows<F>(skey2, perm, row_perm, values, n, base,
                                     n_partitions, n_leaves, min_v, max_v);
   leaf_counts_kernel<F><<<blocks_for(n, 256), 256, 0, s>>>(
       rows, static_cast<int*>(hist));
@@ -157,12 +174,12 @@ int launch_leaf(const void* skey2, const void* perm, const void* row_perm,
 
 template <typename F>
 int launch_child(const void* skey2, const void* perm, const void* row_perm,
-                 const void* values, long long n, int n_partitions,
-                 int n_leaves, int shift, int branching, const void* node,
-                 int n_q, double min_v, double max_v, void* counts,
-                 cudaStream_t s) {
+                 const void* values, long long n, long long base,
+                 int n_partitions, int n_leaves, int shift, int branching,
+                 const void* node, int n_q, double min_v, double max_v,
+                 void* counts, cudaStream_t s) {
   if (n <= 0) return 0;
-  const Rows<F> rows = make_rows<F>(skey2, perm, row_perm, values, n,
+  const Rows<F> rows = make_rows<F>(skey2, perm, row_perm, values, n, base,
                                     n_partitions, n_leaves, min_v, max_v);
   child_counts_kernel<F><<<blocks_for(n, 256), 256, 0, s>>>(
       rows, shift, branching, static_cast<const int*>(node), n_q,
@@ -172,17 +189,19 @@ int launch_child(const void* skey2, const void* perm, const void* row_perm,
 
 }  // namespace
 
-// hist: int32[n_partitions, n_leaves], zero-filled by the caller.
+// hist: int32[n_partitions, n_leaves], zero-filled by the caller. perm:
+// nullable; base: sorted row i's partition is skey2[i] - base.
 extern "C" int quantile_leaf_counts(const void* skey2, const void* perm,
                                     const void* row_perm, const void* values,
-                                    long long n, int n_partitions,
-                                    int n_leaves, double min_v, double max_v,
-                                    void* hist, int f64, void* stream) {
+                                    long long n, long long base,
+                                    int n_partitions, int n_leaves,
+                                    double min_v, double max_v, void* hist,
+                                    int f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? launch_leaf<double>(skey2, perm, row_perm, values, n,
+  return f64 ? launch_leaf<double>(skey2, perm, row_perm, values, n, base,
                                    n_partitions, n_leaves, min_v, max_v,
                                    hist, s)
-             : launch_leaf<float>(skey2, perm, row_perm, values, n,
+             : launch_leaf<float>(skey2, perm, row_perm, values, n, base,
                                   n_partitions, n_leaves, min_v, max_v, hist,
                                   s);
 }
@@ -210,19 +229,20 @@ extern "C" int quantile_level_counts(void* const* levels, int n_partitions,
 
 // node: int32[n_partitions, n_q], nodes of level (level - 1); shift =
 // B^(h - level); counts: int32[n_partitions, n_q, B], zero-filled by the
-// caller.
+// caller. perm / base as for quantile_leaf_counts.
 extern "C" int quantile_child_counts(const void* skey2, const void* perm,
                                      const void* row_perm, const void* values,
-                                     long long n, int n_partitions,
-                                     int n_leaves, int shift, int branching,
+                                     long long n, long long base,
+                                     int n_partitions, int n_leaves,
+                                     int shift, int branching,
                                      const void* node, int n_q, double min_v,
                                      double max_v, void* counts, int f64,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? launch_child<double>(skey2, perm, row_perm, values, n,
+  return f64 ? launch_child<double>(skey2, perm, row_perm, values, n, base,
                                     n_partitions, n_leaves, shift, branching,
                                     node, n_q, min_v, max_v, counts, s)
-             : launch_child<float>(skey2, perm, row_perm, values, n,
+             : launch_child<float>(skey2, perm, row_perm, values, n, base,
                                    n_partitions, n_leaves, shift, branching,
                                    node, n_q, min_v, max_v, counts, s);
 }

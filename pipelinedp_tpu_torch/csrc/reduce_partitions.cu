@@ -36,6 +36,16 @@
 // TwoSum loses the residue. float64 and the integer counts take the plain
 // entry, as in the JAX package (segment_ops.py:132-133).
 //
+// The windowed entry (the blocked route, K15b: pipelinedp_tpu/parallel/
+// large_p.py _block_trace, :156-212, whose rows are a window [lo, lo + len)
+// of the partition-sorted stream rebased to spk - base) is the same scan
+// over a window: the caller passes skey2 + lo and perm + lo, row r's
+// partition is skey2[r] - base, and a result outside [0, n_partitions) is
+// dropped, so the rows of neighbouring blocks and the dropped rows'
+// sentinel write nothing. perm may be null: the rows are then in sorted
+// order already (the host-staged stream) and pair_start and the columns
+// are windows too. The dense route passes base 0 and a permutation.
+//
 // Bound: bytes. Each pass reads skey2 (4 B) and, in the last pass, perm
 // (8 B) and through it pair_start (1 B) and up to three F columns; the
 // outputs are 5 F columns of n_partitions. The reads through perm are
@@ -122,9 +132,10 @@ struct Rows {
   const F* nsum;
   const F* nsum2;
   long long n;
+  long long base;  // partition of row i: skey2[i] - base
 
   __device__ __forceinline__ Seg<F, C> element(long long i) const {
-    const long long r = perm[i];
+    const long long r = perm ? perm[i] : i;
     return Seg<F, C>{1,
                      pair_start[r],
                      Acc<F, C>::of(sum ? sum[r] : F(0)),
@@ -177,8 +188,9 @@ __global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
     const long long i = base + k;
     if (i >= rows.n) break;
     state = Op::combine(state, elems[k]);
-    const int32_t key = rows.skey2[i];
-    const bool last = i + 1 == rows.n || rows.skey2[i + 1] != key;
+    const int32_t sk = rows.skey2[i];
+    const bool last = i + 1 == rows.n || rows.skey2[i + 1] != sk;
+    const long long key = static_cast<long long>(sk) - rows.base;
     if (last && key >= 0 && key < n_partitions) {
       count[key] = static_cast<F>(state.cnt);
       pid_count[key] = static_cast<F>(state.pc);
@@ -192,8 +204,8 @@ __global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
 template <typename F, bool C>
 int launch(const void* skey2, const void* perm, const void* pair_start,
            const void* row_sum, const void* row_nsum, const void* row_nsum2,
-           long long n, int n_partitions, void* scratch, void* count,
-           void* pid_count, void* sum, void* nsum, void* nsum2,
+           long long n, int n_partitions, long long base, void* scratch,
+           void* count, void* pid_count, void* sum, void* nsum, void* nsum2,
            void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -204,7 +216,8 @@ int launch(const void* skey2, const void* perm, const void* pair_start,
                static_cast<const F*>(row_sum),
                static_cast<const F*>(row_nsum),
                static_cast<const F*>(row_nsum2),
-               n};
+               n,
+               base};
   Seg<F, C>* aggs = static_cast<Seg<F, C>*>(scratch);
   tile_aggregates<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
                           s>>>(rows, aggs);
@@ -255,14 +268,15 @@ struct VSegOp {
 template <typename F, bool C>
 struct VRows {
   const int32_t* skey2;
-  const long long* perm;
+  const long long* perm;      // null: sorted position i is bounded row i
   const long long* row_perm;  // null: the bounded rows are the value rows
   const F* values;            // [n, dim]
   long long n;
+  long long base;  // partition of row i: skey2[i] - base
   int dim, d0;
 
   __device__ __forceinline__ VSeg<F, C> element(long long i) const {
-    long long r = perm[i];
+    long long r = perm ? perm[i] : i;
     if (row_perm) r = row_perm[r];
     const F* row = values + r * dim;
     VSeg<F, C> e;
@@ -314,13 +328,14 @@ __global__ void write_vectors(VRows<F, C> rows, const VSeg<F, C>* prefixes,
     const long long i = base + k;
     if (i >= rows.n) break;
     state = Op::combine(state, elems[k]);
-    const int32_t key = rows.skey2[i];
-    const bool last = i + 1 == rows.n || rows.skey2[i + 1] != key;
+    const int32_t sk = rows.skey2[i];
+    const bool last = i + 1 == rows.n || rows.skey2[i + 1] != sk;
+    const long long key = static_cast<long long>(sk) - rows.base;
     if (last && key >= 0 && key < n_partitions) {
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
         if (rows.d0 + c < rows.dim)
-          vsum[static_cast<long long>(key) * rows.dim + rows.d0 + c] =
+          vsum[key * rows.dim + rows.d0 + c] =
               state.v[c].value();
       }
     }
@@ -330,8 +345,8 @@ __global__ void write_vectors(VRows<F, C> rows, const VSeg<F, C>* prefixes,
 template <typename F, bool C>
 int launch_vectors(const void* skey2, const void* perm, const void* row_perm,
                    const void* values, long long n, int dim,
-                   int n_partitions, void* scratch, void* vsum,
-                   void* stream) {
+                   int n_partitions, long long base, void* scratch,
+                   void* vsum, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = pdp::n_tiles(n);
@@ -342,6 +357,7 @@ int launch_vectors(const void* skey2, const void* perm, const void* row_perm,
                   static_cast<const long long*>(row_perm),
                   static_cast<const F*>(values),
                   n,
+                  base,
                   dim,
                   d0};
     vector_tile_aggregates<F, C><<<static_cast<unsigned>(tiles),
@@ -368,25 +384,25 @@ extern "C" long long reduce_vectors_scratch_bytes(long long n, int f64,
   return pdp::n_tiles(n) * each;
 }
 
-// Vector sums: skey2 / perm as for reduce_partitions; row_perm (nullable)
-// maps a bounded row to its row of values [*, dim]. vsum: [n_partitions,
-// dim], zero-filled by the caller. comp: compensated float32 sums (ignored
-// for float64).
+// Vector sums: skey2 / perm / base as for reduce_partitions; row_perm
+// (nullable) maps a bounded row to its row of values [*, dim]. vsum:
+// [n_partitions, dim], zero-filled by the caller. comp: compensated float32
+// sums (ignored for float64).
 extern "C" int reduce_vectors(const void* skey2, const void* perm,
                               const void* row_perm, const void* values,
                               long long n, int dim, int n_partitions,
-                              void* scratch, void* vsum, int f64, int comp,
-                              void* stream) {
+                              long long base, void* scratch, void* vsum,
+                              int f64, int comp, void* stream) {
   if (f64)
     return launch_vectors<double, false>(skey2, perm, row_perm, values, n,
-                                         dim, n_partitions, scratch, vsum,
-                                         stream);
+                                         dim, n_partitions, base, scratch,
+                                         vsum, stream);
   return comp ? launch_vectors<float, true>(skey2, perm, row_perm, values, n,
-                                            dim, n_partitions, scratch, vsum,
-                                            stream)
+                                            dim, n_partitions, base, scratch,
+                                            vsum, stream)
               : launch_vectors<float, false>(skey2, perm, row_perm, values,
-                                             n, dim, n_partitions, scratch,
-                                             vsum, stream);
+                                             n, dim, n_partitions, base,
+                                             scratch, vsum, stream);
 }
 
 extern "C" long long reduce_partitions_scratch_bytes(long long n, int f64,
@@ -398,24 +414,27 @@ extern "C" long long reduce_partitions_scratch_bytes(long long n, int f64,
 }
 
 // Outputs must be zero-filled by the caller: partitions without a kept row
-// are not written. comp: compensated float32 sums (ignored for float64).
+// are not written. perm: nullable (rows already in sorted order); base:
+// row i's partition is skey2[i] - base (0 on the dense route). comp:
+// compensated float32 sums (ignored for float64).
 extern "C" int reduce_partitions(const void* skey2, const void* perm,
                                  const void* pair_start, const void* row_sum,
                                  const void* row_nsum, const void* row_nsum2,
-                                 long long n, int n_partitions, void* scratch,
-                                 void* count, void* pid_count, void* sum,
-                                 void* nsum, void* nsum2, int f64, int comp,
+                                 long long n, int n_partitions,
+                                 long long base, void* scratch, void* count,
+                                 void* pid_count, void* sum, void* nsum,
+                                 void* nsum2, int f64, int comp,
                                  void* stream) {
   if (f64)
     return launch<double, false>(skey2, perm, pair_start, row_sum, row_nsum,
-                                 row_nsum2, n, n_partitions, scratch, count,
-                                 pid_count, sum, nsum, nsum2, stream);
+                                 row_nsum2, n, n_partitions, base, scratch,
+                                 count, pid_count, sum, nsum, nsum2, stream);
   return comp ? launch<float, true>(skey2, perm, pair_start, row_sum,
                                     row_nsum, row_nsum2, n, n_partitions,
-                                    scratch, count, pid_count, sum, nsum,
-                                    nsum2, stream)
+                                    base, scratch, count, pid_count, sum,
+                                    nsum, nsum2, stream)
               : launch<float, false>(skey2, perm, pair_start, row_sum,
                                      row_nsum, row_nsum2, n, n_partitions,
-                                     scratch, count, pid_count, sum, nsum,
-                                     nsum2, stream);
+                                     base, scratch, count, pid_count, sum,
+                                     nsum, nsum2, stream);
 }

@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
-           "vector_release")
+           "vector_release", "block_offsets", "gather_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,11 +48,11 @@ _SIGNATURES = {
     },
     "reduce_partitions": {
         "reduce_partitions_scratch_bytes": (_LL, [_LL, _I, _I]),
-        "reduce_partitions": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P, _P,
-                                   _P, _P, _P, _P, _I, _I, _P]),
+        "reduce_partitions": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _P,
+                                   _P, _P, _P, _P, _P, _I, _I, _P]),
         "reduce_vectors_scratch_bytes": (_LL, [_LL, _I, _I]),
-        "reduce_vectors": (_I, [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _I,
-                                _P]),
+        "reduce_vectors": (_I, [_P, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _I,
+                                _I, _P]),
     },
     "release_epilogue": {
         "release_epilogue": (_I, [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
@@ -70,11 +70,11 @@ _SIGNATURES = {
                               _P]),
     },
     "quantile_counts": {
-        "quantile_leaf_counts": (_I, [_P, _P, _P, _P, _LL, _I, _I, _D, _D,
-                                      _P, _I, _P]),
+        "quantile_leaf_counts": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _I, _D,
+                                      _D, _P, _I, _P]),
         "quantile_level_counts": (_I, [_P, _I, _I, _I, _P]),
-        "quantile_child_counts": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                                       _P, _I, _D, _D, _P, _I, _P]),
+        "quantile_child_counts": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _I, _I,
+                                       _I, _P, _I, _D, _D, _P, _I, _P]),
     },
     "quantile_descend": {
         "quantile_descend_dense": (_I, [_P, _LL, _P, _P, _P, _P, _P, _P, _P,
@@ -86,6 +86,12 @@ _SIGNATURES = {
     "vector_release": {
         "vector_release": (_I, [_P, _LL, _I, _I, _D, _D, _U, _U, _I, _P, _P,
                                 _P, _P, _I, _D, _I, _P]),
+    },
+    "block_offsets": {
+        "block_offsets": (_I, [_P, _LL, _P, _LL, _P, _P]),
+    },
+    "gather_rows": {
+        "gather_rows": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P]),
     },
 }
 

@@ -24,6 +24,11 @@ Standalone partition selection (lazy_select_partitions) runs the same
 kernels without values: C1 (no u), C5 by (k1, k2), C2 with linf = 0, C5
 by kept partition, C3's pid_count, C4 with an empty plan, C6.
 
+Above the backend's large_partition_threshold both entry points take the
+blocked route instead (parallel/large_p.py): pass 1 bounds and sorts the
+rows once, and every block of partitions runs C3 (and C7) on its window
+of the sorted stream, then C4 / C8 / C9 and C6 on its own partitions.
+
 Random choices come from the JAX package's threefry keys (ops/threefry.py),
 derived on the host in the same order, so one seed gives the same bounded
 rows, keep decisions and noise words on both packages. Noise stddevs and
@@ -71,8 +76,6 @@ _LATER = {
     "vector_percentile": "ROADMAP.md Queue 1 item 14 (VECTOR_SUM together "
                          "with a percentile leaves the columnar path for "
                          "the generic backends)",
-    "large_p": "ROADMAP.md Queue 1 item 8 (parallel/large_p.py, the blocked "
-               "route above large_partition_threshold)",
 }
 
 
@@ -501,8 +504,8 @@ def quantile_std_index(plan: Sequence[MetricPlanEntry]) -> int:
 def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
                      stds: np.ndarray, qkey, keep: torch.Tensor,
                      flags: torch.Tensor, cfg: KernelConfig,
-                     dtype: torch.dtype,
-                     secure_tables=None) -> Dict[str, torch.Tensor]:
+                     dtype: torch.dtype, secure_tables=None,
+                     base: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Per-partition DP percentiles (the JAX package's quantile_outputs,
     :825): sorted_rows = (perm, skey2), the partition-sorted order of the
     bounded rows; values_rows = (row_perm, values) from
@@ -516,6 +519,10 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
     level's child counts (C7) and one descent step (C8) alternate: h
     passes over the rows for every quantile together. With cfg.secure the
     nodes take the quantile slot's secure table (secure_tables).
+
+    base (a block of the blocked route): sorted_rows is the block's window
+    of the sorted stream, its partitions rebased by base (C7's windowed
+    entries); perm may be None there (the host-staged stream).
     """
     _require_tables(cfg, secure_tables)
     perm, skey2 = sorted_rows
@@ -531,7 +538,7 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
     if -(-P // max(cfg.quantile_chunk, 1)) <= 1:
         leaf_counts = kernels.quantile_leaf_counts(
             skey2, perm, row_perm, values, n_partitions=P, n_leaves=B**h,
-            min_v=min_v, max_v=max_v)
+            min_v=min_v, max_v=max_v, base=base)
         levels = kernels.quantile_level_counts(leaf_counts, tree_height=h,
                                                branching=B)
         ckey = threefry.fold_in(qkey, 0)
@@ -545,7 +552,7 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
         for level in range(1, h + 1):
             counts = kernels.quantile_child_counts(
                 skey2, perm, row_perm, values, state.node, level=level,
-                **tree)
+                base=base, **tree)
             per_quantile = kernels.quantile_descend_step(
                 counts, state, cfg.quantiles, level=level, tree_height=h,
                 level_key=threefry.fold_in(qkey, level), **descent)
@@ -659,10 +666,6 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                 selection_budget.delta, params.max_partitions_contributed,
                 params.pre_threshold)
         n_partitions = encoded.n_partitions
-        if n_partitions > backend.large_partition_threshold:
-            raise NotImplementedError(
-                f"{n_partitions} partitions exceed large_partition_threshold="
-                f"{backend.large_partition_threshold}: {_LATER['large_p']}")
         cfg = make_kernel_config(params, compound, n_partitions, private,
                                  selection_params,
                                  secure=backend.secure_noise,
@@ -675,6 +678,21 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                 params.noise_kind, backend.snap_grid_bits, backend.device)
         key = noise_ops.make_noise_key(backend.noise_seed)
         min_v, max_v, min_s, max_s, mid = kernel_scalars(params)
+        if n_partitions > backend.large_partition_threshold:
+            # The blocked route: the raw encoded columns go in (it pads to
+            # its own row capacity) and only kept partitions come back.
+            from pipelinedp_tpu_torch.parallel import large_p
+            with budget_accountant.no_new_mechanisms(
+                    "blocked aggregation execution"):
+                kept_ids, outputs = large_p.aggregate_blocked(
+                    encoded.pid, encoded.pk, encoded.values, encoded.valid,
+                    min_v, max_v, min_s, max_s, mid, stds, key, cfg,
+                    secure_tables=secure_tables,
+                    **blocked_kwargs(backend))
+            yield from decode_blocked_results(kept_ids, outputs,
+                                              encoded.partition_vocab,
+                                              compound)
+            return
         pid, pk, values, valid = to_device(encoded, backend.device,
                                            backend.dtype)
         with budget_accountant.no_new_mechanisms("dense release execution"):
@@ -703,6 +721,26 @@ def decode_release_results(n_kept, order, outputs, flags,
                           numeric_mode=numeric_mode)
     ids = order[:k].cpu().numpy()
     cols = {name: col[:k].cpu().numpy() for name, col in outputs.items()}
+    return _decode_rows(ids, cols, partition_vocab, compound)
+
+
+def decode_blocked_results(kept_ids: np.ndarray, outputs: Dict[str,
+                                                               np.ndarray],
+                           partition_vocab: Sequence[Any],
+                           compound: dp_combiners.CompoundCombiner):
+    """Blocked route output (kept ids ascending + their host columns, the
+    sentinel already checked per block) -> [(partition_key,
+    MetricsTuple)]."""
+    return _decode_rows(np.asarray(kept_ids), outputs, partition_vocab,
+                        compound)
+
+
+def _decode_rows(ids: np.ndarray, cols: Dict[str, np.ndarray],
+                 partition_vocab: Sequence[Any],
+                 compound: dp_combiners.CompoundCombiner):
+    """Kept partition ids + their host columns (row j of every column
+    belongs to ids[j]) -> [(partition_key, MetricsTuple)]; ids past the
+    vocabulary (padding partitions) are skipped."""
     field_order = tuple(
         name for entry in build_plan(compound) for name in entry.outputs)
     n_real = len(partition_vocab)
@@ -735,6 +773,21 @@ def select_partitions_release_kernel(pid: torch.Tensor, pk: torch.Tensor,
     an empty metric plan and C6 compacts. Returns (n_kept, order).
     """
     key_l0, key_sel = threefry.split(rng_key, 2)
+    key2, pair_start = select_bounded_pairs(pid, pk, valid, key_l0, l0,
+                                            n_partitions)
+    cols, _ = reduce_rows_to_partitions(key2, pair_start, {}, n_partitions,
+                                        dtype)
+    return select_release(cols, selection, key_sel)
+
+
+def select_bounded_pairs(pid: torch.Tensor, pk: torch.Tensor,
+                         valid: torch.Tensor, key_l0, l0: int,
+                         n_partitions: int):
+    """The deduplicated, L0-sampled (pid, partition) pairs of standalone
+    selection, in bounding order: C1 keys without a uniform, C5 by
+    (k1, k2), C2 with no row cap. Returns (key2, pair_start): key2 is the
+    row's partition where its pair is kept (n_partitions elsewhere), and
+    pair_start marks the first row of each kept pair."""
     k1, k2, _ = kernels.row_keys(pid, pk, valid, threefry.bits(key_l0, 4),
                                  None, n_partitions, None)
     perm = kernels.radix_sort([k1, k2])
@@ -742,13 +795,38 @@ def select_partitions_release_kernel(pid: torch.Tensor, pk: torch.Tensor,
         perm, k1, k2, pk, None, valid, n_partitions=n_partitions, linf=0,
         l0=l0, clip_per_value=False, clip_pair_sum=False,
         scalars=(0.0,) * 5, columns=())
-    cols, _ = reduce_rows_to_partitions(key2, pair_start, {}, n_partitions,
-                                        dtype)
+    return key2, pair_start
+
+
+def select_release(cols: Dict[str, torch.Tensor],
+                   selection: selection_ops.SelectionParams, key_sel):
+    """Keep decisions from the partitions' privacy-id counts (C4 with an
+    empty metric plan) and their kept-first order (C6): (n_kept, order)."""
     keep, _, _ = kernels.release_epilogue(
         cols, [], np.zeros(0), np.zeros((0, 2), np.uint32), NoiseKind.LAPLACE,
         False, 0.0, 0.0, selection, key_sel, 1)
     n_kept, order, _ = kernels.compact_kept(keep, {})
     return n_kept, order
+
+
+def select_kept_pair_stream(pid: torch.Tensor, pk: torch.Tensor,
+                            valid: torch.Tensor, rng_key, l0: int,
+                            n_partitions: int):
+    """Pass 1 of the blocked selection (the JAX package's
+    select_kept_pair_stream, :1068): the bounded pairs' rows sorted by
+    kept partition, the dropped rows (key2 = n_partitions) at the tail.
+    rng_key is the L0 key (key_l0 of select_partitions_blocked).
+
+    Where the JAX package keeps one row a kept pair, the port keeps every
+    row of a kept pair and marks the first (pair_start): C3's pid_count of
+    a window counts the pairs. Returns (skey2 int32[n] ascending, perm
+    int64[n] into the bounding order, pair_start bool[n] in bounding
+    order); the survivor count comes from C10 over skey2.
+    """
+    key2, pair_start = select_bounded_pairs(pid, pk, valid, rng_key, l0,
+                                            n_partitions)
+    perm, skey2 = kernels.radix_sort([key2], sorted_top=True)
+    return skey2, perm, pair_start
 
 
 def lazy_select_partitions(backend, col, params, data_extractors,
@@ -779,11 +857,18 @@ def lazy_select_partitions(backend, col, params, data_extractors,
             strategy, budget.eps, budget.delta,
             params.max_partitions_contributed, params.pre_threshold)
         n_partitions = encoded.n_partitions
-        if n_partitions > backend.large_partition_threshold:
-            raise NotImplementedError(
-                f"{n_partitions} partitions exceed large_partition_threshold="
-                f"{backend.large_partition_threshold}: {_LATER['large_p']}")
         key = noise_ops.make_noise_key(backend.noise_seed)
+        if n_partitions > backend.large_partition_threshold:
+            from pipelinedp_tpu_torch.parallel import large_p
+            with budget_accountant.no_new_mechanisms(
+                    "blocked partition selection execution"):
+                kept_ids = large_p.select_partitions_blocked(
+                    encoded.pid, encoded.pk, encoded.valid, key,
+                    params.max_partitions_contributed, n_partitions,
+                    selection, **blocked_kwargs(backend))
+            for idx in kept_ids:
+                yield encoded.partition_vocab[idx]
+            return
         pid, pk, _, valid = to_device(encoded, backend.device, backend.dtype)
         with budget_accountant.no_new_mechanisms(
                 "partition selection execution"):
@@ -794,6 +879,15 @@ def lazy_select_partitions(backend, col, params, data_extractors,
                                               encoded.partition_vocab)
 
     return generator()
+
+
+def blocked_kwargs(backend) -> Dict[str, Any]:
+    """The blocked entry points' keyword arguments from a TorchBackend: its
+    device, working dtype and, where set, block_partitions."""
+    kwargs = dict(device=backend.device, dtype=backend.dtype)
+    if backend.block_partitions is not None:
+        kwargs["block_partitions"] = backend.block_partitions
+    return kwargs
 
 
 def decode_selected_partitions(n_kept, order, partition_vocab):

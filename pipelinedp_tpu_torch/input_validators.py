@@ -67,3 +67,14 @@ def validate_snap_grid_bits(snap_grid_bits, obj_name: str) -> None:
             f"the power-of-two grid max(mechanism grid, "
             f"2**snap_grid_bits), so the exponent must be a bounded "
             f"integer (None disables the floor).")
+
+
+def validate_block_partitions(block_partitions, obj_name: str) -> None:
+    """Validates the blocked route's partitions per block: a positive
+    integer (a float or a bool here is a bug, not a block size)."""
+    if (not isinstance(block_partitions, numbers.Integral) or
+            isinstance(block_partitions, bool) or block_partitions <= 0):
+        raise ValueError(
+            f"{obj_name}: block_partitions must be a positive integer, but "
+            f"{block_partitions!r} given (None: the blocked route's "
+            f"default of 2^20 partitions a block).")

@@ -1,5 +1,5 @@
-"""The nine CUDA kernels of the dense release and selection paths, their
-wrappers and their plain PyTorch versions.
+"""The eleven CUDA kernels of the dense and blocked release and selection
+paths, their wrappers and their plain PyTorch versions.
 
     C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform;
                                                      total-bound keys (total_bound_keys)
@@ -16,6 +16,16 @@ wrappers and their plain PyTorch versions.
     C8 quantile_descend   csrc/quantile_descend.cu   node noise + descent (both
                                                      regimes), percentile flags
     C9 vector_release     csrc/vector_release.cu     norm-ball clip, noise, flags
+    C10 block_offsets     csrc/block_offsets.cu      row window of every partition
+                                                     block (blocked route)
+    C11 gather_rows       csrc/gather_rows.cu        columns gathered through one
+                                                     index (host-staged survivors)
+
+The blocked route (parallel/large_p.py) runs C3 and C7 on windows of the
+partition-sorted stream: their windowed entries (base=) rebase each row's
+partition to skey2 - base, drop what falls outside the block and take a
+null perm for a stream already in sorted order. They count under their
+own names (reduce_partitions_windowed, quantile_counts_windowed, ...).
 
 Two modes add entries (numeric_mode="safe" and secure_noise=True):
 
@@ -55,7 +65,10 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
            "vector_release", "reduce_partitions_compensated",
            "release_epilogue_secure", "quantile_descend_secure",
-           "vector_release_secure")
+           "vector_release_secure", "block_offsets", "gather_rows",
+           "reduce_partitions_windowed",
+           "reduce_partitions_compensated_windowed",
+           "quantile_counts_windowed")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -386,13 +399,14 @@ def total_bound_rows_plain(perm, spid, pk, values, valid, *, total_bound,
 # C3 reduce_partitions
 
 
-def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
+def reduce_partitions(skey2: torch.Tensor, perm: Optional[torch.Tensor],
                       pair_start: torch.Tensor,
                       row_cols: Dict[str, torch.Tensor],
                       n_partitions: int, dtype: torch.dtype,
                       vector_rows: Optional[Tuple[Optional[torch.Tensor],
                                                   torch.Tensor]] = None,
-                      compensated: bool = False):
+                      compensated: bool = False,
+                      base: Optional[int] = None):
     """Dense per-partition columns from rows sorted by key2.
 
     skey2: key2 sorted ascending; perm: bounded-row index per sorted
@@ -402,6 +416,12 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
     coordinates are gathered through both permutations, no bounded copy is
     written. Returns {count, pid_count, [sum, nsum, nsum2], [vsum]} as
     dtype[n_partitions] (vsum dtype[n_partitions, D]).
+
+    base (the windowed entry, the blocked route's block): skey2 and perm
+    are a window of the sorted stream, row i belongs to partition
+    skey2[i] - base, and rows outside [0, n_partitions) are dropped.
+    perm None: the rows are in sorted order already, and pair_start,
+    row_cols and the vector rows are windows of the same length.
 
     compensated (numeric_mode="safe"): float32 sums are carried as TwoSum
     (hi, lo) pairs and emitted as hi + lo rounded once, exact for
@@ -413,13 +433,16 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
     n = skey2.shape[0]
     _check(skey2, torch.int32, n, "skey2")
     _check(perm, torch.int64, n, "perm")
-    _check(pair_start, torch.bool, n, "pair_start")
+    # The bounded rows: perm's values index them (length n without perm).
+    n_rows = n if perm is None else pair_start.shape[0]
+    _check(pair_start, torch.bool, n_rows, "pair_start")
     for name, col in row_cols.items():
-        _check(col, dtype, n, name)
+        _check(col, dtype, n_rows, name)
     row_perm, vec = vector_rows if vector_rows is not None else (None, None)
     if vec is not None:
-        _check(row_perm, torch.int64, n, "row_perm")
-        if vec.dtype != dtype or vec.dim() != 2 or not vec.is_contiguous():
+        _check(row_perm, torch.int64, n_rows, "row_perm")
+        if vec.dtype != dtype or vec.dim() != 2 or not vec.is_contiguous() \
+                or (perm is None and row_perm is None and vec.shape[0] != n):
             raise ValueError(f"vector values: expected contiguous "
                              f"{dtype}[n, D], got {vec.dtype}"
                              f"{list(vec.shape)}")
@@ -427,7 +450,7 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
                     *row_cols.values()):
         return reduce_partitions_plain(skey2, perm, pair_start, row_cols,
                                        n_partitions, dtype, vector_rows,
-                                       compensated)
+                                       compensated, base)
     dev = skey2.device
     lib = cuda_build.library("reduce_partitions")
     out = {name: torch.zeros(n_partitions, dtype=dtype, device=dev)
@@ -439,7 +462,7 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
     status = lib.reduce_partitions(
         _ptr(skey2), _ptr(perm), _ptr(pair_start), _ptr(row_cols.get("sum")),
         _ptr(row_cols.get("nsum")), _ptr(row_cols.get("nsum2")), n,
-        n_partitions, _ptr(scratch), _ptr(out["count"]),
+        n_partitions, int(base or 0), _ptr(scratch), _ptr(out["count"]),
         _ptr(out["pid_count"]), _ptr(out.get("sum")), _ptr(out.get("nsum")),
         _ptr(out.get("nsum2")), _f64(dtype), int(compensated), _stream(dev))
     _raise_on(status, "reduce_partitions")
@@ -452,24 +475,27 @@ def reduce_partitions(skey2: torch.Tensor, perm: torch.Tensor,
             dtype=torch.uint8, device=dev)
         status = lib.reduce_vectors(
             _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(vec), n, dim,
-            n_partitions, _ptr(vscratch), _ptr(out["vsum"]), _f64(dtype),
-            int(compensated), _stream(dev))
+            n_partitions, int(base or 0), _ptr(vscratch), _ptr(out["vsum"]),
+            _f64(dtype), int(compensated), _stream(dev))
         _raise_on(status, "reduce_partitions")
-    launch_counts["reduce_partitions_compensated" if compensated else
-                  "reduce_partitions"] += 1
+    name = ("reduce_partitions_compensated" if compensated else
+            "reduce_partitions")
+    launch_counts[name if base is None else f"{name}_windowed"] += 1
     return out
 
 
 def reduce_partitions_plain(skey2, perm, pair_start, row_cols, n_partitions,
-                            dtype, vector_rows=None, compensated=False):
+                            dtype, vector_rows=None, compensated=False,
+                            base=None):
     slots = n_partitions + 1  # slot n_partitions collects dropped rows
-    key = skey2.to(torch.int64).clamp(0, n_partitions)
+    rel = skey2.to(torch.int64) - (base or 0)
+    key = torch.where((rel >= 0) & (rel < n_partitions), rel, n_partitions)
     compensated = compensated and dtype == torch.float32
     if compensated:
         # The JAX package's safe mode: compensated prefixes over the
         # partition-sorted rows, differenced at the partition starts.
         starts = torch.searchsorted(
-            key, torch.arange(n_partitions + 1, device=key.device))
+            rel, torch.arange(n_partitions + 1, device=rel.device))
 
     def segment_sum(values):
         if compensated and values.is_floating_point():
@@ -483,22 +509,29 @@ def reduce_partitions_plain(skey2, perm, pair_start, row_cols, n_partitions,
                           device=values.device)
         return out.index_add_(0, key, values)[:n_partitions]
 
+    def take(a):
+        return a if perm is None else a[perm]
+
     out = {
         "count": segment_sum(torch.ones(skey2.shape[0], dtype=torch.int64,
                                         device=skey2.device)).to(dtype),
-        "pid_count": segment_sum(pair_start[perm].to(torch.int64)).to(dtype),
+        "pid_count": segment_sum(take(pair_start).to(torch.int64)).to(dtype),
     }
     for name, col in row_cols.items():
-        out[name] = segment_sum(col[perm])
+        out[name] = segment_sum(take(col))
     if vector_rows is not None:
         out["vsum"] = segment_sum(sorted_rows(perm, *vector_rows))
     return out
 
 
-def sorted_rows(perm: torch.Tensor, row_perm: Optional[torch.Tensor],
+def sorted_rows(perm: Optional[torch.Tensor],
+                row_perm: Optional[torch.Tensor],
                 values: torch.Tensor) -> torch.Tensor:
     """The values of the rows in partition-sorted order: sorted position i
-    holds bounded row perm[i], which is values[row_perm[perm[i]]]."""
+    holds bounded row perm[i], which is values[row_perm[perm[i]]] (a None
+    permutation is the identity)."""
+    if perm is None:
+        return values if row_perm is None else values[row_perm]
     return values[perm if row_perm is None else row_perm[perm]]
 
 
@@ -778,55 +811,69 @@ def leaf_indices(values: torch.Tensor, min_v: float, max_v: float,
 
 
 def _check_rows(skey2, perm, row_perm, values):
+    """skey2 / perm: the sorted rows (perm None: already in order);
+    row_perm and values are indexed through them, so only a stream with
+    neither permutation fixes their length."""
     n = skey2.shape[0]
     _check(skey2, torch.int32, n, "skey2")
     _check(perm, torch.int64, n, "perm")
-    _check(row_perm, torch.int64, n, "row_perm")
-    _check(values, values.dtype, n, "values")
+    if row_perm is not None:
+        _check(row_perm, torch.int64, row_perm.shape[0], "row_perm")
+    n_values = n if perm is None and row_perm is None else values.shape[0]
+    _check(values, values.dtype, n_values, "values")
     _f64(values.dtype)
 
 
+def _quantile_counts_name(base: Optional[int]) -> str:
+    return "quantile_counts" if base is None else "quantile_counts_windowed"
+
+
 def _kept_leaves(skey2, perm, row_perm, values, n_partitions, n_leaves,
-                 min_v, max_v):
+                 min_v, max_v, base=None):
     """(partition, leaf) of every kept row, in partition-sorted order."""
-    kept = skey2 < n_partitions
+    rel = skey2.to(torch.int64) - (base or 0)
+    kept = (rel >= 0) & (rel < n_partitions)
     leaf = leaf_indices(sorted_rows(perm, row_perm, values), min_v, max_v,
                         n_leaves)
-    return skey2[kept].to(torch.int64), leaf[kept]
+    return rel[kept], leaf[kept]
 
 
-def quantile_leaf_counts(skey2: torch.Tensor, perm: torch.Tensor,
+def quantile_leaf_counts(skey2: torch.Tensor, perm: Optional[torch.Tensor],
                          row_perm: Optional[torch.Tensor],
                          values: torch.Tensor, *, n_partitions: int,
-                         n_leaves: int, min_v: float,
-                         max_v: float) -> torch.Tensor:
+                         n_leaves: int, min_v: float, max_v: float,
+                         base: Optional[int] = None) -> torch.Tensor:
     """C7 (a): the leaf histogram int32[P, L] of the kept rows.
 
     Rows come in partition-sorted order (C5's perm / skey2 after C2); the
     value of sorted row i is values[row_perm[perm[i]]] (row_perm None:
     values[perm[i]]), unclipped, and its leaf is leaf_indices(value).
     Integer counts: exact and independent of the order of the additions.
+    base (the windowed entry, one block of the blocked route): sorted row
+    i belongs to partition skey2[i] - base, rows outside [0, P) count
+    nowhere, and perm may be None (rows in sorted order already).
     """
     _check_rows(skey2, perm, row_perm, values)
     if not _on_cuda(skey2, perm, row_perm, values):
         return quantile_leaf_counts_plain(
             skey2, perm, row_perm, values, n_partitions=n_partitions,
-            n_leaves=n_leaves, min_v=min_v, max_v=max_v)
+            n_leaves=n_leaves, min_v=min_v, max_v=max_v, base=base)
     dev = skey2.device
     hist = torch.zeros(n_partitions, n_leaves, dtype=torch.int32, device=dev)
     status = cuda_build.library("quantile_counts").quantile_leaf_counts(
         _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(values),
-        skey2.shape[0], n_partitions, n_leaves, float(min_v), float(max_v),
-        _ptr(hist), _f64(values.dtype), _stream(dev))
+        skey2.shape[0], int(base or 0), n_partitions, n_leaves, float(min_v),
+        float(max_v), _ptr(hist), _f64(values.dtype), _stream(dev))
     _raise_on(status, "quantile_counts")
-    launch_counts["quantile_counts"] += 1
+    launch_counts[_quantile_counts_name(base)] += 1
     return hist
 
 
 def quantile_leaf_counts_plain(skey2, perm, row_perm, values, *,
-                               n_partitions, n_leaves, min_v, max_v):
+                               n_partitions, n_leaves, min_v, max_v,
+                               base=None):
     p, leaf = _kept_leaves(skey2, perm, row_perm, values, n_partitions,
-                           n_leaves, min_v, max_v)
+                           n_leaves, min_v, max_v, base)
     hist = torch.bincount(p * n_leaves + leaf,
                           minlength=n_partitions * n_leaves)
     return hist.to(torch.int32).reshape(n_partitions, n_leaves)
@@ -873,16 +920,18 @@ def quantile_level_counts_plain(leaf_counts, *, tree_height, branching):
     return levels[::-1]
 
 
-def quantile_child_counts(skey2: torch.Tensor, perm: torch.Tensor,
+def quantile_child_counts(skey2: torch.Tensor, perm: Optional[torch.Tensor],
                           row_perm: Optional[torch.Tensor],
                           values: torch.Tensor, node: torch.Tensor, *,
                           level: int, tree_height: int, branching: int,
-                          min_v: float, max_v: float) -> torch.Tensor:
+                          min_v: float, max_v: float,
+                          base: Optional[int] = None) -> torch.Tensor:
     """C7 (c): for every partition p and quantile q, the counts of the B
     children at `level` (1..h) of node[p, q] (a node of level - 1), over
     the kept rows whose level-`level` node lies under it: int32[P, n_q, B].
     One pass over the rows serves every quantile; the counts equal the JAX
     package's per-quantile segment sums (_lazy_quantile_outputs, :796).
+    base: the windowed entry, as for quantile_leaf_counts.
     """
     _check_rows(skey2, perm, row_perm, values)
     p, n_q = node.shape
@@ -895,25 +944,26 @@ def quantile_child_counts(skey2: torch.Tensor, perm: torch.Tensor,
         return quantile_child_counts_plain(
             skey2, perm, row_perm, values, node, level=level,
             tree_height=tree_height, branching=branching, min_v=min_v,
-            max_v=max_v)
+            max_v=max_v, base=base)
     dev = skey2.device
     counts = torch.zeros(p, n_q, branching, dtype=torch.int32, device=dev)
     status = cuda_build.library("quantile_counts").quantile_child_counts(
         _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(values),
-        skey2.shape[0], p, branching**tree_height,
+        skey2.shape[0], int(base or 0), p, branching**tree_height,
         branching**(tree_height - level), branching, _ptr(node), n_q,
         float(min_v), float(max_v), _ptr(counts), _f64(values.dtype),
         _stream(dev))
     _raise_on(status, "quantile_counts")
-    launch_counts["quantile_counts"] += 1
+    launch_counts[_quantile_counts_name(base)] += 1
     return counts
 
 
 def quantile_child_counts_plain(skey2, perm, row_perm, values, node, *,
-                                level, tree_height, branching, min_v, max_v):
+                                level, tree_height, branching, min_v, max_v,
+                                base=None):
     p_all, n_q = node.shape
     p, leaf = _kept_leaves(skey2, perm, row_perm, values, p_all,
-                           branching**tree_height, min_v, max_v)
+                           branching**tree_height, min_v, max_v, base)
     row_node = leaf // branching**(tree_height - level)
     match = node.to(torch.int64)[p] == (row_node // branching)[:, None]
     slot = ((p[:, None] * n_q + torch.arange(n_q, device=p.device)) *
@@ -1304,3 +1354,79 @@ def vector_release_plain(vsum, keep, flags, *, max_norm, norm_kind, std, key,
         out = clipped + draws * _noise_scale(std, dtype, gaussian).to(dev)
     flags |= numeric.column_flags(out, keep)
     return out
+
+
+# ---------------------------------------------------------------------------
+# C10 block_offsets
+
+
+def block_offsets(stream: torch.Tensor,
+                  boundaries: torch.Tensor) -> torch.Tensor:
+    """The row window of every partition block: offsets[j] = the first
+    position of the ascending int32 stream holding a value >= boundaries[j]
+    (searchsorted, side "left"), as int64[m]. Block j's rows are
+    [offsets[j], offsets[j + 1]); with the last boundary at the partition
+    count, offsets[-1] is the number of surviving rows."""
+    n = stream.shape[0]
+    m = boundaries.shape[0]
+    _check(stream, torch.int32, n, "stream")
+    _check(boundaries, torch.int32, m, "boundaries")
+    if not _on_cuda(stream, boundaries):
+        return block_offsets_plain(stream, boundaries)
+    dev = stream.device
+    offsets = torch.empty(m, dtype=torch.int64, device=dev)
+    status = cuda_build.library("block_offsets").block_offsets(
+        _ptr(stream), n, _ptr(boundaries), m, _ptr(offsets), _stream(dev))
+    _raise_on(status, "block_offsets")
+    launch_counts["block_offsets"] += 1
+    return offsets
+
+
+def block_offsets_plain(stream, boundaries):
+    return torch.searchsorted(stream, boundaries, side="left")
+
+
+# ---------------------------------------------------------------------------
+# C11 gather_rows
+
+GATHER_MAX_COLUMNS = 8
+
+
+def gather_rows(index: torch.Tensor,
+                columns: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Every column's rows at `index`: out[c] = columns[c][index] for [n]
+    or [n, D] columns of 1-, 4- or 8-byte elements (up to
+    GATHER_MAX_COLUMNS, each with its own n), through one int64 index [k]
+    whose entries lie in [0, n) of every column."""
+    k = index.shape[0]
+    _check(index, torch.int64, k, "index")
+    if len(columns) > GATHER_MAX_COLUMNS:
+        raise ValueError(f"gather_rows takes at most {GATHER_MAX_COLUMNS} "
+                         f"columns, got {len(columns)}")
+    for j, col in enumerate(columns):
+        if col.dim() not in (1, 2) or not col.is_contiguous() or \
+                col.element_size() not in (1, 4, 8):
+            raise ValueError(f"gather_rows column {j}: expected a "
+                             f"contiguous [n] or [n, D] column of 1-, 4- or "
+                             f"8-byte elements, got {col.dtype}"
+                             f"{list(col.shape)}")
+    if not _on_cuda(index, *columns):
+        return gather_rows_plain(index, columns)
+    dev = index.device
+    out = [torch.empty((k,) + tuple(c.shape[1:]), dtype=c.dtype, device=dev)
+           for c in columns]
+    n_cols = len(columns)
+    status = cuda_build.library("gather_rows").gather_rows(
+        _ptr(index), k, (ctypes.c_void_p * n_cols)(*[_ptr(c)
+                                                     for c in columns]),
+        (ctypes.c_void_p * n_cols)(*[_ptr(o) for o in out]),
+        (ctypes.c_int * n_cols)(*[c.element_size() for c in columns]),
+        (ctypes.c_int * n_cols)(*[1 if c.dim() == 1 else c.shape[1]
+                                  for c in columns]), n_cols, _stream(dev))
+    _raise_on(status, "gather_rows")
+    launch_counts["gather_rows"] += 1
+    return out
+
+
+def gather_rows_plain(index, columns):
+    return [c.index_select(0, index) for c in columns]

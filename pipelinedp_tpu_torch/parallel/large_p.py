@@ -1,0 +1,584 @@
+"""Very large partition spaces: the blocked partition-axis route.
+
+Port of pipelinedp_tpu/parallel/large_p.py for one device. Dense [0, P)
+columns are right up to P ~ 10^6; at P = 10^7..10^9 (the reference's
+unbounded-key shuffle regime, ``pipeline_dp/pipeline_backend.py:339-352``)
+the release runs over the partition axis in blocks of C partitions:
+
+  1. **Bound once** (pass 1): contribution bounding is a row-space
+     computation (executor.bounded_row_columns: C1, C5, C2), then one C5
+     sort by kept partition. The sorted stream (skey2, perm) holds the
+     kept rows in ascending partition order and the dropped rows, whose
+     key2 is the n_partitions sentinel, at its tail.
+  2. **Bin by partition block**: block b owns partitions [b*C, (b+1)*C);
+     C10 (block_offsets) finds every block's row window in the stream.
+     The last boundary is clamped to the range's end, so the sentinel rows
+     fall in no window and the last offset is the survivor count.
+  3. **Finalize per block**: C3's windowed entry reduces the block's rows
+     to dense [C] columns (partition = skey2 - base), C4 selects and
+     noises them under the block's own key, C7/C8 run its quantile trees
+     and C9 its vector sums, and C6 sorts kept partitions to the front.
+     Blocks are independent: selection and noise are pointwise over
+     partitions.
+  4. **Drain**: only each block's (n_kept, flag word) gate and its O(kept)
+     ids and values are copied to the host, into pinned memory without
+     blocking; at most PIPELINE_DEPTH blocks are in flight.
+
+Two row-staging regimes, switched on whether the rows fit one chunk:
+
+  * **Device-resident** (n <= row_chunk): pass 1 runs once and every
+    block reads its window through perm.
+  * **Host-staged** (n > row_chunk): rows are split into chunks on
+    privacy-id boundaries (_chunk_ends), each chunk is bounded and sorted
+    on the card, C11 (gather_rows) gathers its k survivors' columns, only
+    those O(kept) rows cross to the host, and the host merges the chunks
+    with one stable argsort and uploads the merged stream once; blocks
+    then read it in order (perm None).
+
+Random keys follow the JAX package's blocked functions, not the dense
+route: rows_key, final_key = split(rng_key); pass 1 under
+fold_in(rows_key, 0) (or fold_in(rows_key, ci) for host-staged chunk ci);
+block j of a range under _block_noise_key(final_key, generation, j),
+which finalize splits into (key_sel, key_noise), with the block's
+quantile trees under fold_in(block_key, 7919). Standalone selection
+splits rng_key into (key_l0, key_sel) and draws block j's keep decisions
+with the block key itself.
+
+Not ported yet (ROADMAP.md Queue 1): the failure-semantics knobs of the
+JAX functions (retry, journal, watchdog, the overlapped drainer and the
+OOM re-plan of run_with_degradation, item 13) and the meshed variants
+(item 12). Both functions keep the run_range(base, capacity, generation,
+end) shape and _block_noise_key's generations, so a re-plan slots in.
+"""
+
+import dataclasses
+import functools
+import logging
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pipelinedp_tpu_torch import executor
+from pipelinedp_tpu_torch import kernels
+from pipelinedp_tpu_torch import numeric
+from pipelinedp_tpu_torch.ops import threefry
+
+# Blocks in flight at once: each pins its O(C) outputs on the device until
+# the host has read its gate (runtime/pipeline.py of the JAX package).
+PIPELINE_DEPTH = 8
+
+# Key lane of OOM-re-planned block generations: a block key is a pure
+# function of (final_key, plan generation, block index), so a re-planned
+# block (another partition geometry) never reuses a consumed key.
+_REPLAN_KEY_LANE = 0x7265706C  # 'repl'
+
+
+def _block_noise_key(final_key, generation: int, block: int) -> np.ndarray:
+    """The key of block `block` of plan generation `generation`
+    (large_p.py:110-117 of the JAX package)."""
+    if generation == 0:
+        return threefry.fold_in(final_key, block)
+    return threefry.fold_in(
+        threefry.fold_in(final_key, _REPLAN_KEY_LANE + generation), block)
+
+
+def round_capacity(x: int, min_cap: int = 8) -> int:
+    """Round up keeping 4 significant bits (at most 6.25% slack, 12.5% just
+    above a power of two): the JAX package's pass-1 row capacity
+    (parallel/mesh.py:296)."""
+    x = max(int(x), min_cap)
+    step = 1 << max((x - 1).bit_length() - 4, 3)
+    return -(-x // step) * step
+
+
+def _block_boundaries(base: int, capacity: int, n_blocks: int) -> np.ndarray:
+    """int32 block boundaries over [base, base + n_blocks * capacity],
+    clamped into int32 range (large_p.py:811-818 of the JAX package)."""
+    return np.minimum(
+        base + np.arange(n_blocks + 1, dtype=np.int64) * capacity,
+        np.iinfo(np.int32).max).astype(np.int32)
+
+
+def _chunk_ends(pid_sorted: np.ndarray, row_chunk: int) -> np.ndarray:
+    """Chunk end offsets, each extended to the next privacy-id boundary:
+    a privacy id's rows stay in one chunk, since L0 bounding is global per
+    id (large_p.py:230 of the JAX package)."""
+    n = len(pid_sorted)
+    ends = []
+    start = 0
+    while start < n:
+        end = min(start + row_chunk, n)
+        if end < n:
+            end = int(np.searchsorted(pid_sorted, pid_sorted[end - 1],
+                                      side="right"))
+        if end - start > 2 * row_chunk:
+            logging.warning(
+                "large_p: a single privacy id spans %d rows (> 2x row_chunk="
+                "%d); its chunk cannot be split without breaking per-id "
+                "contribution bounding. Device memory for this chunk scales "
+                "with that id's row count.", end - start, row_chunk)
+        ends.append(end)
+        start = end
+    return np.asarray(ends)
+
+
+@dataclasses.dataclass
+class _Stream:
+    """Pass 1's rows in ascending kept-partition order (the dropped rows'
+    n_partitions sentinel at the tail). perm maps a sorted row to its
+    bounded row, whose pair_start and columns it indexes, and the value of
+    bounded row r is values[row_perm[r]]; perm None (the host-staged
+    stream) means every array is already in sorted order."""
+    skey2: torch.Tensor
+    perm: Optional[torch.Tensor]
+    pair_start: torch.Tensor
+    cols: Dict[str, torch.Tensor]
+    row_perm: Optional[torch.Tensor] = None
+    values: Optional[torch.Tensor] = None
+
+    def window(self, lo: int, hi: int):
+        """(skey2, perm, pair_start, cols, (row_perm, values)) of sorted
+        rows [lo, hi), as C3's and C7's windowed entries take them."""
+        if self.perm is not None:
+            return (self.skey2[lo:hi], self.perm[lo:hi], self.pair_start,
+                    self.cols, (self.row_perm, self.values))
+        return (self.skey2[lo:hi], None, self.pair_start[lo:hi],
+                {name: col[lo:hi] for name, col in self.cols.items()},
+                (None, None if self.values is None else self.values[lo:hi]))
+
+
+class _HostCopy:
+    """A device tensor on its way to the host: on a CUDA tensor a copy into
+    pinned memory that does not block, done once the CUDA event recorded
+    after it has passed; on the CPU the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host, self._event = t, None
+
+    def wait(self) -> torch.Tensor:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host
+
+
+class _StagedDrain:
+    """O(kept) result copies started when a block is consumed and read
+    once, after the dispatch loop: the copies overlap each other and the
+    blocks still computing."""
+
+    def __init__(self):
+        self._staged = []
+
+    def stage(self, target: list, t: torch.Tensor, transform=None) -> None:
+        self._staged.append((target, _HostCopy(t), transform))
+
+    def materialize(self) -> None:
+        for target, copy, transform in self._staged:
+            host = copy.wait().numpy()
+            target.append(transform(host) if transform else host)
+        self._staged.clear()
+
+
+@dataclasses.dataclass
+class _BlockResult:
+    """One dispatched block: its gate on the way to the host, the kept-
+    first order and output columns on the device."""
+    gate: _HostCopy
+    order: torch.Tensor
+    outputs: Dict[str, torch.Tensor]
+
+
+def _dispatch_blocks(block_iter, consume,
+                     max_in_flight: int = PIPELINE_DEPTH) -> int:
+    """Issues every block of block_iter ((j, make) pairs, make() launching
+    block j) with at most max_in_flight dispatched and not yet consumed;
+    consume(j, result) reads block j's gate and stages its drain, oldest
+    first. Returns the number of blocks dispatched."""
+    pending = deque()
+    n_dispatched = 0
+    for j, make in block_iter:
+        pending.append((j, make()))
+        n_dispatched += 1
+        if len(pending) >= max_in_flight:
+            consume(*pending.popleft())
+    while pending:
+        consume(*pending.popleft())
+    return n_dispatched
+
+
+def _placement(pid, values, device, dtype) -> Tuple[torch.device,
+                                                    torch.dtype]:
+    """The device (given, else the inputs', else cuda) and working float
+    dtype (given, else the values', else float32) of a run."""
+    if device is None:
+        device = (pid.device if isinstance(pid, torch.Tensor) else
+                  torch.device("cuda"))
+    if dtype is None:
+        dtype = (values.dtype if isinstance(values, torch.Tensor) and
+                 values.is_floating_point() else torch.float32)
+    return torch.device(device), dtype
+
+
+def _to_host(a) -> Optional[np.ndarray]:
+    if a is None or isinstance(a, np.ndarray):
+        return a
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
+def _padded(a, cap: int, fill, device, dtype) -> torch.Tensor:
+    """Column `a` on the device as dtype, padded to cap rows with fill."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    t = t.to(device=device, dtype=dtype)
+    if t.shape[0] < cap:
+        t = torch.cat([t, torch.full((cap - t.shape[0],) + tuple(t.shape[1:]),
+                                     fill, dtype=dtype, device=device)])
+    return t.contiguous()
+
+
+def _device_rows(pid, pk, values, valid, device, dtype):
+    """The rows on the device, padded to round_capacity(n) with invalid
+    rows, as the JAX package's pass 1 pads them (values None: none)."""
+    cap = round_capacity(len(pid))
+    return (_padded(pid, cap, 0, device, torch.int32),
+            _padded(pk, cap, 0, device, torch.int32),
+            None if values is None else _padded(values, cap, 0, device,
+                                                dtype),
+            _padded(valid, cap, False, device, torch.bool))
+
+
+def _bound_compact(pid, pk, values, valid, scalars, key,
+                   cfg: executor.KernelConfig) -> _Stream:
+    """Pass 1 on the device: bounding (C1, C5, C2), then C5 by kept
+    partition (large_p.py:120-153 of the JAX package)."""
+    key2, pair_start, cols, (row_perm, vals) = executor.bounded_row_columns(
+        pid, pk, values, valid, *scalars, key, cfg)
+    perm, skey2 = kernels.radix_sort([key2], sorted_top=True)
+    return _Stream(skey2, perm, pair_start, cols, row_perm, vals)
+
+
+def _survivors(stream: _Stream, n_partitions: int, want_values: bool):
+    """The kept rows of one chunk's stream, on the host: skey2, and
+    pair_start, the columns and (want_values) the value rows gathered by
+    C11 through perm (and row_perm), O(kept) bytes in all."""
+    bound = torch.tensor([n_partitions], dtype=torch.int32,
+                         device=stream.skey2.device)
+    k = int(kernels.block_offsets(stream.skey2, bound)[0])
+    idx = stream.perm[:k]
+    names = list(stream.cols)
+    columns = [stream.pair_start] + [stream.cols[m] for m in names]
+    if want_values and stream.row_perm is not None:
+        columns.append(stream.row_perm)
+    got = kernels.gather_rows(idx, columns)
+    values = None
+    if want_values:
+        vidx = got[-1] if stream.row_perm is not None else idx
+        values = kernels.gather_rows(vidx, [stream.values])[0].cpu().numpy()
+    return (stream.skey2[:k].cpu().numpy(), got[0].cpu().numpy(),
+            {m: got[1 + j].cpu().numpy() for j, m in enumerate(names)},
+            values)
+
+
+def _bound_and_compact_host_staged(pid, pk, values, valid, scalars,
+                                   rows_key, cfg: executor.KernelConfig,
+                                   row_chunk: int, device,
+                                   dtype) -> _Stream:
+    """n > row_chunk: pass 1 chunk by chunk on privacy-id boundaries, each
+    chunk's survivors staged on the host, merged by one stable argsort and
+    uploaded once (large_p.py:647-692 of the JAX package)."""
+    pid, pk, values, valid = (_to_host(pid), _to_host(pk), _to_host(values),
+                              _to_host(valid))
+    order = np.argsort(pid, kind="stable")
+    pid_s, pk_s, values_s, valid_s = (pid[order], pk[order], values[order],
+                                      valid[order])
+    want_values = bool(cfg.quantiles or cfg.vector_size)
+    parts = []
+    start = 0
+    for ci, end in enumerate(_chunk_ends(pid_s, row_chunk)):
+        sl = slice(start, end)
+        rows = _device_rows(pid_s[sl], pk_s[sl], values_s[sl], valid_s[sl],
+                            device, dtype)
+        stream = _bound_compact(*rows, scalars,
+                                threefry.fold_in(rows_key, ci), cfg)
+        parts.append(_survivors(stream, cfg.n_partitions, want_values))
+        start = end
+    skey2 = np.concatenate([p[0] for p in parts])
+    order2 = np.argsort(skey2, kind="stable")
+
+    def merged(chunks, torch_dtype):
+        return torch.as_tensor(np.concatenate(chunks)[order2]).to(
+            device=device, dtype=torch_dtype)
+
+    cols = {m: merged([p[2][m] for p in parts], dtype) for m in parts[0][2]}
+    return _Stream(
+        merged([skey2], torch.int32), None,
+        merged([p[1] for p in parts], torch.bool), cols,
+        values=(merged([p[3] for p in parts], dtype) if want_values else
+                None))
+
+
+def _offsets(stream: _Stream, base: int, capacity: int, n_blocks: int,
+             end: int) -> np.ndarray:
+    """The row windows of the range's blocks (C10), on the host. The last
+    boundary is clamped to `end`: the sentinel key2 = n_partitions lies in
+    no window, whatever P % capacity."""
+    bounds = np.minimum(_block_boundaries(base, capacity, n_blocks), end)
+    return kernels.block_offsets(
+        stream.skey2,
+        torch.as_tensor(bounds).to(stream.skey2.device)).cpu().numpy()
+
+
+def _block(stream: _Stream, lo: int, hi: int, b_base: int, key, min_v,
+           max_v, mid, stds: np.ndarray, cfg: executor.KernelConfig,
+           secure_tables, dtype: torch.dtype) -> _BlockResult:
+    """Finalizes partitions [b_base, b_base + cfg.n_partitions) from sorted
+    rows [lo, hi) (large_p.py:156-212 of the JAX package): C3's windowed
+    entry, C4 under the block key, C7/C8 (PERCENTILE) under
+    fold_in(key, 7919), C9 (VECTOR_SUM), then C6."""
+    skey2, perm, pair_start, cols, vrows = stream.window(lo, hi)
+    dense = kernels.reduce_partitions(
+        skey2, perm, pair_start, cols, cfg.n_partitions, dtype,
+        vrows if cfg.vector_size else None,
+        compensated=cfg.numeric_mode == "safe", base=b_base)
+    dense["row_count"] = dense["pid_count"]
+    outputs, keep, flags = executor.finalize(dense, min_v, mid, stds, key,
+                                             cfg, secure_tables)
+    if cfg.quantiles:
+        outputs.update(executor.quantile_outputs(
+            (perm, skey2), vrows, min_v, max_v, stds,
+            threefry.fold_in(key, 7919), keep, flags, cfg, dtype,
+            secure_tables, base=b_base))
+    n_kept, order, outputs = kernels.compact_kept(keep, outputs)
+    gate = _HostCopy(torch.stack([n_kept.reshape(()).to(torch.int64),
+                                  flags.reshape(()).to(torch.int64)]))
+    return _BlockResult(gate, order, outputs)
+
+
+def _selection_block(stream: _Stream, lo: int, hi: int, b_base: int,
+                     c_actual: int, key, selection,
+                     dtype: torch.dtype) -> _BlockResult:
+    """Keep decisions for partitions [b_base, b_base + c_actual) from the
+    kept-pair rows [lo, hi) (large_p.py:1008-1047 of the JAX package):
+    C3's windowed pid_count, C4 with an empty plan drawing under the block
+    key itself, C6."""
+    skey2, perm, pair_start, _, _ = stream.window(lo, hi)
+    cols = kernels.reduce_partitions(skey2, perm, pair_start, {}, c_actual,
+                                     dtype, base=b_base)
+    n_kept, order = executor.select_release(cols, selection, key)
+    return _BlockResult(_HostCopy(n_kept.reshape(1)), order, {})
+
+
+def _add_time(phase_times: Optional[dict], name: str, since: float) -> None:
+    if phase_times is not None:
+        phase_times[name] = (phase_times.get(name, 0.0) +
+                             time.perf_counter() - since)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _n_blocks(base: int, capacity: int, end: int) -> int:
+    return -(-(end - base) // capacity) if end > base else 0
+
+
+def select_partitions_blocked(pid, pk, valid, rng_key, l0: int,
+                              n_partitions: int, selection, *,
+                              block_partitions: int = 1 << 20,
+                              device=None,
+                              dtype: Optional[torch.dtype] = None
+                              ) -> np.ndarray:
+    """Standalone DP partition selection over a huge partition space.
+
+    The semantics of executor.select_partitions_release_kernel, but no
+    [P] vector ever exists: pass 1 (executor.select_kept_pair_stream)
+    sorts the L0-sampled pairs' rows by partition, and each block of
+    block_partitions partitions with a kept pair draws its keep decisions
+    and sends only its kept ids to the host. device / dtype: where the
+    kernels run and the float width of the keep probabilities (defaults
+    as _placement). Returns kept_partition_ids int64[M], ascending.
+    """
+    P = n_partitions
+    key_l0, key_sel = threefry.split(rng_key, 2)
+    device, dtype = _placement(pid, None, device, dtype)
+    pid_t, pk_t, _, valid_t = _device_rows(pid, pk, None, valid, device,
+                                           dtype)
+    skey2, perm, pair_start = executor.select_kept_pair_stream(
+        pid_t, pk_t, valid_t, key_l0, l0, P)
+    stream = _Stream(skey2, perm, pair_start, {})
+    capacity = min(block_partitions, P)
+    kept_ids: List[np.ndarray] = []
+    drain = _StagedDrain()
+
+    def run_range(base, capacity, generation, end):
+        n_blocks = _n_blocks(base, capacity, end)
+        offsets = _offsets(stream, base, capacity, n_blocks, end)
+
+        def consume(j, result):
+            k = int(result.gate.wait()[0])
+            if k:
+                drain.stage(kept_ids, result.order[:k],
+                            lambda h, b=base + j * capacity:
+                            h.astype(np.int64) + b)
+
+        def block_iter():
+            for j in range(n_blocks):
+                lo, hi = int(offsets[j]), int(offsets[j + 1])
+                if lo == hi:
+                    # No kept pair: every partition's keep probability is
+                    # 0, so the block provably emits nothing.
+                    continue
+                b_base = base + j * capacity
+                yield j, functools.partial(
+                    _selection_block, stream, lo, hi, b_base,
+                    min(capacity, end - b_base),
+                    _block_noise_key(key_sel, generation, j), selection,
+                    dtype)
+
+        _dispatch_blocks(block_iter(), consume)
+
+    run_range(0, capacity, 0, P)
+    drain.materialize()
+    # Blocks are consumed in order and each block's kept ids come
+    # ascending (C6 is stable): the concatenation is ascending.
+    return (np.concatenate(kept_ids) if kept_ids else
+            np.zeros(0, np.int64))
+
+
+def aggregate_blocked(pid, pk, values, valid, min_v, max_v, min_s, max_s,
+                      mid, stds, rng_key, cfg: executor.KernelConfig, *,
+                      block_partitions: int = 1 << 20,
+                      row_chunk: int = 1 << 24,
+                      secure_tables=None,
+                      phase_times: Optional[dict] = None,
+                      device=None,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """DP aggregation over an arbitrarily large partition space.
+
+    The semantics of executor.aggregate_release_kernel, percentiles and
+    vector sums included, with the partition axis processed in blocks of
+    block_partitions and only kept partitions returned. Inputs are host
+    arrays or tensors; n <= row_chunk rows run pass 1 once on the device,
+    more go through the host-staged regime. secure_tables: (thr, gran) of
+    executor.build_secure_tables, required when cfg.secure. device /
+    dtype: where the kernels run and the working float width (defaults as
+    _placement).
+
+    phase_times: optional dict filled with wall seconds by phase, as the
+    JAX package's aggregate_blocked (p1_bound_compact, block_offsets,
+    p2_blocks_total, p2_sync_wait, p2_drain, blocks_dispatched, total),
+    plus p2_dispatch, the host's time issuing the blocks (key derivation
+    and launches). It adds one device synchronisation after pass 1.
+
+    Returns (kept_partition_ids int64[M] ascending, {metric: array[M]}).
+    """
+    t0 = time.perf_counter()
+    device, dtype = _placement(pid, values, device, dtype)
+    P = cfg.n_partitions
+    n = len(pid)
+    if values is None:
+        values = np.zeros(n)
+    stds = np.asarray(stds, dtype=np.float64)
+    rows_key, final_key = threefry.split(rng_key, 2)
+    scalars = (min_v, max_v, min_s, max_s, mid)
+
+    # Pass 1: bound the rows, sort the survivors by partition.
+    if n <= row_chunk:
+        stream = _bound_compact(
+            *_device_rows(pid, pk, values, valid, device, dtype), scalars,
+            threefry.fold_in(rows_key, 0), cfg)
+    else:
+        stream = _bound_and_compact_host_staged(
+            pid, pk, values, valid, scalars, rows_key, cfg, row_chunk,
+            device, dtype)
+    if phase_times is not None:
+        _sync(device)
+        phase_times["p1_bound_compact"] = time.perf_counter() - t0
+
+    # Pass 2: bin the stream by partition block, finalize each block.
+    output_names = [name for e in cfg.plan for name in e.outputs]
+    kept_ids: List[np.ndarray] = []
+    kept_outputs: Dict[str, List[np.ndarray]] = {m: [] for m in output_names}
+    drain = _StagedDrain()
+    n_dispatched = 0
+
+    def run_range(base, capacity, generation, end):
+        nonlocal n_dispatched
+        to = time.perf_counter()
+        n_blocks = _n_blocks(base, capacity, end)
+        offsets = _offsets(stream, base, capacity, n_blocks, end)
+        _add_time(phase_times, "block_offsets", to)
+
+        def consume(j, result):
+            b_base = base + j * capacity
+            ts = time.perf_counter()
+            gate = result.gate.wait()
+            _add_time(phase_times, "p2_sync_wait", ts)
+            ta = time.perf_counter()
+            k, flag_word = int(gate[0]), int(gate[1]) & 0xFFFFFFFF
+            # Fail closed before any of the block's values is kept.
+            numeric.check_release(flag_word, result.outputs,
+                                  context=f"blocked release (base {b_base})",
+                                  numeric_mode=cfg.numeric_mode)
+            if k:
+                drain.stage(kept_ids, result.order[:k],
+                            lambda h, b=b_base: h.astype(np.int64) + b)
+                for name, col in result.outputs.items():
+                    drain.stage(kept_outputs[name], col[:k])
+            _add_time(phase_times, "p2_drain", ta)
+
+        def launch(j, lo, hi, b_base, c_actual):
+            td = time.perf_counter()
+            result = _block(stream, lo, hi, b_base,
+                            _block_noise_key(final_key, generation, j),
+                            min_v, max_v, mid, stds,
+                            dataclasses.replace(cfg, n_partitions=c_actual),
+                            secure_tables, dtype)
+            _add_time(phase_times, "p2_dispatch", td)
+            return result
+
+        def block_iter():
+            for j in range(n_blocks):
+                lo, hi = int(offsets[j]), int(offsets[j + 1])
+                if lo == hi and cfg.private_selection:
+                    # Private selection keeps a row-less partition with
+                    # probability 0: the block provably emits nothing.
+                    # Public partitions are released, rows or not.
+                    continue
+                b_base = base + j * capacity
+                yield j, functools.partial(launch, j, lo, hi, b_base,
+                                           min(capacity, end - b_base))
+
+        n_dispatched += _dispatch_blocks(block_iter(), consume)
+
+    t2 = time.perf_counter()
+    run_range(0, min(block_partitions, P), 0, P)
+    td = time.perf_counter()
+    drain.materialize()
+    if phase_times is not None:
+        now = time.perf_counter()
+        _add_time(phase_times, "p2_drain", td)
+        phase_times["p2_blocks_total"] = now - t2
+        phase_times["blocks_dispatched"] = n_dispatched
+        phase_times["total"] = now - t0
+
+    # Blocks are consumed in ascending order and each emits its kept
+    # partitions ascending (C6 is stable): the concatenation is ascending.
+    kept = (np.concatenate(kept_ids) if kept_ids else
+            np.zeros(0, np.int64))
+    return kept, {
+        name: (np.concatenate(chunks) if chunks else np.zeros(0))
+        for name, chunks in kept_outputs.items()
+    }

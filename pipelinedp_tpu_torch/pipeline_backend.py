@@ -2,8 +2,9 @@
 
 Port of the dense route of pipelinedp_tpu/pipeline_backend.py TPUBackend.
 DPEngine.aggregate and DPEngine.select_partitions on a TorchBackend lower to
-the port's executor (executor.lazy_aggregate, lazy_select_partitions): nine
-CUDA kernels on the card.
+the port's executor (executor.lazy_aggregate, lazy_select_partitions): the
+dense route, or above large_partition_threshold the blocked route
+(parallel/large_p.py), on eleven CUDA kernels on the card.
 """
 
 from typing import Optional, Union
@@ -24,8 +25,10 @@ class TorchBackend:
       noise_seed: seeds every random choice of a release (None: fresh).
         The same seed releases the same partitions and noise words as
         pipelinedp_tpu.TPUBackend(noise_seed=...).
-      large_partition_threshold: above this many partitions the JAX
-        package takes its blocked route, which is not ported yet.
+      large_partition_threshold: above this many partitions both entry
+        points take the blocked route (parallel/large_p.py): the partition
+        axis runs in blocks of block_partitions, and only kept partitions
+        leave the device.
       dtype: the working float width: torch.float32 (the card's mode) or
         torch.float64 (parity with the JAX package under x64).
       secure_noise: release every noised column on a power-of-two grid
@@ -37,6 +40,9 @@ class TorchBackend:
         NumericOverflowError on Inf or saturation.
       snap_grid_bits: floors the secure-noise grid at 2**snap_grid_bits
         (None: the tables' own grid).
+      block_partitions: partitions per block of the blocked route (None:
+        the blocked route's default, 2^20), as
+        TPUBackend(block_partitions=...).
     """
 
     def __init__(self,
@@ -46,7 +52,8 @@ class TorchBackend:
                  dtype: torch.dtype = torch.float32,
                  secure_noise: bool = False,
                  numeric_mode: str = "fast",
-                 snap_grid_bits: Optional[int] = None):
+                 snap_grid_bits: Optional[int] = None,
+                 block_partitions: Optional[int] = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -67,6 +74,9 @@ class TorchBackend:
         if snap_grid_bits is not None:
             input_validators.validate_snap_grid_bits(snap_grid_bits,
                                                      "TorchBackend")
+        if block_partitions is not None:
+            input_validators.validate_block_partitions(block_partitions,
+                                                       "TorchBackend")
         self.device = device
         self.noise_seed = noise_seed
         self.large_partition_threshold = large_partition_threshold
@@ -74,3 +84,4 @@ class TorchBackend:
         self.secure_noise = secure_noise
         self.numeric_mode = numeric_mode
         self.snap_grid_bits = snap_grid_bits
+        self.block_partitions = block_partitions

@@ -441,15 +441,26 @@ def test_out_of_scope_backend_options_and_large_p_raise():
     for kwargs in (dict(numeric_mode="exact"), dict(snap_grid_bits=0.5)):
         with pytest.raises(ValueError, match="TorchBackend"):
             tdp.TorchBackend(device="cpu", **kwargs)
-    # The blocked large-P route is not ported.
-    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
-    engine = tdp.DPEngine(acc, tdp.TorchBackend(
-        device="cpu", large_partition_threshold=1))
-    result = engine.aggregate(
-        SIMPLE_ROWS, tdp.AggregateParams(metrics=[tdp.Metrics.COUNT],
-                                         max_partitions_contributed=1,
-                                         max_contributions_per_partition=1),
-        tdp.DataExtractors(lambda r: r[0], lambda r: r[1]), ["A", "B"])
-    acc.compute_budgets()
-    with pytest.raises(NotImplementedError, match="large_p"):
-        list(result)
+    # Above large_partition_threshold the blocked large-P route runs (it
+    # raised NotImplementedError before the route was ported): the same
+    # release as TPUBackend's blocked route, no refusal.
+    released = []
+    for mod, backend in (
+            (tdp, tdp.TorchBackend(device="cpu", noise_seed=SEED,
+                                   dtype=torch.float64,
+                                   large_partition_threshold=1)),
+            (pdp, pdp.TPUBackend(noise_seed=SEED,
+                                 large_partition_threshold=1))):
+        acc = mod.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        result = mod.DPEngine(acc, backend).aggregate(
+            SIMPLE_ROWS, mod.AggregateParams(
+                metrics=[mod.Metrics.COUNT], max_partitions_contributed=1,
+                max_contributions_per_partition=1),
+            mod.DataExtractors(lambda r: r[0], lambda r: r[1]), ["A", "B"])
+        acc.compute_budgets()
+        released.append(dict(result))
+    got, want = released
+    assert set(got) == set(want) == {"A", "B"}
+    for key in want:
+        assert abs(got[key].count - want[key].count) <= 1e-9 * max(
+            1.0, abs(want[key].count))

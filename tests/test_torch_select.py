@@ -168,15 +168,24 @@ def test_invalid_arguments_raise_as_in_jax(mod):
 
 
 def test_blocked_route_size_raises_not_implemented():
-    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
-    engine = tdp.DPEngine(acc, tdp.TorchBackend(
-        device="cpu", large_partition_threshold=1))
-    result = engine.select_partitions(
-        BIG_SMALL, tdp.SelectPartitionsParams(max_partitions_contributed=1),
-        extractors(tdp))
-    acc.compute_budgets()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*large_p"):
-        list(result)
+    # Above large_partition_threshold the blocked route selects (it raised
+    # NotImplementedError before the route was ported): the same list as
+    # TPUBackend's blocked route.
+    kept = []
+    for mod, backend in (
+            (tdp, tdp.TorchBackend(device="cpu", noise_seed=3,
+                                   dtype=torch.float64,
+                                   large_partition_threshold=1)),
+            (pdp, pdp.TPUBackend(noise_seed=3,
+                                 large_partition_threshold=1))):
+        acc = mod.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        result = mod.DPEngine(acc, backend).select_partitions(
+            BIG_SMALL,
+            mod.SelectPartitionsParams(max_partitions_contributed=1),
+            extractors(mod))
+        acc.compute_budgets()
+        kept.append(list(result))
+    assert kept[0] == kept[1] == ["big"]
 
 
 def test_selection_runs_the_kernels_path_in_order(monkeypatch):

@@ -100,6 +100,27 @@ large_p.py) adds to these phases:
   6. stages  (q) and (v) with CUDA events around every kernel wrapper and
              a host clock around the key derivation, beside aggregate_blocked's
              phase_times (waits, drains) and the decode
+The streamed ingest (DPEngine.aggregate / select_partitions of a
+ChunkSource; ingest.py, runtime/pipeline.py) adds:
+  2. kernels C12 factorize_codes and C13 lookup_codes on the hash rows of
+             the Netflix users (2^24 rows, 480,189 distinct), movies
+             (17,770) and (q)'s partitions (~4.7M): each equal to its
+             plain version, to the other and to the host encoder's codes,
+             beside torch.unique (not the same function) and
+             torch.searchsorted; C14 append_rows' grow (2^23 -> 2^24 rows)
+             and fill_tail on the host and hash routes' buffers, beside
+             torch.cat + torch.full
+  3. parity  small streamed aggregations and selections on the card in
+             float64 against the CPU: both encode modes, encode_threads 0
+             and 2, dense and blocked (threshold 16)
+  4. main    (x) = (a), (y) = (b) and (z) = (q) through a ChunkSource of
+             their raw columns in 16 chunks of 2^20 rows, encode_threads 4
+             ((x) encode_mode "host", (y) and (z) "hash_device"), each
+             release equal (==) to its pre-encoded twin's with the same
+             seed; wall time, rows/s and the ingest's share
+  6. stages  (a), (x) and (y) split: host encode (the workers' busy time),
+             vocabulary merge, h2d copies, C14, C12, release kernels, the
+             rest
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -223,9 +244,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import pipelinedp_tpu_torch as tdp
-    from pipelinedp_tpu_torch import columnar, cuda_build, executor, kernels
+    from pipelinedp_tpu_torch import (columnar, cuda_build, device_encode,
+                                      executor, ingest, kernels)
     from pipelinedp_tpu_torch.ops import threefry
     from pipelinedp_tpu_torch.parallel import large_p
+    from pipelinedp_tpu_torch.runtime import pipeline as rt_pipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -243,9 +266,10 @@ def main() -> int:
     users, movies, ratings = netflix_rows(rng)
     enc_start = time.perf_counter()
     encoded = columnar.encode_columns(users, movies, ratings)
+    encode_s = time.perf_counter() - enc_start
     print(f"data: {N_ROWS} rows, {encoded.n_privacy_ids} privacy ids, "
-          f"{encoded.n_partitions} partitions, encoded in "
-          f"{time.perf_counter() - enc_start:.1f} s", flush=True)
+          f"{encoded.n_partitions} partitions, encoded in {encode_s:.1f} s",
+          flush=True)
     if encoded.n_partitions != N_MOVIES:
         raise AssertionError(f"{encoded.n_partitions} movies drawn, "
                              f"expected {N_MOVIES}")
@@ -253,7 +277,8 @@ def main() -> int:
     years = by_release_year(encoded)
     onehot = one_hot_ratings(encoded)
     enc_start = time.perf_counter()
-    qenc = columnar.encode_columns(*zipfish_rows())
+    qraw = zipfish_rows()
+    qenc = columnar.encode_columns(*qraw)
     qmax = data_maxima(qenc.pid, qenc.pk, qenc.n_partitions)
     nmax = data_maxima(encoded.pid, encoded.pk, encoded.n_partitions)
     print(f"data (q): {qenc.n_rows} rows, {qenc.n_privacy_ids} privacy ids, "
@@ -270,6 +295,11 @@ def main() -> int:
                                        executor, threefry)
     report += large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p,
                                    threefry, tdp, card)
+    report += ingest_kernel_phase(
+        torch, dev, {"users": (users, encoded.pid),
+                     "movies": (movies, encoded.pk),
+                     "q partitions": (qraw[1], qenc.pk)},
+        kernels, device_encode, ingest, card)
 
     # 3. parity ------------------------------------------------------------
     parity_phase(torch, tdp, rng)
@@ -277,8 +307,11 @@ def main() -> int:
     select_parity_phase(torch, tdp, rng)
     secure_safe_parity_phase(torch, tdp, kernels, rng)
     large_p_parity_phase(torch, tdp, rng)
+    ingest_parity_phase(torch, tdp, rng)
 
     # 4.-5. main paths -----------------------------------------------------
+    streamed = {"netflix": ((users, movies, ratings), encoded),
+                "q": (qraw, qenc)}
     launches = main_phase(torch, tdp, encoded, kernels, card)
     for phase in (quantile_vector_main_phase(torch, dev, tdp, encoded, years,
                                              onehot, kernels, executor,
@@ -287,12 +320,16 @@ def main() -> int:
                                          kernels, card),
                   select_phase(torch, tdp, encoded, kernels, card),
                   large_p_main_phase(torch, tdp, qenc, qmax, encoded, nmax,
-                                     kernels, large_p, card)):
+                                     kernels, large_p, card),
+                  ingest_main_phase(torch, tdp, streamed, kernels, executor,
+                                    card)):
         for name, count in phase.items():
             launches[name] += count
     kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card)
     large_p_stage_phase(torch, tdp, qenc, encoded, nmax, kernels, large_p,
                         threefry, card)
+    ingest_stage_phase(torch, tdp, streamed, kernels, executor, ingest,
+                       rt_pipeline, encode_s, card)
     profile_phase(torch, tdp, encoded, card)
     for entry in report:
         entry["launches"] = launches[entry["name"]]
@@ -3169,6 +3206,464 @@ def short_kernel_name(key: str) -> str:
     """A kernel's name without its parameter list (copies keep theirs)."""
     key = key.replace("void ", "").replace("(anonymous namespace)::", "")
     return key if key.startswith("Memcpy") else key.split("(")[0]
+
+
+# --- The streamed ingest (ChunkSource; C12-C14) ------------------------------
+
+INGEST_CHUNK = 1 << 20  # rows a chunk of (x), (y) and (z): 16 chunks
+INGEST_THREADS = 4
+# The kernels the release kernels' stage wrappers time (kernel_stage_phase
+# and ingest_stage_phase).
+RELEASE_WRAPPERS = ("row_keys", "radix_sort", "bound_rows",
+                    "reduce_partitions", "release_epilogue", "compact_kept")
+
+
+def stream_chunks(pid, pk, values, rows=None):
+    """Raw columns as a list of (pid, pk, values) chunks of `rows` rows
+    (default INGEST_CHUNK), views of the columns."""
+    rows = rows or INGEST_CHUNK
+    return [(pid[i:i + rows], pk[i:i + rows], values[i:i + rows])
+            for i in range(0, len(pid), rows)]
+
+
+def ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode, ingest,
+                        card):
+    """C12 factorize_codes and C13 lookup_codes on the full-size hash rows
+    of three key columns (Netflix users: 480,189 distinct; movies: 17,770;
+    (q)'s partitions: ~4.7M), each equal to its plain version, C12 equal to
+    C13 and to the host encoder's first-occurrence codes; C14's grow and
+    fill_tail on 2^24-row buffers, equal to their plain versions. Returns
+    the report rows (C12 and C13 on the user hashes, C14 grow on the host
+    route's buffers)."""
+    report = []
+    for label, (raw, host_codes) in key_sets.items():
+        h1, h2 = ingest.hash_key_column_pair(raw)
+        rows = torch.from_numpy(
+            device_encode.pack_hash_rows(h1).view(np.int32)).to(dev)
+        # The merged table of one chunk: distinct hashes ascending, their
+        # first positions.
+        s1, _, _, first = ingest._hash_uniques(h1, h2, None)
+        n = rows.shape[0]
+        codes, n_unique = kernels.factorize_codes(rows)
+        plain_codes, plain_n = kernels.factorize_codes_plain(rows)
+        err12 = check_equal(f"factorize_codes ({label})", codes,
+                            plain_codes)
+        check_equal(f"factorize_codes ({label}) vs the host encoder", codes,
+                    torch.from_numpy(host_codes).to(dev))
+        if not int(n_unique) == int(plain_n) == len(s1):
+            raise AssertionError(f"factorize_codes ({label}): {n_unique} / "
+                                 f"{plain_n} distinct, host {len(s1)}")
+        table, table_codes = device_encode.build_lookup_table(s1, first, dev)
+        looked = kernels.lookup_codes(rows, table, table_codes)
+        err13 = check_equal(f"lookup_codes ({label})", looked,
+                            kernels.lookup_codes_plain(rows, table,
+                                                       table_codes))
+        check_equal(f"lookup_codes ({label}) vs factorize_codes", looked,
+                    codes)
+        key64 = kernels.joined_hash_order(rows[:, 0], rows[:, 1])
+        table64 = kernels.joined_hash_order(table[:, 0], table[:, 1])
+        v_cap = table.shape[0]
+        c12 = (lambda: kernels.factorize_codes(rows),  # noqa: E731
+               lambda: kernels.factorize_codes_plain(rows), None,
+               # Rows read once, codes written once; one compare a row.
+               bound(n * 12 + n * 4 + 4, n))
+        c13 = (lambda: kernels.lookup_codes(rows, table,  # noqa: E731
+                                            table_codes),
+               lambda: kernels.lookup_codes_plain(rows, table, table_codes),
+               lambda: torch.searchsorted(table64, key64),
+               bound(n * 12 + n * 4 + v_cap * 12,
+                     n * 3 * max(1, v_cap.bit_length())))
+        ms = {}
+        for name, (fn, plain, lib, _) in (("factorize_codes", c12),
+                                          ("lookup_codes", c13)):
+            ms[name] = (cuda_ms(fn, repeats=10),
+                        cuda_ms(plain, repeats=3, warmup=1),
+                        cuda_ms(lib, repeats=10) if lib else None)
+        unique_ms = cuda_ms(lambda: torch.unique(key64, return_inverse=True),
+                            repeats=10)
+        print(f"kernels[ingest, {label}: {n} rows, {len(s1)} distinct "
+              f"hashes]: C12 factorize_codes ms={ms['factorize_codes'][0]:.4f}"
+              f" (its C5 sort included) plain_ms={ms['factorize_codes'][1]:.4f}"
+              f" bound_ms={c12[3][0]:.3g} ({c12[3][1]}); torch.unique("
+              f"return_inverse) {unique_ms:.4f} ms (not the same function: "
+              f"sorted-order codes); C13 lookup_codes ms="
+              f"{ms['lookup_codes'][0]:.4f} plain_ms="
+              f"{ms['lookup_codes'][1]:.4f} torch.searchsorted "
+              f"{ms['lookup_codes'][2]:.4f} ms bound_ms={c13[3][0]:.3g} "
+              f"({c13[3][1]}); both equal their plain versions, each other "
+              f"and the host encoder's codes ({card})", flush=True)
+        if label == "users":
+            for name, entry, err, src, repl in (
+                    ("factorize_codes", c12, err12, "factorize_codes.cu",
+                     "pipelinedp_tpu/device_encode.py:181"),
+                    ("lookup_codes", c13, err13, "lookup_codes.cu",
+                     "pipelinedp_tpu/device_encode.py:272")):
+                report.append({
+                    "name": name, "route": "cuda",
+                    "source": f"pipelinedp_tpu_torch/csrc/{src}",
+                    "replaces": repl, "launches": 0, "max_abs_err": err,
+                    "ms": ms[name][0], "plain_ms": ms[name][1],
+                    "bound_ms": entry[3][0], "bound_by": entry[3][1],
+                    "library_ms": ms[name][2]})
+        del rows, codes, plain_codes, looked, key64
+    # C14 on the host route's buffers (pid, pk int32; values float32) and
+    # the hash route's (two int32[., 3] hash columns).
+    n, half = N_ROWS, N_ROWS // 2
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    host_bufs = [torch.randint(0, 1 << 30, (half,), dtype=torch.int32,
+                               device=dev, generator=gen),
+                 torch.randint(-1, 17770, (half,), dtype=torch.int32,
+                               device=dev, generator=gen),
+                 torch.rand(half, device=dev, generator=gen)]
+    hash_bufs = [torch.randint(-(1 << 31), 1 << 31, (half, 3),
+                               dtype=torch.int32, device=dev, generator=gen)
+                 for _ in range(2)] + [host_bufs[2]]
+    out = {}
+    for label, bufs, fills in (("host route", host_bufs, (0, -1, 0.0)),
+                               ("hash route", hash_bufs, (-1, -1, 0.0))):
+        row_bytes = sum(b[0].numel() * b.element_size() for b in bufs)
+        grown = kernels.grow_rows(bufs, n, fills)
+        err_g = max(check_equal(f"grow_rows ({label}) column {j}", g, p)
+                    for j, (g, p) in enumerate(zip(
+                        grown, kernels.grow_rows_plain(bufs, n, fills))))
+        tail = [b.clone() for b in grown]
+        kernels.fill_tail(tail, 1, fills)
+        want = [b.clone() for b in grown]
+        kernels.fill_tail_plain(want, 1, fills)
+        err_f = max(check_equal(f"fill_tail ({label}) column {j}", t, w)
+                    for j, (t, w) in enumerate(zip(tail, want)))
+
+        def library_grow(bufs=bufs, fills=fills):
+            return [torch.cat([b, torch.full((n - half,) + tuple(b.shape[1:]),
+                                             f, dtype=b.dtype, device=dev)])
+                    for b, f in zip(bufs, fills)]
+
+        grow = (cuda_ms(lambda: kernels.grow_rows(bufs, n, fills), 10),
+                cuda_ms(lambda: kernels.grow_rows_plain(bufs, n, fills), 3,
+                        1), cuda_ms(library_grow, 10),
+                bound(half * row_bytes + n * row_bytes, 0))
+        fill = (cuda_ms(lambda: kernels.fill_tail(tail, 1, fills), 10),
+                cuda_ms(lambda: kernels.fill_tail_plain(tail, 1, fills), 3,
+                        1), bound((n - 1) * row_bytes, 0))
+        out[label] = (grow, err_g)
+        print(f"kernels[ingest, C14 append_rows, {label}, {row_bytes} B a "
+              f"row]: grow {half} -> {n} rows ms={grow[0]:.4f} plain_ms="
+              f"{grow[1]:.4f} torch.cat+torch.full {grow[2]:.4f} ms "
+              f"bound_ms={grow[3][0]:.3g} ({grow[3][1]}); fill_tail of "
+              f"{n - 1} rows ms={fill[0]:.4f} plain_ms={fill[1]:.4f} "
+              f"(three Tensor.fill_ calls; no one library call) bound_ms="
+              f"{fill[2][0]:.3g} ({fill[2][1]}); both equal their plain "
+              f"versions ({card})", flush=True)
+        del grown, tail, want
+    grow, err_g = out["host route"]
+    report.append({
+        "name": "append_rows", "route": "cuda",
+        "source": "pipelinedp_tpu_torch/csrc/append_rows.cu",
+        "replaces": "pipelinedp_tpu/runtime/pipeline.py:325",
+        "launches": 0, "max_abs_err": err_g, "ms": grow[0],
+        "plain_ms": grow[1], "bound_ms": grow[3][0], "bound_by": grow[3][1],
+        "library_ms": grow[2]})
+    return report
+
+
+def ingest_parity_phase(torch, tdp, rng):
+    """Small streamed aggregations and selections on the card (float64)
+    against the same on the CPU: both encode modes, encode_threads 0 and
+    2, the dense route and the blocked one (threshold 16, 8 partitions a
+    block): the same kept partitions, values within 1e-9 relative."""
+    n = 20000
+    users = rng.integers(0, 3000, n)
+    movies = (rng.integers(0, 60, n)**2) // 60
+    ratings = rng.integers(1, 6, n).astype(np.float64)
+    chunks = stream_chunks(users, movies, ratings, 3000)
+    M = tdp.Metrics
+    for mode in ("host", "hash_device"):
+        for threads in (0, 2):
+            for route, knobs in (("dense", {}), ("blocked", dict(
+                    large_partition_threshold=16, block_partitions=8))):
+                released, kept = [], []
+                for device in ("cuda", "cpu"):
+                    backend = dict(device=device, noise_seed=5,
+                                   dtype=torch.float64,
+                                   encode_threads=threads, **knobs)
+                    acc = tdp.NaiveBudgetAccountant(total_epsilon=2.0,
+                                                    total_delta=1e-6)
+                    res = tdp.DPEngine(acc, tdp.TorchBackend(
+                        **backend)).aggregate(
+                            tdp.ChunkSource(chunks, encode_mode=mode),
+                            tdp.AggregateParams(
+                                metrics=[M.COUNT, M.SUM, M.MEAN],
+                                noise_kind=tdp.NoiseKind.LAPLACE,
+                                max_partitions_contributed=4,
+                                max_contributions_per_partition=2,
+                                min_value=1.0, max_value=5.0),
+                            tdp.DataExtractors())
+                    acc.compute_budgets()
+                    released.append(dict(res))
+                    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0,
+                                                    total_delta=1e-6)
+                    res = tdp.DPEngine(acc, tdp.TorchBackend(
+                        **backend)).select_partitions(
+                            tdp.ChunkSource(chunks, encode_mode=mode),
+                            tdp.SelectPartitionsParams(
+                                max_partitions_contributed=4),
+                            tdp.DataExtractors())
+                    acc.compute_budgets()
+                    kept.append(list(res))
+                gpu, cpu = released
+                if set(gpu) != set(cpu) or not gpu:
+                    raise AssertionError(
+                        f"streamed parity {mode} {threads} {route}: "
+                        f"released partitions differ ({len(gpu)} vs "
+                        f"{len(cpu)})")
+                worst = max(abs(a - b) / max(1.0, abs(b)) for k in cpu
+                            for a, b in zip(gpu[k], cpu[k]))
+                if worst > 1e-9:
+                    raise AssertionError(f"streamed parity {mode} {threads} "
+                                         f"{route}: rel err {worst}")
+                if kept[0] != kept[1] or not kept[0]:
+                    raise AssertionError(
+                        f"streamed select parity {mode} {threads} {route}: "
+                        f"cuda kept {len(kept[0])}, cpu {len(kept[1])}")
+                print(f"parity[streamed {mode}, encode_threads {threads}, "
+                      f"{route}]: {len(gpu)} partitions, cuda float64 vs "
+                      f"cpu float64 max rel err {worst:.3g}; select: "
+                      f"{len(kept[0])} kept, identical lists", flush=True)
+
+
+class IngestClock:
+    """Host seconds inside executor.stream_chunk_source (with a device
+    synchronisation at its end): the ingest's share of a streamed run."""
+
+    def __init__(self, torch, executor):
+        self.torch, self.executor = torch, executor
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self.original = original = self.executor.stream_chunk_source
+
+        def timed(*args, **kwargs):
+            start = time.perf_counter()
+            out = original(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - start
+            return out
+
+        self.executor.stream_chunk_source = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.executor.stream_chunk_source = self.original
+
+
+# (label, baseline run, encode mode, metrics, noise, public, bounds, path)
+STREAMED_RUNS = {
+    "x": ("a", "host", ("COUNT", "SUM", "MEAN", "VARIANCE"), "GAUSSIAN",
+          True, "netflix", BASE_KERNELS + ("append_rows",)),
+    "y": ("b", "hash_device", ("COUNT", "SUM", "PRIVACY_ID_COUNT"),
+          "LAPLACE", False, "netflix",
+          BASE_KERNELS + ("factorize_codes", "append_rows")),
+    "z": ("q", "hash_device", ("COUNT", "SUM"), "LAPLACE", False, "q",
+          BLOCKED_KERNELS + ("factorize_codes", "append_rows")),
+}
+
+
+def streamed_release(torch, tdp, kernels, executor, label, col, vocab, seed,
+                     backend):
+    """One aggregate of a STREAMED_RUNS run (col: the pre-encoded baseline
+    or a ChunkSource): (released dict, wall seconds, ingest seconds, launch
+    counts)."""
+    _, _, metrics, noise, public, data, _ = STREAMED_RUNS[label]
+    bounds = (dict(max_partitions_contributed=64,
+                   max_contributions_per_partition=1, min_value=1.0,
+                   max_value=5.0) if data == "netflix" else
+              dict(max_partitions_contributed=4,
+                   max_contributions_per_partition=8, min_value=0.0,
+                   max_value=5.0))
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=seed, **backend))
+    kernels.reset_launch_counts()
+    res = engine.aggregate(
+        col, tdp.AggregateParams(
+            metrics=[getattr(tdp.Metrics, m) for m in metrics],
+            noise_kind=getattr(tdp.NoiseKind, noise), **bounds),
+        tdp.DataExtractors(), list(vocab) if public else None)
+    acc.compute_budgets()
+    torch.cuda.synchronize()
+    with IngestClock(torch, executor) as clock:
+        start = time.perf_counter()
+        out = dict(res)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    return out, seconds, clock.seconds, dict(kernels.launch_counts)
+
+
+def ingest_main_phase(torch, tdp, data, kernels, executor, card):
+    """(x), (y) and (z): (a), (b) and (q) through DPEngine.aggregate of a
+    ChunkSource of their raw columns (16 chunks of 2^20 rows,
+    encode_threads 4; (x) encode_mode "host", (y) and (z) "hash_device"),
+    each release equal (==) to its baseline's with the same seed, run just
+    before it on the pre-encoded data. Returns the launch counts summed
+    over the streamed runs."""
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    for label, (base, mode, metrics, noise, public, which, path) in \
+            STREAMED_RUNS.items():
+        raw, encoded = data[which]
+        chunks = stream_chunks(*raw)
+        times, base_times, shares = [], [], []
+        for seed in range(3):
+            want, base_s, _, _ = streamed_release(
+                torch, tdp, kernels, executor, label, encoded,
+                encoded.partition_vocab, seed, {})
+            got, seconds, ingest_s, counts = streamed_release(
+                torch, tdp, kernels, executor, label,
+                tdp.ChunkSource(chunks, encode_mode=mode),
+                encoded.partition_vocab, seed,
+                dict(encode_threads=INGEST_THREADS))
+            check_launches(f"run ({label})", counts, kernels, path=path)
+            if got != want or not got:
+                diff = [k for k in want if got.get(k) != want[k]]
+                raise AssertionError(
+                    f"run ({label}) seed {seed}: {len(got)} partitions "
+                    f"released, ({base}) {len(want)}; {len(diff)} differ")
+            for name, c in counts.items():
+                total[name] += c
+            times.append(seconds)
+            base_times.append(base_s)
+            shares.append(ingest_s / seconds)
+        ms = statistics.median(times) * 1e3
+        n_rows = len(raw[0])
+        print(f"main ({label}) = ({base}) through ChunkSource, {len(chunks)}"
+              f" chunks, encode_threads {INGEST_THREADS}, encode_mode "
+              f"{mode}: {len(got)} partitions released, equal (==) to ("
+              f"{base})'s for seeds 0-2; {ms:.1f} ms, "
+              f"{n_rows / (ms / 1e3):.4g} rows/s (median of 3: "
+              f"{[round(t * 1e3, 1) for t in times]} ms), ingest share "
+              f"{statistics.median(shares):.3f} "
+              f"({[round(s, 3) for s in shares]}); ({base}) pre-encoded in "
+              f"the same call: {[round(t * 1e3, 1) for t in base_times]} ms "
+              f"({card}); launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+    return total
+
+
+class StageClock:
+    """CUDA events around kernel wrappers and host clocks around host
+    functions, by stage; a wrapper called inside another timed one (C12's
+    C5 sort) is part of the outer stage."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events, self.host = [], {}
+        self.active = 0
+
+    def device(self, stage, fn, stream_arg=None):
+        def call(*args, **kwargs):
+            if self.active:
+                return fn(*args, **kwargs)
+            stream = args[stream_arg] if stream_arg is not None else None
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            self.active += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.active -= 1
+            end.record(stream)
+            self.events.append((stage, start, end))
+            return out
+        return call
+
+    def host_fn(self, stage, fn):
+        def call(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.add(stage, time.perf_counter() - start)
+        return call
+
+    def add(self, stage, seconds):
+        # The encode workers add concurrently: list.append is atomic.
+        self.host.setdefault(stage, []).append(seconds * 1e3)
+
+    def stages(self):
+        out = {k: sum(v) for k, v in self.host.items()}
+        for stage, s, e in self.events:
+            out[stage] = out.get(stage, 0.0) + s.elapsed_time(e)
+        return out
+
+
+def ingest_stage_phase(torch, tdp, data, kernels, executor, ingest,
+                       rt_pipeline, encode_s, card):
+    """(a) pre-encoded, (x) and (y) with their wall time split: the host
+    encode (the workers' busy time, summed over threads; the consumer's
+    vocabulary merge), the host-to-device copies (CUDA events on the copy
+    stream; for (a) around executor.to_device), C14, C12 / C13, the release
+    kernels, and the rest (the host's release setup and decode)."""
+    raw, encoded = data["netflix"]
+    chunks = stream_chunks(*raw)
+    patches = [
+        (kernels, n, "release kernels") for n in RELEASE_WRAPPERS] + [
+        (kernels, "factorize_codes", "C12 factorize_codes"),
+        (kernels, "lookup_codes", "C13 lookup_codes"),
+        (kernels, "fill_tail", "C14 append_rows"),
+        (kernels, "grow_rows", "C14 append_rows")]
+    for label in ("a", "x", "y"):
+        medians = {}
+        for rep in range(4):
+            clock = StageClock(torch)
+            saved = []
+
+            def patch(obj, name, wrapped):
+                saved.append((obj, name, getattr(obj, name)))
+                setattr(obj, name, wrapped)
+
+            for obj, name, stage in patches:
+                patch(obj, name, clock.device(stage, getattr(obj, name)))
+            patch(executor, "to_device",
+                  clock.device("h2d", executor.to_device))
+            patch(rt_pipeline, "upload_rows",
+                  clock.device("h2d", rt_pipeline.upload_rows, 2))
+            for name in ("_prepare_chunk", "_prepare_hash_chunk"):
+                patch(ingest, name,
+                      clock.host_fn("host encode busy", getattr(ingest,
+                                                                name)))
+            patch(ingest.ChunkedVocabEncoder, "merge",
+                  clock.host_fn("vocabulary merge",
+                                ingest.ChunkedVocabEncoder.merge))
+            try:
+                if label == "a":
+                    col, backend = encoded, {}
+                else:
+                    col = tdp.ChunkSource(chunks, encode_mode=(
+                        "host" if label == "x" else "hash_device"))
+                    backend = dict(encode_threads=INGEST_THREADS)
+                _, wall, ingest_s, _ = streamed_release(
+                    torch, tdp, kernels, executor,
+                    {"a": "x", "x": "x", "y": "y"}[label], col,
+                    encoded.partition_vocab, rep, backend)
+            finally:
+                for obj, name, original in reversed(saved):
+                    setattr(obj, name, original)
+            stage = clock.stages()
+            stage["wall"] = wall * 1e3
+            if label != "a":
+                stage["ingest wall"] = ingest_s * 1e3
+            for name, ms in stage.items():
+                medians.setdefault(name, []).append(ms)
+        # The first of the four runs warms the allocator.
+        med = {name: round(statistics.median(t[1:]), 4)
+               for name, t in medians.items()}
+        front = med.get("ingest wall", med.get("h2d", 0.0))
+        rest = med["wall"] - front - med.get("release kernels", 0.0)
+        extra = (f"; host encode before the window (columnar.encode_columns "
+                 f"of the raw columns) {encode_s * 1e3:.1f} ms"
+                 if label == "a" else "")
+        print(f"stages ({label}) ms, median of 3 ({card}): {json.dumps(med)};"
+              f" the rest (wall - {'ingest wall' if label != 'a' else 'h2d'}"
+              f" - release kernels) {rest:.3f} ms{extra}", flush=True)
 
 
 if __name__ == "__main__":

@@ -23,13 +23,19 @@ from pipelinedp_tpu_torch.data_extractors import DataExtractors
 
 @dataclass
 class EncodedData:
-    """Columnar dataset + decode vocabularies."""
+    """Columnar dataset + decode vocabularies.
+
+    The columns are host arrays, or tensors on the device when the
+    streamed ingest made them (ingest.stream_encode_columns: already padded
+    to the executor's row bucket, values in the working dtype, `valid`
+    computed where they lie)."""
     pid: np.ndarray  # int32[n]
     pk: np.ndarray  # int32[n], -1 marks rows in no (public) partition
     # float64[n] (or float64[n, d] for vector values); None when encoded
     # for partition selection, which never reads values.
     values: Optional[np.ndarray]
-    # partition id -> original partition key (list or ndarray)
+    # partition id -> original partition key (list or ndarray, or a
+    # device_encode.HashVocab decoding only the kept ids)
     partition_vocab: Sequence[Any]
     n_privacy_ids: int
     # True when pk was encoded against a FIXED public-partition vocabulary
@@ -86,6 +92,9 @@ def factorize(raw: np.ndarray) -> Tuple[np.ndarray, Sequence[Any]]:
     are ordinary keys, and all NaN keys share one code. Key types numpy
     cannot order fall back to a Python dict loop.
     """
+    if raw.dtype.kind in "biuSU" or (raw.dtype.kind == "f" and
+                                     not bool(np.isnan(raw).any())):
+        return _factorize_sorted(raw)
     try:
         uniques, first, inverse = np.unique(raw, return_index=True,
                                             return_inverse=True)
@@ -99,6 +108,38 @@ def factorize(raw: np.ndarray) -> Tuple[np.ndarray, Sequence[Any]]:
     rank = np.empty(len(order), dtype=np.int64)
     rank[order] = np.arange(len(order))
     return rank[inverse.reshape(-1)].astype(np.int32), uniques[order]
+
+
+def _factorize_sorted(raw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """factorize of a NaN-free fixed-width column by one unstable sort:
+    each run of equal keys takes its smallest row as first occurrence (the
+    value there is the unique), and the runs are ranked by it."""
+    n = len(raw)
+    if n == 0:
+        return np.empty(0, np.int32), raw[:0]
+    order = np.argsort(raw)
+    s = raw[order]
+    new = np.empty(n, bool)
+    new[0] = True
+    np.not_equal(s[1:], s[:-1], out=new[1:])
+    starts = np.flatnonzero(new)
+    first = np.minimum.reduceat(order, starts)
+    by_first = np.argsort(first)
+    rank = np.empty(len(starts), np.int32)
+    rank[by_first] = np.arange(len(starts), dtype=np.int32)
+    codes = np.empty(n, np.int32)
+    codes[order] = rank[np.cumsum(new) - 1]
+    return codes, raw[first[by_first]]
+
+
+def searchsorted_queries(sorted_keys: np.ndarray, queries: np.ndarray,
+                         side: str = "left") -> np.ndarray:
+    """np.searchsorted of queries in any order, searched in sorted order
+    (several times faster than searching a shuffled array)."""
+    order = np.argsort(queries)
+    out = np.empty(len(queries), np.int64)
+    out[order] = np.searchsorted(sorted_keys, queries[order], side=side)
+    return out
 
 
 def _factorize_dict(raw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -162,11 +203,41 @@ def nonfinite_value_rows(values: np.ndarray,
 
 
 def encode_with_vocab(raw: np.ndarray, vocab: Sequence[Any]) -> np.ndarray:
-    """Integer-encodes a key column against a FIXED vocabulary; -1 = absent."""
+    """Integer-encodes a key column against a FIXED vocabulary; -1 = absent.
+
+    A numeric or string column against a vocabulary of the same dtype kind
+    takes one sort of the vocabulary and a binary search (the speed of the
+    JAX package's pandas get_indexer); other keys, and a vocabulary holding
+    NaN, a dict lookup with NaN keys unified."""
+    codes = _encode_with_sorted_vocab(raw, vocab)
+    if codes is not None:
+        return codes
     lookup = {_canonical_key(key): i for i, key in enumerate(vocab)}
     return np.fromiter((lookup.get(_canonical_key(k), -1) for k in raw),
                        dtype=np.int32,
                        count=len(raw))
+
+
+def _encode_with_sorted_vocab(raw: np.ndarray,
+                              vocab: Sequence[Any]) -> Optional[np.ndarray]:
+    """encode_with_vocab by searchsorted where numpy's equality is the dict
+    lookup's (one dtype kind on both sides, no NaN in a float vocabulary);
+    None elsewhere. A key the vocabulary holds twice takes its last index,
+    as in the dict."""
+    if not isinstance(raw, np.ndarray) or raw.ndim != 1 or not len(vocab):
+        return None
+    v = np.asarray(vocab)
+    kind = raw.dtype.kind
+    if v.ndim != 1 or v.dtype.kind != kind or kind not in "biufSU":
+        return None
+    if kind == "f" and bool(np.isnan(v).any()):
+        return None
+    order = np.argsort(v, kind="stable")
+    sv = v[order]
+    pos = searchsorted_queries(sv, raw, side="right") - 1
+    at = np.maximum(pos, 0)
+    return np.where((pos >= 0) & (sv[at] == raw), order[at],
+                    -1).astype(np.int32)
 
 
 def encode_columns(

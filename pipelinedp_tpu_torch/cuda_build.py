@@ -24,7 +24,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
-           "vector_release", "block_offsets", "gather_rows")
+           "vector_release", "block_offsets", "gather_rows",
+           "factorize_codes", "lookup_codes", "append_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -92,6 +93,17 @@ _SIGNATURES = {
     },
     "gather_rows": {
         "gather_rows": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P]),
+    },
+    "factorize_codes": {
+        "factorize_codes_scratch_bytes": (_LL, [_LL]),
+        "factorize_codes": (_I, [_P, _P, _LL, _P, _P, _P, _P]),
+    },
+    "lookup_codes": {
+        "lookup_codes": (_I, [_P, _LL, _P, _LL, _P, _P, _P]),
+    },
+    "append_rows": {
+        "append_rows_fill_tail": (_I, [_P, _P, _P, _P, _I, _LL, _LL, _P]),
+        "append_rows_grow": (_I, [_P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
     },
 }
 

@@ -5,6 +5,11 @@ the columnar route (:121-138, :207-246): parameter and budget-accountant
 checks, then the call lowers to the port's executor, which requests every
 budget at graph-build time and runs the kernels when the returned
 collection is first iterated, after BudgetAccountant.compute_budgets().
+
+Streamed input: a runtime.pipeline.ChunkSource (an iterable of (pid_raw,
+pk_raw, values) column chunks) as `col` is encoded chunk by chunk on a host
+thread pool while earlier chunks land on the device (ingest.py), under the
+backend's encode_threads / pipeline_depth / encode_mode.
 """
 
 from typing import Optional
@@ -48,8 +53,10 @@ class DPEngine:
         """Computes DP aggregate metrics.
 
         Args:
-          col: collection of same-typed elements, or a pre-encoded
-            columnar.EncodedData (extractors are then not consulted).
+          col: collection of same-typed elements, a pre-encoded
+            columnar.EncodedData, or a runtime.pipeline.ChunkSource of raw
+            column chunks, streamed to the device (extractors are not
+            consulted for either).
           params: metrics to compute and computation parameters.
           data_extractors: how to obtain (privacy_id, partition_key, value)
             from an element.
@@ -88,8 +95,8 @@ class DPEngine:
         """Returns a lazy collection of DP-selected partition keys.
 
         Args:
-          col: collection of same-typed elements, or a pre-encoded
-            columnar.EncodedData.
+          col: collection of same-typed elements, a pre-encoded
+            columnar.EncodedData, or a runtime.pipeline.ChunkSource.
           params: the L0 bound, strategy, pre_threshold and budget weight.
           data_extractors: how to obtain (privacy_id, partition_key) from an
             element; values are never read.

@@ -29,6 +29,11 @@ blocked route instead (parallel/large_p.py): pass 1 bounds and sorts the
 rows once, and every block of partitions runs C3 (and C7) on its window
 of the sorted stream, then C4 / C8 / C9 and C6 on its own partitions.
 
+Input is rows (columnar.encode), a pre-encoded EncodedData, or a
+runtime.pipeline.ChunkSource of column chunks (stream_chunk_source: the
+streamed ingest of ingest.py, whose columns arrive on the device already
+padded, C12-C14).
+
 Random choices come from the JAX package's threefry keys (ops/threefry.py),
 derived on the host in the same order, so one seed gives the same bounded
 rows, keep decisions and noise words on both packages. Noise stddevs and
@@ -59,6 +64,7 @@ import torch
 from pipelinedp_tpu_torch import columnar
 from pipelinedp_tpu_torch import combiners as dp_combiners
 from pipelinedp_tpu_torch import dp_computations
+from pipelinedp_tpu_torch import ingest
 from pipelinedp_tpu_torch import kernels
 from pipelinedp_tpu_torch import numeric
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
@@ -68,6 +74,7 @@ from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
+from pipelinedp_tpu_torch.runtime import pipeline as rt_pipeline
 
 # Out-of-scope features name the ROADMAP item that ports them.
 _LATER = {
@@ -328,11 +335,21 @@ def row_bucket(n: int) -> int:
 def pad_rows(encoded: columnar.EncodedData):
     """Row arrays padded to the power-of-two row bucket with invalid rows,
     so a dataset enters the kernels at the JAX package's row count (an
-    invalid row changes no output; row i draws counter i either way)."""
+    invalid row changes no output; row i draws counter i either way).
+
+    Tensor columns (the streamed ingest's) pad where they lie; the
+    accumulator already pads them to this bucket, so they pass through."""
     n = encoded.n_rows
     pad = row_bucket(n) - n
     if pad == 0:
         return encoded.pid, encoded.pk, encoded.values, encoded.valid
+    if isinstance(encoded.pid, torch.Tensor):
+        values = encoded.values
+        return (torch.cat([encoded.pid, encoded.pid.new_zeros(pad)]),
+                torch.cat([encoded.pk, encoded.pk.new_full((pad,), -1)]),
+                None if values is None else torch.cat([
+                    values, values.new_zeros((pad,) + tuple(values.shape[1:]))
+                ]), torch.cat([encoded.valid, encoded.valid.new_zeros(pad)]))
     values = (None if encoded.values is None else np.concatenate([
         encoded.values,
         np.zeros((pad,) + encoded.values.shape[1:], np.float64)]))
@@ -593,8 +610,8 @@ def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
 
 def to_device(encoded: columnar.EncodedData, device: torch.device,
               dtype: torch.dtype):
-    """pad_rows + one host-to-device copy per column (values None when the
-    encoding has none)."""
+    """pad_rows + one host-to-device copy per host column (values None when
+    the encoding has none); columns already on `device` stay there."""
     pid, pk, values, valid = pad_rows(encoded)
     return (torch.as_tensor(pid, dtype=torch.int32).to(device),
             torch.as_tensor(pk, dtype=torch.int32).to(device),
@@ -653,7 +670,7 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                    if public_partitions is not None else None)
 
     def generator():
-        encoded = columnar.encode(col, data_extractors, public_list)
+        encoded = _encode_input(backend, col, data_extractors, public_list)
         if Metrics.VECTOR_SUM in (params.metrics or []):
             expected = (params.vector_size,)
             got = encoded.values.shape[1:]
@@ -665,7 +682,7 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                 params.partition_selection_strategy, selection_budget.eps,
                 selection_budget.delta, params.max_partitions_contributed,
                 params.pre_threshold)
-        n_partitions = encoded.n_partitions
+        n_partitions = resolve_n_partitions(backend, encoded.n_partitions)
         cfg = make_kernel_config(params, compound, n_partitions, private,
                                  selection_params,
                                  secure=backend.secure_noise,
@@ -678,7 +695,7 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                 params.noise_kind, backend.snap_grid_bits, backend.device)
         key = noise_ops.make_noise_key(backend.noise_seed)
         min_v, max_v, min_s, max_s, mid = kernel_scalars(params)
-        if n_partitions > backend.large_partition_threshold:
+        if _blocked(backend, n_partitions):
             # The blocked route: the raw encoded columns go in (it pads to
             # its own row capacity) and only kept partitions come back.
             from pipelinedp_tpu_torch.parallel import large_p
@@ -704,6 +721,51 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                                           cfg.numeric_mode)
 
     return generator()
+
+
+def resolve_n_partitions(backend, n_partitions: int) -> int:
+    """Honors TorchBackend(max_partitions=...), as the JAX package's
+    resolve_n_partitions: a fixed result width at least the data's."""
+    if backend.max_partitions is not None:
+        if backend.max_partitions < n_partitions:
+            raise ValueError(
+                f"TorchBackend(max_partitions={backend.max_partitions}) is "
+                f"smaller than the {n_partitions} partitions in the data.")
+        return backend.max_partitions
+    return n_partitions
+
+
+def _blocked(backend, n_partitions: int) -> bool:
+    """The blocked route above large_partition_threshold (None: never)."""
+    threshold = backend.large_partition_threshold
+    return threshold is not None and n_partitions > threshold
+
+
+def stream_chunk_source(backend, source: rt_pipeline.ChunkSource,
+                        public_list=None) -> columnar.EncodedData:
+    """Encodes a ChunkSource through the streamed ingest under the
+    backend's encode_threads / pipeline_depth / encode_mode knobs (the
+    source's encode_mode, where set, wins), onto the backend's device in
+    its working dtype (the JAX package's stream_chunk_source, :1277; its
+    watchdog is ROADMAP.md Queue 1 item 13)."""
+    threads = backend.encode_threads
+    if threads is None:
+        threads = rt_pipeline.default_encode_threads()
+    encode_mode = source.encode_mode or backend.encode_mode
+    return ingest.stream_encode_columns(
+        source.chunks, public_partitions=public_list,
+        nonfinite=source.nonfinite, encode_threads=threads,
+        pipeline_depth=backend.pipeline_depth, encode_mode=encode_mode,
+        device=backend.device, dtype=backend.dtype)
+
+
+def _encode_input(backend, col, data_extractors, public_list=None,
+                  with_values: bool = True) -> columnar.EncodedData:
+    """The encode stage of both entry points: a ChunkSource streams through
+    the ingest, anything else takes columnar.encode."""
+    if isinstance(col, rt_pipeline.ChunkSource):
+        return stream_chunk_source(backend, col, public_list)
+    return columnar.encode(col, data_extractors, public_list, with_values)
 
 
 def decode_release_results(n_kept, order, outputs, flags,
@@ -744,6 +806,7 @@ def _decode_rows(ids: np.ndarray, cols: Dict[str, np.ndarray],
     field_order = tuple(
         name for entry in build_plan(compound) for name in entry.outputs)
     n_real = len(partition_vocab)
+    _prefetch(partition_vocab, ids)
     for row, idx in enumerate(ids):
         if idx >= n_real:
             continue
@@ -755,6 +818,14 @@ def _decode_rows(ids: np.ndarray, cols: Dict[str, np.ndarray],
         yield (partition_vocab[idx],
                dp_combiners._create_named_tuple_instance(
                    "MetricsTuple", field_order, values))
+
+
+def _prefetch(partition_vocab, ids) -> None:
+    """A hash-encoded vocabulary (device_encode.HashVocab) decodes exactly
+    the kept ids in one batch before they are indexed."""
+    if hasattr(partition_vocab, "prefetch"):
+        n_real = len(partition_vocab)
+        partition_vocab.prefetch(idx for idx in ids if idx < n_real)
 
 
 def select_partitions_release_kernel(pid: torch.Tensor, pk: torch.Tensor,
@@ -848,17 +919,17 @@ def lazy_select_partitions(backend, col, params, data_extractors,
         f"{pre_threshold_str})")
 
     def generator():
-        # Selection never reads values: they are neither extracted nor
-        # copied to the device (a pre-encoded input's are dropped here).
+        # Selection never reads values: rows' are not extracted, and an
+        # encoded or streamed input's go no further than this.
         encoded = dataclasses.replace(
-            columnar.encode(col, data_extractors, with_values=False),
+            _encode_input(backend, col, data_extractors, with_values=False),
             values=None)
         selection = selection_ops.selection_params_from_host(
             strategy, budget.eps, budget.delta,
             params.max_partitions_contributed, params.pre_threshold)
-        n_partitions = encoded.n_partitions
+        n_partitions = resolve_n_partitions(backend, encoded.n_partitions)
         key = noise_ops.make_noise_key(backend.noise_seed)
-        if n_partitions > backend.large_partition_threshold:
+        if _blocked(backend, n_partitions):
             from pipelinedp_tpu_torch.parallel import large_p
             with budget_accountant.no_new_mechanisms(
                     "blocked partition selection execution"):
@@ -866,8 +937,7 @@ def lazy_select_partitions(backend, col, params, data_extractors,
                     encoded.pid, encoded.pk, encoded.valid, key,
                     params.max_partitions_contributed, n_partitions,
                     selection, **blocked_kwargs(backend))
-            for idx in kept_ids:
-                yield encoded.partition_vocab[idx]
+            yield from _decode_keys(kept_ids, encoded.partition_vocab)
             return
         pid, pk, _, valid = to_device(encoded, backend.device, backend.dtype)
         with budget_accountant.no_new_mechanisms(
@@ -892,5 +962,15 @@ def blocked_kwargs(backend) -> Dict[str, Any]:
 
 def decode_selected_partitions(n_kept, order, partition_vocab):
     """Kept partition keys: one host copy of n_kept, then O(kept) ids."""
-    for idx in order[:int(n_kept.cpu())].cpu().numpy():
-        yield partition_vocab[idx]
+    return _decode_keys(order[:int(n_kept.cpu())].cpu().numpy(),
+                        partition_vocab)
+
+
+def _decode_keys(ids, partition_vocab):
+    """The keys of kept partition ids; ids past the vocabulary (the
+    padding partitions of max_partitions) are skipped."""
+    _prefetch(partition_vocab, ids)
+    n_real = len(partition_vocab)
+    for idx in ids:
+        if idx < n_real:
+            yield partition_vocab[idx]

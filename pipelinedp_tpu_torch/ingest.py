@@ -1,0 +1,761 @@
+"""Chunked, overlapped host -> device ingest.
+
+Port of the single-process part of pipelinedp_tpu/ingest.py (numpy only:
+the port's machine has no pandas, so every branch the JAX module takes
+without pandas is the one copied here, but for the hash of object key
+columns, which follows its pandas branch: see hash_key_column_pair). ``stream_encode_columns`` turns a
+stream of ``(pid_raw, pk_raw, values)`` column chunks into an EncodedData
+whose columns already lie on the device, padded to the executor.pad_rows
+row bucket:
+
+  * encode_mode="host": each chunk's keys are factorized on the encode
+    pool (chunk_factorize), the global vocabulary is stitched in stream
+    order on the consumer (ChunkedVocabEncoder.merge), and the code
+    columns land in the device row buffers (runtime/pipeline.py). The
+    codes are those of one columnar.factorize over the concatenation.
+  * encode_mode="hash_device": workers only hash keys to two 64-bit
+    lanes; the raw hash rows land in the buffers, and the codes are
+    assigned on the device (device_encode.py: C12 factorize on the card,
+    C13 lookup on the CPU), the same codes as the host route.
+
+Values are converted to the working float dtype on the host, before the
+copy, and non-finite values are rejected or dropped per chunk.
+
+The multi-host encoders of the JAX module (:982-1581) are ROADMAP.md Queue
+1 items 12 and 13.
+"""
+
+import dataclasses
+import functools
+import hashlib
+import logging
+import pickle
+from typing import Any, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pipelinedp_tpu_torch import columnar
+from pipelinedp_tpu_torch import device_encode
+from pipelinedp_tpu_torch import kernels
+from pipelinedp_tpu_torch.runtime import pipeline as rt_pipeline
+
+_NAN_KEY = columnar._NAN_KEY
+_dict_key = columnar._canonical_key
+
+
+def _kind_group(dtype) -> str:
+    """Coarse dtype family for the sorted-vocab compatibility check."""
+    if dtype.kind in "biuf":
+        return "num"
+    if dtype.kind in "SU":
+        return "str"
+    return "obj"
+
+
+def chunk_factorize(raw) -> Tuple[np.ndarray, np.ndarray]:
+    """Chunk-local factorization: (int32 codes, uniques in first-occurrence
+    order). The order-independent half of ChunkedVocabEncoder.encode, pure
+    and thread-safe, so the encode pool runs it per chunk while the
+    consumer merges in stream order. columnar.factorize already yields
+    first-occurrence order on every branch."""
+    codes, uniques = columnar.factorize(columnar._as_key_array(raw))
+    return codes.astype(np.int32), np.asarray(uniques)
+
+
+class ChunkedVocabEncoder:
+    """Incremental first-occurrence vocabulary encoding across chunks.
+
+    Feeding chunks in order yields exactly the codes columnar.factorize
+    assigns to the concatenation, including NaN unification (all NaN keys
+    share one code, kept out of the sorted vocabulary where comparisons
+    would misplace it) and cross-chunk dtype promotion (a later chunk with
+    a wider string or finer numeric dtype widens the stored vocabulary).
+    Per chunk: a vectorized remap of the chunk's uniques against a sorted
+    copy of the vocabulary (searchsorted + insert). Key types numpy cannot
+    order fall back to a per-unique dict loop.
+    """
+
+    def __init__(self):
+        self._sorted_vocab = None  # sorted non-NaN uniques
+        self._sorted_codes = None  # global code of each sorted entry
+        self._nan_code: Optional[int] = None  # shared code for NaN keys
+        self._next_code = 0  # total codes assigned on the sorted path
+        self._dict: Optional[dict] = None  # unorderable-key last resort
+
+    def encode(self, raw) -> np.ndarray:
+        return self.merge(*chunk_factorize(raw))
+
+    def merge(self, codes: np.ndarray, uniques: np.ndarray) -> np.ndarray:
+        """Remaps one chunk's local codes (uniques in first-occurrence
+        order, from chunk_factorize) into the global vocabulary."""
+        if self._dict is not None:
+            return self._remap_dict(codes, uniques)
+        try:
+            return self._remap_sorted(codes, uniques)
+        except TypeError:  # unorderable mixed-type keys
+            self._spill_to_dict()
+            return self._remap_dict(codes, uniques)
+
+    def _remap_sorted(self, codes: np.ndarray,
+                      uniques: np.ndarray) -> np.ndarray:
+        n_u = len(uniques)
+        if self._sorted_vocab is None:
+            self._sorted_vocab = np.empty(0, uniques.dtype)
+            self._sorted_codes = np.empty(0, np.int64)
+        elif len(self._sorted_vocab):
+            # Mixed number/string chunks spill to the dict path (where 1.5
+            # and '1.5' stay distinct keys): numpy would otherwise
+            # stringify numbers through dtype promotion.
+            a = _kind_group(self._sorted_vocab.dtype)
+            b = _kind_group(uniques.dtype)
+            if "obj" not in (a, b) and a != b:
+                raise TypeError(
+                    f"cannot mix {a} and {b} keys in the sorted vocab")
+        # NaN never matches itself under searchsorted / ==: NaN keys keep
+        # one dedicated code outside the sorted array.
+        if uniques.dtype.kind == "f":
+            is_nan = np.isnan(uniques)
+        elif uniques.dtype.kind == "O" and n_u:
+            is_nan = np.fromiter(
+                (_dict_key(k) is _NAN_KEY for k in uniques), bool, count=n_u)
+        else:
+            is_nan = np.zeros(n_u, bool)
+        nan_idx = np.nonzero(is_nan)[0]
+        remap = np.empty(n_u, np.int64)
+        known = np.zeros(n_u, bool)
+        if len(nan_idx) and self._nan_code is not None:
+            known[nan_idx] = True
+            remap[nan_idx] = self._nan_code
+        reg_idx = np.nonzero(~is_nan)[0]
+        u = uniques[reg_idx]
+        n_vocab = len(self._sorted_vocab)
+        if n_vocab and len(u):
+            pos = columnar.searchsorted_queries(self._sorted_vocab,
+                                                u)  # may TypeError
+            pos_c = np.minimum(pos, n_vocab - 1)
+            found = (pos < n_vocab) & (self._sorted_vocab[pos_c] == u)
+            known[reg_idx[found]] = True
+            remap[reg_idx[found]] = self._sorted_codes[pos_c[found]]
+        # New codes in the chunk's first-occurrence order: the order one
+        # global factorize would meet them.
+        assign_new = ~known
+        nan_is_new = bool(len(nan_idx)) and self._nan_code is None
+        if nan_is_new:
+            assign_new[nan_idx[1:]] = False
+        new_idx = np.nonzero(assign_new)[0]
+        remap[new_idx] = self._next_code + np.arange(len(new_idx))
+        new_nan_code = None
+        if nan_is_new:
+            new_nan_code = int(remap[nan_idx[0]])
+            remap[nan_idx] = new_nan_code
+        new_reg = new_idx[~is_nan[new_idx]]
+        if len(new_reg):
+            new_u, new_c = uniques[new_reg], remap[new_reg]
+            # Widen first: np.insert would cast new keys to the stored
+            # dtype (truncating '<U5' into a '<U2' vocab).
+            dt = np.promote_types(self._sorted_vocab.dtype,
+                                  new_u.dtype)  # may TypeError
+            if dt != new_u.dtype:
+                new_u = new_u.astype(dt)
+            no = np.argsort(new_u, kind="stable")  # may TypeError
+            new_u, new_c = new_u[no], new_c[no]
+            vocab = self._sorted_vocab
+            if dt != vocab.dtype:
+                vocab = vocab.astype(dt)
+            ins = np.searchsorted(vocab, new_u)  # may TypeError
+            # Every TypeError-prone step is done: commit (a raise above
+            # leaves the encoder as it was for the dict spill).
+            self._sorted_vocab = np.insert(vocab, ins, new_u)
+            self._sorted_codes = np.insert(self._sorted_codes, ins, new_c)
+        self._next_code += len(new_idx)
+        if nan_is_new:
+            self._nan_code = new_nan_code
+        return remap[codes].astype(np.int32)
+
+    def _spill_to_dict(self) -> None:
+        """Moves the sorted-vocab state into the dict fallback when a chunk
+        brings keys numpy cannot order."""
+        self._dict = {}
+        if self._sorted_vocab is not None:
+            for key, code in zip(self._sorted_vocab, self._sorted_codes):
+                self._dict[key] = int(code)
+            if self._nan_code is not None:
+                self._dict[_NAN_KEY] = self._nan_code
+            self._sorted_vocab = self._sorted_codes = None
+
+    def _remap_dict(self, codes: np.ndarray,
+                    uniques: np.ndarray) -> np.ndarray:
+        remap = np.empty(len(uniques), np.int64)
+        for j, key in enumerate(uniques):
+            remap[j] = self._dict.setdefault(_dict_key(key), len(self._dict))
+        return remap[codes].astype(np.int32)
+
+    @property
+    def vocabulary(self) -> Sequence[Any]:
+        if self._sorted_vocab is not None:
+            dt = self._sorted_vocab.dtype
+            if self._nan_code is not None:
+                if dt.kind in "biu":
+                    dt = np.promote_types(dt, np.float64)
+                elif dt.kind != "f":
+                    # A string vocab cannot hold a float NaN (promotion
+                    # would store the string 'nan').
+                    dt = np.dtype(object)
+            out = np.empty(self._next_code, dtype=dt)
+            out[self._sorted_codes] = self._sorted_vocab
+            if self._nan_code is not None:
+                out[self._nan_code] = np.nan
+            return out
+        if self._dict:
+            vocab = np.empty(len(self._dict), dtype=object)
+            for key, code in self._dict.items():
+                vocab[code] = np.nan if key is _NAN_KEY else key
+            return vocab
+        return np.empty(0, dtype=object)
+
+    def __len__(self) -> int:
+        if self._sorted_vocab is not None:
+            return self._next_code
+        return len(self._dict or ())
+
+
+@dataclasses.dataclass
+class _PreparedChunk:
+    """One chunk's encode-pool output: chunk-local codes and uniques
+    (first-occurrence order) awaiting the sequential merge, and the rows a
+    non-finite value drops."""
+    pid_codes: np.ndarray
+    pid_uniques: np.ndarray
+    pk_codes: np.ndarray  # final codes when publicly encoded
+    pk_uniques: Optional[np.ndarray]  # None when publicly encoded
+    values: np.ndarray
+    dropped: Optional[np.ndarray]  # bool[n], or None: every row kept
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.pid_codes)
+
+
+def _invalidate(bad, values, value_dtype):
+    """Values of the rows `bad` marks (nonfinite="drop") zeroed."""
+    mask = bad if values.ndim == 1 else bad[:, None]
+    return np.where(mask, 0.0, values).astype(value_dtype)
+
+
+def _prepare_chunk(chunk, partition_vocab, nonfinite,
+                   value_dtype) -> _PreparedChunk:
+    """Order-independent host encode of one chunk (on the encode pool):
+    factorize the keys, validate the values. A dropped row keeps its
+    chunk-local pk code until the merge has mapped it: the JAX package
+    marks it -1 before its merge, which then reads code -1 as the chunk's
+    last unique (ROADMAP.md Queue 3)."""
+    pid_raw, pk_raw, values = chunk
+    pid_codes, pid_uniques = chunk_factorize(pid_raw)
+    if partition_vocab is not None:
+        pk_codes = columnar.encode_with_vocab(
+            columnar._as_key_array(pk_raw), partition_vocab)
+        pk_uniques = None
+    else:
+        pk_codes, pk_uniques = chunk_factorize(pk_raw)
+    values = np.asarray(values, dtype=value_dtype)
+    bad = columnar.nonfinite_value_rows(values, nonfinite)
+    if bad is not None:
+        values = _invalidate(bad, values, value_dtype)
+    return _PreparedChunk(pid_codes, pid_uniques, pk_codes, pk_uniques,
+                          values, bad)
+
+
+# --- Hash-keyed encode (the host half of encode_mode="hash_device") --------
+#
+# Chunk workers only hash raw keys to uint64 on two independent lanes (lane
+# 1 exists so the collision detector can tell "same key twice" from "two
+# keys, one hash"), record each chunk's unique pairs for the detector and
+# the deferred decode table, and canonicalize keys so hash identity follows
+# the host encoder's key equality (every NaN one key; 3 and 3.0 one key).
+
+_HASH_PD_KEYS = ("pdp_tpu_hash_ln0", "pdp_tpu_hash_ln1")
+_HASH_SENTINEL64 = np.uint64((1 << 64) - 1)
+
+
+def _splitmix64(x: np.ndarray, lane: int) -> np.ndarray:
+    """Vectorized splitmix64 finalizer over uint64 bit patterns: a
+    bijection on 64 bits, so fixed-width numeric keys never collide.
+    Lane-salted by an input xor."""
+    x = x ^ np.uint64((0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F)[lane])
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _stable_hash_elements(raw: np.ndarray, lane: int) -> np.ndarray:
+    """Per-element stable hash of keys no vectorized path handles (mixed or
+    composite object keys): blake2b, deterministic across processes;
+    numbers canonicalize through float64 so 3, 3.0 and True == 1 unify as
+    dict keys do."""
+    salt = _HASH_PD_KEYS[lane].encode()
+    out = np.empty(len(raw), np.uint64)
+    for i, key in enumerate(raw):
+        canon = _dict_key(key)
+        if canon is _NAN_KEY:
+            payload = b"\x00nan"
+        elif isinstance(canon, (bool, int, float, np.bool_, np.integer,
+                                np.floating)) and \
+                float(canon) == canon and abs(float(canon)) < 2.0**53:
+            payload = b"\x01" + repr(float(canon)).encode()
+        else:
+            try:
+                payload = pickle.dumps(canon, protocol=4)
+            except Exception:  # noqa: BLE001 - an unpicklable key hashes by repr; it must not stop the ingest
+                payload = repr(canon).encode()
+        digest = hashlib.blake2b(payload, digest_size=8, key=salt).digest()
+        out[i] = np.frombuffer(digest, np.uint64)[0]
+    return out
+
+
+def _canonical_numeric(raw: np.ndarray) -> np.ndarray:
+    """Numeric keys canonicalized for hashing: float64 when every value is
+    exact there (so int 3 and float 3.0 hash alike), int64 bit patterns
+    otherwise; every NaN the one canonical NaN, -0.0 as +0.0."""
+    if raw.dtype.kind in "biu":
+        as_f = raw.astype(np.float64)
+        if bool((np.abs(as_f) < 2.0**53).all()):
+            return as_f + 0.0
+        return raw.astype(np.int64).view(np.float64)
+    x = raw.astype(np.float64)
+    x = np.where(np.isnan(x), np.float64("nan"), x)
+    return x + 0.0
+
+
+_FNV_OFFSETS = (np.uint64(0xCBF29CE484222325),
+                np.uint64(0x9AE16A3B2F90404F))
+_FNV_PRIME = np.uint64(0x100000001B3)
+
+
+def _vector_hash_fixed_width(
+        raw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Both hash lanes of a fixed-width 'U'/'S' key column in one pass over
+    the character matrix: vectorized FNV-1a over the code units, finished
+    with the splitmix64 bijection."""
+    n = len(raw)
+    raw = np.ascontiguousarray(raw)
+    if raw.dtype.kind == "U":
+        width = raw.dtype.itemsize // 4
+        mat = raw.view(np.uint32).reshape(n, width) if width else None
+    else:
+        width = raw.dtype.itemsize
+        mat = raw.view(np.uint8).reshape(n, width) if width else None
+    h0 = np.full(n, _FNV_OFFSETS[0])
+    h1 = np.full(n, _FNV_OFFSETS[1])
+    if mat is not None:
+        for j in range(mat.shape[1]):
+            col = mat[:, j].astype(np.uint64)
+            # Zero code units (the fixed-width padding) leave the hash
+            # alone: a key hashes alike whatever width its array has. The
+            # position salt keeps interior characters order-sensitive.
+            live = col != 0
+            step0 = (h0 ^ (col + np.uint64(0x9E3779B9 * (j + 1)))) * \
+                _FNV_PRIME
+            step1 = (h1 ^ (col + np.uint64(0xC2B2AE35 * (j + 2)))) * \
+                _FNV_PRIME
+            h0 = np.where(live, step0, h0)
+            h1 = np.where(live, step1, h1)
+    return _splitmix64(h0, 0), _splitmix64(h1, 1)
+
+
+def _object_key_kind(raw: np.ndarray) -> str:
+    """What pandas.api.types.infer_dtype(raw, skipna=False) says of an
+    object key column, for the kinds the hash vectorizes ("string",
+    "integer", "boolean", "floating", "mixed-integer-float"; "integer-na"
+    and "mixed" otherwise)."""
+    n_str = n_int = n_bool = n_float = n_nan = 0
+    for key in raw:
+        if isinstance(key, str):
+            n_str += 1
+        elif isinstance(key, (bool, np.bool_)):
+            n_bool += 1
+        elif isinstance(key, (int, np.integer)):
+            n_int += 1
+        elif isinstance(key, (float, np.floating)):
+            n_float += 1
+            n_nan += key != key
+        else:
+            return "mixed"
+    n = len(raw)
+    for count, kind in ((n_str, "string"), (n_int, "integer"),
+                        (n_bool, "boolean"), (n_float, "floating")):
+        if count == n:
+            return kind
+    if n_int + n_float == n:
+        return "integer-na" if n_nan == n_float else "mixed-integer-float"
+    return "mixed"
+
+
+def hash_key_column_pair(raw) -> Tuple[np.ndarray, np.ndarray]:
+    """Both deterministic uint64 hash lanes of a key column.
+
+    Lane 0 is the identity the device factorize groups by; lane 1 an
+    independent family that only feeds the collision detector. Stable
+    across processes (splitmix64, vectorized FNV or blake2b, never
+    Python's salted hash()), with the uint64 maximum remapped away so the
+    device pad sentinel is unreachable from data. Numeric keys
+    canonicalize through float64 and every NaN is one key.
+
+    An object column of one key type (strings, integers, booleans,
+    floats) hashes as the fixed-width column of that type, as the JAX
+    package's pandas branch does: a key then hashes alike whether its
+    chunk came as a list or as a numpy array. Its branch without pandas
+    hashes such a column element by element, and so gives one key two
+    hashes, and a privacy id two ids, across such chunks (ROADMAP.md Queue
+    3). Other object columns hash element by element.
+    """
+    raw = columnar._as_key_array(raw)
+    if len(raw) == 0:
+        return np.empty(0, np.uint64), np.empty(0, np.uint64)
+    kind = raw.dtype.kind
+    if kind == "O":
+        inferred = _object_key_kind(raw)
+        if inferred == "string":
+            raw, kind = raw.astype(np.str_), "U"
+        elif inferred in ("integer", "boolean"):
+            raw = raw.astype(np.int64 if inferred == "integer" else bool)
+            kind = raw.dtype.kind
+        elif inferred in ("floating", "mixed-integer-float"):
+            raw, kind = raw.astype(np.float64), "f"
+    if kind in "biuf":
+        bits = _canonical_numeric(raw).view(np.uint64)
+        pair = (_splitmix64(bits, 0), _splitmix64(bits, 1))
+    elif kind in "SU":
+        pair = _vector_hash_fixed_width(raw)
+    else:
+        pair = (_stable_hash_elements(raw, 0), _stable_hash_elements(raw, 1))
+    top = _HASH_SENTINEL64 - np.uint64(1)
+    return (np.where(pair[0] == _HASH_SENTINEL64, top, pair[0]),
+            np.where(pair[1] == _HASH_SENTINEL64, top, pair[1]))
+
+
+def hash_key_column(raw, lane: int = 0) -> np.ndarray:
+    """One lane of hash_key_column_pair."""
+    return hash_key_column_pair(raw)[lane]
+
+
+def _hash_uniques(h1: np.ndarray, h2: np.ndarray, raw):
+    """Chunk-local distinct (h1, h2) pairs, one representative raw key a
+    pair (its first occurrence) and that occurrence's chunk position.
+
+    One unstable sort by h1; a run's first occurrence is its smallest row.
+    A run holding two h2 (a collision inside the chunk) takes the JAX
+    package's (h1, h2) lexsort instead, so the merge sees every pair."""
+    if len(h1) == 0:
+        empty = np.empty(0, np.uint64)
+        return empty, empty, (raw[:0] if raw is not None else None), \
+            np.empty(0, np.int64)
+    order = np.argsort(h1)
+    s1 = h1[order]
+    new = np.empty(len(s1), bool)
+    new[0] = True
+    np.not_equal(s1[1:], s1[:-1], out=new[1:])
+    starts = np.flatnonzero(new)
+    s2 = h2[order]
+    if not (np.minimum.reduceat(s2, starts) ==
+            np.maximum.reduceat(s2, starts)).all():
+        return _hash_uniques_lexsort(h1, h2, raw)
+    first = np.minimum.reduceat(order, starts)
+    return s1[starts], h2[first], (raw[first] if raw is not None else
+                                   None), first.astype(np.int64)
+
+
+def _hash_uniques_lexsort(h1: np.ndarray, h2: np.ndarray, raw):
+    """_hash_uniques by the JAX package's (h1, h2) lexsort: every distinct
+    pair, collisions included."""
+    order = np.lexsort((h2, h1))
+    s1, s2 = h1[order], h2[order]
+    new = np.empty(len(s1), bool)
+    new[0] = True
+    new[1:] = (s1[1:] != s1[:-1]) | (s2[1:] != s2[:-1])
+    # lexsort is stable: within a pair's run the row indices ascend.
+    first = order[new]
+    return s1[new], s2[new], (raw[first] if raw is not None else None), \
+        first.astype(np.int64)
+
+
+@dataclasses.dataclass
+class _HashChunk:
+    """One chunk's hash-encode output: (n, 3) uint32 hash rows [hash_hi,
+    hash_lo, valid] for the accumulator, plus the chunk-local unique
+    triples the consumer keeps for collision detection and decode."""
+    pid_hash: np.ndarray  # (n, 3) uint32
+    pid_u1: np.ndarray
+    pid_u2: np.ndarray
+    pid_pos: np.ndarray  # chunk-local first positions
+    pk_col: np.ndarray  # (n, 3) uint32, or int32[n] when publicly encoded
+    pk_u1: Optional[np.ndarray]
+    pk_u2: Optional[np.ndarray]
+    pk_keys: Optional[np.ndarray]
+    pk_pos: Optional[np.ndarray]
+    values: np.ndarray
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.pid_hash)
+
+
+def _prepare_hash_chunk(chunk, partition_vocab, nonfinite,
+                        value_dtype) -> _HashChunk:
+    """Hash-mode chunk worker (no shared state): hash both key columns on
+    two lanes, record the chunk's unique pairs, validate the values."""
+    pid_raw, pk_raw, values = chunk
+    pid_raw = columnar._as_key_array(pid_raw)
+    pid_h1, pid_h2 = hash_key_column_pair(pid_raw)
+    pid_u1, pid_u2, _, pid_pos = _hash_uniques(pid_h1, pid_h2, None)
+    if partition_vocab is not None:
+        pk_col = columnar.encode_with_vocab(
+            columnar._as_key_array(pk_raw), partition_vocab)
+        pk_u1 = pk_u2 = pk_keys = pk_pos = None
+    else:
+        pk_raw = columnar._as_key_array(pk_raw)
+        pk_h1, pk_h2 = hash_key_column_pair(pk_raw)
+        pk_u1, pk_u2, pk_keys, pk_pos = _hash_uniques(pk_h1, pk_h2, pk_raw)
+    values = np.asarray(values, dtype=value_dtype)
+    bad = columnar.nonfinite_value_rows(values, nonfinite)
+    pk_valid = None
+    if bad is not None:
+        # The host route's invalid marks: the row leaves its partition
+        # (pk code -1), but both key columns keep their real hashes, since
+        # the host encoder factorizes the raw columns before rows are
+        # invalidated (a key seen only on dropped rows keeps its slot).
+        if partition_vocab is not None:
+            pk_col = np.where(bad, np.int32(-1), pk_col).astype(np.int32)
+        else:
+            pk_valid = ~bad
+        values = _invalidate(bad, values, value_dtype)
+    if partition_vocab is None:
+        pk_col = device_encode.pack_hash_rows(pk_h1, pk_valid)
+    return _HashChunk(device_encode.pack_hash_rows(pid_h1), pid_u1, pid_u2,
+                      pid_pos, pk_col, pk_u1, pk_u2, pk_keys, pk_pos, values)
+
+
+def _int32_lanes(a: np.ndarray) -> np.ndarray:
+    """uint32 hash rows as the int32 bit patterns the port's tensors hold
+    (int32 columns pass through)."""
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def stream_encode_columns(
+        chunks: Iterable[Tuple[Sequence[Any], Sequence[Any],
+                               Sequence[float]]],
+        public_partitions: Optional[Sequence[Any]] = None,
+        nonfinite: str = "error",
+        encode_threads: int = 0,
+        pipeline_depth: Optional[int] = None,
+        encode_mode: str = "host",
+        device="cuda",
+        dtype: torch.dtype = torch.float32) -> columnar.EncodedData:
+    """Encodes (pid_raw, pk_raw, values) column chunks into device-resident
+    columns, each chunk's copy overlapping the next chunk's encode.
+
+    encode_threads=0 encodes the chunks in one loop; encode_threads >= 1
+    runs the chunk encode on that many host threads through
+    runtime/pipeline.map_overlapped (window ``pipeline_depth``, default
+    PIPELINE_DEPTH), the sequential merge and the device appends on the
+    consumer. Both give the same columns: pid / pk int32 and values in
+    `dtype` on `device`, padded to executor.row_bucket(n) rows with
+    executor.pad_rows' pad values, so the kernels see what the serial
+    encode of the same rows gives them.
+
+    Non-finite values are rejected per chunk (nonfinite="error") or dropped
+    with a warning (nonfinite="drop", the rows marked invalid).
+
+    encode_mode="hash_device" hashes keys on the host and assigns the
+    codes on the device (device_encode.py); the partition vocabulary is
+    then a HashVocab that decodes only the kept partitions. A detected
+    64-bit hash collision falls back to encode_mode="host" for a
+    re-iterable source, or raises HashCollisionError for a one-shot
+    iterator.
+    """
+    if encode_mode not in ("host", "hash_device"):
+        raise ValueError(f"encode_mode must be host|hash_device, "
+                         f"got {encode_mode!r}")
+    device = torch.device(device)
+    value_dtype = np.float64 if dtype == torch.float64 else np.float32
+    window = dict(encode_threads=encode_threads,
+                  pipeline_depth=pipeline_depth)
+    if encode_mode == "hash_device":
+        return _stream_encode_hash_device(chunks, public_partitions,
+                                          nonfinite, device, value_dtype,
+                                          dtype, **window)
+    partition_vocab = (list(dict.fromkeys(public_partitions))
+                       if public_partitions is not None else None)
+    pid_enc = ChunkedVocabEncoder()
+    pk_enc = ChunkedVocabEncoder()
+    acc = rt_pipeline.DeviceRowAccumulator(
+        device, batch_rows=rt_pipeline.APPEND_BATCH_ROWS)
+    worker = functools.partial(_prepare_chunk,
+                               partition_vocab=partition_vocab,
+                               nonfinite=nonfinite, value_dtype=value_dtype)
+    for prep in _prepared(chunks, worker, **window):
+        # The sequential merge in stream order: the serial encode's codes.
+        pid = pid_enc.merge(prep.pid_codes, prep.pid_uniques)
+        pk = (prep.pk_codes if partition_vocab is not None else
+              pk_enc.merge(prep.pk_codes, prep.pk_uniques))
+        if prep.dropped is not None:
+            pk = np.where(prep.dropped, np.int32(-1), pk).astype(np.int32)
+        acc.append(pid, pk, prep.values, len(pid))
+    pid, pk, values = _finalized(acc, device, dtype)
+    return columnar.EncodedData(
+        pid=pid, pk=pk, values=values,
+        partition_vocab=(partition_vocab if partition_vocab is not None else
+                         pk_enc.vocabulary),
+        n_privacy_ids=len(pid_enc),
+        public_encoded=public_partitions is not None)
+
+
+def _prepared(chunks, worker, encode_threads: int,
+              pipeline_depth: Optional[int]):
+    """The workers' outputs in stream order: the encode pool's
+    (encode_threads >= 1) or one loop's."""
+    if encode_threads:
+        return rt_pipeline.map_overlapped(chunks, worker, encode_threads,
+                                          pipeline_depth)
+    return map(worker, chunks)
+
+
+def _finalized(acc, device, dtype):
+    """The accumulator's padded buffers, or the empty stream's columns."""
+    bufs = acc.finalize()
+    if bufs is None:
+        empty = torch.zeros(0, dtype=torch.int32, device=device)
+        return empty, empty, torch.zeros(0, dtype=dtype, device=device)
+    return bufs
+
+
+def _stream_encode_hash_device(chunks, public_partitions, nonfinite, device,
+                               value_dtype, dtype, encode_threads: int,
+                               pipeline_depth: Optional[int]
+                               ) -> columnar.EncodedData:
+    """The encode_mode="hash_device" body of stream_encode_columns: workers
+    hash, raw (n, 3) hash rows accumulate in the device buffers, the
+    consumer keeps the per-chunk uniques without merging, and the codes
+    come from one device pass per key column at the end. The collision
+    check runs over the uniques before any device code is used."""
+    public = public_partitions is not None
+    partition_vocab = (list(dict.fromkeys(public_partitions))
+                       if public else None)
+    # Re-iterability decides the collision fallback before the stream is
+    # consumed.
+    reiterable = iter(chunks) is not chunks
+    # The uint32 sentinel's bit pattern in the int32 lanes (the public pk
+    # column holds codes: -1 is its pad too).
+    acc = rt_pipeline.DeviceRowAccumulator(
+        device, fills=(-1, -1, 0), batch_rows=rt_pipeline.APPEND_BATCH_ROWS)
+    pid_u1, pid_u2, pid_pos = [], [], []
+    pk_u1, pk_u2, pk_keys, pk_pos = [], [], [], []
+    worker = functools.partial(_prepare_hash_chunk,
+                               partition_vocab=partition_vocab,
+                               nonfinite=nonfinite, value_dtype=value_dtype)
+    n_rows = 0
+    for prep in _prepared(chunks, worker, encode_threads, pipeline_depth):
+        pid_u1.append(prep.pid_u1)
+        pid_u2.append(prep.pid_u2)
+        # Chunk positions -> stream positions (chunks arrive in order).
+        pid_pos.append(prep.pid_pos + n_rows)
+        if not public:
+            pk_u1.append(prep.pk_u1)
+            pk_u2.append(prep.pk_u2)
+            pk_keys.append(prep.pk_keys)
+            pk_pos.append(prep.pk_pos + n_rows)
+        n_rows += prep.n_rows
+        acc.append(_int32_lanes(prep.pid_hash), _int32_lanes(prep.pk_col),
+                   prep.values, prep.n_rows)
+    try:
+        pid_table = device_encode.merge_hash_uniques(
+            pid_u1, pid_u2, None, pid_pos, what="privacy-id")
+        pk_table = (None if public else device_encode.merge_hash_uniques(
+            pk_u1, pk_u2, pk_keys, pk_pos, what="partition"))
+    except device_encode.HashCollisionError as err:
+        logging.warning(
+            "hash-device encode detected a 64-bit key-hash collision (%s); "
+            "%s", err,
+            "falling back to the exact host encoder." if reiterable else
+            "the chunk source is a one-shot iterator, so the exact-encoder "
+            "fallback cannot re-read it.")
+        if not reiterable:
+            raise device_encode.HashCollisionError(
+                f"{err} — and the chunk source is a one-shot iterator, so "
+                f"the exact host-encoder fallback cannot re-read it. Pass a "
+                f"re-iterable source (list / factory) or "
+                f"encode_mode='host'.") from err
+        return stream_encode_columns(
+            chunks, public_partitions=public_partitions, nonfinite=nonfinite,
+            encode_threads=encode_threads, pipeline_depth=pipeline_depth,
+            encode_mode="host", device=device, dtype=dtype)
+    bufs = acc.finalize()
+    if bufs is None:
+        return _hash_empty_encoded(public, device, dtype, partition_vocab)
+    return _finalize_hash_codes(*bufs, public, partition_vocab, pid_table,
+                                pk_table)
+
+
+def _hash_empty_encoded(public: bool, device, dtype,
+                        partition_vocab) -> columnar.EncodedData:
+    """Empty-stream encoding of the hash route (as the host route's)."""
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    if public:
+        vocab = partition_vocab
+    else:
+        nohash = np.empty(0, np.uint64)
+        vocab = device_encode.HashVocab(0, nohash, np.empty(0, object),
+                                        hash_by_code_host=nohash)
+    return columnar.EncodedData(pid=empty, pk=empty,
+                                values=torch.zeros(0, dtype=dtype,
+                                                   device=device),
+                                partition_vocab=vocab, n_privacy_ids=0,
+                                public_encoded=public)
+
+
+def _finalize_hash_codes(pid_hash, pk_col, values, public: bool,
+                         partition_vocab, pid_table,
+                         pk_table) -> columnar.EncodedData:
+    """The device codes and the deferred-decode vocabulary of the hash
+    route: C12 factorize on the card, C13 lookup against the host-merged
+    tables on the CPU (device_encode.prefers_lookup_codes); the same
+    codes either way."""
+    device = pid_hash.device
+    lookup = device_encode.prefers_lookup_codes(device)
+    if lookup:
+        pid_codes = kernels.lookup_codes(
+            pid_hash, *device_encode.build_lookup_table(
+                pid_table[0], pid_table[3], device))
+        counts = [pid_table[2]]
+    else:
+        pid_codes, n_pid = kernels.factorize_codes(pid_hash)
+        counts = [n_pid]
+    if public:
+        vocab = partition_vocab
+        pk = pk_col
+    else:
+        s1, keys, n_pk, pos = pk_table
+        if lookup:
+            pk = kernels.lookup_codes(
+                pk_col, *device_encode.build_lookup_table(s1, pos, device))
+        else:
+            pk, n_pk_dev = kernels.factorize_codes(pk_col)
+            counts.append(n_pk_dev)
+        # The code order (global first occurrence) follows from the chunk
+        # uniques' positions: decoding copies nothing from the device.
+        vocab = device_encode.HashVocab(
+            n_pk, s1, keys, hash_by_code_host=s1[np.argsort(pos,
+                                                            kind="stable")])
+    if not lookup:
+        # One copy of the device counts.
+        counts = torch.stack(counts).cpu().tolist()
+        if not public and counts[1] != n_pk:
+            raise RuntimeError(
+                f"device factorize found {counts[1]} distinct partition "
+                f"hashes but the host unique merge found {n_pk} (internal "
+                f"invariant)")
+    # Pad rows code to -1; the pad_rows convention is pid 0.
+    return columnar.EncodedData(pid=pid_codes.clamp(min=0), pk=pk,
+                                values=values, partition_vocab=vocab,
+                                n_privacy_ids=int(counts[0]),
+                                public_encoded=public)

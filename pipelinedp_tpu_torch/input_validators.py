@@ -1,5 +1,6 @@
 """Input validation helpers of the port (pipelinedp_tpu/input_validators.py:
-the validators the dense aggregation path and TorchBackend call)."""
+the validators the aggregation paths, the streamed ingest and TorchBackend
+call)."""
 
 import math
 import numbers
@@ -78,3 +79,57 @@ def validate_block_partitions(block_partitions, obj_name: str) -> None:
             f"{obj_name}: block_partitions must be a positive integer, but "
             f"{block_partitions!r} given (None: the blocked route's "
             f"default of 2^20 partitions a block).")
+
+
+def validate_pipeline_depth(pipeline_depth, obj_name: str) -> None:
+    """Validates the streaming-executor staging window: an integer >= 1.
+
+    Raises:
+        ValueError: pipeline_depth is not a positive integer (a depth of
+        0 would deadlock the staging queue's backpressure semaphore
+        before the first chunk).
+    """
+    if (not isinstance(pipeline_depth, numbers.Number) or
+            isinstance(pipeline_depth, bool) or
+            pipeline_depth != int(pipeline_depth) or pipeline_depth < 1):
+        raise ValueError(
+            f"{obj_name}: pipeline_depth must be an integer >= 1, but "
+            f"{pipeline_depth!r} given — it bounds how many encoded "
+            f"chunks the streaming ingest stages in flight (None takes "
+            f"the shared PIPELINE_DEPTH default).")
+
+
+def validate_encode_threads(encode_threads, obj_name: str) -> None:
+    """Validates the host encode pool size: an integer >= 0.
+
+    Raises:
+        ValueError: encode_threads is not a non-negative integer (0 is
+        the serial encode path; >= 1 enables the pipelined path with
+        that many workers).
+    """
+    if (not isinstance(encode_threads, numbers.Number) or
+            isinstance(encode_threads, bool) or
+            encode_threads != int(encode_threads) or encode_threads < 0):
+        raise ValueError(
+            f"{obj_name}: encode_threads must be an integer >= 0, but "
+            f"{encode_threads!r} given — 0 keeps the serial chunk "
+            f"encode, >= 1 runs chunk factorization on that many host "
+            f"threads feeding the staging queue (None auto-sizes).")
+
+
+def validate_encode_mode(encode_mode, obj_name: str) -> None:
+    """Validates the ingest encode mode: "host" or "hash_device".
+
+    Raises:
+        ValueError: encode_mode is not one of the two modes ("host" is
+        the exact chunked vocabulary encoder; "hash_device" hashes keys
+        on the host and factorizes on device, with partition-key decode
+        deferred to DP-selected indices).
+    """
+    if encode_mode not in ("host", "hash_device"):
+        raise ValueError(
+            f"{obj_name}: encode_mode must be 'host' or 'hash_device', "
+            f"but {encode_mode!r} given — 'host' runs the exact chunked "
+            f"vocabulary encoder, 'hash_device' the on-device hash "
+            f"factorization with decode-at-selected-indices (falls back "
+            f"to 'host' on a detected hash collision).")

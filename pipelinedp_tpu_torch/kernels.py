@@ -1,5 +1,6 @@
-"""The eleven CUDA kernels of the dense and blocked release and selection
-paths, their wrappers and their plain PyTorch versions.
+"""The fourteen CUDA kernels of the dense and blocked release and selection
+paths and of the streamed ingest, their wrappers and their plain PyTorch
+versions.
 
     C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform;
                                                      total-bound keys (total_bound_keys)
@@ -20,6 +21,13 @@ paths, their wrappers and their plain PyTorch versions.
                                                      block (blocked route)
     C11 gather_rows       csrc/gather_rows.cu        columns gathered through one
                                                      index (host-staged survivors)
+    C12 factorize_codes   csrc/factorize_codes.cu    first-occurrence codes of key
+                                                     hashes (after a C5 sort)
+    C13 lookup_codes      csrc/lookup_codes.cu       the same codes by a search of
+                                                     the host-merged hash table
+    C14 append_rows       csrc/append_rows.cu        the streamed row buffers: pad
+                                                     tail fill, growth (fill_tail,
+                                                     grow_rows)
 
 The blocked route (parallel/large_p.py) runs C3 and C7 on windows of the
 partition-sorted stream: their windowed entries (base=) rebase each row's
@@ -68,7 +76,8 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "vector_release_secure", "block_offsets", "gather_rows",
            "reduce_partitions_windowed",
            "reduce_partitions_compensated_windowed",
-           "quantile_counts_windowed")
+           "quantile_counts_windowed", "factorize_codes", "lookup_codes",
+           "append_rows")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -1430,3 +1439,214 @@ def gather_rows(index: torch.Tensor,
 
 def gather_rows_plain(index, columns):
     return [c.index_select(0, index) for c in columns]
+
+
+# ---------------------------------------------------------------------------
+# Hash rows of the streamed ingest (encode_mode="hash_device"): int32[n, 3]
+# holding the bit patterns of the JAX package's uint32 lanes [hash_hi,
+# hash_lo, valid]; a row with both hash lanes 0xffffffff (-1 here) is the
+# pad sentinel.
+
+
+def _check_hash_rows(rows: torch.Tensor, what: str = "rows") -> None:
+    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != 3 \
+            or not rows.is_contiguous():
+        raise ValueError(f"{what}: expected contiguous int32[n, 3] hash rows, "
+                         f"got {rows.dtype}{list(rows.shape)}")
+
+
+def _dropped_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Sentinel or invalid hash rows: they code to -1."""
+    return ((rows[:, 0] == -1) & (rows[:, 1] == -1)) | (rows[:, 2] != 1)
+
+
+# ---------------------------------------------------------------------------
+# C12 factorize_codes
+
+
+def factorize_codes(rows: torch.Tensor):
+    """First-occurrence dense codes of the rows' 64-bit key hashes: a row's
+    code is the rank of its hash among the distinct non-sentinel hashes
+    ordered by first row, valid rows or not; sentinel and invalid rows
+    code to -1 (the JAX package's device_encode.factorize_codes).
+
+    One C5 sort of the two hash lanes (as int32 words: grouping needs only
+    adjacency), then C12's scans. Returns (codes int32[n], n_unique int32[]
+    on the rows' device)."""
+    _check_hash_rows(rows)
+    if not _on_cuda(rows):
+        return factorize_codes_plain(rows)
+    n = rows.shape[0]
+    dev = rows.device
+    perm = radix_sort([rows[:, 0].contiguous(), rows[:, 1].contiguous()])
+    lib = cuda_build.library("factorize_codes")
+    scratch = torch.empty(max(1, lib.factorize_codes_scratch_bytes(n)),
+                          dtype=torch.uint8, device=dev)
+    codes = torch.empty(n, dtype=torch.int32, device=dev)
+    n_unique = torch.empty((), dtype=torch.int32, device=dev)
+    status = lib.factorize_codes(_ptr(rows), _ptr(perm), n, _ptr(scratch),
+                                 _ptr(codes), _ptr(n_unique), _stream(dev))
+    _raise_on(status, "factorize_codes")
+    launch_counts["factorize_codes"] += 1
+    return codes, n_unique
+
+
+def factorize_codes_plain(rows):
+    n = rows.shape[0]
+    dev = rows.device
+    perm = radix_sort_plain([rows[:, 0].contiguous(),
+                             rows[:, 1].contiguous()])
+    srows = rows[perm]
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = (srows[1:, 0] != srows[:-1, 0]) | (srows[1:, 1] != srows[:-1, 1])
+    head &= ~((srows[:, 0] == -1) & (srows[:, 1] == -1))
+    uid = torch.cumsum(head.to(torch.int64), 0) - 1
+    first_row = torch.zeros(max(int(head.sum()), 1), dtype=torch.int64,
+                            device=dev)
+    first_row[uid[head]] = perm[head]
+    row_flag = torch.zeros(n, dtype=torch.int64, device=dev)
+    row_flag[perm[head]] = 1
+    rank = torch.cumsum(row_flag, 0) - row_flag
+    codes = torch.empty(n, dtype=torch.int32, device=dev)
+    codes[perm] = rank[first_row[uid.clamp(min=0)]].to(torch.int32)
+    codes[_dropped_rows(rows)] = -1
+    return codes, head.sum().to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# C13 lookup_codes
+
+
+def lookup_codes(rows: torch.Tensor, table: torch.Tensor,
+                 table_codes: torch.Tensor) -> torch.Tensor:
+    """The codes of factorize_codes by a lower-bound search of each row's
+    hash in the host-merged table (device_encode.build_lookup_table:
+    int32[Vcap, 2] lanes ascending as uint64, sentinel-padded, and the
+    int32[Vcap] first-occurrence code of each entry); sentinel and invalid
+    rows take -1 (the JAX package's device_encode.lookup_codes)."""
+    _check_hash_rows(rows)
+    v_cap = table.shape[0]
+    if table.dtype != torch.int32 or table.dim() != 2 or \
+            table.shape[1] != 2 or not table.is_contiguous() or v_cap < 1:
+        raise ValueError(f"table: expected contiguous int32[Vcap >= 1, 2], "
+                         f"got {table.dtype}{list(table.shape)}")
+    _check(table_codes, torch.int32, v_cap, "table_codes")
+    if not _on_cuda(rows, table, table_codes):
+        return lookup_codes_plain(rows, table, table_codes)
+    n = rows.shape[0]
+    dev = rows.device
+    codes = torch.empty(n, dtype=torch.int32, device=dev)
+    status = cuda_build.library("lookup_codes").lookup_codes(
+        _ptr(rows), n, _ptr(table), v_cap, _ptr(table_codes), _ptr(codes),
+        _stream(dev))
+    _raise_on(status, "lookup_codes")
+    launch_counts["lookup_codes"] += 1
+    return codes
+
+
+def joined_hash_order(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose signed order is the uint64 order of the (hi, lo)
+    uint32 lane pairs (int32 bit patterns): the joined word with its top
+    bit flipped."""
+    word = ((hi.to(torch.int64) & _M32) << 32) | (lo.to(torch.int64) & _M32)
+    return word ^ torch.iinfo(torch.int64).min
+
+
+def lookup_codes_plain(rows, table, table_codes):
+    keys = joined_hash_order(table[:, 0], table[:, 1])
+    pos = torch.searchsorted(keys, joined_hash_order(rows[:, 0], rows[:, 1]))
+    codes = table_codes[pos.clamp(max=table.shape[0] - 1)]
+    return torch.where(_dropped_rows(rows), -1, codes).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# C14 append_rows
+
+
+def _fill_bits(fill, dtype: torch.dtype) -> int:
+    """The bit pattern of a pad value in a column of `dtype`."""
+    return int(torch.tensor([fill], dtype=dtype).view(
+        torch.int32 if dtype.itemsize == 4 else torch.int64)[0]) & (
+            _M32 if dtype.itemsize == 4 else 0xFFFFFFFFFFFFFFFF)
+
+
+def _check_buffers(bufs: Sequence[torch.Tensor], fills: Sequence) -> int:
+    """Row buffers of one row count, [cap] or [cap, width], of 4- or 8-byte
+    elements, one pad value each (at most three). Returns cap."""
+    if not 1 <= len(bufs) <= 3 or len(fills) != len(bufs):
+        raise ValueError(f"append_rows takes 1 to 3 buffers with a pad value "
+                         f"each, got {len(bufs)} and {len(fills)}")
+    cap = bufs[0].shape[0]
+    for j, b in enumerate(bufs):
+        if b.dim() not in (1, 2) or b.shape[0] != cap or \
+                not b.is_contiguous() or b.element_size() not in (4, 8):
+            raise ValueError(f"append_rows buffer {j}: expected a contiguous "
+                             f"[{cap}] or [{cap}, width] column of 4- or "
+                             f"8-byte elements, got {b.dtype}{list(b.shape)}")
+    return cap
+
+
+def _column_args(bufs, fills):
+    k = len(bufs)
+    return ((ctypes.c_int * k)(*[1 if b.dim() == 1 else b.shape[1]
+                                 for b in bufs]),
+            (ctypes.c_int * k)(*[b.element_size() for b in bufs]),
+            (ctypes.c_ulonglong * k)(*[_fill_bits(f, b.dtype)
+                                       for b, f in zip(bufs, fills)]))
+
+
+def fill_tail(bufs: Sequence[torch.Tensor], start: int,
+              fills: Sequence) -> None:
+    """Writes each buffer's pad value over its rows [start, cap), in place
+    (C14's fill_tail entry, one launch for all buffers)."""
+    cap = _check_buffers(bufs, fills)
+    if not 0 <= start <= cap:
+        raise ValueError(f"fill_tail: start {start} outside [0, {cap}]")
+    if not _on_cuda(*bufs):
+        return fill_tail_plain(bufs, start, fills)
+    if start == cap:
+        return  # no tail: nothing to launch
+    dev = bufs[0].device
+    k = len(bufs)
+    widths, elems, bits = _column_args(bufs, fills)
+    status = cuda_build.library("append_rows").append_rows_fill_tail(
+        (ctypes.c_void_p * k)(*[_ptr(b) for b in bufs]), widths, elems, bits,
+        k, start, cap, _stream(dev))
+    _raise_on(status, "append_rows")
+    launch_counts["append_rows"] += 1
+
+
+def fill_tail_plain(bufs, start, fills):
+    for b, f in zip(bufs, fills):
+        b[start:] = f
+
+
+def grow_rows(bufs: Sequence[torch.Tensor], new_cap: int,
+              fills: Sequence) -> List[torch.Tensor]:
+    """New buffers of new_cap rows holding each old buffer's rows, their
+    rows past the old capacity at the pad value (C14's grow entry, one
+    launch for all buffers)."""
+    cap = _check_buffers(bufs, fills)
+    if new_cap < cap:
+        raise ValueError(f"grow_rows: new capacity {new_cap} < {cap}")
+    if not _on_cuda(*bufs):
+        return grow_rows_plain(bufs, new_cap, fills)
+    dev = bufs[0].device
+    k = len(bufs)
+    out = [torch.empty((new_cap,) + tuple(b.shape[1:]), dtype=b.dtype,
+                       device=dev) for b in bufs]
+    widths, elems, bits = _column_args(bufs, fills)
+    status = cuda_build.library("append_rows").append_rows_grow(
+        (ctypes.c_void_p * k)(*[_ptr(b) for b in bufs]),
+        (ctypes.c_void_p * k)(*[_ptr(o) for o in out]), widths, elems, bits,
+        k, cap, new_cap, _stream(dev))
+    _raise_on(status, "append_rows")
+    launch_counts["append_rows"] += 1
+    return out
+
+
+def grow_rows_plain(bufs, new_cap, fills):
+    return [torch.cat([b, torch.full((new_cap - b.shape[0],) +
+                                     tuple(b.shape[1:]), f, dtype=b.dtype,
+                                     device=b.device)])
+            for b, f in zip(bufs, fills)]

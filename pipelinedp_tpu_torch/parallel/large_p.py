@@ -64,11 +64,12 @@ import torch
 from pipelinedp_tpu_torch import executor
 from pipelinedp_tpu_torch import kernels
 from pipelinedp_tpu_torch import numeric
+from pipelinedp_tpu_torch.device_encode import round_capacity
 from pipelinedp_tpu_torch.ops import threefry
-
 # Blocks in flight at once: each pins its O(C) outputs on the device until
-# the host has read its gate (runtime/pipeline.py of the JAX package).
-PIPELINE_DEPTH = 8
+# the host has read its gate; the streamed ingest's staging window shares
+# the depth.
+from pipelinedp_tpu_torch.runtime.pipeline import PIPELINE_DEPTH
 
 # Key lane of OOM-re-planned block generations: a block key is a pure
 # function of (final_key, plan generation, block index), so a re-planned
@@ -83,15 +84,6 @@ def _block_noise_key(final_key, generation: int, block: int) -> np.ndarray:
         return threefry.fold_in(final_key, block)
     return threefry.fold_in(
         threefry.fold_in(final_key, _REPLAN_KEY_LANE + generation), block)
-
-
-def round_capacity(x: int, min_cap: int = 8) -> int:
-    """Round up keeping 4 significant bits (at most 6.25% slack, 12.5% just
-    above a power of two): the JAX package's pass-1 row capacity
-    (parallel/mesh.py:296)."""
-    x = max(int(x), min_cap)
-    step = 1 << max((x - 1).bit_length() - 4, 3)
-    return -(-x // step) * step
 
 
 def _block_boundaries(base: int, capacity: int, n_blocks: int) -> np.ndarray:

@@ -4,7 +4,10 @@ Port of the dense route of pipelinedp_tpu/pipeline_backend.py TPUBackend.
 DPEngine.aggregate and DPEngine.select_partitions on a TorchBackend lower to
 the port's executor (executor.lazy_aggregate, lazy_select_partitions): the
 dense route, or above large_partition_threshold the blocked route
-(parallel/large_p.py), on eleven CUDA kernels on the card.
+(parallel/large_p.py), on the port's CUDA kernels on the card. Either entry
+point also takes a runtime.pipeline.ChunkSource of column chunks, streamed
+through ingest.stream_encode_columns under the backend's pipeline_depth,
+encode_threads and encode_mode.
 """
 
 from typing import Optional, Union
@@ -28,7 +31,7 @@ class TorchBackend:
       large_partition_threshold: above this many partitions both entry
         points take the blocked route (parallel/large_p.py): the partition
         axis runs in blocks of block_partitions, and only kept partitions
-        leave the device.
+        leave the device. None: the dense route for every partition count.
       dtype: the working float width: torch.float32 (the card's mode) or
         torch.float64 (parity with the JAX package under x64).
       secure_noise: release every noised column on a power-of-two grid
@@ -43,17 +46,34 @@ class TorchBackend:
       block_partitions: partitions per block of the blocked route (None:
         the blocked route's default, 2^20), as
         TPUBackend(block_partitions=...).
+      max_partitions: a fixed result width, as
+        TPUBackend(max_partitions=...): the release runs over this many
+        partitions (the ones past the data's emit nothing) and raises
+        ValueError when the data has more. It counts before the route is
+        chosen.
+      pipeline_depth: chunks a streamed input keeps in flight (None: the
+        shared runtime.pipeline.PIPELINE_DEPTH).
+      encode_threads: host threads encoding a streamed input's chunks (0:
+        one loop; None: runtime.pipeline.default_encode_threads()).
+      encode_mode: how a streamed input's keys are encoded: "host" (the
+        exact chunked vocabulary encoder) or "hash_device" (keys hashed on
+        the host, codes assigned on the device, partition keys decoded
+        only where kept). A ChunkSource's own encode_mode overrides it.
     """
 
     def __init__(self,
                  device: Union[str, torch.device, None] = None,
                  noise_seed: Optional[int] = None,
-                 large_partition_threshold: int = 1 << 21,
+                 large_partition_threshold: Optional[int] = 1 << 21,
                  dtype: torch.dtype = torch.float32,
                  secure_noise: bool = False,
                  numeric_mode: str = "fast",
                  snap_grid_bits: Optional[int] = None,
-                 block_partitions: Optional[int] = None):
+                 block_partitions: Optional[int] = None,
+                 max_partitions: Optional[int] = None,
+                 pipeline_depth: Optional[int] = None,
+                 encode_threads: Optional[int] = None,
+                 encode_mode: str = "host"):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -77,6 +97,13 @@ class TorchBackend:
         if block_partitions is not None:
             input_validators.validate_block_partitions(block_partitions,
                                                        "TorchBackend")
+        if pipeline_depth is not None:
+            input_validators.validate_pipeline_depth(pipeline_depth,
+                                                     "TorchBackend")
+        if encode_threads is not None:
+            input_validators.validate_encode_threads(encode_threads,
+                                                     "TorchBackend")
+        input_validators.validate_encode_mode(encode_mode, "TorchBackend")
         self.device = device
         self.noise_seed = noise_seed
         self.large_partition_threshold = large_partition_threshold
@@ -85,3 +112,7 @@ class TorchBackend:
         self.numeric_mode = numeric_mode
         self.snap_grid_bits = snap_grid_bits
         self.block_partitions = block_partitions
+        self.max_partitions = max_partitions
+        self.pipeline_depth = pipeline_depth
+        self.encode_threads = encode_threads
+        self.encode_mode = encode_mode

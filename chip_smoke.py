@@ -121,6 +121,32 @@ ChunkSource; ingest.py, runtime/pipeline.py) adds:
   6. stages  (a), (x) and (y) split: host encode (the workers' busy time),
              vocabulary merge, h2d copies, C14, C12, release kernels, the
              rest
+PLD accounting and the dataset histograms add, after every earlier
+phase 4 run (so the full-width composition's buffers and its host
+composition do not share their conditions):
+  2. kernels C15 pld_fft and C16 log_spectrum: compose_plds(device=True)
+             on the four sample PLDs of tests/test_pld_compose.py and on a
+             full-width trail (200 mechanisms: Gaussian sigma and Laplace b
+             log-spaced in [0.5, 20], multiplicities 1-64, discretization
+             1e-4, coarsened to DEFAULT_MAX_GRID, L = 2^21), each within
+             1e-9 of the host path (every probability and the epsilon at
+             delta 1e-6); both kernels against their plain versions at the
+             trail's shapes; their times beside torch.fft.rfft / irfft and
+             _compose_pmfs_host
+  3. parity  small PLD aggregations on the card in float64 against the CPU
+  4. main    DPEngine.aggregate under PLDBudgetAccountant(1.0, 1e-6, 1e-4):
+             (a) COUNT+SUM+MEAN, Gaussian, public and (b), each release's
+             noise stds equal to those of the accountant's specs and the
+             composed epsilon within the budget; compute_budgets' host time
+             and the release wall; the epsilon 1e6 twin of (a) at the true
+             maxima against numpy;
+             compute_dataset_histograms_device on the 2^24 Netflix rows and
+             (q)'s rows: the integer histograms equal to the port's numpy
+             host path, the float one's cumulative counts within the pair
+             sums that lie within float32 rounding of each edge; C17
+             group_stats
+             and C18 log_bins against their plain versions at these shapes;
+             the C5 sorts', each kernel's and the whole call's time
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -325,6 +351,23 @@ def main() -> int:
                                     card)):
         for name, count in phase.items():
             launches[name] += count
+    # The PLD phases run after every earlier timed run: the full-width
+    # composition's gigabyte buffers and its host composition stay out of
+    # their conditions.
+    pld_report, pld_launches = pld_kernel_phase(torch, dev, kernels, card)
+    report += pld_report
+    for phase in (pld_release_phase(torch, tdp, encoded, nmax, kernels,
+                                    executor, rng, card), pld_launches):
+        for name, count in phase.items():
+            launches[name] += count
+    hist_report, hist_launches = histogram_phase(
+        torch, dev, {"netflix": (encoded.pid, encoded.pk, encoded.values,
+                                 nmax[1]),
+                     "q": (qenc.pid, qenc.pk, qenc.values, qmax[1])},
+        kernels, card)
+    report += hist_report
+    for name, count in hist_launches.items():
+        launches[name] += count
     kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card)
     large_p_stage_phase(torch, tdp, qenc, encoded, nmax, kernels, large_p,
                         threefry, card)
@@ -346,9 +389,9 @@ def main() -> int:
     return 0
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3664,6 +3707,621 @@ def ingest_stage_phase(torch, tdp, data, kernels, executor, ingest,
         print(f"stages ({label}) ms, median of 3 ({card}): {json.dumps(med)};"
               f" the rest (wall - {'ingest wall' if label != 'a' else 'h2d'}"
               f" - release kernels) {rest:.3f} ms{extra}", flush=True)
+
+
+# --- PLD accounting (C15, C16) and dataset histograms (C17, C18) -------------
+
+FP64_OPS_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores, data sheet
+PLD_D = 1e-4  # the accountant's default discretization
+PLD_EPS, PLD_DELTA = 1.0, 1e-6
+
+
+def pld_trail(pld, rng):
+    """A tenant trail of 200 distinct mechanisms: Gaussian sigma and
+    Laplace b log-spaced in [0.5, 20] (100 each), multiplicities 1-64."""
+    plds, counts = [], []
+    for scale in np.geomspace(0.5, 20.0, 100):
+        for build in (pld.from_gaussian_mechanism,
+                      pld.from_laplace_mechanism):
+            plds.append(build(float(scale), PLD_D))
+            counts.append(int(rng.integers(1, 65)))
+    return plds, counts
+
+
+def check_pld_close(label, card, host):
+    """The 1e-9 gate of tests/test_pld_compose.py: every composed
+    probability and the epsilon at delta = 1e-6."""
+    if len(card.probs) != len(host.probs) or \
+            card._lower_index != host._lower_index:
+        raise AssertionError(f"{label}: grids differ")
+    err = float(np.max(np.abs(card.probs - host.probs)))
+    eps_card = card.get_epsilon_for_delta(1e-6)
+    eps_host = host.get_epsilon_for_delta(1e-6)
+    if not err <= 1e-9 or not abs(eps_card - eps_host) <= 1e-9:
+        raise AssertionError(f"{label}: max |card - host| {err}, epsilon "
+                             f"{eps_card} vs {eps_host}")
+    return err, eps_card, eps_host
+
+
+def complex_diff(got, want, what, tol):
+    """max |got - want| of two complex128 tensors, held to tol."""
+    err = float((got - want).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |kernel - plain| {err} > {tol}")
+    return err
+
+
+def pld_kernel_phase(torch, dev, kernels, card):
+    """C15 pld_fft and C16 log_spectrum: compose_plds(device=True) on the
+    four sample PLDs and on a full-width trail (200 mechanisms, 1e-4,
+    coarsened to DEFAULT_MAX_GRID, L = 2^21), each within 1e-9 of the host
+    path; both kernels against their plain versions at the trail's shapes;
+    their times beside torch.fft and _compose_pmfs_host. Returns the report
+    rows and the launch counts of the full-width compose_plds run."""
+    from pipelinedp_tpu_torch.accounting import compose, pld
+    sample = [pld.from_gaussian_mechanism(1.0, 1e-3),
+              pld.from_gaussian_mechanism(4.0, 1e-3),
+              pld.from_laplace_mechanism(1.0, 1e-3),
+              pld.from_laplace_mechanism(0.5, 1e-3)]
+    err4 = check_pld_close(
+        "compose_plds(device=True), 4 sample PLDs",
+        compose.compose_plds(sample, [2, 3, 1, 2], device=True),
+        compose.compose_plds(sample, [2, 3, 1, 2]))
+    print(f"pld[4 sample PLDs, counts 2/3/1/2]: card vs host max abs err "
+          f"{err4[0]:.3g}, epsilon(1e-6) {err4[1]!r} vs {err4[2]!r}",
+          flush=True)
+
+    rng = np.random.default_rng(SEED)
+    start = time.perf_counter()
+    plds, counts = pld_trail(pld, rng)
+    build_s = time.perf_counter() - start
+    start = time.perf_counter()
+    coarse = compose.coarsen_to_fit(plds, counts, compose.DEFAULT_MAX_GRID)
+    coarsen_s = time.perf_counter() - start
+    total_len = compose._projected_len(coarse, counts)
+    length = compose._next_fast_len(total_len)
+    if length != compose.DEFAULT_MAX_GRID:
+        raise AssertionError(f"full-width trail: L = {length}, expected "
+                             f"{compose.DEFAULT_MAX_GRID}")
+    pmfs = [p.probs for p in coarse]
+    start = time.perf_counter()
+    host_probs = compose._compose_pmfs_host(pmfs, counts, total_len)
+    host_s = time.perf_counter() - start
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    got = compose.compose_plds(plds, counts,
+                               max_grid=compose.DEFAULT_MAX_GRID, device=True)
+    wall_s = time.perf_counter() - start
+    launches = dict(kernels.launch_counts)
+    check_launches("compose_plds(device=True), full width", launches,
+                   kernels, path=("pld_fft", "log_spectrum"))
+    host = pld.PrivacyLossDistribution(host_probs, got._lower_index,
+                                       got.interval, got.infinity_mass)
+    err, eps_card, eps_host = check_pld_close(
+        "compose_plds(device=True), full width", got, host)
+    print(f"pld[full width: {len(plds)} mechanisms, {sum(counts)} "
+          f"compositions, interval {got.interval:.4g} after coarsening, L = "
+          f"{length}]: card vs host max abs err {err:.3g}, epsilon(1e-6) "
+          f"{eps_card!r} vs {eps_host!r}; compose_plds(device=True) "
+          f"{wall_s * 1e3:.1f} ms wall (coarsening included, "
+          f"{coarsen_s * 1e3:.1f} ms alone), _compose_pmfs_host "
+          f"{host_s * 1e3:.1f} ms, PLD construction {build_s * 1e3:.1f} ms; "
+          f"launches { {k: v for k, v in launches.items() if v} } ({card})",
+          flush=True)
+
+    # The kernels against their plain versions at the trail's shapes:
+    # chunk 0 (64 rows), the accumulator over every chunk, the inverse.
+    f64, c128 = torch.float64, torch.complex128
+    rows = compose._SPECTRUM_ROWS
+
+    def block_of(chunk):
+        block = torch.zeros((len(chunk), length), dtype=f64, device=dev)
+        for i, pmf in enumerate(chunk):
+            block[i, :len(pmf)] = torch.from_numpy(pmf).to(dev)
+        return block
+
+    m = length // 2 + 1
+    acc = torch.zeros(m, dtype=c128, device=dev)
+    acc_plain = torch.zeros(m, dtype=c128, device=dev)
+    err15 = err16 = 0.0
+    for first in range(0, len(pmfs), rows):
+        block = block_of(pmfs[first:first + rows])
+        spec = kernels.pld_rfft(block)
+        # Rows sum to at most 1, so every bin is at most 1 in magnitude.
+        err15 = max(err15, complex_diff(spec, kernels.pld_rfft_plain(block),
+                                        "pld_rfft", 1e-12))
+        w = torch.tensor(counts[first:first + rows], dtype=f64, device=dev)
+        kernels.log_spectrum_accumulate(spec, w, acc)
+        kernels.log_spectrum_accumulate_plain(spec, w, acc_plain)
+        if first == 0:
+            block0, spec0, w0 = block, spec, w
+        del block, spec
+    alive = torch.isfinite(acc.real)
+    if not torch.equal(alive, torch.isfinite(acc_plain.real)):
+        raise AssertionError("log_spectrum_accumulate: dead bins differ")
+    # Sums of up to 200 weighted logs: 1e-12 relative to their size.
+    rel = ((acc - acc_plain).abs()[alive] /
+           (1.0 + acc_plain.abs()[alive])).max()
+    if not float(rel) <= 1e-12:
+        raise AssertionError(f"log_spectrum_accumulate: rel err {float(rel)}")
+    err16 = float((acc - acc_plain).abs()[alive].max())
+    spectrum = kernels.log_spectrum_finalize(acc)
+    err16 = max(err16, complex_diff(
+        spectrum, kernels.log_spectrum_finalize_plain(acc),
+        "log_spectrum_finalize", 1e-12))
+    inv = kernels.pld_irfft(spectrum[None, :], length)
+    err15i = float((inv - kernels.pld_irfft_plain(spectrum[None, :],
+                                                  length)).abs().max())
+    if not err15i <= 1e-12:
+        raise AssertionError(f"pld_irfft: max |kernel - plain| {err15i}")
+
+    r0 = block0.shape[0]
+    scratch_acc = torch.zeros(m, dtype=c128, device=dev)
+    times = {
+        "rfft": (cuda_ms(lambda: kernels.pld_rfft(block0), 5),
+                 cuda_ms(lambda: kernels.pld_rfft_plain(block0), 5)),
+        "irfft": (cuda_ms(lambda: kernels.pld_irfft(spectrum[None, :],
+                                                    length), 5),
+                  cuda_ms(lambda: kernels.pld_irfft_plain(
+                      spectrum[None, :], length), 5)),
+        "accumulate": (
+            cuda_ms(lambda: kernels.log_spectrum_accumulate(
+                spec0, w0, scratch_acc), 5),
+            cuda_ms(lambda: kernels.log_spectrum_accumulate_plain(
+                spec0, w0, scratch_acc), 3, 1)),
+        "finalize": (cuda_ms(lambda: kernels.log_spectrum_finalize(acc), 5),
+                     cuda_ms(lambda: kernels.log_spectrum_finalize_plain(
+                         acc), 3, 1)),
+    }
+    log2 = length.bit_length() - 1
+    b15 = bound(8 * r0 * length + 16 * r0 * m,
+                  2.5 * r0 * length * log2, FP64_OPS_PER_S)
+    b15i = bound(16 * m + 8 * length, 2.5 * length * log2, FP64_OPS_PER_S)
+    # A weighted complex log a bin a row: two multiplies and two adds
+    # counted (the log, hypot and atan2 are not).
+    b16 = bound(16 * r0 * m + 32 * m + 8 * r0, 4 * r0 * m, FP64_OPS_PER_S)
+    b16f = bound(32 * m, 4 * m, FP64_OPS_PER_S)
+    print(f"kernels[pld, L = {length}, {r0} rows a chunk]: C15 rfft "
+          f"ms={times['rfft'][0]:.4f} (torch.fft.rfft, the plain version and "
+          f"the library call, {times['rfft'][1]:.4f}) bound_ms={b15[0]:.3g} "
+          f"({b15[1]}, FP64 non-tensor {FP64_OPS_PER_S:.3g} flop/s); C15 "
+          f"irfft ms={times['irfft'][0]:.4f} (torch.fft.irfft "
+          f"{times['irfft'][1]:.4f}) bound_ms={b15i[0]:.3g} ({b15i[1]}); C16 "
+          f"accumulate ms={times['accumulate'][0]:.4f} plain_ms="
+          f"{times['accumulate'][1]:.4f} bound_ms={b16[0]:.3g} ({b16[1]}); "
+          f"C16 finalize ms={times['finalize'][0]:.4f} plain_ms="
+          f"{times['finalize'][1]:.4f} bound_ms={b16f[0]:.3g} ({b16f[1]}); "
+          f"max |kernel - plain| rfft {err15:.3g}, irfft {err15i:.3g}, "
+          f"log_spectrum {err16:.3g} ({card})", flush=True)
+    report = [
+        {"name": "pld_fft", "route": "cuda",
+         "source": "pipelinedp_tpu_torch/csrc/pld_fft.cu",
+         "replaces": "pipelinedp_tpu/accounting/compose.py:143",
+         "launches": 0, "max_abs_err": max(err15, err15i),
+         "ms": times["rfft"][0], "plain_ms": times["rfft"][1],
+         "bound_ms": b15[0], "bound_by": b15[1],
+         "library_ms": times["rfft"][1]},
+        {"name": "log_spectrum", "route": "cuda",
+         "source": "pipelinedp_tpu_torch/csrc/log_spectrum.cu",
+         "replaces": "pipelinedp_tpu/accounting/compose.py:143",
+         "launches": 0, "max_abs_err": err16,
+         "ms": times["accumulate"][0], "plain_ms": times["accumulate"][1],
+         "bound_ms": b16[0], "bound_by": b16[1], "library_ms": None},
+    ]
+    return report, launches
+
+
+class StdsProbe:
+    """Records the noise stds executor.compute_noise_stds hands the
+    kernels."""
+
+    def __init__(self, executor):
+        self.executor = executor
+        self.stds = []
+
+    def __enter__(self):
+        self.original = original = self.executor.compute_noise_stds
+
+        def probed(*args, **kwargs):
+            out = original(*args, **kwargs)
+            self.stds.append(np.array(out))
+            return out
+
+        self.executor.compute_noise_stds = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.executor.compute_noise_stds = self.original
+
+
+PLD_RUNS = {
+    "a": (("COUNT", "SUM", "MEAN"), "GAUSSIAN", True),
+    "b": (("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE", False),
+}
+
+
+def pld_expected_stds(tdp, acc, params):
+    """The slot stds the accountant's specs give on the host, in plan
+    order: MEAN's (count, normalized sum) or each metric's own mechanism."""
+    from pipelinedp_tpu_torch import dp_computations as dpc
+    specs = [m.mechanism_spec for m in acc._mechanisms
+             if m.mechanism_spec.mechanism_type != tdp.MechanismType.GENERIC]
+    if tdp.Metrics.MEAN in params.metrics:
+        sens = [dpc.compute_sensitivities_for_count(params),
+                dpc.compute_sensitivities_for_normalized_sum(params)]
+    else:
+        by_metric = {
+            tdp.Metrics.COUNT: dpc.compute_sensitivities_for_count,
+            tdp.Metrics.SUM: dpc.compute_sensitivities_for_sum,
+            tdp.Metrics.PRIVACY_ID_COUNT:
+                dpc.compute_sensitivities_for_privacy_id_count}
+        sens = [by_metric[m](params) for m in params.metrics]
+    return np.array([dpc.create_additive_mechanism(spec, s).std
+                     for spec, s in zip(specs, sens)])
+
+
+def pld_release_phase(torch, tdp, encoded, nmax, kernels, executor, rng,
+                      card):
+    """DPEngine.aggregate under PLDBudgetAccountant(1.0, 1e-6, 1e-4) on the
+    card: (a) COUNT+SUM+MEAN, Gaussian, public and (b) COUNT+SUM+
+    PRIVACY_ID_COUNT, Laplace, private at 2^24 Netflix rows (float32), the
+    kernels' stds equal to those of the accountant's specs and the composed
+    epsilon within the budget; card = CPU (float64) on a small input; the
+    epsilon = 1e6 twin of (a) at the true maxima against numpy. Returns the
+    launch counts summed over its runs."""
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    vocab = list(encoded.partition_vocab)
+    for label, (metrics, noise, public) in PLD_RUNS.items():
+        walls, budget_s = [], []
+        for rep in range(3):
+            params = tdp.AggregateParams(
+                metrics=[getattr(tdp.Metrics, m) for m in metrics],
+                noise_kind=getattr(tdp.NoiseKind, noise),
+                max_partitions_contributed=64,
+                max_contributions_per_partition=1, min_value=1.0,
+                max_value=5.0)
+            acc = tdp.PLDBudgetAccountant(PLD_EPS, PLD_DELTA, PLD_D)
+            engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=rep))
+            kernels.reset_launch_counts()
+            res = engine.aggregate(encoded, params, tdp.DataExtractors(),
+                                   vocab if public else None)
+            start = time.perf_counter()
+            acc.compute_budgets()
+            budget_s.append(time.perf_counter() - start)
+            torch.cuda.synchronize()
+            with StdsProbe(executor) as probe:
+                start = time.perf_counter()
+                out = dict(res)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - start)
+            counts = dict(kernels.launch_counts)
+            check_launches(f"PLD run ({label})", counts, kernels)
+            for name, c in counts.items():
+                total[name] += c
+            want = pld_expected_stds(tdp, acc, params)
+            if len(probe.stds) != 1 or not np.array_equal(probe.stds[0],
+                                                          want):
+                raise AssertionError(f"PLD run ({label}): kernel stds "
+                                     f"{probe.stds} vs the accountant's "
+                                     f"{want}")
+            eps = acc._compose_distributions(
+                acc.minimum_noise_std).get_epsilon_for_delta(PLD_DELTA)
+            if not eps <= PLD_EPS:
+                raise AssertionError(f"PLD run ({label}): composed epsilon "
+                                     f"{eps} > {PLD_EPS}")
+            bad = [k for k, v in out.items()
+                   if not all(math.isfinite(x) for x in v)]
+            if bad or not out:
+                raise AssertionError(f"PLD run ({label}): {len(out)} "
+                                     f"partitions, {len(bad)} non-finite")
+        ms = statistics.median(walls) * 1e3
+        print(f"pld main ({label}) {'+'.join(metrics)} {noise} "
+              f"{'public' if public else 'private'}, PLDBudgetAccountant("
+              f"{PLD_EPS}, {PLD_DELTA}, {PLD_D}): {len(out)} partitions; "
+              f"minimum_noise_std {acc.minimum_noise_std!r}, slot stds "
+              f"{want.tolist()} equal the accountant's, composed epsilon "
+              f"{eps!r}; compute_budgets host "
+              f"{[round(t * 1e3, 1) for t in budget_s]} ms (first: empty "
+              f"spectrum cache); release {ms:.1f} ms, "
+              f"{N_ROWS / (ms / 1e3):.4g} rows/s (median of 3: "
+              f"{[round(t * 1e3, 1) for t in walls]} ms; {card}); launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+
+    # Card = CPU at a small size, float64.
+    n = 20000
+    users = rng.integers(0, 3000, n)
+    movies = (rng.integers(0, 60, n)**2) // 60
+    ratings = rng.integers(1, 6, n).astype(np.float64)
+    rows = list(zip(users.tolist(), movies.tolist(), ratings.tolist()))
+    for label, (metrics, noise, public) in PLD_RUNS.items():
+        results = []
+        for device in ("cuda", "cpu"):
+            acc = tdp.PLDBudgetAccountant(2.0, 1e-6, 1e-3)
+            res = tdp.DPEngine(acc, tdp.TorchBackend(
+                device=device, noise_seed=5, dtype=torch.float64)).aggregate(
+                    rows, tdp.AggregateParams(
+                        metrics=[getattr(tdp.Metrics, m) for m in metrics],
+                        noise_kind=getattr(tdp.NoiseKind, noise),
+                        max_partitions_contributed=4,
+                        max_contributions_per_partition=2, min_value=1.0,
+                        max_value=5.0),
+                    tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                                       partition_extractor=lambda r: r[1],
+                                       value_extractor=lambda r: r[2]),
+                    sorted(set(movies.tolist())) if public else None)
+            acc.compute_budgets()
+            results.append(dict(res))
+        gpu, cpu = results
+        if set(gpu) != set(cpu) or not gpu:
+            raise AssertionError(f"PLD parity ({label}): partitions differ "
+                                 f"({len(gpu)} vs {len(cpu)})")
+        worst = max(abs(a - b) / max(1.0, abs(b)) for k in cpu
+                    for a, b in zip(gpu[k], cpu[k]))
+        if worst > 1e-9:
+            raise AssertionError(f"PLD parity ({label}): rel err {worst}")
+        print(f"parity[PLD ({label})]: {len(gpu)} partitions, cuda float64 "
+              f"vs cpu float64 max rel err {worst:.3g}", flush=True)
+
+    # The epsilon = 1e6 twin of (a): the accountant's naive fallback; exact
+    # aggregates within 16 noise stds and float32 rounding.
+    l0_true, linf_true = nmax[:2]
+    params = tdp.AggregateParams(
+        metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM, tdp.Metrics.MEAN],
+        noise_kind=tdp.NoiseKind.GAUSSIAN, max_partitions_contributed=l0_true,
+        max_contributions_per_partition=linf_true, min_value=1.0,
+        max_value=5.0)
+    acc = tdp.PLDBudgetAccountant(1e6, PLD_DELTA, PLD_D)
+    kernels.reset_launch_counts()
+    res = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=3)).aggregate(
+        encoded, params, tdp.DataExtractors(), vocab)
+    acc.compute_budgets()
+    with StdsProbe(executor) as probe:
+        out = dict(res)
+    counts = dict(kernels.launch_counts)
+    check_launches("PLD run (a) at epsilon 1e6", counts, kernels)
+    for name, c in counts.items():
+        total[name] += c
+    std_count, std_nsum = probe.stds[0]
+    P = encoded.n_partitions
+    true_count = np.bincount(encoded.pk, minlength=P).astype(np.float64)
+    true_sum = np.bincount(encoded.pk, weights=encoded.values, minlength=P)
+    worst = {}
+    for name, truth, tol in (
+            ("count", true_count, 16 * std_count + 1e-6 * true_count),
+            ("sum", true_sum, 16 * (3 * std_count + std_nsum) +
+             1e-6 * np.abs(true_sum))):
+        got = np.array([getattr(out[m], name) for m in vocab])
+        err = np.abs(got - truth)
+        if (err > tol).any():
+            i = int(np.argmax(err - tol))
+            raise AssertionError(f"PLD run (a) at epsilon 1e6 {name}: "
+                                 f"{vocab[i]} {got[i]} vs numpy {truth[i]}")
+        worst[name] = float((err / np.maximum(1.0, truth)).max())
+    print(f"pld main (a) at epsilon 1e6, l0 = {l0_true}, linf = {linf_true}: "
+          f"{len(out)} "
+          f"partitions match the numpy group-by (max rel err "
+          f"{json.dumps(worst)}; stds {std_count:.4g}, {std_nsum:.4g})",
+          flush=True)
+    return total
+
+
+def check_float_hist(label, got, want, values, mask):
+    """C18's float entry against its plain version: lo, hi, edges, counts
+    and maxes equal; each bucket's sum (the float32 of a float64 sum, added
+    in another order on the card) within 1e-5 of the sum of its |v|.
+    Returns the largest |kernel - plain| of the sums."""
+    import torch
+    for j, name in ((0, "lo_hi"), (1, "edges"), (2, "counts"), (4, "maxes")):
+        check_equal(f"{label} {name}", got[j], want[j])
+    edges, counts = want[1], want[2]
+    v = values[mask]
+    idx = (torch.searchsorted(edges, v, right=True) - 1).clamp(
+        0, counts.shape[0] - 1)
+    mag = torch.zeros(counts.shape[0], dtype=torch.float64,
+                      device=v.device).index_add_(0, idx, v.abs().double())
+    err = (got[3].double() - want[3].double()).abs()
+    if bool((err > 1e-5 * mag).any()):
+        raise AssertionError(f"{label} sums: max |kernel - plain| "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def host_pair_sums(pids, pks, values):
+    """Each (pid, pk) pair's value sum in float64 on the host, as the numpy
+    host path forms them (integer codes)."""
+    key = (pids.astype(np.int64) << 32) + pks.astype(np.int64)
+    _, inverse = np.unique(key, return_inverse=True)
+    return np.bincount(inverse.reshape(-1), weights=values)
+
+
+def histogram_fields_agree(label, got, host, pair_sums, linf_max):
+    """The port's device histograms against its numpy host path: the five
+    integer histograms equal. The float histogram bins float32 pair sums on
+    float32 edges, the host float64 ones on float64 edges, so a pair sum
+    within float32 rounding of an edge may land one bucket over: the total
+    count is equal, the total sum within 1e-5 of sum |v|, and at every
+    inner edge the device's count of values below it differs from the
+    host's by at most the host values within delta of that edge, delta =
+    (2 linf_max + 8) 2^-24 max(|lo|, |hi|) (the float32 error of a pair
+    sum of linf_max non-negative rows, their casts and adds, plus that of
+    the edge). Returns (values counted on the
+    other side of some edge, the most values near one edge)."""
+    from pipelinedp_tpu_torch import convert
+    g, h = convert.histograms_fields(got), convert.histograms_fields(host)
+    for i in (0, 1, 2, 4, 5):
+        if g[i] != h[i]:
+            raise AssertionError(f"histograms ({label}): {h[i][0]} differs "
+                                 f"from the host path")
+    v = np.sort(pair_sums)
+    lo, hi, buckets = float(v[0]), float(v[-1]), 10000
+    edges = np.linspace(lo, hi, buckets + 1)
+    width = (hi - lo) / buckets
+    dev = np.zeros(buckets, dtype=np.int64)
+    dev_sum = 0.0
+    for lower, _, count, total, _ in g[3][1]:
+        dev[min(buckets - 1, max(0, int(round((lower - lo) / width))))] += \
+            count
+        dev_sum += total
+    if int(dev.sum()) != len(v):
+        raise AssertionError(f"histograms ({label}): {int(dev.sum())} pair "
+                             f"sums binned, host {len(v)}")
+    if abs(dev_sum - float(v.sum())) > 1e-5 * float(np.abs(v).sum()):
+        raise AssertionError(f"histograms ({label}): float sums total "
+                             f"{dev_sum} vs {float(v.sum())}")
+    inner = edges[1:-1]
+    delta = (2 * linf_max + 8) * 2.0**-24 * max(abs(lo), abs(hi))
+    near = (np.searchsorted(v, inner + delta, "right") -
+            np.searchsorted(v, inner - delta, "left"))
+    moved = np.abs(np.cumsum(dev)[:-1] - np.searchsorted(v, inner, "left"))
+    if bool((moved > near).any()):
+        i = int(np.argmax(moved - near))
+        raise AssertionError(f"histograms ({label}): {int(moved[i])} values "
+                             f"on the other side of edge {inner[i]!r}, "
+                             f"{int(near[i])} within {delta:.3g} of it")
+    return int(moved.max()), int(near.max())
+
+
+def histogram_phase(torch, dev, data, kernels, card):
+    """compute_dataset_histograms_device on the card over the 2^24 Netflix
+    rows (pid user, pk movie, value rating) and (q)'s rows (4,725,413
+    partitions): the result against the port's numpy host path
+    (histogram_fields_agree); C17 and
+    C18 against their plain versions on the card at these shapes; each
+    stage's time. Returns the report rows (on the Netflix rows) and the
+    launch counts of the two calls."""
+    from pipelinedp_tpu_torch.dataset_histograms import (
+        computing_histograms as ch, device_histograms as dh)
+    report, total = [], dict.fromkeys(kernels.KERNELS, 0)
+    for label, (pids, pks, values, linf_max) in data.items():
+        start = time.perf_counter()
+        host = ch.compute_dataset_histograms_columnar(pids, pks, values)
+        host_s = time.perf_counter() - start
+        walls = []
+        for rep in range(3):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            got = dh.compute_dataset_histograms_device(pids, pks, values)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            counts = dict(kernels.launch_counts)
+            check_launches(f"histograms ({label})", counts, kernels,
+                           dict(radix_sort=3, group_stats=3, log_bins=6),
+                           path=("radix_sort", "group_stats", "log_bins"))
+            for name, c in counts.items():
+                total[name] += c
+        moved = histogram_fields_agree(
+            label, got, host, host_pair_sums(pids, pks, values), linf_max)
+
+        # The stages at these shapes, each kernel against its plain version.
+        pid, pk, vals, valid = dh.device_columns(pids, pks, values, dev)
+        n = pid.shape[0]
+        sp = kernels.sunk_keys(pid, valid)
+        sk = kernels.sunk_keys(pk, valid)
+        perm = kernels.radix_sort([sp, sk])
+        pairs = kernels.group_stats_pairs(pid, pk, vals, valid, perm)
+        plain = kernels.group_stats_pairs_plain(pid, pk, vals, valid, perm)
+        err17 = 0.0
+        for name in kernels.PAIR_STATS:
+            if name == "pair_sum":
+                # torch's index_add_ adds a pair's rows on the card by
+                # atomics, in another order than C17's walk.
+                d = (pairs[name] - plain[name]).abs()
+                if bool((d > 1e-5 * plain[name].abs()).any()):
+                    raise AssertionError(f"group_stats ({label}) pair_sum: "
+                                         f"max err {float(d.max())}")
+                err17 = max(err17, float(d.max()))
+            else:
+                check_equal(f"group_stats ({label}) {name}", pairs[name],
+                            plain[name])
+        perm2 = kernels.radix_sort([sk])
+        pair_pk = pairs["pair_pk"]
+        perm3 = kernels.radix_sort([pair_pk])
+        for what, args in (("pk", (sk, valid, perm2)),
+                           ("pair starts", (pair_pk, pairs["new_pair"],
+                                            perm3))):
+            for g, w in zip(kernels.group_stats_keys(*args),
+                            kernels.group_stats_keys_plain(*args)):
+                check_equal(f"group_stats keys ({label}, {what})", g, w)
+        stats = dh.group_stats(pid, pk, vals, valid)
+        err18 = 0.0
+        for key in ("l0", "l1", "linf", "count_per_pk", "pids_per_pk"):
+            for j, (g, w) in enumerate(zip(
+                    kernels.log_bins_int(*stats[key]),
+                    kernels.log_bins_int_plain(*stats[key]))):
+                check_equal(f"log_bins_int ({label}, {key}) {j}", g, w)
+        err18f = check_float_hist(
+            f"log_bins_float ({label})",
+            kernels.log_bins_float(*stats["linf_sum"], 10000),
+            kernels.log_bins_float_plain(*stats["linf_sum"], 10000),
+            *stats["linf_sum"])
+        l1, new_pid = stats["l1"]
+        psum, new_pair = stats["linf_sum"]
+        ms = {
+            "C5 (pid, pk)": (cuda_ms(lambda: kernels.radix_sort([sp, sk]),
+                                     5), None),
+            "C5 pk": (cuda_ms(lambda: kernels.radix_sort([sk]), 5), None),
+            "C5 pair starts": (cuda_ms(lambda: kernels.radix_sort([pair_pk]),
+                                       5), None),
+            "C17 pairs": (cuda_ms(lambda: kernels.group_stats_pairs(
+                pid, pk, vals, valid, perm), 5), cuda_ms(
+                lambda: kernels.group_stats_pairs_plain(pid, pk, vals, valid,
+                                                        perm), 3, 1)),
+            "C17 keys (pk)": (cuda_ms(lambda: kernels.group_stats_keys(
+                sk, valid, perm2), 5), cuda_ms(
+                lambda: kernels.group_stats_keys_plain(sk, valid, perm2), 3,
+                1)),
+            "C18 int (l1)": (cuda_ms(lambda: kernels.log_bins_int(
+                l1, new_pid), 5), cuda_ms(
+                lambda: kernels.log_bins_int_plain(l1, new_pid), 3, 1)),
+            "C18 float": (cuda_ms(lambda: kernels.log_bins_float(
+                psum, new_pair, 10000), 5), cuda_ms(
+                lambda: kernels.log_bins_float_plain(psum, new_pair, 10000),
+                3, 1)),
+        }
+        stage_ms = {k: [round(v[0], 4), v[1] and round(v[1], 4)]
+                    for k, v in ms.items()}
+        histc_ms = cuda_ms(lambda: torch.histc(
+            psum[new_pair], bins=10000), 5)
+        # Inputs read once (through the permutation), outputs written once.
+        b17 = bound(n * (4 + 4 + 4 + 1 + 8) + n * (1 + 1 + 4 + 4 + 4 + 4 + 4),
+                    n * 8)
+        b18 = bound(n * (4 + 1) + kernels.LOG_BIN_SLOTS * 28, n * 16)
+        print(f"histograms ({label}: {len(pids)} rows padded to {n}): "
+              f"compute_dataset_histograms_device "
+              f"{statistics.median(walls) * 1e3:.1f} ms (median of 3: "
+              f"{[round(t * 1e3, 1) for t in walls]} ms, the h2d copy of the "
+              f"columns included), numpy host path {host_s * 1e3:.1f} ms; "
+              f"integer histograms equal the host path, the float one's "
+              f"cumulative counts within the values near each edge (at most "
+              f"{moved[0]} moved, {moved[1]} near one edge); "
+              f"stage ms (kernel / plain): {json.dumps(stage_ms)}"
+              f"; torch.histc of the pair sums (counts only, other edges) "
+              f"{histc_ms:.4f} ms; C17 bound_ms={b17[0]:.3g} ({b17[1]}), C18 "
+              f"int bound_ms={b18[0]:.3g} ({b18[1]}); C17 and C18 equal "
+              f"their plain versions (pair sums within {err17:.3g}, float "
+              f"bucket sums within {err18f:.3g}) ({card})", flush=True)
+        if label == "netflix":
+            report += [
+                {"name": "group_stats", "route": "cuda",
+                 "source": "pipelinedp_tpu_torch/csrc/group_stats.cu",
+                 "replaces": "pipelinedp_tpu/dataset_histograms/"
+                             "device_histograms.py:130",
+                 "launches": 0, "max_abs_err": err17,
+                 "ms": ms["C17 pairs"][0], "plain_ms": ms["C17 pairs"][1],
+                 "bound_ms": b17[0], "bound_by": b17[1], "library_ms": None},
+                {"name": "log_bins", "route": "cuda",
+                 "source": "pipelinedp_tpu_torch/csrc/log_bins.cu",
+                 "replaces": "pipelinedp_tpu/dataset_histograms/"
+                             "device_histograms.py:66",
+                 "launches": 0, "max_abs_err": max(err18, err18f),
+                 "ms": ms["C18 int (l1)"][0],
+                 "plain_ms": ms["C18 int (l1)"][1], "bound_ms": b18[0],
+                 "bound_by": b18[1], "library_ms": None}]
+        del pid, pk, vals, valid, perm, pairs, plain, stats
+    return report, total
 
 
 if __name__ == "__main__":

@@ -20,7 +20,8 @@ from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    PartitionSelectionStrategy,
                                                    SelectPartitionsParams)
 from pipelinedp_tpu_torch.budget_accounting import (BudgetAccountant,
-                                                    NaiveBudgetAccountant)
+                                                    NaiveBudgetAccountant,
+                                                    PLDBudgetAccountant)
 from pipelinedp_tpu_torch.data_extractors import DataExtractors
 from pipelinedp_tpu_torch.device_encode import HashCollisionError
 from pipelinedp_tpu_torch.dp_engine import DPEngine
@@ -33,6 +34,6 @@ __all__ = [
     "DPEngine", "ExplainComputationReport", "HashCollisionError",
     "MechanismType", "Metric", "Metrics",
     "NaiveBudgetAccountant", "NoiseKind", "NormKind",
-    "PartitionSelectionStrategy",
+    "PartitionSelectionStrategy", "PLDBudgetAccountant",
     "SelectPartitionsParams", "TorchBackend"
 ]

@@ -3,18 +3,21 @@
 These functions turn the kernel inputs of pipelinedp_tpu, once extracted to
 numpy arrays and plain Python values, into the port's, so one state can be
 fed to both packages: the encoded columns, the KernelConfig fields, the
-noise stds, the SelectionParams fields and the uint32[2] threefry key.
-Nothing here imports the JAX package; the caller does the extracting
-(e.g. `dataclasses.asdict` of its KernelConfig).
+noise stds, the SelectionParams fields, the uint32[2] threefry key and a
+privacy loss distribution's fields; and either package's dataset
+histograms into plain tuples for comparison. Nothing here imports the JAX
+package; the caller does the extracting (e.g. `dataclasses.asdict` of its
+KernelConfig).
 """
 
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pipelinedp_tpu_torch import columnar
 from pipelinedp_tpu_torch import executor
+from pipelinedp_tpu_torch.accounting import pld as pldlib
 from pipelinedp_tpu_torch.aggregate_params import NoiseKind, NormKind
 from pipelinedp_tpu_torch.ops import selection_ops
 
@@ -80,6 +83,34 @@ def row_tensors(pid, pk, values, valid, device, dtype: torch.dtype):
             torch.as_tensor(np.asarray(values)).to(device=device,
                                                     dtype=dtype),
             torch.as_tensor(np.asarray(valid, dtype=bool)).to(device))
+
+
+def pld(probs, lower_index: int, interval: float,
+        infinity_mass: float) -> pldlib.PrivacyLossDistribution:
+    """The port's PrivacyLossDistribution from a JAX one's fields (its
+    `probs`, `_lower_index`, `interval` and `infinity_mass`)."""
+    return pldlib.PrivacyLossDistribution(
+        np.array(probs, dtype=np.float64), int(lower_index), float(interval),
+        float(infinity_mass))
+
+
+HISTOGRAM_FIELDS = ("l0_contributions_histogram", "l1_contributions_histogram",
+                    "linf_contributions_histogram",
+                    "linf_sum_contributions_histogram",
+                    "count_per_partition_histogram",
+                    "count_privacy_id_per_partition")
+
+
+def histograms_fields(dataset_histograms) -> Tuple[Optional[tuple], ...]:
+    """Either package's DatasetHistograms as plain tuples, one per
+    histogram in field order: None, or (type value, ((lower, upper, count,
+    sum, max), ...))."""
+    out = []
+    for field in HISTOGRAM_FIELDS:
+        h = getattr(dataset_histograms, field)
+        out.append(None if h is None else (h.name.value, tuple(
+            (b.lower, b.upper, b.count, b.sum, b.max) for b in h.bins)))
+    return tuple(out)
 
 
 def _as_dict(obj) -> Dict[str, Any]:

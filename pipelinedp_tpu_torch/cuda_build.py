@@ -25,7 +25,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
            "vector_release", "block_offsets", "gather_rows",
-           "factorize_codes", "lookup_codes", "append_rows")
+           "factorize_codes", "lookup_codes", "append_rows", "pld_fft",
+           "log_spectrum", "group_stats", "log_bins")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -34,6 +35,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
 _D = ctypes.c_double
+_F = ctypes.c_float
 _SIGNATURES = {
     "row_keys": {
         "row_keys": (_I, [_P, _P, _P, _LL, _I, _P, _U, _U, _P, _P, _P, _I,
@@ -104,6 +106,26 @@ _SIGNATURES = {
     "append_rows": {
         "append_rows_fill_tail": (_I, [_P, _P, _P, _P, _I, _LL, _LL, _P]),
         "append_rows_grow": (_I, [_P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
+    },
+    "pld_fft": {
+        "pld_rfft": (_I, [_P, _LL, _LL, _P, _P, _P, _P]),
+        "pld_irfft": (_I, [_P, _LL, _LL, _P, _P, _P, _P]),
+    },
+    "log_spectrum": {
+        "log_spectrum_accumulate": (_I, [_P, _LL, _LL, _P, _P, _P]),
+        "log_spectrum_finalize": (_I, [_P, _LL, _P, _P]),
+    },
+    "group_stats": {
+        "group_stats_scratch_bytes": (_LL, [_LL]),
+        "group_stats_pairs": (_I, [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P,
+                                   _P, _P, _P, _P, _P]),
+        "group_stats_keys": (_I, [_P, _P, _P, _LL, _P, _P, _P, _P]),
+    },
+    "log_bins": {
+        "log_bins_int_scratch_bytes": (_LL, []),
+        "log_bins_int": (_I, [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P]),
+        "log_bins_float": (_I, [_P, _P, _LL, _I, _F, _P, _P, _P, _P, _P,
+                                _P, _P]),
     },
 }
 

@@ -230,6 +230,13 @@ class LaplaceMechanism(AdditiveMechanism):
         self._epsilon = epsilon
         self._l1_sensitivity = l1_sensitivity
 
+    @classmethod
+    def create_from_std_deviation(cls, normalized_stddev: float,
+                                  l1_sensitivity: float) -> 'LaplaceMechanism':
+        """normalized_stddev = stddev / l1_sensitivity (PLD accounting)."""
+        b = normalized_stddev / math.sqrt(2)
+        return LaplaceMechanism(1 / b, l1_sensitivity)
+
     @property
     def noise_parameter(self) -> float:
         return self._l1_sensitivity / self._epsilon
@@ -255,6 +262,19 @@ class GaussianMechanism(AdditiveMechanism):
         self._l2_sensitivity = l2_sensitivity
         self._epsilon = epsilon
         self._delta = delta
+
+    @classmethod
+    def create_from_std_deviation(
+            cls, normalized_stddev: float,
+            l2_sensitivity: float) -> 'GaussianMechanism':
+        """normalized_stddev = stddev / l2_sensitivity (PLD accounting); eps
+        and delta read 0, as in the JAX package."""
+        mech = cls.__new__(cls)
+        mech._sigma = normalized_stddev * l2_sensitivity
+        mech._l2_sensitivity = l2_sensitivity
+        mech._epsilon = 0.0
+        mech._delta = 0.0
+        return mech
 
     @property
     def noise_parameter(self) -> float:
@@ -339,17 +359,24 @@ class Sensitivities:
 def create_additive_mechanism(mechanism_spec: budget_accounting.MechanismSpec,
                               sensitivities: Sensitivities
                              ) -> AdditiveMechanism:
-    """AdditiveMechanism from a (budget-finalized) spec."""
+    """AdditiveMechanism from a (budget-finalized) spec: by its noise
+    standard deviation where PLD accounting set one, else by (eps, delta)."""
     noise_kind = mechanism_spec.mechanism_type.to_noise_kind()
     if noise_kind == NoiseKind.LAPLACE:
         if sensitivities.l1 is None:
             raise ValueError("L1 or (L0 and Linf) sensitivities must be set for"
                              " Laplace mechanism.")
+        if mechanism_spec.standard_deviation_is_set:
+            return LaplaceMechanism.create_from_std_deviation(
+                mechanism_spec.noise_standard_deviation, sensitivities.l1)
         return LaplaceMechanism(mechanism_spec.eps, sensitivities.l1)
     if noise_kind == NoiseKind.GAUSSIAN:
         if sensitivities.l2 is None:
             raise ValueError("L2 or (L0 and Linf) sensitivities must be set for"
                              " Gaussian mechanism.")
+        if mechanism_spec.standard_deviation_is_set:
+            return GaussianMechanism.create_from_std_deviation(
+                mechanism_spec.noise_standard_deviation, sensitivities.l2)
         return GaussianMechanism(mechanism_spec.eps, mechanism_spec.delta,
                                  sensitivities.l2)
     raise AssertionError(f"{noise_kind} not supported.")
@@ -707,22 +734,32 @@ def create_discrete_mechanism(mechanism_spec: budget_accounting.MechanismSpec,
     geometric mechanism on grid 1, real-valued ones the snapped mechanism
     of the spec's noise kind. `key` (a threefry key) makes the draws
     deterministic; snap_grid_bits floors the grid at 2**snap_grid_bits.
-    The port's specs carry (eps, delta); specs given by a noise standard
-    deviation come with PLD accounting (ROADMAP.md Queue 1 item 10)."""
+    A spec given by a noise standard deviation (PLD accounting) is
+    calibrated from it: Laplace as eps = sqrt(2) / normalized stddev,
+    Gaussian through SnappedGaussianMechanism.create_from_std_deviation."""
     noise_kind = mechanism_spec.mechanism_type.to_noise_kind()
     if noise_kind == NoiseKind.LAPLACE:
         if sensitivities.l1 is None:
             raise ValueError("L1 or (L0 and Linf) sensitivities must be set "
                              "for the geometric/snapped Laplace mechanism.")
+        if mechanism_spec.standard_deviation_is_set:
+            # normalized_stddev = std / Delta and b = Delta / eps (the
+            # inversion of LaplaceMechanism.create_from_std_deviation).
+            eps = math.sqrt(2.0) / mechanism_spec.noise_standard_deviation
+        else:
+            eps = mechanism_spec.eps
         if value_is_integer:
-            return GeometricMechanism(mechanism_spec.eps, sensitivities.l1,
-                                      key=key)
-        return SnappedLaplaceMechanism(mechanism_spec.eps, sensitivities.l1,
+            return GeometricMechanism(eps, sensitivities.l1, key=key)
+        return SnappedLaplaceMechanism(eps, sensitivities.l1,
                                        snap_grid_bits=snap_grid_bits, key=key)
     if noise_kind == NoiseKind.GAUSSIAN:
         if sensitivities.l2 is None:
             raise ValueError("L2 or (L0 and Linf) sensitivities must be set "
                              "for the snapped Gaussian mechanism.")
+        if mechanism_spec.standard_deviation_is_set:
+            return SnappedGaussianMechanism.create_from_std_deviation(
+                mechanism_spec.noise_standard_deviation, sensitivities.l2,
+                snap_grid_bits=snap_grid_bits, key=key)
         return SnappedGaussianMechanism(mechanism_spec.eps,
                                         mechanism_spec.delta,
                                         sensitivities.l2,

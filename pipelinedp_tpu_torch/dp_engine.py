@@ -12,13 +12,14 @@ thread pool while earlier chunks land on the device (ingest.py), under the
 backend's encode_threads / pipeline_depth / encode_mode.
 """
 
-from typing import Optional
+from typing import Optional, Sequence
 
 from pipelinedp_tpu_torch import budget_accounting
 from pipelinedp_tpu_torch import executor
 from pipelinedp_tpu_torch import pipeline_backend
 from pipelinedp_tpu_torch import report_generator
-from pipelinedp_tpu_torch.aggregate_params import (AggregateParams, Metrics,
+from pipelinedp_tpu_torch.aggregate_params import (AggregateParams, Metric,
+                                                   Metrics,
                                                    SelectPartitionsParams)
 from pipelinedp_tpu_torch.data_extractors import DataExtractors
 
@@ -69,7 +70,9 @@ class DPEngine:
           Lazy collection of (partition_key, MetricsTuple).
         """
         self._check_aggregate_params(col, params, data_extractors)
-        self._check_budget_accountant_compatibility()
+        self._check_budget_accountant_compatibility(
+            public_partitions is not None, params.metrics,
+            params.custom_combiners is not None)
         executor.check_supported(params, public_partitions)
         with self._budget_accountant.scope(weight=params.budget_weight):
             self._report_generators.append(
@@ -102,7 +105,7 @@ class DPEngine:
             element; values are never read.
         """
         self._check_select_private_partitions(col, params, data_extractors)
-        self._check_budget_accountant_compatibility()
+        self._check_budget_accountant_compatibility(False, [], False)
         with self._budget_accountant.scope(weight=params.budget_weight):
             self._report_generators.append(
                 report_generator.ReportGenerator(params, "select_partitions"))
@@ -168,12 +171,27 @@ class DPEngine:
                     "PRIVACY_ID_COUNT cannot be computed when "
                     "contribution_bounds_already_enforced is True.")
 
-    def _check_budget_accountant_compatibility(self):
-        if not isinstance(self._budget_accountant,
-                          budget_accounting.NaiveBudgetAccountant):
-            raise NotImplementedError(
-                "The port runs NaiveBudgetAccountant; PLD accounting is "
-                "ROADMAP.md Queue 1 item 10.")
+    def _check_budget_accountant_compatibility(
+            self, is_public_partition: bool, metrics: Sequence[Metric],
+            custom_combiner: bool):
+        """pipelinedp_tpu/dp_engine.py:468: under a non-naive (PLD)
+        accountant only COUNT, PRIVACY_ID_COUNT, SUM and MEAN, with or
+        without private partition selection (its GENERIC mechanism composes
+        through the loss distribution)."""
+        if isinstance(self._budget_accountant,
+                      budget_accounting.NaiveBudgetAccountant):
+            return
+        del is_public_partition
+        supported = [
+            Metrics.COUNT, Metrics.PRIVACY_ID_COUNT, Metrics.SUM, Metrics.MEAN
+        ]
+        non_supported = set(metrics) - set(supported)
+        if non_supported:
+            raise NotImplementedError(f"Metrics {non_supported} do not "
+                                      f"support PLD budget accounting")
+        if custom_combiner:
+            raise ValueError("PLD budget accounting does not support custom "
+                             "combiners")
 
     def _guard_lazy_execution(self, col):
         """Wraps the lazy result so that iterating it cannot grow the budget

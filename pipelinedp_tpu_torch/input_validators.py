@@ -133,3 +133,24 @@ def validate_encode_mode(encode_mode, obj_name: str) -> None:
             f"vocabulary encoder, 'hash_device' the on-device hash "
             f"factorization with decode-at-selected-indices (falls back "
             f"to 'host' on a detected hash collision).")
+
+
+def validate_pld_discretization(pld_discretization, obj_name: str) -> None:
+    """Validates the PLD loss-grid discretization interval: a finite
+    number in [1e-7, 0.5]. Finer than 1e-7 makes million-cell grids
+    balloon past the composition engine's coarsening budget; coarser
+    than 0.5 gives ceilings too loose to be useful.
+
+    Raises:
+        ValueError: pld_discretization is not a number in [1e-7, 0.5].
+    """
+    if (not isinstance(pld_discretization, numbers.Number) or
+            isinstance(pld_discretization, bool) or
+            math.isnan(pld_discretization) or
+            not 1e-7 <= pld_discretization <= 0.5):
+        raise ValueError(
+            f"{obj_name}: pld_discretization must be a number in "
+            f"[1e-7, 0.5], but {pld_discretization!r} given — it is "
+            f"the privacy-loss grid interval; finer grids are more "
+            f"accurate but cost memory and FFT time (pessimistic "
+            f"ceiling rounding keeps every choice sound).")

@@ -1,6 +1,6 @@
-"""The fourteen CUDA kernels of the dense and blocked release and selection
-paths and of the streamed ingest, their wrappers and their plain PyTorch
-versions.
+"""The eighteen CUDA kernels of the dense and blocked release and selection
+paths, the streamed ingest, the PLD composition and the dataset
+histograms, their wrappers and their plain PyTorch versions.
 
     C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform;
                                                      total-bound keys (total_bound_keys)
@@ -28,6 +28,17 @@ versions.
     C14 append_rows       csrc/append_rows.cu        the streamed row buffers: pad
                                                      tail fill, growth (fill_tail,
                                                      grow_rows)
+    C15 pld_fft           csrc/pld_fft.cu            complex128 rfft / irfft of
+                                                     the PLD composition
+                                                     (pld_rfft, pld_irfft)
+    C16 log_spectrum      csrc/log_spectrum.cu       weighted sum of log spectra,
+                                                     its exp (log_spectrum_*)
+    C17 group_stats       csrc/group_stats.cu        pair / pid / key statistics
+                                                     of C5-sorted rows
+                                                     (group_stats_pairs, _keys)
+    C18 log_bins          csrc/log_bins.cu           log-binned int and equal-
+                                                     width float histograms
+                                                     (log_bins_int, _float)
 
 The blocked route (parallel/large_p.py) runs C3 and C7 on windows of the
 partition-sorted stream: their windowed entries (base=) rebase each row's
@@ -55,6 +66,7 @@ radix sort three a pass).
 """
 
 import ctypes
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,7 +89,8 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "reduce_partitions_windowed",
            "reduce_partitions_compensated_windowed",
            "quantile_counts_windowed", "factorize_codes", "lookup_codes",
-           "append_rows")
+           "append_rows", "pld_fft", "log_spectrum", "group_stats",
+           "log_bins")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -1650,3 +1663,426 @@ def grow_rows_plain(bufs, new_cap, fills):
                                      tuple(b.shape[1:]), f, dtype=b.dtype,
                                      device=b.device)])
             for b, f in zip(bufs, fills)]
+
+
+# ---------------------------------------------------------------------------
+# C15 pld_fft
+
+
+def _check_2d(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous {dtype}[rows, n], "
+                         f"got {t.dtype}{list(t.shape)}")
+    if not 1 <= t.shape[0] <= 65535:
+        raise ValueError(f"{what}: 1 to 65535 rows a call, got {t.shape[0]}")
+
+
+def _check_fft_length(length: int) -> None:
+    if length < 2 or length & (length - 1):
+        raise ValueError(f"pld_fft: the transform length must be a power of "
+                         f"two >= 2, got {length}")
+
+
+def pld_rfft(x: torch.Tensor) -> torch.Tensor:
+    """torch.fft.rfft(x, dim=1) of float64[rows, L], L a power of two >= 2:
+    complex128[rows, L / 2 + 1] (C15's forward entry)."""
+    _check_2d(x, torch.float64, "pld_rfft")
+    rows, length = x.shape
+    _check_fft_length(length)
+    if not _on_cuda(x):
+        return pld_rfft_plain(x)
+    n = length // 2
+    dev = x.device
+    out = torch.empty((rows, n + 1), dtype=torch.complex128, device=dev)
+    work = torch.empty((rows, n), dtype=torch.complex128, device=dev)
+    table = torch.empty(n, dtype=torch.complex128, device=dev)
+    status = cuda_build.library("pld_fft").pld_rfft(
+        _ptr(x), rows, n, _ptr(out), _ptr(work), _ptr(table), _stream(dev))
+    _raise_on(status, "pld_fft")
+    launch_counts["pld_fft"] += 1
+    return out
+
+
+def pld_rfft_plain(x):
+    return torch.fft.rfft(x, dim=1)
+
+
+def pld_irfft(spectrum: torch.Tensor, length: int) -> torch.Tensor:
+    """torch.fft.irfft(spectrum, n=length, dim=1) of complex128[rows,
+    length / 2 + 1], length a power of two >= 2: float64[rows, length]
+    (C15's inverse entry; the imaginary parts of the first and last bins
+    are dropped, as irfft drops them)."""
+    _check_2d(spectrum, torch.complex128, "pld_irfft")
+    _check_fft_length(length)
+    rows = spectrum.shape[0]
+    n = length // 2
+    if spectrum.shape[1] != n + 1:
+        raise ValueError(f"pld_irfft: {spectrum.shape[1]} bins for length "
+                         f"{length}, expected {n + 1}")
+    if not _on_cuda(spectrum):
+        return pld_irfft_plain(spectrum, length)
+    dev = spectrum.device
+    out = torch.empty((rows, length), dtype=torch.float64, device=dev)
+    work = torch.empty((rows, n), dtype=torch.complex128, device=dev)
+    table = torch.empty(n, dtype=torch.complex128, device=dev)
+    status = cuda_build.library("pld_fft").pld_irfft(
+        _ptr(spectrum), rows, n, _ptr(out), _ptr(work), _ptr(table),
+        _stream(dev))
+    _raise_on(status, "pld_fft")
+    launch_counts["pld_fft"] += 1
+    return out
+
+
+def pld_irfft_plain(spectrum, length):
+    return torch.fft.irfft(spectrum, n=length, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# C16 log_spectrum
+
+
+def log_spectrum_accumulate(spectra: torch.Tensor, weights: torch.Tensor,
+                            acc: torch.Tensor) -> None:
+    """acc += sum_r weights[r] * log(spectra[r]), in place: the complex log
+    as (log |z|, atan2(im, z)), the rows' sums taken from 0 in row order and
+    then added (C16's accumulate entry). spectra complex128[rows, m],
+    weights float64[rows] (no weight 0), acc complex128[m]."""
+    _check_2d(spectra, torch.complex128, "log_spectrum_accumulate")
+    rows, m = spectra.shape
+    _check(weights, torch.float64, rows, "weights")
+    _check(acc, torch.complex128, m, "acc")
+    if not _on_cuda(spectra, weights, acc):
+        return log_spectrum_accumulate_plain(spectra, weights, acc)
+    status = cuda_build.library("log_spectrum").log_spectrum_accumulate(
+        _ptr(spectra), rows, m, _ptr(weights), _ptr(acc),
+        _stream(spectra.device))
+    _raise_on(status, "log_spectrum")
+    launch_counts["log_spectrum"] += 1
+
+
+def log_spectrum_accumulate_plain(spectra, weights, acc):
+    w = weights[:, None]
+    re = (w * torch.log(torch.abs(spectra))).sum(0)
+    im = (w * torch.angle(spectra)).sum(0)
+    acc += torch.complex(re, im)
+
+
+def log_spectrum_finalize(acc: torch.Tensor) -> torch.Tensor:
+    """exp(acc) where acc's real part is finite, else 0 (C16's finalize
+    entry): the composed spectrum."""
+    m = acc.shape[0]
+    _check(acc, torch.complex128, m, "acc")
+    if not _on_cuda(acc):
+        return log_spectrum_finalize_plain(acc)
+    out = torch.empty_like(acc)
+    status = cuda_build.library("log_spectrum").log_spectrum_finalize(
+        _ptr(acc), m, _ptr(out), _stream(acc.device))
+    _raise_on(status, "log_spectrum")
+    launch_counts["log_spectrum"] += 1
+    return out
+
+
+def log_spectrum_finalize_plain(acc):
+    alive = torch.isfinite(acc.real)
+    spectrum = torch.exp(torch.where(alive, acc, torch.zeros_like(acc)))
+    return torch.where(alive, spectrum, torch.zeros_like(acc))
+
+
+# ---------------------------------------------------------------------------
+# C17 group_stats (over C5-sorted streams; dataset_histograms)
+
+PAIR_STATS = ("new_pair", "new_pid", "pair_len", "pair_sum", "l1", "l0",
+              "pair_pk")
+
+
+def sunk_keys(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """int32 keys with every invalid row's key at INT32_MAX, so that a sort
+    sinks the invalid rows to the tail (the JAX package's _I32_MAX)."""
+    return torch.where(valid, keys, torch.full_like(keys, _INT32_MAX))
+
+
+def group_stats_pairs(pid: torch.Tensor, pk: torch.Tensor,
+                      values: Optional[torch.Tensor], valid: torch.Tensor,
+                      perm: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The per-pair and per-pid statistics of rows sorted by (pid, pk)
+    (perm: the stable order with invalid rows' keys at INT32_MAX), in
+    sorted order, each at its group's first row and 0 elsewhere: new_pair,
+    new_pid (bool), pair_len, l1, l0 (int32), pair_sum (float32, added in
+    row order from 0), pair_pk (the pk of each pair start, INT32_MAX
+    elsewhere) (C17's pairs entry). pid, pk int32[n]; values float32[n] or
+    None (sums 0); valid bool[n]; perm int64[n]."""
+    n = pid.shape[0]
+    _check(pid, torch.int32, n, "pid")
+    _check(pk, torch.int32, n, "pk")
+    _check(values, torch.float32, n, "values")
+    _check(valid, torch.bool, n, "valid")
+    _check(perm, torch.int64, n, "perm")
+    if not _on_cuda(pid, pk, values, valid, perm):
+        return group_stats_pairs_plain(pid, pk, values, valid, perm)
+    dev = pid.device
+    lib = cuda_build.library("group_stats")
+    scratch = torch.empty(max(1, lib.group_stats_scratch_bytes(n)),
+                          dtype=torch.uint8, device=dev)
+    out = {name: torch.empty(n, dtype=dtype, device=dev)
+           for name, dtype in zip(PAIR_STATS, (
+               torch.bool, torch.bool, torch.int32, torch.float32,
+               torch.int32, torch.int32, torch.int32))}
+    status = lib.group_stats_pairs(
+        _ptr(pid), _ptr(pk), _ptr(values), _ptr(valid), _ptr(perm), n,
+        _ptr(scratch), *[_ptr(out[name]) for name in PAIR_STATS],
+        _stream(dev))
+    _raise_on(status, "group_stats")
+    launch_counts["group_stats"] += 1
+    return out
+
+
+def _segment_ids(starts: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(starts.to(torch.int64), 0) - 1
+
+
+def group_stats_pairs_plain(pid, pk, values, valid, perm):
+    n = pid.shape[0]
+    zero_i = torch.zeros(n, dtype=torch.int32, device=pid.device)
+    sv = valid[perm]
+    sp = sunk_keys(pid, valid)[perm]
+    sq = sunk_keys(pk, valid)[perm]
+    pid_head = torch.ones(n, dtype=torch.bool, device=pid.device)
+    pid_head[1:] = sp[1:] != sp[:-1]
+    pair_head = pid_head.clone()
+    pair_head[1:] |= sq[1:] != sq[:-1]
+    new_pair, new_pid = pair_head & sv, pid_head & sv
+    seg = _segment_ids(new_pair | ~sv)
+    vals = (torch.zeros(n, dtype=torch.float32, device=pid.device)
+            if values is None else values[perm])
+    seg_sum = torch.zeros(n, dtype=torch.float32, device=pid.device)
+    seg_sum.index_add_(0, seg, torch.where(sv, vals, torch.zeros_like(vals)))
+    seg_len = torch.bincount(seg, minlength=n)
+    pseg = _segment_ids(new_pid | ~sv)
+    pid_rows = torch.bincount(pseg, minlength=n)
+    pid_pairs = torch.bincount(pseg, weights=new_pair.double(), minlength=n)
+    return {
+        "new_pair": new_pair, "new_pid": new_pid,
+        "pair_len": torch.where(new_pair, seg_len[seg].to(torch.int32),
+                                zero_i),
+        "pair_sum": torch.where(new_pair, seg_sum[seg],
+                                torch.zeros_like(seg_sum)),
+        "l1": torch.where(new_pid, pid_rows[pseg].to(torch.int32), zero_i),
+        "l0": torch.where(new_pid, pid_pairs[pseg].to(torch.int32), zero_i),
+        "pair_pk": torch.where(new_pair, sq,
+                               torch.full_like(sq, _INT32_MAX)),
+    }
+
+
+def group_stats_keys(keys: torch.Tensor, valid: torch.Tensor,
+                     perm: torch.Tensor):
+    """The first valid row of each key of a stream sorted by `keys` (perm:
+    the stable order) and that key's run length there, 0 elsewhere, in
+    sorted order: (new_seg bool[n], seg_len int32[n]) (C17's keys entry).
+    Every invalid row is a run of its own."""
+    n = keys.shape[0]
+    _check(keys, torch.int32, n, "keys")
+    _check(valid, torch.bool, n, "valid")
+    _check(perm, torch.int64, n, "perm")
+    if not _on_cuda(keys, valid, perm):
+        return group_stats_keys_plain(keys, valid, perm)
+    dev = keys.device
+    lib = cuda_build.library("group_stats")
+    scratch = torch.empty(max(1, lib.group_stats_scratch_bytes(n)),
+                          dtype=torch.uint8, device=dev)
+    new_seg = torch.empty(n, dtype=torch.bool, device=dev)
+    seg_len = torch.empty(n, dtype=torch.int32, device=dev)
+    status = lib.group_stats_keys(_ptr(keys), _ptr(valid), _ptr(perm), n,
+                                  _ptr(scratch), _ptr(new_seg),
+                                  _ptr(seg_len), _stream(dev))
+    _raise_on(status, "group_stats")
+    launch_counts["group_stats"] += 1
+    return new_seg, seg_len
+
+
+def group_stats_keys_plain(keys, valid, perm):
+    n = keys.shape[0]
+    sk, sv = keys[perm], valid[perm]
+    head = torch.ones(n, dtype=torch.bool, device=keys.device)
+    head[1:] = sk[1:] != sk[:-1]
+    new_seg = head & sv
+    seg = _segment_ids(new_seg | ~sv)
+    run = torch.bincount(seg, minlength=n)[seg].to(torch.int32)
+    return new_seg, torch.where(new_seg, run, torch.zeros_like(run))
+
+
+# ---------------------------------------------------------------------------
+# C18 log_bins (dataset_histograms)
+
+# Slots of the 3-leading-digit bins over int32 (csrc/log_bins.cu).
+LOG_BIN_SLOTS = 6514
+_INT32_MIN = -(2**31)
+_FLOAT32_MAX = float(np.finfo(np.float32).max)
+
+
+def _pow10(device) -> torch.Tensor:
+    return torch.tensor([10**k for k in range(10)], dtype=torch.int64,
+                        device=device)
+
+
+def log_bin_bounds(values: torch.Tensor):
+    """(lower, upper) of the 3-leading-digit bin of each value >= 1
+    (int64), in the JAX package's int32 arithmetic: the upper wraps past
+    2^31 as an int32 add does."""
+    pow10 = _pow10(values.device)
+    d = (values[:, None] >= pow10).sum(1)
+    is_pow10 = values == pow10[(d - 1).clamp(max=9)]
+    e = torch.where(is_pow10, d - 1, d).clamp(min=3)
+    base = pow10[(e - 3).clamp(max=7)]
+    lower = values // base * base
+    at_bound = (e <= 9) & (values == pow10[e.clamp(max=9)])
+    upper = lower + torch.where(at_bound, base * 10, base)
+    upper = (upper + 2**31) % 2**32 - 2**31
+    return lower, upper
+
+
+def log_bin_slot(lower: torch.Tensor) -> torch.Tensor:
+    pow10 = _pow10(lower.device)
+    e = (lower[:, None] >= pow10).sum(1) - 1
+    m = lower // pow10[(e - 2).clamp(min=0)]
+    return torch.where(lower <= 1000, lower - 1,
+                       1000 + (e - 3) * 900 + m - 101)
+
+
+def log_bin_lower(slot: torch.Tensor) -> torch.Tensor:
+    u = slot - 999
+    e = 3 + torch.div(u, 900, rounding_mode="floor")
+    m = u % 900 + 100
+    return torch.where(slot < 1000, slot + 1,
+                       m * _pow10(slot.device)[(e - 2).clamp(0, 9)])
+
+
+def log_bins_int(values: torch.Tensor, mask: torch.Tensor):
+    """The 3-leading-digit log histogram of the int32 values the bool mask
+    selects: (lowers, uppers, counts, sums, maxes, n_bins), LOG_BIN_SLOTS
+    entries each, the first n_bins the bins in ascending lower and zeros
+    after; lowers, uppers, maxes int32, counts and sums int64 (exact),
+    n_bins an int64 scalar (C18's integer entry). Values below 1 bin as 1
+    and add their own value to sum and max."""
+    n = values.shape[0]
+    _check(values, torch.int32, n, "values")
+    _check(mask, torch.bool, n, "mask")
+    if not _on_cuda(values, mask):
+        return log_bins_int_plain(values, mask)
+    dev = values.device
+    lib = cuda_build.library("log_bins")
+    scratch = torch.empty(lib.log_bins_int_scratch_bytes(), dtype=torch.uint8,
+                          device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    out = tuple(torch.empty(LOG_BIN_SLOTS, **kind)
+                for kind in (i32, i32, i64, i64, i32)) + (
+        torch.empty((), **i64),)
+    status = lib.log_bins_int(_ptr(values), _ptr(mask), n, _ptr(scratch),
+                              *[_ptr(t) for t in out], _stream(dev))
+    _raise_on(status, "log_bins")
+    launch_counts["log_bins"] += 1
+    return out
+
+
+def log_bins_int_plain(values, mask):
+    dev = values.device
+    v = values[mask].to(torch.int64)
+    lower, _ = log_bin_bounds(v.clamp(min=1))
+    slot = log_bin_slot(lower)
+    counts = torch.bincount(slot, minlength=LOG_BIN_SLOTS)
+    sums = torch.zeros(LOG_BIN_SLOTS, dtype=torch.int64, device=dev)
+    sums.index_add_(0, slot, v)
+    maxes = torch.full((LOG_BIN_SLOTS,), _INT32_MIN, dtype=torch.int64,
+                       device=dev)
+    maxes.scatter_reduce_(0, slot, v, "amax")
+    full = torch.nonzero(counts > 0).reshape(-1)
+    k = full.shape[0]
+    lowers, uppers = log_bin_bounds(log_bin_lower(full))
+    out = [torch.zeros(LOG_BIN_SLOTS, dtype=dt, device=dev)
+           for dt in (torch.int32, torch.int32, torch.int64, torch.int64,
+                      torch.int32)]
+    for o, col in zip(out, (lowers, uppers, counts[full], sums[full],
+                            maxes[full])):
+        o[:k] = col.to(o.dtype)
+    return (*out, torch.tensor(k, dtype=torch.int64, device=dev))
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """float32 a * b + c rounded once (a fused multiply-add): the product
+    is exact in float64, the sum is rounded to odd there, and the odd
+    float64 rounds correctly to float32."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bp = s - p
+    err = (p - (s - bp)) + (cd - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def linspace_edges_f32(lo: torch.Tensor, hi: torch.Tensor,
+                       n_buckets: int) -> torch.Tensor:
+    """jnp.linspace(lo, hi, n_buckets + 1) in float32 as XLA compiles it
+    for the CPU: edge_i = fma(i, hi * c, lo * fma(-i, c, 1)), c =
+    float32(1 / n_buckets), the last edge hi."""
+    dev = lo.device
+    i = torch.arange(n_buckets, dtype=torch.float32, device=dev)
+    c = torch.full_like(i, float(np.float32(1.0 / n_buckets)))
+    step = _fma_f32(-i, c, torch.ones_like(i))
+    edges = _fma_f32(i, hi * c, lo * step)
+    return torch.cat([edges, hi.reshape(1)])
+
+
+def log_bins_float(values: torch.Tensor, mask: torch.Tensor,
+                   n_buckets: int):
+    """The equal-width histogram of n_buckets buckets between the min and
+    max of the float32 values the bool mask selects: (lo_hi float32[2],
+    edges float32[n_buckets + 1], counts int32, sums float32, maxes
+    float32 [n_buckets]); a value's bucket is searchsorted(edges, v,
+    side="right") - 1, clipped, and its sum the float32 of the bucket's
+    float64 sum (C18's float entry). With no value selected lo_hi is
+    (float32 max, -float32 max)."""
+    n = values.shape[0]
+    _check(values, torch.float32, n, "values")
+    _check(mask, torch.bool, n, "mask")
+    if not _on_cuda(values, mask):
+        return log_bins_float_plain(values, mask, n_buckets)
+    dev = values.device
+    lo_hi = torch.empty(2, dtype=torch.float32, device=dev)
+    edges = torch.empty(n_buckets + 1, dtype=torch.float32, device=dev)
+    counts = torch.empty(n_buckets, dtype=torch.int32, device=dev)
+    sums = torch.empty(n_buckets, dtype=torch.float32, device=dev)
+    maxes = torch.empty(n_buckets, dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_buckets, dtype=torch.float64, device=dev)
+    status = cuda_build.library("log_bins").log_bins_float(
+        _ptr(values), _ptr(mask), n, n_buckets,
+        float(np.float32(1.0 / n_buckets)), _ptr(scratch), _ptr(lo_hi),
+        _ptr(edges), _ptr(counts), _ptr(sums), _ptr(maxes), _stream(dev))
+    _raise_on(status, "log_bins")
+    launch_counts["log_bins"] += 1
+    return lo_hi, edges, counts, sums, maxes
+
+
+def log_bins_float_plain(values, mask, n_buckets):
+    big = torch.full_like(values, _FLOAT32_MAX)
+    lo = torch.where(mask, values, big).min()
+    hi = torch.where(mask, values, -big).max()
+    edges = linspace_edges_f32(lo, hi, n_buckets)
+    idx = torch.searchsorted(edges, values, right=True) - 1
+    idx = torch.where(mask, idx.clamp(0, n_buckets - 1),
+                      torch.full_like(idx, n_buckets))
+    counts = torch.zeros(n_buckets + 1, dtype=torch.int32,
+                         device=values.device)
+    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    sums = torch.zeros(n_buckets + 1, dtype=torch.float64,
+                       device=values.device)
+    sums.index_add_(0, idx, torch.where(mask, values,
+                                        torch.zeros_like(values)).double())
+    maxes = torch.full((n_buckets + 1,), -_FLOAT32_MAX, dtype=torch.float32,
+                       device=values.device)
+    maxes.scatter_reduce_(0, idx, torch.where(mask, values, -big), "amax")
+    return (torch.stack([lo, hi]), edges, counts[:-1], sums[:-1].float(),
+            maxes[:-1])

@@ -124,8 +124,9 @@ ChunkSource; ingest.py, runtime/pipeline.py) adds:
 PLD accounting and the dataset histograms add, after every earlier
 phase 4 run (so the full-width composition's buffers and its host
 composition do not share their conditions):
-  2. kernels C15 pld_fft and C16 log_spectrum: compose_plds(device=True)
-             on the four sample PLDs of tests/test_pld_compose.py and on a
+  2. kernels C15 pld_fft and C16 log_spectrum: compose_plds on the card
+             (device=True; the full-width trail by default) on the four
+             sample PLDs of tests/test_pld_compose.py and on a
              full-width trail (200 mechanisms: Gaussian sigma and Laplace b
              log-spaced in [0.5, 20], multiplicities 1-64, discretization
              1e-4, coarsened to DEFAULT_MAX_GRID, L = 2^21), each within
@@ -147,6 +148,24 @@ composition do not share their conditions):
              group_stats
              and C18 log_bins against their plain versions at these shapes;
              the C5 sorts', each kernel's and the whole call's time
+Utility analysis and parameter tuning (analysis/, K19) add, after every
+earlier phase including the profile:
+  2. kernels C19 sweep_stats and C20 sweep_report (after C5 and C10)
+             against their plain versions on the card, float64 and
+             float32, at (A) bench.py's config-5 shape (2^21 rows, 2^14
+             partitions, COUNT, the 64-configuration l0 x linf grid,
+             Gaussian, private selection at (1, 1e-6), seed 11) and (B)
+             the Netflix table's 2^24 pairs as preaggregated rows (COUNT +
+             SUM, P = 17,770, the same grid): integer-valued columns
+             equal, float64 within 1e-9, float32 within 1e-2 of float64;
+             C20 at sigma = 0 with half-integer mu; times beside the plain
+             versions and, for C19 at (A), index_add_ of the term tensor
+  4. main    compute_dataset_histograms_device of the first 2^20 Netflix
+             rows, then parameter_tuning.tune over them as Python tuples on
+             TorchBackend() (COUNT, private, 64 candidates, epsilon 1,
+             delta 1e-6), the host preaggregation timed apart from the
+             sweep; perform_utility_analysis of 2^14 of those rows,
+             private and public, card (float64, float32) against the CPU
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -374,6 +393,12 @@ def main() -> int:
     ingest_stage_phase(torch, tdp, streamed, kernels, executor, ingest,
                        rt_pipeline, encode_s, card)
     profile_phase(torch, tdp, encoded, card)
+    # Utility analysis and tuning, after every earlier timed run.
+    report += sweep_kernel_phase(torch, dev, sweep_shapes(tdp, encoded),
+                                 kernels, card)
+    for name, count in analysis_main_phase(torch, tdp, users, movies,
+                                           ratings, kernels, card).items():
+        launches[name] += count
     for entry in report:
         entry["launches"] = launches[entry["name"]]
         print(f"kernel {entry['name']}: max_abs_err={entry['max_abs_err']} "
@@ -3752,7 +3777,7 @@ def complex_diff(got, want, what, tol):
 
 
 def pld_kernel_phase(torch, dev, kernels, card):
-    """C15 pld_fft and C16 log_spectrum: compose_plds(device=True) on the
+    """C15 pld_fft and C16 log_spectrum: compose_plds on the card on the
     four sample PLDs and on a full-width trail (200 mechanisms, 1e-4,
     coarsened to DEFAULT_MAX_GRID, L = 2^21), each within 1e-9 of the host
     path; both kernels against their plain versions at the trail's shapes;
@@ -3766,7 +3791,7 @@ def pld_kernel_phase(torch, dev, kernels, card):
     err4 = check_pld_close(
         "compose_plds(device=True), 4 sample PLDs",
         compose.compose_plds(sample, [2, 3, 1, 2], device=True),
-        compose.compose_plds(sample, [2, 3, 1, 2]))
+        compose.compose_plds(sample, [2, 3, 1, 2], device=False))
     print(f"pld[4 sample PLDs, counts 2/3/1/2]: card vs host max abs err "
           f"{err4[0]:.3g}, epsilon(1e-6) {err4[1]!r} vs {err4[2]!r}",
           flush=True)
@@ -3791,20 +3816,21 @@ def pld_kernel_phase(torch, dev, kernels, card):
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
+    # No device given: the default runs C15 / C16 on the card.
     got = compose.compose_plds(plds, counts,
-                               max_grid=compose.DEFAULT_MAX_GRID, device=True)
+                               max_grid=compose.DEFAULT_MAX_GRID)
     wall_s = time.perf_counter() - start
     launches = dict(kernels.launch_counts)
-    check_launches("compose_plds(device=True), full width", launches,
+    check_launches("compose_plds(), full width", launches,
                    kernels, path=("pld_fft", "log_spectrum"))
     host = pld.PrivacyLossDistribution(host_probs, got._lower_index,
                                        got.interval, got.infinity_mass)
     err, eps_card, eps_host = check_pld_close(
-        "compose_plds(device=True), full width", got, host)
+        "compose_plds(), full width", got, host)
     print(f"pld[full width: {len(plds)} mechanisms, {sum(counts)} "
           f"compositions, interval {got.interval:.4g} after coarsening, L = "
           f"{length}]: card vs host max abs err {err:.3g}, epsilon(1e-6) "
-          f"{eps_card!r} vs {eps_host!r}; compose_plds(device=True) "
+          f"{eps_card!r} vs {eps_host!r}; compose_plds() on the card "
           f"{wall_s * 1e3:.1f} ms wall (coarsening included, "
           f"{coarsen_s * 1e3:.1f} ms alone), _compose_pmfs_host "
           f"{host_s * 1e3:.1f} ms, PLD construction {build_s * 1e3:.1f} ms; "
@@ -4322,6 +4348,512 @@ def histogram_phase(torch, dev, data, kernels, card):
                  "bound_by": b18[1], "library_ms": None}]
         del pid, pk, vals, valid, perm, pairs, plain, stats
     return report, total
+
+
+# ---------------------------------------------------------------------------
+# Utility analysis and parameter tuning (K19): C19 sweep_stats and C20
+# sweep_report, after C5 radix_sort and C10 block_offsets.
+
+SWEEP_GRID = (1, 2, 4, 8, 16, 32, 64, 128)
+SWEEP_EPS, SWEEP_DELTA = 1.0, 1e-6
+SWEEP_PATH = ("radix_sort", "block_offsets", "sweep_stats", "sweep_report")
+SWEEP_A_ROWS, SWEEP_A_PARTS = 1 << 21, 1 << 14
+ANALYSIS_ROWS = 1 << 20
+ANALYSIS_PARITY_ROWS = 1 << 14
+# Stated bounds of the sweep checks: float64 kernels against their plain
+# versions (index_add_ adds by atomics on the card, in another order);
+# float32 kernels against the float64 kernels, each output on the scale a
+# report reads it at (sweep_f32_errors): a float32 sum of n same-signed
+# terms added in order is within n 2^-24 of its magnitude, 8.3e-3 for
+# (B)'s largest partition (~1.4e5 rows); reports of the card in float64
+# against the CPU, and in float32 (2^14 rows).
+SWEEP_F64_RTOL = 1e-9
+SWEEP_F32_BOUND = 1e-2
+REPORT_F32_RTOL = 1e-3
+
+
+def sweep_grid_params(tdp, metrics):
+    """bench.py config 5's 64 configurations: l0 x linf over SWEEP_GRID,
+    Gaussian noise; a SUM clipped to [0, 5 linf] (ratings 1-5)."""
+    params = []
+    for l0 in SWEEP_GRID:
+        for linf in SWEEP_GRID:
+            extra = ({"min_sum_per_partition": 0.0,
+                      "max_sum_per_partition": 5.0 * linf}
+                     if tdp.Metrics.SUM in metrics else {})
+            params.append(tdp.AggregateParams(
+                metrics=list(metrics), noise_kind=tdp.NoiseKind.GAUSSIAN,
+                max_partitions_contributed=l0,
+                max_contributions_per_partition=linf, **extra))
+    return params
+
+
+def sweep_config(tdp, metrics):
+    """(SweepConfigArrays, metric codes) of the 64-configuration grid,
+    private selection at (SWEEP_EPS, SWEEP_DELTA)."""
+    from pipelinedp_tpu_torch.analysis import error_model as em
+    from pipelinedp_tpu_torch.analysis import kernels as ak
+    params = sweep_grid_params(tdp, metrics)
+    ordered = em.ordered_metrics(params[0])
+    stds = np.array([[em.config_noise_std(p, m, SWEEP_EPS, SWEEP_DELTA)
+                      for m in ordered] for p in params])
+    return (ak.build_config_arrays(params, ordered, stds,
+                                   (SWEEP_EPS, SWEEP_DELTA)),
+            tuple(ak.METRIC_CODES[m] for m in ordered))
+
+
+def sweep_shapes(tdp, encoded):
+    """(A) bench.py config 5 at its accelerator size (:157-192): 2^21 rows,
+    2^14 partitions, COUNT, seed 11; (B) the Netflix table's 2^24 distinct
+    (user, movie) pairs as preaggregated rows: count 1, sum the rating,
+    contributed the user's movie count, pk the movie; COUNT + SUM. Both
+    over the 64-configuration grid, Gaussian, private selection."""
+    rng = np.random.default_rng(11)
+    n, p = SWEEP_A_ROWS, SWEEP_A_PARTS
+    shape_a = (rng.integers(1, 16, n).astype(np.float64),
+               rng.random(n) * 5.0,
+               rng.integers(1, 256, n).astype(np.float64),
+               rng.integers(0, p, n).astype(np.int32), p,
+               sweep_config(tdp, [tdp.Metrics.COUNT]))
+    per_user = np.bincount(encoded.pid)
+    shape_b = (np.ones(encoded.pid.shape[0]), encoded.values,
+               per_user[encoded.pid].astype(np.float64),
+               encoded.pk.astype(np.int32), encoded.n_partitions,
+               sweep_config(tdp, [tdp.Metrics.SUM, tdp.Metrics.COUNT]))
+    return {"A": shape_a, "B": shape_b}
+
+
+def rel_to_one(got, want, scale=None) -> float:
+    """max |got - want| / max(1, |scale|) (scale: want; 0 for empty
+    tensors)."""
+    import torch
+    if got.numel() == 0:
+        return 0.0
+    g, w = got.double(), want.double()
+    scale = w if scale is None else scale.double()
+    return float(((g - w).abs() / torch.clamp(scale.abs(), min=1.0)).max())
+
+
+def sweep_f32_errors(em, s32, r32, s64, r64):
+    """Float32 sweep outputs against float64 on the scales the reports
+    read them at (error_model.finalize_*): the statistics, moments and
+    weighted error fields relative to max(1, |x|); keep_prob absolute (a
+    float32 probability's error is absolute: the window's pmf sums to 1
+    within ~window ulps, and mu's float32 sum moves it along the
+    selector's slope); so the fields that carry (1 - keep_prob) |raw|,
+    the dropped data and ABS_RMSE_DROP, relative to the bucket's raw sum
+    (the dropped-data ratios' denominator), REL_RMSE_DROP, whose term is
+    (1 - keep_prob) weight, and the info fields relative to the bucket's
+    partition count."""
+    rows, info = r64[2], r64[3]
+    parts = (info[..., em.N_DATASET] + info[..., em.N_EMPTY])[..., None]
+    rows_scale = rows.clone()
+    for field in (em.DROP_L0, em.DROP_LINF, em.DROP_PS, em.ABS_RMSE_DROP):
+        rows_scale[..., field] = rows[..., em.SUM_ACTUAL]
+    rows_scale[..., em.REL_RMSE_DROP] = parts
+    info_scale = parts.expand_as(info)
+    return {"stats": rel_to_one(s32[0], s64[0]),
+            "sel": rel_to_one(s32[1], s64[1]),
+            "keep_prob": abs_diff(r32[1], r64[1]),
+            "bucket_rows": rel_to_one(r32[2], r64[2], rows_scale),
+            "bucket_info": rel_to_one(r32[3], r64[3], info_scale)}
+
+
+def sweep_ops(k, n, m, points, fields_parts):
+    """Operations of C19 and C20 on these inputs. C19: per row and
+    configuration the keep fraction (5: max, compare, divide, min, 1 - q),
+    13 a metric (value, clip 2, error, 5 adds, 2 compares, 3 products)
+    and 7 for the moments. C20: per window point two skew-corrected CDFs
+    (an erfc, an exp and 10 arithmetic operations each), the truncated
+    geometric keep probability (6 transcendental, 22 arithmetic) and 12
+    more; per (configuration, partition, field) of the bucket sums ~12.
+    A transcendental function counts as one operation: a lower bound."""
+    return (n * k * (5 + 13 * m + 7),
+            points * (2 * 12 + 28 + 12) + fields_parts * 12)
+
+
+def sweep_kernel_phase(torch, dev, shapes, kernels, card):
+    """C19 and C20 against their plain versions on the card at (A) and (B),
+    float64 and float32: integer-valued columns (n_users, n_rows, size,
+    the raw sums, bucket, the dataset-partition counts) equal, the other
+    float64 columns within SWEEP_F64_RTOL of the plain versions, float32
+    within SWEEP_F32_BOUND of the float64 kernels; C20 at sigma = 0 with
+    half-integer mu (rint) equal to the plain version. Times: median of 10
+    warmed calls (CUDA events), plain versions median of 3, index_add_ of
+    the [N, K x 8] term tensor at (A) as C19's library figure. Returns the
+    report rows (at (A), float32: TorchBackend's working type)."""
+    from pipelinedp_tpu_torch.analysis import error_model as em
+    from pipelinedp_tpu_torch.analysis import kernels as ak
+    tdp_metric_of = {code: metric for metric, code in
+                     ak.METRIC_CODES.items()}
+    report = []
+    for label, (counts, sums, contributed, pk, p, (cfg, codes)) in \
+            shapes.items():
+        n, m, k = len(counts), len(codes), len(cfg.l0)
+        kernel_out = {}
+        for f in (torch.float64, torch.float32):
+            c, s, con = (torch.as_tensor(np.asarray(x), dtype=f, device=dev)
+                         for x in (counts, sums, contributed))
+            pkt = torch.as_tensor(pk, device=dev)
+            perm, spk = kernels.radix_sort([pkt], sorted_top=True)
+            offs = kernels.block_offsets(
+                spk, torch.arange(p + 1, dtype=torch.int32, device=dev))
+            cf = [torch.as_tensor(np.asarray(x), dtype=f,
+                                  device=dev).contiguous() for x in cfg]
+            l0, lo, hi, ns = cf[:4]
+            sel_cfg = torch.stack(cf[4:]).contiguous()
+            bounds_t = torch.tensor(ak.BUCKET_BOUNDS, dtype=f, device=dev)
+            args19 = (c, s, con, perm, offs, l0, lo, hi)
+            kw19 = dict(metric_codes=codes, private=True)
+            st = kernels.sweep_stats(*args19, **kw19)
+            args20 = (st[0], st[1], st[2], st[4], ns, sel_cfg, bounds_t)
+            rp = kernels.sweep_report(*args20, public=False)
+            torch.cuda.synchronize()
+            stp = kernels.sweep_stats_plain(*args19, **kw19)
+            rpp = kernels.sweep_report_plain(*args20, public=False)
+            tag = f"sweep ({label}, {str(f)[6:]})"
+            for name, g, w in (("n_users", st[2], stp[2]),
+                               ("n_rows", st[3], stp[3]),
+                               ("size", st[4], stp[4]),
+                               ("raw sums", st[0][..., em.RAW],
+                                stp[0][..., em.RAW]),
+                               ("bucket", rp[0], rpp[0]),
+                               ("dataset partitions",
+                                rp[3][..., em.N_DATASET],
+                                rpp[3][..., em.N_DATASET])):
+                check_equal(f"{tag} {name}", g, w)
+            errs = {}
+            if f == torch.float64:
+                for name, g, w in (("stats", st[0], stp[0]),
+                                   ("sel", st[1], stp[1]),
+                                   ("keep_prob", rp[1], rpp[1]),
+                                   ("bucket_rows", rp[2], rpp[2]),
+                                   ("bucket_info", rp[3], rpp[3])):
+                    errs[name] = check_close(f"{tag} {name}", g, w,
+                                             SWEEP_F64_RTOL, SWEEP_F64_RTOL)
+                # sigma = 0 at half-integer mu: rint, not round-half-away.
+                mu = torch.tensor([0.5, 1.5, 2.5, 3.5, 2.0], dtype=f,
+                                  device=dev)
+                sel0 = torch.stack([mu, torch.zeros_like(mu),
+                                    torch.zeros_like(mu)], -1)
+                sel0 = sel0[None].expand(k, -1, -1).contiguous()
+                users0 = torch.full((5,), 4.0, dtype=f, device=dev)
+                stats0 = torch.zeros((k, 5, m, em.STAT_WIDTH), dtype=f,
+                                     device=dev)
+                a0 = (stats0, sel0, users0, users0, ns, sel_cfg, bounds_t)
+                check_close(f"{tag} keep_prob at rint(mu)",
+                            kernels.sweep_report(*a0, public=False)[1],
+                            kernels.sweep_report_plain(*a0, public=False)[1],
+                            1e-12, 1e-15)
+            kernel_out[f] = (st, rp)
+            rows_p = (offs[1:] - offs[:-1])
+            hot = int(rows_p.max())
+            ms19 = cuda_ms(lambda: kernels.sweep_stats(*args19, **kw19), 10)
+            ms20 = cuda_ms(lambda: kernels.sweep_report(*args20,
+                                                        public=False), 10)
+            plain19 = cuda_ms(lambda: kernels.sweep_stats_plain(
+                *args19, **kw19), 3, 1)
+            plain20 = cuda_ms(lambda: kernels.sweep_report_plain(
+                *args20, public=False), 3, 1)
+            library19 = None
+            if label == "A":
+                # The [N, K, 8] term tensor (5 metric terms, 3 moments)
+                # built once; one index_add_ sums it per partition.
+                terms = torch.empty((n, k, 8), dtype=f, device=dev)
+                q = em.keep_fraction(con[:, None], l0[None, :],
+                                     xp=em.TORCH_XP)
+                vals = em.metric_values(tdp_metric_of[codes[0]], c, s,
+                                        xp=em.TORCH_XP)
+                terms[..., :5] = em.metric_stat_terms(
+                    vals[:, None], lo[None, :, 0], hi[None, :, 0], q,
+                    xp=em.TORCH_XP)
+                terms[..., 5:] = em.selection_moment_terms(q, xp=em.TORCH_XP)
+                flat = terms.reshape(n, k * 8)
+                pk64 = pkt.long()
+                library19 = cuda_ms(lambda: torch.zeros(
+                    (p, k * 8), dtype=f, device=dev).index_add_(
+                        0, pk64, flat), 10)
+                del terms, flat, q
+            t_size = 8 if f == torch.float64 else 4
+            rate = FP64_OPS_PER_S if f == torch.float64 else OPS_PER_S
+            sigma_pos = int((st[1][..., em.SEL_VAR] > 0).sum())
+            ops19, ops20 = sweep_ops(k, n, m, sigma_pos * 64,
+                                     k * p * (m * em.REPORT_WIDTH +
+                                              em.INFO_WIDTH))
+            b19 = bound(n * (3 * t_size + 4 + 8) + (p + 1) * 8 +
+                        k * (1 + 2 * lo.shape[1]) * t_size +
+                        k * p * (5 * m + 3) * t_size + 3 * p * t_size,
+                        ops19, rate)
+            nb = len(ak.BUCKET_BOUNDS)
+            b20 = bound(k * p * (5 * m + 3) * t_size + 2 * p * t_size +
+                        k * (8 + lo.shape[1]) * t_size + p * 4 +
+                        k * p * t_size +
+                        k * nb * (m * em.REPORT_WIDTH + em.INFO_WIDTH) *
+                        t_size, ops20, rate)
+            lib = "none" if library19 is None else f"{library19:.4f}"
+            print(f"{tag}: N={n} P={p} K={k} M={m}, largest partition "
+                  f"{hot} rows, {sigma_pos} (config, partition) windows; "
+                  f"C19 ms={ms19:.4f} plain_ms={plain19:.4f} library_ms="
+                  f"{lib} (index_add_ of the [N, K x 8] terms) bound_ms="
+                  f"{b19[0]:.3g} ({b19[1]}); C20 ms={ms20:.4f} plain_ms="
+                  f"{plain20:.4f} bound_ms={b20[0]:.3g} ({b20[1]}); "
+                  f"against the plain versions: integer columns equal"
+                  + ("" if not errs else ", " + ", ".join(
+                      f"{key} {v:.3g}" for key, v in errs.items())) +
+                  f" ({card})", flush=True)
+            if label == "A" and f == torch.float32:
+                err = max(abs_diff(g, w) for g, w in zip(rp, rpp))
+                report += [
+                    {"name": "sweep_stats", "route": "cuda",
+                     "source": "pipelinedp_tpu_torch/csrc/sweep_stats.cu",
+                     "replaces": "pipelinedp_tpu/analysis/kernels.py:220",
+                     "launches": 0, "max_abs_err": abs_diff(st[0], stp[0]),
+                     "ms": ms19, "plain_ms": plain19, "bound_ms": b19[0],
+                     "bound_by": b19[1], "library_ms": library19},
+                    {"name": "sweep_report", "route": "cuda",
+                     "source": "pipelinedp_tpu_torch/csrc/sweep_report.cu",
+                     "replaces": "pipelinedp_tpu/analysis/kernels.py:167",
+                     "launches": 0, "max_abs_err": err,
+                     "ms": ms20, "plain_ms": plain20, "bound_ms": b20[0],
+                     "bound_by": b20[1], "library_ms": None}]
+            del stp, rpp, args19, args20, c, s, con, perm, offs
+        (s64, r64), (s32, r32) = (kernel_out[torch.float64],
+                                  kernel_out[torch.float32])
+        f32 = sweep_f32_errors(em, s32, r32, s64, r64)
+        bad = {key: v for key, v in f32.items() if not v <= SWEEP_F32_BOUND}
+        if bad:
+            raise AssertionError(f"sweep ({label}): float32 beyond "
+                                 f"{SWEEP_F32_BOUND} of float64: {bad}")
+        print(f"sweep ({label}): float32 kernels against float64 (on the "
+              f"reports' scales, sweep_f32_errors): "
+              f"{ {key: float(f'{v:.3g}') for key, v in f32.items()} } "
+              f"(bound {SWEEP_F32_BOUND})", flush=True)
+        del kernel_out, s64, r64, s32, r32
+    return report
+
+
+def report_leaves(obj, path="r"):
+    """(path, value) of every leaf of a utility-analysis result: enums by
+    name, lists with their length."""
+    import enum
+    if dataclasses.is_dataclass(obj):
+        for fld in dataclasses.fields(obj):
+            yield from report_leaves(getattr(obj, fld.name),
+                                     f"{path}.{fld.name}")
+    elif isinstance(obj, (list, tuple)):
+        yield f"{path}#len", len(obj)
+        for i, x in enumerate(obj):
+            yield from report_leaves(x, f"{path}[{i}]")
+    elif isinstance(obj, enum.Enum):
+        yield path, obj.name
+    else:
+        yield path, obj
+
+
+def reports_agree(label, got, want, rtol, atol):
+    """Every leaf of the reports: floats within rtol (+ atol), the rest
+    equal. Returns the largest relative difference."""
+    g, w = list(report_leaves(got)), list(report_leaves(want))
+    if [p for p, _ in g] != [p for p, _ in w]:
+        raise AssertionError(f"{label}: the reports differ in shape")
+    worst = 0.0
+    for (path, a), (_, b) in zip(g, w):
+        if isinstance(b, float):
+            d = abs(a - b)
+            if not d <= atol + rtol * abs(b):
+                raise AssertionError(f"{label} {path}: {a!r} vs {b!r}")
+            worst = max(worst, d / max(abs(b), 1e-300) if d else 0.0)
+        elif a != b:
+            raise AssertionError(f"{label} {path}: {a!r} vs {b!r}")
+    return worst
+
+
+def best_index(reports):
+    return int(np.argmin([r.metric_errors[0].absolute_error.rmse
+                          for r in reports]))
+
+
+def analysis_main_phase(torch, tdp, users, movies, ratings, kernels, card):
+    """The normal entry points on TorchBackend(): the dataset histograms
+    (K20) of the first ANALYSIS_ROWS Netflix rows, then
+    parameter_tuning.tune over the same rows as Python tuples (COUNT,
+    private, 64 candidates, epsilon 1, delta 1e-6), twice; the host
+    pipeline (generic-backend preaggregation) timed apart from the sweep;
+    then perform_utility_analysis of ANALYSIS_PARITY_ROWS of those rows,
+    private and public, on the card (float64 and float32) against the CPU.
+    Returns the launch counts of the histogram and tune runs."""
+    from pipelinedp_tpu_torch.analysis import data_structures as ds
+    from pipelinedp_tpu_torch.analysis import kernels as ak
+    from pipelinedp_tpu_torch.analysis import parameter_tuning as pt
+    from pipelinedp_tpu_torch.analysis import utility_analysis as ua
+    from pipelinedp_tpu_torch.analysis import utility_analysis_engine as uae
+    from pipelinedp_tpu_torch.dataset_histograms import device_histograms
+    n = ANALYSIS_ROWS
+    pids, pks, vals = users[:n], movies[:n], ratings[:n]
+    rows = list(zip(pids.tolist(), pks.tolist(), vals.tolist()))
+    ext = tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                             partition_extractor=lambda r: r[1],
+                             value_extractor=lambda r: r[2])
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    hist = device_histograms.compute_dataset_histograms_device(pids, pks,
+                                                               vals)
+    torch.cuda.synchronize()
+    hist_s = time.perf_counter() - start
+    counts = dict(kernels.launch_counts)
+    check_launches("tune histograms", counts, kernels,
+                   path=("radix_sort", "group_stats", "log_bins"))
+    for name, c in counts.items():
+        total[name] += c
+    count_params = tdp.AggregateParams(
+        metrics=[tdp.Metrics.COUNT], noise_kind=tdp.NoiseKind.GAUSSIAN,
+        max_partitions_contributed=1, max_contributions_per_partition=1)
+    options = pt.TuneOptions(
+        epsilon=SWEEP_EPS, delta=SWEEP_DELTA, aggregate_params=count_params,
+        function_to_minimize=pt.MinimizingFunction.ABSOLUTE_ERROR,
+        parameters_to_tune=pt.ParametersToTune(
+            max_partitions_contributed=True,
+            max_contributions_per_partition=True),
+        number_of_parameter_candidates=64)
+    backend = tdp.TorchBackend()
+    walls, splits = [], []
+    sweep_kernel = ua.kernels.sweep_kernel
+
+    def timed_sweep(*args, **kwargs):
+        # The tune's own sweep call, timed where the dense route makes it.
+        marks.append(time.perf_counter())
+        out = sweep_kernel(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return out
+
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        marks = []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ua.kernels.sweep_kernel = timed_sweep
+        try:
+            result_col, per_partition = pt.tune(rows, backend, hist,
+                                                options, ext)
+            result = list(result_col)[0]
+        finally:
+            ua.kernels.sweep_kernel = sweep_kernel
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        walls.append(end - start)
+        splits.append((marks[0] - start, marks[1] - marks[0],
+                       end - marks[1]))
+        counts = dict(kernels.launch_counts)
+        check_launches("tune", counts, kernels,
+                       dict(sweep_stats=1, sweep_report=1), path=SWEEP_PATH)
+        for name, c in counts.items():
+            total[name] += c
+    reports = result.utility_reports
+    cand = result.utility_analysis_parameters
+    if len(reports) != cand.size or not 0 <= result.index_best < cand.size:
+        raise AssertionError(f"tune: {len(reports)} reports, {cand.size} "
+                             f"candidates, index_best {result.index_best}")
+    rmse = [r.metric_errors[0].absolute_error.rmse for r in reports]
+    if not all(math.isfinite(x) and x >= 0 for x in rmse) or \
+            result.index_best != best_index(reports):
+        raise AssertionError(f"tune: index_best {result.index_best} is not "
+                             f"the finite argmin of {rmse}")
+
+    # The host part split, in separate runs of the same steps: the
+    # generic-backend preaggregation, then the columns and config arrays.
+    analysis_options = ds.UtilityAnalysisOptions(
+        epsilon=SWEEP_EPS, delta=SWEEP_DELTA, aggregate_params=count_params,
+        multi_param_configuration=cand)
+    accountant = tdp.NaiveBudgetAccountant(total_epsilon=SWEEP_EPS,
+                                           total_delta=SWEEP_DELTA)
+    engine = uae.UtilityAnalysisEngine(accountant, backend)
+    analyzer = engine.request_budgets(analysis_options, None)
+    start = time.perf_counter()
+    pre = list(engine.preaggregated_rows(rows, analysis_options, ext, None))
+    host_s = time.perf_counter() - start
+    accountant.compute_budgets()
+    start = time.perf_counter()
+    keys = list(dict.fromkeys(pk for pk, _ in pre))
+    index = {pk: i for i, pk in enumerate(keys)}
+    cols = [np.fromiter((r[j] for _, r in pre), dtype=np.float64,
+                        count=len(pre)) for j in range(3)]
+    pk_idx = np.fromiter((index[pk] for pk, _ in pre), dtype=np.int32,
+                         count=len(pre))
+    noise_stds, _ = analyzer.resolve_mechanisms()
+    cfg = ak.build_config_arrays(analyzer.config_params,
+                                 analyzer.metric_list, noise_stds,
+                                 analyzer.selection_budget())
+    arrays_s = time.perf_counter() - start
+    del pre, cols, pk_idx
+    best = result.index_best
+    ms = [[round(t * 1e3, 1) for t in split] for split in splits]
+    print(f"tune[{n} Netflix rows as tuples, {len(keys)} partitions, "
+          f"{cand.size} distinct candidates of "
+          f"{options.number_of_parameter_candidates} asked, COUNT, private, "
+          f"epsilon {SWEEP_EPS}, delta {SWEEP_DELTA}, TorchBackend() "
+          f"float32]: histograms (K20) {hist_s * 1e3:.1f} ms; tune wall "
+          f"{[round(w * 1e3, 1) for w in walls]} ms, split (host: "
+          f"preaggregation, budgets, columns / sweep: h2d, C5, C10, C19, "
+          f"C20 / outputs to the host, reports) {ms} ms; the host part "
+          f"alone, separate runs: preaggregation {host_s * 1e3:.1f} ms, "
+          f"columns and config arrays {arrays_s * 1e3:.1f} ms; chosen "
+          f"candidate {best}: max_partitions_contributed "
+          f"{cand.max_partitions_contributed[best]}, "
+          f"max_contributions_per_partition "
+          f"{cand.max_contributions_per_partition[best]}, rmse "
+          f"{rmse[best]:.6g} ({card})", flush=True)
+    del per_partition
+
+    # Card against CPU on the first ANALYSIS_PARITY_ROWS rows.
+    small = rows[:ANALYSIS_PARITY_ROWS]
+    movies_small = sorted({r[1] for r in small})
+    grid = sweep_grid_params(tdp, [tdp.Metrics.COUNT])
+    multi = ds.MultiParameterConfiguration(
+        max_partitions_contributed=[p.max_partitions_contributed
+                                    for p in grid],
+        max_contributions_per_partition=[
+            p.max_contributions_per_partition for p in grid])
+    opts = ds.UtilityAnalysisOptions(
+        epsilon=SWEEP_EPS, delta=SWEEP_DELTA, aggregate_params=count_params,
+        multi_param_configuration=multi)
+    for public in (None, movies_small[::3] + [-1, -2]):
+        label = "private" if public is None else "public"
+
+        def analyze(backend_):
+            reps, _ = ua.perform_utility_analysis(small, backend_, opts, ext,
+                                                  public_partitions=public)
+            torch.cuda.synchronize()
+            return list(reps)
+
+        start = time.perf_counter()
+        cpu = analyze(tdp.TorchBackend(device="cpu", dtype=torch.float64))
+        cpu_s = time.perf_counter() - start
+        start = time.perf_counter()
+        card64 = analyze(tdp.TorchBackend(dtype=torch.float64))
+        card64_s = time.perf_counter() - start
+        start = time.perf_counter()
+        card32 = analyze(tdp.TorchBackend())
+        card32_s = time.perf_counter() - start
+        e64 = reports_agree(f"analysis {label} float64, card vs cpu", card64,
+                            cpu, SWEEP_F64_RTOL, 1e-12)
+        if best_index(card64) != best_index(cpu):
+            raise AssertionError(f"analysis {label}: best config "
+                                 f"{best_index(card64)} on the card, "
+                                 f"{best_index(cpu)} on the CPU")
+        e32 = reports_agree(f"analysis {label} float32, card vs cpu", card32,
+                            cpu, REPORT_F32_RTOL, 1e-6)
+        print(f"analysis parity [{label}, {len(small)} rows, "
+              f"{len(cpu)} configurations]: card float64 within {e64:.3g} "
+              f"relative of the CPU (bound {SWEEP_F64_RTOL}), same best "
+              f"config {best_index(cpu)}; card float32 within {e32:.3g} "
+              f"(bound {REPORT_F32_RTOL}), best config "
+              f"{best_index(card32)}; walls cpu {cpu_s * 1e3:.1f}, card "
+              f"float64 {card64_s * 1e3:.1f}, float32 {card32_s * 1e3:.1f} "
+              f"ms ({card})", flush=True)
+    return total
 
 
 if __name__ == "__main__":

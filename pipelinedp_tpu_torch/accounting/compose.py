@@ -16,14 +16,15 @@ arXiv:2207.04381:
 
 Two execution paths share the math:
 
-  * the HOST path (numpy, float64), bit for bit the JAX package's host
-    path: the default and the number every accountant reads;
-  * the DEVICE path (`device=True` or a torch device): C15 pld_fft
-    (csrc/pld_fft.cu, the batched complex128 transforms) and C16
-    log_spectrum (csrc/log_spectrum.cu, the weighted log-sum and its exp)
-    on the card; with device="cpu" their plain PyTorch versions. It agrees
-    with the host path to float64 FFT tolerance (the 1e-9 gate) and is
-    never the number an accountant reads.
+  * the DEVICE path (the default; also `device=True` or a torch device):
+    C15 pld_fft (csrc/pld_fft.cu, the batched complex128 transforms) and
+    C16 log_spectrum (csrc/log_spectrum.cu, the weighted log-sum and its
+    exp) on the card, raising without CUDA; with device="cpu" their plain
+    PyTorch versions. It agrees with the host path to float64 FFT
+    tolerance (the 1e-9 gate) and is never the number an accountant reads;
+  * the HOST path (`device=False`; numpy, float64), bit for bit the JAX
+    package's host path: the number every accountant reads, which asks
+    for it explicitly.
 
 The SpectrumCache keeps discretized mechanism pmfs keyed by (mechanism
 kind, normalized scale, sensitivity, discretization), so binary-search
@@ -163,16 +164,17 @@ def _compose_pmfs_device(pmfs: Sequence[np.ndarray], counts: Sequence[int],
 
 
 def _resolve_device(device) -> Optional[torch.device]:
-    """None for the host path; else the torch device of the C15 / C16
-    path (True is CUDA, which must be present)."""
-    if device is False or device is None:
+    """None for the host path (device False); else the torch device of the
+    C15 / C16 path (None or True is CUDA, which must be present)."""
+    if device is False:
         return None
-    dev = torch.device("cuda" if device is True else device)
+    dev = torch.device("cuda" if device is None or device is True else
+                       device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "compose_plds(device=...) runs C15 / C16 on a CUDA device and "
-            "none is available; pass device='cpu' for their plain versions "
-            "or leave device unset for the host path.")
+            "compose_plds runs C15 / C16 on a CUDA device unless asked "
+            "otherwise, and none is available; pass device='cpu' for their "
+            "plain versions or device=False for the host numpy path.")
     return dev
 
 
@@ -180,13 +182,13 @@ def compose_plds(plds: Sequence[pldlib.PrivacyLossDistribution],
                  counts: Optional[Sequence[int]] = None,
                  *,
                  max_grid: int = DEFAULT_MAX_GRID,
-                 device: Union[bool, str, torch.device] = False
+                 device: Union[None, bool, str, torch.device] = None
                  ) -> pldlib.PrivacyLossDistribution:
     """Composes ``plds[i]`` repeated ``counts[i]`` times, in ONE shot.
 
-    ``device`` False (the default) runs the host numpy path, the number
-    every accountant reads; True or a CUDA device runs C15 / C16 on the
-    card (raising without CUDA); "cpu" runs their plain versions.
+    ``device`` None (the default), True or a CUDA device runs C15 / C16 on
+    the card (raising without CUDA); "cpu" runs their plain versions; False
+    runs the host numpy path, the number every accountant reads.
     """
     plds = list(plds)
     if not plds:
@@ -376,5 +378,6 @@ def composed_epsilon_from_records(
         cache.get(kind, scale, 1.0, discretization)
         for kind, scale in groups
     ]
-    composed = compose_plds(plds, list(groups.values()), max_grid=max_grid)
+    composed = compose_plds(plds, list(groups.values()), max_grid=max_grid,
+                            device=False)
     return composed.get_epsilon_for_delta(target_delta), target_delta

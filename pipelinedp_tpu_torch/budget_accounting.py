@@ -530,4 +530,5 @@ class PLDBudgetAccountant(BudgetAccountant):
                                      self._pld_discretization)
             for kind, scale in groups
         ]
-        return compose_engine.compose_plds(plds, list(groups.values()))
+        return compose_engine.compose_plds(plds, list(groups.values()),
+                                           device=False)

@@ -3,11 +3,13 @@
 These functions turn the kernel inputs of pipelinedp_tpu, once extracted to
 numpy arrays and plain Python values, into the port's, so one state can be
 fed to both packages: the encoded columns, the KernelConfig fields, the
-noise stds, the SelectionParams fields, the uint32[2] threefry key and a
-privacy loss distribution's fields; and either package's dataset
-histograms into plain tuples for comparison. Nothing here imports the JAX
+noise stds, the SelectionParams fields, the uint32[2] threefry key, a
+privacy loss distribution's fields and the analysis sweep's
+SweepConfigArrays; either package's dataset histograms into plain tuples
+for comparison; and the utility-analysis and tuning options of either
+package from one set of plain fields. Nothing here imports the JAX
 package; the caller does the extracting (e.g. `dataclasses.asdict` of its
-KernelConfig).
+KernelConfig) or passes the package's modules.
 """
 
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
@@ -18,6 +20,7 @@ import torch
 from pipelinedp_tpu_torch import columnar
 from pipelinedp_tpu_torch import executor
 from pipelinedp_tpu_torch.accounting import pld as pldlib
+from pipelinedp_tpu_torch.analysis import kernels as analysis_kernels
 from pipelinedp_tpu_torch.aggregate_params import NoiseKind, NormKind
 from pipelinedp_tpu_torch.ops import selection_ops
 
@@ -111,6 +114,85 @@ def histograms_fields(dataset_histograms) -> Tuple[Optional[tuple], ...]:
         out.append(None if h is None else (h.name.value, tuple(
             (b.lower, b.upper, b.count, b.sum, b.max) for b in h.bins)))
     return tuple(out)
+
+
+def sweep_config_arrays(cfg) -> "analysis_kernels.SweepConfigArrays":
+    """The JAX package's SweepConfigArrays (numpy or jax arrays) as the
+    port's, field by field, as float64 numpy arrays."""
+    return analysis_kernels.SweepConfigArrays(
+        *[np.asarray(x, dtype=np.float64) for x in cfg])
+
+
+_ENUM_FIELDS = {"noise_kind": "NoiseKind",
+                "partition_selection_strategy": "PartitionSelectionStrategy"}
+
+
+def aggregate_params(agg_module, fields: Mapping[str, Any]):
+    """An AggregateParams of the package whose aggregate_params module is
+    agg_module, from plain fields: metrics as a list of Metrics names,
+    noise_kind and partition_selection_strategy as their enum names, the
+    rest as they are."""
+    fields = dict(fields)
+    if "metrics" in fields:
+        fields["metrics"] = [getattr(agg_module.Metrics, m)
+                             for m in fields["metrics"]]
+    for name, enum in _ENUM_FIELDS.items():
+        if name in fields:
+            fields[name] = getattr(agg_module, enum)[fields[name]]
+    return agg_module.AggregateParams(**fields)
+
+
+def multi_parameter_configuration(agg_module, data_structures_module,
+                                  fields: Mapping[str, Sequence]):
+    """A MultiParameterConfiguration of either package from plain fields
+    (enum-valued sequences as their names)."""
+    fields = dict(fields)
+    for name, enum in _ENUM_FIELDS.items():
+        if name in fields:
+            fields[name] = [getattr(agg_module, enum)[v]
+                            for v in fields[name]]
+    return data_structures_module.MultiParameterConfiguration(**fields)
+
+
+def utility_analysis_options(agg_module, data_structures_module, *,
+                             epsilon: float, delta: float,
+                             params: Mapping[str, Any],
+                             multi: Optional[Mapping[str, Sequence]] = None,
+                             partitions_sampling_prob: float = 1,
+                             pre_aggregated_data: bool = False):
+    """UtilityAnalysisOptions of either package (its aggregate_params and
+    analysis.data_structures modules) from plain fields."""
+    return data_structures_module.UtilityAnalysisOptions(
+        epsilon=epsilon,
+        delta=delta,
+        aggregate_params=aggregate_params(agg_module, params),
+        multi_param_configuration=(None if multi is None else
+                                   multi_parameter_configuration(
+                                       agg_module, data_structures_module,
+                                       multi)),
+        partitions_sampling_prob=partitions_sampling_prob,
+        pre_aggregated_data=pre_aggregated_data)
+
+
+def tune_options(agg_module, parameter_tuning_module, *, epsilon: float,
+                 delta: float, params: Mapping[str, Any],
+                 parameters_to_tune: Mapping[str, bool],
+                 number_of_parameter_candidates: int = 100,
+                 partitions_sampling_prob: float = 1,
+                 pre_aggregated_data: bool = False,
+                 function_to_minimize: str = "ABSOLUTE_ERROR"):
+    """TuneOptions of either package (its aggregate_params and
+    analysis.parameter_tuning modules) from plain fields."""
+    pt = parameter_tuning_module
+    return pt.TuneOptions(
+        epsilon=epsilon,
+        delta=delta,
+        aggregate_params=aggregate_params(agg_module, params),
+        function_to_minimize=pt.MinimizingFunction[function_to_minimize],
+        parameters_to_tune=pt.ParametersToTune(**dict(parameters_to_tune)),
+        partitions_sampling_prob=partitions_sampling_prob,
+        pre_aggregated_data=pre_aggregated_data,
+        number_of_parameter_candidates=number_of_parameter_candidates)
 
 
 def _as_dict(obj) -> Dict[str, Any]:

@@ -26,7 +26,8 @@ SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
            "vector_release", "block_offsets", "gather_rows",
            "factorize_codes", "lookup_codes", "append_rows", "pld_fft",
-           "log_spectrum", "group_stats", "log_bins")
+           "log_spectrum", "group_stats", "log_bins", "sweep_stats",
+           "sweep_report")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -126,6 +127,15 @@ _SIGNATURES = {
         "log_bins_int": (_I, [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P]),
         "log_bins_float": (_I, [_P, _P, _LL, _I, _F, _P, _P, _P, _P, _P,
                                 _P, _P]),
+    },
+    "sweep_stats": {
+        "sweep_stats": (_I, [_P, _P, _P, _P, _LL, _P, _LL, _P, _P, _P, _I,
+                             _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P]),
+    },
+    "sweep_report": {
+        "sweep_report": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                              _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     },
 }
 

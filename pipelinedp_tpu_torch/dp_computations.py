@@ -5,7 +5,9 @@ analytic Gaussian sigma (`gaussian_sigma`, :159), the variance noise stds
 (`compute_dp_var_noise_stds`, :378), VECTOR_SUM's per-coordinate noise
 (`AdditiveVectorNoiseParams`, `vector_noise_std`, :232-270), the
 mechanisms' standard deviations and descriptions, and the
-`compute_sensitivities_*` functions (:1133 on). numpy/scipy only; the
+`compute_sensitivities_*` functions (:1133 on), and `ScalarNoiseParams`
+with `compute_dp_count_noise_std` (:81, :426), which the utility
+analysis's error model calibrates with. numpy/scipy only; the
 noise of a release is drawn on the device by the release kernels, so the
 continuous mechanisms carry no host sampler.
 
@@ -123,6 +125,43 @@ def noise_std(eps: float, delta: float, l0_sensitivity: float,
         l2 = compute_l2_sensitivity(l0_sensitivity, linf_sensitivity)
         return gaussian_sigma(eps, delta, l2)
     raise ValueError("Only Laplace and Gaussian noise is supported.")
+
+
+@dataclass
+class ScalarNoiseParams:
+    """Parameters for computing DP sum, count, mean, variance."""
+
+    eps: float
+    delta: float
+    min_value: Optional[float]
+    max_value: Optional[float]
+    min_sum_per_partition: Optional[float]
+    max_sum_per_partition: Optional[float]
+    max_partitions_contributed: int
+    max_contributions_per_partition: Optional[int]
+    noise_kind: NoiseKind
+
+    def __post_init__(self):
+        if (self.min_value is None) != (self.max_value is None):
+            raise ValueError(
+                "min_value and max_value should be both set or both None.")
+        if (self.min_sum_per_partition is None) != (
+                self.max_sum_per_partition is None):
+            raise ValueError("min_sum_per_partition and "
+                             "max_sum_per_partition should be both set or "
+                             "both None.")
+
+    def l0_sensitivity(self) -> int:
+        return self.max_partitions_contributed
+
+
+def compute_dp_count_noise_std(dp_params: ScalarNoiseParams) -> float:
+    """Noise std of a DP count with these parameters (linf sensitivity
+    max_contributions_per_partition)."""
+    return noise_std(dp_params.eps, dp_params.delta,
+                     dp_params.l0_sensitivity(),
+                     dp_params.max_contributions_per_partition,
+                     dp_params.noise_kind)
 
 
 def compute_dp_var_noise_stds(eps: float, delta: float, l0: int, linf: int,

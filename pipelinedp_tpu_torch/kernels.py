@@ -1,6 +1,7 @@
-"""The eighteen CUDA kernels of the dense and blocked release and selection
-paths, the streamed ingest, the PLD composition and the dataset
-histograms, their wrappers and their plain PyTorch versions.
+"""The twenty CUDA kernels of the dense and blocked release and selection
+paths, the streamed ingest, the PLD composition, the dataset histograms and
+the utility-analysis sweep, their wrappers and their plain PyTorch
+versions.
 
     C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform;
                                                      total-bound keys (total_bound_keys)
@@ -39,6 +40,11 @@ histograms, their wrappers and their plain PyTorch versions.
     C18 log_bins          csrc/log_bins.cu           log-binned int and equal-
                                                      width float histograms
                                                      (log_bins_int, _float)
+    C19 sweep_stats       csrc/sweep_stats.cu        per-(config, partition)
+                                                     sufficient statistics of
+                                                     the analysis sweep
+    C20 sweep_report      csrc/sweep_report.cu       keep probabilities, report
+                                                     rows, bucket sums
 
 The blocked route (parallel/large_p.py) runs C3 and C7 on windows of the
 partition-sorted stream: their windowed entries (base=) rebase each row's
@@ -75,6 +81,7 @@ import torch
 from pipelinedp_tpu_torch import cuda_build
 from pipelinedp_tpu_torch import numeric
 from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+from pipelinedp_tpu_torch.analysis import error_model as em
 from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import segment_ops
@@ -90,7 +97,7 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "reduce_partitions_compensated_windowed",
            "quantile_counts_windowed", "factorize_codes", "lookup_codes",
            "append_rows", "pld_fft", "log_spectrum", "group_stats",
-           "log_bins")
+           "log_bins", "sweep_stats", "sweep_report")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -2086,3 +2093,322 @@ def log_bins_float_plain(values, mask, n_buckets):
     maxes.scatter_reduce_(0, idx, torch.where(mask, values, -big), "amax")
     return (torch.stack([lo, hi]), edges, counts[:-1], sums[:-1].float(),
             maxes[:-1])
+
+
+# ---------------------------------------------------------------------------
+# C19 sweep_stats, C20 sweep_report (utility analysis, parameter tuning)
+
+# Selector scalars of the sweep, the rows of sel_cfg [8, K]: the fields
+# sel_* of analysis.kernels.SweepConfigArrays, in their order.
+SWEEP_SELECTION = ("kind", "pre_shift", "eps1", "delta1", "n_cross",
+                   "pi_cross", "threshold", "scale")
+SWEEP_METRIC_CODES = (0, 1, 2)  # SUM, COUNT, PRIVACY_ID_COUNT
+
+
+def _check_metric_codes(metric_codes: Sequence[int]) -> Tuple[int, ...]:
+    codes = tuple(int(c) for c in metric_codes)
+    if len(codes) > 3 or any(c not in SWEEP_METRIC_CODES for c in codes):
+        raise ValueError(f"sweep: metric codes must be at most three of "
+                         f"{SWEEP_METRIC_CODES}, got {codes}")
+    return codes
+
+
+def _check_cfg(t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...],
+               what: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{what}: expected contiguous {dtype}{list(shape)}, "
+                         f"got {t.dtype}{list(t.shape)}")
+
+
+def sweep_stats(counts: torch.Tensor, sums: torch.Tensor,
+                contributed: torch.Tensor, perm: torch.Tensor,
+                offsets: torch.Tensor, l0: torch.Tensor, lo: torch.Tensor,
+                hi: torch.Tensor, *, metric_codes: Sequence[int],
+                private: bool, config_chunk: int = 8):
+    """The sweep's per-partition sufficient statistics (C19).
+
+    counts, sums, contributed: the preaggregated rows' columns, T[N] (T the
+    working float); perm int64[N], the stable order of the rows by
+    partition, and offsets int64[P + 1], each partition's rows
+    [offsets[p], offsets[p + 1]) in that order (C5, then C10 at 0..P), so
+    rows outside [0, P) contribute nothing; l0 T[K]; lo, hi T[K, Ms] (Ms
+    >= the metric count M) the clipping bounds. Per configuration k and
+    partition p, over p's rows in row order from 0: stats T[K, P, M, 5],
+    the five metric terms of error_model.metric_stat_terms per metric, and,
+    when
+    private, sel T[K, P, 3], error_model.selection_moment_terms (else
+    None); per partition n_users (rows), n_rows (sum of counts) and size
+    (the first metric's raw sum; n_users without metrics), T[P].
+    config_chunk bounds the plain version's [chunk, N, 5] terms.
+    """
+    codes = _check_metric_codes(metric_codes)
+    n = counts.shape[0]
+    f = counts.dtype
+    _f64(f)
+    _check(counts, f, n, "counts")
+    _check(sums, f, n, "sums")
+    _check(contributed, f, n, "contributed")
+    _check(perm, torch.int64, n, "perm")
+    p = offsets.shape[0] - 1
+    _check(offsets, torch.int64, p + 1, "offsets")
+    k = l0.shape[0]
+    _check(l0, f, k, "l0")
+    ms = lo.shape[1] if lo.dim() == 2 else -1
+    if ms < len(codes):
+        raise ValueError(f"sweep_stats: lo, hi must be [K, >= M], got "
+                         f"{list(lo.shape)}")
+    _check_cfg(lo, f, (k, ms), "lo")
+    _check_cfg(hi, f, (k, ms), "hi")
+    if not _on_cuda(counts, sums, contributed, perm, offsets, l0, lo, hi):
+        return sweep_stats_plain(counts, sums, contributed, perm, offsets,
+                                 l0, lo, hi, metric_codes=codes,
+                                 private=private, config_chunk=config_chunk)
+    dev = counts.device
+    m = len(codes)
+    stats = torch.empty((k, p, m, em.STAT_WIDTH), dtype=f, device=dev)
+    sel = (torch.empty((k, p, em.SEL_WIDTH), dtype=f, device=dev)
+           if private else None)
+    n_users, n_rows, size = (torch.empty(p, dtype=f, device=dev)
+                             for _ in range(3))
+    scratch = torch.empty((3, n), dtype=f, device=dev)
+    code = (ctypes.c_int * 3)(*(codes + (0,) * (3 - m)))
+    status = cuda_build.library("sweep_stats").sweep_stats(
+        _ptr(counts), _ptr(sums), _ptr(contributed), _ptr(perm), n,
+        _ptr(offsets), p, _ptr(l0), _ptr(lo), _ptr(hi), k, ms, m, code,
+        int(private), _f64(f), _ptr(scratch), _ptr(stats), _ptr(sel),
+        _ptr(n_users), _ptr(n_rows), _ptr(size), _stream(dev))
+    _raise_on(status, "sweep_stats")
+    launch_counts["sweep_stats"] += 1
+    return stats, sel, n_users, n_rows, size
+
+
+def _metric_values(code: int, counts, sums):
+    if code == 0:
+        return sums
+    if code == 1:
+        return counts
+    return torch.where(counts > 0, torch.ones_like(counts),
+                       torch.zeros_like(counts))
+
+
+def sweep_stats_plain(counts, sums, contributed, perm, offsets, l0, lo, hi,
+                      *, metric_codes, private, config_chunk=8):
+    xp = em.TORCH_XP
+    f, dev = counts.dtype, counts.device
+    p = offsets.shape[0] - 1
+    # The partitions' rows in partition order, each in row order: on the
+    # CPU index_add_ adds them in that order.
+    rows = perm[int(offsets[0]):int(offsets[-1])]
+    c, s, con = counts[rows], sums[rows], contributed[rows]
+    pk = torch.repeat_interleave(torch.arange(p, device=dev),
+                                 offsets[1:] - offsets[:-1])
+
+    def seg(x):
+        return torch.zeros(p, dtype=f, device=dev).index_add_(0, pk, x)
+
+    n_users = seg(torch.ones_like(c))
+    n_rows = seg(c)
+    vals = [_metric_values(code, c, s) for code in metric_codes]
+    size = seg(vals[0]) if vals else n_users
+    k, m = l0.shape[0], len(metric_codes)
+    stats = torch.zeros((k, p, m, em.STAT_WIDTH), dtype=f, device=dev)
+    sel = (torch.zeros((k, p, em.SEL_WIDTH), dtype=f, device=dev)
+           if private else None)
+    for k0 in range(0, k, max(1, config_chunk)):
+        k1 = min(k, k0 + max(1, config_chunk))
+        q = em.keep_fraction(con[None, :], l0[k0:k1, None], xp=xp)
+        for mi in range(m):
+            terms = em.metric_stat_terms(vals[mi][None, :],
+                                         lo[k0:k1, mi:mi + 1],
+                                         hi[k0:k1, mi:mi + 1], q, xp=xp)
+            stats[k0:k1, :, mi, :] = torch.zeros(
+                (k1 - k0, p, em.STAT_WIDTH), dtype=f,
+                device=dev).index_add_(1, pk, terms)
+        if private:
+            sel[k0:k1] = torch.zeros((k1 - k0, p, em.SEL_WIDTH), dtype=f,
+                                     device=dev).index_add_(
+                1, pk, em.selection_moment_terms(q, xp=xp))
+    return stats, sel, n_users, n_rows, size
+
+
+def sweep_report(stats: torch.Tensor, sel: Optional[torch.Tensor],
+                 n_users: torch.Tensor, size: torch.Tensor,
+                 noise_std: torch.Tensor, sel_cfg: torch.Tensor,
+                 bounds: torch.Tensor, *, public: bool, window: int = 64,
+                 partition_chunk: int = 4096):
+    """Keep probabilities, report rows and their bucket sums (C20).
+
+    stats T[K, P, M, 5] and sel T[K, P, 3] (None when public) from C19;
+    n_users, size T[P]; noise_std T[K, Ms]; sel_cfg T[8, K], the
+    selector scalars (SWEEP_SELECTION); bounds T[NB], the partition-size
+    buckets' lower bounds in the working float. Returns bucket int32[P]
+    (searchsorted(bounds, size, right) - 1, clipped), keep_prob T[K, P]
+    (1 when public; else the selector's keep probability integrated over
+    `window` support points of the skew-corrected normal PMF of the
+    privacy-id count, or at rint(mu) when sigma is 0), and the sums over
+    each bucket's partitions, in partition order from 0, of
+    error_model.metric_report_terms, bucket_rows T[K, NB, M, 24], and of
+    error_model.info_terms, bucket_info T[K, NB, 5]. partition_chunk
+    bounds the plain version's [K, chunk, window] windows.
+    """
+    f = stats.dtype
+    _f64(f)
+    if stats.dim() != 4 or stats.shape[3] != em.STAT_WIDTH or \
+            not stats.is_contiguous():
+        raise ValueError(f"sweep_report: stats must be contiguous "
+                         f"[K, P, M, {em.STAT_WIDTH}], got {list(stats.shape)}")
+    k, p, m, _ = stats.shape
+    if sel is None and not public:
+        raise ValueError("sweep_report: private analysis needs sel")
+    if sel is not None:
+        _check_cfg(sel, f, (k, p, em.SEL_WIDTH), "sel")
+    _check(n_users, f, p, "n_users")
+    _check(size, f, p, "size")
+    ms = noise_std.shape[1] if noise_std.dim() == 2 else -1
+    if ms < m:
+        raise ValueError(f"sweep_report: noise_std must be [K, >= M], got "
+                         f"{list(noise_std.shape)}")
+    _check_cfg(noise_std, f, (k, ms), "noise_std")
+    _check_cfg(sel_cfg, f, (len(SWEEP_SELECTION), k), "sel_cfg")
+    nb = bounds.shape[0]
+    _check(bounds, f, nb, "bounds")
+    if window < 1:
+        raise ValueError(f"sweep_report: window must be >= 1, got {window}")
+    if not _on_cuda(stats, sel, n_users, size, noise_std, sel_cfg, bounds):
+        return sweep_report_plain(stats, sel, n_users, size, noise_std,
+                                  sel_cfg, bounds, public=public,
+                                  window=window,
+                                  partition_chunk=partition_chunk)
+    dev = stats.device
+    bucket = torch.empty(p, dtype=torch.int32, device=dev)
+    keep_prob = torch.empty((k, p), dtype=f, device=dev)
+    bucket_rows = torch.empty((k, nb, m, em.REPORT_WIDTH), dtype=f, device=dev)
+    bucket_info = torch.empty((k, nb, em.INFO_WIDTH), dtype=f, device=dev)
+    order = torch.empty(p + nb + 1, dtype=torch.int32, device=dev)
+    status = cuda_build.library("sweep_report").sweep_report(
+        _ptr(stats), _ptr(sel), _ptr(n_users), _ptr(size), _ptr(noise_std),
+        _ptr(sel_cfg), _ptr(bounds), k, p, m, ms, nb, int(public), window,
+        _f64(f), _ptr(order), _ptr(bucket), _ptr(keep_prob),
+        _ptr(bucket_rows), _ptr(bucket_info), _stream(dev))
+    _raise_on(status, "sweep_report")
+    launch_counts["sweep_report"] += 1
+    return bucket, keep_prob, bucket_rows, bucket_info
+
+
+def sweep_keep_points(xs: torch.Tensor, sel_cfg: torch.Tensor) -> torch.Tensor:
+    """The selector keep probability at (possibly fractional) privacy-id
+    counts xs [KC, ...], per configuration (sel_cfg [8, KC]): the JAX
+    package's analysis/kernels.py _keep_prob_batch. Every strategy's branch
+    is evaluated and where-selected, inert parameters sanitized (eps1 1,
+    delta1 0.5 where the kind is not truncated geometric; scale >= 1e-30;
+    the geometric tail 0 at eps1 >= 700), so unused branches stay
+    finite."""
+    xp = em.TORCH_XP
+    shape = (-1,) + (1,) * (xs.dim() - 1)
+    kind, pre_shift, eps1, delta1, n_cross, pi_cross, threshold, scale = (
+        row for row in sel_cfg)
+    is_tg = kind == 0
+    kind = kind.reshape(shape)
+    n = xs - pre_shift.reshape(shape)
+    eps1 = torch.where(is_tg, eps1, 1.0).reshape(shape)
+    delta1 = torch.where(is_tg, delta1, 0.5).reshape(shape)
+    n_cross = n_cross.reshape(shape)
+    pi_cross = pi_cross.reshape(shape)
+    threshold = threshold.reshape(shape)
+    scale = xp.maximum(scale.reshape(shape), 1e-30)
+    # Truncated geometric (partition_selection.py closed form, log space).
+    n_eff = xp.maximum(n, 1.0)
+    n1 = xp.minimum(n_eff, n_cross)
+    log_pi1 = (torch.log(delta1) + (n1 - 1.0) * eps1 +
+               torch.log1p(-torch.exp(-n1 * eps1)) -
+               torch.log1p(-torch.exp(-eps1)))
+    pi1 = torch.exp(xp.minimum(log_pi1, 0.0))
+    kk = xp.maximum(n_eff - n_cross, 0.0)
+    decay = torch.exp(-kk * eps1)
+    geo = torch.where(eps1 < 700.0,
+                      torch.exp(-eps1) * (1.0 - decay) /
+                      (1.0 - torch.exp(-xp.minimum(eps1, 700.0))), 0.0)
+    q = decay * (1.0 - pi_cross) - delta1 * geo
+    p_tg = xp.clip(torch.where(n_eff <= n_cross, pi1,
+                               1.0 - xp.maximum(q, 0.0)), 0.0, 1.0)
+    # Laplace thresholding.
+    z = (n - threshold) / scale
+    p_lap = torch.where(z >= 0, 1.0 - 0.5 * torch.exp(-torch.abs(z)),
+                        0.5 * torch.exp(-torch.abs(z)))
+    # Gaussian thresholding.
+    zg = (threshold - n) / scale
+    p_gauss = 0.5 * torch.special.erfc(zg / _sqrt_of(2.0, xs))
+    probs = torch.where(kind == 0, p_tg,
+                        torch.where(kind == 1, p_lap, p_gauss))
+    return torch.where(n <= 0, 0.0, probs)
+
+
+def _sqrt_of(c: float, like: torch.Tensor) -> torch.Tensor:
+    """sqrt(c) rounded in like's float (jnp.sqrt of a Python float)."""
+    return torch.sqrt(torch.tensor(c, dtype=like.dtype, device=like.device))
+
+
+def _norm_cdf_skew(z: torch.Tensor, skew: torch.Tensor) -> torch.Tensor:
+    """Skew-corrected normal CDF (poisson_binomial.compute_pmf_approximation;
+    the JAX package's analysis/kernels.py _norm_cdf_skew)."""
+    cdf = 0.5 * torch.special.erfc(-z / _sqrt_of(2.0, z))
+    pdf = torch.exp(-0.5 * z * z) / _sqrt_of(2.0 * math.pi, z)
+    return em.TORCH_XP.clip(cdf + skew * (1.0 - z * z) * pdf / 6.0, 0.0, 1.0)
+
+
+def _windowed_keep_prob(mu, var, third, n_users, sel_cfg, window):
+    """P(partition kept) from the Poisson-binomial moments mu, var, third
+    [KC, PC] (n_users [PC]): the JAX package's _windowed_keep_prob on one
+    partition chunk."""
+    xp = em.TORCH_XP
+    sigma = torch.sqrt(xp.maximum(var, 0.0))
+    safe_sigma = xp.maximum(sigma, 1e-30)
+    skew = torch.where(sigma > 0, third / (safe_sigma * safe_sigma *
+                                           safe_sigma), 0.0)
+    step = xp.maximum(1.0, 16.0 * sigma / window)
+    offsets = (torch.arange(window, dtype=mu.dtype, device=mu.device) -
+               (window - 1) / 2.0)
+    xs = mu[..., None] + offsets * step[..., None]  # [KC, PC, W]
+    z_hi = (xs + 0.5 * step[..., None] - mu[..., None]) / safe_sigma[..., None]
+    z_lo = (xs - 0.5 * step[..., None] - mu[..., None]) / safe_sigma[..., None]
+    sk = skew[..., None]
+    pmf = xp.maximum(_norm_cdf_skew(z_hi, sk) - _norm_cdf_skew(z_lo, sk), 0.0)
+    # Restrict support to [0, n_users] like the host PMF.
+    support = (xs > -0.5) & (xs <= n_users[None, :, None] + 0.5)
+    pmf = torch.where(support, pmf, 0.0)
+    keep = sweep_keep_points(xs, sel_cfg)
+    p_win = torch.sum(pmf * keep, dim=-1)
+    # Degenerate sigma: all-or-nothing ids, the PMF concentrated at mu
+    # (torch.round rounds half to even, as jnp.round).
+    p_point = sweep_keep_points(torch.round(mu), sel_cfg)
+    return xp.clip(torch.where(sigma > 0, p_win, p_point), 0.0, 1.0)
+
+
+def sweep_report_plain(stats, sel, n_users, size, noise_std, sel_cfg, bounds,
+                       *, public, window=64, partition_chunk=4096):
+    xp = em.TORCH_XP
+    f, dev = stats.dtype, stats.device
+    k, p, m, _ = stats.shape
+    nb = bounds.shape[0]
+    bucket = torch.clamp(
+        torch.searchsorted(bounds, size, right=True) - 1, 0, nb - 1)
+    if public:
+        keep_prob = torch.ones((k, p), dtype=f, device=dev)
+    else:
+        keep_prob = torch.empty((k, p), dtype=f, device=dev)
+        chunk = max(1, partition_chunk)
+        for p0 in range(0, p, chunk):
+            p1 = min(p, p0 + chunk)
+            keep_prob[:, p0:p1] = _windowed_keep_prob(
+                sel[:, p0:p1, em.SEL_MU], sel[:, p0:p1, em.SEL_VAR],
+                sel[:, p0:p1, em.SEL_SKEW3], n_users[p0:p1], sel_cfg, window)
+    weight = keep_prob
+    rows = em.metric_report_terms(stats, keep_prob[..., None],
+                                  weight[..., None], noise_std[:, None, :m],
+                                  xp=xp)  # [K, P, M, 24]
+    info = em.info_terms(n_users[None, :], keep_prob, weight, public, xp=xp)
+    bucket_rows = torch.zeros((k, nb, m, em.REPORT_WIDTH), dtype=f,
+                              device=dev).index_add_(1, bucket, rows)
+    bucket_info = torch.zeros((k, nb, em.INFO_WIDTH), dtype=f,
+                              device=dev).index_add_(1, bucket, info)
+    return bucket.to(torch.int32), keep_prob, bucket_rows, bucket_info

@@ -78,6 +78,12 @@ class PartitionSelector(abc.ABC):
             return 0.0
         return float(self._probability_of_keep_shifted(np.asarray([n]))[0])
 
+    def probability_of_keep_vec(self, counts: np.ndarray) -> np.ndarray:
+        """Vectorized probability_of_keep over an int array."""
+        n = self._apply_pre_threshold(np.asarray(counts, dtype=np.int64))
+        probs = self._probability_of_keep_shifted(np.maximum(n, 1))
+        return np.where(n <= 0, 0.0, probs)
+
     @abc.abstractmethod
     def _probability_of_keep_shifted(self, n: np.ndarray) -> np.ndarray:
         """probability of keep on pre-threshold-shifted counts n >= 1."""

@@ -1,23 +1,291 @@
-"""TorchBackend: the port's single-device columnar backend.
+"""Pipeline backends: the generic operation vocabulary and TorchBackend.
 
-Port of the dense route of pipelinedp_tpu/pipeline_backend.py TPUBackend.
-DPEngine.aggregate and DPEngine.select_partitions on a TorchBackend lower to
-the port's executor (executor.lazy_aggregate, lazy_select_partitions): the
-dense route, or above large_partition_threshold the blocked route
-(parallel/large_p.py), on the port's CUDA kernels on the card. Either entry
-point also takes a runtime.pipeline.ChunkSource of column chunks, streamed
-through ingest.stream_encode_columns under the backend's pipeline_depth,
-encode_threads and encode_mode.
+Port of pipelinedp_tpu/pipeline_backend.py:48-294 (PipelineBackend, the
+~20 generic operations every backend implements, each with a stage name;
+UniqueLabelsGenerator; LocalBackend, lazy Python generators) and of the
+dense route of its TPUBackend. The annotator registry (:1100-1113) is not
+ported: annotate() is the base class's no-op.
+
+TorchBackend is a LocalBackend, as TPUBackend is: the generic vocabulary
+runs on the host, so the host utilities (utility analysis, parameter
+tuning) run on it. DPEngine.aggregate and DPEngine.select_partitions on a
+TorchBackend lower to the port's executor (executor.lazy_aggregate,
+lazy_select_partitions): the dense route, or above
+large_partition_threshold the blocked route (parallel/large_p.py), on the
+port's CUDA kernels on the card. Either entry point also takes a
+runtime.pipeline.ChunkSource of column chunks, streamed through
+ingest.stream_encode_columns under the backend's pipeline_depth,
+encode_threads and encode_mode. Utility analysis on a TorchBackend sweeps
+on backend.device in backend.dtype (analysis/kernels.py).
 """
 
-from typing import Optional, Union
+import abc
+import collections
+import itertools
+import operator
+import random
+from typing import Callable, Iterable, Optional, Union
 
 import torch
 
 from pipelinedp_tpu_torch import input_validators
 
 
-class TorchBackend:
+class PipelineBackend(abc.ABC):
+    """Interface implemented by all execution backends."""
+
+    def to_collection(self, collection_or_iterable, col, stage_name: str):
+        """Converts an iterable to the backend-native collection."""
+        del col, stage_name
+        return collection_or_iterable
+
+    def to_multi_transformable_collection(self, col):
+        """Returns a collection that can be iterated multiple times."""
+        return col
+
+    @abc.abstractmethod
+    def map(self, col, fn, stage_name: str):
+        pass
+
+    @abc.abstractmethod
+    def map_with_side_inputs(self, col, fn, side_input_cols, stage_name: str):
+        """fn(row, *side_inputs) where each side input collection is
+        materialized and passed as one object."""
+
+    @abc.abstractmethod
+    def flat_map(self, col, fn, stage_name: str):
+        pass
+
+    def flat_map_with_side_inputs(self, col, fn, side_input_cols,
+                                  stage_name: str):
+        raise NotImplementedError(
+            f"flat_map_with_side_inputs is not supported in "
+            f"{type(self).__name__}")
+
+    @abc.abstractmethod
+    def map_tuple(self, col, fn, stage_name: str):
+        pass
+
+    @abc.abstractmethod
+    def map_values(self, col, fn, stage_name: str):
+        pass
+
+    @abc.abstractmethod
+    def group_by_key(self, col, stage_name: str):
+        """(key, value) -> (key, iterable-of-values)."""
+
+    @abc.abstractmethod
+    def filter(self, col, fn, stage_name: str):
+        pass
+
+    @abc.abstractmethod
+    def filter_by_key(self, col, keys_to_keep, stage_name: str):
+        """Keeps only (key, data) whose key is in keys_to_keep (local list/set
+        or distributed collection)."""
+
+    @abc.abstractmethod
+    def keys(self, col, stage_name: str):
+        pass
+
+    @abc.abstractmethod
+    def values(self, col, stage_name: str):
+        pass
+
+    @abc.abstractmethod
+    def sample_fixed_per_key(self, col, n: int, stage_name: str):
+        """(key, value) -> (key, [<=n uniformly sampled values])."""
+
+    @abc.abstractmethod
+    def count_per_element(self, col, stage_name: str):
+        """element -> (element, count)."""
+
+    @abc.abstractmethod
+    def sum_per_key(self, col, stage_name: str):
+        pass
+
+    @abc.abstractmethod
+    def combine_accumulators_per_key(self, col,
+                                     combiner: 'combiners.Combiner',
+                                     stage_name: str):
+        """Merges all accumulators per key with combiner.merge_accumulators."""
+
+    @abc.abstractmethod
+    def reduce_per_key(self, col, fn: Callable, stage_name: str):
+        """Reduces values per key with an associative commutative fn."""
+
+    @abc.abstractmethod
+    def flatten(self, cols: Iterable, stage_name: str):
+        """Union of several collections."""
+
+    @abc.abstractmethod
+    def distinct(self, col, stage_name: str):
+        pass
+
+    @abc.abstractmethod
+    def to_list(self, col, stage_name: str):
+        """1-element collection holding the list of all elements."""
+
+    def annotate(self, col, stage_name: str, **kwargs):
+        """Applies all registered annotators (no-op by default)."""
+        return col
+
+
+class UniqueLabelsGenerator:
+    """Generates unique stage labels (needed by Beam transform naming)."""
+
+    def __init__(self, suffix):
+        self._labels = set()
+        self._suffix = ("_" + suffix) if suffix else ""
+
+    def _add_if_unique(self, label):
+        if label in self._labels:
+            return False
+        self._labels.add(label)
+        return True
+
+    def unique(self, label):
+        if not label:
+            label = "UNDEFINED_STAGE_NAME"
+        suffix_label = label + self._suffix
+        if self._add_if_unique(suffix_label):
+            return suffix_label
+        for i in itertools.count(1):
+            label_candidate = f"{label}_{i}{self._suffix}"
+            if self._add_if_unique(label_candidate):
+                return label_candidate
+
+
+class LocalBackend(PipelineBackend):
+    """Lazy single-machine backend over Python generators.
+
+    Ground-truth semantics for every other backend (the JAX package's
+    LocalBackend, pipeline_backend.py:170-297, operation for operation).
+    Each operation returns a lazy generator that runs when iterated, once;
+    to_multi_transformable_collection materializes a collection that can
+    be iterated again. `seed` seeds sample_fixed_per_key's random.Random,
+    so the same seed samples the same values as the JAX package's
+    LocalBackend(seed=...).
+    """
+
+    def __init__(self, seed: Optional[int] = None):
+        self._rng = random.Random(seed)
+
+    def to_multi_transformable_collection(self, col):
+        return list(col)
+
+    def map(self, col, fn, stage_name: str = None):
+        return (fn(x) for x in col)
+
+    def map_with_side_inputs(self, col, fn, side_input_cols, stage_name=None):
+        side_inputs = [list(s) for s in side_input_cols]
+
+        def gen():
+            for x in col:
+                yield fn(x, *side_inputs)
+
+        return gen()
+
+    def flat_map(self, col, fn, stage_name: str = None):
+        return (x for el in col for x in fn(el))
+
+    def flat_map_with_side_inputs(self, col, fn, side_input_cols,
+                                  stage_name=None):
+        side_inputs = [list(s) for s in side_input_cols]
+
+        def gen():
+            for el in col:
+                yield from fn(el, *side_inputs)
+
+        return gen()
+
+    def map_tuple(self, col, fn, stage_name: str = None):
+        return (fn(*x) for x in col)
+
+    def map_values(self, col, fn, stage_name: str = None):
+        return ((k, fn(v)) for k, v in col)
+
+    def group_by_key(self, col, stage_name: str = None):
+
+        def gen():
+            d = collections.defaultdict(list)
+            for key, value in col:
+                d[key].append(value)
+            yield from d.items()
+
+        return gen()
+
+    def filter(self, col, fn, stage_name: str = None):
+        return (x for x in col if fn(x))
+
+    def filter_by_key(self, col, keys_to_keep, stage_name: str = None):
+
+        def gen():
+            keys = keys_to_keep if isinstance(keys_to_keep,
+                                              (set, frozenset, dict)) else set(
+                                                  keys_to_keep)
+            for key, value in col:
+                if key in keys:
+                    yield key, value
+
+        return gen()
+
+    def keys(self, col, stage_name: str = None):
+        return (k for k, _ in col)
+
+    def values(self, col, stage_name: str = None):
+        return (v for _, v in col)
+
+    def sample_fixed_per_key(self, col, n: int, stage_name: str = None):
+
+        def gen():
+            for key, values in self.group_by_key(col):
+                if len(values) > n:
+                    values = self._rng.sample(values, n)
+                yield key, values
+
+        return gen()
+
+    def count_per_element(self, col, stage_name: str = None):
+
+        def gen():
+            yield from collections.Counter(col).items()
+
+        return gen()
+
+    def sum_per_key(self, col, stage_name: str = None):
+        return self.reduce_per_key(col, operator.add, stage_name)
+
+    def combine_accumulators_per_key(self, col,
+                                     combiner: 'combiners.Combiner',
+                                     stage_name: str = None):
+        return self.reduce_per_key(col, combiner.merge_accumulators, stage_name)
+
+    def reduce_per_key(self, col, fn: Callable, stage_name: str = None):
+
+        def gen():
+            d = {}
+            for key, value in col:
+                d[key] = fn(d[key], value) if key in d else value
+            yield from d.items()
+
+        return gen()
+
+    def flatten(self, cols, stage_name: str = None):
+        return itertools.chain(*cols)
+
+    def distinct(self, col, stage_name: str = None):
+
+        def gen():
+            yield from set(col)
+
+        return gen()
+
+    def to_list(self, col, stage_name: str = None):
+        return iter([list(col)])
+
+
+
+class TorchBackend(LocalBackend):
     """Runs DP aggregations through the port's kernels on one device.
 
     Args:
@@ -59,6 +327,9 @@ class TorchBackend:
         exact chunked vocabulary encoder) or "hash_device" (keys hashed on
         the host, codes assigned on the device, partition keys decoded
         only where kept). A ChunkSource's own encode_mode overrides it.
+
+    The generic operations are LocalBackend's, seeded by noise_seed, as
+    TPUBackend's are.
     """
 
     def __init__(self,
@@ -74,6 +345,7 @@ class TorchBackend:
                  pipeline_depth: Optional[int] = None,
                  encode_threads: Optional[int] = None,
                  encode_mode: str = "host"):
+        super().__init__(seed=noise_seed)
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(

@@ -99,7 +99,7 @@ def sample(mod):
                                     [7, 1, 1, 4, 2, 3]])
 def test_compose_host_bit_equal(counts):
     want = jax_compose.compose_plds(sample(jax_pld), counts)
-    got = compose.compose_plds(sample(pld), counts)
+    got = compose.compose_plds(sample(pld), counts, device=False)
     assert_same_pld(got, want)
     assert got.get_epsilon_for_delta(1e-6) == want.get_epsilon_for_delta(1e-6)
 
@@ -109,7 +109,8 @@ def test_compose_converted_plds_bit_equal():
     jax_plds = sample(jax_pld)
     plds = [convert.pld(p.probs, p._lower_index, p.interval, p.infinity_mass)
             for p in jax_plds]
-    assert_same_pld(compose.compose_plds(plds, [1, 2, 3, 1, 1, 2]),
+    assert_same_pld(compose.compose_plds(plds, [1, 2, 3, 1, 1, 2],
+                                         device=False),
                     jax_compose.compose_plds(jax_plds, [1, 2, 3, 1, 1, 2]))
 
 
@@ -127,7 +128,7 @@ def test_compose_plain_device_path_within_1e9(counts):
     jax_plds = sample(jax_pld)[:4]
     plds = sample(pld)[:4]
     got = compose.compose_plds(plds, counts, device="cpu")
-    host = compose.compose_plds(plds, counts)
+    host = compose.compose_plds(plds, counts, device=False)
     jax_device = jax_compose.compose_plds(jax_plds, counts, device=True)
     assert_within_1e9(got, host)
     assert_within_1e9(got, jax_device)
@@ -146,7 +147,8 @@ def test_compose_plain_device_path_wide_trail_within_1e9():
     jax_plds = [getattr(jax_pld, k)(*a) for k, a, _ in specs]
     counts = [c for _, _, c in specs]
     got = compose.compose_plds(plds, counts, max_grid=1 << 16, device="cpu")
-    host = compose.compose_plds(plds, counts, max_grid=1 << 16)
+    host = compose.compose_plds(plds, counts, max_grid=1 << 16,
+                                device=False)
     jax_device = jax_compose.compose_plds(jax_plds, counts, max_grid=1 << 16,
                                           device=True)
     assert len(got.probs) > 1 << 15
@@ -157,7 +159,7 @@ def test_compose_plain_device_path_wide_trail_within_1e9():
 def test_compose_single_cell_plds_on_the_plain_path():
     # Composed grids of one cell: the device path transforms on length 2.
     plds = [pld.from_privacy_parameters(100.0, 1e-6, _D)] * 2
-    host = compose.compose_plds(plds, [3, 2])
+    host = compose.compose_plds(plds, [3, 2], device=False)
     got = compose.compose_plds(plds, [3, 2], device="cpu")
     assert len(got.probs) == len(host.probs) == 1
     assert_within_1e9(got, host)
@@ -234,7 +236,8 @@ GOLDEN = [
 def test_batched_golden(kind, scale, k, delta, exact_eps):
     name = ("from_gaussian_mechanism" if kind == "gaussian"
             else "from_laplace_mechanism")
-    composed = compose.compose_plds([getattr(pld, name)(scale)], [k])
+    composed = compose.compose_plds([getattr(pld, name)(scale)], [k],
+                                    device=False)
     eps = composed.get_epsilon_for_delta(delta)
     assert eps >= exact_eps - 1e-5
     assert eps == pytest.approx(exact_eps, rel=5e-4)
@@ -346,11 +349,12 @@ def test_pld_discretization_validator_as_jax(value):
 
 def test_composed_infinity_mass_as_jax():
     p = pld.from_privacy_parameters(0.3, 1e-3, _D)
-    composed = compose.compose_plds([p], [10])
+    composed = compose.compose_plds([p], [10], device=False)
     assert composed.infinity_mass == pytest.approx(
         -math.expm1(10 * math.log1p(-p.infinity_mass)), rel=1e-12)
     saturated = pld.from_gaussian_mechanism(1e-3, _D)
-    assert compose.compose_plds([saturated, p], [1, 2]).infinity_mass == \
+    assert compose.compose_plds([saturated, p], [1, 2],
+                                device=False).infinity_mass == \
         jax_compose.compose_plds(
             [jax_pld.from_gaussian_mechanism(1e-3, _D),
              jax_pld.from_privacy_parameters(0.3, 1e-3, _D)],

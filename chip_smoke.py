@@ -166,6 +166,24 @@ earlier phase including the profile:
              delta 1e-6), the host preaggregation timed apart from the
              sweep; perform_utility_analysis of 2^14 of those rows,
              private and public, card (float64, float32) against the CPU
+The multi-tenant service and megabatched serving (service/, K24) add,
+after every earlier phase:
+  2. kernels the lane entries of C1, C2, C3, C4 and C6 (and C5 with the
+             lane as its top word) against their plain versions at L = 3
+             lanes of 1000 rows and at S2's 16 lanes of 2^20 Netflix rows
+             (P = 17,770), and the lane-batched releases of (a), (b) and
+             a selection against their solo releases, lane by lane, with
+             ==; times at S2's shape
+  4. service DPAggregationService(TorchBackend()), batching off and on:
+             (S1) bench.py's _bench_megabatch load: 96 pre-encoded jobs of
+             64 rows over 48 partitions, COUNT + SUM, Laplace, 16 workers,
+             lanes of 16, a 100 ms window, best of 3: jobs/s, p50 / p99
+             latency, release launches per 96 jobs, occupancy; (S2a) /
+             (S2b) the Netflix rows as 16 jobs of 2^20 rows under
+             TorchBackend(max_partitions=17,770), cells (a) and (b);
+             (S3) their selection: every batched job == its solo run
+             (release, spent epsilon, ledger trail), a group of 16 lanes
+             launching C1-C4 and C6 once each and C5 twice
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -177,6 +195,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -398,6 +417,12 @@ def main() -> int:
                                  kernels, card)
     for name, count in analysis_main_phase(torch, tdp, users, movies,
                                            ratings, kernels, card).items():
+        launches[name] += count
+    # The multi-tenant service and megabatched serving (K24), last of all.
+    report += service_kernel_phase(torch, dev, tdp, encoded, kernels,
+                                   executor, card)
+    for name, count in service_phase(torch, tdp, kernels, card, users,
+                                     movies, ratings).items():
         launches[name] += count
     for entry in report:
         entry["launches"] = launches[entry["name"]]
@@ -1336,10 +1361,10 @@ def kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card):
                     return out
                 return call
 
-            to_device = executor.to_device
+            to_device = executor.padded_to_device
             for n in names:
                 setattr(kernels, n, timed(n, originals[n]))
-            executor.to_device = timed("h2d", to_device)
+            executor.padded_to_device = timed("h2d", to_device)
             try:
                 acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0,
                                                 total_delta=1e-6)
@@ -1361,7 +1386,7 @@ def kernel_stage_phase(torch, tdp, encoded, onehot, kernels, executor, card):
             finally:
                 for n in names:
                     setattr(kernels, n, originals[n])
-                executor.to_device = to_device
+                executor.padded_to_device = to_device
             if len(out) != enc.n_partitions:
                 raise AssertionError(f"stages ({label}): {len(out)} "
                                      f"partitions decoded")
@@ -3668,8 +3693,8 @@ def ingest_stage_phase(torch, tdp, data, kernels, executor, ingest,
     """(a) pre-encoded, (x) and (y) with their wall time split: the host
     encode (the workers' busy time, summed over threads; the consumer's
     vocabulary merge), the host-to-device copies (CUDA events on the copy
-    stream; for (a) around executor.to_device), C14, C12 / C13, the release
-    kernels, and the rest (the host's release setup and decode)."""
+    stream; for (a) around executor.padded_to_device), C14, C12 / C13, the
+    release kernels, and the rest (the host's release setup and decode)."""
     raw, encoded = data["netflix"]
     chunks = stream_chunks(*raw)
     patches = [
@@ -3690,8 +3715,8 @@ def ingest_stage_phase(torch, tdp, data, kernels, executor, ingest,
 
             for obj, name, stage in patches:
                 patch(obj, name, clock.device(stage, getattr(obj, name)))
-            patch(executor, "to_device",
-                  clock.device("h2d", executor.to_device))
+            patch(executor, "padded_to_device",
+                  clock.device("h2d", executor.padded_to_device))
             patch(rt_pipeline, "upload_rows",
                   clock.device("h2d", rt_pipeline.upload_rows, 2))
             for name in ("_prepare_chunk", "_prepare_hash_chunk"):
@@ -4855,6 +4880,520 @@ def analysis_main_phase(torch, tdp, users, movies, ratings, kernels, card):
               f"ms ({card})", flush=True)
     return total
 
+
+
+# ---------------------------------------------------------------------------
+# The multi-tenant service and megabatched serving (service/, K24).
+
+# The lane entries and C5: the kernels of every lane-batched release.
+SERVICE_PATH = ("row_keys_lanes", "bound_rows_lanes", "radix_sort",
+                "reduce_partitions_lanes", "release_epilogue_lanes",
+                "compact_kept_lanes")
+SOLO_OF_LANE = {"row_keys_lanes": "row_keys", "bound_rows_lanes": "bound_rows",
+                "reduce_partitions_lanes": "reduce_partitions",
+                "release_epilogue_lanes": "release_epilogue",
+                "compact_kept_lanes": "compact_kept"}
+S2_JOBS = 16  # jobs of 2^20 rows cut from the 2^24 Netflix rows
+# bench.py's _bench_megabatch load (S1).
+MICRO_JOBS, MICRO_ROWS, MICRO_WORKERS, MICRO_LANES, MICRO_TRIALS = (96, 64, 16,
+                                                                   16, 3)
+LANE_SHAPES = ((3, 1000), (S2_JOBS, N_ROWS // S2_JOBS))
+
+
+def lane_keys(n_lanes, base):
+    return np.array([[0, base + l] for l in range(n_lanes)], np.uint32)
+
+
+def release_cfg(tdp, executor, P, metrics, noise, private, l0=64, linf=1):
+    """(cfg, stds, scalars) of one dense release spec, budgets computed
+    at eps 1, delta 1e-6."""
+    from pipelinedp_tpu_torch import combiners
+    from pipelinedp_tpu_torch.ops import selection_ops
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    params = tdp.AggregateParams(
+        metrics=[getattr(tdp.Metrics, m) for m in metrics],
+        noise_kind=getattr(tdp.NoiseKind, noise), min_value=1.0,
+        max_value=5.0, max_partitions_contributed=l0,
+        max_contributions_per_partition=linf)
+    compound = combiners.create_compound_combiner(params, acc)
+    budget = (acc.request_budget(tdp.MechanismType.GENERIC) if private
+              else None)
+    acc.compute_budgets()
+    sel = (selection_ops.selection_params_from_host(
+        params.partition_selection_strategy, budget.eps, budget.delta, l0,
+        None) if private else None)
+    cfg = executor.make_kernel_config(params, compound, P, private, sel)
+    return cfg, executor.compute_noise_stds(compound), \
+        executor.kernel_scalars(params)
+
+
+def lanes_equal_solo(torch, label, batched, solo_fn, n_lanes):
+    """Lane l of a batched release equals its solo release with ==
+    (n_kept, the whole order, every output, flags)."""
+    for l in range(n_lanes):
+        solo = solo_fn(l)
+        if int(batched[0][l]) != int(solo[0]) or \
+                not torch.equal(batched[1][l], solo[1]):
+            raise AssertionError(f"{label}: lane {l}'s kept ids differ from "
+                                 f"its solo release")
+        if len(batched) > 2:
+            for name, col in solo[2].items():
+                if not torch.equal(batched[2][name][l], col):
+                    raise AssertionError(f"{label}: lane {l}'s {name} "
+                                         f"differs from its solo release")
+            if int(batched[3][l]) != int(solo[3].reshape(())):
+                raise AssertionError(f"{label}: lane {l}'s flags differ")
+
+
+def service_kernel_phase(torch, dev, tdp, encoded, kernels, executor, card,
+                         shapes=LANE_SHAPES):
+    """The lane entries of C1, C2, C3, C4 and C6 (and C5 on the lane
+    word) against their plain versions on the card, at L = 3 lanes of
+    1000 rows and at S2's 16 lanes of 2^20 Netflix rows (P = 17,770); the
+    batched releases against their solo releases lane by lane (==); times
+    at S2's shape."""
+    f32 = torch.float32
+    P = N_MOVIES
+    report = []
+    from pipelinedp_tpu_torch.aggregate_params import (
+        NoiseKind, PartitionSelectionStrategy)
+    from pipelinedp_tpu_torch.ops import selection_ops
+    for n_lanes, lane_rows in shapes:
+        total = n_lanes * lane_rows
+        sl = slice(0, total)
+        pid = torch.as_tensor(encoded.pid[sl]).to(dev).reshape(n_lanes, -1)
+        pk = torch.as_tensor(encoded.pk[sl]).to(dev).reshape(n_lanes, -1)
+        values = torch.as_tensor(encoded.values[sl]).to(dev, f32).reshape(
+            n_lanes, -1)
+        valid = torch.as_tensor(encoded.valid[sl]).to(dev).reshape(n_lanes,
+                                                                 -1)
+        # Two lanes with the same key: identical keys side by side; at the
+        # small shape the last lane keeps no row at all.
+        keys = lane_keys(n_lanes, 500)
+        keys[1] = keys[0]
+        if n_lanes == LANE_SHAPES[0][0]:
+            valid[-1] = False
+        # C4's plan below: a variance entry (three noise slots) and a
+        # privacy_id_count entry (one).
+        metric_plan = (
+            executor.MetricPlanEntry("variance",
+                                     ("variance", "count", "sum", "mean"), 3),
+            executor.MetricPlanEntry("privacy_id_count",
+                                     ("privacy_id_count",), 1))
+        salts, keys_linf, key_sel, slots = executor.lane_release_keys(
+            keys, metric_plan)
+        fp, fk, fv, fvalid = (pid.reshape(-1), pk.reshape(-1),
+                              values.reshape(-1), valid.reshape(-1))
+        c1_args = (fp, fk, fvalid, lane_rows, salts, keys_linf, P, f32)
+        c1 = lambda: kernels.row_keys_lanes(*c1_args)  # noqa: E731
+        lane, k1, k2, u = c1()
+        q = kernels.row_keys_lanes_plain(fp, fk, fvalid, lane_rows, salts,
+                                         keys_linf, P, f32)
+        err1 = max(check_equal(f"row_keys_lanes {w}", a, b)
+                   for w, a, b in zip(("lane", "k1", "k2", "u"), (lane, k1,
+                                                                   k2, u), q))
+        words = [lane, k1, k2, u]
+        perm = kernels.radix_sort(words)
+        err5 = check_equal("radix_sort (lane, k1, k2, u)", perm,
+                           kernels.radix_sort_plain(words))
+        cols = ("sum", "nsum", "nsum2")
+        c2_args = dict(lane_rows=lane_rows, n_partitions=P, linf=1, l0=64,
+                       clip_per_value=True, clip_pair_sum=False,
+                       scalars=(1.0, 5.0, 0.0, 0.0, 3.0), columns=cols)
+        c2 = lambda: kernels.bound_rows_lanes(perm, k1, k2, fv, fvalid,  # noqa: E731
+                                              **c2_args)
+        key2, pair_start, row_cols = c2()
+        q2 = kernels.bound_rows_lanes_plain(perm, k1, k2, fv, fvalid,
+                                            **c2_args)
+        err2 = max([check_equal("bound_rows_lanes key2", key2, q2[0]),
+                    check_equal("bound_rows_lanes pair_start", pair_start,
+                                q2[1])] +
+                   [check_equal(f"bound_rows_lanes {c}", row_cols[c],
+                                q2[2][c]) for c in cols])
+        perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
+        qp2, qs2 = kernels.radix_sort_plain([key2], True)
+        err5 = max(err5, check_equal("radix_sort lane key2", perm2, qp2),
+                   check_equal("radix_sort lane key2 sorted", skey2, qs2))
+        c3 = lambda: kernels.reduce_partitions_lanes(  # noqa: E731
+            skey2, perm2, pair_start, row_cols, lane_rows, P, f32)
+        dense = c3()
+        q3 = kernels.reduce_partitions_lanes_plain(skey2, perm2, pair_start,
+                                                   row_cols, lane_rows, P,
+                                                   f32)
+        scale = kernels.reduce_partitions_lanes_plain(
+            skey2, perm2, pair_start, {c: row_cols[c].abs() for c in cols},
+            lane_rows, P, f32)
+        err3 = max(check_equal("reduce_partitions_lanes count",
+                               dense["count"], q3["count"]),
+                   check_equal("reduce_partitions_lanes pid_count",
+                               dense["pid_count"], q3["pid_count"]))
+        for c in cols:
+            # Sums in another order than the plain version's index_add_:
+            # 1e-5 of the partition's sum of magnitudes.
+            tol = 1e-5 * scale[c].double() + 1e-6
+            diff = (dense[c].double() - q3[c].double()).abs()
+            if bool((diff > tol).any()):
+                raise AssertionError(f"reduce_partitions_lanes {c}: max diff "
+                                     f"{float(diff.max())} over tolerance")
+            err3 = max(err3, float(diff.max()))
+        stds = np.array([2.0, 5.0, 40.0, 1.5])
+        sel = selection_ops.selection_params_from_host(
+            PartitionSelectionStrategy.TRUNCATED_GEOMETRIC, 1.0, 1e-6, 64,
+            None)
+        c4_args = (dense, executor.epilogue_plan(metric_plan), stds, slots, NoiseKind.GAUSSIAN, False, 3.0,
+                   1.0, sel, key_sel, 1, n_lanes)
+        c4 = lambda: kernels.release_epilogue_lanes(*c4_args)  # noqa: E731
+        keep, outs, flags = c4()
+        q4 = kernels.release_epilogue_lanes_plain(*c4_args)
+        err4 = max(check_equal("release_epilogue_lanes keep", keep, q4[0]),
+                   check_equal("release_epilogue_lanes flags", flags, q4[2]))
+        for name in outs:
+            err4 = max(err4, check_close(f"release_epilogue_lanes {name}",
+                                         outs[name], q4[1][name], rtol=1e-5,
+                                         atol=1e-5))
+        gen = torch.Generator(device=dev).manual_seed(total)
+        half = torch.rand(n_lanes * P, device=dev, generator=gen) < 0.5
+        ccols = {o: torch.randn(n_lanes * P, device=dev, generator=gen)
+                 for o in ("count", "privacy_id_count", "sum", "mean",
+                           "variance")}
+        c6 = lambda: kernels.compact_kept_lanes(half, ccols, n_lanes)  # noqa: E731
+        got, want = c6(), kernels.compact_kept_lanes_plain(half, ccols,
+                                                           n_lanes)
+        err6 = max([check_equal("compact_kept_lanes n_kept", got[0], want[0]),
+                    check_equal("compact_kept_lanes order", got[1], want[1])] +
+                   [check_equal(f"compact_kept_lanes {o}", got[2][o],
+                                want[2][o]) for o in ccols])
+        # The batched releases against the solo ones, lane by lane (==).
+        for label, spec in (("S2a", (("COUNT", "SUM", "MEAN", "VARIANCE"),
+                                     "GAUSSIAN", False)),
+                            ("S2b", (("COUNT", "SUM", "PRIVACY_ID_COUNT"),
+                                     "LAPLACE", True))):
+            cfg, cstds, sc = release_cfg(tdp, executor, P, *spec)
+            batched = executor.batched_aggregate_release_kernel(
+                pid, pk, values, valid, *sc, cstds, keys, cfg)
+            lanes_equal_solo(torch, f"batched {label}", batched,
+                             lambda l: executor.aggregate_release_kernel(
+                                 pid[l], pk[l], values[l], valid[l], *sc,
+                                 cstds, keys[l], cfg), n_lanes)
+        batched = executor.batched_select_partitions_release_kernel(
+            pid, pk, valid, keys, 64, P, sel, f32)
+        lanes_equal_solo(torch, "batched select", batched,
+                         lambda l: executor.select_partitions_release_kernel(
+                             pid[l], pk[l], valid[l], keys[l], 64, P, sel,
+                             f32), n_lanes)
+        torch.cuda.synchronize()
+        errors = {"row_keys_lanes": err1, "bound_rows_lanes": err2,
+                  "reduce_partitions_lanes": err3,
+                  "release_epilogue_lanes": err4, "radix_sort (lanes)": err5,
+                  "compact_kept_lanes": err6}
+        print(f"lane kernels[L={n_lanes}, n={lane_rows}, P={P}]: every lane "
+              f"entry agrees with its plain version; every lane of the "
+              f"batched (a), (b) and select releases equals its solo "
+              f"release (==); max abs err {json.dumps(errors)} ({card})",
+              flush=True)
+        if (n_lanes, lane_rows) != LANE_SHAPES[-1]:
+            continue
+        fsz = 4
+        kept_rows = int((skey2 < n_lanes * P).sum())
+        PP = n_lanes * P
+        src = torch.stack([torch.ones_like(fv), pair_start.float()] +
+                          [row_cols[c] for c in cols], 1)[perm2]
+        key_long = skey2.long()
+
+        def library_c3():
+            out = torch.zeros(PP + 1, src.shape[1], device=dev)
+            return out.index_add_(0, key_long, src)
+
+        timing = {
+            "row_keys_lanes": (c1, lambda: kernels.row_keys_lanes_plain(
+                fp, fk, fvalid, lane_rows, salts, keys_linf, P, f32), None,
+                bound(total * (4 + 4 + 1) + total * (4 + 8 + 8 + fsz),
+                      total * 170)),
+            "bound_rows_lanes": (c2, lambda: kernels.bound_rows_lanes_plain(
+                perm, k1, k2, fv, fvalid, **c2_args), None,
+                bound(total * (8 + 8 + 8 + fsz + 1) +
+                      total * (4 + 1 + len(cols) * fsz), total * 40)),
+            "reduce_partitions_lanes": (
+                c3, lambda: kernels.reduce_partitions_lanes_plain(
+                    skey2, perm2, pair_start, row_cols, lane_rows, P, f32),
+                library_c3,
+                bound(total * 4 + kept_rows * (8 + 1 + len(cols) * fsz) +
+                      PP * 5 * fsz, kept_rows * 8)),
+            "release_epilogue_lanes": (
+                c4, lambda: kernels.release_epilogue_lanes_plain(*c4_args),
+                None, bound(PP * 5 * fsz + PP * (1 + 5 * fsz) + 4 * n_lanes,
+                            PP * 700)),
+            "compact_kept_lanes": (
+                c6, lambda: kernels.compact_kept_lanes_plain(half, ccols,
+                                                             n_lanes),
+                None, bound(PP * (1 + 5 * fsz) + PP * (8 + 5 * fsz) +
+                            8 * n_lanes, PP * 10)),
+        }
+        sources = {"row_keys_lanes": "row_keys.cu",
+                   "bound_rows_lanes": "bound_rows.cu",
+                   "reduce_partitions_lanes": "reduce_partitions.cu",
+                   "release_epilogue_lanes": "release_epilogue.cu",
+                   "compact_kept_lanes": "compact_kept.cu"}
+        for name, (fn, plain, lib, (b_ms, b_by)) in timing.items():
+            ms = cuda_ms(fn, repeats=10)
+            plain_ms = cuda_ms(plain, repeats=3, warmup=1)
+            lib_ms = cuda_ms(lib, repeats=10) if lib else None
+            print(f"kernel {name}: max_abs_err={errors[name]} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
+                  f"library_ms={lib_ms} (L={n_lanes} x {lane_rows} rows, "
+                  f"P={P}; {card})", flush=True)
+            report.append({
+                "name": name, "route": "cuda",
+                "source": f"pipelinedp_tpu_torch/csrc/{sources[name]}",
+                "replaces": "pipelinedp_tpu/executor.py:984",
+                "launches": 0, "max_abs_err": errors[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms})
+        b_ms, b_by = bound(total * (4 + 8 + 8 + fsz) + total * 8,
+                           total * 12 * sort_passes(words))
+        print(f"kernel radix_sort[(lane, k1, k2, u), L={n_lanes}]: ms="
+              f"{cuda_ms(lambda: kernels.radix_sort(words), 10):.4f} "
+              f"passes={sort_passes(words)} bound_ms={b_ms:.3g} ({b_by}) "
+              f"plain_ms="
+              f"{cuda_ms(lambda: kernels.radix_sort_plain(words), 3, 1):.4f}"
+              f" torch_chain_ms="
+              f"{cuda_ms(lambda: torch_sort_chain(torch, words), 10):.4f}",
+              flush=True)
+    return report
+
+
+def micro_job_cols(columnar, seed):
+    """One S1 micro-job as bench.py builds it: 64 pre-encoded rows over the
+    same 48 partitions (and a random tail), 200 users, values U[0, 5]."""
+    r = np.random.default_rng(seed)
+    pk = np.concatenate([np.arange(48), r.integers(0, 48, MICRO_ROWS - 48)])
+    pid = np.concatenate([np.arange(48) % 200,
+                          r.integers(0, 200, MICRO_ROWS - 48)])
+    return columnar.encode_columns(pid, pk, r.uniform(0.0, 5.0, MICRO_ROWS))
+
+
+def release_launches(counts):
+    return counts["release_epilogue"] + counts["release_epilogue_lanes"]
+
+
+def service_phase(torch, tdp, kernels, card, users, movies, ratings,
+                  micro_trials=MICRO_TRIALS, s2_jobs=S2_JOBS,
+                  s2_rows=N_ROWS // S2_JOBS):
+    """S1 (bench.py's micro-job load), S2a / S2b (the Netflix rows as 16
+    jobs of 2^20 rows, cells (a) and (b)) and S3 (their selection) through
+    DPAggregationService(TorchBackend()), batching off and on: every
+    batched job equal to its solo run (results, spent epsilon, ledger
+    trail), a batched group's launches those of one solo job. Returns the
+    launch counts of the batched runs."""
+    from pipelinedp_tpu_torch import columnar
+    from pipelinedp_tpu_torch.runtime import telemetry
+    from pipelinedp_tpu_torch.service import DPAggregationService, JobSpec
+    total = dict.fromkeys(kernels.KERNELS, 0)
+
+    # S1: 96 micro-jobs, 16 workers, lanes of 16, a 100 ms window.
+    micro_params = tdp.AggregateParams(
+        metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM],
+        noise_kind=tdp.NoiseKind.LAPLACE, max_partitions_contributed=4,
+        max_contributions_per_partition=8, min_value=0.0, max_value=5.0)
+    data = {i: micro_job_cols(columnar, i) for i in range(MICRO_JOBS)}
+    warm = {i: micro_job_cols(columnar, 10_000 + i)
+            for i in range(MICRO_WORKERS)}
+
+    def micro_spec(seed):
+        return JobSpec(params=micro_params, epsilon=1.0, delta=1e-6,
+                       noise_seed=seed)
+
+    # A solo micro-job's release through DPEngine, one thread at a time
+    # and from several threads at once (the service's workers share the
+    # GIL and the card's stream).
+    def solo_job(i):
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=i))
+        res = engine.aggregate(data[i % MICRO_JOBS], micro_params,
+                               tdp.DataExtractors())
+        acc.compute_budgets()
+        return dict(res)
+
+    for i in range(4):
+        solo_job(i)
+    start = time.perf_counter()
+    lat = []
+    for i in range(MICRO_JOBS // 2):
+        t = time.perf_counter()
+        solo_job(i)
+        lat.append(time.perf_counter() - t)
+    probe = [f"serial {statistics.median(lat) * 1e3:.2f} ms a job"]
+    for n_threads in (2, 4, MICRO_WORKERS):
+        def worker(first, n_threads=n_threads):
+            for i in range(first, MICRO_JOBS, n_threads):
+                solo_job(i)
+        start = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        probe.append(f"{n_threads} threads "
+                     f"{MICRO_JOBS / (time.perf_counter() - start):.1f} "
+                     f"jobs/s")
+    print(f"service S1 probe: solo micro-jobs through DPEngine without the "
+          f"service: {', '.join(probe)} ({card})", flush=True)
+
+    s1 = {}
+    for batching in (False, True):
+        with DPAggregationService(tdp.TorchBackend(),
+                                  max_concurrent_jobs=MICRO_WORKERS,
+                                  queue_timeout_s=600.0, batching=batching,
+                                  batch_window_ms=100.0,
+                                  max_batch_jobs=MICRO_LANES) as svc:
+            handles = [svc.submit(f"w{i}", micro_spec(900 + i), warm[i])
+                       for i in range(MICRO_WORKERS)]
+            for h in handles:
+                h.result(timeout=600)
+            trials = []
+            for trial in range(micro_trials):
+                kernels.reset_launch_counts()
+                before = telemetry.snapshot()
+                start = time.perf_counter()
+                handles = [svc.submit(f"tenant-{i % 3}",
+                                      micro_spec(trial * 1000 + i), data[i])
+                           for i in range(MICRO_JOBS)]
+                results = [h.result(timeout=600) for h in handles]
+                elapsed = time.perf_counter() - start
+                counts = dict(kernels.launch_counts)
+                delta = telemetry.delta(before)
+                latencies = sorted(h.latency_s for h in handles)
+                trials.append((MICRO_JOBS / elapsed, counts, delta,
+                               latencies, results))
+                if batching:
+                    for name, n in counts.items():
+                        total[name] += n
+            if not svc.ledgers_reconciled():
+                raise AssertionError(f"S1 batching={batching}: ledgers do "
+                                     f"not reconcile")
+        s1[batching] = trials
+    for trial, (solo, batched) in enumerate(zip(s1[False], s1[True])):
+        if solo[4] != batched[4]:
+            raise AssertionError(f"S1 trial {trial}: a batched job's release "
+                                 f"differs from its solo run")
+    for batching, trials in s1.items():
+        jps, counts, delta, lat, _ = max(trials, key=lambda t: t[0])
+        launches = delta.get("service_batch_launches", 0)
+        occupancy = (delta.get("service_jobs_batched", 0) / launches
+                     if launches else 0.0)
+        print(f"service S1 batching={batching}: {MICRO_JOBS} jobs of "
+              f"{MICRO_ROWS} rows, {MICRO_WORKERS} workers: {jps:.1f} jobs/s "
+              f"(best of {len(trials)}: {[round(t[0], 1) for t in trials]}), "
+              f"latency p50 {lat[len(lat) // 2] * 1e3:.2f} ms p99 "
+              f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3:.2f} ms, "
+              f"release launches per {MICRO_JOBS} jobs "
+              f"{release_launches(counts)}, batched launches {launches}, "
+              f"mean occupancy {occupancy:.2f}, lone-window solo releases "
+              f"{counts['release_epilogue']} ({card})", flush=True)
+    best = max(s1[True], key=lambda t: t[0])
+    if release_launches(best[1]) > MICRO_JOBS // 4:
+        raise AssertionError(f"S1: {release_launches(best[1])} release "
+                             f"launches for {MICRO_JOBS} batched jobs")
+
+    # S2 / S3: 16 jobs of 2^20 Netflix rows, P = 17,770 in every lane.
+    rows = s2_rows
+    chunks = [slice(i * rows, (i + 1) * rows) for i in range(s2_jobs)]
+    public = list(range(N_MOVIES))
+    enc_public = [columnar.encode_columns(users[c], movies[c], ratings[c],
+                                          public_partitions=public)
+                  for c in chunks]
+    enc_private = [columnar.encode_columns(users[c], movies[c], ratings[c])
+                   for c in chunks]
+
+    def agg_spec(metrics, noise, is_public, seed):
+        params = tdp.AggregateParams(
+            metrics=[getattr(tdp.Metrics, m) for m in metrics],
+            noise_kind=getattr(tdp.NoiseKind, noise), min_value=1.0,
+            max_value=5.0, max_partitions_contributed=64,
+            max_contributions_per_partition=1)
+        return JobSpec(params=params, epsilon=1.0, delta=1e-6,
+                       noise_seed=seed,
+                       public_partitions=public if is_public else None)
+
+    def select_spec(seed):
+        return JobSpec(params=tdp.SelectPartitionsParams(
+            max_partitions_contributed=64), epsilon=1.0, delta=1e-6,
+            noise_seed=seed)
+
+    cells = {
+        "S2a": ([agg_spec(("COUNT", "SUM", "MEAN", "VARIANCE"), "GAUSSIAN",
+                          True, 300 + i) for i in range(s2_jobs)],
+                enc_public),
+        "S2b": ([agg_spec(("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE",
+                          False, 400 + i) for i in range(s2_jobs)],
+                enc_private),
+        "S3": ([select_spec(500 + i) for i in range(s2_jobs)], enc_private),
+    }
+    for label, (specs, encs) in cells.items():
+        runs, walls = {}, {False: [], True: []}
+        for batching in (False, True, False, True):
+            with DPAggregationService(
+                    tdp.TorchBackend(max_partitions=N_MOVIES),
+                    max_concurrent_jobs=s2_jobs, queue_timeout_s=600.0,
+                    batching=batching, batch_window_ms=60_000.0,
+                    max_batch_jobs=s2_jobs) as svc:
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                start = time.perf_counter()
+                handles = [svc.submit(f"t{i}", spec, enc)
+                           for i, (spec, enc) in enumerate(zip(specs, encs))]
+                results = [h.result(timeout=600) for h in handles]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+                counts = dict(kernels.launch_counts)
+                if not svc.ledgers_reconciled():
+                    raise AssertionError(f"{label} batching={batching}: "
+                                         f"ledgers do not reconcile")
+                trails = [svc.tenant_ledger(f"t{i}").records()
+                          for i in range(s2_jobs)]
+                spent = [h.spent_epsilon for h in handles]
+            if batching in runs and runs[batching][:3] != (results, spent,
+                                                           trails):
+                raise AssertionError(f"{label} batching={batching}: a "
+                                     f"repeated run released otherwise")
+            runs[batching] = (results, spent, trails, counts, wall)
+            walls[batching].append(wall)
+            if batching:
+                for name, n in counts.items():
+                    total[name] += n
+        solo, batched = runs[False], runs[True]
+        for i in range(s2_jobs):
+            if solo[0][i] != batched[0][i] or solo[1][i] != batched[1][i] \
+                    or solo[2][i] != batched[2][i]:
+                raise AssertionError(f"{label} job {i}: the batched lane's "
+                                     f"release, spent epsilon or ledger "
+                                     f"trail differs from its solo run")
+            if not solo[0][i]:
+                raise AssertionError(f"{label} job {i} released nothing")
+        check_launches(f"{label} batched", batched[3], kernels,
+                       path=SERVICE_PATH)
+        for lane_name, solo_name in SOLO_OF_LANE.items():
+            if batched[3][lane_name] * s2_jobs != solo[3][solo_name] or \
+                    batched[3][solo_name]:
+                raise AssertionError(
+                    f"{label}: {lane_name} launched {batched[3][lane_name]} "
+                    f"times for {s2_jobs} lanes, {solo_name} "
+                    f"{solo[3][solo_name]} times for {s2_jobs} solo jobs")
+        if batched[3]["radix_sort"] * s2_jobs != solo[3]["radix_sort"]:
+            raise AssertionError(f"{label}: radix_sort launched "
+                                 f"{batched[3]['radix_sort']} times batched")
+        kept = [len(r) for r in batched[0]]
+        print(f"service {label}: {s2_jobs} jobs of {rows} rows, P = "
+              f"{N_MOVIES}: every lane == its solo run (release, spent "
+              f"epsilon {batched[1][0]}, ledger trail); kept "
+              f"{min(kept)}-{max(kept)}; wall of {s2_jobs} solo jobs "
+              f"{[round(w * 1e3, 1) for w in walls[False]]} ms, of one "
+              f"batched group {[round(w * 1e3, 1) for w in walls[True]]} ms "
+              f"(two runs each); launches a group "
+              f"{dict((k, batched[3][k]) for k in SERVICE_PATH)} ({card})",
+              flush=True)
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

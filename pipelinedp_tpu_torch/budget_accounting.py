@@ -243,9 +243,32 @@ class BudgetAccountant(abc.ABC):
     def _register_mechanism(
             self, mechanism: MechanismSpecInternal) -> MechanismSpecInternal:
         self._mechanisms.append(mechanism)
+        # A timeline mark and one ordered odometer record per registration
+        # (runtime/observability.py): the record's eps / delta resolve
+        # through the shared spec once compute_budgets fills it.
+        from pipelinedp_tpu_torch.runtime import observability, telemetry
+        telemetry.record(
+            "budget_registrations",
+            mechanism_type=str(
+                getattr(mechanism.mechanism_spec, "mechanism_type", "")))
+        observability.record_mechanism(self, mechanism)
         for scope in self._scopes_stack:
             scope.mechanisms.append(mechanism)
         return mechanism
+
+    def spent_epsilon(self) -> float:
+        """Epsilon apportioned so far: every computed mechanism's eps share
+        times its count, folded left to right in registration order (0.0
+        before compute_budgets). The odometer's records and a tenant
+        ledger fold the same terms in the same order, so the three agree
+        bit for bit. An explicit loop, not sum(): from Python 3.12 on,
+        sum() of floats is compensated and can differ from this fold in
+        the last bit."""
+        total = 0.0
+        for m in self._mechanisms:
+            if m.mechanism_spec._eps is not None:
+                total += m.mechanism_spec._eps * m.mechanism_spec.count
+        return total
 
     def _enter_scope(self, scope):
         self._scopes_stack.append(scope)

@@ -355,16 +355,20 @@ def create_compound_combiner(
         budget_accountant: budget_accounting.BudgetAccountant
 ) -> CompoundCombiner:
     """Builds the CompoundCombiner for the requested metrics, requesting one
-    budget per mechanism (pipelinedp_tpu/combiners.py:656)."""
+    budget per mechanism (pipelinedp_tpu/combiners.py:656). Each request
+    is labelled with the metric it serves, for the budget odometer's
+    records (runtime/observability.mechanism_label)."""
+    from pipelinedp_tpu_torch.runtime import observability
     combiners = []
     mechanism_type = params.noise_kind.convert_to_mechanism_type()
 
-    def request():
-        return budget_accountant.request_budget(mechanism_type,
-                                                weight=params.budget_weight)
+    def request(metric_label: str):
+        with observability.mechanism_label(metric_label):
+            return budget_accountant.request_budget(
+                mechanism_type, weight=params.budget_weight)
 
     if Metrics.VARIANCE in params.metrics:
-        budget_variance = request()
+        budget_variance = request('variance')
         metrics_to_compute = ['variance']
         if Metrics.MEAN in params.metrics:
             metrics_to_compute.append('mean')
@@ -376,8 +380,8 @@ def create_compound_combiner(
             VarianceCombiner(CombinerParams(budget_variance, params),
                              metrics_to_compute))
     elif Metrics.MEAN in params.metrics:
-        budget_count = request()
-        budget_sum = request()
+        budget_count = request('count')
+        budget_sum = request('sum')
         metrics_to_compute = ['mean']
         if Metrics.COUNT in params.metrics:
             metrics_to_compute.append('count')
@@ -387,18 +391,20 @@ def create_compound_combiner(
             MeanCombiner(budget_count, budget_sum, params, metrics_to_compute))
     else:
         if Metrics.COUNT in params.metrics:
-            combiners.append(CountCombiner(request(), params))
+            combiners.append(CountCombiner(request('count'), params))
         if Metrics.SUM in params.metrics:
-            combiners.append(SumCombiner(request(), params))
+            combiners.append(SumCombiner(request('sum'), params))
     if Metrics.PRIVACY_ID_COUNT in params.metrics:
-        combiners.append(PrivacyIdCountCombiner(request(), params))
+        combiners.append(
+            PrivacyIdCountCombiner(request('privacy_id_count'), params))
     if Metrics.VECTOR_SUM in params.metrics:
-        combiners.append(VectorSumCombiner(CombinerParams(request(), params)))
+        combiners.append(
+            VectorSumCombiner(CombinerParams(request('vector_sum'), params)))
     percentiles_to_compute = [
         metric.parameter for metric in params.metrics if metric.is_percentile
     ]
     if percentiles_to_compute:
         combiners.append(
-            QuantileCombiner(CombinerParams(request(), params),
+            QuantileCombiner(CombinerParams(request('percentile'), params),
                              percentiles_to_compute))
     return CompoundCombiner(combiners)

@@ -22,6 +22,16 @@
 // (the total bound replaces it). Standalone selection passes no values and
 // asks for no columns: it needs key2 and pair_start only.
 //
+// The lane entry, bound_rows_lanes (K24: the megabatched service's vmap
+// over job lanes, executor.py:984, :1141), bounds L jobs' rows as one
+// stream: the bounding sort (C5) has the lane as its most significant
+// word, so lane l's rows are the sorted positions [l * n, (l + 1) * n).
+// A pid run and a pair run also break where the lane changes (two lanes
+// may hold the same pid, or the same keys, side by side), the pair-sum
+// walk stops there, and a kept row writes key2 = lane * P + partition,
+// a dropped one L * P (the caller checks L * (P + 1) < 2^31). Each lane's
+// outputs are its solo run's.
+//
 // A second entry, total_bound_rows, is the total contribution bound of
 // executor.py:366-378 (max_contributions = K): over the rows in (pid, u)
 // order (perm and the sorted pid from radix_sort) it ranks each row within
@@ -63,15 +73,19 @@ struct Keys {
   const long long* perm;
   const long long* k1;
   const long long* k2;
+  long long lane_rows;  // rows a lane (0: one lane)
   __device__ __forceinline__ long long row(long long i) const {
     return perm ? perm[i] : i;
+  }
+  __device__ __forceinline__ bool lane_start(long long i) const {
+    return lane_rows != 0 && i % lane_rows == 0;
   }
 };
 
 // Boundary flags of sorted position i: a new (pid, pk) pair, a new pid.
 __device__ __forceinline__ void flags_at(const Keys& keys, long long i,
                                          bool* new_pair, bool* new_pid) {
-  if (i == 0) {
+  if (i == 0 || keys.lane_start(i)) {
     *new_pair = *new_pid = true;
     return;
   }
@@ -106,6 +120,7 @@ template <typename F>
 struct Params {
   long long n;
   int n_partitions;
+  int n_lanes;  // key2 = lane * n_partitions + partition; dropped: n_lanes * P
   long long linf;  // 0 = no per-partition row cap
   long long l0;
   int clip_per_value, clip_pair_sum;
@@ -141,7 +156,9 @@ __device__ __forceinline__ void emit(const Params<F>& p, const Keys& keys,
   const int32_t spk =
       keys.k2 ? static_cast<int32_t>(keys.k2[r] & 0xFFFFFFFFll)
               : (v ? pk[r] : p.n_partitions);
-  key2[i] = keep ? spk : p.n_partitions;
+  const long long lane = keys.lane_rows ? i / keys.lane_rows : 0;
+  key2[i] = keep ? static_cast<int32_t>(lane * p.n_partitions + spk)
+                 : p.n_lanes * p.n_partitions;
   const bool starts = new_pair && keep;
   pair_start[i] = starts ? 1 : 0;
   if (sum) {
@@ -152,6 +169,7 @@ __device__ __forceinline__ void emit(const Params<F>& p, const Keys& keys,
         const long long k1 = keys.k1[r], k2 = keys.k2[r];
         for (long long j = i + 1; j < p.n; ++j) {
           if (p.linf != 0 && j - i >= p.linf) break;
+          if (keys.lane_start(j)) break;
           const long long rj = keys.row(j);
           if (keys.k1[rj] != k1 || keys.k2[rj] != k2) break;
           if (valid[rj]) total = total + clipped_value(p, values[rj]);
@@ -299,16 +317,20 @@ int launch_total(const void* perm, const void* spid, const void* pk,
 template <typename F>
 int launch(const void* perm, const void* k1, const void* k2, const void* pk,
            const void* values, const void* valid, long long n,
-           int n_partitions, long long linf, long long l0,
-           int clip_per_value, int clip_pair_sum, const double* scalars,
-           void* scratch, void* key2, void* pair_start, void* sum,
-           void* nsum, void* nsum2, void* stream) {
+           long long lane_rows, int n_partitions, long long linf,
+           long long l0, int clip_per_value, int clip_pair_sum,
+           const double* scalars, void* scratch, void* key2,
+           void* pair_start, void* sum, void* nsum, void* nsum2,
+           void* stream) {
   if (n <= 0) return 0;
+  if (lane_rows < 0 || (lane_rows > 0 && n % lane_rows != 0)) return -1;
+  if (lane_rows > 0 && k1 == nullptr) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = pdp::n_tiles(n);
+  const int n_lanes = lane_rows > 0 ? static_cast<int>(n / lane_rows) : 1;
   Keys keys{static_cast<const long long*>(perm),
             static_cast<const long long*>(k1),
-            static_cast<const long long*>(k2)};
+            static_cast<const long long*>(k2), lane_rows};
   BoundAgg* aggs = static_cast<BoundAgg*>(scratch);
   if (keys.k1) {
     tile_aggregates<<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
@@ -318,6 +340,7 @@ int launch(const void* perm, const void* k1, const void* k2, const void* pk,
   }
   Params<F> p{n,
               n_partitions,
+              n_lanes,
               linf,
               l0,
               clip_per_value,
@@ -353,14 +376,40 @@ extern "C" int bound_rows(const void* perm, const void* k1, const void* k2,
                           void* scratch, void* key2, void* pair_start,
                           void* sum, void* nsum, void* nsum2, int f64,
                           void* stream) {
-  return f64 ? launch<double>(perm, k1, k2, pk, values, valid, n,
+  return f64 ? launch<double>(perm, k1, k2, pk, values, valid, n, 0,
                               n_partitions, linf, l0, clip_per_value,
                               clip_pair_sum, scalars, scratch, key2,
                               pair_start, sum, nsum, nsum2, stream)
-             : launch<float>(perm, k1, k2, pk, values, valid, n,
+             : launch<float>(perm, k1, k2, pk, values, valid, n, 0,
                              n_partitions, linf, l0, clip_per_value,
                              clip_pair_sum, scalars, scratch, key2,
                              pair_start, sum, nsum, nsum2, stream);
+}
+
+// The lane entry: n = L * lane_rows rows in (lane, k1, k2, u) order;
+// key2 = lane * n_partitions + partition where kept, L * n_partitions
+// elsewhere. k1 / k2 required. Same scratch as bound_rows.
+extern "C" int bound_rows_lanes(const void* perm, const void* k1,
+                                const void* k2, const void* values,
+                                const void* valid, long long n,
+                                long long lane_rows, int n_partitions,
+                                long long linf, long long l0,
+                                int clip_per_value, int clip_pair_sum,
+                                const double* scalars, void* scratch,
+                                void* key2, void* pair_start, void* sum,
+                                void* nsum, void* nsum2, int f64,
+                                void* stream) {
+  if (lane_rows <= 0) return -1;
+  return f64 ? launch<double>(perm, k1, k2, nullptr, values, valid, n,
+                              lane_rows, n_partitions, linf, l0,
+                              clip_per_value, clip_pair_sum, scalars,
+                              scratch, key2, pair_start, sum, nsum, nsum2,
+                              stream)
+             : launch<float>(perm, k1, k2, nullptr, values, valid, n,
+                             lane_rows, n_partitions, linf, l0,
+                             clip_per_value, clip_pair_sum, scalars,
+                             scratch, key2, pair_start, sum, nsum, nsum2,
+                             stream);
 }
 
 // perm / spid: radix_sort of (pid_sent, u) with the sorted pid_sent;

@@ -1,4 +1,4 @@
-// C5 radix_sort: the stable permutation that sorts rows by up to three key
+// C5 radix_sort: the stable permutation that sorts rows by up to four key
 // words, most significant word first (an LSD radix sort).
 //
 // Replaces the K3 sorts of pipelinedp_tpu/executor.py: `_sort_rows` (:307,
@@ -20,6 +20,10 @@
 // pid = INT32_MAX, as in the JAX package, which makes all 31 pid bits
 // vary where a dataset is padded: one more pass for k1 and for the
 // total-bound pid than the 19 bits of 480,189 users need.
+//
+// The megabatched service's lane-batched release (K24) sorts L jobs' rows
+// by (lane, k1, k2, u): the lane is a fourth, most significant word,
+// constant for one job and so skipped there.
 //
 // Words are sorted from the least significant up; each word's varying
 // bits are gathered through the permutation so far into a key buffer,
@@ -57,7 +61,7 @@ constexpr int kTile = kThreads * kItems;  // rows a block ranks
 constexpr int kDigitBits = 8;
 constexpr int kBuckets = 1 << kDigitBits;
 static_assert(kBuckets == kThreads, "one thread per digit");
-constexpr int kMaxWords = 3;
+constexpr int kMaxWords = 4;
 
 enum Kind { kInt32 = 0, kInt64 = 1, kFloat32 = 2, kFloat64 = 3 };
 

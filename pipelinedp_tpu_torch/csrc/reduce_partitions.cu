@@ -145,13 +145,16 @@ struct Rows {
   }
 };
 
+// One tile's aggregate: the rows [tile * kTile, (tile + 1) * kTile) of
+// `rows` (identity past rows.n), written by thread 0 to *out.
 template <typename F, bool C>
-__global__ void tile_aggregates(Rows<F, C> rows, Seg<F, C>* aggs) {
+__device__ __forceinline__ void tile_aggregate(const Rows<F, C>& rows,
+                                               long long tile,
+                                               Seg<F, C>* out) {
   using Op = SegOp<F, C>;
   __shared__ Seg<F, C> smem[32];
-  const long long base =
-      static_cast<long long>(blockIdx.x) * pdp::kTile +
-      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  const long long base = tile * pdp::kTile +
+                         static_cast<long long>(threadIdx.x) * pdp::kItems;
   Seg<F, C> acc = Op::identity();
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
@@ -159,20 +162,22 @@ __global__ void tile_aggregates(Rows<F, C> rows, Seg<F, C>* aggs) {
   }
   Seg<F, C> total;
   pdp::block_exclusive_scan<Op>(acc, smem, &total);
-  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
+  if (threadIdx.x == 0) *out = total;
 }
 
+// Rescans one tile from its prefix; the last row of each partition's run
+// writes that partition's columns (partition = skey2 - rows.base, kept
+// when in [0, n_partitions)).
 template <typename F, bool C>
-__global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
-                                 int n_partitions, F* __restrict__ count,
-                                 F* __restrict__ pid_count,
-                                 F* __restrict__ sum, F* __restrict__ nsum,
-                                 F* __restrict__ nsum2) {
+__device__ __forceinline__ void write_tile(const Rows<F, C>& rows,
+                                           long long tile, Seg<F, C> prefix,
+                                           int n_partitions, F* count,
+                                           F* pid_count, F* sum, F* nsum,
+                                           F* nsum2) {
   using Op = SegOp<F, C>;
   __shared__ Seg<F, C> smem[32];
-  const long long base =
-      static_cast<long long>(blockIdx.x) * pdp::kTile +
-      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  const long long base = tile * pdp::kTile +
+                         static_cast<long long>(threadIdx.x) * pdp::kItems;
   Seg<F, C> elems[pdp::kItems];
   Seg<F, C> acc = Op::identity();
 #pragma unroll
@@ -182,7 +187,7 @@ __global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
   }
   Seg<F, C> total;
   const Seg<F, C> excl = pdp::block_exclusive_scan<Op>(acc, smem, &total);
-  Seg<F, C> state = Op::combine(prefixes[blockIdx.x], excl);
+  Seg<F, C> state = Op::combine(prefix, excl);
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
     const long long i = base + k;
@@ -199,6 +204,99 @@ __global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
       if (nsum2) nsum2[key] = state.ns2.value();
     }
   }
+}
+
+template <typename F, bool C>
+__global__ void tile_aggregates(Rows<F, C> rows, Seg<F, C>* aggs) {
+  tile_aggregate(rows, blockIdx.x, aggs + blockIdx.x);
+}
+
+template <typename F, bool C>
+__global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
+                                 int n_partitions, F* __restrict__ count,
+                                 F* __restrict__ pid_count,
+                                 F* __restrict__ sum, F* __restrict__ nsum,
+                                 F* __restrict__ nsum2) {
+  write_tile(rows, blockIdx.x, prefixes[blockIdx.x], n_partitions, count,
+             pid_count, sum, nsum, nsum2);
+}
+
+// --- Lane entry: L jobs' partitions as one range of L * P. -------------
+//
+// Lane l's kept rows are the window [bounds[l], bounds[l + 1]) of the
+// partition-sorted stream (key2 = l * P + partition; the dropped rows'
+// L * P sorts last). Each lane scans its own window from its own first
+// row, in tiles of its own (blockIdx.y = lane, blockIdx.x = tile of the
+// lane), and its tile prefixes are scanned by a block of its own. A
+// position of lane l is thus summed with the association of the same
+// position in the lane's solo run, whose kept rows start the stream: the
+// float sums are bit for bit the solo kernel's, not only in the same row
+// order.
+
+// bounds[l] = the first position with skey2 >= l * n_partitions, for l in
+// [0, n_lanes].
+__global__ void lane_bounds(const int32_t* __restrict__ skey2, long long n,
+                            int n_partitions, int n_lanes,
+                            long long* __restrict__ bounds) {
+  const long long l =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (l > n_lanes) return;
+  const long long target = l * n_partitions;
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo) / 2;
+    if (static_cast<long long>(skey2[mid]) < target) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  bounds[l] = lo;
+}
+
+template <typename F, bool C>
+__device__ __forceinline__ Rows<F, C> lane_window(Rows<F, C> rows,
+                                                  const long long* bounds,
+                                                  int n_partitions) {
+  const long long lane = blockIdx.y;
+  const long long lo = bounds[lane];
+  rows.skey2 += lo;
+  rows.perm += lo;
+  rows.n = bounds[lane + 1] - lo;
+  rows.base = lane * n_partitions;
+  return rows;
+}
+
+template <typename F, bool C>
+__global__ void tile_aggregates_lanes(Rows<F, C> rows,
+                                      const long long* __restrict__ bounds,
+                                      int n_partitions, long long lane_tiles,
+                                      Seg<F, C>* aggs) {
+  const Rows<F, C> w = lane_window(rows, bounds, n_partitions);
+  tile_aggregate(w, blockIdx.x, aggs + blockIdx.y * lane_tiles + blockIdx.x);
+}
+
+template <class Op>
+__global__ void scan_lane_aggregates(typename Op::T* aggs,
+                                     long long lane_tiles) {
+  __shared__ typename Op::T smem[32];
+  pdp::block_scan_in_place<Op>(aggs + blockIdx.x * lane_tiles, lane_tiles,
+                               smem, nullptr);
+}
+
+template <typename F, bool C>
+__global__ void write_partitions_lanes(
+    Rows<F, C> rows, const long long* __restrict__ bounds,
+    const Seg<F, C>* prefixes, int n_partitions, long long lane_tiles,
+    F* __restrict__ count, F* __restrict__ pid_count, F* __restrict__ sum,
+    F* __restrict__ nsum, F* __restrict__ nsum2) {
+  const Rows<F, C> w = lane_window(rows, bounds, n_partitions);
+  if (static_cast<long long>(blockIdx.x) * pdp::kTile >= w.n) return;
+  const long long at = static_cast<long long>(blockIdx.y) * n_partitions;
+  write_tile(w, blockIdx.x, prefixes[blockIdx.y * lane_tiles + blockIdx.x],
+             n_partitions, count + at, pid_count + at,
+             sum ? sum + at : nullptr, nsum ? nsum + at : nullptr,
+             nsum2 ? nsum2 + at : nullptr);
 }
 
 template <typename F, bool C>
@@ -226,6 +324,46 @@ int launch(const void* skey2, const void* perm, const void* pair_start,
   write_partitions<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
                            s>>>(
       rows, aggs, n_partitions, static_cast<F*>(count),
+      static_cast<F*>(pid_count), static_cast<F*>(sum),
+      static_cast<F*>(nsum), static_cast<F*>(nsum2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename F>
+int launch_lanes(const void* skey2, const void* perm, const void* pair_start,
+                 const void* row_sum, const void* row_nsum,
+                 const void* row_nsum2, long long n, long long lane_rows,
+                 int n_partitions, void* scratch, void* count,
+                 void* pid_count, void* sum, void* nsum, void* nsum2,
+                 void* stream) {
+  if (n <= 0) return 0;
+  if (lane_rows <= 0 || n % lane_rows != 0 || perm == nullptr) return -1;
+  const long long n_lanes = n / lane_rows;
+  if (n_lanes > 65535) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long lane_tiles = pdp::n_tiles(lane_rows);
+  Seg<F, false>* aggs = static_cast<Seg<F, false>*>(scratch);
+  long long* bounds =
+      reinterpret_cast<long long*>(aggs + n_lanes * lane_tiles);
+  Rows<F, false> rows{static_cast<const int32_t*>(skey2),
+                      static_cast<const long long*>(perm),
+                      static_cast<const uint8_t*>(pair_start),
+                      static_cast<const F*>(row_sum),
+                      static_cast<const F*>(row_nsum),
+                      static_cast<const F*>(row_nsum2),
+                      n,
+                      0};
+  lane_bounds<<<static_cast<unsigned>((n_lanes + 1 + 255) / 256), 256, 0,
+                s>>>(static_cast<const int32_t*>(skey2), n, n_partitions,
+                     static_cast<int>(n_lanes), bounds);
+  const dim3 grid(static_cast<unsigned>(lane_tiles),
+                  static_cast<unsigned>(n_lanes));
+  tile_aggregates_lanes<F, false><<<grid, pdp::kThreads, 0, s>>>(
+      rows, bounds, n_partitions, lane_tiles, aggs);
+  scan_lane_aggregates<SegOp<F, false>><<<static_cast<unsigned>(n_lanes),
+                                          1024, 0, s>>>(aggs, lane_tiles);
+  write_partitions_lanes<F, false><<<grid, pdp::kThreads, 0, s>>>(
+      rows, bounds, aggs, n_partitions, lane_tiles, static_cast<F*>(count),
       static_cast<F*>(pid_count), static_cast<F*>(sum),
       static_cast<F*>(nsum), static_cast<F*>(nsum2));
   return static_cast<int>(cudaGetLastError());
@@ -437,4 +575,39 @@ extern "C" int reduce_partitions(const void* skey2, const void* perm,
                                      row_nsum, row_nsum2, n, n_partitions,
                                      base, scratch, count, pid_count, sum,
                                      nsum, nsum2, stream);
+}
+
+// Scratch of the lane entry: one aggregate per tile of a lane, per lane,
+// and the L + 1 lane bounds.
+extern "C" long long reduce_partitions_lanes_scratch_bytes(long long lane_rows,
+                                                           long long n_lanes,
+                                                           int f64) {
+  const long long each =
+      f64 ? sizeof(Seg<double, false>) : sizeof(Seg<float, false>);
+  return n_lanes * pdp::n_tiles(lane_rows) * each +
+         (n_lanes + 1) * static_cast<long long>(sizeof(long long));
+}
+
+// The lane entry: n = L * lane_rows rows sorted by key2 = lane *
+// n_partitions + partition (dropped rows L * n_partitions, last); outputs
+// are [L * n_partitions], zero-filled by the caller, lane l's partitions
+// at [l * n_partitions, (l + 1) * n_partitions). Plain float sums only.
+extern "C" int reduce_partitions_lanes(const void* skey2, const void* perm,
+                                       const void* pair_start,
+                                       const void* row_sum,
+                                       const void* row_nsum,
+                                       const void* row_nsum2, long long n,
+                                       long long lane_rows, int n_partitions,
+                                       void* scratch, void* count,
+                                       void* pid_count, void* sum,
+                                       void* nsum, void* nsum2, int f64,
+                                       void* stream) {
+  return f64 ? launch_lanes<double>(skey2, perm, pair_start, row_sum,
+                                    row_nsum, row_nsum2, n, lane_rows,
+                                    n_partitions, scratch, count, pid_count,
+                                    sum, nsum, nsum2, stream)
+             : launch_lanes<float>(skey2, perm, pair_start, row_sum,
+                                   row_nsum, row_nsum2, n, lane_rows,
+                                   n_partitions, scratch, count, pid_count,
+                                   sum, nsum, nsum2, stream);
 }

@@ -22,6 +22,14 @@
 //   flags   NaN (1), Inf (2), |x| >= max/2 (4) over kept partitions, one
 //           atomicOr of integers per block (order-free, so deterministic).
 //
+// The lane entry, release_epilogue_lanes (K24: the megabatched service's
+// vmap over job lanes, executor.py:984), runs L jobs' partitions as one
+// range of L * P: blockIdx.y is the lane, a partition p' = lane * P + p
+// draws every noise and selection value at counter p under its lane's
+// keys (rows of a [L, 2 + 2 * n_slots] table on the device: key_sel,
+// then the slot keys), and each lane ORs its flags into its own word. A
+// lane's outputs are its solo run's. Continuous noise only.
+//
 // Bound: operations at small P, bytes at large P: it reads up to 5 F
 // columns and writes up to 5 plus keep; each noise draw is one threefry
 // (~100 integer operations) and a log1p or an erf_inv polynomial, a secure
@@ -104,8 +112,8 @@ __device__ F keep_probability(const Params& P, F est) {
 }
 
 template <typename F>
-__device__ __forceinline__ F noised(const Params& P, F col, int slot,
-                                    uint64_t p) {
+__device__ __forceinline__ F noised(const Params& P, const unsigned* lane_key,
+                                    F col, int slot, uint64_t p) {
   if (P.table) {
     uint32_t uhi, ulo;
     pdp::secure_words(P.skey[slot], p, uhi, ulo);
@@ -114,7 +122,8 @@ __device__ __forceinline__ F noised(const Params& P, F col, int slot,
         P.table_len, static_cast<F>(P.gran[slot]));
   }
   const F std = static_cast<F>(P.std[slot]);
-  const unsigned k0 = P.key[slot][0], k1 = P.key[slot][1];
+  const unsigned k0 = lane_key ? lane_key[2 + 2 * slot] : P.key[slot][0];
+  const unsigned k1 = lane_key ? lane_key[3 + 2 * slot] : P.key[slot][1];
   if (P.gaussian) return col + pdp::normal<F>(k0, k1, p) * std;
   const F b = std / pdp::sqrt_(F(2));
   return col + pdp::laplace<F>(k0, k1, p) * b;
@@ -133,7 +142,27 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
                                 F* __restrict__ o_sum,
                                 F* __restrict__ o_mean,
                                 F* __restrict__ o_var,
-                                unsigned* __restrict__ flags) {
+                                unsigned* __restrict__ flags,
+                                const unsigned* __restrict__ lane_keys,
+                                int n_slots) {
+  // Lane blockIdx.y (0 for one job): its columns start at lane * P, its
+  // keys are row `lane` of lane_keys, its flag word is flags[lane].
+  const long long lane = blockIdx.y;
+  const long long at = lane * n_partitions;
+  const unsigned* lane_key =
+      lane_keys ? lane_keys + lane * (2 + 2 * n_slots) : nullptr;
+  count += at;
+  pid_count += at;
+  if (sum) sum += at;
+  if (nsum) nsum += at;
+  if (nsum2) nsum2 += at;
+  keep_out += at;
+  if (o_count) o_count += at;
+  if (o_pid) o_pid += at;
+  if (o_sum) o_sum += at;
+  if (o_mean) o_mean += at;
+  if (o_var) o_var += at;
+  flags += lane;
   const long long p =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   unsigned f = 0u;
@@ -143,8 +172,10 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
       const F est = static_cast<F>(static_cast<long long>(
           ceil_(pid_count[p] / static_cast<F>(P.max_rows))));
       const F prob = keep_probability<F>(P, est);
-      const F u = pdp::uniform<F>(P.key_sel[0], P.key_sel[1],
-                                  static_cast<uint64_t>(p), F(0), F(1));
+      const unsigned ks0 = lane_key ? lane_key[0] : P.key_sel[0];
+      const unsigned ks1 = lane_key ? lane_key[1] : P.key_sel[1];
+      const F u = pdp::uniform<F>(ks0, ks1, static_cast<uint64_t>(p), F(0),
+                                  F(1));
       keep = u < prob;
     }
     keep_out[p] = keep ? 1 : 0;
@@ -155,17 +186,17 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
       const uint64_t q = static_cast<uint64_t>(p);
       switch (P.kind[e]) {
         case kCount:
-          r_count = noised<F>(P, count[p], off, q);
+          r_count = noised<F>(P, lane_key, count[p], off, q);
           break;
         case kPidCount:
-          r_pid = noised<F>(P, pid_count[p], off, q);
+          r_pid = noised<F>(P, lane_key, pid_count[p], off, q);
           break;
         case kSum:
-          r_sum = noised<F>(P, sum[p], off, q);
+          r_sum = noised<F>(P, lane_key, sum[p], off, q);
           break;
         case kMean: {
-          const F dp_count = noised<F>(P, count[p], off, q);
-          const F dp_nsum = noised<F>(P, nsum[p], off + 1, q);
+          const F dp_count = noised<F>(P, lane_key, count[p], off, q);
+          const F dp_nsum = noised<F>(P, lane_key, nsum[p], off + 1, q);
           const F denom = pdp::max_nan(dp_count, F(1));
           r_mean = mid + dp_nsum / denom;
           if (P.outputs[e] & oCount) r_count = dp_count;
@@ -173,15 +204,15 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
           break;
         }
         case kVariance: {
-          const F dp_count = noised<F>(P, count[p], off, q);
+          const F dp_count = noised<F>(P, lane_key, count[p], off, q);
           const F denom = pdp::max_nan(dp_count, F(1));
           F nmean, nsqmean;
           if (P.degenerate) {
             nmean = static_cast<F>(P.min_v);
             nsqmean = nmean * nmean;
           } else {
-            nmean = noised<F>(P, nsum[p], off + 1, q) / denom;
-            nsqmean = noised<F>(P, nsum2[p], off + 2, q) / denom;
+            nmean = noised<F>(P, lane_key, nsum[p], off + 1, q) / denom;
+            nsqmean = noised<F>(P, lane_key, nsum2[p], off + 2, q) / denom;
           }
           r_var = nsqmean - nmean * nmean;
           const F dp_mean = P.degenerate ? nmean + F(0) : nmean + mid;
@@ -210,6 +241,67 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
 
 }  // namespace
 
+namespace {
+
+// Fills the launch parameters shared by both entries; -1 on a bad plan.
+int fill_params(Params* P, const int* plan, int n_entries,
+                const double* stds, const unsigned* keys, int n_slots,
+                const double* sel, const unsigned* key_sel, const int* misc,
+                const double* scal, const void* table, int table_len,
+                const double* gran) {
+  if (n_entries > kMaxEntries || n_slots > kMaxSlots) return -1;
+  if (table != nullptr && (table_len < 1 || table_len % 2 == 0)) return -1;
+  P->n_entries = n_entries;
+  for (int e = 0; e < n_entries; ++e) {
+    P->kind[e] = plan[3 * e];
+    P->outputs[e] = plan[3 * e + 1];
+    P->offset[e] = plan[3 * e + 2];
+  }
+  for (int s = 0; s < n_slots; ++s) {
+    P->std[s] = stds[s];
+    P->key[s][0] = keys ? keys[2 * s] : 0u;
+    P->key[s][1] = keys ? keys[2 * s + 1] : 0u;
+    if (table != nullptr) {
+      P->gran[s] = gran[s];
+      P->skey[s] = pdp::secure_key(P->key[s][0], P->key[s][1]);
+    }
+  }
+  P->table = static_cast<const unsigned long long*>(table);
+  P->table_len = table_len;
+  P->gaussian = misc[0];
+  P->degenerate = misc[1];
+  P->private_selection = misc[2];
+  P->mid = scal[0];
+  P->min_v = scal[1];
+  P->max_rows = scal[2];
+  P->key_sel[0] = key_sel ? key_sel[0] : 0u;
+  P->key_sel[1] = key_sel ? key_sel[1] : 0u;
+  for (int i = 0; i < 14; ++i) P->sel[i] = sel[i];
+  return 0;
+}
+
+template <typename F>
+void launch(const Params& P, int n_partitions, int n_lanes,
+            const void* count, const void* pid_count, const void* sum,
+            const void* nsum, const void* nsum2, void* keep, void* o_count,
+            void* o_pid, void* o_sum, void* o_mean, void* o_var,
+            void* flags, const void* lane_keys, int n_slots,
+            cudaStream_t s) {
+  const int threads = 256;
+  const dim3 grid((n_partitions + threads - 1) / threads, n_lanes);
+  epilogue_kernel<F><<<grid, threads, 0, s>>>(
+      P, n_partitions, static_cast<const F*>(count),
+      static_cast<const F*>(pid_count), static_cast<const F*>(sum),
+      static_cast<const F*>(nsum), static_cast<const F*>(nsum2),
+      static_cast<uint8_t*>(keep), static_cast<F*>(o_count),
+      static_cast<F*>(o_pid), static_cast<F*>(o_sum),
+      static_cast<F*>(o_mean), static_cast<F*>(o_var),
+      static_cast<unsigned*>(flags),
+      static_cast<const unsigned*>(lane_keys), n_slots);
+}
+
+}  // namespace
+
 // plan: n_entries x (kind, output mask, std offset); stds / keys: one per
 // noise slot; sel: the 14 selection scalars; misc = (gaussian, degenerate,
 // private_selection); scal = (mid, min_v, max_rows). Outputs: keep (u8),
@@ -225,57 +317,51 @@ extern "C" int release_epilogue(
     void* o_count, void* o_pid, void* o_sum, void* o_mean, void* o_var,
     void* flags, const void* table, int table_len, const double* gran,
     int f64, void* stream) {
-  if (n_entries > kMaxEntries || n_slots > kMaxSlots) return -1;
-  if (table != nullptr && (table_len < 1 || table_len % 2 == 0)) return -1;
-  if (n_partitions <= 0) return 0;
   Params P{};
-  P.n_entries = n_entries;
-  for (int e = 0; e < n_entries; ++e) {
-    P.kind[e] = plan[3 * e];
-    P.outputs[e] = plan[3 * e + 1];
-    P.offset[e] = plan[3 * e + 2];
-  }
-  for (int s = 0; s < n_slots; ++s) {
-    P.std[s] = stds[s];
-    P.key[s][0] = keys[2 * s];
-    P.key[s][1] = keys[2 * s + 1];
-    if (table != nullptr) {
-      P.gran[s] = gran[s];
-      P.skey[s] = pdp::secure_key(P.key[s][0], P.key[s][1]);
-    }
-  }
-  P.table = static_cast<const unsigned long long*>(table);
-  P.table_len = table_len;
-  P.gaussian = misc[0];
-  P.degenerate = misc[1];
-  P.private_selection = misc[2];
-  P.mid = scal[0];
-  P.min_v = scal[1];
-  P.max_rows = scal[2];
-  P.key_sel[0] = key_sel[0];
-  P.key_sel[1] = key_sel[1];
-  for (int i = 0; i < 14; ++i) P.sel[i] = sel[i];
-  const int threads = 256;
-  const unsigned blocks = (n_partitions + threads - 1) / threads;
+  if (fill_params(&P, plan, n_entries, stds, keys, n_slots, sel, key_sel,
+                  misc, scal, table, table_len, gran) != 0)
+    return -1;
+  if (n_partitions <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f64) {
-    epilogue_kernel<double><<<blocks, threads, 0, s>>>(
-        P, n_partitions, static_cast<const double*>(count),
-        static_cast<const double*>(pid_count),
-        static_cast<const double*>(sum), static_cast<const double*>(nsum),
-        static_cast<const double*>(nsum2), static_cast<uint8_t*>(keep),
-        static_cast<double*>(o_count), static_cast<double*>(o_pid),
-        static_cast<double*>(o_sum), static_cast<double*>(o_mean),
-        static_cast<double*>(o_var), static_cast<unsigned*>(flags));
+    launch<double>(P, n_partitions, 1, count, pid_count, sum, nsum, nsum2,
+                   keep, o_count, o_pid, o_sum, o_mean, o_var, flags,
+                   nullptr, n_slots, s);
   } else {
-    epilogue_kernel<float><<<blocks, threads, 0, s>>>(
-        P, n_partitions, static_cast<const float*>(count),
-        static_cast<const float*>(pid_count),
-        static_cast<const float*>(sum), static_cast<const float*>(nsum),
-        static_cast<const float*>(nsum2), static_cast<uint8_t*>(keep),
-        static_cast<float*>(o_count), static_cast<float*>(o_pid),
-        static_cast<float*>(o_sum), static_cast<float*>(o_mean),
-        static_cast<float*>(o_var), static_cast<unsigned*>(flags));
+    launch<float>(P, n_partitions, 1, count, pid_count, sum, nsum, nsum2,
+                  keep, o_count, o_pid, o_sum, o_mean, o_var, flags, nullptr,
+                  n_slots, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lane entry: columns and outputs are [n_lanes * n_partitions], lane l
+// at [l * n_partitions, (l + 1) * n_partitions); lane_keys is the lanes'
+// u32 [n_lanes, 2 + 2 * n_slots] table on the device (key_sel, then each
+// slot's key); flags are n_lanes zeroed u32. Continuous noise only.
+extern "C" int release_epilogue_lanes(
+    const int* plan, int n_entries, const double* stds, int n_slots,
+    const double* sel, const int* misc, const double* scal,
+    int n_partitions, int n_lanes, const void* lane_keys,
+    const void* count, const void* pid_count, const void* sum,
+    const void* nsum, const void* nsum2, void* keep, void* o_count,
+    void* o_pid, void* o_sum, void* o_mean, void* o_var, void* flags,
+    int f64, void* stream) {
+  Params P{};
+  if (fill_params(&P, plan, n_entries, stds, nullptr, n_slots, sel,
+                  nullptr, misc, scal, nullptr, 0, nullptr) != 0)
+    return -1;
+  if (n_lanes < 1 || n_lanes > 65535 || lane_keys == nullptr) return -1;
+  if (n_partitions <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    launch<double>(P, n_partitions, n_lanes, count, pid_count, sum, nsum,
+                   nsum2, keep, o_count, o_pid, o_sum, o_mean, o_var, flags,
+                   lane_keys, n_slots, s);
+  } else {
+    launch<float>(P, n_partitions, n_lanes, count, pid_count, sum, nsum,
+                  nsum2, keep, o_count, o_pid, o_sum, o_mean, o_var, flags,
+                  lane_keys, n_slots, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,6 +42,8 @@ _SIGNATURES = {
         "row_keys": (_I, [_P, _P, _P, _LL, _I, _P, _U, _U, _P, _P, _P, _I,
                           _P]),
         "total_keys": (_I, [_P, _P, _LL, _U, _U, _P, _P, _I, _P]),
+        "row_keys_lanes": (_I, [_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
+                                _P, _I, _P]),
     },
     "bound_rows": {
         "bound_rows_scratch_bytes": (_LL, [_LL]),
@@ -49,6 +51,9 @@ _SIGNATURES = {
                             _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
         "total_bound_rows": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P,
                                   _P, _P, _P, _I, _P]),
+        "bound_rows_lanes": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _I, _LL, _LL,
+                                  _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _P]),
     },
     "reduce_partitions": {
         "reduce_partitions_scratch_bytes": (_LL, [_LL, _I, _I]),
@@ -57,11 +62,18 @@ _SIGNATURES = {
         "reduce_vectors_scratch_bytes": (_LL, [_LL, _I, _I]),
         "reduce_vectors": (_I, [_P, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _I,
                                 _I, _P]),
+        "reduce_partitions_lanes_scratch_bytes": (_LL, [_LL, _LL, _I]),
+        "reduce_partitions_lanes": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL,
+                                         _I, _P, _P, _P, _P, _P, _P, _I,
+                                         _P]),
     },
     "release_epilogue": {
         "release_epilogue": (_I, [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _I, _P, _I, _P]),
+        "release_epilogue_lanes": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I,
+                                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _P, _P, _I, _P]),
     },
     "radix_sort": {
         "radix_sort_scratch_bytes": (_LL, [_LL]),
@@ -72,6 +84,9 @@ _SIGNATURES = {
         "compact_kept_scratch_bytes": (_LL, [_LL]),
         "compact_kept": (_I, [_P, _LL, _P, _P, _P, _I, _I, _P, _P, _P,
                               _P]),
+        "compact_kept_lanes_scratch_bytes": (_LL, [_LL, _LL]),
+        "compact_kept_lanes": (_I, [_P, _LL, _I, _P, _P, _P, _I, _I, _P, _P,
+                                    _P, _P]),
     },
     "quantile_counts": {
         "quantile_leaf_counts": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _I, _D,

@@ -34,6 +34,13 @@ runtime.pipeline.ChunkSource of column chunks (stream_chunk_source: the
 streamed ingest of ingest.py, whose columns arrive on the device already
 padded, C12-C14).
 
+The multi-tenant service (service/) offers each job's dense release to a
+per-thread launch interceptor (launch_interceptor, ReleaseLaunch): its
+coalescer runs identical-spec jobs as lanes of one lane-batched release
+(batched_aggregate_release_kernel, batched_select_partitions_release_kernel:
+the lane entries of C1, C2, C3, C4 and C6, C5 with the lane as its top
+word), each lane equal to its solo run bit for bit.
+
 Random choices come from the JAX package's threefry keys (ops/threefry.py),
 derived on the host in the same order, so one seed gives the same bounded
 rows, keep decisions and noise words on both packages. Noise stddevs and
@@ -54,7 +61,9 @@ numeric_mode="safe" sums float32 partition columns through compensated
 refuse Inf and saturation with NumericOverflowError.
 """
 
+import contextlib
 import dataclasses
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -74,6 +83,7 @@ from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
+from pipelinedp_tpu_torch.runtime import observability as rt_observability
 from pipelinedp_tpu_torch.runtime import pipeline as rt_pipeline
 
 # Out-of-scope features name the ROADMAP item that ports them.
@@ -411,7 +421,7 @@ def bounded_row_columns(pid: torch.Tensor, pk: torch.Tensor,
     vector sums and the quantile trees read it through this permutation.
     """
     P = cfg.n_partitions
-    key_total, key_linf, key_l0 = threefry.split(rows_key, 3)
+    key_total, key_linf, salts = row_key_schedule(rows_key)
     scalars = (min_v, max_v, min_s, max_s, mid)
     columns = reduce_column_names(cfg)
     # Vector rows reach no C2 column: C2 reads values only for columns.
@@ -429,8 +439,8 @@ def bounded_row_columns(pid: torch.Tensor, pk: torch.Tensor,
         pid, pk, values, valid = bound_total_contributions(
             pid, pk, values, valid, key_total, cfg.total_bound, P)
         row_values = values
-    k1, k2, u = kernels.row_keys(pid, pk, valid, threefry.bits(key_l0, 4),
-                                 key_linf, P, values.dtype)
+    k1, k2, u = kernels.row_keys(pid, pk, valid, salts, key_linf, P,
+                                 values.dtype)
     perm = sort_rows(k1, k2, u)
     linf = cfg.linf if cfg.sample_per_partition else 0
     key2, pair_start, cols = kernels.bound_rows(perm, k1, k2, pk, row_values,
@@ -465,6 +475,79 @@ def slot_keys(key_noise, plan: Sequence[MetricPlanEntry]) -> np.ndarray:
     return np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
 
 
+# The dense release's key schedule (the JAX package's _aggregate_trace and
+# _select_partitions_trace). The solo and the lane-batched releases both
+# derive their keys here: a lane equals its solo run bit for bit only while
+# they do.
+
+
+def release_key_halves(rng_key):
+    """(rows_key, final_key): the bounding phase's and the release's."""
+    return threefry.split(rng_key, 2)
+
+
+def row_salts(key_l0) -> np.ndarray:
+    """C1's four salt words under the L0 key."""
+    return threefry.bits(key_l0, 4)
+
+
+def row_key_schedule(rows_key):
+    """(key_total, key_linf, salts) of the bounding phase."""
+    key_total, key_linf, key_l0 = threefry.split(rows_key, 3)
+    return key_total, key_linf, row_salts(key_l0)
+
+
+def noise_key_schedule(final_key, plan: Sequence[MetricPlanEntry]):
+    """(key_sel, slot keys [S, 2]) of the release."""
+    key_sel, key_noise = threefry.split(final_key, 2)
+    return key_sel, slot_keys(key_noise, plan)
+
+
+def select_key_schedule(rng_key):
+    """(key_l0, key_sel) of standalone selection."""
+    return threefry.split(rng_key, 2)
+
+
+def _lane_keys(rng_keys) -> np.ndarray:
+    return np.asarray(rng_keys, dtype=np.uint32).reshape(-1, 2)
+
+
+def lane_release_keys(rng_keys, plan: Sequence[MetricPlanEntry]):
+    """Each lane's dense release keys, stacked: (salts [L, 4], key_linf
+    [L, 2], key_sel [L, 2], slot keys [L, S, 2]), as aggregate_release_kernel
+    derives them from the lane's base key."""
+    salts, keys_linf, keys_sel, slots = [], [], [], []
+    for key in _lane_keys(rng_keys):
+        rows_key, final_key = release_key_halves(key)
+        _, key_linf, lane_salts = row_key_schedule(rows_key)
+        key_sel, lane_slots = noise_key_schedule(final_key, plan)
+        salts.append(lane_salts)
+        keys_linf.append(key_linf)
+        keys_sel.append(key_sel)
+        slots.append(lane_slots)
+    return (np.stack(salts), np.stack(keys_linf), np.stack(keys_sel),
+            np.stack(slots))
+
+
+def lane_select_keys(rng_keys):
+    """Each lane's standalone-selection keys, stacked: (salts [L, 4],
+    key_sel [L, 2]), as select_partitions_release_kernel derives them."""
+    pairs = [select_key_schedule(key) for key in _lane_keys(rng_keys)]
+    return (np.stack([row_salts(key_l0) for key_l0, _ in pairs]),
+            np.stack([key_sel for _, key_sel in pairs]))
+
+
+def epilogue_plan(plan: Sequence[MetricPlanEntry]):
+    """C4's plan: (kind, outputs, offset of its first noise slot) per
+    entry."""
+    out = []
+    offset = 0
+    for entry in plan:
+        out.append((entry.kind, entry.outputs, offset))
+        offset += entry.n_stds
+    return out
+
+
 def _require_tables(cfg: KernelConfig, secure_tables) -> None:
     if cfg.secure and secure_tables is None:
         raise ValueError("cfg.secure requires secure_tables "
@@ -480,13 +563,8 @@ def finalize(cols: Dict[str, torch.Tensor], min_v, mid, stds: np.ndarray,
     flags)."""
     _require_tables(cfg, secure_tables)
     tables = secure_tables if cfg.secure else None
-    key_sel, key_noise = threefry.split(final_key, 2)
-    plan = []
-    offset = 0
-    for entry in cfg.plan:
-        plan.append((entry.kind, entry.outputs, offset))
-        offset += entry.n_stds
-    keys = slot_keys(key_noise, cfg.plan)
+    key_sel, keys = noise_key_schedule(final_key, cfg.plan)
+    plan = epilogue_plan(cfg.plan)
     keep, outputs, flags = kernels.release_epilogue(
         cols, plan, stds, keys, cfg.noise_kind, cfg.degenerate_range, mid,
         min_v, cfg.selection if cfg.private_selection else None, key_sel,
@@ -590,7 +668,7 @@ def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
     """The dense release: bounding, partition columns, selection, noise,
     percentiles, compaction. Key derivation follows the JAX package's
     _aggregate_trace. Returns (n_kept, order, outputs kept-first, flags)."""
-    rows_key, final_key = threefry.split(rng_key, 2)
+    rows_key, final_key = release_key_halves(rng_key)
     key2, pair_start, reduce_cols, rows = bounded_row_columns(
         pid, pk, values, valid, min_v, max_v, min_s, max_s, mid, rows_key,
         cfg)
@@ -608,11 +686,146 @@ def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
     return n_kept, order, outputs_sorted, flags
 
 
+def lanes_unported(cfg: KernelConfig) -> Optional[str]:
+    """Why a dense release has no lane-batched entries yet (None: it has).
+    The lane entries cover COUNT, PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE
+    with Laplace or Gaussian noise, public or private partitions, the
+    max_partitions_contributed bound and numeric_mode="fast"; ROADMAP item
+    13 lists the rest."""
+    if cfg.quantiles:
+        return "PERCENTILE"
+    if cfg.vector_size:
+        return "VECTOR_SUM"
+    if cfg.total_bound:
+        return "max_contributions"
+    if cfg.bounds_enforced:
+        return "contribution bounds already enforced"
+    if cfg.secure:
+        return "secure_noise"
+    if cfg.numeric_mode != "fast":
+        return f"numeric_mode={cfg.numeric_mode!r}"
+    return None
+
+
+def batched_aggregate_release_kernel(pid, pk, values, valid, min_v, max_v,
+                                     min_s, max_s, mid, stds: np.ndarray,
+                                     rng_keys, cfg: KernelConfig):
+    """The dense release of L jobs in one launch a stage (the JAX package's
+    batched_aggregate_release_kernel, :984, a vmap over job lanes).
+
+    pid / pk / valid: [L, n] and values [L, n] on one device, each lane its
+    job's rows padded to the same n; rng_keys: [L, 2], each lane's own base
+    key; scalars, stds and cfg are shared (lanes_unported(cfg) is None).
+    The L * n rows run as one stream: C1's lane entry keys them under each
+    lane's keys, C5 sorts by (lane, k1, k2, u), C2 bounds them with runs
+    broken at lane starts and writes key2 = lane * P + partition, C5 sorts
+    by key2, C3 sums each lane's partitions from the lane's own first row,
+    C4 releases L * P partitions under each lane's slot keys and C6
+    compacts each lane. Returns (n_kept int64[L], order int64[L, P],
+    {output: F[L, P]} kept-first, flags int32[L]); lane l equals
+    aggregate_release_kernel on its rows and key alone, bit for bit.
+    """
+    reason = lanes_unported(cfg)
+    if reason is not None:
+        raise NotImplementedError(
+            f"batched_aggregate_release_kernel: {reason} has no lane-batched "
+            f"entries yet (ROADMAP.md Queue 1 item 13)")
+    n_lanes, lane_rows = pid.shape
+    P = cfg.n_partitions
+    salts, keys_linf, key_sel, slots = lane_release_keys(rng_keys, cfg.plan)
+    flat_values = values.reshape(-1)
+    flat_valid = valid.reshape(-1)
+    lane, k1, k2, u = kernels.row_keys_lanes(
+        pid.reshape(-1), pk.reshape(-1), flat_valid, lane_rows,
+        salts, keys_linf, P, values.dtype)
+    perm = kernels.radix_sort([lane, k1, k2, u])
+    key2, pair_start, row_cols = kernels.bound_rows_lanes(
+        perm, k1, k2, flat_values, flat_valid, lane_rows=lane_rows,
+        n_partitions=P, linf=cfg.linf if cfg.sample_per_partition else 0,
+        l0=cfg.l0, clip_per_value=cfg.clip_per_value,
+        clip_pair_sum=cfg.clip_pair_sum,
+        scalars=(min_v, max_v, min_s, max_s, mid),
+        columns=reduce_column_names(cfg))
+    perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
+    cols = kernels.reduce_partitions_lanes(skey2, perm2, pair_start, row_cols,
+                                           lane_rows, P, values.dtype)
+    keep, outputs, flags = kernels.release_epilogue_lanes(
+        cols, epilogue_plan(cfg.plan), stds, slots, cfg.noise_kind,
+        cfg.degenerate_range, mid, min_v,
+        cfg.selection if cfg.private_selection else None, key_sel,
+        cfg.max_rows_per_privacy_id, n_lanes)
+    n_kept, order, outputs = kernels.compact_kept_lanes(keep, outputs,
+                                                        n_lanes)
+    return n_kept, order, outputs, flags
+
+
+@dataclass
+class ReleaseLaunch:
+    """One job's dense release, offered to the thread's launch interceptor
+    (the service's coalescer) before it runs solo.
+
+    Carries what the solo release gets: the pad_rows-padded host rows, the
+    job's own base key, and for kind "aggregate" the clipping scalars,
+    noise stds and cfg, for kind "select" (l0, n_partitions, selection);
+    device and dtype are the job's backend's.
+    Lanes keep their solo keys, which is what makes a batched lane's
+    release its solo run's."""
+    kind: str  # "aggregate" | "select"
+    pid: Any
+    pk: Any
+    valid: Any
+    key: Any
+    device: Any
+    dtype: Any
+    values: Any = None
+    scalars: Optional[Tuple[float, ...]] = None
+    stds: Any = None
+    cfg: Optional[KernelConfig] = None
+    l0: int = 0
+    n_partitions: int = 0
+    selection: Any = None
+
+
+# Per-thread launch interceptor: the service's coalescer is installed
+# around a job's execution; the dense release sites offer their
+# ReleaseLaunch to it. It returns the lane's result (the job ran as one
+# lane of a lane-batched release), None (run solo), or raises (the
+# batched release failed: the job fails with it).
+_LAUNCH_INTERCEPTOR = threading.local()
+
+
+def _active_launch_interceptor():
+    return getattr(_LAUNCH_INTERCEPTOR, "fn", None)
+
+
+@contextlib.contextmanager
+def launch_interceptor(fn):
+    """Installs `fn` as this thread's release-launch interceptor for the
+    scope; the previous one is restored on exit."""
+    prev = getattr(_LAUNCH_INTERCEPTOR, "fn", None)
+    _LAUNCH_INTERCEPTOR.fn = fn
+    try:
+        yield
+    finally:
+        _LAUNCH_INTERCEPTOR.fn = prev
+
+
+def _offerable(interceptor, pid) -> bool:
+    """A release may join a batch when an interceptor is active and its
+    rows are host numpy (a streamed input's device columns run solo)."""
+    return interceptor is not None and isinstance(pid, np.ndarray)
+
+
 def to_device(encoded: columnar.EncodedData, device: torch.device,
               dtype: torch.dtype):
     """pad_rows + one host-to-device copy per host column (values None when
     the encoding has none); columns already on `device` stay there."""
-    pid, pk, values, valid = pad_rows(encoded)
+    return padded_to_device(*pad_rows(encoded), device, dtype)
+
+
+def padded_to_device(pid, pk, values, valid, device: torch.device,
+                     dtype: torch.dtype):
+    """One host-to-device copy per padded host column (pad_rows')."""
     return (torch.as_tensor(pid, dtype=torch.int32).to(device),
             torch.as_tensor(pk, dtype=torch.int32).to(device),
             None if values is None else
@@ -632,8 +845,9 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
     private = public_partitions is None
     selection_budget = None
     if private:
-        selection_budget = budget_accountant.request_budget(
-            mechanism_type=MechanismType.GENERIC)
+        with rt_observability.mechanism_label("partition_selection"):
+            selection_budget = budget_accountant.request_budget(
+                mechanism_type=MechanismType.GENERIC)
 
     if not private:
         report_generator.add_stage(
@@ -710,12 +924,26 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                                               encoded.partition_vocab,
                                               compound)
             return
-        pid, pk, values, valid = to_device(encoded, backend.device,
-                                           backend.dtype)
+        rows = pad_rows(encoded)
         with budget_accountant.no_new_mechanisms("dense release execution"):
-            n_kept, order, outputs, flags = aggregate_release_kernel(
-                pid, pk, values, valid, min_v, max_v, min_s, max_s, mid,
-                stds, key, cfg, secure_tables)
+            result = None
+            interceptor = _active_launch_interceptor()
+            if _offerable(interceptor, rows[0]):
+                # The megabatched service: this job may run as one lane of
+                # a lane-batched release (None: run solo).
+                result = interceptor(ReleaseLaunch(
+                    kind="aggregate", pid=rows[0], pk=rows[1],
+                    values=rows[2], valid=rows[3], key=key,
+                    scalars=(min_v, max_v, min_s, max_s, mid),
+                    stds=np.asarray(stds), cfg=cfg, device=backend.device,
+                    dtype=backend.dtype))
+            if result is None:
+                pid, pk, values, valid = padded_to_device(
+                    *rows, backend.device, backend.dtype)
+                result = aggregate_release_kernel(
+                    pid, pk, values, valid, min_v, max_v, min_s, max_s, mid,
+                    stds, key, cfg, secure_tables)
+        n_kept, order, outputs, flags = result
         yield from decode_release_results(n_kept, order, outputs, flags,
                                           encoded.partition_vocab, compound,
                                           cfg.numeric_mode)
@@ -805,19 +1033,25 @@ def _decode_rows(ids: np.ndarray, cols: Dict[str, np.ndarray],
     vocabulary (padding partitions) are skipped."""
     field_order = tuple(
         name for entry in build_plan(compound) for name in entry.outputs)
+    # The result type is looked up once a release, not once a partition:
+    # the lookup takes a lock, which concurrent jobs of the service would
+    # otherwise queue on per partition.
+    metrics_tuple = dp_combiners._get_or_create_named_tuple(
+        "MetricsTuple", field_order)
     n_real = len(partition_vocab)
     _prefetch(partition_vocab, ids)
+    # Scalar columns as Python floats once (the same values float() of
+    # each element gives); a vector column (vector_sum) decodes a row to a
+    # float64 ndarray.
+    columns = [cols[name].tolist() if cols[name].ndim == 1 else cols[name]
+               for name in field_order]
     for row, idx in enumerate(ids):
         if idx >= n_real:
             continue
-        # A vector column (vector_sum) decodes to a float64 ndarray.
-        values = tuple(
-            np.asarray(cols[name][row], dtype=np.float64)
-            if cols[name].ndim > 1 else float(cols[name][row])
-            for name in field_order)
-        yield (partition_vocab[idx],
-               dp_combiners._create_named_tuple_instance(
-                   "MetricsTuple", field_order, values))
+        values = tuple(col[row] if isinstance(col, list) else
+                       np.asarray(col[row], dtype=np.float64)
+                       for col in columns)
+        yield partition_vocab[idx], metrics_tuple(*values)
 
 
 def _prefetch(partition_vocab, ids) -> None:
@@ -843,7 +1077,7 @@ def select_partitions_release_kernel(pid: torch.Tensor, pk: torch.Tensor,
     counts the JAX package scatter-adds; C4 draws the keep decisions with
     an empty metric plan and C6 compacts. Returns (n_kept, order).
     """
-    key_l0, key_sel = threefry.split(rng_key, 2)
+    key_l0, key_sel = select_key_schedule(rng_key)
     key2, pair_start = select_bounded_pairs(pid, pk, valid, key_l0, l0,
                                             n_partitions)
     cols, _ = reduce_rows_to_partitions(key2, pair_start, {}, n_partitions,
@@ -859,8 +1093,8 @@ def select_bounded_pairs(pid: torch.Tensor, pk: torch.Tensor,
     (k1, k2), C2 with no row cap. Returns (key2, pair_start): key2 is the
     row's partition where its pair is kept (n_partitions elsewhere), and
     pair_start marks the first row of each kept pair."""
-    k1, k2, _ = kernels.row_keys(pid, pk, valid, threefry.bits(key_l0, 4),
-                                 None, n_partitions, None)
+    k1, k2, _ = kernels.row_keys(pid, pk, valid, row_salts(key_l0), None,
+                                 n_partitions, None)
     perm = kernels.radix_sort([k1, k2])
     key2, pair_start, _ = kernels.bound_rows(
         perm, k1, k2, pk, None, valid, n_partitions=n_partitions, linf=0,
@@ -877,6 +1111,37 @@ def select_release(cols: Dict[str, torch.Tensor],
         cols, [], np.zeros(0), np.zeros((0, 2), np.uint32), NoiseKind.LAPLACE,
         False, 0.0, 0.0, selection, key_sel, 1)
     n_kept, order, _ = kernels.compact_kept(keep, {})
+    return n_kept, order
+
+
+def batched_select_partitions_release_kernel(
+        pid, pk, valid, rng_keys, l0: int, n_partitions: int,
+        selection: selection_ops.SelectionParams, dtype: torch.dtype):
+    """Standalone selection of L jobs in one launch a stage (the JAX
+    package's batched_select_partitions_release_kernel, :1141): pid / pk /
+    valid [L, n], rng_keys [L, 2]. C1's lane entry without a uniform, C5 by
+    (lane, k1, k2), C2's lane entry with no row cap, C5 by key2, C3's lane
+    entry (pid_count), C4's with an empty plan, C6's. Returns (n_kept
+    int64[L], order int64[L, P]); lane l equals
+    select_partitions_release_kernel on its rows and key alone."""
+    n_lanes, lane_rows = pid.shape
+    salts, key_sel = lane_select_keys(rng_keys)
+    flat_valid = valid.reshape(-1)
+    lane, k1, k2, _ = kernels.row_keys_lanes(
+        pid.reshape(-1), pk.reshape(-1), flat_valid, lane_rows,
+        salts, None, n_partitions, None)
+    perm = kernels.radix_sort([lane, k1, k2])
+    key2, pair_start, _ = kernels.bound_rows_lanes(
+        perm, k1, k2, None, flat_valid, lane_rows=lane_rows,
+        n_partitions=n_partitions, linf=0, l0=l0, clip_per_value=False,
+        clip_pair_sum=False, scalars=(0.0,) * 5, columns=())
+    perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
+    cols = kernels.reduce_partitions_lanes(skey2, perm2, pair_start, {},
+                                           lane_rows, n_partitions, dtype)
+    keep, _, _ = kernels.release_epilogue_lanes(
+        cols, [], np.zeros(0), np.zeros((n_lanes, 0, 2), np.uint32),
+        NoiseKind.LAPLACE, False, 0.0, 0.0, selection, key_sel, 1, n_lanes)
+    n_kept, order, _ = kernels.compact_kept_lanes(keep, {}, n_lanes)
     return n_kept, order
 
 
@@ -908,8 +1173,9 @@ def lazy_select_partitions(backend, col, params, data_extractors,
     The budget is requested NOW (graph time); the kernels run when the
     returned generator is first iterated, after compute_budgets().
     """
-    budget = budget_accountant.request_budget(
-        mechanism_type=MechanismType.GENERIC)
+    with rt_observability.mechanism_label("partition_selection"):
+        budget = budget_accountant.request_budget(
+            mechanism_type=MechanismType.GENERIC)
     strategy = params.partition_selection_strategy
     pre_threshold_str = (f", pre_threshold={params.pre_threshold}"
                          if params.pre_threshold else "")
@@ -939,12 +1205,24 @@ def lazy_select_partitions(backend, col, params, data_extractors,
                     selection, **blocked_kwargs(backend))
             yield from _decode_keys(kept_ids, encoded.partition_vocab)
             return
-        pid, pk, _, valid = to_device(encoded, backend.device, backend.dtype)
+        rows = pad_rows(encoded)
         with budget_accountant.no_new_mechanisms(
                 "partition selection execution"):
-            n_kept, order = select_partitions_release_kernel(
-                pid, pk, valid, key, params.max_partitions_contributed,
-                n_partitions, selection, backend.dtype)
+            result = None
+            interceptor = _active_launch_interceptor()
+            if _offerable(interceptor, rows[0]):
+                result = interceptor(ReleaseLaunch(
+                    kind="select", pid=rows[0], pk=rows[1], valid=rows[3],
+                    key=key, l0=params.max_partitions_contributed,
+                    n_partitions=n_partitions, selection=selection,
+                    device=backend.device, dtype=backend.dtype))
+            if result is None:
+                pid, pk, _, valid = padded_to_device(*rows, backend.device,
+                                                     backend.dtype)
+                result = select_partitions_release_kernel(
+                    pid, pk, valid, key, params.max_partitions_contributed,
+                    n_partitions, selection, backend.dtype)
+        n_kept, order = result
         yield from decode_selected_partitions(n_kept, order,
                                               encoded.partition_vocab)
 

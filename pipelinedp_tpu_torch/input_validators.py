@@ -1,9 +1,14 @@
 """Input validation helpers of the port (pipelinedp_tpu/input_validators.py:
-the validators the aggregation paths, the streamed ingest and TorchBackend
-call)."""
+the validators the aggregation paths, the streamed ingest, TorchBackend,
+the watchdog and the multi-tenant service call)."""
 
 import math
 import numbers
+import re
+
+# Path separators, NUL and parent-directory references: a job or tenant id
+# becomes a file-name component of the journal.
+_JOB_ID_UNSAFE = re.compile(r"[/\\\x00]|(?:^|[/\\])\.\.(?:[/\\]|$)")
 
 
 def validate_epsilon_delta(epsilon: float, delta: float, obj_name: str) -> None:
@@ -154,3 +159,249 @@ def validate_pld_discretization(pld_discretization, obj_name: str) -> None:
             f"the privacy-loss grid interval; finer grids are more "
             f"accurate but cost memory and FFT time (pessimistic "
             f"ceiling rounding keeps every choice sound).")
+
+
+def validate_timeout_s(timeout_s, obj_name: str) -> None:
+    """Validates a watchdog deadline: a positive finite number of seconds.
+
+    Raises:
+        ValueError: timeout_s is not a positive finite number.
+    """
+    if (not isinstance(timeout_s, numbers.Number) or
+            isinstance(timeout_s, bool) or math.isnan(timeout_s)):
+        raise ValueError(f"{obj_name}: timeout_s must be a number of "
+                         f"seconds, but {timeout_s!r} given.")
+    if timeout_s <= 0 or math.isinf(timeout_s):
+        raise ValueError(
+            f"{obj_name}: timeout_s must be positive and finite, but "
+            f"timeout_s={timeout_s} given - a non-positive deadline would "
+            f"expire every block immediately; leave it None to disable "
+            f"deadlines instead.")
+
+
+def validate_job_id(job_id, obj_name: str) -> None:
+    """Validates a journal job id: a non-empty, path-safe string.
+
+    Raises:
+        ValueError: job_id is empty, not a string, or contains path
+        separators / parent-directory references / NUL (which the journal
+        file-name sanitizer would fold together, silently colliding two
+        different jobs' records).
+    """
+    if not isinstance(job_id, str):
+        raise ValueError(f"{obj_name}: job_id must be a string, but "
+                         f"{type(job_id).__name__} given.")
+    if not job_id.strip():
+        raise ValueError(f"{obj_name}: job_id must be non-empty - it keys "
+                         f"this job's journal records; pass a stable "
+                         f"identifier (or None to derive one from the "
+                         f"kernel config).")
+    if len(job_id) > 200:
+        raise ValueError(f"{obj_name}: job_id is {len(job_id)} characters; "
+                         f"the limit is 200 (it becomes a file-name "
+                         f"component).")
+    if _JOB_ID_UNSAFE.search(job_id) or job_id in (".", ".."):
+        raise ValueError(
+            f"{obj_name}: job_id {job_id!r} contains path separators or "
+            f"directory references; journal records are files named after "
+            f"the job id, so it must be path-safe.")
+
+
+def validate_max_concurrent_jobs(max_concurrent_jobs, obj_name: str) -> None:
+    """Validates the service worker-pool width: an integer >= 1.
+
+    Raises:
+        ValueError: max_concurrent_jobs is not a positive integer (it is
+        the number of jobs the resident service executes concurrently -
+        0 would admit work that no worker can ever run).
+    """
+    if (not isinstance(max_concurrent_jobs, numbers.Number) or
+            isinstance(max_concurrent_jobs, bool) or
+            max_concurrent_jobs != int(max_concurrent_jobs) or
+            max_concurrent_jobs < 1):
+        raise ValueError(
+            f"{obj_name}: max_concurrent_jobs must be an integer >= 1, "
+            f"but {max_concurrent_jobs!r} given - it sizes the service's "
+            f"worker pool; submissions beyond it queue rather than "
+            f"rejecting.")
+
+
+def validate_tenant_budget_epsilon(tenant_budget_epsilon,
+                                   obj_name: str) -> None:
+    """Validates a tenant's lifetime epsilon budget: a positive number
+    (math.inf = unlimited - the ledger still records spend).
+
+    Raises:
+        ValueError: tenant_budget_epsilon is not a positive number.
+    """
+    if (not isinstance(tenant_budget_epsilon, numbers.Number) or
+            isinstance(tenant_budget_epsilon, bool) or
+            math.isnan(tenant_budget_epsilon) or tenant_budget_epsilon <= 0):
+        raise ValueError(
+            f"{obj_name}: tenant_budget_epsilon must be a positive "
+            f"number, but {tenant_budget_epsilon!r} given - it is the "
+            f"lifetime epsilon a tenant's ledger may accumulate before "
+            f"submissions are refused (math.inf disables the cap).")
+
+
+def validate_queue_timeout_s(queue_timeout_s, obj_name: str) -> None:
+    """Validates the admission-queue wait bound: a positive finite
+    number of seconds.
+
+    Raises:
+        ValueError: queue_timeout_s is not a positive finite number (a
+        non-positive bound would shed every queued job on dequeue).
+    """
+    if (not isinstance(queue_timeout_s, numbers.Number) or
+            isinstance(queue_timeout_s, bool) or
+            math.isnan(queue_timeout_s)):
+        raise ValueError(f"{obj_name}: queue_timeout_s must be a number "
+                         f"of seconds, but {queue_timeout_s!r} given.")
+    if queue_timeout_s <= 0 or math.isinf(queue_timeout_s):
+        raise ValueError(
+            f"{obj_name}: queue_timeout_s must be positive and finite, "
+            f"but queue_timeout_s={queue_timeout_s} given - jobs that "
+            f"wait in the admission queue longer than this are shed "
+            f"with a retry-after instead of running arbitrarily late.")
+
+
+def validate_drain_timeout_s(drain_timeout_s, obj_name: str) -> None:
+    """Validates the drain bound: a positive finite number of seconds.
+
+    Raises:
+        ValueError: drain_timeout_s is not a positive finite number (an
+        unbounded drain would let one wedged job stall a rolling
+        restart forever).
+    """
+    if (not isinstance(drain_timeout_s, numbers.Number) or
+            isinstance(drain_timeout_s, bool) or
+            math.isnan(drain_timeout_s)):
+        raise ValueError(f"{obj_name}: drain_timeout_s must be a number "
+                         f"of seconds, but {drain_timeout_s!r} given.")
+    if drain_timeout_s <= 0 or math.isinf(drain_timeout_s):
+        raise ValueError(
+            f"{obj_name}: drain_timeout_s must be positive and finite, "
+            f"but drain_timeout_s={drain_timeout_s} given - it bounds "
+            f"how long drain() waits for running jobs before a "
+            f"migration or rolling restart proceeds.")
+
+
+def validate_deadline_s(deadline_s, obj_name: str) -> None:
+    """Validates a job deadline: a positive finite number of seconds.
+
+    Raises:
+        ValueError: deadline_s is not a positive finite number (a
+        non-positive deadline would cancel every job at dequeue; an
+        infinite one is spelled deadline_s=None).
+    """
+    if (not isinstance(deadline_s, numbers.Number) or
+            isinstance(deadline_s, bool) or
+            math.isnan(deadline_s)):
+        raise ValueError(f"{obj_name}: deadline_s must be a number "
+                         f"of seconds, but {deadline_s!r} given.")
+    if deadline_s <= 0 or math.isinf(deadline_s):
+        raise ValueError(
+            f"{obj_name}: deadline_s must be positive and finite, but "
+            f"deadline_s={deadline_s} given - it bounds the job's total "
+            f"submit-to-finish wall time (queue wait included); a job "
+            f"past it settles CANCELLED with JobCancelledError, charges "
+            f"nothing and releases its reservation. Use deadline_s=None "
+            f"for no deadline.")
+
+
+def validate_shed_watermark_fraction(shed_watermark_fraction,
+                                     obj_name: str) -> None:
+    """Validates the load-shed memory threshold: a number in (0, 1].
+
+    Raises:
+        ValueError: shed_watermark_fraction is not a number in (0, 1]
+        (it is the fraction of the device-memory limit above which the
+        service sheds new submissions instead of OOMing running jobs).
+    """
+    if (not isinstance(shed_watermark_fraction, numbers.Number) or
+            isinstance(shed_watermark_fraction, bool) or
+            math.isnan(shed_watermark_fraction) or
+            not 0 < shed_watermark_fraction <= 1):
+        raise ValueError(
+            f"{obj_name}: shed_watermark_fraction must be a number in "
+            f"(0, 1], but {shed_watermark_fraction!r} given - admissions "
+            f"are shed when the live device-memory watermark exceeds "
+            f"this fraction of the memory limit.")
+
+
+def validate_batching(batching, obj_name: str) -> None:
+    """Validates the megabatched-serving switch: a plain bool.
+
+    Raises:
+        ValueError: batching is not a bool (a truthy non-bool - say a
+        window or a lane count passed by mistake - would silently route
+        every job's release through the coalescing tier).
+    """
+    if not isinstance(batching, bool):
+        raise ValueError(
+            f"{obj_name}: batching must be a bool, but {batching!r} "
+            f"given (True coalesces identical-spec concurrent jobs into "
+            f"one lane-batched release launch; per-job results are "
+            f"bit-identical either way).")
+
+
+def validate_batch_window_ms(batch_window_ms, obj_name: str) -> None:
+    """Validates the coalescing window: a positive finite number of
+    milliseconds.
+
+    Raises:
+        ValueError: batch_window_ms is not a positive finite number (a
+        non-positive window would close every batch before a second
+        lane could join; an infinite one would park the first job of
+        every spec forever).
+    """
+    if (not isinstance(batch_window_ms, numbers.Number) or
+            isinstance(batch_window_ms, bool) or
+            math.isnan(batch_window_ms)):
+        raise ValueError(f"{obj_name}: batch_window_ms must be a number "
+                         f"of milliseconds, but {batch_window_ms!r} "
+                         f"given.")
+    if batch_window_ms <= 0 or math.isinf(batch_window_ms):
+        raise ValueError(
+            f"{obj_name}: batch_window_ms must be positive and finite, "
+            f"but batch_window_ms={batch_window_ms} given - it is how "
+            f"long the first identical-spec job waits for others to "
+            f"coalesce before launching (latency floor vs. batch "
+            f"occupancy).")
+
+
+def validate_max_batch_jobs(max_batch_jobs, obj_name: str) -> None:
+    """Validates the batch lane cap: an integer >= 2.
+
+    Raises:
+        ValueError: max_batch_jobs is not an integer >= 2 (a 1-lane
+        "batch" IS the solo path - the coalescer dispatches early once
+        this many lanes joined, without waiting out the window).
+    """
+    if (not isinstance(max_batch_jobs, numbers.Number) or
+            isinstance(max_batch_jobs, bool) or
+            max_batch_jobs != int(max_batch_jobs) or max_batch_jobs < 2):
+        raise ValueError(
+            f"{obj_name}: max_batch_jobs must be an integer >= 2, but "
+            f"{max_batch_jobs!r} given - it caps the lanes of one "
+            f"megabatched launch; a full window dispatches immediately "
+            f"(1 lane would just be the solo path with extra waiting).")
+
+
+def validate_tenant_accounting(tenant_accounting, obj_name: str) -> None:
+    """Validates the tenant-admission accounting mode: the string
+    "naive" (admission charges the bit-exact left-to-right epsilon sum,
+    the ledger-of-record) or "pld" (admission charges the PLD-composed
+    epsilon rebuilt from the odometer trail, with a documented safety
+    margin - the capacity multiplier).
+
+    Raises:
+        ValueError: tenant_accounting is not "naive" or "pld".
+    """
+    if tenant_accounting not in ("naive", "pld"):
+        raise ValueError(
+            f"{obj_name}: tenant_accounting must be 'naive' (admission "
+            f"charges the bit-exact epsilon sum) or 'pld' (admission "
+            f"charges the PLD-composed spend rebuilt from the odometer "
+            f"trail), but {tenant_accounting!r} given.")
+

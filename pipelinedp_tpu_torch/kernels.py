@@ -52,6 +52,13 @@ partition to skey2 - base, drop what falls outside the block and take a
 null perm for a stream already in sorted order. They count under their
 own names (reduce_partitions_windowed, quantile_counts_windowed, ...).
 
+The megabatched service (service/batching.py) adds lane entries, each
+counted under its own name: row_keys_lanes, bound_rows_lanes,
+reduce_partitions_lanes, release_epilogue_lanes and compact_kept_lanes
+run L jobs' rows as one stream of L * n rows and their partitions as one
+range of L * P (radix_sort takes the lane as a fourth, most significant
+word), each lane equal to its solo run bit for bit.
+
 Two modes add entries (numeric_mode="safe" and secure_noise=True):
 
     C3 compensated        reduce_partitions(compensated=True): float32 sums
@@ -67,12 +74,15 @@ CPU (the tests' path). On a CUDA tensor it never falls back: a failed build
 or launch raises. Outputs and scratch are allocated here with torch; the
 kernels allocate nothing. `launch_counts` counts wrapper calls that
 launched a kernel, under the name of the kernel's source, or of its
-compensated / secure entry (a tile scan issues three CUDA launches; a
-radix sort three a pass).
+compensated / secure / lane entry (a tile scan issues three CUDA launches;
+a radix sort three a pass); its increments are thread-safe, as the
+service's workers launch concurrently. No wrapper or kernel keeps host or
+device scratch between calls.
 """
 
 import ctypes
 import math
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -97,7 +107,9 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "reduce_partitions_compensated_windowed",
            "quantile_counts_windowed", "factorize_codes", "lookup_codes",
            "append_rows", "pld_fft", "log_spectrum", "group_stats",
-           "log_bins", "sweep_stats", "sweep_report")
+           "log_bins", "sweep_stats", "sweep_report", "row_keys_lanes",
+           "bound_rows_lanes", "reduce_partitions_lanes",
+           "release_epilogue_lanes", "compact_kept_lanes")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -112,9 +124,20 @@ _M32 = 0xFFFFFFFF
 _INT32_MAX = 0x7FFFFFFF
 
 
+# Worker threads of the multi-tenant service launch concurrently.
+_count_lock = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for name in KERNELS:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in KERNELS:
+            launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of the named kernel entry (thread-safe)."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _on_cuda(*tensors: Optional[torch.Tensor]) -> bool:
@@ -206,7 +229,7 @@ def row_keys(pid: torch.Tensor, pk: torch.Tensor, valid: torch.Tensor,
         int(key[0]), int(key[1]), _ptr(k1), _ptr(k2), _ptr(u),
         0 if dtype is None else _f64(dtype), _stream(pid.device))
     _raise_on(status, "row_keys")
-    launch_counts["row_keys"] += 1
+    _count("row_keys")
     return k1, k2, u
 
 
@@ -257,7 +280,7 @@ def total_bound_keys(pid: torch.Tensor, valid: torch.Tensor, key,
         _ptr(pid), _ptr(valid), n, int(key[0]), int(key[1]), _ptr(pid_sent),
         _ptr(u), _f64(dtype), _stream(pid.device))
     _raise_on(status, "row_keys")
-    launch_counts["row_keys"] += 1
+    _count("row_keys")
     return pid_sent, u
 
 
@@ -321,7 +344,7 @@ def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
         _ptr(cols.get("sum")), _ptr(cols.get("nsum")),
         _ptr(cols.get("nsum2")), _f64(dtype), _stream(dev))
     _raise_on(status, "bound_rows")
-    launch_counts["bound_rows"] += 1
+    _count("bound_rows")
     return key2, pair_start, cols
 
 
@@ -410,7 +433,7 @@ def total_bound_rows(perm: torch.Tensor, spid: torch.Tensor,
         _ptr(pk_out), _ptr(values_out), _ptr(valid_out), _f64(dtype),
         _stream(dev))
     _raise_on(status, "bound_rows")
-    launch_counts["bound_rows"] += 1
+    _count("bound_rows")
     return pid_out, pk_out, values_out, valid_out
 
 
@@ -509,7 +532,7 @@ def reduce_partitions(skey2: torch.Tensor, perm: Optional[torch.Tensor],
         _raise_on(status, "reduce_partitions")
     name = ("reduce_partitions_compensated" if compensated else
             "reduce_partitions")
-    launch_counts[name if base is None else f"{name}_windowed"] += 1
+    _count(name if base is None else f"{name}_windowed")
     return out
 
 
@@ -638,8 +661,7 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
         tables[0].shape[-1] if secure else 0, gran_c, _f64(dtype),
         _stream(dev))
     _raise_on(status, "release_epilogue")
-    launch_counts["release_epilogue_secure" if secure else
-                  "release_epilogue"] += 1
+    _count("release_epilogue_secure" if secure else "release_epilogue")
     return keep, outputs, flags
 
 
@@ -719,14 +741,15 @@ _SORT_KINDS = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
 
 def radix_sort(words: Sequence[torch.Tensor], sorted_top: bool = False):
     """The stable permutation sorting rows by `words`, most significant
-    first (1 to 3 int32 / int64 / float32 / float64 columns of one length).
+    first (1 to 4 int32 / int64 / float32 / float64 columns of one length;
+    the lane-batched release sorts by (lane, k1, k2, u)).
 
     Integers sort by value; floats by value with -0.0 before +0.0 (the
     sorts of the port see no negative zero or NaN). Returns perm int64[n],
     or (perm, words[0][perm]) with sorted_top.
     """
-    if not 1 <= len(words) <= 3:
-        raise ValueError(f"radix_sort takes 1 to 3 key words, got "
+    if not 1 <= len(words) <= 4:
+        raise ValueError(f"radix_sort takes 1 to 4 key words, got "
                          f"{len(words)}")
     n = words[0].shape[0]
     for j, word in enumerate(words):
@@ -756,7 +779,7 @@ def radix_sort(words: Sequence[torch.Tensor], sorted_top: bool = False):
     _raise_on(lib.radix_sort(ptrs, kinds, len(words), n, host_masks,
                              _ptr(scratch), _ptr(perm), _ptr(top), stream),
               "radix_sort")
-    launch_counts["radix_sort"] += 1
+    _count("radix_sort")
     return (perm, top) if sorted_top else perm
 
 
@@ -810,7 +833,7 @@ def compact_kept(keep: torch.Tensor, columns: Dict[str, torch.Tensor]):
                               _ptr(scratch), _ptr(order), _ptr(n_kept),
                               _stream(dev))
     _raise_on(status, "compact_kept")
-    launch_counts["compact_kept"] += 1
+    _count("compact_kept")
     return n_kept, order, out
 
 
@@ -894,7 +917,7 @@ def quantile_leaf_counts(skey2: torch.Tensor, perm: Optional[torch.Tensor],
         skey2.shape[0], int(base or 0), n_partitions, n_leaves, float(min_v),
         float(max_v), _ptr(hist), _f64(values.dtype), _stream(dev))
     _raise_on(status, "quantile_counts")
-    launch_counts[_quantile_counts_name(base)] += 1
+    _count(_quantile_counts_name(base))
     return hist
 
 
@@ -936,7 +959,7 @@ def quantile_level_counts(leaf_counts: torch.Tensor, *, tree_height: int,
     status = cuda_build.library("quantile_counts").quantile_level_counts(
         ptrs, p, tree_height, branching, _stream(dev))
     _raise_on(status, "quantile_counts")
-    launch_counts["quantile_counts"] += 1
+    _count("quantile_counts")
     return levels
 
 
@@ -983,7 +1006,7 @@ def quantile_child_counts(skey2: torch.Tensor, perm: Optional[torch.Tensor],
         float(min_v), float(max_v), _ptr(counts), _f64(values.dtype),
         _stream(dev))
     _raise_on(status, "quantile_counts")
-    launch_counts[_quantile_counts_name(base)] += 1
+    _count(_quantile_counts_name(base))
     return counts
 
 
@@ -1193,8 +1216,7 @@ def quantile_descend_dense(levels: Sequence[torch.Tensor],
         thr.shape[0] if secure else 0, float(tables[1]) if secure else 0.0,
         _f64(dtype), _stream(dev))
     _raise_on(status, "quantile_descend")
-    launch_counts["quantile_descend_secure" if secure else
-                  "quantile_descend"] += 1
+    _count("quantile_descend_secure" if secure else "quantile_descend")
     return out
 
 
@@ -1279,8 +1301,7 @@ def quantile_descend_step(counts: torch.Tensor, state: DescentState,
         0 if thr is None else thr.shape[0],
         0.0 if thr is None else float(tables[1]), _f64(dtype), _stream(dev))
     _raise_on(status, "quantile_descend")
-    launch_counts["quantile_descend" if thr is None else
-                  "quantile_descend_secure"] += 1
+    _count("quantile_descend" if thr is None else "quantile_descend_secure")
     return out
 
 
@@ -1356,8 +1377,7 @@ def vector_release(vsum: torch.Tensor, keep: torch.Tensor,
         0.0 if thr is None else float(tables[1]), _f64(vsum.dtype),
         _stream(dev))
     _raise_on(status, "vector_release")
-    launch_counts["vector_release" if thr is None else
-                  "vector_release_secure"] += 1
+    _count("vector_release" if thr is None else "vector_release_secure")
     return out
 
 
@@ -1407,7 +1427,7 @@ def block_offsets(stream: torch.Tensor,
     status = cuda_build.library("block_offsets").block_offsets(
         _ptr(stream), n, _ptr(boundaries), m, _ptr(offsets), _stream(dev))
     _raise_on(status, "block_offsets")
-    launch_counts["block_offsets"] += 1
+    _count("block_offsets")
     return offsets
 
 
@@ -1453,7 +1473,7 @@ def gather_rows(index: torch.Tensor,
         (ctypes.c_int * n_cols)(*[1 if c.dim() == 1 else c.shape[1]
                                   for c in columns]), n_cols, _stream(dev))
     _raise_on(status, "gather_rows")
-    launch_counts["gather_rows"] += 1
+    _count("gather_rows")
     return out
 
 
@@ -1507,7 +1527,7 @@ def factorize_codes(rows: torch.Tensor):
     status = lib.factorize_codes(_ptr(rows), _ptr(perm), n, _ptr(scratch),
                                  _ptr(codes), _ptr(n_unique), _stream(dev))
     _raise_on(status, "factorize_codes")
-    launch_counts["factorize_codes"] += 1
+    _count("factorize_codes")
     return codes, n_unique
 
 
@@ -1560,7 +1580,7 @@ def lookup_codes(rows: torch.Tensor, table: torch.Tensor,
         _ptr(rows), n, _ptr(table), v_cap, _ptr(table_codes), _ptr(codes),
         _stream(dev))
     _raise_on(status, "lookup_codes")
-    launch_counts["lookup_codes"] += 1
+    _count("lookup_codes")
     return codes
 
 
@@ -1633,7 +1653,7 @@ def fill_tail(bufs: Sequence[torch.Tensor], start: int,
         (ctypes.c_void_p * k)(*[_ptr(b) for b in bufs]), widths, elems, bits,
         k, start, cap, _stream(dev))
     _raise_on(status, "append_rows")
-    launch_counts["append_rows"] += 1
+    _count("append_rows")
 
 
 def fill_tail_plain(bufs, start, fills):
@@ -1661,7 +1681,7 @@ def grow_rows(bufs: Sequence[torch.Tensor], new_cap: int,
         (ctypes.c_void_p * k)(*[_ptr(o) for o in out]), widths, elems, bits,
         k, cap, new_cap, _stream(dev))
     _raise_on(status, "append_rows")
-    launch_counts["append_rows"] += 1
+    _count("append_rows")
     return out
 
 
@@ -1706,7 +1726,7 @@ def pld_rfft(x: torch.Tensor) -> torch.Tensor:
     status = cuda_build.library("pld_fft").pld_rfft(
         _ptr(x), rows, n, _ptr(out), _ptr(work), _ptr(table), _stream(dev))
     _raise_on(status, "pld_fft")
-    launch_counts["pld_fft"] += 1
+    _count("pld_fft")
     return out
 
 
@@ -1736,7 +1756,7 @@ def pld_irfft(spectrum: torch.Tensor, length: int) -> torch.Tensor:
         _ptr(spectrum), rows, n, _ptr(out), _ptr(work), _ptr(table),
         _stream(dev))
     _raise_on(status, "pld_fft")
-    launch_counts["pld_fft"] += 1
+    _count("pld_fft")
     return out
 
 
@@ -1764,7 +1784,7 @@ def log_spectrum_accumulate(spectra: torch.Tensor, weights: torch.Tensor,
         _ptr(spectra), rows, m, _ptr(weights), _ptr(acc),
         _stream(spectra.device))
     _raise_on(status, "log_spectrum")
-    launch_counts["log_spectrum"] += 1
+    _count("log_spectrum")
 
 
 def log_spectrum_accumulate_plain(spectra, weights, acc):
@@ -1785,7 +1805,7 @@ def log_spectrum_finalize(acc: torch.Tensor) -> torch.Tensor:
     status = cuda_build.library("log_spectrum").log_spectrum_finalize(
         _ptr(acc), m, _ptr(out), _stream(acc.device))
     _raise_on(status, "log_spectrum")
-    launch_counts["log_spectrum"] += 1
+    _count("log_spectrum")
     return out
 
 
@@ -1839,7 +1859,7 @@ def group_stats_pairs(pid: torch.Tensor, pk: torch.Tensor,
         _ptr(scratch), *[_ptr(out[name]) for name in PAIR_STATS],
         _stream(dev))
     _raise_on(status, "group_stats")
-    launch_counts["group_stats"] += 1
+    _count("group_stats")
     return out
 
 
@@ -1902,7 +1922,7 @@ def group_stats_keys(keys: torch.Tensor, valid: torch.Tensor,
                                   _ptr(scratch), _ptr(new_seg),
                                   _ptr(seg_len), _stream(dev))
     _raise_on(status, "group_stats")
-    launch_counts["group_stats"] += 1
+    _count("group_stats")
     return new_seg, seg_len
 
 
@@ -1987,7 +2007,7 @@ def log_bins_int(values: torch.Tensor, mask: torch.Tensor):
     status = lib.log_bins_int(_ptr(values), _ptr(mask), n, _ptr(scratch),
                               *[_ptr(t) for t in out], _stream(dev))
     _raise_on(status, "log_bins")
-    launch_counts["log_bins"] += 1
+    _count("log_bins")
     return out
 
 
@@ -2069,7 +2089,7 @@ def log_bins_float(values: torch.Tensor, mask: torch.Tensor,
         float(np.float32(1.0 / n_buckets)), _ptr(scratch), _ptr(lo_hi),
         _ptr(edges), _ptr(counts), _ptr(sums), _ptr(maxes), _stream(dev))
     _raise_on(status, "log_bins")
-    launch_counts["log_bins"] += 1
+    _count("log_bins")
     return lo_hi, edges, counts, sums, maxes
 
 
@@ -2178,7 +2198,7 @@ def sweep_stats(counts: torch.Tensor, sums: torch.Tensor,
         int(private), _f64(f), _ptr(scratch), _ptr(stats), _ptr(sel),
         _ptr(n_users), _ptr(n_rows), _ptr(size), _stream(dev))
     _raise_on(status, "sweep_stats")
-    launch_counts["sweep_stats"] += 1
+    _count("sweep_stats")
     return stats, sel, n_users, n_rows, size
 
 
@@ -2291,7 +2311,7 @@ def sweep_report(stats: torch.Tensor, sel: Optional[torch.Tensor],
         _f64(f), _ptr(order), _ptr(bucket), _ptr(keep_prob),
         _ptr(bucket_rows), _ptr(bucket_info), _stream(dev))
     _raise_on(status, "sweep_report")
-    launch_counts["sweep_report"] += 1
+    _count("sweep_report")
     return bucket, keep_prob, bucket_rows, bucket_info
 
 
@@ -2412,3 +2432,350 @@ def sweep_report_plain(stats, sel, n_users, size, noise_std, sel_cfg, bounds,
     bucket_info = torch.zeros((k, nb, em.INFO_WIDTH), dtype=f,
                               device=dev).index_add_(1, bucket, info)
     return bucket.to(torch.int32), keep_prob, bucket_rows, bucket_info
+
+
+# ---------------------------------------------------------------------------
+# Lane-batched entries (K24: executor.py:984 / :1141 of the JAX package, the
+# megabatched service's vmap of the dense release over job lanes). L jobs'
+# rows, each padded to the same lane_rows, run as one stream of L *
+# lane_rows rows and their partitions as one range of L * P: C1, C2, C3, C4
+# and C6 have lane entries, C5 sorts with the lane as its most significant
+# word. Lane l's outputs equal its solo run's bit for bit. Each plain
+# version loops over the lanes and calls the solo plain version.
+
+_INT32_LIMIT = 1 << 31
+_MAX_GRID_Y = 65535
+
+
+def lane_capacity(lane_rows: int, n_partitions: int) -> int:
+    """The most lanes one batched launch takes: L * (P + 1) and L *
+    lane_rows stay below 2^31 (key2 and the sort are int32-indexed) and L
+    fits a grid's y dimension."""
+    return max(0, min(_MAX_GRID_Y, (_INT32_LIMIT - 1) // (n_partitions + 1),
+                      (_INT32_LIMIT - 1) // max(lane_rows, 1)))
+
+
+def _lanes_of(n_total: int, lane_rows: int, n_partitions: int) -> int:
+    if lane_rows <= 0 or n_total % lane_rows:
+        raise ValueError(f"lane entries: {n_total} rows are not whole lanes "
+                         f"of {lane_rows}")
+    n_lanes = n_total // lane_rows
+    if n_lanes > lane_capacity(lane_rows, n_partitions):
+        raise ValueError(
+            f"lane entries: {n_lanes} lanes of {lane_rows} rows over "
+            f"{n_partitions} partitions exceed "
+            f"{lane_capacity(lane_rows, n_partitions)} (int32 keys, grid)")
+    return n_lanes
+
+
+def row_keys_lanes(pid: torch.Tensor, pk: torch.Tensor, valid: torch.Tensor,
+                   lane_rows: int, salts: np.ndarray,
+                   keys: Optional[np.ndarray],
+                   n_partitions: int, dtype: Optional[torch.dtype]):
+    """C1's lane entry: lane l = rows [l * lane_rows, (l + 1) * lane_rows)
+    takes salts[l] (jax.random.bits(key_l0, (4,)) of its job) and keys[l]
+    (its key_linf); its uniforms draw counter i - l * lane_rows. Returns
+    (lane int32, k1, k2, u or None): sorting by (lane, k1, k2, u) sorts
+    every lane as its solo run sorts."""
+    n = pid.shape[0]
+    _check(pid, torch.int32, n, "pid")
+    _check(pk, torch.int32, n, "pk")
+    _check(valid, torch.bool, n, "valid")
+    n_lanes = _lanes_of(n, lane_rows, n_partitions)
+    salts = np.asarray(salts, dtype=np.uint32).reshape(n_lanes, 4)
+    keys = (np.zeros((n_lanes, 2), np.uint32) if keys is None else
+            np.asarray(keys, dtype=np.uint32).reshape(n_lanes, 2))
+    if not _on_cuda(pid, pk, valid):
+        return row_keys_lanes_plain(pid, pk, valid, lane_rows, salts,
+                                    None if dtype is None else keys,
+                                    n_partitions, dtype)
+    dev = pid.device
+    table = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([salts, keys], 1)).view(np.int32)).to(dev)
+    lane = torch.empty(n, dtype=torch.int32, device=dev)
+    k1 = torch.empty(n, dtype=torch.int64, device=dev)
+    k2 = torch.empty_like(k1)
+    u = None if dtype is None else torch.empty(n, dtype=dtype, device=dev)
+    status = cuda_build.library("row_keys").row_keys_lanes(
+        _ptr(pid), _ptr(pk), _ptr(valid), n, lane_rows, n_partitions,
+        _ptr(table), _ptr(lane), _ptr(k1), _ptr(k2), _ptr(u),
+        0 if dtype is None else _f64(dtype), _stream(dev))
+    _raise_on(status, "row_keys_lanes")
+    _count("row_keys_lanes")
+    return lane, k1, k2, u
+
+
+def row_keys_lanes_plain(pid, pk, valid, lane_rows, salts, keys,
+                         n_partitions, dtype):
+    parts = []
+    for l in range(pid.shape[0] // lane_rows):
+        sl = slice(l * lane_rows, (l + 1) * lane_rows)
+        parts.append(row_keys_plain(pid[sl], pk[sl], valid[sl], salts[l],
+                                    None if keys is None else keys[l],
+                                    n_partitions, dtype))
+    lane = torch.arange(len(parts), dtype=torch.int32,
+                        device=pid.device).repeat_interleave(lane_rows)
+    k1 = torch.cat([p[0] for p in parts])
+    k2 = torch.cat([p[1] for p in parts])
+    u = None if dtype is None else torch.cat([p[2] for p in parts])
+    return lane, k1, k2, u
+
+
+def bound_rows_lanes(perm: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                     values: Optional[torch.Tensor], valid: torch.Tensor, *,
+                     lane_rows: int, n_partitions: int, linf: int, l0: int,
+                     clip_per_value: bool, clip_pair_sum: bool,
+                     scalars: Sequence[float], columns: Sequence[str]):
+    """C2's lane entry over the rows in (lane, k1, k2, u) order (lane l's
+    rows are the sorted positions [l * lane_rows, (l + 1) * lane_rows)).
+    Runs break at lane starts too. Returns (key2, pair_start, columns) in
+    sorted order: key2 = lane * n_partitions + partition where kept, L *
+    n_partitions elsewhere."""
+    n = valid.shape[0]
+    if values is None and columns:
+        raise ValueError("bound_rows_lanes: columns need values")
+    dtype = torch.float32 if values is None else values.dtype
+    _f64(dtype)
+    for t, dt, what in ((perm, torch.int64, "perm"), (k1, torch.int64, "k1"),
+                        (k2, torch.int64, "k2"), (values, dtype, "values"),
+                        (valid, torch.bool, "valid")):
+        _check(t, dt, n, what)
+    _lanes_of(n, lane_rows, n_partitions)
+    args = dict(lane_rows=lane_rows, n_partitions=n_partitions, linf=linf,
+                l0=l0, clip_per_value=clip_per_value,
+                clip_pair_sum=clip_pair_sum, scalars=scalars,
+                columns=columns)
+    if not _on_cuda(perm, k1, k2, values, valid):
+        return bound_rows_lanes_plain(perm, k1, k2, values, valid, **args)
+    dev = valid.device
+    lib = cuda_build.library("bound_rows")
+    key2 = torch.empty(n, dtype=torch.int32, device=dev)
+    pair_start = torch.empty(n, dtype=torch.bool, device=dev)
+    cols = {c: torch.empty(n, dtype=dtype, device=dev) for c in columns}
+    scratch = torch.empty(max(1, lib.bound_rows_scratch_bytes(n)),
+                          dtype=torch.uint8, device=dev)
+    scal = (ctypes.c_double * 5)(*[float(s) for s in scalars])
+    status = lib.bound_rows_lanes(
+        _ptr(perm), _ptr(k1), _ptr(k2), _ptr(values), _ptr(valid), n,
+        lane_rows, n_partitions, linf, l0, int(clip_per_value),
+        int(clip_pair_sum), scal, _ptr(scratch), _ptr(key2), _ptr(pair_start),
+        _ptr(cols.get("sum")), _ptr(cols.get("nsum")),
+        _ptr(cols.get("nsum2")), _f64(dtype), _stream(dev))
+    _raise_on(status, "bound_rows_lanes")
+    _count("bound_rows_lanes")
+    return key2, pair_start, cols
+
+
+def bound_rows_lanes_plain(perm, k1, k2, values, valid, *, lane_rows,
+                           n_partitions, linf, l0, clip_per_value,
+                           clip_pair_sum, scalars, columns):
+    n_lanes = valid.shape[0] // lane_rows
+    parts = []
+    for l in range(n_lanes):
+        sl = slice(l * lane_rows, (l + 1) * lane_rows)
+        key2, start, cols = bound_rows_plain(
+            perm[sl] - l * lane_rows, k1[sl], k2[sl], None,
+            None if values is None else values[sl], valid[sl],
+            n_partitions=n_partitions, linf=linf, l0=l0,
+            clip_per_value=clip_per_value, clip_pair_sum=clip_pair_sum,
+            scalars=scalars, columns=columns)
+        key2 = torch.where(key2 < n_partitions, key2 + l * n_partitions,
+                           n_lanes * n_partitions).to(torch.int32)
+        parts.append((key2, start, cols))
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]),
+            {c: torch.cat([p[2][c] for p in parts]) for c in columns})
+
+
+def reduce_partitions_lanes(skey2: torch.Tensor, perm: torch.Tensor,
+                            pair_start: torch.Tensor,
+                            row_cols: Dict[str, torch.Tensor],
+                            lane_rows: int, n_partitions: int,
+                            dtype: torch.dtype):
+    """C3's lane entry: rows sorted by key2 = lane * P + partition (the
+    dropped rows' L * P last); lane l's kept rows are scanned from their
+    own first row in tiles of their own, so every float sum has its solo
+    run's association. Returns {count, pid_count, [sum, nsum, nsum2]} as
+    dtype[L * P], lane l's partitions at [l * P, (l + 1) * P)."""
+    n = skey2.shape[0]
+    _check(skey2, torch.int32, n, "skey2")
+    _check(perm, torch.int64, n, "perm")
+    _check(pair_start, torch.bool, n, "pair_start")
+    for name, col in row_cols.items():
+        _check(col, dtype, n, name)
+    n_lanes = _lanes_of(n, lane_rows, n_partitions)
+    if not _on_cuda(skey2, perm, pair_start, *row_cols.values()):
+        return reduce_partitions_lanes_plain(skey2, perm, pair_start,
+                                             row_cols, lane_rows,
+                                             n_partitions, dtype)
+    dev = skey2.device
+    lib = cuda_build.library("reduce_partitions")
+    out = {name: torch.zeros(n_lanes * n_partitions, dtype=dtype, device=dev)
+           for name in ("count", "pid_count", *row_cols)}
+    scratch = torch.empty(
+        max(1, lib.reduce_partitions_lanes_scratch_bytes(lane_rows, n_lanes,
+                                                         _f64(dtype))),
+        dtype=torch.uint8, device=dev)
+    status = lib.reduce_partitions_lanes(
+        _ptr(skey2), _ptr(perm), _ptr(pair_start), _ptr(row_cols.get("sum")),
+        _ptr(row_cols.get("nsum")), _ptr(row_cols.get("nsum2")), n,
+        lane_rows, n_partitions, _ptr(scratch), _ptr(out["count"]),
+        _ptr(out["pid_count"]), _ptr(out.get("sum")), _ptr(out.get("nsum")),
+        _ptr(out.get("nsum2")), _f64(dtype), _stream(dev))
+    _raise_on(status, "reduce_partitions_lanes")
+    _count("reduce_partitions_lanes")
+    return out
+
+
+def reduce_partitions_lanes_plain(skey2, perm, pair_start, row_cols,
+                                  lane_rows, n_partitions, dtype):
+    n_lanes = skey2.shape[0] // lane_rows
+    edges = torch.searchsorted(
+        skey2, torch.arange(n_lanes + 1, dtype=torch.int32,
+                            device=skey2.device) * n_partitions).tolist()
+    parts = [reduce_partitions_plain(skey2[lo:hi], perm[lo:hi], pair_start,
+                                     row_cols, n_partitions, dtype,
+                                     base=l * n_partitions)
+             for l, (lo, hi) in enumerate(zip(edges[:-1], edges[1:]))]
+    return {name: torch.cat([p[name] for p in parts]) for name in parts[0]}
+
+
+def release_epilogue_lanes(cols: Dict[str, torch.Tensor],
+                           plan: Sequence[Tuple[str, Tuple[str, ...], int]],
+                           stds: np.ndarray, slot_keys: np.ndarray,
+                           noise_kind: NoiseKind, degenerate: bool,
+                           mid: float, min_v: float,
+                           selection: Optional[selection_ops.SelectionParams],
+                           key_sel: np.ndarray, max_rows: int,
+                           n_lanes: int):
+    """C4's lane entry: cols are [L * P]; lane l draws under its own keys,
+    slot_keys[l] ([S, 2]) and key_sel[l], at counter p of partition l * P +
+    p. Continuous noise only. Returns (keep bool[L * P], {output: F[L *
+    P]}, flags int32[L], one flag word a lane)."""
+    count = cols["count"]
+    total = count.shape[0]
+    dtype = count.dtype
+    if n_lanes < 1 or total % n_lanes:
+        raise ValueError(f"release_epilogue_lanes: {total} partitions are "
+                         f"not {n_lanes} lanes")
+    p = total // n_lanes
+    scalar_cols = {k: c for k, c in cols.items() if k != "vsum"}
+    for name, col in scalar_cols.items():
+        _check(col, dtype, total, name)
+    plan = [entry for entry in plan if entry[0] not in SKIPPED_KINDS]
+    names = [o for _, outputs, _ in plan for o in outputs]
+    slot_keys = np.asarray(slot_keys, dtype=np.uint32).reshape(
+        n_lanes, len(stds), 2)
+    key_sel = (np.zeros((n_lanes, 2), np.uint32) if key_sel is None else
+               np.asarray(key_sel, dtype=np.uint32).reshape(n_lanes, 2))
+    if not _on_cuda(*scalar_cols.values()):
+        return release_epilogue_lanes_plain(cols, plan, stds, slot_keys,
+                                            noise_kind, degenerate, mid,
+                                            min_v, selection, key_sel,
+                                            max_rows, n_lanes)
+    dev = count.device
+    keep = torch.empty(total, dtype=torch.bool, device=dev)
+    outputs = {o: torch.empty(total, dtype=dtype, device=dev) for o in names}
+    flags = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    table = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [key_sel, slot_keys.reshape(n_lanes, -1)], 1)).view(np.int32)).to(dev)
+    plan_c = (ctypes.c_int * max(1, 3 * len(plan)))(*[
+        v for kind, outs, off in plan
+        for v in (PLAN_KINDS[kind], sum(OUTPUT_BITS[o] for o in outs), off)
+    ])
+    stds_c = (ctypes.c_double * max(1, len(stds)))(*[float(s) for s in stds])
+    sel = (selection_ops.selection_scalars(selection)
+           if selection is not None else (0.0,) * 14)
+    sel_c = (ctypes.c_double * 14)(*sel)
+    misc_c = (ctypes.c_int * 3)(int(noise_kind == NoiseKind.GAUSSIAN),
+                                int(degenerate), int(selection is not None))
+    scal_c = (ctypes.c_double * 3)(float(mid), float(min_v), float(max_rows))
+    status = cuda_build.library("release_epilogue").release_epilogue_lanes(
+        plan_c, len(plan), stds_c, len(stds), sel_c, misc_c, scal_c, p,
+        n_lanes, _ptr(table), _ptr(count), _ptr(cols["pid_count"]),
+        _ptr(cols.get("sum")), _ptr(cols.get("nsum")),
+        _ptr(cols.get("nsum2")), _ptr(keep), _ptr(outputs.get("count")),
+        _ptr(outputs.get("privacy_id_count")), _ptr(outputs.get("sum")),
+        _ptr(outputs.get("mean")), _ptr(outputs.get("variance")),
+        _ptr(flags), _f64(dtype), _stream(dev))
+    _raise_on(status, "release_epilogue_lanes")
+    _count("release_epilogue_lanes")
+    return keep, outputs, flags
+
+
+def release_epilogue_lanes_plain(cols, plan, stds, slot_keys, noise_kind,
+                                 degenerate, mid, min_v, selection, key_sel,
+                                 max_rows, n_lanes):
+    p = cols["count"].shape[0] // n_lanes
+    parts = []
+    for l in range(n_lanes):
+        lane_cols = {k: c[l * p:(l + 1) * p] for k, c in cols.items()
+                     if k != "vsum"}
+        parts.append(release_epilogue_plain(
+            lane_cols, plan, stds, slot_keys[l], noise_kind, degenerate, mid,
+            min_v, selection, None if selection is None else key_sel[l],
+            max_rows))
+    return (torch.cat([q[0] for q in parts]),
+            {o: torch.cat([q[1][o] for q in parts]) for o in parts[0][1]},
+            torch.cat([q[2] for q in parts]))
+
+
+def compact_kept_lanes(keep: torch.Tensor, columns: Dict[str, torch.Tensor],
+                       n_lanes: int):
+    """C6's lane entry: keep and every column hold L lanes of P partitions
+    ([L * P] or [L, P]); each lane is compacted kept-first on its own.
+    Returns (n_kept int64[L], order int64[L, P] of lane-local ids,
+    {name: [L, P] in each lane's order})."""
+    total = keep.numel()
+    if n_lanes < 1 or total % n_lanes:
+        raise ValueError(f"compact_kept_lanes: {total} partitions are not "
+                         f"{n_lanes} lanes")
+    p = total // n_lanes
+    keep = keep.reshape(-1)
+    _check(keep, torch.bool, total, "keep")
+    columns = {name: col.reshape(n_lanes, p) for name, col in columns.items()}
+    elem = {c.element_size() for c in columns.values()}
+    for name, col in columns.items():
+        if not col.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous column")
+    if len(elem) > 1 or not elem <= {4, 8}:
+        raise ValueError(f"compact_kept_lanes: columns must share a 4- or "
+                         f"8-byte dtype, got "
+                         f"{[c.dtype for c in columns.values()]}")
+    if n_lanes > _MAX_GRID_Y:
+        raise ValueError(f"compact_kept_lanes: {n_lanes} lanes exceed "
+                         f"{_MAX_GRID_Y}")
+    if not _on_cuda(keep, *columns.values()):
+        return compact_kept_lanes_plain(keep, columns, n_lanes)
+    dev = keep.device
+    lib = cuda_build.library("compact_kept")
+    out = {name: torch.empty_like(col) for name, col in columns.items()}
+    order = torch.empty(n_lanes, p, dtype=torch.int64, device=dev)
+    n_kept = torch.empty(n_lanes, dtype=torch.int64, device=dev)
+    scratch = torch.empty(
+        max(1, lib.compact_kept_lanes_scratch_bytes(p, n_lanes)),
+        dtype=torch.uint8, device=dev)
+    in_c = (ctypes.c_void_p * max(1, len(columns)))(
+        *[c.data_ptr() for c in columns.values()])
+    out_c = (ctypes.c_void_p * max(1, len(columns)))(
+        *[out[name].data_ptr() for name in columns])
+    widths = (ctypes.c_int * max(1, len(columns)))(*([1] * len(columns)))
+    status = lib.compact_kept_lanes(_ptr(keep), p, n_lanes, in_c, out_c,
+                                    widths, len(columns),
+                                    elem.pop() if elem else 8, _ptr(scratch),
+                                    _ptr(order), _ptr(n_kept), _stream(dev))
+    _raise_on(status, "compact_kept_lanes")
+    _count("compact_kept_lanes")
+    return n_kept, order, out
+
+
+def compact_kept_lanes_plain(keep, columns, n_lanes):
+    p = keep.numel() // n_lanes
+    keep = keep.reshape(n_lanes, p)
+    columns = {n: c.reshape(n_lanes, p) for n, c in columns.items()}
+    parts = [compact_kept_plain(keep[l], {n: c[l] for n, c in
+                                          columns.items()})
+             for l in range(n_lanes)]
+    return (torch.stack([q[0] for q in parts]),
+            torch.stack([q[1] for q in parts]),
+            {n: torch.stack([q[2][n] for q in parts]) for n in columns})

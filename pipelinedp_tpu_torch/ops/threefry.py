@@ -16,7 +16,11 @@ default of jax 0.9). This module is the port's copy of that generator:
 
 torch on the CPU has no uint32 add or shift, so the plain arithmetic runs
 in int64 and masks to 32 bits. The CUDA kernels (``csrc/common.cuh``)
-compute the same words in native uint32.
+compute the same words in native uint32. The host key derivation (split,
+fold_in, bits of a few words) runs on Python integers instead: a few
+hundred tiny torch operations a key each release the GIL, and the
+multi-tenant service's worker threads then queue for it behind one
+another.
 """
 
 import math
@@ -57,6 +61,31 @@ def threefry2x32(key, x0: torch.Tensor,
     return x0, x1
 
 
+# bits() of at most this many words runs on Python integers; the longer
+# draws (dp_computations._threefry_uniforms, 2n words) take the torch path.
+_HOST_WORDS = 64
+
+
+def _threefry_ints(k0: int, k1: int, x0: int, x1: int) -> Tuple[int, int]:
+    """threefry2x32 of one counter pair on Python integers."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + k0) & _M32
+    x1 = (x1 + k1) & _M32
+    for step in range(5):
+        for r in _ROT[step % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(step + 1) % 3]) & _M32
+        x1 = (x1 + ks[(step + 2) % 3] + step + 1) & _M32
+    return x0, x1
+
+
+def _host_words(key, n: int):
+    """The counter words (x0, x1) of elements 0..n-1 under one key."""
+    k0, k1 = int(key[0]) & _M32, int(key[1]) & _M32
+    return [_threefry_ints(k0, k1, i >> 32, i & _M32) for i in range(n)]
+
+
 def _counter_words(key, n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     idx = torch.arange(n, dtype=torch.int64, device=device)
     return threefry2x32(key, idx >> 32, idx & _M32)
@@ -67,9 +96,9 @@ def _as_key(words) -> np.ndarray:
 
 
 def split(key, num: int = 2) -> np.ndarray:
-    """jax.random.split(key, num) -> uint32[num, 2]."""
-    b0, b1 = _counter_words(key, num, "cpu")
-    return np.stack([b0.numpy(), b1.numpy()], axis=1).astype(np.uint32)
+    """jax.random.split(key, num) -> uint32[num, 2]. The package splits
+    into two or three keys, so this runs on Python integers."""
+    return np.asarray(_host_words(key, num), dtype=np.uint32).reshape(num, 2)
 
 
 def fold_in_each(key, data: torch.Tensor
@@ -81,8 +110,8 @@ def fold_in_each(key, data: torch.Tensor
 
 def fold_in(key, data: int) -> np.ndarray:
     """jax.random.fold_in(key, data) for a uint32 `data`."""
-    b0, b1 = fold_in_each(key, torch.tensor([int(data)], dtype=torch.int64))
-    return _as_key((b0.item(), b1.item()))
+    return _as_key(_threefry_ints(int(key[0]) & _M32, int(key[1]) & _M32, 0,
+                                  int(data) & _M32))
 
 
 def random_bits32(key, n: int, device=None) -> torch.Tensor:
@@ -101,6 +130,9 @@ def bits_at(key, counters: torch.Tensor) -> torch.Tensor:
 
 def bits(key, n: int) -> np.ndarray:
     """jax.random.bits(key, (n,), jnp.uint32) on the host."""
+    if n <= _HOST_WORDS:
+        return np.asarray([x0 ^ x1 for x0, x1 in _host_words(key, n)],
+                          dtype=np.uint32)
     return random_bits32(key, n, "cpu").numpy().astype(np.uint32)
 
 

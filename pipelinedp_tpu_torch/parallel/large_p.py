@@ -402,7 +402,7 @@ def select_partitions_blocked(pid, pk, valid, rng_key, l0: int,
     as _placement). Returns kept_partition_ids int64[M], ascending.
     """
     P = n_partitions
-    key_l0, key_sel = threefry.split(rng_key, 2)
+    key_l0, key_sel = executor.select_key_schedule(rng_key)
     device, dtype = _placement(pid, None, device, dtype)
     pid_t, pk_t, _, valid_t = _device_rows(pid, pk, None, valid, device,
                                            dtype)
@@ -483,7 +483,7 @@ def aggregate_blocked(pid, pk, values, valid, min_v, max_v, min_s, max_s,
     if values is None:
         values = np.zeros(n)
     stds = np.asarray(stds, dtype=np.float64)
-    rows_key, final_key = threefry.split(rng_key, 2)
+    rows_key, final_key = executor.release_key_halves(rng_key)
     scalars = (min_v, max_v, min_s, max_s, mid)
 
     # Pass 1: bound the rows, sort the survivors by partition.

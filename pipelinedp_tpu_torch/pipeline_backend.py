@@ -388,3 +388,29 @@ class TorchBackend(LocalBackend):
         self.pipeline_depth = pipeline_depth
         self.encode_threads = encode_threads
         self.encode_mode = encode_mode
+
+    def for_job(self, job_id: Optional[str] = None,
+                noise_seed: Optional[int] = None) -> "TorchBackend":
+        """A job-scoped view of this backend (pipelinedp_tpu/
+        pipeline_backend.py:660): the multi-tenant service holds one
+        backend for its lifetime and runs many jobs on it at once, each
+        with its own noise seed. The view shares the device, the working
+        dtype and every knob of the parent; noise_seed overrides where
+        given. job_id is accepted for the reference's signature and is
+        unused: the reference keys its blocked route's journal by it,
+        and the port has no such journal yet (ROADMAP item 13)."""
+        del job_id
+        return TorchBackend(
+            device=self.device,
+            noise_seed=(self.noise_seed if noise_seed is None
+                        else noise_seed),
+            large_partition_threshold=self.large_partition_threshold,
+            dtype=self.dtype,
+            secure_noise=self.secure_noise,
+            numeric_mode=self.numeric_mode,
+            snap_grid_bits=self.snap_grid_bits,
+            block_partitions=self.block_partitions,
+            max_partitions=self.max_partitions,
+            pipeline_depth=self.pipeline_depth,
+            encode_threads=self.encode_threads,
+            encode_mode=self.encode_mode)

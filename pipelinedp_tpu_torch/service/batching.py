@@ -1,0 +1,288 @@
+"""Megabatched serving: identical-spec jobs as lanes of one release.
+
+Port of pipelinedp_tpu/service/batching.py. Workers executing a job offer
+its dense release (executor.ReleaseLaunch, through the per-thread
+executor.launch_interceptor) to the service's BatchCoalescer. Within a
+short window it groups the releases by their exact fingerprint
+(_group_key: the static config, the clipping scalars, the noise stds, the
+padded row shape, the device and dtype) and runs each group as ONE
+lane-batched release (executor.batched_aggregate_release_kernel /
+batched_select_partitions_release_kernel: one launch of each kernel stage
+for all lanes). Each lane keeps its job's own base key and its own rows,
+so its release equals its solo run's bit for bit; decode, the release
+sentinel, the odometer, the ledger charge and the handle then run on the
+job's own worker, as a solo run's do.
+
+The first offer of a fingerprint leads its group: it waits out the
+window (or until max_lanes joined, or the coalescer closes), then
+dispatches the group on its own thread and hands each lane its slice.
+A window that expires with one lane returns None: the job runs its
+unchanged solo release.
+
+Differences from the JAX coalescer:
+  * No fallback. The JAX coalescer catches any failure of the batched
+    dispatch and sends every lane back to its solo launch
+    (batching.py:178-203 there). Here a failed build or launch of a lane
+    entry fails every lane's job with that error; the ledger settles as
+    for any failed job (the grant is forfeit: mechanisms registered). A
+    joiner whose leader never posts a result fails the same way.
+  * The lane axis is not padded to a power of two (_lane_bucket there
+    bounds XLA's executable cache; torch has none): a group of L jobs
+    runs L lanes, and the batch_dispatch span's lane_bucket is L.
+  * A spec whose release has no lane entries yet (executor.lanes_unported:
+    PERCENTILE, VECTOR_SUM, max_contributions, contribution bounds
+    already enforced, secure_noise, numeric_mode="safe") never coalesces:
+    it runs its solo release, counted in service_jobs_solo_unported.
+  * A group is capped below the lane entries' limits
+    (kernels.lane_capacity: int32 partition keys, the grid's y
+    dimension) as well as by max_lanes.
+  * The meshed dispatch (_dispatch_meshed) waits for the multi-GPU slice
+    (ROADMAP item 12).
+
+The stacked lanes go to the device as one host-to-device copy a column
+(from pinned memory on the card), and the results come back as one copy
+an output, split on the host (_split_lanes).
+"""
+
+import threading
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from pipelinedp_tpu_torch import executor
+from pipelinedp_tpu_torch import kernels
+from pipelinedp_tpu_torch.runtime import telemetry as rt_telemetry
+from pipelinedp_tpu_torch.runtime import trace as rt_trace
+from pipelinedp_tpu_torch.runtime.concurrency import guarded_by
+
+# A joiner whose leader never posts (a lost leader thread) fails after
+# this bound instead of blocking its worker for ever.
+_JOINER_TIMEOUT_S = 600.0
+
+
+def _group_key(launch: "executor.ReleaseLaunch"):
+    """The coalescing fingerprint: two launches share one batched release
+    iff their keys are equal. Everything shared goes in; the per-lane base
+    key and the row values stay out (the lane axis carries them)."""
+    if launch.kind == "aggregate":
+        return ("aggregate", launch.cfg, launch.scalars,
+                np.asarray(launch.stds).tobytes(), launch.pid.shape,
+                launch.values.shape, str(launch.device), launch.dtype)
+    return ("select", launch.l0, launch.n_partitions, launch.selection,
+            launch.pid.shape, str(launch.device), launch.dtype)
+
+
+def _unported(launch: "executor.ReleaseLaunch") -> Optional[str]:
+    """Why this launch cannot run as a lane (None: it can)."""
+    if launch.kind == "aggregate":
+        return executor.lanes_unported(launch.cfg)
+    return None
+
+
+def _lane_cap(launch: "executor.ReleaseLaunch", max_lanes: int) -> int:
+    n_partitions = (launch.cfg.n_partitions if launch.kind == "aggregate"
+                    else launch.n_partitions)
+    return min(max_lanes,
+               kernels.lane_capacity(int(launch.pid.shape[0]), n_partitions))
+
+
+class _Lane:
+    """One job's seat in a batch group."""
+
+    __slots__ = ("launch", "event", "result", "error")
+
+    def __init__(self, launch):
+        self.launch = launch
+        self.event = threading.Event()
+        self.result = None  # None: run solo (a lone lane's window)
+        self.error: Optional[BaseException] = None
+
+
+class _Group:
+    """One open batch window: the lanes so far, the 'full' event the
+    leader waits on, and the group's lane cap."""
+
+    __slots__ = ("lanes", "full", "closed", "cap")
+
+    def __init__(self, cap: int):
+        self.lanes: List[_Lane] = []
+        self.full = threading.Event()
+        self.closed = False
+        self.cap = cap
+
+
+class BatchCoalescer:
+    """The rendezvous and dispatcher. One per DPAggregationService."""
+
+    _GUARDED_BY = guarded_by("_lock", "_groups", "_closing")
+
+    def __init__(self, window_s: float, max_lanes: int):
+        self._window_s = float(window_s)
+        self._max_lanes = int(max_lanes)
+        self._lock = threading.Lock()
+        self._groups: Dict[Any, _Group] = {}
+        self._closing = False
+
+    def close(self) -> None:
+        """Wakes every open window now (service stop): pending groups
+        dispatch with the lanes they have, new offers run solo."""
+        with self._lock:
+            self._closing = True
+            groups = list(self._groups.values())
+            self._groups.clear()
+        for group in groups:
+            group.full.set()
+
+    def offer(self, launch) -> Optional[Any]:
+        """Called from the executor's release site on the job's worker
+        thread. Returns the lane's result, None to run solo, or raises the
+        batched release's failure."""
+        reason = _unported(launch)
+        if reason is not None:
+            rt_telemetry.record("service_jobs_solo_unported", unported=reason)
+            return None
+        cap = _lane_cap(launch, self._max_lanes)
+        if cap < 2:
+            return None
+        key = _group_key(launch)
+        lane = _Lane(launch)
+        with self._lock:
+            if self._closing:
+                return None
+            group = self._groups.get(key)
+            leader = group is None or group.closed
+            if leader:
+                group = _Group(cap)
+                self._groups[key] = group
+            group.lanes.append(lane)
+            if len(group.lanes) >= group.cap:
+                group.closed = True
+                if self._groups.get(key) is group:
+                    del self._groups[key]
+                group.full.set()
+        if not leader:
+            if not lane.event.wait(_JOINER_TIMEOUT_S):
+                raise RuntimeError(
+                    f"megabatched release: the group's leader posted no "
+                    f"result within {_JOINER_TIMEOUT_S} s")
+            return _result_of(lane)
+        group.full.wait(self._window_s)
+        with self._lock:
+            group.closed = True
+            if self._groups.get(key) is group:
+                del self._groups[key]
+            lanes = list(group.lanes)
+        if len(lanes) == 1:
+            # The window expired with this job alone: its solo release
+            # runs unchanged (no batch launch, no batch counters).
+            return None
+        _dispatch(lanes)
+        return _result_of(lane)
+
+
+def _result_of(lane: _Lane):
+    if lane.error is not None:
+        raise lane.error
+    return lane.result
+
+
+def _dispatch(lanes: List[_Lane]) -> None:
+    """Runs the group as one lane-batched release on the leader's thread
+    and posts each lane its slice; a failure is posted to every lane."""
+    try:
+        launches = [lane.launch for lane in lanes]
+        if launches[0].kind == "aggregate":
+            results = _dispatch_aggregate(launches)
+        else:
+            results = _dispatch_select(launches)
+        for lane, result in zip(lanes, results):
+            lane.result = result
+    # Posted to every lane: each lane's job fails with the batched
+    # release's error (no fallback to solo).
+    except Exception as e:  # noqa: BLE001
+        for lane in lanes:
+            lane.error = e
+    finally:
+        for lane in lanes:
+            lane.event.set()
+
+
+def _record_batch(n_lanes: int) -> None:
+    rt_telemetry.record("service_batch_launches")
+    rt_telemetry.record("service_jobs_batched", n_lanes)
+    rt_telemetry.set_gauge("service_batch_occupancy", n_lanes, job_id=None)
+
+
+def _stack(columns: List[np.ndarray], device: torch.device,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The lanes' host columns stacked [L, n] (converted to dtype on the
+    way) and copied to the device once. On the card the stack is written
+    straight into pinned memory, so the rows are copied once on the host
+    and once to the card."""
+    first = torch.from_numpy(columns[0])
+    pinned = device.type == "cuda"
+    host = torch.empty((len(columns),) + tuple(first.shape),
+                       dtype=first.dtype if dtype is None else dtype,
+                       pin_memory=pinned)
+    for lane, col in enumerate(columns):
+        host[lane].copy_(torch.from_numpy(col))
+    if not pinned:
+        return host.to(device)
+    return host.to(device, non_blocking=True)
+
+
+def _split_lanes(n_lanes: int, n_kept, order, outputs=None,
+                 flags=None) -> List[Any]:
+    """Copies the stacked results to the host once and splits them into
+    each lane's (n_kept, order[, outputs, flags])."""
+    n_kept = n_kept.cpu()
+    order = order.cpu()
+    if outputs is None:
+        return [(n_kept[i], order[i]) for i in range(n_lanes)]
+    outputs = {name: col.cpu() for name, col in outputs.items()}
+    flags = flags.cpu()
+    return [(n_kept[i], order[i], {name: col[i] for name, col in
+                                   outputs.items()}, flags[i])
+            for i in range(n_lanes)]
+
+
+def _dispatch_aggregate(launches) -> List[Any]:
+    """One lane-batched aggregation release for the group."""
+    n_lanes = len(launches)
+    first = launches[0]
+    device = torch.device(first.device)
+    pid = _stack([l.pid for l in launches], device, torch.int32)
+    pk = _stack([l.pk for l in launches], device, torch.int32)
+    values = _stack([l.values for l in launches], device, first.dtype)
+    valid = _stack([l.valid for l in launches], device)
+    keys = np.stack([np.asarray(l.key, np.uint32) for l in launches])
+    min_v, max_v, min_s, max_s, mid = first.scalars
+    with rt_trace.span("batch_dispatch", lanes=n_lanes, lane_bucket=n_lanes,
+                       kind="aggregate"):
+        n_kept, order, outputs, flags = \
+            executor.batched_aggregate_release_kernel(
+                pid, pk, values, valid, min_v, max_v, min_s, max_s, mid,
+                first.stds, keys, first.cfg)
+        results = _split_lanes(n_lanes, n_kept, order, outputs, flags)
+        _record_batch(n_lanes)
+    return results
+
+
+def _dispatch_select(launches) -> List[Any]:
+    """One lane-batched standalone-selection release for the group."""
+    n_lanes = len(launches)
+    first = launches[0]
+    device = torch.device(first.device)
+    pid = _stack([l.pid for l in launches], device, torch.int32)
+    pk = _stack([l.pk for l in launches], device, torch.int32)
+    valid = _stack([l.valid for l in launches], device)
+    keys = np.stack([np.asarray(l.key, np.uint32) for l in launches])
+    with rt_trace.span("batch_dispatch", lanes=n_lanes, lane_bucket=n_lanes,
+                       kind="select"):
+        n_kept, order = executor.batched_select_partitions_release_kernel(
+            pid, pk, valid, keys, first.l0, first.n_partitions,
+            first.selection, first.dtype)
+        results = _split_lanes(n_lanes, n_kept, order)
+        _record_batch(n_lanes)
+    return results

@@ -127,8 +127,10 @@ def test_radix_sort_orders_negative_and_wide_keys():
 
 
 def test_radix_sort_rejects_bad_words():
-    with pytest.raises(ValueError, match="1 to 3"):
+    with pytest.raises(ValueError, match="1 to 4"):
         kernels.radix_sort([])
+    with pytest.raises(ValueError, match="1 to 4"):
+        kernels.radix_sort([torch.zeros(4, dtype=torch.int32)] * 5)
     with pytest.raises(ValueError, match="dtype"):
         kernels.radix_sort([torch.zeros(4, dtype=torch.bool)])
     with pytest.raises(ValueError, match="expected contiguous"):

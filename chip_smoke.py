@@ -184,6 +184,31 @@ after every earlier phase:
              (S3) their selection: every batched job == its solo run
              (release, spent epsilon, ledger trail), a group of 16 lanes
              launching C1-C4 and C6 once each and C5 twice
+The dense route over a device mesh (parallel/, K21, K22, K24c) adds, after
+every earlier phase, on make_mesh([cuda:0] * 4) (four shard slots on the
+one card):
+  2. kernels C21 combine_shards (plain: float32 and int32; compensated)
+             at D = 4 over 17,770 x 6 columns, 2^21 and 16 x 17,770,
+             beside stack.sum(0); C22 reshard_count and C23
+             reshard_exchange over the 2^24 Netflix rows on 4 shards,
+             values scalar and one-hot (V = 5), the whole exchange == its
+             plain twin, beside torch.bincount and an argsort +
+             index_select chain
+  3. parity  small meshed aggregations (public, private, PERCENTILE) and a
+             selection in float64 on the card's mesh against a CPU mesh,
+             reshard "host" and "device"
+  4. mesh    (a), (b) and a selection with reshard="host" (host rows, the
+             LPT permutation; one run) and "device" (rows on the card,
+             the exchange; two runs); (c) through the mesh == the
+             unmeshed (c) and within 16 noise stds of numpy; (p, eps
+             1e12) safe float32 through the mesh (C21's compensated
+             entry); (b) on make_mesh(); (a)'s stage split (staging, phase
+             1 a shard, C21, release, decode) and its idle share under
+             torch.profiler, both reshard modes
+  4. service S2b's 16 jobs on TorchBackend(mesh=...), batching off and on:
+             every batched job == its solo meshed run
+`python3 chip_smoke.py --mesh-all-cards` runs the build and the mesh
+phases alone on make_mesh(), one shard slot on every visible card.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -319,6 +344,9 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     t0 = time.perf_counter()
+    if "--mesh-all-cards" in sys.argv[1:]:
+        return mesh_all_cards(torch, tdp, cuda_build, columnar, kernels,
+                              card, t0)
 
     # 1. build -------------------------------------------------------------
     build_s = cuda_build.build_all()
@@ -424,6 +452,15 @@ def main() -> int:
     for name, count in service_phase(torch, tdp, kernels, card, users,
                                      movies, ratings).items():
         launches[name] += count
+    # The dense route over a device mesh (K21, K22, K24c), after every
+    # earlier phase.
+    report += mesh_kernel_phase(torch, dev, encoded, onehot, kernels, card)
+    mesh_parity_phase(torch, tdp, rng)
+    for phase in (mesh_phase(torch, tdp, encoded, kernels, card),
+                  mesh_service_phase(torch, tdp, kernels, card, users, movies,
+                                     ratings)):
+        for name, count in phase.items():
+            launches[name] += count
     for entry in report:
         entry["launches"] = launches[entry["name"]]
         print(f"kernel {entry['name']}: max_abs_err={entry['max_abs_err']} "
@@ -5393,6 +5430,650 @@ def service_phase(torch, tdp, kernels, card, users, movies, ratings,
               f"(two runs each); launches a group "
               f"{dict((k, batched[3][k]) for k in SERVICE_PATH)} ({card})",
               flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The dense route over a device mesh (parallel/, K21, K22, K24c).
+
+MESH_SHARDS = 4  # four shard slots on the one card
+# The meshed dense path: C1-C6 a shard, C21 over the shards' columns; a
+# device-resident input adds the exchange (C22, C23).
+MESH_PATH = BASE_KERNELS + ("combine_shards",)
+EXCHANGE_PATH = MESH_PATH + ("reshard_count", "reshard_exchange")
+SOURCES = {"combine_shards": "combine_shards.cu",
+           "combine_shards_compensated": "combine_shards.cu",
+           "reshard_count": "reshard_count.cu",
+           "reshard_exchange": "reshard_exchange.cu"}
+REPLACES = {
+    "combine_shards": "pipelinedp_tpu/parallel/sharded.py:161",
+    "combine_shards_compensated": "pipelinedp_tpu/ops/segment_ops.py:160",
+    "reshard_count": "pipelinedp_tpu/parallel/reshard.py:106",
+    "reshard_exchange": "pipelinedp_tpu/parallel/reshard.py:133"}
+
+
+# None: four shard slots on cuda:0; "all": make_mesh(), one slot on every
+# visible card (the --mesh-all-cards run).
+MESH_CARDS = None
+
+
+def card_mesh(torch, n_shards=MESH_SHARDS):
+    from pipelinedp_tpu_torch.parallel.mesh import make_mesh
+    if MESH_CARDS == "all":
+        return make_mesh()
+    return make_mesh([torch.device("cuda", 0)] * n_shards)
+
+
+def mesh_all_cards(torch, tdp, cuda_build, columnar, kernels, card, t0):
+    """python3 chip_smoke.py --mesh-all-cards: the mesh phases alone on
+    make_mesh() over every visible card (shard s on cuda:s; the combine
+    and the exchange cross cards by peer copy)."""
+    global MESH_CARDS
+    MESH_CARDS = "all"
+    print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
+          f"{cuda_build.build_all():.1f} s; {torch.cuda.device_count()} "
+          f"cards ({card})", flush=True)
+    rng = np.random.default_rng(SEED)
+    users, movies, ratings = netflix_rows(rng)
+    encoded = columnar.encode_columns(users, movies, ratings)
+    report = mesh_kernel_phase(torch, torch.device("cuda", 0), encoded,
+                               one_hot_ratings(encoded), kernels, card)
+    mesh_parity_phase(torch, tdp, rng)
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    for phase in (mesh_phase(torch, tdp, encoded, kernels, card),
+                  mesh_service_phase(torch, tdp, kernels, card, users, movies,
+                                     ratings)):
+        for name, count in phase.items():
+            launches[name] += count
+    for entry in report:
+        entry["launches"] = launches[entry["name"]]
+    print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(card)
+    print(json.dumps({"kernels": report}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+class plain_exchange:
+    """Scope in which the reshard takes C22's and C23's plain versions
+    (torch on the card): the twin a kernel run is held against."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def __enter__(self):
+        k = self.kernels
+        self.saved = (k.reshard_count, k.reshard_exchange)
+        k.reshard_count = k.reshard_count_plain
+        k.reshard_exchange = k.reshard_exchange_plain
+
+    def __exit__(self, *exc):
+        self.kernels.reshard_count, self.kernels.reshard_exchange = self.saved
+
+
+def mesh_kernel_phase(torch, dev, encoded, onehot, kernels, card):
+    """C21 (plain and compensated) at D = 4 over the release's 17,770 x 6
+    columns, 2^21 and the 16-lane stack (16 x 17,770); C22 and C23 over
+    the 2^24 Netflix rows split evenly over 4 shards, values scalar
+    (V = 1) and one-hot (V = 5): each == its plain version on the card;
+    times at the main path's shapes (C21: 17,770 x 6; C22 / C23: one
+    shard's 2^22 rows, V = 1)."""
+    from pipelinedp_tpu_torch.parallel import mesh as mesh_lib
+    from pipelinedp_tpu_torch.parallel import reshard
+    mesh = card_mesh(torch)
+    d = mesh.size
+    report = []
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, m in (("17,770 x 6", N_MOVIES * 6), ("2^21", 1 << 21),
+                     ("16 x 17,770", 16 * N_MOVIES)):
+        # Ragged magnitudes and a 2^24 head with unit tails: the fold
+        # order shows in the low bits.
+        stack = (torch.randn(d, m, device=dev, generator=gen) *
+                 10.0**torch.randint(-3, 8, (d, m), device=dev,
+                                     generator=gen))
+        stack[0, :1024] = 2.0**24
+        stack[1:, :1024] = 1.0
+        istack = torch.randint(-2**30, 2**30, (d, m), device=dev,
+                               generator=gen, dtype=torch.int32)
+        err = {
+            "combine_shards": max(
+                check_equal(f"combine_shards[{label}] float32",
+                            kernels.combine_shards(stack),
+                            kernels.combine_shards_plain(stack)),
+                check_equal(f"combine_shards[{label}] int32",
+                            kernels.combine_shards(istack),
+                            kernels.combine_shards_plain(istack))),
+            "combine_shards_compensated": check_equal(
+                f"combine_shards_compensated[{label}]",
+                kernels.combine_shards(stack, compensated=True),
+                kernels.combine_shards_plain(stack, compensated=True)),
+        }
+        exact = stack.double().sum(0)
+        fold_err = float((kernels.combine_shards(stack).double() -
+                          exact).abs().max())
+        comp_err = float((kernels.combine_shards(stack, True).double() -
+                          exact).abs().max())
+        b_ms, b_by = bound((d + 1) * m * 4, (d - 1) * m)
+        for name, compensated in (("combine_shards", False),
+                                  ("combine_shards_compensated", True)):
+            ms = cuda_ms(lambda: kernels.combine_shards(stack, compensated),
+                         50)
+            plain_ms = cuda_ms(lambda: kernels.combine_shards_plain(
+                stack, compensated), 10)
+            lib_ms = cuda_ms(lambda: stack.sum(0), 50)
+            print(f"kernel {name}[D={d}, M={label}]: == plain; ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
+                  f"library_ms(stack.sum(0))={lib_ms:.4f}; largest "
+                  f"difference from the float64 sum: shard-order fold "
+                  f"{fold_err:.4g}, compensated {comp_err:.4g} ({card})",
+                  flush=True)
+            if label == "17,770 x 6":
+                report.append(dict(
+                    name=name, route="cuda",
+                    source=f"pipelinedp_tpu_torch/csrc/{SOURCES[name]}",
+                    replaces=REPLACES[name], launches=0,
+                    max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    # C22 and C23 over the Netflix rows on 4 shards.
+    pid = torch.as_tensor(encoded.pid).to(dev)
+    pk = torch.as_tensor(encoded.pk).to(dev)
+    valid = torch.as_tensor(encoded.valid).to(dev)
+    per_in = mesh_lib.rows_per_shard(encoded.n_rows, d)
+    for width, vals in ((1, torch.as_tensor(encoded.values).to(
+            dev, torch.float32)), (5, torch.as_tensor(onehot.values).to(
+                dev, torch.float32))):
+        reshard.reset_capacity_cache()
+        shards = reshard._pad_and_shard(mesh, per_in, pid, pk, vals, valid)
+        counted = []
+        for s in shards:
+            with mesh_lib.on_device(s[0].device):
+                counted.append(kernels.reshard_count(s[0], s[3], d))
+        err22 = 0.0
+        for s, got in zip(shards, counted):
+            want = kernels.reshard_count_plain(s[0], s[3], d)
+            err22 = max([err22] + [check_equal(f"reshard_count {w}", a, b)
+                                   for w, a, b in zip(("dest", "rank",
+                                                       "counts"), got, want)])
+        got = reshard.device_reshard_rows_by_pid(mesh, pid, pk, vals, valid)
+        reshard.reset_capacity_cache()
+        with plain_exchange(kernels):
+            want = reshard.device_reshard_rows_by_pid(mesh, pid, pk, vals,
+                                                      valid)
+        err23 = max(check_equal(f"reshard_exchange shard {s} column {j}",
+                                g[j], w[j])
+                    for s, (g, w) in enumerate(zip(got, want))
+                    for j in range(4))
+        table = np.stack([c[2][:d].cpu().numpy() for c in counted]).astype(
+            np.int64)
+        recv = table.sum(axis=0)
+        out_cap = got[0][0].shape[0]
+        kept = sum(int(s[3].sum()) for s in got)
+        if kept != int(valid.sum()) or table.sum() != kept:
+            raise AssertionError(f"reshard V={width}: {kept} rows arrived "
+                                 f"of {int(valid.sum())}")
+        owner = torch.full((int(pid.max()) + 1,), -1, dtype=torch.int64,
+                           device=dev)
+        for s, (s_pid, _, _, s_valid) in enumerate(got):
+            owner[s_pid[s_valid].long().to(dev)] = s
+        for s, (s_pid, _, _, s_valid) in enumerate(got):
+            if bool((owner[s_pid[s_valid].long().to(dev)] != s).any()):
+                raise AssertionError(f"reshard V={width}: a privacy id's "
+                                     f"rows lie on two shards")
+        print(f"reshard[2^24 rows, D={d}, V={width}]: C22 on every shard "
+              f"and the C22 + C23 exchange == their plain versions; every "
+              f"id on one shard; send table {table.tolist()}, out_cap "
+              f"{out_cap} (max receive {int(recv.max())}) ({card})",
+              flush=True)
+        if width != 1:
+            continue
+        s_pid, s_pk, s_vals, s_valid = shards[0]
+        dest, rank, _ = counted[0]
+        n = s_pid.shape[0]
+        n_valid = int(s_valid.sum())
+        offsets = np.cumsum(table, axis=0) - table
+        outs = [reshard._empty_rows(dev, out_cap, vals) for _ in range(d)]
+        targets = [outs[t] + (int(offsets[0, t]),) for t in range(d)]
+        fill = outs[0] + (int(recv[0]),)
+        pad = out_cap - int(recv[0])
+        timing = {
+            "reshard_count": (
+                lambda: kernels.reshard_count(s_pid, s_valid, d),
+                lambda: kernels.reshard_count_plain(s_pid, s_valid, d),
+                lambda: torch.bincount(dest.long(), minlength=d + 1),
+                bound(n * (4 + 1 + 4 + 4), n * 40), err22),
+            "reshard_exchange": (
+                lambda: kernels.reshard_exchange(s_pid, s_pk, s_vals, dest,
+                                                 rank, targets, fill),
+                lambda: kernels.reshard_exchange_plain(
+                    s_pid, s_pk, s_vals, dest, rank, targets, fill),
+                lambda: [c.index_select(0, torch.argsort(dest, stable=True))
+                         for c in (s_pid, s_pk, s_vals, s_valid)],
+                bound(n * 8 + n_valid * (4 + 4 + 4) * 2 + n_valid +
+                      pad * (4 + 4 + 4 + 1), n), err23),
+        }
+        for name, (fn, plain, lib, (b_ms, b_by), err) in timing.items():
+            ms = cuda_ms(fn, 20)
+            plain_ms = cuda_ms(plain, 3, 1)
+            lib_ms = cuda_ms(lib, 10)
+            print(f"kernel {name}[one shard: {n} rows, {n_valid} valid, "
+                  f"D={d}]: == plain; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={b_ms:.3g} ({b_by}) library_ms={lib_ms:.4f} "
+                  f"({card})", flush=True)
+            report.append(dict(
+                name=name, route="cuda",
+                source=f"pipelinedp_tpu_torch/csrc/{SOURCES[name]}",
+                replaces=REPLACES[name], launches=0, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms))
+    return report
+
+
+def mesh_parity_phase(torch, tdp, rng, devices=("cuda", "cpu")):
+    """Small meshed aggregations and a selection in float64 on
+    make_mesh([cuda:0] * 4) against the same on make_mesh(["cpu"] * 4)
+    (the plain versions), both reshard modes: the same partitions, values
+    within 1e-9 relative."""
+    from pipelinedp_tpu_torch.parallel.mesh import make_mesh
+    n = 4096
+    users = rng.integers(0, 300, n)
+    movies = (rng.integers(0, 40, n)**2) // 40
+    ratings = rng.integers(1, 6, n).astype(np.float64)
+    rows = list(zip(users.tolist(), movies.tolist(), ratings.tolist()))
+    public = sorted(set(movies.tolist()))
+    M = tdp.Metrics
+    cases = (
+        ("count-sum-mean-variance", [M.COUNT, M.SUM, M.MEAN, M.VARIANCE],
+         "GAUSSIAN", True),
+        ("count-sum-pid, private", [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT],
+         "LAPLACE", False),
+        ("percentile", [M.PERCENTILE(50), M.COUNT], "LAPLACE", True),
+        ("select", None, None, False))
+    for mode in ("host", "device"):
+        for label, metrics, noise, is_public in cases:
+            results = []
+            for device in devices:
+                mesh = make_mesh([torch.device(device)] * MESH_SHARDS)
+                acc = tdp.NaiveBudgetAccountant(total_epsilon=4.0,
+                                                total_delta=1e-6)
+                engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                    device=device, noise_seed=5, dtype=torch.float64,
+                    mesh=mesh, reshard=mode))
+                ex = tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                                        partition_extractor=lambda r: r[1],
+                                        value_extractor=lambda r: r[2])
+                if metrics is None:
+                    res = engine.select_partitions(
+                        rows, tdp.SelectPartitionsParams(
+                            max_partitions_contributed=3), ex)
+                else:
+                    res = engine.aggregate(rows, tdp.AggregateParams(
+                        metrics=metrics,
+                        noise_kind=getattr(tdp.NoiseKind, noise),
+                        max_partitions_contributed=4,
+                        max_contributions_per_partition=2, min_value=1.0,
+                        max_value=5.0), ex, public if is_public else None)
+                acc.compute_budgets()
+                results.append(list(res) if metrics is None else dict(res))
+            gpu, cpu = results
+            if metrics is None:
+                if gpu != cpu or not gpu:
+                    raise AssertionError(f"mesh parity select {mode}: cuda "
+                                         f"kept {len(gpu)}, cpu {len(cpu)}")
+                worst = 0.0
+            else:
+                if set(gpu) != set(cpu) or not gpu:
+                    raise AssertionError(f"mesh parity {label} {mode}: "
+                                         f"released partitions differ")
+                worst = max(abs(a - b) / max(1.0, abs(b))
+                            for k in cpu for a, b in zip(gpu[k], cpu[k]))
+                if worst > 1e-9:
+                    raise AssertionError(f"mesh parity {label} {mode}: rel "
+                                         f"err {worst}")
+            print(f"mesh parity[{label}, reshard={mode}, D={MESH_SHARDS}]: "
+                  f"{len(gpu)} partitions, cuda float64 vs cpu float64 max "
+                  f"rel err {worst:.3g}", flush=True)
+
+
+def mesh_phase(torch, tdp, encoded, kernels, card):
+    """The dense route over make_mesh([cuda:0] * 4) at full size (the 2^24
+    Netflix rows): runs (a), (b) and a selection with reshard="host"
+    (host numpy, the LPT permutation; one run) and "device" (the rows
+    uploaded first, the C22 + C23 exchange; two runs); (c) through the mesh == the unmeshed
+    (c) and within 16 noise stds of the numpy group-by; (p, eps 1e12)
+    through the mesh (C21's compensated entry); (b) on make_mesh() (one
+    slot on the one card); the stage split and the device's idle share
+    of (a). Returns the launch counts summed over its runs."""
+    import dataclasses
+    from pipelinedp_tpu_torch.parallel.mesh import make_mesh
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    mesh = card_mesh(torch)
+    dev = mesh.device
+    d = mesh.size
+    vocab = list(encoded.partition_vocab)
+    P = len(vocab)
+    on_card = dataclasses.replace(
+        encoded, pid=torch.as_tensor(encoded.pid).to(dev),
+        pk=torch.as_tensor(encoded.pk).to(dev),
+        values=torch.as_tensor(encoded.values).to(dev, torch.float32))
+    pair_key = encoded.pid.astype(np.int64) * N_MOVIES + encoded.pk
+    pairs, pair_rows = np.unique(pair_key, return_counts=True)
+    l0_true = int(np.bincount(pairs // N_MOVIES).max())
+    linf_true = int(pair_rows.max())
+
+    def params(metrics, noise, **bounds):
+        return tdp.AggregateParams(
+            metrics=[getattr(tdp.Metrics, m) for m in metrics],
+            noise_kind=getattr(tdp.NoiseKind, noise), min_value=1.0,
+            max_value=5.0, **bounds)
+
+    def release(label, backend, data, metrics, noise, public, eps, path,
+                want=None, **bounds):
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=eps, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, backend)
+        kernels.reset_launch_counts()
+        if metrics is None:
+            res = engine.select_partitions(data, tdp.SelectPartitionsParams(
+                max_partitions_contributed=64), tdp.DataExtractors())
+        else:
+            res = engine.aggregate(data, params(metrics, noise, **bounds),
+                                   tdp.DataExtractors(),
+                                   vocab if public else None)
+        acc.compute_budgets()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = list(res) if metrics is None else dict(res)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = dict(kernels.launch_counts)
+        check_launches(f"mesh ({label})", counts, kernels, want, path)
+        for name, n in counts.items():
+            total[name] += n
+        if not out or (metrics is not None and not all(
+                math.isfinite(x) for v in out.values() for x in v)):
+            raise AssertionError(f"mesh ({label}): {len(out)} partitions or "
+                                 f"a non-finite value")
+        return out, seconds, counts
+
+    shard_launches = dict(row_keys=d, bound_rows=d, radix_sort=2 * d,
+                          combine_shards=1)
+    per_partition = dict(max_partitions_contributed=64,
+                         max_contributions_per_partition=1)
+    runs = {"a": (("COUNT", "SUM", "MEAN", "VARIANCE"), "GAUSSIAN", True),
+            "b": (("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE", False),
+            "select": (None, None, False)}
+    for label, (metrics, noise, public) in runs.items():
+        for mode, data, path in (("host", encoded, MESH_PATH),
+                                 ("device", on_card, EXCHANGE_PATH)):
+            times = []
+            # The host permutation's seconds dwarf the kernels: one run.
+            for rep in range(1 if mode == "host" else 2):
+                out, seconds, counts = release(
+                    f"{label}, {mode}", tdp.TorchBackend(
+                        noise_seed=rep, mesh=mesh, reshard=mode), data,
+                    metrics, noise, public, 1.0, path,
+                    dict(shard_launches, **(dict(reshard_count=d,
+                                                 reshard_exchange=d)
+                                            if mode == "device" else {})),
+                    **({} if metrics is None else per_partition))
+                times.append(seconds)
+            print(f"mesh ({label}) reshard={mode} D={d}: {len(out)} "
+                  f"partitions, {[round(t * 1e3, 1) for t in times]} ms "
+                  f"(wall; {N_ROWS / min(times):.4g} rows/s at the "
+                  f"faster; {card}); launches {dict((k, counts[k]) for k in path)}",
+                  flush=True)
+
+    # (c): eps 1e6 and the true maxima, meshed == unmeshed.
+    bounds = dict(max_partitions_contributed=l0_true,
+                  max_contributions_per_partition=linf_true)
+    solo, _, _ = release("c, unmeshed", tdp.TorchBackend(noise_seed=9),
+                         encoded, ("COUNT", "SUM", "PRIVACY_ID_COUNT"),
+                         "LAPLACE", True, 1e6, BASE_KERNELS, **bounds)
+    true_count = np.bincount(encoded.pk, minlength=P).astype(np.float64)
+    true_sum = np.bincount(encoded.pk, weights=encoded.values, minlength=P)
+    true_pid = np.bincount(pairs % N_MOVIES, minlength=P)
+    eps_each = 1e6 / 3
+    std = {"count": math.sqrt(2) * l0_true * linf_true / eps_each,
+           "sum": math.sqrt(2) * l0_true * linf_true * 5.0 / eps_each,
+           "privacy_id_count": math.sqrt(2) * l0_true / eps_each}
+    for mode, data, path in (("host", encoded, MESH_PATH),
+                             ("device", on_card, EXCHANGE_PATH)):
+        out, seconds, _ = release(
+            f"c, {mode}", tdp.TorchBackend(noise_seed=9, mesh=mesh,
+                                           reshard=mode), data,
+            ("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE", True, 1e6, path,
+            **bounds)
+        if out != solo:
+            bad = [m for m in vocab if out[m] != solo[m]]
+            raise AssertionError(f"mesh (c, {mode}): {len(bad)} partitions "
+                                 f"differ from the unmeshed (c), first "
+                                 f"{bad[:1]}: {out[bad[0]]} vs "
+                                 f"{solo[bad[0]]}")
+        for name, truth in (("count", true_count), ("sum", true_sum),
+                            ("privacy_id_count", true_pid)):
+            got = np.array([getattr(out[m], name) for m in vocab])
+            if (np.abs(got - truth) > 16 * std[name] + 1e-6 *
+                    np.abs(truth)).any():
+                raise AssertionError(f"mesh (c, {mode}) {name}: off the "
+                                     f"numpy group-by")
+        print(f"mesh (c) reshard={mode} D={d} epsilon=1e6, l0={l0_true}, "
+              f"linf={linf_true}: {len(out)} partitions == the unmeshed "
+              f"(c) and within 16 noise stds of the numpy group-by, in "
+              f"{seconds * 1e3:.1f} ms", flush=True)
+
+    # (p, eps 1e12) through the mesh: C21's compensated entry.
+    scaled = dataclasses.replace(encoded, values=encoded.values * 1000)
+    true_k = np.bincount(encoded.pk, weights=encoded.values * 1000,
+                         minlength=P)
+    safe_path = tuple(k for k in MESH_PATH if k not in (
+        "reduce_partitions", "combine_shards")) + (
+            "reduce_partitions_compensated", "combine_shards_compensated")
+    acc_p = tdp.NaiveBudgetAccountant(total_epsilon=1e12, total_delta=1e-6)
+    from pipelinedp_tpu_torch import combiners, executor
+    p_params = tdp.AggregateParams(
+        metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM],
+        noise_kind=tdp.NoiseKind.GAUSSIAN, min_value=1000.0,
+        max_value=5000.0, **bounds)
+    compound = combiners.create_compound_combiner(p_params, acc_p)
+    acc_p.compute_budgets()
+    sum_std = float(executor.compute_noise_stds(compound)[1])
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=1e12, total_delta=1e-6)
+    kernels.reset_launch_counts()
+    res = tdp.DPEngine(acc, tdp.TorchBackend(
+        noise_seed=13, mesh=mesh, numeric_mode="safe")).aggregate(
+            scaled, p_params, tdp.DataExtractors(), vocab)
+    acc.compute_budgets()
+    out = dict(res)
+    counts = dict(kernels.launch_counts)
+    check_launches("mesh (p, eps 1e12)", counts, kernels, path=safe_path)
+    for name, n in counts.items():
+        total[name] += n
+    got = np.array([out[m].sum for m in vocab])
+    ulp = np.spacing(np.abs(true_k).astype(np.float32)).astype(np.float64)
+    # Each shard's compensated partial is rounded to float32 once before
+    # the compensated combine (as the JAX package's are): D ulps.
+    tol = 16 * sum_std + d * ulp
+    if (np.abs(got - true_k) > tol).any():
+        raise AssertionError("mesh (p, eps 1e12): a sum off the numpy int64 "
+                             "group-by by more than 16 stds + D ulps")
+    exact = int((got == true_k.astype(np.float32).astype(np.float64)).sum())
+    print(f"mesh (p, eps 1e12) safe float32 D={d}, rating x 1000: {len(out)} "
+          f"sums within 16 noise stds ({sum_std:.3g}) + {d} float32 ulps of "
+          f"the numpy int64 group-by; {exact} equal float32(exact sum) "
+          f"(a record); launches "
+          f"{dict((k, counts[k]) for k in safe_path)} ({card})", flush=True)
+
+    # (b) on the default mesh: every visible card, one slot each.
+    default = make_mesh()
+    out, seconds, counts = release(
+        "b, make_mesh()", tdp.TorchBackend(noise_seed=3, mesh=default),
+        encoded, ("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE", False, 1.0,
+        MESH_PATH, None, **per_partition)
+    print(f"mesh (b) on make_mesh() = {default}: {len(out)} partitions in "
+          f"{seconds * 1e3:.1f} ms ({card})", flush=True)
+    mesh_stage_phase(torch, tdp, encoded, on_card, kernels, mesh, card)
+    return total
+
+
+def mesh_stage_phase(torch, tdp, encoded, on_card, kernels, mesh, card):
+    """Run (a)'s meshed release split into its stages, host clock around
+    work that ends in a synchronize: the staging (the host LPT
+    permutation and upload, or the C22 + C23 exchange), each shard's
+    phase 1, the C21 combine, the release (C4, C6) and the decode; then
+    the device's idle share of a meshed (a) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from pipelinedp_tpu_torch import combiners, executor
+    from pipelinedp_tpu_torch.ops import threefry
+    from pipelinedp_tpu_torch.parallel import reshard, sharded
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    params = tdp.AggregateParams(
+        metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM, tdp.Metrics.MEAN,
+                 tdp.Metrics.VARIANCE], noise_kind=tdp.NoiseKind.GAUSSIAN,
+        min_value=1.0, max_value=5.0, max_partitions_contributed=64,
+        max_contributions_per_partition=1)
+    compound = combiners.create_compound_combiner(params, acc)
+    acc.compute_budgets()
+    P = encoded.n_partitions
+    cfg = executor.make_kernel_config(params, compound, P, False, None)
+    stds = executor.compute_noise_stds(compound)
+    scalars = executor.kernel_scalars(params)
+    key = np.array([0, 21], np.uint32)
+    f32 = torch.float32
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - start) * 1e3
+
+    for mode, data in (("host", encoded), ("device", on_card)):
+        split = {}
+        # The device mode's second run is the one printed.
+        for _ in range(1 if mode == "host" else 2):
+            rows = executor.pad_rows(data)
+            shards, split["staging"] = clock(
+                lambda: reshard.stage_rows_to_mesh(mesh, *rows, mode, f32))
+            rows_key, _ = executor.release_key_halves(key)
+            parts, split["phase 1, all shards"] = clock(lambda: [
+                executor.partial_columns(
+                    *s, *scalars, threefry.fold_in(rows_key, i), cfg)[0]
+                for i, s in enumerate(shards)])
+            cols, split["combine (C21)"] = clock(
+                lambda: sharded._combine_partials(parts, mesh.device))
+            result, split["release (C4, C6)"] = clock(
+                lambda: executor.release_columns(cols, None, *scalars[:2],
+                                                 scalars[4], stds, key, cfg,
+                                                 f32))
+            _, split["decode"] = clock(lambda: list(
+                executor.decode_release_results(
+                    *result, encoded.partition_vocab, compound)))
+        total_ms = sum(split.values())
+        print(f"mesh stages (a) reshard={mode} D={mesh.size}: "
+              f"{json.dumps({k: round(v, 2) for k, v in split.items()})} ms,"
+              f" {total_ms:.1f} ms in all ({card})", flush=True)
+
+    for mode, data in (("host", encoded), ("device", on_card)):
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        res = tdp.DPEngine(acc, tdp.TorchBackend(
+            noise_seed=21, mesh=mesh, reshard=mode)).aggregate(
+                data, params, tdp.DataExtractors(),
+                list(encoded.partition_vocab))
+        acc.compute_budgets()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            list(res)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not device:
+            raise AssertionError("mesh profile: no device time traced")
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"mesh profile (a) reshard={mode} D={mesh.size}: wall "
+              f"{wall_ms:.1f} ms under the profiler, device busy "
+              f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f} "
+              f"({card}); largest [name, ms, calls]: " +
+              json.dumps([[short_kernel_name(e.key),
+                           round(e.self_device_time_total / 1e3, 4), e.count]
+                          for e in top]), flush=True)
+
+
+def mesh_service_phase(torch, tdp, kernels, card, users, movies, ratings,
+                       s2_jobs=S2_JOBS, s2_rows=N_ROWS // S2_JOBS):
+    """S2b's 16 jobs of 2^20 Netflix rows (COUNT + SUM + PRIVACY_ID_COUNT,
+    Laplace, private) on TorchBackend(max_partitions=17,770,
+    mesh=make_mesh([cuda:0] * 4)), batching off and on: every batched job
+    == its solo meshed run (release, spent epsilon, ledger trail). Returns
+    the batched run's launch counts."""
+    from pipelinedp_tpu_torch import columnar
+    from pipelinedp_tpu_torch.runtime import telemetry
+    from pipelinedp_tpu_torch.service import DPAggregationService, JobSpec
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    mesh = card_mesh(torch)
+    chunks = [slice(i * s2_rows, (i + 1) * s2_rows) for i in range(s2_jobs)]
+    encs = [columnar.encode_columns(users[c], movies[c], ratings[c])
+            for c in chunks]
+    params = tdp.AggregateParams(
+        metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM,
+                 tdp.Metrics.PRIVACY_ID_COUNT],
+        noise_kind=tdp.NoiseKind.LAPLACE, min_value=1.0, max_value=5.0,
+        max_partitions_contributed=64, max_contributions_per_partition=1)
+    specs = [JobSpec(params=params, epsilon=1.0, delta=1e-6,
+                     noise_seed=400 + i) for i in range(s2_jobs)]
+    runs = {}
+    for batching in (False, True):
+        with DPAggregationService(
+                tdp.TorchBackend(max_partitions=N_MOVIES, mesh=mesh),
+                max_concurrent_jobs=s2_jobs, queue_timeout_s=600.0,
+                batching=batching, batch_window_ms=60_000.0,
+                max_batch_jobs=s2_jobs) as svc:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            before = telemetry.snapshot()
+            start = time.perf_counter()
+            handles = [svc.submit(f"t{i}", spec, enc)
+                       for i, (spec, enc) in enumerate(zip(specs, encs))]
+            results = [h.result(timeout=600) for h in handles]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            counts = dict(kernels.launch_counts)
+            delta = telemetry.delta(before)
+            if not svc.ledgers_reconciled():
+                raise AssertionError(f"mesh S2b batching={batching}: ledgers "
+                                     f"do not reconcile")
+            trails = [svc.tenant_ledger(f"t{i}").records()
+                      for i in range(s2_jobs)]
+            spent = [h.spent_epsilon for h in handles]
+        runs[batching] = (results, spent, trails, counts, wall, delta)
+    solo, batched = runs[False], runs[True]
+    for i in range(s2_jobs):
+        if solo[0][i] != batched[0][i] or solo[1][i] != batched[1][i] or \
+                solo[2][i] != batched[2][i]:
+            raise AssertionError(f"mesh S2b job {i}: the batched lane's "
+                                 f"release, spent epsilon or ledger trail "
+                                 f"differs from its solo meshed run")
+        if not solo[0][i]:
+            raise AssertionError(f"mesh S2b job {i} released nothing")
+    lanes = batched[5].get("service_jobs_batched", 0)
+    if not lanes:
+        raise AssertionError("mesh S2b: no job ran as a meshed lane")
+    check_launches("mesh S2b batched", batched[3], kernels,
+                   path=SERVICE_PATH + ("combine_shards",))
+    for name, n in batched[3].items():
+        total[name] += n
+    print(f"mesh service S2b D={mesh.size}: {s2_jobs} jobs of {s2_rows} rows: "
+          f"every batched job == its solo meshed run (release, spent "
+          f"epsilon, ledger trail); {lanes} jobs ran as lanes of "
+          f"{batched[5].get('service_batch_launches', 0)} meshed launches; "
+          f"wall solo {solo[4] * 1e3:.1f} ms, batched "
+          f"{batched[4] * 1e3:.1f} ms; batched launches "
+          f"{dict((k, batched[3][k]) for k in SERVICE_PATH + ('combine_shards',))}"
+          f" ({card})", flush=True)
     return total
 
 if __name__ == "__main__":

@@ -13,8 +13,14 @@ walks every (configuration, partition) run in row order into the
 sufficient statistics, and C20 sweep_report turns them into keep
 probabilities, report rows and their bucket sums (kernels.py,
 csrc/sweep_stats.cu, csrc/sweep_report.cu). On the CPU the wrappers take
-their plain versions, for the tests. The JAX package's sharded sweep
-(sharded_sweep, :369) waits for ROADMAP.md Queue 1 item 12.
+their plain versions, for the tests.
+
+sharded_sweep (the JAX package's, :369) runs the sweep over a device mesh
+(parallel/mesh.py): the rows are split evenly over the shards (they need
+no co-location: each row's keep fraction depends only on its own
+preaggregated columns), each shard runs C5, C10 and C19 on its rows, one
+C21 combine sums the statistics onto the mesh's first device, and C20
+runs there once.
 """
 
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
@@ -170,8 +176,20 @@ def sweep_kernel(counts,
       keep_prob [K, P].
     """
     dev = resolve_device(device)
-    f = dtype
-    p = int(n_partitions_total)
+    stats = _sweep_statistics(counts, sums, contributed, pk_idx, cfg,
+                              int(n_partitions_total), metric_codes, public,
+                              config_chunk, dev, dtype)
+    return _sweep_report(stats, cfg, public, window, partition_chunk,
+                         return_per_partition, dev, dtype)
+
+
+def _sweep_statistics(counts, sums, contributed, pk_idx,
+                      cfg: SweepConfigArrays, p: int,
+                      metric_codes: Tuple[int, ...], public: bool,
+                      config_chunk: int, dev: torch.device,
+                      f: torch.dtype) -> dict:
+    """C5, C10 and C19 over these rows on `dev`: the per-partition
+    sufficient statistics {stats, [sel], n_users, n_rows, size}."""
     counts, sums, contributed = (_as(x, f, dev)
                                  for x in (counts, sums, contributed))
     pk = _as(pk_idx, torch.int32, dev)
@@ -182,25 +200,88 @@ def sweep_kernel(counts,
     else:
         perm = torch.zeros(0, dtype=torch.int64, device=dev)
         offsets = torch.zeros(p + 1, dtype=torch.int64, device=dev)
-    cfg_t = [_as(x, f, dev) for x in cfg]
-    l0, lo, hi, noise_std = cfg_t[:4]
-    sel_cfg = torch.stack(cfg_t[4:]).contiguous()
+    l0, lo, hi = (_as(x, f, dev) for x in cfg[:3])
     stats, sel, n_users, n_rows, size = kernels.sweep_stats(
         counts, sums, contributed, perm, offsets, l0, lo, hi,
         metric_codes=metric_codes, private=not public,
         config_chunk=config_chunk)
+    out = dict(stats=stats, n_users=n_users, n_rows=n_rows, size=size)
+    if sel is not None:
+        out["sel"] = sel
+    return out
+
+
+def _sweep_report(stats: dict, cfg: SweepConfigArrays, public: bool,
+                  window: int, partition_chunk: int,
+                  return_per_partition: bool, dev: torch.device,
+                  f: torch.dtype) -> dict:
+    """C20 over the (combined) statistics on `dev`: the sweep's result
+    dict."""
+    cfg_t = [_as(x, f, dev) for x in cfg]
+    noise_std = cfg_t[3]
+    sel_cfg = torch.stack(cfg_t[4:]).contiguous()
+    n_users = stats["n_users"]
     bounds = torch.tensor(BUCKET_BOUNDS, dtype=f, device=dev)
     bucket, keep_prob, bucket_rows, bucket_info = kernels.sweep_report(
-        stats, sel, n_users, size, noise_std, sel_cfg, bounds,
-        public=public, window=window, partition_chunk=partition_chunk)
+        stats["stats"], stats.get("sel"), n_users, stats["size"], noise_std,
+        sel_cfg, bounds, public=public, window=window,
+        partition_chunk=partition_chunk)
     result = {
         "bucket_rows": bucket_rows,
         "bucket_info": bucket_info,
         "n_users": n_users,
-        "n_rows": n_rows,
+        "n_rows": stats["n_rows"],
         "bucket": bucket,
     }
     if return_per_partition:
-        result["stats"] = stats
+        result["stats"] = stats["stats"]
         result["keep_prob"] = keep_prob
     return result
+
+
+def sharded_sweep(mesh,
+                  counts,
+                  sums,
+                  contributed,
+                  pk_idx,
+                  cfg: SweepConfigArrays,
+                  *,
+                  n_partitions_total: int,
+                  metric_codes: Tuple[int, ...],
+                  public: bool,
+                  return_per_partition: bool = True,
+                  config_chunk: int = 8,
+                  window: int = 64,
+                  partition_chunk: int = 4096,
+                  dtype: torch.dtype = torch.float64):
+    """The analysis sweep over a device mesh (the JAX package's
+    sharded_sweep, :369): the rows (numpy) padded to a multiple of D with
+    rows of partition n_partitions_total, which count nowhere, and split
+    evenly; each shard's statistics on its device (C5, C10, C19); one C21
+    combine of every statistic onto mesh.devices[0]; C20 there. Arguments
+    and result as sweep_kernel's."""
+    from pipelinedp_tpu_torch.parallel import collectives
+    from pipelinedp_tpu_torch.parallel.mesh import on_device
+
+    n_shards = mesh.size
+    pad = (-len(counts)) % n_shards
+
+    def padded(a, fill=0):
+        return np.pad(np.asarray(a), (0, pad), constant_values=fill)
+
+    counts, sums, contributed = (padded(a) for a in (counts, sums,
+                                                     contributed))
+    pk_idx = padded(pk_idx, n_partitions_total)
+    per = len(counts) // n_shards
+    parts = []
+    for s, dev in enumerate(mesh.devices):
+        rows = slice(s * per, (s + 1) * per)
+        with on_device(dev):
+            parts.append(_sweep_statistics(
+                counts[rows], sums[rows], contributed[rows], pk_idx[rows],
+                cfg, int(n_partitions_total), metric_codes, public,
+                config_chunk, dev, dtype))
+    stats = collectives.psum_columns(parts, mesh.device)
+    with on_device(mesh.device):
+        return _sweep_report(stats, cfg, public, window, partition_chunk,
+                             return_per_partition, mesh.device, dtype)

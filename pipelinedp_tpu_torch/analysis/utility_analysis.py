@@ -8,7 +8,8 @@ preaggregated through the backend's generic operations on the host
 the whole sweep, every parameter configuration x every partition with the
 report-histogram reduction, runs as C5 + C10 + C19 + C20 on the device
 (analysis/kernels.sweep_kernel): on a TorchBackend on backend.device in
-backend.dtype, on a plain LocalBackend on CUDA in float64.
+backend.dtype (over its mesh where it has one: kernels.sharded_sweep), on
+a plain LocalBackend on CUDA in float64.
 
 Every backend of the port is a LocalBackend. The JAX package's
 distributed route (:240-300, cross_partition_combiners.py) runs on
@@ -16,6 +17,7 @@ MultiProcLocalBackend, Beam and Spark, which the port does not have yet:
 any other backend raises NotImplementedError (ROADMAP.md Queue 1 item 14).
 """
 
+import functools
 from typing import List, Union
 
 import numpy as np
@@ -60,7 +62,8 @@ def perform_utility_analysis(
         budget_accountant=budget_accountant, backend=backend)
     device, dtype = _sweep_device(backend)
     return _perform_dense(col, engine, budget_accountant, options,
-                          data_extractors, public_partitions, device, dtype)
+                          data_extractors, public_partitions, device, dtype,
+                          mesh=getattr(backend, "mesh", None))
 
 
 def _sweep_device(backend: pipeline_backend.LocalBackend):
@@ -72,7 +75,7 @@ def _sweep_device(backend: pipeline_backend.LocalBackend):
 
 
 def _perform_dense(col, engine, budget_accountant, options, data_extractors,
-                   public_partitions, device, dtype):
+                   public_partitions, device, dtype, mesh=None):
     utility_analysis_engine._check_utility_analysis_params(
         options, data_extractors)
     analyzer = engine.request_budgets(options, public_partitions)
@@ -115,18 +118,22 @@ def _perform_dense(col, engine, budget_accountant, options, data_extractors,
         }
         per_partition = []
     else:
-        out = kernels.sweep_kernel(counts,
-                                   sums,
-                                   contributed,
-                                   pk_idx,
-                                   cfg,
-                                   n_partitions_total=len(keys),
-                                   metric_codes=tuple(
-                                       kernels.METRIC_CODES[m]
+        # The sweep over the backend's mesh when it has one: rows split
+        # over it, the statistics combined by C21 (one call site for both
+        # paths, as in the JAX package).
+        sweep = (functools.partial(kernels.sweep_kernel, device=device)
+                 if mesh is None else
+                 functools.partial(kernels.sharded_sweep, mesh))
+        out = sweep(counts,
+                    sums,
+                    contributed,
+                    pk_idx,
+                    cfg,
+                    n_partitions_total=len(keys),
+                    metric_codes=tuple(kernels.METRIC_CODES[m]
                                        for m in metric_list),
-                                   public=public,
-                                   device=device,
-                                   dtype=dtype)
+                    public=public,
+                    dtype=dtype)
         out = {name: _host(t) for name, t in out.items()}
         per_partition = _dense_per_partition(out, keys, analyzer, public)
     reports = _build_reports(

@@ -27,7 +27,8 @@ SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "vector_release", "block_offsets", "gather_rows",
            "factorize_codes", "lookup_codes", "append_rows", "pld_fft",
            "log_spectrum", "group_stats", "log_bins", "sweep_stats",
-           "sweep_report")
+           "sweep_report", "combine_shards", "reshard_count",
+           "reshard_exchange")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -151,6 +152,19 @@ _SIGNATURES = {
     "sweep_report": {
         "sweep_report": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    },
+    "combine_shards": {
+        "combine_shards": (_I, [_P, _I, _LL, _I, _P, _P]),
+        "combine_shards_compensated": (_I, [_P, _I, _LL, _P, _P]),
+    },
+    "reshard_count": {
+        "reshard_count_scratch_elements": (_LL, [_LL, _I]),
+        "reshard_count": (_I, [_P, _P, _LL, _I, _U, _P, _P, _P, _P, _P]),
+    },
+    "reshard_exchange": {
+        "reshard_exchange": (_I, [_P, _P, _P, _I, _I, _P, _P, _LL, _I, _P,
+                                  _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                                  _P]),
     },
 }
 

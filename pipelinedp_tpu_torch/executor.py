@@ -29,6 +29,16 @@ blocked route instead (parallel/large_p.py): pass 1 bounds and sorts the
 rows once, and every block of partitions runs C3 (and C7) on its window
 of the sorted stream, then C4 / C8 / C9 and C6 on its own partitions.
 
+On a TorchBackend with a mesh (parallel/mesh.py) the dense route runs
+over it (parallel/sharded.py): each shard of privacy-id-co-located rows
+runs phase 1 (partial_columns: C1 through C3, and C7's counts) under its
+own rows key, C21 sums the shards' columns (and the quantile counts) onto
+the mesh's first device, and phase 2 (release_columns: C4, C9, C8, C6)
+runs there once. Selection counts a shard (select_partition_counts) and
+selects once (select_release); the lane-batched releases split the same
+way (batched_partial_columns, batched_release_columns). The blocked route
+over a mesh is not ported yet and raises.
+
 Input is rows (columnar.encode), a pre-encoded EncodedData, or a
 runtime.pipeline.ChunkSource of column chunks (stream_chunk_source: the
 streamed ingest of ingest.py, whose columns arrive on the device already
@@ -83,6 +93,7 @@ from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
+from pipelinedp_tpu_torch.parallel.mesh import on_device
 from pipelinedp_tpu_torch.runtime import observability as rt_observability
 from pipelinedp_tpu_torch.runtime import pipeline as rt_pipeline
 
@@ -512,13 +523,18 @@ def _lane_keys(rng_keys) -> np.ndarray:
     return np.asarray(rng_keys, dtype=np.uint32).reshape(-1, 2)
 
 
-def lane_release_keys(rng_keys, plan: Sequence[MetricPlanEntry]):
+def lane_release_keys(rng_keys, plan: Sequence[MetricPlanEntry],
+                      shard: Optional[int] = None):
     """Each lane's dense release keys, stacked: (salts [L, 4], key_linf
     [L, 2], key_sel [L, 2], slot keys [L, S, 2]), as aggregate_release_kernel
-    derives them from the lane's base key."""
+    derives them from the lane's base key. shard (the mesh): the bounding
+    keys are shard s's, under fold_in(rows_key, s); the release keys are
+    every shard's."""
     salts, keys_linf, keys_sel, slots = [], [], [], []
     for key in _lane_keys(rng_keys):
         rows_key, final_key = release_key_halves(key)
+        if shard is not None:
+            rows_key = threefry.fold_in(rows_key, shard)
         _, key_linf, lane_salts = row_key_schedule(rows_key)
         key_sel, lane_slots = noise_key_schedule(final_key, plan)
         salts.append(lane_salts)
@@ -529,11 +545,14 @@ def lane_release_keys(rng_keys, plan: Sequence[MetricPlanEntry]):
             np.stack(slots))
 
 
-def lane_select_keys(rng_keys):
+def lane_select_keys(rng_keys, shard: Optional[int] = None):
     """Each lane's standalone-selection keys, stacked: (salts [L, 4],
-    key_sel [L, 2]), as select_partitions_release_kernel derives them."""
+    key_sel [L, 2]), as select_partitions_release_kernel derives them.
+    shard (the mesh): the salts are shard s's, under fold_in(key_l0, s)."""
     pairs = [select_key_schedule(key) for key in _lane_keys(rng_keys)]
-    return (np.stack([row_salts(key_l0) for key_l0, _ in pairs]),
+    return (np.stack([row_salts(key_l0 if shard is None else
+                                threefry.fold_in(key_l0, shard))
+                      for key_l0, _ in pairs]),
             np.stack([key_sel for _, key_sel in pairs]))
 
 
@@ -600,12 +619,13 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
                      stds: np.ndarray, qkey, keep: torch.Tensor,
                      flags: torch.Tensor, cfg: KernelConfig,
                      dtype: torch.dtype, secure_tables=None,
-                     base: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                     base: Optional[int] = None,
+                     combine=None) -> Dict[str, torch.Tensor]:
     """Per-partition DP percentiles (the JAX package's quantile_outputs,
     :825): sorted_rows = (perm, skey2), the partition-sorted order of the
     bounded rows; values_rows = (row_perm, values) from
-    bounded_row_columns. Flag bits of the kept partitions' percentiles are
-    ORed into flags.
+    bounded_row_columns (partial_columns' qrows are the pair). Flag bits
+    of the kept partitions' percentiles are ORed into flags.
 
     With one leaf-histogram chunk covering every partition (P <=
     quantile_chunk), C7 builds the whole tree's counts and C8 descends
@@ -615,13 +635,21 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
     passes over the rows for every quantile together. With cfg.secure the
     nodes take the quantile slot's secure table (secure_tables).
 
+    combine (the mesh): sorted_rows and values_rows are sequences, one
+    entry a shard, and combine(parts) sums the shards' int32 counts onto
+    keep's device (C21,
+    the JAX package's psums at :807 and :875): the leaf histogram before
+    the level roll-ups, each level's child counts before its descent
+    step. The descent itself runs once, on keep's device.
+
     base (a block of the blocked route): sorted_rows is the block's window
     of the sorted stream, its partitions rebased by base (C7's windowed
     entries); perm may be None there (the host-staged stream).
     """
     _require_tables(cfg, secure_tables)
-    perm, skey2 = sorted_rows
-    row_perm, values = values_rows
+    shards = (list(zip(sorted_rows, values_rows)) if combine is not None
+              else [(sorted_rows, values_rows)])
+    total = combine if combine is not None else (lambda parts: parts[0])
     P, h, B = cfg.n_partitions, cfg.tree_height, cfg.branching
     qidx = quantile_std_index(cfg.plan)
     gaussian = cfg.noise_kind == NoiseKind.GAUSSIAN
@@ -630,10 +658,22 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
                    max_v=max_v, keep=keep, flags=flags,
                    tables=_slot_table(secure_tables if cfg.secure else None,
                                       qidx))
+
+    def counted(count):
+        """count(skey2, perm, row_perm, values) of every shard, each under
+        its own device, summed by total."""
+        parts = []
+        for (perm, skey2), (row_perm, values) in shards:
+            with on_device(skey2.device):
+                parts.append(count(skey2, perm, row_perm, values))
+        return total(parts)
+
     if -(-P // max(cfg.quantile_chunk, 1)) <= 1:
-        leaf_counts = kernels.quantile_leaf_counts(
-            skey2, perm, row_perm, values, n_partitions=P, n_leaves=B**h,
-            min_v=min_v, max_v=max_v, base=base)
+        leaf_counts = counted(
+            lambda skey2, perm, row_perm, values:
+            kernels.quantile_leaf_counts(
+                skey2, perm, row_perm, values, n_partitions=P,
+                n_leaves=B**h, min_v=min_v, max_v=max_v, base=base))
         levels = kernels.quantile_level_counts(leaf_counts, tree_height=h,
                                                branching=B)
         ckey = threefry.fold_in(qkey, 0)
@@ -643,11 +683,14 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
             **descent)
     else:
         state = kernels.DescentState(P, len(cfg.quantiles), dtype,
-                                     skey2.device)
+                                     keep.device)
         for level in range(1, h + 1):
-            counts = kernels.quantile_child_counts(
-                skey2, perm, row_perm, values, state.node, level=level,
-                base=base, **tree)
+            counts = counted(
+                lambda skey2, perm, row_perm, values, level=level:
+                kernels.quantile_child_counts(
+                    skey2, perm, row_perm, values,
+                    state.node.to(skey2.device), level=level, base=base,
+                    **tree))
             per_quantile = kernels.quantile_descend_step(
                 counts, state, cfg.quantiles, level=level, tree_height=h,
                 level_key=threefry.fold_in(qkey, level), **descent)
@@ -662,28 +705,57 @@ def compact_release(outputs: Dict[str, torch.Tensor], keep: torch.Tensor):
     return kernels.compact_kept(keep, outputs)
 
 
-def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
-                             max_s, mid, stds: np.ndarray, rng_key,
-                             cfg: KernelConfig, secure_tables=None):
-    """The dense release: bounding, partition columns, selection, noise,
-    percentiles, compaction. Key derivation follows the JAX package's
-    _aggregate_trace. Returns (n_kept, order, outputs kept-first, flags)."""
-    rows_key, final_key = release_key_halves(rng_key)
+def partial_columns(pid, pk, values, valid, min_v, max_v, min_s, max_s,
+                    mid, rows_key, cfg: KernelConfig):
+    """Phase 1 of the dense release (the JAX package's partial_columns,
+    :517): contribution bounding and the dense partition columns of these
+    rows. On the mesh it runs once a shard, under the shard's rows key.
+    Returns (cols, qrows): the columns (reduce_rows_to_partitions') and
+    qrows = (sorted_rows, values_rows), the row streams quantile_outputs
+    reads."""
     key2, pair_start, reduce_cols, rows = bounded_row_columns(
         pid, pk, values, valid, min_v, max_v, min_s, max_s, mid, rows_key,
         cfg)
     cols, sorted_rows = reduce_rows_to_partitions(
         key2, pair_start, reduce_cols, cfg.n_partitions, values.dtype,
         rows if cfg.vector_size else None, cfg.numeric_mode)
+    return cols, (sorted_rows, rows)
+
+
+def release_columns(cols, qrows, min_v, max_v, mid, stds: np.ndarray,
+                    rng_key, cfg: KernelConfig, dtype: torch.dtype,
+                    secure_tables=None, combine=None):
+    """Phase 2 of the dense release from the (combined) partition columns:
+    selection, noise, percentiles, compaction, under the replicated half
+    of rng_key's split (finalize) and fold_in(rng_key, 7919) (the
+    percentiles). qrows: partial_columns' (on the mesh a list, one a
+    shard, and combine the cross-shard sum of their quantile counts).
+    Returns (n_kept, order, outputs kept-first, flags)."""
+    _, final_key = release_key_halves(rng_key)
     outputs, keep, flags = finalize(cols, min_v, mid, stds, final_key, cfg,
                                     secure_tables)
     if cfg.quantiles:
+        sorted_rows, values_rows = (zip(*qrows) if combine is not None
+                                    else qrows)
         outputs.update(quantile_outputs(
-            sorted_rows, rows, min_v, max_v, stds,
-            threefry.fold_in(rng_key, 7919), keep, flags, cfg,
-            values.dtype, secure_tables))
+            sorted_rows, values_rows, min_v, max_v, stds,
+            threefry.fold_in(rng_key, 7919), keep, flags, cfg, dtype,
+            secure_tables, combine=combine))
     n_kept, order, outputs_sorted = compact_release(outputs, keep)
     return n_kept, order, outputs_sorted, flags
+
+
+def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
+                             max_s, mid, stds: np.ndarray, rng_key,
+                             cfg: KernelConfig, secure_tables=None):
+    """The dense release: bounding, partition columns, selection, noise,
+    percentiles, compaction. Key derivation follows the JAX package's
+    _aggregate_trace. Returns (n_kept, order, outputs kept-first, flags)."""
+    rows_key, _ = release_key_halves(rng_key)
+    cols, qrows = partial_columns(pid, pk, values, valid, min_v, max_v,
+                                  min_s, max_s, mid, rows_key, cfg)
+    return release_columns(cols, qrows, min_v, max_v, mid, stds, rng_key,
+                           cfg, values.dtype, secure_tables)
 
 
 def lanes_unported(cfg: KernelConfig) -> Optional[str]:
@@ -725,14 +797,31 @@ def batched_aggregate_release_kernel(pid, pk, values, valid, min_v, max_v,
     {output: F[L, P]} kept-first, flags int32[L]); lane l equals
     aggregate_release_kernel on its rows and key alone, bit for bit.
     """
+    _require_lanes(cfg)
+    salts, keys_linf, key_sel, slots = lane_release_keys(rng_keys, cfg.plan)
+    cols = batched_partial_columns(pid, pk, values, valid, min_v, max_v,
+                                   min_s, max_s, mid, salts, keys_linf, cfg)
+    return batched_release_columns(cols, min_v, mid, stds, key_sel, slots,
+                                   cfg, pid.shape[0])
+
+
+def _require_lanes(cfg: KernelConfig) -> None:
     reason = lanes_unported(cfg)
     if reason is not None:
         raise NotImplementedError(
             f"batched_aggregate_release_kernel: {reason} has no lane-batched "
             f"entries yet (ROADMAP.md Queue 1 item 13)")
-    n_lanes, lane_rows = pid.shape
+
+
+def batched_partial_columns(pid, pk, values, valid, min_v, max_v, min_s,
+                            max_s, mid, salts, keys_linf, cfg: KernelConfig):
+    """Phase 1 of the lane-batched release: C1-C3's lane entries over the
+    [L, n] rows under each lane's (salts, key_linf). Returns the lanes'
+    dense columns, {name: dtype[L * P]}, partition p of lane l at
+    l * P + p. On the mesh it runs once a shard, under the shard's keys
+    (lane_release_keys(..., shard=s))."""
+    lane_rows = pid.shape[1]
     P = cfg.n_partitions
-    salts, keys_linf, key_sel, slots = lane_release_keys(rng_keys, cfg.plan)
     flat_values = values.reshape(-1)
     flat_valid = valid.reshape(-1)
     lane, k1, k2, u = kernels.row_keys_lanes(
@@ -747,8 +836,17 @@ def batched_aggregate_release_kernel(pid, pk, values, valid, min_v, max_v,
         scalars=(min_v, max_v, min_s, max_s, mid),
         columns=reduce_column_names(cfg))
     perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
-    cols = kernels.reduce_partitions_lanes(skey2, perm2, pair_start, row_cols,
-                                           lane_rows, P, values.dtype)
+    return kernels.reduce_partitions_lanes(skey2, perm2, pair_start,
+                                           row_cols, lane_rows, P,
+                                           values.dtype)
+
+
+def batched_release_columns(cols, min_v, mid, stds: np.ndarray, key_sel,
+                            slots, cfg: KernelConfig, n_lanes: int):
+    """Phase 2 of the lane-batched release from the lanes' (combined)
+    columns: C4's and C6's lane entries under each lane's key_sel and slot
+    keys. Returns (n_kept int64[L], order int64[L, P], {output: F[L, P]}
+    kept-first, flags int32[L])."""
     keep, outputs, flags = kernels.release_epilogue_lanes(
         cols, epilogue_plan(cfg.plan), stds, slots, cfg.noise_kind,
         cfg.degenerate_range, mid, min_v,
@@ -764,12 +862,13 @@ class ReleaseLaunch:
     """One job's dense release, offered to the thread's launch interceptor
     (the service's coalescer) before it runs solo.
 
-    Carries what the solo release gets: the pad_rows-padded host rows, the
-    job's own base key, and for kind "aggregate" the clipping scalars,
-    noise stds and cfg, for kind "select" (l0, n_partitions, selection);
-    device and dtype are the job's backend's.
-    Lanes keep their solo keys, which is what makes a batched lane's
-    release its solo run's."""
+    Carries what the solo release gets: the host rows (pad_rows-padded,
+    but for a meshed selection's, which the meshed dispatcher stages
+    unpadded as the solo meshed selection does), the job's own base key,
+    and for kind "aggregate" the clipping scalars, noise stds and cfg, for
+    kind "select" (l0, n_partitions, selection); device, dtype, mesh and
+    reshard are the job's backend's. Lanes keep their solo keys, which is
+    what makes a batched lane's release its solo run's."""
     kind: str  # "aggregate" | "select"
     pid: Any
     pk: Any
@@ -777,6 +876,9 @@ class ReleaseLaunch:
     key: Any
     device: Any
     dtype: Any
+    mesh: Any = None
+    reshard: str = "auto"
+    staged: Any = None  # a meshed lane's host-staged rows (batching)
     values: Any = None
     scalars: Optional[Tuple[float, ...]] = None
     stds: Any = None
@@ -810,10 +912,23 @@ def launch_interceptor(fn):
         _LAUNCH_INTERCEPTOR.fn = prev
 
 
-def _offerable(interceptor, pid) -> bool:
-    """A release may join a batch when an interceptor is active and its
-    rows are host numpy (a streamed input's device columns run solo)."""
-    return interceptor is not None and isinstance(pid, np.ndarray)
+def _offerable(interceptor, pid, backend) -> bool:
+    """A release may join a batch when an interceptor is active, its rows
+    are host numpy (a streamed input's device columns run solo) and a
+    meshed backend is not forced onto the device exchange (the meshed
+    dispatcher stages lanes through the host LPT permutation, as a solo
+    host-row run does)."""
+    return (interceptor is not None and isinstance(pid, np.ndarray) and
+            (backend.mesh is None or backend.reshard != "device"))
+
+
+def _mesh_unported(what: str):
+    """The blocked route over a mesh is the next slice's."""
+    return NotImplementedError(
+        f"{what} over a mesh above large_partition_threshold (the blocked "
+        f"route, K23) is not ported yet: ROADMAP.md Queue 1 item 12. Raise "
+        f"TorchBackend(large_partition_threshold=...) above the partition "
+        f"count, or drop mesh=.")
 
 
 def to_device(encoded: columnar.EncodedData, device: torch.device,
@@ -904,12 +1019,17 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
         stds = compute_noise_stds(compound)
         secure_tables = None
         if cfg.secure:
+            # On a mesh the release runs on its first device.
             secure_tables = build_secure_tables(
                 stds, compute_noise_sensitivities(compound, params),
-                params.noise_kind, backend.snap_grid_bits, backend.device)
+                params.noise_kind, backend.snap_grid_bits,
+                backend.device if backend.mesh is None else
+                backend.mesh.device)
         key = noise_ops.make_noise_key(backend.noise_seed)
         min_v, max_v, min_s, max_s, mid = kernel_scalars(params)
         if _blocked(backend, n_partitions):
+            if backend.mesh is not None:
+                raise _mesh_unported("DPEngine.aggregate")
             # The blocked route: the raw encoded columns go in (it pads to
             # its own row capacity) and only kept partitions come back.
             from pipelinedp_tpu_torch.parallel import large_p
@@ -928,7 +1048,7 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
         with budget_accountant.no_new_mechanisms("dense release execution"):
             result = None
             interceptor = _active_launch_interceptor()
-            if _offerable(interceptor, rows[0]):
+            if _offerable(interceptor, rows[0], backend):
                 # The megabatched service: this job may run as one lane of
                 # a lane-batched release (None: run solo).
                 result = interceptor(ReleaseLaunch(
@@ -936,8 +1056,15 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                     values=rows[2], valid=rows[3], key=key,
                     scalars=(min_v, max_v, min_s, max_s, mid),
                     stds=np.asarray(stds), cfg=cfg, device=backend.device,
-                    dtype=backend.dtype))
-            if result is None:
+                    dtype=backend.dtype, mesh=backend.mesh,
+                    reshard=backend.reshard))
+            if result is None and backend.mesh is not None:
+                from pipelinedp_tpu_torch.parallel import sharded
+                result = sharded.sharded_aggregate_arrays(
+                    backend.mesh, *rows, min_v, max_v, min_s, max_s, mid,
+                    stds, key, cfg, secure_tables, reshard=backend.reshard,
+                    dtype=backend.dtype)
+            elif result is None:
                 pid, pk, values, valid = padded_to_device(
                     *rows, backend.device, backend.dtype)
                 result = aggregate_release_kernel(
@@ -1078,11 +1205,24 @@ def select_partitions_release_kernel(pid: torch.Tensor, pk: torch.Tensor,
     an empty metric plan and C6 compacts. Returns (n_kept, order).
     """
     key_l0, key_sel = select_key_schedule(rng_key)
+    cols = select_partition_counts(pid, pk, valid, key_l0, l0, n_partitions,
+                                   dtype)
+    return select_release(cols, selection, key_sel)
+
+
+def select_partition_counts(pid: torch.Tensor, pk: torch.Tensor,
+                            valid: torch.Tensor, key_l0, l0: int,
+                            n_partitions: int, dtype: torch.dtype):
+    """The counting stage of standalone selection (the JAX package's
+    select_partition_counts, :1013): the partitions' privacy-id counts
+    after pair dedupe and L0 sampling, as C3's count / pid_count columns
+    (exact integers). On the mesh it runs once a shard, under the shard's
+    L0 key."""
     key2, pair_start = select_bounded_pairs(pid, pk, valid, key_l0, l0,
                                             n_partitions)
     cols, _ = reduce_rows_to_partitions(key2, pair_start, {}, n_partitions,
                                         dtype)
-    return select_release(cols, selection, key_sel)
+    return cols
 
 
 def select_bounded_pairs(pid: torch.Tensor, pk: torch.Tensor,
@@ -1124,8 +1264,18 @@ def batched_select_partitions_release_kernel(
     entry (pid_count), C4's with an empty plan, C6's. Returns (n_kept
     int64[L], order int64[L, P]); lane l equals
     select_partitions_release_kernel on its rows and key alone."""
-    n_lanes, lane_rows = pid.shape
     salts, key_sel = lane_select_keys(rng_keys)
+    cols = batched_select_counts(pid, pk, valid, salts, l0, n_partitions,
+                                 dtype)
+    return batched_select_release(cols, selection, key_sel, pid.shape[0])
+
+
+def batched_select_counts(pid, pk, valid, salts, l0: int, n_partitions: int,
+                          dtype: torch.dtype):
+    """The counting stage of L standalone selections (C1, C2 and C3's lane
+    entries): the lanes' count / pid_count columns, [L * P]. On the mesh
+    it runs once a shard, under the shard's salts."""
+    lane_rows = pid.shape[1]
     flat_valid = valid.reshape(-1)
     lane, k1, k2, _ = kernels.row_keys_lanes(
         pid.reshape(-1), pk.reshape(-1), flat_valid, lane_rows,
@@ -1136,8 +1286,14 @@ def batched_select_partitions_release_kernel(
         n_partitions=n_partitions, linf=0, l0=l0, clip_per_value=False,
         clip_pair_sum=False, scalars=(0.0,) * 5, columns=())
     perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
-    cols = kernels.reduce_partitions_lanes(skey2, perm2, pair_start, {},
+    return kernels.reduce_partitions_lanes(skey2, perm2, pair_start, {},
                                            lane_rows, n_partitions, dtype)
+
+
+def batched_select_release(cols, selection: selection_ops.SelectionParams,
+                           key_sel, n_lanes: int):
+    """The lanes' keep decisions (C4's lane entry with an empty plan) and
+    kept-first order (C6's): (n_kept int64[L], order int64[L, P])."""
     keep, _, _ = kernels.release_epilogue_lanes(
         cols, [], np.zeros(0), np.zeros((n_lanes, 0, 2), np.uint32),
         NoiseKind.LAPLACE, False, 0.0, 0.0, selection, key_sel, 1, n_lanes)
@@ -1196,6 +1352,8 @@ def lazy_select_partitions(backend, col, params, data_extractors,
         n_partitions = resolve_n_partitions(backend, encoded.n_partitions)
         key = noise_ops.make_noise_key(backend.noise_seed)
         if _blocked(backend, n_partitions):
+            if backend.mesh is not None:
+                raise _mesh_unported("DPEngine.select_partitions")
             from pipelinedp_tpu_torch.parallel import large_p
             with budget_accountant.no_new_mechanisms(
                     "blocked partition selection execution"):
@@ -1205,18 +1363,28 @@ def lazy_select_partitions(backend, col, params, data_extractors,
                     selection, **blocked_kwargs(backend))
             yield from _decode_keys(kept_ids, encoded.partition_vocab)
             return
-        rows = pad_rows(encoded)
+        # The meshed selection stages the unpadded rows, as the JAX
+        # package's does.
+        rows = (pad_rows(encoded) if backend.mesh is None else
+                (encoded.pid, encoded.pk, None, encoded.valid))
         with budget_accountant.no_new_mechanisms(
                 "partition selection execution"):
             result = None
             interceptor = _active_launch_interceptor()
-            if _offerable(interceptor, rows[0]):
+            if _offerable(interceptor, rows[0], backend):
                 result = interceptor(ReleaseLaunch(
                     kind="select", pid=rows[0], pk=rows[1], valid=rows[3],
                     key=key, l0=params.max_partitions_contributed,
                     n_partitions=n_partitions, selection=selection,
-                    device=backend.device, dtype=backend.dtype))
-            if result is None:
+                    device=backend.device, dtype=backend.dtype,
+                    mesh=backend.mesh, reshard=backend.reshard))
+            if result is None and backend.mesh is not None:
+                from pipelinedp_tpu_torch.parallel import sharded
+                result = sharded.sharded_select_partitions(
+                    backend.mesh, rows[0], rows[1], rows[3], key,
+                    params.max_partitions_contributed, n_partitions,
+                    selection, reshard=backend.reshard, dtype=backend.dtype)
+            elif result is None:
                 pid, pk, _, valid = padded_to_device(*rows, backend.device,
                                                      backend.dtype)
                 result = select_partitions_release_kernel(

@@ -140,6 +140,21 @@ def validate_encode_mode(encode_mode, obj_name: str) -> None:
             f"to 'host' on a detected hash collision).")
 
 
+def validate_reshard(reshard, obj_name: str) -> None:
+    """Validates a meshed backend's reshard mode: "auto", "host" or
+    "device" (pipelinedp_tpu/pipeline_backend.py:550-552).
+
+    Raises:
+        ValueError: reshard is not one of the three modes.
+    """
+    if reshard not in ("auto", "host", "device"):
+        raise ValueError(
+            f"{obj_name}: reshard must be auto|host|device, got "
+            f"{reshard!r} — 'auto' reshards device-resident rows on the "
+            f"device and host rows by the host permutation, 'host' and "
+            f"'device' force one path.")
+
+
 def validate_pld_discretization(pld_discretization, obj_name: str) -> None:
     """Validates the PLD loss-grid discretization interval: a finite
     number in [1e-7, 0.5]. Finer than 1e-7 makes million-cell grids

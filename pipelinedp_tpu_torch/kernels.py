@@ -1,7 +1,7 @@
-"""The twenty CUDA kernels of the dense and blocked release and selection
-paths, the streamed ingest, the PLD composition, the dataset histograms and
-the utility-analysis sweep, their wrappers and their plain PyTorch
-versions.
+"""The twenty-three CUDA kernels of the dense and blocked release and
+selection paths, the device mesh, the streamed ingest, the PLD composition,
+the dataset histograms and the utility-analysis sweep, their wrappers and
+their plain PyTorch versions.
 
     C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform;
                                                      total-bound keys (total_bound_keys)
@@ -45,6 +45,14 @@ versions.
                                                      the analysis sweep
     C20 sweep_report      csrc/sweep_report.cu       keep probabilities, report
                                                      rows, bucket sums
+    C21 combine_shards    csrc/combine_shards.cu     the cross-shard sum of a
+                                                     [D, M] stack of partials
+                                                     (plain; compensated)
+    C22 reshard_count     csrc/reshard_count.cu      destination shard, send
+                                                     counts and stable rank of
+                                                     every row
+    C23 reshard_exchange  csrc/reshard_exchange.cu   every row written to its
+                                                     slot on its destination
 
 The blocked route (parallel/large_p.py) runs C3 and C7 on windows of the
 partition-sorted stream: their windowed entries (base=) rebase each row's
@@ -97,6 +105,7 @@ from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import segment_ops
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
+from pipelinedp_tpu_torch.parallel.mesh import MAX_SHARDS
 
 KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
@@ -109,7 +118,9 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "append_rows", "pld_fft", "log_spectrum", "group_stats",
            "log_bins", "sweep_stats", "sweep_report", "row_keys_lanes",
            "bound_rows_lanes", "reduce_partitions_lanes",
-           "release_epilogue_lanes", "compact_kept_lanes")
+           "release_epilogue_lanes", "compact_kept_lanes", "combine_shards",
+           "combine_shards_compensated", "reshard_count",
+           "reshard_exchange")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -2779,3 +2790,214 @@ def compact_kept_lanes_plain(keep, columns, n_lanes):
     return (torch.stack([q[0] for q in parts]),
             torch.stack([q[1] for q in parts]),
             {n: torch.stack([q[2][n] for q in parts]) for n in columns})
+
+
+# ---------------------------------------------------------------------------
+# C21 combine_shards
+
+_COMBINE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+                  torch.float64: 3}
+
+
+def combine_shards(stack: torch.Tensor,
+                   compensated: bool = False) -> torch.Tensor:
+    """C21: the sum over the shard axis of a [D, M] stack of per-shard
+    partials, [M].
+
+    The plain entry takes int32, int64, float32 or float64 and adds in
+    shard order 0..D-1 (integers exact, int32 wrapping as XLA's psum
+    does). compensated (float32 only, numeric_mode="safe"): the shards'
+    (hi, lo) pairs combined by TwoSum in jax.lax.associative_scan's
+    association, hi + lo of the last element (the JAX package's
+    segment_ops.compensated_psum), bit for bit.
+    """
+    if stack.dim() != 2 or stack.dtype not in _COMBINE_CODES or \
+            not stack.is_contiguous() or stack.shape[0] < 1:
+        raise ValueError(f"combine_shards: expected a contiguous [D >= 1, M] "
+                         f"stack of int32, int64, float32 or float64, got "
+                         f"{stack.dtype}{list(stack.shape)}")
+    n_shards, m = stack.shape
+    if compensated and stack.dtype != torch.float32:
+        raise ValueError(f"combine_shards: the compensated entry takes "
+                         f"float32, got {stack.dtype}")
+    if n_shards > 64:
+        raise ValueError(f"combine_shards: at most 64 shards, got "
+                         f"{n_shards}")
+    if not _on_cuda(stack):
+        return combine_shards_plain(stack, compensated)
+    dev = stack.device
+    out = torch.empty(m, dtype=stack.dtype, device=dev)
+    lib = cuda_build.library("combine_shards")
+    if compensated:
+        status = lib.combine_shards_compensated(_ptr(stack), n_shards, m,
+                                                _ptr(out), _stream(dev))
+    else:
+        status = lib.combine_shards(_ptr(stack), n_shards, m,
+                                    _COMBINE_CODES[stack.dtype], _ptr(out),
+                                    _stream(dev))
+    name = "combine_shards_compensated" if compensated else "combine_shards"
+    _raise_on(status, name)
+    _count(name)
+    return out
+
+
+def combine_shards_plain(stack, compensated=False):
+    if compensated:
+        hi, lo = segment_ops._associative_scan(
+            segment_ops._comp_combine, (stack, torch.zeros_like(stack)))
+        return hi[-1] + lo[-1]
+    out = stack[0].clone()
+    for s in range(1, stack.shape[0]):
+        out = out + stack[s]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# C22 reshard_count
+
+
+def dest_shard(pid: torch.Tensor, n_shards: int, salt: int) -> torch.Tensor:
+    """reshard._dest_shard of the JAX package: hash_mix(u32(pid) *
+    0x9E3779B9 ^ salt) % n_shards, int32 (plain arithmetic in int64)."""
+    x = (((pid.to(torch.int64) & _M32) * 0x9E3779B9) & _M32) ^ (salt & _M32)
+    return (_hash_mix(x) % n_shards).to(torch.int32)
+
+
+def reshard_count(pid: torch.Tensor, valid: torch.Tensor, n_shards: int,
+                  salt: int = 0):
+    """C22: every row's destination shard, the per-destination counts and
+    every row's stable rank within its destination.
+
+    Returns (dest int32[n]: dest_shard of a valid row, n_shards of an
+    invalid one; rank int32[n]: the number of earlier rows with the same
+    dest; counts int32[n_shards + 1]: rows a destination, the invalid
+    last)."""
+    n = pid.shape[0]
+    _check(pid, torch.int32, n, "pid")
+    _check(valid, torch.bool, n, "valid")
+    if not 1 <= n_shards <= 64:
+        raise ValueError(f"reshard_count: 1 to 64 shards, got {n_shards}")
+    if not _on_cuda(pid, valid):
+        return reshard_count_plain(pid, valid, n_shards, salt)
+    dev = pid.device
+    lib = cuda_build.library("reshard_count")
+    scratch = torch.empty(
+        max(1, lib.reshard_count_scratch_elements(n, n_shards)),
+        dtype=torch.int32, device=dev)
+    dest = torch.empty(n, dtype=torch.int32, device=dev)
+    rank = torch.empty_like(dest)
+    counts = torch.empty(n_shards + 1, dtype=torch.int32, device=dev)
+    status = lib.reshard_count(_ptr(pid), _ptr(valid), n, n_shards,
+                               int(salt) & _M32, _ptr(dest), _ptr(rank),
+                               _ptr(counts), _ptr(scratch), _stream(dev))
+    _raise_on(status, "reshard_count")
+    _count("reshard_count")
+    return dest, rank, counts
+
+
+def reshard_count_plain(pid, valid, n_shards, salt=0):
+    dest = torch.where(valid, dest_shard(pid, n_shards, salt),
+                       n_shards).to(torch.int32)
+    counts = torch.bincount(dest.to(torch.int64), minlength=n_shards + 1)
+    order = torch.argsort(dest, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(dest)
+    rank[order] = (torch.arange(dest.shape[0], device=dest.device) -
+                   starts[dest[order].to(torch.int64)]).to(torch.int32)
+    return dest, rank, counts.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# C23 reshard_exchange
+
+
+def _check_exchange_values(values: Optional[torch.Tensor], n: int,
+                           what: str) -> int:
+    """The width of a [n] or [n, V] float32/float64 value column (0: None)."""
+    if values is None:
+        return 0
+    if values.dtype not in (torch.float32, torch.float64) or \
+            values.dim() not in (1, 2) or values.shape[0] != n or \
+            not values.is_contiguous():
+        raise ValueError(f"{what}: expected contiguous float32/float64 [{n}] "
+                         f"or [{n}, V], got {values.dtype}"
+                         f"{list(values.shape)}")
+    return 1 if values.dim() == 1 else values.shape[1]
+
+
+def reshard_exchange(pid: torch.Tensor, pk: torch.Tensor,
+                     values: Optional[torch.Tensor], dest: torch.Tensor,
+                     rank: torch.Tensor, targets, fill) -> None:
+    """C23: writes every valid row of one source shard to its slot.
+
+    pid, pk int32[n], values [n] / [n, V] or None, dest / rank from C22.
+    targets: one (pid, pk, values, valid, offset) a destination shard,
+    the columns the source's rows for that shard go into (its receive
+    buffer, or a staging slice to be copied there) and the row they start
+    at; the row of rank r goes to offset + r. fill: (pid, pk, values,
+    valid, start) of the source's own receive buffer, whose rows from
+    start on get the padding row (0, -1, 0, False). Every tensor lies on
+    the source's device; the columns are written in place.
+    """
+    n = pid.shape[0]
+    _check(pid, torch.int32, n, "pid")
+    _check(pk, torch.int32, n, "pk")
+    _check(dest, torch.int32, n, "dest")
+    _check(rank, torch.int32, n, "rank")
+    width = _check_exchange_values(values, n, "values")
+    n_shards = len(targets)
+    if not 1 <= n_shards <= MAX_SHARDS:
+        raise ValueError(f"reshard_exchange: 1 to {MAX_SHARDS} shards, got "
+                         f"{n_shards}")
+    outs = list(targets) + [fill]
+    for j, (t_pid, t_pk, t_values, t_valid, _) in enumerate(outs):
+        cap = t_pid.shape[0]
+        _check(t_pid, torch.int32, cap, f"target {j} pid")
+        _check(t_pk, torch.int32, cap, f"target {j} pk")
+        _check(t_valid, torch.bool, cap, f"target {j} valid")
+        if _check_exchange_values(t_values, cap, f"target {j} values") != \
+                width or (t_values is not None and
+                          t_values.dtype != values.dtype):
+            raise ValueError(f"reshard_exchange: target {j}'s values do not "
+                             f"match the source's")
+    tensors = [pid, pk, values, dest, rank] + [
+        t for out in outs for t in out[:4]]
+    if not _on_cuda(*tensors):
+        return reshard_exchange_plain(pid, pk, values, dest, rank, targets,
+                                      fill)
+    dev = pid.device
+    if any(t is not None and t.device != dev for t in tensors):
+        raise ValueError("reshard_exchange: every target must lie on the "
+                         "source shard's device (stage a slice for a shard "
+                         "elsewhere)")
+
+    def ptrs(k):
+        return (ctypes.c_void_p * n_shards)(*[_ptr(t[k]) for t in targets])
+
+    offsets = (ctypes.c_longlong * n_shards)(*[int(t[4]) for t in targets])
+    f_pid, f_pk, f_values, f_valid, f_start = fill
+    status = cuda_build.library("reshard_exchange").reshard_exchange(
+        _ptr(pid), _ptr(pk), _ptr(values), width,
+        0 if values is None else values.element_size(), _ptr(dest),
+        _ptr(rank), n, n_shards, ptrs(0), ptrs(1), ptrs(2), ptrs(3), offsets,
+        _ptr(f_pid), _ptr(f_pk), _ptr(f_values), _ptr(f_valid),
+        int(f_start), f_pid.shape[0], _stream(dev))
+    _raise_on(status, "reshard_exchange")
+    _count("reshard_exchange")
+
+
+def reshard_exchange_plain(pid, pk, values, dest, rank, targets, fill):
+    for d, (t_pid, t_pk, t_values, t_valid, offset) in enumerate(targets):
+        rows = torch.nonzero(dest == d).reshape(-1)
+        pos = int(offset) + rank[rows].to(torch.int64)
+        t_pid[pos] = pid[rows]
+        t_pk[pos] = pk[rows]
+        t_valid[pos] = True
+        if values is not None:
+            t_values[pos] = values[rows]
+    f_pid, f_pk, f_values, f_valid, start = fill
+    f_pid[start:] = 0
+    f_pk[start:] = -1
+    f_valid[start:] = False
+    if f_values is not None:
+        f_values[start:] = 0

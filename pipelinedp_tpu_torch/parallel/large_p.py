@@ -47,8 +47,11 @@ with the block key itself.
 Not ported yet (ROADMAP.md Queue 1): the failure-semantics knobs of the
 JAX functions (retry, journal, watchdog, the overlapped drainer and the
 OOM re-plan of run_with_degradation, item 13) and the meshed variants
-(item 12). Both functions keep the run_range(base, capacity, generation,
-end) shape and _block_noise_key's generations, so a re-plan slots in.
+(aggregate_blocked_sharded, select_partitions_blocked_sharded: K23, the
+rest of item 12, on the mesh, C21 combine and C22 / C23 exchange of
+parallel/mesh.py, sharded.py and reshard.py). Both functions keep the
+run_range(base, capacity, generation, end) shape and _block_noise_key's
+generations, so a re-plan slots in.
 """
 
 import dataclasses

@@ -286,7 +286,8 @@ class LocalBackend(PipelineBackend):
 
 
 class TorchBackend(LocalBackend):
-    """Runs DP aggregations through the port's kernels on one device.
+    """Runs DP aggregations through the port's kernels on one device or a
+    device mesh.
 
     Args:
       device: "cuda" (the default) or "cpu". The CPU runs each kernel's
@@ -327,6 +328,22 @@ class TorchBackend(LocalBackend):
         exact chunked vocabulary encoder) or "hash_device" (keys hashed on
         the host, codes assigned on the device, partition keys decoded
         only where kept). A ChunkSource's own encode_mode overrides it.
+      mesh: optional parallel.mesh.Mesh (make_mesh). When set, the dense
+        route shards rows by privacy id over the mesh's D slots, each
+        shard computes its partial partition columns, one cross-shard
+        combine (C21) sums them onto the mesh's first device and the
+        release runs there once (parallel/sharded.py), as
+        TPUBackend(mesh=...) does with shard_map and psum. Its devices
+        are of device's type. None: one device. The blocked route over a
+        mesh is not ported yet (ROADMAP.md Queue 1 item 12): a meshed
+        release above large_partition_threshold raises.
+      reshard: how a meshed release puts each privacy id's rows on one
+        shard (parallel/reshard.stage_rows_to_mesh). "auto" (default):
+        device-resident columns (the streamed ingest's) reshard on the
+        device (C22 send counts, C23 exchange; rows never touch the
+        host), host rows take the exact load-balanced host permutation.
+        "host" / "device" force one path. Unlike the JAX package's, a
+        failed device exchange raises: there is no host fallback.
 
     The generic operations are LocalBackend's, seeded by noise_seed, as
     TPUBackend's are.
@@ -344,7 +361,9 @@ class TorchBackend(LocalBackend):
                  max_partitions: Optional[int] = None,
                  pipeline_depth: Optional[int] = None,
                  encode_threads: Optional[int] = None,
-                 encode_mode: str = "host"):
+                 encode_mode: str = "host",
+                 mesh=None,
+                 reshard: str = "auto"):
         super().__init__(seed=noise_seed)
         if device is None:
             if not torch.cuda.is_available():
@@ -376,6 +395,11 @@ class TorchBackend(LocalBackend):
             input_validators.validate_encode_threads(encode_threads,
                                                      "TorchBackend")
         input_validators.validate_encode_mode(encode_mode, "TorchBackend")
+        input_validators.validate_reshard(reshard, "TorchBackend")
+        if mesh is not None and mesh.device.type != device.type:
+            raise ValueError(f"TorchBackend: the mesh's devices "
+                             f"({mesh.device.type}) are not of the backend's "
+                             f"device type ({device.type})")
         self.device = device
         self.noise_seed = noise_seed
         self.large_partition_threshold = large_partition_threshold
@@ -388,6 +412,8 @@ class TorchBackend(LocalBackend):
         self.pipeline_depth = pipeline_depth
         self.encode_threads = encode_threads
         self.encode_mode = encode_mode
+        self.mesh = mesh
+        self.reshard = reshard
 
     def for_job(self, job_id: Optional[str] = None,
                 noise_seed: Optional[int] = None) -> "TorchBackend":
@@ -396,9 +422,10 @@ class TorchBackend(LocalBackend):
         backend for its lifetime and runs many jobs on it at once, each
         with its own noise seed. The view shares the device, the working
         dtype and every knob of the parent; noise_seed overrides where
-        given. job_id is accepted for the reference's signature and is
-        unused: the reference keys its blocked route's journal by it,
-        and the port has no such journal yet (ROADMAP item 13)."""
+        given; the mesh and reshard mode are shared. job_id is accepted
+        for the reference's signature and is unused: the reference keys
+        its blocked route's journal by it, and the port has no such
+        journal yet (ROADMAP item 13)."""
         del job_id
         return TorchBackend(
             device=self.device,
@@ -413,4 +440,6 @@ class TorchBackend(LocalBackend):
             max_partitions=self.max_partitions,
             pipeline_depth=self.pipeline_depth,
             encode_threads=self.encode_threads,
-            encode_mode=self.encode_mode)
+            encode_mode=self.encode_mode,
+            mesh=self.mesh,
+            reshard=self.reshard)

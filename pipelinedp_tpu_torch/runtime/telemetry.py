@@ -90,6 +90,10 @@ REGISTRY: Dict[str, Metric] = {
                  "jobs settled CANCELLED (JobHandle.cancel() or a "
                  "deadline_s expiry): reservation released, nothing "
                  "charged, result withheld"),
+        _counter("reshard_capacity_reuse",
+                 "device reshards whose measured loads fit the cached "
+                 "exchange capacities of their geometry "
+                 "(parallel/reshard.py)"),
         _gauge("job_health_state",
                "numeric health state of a job (0 HEALTHY, 1 DEGRADED, "
                "2 STALLED, 3 FAILED - runtime/health.HealthState)"),

@@ -36,8 +36,17 @@ Differences from the JAX coalescer:
   * A group is capped below the lane entries' limits
     (kernels.lane_capacity: int32 partition keys, the grid's y
     dimension) as well as by max_lanes.
-  * The meshed dispatch (_dispatch_meshed) waits for the multi-GPU slice
-    (ROADMAP item 12).
+
+On a meshed backend (_dispatch_meshed, K24c) every lane is staged by the
+same host LPT permutation its solo meshed run takes
+(sharded.shard_rows_by_pid, on the job's own worker before the
+rendezvous, where the JAX leader stages every lane itself), the lanes
+whose staged layouts agree run as
+one meshed lane-batched release (sharded.sharded_batched_release: the
+lane entries a shard, one C21 combine of the [D, L * P] columns, C4 and
+C6 once), and a lane whose layout no other lane shares runs solo. The
+group key carries the mesh and the reshard mode; a backend forced onto
+the device exchange never offers (executor._offerable).
 
 The stacked lanes go to the device as one host-to-device copy a column
 (from pinned memory on the card), and the results come back as one copy
@@ -68,9 +77,11 @@ def _group_key(launch: "executor.ReleaseLaunch"):
     if launch.kind == "aggregate":
         return ("aggregate", launch.cfg, launch.scalars,
                 np.asarray(launch.stds).tobytes(), launch.pid.shape,
-                launch.values.shape, str(launch.device), launch.dtype)
+                launch.values.shape, str(launch.device), launch.dtype,
+                launch.mesh, launch.reshard)
     return ("select", launch.l0, launch.n_partitions, launch.selection,
-            launch.pid.shape, str(launch.device), launch.dtype)
+            launch.pid.shape, str(launch.device), launch.dtype, launch.mesh,
+            launch.reshard)
 
 
 def _unported(launch: "executor.ReleaseLaunch") -> Optional[str]:
@@ -145,6 +156,10 @@ class BatchCoalescer:
         cap = _lane_cap(launch, self._max_lanes)
         if cap < 2:
             return None
+        if launch.mesh is not None:
+            # The lane's host permutation runs here, on the job's own
+            # worker, before the rendezvous: the leader only stacks.
+            launch.staged = _stage_lane(launch)
         key = _group_key(launch)
         lane = _Lane(launch)
         with self._lock:
@@ -192,7 +207,9 @@ def _dispatch(lanes: List[_Lane]) -> None:
     and posts each lane its slice; a failure is posted to every lane."""
     try:
         launches = [lane.launch for lane in lanes]
-        if launches[0].kind == "aggregate":
+        if launches[0].mesh is not None:
+            results = _dispatch_meshed(launches)
+        elif launches[0].kind == "aggregate":
             results = _dispatch_aggregate(launches)
         else:
             results = _dispatch_select(launches)
@@ -285,4 +302,62 @@ def _dispatch_select(launches) -> List[Any]:
             first.selection, first.dtype)
         results = _split_lanes(n_lanes, n_kept, order)
         _record_batch(n_lanes)
+    return results
+
+
+def _stage_lane(launch: "executor.ReleaseLaunch"):
+    """The lane's rows through the host LPT permutation its solo meshed
+    run takes (sharded.shard_rows_by_pid); selection never reads values,
+    so it stages a zero-width column, as the solo meshed selection does."""
+    from pipelinedp_tpu_torch.parallel import sharded
+    values = (launch.values if launch.kind == "aggregate" else
+              np.zeros((len(launch.pid), 0)))
+    return sharded.shard_rows_by_pid(
+        np.asarray(launch.pid), np.asarray(launch.pk), values,
+        np.asarray(launch.valid), launch.mesh.size)
+
+
+def _dispatch_meshed(launches) -> List[Any]:
+    """The meshed lane-batched releases of the group (the JAX package's
+    _dispatch_meshed, batching.py:290): the lanes, staged by _stage_lane
+    on their workers, grouped by staged layout (the per-shard capacity
+    depends on the data), each group of two or more run as one meshed
+    lane-batched release; a lane alone in its layout gets None and runs
+    solo."""
+    from pipelinedp_tpu_torch.parallel import sharded
+
+    first = launches[0]
+    mesh = first.mesh
+    staged = [launch.staged for launch in launches]
+    by_layout: Dict[Any, List[int]] = {}
+    for i, (spid, _, svalues, _) in enumerate(staged):
+        by_layout.setdefault((spid.shape, svalues.shape), []).append(i)
+    results: List[Any] = [None] * len(launches)
+    for indices in by_layout.values():
+        if len(indices) < 2:
+            continue
+        n_lanes = len(indices)
+        shards = sharded.stage_lanes(mesh, [staged[i] for i in indices],
+                                     first.dtype)
+        keys = np.stack([np.asarray(launches[i].key, np.uint32)
+                         for i in indices])
+        with rt_trace.span("batch_dispatch", lanes=n_lanes,
+                           lane_bucket=n_lanes, kind=first.kind,
+                           meshed=True):
+            if first.kind == "aggregate":
+                min_v, max_v, min_s, max_s, mid = first.scalars
+                n_kept, order, outputs, flags = \
+                    sharded.sharded_batched_release(
+                        mesh, shards, min_v, max_v, min_s, max_s, mid,
+                        first.stds, keys, first.cfg)
+                lane_results = _split_lanes(n_lanes, n_kept, order, outputs,
+                                            flags)
+            else:
+                n_kept, order = sharded.sharded_batched_select_release(
+                    mesh, shards, keys, first.l0, first.n_partitions,
+                    first.selection, first.dtype)
+                lane_results = _split_lanes(n_lanes, n_kept, order)
+            _record_batch(n_lanes)
+        for lane_pos, i in enumerate(indices):
+            results[i] = lane_results[lane_pos]
     return results

@@ -57,6 +57,7 @@ from pipelinedp_tpu_torch import input_validators
 from pipelinedp_tpu_torch import numeric as rt_numeric
 from pipelinedp_tpu_torch import pipeline_backend
 from pipelinedp_tpu_torch.data_extractors import DataExtractors
+from pipelinedp_tpu_torch.parallel import sharded
 from pipelinedp_tpu_torch.runtime import health as rt_health
 from pipelinedp_tpu_torch.runtime import observability as rt_observability
 from pipelinedp_tpu_torch.runtime import telemetry as rt_telemetry
@@ -438,6 +439,11 @@ class DPAggregationService:
         # cross-tenant compile-reuse evidence (bench receipt key).
         self._spec_stats: Dict[str, Dict[str, int]] = {}
         self._queue: "queue.PriorityQueue" = queue.PriorityQueue()
+        # Worker threads run meshed releases concurrently: the one place
+        # the port needs collective-launch serialization (see
+        # parallel/sharded.py); enabled before the first worker starts,
+        # dropped in stop() after every worker has joined.
+        sharded.enable_collective_serialization()
         self._workers = [
             threading.Thread(target=self._worker_loop,
                              name=f"dp-service-worker-{i}", daemon=True)
@@ -474,6 +480,7 @@ class DPAggregationService:
             self._queue.put((_STOP_PRIORITY, seq, None))
         for worker in self._workers:
             worker.join(timeout=timeout_s)
+        sharded.disable_collective_serialization()
         # Workers exited on the preempting sentinels; drain what queued
         # behind them.
         while True:

@@ -207,12 +207,35 @@ one card):
              torch.profiler, both reshard modes
   4. service S2b's 16 jobs on TorchBackend(mesh=...), batching off and on:
              every batched job == its solo meshed run
+The blocked route over the mesh (parallel/large_p.py
+aggregate_blocked_sharded, select_partitions_blocked_sharded; K23a) adds,
+last of all, on the same mesh:
+  3. parity  small meshed blocked releases (COUNT+SUM+MEAN+VARIANCE
+             Gaussian public, COUNT+SUM+PRIVACY_ID_COUNT Laplace private,
+             PERCENTILE, VECTOR_SUM, secure_noise, numeric_mode="safe")
+             and a selection in float64 on make_mesh([cuda:0] * D) against
+             a CPU mesh, D = 2 (reshard "host") and 4 ("device"),
+             threshold 16, 8 partitions a block, P = 20
+  4. mesh    (v) through the mesh, rows on the card (reshard="device") and
+             host rows ("host"): == the unmeshed blocked (v), value for
+             value, and the dense (c)'s partitions; noise-free (stds 0),
+             its integer COUNT / SUM == the unmeshed blocked == the dense
+             release == numpy; (q) and its blocked select through the
+             mesh in both staging modes (the device run under
+             reshard.forbid_row_fetches), median of 3, beside the
+             unmeshed (q), with aggregate_blocked_sharded's phase_times
+             split (staging, pass 1, offsets, dispatch, combine, waits,
+             drains, decode)
+  2. kernels C21 at the block shape (D x [2^20] x 2 float32, int32 for
+             selection) and C10 on one shard's pass-1 stream of (q), each
+             == its plain version, beside stack.sum(0) / torch.searchsorted
 `python3 chip_smoke.py --mesh-all-cards` runs the build and the mesh
 phases alone on make_mesh(), one shard slot on every visible card.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -461,6 +484,12 @@ def main() -> int:
                                      ratings)):
         for name, count in phase.items():
             launches[name] += count
+    # The blocked route over the mesh (K23a), last of all.
+    mb_report, mb_launches = mesh_blocked_phase(
+        torch, tdp, rng, qenc, encoded, nmax, kernels, large_p, card)
+    report += mb_report
+    for name, count in mb_launches.items():
+        launches[name] += count
     for entry in report:
         entry["launches"] = launches[entry["name"]]
         print(f"kernel {entry['name']}: max_abs_err={entry['max_abs_err']} "
@@ -2313,15 +2342,17 @@ def scan_tolerance(count, truth):
 
 
 class PhaseProbe:
-    """Hands aggregate_blocked a phase_times dict on every call the engine
-    makes and notes when it returned (decode = the time after it)."""
+    """Hands a blocked driver of large_p (aggregate_blocked by default) a
+    phase_times dict on every call the engine makes and notes when it
+    returned (decode = the time after it)."""
 
-    def __init__(self, large_p):
+    def __init__(self, large_p, name="aggregate_blocked"):
         self.large_p = large_p
+        self.name = name
         self.records = []
 
     def __enter__(self):
-        self.original = original = self.large_p.aggregate_blocked
+        self.original = original = getattr(self.large_p, self.name)
 
         def probed(*args, **kwargs):
             phase_times = kwargs["phase_times"] = {}
@@ -2330,11 +2361,11 @@ class PhaseProbe:
             self.records.append(phase_times)
             return out
 
-        self.large_p.aggregate_blocked = probed
+        setattr(self.large_p, self.name, probed)
         return self
 
     def __exit__(self, *exc):
-        self.large_p.aggregate_blocked = self.original
+        setattr(self.large_p, self.name, self.original)
 
 
 def std_by_output(cfg, stds):
@@ -5467,7 +5498,9 @@ def card_mesh(torch, n_shards=MESH_SHARDS):
 def mesh_all_cards(torch, tdp, cuda_build, columnar, kernels, card, t0):
     """python3 chip_smoke.py --mesh-all-cards: the mesh phases alone on
     make_mesh() over every visible card (shard s on cuda:s; the combine
-    and the exchange cross cards by peer copy)."""
+    and the exchange cross cards by peer copy), the meshed blocked
+    route's among them."""
+    from pipelinedp_tpu_torch.parallel import large_p
     global MESH_CARDS
     MESH_CARDS = "all"
     print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
@@ -5485,6 +5518,13 @@ def mesh_all_cards(torch, tdp, cuda_build, columnar, kernels, card, t0):
                                      ratings)):
         for name, count in phase.items():
             launches[name] += count
+    qenc = columnar.encode_columns(*zipfish_rows())
+    nmax = data_maxima(encoded.pid, encoded.pk, encoded.n_partitions)
+    mb_report, mb_launches = mesh_blocked_phase(
+        torch, tdp, rng, qenc, encoded, nmax, kernels, large_p, card)
+    report += mb_report
+    for name, count in mb_launches.items():
+        launches[name] += count
     for entry in report:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6075,6 +6115,387 @@ def mesh_service_phase(torch, tdp, kernels, card, users, movies, ratings,
           f"{dict((k, batched[3][k]) for k in SERVICE_PATH + ('combine_shards',))}"
           f" ({card})", flush=True)
     return total
+
+
+# The meshed blocked route (K23a): pass 1 a shard (C1, C5, C2, C5, C10),
+# each block's windows a shard (C3 windowed), C21, the block's release once
+# (C4, C6); device staging adds the exchange.
+MESH_BLOCKED_PATH = BLOCKED_KERNELS + ("combine_shards",)
+MESH_BLOCKED_EXCHANGE = MESH_BLOCKED_PATH + ("reshard_count",
+                                             "reshard_exchange")
+MESH_BLOCKED_SPLIT = ("staging", "p1_bound_compact", "block_offsets",
+                      "p2_dispatch", "p2_combine", "p2_sync_wait",
+                      "p2_drain", "decode")
+
+
+def mesh_blocked_parity(torch, tdp, rng, devices=("cuda", "cpu")):
+    """Small meshed blocked releases in float64 on make_mesh([cuda:0] * D)
+    against the same on make_mesh(["cpu"] * D) (the plain versions),
+    D = 2 (reshard "host") and 4 ("device"), threshold 16, 8 partitions a
+    block, P = 20: the same partitions, values within 1e-9 relative
+    (secure noise: equal)."""
+    from pipelinedp_tpu_torch.parallel.mesh import make_mesh
+    n = 4096
+    users = rng.integers(0, 300, n).tolist()
+    parts = ((rng.integers(0, 20, n)**2) // 20).tolist()
+    values = rng.integers(1, 6, n).astype(np.float64)
+    scalar = list(zip(users, parts, values.tolist()))
+    vector = list(zip(users, parts, [[v, 5.0 - v, 1.0] for v in values]))
+    M = tdp.Metrics
+    cases = {
+        "count-sum-mean-variance, gaussian, public": (
+            scalar, [M.COUNT, M.SUM, M.MEAN, M.VARIANCE], True, {},
+            dict(noise_kind=tdp.NoiseKind.GAUSSIAN)),
+        "count-sum-pid, laplace, private": (
+            scalar, [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT], False, {}, {}),
+        "percentile": (scalar, [M.PERCENTILE(50), M.COUNT], False, {}, {}),
+        "vector_sum": (vector, [M.VECTOR_SUM, M.COUNT], False, {},
+                       dict(vector_size=3, vector_max_norm=6.0,
+                            vector_norm_kind=tdp.NormKind.L2,
+                            min_value=None, max_value=None)),
+        "secure": (scalar, [M.COUNT, M.SUM, M.MEAN], False,
+                   dict(secure_noise=True), {}),
+        "safe": (scalar, [M.COUNT, M.SUM], True, dict(numeric_mode="safe"),
+                 {}),
+        "select": (scalar, None, False, {}, {}),
+    }
+    ex = tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                            partition_extractor=lambda r: r[1],
+                            value_extractor=lambda r: r[2])
+    for d, mode in ((2, "host"), (4, "device")):
+        for label, (rows, metrics, public, backend, extra) in cases.items():
+            results = []
+            for device in devices:
+                acc = tdp.NaiveBudgetAccountant(total_epsilon=4.0,
+                                                total_delta=1e-6)
+                engine = tdp.DPEngine(acc, tdp.TorchBackend(
+                    device=device, noise_seed=5, dtype=torch.float64,
+                    mesh=make_mesh([torch.device(device)] * d),
+                    reshard=mode, large_partition_threshold=16,
+                    block_partitions=8, **backend))
+                if metrics is None:
+                    res = engine.select_partitions(
+                        rows, tdp.SelectPartitionsParams(
+                            max_partitions_contributed=3), ex)
+                else:
+                    bounds = dict(max_partitions_contributed=3,
+                                  max_contributions_per_partition=2,
+                                  min_value=0.0, max_value=5.0)
+                    bounds.update(extra)
+                    res = engine.aggregate(
+                        rows, tdp.AggregateParams(metrics=metrics, **bounds),
+                        ex, list(range(20)) if public else None)
+                acc.compute_budgets()
+                results.append(list(res) if metrics is None else dict(res))
+            gpu, cpu = results
+            worst = 0.0
+            if metrics is None:
+                if gpu != cpu or not gpu or len(gpu) == 20:
+                    raise AssertionError(f"mesh blocked parity select D={d}: "
+                                         f"cuda kept {len(gpu)}, cpu "
+                                         f"{len(cpu)}")
+            else:
+                if sorted(gpu) != sorted(cpu) or not gpu:
+                    raise AssertionError(f"mesh blocked parity {label} D={d}"
+                                         f": kept partitions differ")
+                for k in cpu:
+                    for a, b in zip(gpu[k], cpu[k]):
+                        diff = np.abs(np.asarray(a) - np.asarray(b))
+                        worst = max(worst, float(np.max(diff / np.maximum(
+                            1.0, np.abs(np.asarray(b))))))
+                limit = 0.0 if backend.get("secure_noise") else 1e-9
+                if worst > limit:
+                    raise AssertionError(f"mesh blocked parity {label} D={d}:"
+                                         f" rel err {worst}")
+            print(f"mesh blocked parity[{label}, D={d}, reshard={mode}, "
+                  f"threshold 16, block 8, P=20]: {len(gpu)} partitions, "
+                  f"cuda float64 vs cpu float64 max rel err {worst:.3g}",
+                  flush=True)
+
+
+def mesh_blocked_kernels(torch, tdp, mesh, qenc, kernels, large_p, card):
+    """C21 at the blocked route's block shape (D shards, [2^20] x 2 float32
+    columns, and int32 [2^20] for selection) and C10 on one shard's pass-1
+    stream of (q), each == its plain version on the card, timed beside
+    stack.sum(0) / torch.searchsorted. Returns their kernels entries."""
+    from pipelinedp_tpu_torch.ops import threefry
+    from pipelinedp_tpu_torch.parallel import reshard
+    from pipelinedp_tpu_torch.parallel.mesh import on_device
+    dev, d = mesh.device, mesh.size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    m = 2 * LARGE_BLOCK
+    stack = torch.randint(0, 9, (d, m), device=dev,
+                          generator=gen).to(torch.float32) * 0.5
+    istack = torch.randint(0, 1 << 20, (d, LARGE_BLOCK), device=dev,
+                           generator=gen, dtype=torch.int32)
+    report = []
+    for label, st in (("block 2^20 x 2 float32", stack),
+                      ("block 2^20 int32 (selection)", istack)):
+        err = check_equal(f"combine_shards[{label}]",
+                          kernels.combine_shards(st),
+                          kernels.combine_shards_plain(st))
+        ms = cuda_ms(lambda: kernels.combine_shards(st), 50)
+        plain_ms = cuda_ms(lambda: kernels.combine_shards_plain(st), 10)
+        lib_ms = cuda_ms(lambda: st.sum(0), 50)
+        width = st.shape[1]
+        b_ms, b_by = bound((d + 1) * width * 4, (d - 1) * width)
+        print(f"kernel combine_shards[D={d}, {label}]: == plain; "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} "
+              f"({b_by}) library_ms(stack.sum(0))={lib_ms:.4f} ({card})",
+              flush=True)
+        report.append(dict(
+            name="combine_shards", shape=f"D={d}, {label}", route="cuda",
+            source="pipelinedp_tpu_torch/csrc/combine_shards.cu",
+            replaces="pipelinedp_tpu/parallel/large_p.py:743", launches=0,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms))
+    # C10 on shard 0's pass-1 stream of (q), its 5 blocks' boundaries.
+    cfg, _, scalars = release_spec(tdp, tdp.AggregateParams(
+        metrics=[tdp.Metrics.COUNT], min_value=0.0, max_value=5.0,
+        max_partitions_contributed=4, max_contributions_per_partition=8),
+        qenc.n_partitions, 1.0, True)
+    shards = reshard.stage_rows_to_mesh(
+        mesh, torch.as_tensor(qenc.pid).to(dev),
+        torch.as_tensor(qenc.pk).to(dev),
+        torch.as_tensor(qenc.values).to(dev, torch.float32),
+        torch.as_tensor(qenc.valid).to(dev), "device", torch.float32)
+    P = qenc.n_partitions
+    n_blocks = -(-P // LARGE_BLOCK)
+    with on_device(mesh.devices[0]):
+        stream = large_p._bound_compact(
+            *shards[0], scalars, threefry.fold_in(np.array([0, 1], np.uint32),
+                                                  0), cfg)
+    bounds = torch.as_tensor(np.minimum(
+        large_p._block_boundaries(0, LARGE_BLOCK, n_blocks), P)).to(
+            stream.skey2.device)
+    got = kernels.block_offsets(stream.skey2, bounds)
+    err = check_equal("block_offsets[one shard of (q)]", got,
+                      kernels.block_offsets_plain(stream.skey2, bounds))
+    ms = cuda_ms(lambda: kernels.block_offsets(stream.skey2, bounds), 50)
+    plain_ms = cuda_ms(lambda: kernels.block_offsets_plain(stream.skey2,
+                                                           bounds), 20)
+    lib_ms = cuda_ms(lambda: torch.searchsorted(stream.skey2, bounds), 50)
+    n_rows = stream.skey2.shape[0]
+    reads = (n_blocks + 1) * max(1, math.ceil(math.log2(max(n_rows, 2))))
+    b_ms, b_by = bound((n_blocks + 1) * (4 + 8) + reads * 4, reads)
+    print(f"kernel block_offsets[one shard of (q): {n_rows} rows, "
+          f"{n_blocks + 1} boundaries, D={d}]: == plain; ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
+          f"library_ms(torch.searchsorted)={lib_ms:.4f} ({card})",
+          flush=True)
+    report.append(dict(
+        name="block_offsets", shape=f"one shard of (q), D={d}",
+        route="cuda", source="pipelinedp_tpu_torch/csrc/block_offsets.cu",
+        replaces="pipelinedp_tpu/parallel/large_p.py:696", launches=0,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms))
+    return report
+
+
+def mesh_blocked_phase(torch, tdp, rng, qenc, netflix, nmax, kernels,
+                       large_p, card, parity_devices=("cuda", "cpu"),
+                       reps=3):
+    """The blocked route over card_mesh(): parity card vs CPU
+    (mesh_blocked_parity); (v) through the mesh with rows on the card
+    (reshard "device") and host rows ("host") == the unmeshed (v), and,
+    noise-free, its integer COUNT / SUM == the unmeshed blocked == the
+    dense release == numpy; (q) and its blocked select through the mesh,
+    both staging modes, median of `reps`, beside the unmeshed (q), with
+    the phase_times split; C21 and C10 at the block shapes. Returns
+    (kernels entries, launch counts summed over the DPEngine runs)."""
+    import dataclasses
+    from pipelinedp_tpu_torch import executor
+    from pipelinedp_tpu_torch.parallel import reshard
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    mesh = card_mesh(torch)
+    dev, d = mesh.device, mesh.size
+    mesh_blocked_parity(torch, tdp, rng, parity_devices)
+    M = tdp.Metrics
+
+    def on_card(enc):
+        return dataclasses.replace(
+            enc, pid=torch.as_tensor(enc.pid).to(dev),
+            pk=torch.as_tensor(enc.pk).to(dev),
+            values=torch.as_tensor(enc.values).to(dev, torch.float32))
+
+    def run(label, backend, data, metrics, public, eps, bounds, path,
+            want=None, select=False, probe=None, guard=False):
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=eps, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, backend)
+        kernels.reset_launch_counts()
+        if select:
+            res = engine.select_partitions(data, tdp.SelectPartitionsParams(
+                max_partitions_contributed=4), tdp.DataExtractors())
+        else:
+            res = engine.aggregate(
+                data, tdp.AggregateParams(metrics=metrics,
+                                          noise_kind=tdp.NoiseKind.LAPLACE,
+                                          **bounds),
+                tdp.DataExtractors(),
+                list(data.partition_vocab) if public else None)
+        acc.compute_budgets()
+        torch.cuda.synchronize()
+        with PhaseProbe(large_p, probe or "aggregate_blocked_sharded") as \
+                prober, (reshard.forbid_row_fetches() if guard else
+                         contextlib.nullcontext()):
+            start = time.perf_counter()
+            out = list(res) if select else dict(res)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+        records = prober.records
+        counts = dict(kernels.launch_counts)
+        check_launches(f"mesh blocked ({label})", counts, kernels, want,
+                       path)
+        if path != BASE_KERNELS and (counts["reduce_partitions"] or counts[
+                "reduce_partitions_compensated"]):
+            raise AssertionError(f"mesh blocked ({label}) ran the dense C3 "
+                                 f"entry")
+        for name, c in counts.items():
+            total[name] += c
+        if not out or (not select and not all(
+                np.all(np.isfinite(np.hstack([np.ravel(x) for x in v])))
+                for v in out.values())):
+            raise AssertionError(f"mesh blocked ({label}): {len(out)} "
+                                 f"partitions or a non-finite value")
+        pt = dict(records[-1]) if records else {}
+        if pt:
+            pt["decode"] = end - pt.pop("returned_at")
+        return out, end - start, pt
+
+    # (v) = (c) on the blocked route through the mesh.
+    nP = netflix.n_partitions
+    v_bounds = dict(max_partitions_contributed=nmax[0],
+                    max_contributions_per_partition=nmax[1], min_value=1.0,
+                    max_value=5.0)
+    v_backend = dict(large_partition_threshold=4096, block_partitions=4096)
+    v_blocks = -(-nP // 4096)
+    v_metrics = [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT]
+    net_card = on_card(netflix)
+    solo_v, _, _ = run("v, unmeshed", tdp.TorchBackend(noise_seed=9,
+                                                       **v_backend),
+                       netflix, v_metrics, True, 1e6, v_bounds,
+                       BLOCKED_KERNELS, probe="aggregate_blocked")
+    dense_c, _, _ = run("c, dense", tdp.TorchBackend(noise_seed=9), netflix,
+                        v_metrics, True, 1e6, v_bounds, BASE_KERNELS,
+                        probe="aggregate_blocked")
+    if set(solo_v) != set(dense_c) or len(solo_v) != nP:
+        raise AssertionError("mesh blocked (v): the unmeshed (v) and the "
+                             "dense (c) release other partitions")
+    for mode, data, path in (("device", net_card, MESH_BLOCKED_EXCHANGE),
+                             ("host", netflix, MESH_BLOCKED_PATH)):
+        out, seconds, pt = run(
+            f"v, {mode}", tdp.TorchBackend(noise_seed=9, mesh=mesh,
+                                           reshard=mode, **v_backend),
+            data, v_metrics, True, 1e6, v_bounds, path,
+            dict(combine_shards=v_blocks, block_offsets=d))
+        if out != solo_v:
+            bad = [m for m in solo_v if out[m] != solo_v[m]]
+            raise AssertionError(f"mesh blocked (v, {mode}): {len(bad)} "
+                                 f"partitions differ from the unmeshed (v), "
+                                 f"first {bad[:1]}")
+        print(f"mesh blocked (v) reshard={mode} D={d}, {v_blocks} blocks of "
+              f"4096: {len(out)} partitions == the unmeshed blocked (v) "
+              f"(every value), the dense (c)'s partitions, in "
+              f"{seconds * 1e3:.1f} ms ({card}); phase_times (s) "
+              f"{json.dumps({k: round(v, 4) for k, v in pt.items()})}",
+              flush=True)
+    # Noise-free (stds 0): the integer COUNT / SUM of the meshed blocked
+    # release == the unmeshed blocked == the dense release == numpy.
+    params_v = tdp.AggregateParams(metrics=[M.COUNT, M.SUM],
+                                   noise_kind=tdp.NoiseKind.LAPLACE,
+                                   **v_bounds)
+    cfg_v, stds_v, scalars_v = release_spec(tdp, params_v, nP, 1e6, False)
+    zeros = np.zeros_like(stds_v)
+    key = np.array([0, 9], np.uint32)
+    rows_card = (net_card.pid, net_card.pk, net_card.values,
+                 torch.as_tensor(netflix.valid).to(dev))
+    exact = {"count": np.bincount(netflix.pk, minlength=nP),
+             "sum": np.bincount(netflix.pk, weights=netflix.values,
+                                minlength=nP)}
+    kept_m, out_m = large_p.aggregate_blocked_sharded(
+        mesh, *rows_card, *scalars_v, zeros, key, cfg_v,
+        block_partitions=4096, reshard="device", dtype=torch.float32)
+    kept_s, out_s = large_p.aggregate_blocked(
+        *rows_card, *scalars_v, zeros, key, cfg_v, block_partitions=4096,
+        device=dev, dtype=torch.float32)
+    n_kept, order, out_d, _ = executor.aggregate_release_kernel(
+        *executor.padded_to_device(*executor.pad_rows(netflix), dev,
+                                   torch.float32),
+        *scalars_v, zeros, key, cfg_v)
+    k = int(n_kept)
+    dense_ids = order[:k].cpu().numpy()
+    for name, truth in exact.items():
+        for label, ids, got in (
+                ("meshed blocked", kept_m, out_m[name]),
+                ("unmeshed blocked", kept_s, out_s[name]),
+                ("dense", dense_ids, out_d[name][:k].cpu().numpy())):
+            if not np.array_equal(ids, np.arange(nP)) or \
+                    not np.array_equal(np.asarray(got, np.float64), truth):
+                raise AssertionError(f"mesh blocked (v) noise-free: the "
+                                     f"{label} {name} is not the numpy "
+                                     f"group-by")
+    print(f"mesh blocked (v) noise-free, D={d}: COUNT and SUM of all {nP} "
+          f"partitions == the unmeshed blocked == the dense release == "
+          f"numpy (integers)", flush=True)
+
+    # (q) through the mesh, beside the unmeshed (q).
+    P = qenc.n_partitions
+    n_blocks = -(-P // LARGE_BLOCK)
+    q_card = on_card(qenc)
+    priv = dict(max_partitions_contributed=4,
+                max_contributions_per_partition=8, min_value=0.0,
+                max_value=5.0)
+    runs = (("unmeshed", {}, qenc, BLOCKED_KERNELS, "aggregate_blocked",
+             False),
+            ("device", dict(mesh=mesh, reshard="device"), q_card,
+             MESH_BLOCKED_EXCHANGE, None, True),
+            ("host", dict(mesh=mesh, reshard="host"), qenc,
+             MESH_BLOCKED_PATH, None, False))
+    for mode, backend, data, path, probe, guard in runs:
+        times, splits, kept = [], [], []
+        for rep in range(reps):
+            out, seconds, pt = run(
+                f"q, {mode}", tdp.TorchBackend(noise_seed=rep, **backend),
+                data, [M.COUNT, M.SUM], False, 1.0, priv, path,
+                None if mode == "unmeshed" else dict(block_offsets=d),
+                probe=probe, guard=guard)
+            if pt["blocks_dispatched"] != n_blocks:
+                raise AssertionError(f"mesh blocked (q, {mode}): "
+                                     f"{pt['blocks_dispatched']} blocks")
+            times.append(seconds)
+            splits.append(pt)
+            kept.append(len(out))
+        med = int(np.argsort(times)[len(times) // 2])
+        split = {k: round(splits[med].get(k, 0.0) * 1e3, 3)
+                 for k in MESH_BLOCKED_SPLIT}
+        print(f"mesh blocked (q) {mode}{'' if mode == 'unmeshed' else f' D={d}'}"
+              f": P={P}, {n_blocks} blocks, kept {kept}, wall "
+              f"{statistics.median(times) * 1e3:.1f} ms (median of {reps}: "
+              f"{[round(t * 1e3, 1) for t in times]} ms; "
+              f"{qenc.n_rows / statistics.median(times):.4g} rows/s; "
+              f"{card}); split of the median run, ms {json.dumps(split)}"
+              f"{'; under forbid_row_fetches' if guard else ''}",
+              flush=True)
+    for mode, data, path in (("device", q_card, MESH_BLOCKED_EXCHANGE),
+                             ("host", qenc, MESH_BLOCKED_PATH)):
+        times, kept = [], []
+        for rep in range(reps if mode == "device" else 1):
+            out, seconds, _ = run(
+                f"select q, {mode}", tdp.TorchBackend(
+                    noise_seed=rep, mesh=mesh, reshard=mode), data, None,
+                False, 1.0, None, path, dict(block_offsets=d), select=True)
+            if len(out) >= P or len(set(out)) != len(out):
+                raise AssertionError(f"mesh blocked select (q, {mode}): "
+                                     f"{len(out)} kept")
+            times.append(seconds)
+            kept.append(len(out))
+        print(f"mesh blocked select (q) reshard={mode} D={d}: kept {kept} of "
+              f"{P}, {statistics.median(times) * 1e3:.1f} ms "
+              f"({[round(t * 1e3, 1) for t in times]} ms; {card})",
+              flush=True)
+    report = mesh_blocked_kernels(torch, tdp, mesh, qenc, kernels, large_p,
+                                  card)
+    return report, total
 
 if __name__ == "__main__":
     sys.exit(main())

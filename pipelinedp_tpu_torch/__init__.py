@@ -6,8 +6,8 @@ PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE, PERCENTILE and VECTOR_SUM with
 Laplace or Gaussian noise, public partitions or private partition
 selection, per-partition or total contribution bounds) and
 DPEngine.select_partitions, and above large_partition_threshold both on the
-blocked route (parallel/large_p.py), on one device or, on the dense route,
-over a device mesh (TorchBackend(mesh=, reshard=); parallel/), on
+blocked route (parallel/large_p.py), on one device or over a device mesh
+(TorchBackend(mesh=, reshard=); parallel/), on
 twenty-three CUDA kernels built for sm_90a at first use (kernels.py,
 csrc/). Both take rows, a pre-encoded
 columnar.EncodedData or a ChunkSource of column chunks, streamed to the

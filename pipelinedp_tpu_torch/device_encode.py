@@ -31,7 +31,8 @@ maps to two secondary hashes. A detected collision raises
 when the chunk source can be read again.
 
 The meshed kernels of the JAX module (its unique-cap and mesh factorize,
-:302-418) are ROADMAP.md Queue 1 item 12.
+:302-418; K23b) run only in its multi-host ingest and come with it,
+ROADMAP.md Queue 1 step 9.
 """
 
 from typing import Optional, Sequence, Tuple

@@ -36,8 +36,11 @@ own rows key, C21 sums the shards' columns (and the quantile counts) onto
 the mesh's first device, and phase 2 (release_columns: C4, C9, C8, C6)
 runs there once. Selection counts a shard (select_partition_counts) and
 selects once (select_release); the lane-batched releases split the same
-way (batched_partial_columns, batched_release_columns). The blocked route
-over a mesh is not ported yet and raises.
+way (batched_partial_columns, batched_release_columns). Above the
+threshold the blocked route runs over the mesh too
+(large_p.aggregate_blocked_sharded, select_partitions_blocked_sharded):
+pass 1 a shard, each block's windows a shard, C21, the block's release
+once.
 
 Input is rows (columnar.encode), a pre-encoded EncodedData, or a
 runtime.pipeline.ChunkSource of column chunks (stream_chunk_source: the
@@ -922,15 +925,6 @@ def _offerable(interceptor, pid, backend) -> bool:
             (backend.mesh is None or backend.reshard != "device"))
 
 
-def _mesh_unported(what: str):
-    """The blocked route over a mesh is the next slice's."""
-    return NotImplementedError(
-        f"{what} over a mesh above large_partition_threshold (the blocked "
-        f"route, K23) is not ported yet: ROADMAP.md Queue 1 item 12. Raise "
-        f"TorchBackend(large_partition_threshold=...) above the partition "
-        f"count, or drop mesh=.")
-
-
 def to_device(encoded: columnar.EncodedData, device: torch.device,
               dtype: torch.dtype):
     """pad_rows + one host-to-device copy per host column (values None when
@@ -1028,18 +1022,23 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
         key = noise_ops.make_noise_key(backend.noise_seed)
         min_v, max_v, min_s, max_s, mid = kernel_scalars(params)
         if _blocked(backend, n_partitions):
-            if backend.mesh is not None:
-                raise _mesh_unported("DPEngine.aggregate")
             # The blocked route: the raw encoded columns go in (it pads to
-            # its own row capacity) and only kept partitions come back.
+            # its own row capacity) and only kept partitions come back;
+            # over a mesh, rows shard by privacy id and each block's
+            # partial columns are combined (C21).
             from pipelinedp_tpu_torch.parallel import large_p
+            rows = (encoded.pid, encoded.pk, encoded.values, encoded.valid,
+                    min_v, max_v, min_s, max_s, mid, stds, key, cfg)
             with budget_accountant.no_new_mechanisms(
                     "blocked aggregation execution"):
-                kept_ids, outputs = large_p.aggregate_blocked(
-                    encoded.pid, encoded.pk, encoded.values, encoded.valid,
-                    min_v, max_v, min_s, max_s, mid, stds, key, cfg,
-                    secure_tables=secure_tables,
-                    **blocked_kwargs(backend))
+                if backend.mesh is not None:
+                    kept_ids, outputs = large_p.aggregate_blocked_sharded(
+                        backend.mesh, *rows, secure_tables=secure_tables,
+                        reshard=backend.reshard, **blocked_kwargs(backend))
+                else:
+                    kept_ids, outputs = large_p.aggregate_blocked(
+                        *rows, secure_tables=secure_tables,
+                        **blocked_kwargs(backend))
             yield from decode_blocked_results(kept_ids, outputs,
                                               encoded.partition_vocab,
                                               compound)
@@ -1352,15 +1351,19 @@ def lazy_select_partitions(backend, col, params, data_extractors,
         n_partitions = resolve_n_partitions(backend, encoded.n_partitions)
         key = noise_ops.make_noise_key(backend.noise_seed)
         if _blocked(backend, n_partitions):
-            if backend.mesh is not None:
-                raise _mesh_unported("DPEngine.select_partitions")
             from pipelinedp_tpu_torch.parallel import large_p
+            rows = (encoded.pid, encoded.pk, encoded.valid, key,
+                    params.max_partitions_contributed, n_partitions,
+                    selection)
             with budget_accountant.no_new_mechanisms(
                     "blocked partition selection execution"):
-                kept_ids = large_p.select_partitions_blocked(
-                    encoded.pid, encoded.pk, encoded.valid, key,
-                    params.max_partitions_contributed, n_partitions,
-                    selection, **blocked_kwargs(backend))
+                if backend.mesh is not None:
+                    kept_ids = large_p.select_partitions_blocked_sharded(
+                        backend.mesh, *rows, reshard=backend.reshard,
+                        **blocked_kwargs(backend))
+                else:
+                    kept_ids = large_p.select_partitions_blocked(
+                        *rows, **blocked_kwargs(backend))
             yield from _decode_keys(kept_ids, encoded.partition_vocab)
             return
         # The meshed selection stages the unpadded rows, as the JAX
@@ -1399,8 +1402,11 @@ def lazy_select_partitions(backend, col, params, data_extractors,
 
 def blocked_kwargs(backend) -> Dict[str, Any]:
     """The blocked entry points' keyword arguments from a TorchBackend: its
-    device, working dtype and, where set, block_partitions."""
-    kwargs = dict(device=backend.device, dtype=backend.dtype)
+    working dtype, its device (a meshed backend's devices are its mesh's)
+    and, where set, block_partitions."""
+    kwargs = dict(dtype=backend.dtype)
+    if backend.mesh is None:
+        kwargs["device"] = backend.device
     if backend.block_partitions is not None:
         kwargs["block_partitions"] = backend.block_partitions
     return kwargs

@@ -562,7 +562,9 @@ def reduce_partitions_plain(skey2, perm, pair_start, row_cols, n_partitions,
 
     def segment_sum(values):
         if compensated and values.is_floating_point():
-            cols = values.reshape(values.shape[0], -1)
+            # An explicit width: reshape cannot infer -1 from 0 rows.
+            cols = values.reshape(values.shape[0],
+                                  math.prod(values.shape[1:]))
             sums = [segment_ops.compensated_segment_diff(
                 *segment_ops.compensated_cumsum(cols[:, d].contiguous()),
                 starts) for d in range(cols.shape[1])]
@@ -1237,6 +1239,10 @@ def quantile_descend_dense_plain(levels, quantiles, *, std, level_keys,
     p, branching = levels[0].shape
     n_q = len(quantiles)
     dev = keep.device
+    if p == 0:
+        # No partition (public_partitions=[]): nothing to descend, as C8's
+        # entry returns at once.
+        return torch.empty(n_q, 0, dtype=dtype, device=dev)
     scale = _noise_scale(std, dtype, gaussian)
     state = DescentState(p, n_q, dtype, dev)
     rows = torch.arange(p, device=dev)[:, None, None]

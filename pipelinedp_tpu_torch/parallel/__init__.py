@@ -1,6 +1,6 @@
-"""Parallelism of the port: the blocked large-P route for one device
-(large_p.py), and the dense route over a single-controller device mesh
-(mesh.py, collectives.py, reshard.py, sharded.py)."""
+"""Parallelism of the port: the blocked large-P route (large_p.py), and
+the dense and blocked routes over a single-controller device mesh
+(mesh.py, collectives.py, reshard.py, sharded.py, large_p.py)."""
 
 from pipelinedp_tpu_torch.parallel.mesh import Mesh, make_mesh
 

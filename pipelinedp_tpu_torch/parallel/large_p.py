@@ -44,12 +44,21 @@ quantile trees under fold_in(block_key, 7919). Standalone selection
 splits rng_key into (key_l0, key_sel) and draws block j's keep decisions
 with the block key itself.
 
-Not ported yet (ROADMAP.md Queue 1): the failure-semantics knobs of the
-JAX functions (retry, journal, watchdog, the overlapped drainer and the
-OOM re-plan of run_with_degradation, item 13) and the meshed variants
-(aggregate_blocked_sharded, select_partitions_blocked_sharded: K23, the
-rest of item 12, on the mesh, C21 combine and C22 / C23 exchange of
-parallel/mesh.py, sharded.py and reshard.py). Both functions keep the
+Over a device mesh (aggregate_blocked_sharded,
+select_partitions_blocked_sharded; the JAX package's meshed variants,
+K23a): stage_rows_to_mesh puts every privacy id's rows on one shard, pass
+1 runs on each shard under fold_in(rows_key, shard) with C10 against the
+block boundaries there, and the [D, n_blocks + 1] offsets table is the
+one fetch that scales with the blocks. Each block reduces every shard's
+own window (C3's windowed entry), one C21 launch sums the D partial
+columns onto the mesh's first device, and the release (C4, C7 / C8 with
+each level's counts summed by C21, C9, C6) runs there once. A D = 1 mesh
+releases what the unmeshed route releases, bit for bit.
+
+Not ported yet: the failure-semantics knobs of the JAX functions (retry,
+journal, watchdog, the overlapped drainer; ROADMAP.md Queue 1 step 4 with
+the OOM re-plan of run_with_degradation) and their host fallbacks: a
+failed launch, copy or combine raises. Every driver keeps the
 run_range(base, capacity, generation, end) shape and _block_noise_key's
 generations, so a re-plan slots in.
 """
@@ -59,7 +68,7 @@ import functools
 import logging
 import time
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +78,10 @@ from pipelinedp_tpu_torch import kernels
 from pipelinedp_tpu_torch import numeric
 from pipelinedp_tpu_torch.device_encode import round_capacity
 from pipelinedp_tpu_torch.ops import threefry
+from pipelinedp_tpu_torch.parallel import collectives
+from pipelinedp_tpu_torch.parallel import sharded
+from pipelinedp_tpu_torch.parallel.mesh import Mesh, host_fetch, on_device
+from pipelinedp_tpu_torch.parallel.reshard import stage_rows_to_mesh
 # Blocks in flight at once: each pins its O(C) outputs on the device until
 # the host has read its gate; the streamed ingest's staging window shares
 # the depth.
@@ -213,14 +226,19 @@ def _dispatch_blocks(block_iter, consume,
 def _placement(pid, values, device, dtype) -> Tuple[torch.device,
                                                     torch.dtype]:
     """The device (given, else the inputs', else cuda) and working float
-    dtype (given, else the values', else float32) of a run."""
+    dtype (_working_dtype) of a run."""
     if device is None:
         device = (pid.device if isinstance(pid, torch.Tensor) else
                   torch.device("cuda"))
-    if dtype is None:
-        dtype = (values.dtype if isinstance(values, torch.Tensor) and
-                 values.is_floating_point() else torch.float32)
-    return torch.device(device), dtype
+    return torch.device(device), _working_dtype(values, dtype)
+
+
+def _working_dtype(values, dtype: Optional[torch.dtype]) -> torch.dtype:
+    """dtype if given, else the values' float dtype, else float32."""
+    if dtype is not None:
+        return dtype
+    return (values.dtype if isinstance(values, torch.Tensor) and
+            values.is_floating_point() else torch.float32)
 
 
 def _to_host(a) -> Optional[np.ndarray]:
@@ -338,21 +356,38 @@ def _block(stream: _Stream, lo: int, hi: int, b_base: int, key, min_v,
            secure_tables, dtype: torch.dtype) -> _BlockResult:
     """Finalizes partitions [b_base, b_base + cfg.n_partitions) from sorted
     rows [lo, hi) (large_p.py:156-212 of the JAX package): C3's windowed
-    entry, C4 under the block key, C7/C8 (PERCENTILE) under
-    fold_in(key, 7919), C9 (VECTOR_SUM), then C6."""
+    entry, then _release_block."""
     skey2, perm, pair_start, cols, vrows = stream.window(lo, hi)
-    dense = kernels.reduce_partitions(
+    dense = _window_columns(skey2, perm, pair_start, cols, vrows, b_base,
+                            cfg, dtype)
+    dense["row_count"] = dense["pid_count"]
+    return _release_block(dense, ((perm, skey2), vrows), None, b_base, key,
+                          min_v, max_v, mid, stds, cfg, secure_tables, dtype)
+
+
+def _window_columns(skey2, perm, pair_start, cols, vrows, b_base: int,
+                    cfg: executor.KernelConfig, dtype: torch.dtype):
+    """The block's dense [C] columns from one window (C3's windowed
+    entry; compensated in numeric_mode="safe")."""
+    return kernels.reduce_partitions(
         skey2, perm, pair_start, cols, cfg.n_partitions, dtype,
         vrows if cfg.vector_size else None,
         compensated=cfg.numeric_mode == "safe", base=b_base)
-    dense["row_count"] = dense["pid_count"]
+
+
+def _release_block(dense, qrows, combine, b_base: int, key, min_v, max_v,
+                   mid, stds: np.ndarray, cfg: executor.KernelConfig,
+                   secure_tables, dtype: torch.dtype) -> _BlockResult:
+    """A block's release from its (combined) dense columns: C4 under the
+    block key, C7/C8 (PERCENTILE) under fold_in(key, 7919) over qrows
+    (one window's ((perm, skey2), vrows), or on a mesh a sequence a shard
+    each, with combine summing their counts), C9 (VECTOR_SUM), then C6."""
     outputs, keep, flags = executor.finalize(dense, min_v, mid, stds, key,
                                              cfg, secure_tables)
     if cfg.quantiles:
         outputs.update(executor.quantile_outputs(
-            (perm, skey2), vrows, min_v, max_v, stds,
-            threefry.fold_in(key, 7919), keep, flags, cfg, dtype,
-            secure_tables, base=b_base))
+            *qrows, min_v, max_v, stds, threefry.fold_in(key, 7919), keep,
+            flags, cfg, dtype, secure_tables, base=b_base, combine=combine))
     n_kept, order, outputs = kernels.compact_kept(keep, outputs)
     gate = _HostCopy(torch.stack([n_kept.reshape(()).to(torch.int64),
                                   flags.reshape(()).to(torch.int64)]))
@@ -388,6 +423,133 @@ def _n_blocks(base: int, capacity: int, end: int) -> int:
     return -(-(end - base) // capacity) if end > base else 0
 
 
+def _select_range(n_partitions: int, capacity0: int, offsets_of, launch,
+                  key_sel) -> np.ndarray:
+    """Pass 2 of a blocked selection over [0, n_partitions), as
+    run_range(0, capacity0, 0, n_partitions): offsets_of(base, capacity,
+    generation, n_blocks, end) gives the blocks' windows in the S streams
+    as int64[S, n_blocks + 1]; launch(lo[S], hi[S], b_base, c_actual, key)
+    dispatches one block with a kept pair in some window, under its block
+    key. Returns the kept ids, int64 ascending."""
+    kept_ids: List[np.ndarray] = []
+    drain = _StagedDrain()
+
+    def run_range(base, capacity, generation, end):
+        n_blocks = _n_blocks(base, capacity, end)
+        offsets = offsets_of(base, capacity, generation, n_blocks, end)
+
+        def consume(j, result):
+            k = int(result.gate.wait()[0])
+            if k:
+                drain.stage(kept_ids, result.order[:k],
+                            lambda h, b=base + j * capacity:
+                            h.astype(np.int64) + b)
+
+        def block_iter():
+            for j in range(n_blocks):
+                lo, hi = offsets[:, j], offsets[:, j + 1]
+                if not (hi - lo).any():
+                    # No kept pair: every partition's keep probability is
+                    # 0, so the block provably emits nothing.
+                    continue
+                b_base = base + j * capacity
+                yield j, functools.partial(
+                    launch, lo, hi, b_base, min(capacity, end - b_base),
+                    _block_noise_key(key_sel, generation, j))
+
+        _dispatch_blocks(block_iter(), consume)
+
+    run_range(0, capacity0, 0, n_partitions)
+    drain.materialize()
+    # Blocks are consumed in order and each block's kept ids come
+    # ascending (C6 is stable): the concatenation is ascending.
+    return (np.concatenate(kept_ids) if kept_ids else
+            np.zeros(0, np.int64))
+
+
+def _aggregate_range(cfg: executor.KernelConfig, capacity0: int, offsets_of,
+                     launch, final_key, context: str,
+                     phase_times: Optional[dict]
+                     ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """Pass 2 of a blocked aggregation over [0, cfg.n_partitions), as
+    run_range(0, capacity0, 0, P): offsets_of as _select_range's;
+    launch(lo[S], hi[S], b_base, key, cfg_block) dispatches one block.
+    Each block's flag word is checked (numeric.check_release, context
+    naming the block) before any of its values is kept. phase_times
+    gains block_offsets, p2_dispatch, p2_sync_wait, p2_drain,
+    p2_blocks_total and blocks_dispatched. Returns (kept ids int64
+    ascending, {metric: array})."""
+    output_names = [name for e in cfg.plan for name in e.outputs]
+    kept_ids: List[np.ndarray] = []
+    kept_outputs: Dict[str, List[np.ndarray]] = {m: [] for m in output_names}
+    drain = _StagedDrain()
+    n_dispatched = 0
+
+    def run_range(base, capacity, generation, end):
+        nonlocal n_dispatched
+        to = time.perf_counter()
+        n_blocks = _n_blocks(base, capacity, end)
+        offsets = offsets_of(base, capacity, generation, n_blocks, end)
+        _add_time(phase_times, "block_offsets", to)
+
+        def consume(j, result):
+            b_base = base + j * capacity
+            ts = time.perf_counter()
+            gate = result.gate.wait()
+            _add_time(phase_times, "p2_sync_wait", ts)
+            ta = time.perf_counter()
+            k, flag_word = int(gate[0]), int(gate[1]) & 0xFFFFFFFF
+            # Fail closed before any of the block's values is kept.
+            numeric.check_release(flag_word, result.outputs,
+                                  context=f"{context} (base {b_base})",
+                                  numeric_mode=cfg.numeric_mode)
+            if k:
+                drain.stage(kept_ids, result.order[:k],
+                            lambda h, b=b_base: h.astype(np.int64) + b)
+                for name, col in result.outputs.items():
+                    drain.stage(kept_outputs[name], col[:k])
+            _add_time(phase_times, "p2_drain", ta)
+
+        def dispatch(j, b_base, c_actual):
+            td = time.perf_counter()
+            result = launch(offsets[:, j], offsets[:, j + 1], b_base,
+                            _block_noise_key(final_key, generation, j),
+                            dataclasses.replace(cfg, n_partitions=c_actual))
+            _add_time(phase_times, "p2_dispatch", td)
+            return result
+
+        def block_iter():
+            for j in range(n_blocks):
+                if cfg.private_selection and \
+                        not (offsets[:, j + 1] - offsets[:, j]).any():
+                    # Private selection keeps a row-less partition with
+                    # probability 0: the block provably emits nothing.
+                    # Public partitions are released, rows or not.
+                    continue
+                b_base = base + j * capacity
+                yield j, functools.partial(dispatch, j, b_base,
+                                           min(capacity, end - b_base))
+
+        n_dispatched += _dispatch_blocks(block_iter(), consume)
+
+    t2 = time.perf_counter()
+    run_range(0, capacity0, 0, cfg.n_partitions)
+    td = time.perf_counter()
+    drain.materialize()
+    if phase_times is not None:
+        _add_time(phase_times, "p2_drain", td)
+        phase_times["p2_blocks_total"] = time.perf_counter() - t2
+        phase_times["blocks_dispatched"] = n_dispatched
+    # Blocks are consumed in ascending order and each emits its kept
+    # partitions ascending (C6 is stable): the concatenation is ascending.
+    kept = (np.concatenate(kept_ids) if kept_ids else
+            np.zeros(0, np.int64))
+    return kept, {
+        name: (np.concatenate(chunks) if chunks else np.zeros(0))
+        for name, chunks in kept_outputs.items()
+    }
+
+
 def select_partitions_blocked(pid, pk, valid, rng_key, l0: int,
                               n_partitions: int, selection, *,
                               block_partitions: int = 1 << 20,
@@ -412,43 +574,14 @@ def select_partitions_blocked(pid, pk, valid, rng_key, l0: int,
     skey2, perm, pair_start = executor.select_kept_pair_stream(
         pid_t, pk_t, valid_t, key_l0, l0, P)
     stream = _Stream(skey2, perm, pair_start, {})
-    capacity = min(block_partitions, P)
-    kept_ids: List[np.ndarray] = []
-    drain = _StagedDrain()
-
-    def run_range(base, capacity, generation, end):
-        n_blocks = _n_blocks(base, capacity, end)
-        offsets = _offsets(stream, base, capacity, n_blocks, end)
-
-        def consume(j, result):
-            k = int(result.gate.wait()[0])
-            if k:
-                drain.stage(kept_ids, result.order[:k],
-                            lambda h, b=base + j * capacity:
-                            h.astype(np.int64) + b)
-
-        def block_iter():
-            for j in range(n_blocks):
-                lo, hi = int(offsets[j]), int(offsets[j + 1])
-                if lo == hi:
-                    # No kept pair: every partition's keep probability is
-                    # 0, so the block provably emits nothing.
-                    continue
-                b_base = base + j * capacity
-                yield j, functools.partial(
-                    _selection_block, stream, lo, hi, b_base,
-                    min(capacity, end - b_base),
-                    _block_noise_key(key_sel, generation, j), selection,
-                    dtype)
-
-        _dispatch_blocks(block_iter(), consume)
-
-    run_range(0, capacity, 0, P)
-    drain.materialize()
-    # Blocks are consumed in order and each block's kept ids come
-    # ascending (C6 is stable): the concatenation is ascending.
-    return (np.concatenate(kept_ids) if kept_ids else
-            np.zeros(0, np.int64))
+    return _select_range(
+        P, min(block_partitions, P),
+        lambda base, capacity, _gen, n_blocks, end: _offsets(
+            stream, base, capacity, n_blocks, end)[None],
+        lambda lo, hi, b_base, c_actual, key: _selection_block(
+            stream, int(lo[0]), int(hi[0]), b_base, c_actual, key,
+            selection, dtype),
+        key_sel)
 
 
 def aggregate_blocked(pid, pk, values, valid, min_v, max_v, min_s, max_s,
@@ -503,77 +636,228 @@ def aggregate_blocked(pid, pk, values, valid, min_v, max_v, min_s, max_s,
         phase_times["p1_bound_compact"] = time.perf_counter() - t0
 
     # Pass 2: bin the stream by partition block, finalize each block.
-    output_names = [name for e in cfg.plan for name in e.outputs]
-    kept_ids: List[np.ndarray] = []
-    kept_outputs: Dict[str, List[np.ndarray]] = {m: [] for m in output_names}
-    drain = _StagedDrain()
-    n_dispatched = 0
-
-    def run_range(base, capacity, generation, end):
-        nonlocal n_dispatched
-        to = time.perf_counter()
-        n_blocks = _n_blocks(base, capacity, end)
-        offsets = _offsets(stream, base, capacity, n_blocks, end)
-        _add_time(phase_times, "block_offsets", to)
-
-        def consume(j, result):
-            b_base = base + j * capacity
-            ts = time.perf_counter()
-            gate = result.gate.wait()
-            _add_time(phase_times, "p2_sync_wait", ts)
-            ta = time.perf_counter()
-            k, flag_word = int(gate[0]), int(gate[1]) & 0xFFFFFFFF
-            # Fail closed before any of the block's values is kept.
-            numeric.check_release(flag_word, result.outputs,
-                                  context=f"blocked release (base {b_base})",
-                                  numeric_mode=cfg.numeric_mode)
-            if k:
-                drain.stage(kept_ids, result.order[:k],
-                            lambda h, b=b_base: h.astype(np.int64) + b)
-                for name, col in result.outputs.items():
-                    drain.stage(kept_outputs[name], col[:k])
-            _add_time(phase_times, "p2_drain", ta)
-
-        def launch(j, lo, hi, b_base, c_actual):
-            td = time.perf_counter()
-            result = _block(stream, lo, hi, b_base,
-                            _block_noise_key(final_key, generation, j),
-                            min_v, max_v, mid, stds,
-                            dataclasses.replace(cfg, n_partitions=c_actual),
-                            secure_tables, dtype)
-            _add_time(phase_times, "p2_dispatch", td)
-            return result
-
-        def block_iter():
-            for j in range(n_blocks):
-                lo, hi = int(offsets[j]), int(offsets[j + 1])
-                if lo == hi and cfg.private_selection:
-                    # Private selection keeps a row-less partition with
-                    # probability 0: the block provably emits nothing.
-                    # Public partitions are released, rows or not.
-                    continue
-                b_base = base + j * capacity
-                yield j, functools.partial(launch, j, lo, hi, b_base,
-                                           min(capacity, end - b_base))
-
-        n_dispatched += _dispatch_blocks(block_iter(), consume)
-
-    t2 = time.perf_counter()
-    run_range(0, min(block_partitions, P), 0, P)
-    td = time.perf_counter()
-    drain.materialize()
+    out = _aggregate_range(
+        cfg, min(block_partitions, P),
+        lambda base, capacity, _gen, n_blocks, end: _offsets(
+            stream, base, capacity, n_blocks, end)[None],
+        lambda lo, hi, b_base, key, cfg_block: _block(
+            stream, int(lo[0]), int(hi[0]), b_base, key, min_v, max_v, mid,
+            stds, cfg_block, secure_tables, dtype),
+        final_key, "blocked release", phase_times)
     if phase_times is not None:
-        now = time.perf_counter()
-        _add_time(phase_times, "p2_drain", td)
-        phase_times["p2_blocks_total"] = now - t2
-        phase_times["blocks_dispatched"] = n_dispatched
-        phase_times["total"] = now - t0
+        phase_times["total"] = time.perf_counter() - t0
+    return out
 
-    # Blocks are consumed in ascending order and each emits its kept
-    # partitions ascending (C6 is stable): the concatenation is ascending.
-    kept = (np.concatenate(kept_ids) if kept_ids else
-            np.zeros(0, np.int64))
-    return kept, {
-        name: (np.concatenate(chunks) if chunks else np.zeros(0))
-        for name, chunks in kept_outputs.items()
-    }
+
+# ---------------------------------------------------------------------------
+# Over a device mesh (K23a)
+
+
+def _sharded_block_offsets(mesh: Mesh, streams: Sequence[_Stream], base: int,
+                           capacity: int, n_blocks: int,
+                           end: int) -> np.ndarray:
+    """The row windows of the range's blocks on every shard (the JAX
+    package's _sharded_block_offsets, :785): C10 on each shard's stream
+    against the boundaries, the last clamped to `end` as _offsets clamps
+    it, gathered onto the mesh's first device and fetched as one
+    int64[D, n_blocks + 1] table (its all_gather and host_fetch)."""
+    bounds = np.minimum(_block_boundaries(base, capacity, n_blocks), end)
+    offsets = []
+    for dev, stream in zip(mesh.devices, streams):
+        with on_device(dev):
+            offsets.append(kernels.block_offsets(
+                stream.skey2, torch.as_tensor(bounds).to(dev)))
+    return host_fetch(collectives.gather(offsets, mesh.device))
+
+
+def _sharded_bound_compact(mesh: Mesh, shards, scalars, rows_key,
+                           cfg: executor.KernelConfig, capacity: int,
+                           n_blocks: int) -> Tuple[List[_Stream],
+                                                   np.ndarray]:
+    """Pass 1 over the mesh (the JAX package's _sharded_bound_compact,
+    :696): every shard's rows bounded and sorted by kept partition
+    (_bound_compact: C1, C5, C2, C5) on its device under
+    fold_in(rows_key, shard), then the offsets table of the first
+    n_blocks blocks of `capacity` partitions. Returns (one _Stream a
+    shard, each on its device; the int64[D, n_blocks + 1] table)."""
+    streams = []
+    for s, rows in enumerate(shards):
+        with on_device(mesh.devices[s]):
+            streams.append(_bound_compact(*rows, scalars,
+                                          threefry.fold_in(rows_key, s), cfg))
+    return streams, _sharded_block_offsets(mesh, streams, 0, capacity,
+                                           n_blocks, cfg.n_partitions)
+
+
+def _sharded_block(mesh: Mesh, streams: Sequence[_Stream], lo: np.ndarray,
+                   hi: np.ndarray, b_base: int, key, min_v, max_v, mid,
+                   stds: np.ndarray, cfg: executor.KernelConfig,
+                   secure_tables, dtype: torch.dtype,
+                   phase_times: Optional[dict] = None) -> _BlockResult:
+    """One block over the mesh (the JAX package's _sharded_block_kernel,
+    :743): C3's windowed entry on every shard over its window
+    [lo[s], hi[s]), one C21 launch summing the D partial columns onto the
+    mesh's first device (compensated in numeric_mode="safe"), and the
+    release there once (_release_block; each quantile level's counts
+    summed by C21). phase_times["p2_combine"]: the host's time issuing
+    the combine."""
+    windows = [stream.window(int(a), int(b))
+               for stream, a, b in zip(streams, lo, hi)]
+    parts = []
+    for dev, (skey2, perm, pair_start, cols, vrows) in zip(mesh.devices,
+                                                            windows):
+        with on_device(dev):
+            parts.append(_window_columns(skey2, perm, pair_start, cols,
+                                         vrows, b_base, cfg, dtype))
+    tc = time.perf_counter()
+    dense = sharded._combine_partials(parts, mesh.device, cfg.numeric_mode)
+    _add_time(phase_times, "p2_combine", tc)
+    qrows = ([(w[1], w[0]) for w in windows], [w[4] for w in windows])
+    return _release_block(dense, qrows, sharded._psum_counts(mesh), b_base,
+                          key, min_v, max_v, mid, stds, cfg, secure_tables,
+                          dtype)
+
+
+def _sharded_select_compact(mesh: Mesh, shards, key_l0, l0: int,
+                            n_partitions: int, capacity: int,
+                            n_blocks: int) -> Tuple[List[_Stream],
+                                                    np.ndarray]:
+    """Selection pass 1 over the mesh (the JAX package's
+    _sharded_select_compact, :1052): executor.select_kept_pair_stream on
+    every shard under fold_in(key_l0, shard), then the offsets table, as
+    _sharded_bound_compact."""
+    streams = []
+    for s, (pid_s, pk_s, _, valid_s) in enumerate(shards):
+        with on_device(mesh.devices[s]):
+            skey2, perm, pair_start = executor.select_kept_pair_stream(
+                pid_s, pk_s, valid_s, threefry.fold_in(key_l0, s), l0,
+                n_partitions)
+        streams.append(_Stream(skey2, perm, pair_start, {}))
+    return streams, _sharded_block_offsets(mesh, streams, 0, capacity,
+                                           n_blocks, n_partitions)
+
+
+def _sharded_selection_block(mesh: Mesh, streams: Sequence[_Stream],
+                             lo: np.ndarray, hi: np.ndarray, b_base: int,
+                             c_actual: int, key, selection,
+                             dtype: torch.dtype) -> _BlockResult:
+    """Keep decisions of one block over the mesh (the JAX package's
+    _sharded_selection_block, :1089): every shard's windowed pid counts
+    (C3, no columns), one int32 C21 launch summing them, and
+    executor.select_release once under the block key (C4 with an empty
+    plan, C6)."""
+    counts = []
+    for dev, stream, a, b in zip(mesh.devices, streams, lo, hi):
+        skey2, perm, pair_start, _, _ = stream.window(int(a), int(b))
+        with on_device(dev):
+            cols = kernels.reduce_partitions(skey2, perm, pair_start, {},
+                                             c_actual, dtype, base=b_base)
+            counts.append(cols["pid_count"].to(torch.int32))
+    total = collectives.psum(counts, mesh.device).to(dtype)
+    n_kept, order = executor.select_release(
+        {"count": total, "pid_count": total}, selection, key)
+    return _BlockResult(_HostCopy(n_kept.reshape(1)), order, {})
+
+
+def _meshed_offsets(mesh: Mesh, streams: Sequence[_Stream], capacity0: int,
+                    offsets0: np.ndarray):
+    """offsets_of of a meshed driver: generation 0 starts at base 0 with
+    capacity C0, so pass 1's table is the plan's; a re-plan (another
+    generation or capacity) runs C10 on every shard again."""
+    def offsets_of(base, capacity, generation, n_blocks, end):
+        if generation == 0 and capacity == capacity0:
+            return offsets0
+        return _sharded_block_offsets(mesh, streams, base, capacity,
+                                      n_blocks, end)
+    return offsets_of
+
+
+def aggregate_blocked_sharded(mesh: Mesh, pid, pk, values, valid, min_v,
+                              max_v, min_s, max_s, mid, stds, rng_key,
+                              cfg: executor.KernelConfig, *,
+                              block_partitions: int = 1 << 20,
+                              secure_tables=None, reshard: str = "auto",
+                              phase_times: Optional[dict] = None,
+                              dtype: Optional[torch.dtype] = None
+                              ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """aggregate_blocked over a device mesh (the JAX package's
+    aggregate_blocked_sharded, :823).
+
+    Rows in (host numpy or device tensors) are staged by
+    stage_rows_to_mesh under `reshard` ("auto": device-resident columns
+    take the exchange, C22 / C23; host rows the LPT permutation). Pass 1
+    runs a shard at a time (_sharded_bound_compact), and each block of
+    block_partitions partitions reduces every shard's window, combines
+    them with one C21 launch and releases on the mesh's first device
+    (_sharded_block), where secure_tables lie. dtype: the working float
+    (default as _placement).
+
+    phase_times: as aggregate_blocked's, plus staging (the reshard) and
+    p2_combine (the host's time issuing the per-block C21, inside
+    p2_dispatch). It adds a device synchronisation after the staging and
+    one after pass 1.
+
+    Returns (kept_partition_ids int64[M] ascending, {metric: array[M]}).
+    """
+    t0 = time.perf_counter()
+    dtype = _working_dtype(values, dtype)
+    P = cfg.n_partitions
+    if values is None:
+        values = np.zeros(len(pid))
+    stds = np.asarray(stds, dtype=np.float64)
+    rows_key, final_key = executor.release_key_halves(rng_key)
+    capacity0 = min(block_partitions, P)
+    shards = stage_rows_to_mesh(mesh, pid, pk, values, valid, reshard, dtype)
+    if phase_times is not None:
+        for dev in set(mesh.devices):
+            _sync(dev)
+        phase_times["staging"] = time.perf_counter() - t0
+    with sharded._collective_launch(mesh), on_device(mesh.device):
+        t1 = time.perf_counter()
+        streams, offsets0 = _sharded_bound_compact(
+            mesh, shards, (min_v, max_v, min_s, max_s, mid), rows_key, cfg,
+            capacity0, _n_blocks(0, capacity0, P))
+        if phase_times is not None:
+            phase_times["p1_bound_compact"] = time.perf_counter() - t1
+        out = _aggregate_range(
+            cfg, capacity0,
+            _meshed_offsets(mesh, streams, capacity0, offsets0),
+            lambda lo, hi, b_base, key, cfg_block: _sharded_block(
+                mesh, streams, lo, hi, b_base, key, min_v, max_v, mid, stds,
+                cfg_block, secure_tables, dtype, phase_times),
+            final_key, "blocked meshed release", phase_times)
+    if phase_times is not None:
+        phase_times["total"] = time.perf_counter() - t0
+    return out
+
+
+def select_partitions_blocked_sharded(mesh: Mesh, pid, pk, valid, rng_key,
+                                      l0: int, n_partitions: int, selection,
+                                      *, block_partitions: int = 1 << 20,
+                                      reshard: str = "auto",
+                                      dtype: Optional[torch.dtype] = None
+                                      ) -> np.ndarray:
+    """select_partitions_blocked over a device mesh (the JAX package's
+    select_partitions_blocked_sharded, :1118): rows staged without values
+    (stage_rows_to_mesh), each shard's kept-pair stream
+    (_sharded_select_compact), and for each block with a kept pair on
+    some shard one int32 C21 launch and the keep decisions on the mesh's
+    first device (_sharded_selection_block). dtype: the float width of
+    the keep probabilities (default float32). Returns
+    kept_partition_ids int64[M], ascending."""
+    P = n_partitions
+    dtype = dtype or torch.float32
+    key_l0, key_sel = executor.select_key_schedule(rng_key)
+    capacity0 = min(block_partitions, P)
+    shards = stage_rows_to_mesh(mesh, pid, pk, None, valid, reshard)
+    with sharded._collective_launch(mesh), on_device(mesh.device):
+        streams, offsets0 = _sharded_select_compact(
+            mesh, shards, key_l0, l0, P, capacity0,
+            _n_blocks(0, capacity0, P))
+        return _select_range(
+            P, capacity0,
+            _meshed_offsets(mesh, streams, capacity0, offsets0),
+            lambda lo, hi, b_base, c_actual, key: _sharded_selection_block(
+                mesh, streams, lo, hi, b_base, c_actual, key, selection,
+                dtype),
+            key_sel)

@@ -334,9 +334,11 @@ class TorchBackend(LocalBackend):
         combine (C21) sums them onto the mesh's first device and the
         release runs there once (parallel/sharded.py), as
         TPUBackend(mesh=...) does with shard_map and psum. Its devices
-        are of device's type. None: one device. The blocked route over a
-        mesh is not ported yet (ROADMAP.md Queue 1 item 12): a meshed
-        release above large_partition_threshold raises.
+        are of device's type. None: one device. Above
+        large_partition_threshold a meshed release takes the blocked
+        route over the mesh (parallel/large_p.aggregate_blocked_sharded,
+        select_partitions_blocked_sharded): each block's partial columns
+        are combined by C21 in the same way.
       reshard: how a meshed release puts each privacy id's rows on one
         shard (parallel/reshard.stage_rows_to_mesh). "auto" (default):
         device-resident columns (the streamed ingest's) reshard on the

@@ -41,8 +41,9 @@ _TRACKED_COUNTERS = _DEGRADING_COUNTERS | _STALLING_COUNTERS
 
 
 def _process_index() -> int:
-    """This process's index in a multi-process job: 0 until the port's
-    multi-GPU slice (ROADMAP item 12) brings torch.distributed."""
+    """This process's index in a multi-process job: 0, the port's meshes
+    being single-controller, until the multi-process mesh over
+    torch.distributed (ROADMAP.md Queue 1 step 9) is ported."""
     return 0
 
 

@@ -28,9 +28,10 @@ jobs tenants submit on a bounded worker pool:
 
 Differences from the JAX service: torch has no jit cache, so
 ``JobHandle.jit_cache_misses`` and ``compile_reuse()`` report 0 misses;
-there is no collective serialization to enable (the multi-GPU slice,
-ROADMAP item 12, brings it); a batched release that fails fails its
-lanes' jobs instead of falling back to solo (service/batching.py).
+a meshed backend's releases are serialized while the service runs
+(parallel/sharded.py enable_collective_serialization), as the JAX
+service serializes its collectives; a batched release that fails fails
+its lanes' jobs instead of falling back to solo (service/batching.py).
 
 Declared service metrics: ``service_jobs_admitted`` /
 ``service_jobs_queued`` / ``service_jobs_shed`` /

@@ -21,7 +21,9 @@ Bounds stated here:
   * the meshed service: every batched job == its solo meshed run
     (release, spent epsilon, ledger trail);
   * the meshed utility analysis: every report field within 1e-9 of the
-    JAX meshed sweep's (tests/test_torch_analysis.py's bound).
+    JAX meshed sweep's (tests/test_torch_analysis.py's bound);
+  * above large_partition_threshold, the meshed blocked route: as the
+    dense route (tests/test_torch_large_p_mesh.py holds it in full).
 """
 
 import dataclasses
@@ -382,12 +384,14 @@ def test_meshed_backend_knobs():
     assert tdp.TorchBackend(device="cpu").mesh is None
 
 
-def test_meshed_blocked_route_raises_naming_item_12():
-    bk = backend(tdp, 2, large_partition_threshold=4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        aggregate(tdp, bk, ROWS, ["COUNT"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        select(tdp, backend(tdp, 2, large_partition_threshold=4), ROWS)
+def test_meshed_blocked_route_equals_the_jax_mesh():
+    """Above large_partition_threshold a meshed backend takes the blocked
+    route over the mesh (parallel/large_p.aggregate_blocked_sharded), as
+    TPUBackend(mesh=) does."""
+    kw = dict(large_partition_threshold=4)
+    both(2, ["COUNT"], backend_kw=kw)
+    got = select(tdp, backend(tdp, 2, **kw), ROWS)
+    assert got and got == select(pdp, backend(pdp, 2, **kw), ROWS)
 
 
 # ---------------------------------------------------------------------------

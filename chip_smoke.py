@@ -173,7 +173,16 @@ after every earlier phase:
              lanes of 1000 rows and at S2's 16 lanes of 2^20 Netflix rows
              (P = 17,770), and the lane-batched releases of (a), (b) and
              a selection against their solo releases, lane by lane, with
-             ==; times at S2's shape
+             ==; times at S2's shape. Then (spec_kernel_phase) the lane
+             entries of every other spec at the same two shapes: the
+             total bound (C1, C5, C2), C2 without keys, C3 compensated
+             (columns x 1000: sums equal float32 of the exact sums) and
+             vector (one-hot ratings), C4 secure, C8 lazy over 17,770
+             movies and dense over movie mod 128, plain and secure, C9
+             plain and secure; the batched releases of (f), (i), (d),
+             bounds enforced, (a) secure, safe, (f) secure and (i)
+             secure == their solo releases lane by lane; times at S2's
+             shape
   4. service DPAggregationService(TorchBackend()), batching off and on:
              (S1) bench.py's _bench_megabatch load: 96 pre-encoded jobs of
              64 rows over 48 partitions, COUNT + SUM, Laplace, 16 workers,
@@ -181,9 +190,13 @@ after every earlier phase:
              latency, release launches per 96 jobs, occupancy; (S2a) /
              (S2b) the Netflix rows as 16 jobs of 2^20 rows under
              TorchBackend(max_partitions=17,770), cells (a) and (b);
-             (S3) their selection: every batched job == its solo run
-             (release, spent epsilon, ledger trail), a group of 16 lanes
-             launching C1-C4 and C6 once each and C5 twice
+             (S3) their selection; (S1 secure) S1 with
+             secure_noise=True; (S2f) / (S2i) cells (f) and (i) as 16
+             jobs of 2^20 rows; (S4) (d), bounds enforced, safe, (f)
+             secure and (i) secure as 16 jobs of 2^16 rows, solo and
+             batched once: every batched job == its solo run (release,
+             spent epsilon, ledger trail), a group of 16 lanes launching
+             C1-C4 and C6 once each and C5 twice (C7 and C8 once a level)
 The dense route over a device mesh (parallel/, K21, K22, K24c) adds, after
 every earlier phase, on make_mesh([cuda:0] * 4) (four shard slots on the
 one card):
@@ -206,7 +219,9 @@ one card):
              1 a shard, C21, release, decode) and its idle share under
              torch.profiler, both reshard modes
   4. service S2b's 16 jobs on TorchBackend(mesh=...), batching off and on:
-             every batched job == its solo meshed run
+             every batched job == its solo meshed run; one meshed lane-
+             batched release of (f)'s spec, 4 lanes of 2^18 rows, each
+             lane == its solo meshed release
 The blocked route over the mesh (parallel/large_p.py
 aggregate_blocked_sharded, select_partitions_blocked_sharded; K23a) adds,
 last of all, on the same mesh:
@@ -472,6 +487,8 @@ def main() -> int:
     # The multi-tenant service and megabatched serving (K24), last of all.
     report += service_kernel_phase(torch, dev, tdp, encoded, kernels,
                                    executor, card)
+    report += spec_kernel_phase(torch, dev, tdp, encoded, kernels, executor,
+                                card)
     for name, count in service_phase(torch, tdp, kernels, card, users,
                                      movies, ratings).items():
         launches[name] += count
@@ -5230,6 +5247,477 @@ def service_kernel_phase(torch, dev, tdp, encoded, kernels, executor, card,
     return report
 
 
+# The lane entries of every other dense spec: the total bound, pre-bounded
+# rows, safe mode, VECTOR_SUM, PERCENTILE and secure noise.
+SPEC_ENTRIES = {
+    "total_bound_keys_lanes": ("row_keys.cu",
+                               "pipelinedp_tpu/executor.py:984"),
+    "total_bound_rows_lanes": ("bound_rows.cu",
+                               "pipelinedp_tpu/executor.py:984"),
+    "bound_rows_keyless_lanes": ("bound_rows.cu",
+                                 "pipelinedp_tpu/executor.py:984"),
+    "reduce_partitions_compensated_lanes": (
+        "reduce_partitions.cu", "pipelinedp_tpu/executor.py:984"),
+    "reduce_partitions_vector_lanes": ("reduce_partitions.cu",
+                                       "pipelinedp_tpu/executor.py:984"),
+    "release_epilogue_secure_lanes": ("release_epilogue.cu",
+                                      "pipelinedp_tpu/executor.py:984"),
+    "quantile_descend_lanes": ("quantile_descend.cu",
+                               "pipelinedp_tpu/executor.py:984"),
+    "quantile_descend_secure_lanes": ("quantile_descend.cu",
+                                      "pipelinedp_tpu/executor.py:984"),
+    "vector_release_lanes": ("vector_release.cu",
+                             "pipelinedp_tpu/executor.py:984"),
+    "vector_release_secure_lanes": ("vector_release.cu",
+                                    "pipelinedp_tpu/executor.py:984"),
+}
+PER_MOVIE = dict(max_partitions_contributed=64,
+                 max_contributions_per_partition=1)
+RATING_BOUNDS = dict(min_value=1.0, max_value=5.0)
+# name: (metrics, noise, values, params' bounds, backend options); values
+# "rating", "onehot" (cell (i)'s D = 5) or "x1000" (cell (p)'s).
+LANE_SPECS = {
+    "f": (lambda M: [M.PERCENTILE(10), M.PERCENTILE(50), M.PERCENTILE(90),
+                     M.COUNT], "GAUSSIAN", "rating",
+          dict(PER_MOVIE, **RATING_BOUNDS), {}),
+    "i": (lambda M: [M.VECTOR_SUM, M.COUNT], "GAUSSIAN", "onehot",
+          dict(PER_MOVIE, vector_size=5, vector_max_norm=1000.0,
+               vector_norm_kind="L2"), {}),
+    "d": (lambda M: [M.COUNT, M.SUM, M.MEAN], "LAPLACE", "rating",
+          dict(max_contributions=64, **RATING_BOUNDS), {}),
+    "enforced": (lambda M: [M.COUNT, M.SUM], "LAPLACE", "rating",
+                 dict(PER_MOVIE, contribution_bounds_already_enforced=True,
+                      **RATING_BOUNDS), {}),
+    "secure": (lambda M: [M.COUNT, M.SUM, M.MEAN, M.VARIANCE], "GAUSSIAN",
+               "rating", dict(PER_MOVIE, **RATING_BOUNDS),
+               {"secure_noise": True}),
+    "safe": (lambda M: [M.COUNT, M.SUM], "LAPLACE", "x1000",
+             dict(PER_MOVIE, min_value=1000.0, max_value=5000.0),
+             {"numeric_mode": "safe"}),
+    "secure f": (lambda M: [M.PERCENTILE(50), M.COUNT], "LAPLACE", "rating",
+                 dict(PER_MOVIE, **RATING_BOUNDS), {"secure_noise": True}),
+    "secure i": (lambda M: [M.VECTOR_SUM], "GAUSSIAN", "onehot",
+                 dict(PER_MOVIE, vector_size=5, vector_max_norm=1000.0,
+                      vector_norm_kind="L2"), {"secure_noise": True}),
+}
+
+
+def spec_params(tdp, name):
+    metrics, noise, _, bounds, _ = LANE_SPECS[name]
+    bounds = dict(bounds)
+    if "vector_norm_kind" in bounds:
+        bounds["vector_norm_kind"] = getattr(tdp.NormKind,
+                                             bounds["vector_norm_kind"])
+    return tdp.AggregateParams(metrics=metrics(tdp.Metrics),
+                               noise_kind=getattr(tdp.NoiseKind, noise),
+                               **bounds)
+
+
+def spec_values(np_or_torch, values, kind):
+    """A spec's value column from the ratings (1-5): as they are, one-hot
+    (D = 5) or x 1000."""
+    if kind == "onehot":
+        if isinstance(values, np.ndarray):
+            out = np.zeros(values.shape + (5,))
+            out[..., :] = (np.arange(1, 6) == values[..., None])
+            return out
+        torch = np_or_torch
+        return torch.nn.functional.one_hot(values.long() - 1, 5).to(
+            values.dtype).contiguous()
+    return values * 1000.0 if kind == "x1000" else values
+
+
+def spec_release_cfg(tdp, executor, P, name, dev):
+    """(cfg, stds, scalars, secure tables on dev or None) of a LANE_SPECS
+    spec, public partitions, budgets at eps 1, delta 1e-6."""
+    from pipelinedp_tpu_torch import combiners
+    params = spec_params(tdp, name)
+    options = LANE_SPECS[name][4]
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    compound = combiners.create_compound_combiner(params, acc)
+    acc.compute_budgets()
+    secure = bool(options.get("secure_noise"))
+    cfg = executor.make_kernel_config(
+        params, compound, P, False, None, secure=secure,
+        numeric_mode=options.get("numeric_mode", "fast"))
+    stds = executor.compute_noise_stds(compound)
+    tables = (executor.build_secure_tables(
+        stds, executor.compute_noise_sensitivities(compound, params),
+        params.noise_kind, None, dev) if secure else None)
+    return cfg, stds, executor.kernel_scalars(params), tables
+
+
+def spec_kernel_phase(torch, dev, tdp, encoded, kernels, executor, card,
+                      shapes=LANE_SHAPES):
+    """The lane entries of the total bound (C1, C2), pre-bounded rows (C2),
+    safe mode and VECTOR_SUM (C3), secure noise (C4, C8, C9), PERCENTILE
+    (C8, both regimes) and VECTOR_SUM's release (C9) against their plain
+    versions on the card, at L = 3 lanes of 1000 rows and S2's 16 lanes of
+    2^20 Netflix rows (P = 17,770; the dense quantile regime on 128
+    partitions, movie mod 128); each spec's batched release == its solo
+    release lane by lane; times at S2's shape."""
+    from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+    from pipelinedp_tpu_torch.ops import quantile_tree
+    from pipelinedp_tpu_torch.ops import threefry
+    f32, i32 = torch.float32, torch.int32
+    P, PD = N_MOVIES, 128
+    h, B = quantile_tree.DEFAULT_TREE_HEIGHT, \
+        quantile_tree.DEFAULT_BRANCHING_FACTOR
+    n_q = len(QUANTILES)
+    report = []
+    metric_plan = (
+        executor.MetricPlanEntry("variance",
+                                 ("variance", "count", "sum", "mean"), 3),
+        executor.MetricPlanEntry("privacy_id_count", ("privacy_id_count",),
+                                 1))
+    stds = np.array([2.0, 5.0, 40.0, 1.5])
+    tables = executor.build_secure_tables(
+        stds, np.array([64.0, 128.0, 256.0, 64.0]), NoiseKind.GAUSSIAN, None,
+        dev)
+    std_lazy = quantile_tree.per_level_noise_std(0.5, 5e-7, 64, 1, h,
+                                                 NoiseKind.GAUSSIAN)
+    qthr, qgran = executor.build_secure_tables(
+        np.array([std_lazy]), np.array([64.0]), NoiseKind.GAUSSIAN, None, dev)
+    qtable = (qthr[0], float(qgran[0]))
+    vstd = 460.0
+    vthr, vgran = executor.build_secure_tables(
+        np.array([vstd]), np.array([1000.0]), NoiseKind.GAUSSIAN, None, dev)
+    vtable = (vthr[0], float(vgran[0]))
+    for n_lanes, lane_rows in shapes:
+        total = n_lanes * lane_rows
+        PP = n_lanes * P
+        sl = slice(0, total)
+        pid = torch.as_tensor(encoded.pid[sl]).to(dev).reshape(n_lanes, -1)
+        pk = torch.as_tensor(encoded.pk[sl]).to(dev).reshape(n_lanes, -1)
+        values = torch.as_tensor(encoded.values[sl]).to(dev, f32).reshape(
+            n_lanes, -1)
+        valid = torch.as_tensor(encoded.valid[sl]).to(dev).reshape(n_lanes,
+                                                                 -1)
+        keys = lane_keys(n_lanes, 700)
+        keys[1] = keys[0]
+        if n_lanes == LANE_SHAPES[0][0]:
+            valid[-1] = False
+        fp, fk, fv, fvalid = (pid.reshape(-1), pk.reshape(-1),
+                              values.reshape(-1), valid.reshape(-1))
+        errors, timing = {}, {}
+        zeros = lambda: torch.zeros(n_lanes, dtype=i32,  # noqa: E731
+                                    device=dev)
+
+        # C1 / C5 / C2: the total bound, max_contributions = 64.
+        ktot = executor.lane_total_keys(keys)
+        t1 = lambda: kernels.total_bound_keys_lanes(  # noqa: E731
+            fp, fvalid, lane_rows, ktot, f32)
+        t1_plain = lambda: kernels.total_bound_keys_lanes_plain(  # noqa: E731
+            fp, fvalid, lane_rows, ktot, f32)
+        lane_pid, u0 = t1()
+        q1 = t1_plain()
+        errors["total_bound_keys_lanes"] = max(
+            check_equal("total_bound_keys_lanes lane_pid", lane_pid, q1[0]),
+            check_equal("total_bound_keys_lanes u", u0, q1[1]))
+        perm0, slane_pid = kernels.radix_sort([lane_pid, u0], sorted_top=True)
+        check_equal("radix_sort (lane_pid, u)", perm0,
+                    kernels.radix_sort_plain([lane_pid, u0]))
+        tb_args = dict(lane_rows=lane_rows, total_bound=64, n_partitions=P)
+        t2 = lambda: kernels.total_bound_rows_lanes(  # noqa: E731
+            perm0, slane_pid, fk, fv, fvalid, **tb_args)
+        t2_plain = lambda: kernels.total_bound_rows_lanes_plain(  # noqa: E731
+            perm0, slane_pid, fk, fv, fvalid, **tb_args)
+        errors["total_bound_rows_lanes"] = max(
+            check_equal(f"total_bound_rows_lanes {w}", a, b)
+            for w, a, b in zip(("pid", "pk", "values", "valid"), t2(),
+                               t2_plain()))
+        # C2's keyless lane entry: contribution bounds already enforced.
+        cols = ("sum", "nsum", "nsum2")
+        kl_args = dict(lane_rows=lane_rows, n_partitions=P, linf=0, l0=0,
+                       clip_per_value=True, clip_pair_sum=False,
+                       scalars=(1.0, 5.0, 0.0, 0.0, 3.0), columns=cols,
+                       pk=fk)
+        t3 = lambda: kernels.bound_rows_lanes(  # noqa: E731
+            None, None, None, fv, fvalid, **kl_args)
+        t3_plain = lambda: kernels.bound_rows_lanes_plain(  # noqa: E731
+            None, None, None, fv, fvalid, **kl_args)
+        got, want = t3(), t3_plain()
+        errors["bound_rows_keyless_lanes"] = max(
+            [check_equal("bound_rows_keyless_lanes key2", got[0], want[0]),
+             check_equal("bound_rows_keyless_lanes pair_start", got[1],
+                         want[1])] +
+            [check_equal(f"bound_rows_keyless_lanes {c}", got[2][c],
+                         want[2][c]) for c in cols])
+
+        # The keyed lane entries' bounded, partition-sorted rows (S2's).
+        salts, keys_linf, key_sel, slots = executor.lane_release_keys(
+            keys, metric_plan)
+        lane, k1, k2, u = kernels.row_keys_lanes(fp, fk, fvalid, lane_rows,
+                                                 salts, keys_linf, P, f32)
+        perm = kernels.radix_sort([lane, k1, k2, u])
+        key2, pair_start, row_cols = kernels.bound_rows_lanes(
+            perm, k1, k2, fv, fvalid, lane_rows=lane_rows, n_partitions=P,
+            linf=1, l0=64, clip_per_value=True, clip_pair_sum=False,
+            scalars=(1.0, 5.0, 0.0, 0.0, 3.0), columns=cols)
+        perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
+        kept_rows = int((skey2 < PP).sum())
+
+        # C3 compensated: the columns x 1000 (integer-valued, sums past
+        # 2^24): sum and nsum equal float32 of the exact sums.
+        big = {c: row_cols[c] * 1000.0 for c in cols}
+        t4 = lambda: kernels.reduce_partitions_lanes(  # noqa: E731
+            skey2, perm2, pair_start, big, lane_rows, P, f32,
+            compensated=True)
+        t4_plain = lambda: kernels.reduce_partitions_lanes_plain(  # noqa: E731
+            skey2, perm2, pair_start, big, lane_rows, P, f32,
+            compensated=True)
+        comp, q4 = t4(), t4_plain()
+        exact = kernels.reduce_partitions_lanes_plain(
+            skey2, perm2, pair_start, {c: big[c].double() for c in cols},
+            lane_rows, P, torch.float64)
+        err = max(check_equal("reduce_partitions_compensated_lanes count",
+                              comp["count"], q4["count"]),
+                  check_equal("reduce_partitions_compensated_lanes "
+                              "pid_count", comp["pid_count"],
+                              q4["pid_count"]))
+        for c in ("sum", "nsum"):
+            err = max(err, check_equal(
+                f"reduce_partitions_compensated_lanes {c} (exact)", comp[c],
+                exact[c].float()))
+        diff2 = float((comp["nsum2"].double() - exact["nsum2"]).abs().max())
+        errors["reduce_partitions_compensated_lanes"] = err
+        # C3's vector lane entry: the one-hot ratings (D = 5).
+        onehot = spec_values(torch, fv, "onehot")
+        t5 = lambda: kernels.reduce_partitions_lanes(  # noqa: E731
+            skey2, perm2, pair_start, {}, lane_rows, P, f32, (perm, onehot))
+        t5_plain = lambda: kernels.reduce_partitions_lanes_plain(  # noqa: E731
+            skey2, perm2, pair_start, {}, lane_rows, P, f32, (perm, onehot))
+        vcols = t5()
+        # Integer-valued coordinates below 2^24: exact in any order.
+        errors["reduce_partitions_vector_lanes"] = check_equal(
+            "reduce_partitions_vector_lanes vsum", vcols["vsum"],
+            t5_plain()["vsum"])
+        vsum = vcols["vsum"]
+
+        # C4 secure: the plan's four slots, private selection.
+        from pipelinedp_tpu_torch.aggregate_params import (
+            PartitionSelectionStrategy)
+        from pipelinedp_tpu_torch.ops import selection_ops
+        sel = selection_ops.selection_params_from_host(
+            PartitionSelectionStrategy.TRUNCATED_GEOMETRIC, 1.0, 1e-6, 64,
+            None)
+        dense = kernels.reduce_partitions_lanes(skey2, perm2, pair_start,
+                                                row_cols, lane_rows, P, f32)
+        c4_args = (dense, executor.epilogue_plan(metric_plan), stds, slots,
+                   NoiseKind.GAUSSIAN, False, 3.0, 1.0, sel, key_sel, 1,
+                   n_lanes, tables)
+        t6 = lambda: kernels.release_epilogue_lanes(*c4_args)  # noqa: E731
+        t6_plain = lambda: kernels.release_epilogue_lanes_plain(  # noqa: E731
+            *c4_args)
+        keep, outs, flags = t6()
+        q6 = t6_plain()
+        err = max(check_equal("release_epilogue_secure_lanes keep", keep,
+                              q6[0]),
+                  check_equal("release_epilogue_secure_lanes flags", flags,
+                              q6[2]))
+        for name in outs:
+            err = max(err, check_close(
+                f"release_epilogue_secure_lanes {name}", outs[name],
+                q6[1][name], rtol=1e-5, atol=1e-5))
+        errors["release_epilogue_secure_lanes"] = err
+
+        # C9: the one-hot sums, each lane under its slot key.
+        keep_all = torch.ones(PP, dtype=torch.bool, device=dev)
+        v_args = dict(max_norm=1000.0, norm_kind="l2", std=vstd,
+                      keys=slots[:, 0], gaussian=True, n_lanes=n_lanes)
+        t7 = lambda: kernels.vector_release_lanes(  # noqa: E731
+            vsum, keep_all, zeros(), **v_args)
+        t7_plain = lambda: kernels.vector_release_lanes_plain(  # noqa: E731
+            vsum, keep_all, zeros(), **v_args)
+        f_k, f_p = zeros(), zeros()
+        got = kernels.vector_release_lanes(vsum, keep_all, f_k, **v_args)
+        want = kernels.vector_release_lanes_plain(vsum, keep_all, f_p,
+                                                  **v_args)
+        # float32 noise words a few ulp apart: 1e-5 of the value plus the
+        # noise scale (the solo C9 check's bound).
+        vdiff = (got - want).abs()
+        if bool((vdiff > 1e-5 * (want.abs() + vstd)).any()):
+            raise AssertionError(f"vector_release_lanes: max diff "
+                                 f"{float(vdiff.max())}")
+        errors["vector_release_lanes"] = max(
+            float(vdiff.max()),
+            check_equal("vector_release_lanes flags", f_k, f_p))
+        t8 = lambda: kernels.vector_release_lanes(  # noqa: E731
+            vsum, keep_all, zeros(), tables=vtable, **v_args)
+        t8_plain = lambda: kernels.vector_release_lanes_plain(  # noqa: E731
+            vsum, keep_all, zeros(), tables=vtable, **v_args)
+        f_k, f_p = zeros(), zeros()
+        errors["vector_release_secure_lanes"] = max(
+            check_equal("vector_release_secure_lanes", kernels.
+                        vector_release_lanes(vsum, keep_all, f_k,
+                                             tables=vtable, **v_args),
+                        kernels.vector_release_lanes_plain(
+                            vsum, keep_all, f_p, tables=vtable, **v_args)),
+            check_equal("vector_release_secure_lanes flags", f_k, f_p))
+
+        # C8: the lazy regime over the lanes' 17,770 movies (C7's child
+        # counts a level), plain and secure.
+        qkeys = np.stack([executor.quantile_key(k) for k in keys])
+        tree = dict(tree_height=h, branching=B, min_v=1.0, max_v=5.0)
+        err8 = {False: 0.0, True: 0.0}
+        step_fns = {}
+        for secure in (False, True):
+            qt = qtable if secure else None
+            state_k = kernels.DescentState(PP, n_q, f32, dev)
+            state_p = kernels.DescentState(PP, n_q, f32, dev)
+            f_k, f_p = zeros(), zeros()
+            for level in range(1, h + 1):
+                counts = kernels.quantile_child_counts(
+                    skey2, perm2, perm, fv, state_k.node.clone(),
+                    level=level, **tree)
+                args = dict(level=level, tree_height=h, std=std_lazy,
+                            level_keys=np.stack([threefry.fold_in(k, level)
+                                                 for k in qkeys]),
+                            gaussian=True, min_v=1.0, max_v=5.0,
+                            keep=keep_all, n_lanes=n_lanes, tables=qt)
+                if level == 1:
+                    step_fns[secure] = (
+                        lambda c=counts, a=args: kernels.
+                        quantile_descend_step_lanes(
+                            c, kernels.DescentState(PP, n_q, f32, dev),
+                            QUANTILES, flags=zeros(), **a),
+                        lambda c=counts, a=args: kernels.
+                        quantile_descend_step_lanes_plain(
+                            c, kernels.DescentState(PP, n_q, f32, dev),
+                            QUANTILES, flags=zeros(), **a))
+                out_k = kernels.quantile_descend_step_lanes(
+                    counts, state_k, QUANTILES, flags=f_k, **args)
+                out_p = kernels.quantile_descend_step_lanes_plain(
+                    counts, state_p, QUANTILES, flags=f_p, **args)
+                mismatch = int((state_k.node != state_p.node).sum())
+                if mismatch:
+                    raise AssertionError(
+                        f"quantile_descend lanes (secure={secure}) level "
+                        f"{level}: {mismatch} walks at another node")
+            name = ("quantile_descend_secure_lanes" if secure else
+                    "quantile_descend_lanes")
+            err8[secure] = max(check_close(f"{name} lazy", out_k, out_p,
+                                           rtol=1e-5),
+                               check_equal(f"{name} lazy flags", f_k, f_p))
+        # ... and the dense regime on movie mod 128 (P <= quantile_chunk).
+        skey_d = torch.where(skey2 < PP, (skey2 // P) * PD + (skey2 % P) % PD,
+                             n_lanes * PD).to(i32).contiguous()
+        leaf = kernels.quantile_leaf_counts(skey_d, perm2, perm, fv,
+                                            n_partitions=n_lanes * PD,
+                                            n_leaves=B**h, min_v=1.0,
+                                            max_v=5.0)
+        levels = kernels.quantile_level_counts(leaf, tree_height=h,
+                                               branching=B)
+        del leaf
+        dense_keys = np.stack([executor._dense_level_keys(k, h)
+                               for k in qkeys])
+        keep_d = torch.ones(n_lanes * PD, dtype=torch.bool, device=dev)
+        for secure in (False, True):
+            args = dict(std=std_lazy, level_keys=dense_keys, gaussian=True,
+                        min_v=1.0, max_v=5.0, keep=keep_d, dtype=f32,
+                        n_lanes=n_lanes, tables=qtable if secure else None)
+            f_k, f_p = zeros(), zeros()
+            out_k = kernels.quantile_descend_dense_lanes(
+                levels, QUANTILES, flags=f_k, **args)
+            out_p = kernels.quantile_descend_dense_lanes_plain(
+                levels, QUANTILES, flags=f_p, **args)
+            name = ("quantile_descend_secure_lanes" if secure else
+                    "quantile_descend_lanes")
+            err8[secure] = max(err8[secure],
+                               check_close(f"{name} dense", out_k, out_p,
+                                           rtol=1e-5),
+                               check_equal(f"{name} dense flags", f_k, f_p))
+        del levels
+        errors["quantile_descend_lanes"] = err8[False]
+        errors["quantile_descend_secure_lanes"] = err8[True]
+
+        # Each spec's batched release == its solo release, lane by lane.
+        for spec in LANE_SPECS:
+            kind = LANE_SPECS[spec][2]
+            cfg, cstds, sc, ctables = spec_release_cfg(tdp, executor, P, spec,
+                                                       dev)
+            svals = spec_values(torch, values, kind)
+            batched = executor.batched_aggregate_release_kernel(
+                pid, pk, svals, valid, *sc, cstds, keys, cfg, ctables)
+            lanes_equal_solo(torch, f"batched ({spec})", batched,
+                             lambda l: executor.aggregate_release_kernel(
+                                 pid[l], pk[l], svals[l], valid[l], *sc,
+                                 cstds, keys[l], cfg, ctables), n_lanes)
+        torch.cuda.synchronize()
+        print(f"spec lane kernels[L={n_lanes}, n={lane_rows}, P={P}]: every "
+              f"new lane entry agrees with its plain version; the "
+              f"compensated sums equal float32 of the exact sums (nsum2 "
+              f"within {diff2}); every lane of the batched "
+              f"{', '.join(LANE_SPECS)} releases equals its solo release "
+              f"(==); max abs err {json.dumps(errors)} ({card})", flush=True)
+        if (n_lanes, lane_rows) != LANE_SHAPES[-1]:
+            continue
+        fsz = 4
+        src = torch.stack([torch.ones_like(fv), pair_start.float()], 1)
+        vsrc = torch.cat([src, onehot], 1)[perm2]
+        key_long = skey2.long()
+
+        def library_c3v():
+            out = torch.zeros(PP + 1, vsrc.shape[1], device=dev)
+            return out.index_add_(0, key_long, vsrc)
+
+        timing = {
+            "total_bound_keys_lanes": (
+                t1, t1_plain, None,
+                bound(total * (4 + 1) + total * (8 + fsz), total * 110)),
+            "total_bound_rows_lanes": (
+                t2, t2_plain, None,
+                bound(total * (8 + 8 + 4 + fsz + 1) +
+                      total * (4 + 4 + fsz + 1), total * 20)),
+            "bound_rows_keyless_lanes": (
+                t3, t3_plain, None,
+                bound(total * (4 + fsz + 1) + total * (4 + 1 + 3 * fsz),
+                      total * 12)),
+            "reduce_partitions_compensated_lanes": (
+                t4, t4_plain, None,
+                bound(total * 4 + kept_rows * (8 + 1 + 3 * fsz) +
+                      PP * 5 * fsz, kept_rows * 3 * 8)),
+            "reduce_partitions_vector_lanes": (
+                t5, t5_plain, library_c3v,
+                bound(total * 4 + kept_rows * (8 + 8 + 1 + 5 * fsz) +
+                      PP * 7 * fsz, kept_rows * 7)),
+            "release_epilogue_secure_lanes": (
+                t6, t6_plain, None,
+                bound(PP * 5 * fsz + PP * (1 + 5 * fsz) + 4 * n_lanes,
+                      PP * 4 * 260)),
+            "quantile_descend_lanes": (
+                step_fns[False][0], step_fns[False][1], None,
+                bound(PP * n_q * (B * 4 + 2 * (4 + 3 * fsz)),
+                      PP * n_q * B * 250)),
+            "quantile_descend_secure_lanes": (
+                step_fns[True][0], step_fns[True][1], None,
+                bound(PP * n_q * (B * 4 + 2 * (4 + 3 * fsz)),
+                      PP * n_q * B * 400)),
+            "vector_release_lanes": (
+                t7, t7_plain, None,
+                bound(PP * (2 * 5 * fsz + 1), PP * 5 * 150)),
+            "vector_release_secure_lanes": (
+                t8, t8_plain, None,
+                bound(PP * (2 * 5 * fsz + 1), PP * 5 * 260)),
+        }
+        for name, (fn, plain, lib, (b_ms, b_by)) in timing.items():
+            ms = cuda_ms(fn, repeats=10)
+            plain_ms = cuda_ms(plain, repeats=3, warmup=1)
+            lib_ms = cuda_ms(lib, repeats=10) if lib else None
+            print(f"kernel {name}: max_abs_err={errors[name]} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
+                  f"library_ms={lib_ms} (L={n_lanes} x {lane_rows} rows, "
+                  f"P={P}; {card})", flush=True)
+            source, replaces = SPEC_ENTRIES[name]
+            report.append({
+                "name": name, "route": "cuda",
+                "source": f"pipelinedp_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": 0,
+                "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return report
+
+
 def micro_job_cols(columnar, seed):
     """One S1 micro-job as bench.py builds it: 64 pre-encoded rows over the
     same 48 partitions (and a random tail), 200 users, values U[0, 5]."""
@@ -5241,7 +5729,33 @@ def micro_job_cols(columnar, seed):
 
 
 def release_launches(counts):
-    return counts["release_epilogue"] + counts["release_epilogue_lanes"]
+    """C4's launches, solo and lane entries, plain and secure."""
+    return sum(counts[k] for k in (
+        "release_epilogue", "release_epilogue_lanes",
+        "release_epilogue_secure", "release_epilogue_secure_lanes"))
+
+
+# S2f / S2i: the C8 and C9 lane entries beside S2's path (C7 counts every
+# lane's partitions as one job's, under its solo name).
+S2_PATHS = {
+    "S2f": (SERVICE_PATH + ("quantile_counts", "quantile_descend_lanes"),
+            {"quantile_descend_lanes": "quantile_descend"}),
+    "S2i": (SERVICE_PATH + ("reduce_partitions_vector_lanes",
+                            "vector_release_lanes"),
+            {"vector_release_lanes": "vector_release"}),
+}
+# S4: every other spec as 16 jobs of 2^16 rows, with the lane entries its
+# batched group must launch.
+S4_ROWS = 1 << 16
+S4_SPECS = {
+    "d": ("total_bound_keys_lanes", "total_bound_rows_lanes"),
+    "enforced": ("bound_rows_keyless_lanes",),
+    "safe": ("reduce_partitions_compensated_lanes",),
+    "secure f": ("release_epilogue_secure_lanes",
+                 "quantile_descend_secure_lanes"),
+    "secure i": ("release_epilogue_secure_lanes",
+                 "vector_release_secure_lanes"),
+}
 
 
 def service_phase(torch, tdp, kernels, card, users, movies, ratings,
@@ -5308,61 +5822,73 @@ def service_phase(torch, tdp, kernels, card, users, movies, ratings,
     print(f"service S1 probe: solo micro-jobs through DPEngine without the "
           f"service: {', '.join(probe)} ({card})", flush=True)
 
-    s1 = {}
-    for batching in (False, True):
-        with DPAggregationService(tdp.TorchBackend(),
-                                  max_concurrent_jobs=MICRO_WORKERS,
-                                  queue_timeout_s=600.0, batching=batching,
-                                  batch_window_ms=100.0,
-                                  max_batch_jobs=MICRO_LANES) as svc:
-            handles = [svc.submit(f"w{i}", micro_spec(900 + i), warm[i])
-                       for i in range(MICRO_WORKERS)]
-            for h in handles:
-                h.result(timeout=600)
-            trials = []
-            for trial in range(micro_trials):
-                kernels.reset_launch_counts()
-                before = telemetry.snapshot()
-                start = time.perf_counter()
-                handles = [svc.submit(f"tenant-{i % 3}",
-                                      micro_spec(trial * 1000 + i), data[i])
-                           for i in range(MICRO_JOBS)]
-                results = [h.result(timeout=600) for h in handles]
-                elapsed = time.perf_counter() - start
-                counts = dict(kernels.launch_counts)
-                delta = telemetry.delta(before)
-                latencies = sorted(h.latency_s for h in handles)
-                trials.append((MICRO_JOBS / elapsed, counts, delta,
-                               latencies, results))
-                if batching:
-                    for name, n in counts.items():
-                        total[name] += n
-            if not svc.ledgers_reconciled():
-                raise AssertionError(f"S1 batching={batching}: ledgers do "
-                                     f"not reconcile")
-        s1[batching] = trials
-    for trial, (solo, batched) in enumerate(zip(s1[False], s1[True])):
-        if solo[4] != batched[4]:
-            raise AssertionError(f"S1 trial {trial}: a batched job's release "
-                                 f"differs from its solo run")
-    for batching, trials in s1.items():
-        jps, counts, delta, lat, _ = max(trials, key=lambda t: t[0])
-        launches = delta.get("service_batch_launches", 0)
-        occupancy = (delta.get("service_jobs_batched", 0) / launches
-                     if launches else 0.0)
-        print(f"service S1 batching={batching}: {MICRO_JOBS} jobs of "
-              f"{MICRO_ROWS} rows, {MICRO_WORKERS} workers: {jps:.1f} jobs/s "
-              f"(best of {len(trials)}: {[round(t[0], 1) for t in trials]}), "
-              f"latency p50 {lat[len(lat) // 2] * 1e3:.2f} ms p99 "
-              f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3:.2f} ms, "
-              f"release launches per {MICRO_JOBS} jobs "
-              f"{release_launches(counts)}, batched launches {launches}, "
-              f"mean occupancy {occupancy:.2f}, lone-window solo releases "
-              f"{counts['release_epilogue']} ({card})", flush=True)
-    best = max(s1[True], key=lambda t: t[0])
-    if release_launches(best[1]) > MICRO_JOBS // 4:
-        raise AssertionError(f"S1: {release_launches(best[1])} release "
-                             f"launches for {MICRO_JOBS} batched jobs")
+    def run_s1(secure):
+        """S1 through the service, batching off and on (secure: every
+        release with secure noise); prints and checks as S1."""
+        label = "S1 secure" if secure else "S1"
+        s1 = {}
+        for batching in (False, True):
+            with DPAggregationService(
+                    tdp.TorchBackend(secure_noise=secure),
+                    max_concurrent_jobs=MICRO_WORKERS, queue_timeout_s=600.0,
+                    batching=batching, batch_window_ms=100.0,
+                    max_batch_jobs=MICRO_LANES) as svc:
+                handles = [svc.submit(f"w{i}", micro_spec(900 + i), warm[i])
+                           for i in range(MICRO_WORKERS)]
+                for h in handles:
+                    h.result(timeout=600)
+                trials = []
+                for trial in range(micro_trials):
+                    kernels.reset_launch_counts()
+                    before = telemetry.snapshot()
+                    start = time.perf_counter()
+                    handles = [svc.submit(f"tenant-{i % 3}",
+                                          micro_spec(trial * 1000 + i),
+                                          data[i])
+                               for i in range(MICRO_JOBS)]
+                    results = [h.result(timeout=600) for h in handles]
+                    elapsed = time.perf_counter() - start
+                    counts = dict(kernels.launch_counts)
+                    delta = telemetry.delta(before)
+                    latencies = sorted(h.latency_s for h in handles)
+                    trials.append((MICRO_JOBS / elapsed, counts, delta,
+                                   latencies, results))
+                    if batching:
+                        for name, n in counts.items():
+                            total[name] += n
+                if not svc.ledgers_reconciled():
+                    raise AssertionError(f"{label} batching={batching}: "
+                                         f"ledgers do not reconcile")
+            s1[batching] = trials
+        for trial, (solo, batched) in enumerate(zip(s1[False], s1[True])):
+            if solo[4] != batched[4]:
+                raise AssertionError(f"{label} trial {trial}: a batched job's "
+                                     f"release differs from its solo run")
+        for batching, trials in s1.items():
+            jps, counts, delta, lat, _ = max(trials, key=lambda t: t[0])
+            launches = delta.get("service_batch_launches", 0)
+            occupancy = (delta.get("service_jobs_batched", 0) / launches
+                         if launches else 0.0)
+            p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+            lone = counts["release_epilogue"] + \
+                counts["release_epilogue_secure"]
+            print(f"service {label} batching={batching}: {MICRO_JOBS} jobs "
+                  f"of {MICRO_ROWS} rows, {MICRO_WORKERS} workers: "
+                  f"{jps:.1f} jobs/s (best of {len(trials)}: "
+                  f"{[round(t[0], 1) for t in trials]}), latency p50 "
+                  f"{lat[len(lat) // 2] * 1e3:.2f} ms p99 {p99 * 1e3:.2f} "
+                  f"ms, release launches per {MICRO_JOBS} jobs "
+                  f"{release_launches(counts)}, batched launches {launches}, "
+                  f"mean occupancy {occupancy:.2f}, lone-window solo "
+                  f"releases {lone} ({card})", flush=True)
+        best = max(s1[True], key=lambda t: t[0])
+        if release_launches(best[1]) > MICRO_JOBS // 4:
+            raise AssertionError(f"{label}: {release_launches(best[1])} "
+                                 f"release launches for {MICRO_JOBS} batched "
+                                 f"jobs")
+
+    run_s1(False)
+    run_s1(True)
 
     # S2 / S3: 16 jobs of 2^20 Netflix rows, P = 17,770 in every lane.
     rows = s2_rows
@@ -5373,6 +5899,14 @@ def service_phase(torch, tdp, kernels, card, users, movies, ratings,
                   for c in chunks]
     enc_private = [columnar.encode_columns(users[c], movies[c], ratings[c])
                    for c in chunks]
+    enc_onehot = [dataclasses.replace(
+        enc, values=spec_values(np, enc.values, "onehot"))
+        for enc in enc_public]
+
+    def lane_spec(name, seed, n_public=N_MOVIES):
+        return JobSpec(params=spec_params(tdp, name), epsilon=1.0,
+                       delta=1e-6, noise_seed=seed,
+                       public_partitions=list(range(n_public)))
 
     def agg_spec(metrics, noise, is_public, seed):
         params = tdp.AggregateParams(
@@ -5397,8 +5931,13 @@ def service_phase(torch, tdp, kernels, card, users, movies, ratings,
                           False, 400 + i) for i in range(s2_jobs)],
                 enc_private),
         "S3": ([select_spec(500 + i) for i in range(s2_jobs)], enc_private),
+        "S2f": ([lane_spec("f", 600 + i) for i in range(s2_jobs)],
+                enc_public),
+        "S2i": ([lane_spec("i", 700 + i) for i in range(s2_jobs)],
+                enc_onehot),
     }
     for label, (specs, encs) in cells.items():
+        path, extra = S2_PATHS.get(label, (SERVICE_PATH, {}))
         runs, walls = {}, {False: [], True: []}
         for batching in (False, True, False, True):
             with DPAggregationService(
@@ -5421,6 +5960,7 @@ def service_phase(torch, tdp, kernels, card, users, movies, ratings,
                 trails = [svc.tenant_ledger(f"t{i}").records()
                           for i in range(s2_jobs)]
                 spent = [h.spent_epsilon for h in handles]
+            results = [plain_release(r) for r in results]
             if batching in runs and runs[batching][:3] != (results, spent,
                                                            trails):
                 raise AssertionError(f"{label} batching={batching}: a "
@@ -5439,9 +5979,8 @@ def service_phase(torch, tdp, kernels, card, users, movies, ratings,
                                      f"trail differs from its solo run")
             if not solo[0][i]:
                 raise AssertionError(f"{label} job {i} released nothing")
-        check_launches(f"{label} batched", batched[3], kernels,
-                       path=SERVICE_PATH)
-        for lane_name, solo_name in SOLO_OF_LANE.items():
+        check_launches(f"{label} batched", batched[3], kernels, path=path)
+        for lane_name, solo_name in dict(SOLO_OF_LANE, **extra).items():
             if batched[3][lane_name] * s2_jobs != solo[3][solo_name] or \
                     batched[3][solo_name]:
                 raise AssertionError(
@@ -5458,10 +5997,78 @@ def service_phase(torch, tdp, kernels, card, users, movies, ratings,
               f"{min(kept)}-{max(kept)}; wall of {s2_jobs} solo jobs "
               f"{[round(w * 1e3, 1) for w in walls[False]]} ms, of one "
               f"batched group {[round(w * 1e3, 1) for w in walls[True]]} ms "
-              f"(two runs each); launches a group "
-              f"{dict((k, batched[3][k]) for k in SERVICE_PATH)} ({card})",
+              f"(two runs each); release launches for {s2_jobs} jobs solo "
+              f"{release_launches(solo[3])}, batched "
+              f"{release_launches(batched[3])}; launches a group "
+              f"{dict((k, batched[3][k]) for k in path)} ({card})",
+              flush=True)
+
+    # S4: the other specs' lane entries through the service, 16 jobs of
+    # 2^16 Netflix rows each, solo and batched once.
+    s4_chunks = [slice(i * S4_ROWS, (i + 1) * S4_ROWS)
+                 for i in range(s2_jobs)]
+    for label, entries in S4_SPECS.items():
+        kind, options = LANE_SPECS[label][2], LANE_SPECS[label][4]
+        encs = [columnar.encode_columns(
+            users[c], movies[c], spec_values(np, ratings[c], kind),
+            public_partitions=public) for c in s4_chunks]
+        # Pre-bounded rows come without a privacy id extractor.
+        extractors = (tdp.DataExtractors() if label == "enforced" else None)
+        specs = [dataclasses.replace(lane_spec(label, 800 + i),
+                                     data_extractors=extractors)
+                 for i in range(s2_jobs)]
+        runs = {}
+        for batching in (False, True):
+            with DPAggregationService(
+                    tdp.TorchBackend(max_partitions=N_MOVIES, **options),
+                    max_concurrent_jobs=s2_jobs, queue_timeout_s=600.0,
+                    batching=batching, batch_window_ms=60_000.0,
+                    max_batch_jobs=s2_jobs) as svc:
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                start = time.perf_counter()
+                handles = [svc.submit(f"t{i}", spec, enc)
+                           for i, (spec, enc) in enumerate(zip(specs, encs))]
+                results = [h.result(timeout=600) for h in handles]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+                counts = dict(kernels.launch_counts)
+                if not svc.ledgers_reconciled():
+                    raise AssertionError(f"S4 ({label}) batching={batching}: "
+                                         f"ledgers do not reconcile")
+                trails = [svc.tenant_ledger(f"t{i}").records()
+                          for i in range(s2_jobs)]
+                spent = [h.spent_epsilon for h in handles]
+            runs[batching] = ([plain_release(r) for r in results], spent,
+                              trails, counts, wall)
+        solo, batched = runs[False], runs[True]
+        if solo[:3] != batched[:3] or not all(solo[0]):
+            raise AssertionError(f"S4 ({label}): a batched lane's release, "
+                                 f"spent epsilon or ledger trail differs "
+                                 f"from its solo run, or a job released "
+                                 f"nothing")
+        check_launches(f"S4 ({label}) batched", batched[3], kernels,
+                       path=entries + ("radix_sort", "compact_kept_lanes"))
+        for name, n in batched[3].items():
+            total[name] += n
+        print(f"service S4 ({label}): {s2_jobs} jobs of {S4_ROWS} rows, P = "
+              f"{N_MOVIES}: every lane == its solo run (release, spent "
+              f"epsilon, ledger trail); wall solo {solo[4] * 1e3:.1f} ms, "
+              f"batched {batched[4] * 1e3:.1f} ms; release launches solo "
+              f"{release_launches(solo[3])}, batched "
+              f"{release_launches(batched[3])}; "
+              f"{dict((k, batched[3][k]) for k in entries)} ({card})",
               flush=True)
     return total
+
+
+def plain_release(release):
+    """A decoded release with its vector sums as lists (comparable with
+    ==); a selection's list of keys as it is."""
+    if not isinstance(release, dict):
+        return release
+    return {key: tuple(np.asarray(v).tolist() for v in metrics)
+            for key, metrics in release.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -6114,7 +6721,54 @@ def mesh_service_phase(torch, tdp, kernels, card, users, movies, ratings,
           f"{batched[4] * 1e3:.1f} ms; batched launches "
           f"{dict((k, batched[3][k]) for k in SERVICE_PATH + ('combine_shards',))}"
           f" ({card})", flush=True)
+    mesh_batched_percentile(torch, tdp, kernels, card, mesh, users, movies,
+                            ratings)
     return total
+
+
+def mesh_batched_percentile(torch, tdp, kernels, card, mesh, users, movies,
+                            ratings, n_lanes=4, n=1 << 18):
+    """One meshed lane-batched release of cell (f)'s spec (PERCENTILE 10 /
+    50 / 90 + COUNT, the lazy regime over 17,770 movies): 4 lanes of 2^18
+    Netflix rows sharing one privacy-id column (one staged layout), each
+    lane == its solo meshed release (sharded_aggregate_arrays)."""
+    from pipelinedp_tpu_torch import columnar, executor
+    from pipelinedp_tpu_torch.parallel import sharded
+    enc = columnar.encode_columns(users[:n_lanes * n], movies[:n_lanes * n],
+                                  ratings[:n_lanes * n],
+                                  public_partitions=list(range(N_MOVIES)))
+    pid = enc.pid[:n]
+    lanes = [(enc.pk[l * n:(l + 1) * n], enc.values[l * n:(l + 1) * n],
+              enc.valid[l * n:(l + 1) * n]) for l in range(n_lanes)]
+    cfg, stds, sc, _ = spec_release_cfg(tdp, executor, N_MOVIES, "f",
+                                        mesh.device)
+    keys = lane_keys(n_lanes, 900)
+    staged = [sharded.shard_rows_by_pid(pid, pk, values, valid, mesh.size)
+              for pk, values, valid in lanes]
+    shards = sharded.stage_lanes(mesh, staged, torch.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    batched = sharded.sharded_batched_release(mesh, shards, *sc, stds, keys,
+                                              cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = dict(kernels.launch_counts)
+    check_launches("mesh batched (f)", counts, kernels,
+                   path=("row_keys_lanes", "bound_rows_lanes",
+                         "reduce_partitions_lanes", "combine_shards",
+                         "quantile_counts", "quantile_descend_lanes",
+                         "compact_kept_lanes"))
+    lanes_equal_solo(torch, "mesh batched (f)", batched,
+                     lambda l: sharded.sharded_aggregate_arrays(
+                         mesh, pid, *lanes[l][:2], lanes[l][2], *sc, stds,
+                         keys[l], cfg, dtype=torch.float32), n_lanes)
+    print(f"mesh batched (f) D={mesh.size}: {n_lanes} lanes of {n} rows, "
+          f"PERCENTILE 10 / 50 / 90 + COUNT: every lane == its solo meshed "
+          f"release; {int(batched[0].sum())} partitions kept; batched wall "
+          f"{wall * 1e3:.1f} ms; launches "
+          f"{dict((k, v) for k, v in counts.items() if v)} ({card})",
+          flush=True)
 
 
 # The meshed blocked route (K23a): pass 1 a shard (C1, C5, C2, C5, C10),

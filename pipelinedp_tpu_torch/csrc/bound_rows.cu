@@ -30,7 +30,9 @@
 // may hold the same pid, or the same keys, side by side), the pair-sum
 // walk stops there, and a kept row writes key2 = lane * P + partition,
 // a dropped one L * P (the caller checks L * (P + 1) < 2^31). Each lane's
-// outputs are its solo run's.
+// outputs are its solo run's. Without keys (contribution bounds already
+// enforced) every row is its own pair, as in the solo entry, and its key2
+// is lane * P + pk.
 //
 // A second entry, total_bound_rows, is the total contribution bound of
 // executor.py:366-378 (max_contributions = K): over the rows in (pid, u)
@@ -39,6 +41,11 @@
 // writes the carried columns in that order, with valid0 = valid & rank < K
 // and the sentinels pid = INT32_MAX, pk = n_partitions where !valid0. The
 // gather of the payloads is that same pass: no separate gather runs.
+// Its lane entry, total_bound_rows_lanes, takes the sorted int64 words
+// lane << 32 | pid of C1's total_keys_lanes: a run of equal words is one
+// pid of one lane, so the rank restarts at every lane start, and lane l's
+// rows keep their block [l * n, (l + 1) * n) of the output, where C1's
+// lane entry draws them at the solo run's counters.
 //
 // Bound: bytes. Each pass reads perm, k1, k2 (8 B each) for its rows; the
 // last pass also reads value and valid and writes key2 (4 B), pair_start
@@ -229,13 +236,20 @@ __global__ void finalize_rows(Params<F> p, Keys keys,
   }
 }
 
-// Total bound: new_pid(i) ? i : -1 over the rows in (pid, u) order.
-__device__ __forceinline__ long long pid_start(const int32_t* spid,
-                                               long long i) {
+// Total bound: new_pid(i) ? i : -1 over the rows in (pid, u) order. K is
+// int32 (a pid) or int64 (lane << 32 | pid, the lane entry).
+template <typename K>
+__device__ __forceinline__ long long pid_start(const K* spid, long long i) {
   return i == 0 || spid[i] != spid[i - 1] ? i : -1;
 }
 
-__global__ void pid_start_aggregates(const int32_t* __restrict__ spid,
+__device__ __forceinline__ int32_t pid_of(int32_t k) { return k; }
+__device__ __forceinline__ int32_t pid_of(long long k) {
+  return static_cast<int32_t>(k & 0xFFFFFFFFll);
+}
+
+template <typename K>
+__global__ void pid_start_aggregates(const K* __restrict__ spid,
                                      long long n, long long* aggs) {
   __shared__ long long smem[32];
   const long long base =
@@ -252,9 +266,9 @@ __global__ void pid_start_aggregates(const int32_t* __restrict__ spid,
   if (threadIdx.x == 0) aggs[blockIdx.x] = total;
 }
 
-template <typename F>
+template <typename F, typename K>
 __global__ void total_bound_finalize(
-    const long long* __restrict__ perm, const int32_t* __restrict__ spid,
+    const long long* __restrict__ perm, const K* __restrict__ spid,
     const long long* __restrict__ prefixes, long long n,
     long long total_bound, int n_partitions, const int32_t* __restrict__ pk,
     const F* __restrict__ values, const uint8_t* __restrict__ valid,
@@ -282,14 +296,14 @@ __global__ void total_bound_finalize(
     state = pdp::MaxPosOp::combine(state, starts[k]);
     const long long r = perm[i];
     const bool v = valid[r] != 0 && i - state < total_bound;
-    pid_out[i] = v ? spid[i] : 0x7FFFFFFF;
+    pid_out[i] = v ? pid_of(spid[i]) : 0x7FFFFFFF;
     pk_out[i] = v ? pk[r] : n_partitions;
     values_out[i] = values[r];
     valid_out[i] = v ? 1 : 0;
   }
 }
 
-template <typename F>
+template <typename F, typename K>
 int launch_total(const void* perm, const void* spid, const void* pk,
                  const void* values, const void* valid, long long n,
                  long long total_bound, int n_partitions, void* scratch,
@@ -299,13 +313,13 @@ int launch_total(const void* perm, const void* spid, const void* pk,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = pdp::n_tiles(n);
   long long* aggs = static_cast<long long*>(scratch);
-  const int32_t* sp = static_cast<const int32_t*>(spid);
-  pid_start_aggregates<<<static_cast<unsigned>(tiles), pdp::kThreads, 0, s>>>(
-      sp, n, aggs);
+  const K* sp = static_cast<const K*>(spid);
+  pid_start_aggregates<K><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
+                            s>>>(sp, n, aggs);
   pdp::scan_tile_aggregates<pdp::MaxPosOp><<<1, 1024, 0, s>>>(aggs, tiles,
                                                               nullptr);
-  total_bound_finalize<F><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
-                            s>>>(
+  total_bound_finalize<F, K><<<static_cast<unsigned>(tiles), pdp::kThreads,
+                               0, s>>>(
       static_cast<const long long*>(perm), sp, aggs, n, total_bound,
       n_partitions, static_cast<const int32_t*>(pk),
       static_cast<const F*>(values), static_cast<const uint8_t*>(valid),
@@ -324,7 +338,7 @@ int launch(const void* perm, const void* k1, const void* k2, const void* pk,
            void* stream) {
   if (n <= 0) return 0;
   if (lane_rows < 0 || (lane_rows > 0 && n % lane_rows != 0)) return -1;
-  if (lane_rows > 0 && k1 == nullptr) return -1;
+  if (k1 == nullptr && pk == nullptr) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = pdp::n_tiles(n);
   const int n_lanes = lane_rows > 0 ? static_cast<int>(n / lane_rows) : 1;
@@ -388,10 +402,12 @@ extern "C" int bound_rows(const void* perm, const void* k1, const void* k2,
 
 // The lane entry: n = L * lane_rows rows in (lane, k1, k2, u) order;
 // key2 = lane * n_partitions + partition where kept, L * n_partitions
-// elsewhere. k1 / k2 required. Same scratch as bound_rows.
+// elsewhere. k1 / k2 null: every row is its own pair, in lane order, and
+// pk (lane-local) supplies its partition. Same scratch as bound_rows.
 extern "C" int bound_rows_lanes(const void* perm, const void* k1,
-                                const void* k2, const void* values,
-                                const void* valid, long long n,
+                                const void* k2, const void* pk,
+                                const void* values, const void* valid,
+                                long long n,
                                 long long lane_rows, int n_partitions,
                                 long long linf, long long l0,
                                 int clip_per_value, int clip_pair_sum,
@@ -400,12 +416,12 @@ extern "C" int bound_rows_lanes(const void* perm, const void* k1,
                                 void* nsum, void* nsum2, int f64,
                                 void* stream) {
   if (lane_rows <= 0) return -1;
-  return f64 ? launch<double>(perm, k1, k2, nullptr, values, valid, n,
+  return f64 ? launch<double>(perm, k1, k2, pk, values, valid, n,
                               lane_rows, n_partitions, linf, l0,
                               clip_per_value, clip_pair_sum, scalars,
                               scratch, key2, pair_start, sum, nsum, nsum2,
                               stream)
-             : launch<float>(perm, k1, k2, nullptr, values, valid, n,
+             : launch<float>(perm, k1, k2, pk, values, valid, n,
                              lane_rows, n_partitions, linf, l0,
                              clip_per_value, clip_pair_sum, scalars,
                              scratch, key2, pair_start, sum, nsum, nsum2,
@@ -421,12 +437,36 @@ extern "C" int total_bound_rows(const void* perm, const void* spid,
                                 void* scratch, void* pid_out, void* pk_out,
                                 void* values_out, void* valid_out, int f64,
                                 void* stream) {
-  return f64 ? launch_total<double>(perm, spid, pk, values, valid, n,
-                                    total_bound, n_partitions, scratch,
-                                    pid_out, pk_out, values_out, valid_out,
-                                    stream)
-             : launch_total<float>(perm, spid, pk, values, valid, n,
-                                   total_bound, n_partitions, scratch,
-                                   pid_out, pk_out, values_out, valid_out,
-                                   stream);
+  return f64 ? launch_total<double, int32_t>(
+                   perm, spid, pk, values, valid, n, total_bound,
+                   n_partitions, scratch, pid_out, pk_out, values_out,
+                   valid_out, stream)
+             : launch_total<float, int32_t>(
+                   perm, spid, pk, values, valid, n, total_bound,
+                   n_partitions, scratch, pid_out, pk_out, values_out,
+                   valid_out, stream);
+}
+
+// The total-bound lane entry: perm / slane_pid from radix_sort of C1's
+// (lane << 32 | pid, u) with the sorted words; n = L * lane_rows (each
+// lane's rows stay in its block); pk_out's sentinel is the lane-local
+// n_partitions. Same scratch as bound_rows.
+extern "C" int total_bound_rows_lanes(const void* perm,
+                                      const void* slane_pid, const void* pk,
+                                      const void* values, const void* valid,
+                                      long long n, long long lane_rows,
+                                      long long total_bound, int n_partitions,
+                                      void* scratch, void* pid_out,
+                                      void* pk_out, void* values_out,
+                                      void* valid_out, int f64,
+                                      void* stream) {
+  if (lane_rows <= 0 || n % lane_rows != 0) return -1;
+  return f64 ? launch_total<double, long long>(
+                   perm, slane_pid, pk, values, valid, n, total_bound,
+                   n_partitions, scratch, pid_out, pk_out, values_out,
+                   valid_out, stream)
+             : launch_total<float, long long>(
+                   perm, slane_pid, pk, values, valid, n, total_bound,
+                   n_partitions, scratch, pid_out, pk_out, values_out,
+                   valid_out, stream);
 }

@@ -33,6 +33,15 @@
 // over the quantiles in ascending order, writes quantile j's column to
 // out[j, :] and ORs the flag bits of kept partitions into the flag word.
 //
+// The lane entries (K24: the megabatched service's vmap over job lanes,
+// executor.py:984) run L jobs' trees as one range of L * P partitions:
+// blockIdx.y is the lane, partition p of lane l is row l * P + p of the
+// counts, and it draws at its solo counters (p lane-local) under its
+// lane's keys, rows of a u32 table on the device: dense, the lane's h
+// level keys (and with a secure table their splits, k1 and k2 a level);
+// lazy, the lane's level key. Each lane ORs its flags into flags[l]. The
+// regime is the solo run's, chosen by P, the same for every lane.
+//
 // Bound: operations. Each visited node costs one threefry (~100 integer
 // operations; the lazy regime two more for the keys) and an erf_inv or a
 // log1p; the counts read are B ints a level.
@@ -56,7 +65,19 @@ struct Params {
   int table_len;
   double gran;
   pdp::SecureKey skey[kMaxH];  // dense: split(key[l]), derived at launch
+  // Lanes: the keys a lane (null: key / skey above), lane_words u32 a row;
+  // out's row stride (L * P; P for one job).
+  const unsigned* lane_keys;
+  int lane_words;
+  long long out_stride;
 };
+
+// The lane of the block, and its row of lane_keys (null for one job).
+__device__ __forceinline__ const unsigned* lane_key_row(const Params& P) {
+  return P.lane_keys ? P.lane_keys + static_cast<long long>(blockIdx.y) *
+                                         P.lane_words
+                     : nullptr;
+}
 
 // State of one (partition, quantile) walk.
 template <typename F>
@@ -134,26 +155,40 @@ struct Levels {
 template <typename F>
 __global__ void dense_kernel(Params P, Levels levels, F* __restrict__ vals,
                              int* __restrict__ leaves) {
-  const long long idx =
+  const long long local =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= P.n_partitions * P.n_q) return;
-  const long long p = idx / P.n_q;
+  if (local >= P.n_partitions * P.n_q) return;
+  // Lane blockIdx.y's walks follow the lanes before it.
+  const long long idx =
+      static_cast<long long>(blockIdx.y) * P.n_partitions * P.n_q + local;
+  const long long p = local / P.n_q;  // lane-local: the solo counters
+  const long long row = idx / P.n_q;  // the row of the counts
   const int j = static_cast<int>(idx % P.n_q);
   const int B = P.branching;
   const F scale = pdp::noise_scale<F>(P.std, P.gaussian);
   const F q = static_cast<F>(P.q[j]);
+  const unsigned* lk = lane_key_row(P);
   Walk<F> w{0, F(0), F(0), F(0)};
   long long width = 1;  // B^level
   F children[kMaxB];
   for (int level = 1; level <= P.height; ++level) {
     width *= B;
-    const int* counts = levels.level[level - 1] + p * width;
-    const unsigned k0 = P.key[level - 1][0], k1 = P.key[level - 1][1];
+    const int* counts = levels.level[level - 1] + row * width;
+    const unsigned k0 = lk ? lk[2 * (level - 1)] : P.key[level - 1][0];
+    const unsigned k1 = lk ? lk[2 * (level - 1) + 1] : P.key[level - 1][1];
+    pdp::SecureKey sk = P.skey[level - 1];
+    if (P.table && lk) {
+      const unsigned* w4 = lk + 2 * P.height + 4 * (level - 1);
+      sk.hi[0] = w4[0];
+      sk.hi[1] = w4[1];
+      sk.lo[0] = w4[2];
+      sk.lo[1] = w4[3];
+    }
     for (int b = 0; b < B; ++b) {
       const long long node = w.node * B + b;
       const uint64_t i = static_cast<uint64_t>(p * width + node);
       children[b] =
-          P.table ? snapped_node<F>(P, counts[node], P.skey[level - 1], i)
+          P.table ? snapped_node<F>(P, counts[node], sk, i)
                   : noisy<F>(counts[node], pdp::draw<F>(k0, k1, i, P.gaussian),
                              scale);
     }
@@ -168,15 +203,19 @@ __global__ void step_kernel(Params P, const int* __restrict__ counts,
                             int level, int* __restrict__ node,
                             F* __restrict__ target, F* __restrict__ total,
                             F* __restrict__ mass, F* __restrict__ vals) {
-  const long long idx =
+  const long long local =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= P.n_partitions * P.n_q) return;
-  const long long p = idx / P.n_q;
+  if (local >= P.n_partitions * P.n_q) return;
+  const long long idx =
+      static_cast<long long>(blockIdx.y) * P.n_partitions * P.n_q + local;
+  const long long p = local / P.n_q;  // lane-local: the solo keys
   const int j = static_cast<int>(idx % P.n_q);
   const int B = P.branching;
   const F scale = pdp::noise_scale<F>(P.std, P.gaussian);
+  const unsigned* lk = lane_key_row(P);
   uint32_t pk0, pk1;
-  pdp::fold_in(P.key[0][0], P.key[0][1], static_cast<uint32_t>(p), pk0, pk1);
+  pdp::fold_in(lk ? lk[0] : P.key[0][0], lk ? lk[1] : P.key[0][1],
+               static_cast<uint32_t>(p), pk0, pk1);
   Walk<F> w{node[idx], target[idx], total[idx], mass[idx]};
   F children[kMaxB];
   for (int b = 0; b < B; ++b) {
@@ -206,20 +245,24 @@ __global__ void finish_kernel(Params P, const F* __restrict__ vals,
                               const uint8_t* __restrict__ keep,
                               F* __restrict__ out,
                               unsigned* __restrict__ flags) {
-  const long long p =
+  const long long local =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // Lane blockIdx.y: its rows follow the lanes before it; its flag word
+  // is flags[lane].
+  const long long p =
+      static_cast<long long>(blockIdx.y) * P.n_partitions + local;
   unsigned f = 0u;
-  if (p < P.n_partitions) {
+  if (local < P.n_partitions) {
     F run = F(0);
     for (int k = 0; k < P.n_q; ++k) {
       const int j = P.order[k];
       const F v = vals[p * P.n_q + j];
       run = k == 0 ? v : pdp::max_nan(run, v);
-      out[static_cast<long long>(j) * P.n_partitions + p] = run;
+      out[static_cast<long long>(j) * P.out_stride + p] = run;
       if (keep[p]) f |= pdp::value_flags(run);
     }
   }
-  pdp::block_or_flags(f, flags);
+  pdp::block_or_flags(f, flags + blockIdx.y);
 }
 
 Params make_params(long long n_partitions, const double* quantiles,
@@ -239,6 +282,7 @@ Params make_params(long long n_partitions, const double* quantiles,
   P.std = scal[0];
   P.min_v = scal[1];
   P.max_v = scal[2];
+  P.out_stride = n_partitions;
   return P;
 }
 
@@ -248,41 +292,44 @@ bool valid(const Params& P) {
          (P.table == nullptr || (P.table_len >= 1 && P.table_len % 2 == 1));
 }
 
-unsigned blocks_for(long long n, int threads) {
-  return static_cast<unsigned>((n + threads - 1) / threads);
+// One lane's n work items a row of the grid, n_lanes rows.
+dim3 grid_for(long long n, int threads, int n_lanes) {
+  return dim3(static_cast<unsigned>((n + threads - 1) / threads),
+              static_cast<unsigned>(n_lanes));
 }
 
 template <typename F>
-void finish(const Params& P, const F* vals, const void* keep, void* out,
-            void* flags, cudaStream_t s) {
-  finish_kernel<F><<<blocks_for(P.n_partitions, 256), 256, 0, s>>>(
+void finish(const Params& P, int n_lanes, const F* vals, const void* keep,
+            void* out, void* flags, cudaStream_t s) {
+  finish_kernel<F><<<grid_for(P.n_partitions, 256, n_lanes), 256, 0, s>>>(
       P, vals, static_cast<const uint8_t*>(keep), static_cast<F*>(out),
       static_cast<unsigned*>(flags));
 }
 
 template <typename F>
-int launch_dense(const Params& P, const Levels& levels, const void* keep,
-                 void* scratch, void* leaves, void* out, void* flags,
-                 cudaStream_t s) {
+int launch_dense(const Params& P, int n_lanes, const Levels& levels,
+                 const void* keep, void* scratch, void* leaves, void* out,
+                 void* flags, cudaStream_t s) {
   const long long threads = P.n_partitions * P.n_q;
   F* vals = static_cast<F*>(scratch);
-  dense_kernel<F><<<blocks_for(threads, 128), 128, 0, s>>>(
+  dense_kernel<F><<<grid_for(threads, 128, n_lanes), 128, 0, s>>>(
       P, levels, vals, static_cast<int*>(leaves));
-  finish<F>(P, vals, keep, out, flags, s);
+  finish<F>(P, n_lanes, vals, keep, out, flags, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename F>
-int launch_step(const Params& P, const void* counts, int level, void* node,
-                void* target, void* total, void* mass, const void* keep,
-                void* scratch, void* out, void* flags, cudaStream_t s) {
+int launch_step(const Params& P, int n_lanes, const void* counts, int level,
+                void* node, void* target, void* total, void* mass,
+                const void* keep, void* scratch, void* out, void* flags,
+                cudaStream_t s) {
   const long long threads = P.n_partitions * P.n_q;
   F* vals = out ? static_cast<F*>(scratch) : nullptr;
-  step_kernel<F><<<blocks_for(threads, 128), 128, 0, s>>>(
+  step_kernel<F><<<grid_for(threads, 128, n_lanes), 128, 0, s>>>(
       P, static_cast<const int*>(counts), level, static_cast<int*>(node),
       static_cast<F*>(target), static_cast<F*>(total), static_cast<F*>(mass),
       vals);
-  if (out) finish<F>(P, vals, keep, out, flags, s);
+  if (out) finish<F>(P, n_lanes, vals, keep, out, flags, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -317,10 +364,10 @@ extern "C" int quantile_descend_dense(void* const* levels,
     if (P.table) P.skey[l] = pdp::secure_key(P.key[l][0], P.key[l][1]);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? launch_dense<double>(P, lv, keep, scratch, leaves, out, flags,
-                                    s)
-             : launch_dense<float>(P, lv, keep, scratch, leaves, out, flags,
-                                   s);
+  return f64 ? launch_dense<double>(P, 1, lv, keep, scratch, leaves, out,
+                                    flags, s)
+             : launch_dense<float>(P, 1, lv, keep, scratch, leaves, out,
+                                   flags, s);
 }
 
 // One lazy level: counts int32[n_partitions, n_q, B] of C7's child
@@ -348,8 +395,67 @@ extern "C" int quantile_descend_step(const void* counts,
   P.key[0][0] = level_key0;
   P.key[0][1] = level_key1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? launch_step<double>(P, counts, level, node, target, total,
+  return f64 ? launch_step<double>(P, 1, counts, level, node, target, total,
                                    mass, keep, scratch, out, flags, s)
-             : launch_step<float>(P, counts, level, node, target, total,
+             : launch_step<float>(P, 1, counts, level, node, target, total,
                                   mass, keep, scratch, out, flags, s);
+}
+
+// The dense lane entry: n_partitions per lane, n_lanes lanes; levels[l -
+// 1] = int32[n_lanes * n_partitions, B^l]; lane_keys: u32 [n_lanes, 2 *
+// tree_height] (each level's key; with a table [n_lanes, 6 *
+// tree_height], each level's split k1, k2 after them) on the device;
+// scratch F[n_lanes * n_partitions * n_q]; leaves (nullable) int32
+// [n_lanes * n_partitions, n_q]; out F[n_q, n_lanes * n_partitions];
+// flags: n_lanes words. Otherwise as quantile_descend_dense.
+extern "C" int quantile_descend_dense_lanes(
+    void* const* levels, long long n_partitions, int n_lanes,
+    const double* quantiles, const int* order, const double* scal,
+    const int* dims, const void* lane_keys, const void* keep, void* scratch,
+    void* leaves, void* out, void* flags, const void* table, int table_len,
+    double gran, int f64, void* stream) {
+  Params P = make_params(n_partitions, quantiles, order, scal, dims, table,
+                         table_len, gran);
+  if (!valid(P) || n_lanes < 1 || n_lanes > 65535 || lane_keys == nullptr)
+    return -1;
+  if (n_partitions <= 0) return 0;
+  P.lane_keys = static_cast<const unsigned*>(lane_keys);
+  P.lane_words = (table ? 6 : 2) * P.height;
+  P.out_stride = n_partitions * n_lanes;
+  Levels lv{};
+  for (int l = 0; l < P.height; ++l)
+    lv.level[l] = static_cast<const int*>(levels[l]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f64 ? launch_dense<double>(P, n_lanes, lv, keep, scratch, leaves,
+                                    out, flags, s)
+             : launch_dense<float>(P, n_lanes, lv, keep, scratch, leaves,
+                                   out, flags, s);
+}
+
+// The lazy lane entry: n_partitions per lane, n_lanes lanes; counts
+// int32[n_lanes * n_partitions, n_q, B] and the walks' state over the
+// same rows; level_keys: u32 [n_lanes, 2] on the device, each lane's
+// fold_in(qkey, level); out F[n_q, n_lanes * n_partitions] at the last
+// level; flags: n_lanes words. Otherwise as quantile_descend_step.
+extern "C" int quantile_descend_step_lanes(
+    const void* counts, long long n_partitions, int n_lanes, int level,
+    const double* quantiles, const int* order, const double* scal,
+    const int* dims, const void* level_keys, void* node, void* target,
+    void* total, void* mass, const void* keep, void* scratch, void* out,
+    void* flags, const void* table, int table_len, double gran, int f64,
+    void* stream) {
+  Params P = make_params(n_partitions, quantiles, order, scal, dims, table,
+                         table_len, gran);
+  if (!valid(P) || level < 1 || level > P.height || n_lanes < 1 ||
+      n_lanes > 65535 || level_keys == nullptr)
+    return -1;
+  if (n_partitions <= 0) return 0;
+  P.lane_keys = static_cast<const unsigned*>(level_keys);
+  P.lane_words = 2;
+  P.out_stride = n_partitions * n_lanes;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f64 ? launch_step<double>(P, n_lanes, counts, level, node, target,
+                                   total, mass, keep, scratch, out, flags, s)
+             : launch_step<float>(P, n_lanes, counts, level, node, target,
+                                  total, mass, keep, scratch, out, flags, s);
 }

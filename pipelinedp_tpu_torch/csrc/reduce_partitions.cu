@@ -231,7 +231,17 @@ __global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
 // position of lane l is thus summed with the association of the same
 // position in the lane's solo run, whose kept rows start the stream: the
 // float sums are bit for bit the solo kernel's, not only in the same row
-// order.
+// order. The compensated lane entry (numeric_mode="safe") carries the
+// same TwoSum pairs a lane, and the vector lane entry scans each lane's
+// window for its D coordinates, four a pass set, as the solo entries do.
+
+// The lane entries' scratch: n_aggs tile aggregates of `each` bytes, then
+// the L + 1 lane bounds at the next 16-byte boundary (a float32
+// aggregate's size is not a multiple of 8).
+__host__ __device__ __forceinline__ long long lane_aggs_bytes(long long n_aggs,
+                                                              long long each) {
+  return (n_aggs * each + 15) / 16 * 16;
+}
 
 // bounds[l] = the first position with skey2 >= l * n_partitions, for l in
 // [0, n_lanes].
@@ -329,7 +339,7 @@ int launch(const void* skey2, const void* perm, const void* pair_start,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename F>
+template <typename F, bool C>
 int launch_lanes(const void* skey2, const void* perm, const void* pair_start,
                  const void* row_sum, const void* row_nsum,
                  const void* row_nsum2, long long n, long long lane_rows,
@@ -342,27 +352,28 @@ int launch_lanes(const void* skey2, const void* perm, const void* pair_start,
   if (n_lanes > 65535) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long lane_tiles = pdp::n_tiles(lane_rows);
-  Seg<F, false>* aggs = static_cast<Seg<F, false>*>(scratch);
-  long long* bounds =
-      reinterpret_cast<long long*>(aggs + n_lanes * lane_tiles);
-  Rows<F, false> rows{static_cast<const int32_t*>(skey2),
-                      static_cast<const long long*>(perm),
-                      static_cast<const uint8_t*>(pair_start),
-                      static_cast<const F*>(row_sum),
-                      static_cast<const F*>(row_nsum),
-                      static_cast<const F*>(row_nsum2),
-                      n,
-                      0};
+  Seg<F, C>* aggs = static_cast<Seg<F, C>*>(scratch);
+  long long* bounds = reinterpret_cast<long long*>(
+      static_cast<char*>(scratch) +
+      lane_aggs_bytes(n_lanes * lane_tiles, sizeof(Seg<F, C>)));
+  Rows<F, C> rows{static_cast<const int32_t*>(skey2),
+                  static_cast<const long long*>(perm),
+                  static_cast<const uint8_t*>(pair_start),
+                  static_cast<const F*>(row_sum),
+                  static_cast<const F*>(row_nsum),
+                  static_cast<const F*>(row_nsum2),
+                  n,
+                  0};
   lane_bounds<<<static_cast<unsigned>((n_lanes + 1 + 255) / 256), 256, 0,
                 s>>>(static_cast<const int32_t*>(skey2), n, n_partitions,
                      static_cast<int>(n_lanes), bounds);
   const dim3 grid(static_cast<unsigned>(lane_tiles),
                   static_cast<unsigned>(n_lanes));
-  tile_aggregates_lanes<F, false><<<grid, pdp::kThreads, 0, s>>>(
+  tile_aggregates_lanes<F, C><<<grid, pdp::kThreads, 0, s>>>(
       rows, bounds, n_partitions, lane_tiles, aggs);
-  scan_lane_aggregates<SegOp<F, false>><<<static_cast<unsigned>(n_lanes),
-                                          1024, 0, s>>>(aggs, lane_tiles);
-  write_partitions_lanes<F, false><<<grid, pdp::kThreads, 0, s>>>(
+  scan_lane_aggregates<SegOp<F, C>><<<static_cast<unsigned>(n_lanes), 1024,
+                                      0, s>>>(aggs, lane_tiles);
+  write_partitions_lanes<F, C><<<grid, pdp::kThreads, 0, s>>>(
       rows, bounds, aggs, n_partitions, lane_tiles, static_cast<F*>(count),
       static_cast<F*>(pid_count), static_cast<F*>(sum),
       static_cast<F*>(nsum), static_cast<F*>(nsum2));
@@ -427,12 +438,13 @@ struct VRows {
 };
 
 template <typename F, bool C>
-__global__ void vector_tile_aggregates(VRows<F, C> rows, VSeg<F, C>* aggs) {
+__device__ __forceinline__ void vector_tile_aggregate(const VRows<F, C>& rows,
+                                                      long long tile,
+                                                      VSeg<F, C>* out) {
   using Op = VSegOp<F, C>;
   __shared__ VSeg<F, C> smem[32];
-  const long long base =
-      static_cast<long long>(blockIdx.x) * pdp::kTile +
-      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  const long long base = tile * pdp::kTile +
+                         static_cast<long long>(threadIdx.x) * pdp::kItems;
   VSeg<F, C> acc = Op::identity();
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
@@ -440,17 +452,27 @@ __global__ void vector_tile_aggregates(VRows<F, C> rows, VSeg<F, C>* aggs) {
   }
   VSeg<F, C> total;
   pdp::block_exclusive_scan<Op>(acc, smem, &total);
-  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
+  if (threadIdx.x == 0) *out = total;
 }
 
 template <typename F, bool C>
-__global__ void write_vectors(VRows<F, C> rows, const VSeg<F, C>* prefixes,
-                              int n_partitions, F* __restrict__ vsum) {
+__global__ void vector_tile_aggregates(VRows<F, C> rows, VSeg<F, C>* aggs) {
+  vector_tile_aggregate(rows, blockIdx.x, aggs + blockIdx.x);
+}
+
+// Rescans one tile from its prefix; the last row of each partition's run
+// writes its coordinates [d0, d0 + kVec) of vsum (partition-major, dim a
+// row; partition = skey2 - rows.base, kept when in [0, n_partitions)).
+template <typename F, bool C>
+__device__ __forceinline__ void write_vector_tile(const VRows<F, C>& rows,
+                                                  long long tile,
+                                                  VSeg<F, C> prefix,
+                                                  int n_partitions,
+                                                  F* vsum) {
   using Op = VSegOp<F, C>;
   __shared__ VSeg<F, C> smem[32];
-  const long long base =
-      static_cast<long long>(blockIdx.x) * pdp::kTile +
-      static_cast<long long>(threadIdx.x) * pdp::kItems;
+  const long long base = tile * pdp::kTile +
+                         static_cast<long long>(threadIdx.x) * pdp::kItems;
   VSeg<F, C> elems[pdp::kItems];
   VSeg<F, C> acc = Op::identity();
 #pragma unroll
@@ -460,7 +482,7 @@ __global__ void write_vectors(VRows<F, C> rows, const VSeg<F, C>* prefixes,
   }
   VSeg<F, C> total;
   const VSeg<F, C> excl = pdp::block_exclusive_scan<Op>(acc, smem, &total);
-  VSeg<F, C> state = Op::combine(prefixes[blockIdx.x], excl);
+  VSeg<F, C> state = Op::combine(prefix, excl);
 #pragma unroll
   for (int k = 0; k < pdp::kItems; ++k) {
     const long long i = base + k;
@@ -478,6 +500,52 @@ __global__ void write_vectors(VRows<F, C> rows, const VSeg<F, C>* prefixes,
       }
     }
   }
+}
+
+template <typename F, bool C>
+__global__ void write_vectors(VRows<F, C> rows, const VSeg<F, C>* prefixes,
+                              int n_partitions, F* __restrict__ vsum) {
+  write_vector_tile(rows, blockIdx.x, prefixes[blockIdx.x], n_partitions,
+                    vsum);
+}
+
+// The vector lane entry: lane blockIdx.y scans its window [bounds[l],
+// bounds[l + 1]) of the stream in tiles of its own, as the scalar lane
+// entry does, and writes its partitions at [l * P, (l + 1) * P) of vsum.
+template <typename F, bool C>
+__device__ __forceinline__ VRows<F, C> vector_lane_window(
+    VRows<F, C> rows, const long long* bounds, int n_partitions) {
+  const long long lane = blockIdx.y;
+  const long long lo = bounds[lane];
+  rows.skey2 += lo;
+  rows.perm += lo;
+  rows.n = bounds[lane + 1] - lo;
+  rows.base = lane * n_partitions;
+  return rows;
+}
+
+template <typename F, bool C>
+__global__ void vector_tile_aggregates_lanes(
+    VRows<F, C> rows, const long long* __restrict__ bounds, int n_partitions,
+    long long lane_tiles, VSeg<F, C>* aggs) {
+  const VRows<F, C> w = vector_lane_window(rows, bounds, n_partitions);
+  vector_tile_aggregate(w, blockIdx.x,
+                        aggs + blockIdx.y * lane_tiles + blockIdx.x);
+}
+
+template <typename F, bool C>
+__global__ void write_vectors_lanes(VRows<F, C> rows,
+                                    const long long* __restrict__ bounds,
+                                    const VSeg<F, C>* prefixes,
+                                    int n_partitions, long long lane_tiles,
+                                    F* __restrict__ vsum) {
+  const VRows<F, C> w = vector_lane_window(rows, bounds, n_partitions);
+  if (static_cast<long long>(blockIdx.x) * pdp::kTile >= w.n) return;
+  write_vector_tile(w, blockIdx.x,
+                    prefixes[blockIdx.y * lane_tiles + blockIdx.x],
+                    n_partitions,
+                    vsum + static_cast<long long>(blockIdx.y) *
+                               n_partitions * rows.dim);
 }
 
 template <typename F, bool C>
@@ -508,6 +576,47 @@ int launch_vectors(const void* skey2, const void* perm, const void* row_perm,
     write_vectors<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
                           s>>>(rows, aggs, n_partitions,
                                static_cast<F*>(vsum));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename F, bool C>
+int launch_vectors_lanes(const void* skey2, const void* perm,
+                         const void* row_perm, const void* values,
+                         long long n, long long lane_rows, int dim,
+                         int n_partitions, void* scratch, void* vsum,
+                         void* stream) {
+  if (n <= 0) return 0;
+  if (lane_rows <= 0 || n % lane_rows != 0 || perm == nullptr) return -1;
+  const long long n_lanes = n / lane_rows;
+  if (n_lanes > 65535) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long lane_tiles = pdp::n_tiles(lane_rows);
+  VSeg<F, C>* aggs = static_cast<VSeg<F, C>*>(scratch);
+  long long* bounds = reinterpret_cast<long long*>(
+      static_cast<char*>(scratch) +
+      lane_aggs_bytes(n_lanes * lane_tiles, sizeof(VSeg<F, C>)));
+  lane_bounds<<<static_cast<unsigned>((n_lanes + 1 + 255) / 256), 256, 0,
+                s>>>(static_cast<const int32_t*>(skey2), n, n_partitions,
+                     static_cast<int>(n_lanes), bounds);
+  const dim3 grid(static_cast<unsigned>(lane_tiles),
+                  static_cast<unsigned>(n_lanes));
+  for (int d0 = 0; d0 < dim; d0 += kVec) {
+    VRows<F, C> rows{static_cast<const int32_t*>(skey2),
+                     static_cast<const long long*>(perm),
+                     static_cast<const long long*>(row_perm),
+                     static_cast<const F*>(values),
+                     n,
+                     0,
+                     dim,
+                     d0};
+    vector_tile_aggregates_lanes<F, C><<<grid, pdp::kThreads, 0, s>>>(
+        rows, bounds, n_partitions, lane_tiles, aggs);
+    // 512 threads, as the solo entry's scan of its tile aggregates.
+    scan_lane_aggregates<VSegOp<F, C>><<<static_cast<unsigned>(n_lanes),
+                                         512, 0, s>>>(aggs, lane_tiles);
+    write_vectors_lanes<F, C><<<grid, pdp::kThreads, 0, s>>>(
+        rows, bounds, aggs, n_partitions, lane_tiles, static_cast<F*>(vsum));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -577,21 +686,31 @@ extern "C" int reduce_partitions(const void* skey2, const void* perm,
                                      nsum, nsum2, stream);
 }
 
-// Scratch of the lane entry: one aggregate per tile of a lane, per lane,
-// and the L + 1 lane bounds.
+// Scratch of the lane entries: one aggregate per tile of a lane, per
+// lane, and the L + 1 lane bounds (vec: the vector entry's aggregates).
 extern "C" long long reduce_partitions_lanes_scratch_bytes(long long lane_rows,
                                                            long long n_lanes,
-                                                           int f64) {
-  const long long each =
-      f64 ? sizeof(Seg<double, false>) : sizeof(Seg<float, false>);
-  return n_lanes * pdp::n_tiles(lane_rows) * each +
+                                                           int f64, int comp,
+                                                           int vec) {
+  long long each;
+  if (vec) {
+    each = f64 ? sizeof(VSeg<double, false>)
+               : (comp ? sizeof(VSeg<float, true>)
+                       : sizeof(VSeg<float, false>));
+  } else {
+    each = f64 ? sizeof(Seg<double, false>)
+               : (comp ? sizeof(Seg<float, true>)
+                       : sizeof(Seg<float, false>));
+  }
+  return lane_aggs_bytes(n_lanes * pdp::n_tiles(lane_rows), each) +
          (n_lanes + 1) * static_cast<long long>(sizeof(long long));
 }
 
 // The lane entry: n = L * lane_rows rows sorted by key2 = lane *
 // n_partitions + partition (dropped rows L * n_partitions, last); outputs
 // are [L * n_partitions], zero-filled by the caller, lane l's partitions
-// at [l * n_partitions, (l + 1) * n_partitions). Plain float sums only.
+// at [l * n_partitions, (l + 1) * n_partitions). comp: compensated float32
+// sums (ignored for float64).
 extern "C" int reduce_partitions_lanes(const void* skey2, const void* perm,
                                        const void* pair_start,
                                        const void* row_sum,
@@ -601,13 +720,45 @@ extern "C" int reduce_partitions_lanes(const void* skey2, const void* perm,
                                        void* scratch, void* count,
                                        void* pid_count, void* sum,
                                        void* nsum, void* nsum2, int f64,
-                                       void* stream) {
-  return f64 ? launch_lanes<double>(skey2, perm, pair_start, row_sum,
-                                    row_nsum, row_nsum2, n, lane_rows,
-                                    n_partitions, scratch, count, pid_count,
-                                    sum, nsum, nsum2, stream)
-             : launch_lanes<float>(skey2, perm, pair_start, row_sum,
-                                   row_nsum, row_nsum2, n, lane_rows,
-                                   n_partitions, scratch, count, pid_count,
-                                   sum, nsum, nsum2, stream);
+                                       int comp, void* stream) {
+  if (f64)
+    return launch_lanes<double, false>(skey2, perm, pair_start, row_sum,
+                                       row_nsum, row_nsum2, n, lane_rows,
+                                       n_partitions, scratch, count,
+                                       pid_count, sum, nsum, nsum2, stream);
+  return comp ? launch_lanes<float, true>(skey2, perm, pair_start, row_sum,
+                                          row_nsum, row_nsum2, n, lane_rows,
+                                          n_partitions, scratch, count,
+                                          pid_count, sum, nsum, nsum2, stream)
+              : launch_lanes<float, false>(skey2, perm, pair_start, row_sum,
+                                           row_nsum, row_nsum2, n, lane_rows,
+                                           n_partitions, scratch, count,
+                                           pid_count, sum, nsum, nsum2,
+                                           stream);
+}
+
+// The vector lane entry: skey2 / perm as for reduce_partitions_lanes;
+// row_perm (nullable) maps a bounded row to its row of values [*, dim];
+// vsum: [L * n_partitions, dim], zero-filled by the caller. Scratch:
+// reduce_partitions_lanes_scratch_bytes(..., vec = 1).
+extern "C" int reduce_vectors_lanes(const void* skey2, const void* perm,
+                                    const void* row_perm, const void* values,
+                                    long long n, long long lane_rows,
+                                    int dim, int n_partitions, void* scratch,
+                                    void* vsum, int f64, int comp,
+                                    void* stream) {
+  if (dim < 1) return -1;
+  if (f64)
+    return launch_vectors_lanes<double, false>(skey2, perm, row_perm, values,
+                                               n, lane_rows, dim,
+                                               n_partitions, scratch, vsum,
+                                               stream);
+  return comp ? launch_vectors_lanes<float, true>(skey2, perm, row_perm,
+                                                  values, n, lane_rows, dim,
+                                                  n_partitions, scratch,
+                                                  vsum, stream)
+              : launch_vectors_lanes<float, false>(skey2, perm, row_perm,
+                                                   values, n, lane_rows, dim,
+                                                   n_partitions, scratch,
+                                                   vsum, stream);
 }

@@ -28,7 +28,10 @@
 // draws every noise and selection value at counter p under its lane's
 // keys (rows of a [L, 2 + 2 * n_slots] table on the device: key_sel,
 // then the slot keys), and each lane ORs its flags into its own word. A
-// lane's outputs are its solo run's. Continuous noise only.
+// lane's outputs are its solo run's. With secure noise the lanes share
+// the slots' tables and each row also holds the split of every slot key,
+// (k1, k2) = split(slot_keys[l][s]), made on the host: lane l searches
+// with the words bits(k1)[p], bits(k2)[p], as its solo run does.
 //
 // Bound: operations at small P, bytes at large P: it reads up to 5 F
 // columns and writes up to 5 plus keep; each noise draw is one threefry
@@ -111,12 +114,28 @@ __device__ F keep_probability(const Params& P, F est) {
   return n <= F(0) ? F(0) : prob;
 }
 
+// Slot s's split key: the launch's, or lane_key's (its words at 2 + 2 *
+// n_slots + 4 * s: k1, then k2).
+__device__ __forceinline__ pdp::SecureKey slot_secure_key(
+    const Params& P, const unsigned* lane_key, int n_slots, int slot) {
+  if (!lane_key) return P.skey[slot];
+  const unsigned* w = lane_key + 2 + 2 * n_slots + 4 * slot;
+  pdp::SecureKey k;
+  k.hi[0] = w[0];
+  k.hi[1] = w[1];
+  k.lo[0] = w[2];
+  k.lo[1] = w[3];
+  return k;
+}
+
 template <typename F>
 __device__ __forceinline__ F noised(const Params& P, const unsigned* lane_key,
-                                    F col, int slot, uint64_t p) {
+                                    int n_slots, F col, int slot,
+                                    uint64_t p) {
   if (P.table) {
     uint32_t uhi, ulo;
-    pdp::secure_words(P.skey[slot], p, uhi, ulo);
+    pdp::secure_words(slot_secure_key(P, lane_key, n_slots, slot), p, uhi,
+                      ulo);
     return pdp::snapped_release<F>(
         col, uhi, ulo, P.table + static_cast<long long>(slot) * P.table_len,
         P.table_len, static_cast<F>(P.gran[slot]));
@@ -149,8 +168,9 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
   // keys are row `lane` of lane_keys, its flag word is flags[lane].
   const long long lane = blockIdx.y;
   const long long at = lane * n_partitions;
+  const long long row_words = 2 + 2 * n_slots + (P.table ? 4 * n_slots : 0);
   const unsigned* lane_key =
-      lane_keys ? lane_keys + lane * (2 + 2 * n_slots) : nullptr;
+      lane_keys ? lane_keys + lane * row_words : nullptr;
   count += at;
   pid_count += at;
   if (sum) sum += at;
@@ -186,17 +206,18 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
       const uint64_t q = static_cast<uint64_t>(p);
       switch (P.kind[e]) {
         case kCount:
-          r_count = noised<F>(P, lane_key, count[p], off, q);
+          r_count = noised<F>(P, lane_key, n_slots, count[p], off, q);
           break;
         case kPidCount:
-          r_pid = noised<F>(P, lane_key, pid_count[p], off, q);
+          r_pid = noised<F>(P, lane_key, n_slots, pid_count[p], off, q);
           break;
         case kSum:
-          r_sum = noised<F>(P, lane_key, sum[p], off, q);
+          r_sum = noised<F>(P, lane_key, n_slots, sum[p], off, q);
           break;
         case kMean: {
-          const F dp_count = noised<F>(P, lane_key, count[p], off, q);
-          const F dp_nsum = noised<F>(P, lane_key, nsum[p], off + 1, q);
+          const F dp_count = noised<F>(P, lane_key, n_slots, count[p], off, q);
+          const F dp_nsum =
+              noised<F>(P, lane_key, n_slots, nsum[p], off + 1, q);
           const F denom = pdp::max_nan(dp_count, F(1));
           r_mean = mid + dp_nsum / denom;
           if (P.outputs[e] & oCount) r_count = dp_count;
@@ -204,15 +225,17 @@ __global__ void epilogue_kernel(Params P, int n_partitions,
           break;
         }
         case kVariance: {
-          const F dp_count = noised<F>(P, lane_key, count[p], off, q);
+          const F dp_count = noised<F>(P, lane_key, n_slots, count[p], off, q);
           const F denom = pdp::max_nan(dp_count, F(1));
           F nmean, nsqmean;
           if (P.degenerate) {
             nmean = static_cast<F>(P.min_v);
             nsqmean = nmean * nmean;
           } else {
-            nmean = noised<F>(P, lane_key, nsum[p], off + 1, q) / denom;
-            nsqmean = noised<F>(P, lane_key, nsum2[p], off + 2, q) / denom;
+            nmean =
+                noised<F>(P, lane_key, n_slots, nsum[p], off + 1, q) / denom;
+            nsqmean =
+                noised<F>(P, lane_key, n_slots, nsum2[p], off + 2, q) / denom;
           }
           r_var = nsqmean - nmean * nmean;
           const F dp_mean = P.degenerate ? nmean + F(0) : nmean + mid;
@@ -338,7 +361,10 @@ extern "C" int release_epilogue(
 // The lane entry: columns and outputs are [n_lanes * n_partitions], lane l
 // at [l * n_partitions, (l + 1) * n_partitions); lane_keys is the lanes'
 // u32 [n_lanes, 2 + 2 * n_slots] table on the device (key_sel, then each
-// slot's key); flags are n_lanes zeroed u32. Continuous noise only.
+// slot's key; with a secure table [n_lanes, 2 + 6 * n_slots], each slot's
+// split (k1, k2) after them); flags are n_lanes zeroed u32. Secure noise:
+// table u64[n_slots, table_len] shared by the lanes (null: continuous
+// noise), gran one grid a slot.
 extern "C" int release_epilogue_lanes(
     const int* plan, int n_entries, const double* stds, int n_slots,
     const double* sel, const int* misc, const double* scal,
@@ -346,10 +372,11 @@ extern "C" int release_epilogue_lanes(
     const void* count, const void* pid_count, const void* sum,
     const void* nsum, const void* nsum2, void* keep, void* o_count,
     void* o_pid, void* o_sum, void* o_mean, void* o_var, void* flags,
-    int f64, void* stream) {
+    const void* table, int table_len, const double* gran, int f64,
+    void* stream) {
   Params P{};
   if (fill_params(&P, plan, n_entries, stds, nullptr, n_slots, sel,
-                  nullptr, misc, scal, nullptr, 0, nullptr) != 0)
+                  nullptr, misc, scal, table, table_len, gran) != 0)
     return -1;
   if (n_lanes < 1 || n_lanes > 65535 || lane_keys == nullptr) return -1;
   if (n_partitions <= 0) return 0;

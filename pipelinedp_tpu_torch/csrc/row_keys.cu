@@ -25,6 +25,13 @@
 // and uniforms are its solo run's. It also writes the lane as an int32
 // word, the most significant word of the bounding sort.
 //
+// Its total-bound form, total_keys_lanes (max_contributions a lane,
+// executor.py:366-374 under vmap), writes lane << 32 | pid_sent as one
+// int64 word and each lane's uniform(key_total) at the lane-local counter
+// i % n: sorting by (that word, u) sorts every lane's rows as its solo run
+// sorts them, within the lane's own block of n positions, and a run of
+// equal words never crosses a lane start.
+//
 // Bound: bytes. Reads pid, pk (4 B each) and valid (1 B), writes k1, k2
 // (8 B each) and u (sizeof(F)); the 20 threefry rounds and 8 hash mixes
 // are ~150 integer operations a row, well under the card's integer rate at
@@ -123,6 +130,26 @@ __global__ void row_keys_lanes_kernel(const int32_t* __restrict__ pid,
   }
 }
 
+template <typename F>
+__global__ void total_keys_lanes_kernel(const int32_t* __restrict__ pid,
+                                        const uint8_t* __restrict__ valid,
+                                        long long n, long long lane_rows,
+                                        const uint32_t* __restrict__ keys,
+                                        long long* __restrict__ lane_pid,
+                                        F* __restrict__ u) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const long long lane = i / lane_rows;
+    const uint32_t p = valid[i] ? static_cast<uint32_t>(pid[i]) : 0x7FFFFFFFu;
+    lane_pid[i] = (lane << 32) | static_cast<long long>(p);
+    u[i] = pdp::uniform<F>(keys[2 * lane], keys[2 * lane + 1],
+                           static_cast<uint64_t>(i - lane * lane_rows), F(0),
+                           F(1));
+  }
+}
+
 unsigned blocks_for(long long n, int threads) {
   const long long want = (n + threads - 1) / threads;
   return static_cast<unsigned>(want < (1 << 20) ? want : (1 << 20));
@@ -175,6 +202,21 @@ int launch_lanes(const void* pid, const void* pk, const void* valid,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename F>
+int launch_total_lanes(const void* pid, const void* valid, long long n,
+                       long long lane_rows, const void* keys, void* lane_pid,
+                       void* u, void* stream) {
+  if (n <= 0) return 0;
+  if (lane_rows <= 0 || n % lane_rows != 0) return -1;
+  const int threads = 256;
+  total_keys_lanes_kernel<F><<<blocks_for(n, threads), threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(pid), static_cast<const uint8_t*>(valid),
+      n, lane_rows, static_cast<const uint32_t*>(keys),
+      static_cast<long long*>(lane_pid), static_cast<F*>(u));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int row_keys(const void* pid, const void* pk, const void* valid,
@@ -211,4 +253,17 @@ extern "C" int row_keys_lanes(const void* pid, const void* pk,
              : launch_lanes<float>(pid, pk, valid, n, lane_rows,
                                    n_partitions, table, lane, k1, k2, u,
                                    stream);
+}
+
+// The total-bound lane entry: n = L * lane_rows rows; keys: the lanes'
+// key_total, u32 [L, 2] on the device; writes lane_pid (int64, lane << 32
+// | pid with INT32_MAX where invalid) and u (F).
+extern "C" int total_keys_lanes(const void* pid, const void* valid,
+                                long long n, long long lane_rows,
+                                const void* keys, void* lane_pid, void* u,
+                                int f64, void* stream) {
+  return f64 ? launch_total_lanes<double>(pid, valid, n, lane_rows, keys,
+                                          lane_pid, u, stream)
+             : launch_total_lanes<float>(pid, valid, n, lane_rows, keys,
+                                         lane_pid, u, stream);
 }

@@ -20,6 +20,13 @@
 //   flags  NaN / Inf / saturation of the kept partitions' outputs, ORed
 //          into the release's flag word (one atomicOr a block).
 //
+// The lane entry, vector_release_lanes (K24: the megabatched service's
+// vmap over job lanes, executor.py:984), releases L jobs' [L * P, D] sums:
+// blockIdx.y is the lane, partition p of lane l draws at its solo counter
+// p * D + d under the lane's slot key (a row of a u32 table on the
+// device: the key, and with a secure table its split k1, k2), and ORs
+// its flags into flags[l].
+//
 // Bound: operations at small D: each coordinate costs one threefry (~100
 // integer operations) and an erf_inv or a log1p; it reads and writes D F
 // values a partition.
@@ -41,7 +48,26 @@ __global__ void vector_kernel(const F* __restrict__ vsum, long long n,
                               unsigned* __restrict__ flags,
                               const unsigned long long* __restrict__ table,
                               int table_len, double gran,
-                              pdp::SecureKey skey) {
+                              pdp::SecureKey skey,
+                              const unsigned* __restrict__ lane_keys) {
+  // Lane blockIdx.y (0 for one job): its rows start at lane * n, its key
+  // is row `lane` of lane_keys, its flag word is flags[lane].
+  const long long lane = blockIdx.y;
+  if (lane_keys) {
+    const unsigned* lk = lane_keys + lane * (table ? 6 : 2);
+    k0 = lk[0];
+    k1 = lk[1];
+    if (table) {
+      skey.hi[0] = lk[2];
+      skey.hi[1] = lk[3];
+      skey.lo[0] = lk[4];
+      skey.lo[1] = lk[5];
+    }
+  }
+  vsum += lane * n * dim;
+  out += lane * n * dim;
+  keep += lane * n;
+  flags += lane;
   const long long p =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   unsigned f = 0u;
@@ -80,6 +106,24 @@ __global__ void vector_kernel(const F* __restrict__ vsum, long long n,
   pdp::block_or_flags(f, flags);
 }
 
+template <typename F>
+void launch(const void* vsum, long long n_partitions, int n_lanes, int dim,
+            int norm_kind, double max_norm, double std, unsigned k0,
+            unsigned k1, int gaussian, const void* keep, void* out,
+            void* flags, const unsigned long long* thr, int table_len,
+            double gran, const pdp::SecureKey& sk, const void* lane_keys,
+            cudaStream_t s) {
+  const int threads = 256;
+  const dim3 grid(
+      static_cast<unsigned>((n_partitions + threads - 1) / threads),
+      static_cast<unsigned>(n_lanes));
+  vector_kernel<F><<<grid, threads, 0, s>>>(
+      static_cast<const F*>(vsum), n_partitions, dim, norm_kind, max_norm,
+      std, k0, k1, gaussian, static_cast<const uint8_t*>(keep),
+      static_cast<F*>(out), static_cast<unsigned*>(flags), thr, table_len,
+      gran, sk, static_cast<const unsigned*>(lane_keys));
+}
+
 }  // namespace
 
 // vsum / out: F[n_partitions, dim]; norm_kind: 0 L-inf, 1 L1, 2 L2; (k0,
@@ -98,22 +142,44 @@ extern "C" int vector_release(const void* vsum, long long n_partitions,
   if (n_partitions <= 0) return 0;
   const pdp::SecureKey sk =
       thr ? pdp::secure_key(k0, k1) : pdp::SecureKey{};
-  const int threads = 256;
-  const unsigned blocks =
-      static_cast<unsigned>((n_partitions + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* k = static_cast<const uint8_t*>(keep);
-  unsigned* fl = static_cast<unsigned*>(flags);
   if (f64) {
-    vector_kernel<double><<<blocks, threads, 0, s>>>(
-        static_cast<const double*>(vsum), n_partitions, dim, norm_kind,
-        max_norm, std, k0, k1, gaussian, k, static_cast<double*>(out), fl,
-        thr, table_len, gran, sk);
+    launch<double>(vsum, n_partitions, 1, dim, norm_kind, max_norm, std, k0,
+                   k1, gaussian, keep, out, flags, thr, table_len, gran, sk,
+                   nullptr, s);
   } else {
-    vector_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(vsum), n_partitions, dim, norm_kind,
-        max_norm, std, k0, k1, gaussian, k, static_cast<float*>(out), fl,
-        thr, table_len, gran, sk);
+    launch<float>(vsum, n_partitions, 1, dim, norm_kind, max_norm, std, k0,
+                  k1, gaussian, keep, out, flags, thr, table_len, gran, sk,
+                  nullptr, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lane entry: vsum / out F[n_lanes * n_partitions, dim], keep
+// u8[n_lanes * n_partitions], flags n_lanes words; lane_keys: u32
+// [n_lanes, 2] on the device (each lane's slot key; with a table [n_lanes,
+// 6], the key and its split k1, k2). Otherwise as vector_release.
+extern "C" int vector_release_lanes(const void* vsum, long long n_partitions,
+                                    int n_lanes, int dim, int norm_kind,
+                                    double max_norm, double std,
+                                    int gaussian, const void* lane_keys,
+                                    const void* keep, void* out, void* flags,
+                                    const void* table, int table_len,
+                                    double gran, int f64, void* stream) {
+  if (norm_kind < kLinf || norm_kind > kL2 || dim < 1) return -1;
+  if (table != nullptr && (table_len < 1 || table_len % 2 == 0)) return -1;
+  if (n_lanes < 1 || n_lanes > 65535 || lane_keys == nullptr) return -1;
+  if (n_partitions <= 0) return 0;
+  const auto* thr = static_cast<const unsigned long long*>(table);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    launch<double>(vsum, n_partitions, n_lanes, dim, norm_kind, max_norm,
+                   std, 0u, 0u, gaussian, keep, out, flags, thr, table_len,
+                   gran, pdp::SecureKey{}, lane_keys, s);
+  } else {
+    launch<float>(vsum, n_partitions, n_lanes, dim, norm_kind, max_norm, std,
+                  0u, 0u, gaussian, keep, out, flags, thr, table_len, gran,
+                  pdp::SecureKey{}, lane_keys, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,6 +45,7 @@ _SIGNATURES = {
         "total_keys": (_I, [_P, _P, _LL, _U, _U, _P, _P, _I, _P]),
         "row_keys_lanes": (_I, [_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
                                 _P, _I, _P]),
+        "total_keys_lanes": (_I, [_P, _P, _LL, _LL, _P, _P, _P, _I, _P]),
     },
     "bound_rows": {
         "bound_rows_scratch_bytes": (_LL, [_LL]),
@@ -52,9 +53,11 @@ _SIGNATURES = {
                             _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
         "total_bound_rows": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P,
                                   _P, _P, _P, _I, _P]),
-        "bound_rows_lanes": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _I, _LL, _LL,
-                                  _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _P]),
+        "bound_rows_lanes": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _LL,
+                                  _LL, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _P]),
+        "total_bound_rows_lanes": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                        _I, _P, _P, _P, _P, _P, _I, _P]),
     },
     "reduce_partitions": {
         "reduce_partitions_scratch_bytes": (_LL, [_LL, _I, _I]),
@@ -63,10 +66,13 @@ _SIGNATURES = {
         "reduce_vectors_scratch_bytes": (_LL, [_LL, _I, _I]),
         "reduce_vectors": (_I, [_P, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _I,
                                 _I, _P]),
-        "reduce_partitions_lanes_scratch_bytes": (_LL, [_LL, _LL, _I]),
+        "reduce_partitions_lanes_scratch_bytes": (_LL, [_LL, _LL, _I, _I,
+                                                        _I]),
         "reduce_partitions_lanes": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL,
-                                         _I, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                          _P]),
+        "reduce_vectors_lanes": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _I, _P,
+                                      _P, _I, _I, _P]),
     },
     "release_epilogue": {
         "release_epilogue": (_I, [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
@@ -74,7 +80,8 @@ _SIGNATURES = {
                                   _P, _P, _P, _I, _P, _I, _P]),
         "release_epilogue_lanes": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I,
                                         _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _P, _P, _P, _P, _I, _P]),
+                                        _P, _P, _P, _P, _P, _I, _P, _I,
+                                        _P]),
     },
     "radix_sort": {
         "radix_sort_scratch_bytes": (_LL, [_LL]),
@@ -102,10 +109,18 @@ _SIGNATURES = {
         "quantile_descend_step": (_I, [_P, _LL, _I, _P, _P, _P, _P, _U, _U,
                                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _D, _I, _P]),
+        "quantile_descend_dense_lanes": (_I, [_P, _LL, _I, _P, _P, _P, _P,
+                                              _P, _P, _P, _P, _P, _P, _P, _I,
+                                              _D, _I, _P]),
+        "quantile_descend_step_lanes": (_I, [_P, _LL, _I, _I, _P, _P, _P, _P,
+                                             _P, _P, _P, _P, _P, _P, _P, _P,
+                                             _P, _P, _I, _D, _I, _P]),
     },
     "vector_release": {
         "vector_release": (_I, [_P, _LL, _I, _I, _D, _D, _U, _U, _I, _P, _P,
                                 _P, _P, _I, _D, _I, _P]),
+        "vector_release_lanes": (_I, [_P, _LL, _I, _I, _I, _D, _D, _I, _P,
+                                      _P, _P, _P, _P, _I, _D, _I, _P]),
     },
     "block_offsets": {
         "block_offsets": (_I, [_P, _LL, _P, _LL, _P, _P]),

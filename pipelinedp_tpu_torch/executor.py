@@ -51,8 +51,11 @@ The multi-tenant service (service/) offers each job's dense release to a
 per-thread launch interceptor (launch_interceptor, ReleaseLaunch): its
 coalescer runs identical-spec jobs as lanes of one lane-batched release
 (batched_aggregate_release_kernel, batched_select_partitions_release_kernel:
-the lane entries of C1, C2, C3, C4 and C6, C5 with the lane as its top
-word), each lane equal to its solo run bit for bit.
+the lane entries of C1, C2, C3, C4, C6, C8 and C9, C5 with the lane as its
+top word, C7 over the lanes' partitions as one range), each lane equal to
+its solo run bit for bit. Every spec the dense release runs batches: the
+total bound, pre-bounded rows, VECTOR_SUM, PERCENTILE, secure noise and
+safe mode each have their lane entries.
 
 Random choices come from the JAX package's threefry keys (ops/threefry.py),
 derived on the host in the same order, so one seed gives the same bounded
@@ -548,6 +551,23 @@ def lane_release_keys(rng_keys, plan: Sequence[MetricPlanEntry],
             np.stack(slots))
 
 
+def lane_total_keys(rng_keys, shard: Optional[int] = None) -> np.ndarray:
+    """Each lane's key_total (the total bound's key), stacked [L, 2]; shard
+    (the mesh): shard s's, under fold_in(rows_key, s)."""
+    keys = []
+    for key in _lane_keys(rng_keys):
+        rows_key, _ = release_key_halves(key)
+        if shard is not None:
+            rows_key = threefry.fold_in(rows_key, shard)
+        keys.append(row_key_schedule(rows_key)[0])
+    return np.stack(keys)
+
+
+def quantile_key(rng_key):
+    """The percentiles' key, fold_in(rng_key, 7919): every shard's."""
+    return threefry.fold_in(rng_key, 7919)
+
+
 def lane_select_keys(rng_keys, shard: Optional[int] = None):
     """Each lane's standalone-selection keys, stacked: (salts [L, 4],
     key_sel [L, 2]), as select_partitions_release_kernel derives them.
@@ -618,12 +638,27 @@ def quantile_std_index(plan: Sequence[MetricPlanEntry]) -> int:
     raise ValueError("plan has no quantiles entry")
 
 
+def dense_quantiles(cfg: KernelConfig) -> bool:
+    """One leaf-histogram chunk covers every partition (P <=
+    quantile_chunk): the dense regime, else the lazy descent. The lanes of
+    a batched release take their solo run's regime, chosen by P."""
+    return -(-cfg.n_partitions // max(cfg.quantile_chunk, 1)) <= 1
+
+
+def _dense_level_keys(qkey, tree_height: int) -> np.ndarray:
+    """The dense regime's level keys: fold_in(fold_in(qkey, 0), l)."""
+    ckey = threefry.fold_in(qkey, 0)
+    return np.stack([threefry.fold_in(ckey, l) for l in range(tree_height)])
+
+
 def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
                      stds: np.ndarray, qkey, keep: torch.Tensor,
                      flags: torch.Tensor, cfg: KernelConfig,
                      dtype: torch.dtype, secure_tables=None,
                      base: Optional[int] = None,
-                     combine=None) -> Dict[str, torch.Tensor]:
+                     combine=None,
+                     n_lanes: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Per-partition DP percentiles (the JAX package's quantile_outputs,
     :825): sorted_rows = (perm, skey2), the partition-sorted order of the
     bounded rows; values_rows = (row_perm, values) from
@@ -648,12 +683,20 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
     base (a block of the blocked route): sorted_rows is the block's window
     of the sorted stream, its partitions rebased by base (C7's windowed
     entries); perm may be None there (the host-staged stream).
+
+    n_lanes (the lane-batched release): the rows are L lanes' with key2 =
+    lane * P + partition, qkey is the lanes' [L, 2] stack, C7 counts the L
+    * P partitions as one range and C8's lane entries descend each lane
+    under its own keys, in its solo run's regime; keep, flags and the
+    outputs are the lanes' ([L * P], [L]).
     """
     _require_tables(cfg, secure_tables)
     shards = (list(zip(sorted_rows, values_rows)) if combine is not None
               else [(sorted_rows, values_rows)])
     total = combine if combine is not None else (lambda parts: parts[0])
     P, h, B = cfg.n_partitions, cfg.tree_height, cfg.branching
+    rows_p = P * (n_lanes or 1)  # the partitions the counts span
+    lane_qkeys = None if n_lanes is None else _lane_keys(qkey)
     qidx = quantile_std_index(cfg.plan)
     gaussian = cfg.noise_kind == NoiseKind.GAUSSIAN
     tree = dict(tree_height=h, branching=B, min_v=min_v, max_v=max_v)
@@ -661,6 +704,8 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
                    max_v=max_v, keep=keep, flags=flags,
                    tables=_slot_table(secure_tables if cfg.secure else None,
                                       qidx))
+    if n_lanes is not None:
+        descent["n_lanes"] = n_lanes
 
     def counted(count):
         """count(skey2, perm, row_perm, values) of every shard, each under
@@ -671,21 +716,25 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
                 parts.append(count(skey2, perm, row_perm, values))
         return total(parts)
 
-    if -(-P // max(cfg.quantile_chunk, 1)) <= 1:
+    if dense_quantiles(cfg):
         leaf_counts = counted(
             lambda skey2, perm, row_perm, values:
             kernels.quantile_leaf_counts(
-                skey2, perm, row_perm, values, n_partitions=P,
+                skey2, perm, row_perm, values, n_partitions=rows_p,
                 n_leaves=B**h, min_v=min_v, max_v=max_v, base=base))
         levels = kernels.quantile_level_counts(leaf_counts, tree_height=h,
                                                branching=B)
-        ckey = threefry.fold_in(qkey, 0)
-        level_keys = np.stack([threefry.fold_in(ckey, l) for l in range(h)])
-        per_quantile = kernels.quantile_descend_dense(
-            levels, cfg.quantiles, level_keys=level_keys, dtype=dtype,
-            **descent)
+        if n_lanes is None:
+            per_quantile = kernels.quantile_descend_dense(
+                levels, cfg.quantiles, level_keys=_dense_level_keys(qkey, h),
+                dtype=dtype, **descent)
+        else:
+            per_quantile = kernels.quantile_descend_dense_lanes(
+                levels, cfg.quantiles, level_keys=np.stack(
+                    [_dense_level_keys(k, h) for k in lane_qkeys]),
+                dtype=dtype, **descent)
     else:
-        state = kernels.DescentState(P, len(cfg.quantiles), dtype,
+        state = kernels.DescentState(rows_p, len(cfg.quantiles), dtype,
                                      keep.device)
         for level in range(1, h + 1):
             counts = counted(
@@ -694,9 +743,15 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
                     skey2, perm, row_perm, values,
                     state.node.to(skey2.device), level=level, base=base,
                     **tree))
-            per_quantile = kernels.quantile_descend_step(
-                counts, state, cfg.quantiles, level=level, tree_height=h,
-                level_key=threefry.fold_in(qkey, level), **descent)
+            if n_lanes is None:
+                per_quantile = kernels.quantile_descend_step(
+                    counts, state, cfg.quantiles, level=level, tree_height=h,
+                    level_key=threefry.fold_in(qkey, level), **descent)
+            else:
+                per_quantile = kernels.quantile_descend_step_lanes(
+                    counts, state, cfg.quantiles, level=level, tree_height=h,
+                    level_keys=np.stack([threefry.fold_in(k, level)
+                                         for k in lane_qkeys]), **descent)
     names = next(e.outputs for e in cfg.plan if e.kind == 'quantiles')
     return {name: per_quantile[j] for j, name in enumerate(names)}
 
@@ -742,7 +797,7 @@ def release_columns(cols, qrows, min_v, max_v, mid, stds: np.ndarray,
                                     else qrows)
         outputs.update(quantile_outputs(
             sorted_rows, values_rows, min_v, max_v, stds,
-            threefry.fold_in(rng_key, 7919), keep, flags, cfg, dtype,
+            quantile_key(rng_key), keep, flags, cfg, dtype,
             secure_tables, combine=combine))
     n_kept, order, outputs_sorted = compact_release(outputs, keep)
     return n_kept, order, outputs_sorted, flags
@@ -761,100 +816,161 @@ def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
                            cfg, values.dtype, secure_tables)
 
 
-def lanes_unported(cfg: KernelConfig) -> Optional[str]:
-    """Why a dense release has no lane-batched entries yet (None: it has).
-    The lane entries cover COUNT, PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE
-    with Laplace or Gaussian noise, public or private partitions, the
-    max_partitions_contributed bound and numeric_mode="fast"; ROADMAP item
-    13 lists the rest."""
-    if cfg.quantiles:
-        return "PERCENTILE"
+def batched_lane_capacity(cfg: KernelConfig, lane_rows: int) -> int:
+    """The most lanes of lane_rows rows one batched release of cfg takes
+    (kernels.lane_capacity): a lane's largest partition table is the dense
+    quantile regime's P x B^h leaf histogram or VECTOR_SUM's P x V sums."""
+    P = cfg.n_partitions
+    cells = 0
+    if cfg.quantiles and dense_quantiles(cfg):
+        cells = P * cfg.branching**cfg.tree_height
     if cfg.vector_size:
-        return "VECTOR_SUM"
-    if cfg.total_bound:
-        return "max_contributions"
-    if cfg.bounds_enforced:
-        return "contribution bounds already enforced"
-    if cfg.secure:
-        return "secure_noise"
-    if cfg.numeric_mode != "fast":
-        return f"numeric_mode={cfg.numeric_mode!r}"
-    return None
+        cells = max(cells, P * cfg.vector_size)
+    return kernels.lane_capacity(lane_rows, P, cells)
+
+
+def _check_lanes(cfg: KernelConfig, n_lanes: int, lane_rows: int) -> None:
+    cap = batched_lane_capacity(cfg, lane_rows)
+    if n_lanes > cap:
+        raise ValueError(f"batched release: {n_lanes} lanes of {lane_rows} "
+                         f"rows exceed this spec's {cap} (int32 keys and "
+                         f"tables, grid)")
 
 
 def batched_aggregate_release_kernel(pid, pk, values, valid, min_v, max_v,
                                      min_s, max_s, mid, stds: np.ndarray,
-                                     rng_keys, cfg: KernelConfig):
+                                     rng_keys, cfg: KernelConfig,
+                                     secure_tables=None):
     """The dense release of L jobs in one launch a stage (the JAX package's
     batched_aggregate_release_kernel, :984, a vmap over job lanes).
 
-    pid / pk / valid: [L, n] and values [L, n] on one device, each lane its
-    job's rows padded to the same n; rng_keys: [L, 2], each lane's own base
-    key; scalars, stds and cfg are shared (lanes_unported(cfg) is None).
-    The L * n rows run as one stream: C1's lane entry keys them under each
-    lane's keys, C5 sorts by (lane, k1, k2, u), C2 bounds them with runs
-    broken at lane starts and writes key2 = lane * P + partition, C5 sorts
-    by key2, C3 sums each lane's partitions from the lane's own first row,
-    C4 releases L * P partitions under each lane's slot keys and C6
-    compacts each lane. Returns (n_kept int64[L], order int64[L, P],
-    {output: F[L, P]} kept-first, flags int32[L]); lane l equals
-    aggregate_release_kernel on its rows and key alone, bit for bit.
+    pid / pk / valid: [L, n] and values [L, n] ([L, n, V] for VECTOR_SUM)
+    on one device, each lane its job's rows padded to the same n; rng_keys:
+    [L, 2], each lane's own base key; scalars, stds, cfg and secure_tables
+    (build_secure_tables', required when cfg.secure) are shared. The L * n
+    rows run as one stream: C1's lane entry keys them under each lane's
+    keys (after the total bound's lane entries of C1, C5 and C2 for
+    max_contributions; none for pre-bounded rows), C5 sorts by (lane, k1,
+    k2, u), C2 bounds them with runs broken at lane starts and writes key2
+    = lane * P + partition, C5 sorts by key2, C3 sums each lane's
+    partitions from the lane's own first row (compensated in safe mode,
+    the vectors too), C4 releases L * P partitions under each lane's slot
+    keys, C9 each lane's vector sums, C7 and C8 each lane's percentiles
+    under fold_in(key_l, 7919), and C6 compacts each lane. Returns (n_kept
+    int64[L], order int64[L, P], {output: F[L, P] or F[L, P, V]}
+    kept-first, flags int32[L]); lane l equals aggregate_release_kernel on
+    its rows and key alone, bit for bit.
     """
-    _require_lanes(cfg)
-    salts, keys_linf, key_sel, slots = lane_release_keys(rng_keys, cfg.plan)
-    cols = batched_partial_columns(pid, pk, values, valid, min_v, max_v,
-                                   min_s, max_s, mid, salts, keys_linf, cfg)
-    return batched_release_columns(cols, min_v, mid, stds, key_sel, slots,
-                                   cfg, pid.shape[0])
+    _require_tables(cfg, secure_tables)
+    n_lanes, lane_rows = pid.shape[0], pid.shape[1]
+    _check_lanes(cfg, n_lanes, lane_rows)
+    cols, qrows = batched_partial_columns(pid, pk, values, valid, min_v,
+                                          max_v, min_s, max_s, mid,
+                                          rng_keys, cfg)
+    return batched_release_columns(cols, qrows, min_v, max_v, mid, stds,
+                                   rng_keys, cfg, n_lanes, values.dtype,
+                                   secure_tables)
 
 
-def _require_lanes(cfg: KernelConfig) -> None:
-    reason = lanes_unported(cfg)
-    if reason is not None:
-        raise NotImplementedError(
-            f"batched_aggregate_release_kernel: {reason} has no lane-batched "
-            f"entries yet (ROADMAP.md Queue 1 item 13)")
+def bound_total_contributions_lanes(pid, pk, values, valid, keys_total,
+                                    total_bound: int, n_partitions: int,
+                                    lane_rows: int):
+    """bound_total_contributions a lane: C1's total-bound lane entry, one
+    sort by (lane << 32 | pid_sent, u0), C2's total-bound lane entry. Lane
+    l's rows stay in its block of lane_rows, in its solo order, so the
+    bounding sort's uniforms draw at its solo counters."""
+    lane_pid, u0 = kernels.total_bound_keys_lanes(pid, valid, lane_rows,
+                                                  keys_total, values.dtype)
+    perm0, slane_pid = kernels.radix_sort([lane_pid, u0], sorted_top=True)
+    return kernels.total_bound_rows_lanes(
+        perm0, slane_pid, pk, values, valid, lane_rows=lane_rows,
+        total_bound=total_bound, n_partitions=n_partitions)
 
 
 def batched_partial_columns(pid, pk, values, valid, min_v, max_v, min_s,
-                            max_s, mid, salts, keys_linf, cfg: KernelConfig):
-    """Phase 1 of the lane-batched release: C1-C3's lane entries over the
-    [L, n] rows under each lane's (salts, key_linf). Returns the lanes'
-    dense columns, {name: dtype[L * P]}, partition p of lane l at
-    l * P + p. On the mesh it runs once a shard, under the shard's keys
-    (lane_release_keys(..., shard=s))."""
-    lane_rows = pid.shape[1]
+                            max_s, mid, rng_keys, cfg: KernelConfig,
+                            shard: Optional[int] = None):
+    """Phase 1 of the lane-batched release: the lane entries of C1-C3 over
+    the [L, n] rows under each lane's bounding keys (shard s's on the mesh,
+    lane_release_keys(..., shard=s)), as bounded_row_columns and
+    reduce_rows_to_partitions run one job. Returns (cols, qrows): the
+    lanes' dense columns, {name: dtype[L * P]} (vsum [L * P, V]), partition
+    p of lane l at l * P + p, and qrows = ((perm2, skey2), (row_perm,
+    values)) over the L * n rows, what quantile_outputs reads."""
+    n_lanes, lane_rows = pid.shape[0], pid.shape[1]
+    n = n_lanes * lane_rows
     P = cfg.n_partitions
-    flat_values = values.reshape(-1)
-    flat_valid = valid.reshape(-1)
-    lane, k1, k2, u = kernels.row_keys_lanes(
-        pid.reshape(-1), pk.reshape(-1), flat_valid, lane_rows,
-        salts, keys_linf, P, values.dtype)
-    perm = kernels.radix_sort([lane, k1, k2, u])
-    key2, pair_start, row_cols = kernels.bound_rows_lanes(
-        perm, k1, k2, flat_values, flat_valid, lane_rows=lane_rows,
-        n_partitions=P, linf=cfg.linf if cfg.sample_per_partition else 0,
-        l0=cfg.l0, clip_per_value=cfg.clip_per_value,
-        clip_pair_sum=cfg.clip_pair_sum,
-        scalars=(min_v, max_v, min_s, max_s, mid),
-        columns=reduce_column_names(cfg))
+    dtype = values.dtype
+    pid, pk, valid = pid.reshape(n), pk.reshape(n), valid.reshape(n)
+    values = values.reshape((n,) + tuple(values.shape[2:]))
+    salts, keys_linf, _, _ = lane_release_keys(rng_keys, cfg.plan, shard)
+    # Vector rows reach no C2 column: C2 reads values only for columns.
+    row_values = None if cfg.vector_size else values
+    common = dict(lane_rows=lane_rows, n_partitions=P, l0=cfg.l0,
+                  clip_per_value=cfg.clip_per_value,
+                  clip_pair_sum=cfg.clip_pair_sum,
+                  scalars=(min_v, max_v, min_s, max_s, mid),
+                  columns=reduce_column_names(cfg))
+    if cfg.bounds_enforced:
+        # Each row is its own contribution group: no bounding sort.
+        key2, pair_start, row_cols = kernels.bound_rows_lanes(
+            None, None, None, row_values, valid, linf=0, pk=pk, **common)
+        rows = (None, values)
+    else:
+        if cfg.total_bound:
+            pid, pk, values, valid = bound_total_contributions_lanes(
+                pid, pk, values, valid, lane_total_keys(rng_keys, shard),
+                cfg.total_bound, P, lane_rows)
+            row_values = values
+        lane, k1, k2, u = kernels.row_keys_lanes(pid, pk, valid, lane_rows,
+                                                 salts, keys_linf, P, dtype)
+        perm = kernels.radix_sort([lane, k1, k2, u])
+        key2, pair_start, row_cols = kernels.bound_rows_lanes(
+            perm, k1, k2, row_values, valid,
+            linf=cfg.linf if cfg.sample_per_partition else 0, **common)
+        rows = (perm, values)
     perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
-    return kernels.reduce_partitions_lanes(skey2, perm2, pair_start,
-                                           row_cols, lane_rows, P,
-                                           values.dtype)
+    cols = kernels.reduce_partitions_lanes(
+        skey2, perm2, pair_start, row_cols, lane_rows, P, dtype,
+        rows if cfg.vector_size else None,
+        compensated=cfg.numeric_mode == "safe")
+    return cols, ((perm2, skey2), rows)
 
 
-def batched_release_columns(cols, min_v, mid, stds: np.ndarray, key_sel,
-                            slots, cfg: KernelConfig, n_lanes: int):
+def batched_release_columns(cols, qrows, min_v, max_v, mid,
+                            stds: np.ndarray, rng_keys, cfg: KernelConfig,
+                            n_lanes: int, dtype: torch.dtype,
+                            secure_tables=None, combine=None):
     """Phase 2 of the lane-batched release from the lanes' (combined)
-    columns: C4's and C6's lane entries under each lane's key_sel and slot
-    keys. Returns (n_kept int64[L], order int64[L, P], {output: F[L, P]}
-    kept-first, flags int32[L])."""
+    columns, as release_columns runs one job: C4's lane entry under each
+    lane's key_sel and slot keys, C9's for VECTOR_SUM, C7 and C8's for
+    PERCENTILE (qrows: batched_partial_columns', a list a shard with
+    combine on the mesh), C6's. Returns (n_kept int64[L], order int64[L,
+    P], {output: F[L, P] or F[L, P, V]} kept-first, flags int32[L])."""
+    _require_tables(cfg, secure_tables)
+    tables = secure_tables if cfg.secure else None
+    _, _, key_sel, slots = lane_release_keys(rng_keys, cfg.plan)
+    plan = epilogue_plan(cfg.plan)
     keep, outputs, flags = kernels.release_epilogue_lanes(
-        cols, epilogue_plan(cfg.plan), stds, slots, cfg.noise_kind,
-        cfg.degenerate_range, mid, min_v,
-        cfg.selection if cfg.private_selection else None, key_sel,
-        cfg.max_rows_per_privacy_id, n_lanes)
+        cols, plan, stds, slots, cfg.noise_kind, cfg.degenerate_range, mid,
+        min_v, cfg.selection if cfg.private_selection else None, key_sel,
+        cfg.max_rows_per_privacy_id, n_lanes, tables)
+    for kind, _, off in plan:
+        if kind == 'vector_sum':
+            outputs['vector_sum'] = kernels.vector_release_lanes(
+                cols['vsum'], keep, flags, max_norm=cfg.vector_max_norm,
+                norm_kind=cfg.vector_norm_kind.value, std=stds[off],
+                keys=slots[:, off],
+                gaussian=cfg.noise_kind == NoiseKind.GAUSSIAN,
+                n_lanes=n_lanes, tables=_slot_table(tables, off))
+    if cfg.quantiles:
+        sorted_rows, values_rows = (zip(*qrows) if combine is not None
+                                    else qrows)
+        outputs.update(quantile_outputs(
+            sorted_rows, values_rows, min_v, max_v, stds,
+            np.stack([quantile_key(k) for k in _lane_keys(rng_keys)]), keep,
+            flags, cfg, dtype, secure_tables, combine=combine,
+            n_lanes=n_lanes))
     n_kept, order, outputs = kernels.compact_kept_lanes(keep, outputs,
                                                         n_lanes)
     return n_kept, order, outputs, flags
@@ -870,8 +986,11 @@ class ReleaseLaunch:
     unpadded as the solo meshed selection does), the job's own base key,
     and for kind "aggregate" the clipping scalars, noise stds and cfg, for
     kind "select" (l0, n_partitions, selection); device, dtype, mesh and
-    reshard are the job's backend's. Lanes keep their solo keys, which is
-    what makes a batched lane's release its solo run's."""
+    reshard are the job's backend's; secure_tables the job's
+    build_secure_tables (kind "aggregate" with cfg.secure) and tables_key
+    what they are built from beside stds and cfg.noise_kind (the slots'
+    sensitivities and snap_grid_bits, on the host). Lanes keep their solo
+    keys, which is what makes a batched lane's release its solo run's."""
     kind: str  # "aggregate" | "select"
     pid: Any
     pk: Any
@@ -889,6 +1008,8 @@ class ReleaseLaunch:
     l0: int = 0
     n_partitions: int = 0
     selection: Any = None
+    secure_tables: Any = None
+    tables_key: Any = None
 
 
 # Per-thread launch interceptor: the service's coalescer is installed
@@ -1011,14 +1132,15 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                                  secure=backend.secure_noise,
                                  numeric_mode=backend.numeric_mode)
         stds = compute_noise_stds(compound)
-        secure_tables = None
+        secure_tables = tables_key = None
         if cfg.secure:
+            sens = compute_noise_sensitivities(compound, params)
             # On a mesh the release runs on its first device.
             secure_tables = build_secure_tables(
-                stds, compute_noise_sensitivities(compound, params),
-                params.noise_kind, backend.snap_grid_bits,
+                stds, sens, params.noise_kind, backend.snap_grid_bits,
                 backend.device if backend.mesh is None else
                 backend.mesh.device)
+            tables_key = (sens.tobytes(), backend.snap_grid_bits)
         key = noise_ops.make_noise_key(backend.noise_seed)
         min_v, max_v, min_s, max_s, mid = kernel_scalars(params)
         if _blocked(backend, n_partitions):
@@ -1056,7 +1178,8 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                     scalars=(min_v, max_v, min_s, max_s, mid),
                     stds=np.asarray(stds), cfg=cfg, device=backend.device,
                     dtype=backend.dtype, mesh=backend.mesh,
-                    reshard=backend.reshard))
+                    reshard=backend.reshard, secure_tables=secure_tables,
+                    tables_key=tables_key))
             if result is None and backend.mesh is not None:
                 from pipelinedp_tpu_torch.parallel import sharded
                 result = sharded.sharded_aggregate_arrays(

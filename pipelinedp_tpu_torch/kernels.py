@@ -65,7 +65,14 @@ counted under its own name: row_keys_lanes, bound_rows_lanes,
 reduce_partitions_lanes, release_epilogue_lanes and compact_kept_lanes
 run L jobs' rows as one stream of L * n rows and their partitions as one
 range of L * P (radix_sort takes the lane as a fourth, most significant
-word), each lane equal to its solo run bit for bit.
+word), each lane equal to its solo run bit for bit. Every dense spec has
+them: the total bound (total_bound_keys_lanes, total_bound_rows_lanes),
+pre-bounded rows (bound_rows_keyless_lanes), safe mode and vector sums
+(reduce_partitions_compensated_lanes, reduce_partitions_vector_lanes),
+secure noise (release_epilogue_secure_lanes), the quantile descent in
+both regimes (quantile_descend_lanes, quantile_descend_secure_lanes; C7
+counts L * P partitions unchanged) and VECTOR_SUM's release
+(vector_release_lanes, vector_release_secure_lanes).
 
 Two modes add entries (numeric_mode="safe" and secure_noise=True):
 
@@ -120,7 +127,12 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "bound_rows_lanes", "reduce_partitions_lanes",
            "release_epilogue_lanes", "compact_kept_lanes", "combine_shards",
            "combine_shards_compensated", "reshard_count",
-           "reshard_exchange")
+           "reshard_exchange", "total_bound_keys_lanes",
+           "total_bound_rows_lanes", "bound_rows_keyless_lanes",
+           "reduce_partitions_compensated_lanes",
+           "reduce_partitions_vector_lanes", "release_epilogue_secure_lanes",
+           "quantile_descend_lanes", "quantile_descend_secure_lanes",
+           "vector_release_lanes", "vector_release_secure_lanes")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -1145,11 +1157,12 @@ def _finish_quantiles(values: torch.Tensor, quantiles: Sequence[float],
     return out
 
 
-def _check_descend(keep, flags, quantiles, tree_height, branching):
+def _check_descend(keep, flags, quantiles, tree_height, branching,
+                   n_lanes: int = 1):
     """The tree's shape limits hold on both paths, so the card and the CPU
     serve the same requests; DPEngine.aggregate always builds the default
-    tree (height 4, branching 16)."""
-    _check(flags, torch.int32, 1, "flags")
+    tree (height 4, branching 16). flags: one word a lane."""
+    _check(flags, torch.int32, n_lanes, "flags")
     if not quantiles or not 1 <= tree_height <= 8 or \
             not 2 <= branching <= 64:
         raise ValueError(f"quantile_descend takes at least one quantile, "
@@ -2455,21 +2468,25 @@ def sweep_report_plain(stats, sel, n_users, size, noise_std, sel_cfg, bounds,
 # Lane-batched entries (K24: executor.py:984 / :1141 of the JAX package, the
 # megabatched service's vmap of the dense release over job lanes). L jobs'
 # rows, each padded to the same lane_rows, run as one stream of L *
-# lane_rows rows and their partitions as one range of L * P: C1, C2, C3, C4
-# and C6 have lane entries, C5 sorts with the lane as its most significant
-# word. Lane l's outputs equal its solo run's bit for bit. Each plain
-# version loops over the lanes and calls the solo plain version.
+# lane_rows rows and their partitions as one range of L * P: C1, C2, C3,
+# C4, C6, C8 and C9 have lane entries, C5 sorts with the lane as its most
+# significant word and C7 counts the L * P partitions as one job's. Lane
+# l's outputs equal its solo run's bit for bit. Each plain version loops
+# over the lanes and calls the solo plain version.
 
 _INT32_LIMIT = 1 << 31
 _MAX_GRID_Y = 65535
 
 
-def lane_capacity(lane_rows: int, n_partitions: int) -> int:
+def lane_capacity(lane_rows: int, n_partitions: int, cells: int = 0) -> int:
     """The most lanes one batched launch takes: L * (P + 1) and L *
-    lane_rows stay below 2^31 (key2 and the sort are int32-indexed) and L
-    fits a grid's y dimension."""
+    lane_rows stay below 2^31 (key2 and the sort are int32-indexed), L
+    fits a grid's y dimension, and L * cells stays below 2^31, cells being
+    a lane's largest partition table (the dense quantile regime's P * B^h
+    leaf histogram, VECTOR_SUM's P * V sums; 0: none)."""
     return max(0, min(_MAX_GRID_Y, (_INT32_LIMIT - 1) // (n_partitions + 1),
-                      (_INT32_LIMIT - 1) // max(lane_rows, 1)))
+                      (_INT32_LIMIT - 1) // max(lane_rows, 1),
+                      (_INT32_LIMIT - 1) // max(cells, 1)))
 
 
 def _lanes_of(n_total: int, lane_rows: int, n_partitions: int) -> int:
@@ -2483,6 +2500,29 @@ def _lanes_of(n_total: int, lane_rows: int, n_partitions: int) -> int:
             f"{n_partitions} partitions exceed "
             f"{lane_capacity(lane_rows, n_partitions)} (int32 keys, grid)")
     return n_lanes
+
+
+def _lanes_in(total: int, n_lanes: int, what: str) -> int:
+    """The partitions a lane of a [L * P] range (P)."""
+    if n_lanes < 1 or n_lanes > _MAX_GRID_Y or total % n_lanes:
+        raise ValueError(f"{what}: {total} partitions are not {n_lanes} "
+                         f"lanes")
+    return total // n_lanes
+
+
+def _device_words(words: np.ndarray, device) -> torch.Tensor:
+    """u32 words (any shape) as a contiguous int32 tensor on device."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(words, dtype=np.uint32)).view(np.int32)).to(device)
+
+
+def _split_keys(keys: np.ndarray) -> np.ndarray:
+    """The secure draw's split of every key of a [..., 2] stack: [..., 4],
+    (k1, k2) = split(key) (csrc/common.cuh secure_key, made on the host
+    once a launch)."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    flat = [threefry.split(k, 2).reshape(4) for k in keys.reshape(-1, 2)]
+    return np.asarray(flat, dtype=np.uint32).reshape(keys.shape[:-1] + (4,))
 
 
 def row_keys_lanes(pid: torch.Tensor, pk: torch.Tensor, valid: torch.Tensor,
@@ -2507,8 +2547,7 @@ def row_keys_lanes(pid: torch.Tensor, pk: torch.Tensor, valid: torch.Tensor,
                                     None if dtype is None else keys,
                                     n_partitions, dtype)
     dev = pid.device
-    table = torch.from_numpy(np.ascontiguousarray(
-        np.concatenate([salts, keys], 1)).view(np.int32)).to(dev)
+    table = _device_words(np.concatenate([salts, keys], 1), dev)
     lane = torch.empty(n, dtype=torch.int32, device=dev)
     k1 = torch.empty(n, dtype=torch.int64, device=dev)
     k2 = torch.empty_like(k1)
@@ -2538,23 +2577,123 @@ def row_keys_lanes_plain(pid, pk, valid, lane_rows, salts, keys,
     return lane, k1, k2, u
 
 
-def bound_rows_lanes(perm: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+def total_bound_keys_lanes(pid: torch.Tensor, valid: torch.Tensor,
+                           lane_rows: int, keys: np.ndarray,
+                           dtype: torch.dtype
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """C1's total-bound lane entry (max_contributions a lane): lane l's
+    rows take its key_total keys[l], drawn at the lane-local counter i - l
+    * lane_rows. Returns (lane_pid int64 = lane << 32 | pid_sent, u):
+    sorting by (lane_pid, u) sorts each lane's rows, within the lane's own
+    block, as total_bound_keys' (pid_sent, u) sorts its solo run's."""
+    n = pid.shape[0]
+    _check(pid, torch.int32, n, "pid")
+    _check(valid, torch.bool, n, "valid")
+    n_lanes = _lanes_of(n, lane_rows, 0)
+    keys = np.asarray(keys, dtype=np.uint32).reshape(n_lanes, 2)
+    if not _on_cuda(pid, valid):
+        return total_bound_keys_lanes_plain(pid, valid, lane_rows, keys,
+                                            dtype)
+    dev = pid.device
+    table = _device_words(keys, dev)
+    lane_pid = torch.empty(n, dtype=torch.int64, device=dev)
+    u = torch.empty(n, dtype=dtype, device=dev)
+    status = cuda_build.library("row_keys").total_keys_lanes(
+        _ptr(pid), _ptr(valid), n, lane_rows, _ptr(table), _ptr(lane_pid),
+        _ptr(u), _f64(dtype), _stream(dev))
+    _raise_on(status, "total_bound_keys_lanes")
+    _count("total_bound_keys_lanes")
+    return lane_pid, u
+
+
+def total_bound_keys_lanes_plain(pid, valid, lane_rows, keys, dtype):
+    words, us = [], []
+    for l in range(pid.shape[0] // lane_rows):
+        sl = slice(l * lane_rows, (l + 1) * lane_rows)
+        pid_sent, u = total_bound_keys_plain(pid[sl], valid[sl], keys[l],
+                                             dtype)
+        words.append((l << 32) | (pid_sent.to(torch.int64) & _M32))
+        us.append(u)
+    return torch.cat(words), torch.cat(us)
+
+
+def total_bound_rows_lanes(perm: torch.Tensor, slane_pid: torch.Tensor,
+                           pk: torch.Tensor, values: torch.Tensor,
+                           valid: torch.Tensor, *, lane_rows: int,
+                           total_bound: int, n_partitions: int):
+    """C2's total-bound lane entry over the rows sorted by (lane_pid, u)
+    (radix_sort of total_bound_keys_lanes' words with sorted_top): the
+    first total_bound rows of each pid of each lane, every lane's rows in
+    its own block of lane_rows. Returns (pid, pk, values, valid) as
+    total_bound_rows, pk's sentinel the lane-local n_partitions."""
+    n = valid.shape[0]
+    dtype = values.dtype
+    _f64(dtype)
+    for t, dt, what in ((perm, torch.int64, "perm"),
+                        (slane_pid, torch.int64, "slane_pid"),
+                        (pk, torch.int32, "pk"), (values, dtype, "values"),
+                        (valid, torch.bool, "valid")):
+        _check(t, dt, n, what)
+    _lanes_of(n, lane_rows, n_partitions)
+    if not _on_cuda(perm, slane_pid, pk, values, valid):
+        return total_bound_rows_lanes_plain(
+            perm, slane_pid, pk, values, valid, lane_rows=lane_rows,
+            total_bound=total_bound, n_partitions=n_partitions)
+    dev = valid.device
+    lib = cuda_build.library("bound_rows")
+    pid_out = torch.empty(n, dtype=torch.int32, device=dev)
+    pk_out = torch.empty(n, dtype=torch.int32, device=dev)
+    values_out = torch.empty(n, dtype=dtype, device=dev)
+    valid_out = torch.empty(n, dtype=torch.bool, device=dev)
+    scratch = torch.empty(max(1, lib.bound_rows_scratch_bytes(n)),
+                          dtype=torch.uint8, device=dev)
+    status = lib.total_bound_rows_lanes(
+        _ptr(perm), _ptr(slane_pid), _ptr(pk), _ptr(values), _ptr(valid), n,
+        lane_rows, total_bound, n_partitions, _ptr(scratch), _ptr(pid_out),
+        _ptr(pk_out), _ptr(values_out), _ptr(valid_out), _f64(dtype),
+        _stream(dev))
+    _raise_on(status, "total_bound_rows_lanes")
+    _count("total_bound_rows_lanes")
+    return pid_out, pk_out, values_out, valid_out
+
+
+def total_bound_rows_lanes_plain(perm, slane_pid, pk, values, valid, *,
+                                 lane_rows, total_bound, n_partitions):
+    parts = []
+    for l in range(valid.shape[0] // lane_rows):
+        sl = slice(l * lane_rows, (l + 1) * lane_rows)
+        parts.append(total_bound_rows_plain(
+            perm[sl] - l * lane_rows,
+            (slane_pid[sl] & _M32).to(torch.int32), pk[sl], values[sl],
+            valid[sl], total_bound=total_bound, n_partitions=n_partitions))
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(4))
+
+
+def bound_rows_lanes(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
+                     k2: Optional[torch.Tensor],
                      values: Optional[torch.Tensor], valid: torch.Tensor, *,
                      lane_rows: int, n_partitions: int, linf: int, l0: int,
                      clip_per_value: bool, clip_pair_sum: bool,
-                     scalars: Sequence[float], columns: Sequence[str]):
+                     scalars: Sequence[float], columns: Sequence[str],
+                     pk: Optional[torch.Tensor] = None):
     """C2's lane entry over the rows in (lane, k1, k2, u) order (lane l's
     rows are the sorted positions [l * lane_rows, (l + 1) * lane_rows)).
     Runs break at lane starts too. Returns (key2, pair_start, columns) in
     sorted order: key2 = lane * n_partitions + partition where kept, L *
-    n_partitions elsewhere."""
+    n_partitions elsewhere. With perm = k1 = k2 = None (contribution bounds
+    already enforced) the rows stay in lane order, each its own pair, and
+    pk (lane-local) gives its partition: bound_rows' keyless entry a
+    lane."""
     n = valid.shape[0]
     if values is None and columns:
         raise ValueError("bound_rows_lanes: columns need values")
+    if k1 is None and pk is None:
+        raise ValueError("bound_rows_lanes: keyless rows need pk")
     dtype = torch.float32 if values is None else values.dtype
     _f64(dtype)
     for t, dt, what in ((perm, torch.int64, "perm"), (k1, torch.int64, "k1"),
-                        (k2, torch.int64, "k2"), (values, dtype, "values"),
+                        (k2, torch.int64, "k2"), (pk, torch.int32, "pk"),
+                        (values, dtype, "values"),
                         (valid, torch.bool, "valid")):
         _check(t, dt, n, what)
     _lanes_of(n, lane_rows, n_partitions)
@@ -2562,8 +2701,9 @@ def bound_rows_lanes(perm: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
                 l0=l0, clip_per_value=clip_per_value,
                 clip_pair_sum=clip_pair_sum, scalars=scalars,
                 columns=columns)
-    if not _on_cuda(perm, k1, k2, values, valid):
-        return bound_rows_lanes_plain(perm, k1, k2, values, valid, **args)
+    if not _on_cuda(perm, k1, k2, pk, values, valid):
+        return bound_rows_lanes_plain(perm, k1, k2, values, valid, pk=pk,
+                                      **args)
     dev = valid.device
     lib = cuda_build.library("bound_rows")
     key2 = torch.empty(n, dtype=torch.int32, device=dev)
@@ -2573,25 +2713,29 @@ def bound_rows_lanes(perm: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
                           dtype=torch.uint8, device=dev)
     scal = (ctypes.c_double * 5)(*[float(s) for s in scalars])
     status = lib.bound_rows_lanes(
-        _ptr(perm), _ptr(k1), _ptr(k2), _ptr(values), _ptr(valid), n,
-        lane_rows, n_partitions, linf, l0, int(clip_per_value),
+        _ptr(perm), _ptr(k1), _ptr(k2), _ptr(pk), _ptr(values), _ptr(valid),
+        n, lane_rows, n_partitions, linf, l0, int(clip_per_value),
         int(clip_pair_sum), scal, _ptr(scratch), _ptr(key2), _ptr(pair_start),
         _ptr(cols.get("sum")), _ptr(cols.get("nsum")),
         _ptr(cols.get("nsum2")), _f64(dtype), _stream(dev))
-    _raise_on(status, "bound_rows_lanes")
-    _count("bound_rows_lanes")
+    name = "bound_rows_lanes" if k1 is not None else "bound_rows_keyless_lanes"
+    _raise_on(status, name)
+    _count(name)
     return key2, pair_start, cols
 
 
 def bound_rows_lanes_plain(perm, k1, k2, values, valid, *, lane_rows,
                            n_partitions, linf, l0, clip_per_value,
-                           clip_pair_sum, scalars, columns):
+                           clip_pair_sum, scalars, columns, pk=None):
     n_lanes = valid.shape[0] // lane_rows
     parts = []
     for l in range(n_lanes):
         sl = slice(l * lane_rows, (l + 1) * lane_rows)
+        keyed = k1 is not None
         key2, start, cols = bound_rows_plain(
-            perm[sl] - l * lane_rows, k1[sl], k2[sl], None,
+            perm[sl] - l * lane_rows if keyed else None,
+            k1[sl] if keyed else None, k2[sl] if keyed else None,
+            None if keyed else pk[sl],
             None if values is None else values[sl], valid[sl],
             n_partitions=n_partitions, linf=linf, l0=l0,
             clip_per_value=clip_per_value, clip_pair_sum=clip_pair_sum,
@@ -2608,50 +2752,86 @@ def reduce_partitions_lanes(skey2: torch.Tensor, perm: torch.Tensor,
                             pair_start: torch.Tensor,
                             row_cols: Dict[str, torch.Tensor],
                             lane_rows: int, n_partitions: int,
-                            dtype: torch.dtype):
+                            dtype: torch.dtype,
+                            vector_rows: Optional[Tuple[
+                                Optional[torch.Tensor], torch.Tensor]] = None,
+                            compensated: bool = False):
     """C3's lane entry: rows sorted by key2 = lane * P + partition (the
     dropped rows' L * P last); lane l's kept rows are scanned from their
     own first row in tiles of their own, so every float sum has its solo
-    run's association. Returns {count, pid_count, [sum, nsum, nsum2]} as
-    dtype[L * P], lane l's partitions at [l * P, (l + 1) * P)."""
+    run's association. Returns {count, pid_count, [sum, nsum, nsum2],
+    [vsum]} as dtype[L * P] (vsum dtype[L * P, D]), lane l's partitions at
+    [l * P, (l + 1) * P). vector_rows and compensated as for
+    reduce_partitions: the vector entry (reduce_partitions_vector_lanes)
+    sums the D coordinates of each lane's window, the compensated one
+    (reduce_partitions_compensated_lanes) carries float32 TwoSum pairs."""
+    compensated = compensated and dtype == torch.float32
     n = skey2.shape[0]
     _check(skey2, torch.int32, n, "skey2")
     _check(perm, torch.int64, n, "perm")
     _check(pair_start, torch.bool, n, "pair_start")
     for name, col in row_cols.items():
         _check(col, dtype, n, name)
+    row_perm, vec = vector_rows if vector_rows is not None else (None, None)
+    if vec is not None:
+        _check(row_perm, torch.int64, n, "row_perm")
+        if vec.dtype != dtype or vec.dim() != 2 or not vec.is_contiguous() \
+                or (row_perm is None and vec.shape[0] != n):
+            raise ValueError(f"vector values: expected contiguous "
+                             f"{dtype}[n, D], got {vec.dtype}"
+                             f"{list(vec.shape)}")
     n_lanes = _lanes_of(n, lane_rows, n_partitions)
-    if not _on_cuda(skey2, perm, pair_start, *row_cols.values()):
+    if not _on_cuda(skey2, perm, pair_start, row_perm, vec,
+                    *row_cols.values()):
         return reduce_partitions_lanes_plain(skey2, perm, pair_start,
                                              row_cols, lane_rows,
-                                             n_partitions, dtype)
+                                             n_partitions, dtype,
+                                             vector_rows, compensated)
     dev = skey2.device
     lib = cuda_build.library("reduce_partitions")
     out = {name: torch.zeros(n_lanes * n_partitions, dtype=dtype, device=dev)
            for name in ("count", "pid_count", *row_cols)}
     scratch = torch.empty(
-        max(1, lib.reduce_partitions_lanes_scratch_bytes(lane_rows, n_lanes,
-                                                         _f64(dtype))),
+        max(1, lib.reduce_partitions_lanes_scratch_bytes(
+            lane_rows, n_lanes, _f64(dtype), int(compensated), 0)),
         dtype=torch.uint8, device=dev)
     status = lib.reduce_partitions_lanes(
         _ptr(skey2), _ptr(perm), _ptr(pair_start), _ptr(row_cols.get("sum")),
         _ptr(row_cols.get("nsum")), _ptr(row_cols.get("nsum2")), n,
         lane_rows, n_partitions, _ptr(scratch), _ptr(out["count"]),
         _ptr(out["pid_count"]), _ptr(out.get("sum")), _ptr(out.get("nsum")),
-        _ptr(out.get("nsum2")), _f64(dtype), _stream(dev))
-    _raise_on(status, "reduce_partitions_lanes")
-    _count("reduce_partitions_lanes")
+        _ptr(out.get("nsum2")), _f64(dtype), int(compensated), _stream(dev))
+    name = ("reduce_partitions_compensated_lanes" if compensated else
+            "reduce_partitions_lanes")
+    _raise_on(status, name)
+    _count(name)
+    if vec is not None:
+        dim = vec.shape[1]
+        out["vsum"] = torch.zeros(n_lanes * n_partitions, dim, dtype=dtype,
+                                  device=dev)
+        vscratch = torch.empty(
+            max(1, lib.reduce_partitions_lanes_scratch_bytes(
+                lane_rows, n_lanes, _f64(dtype), int(compensated), 1)),
+            dtype=torch.uint8, device=dev)
+        status = lib.reduce_vectors_lanes(
+            _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(vec), n, lane_rows,
+            dim, n_partitions, _ptr(vscratch), _ptr(out["vsum"]),
+            _f64(dtype), int(compensated), _stream(dev))
+        _raise_on(status, "reduce_partitions_vector_lanes")
+        _count("reduce_partitions_vector_lanes")
     return out
 
 
 def reduce_partitions_lanes_plain(skey2, perm, pair_start, row_cols,
-                                  lane_rows, n_partitions, dtype):
+                                  lane_rows, n_partitions, dtype,
+                                  vector_rows=None, compensated=False):
     n_lanes = skey2.shape[0] // lane_rows
     edges = torch.searchsorted(
         skey2, torch.arange(n_lanes + 1, dtype=torch.int32,
                             device=skey2.device) * n_partitions).tolist()
     parts = [reduce_partitions_plain(skey2[lo:hi], perm[lo:hi], pair_start,
                                      row_cols, n_partitions, dtype,
+                                     vector_rows, compensated,
                                      base=l * n_partitions)
              for l, (lo, hi) in enumerate(zip(edges[:-1], edges[1:]))]
     return {name: torch.cat([p[name] for p in parts]) for name in parts[0]}
@@ -2664,18 +2844,18 @@ def release_epilogue_lanes(cols: Dict[str, torch.Tensor],
                            mid: float, min_v: float,
                            selection: Optional[selection_ops.SelectionParams],
                            key_sel: np.ndarray, max_rows: int,
-                           n_lanes: int):
+                           n_lanes: int, tables=None):
     """C4's lane entry: cols are [L * P]; lane l draws under its own keys,
     slot_keys[l] ([S, 2]) and key_sel[l], at counter p of partition l * P +
-    p. Continuous noise only. Returns (keep bool[L * P], {output: F[L *
-    P]}, flags int32[L], one flag word a lane)."""
+    p. tables (secure noise, release_epilogue_secure_lanes): the slots'
+    (thr int64[S, 2K+1], gran float64[S]), shared by the lanes; lane l
+    searches with the words of split(slot_keys[l][s]) at element p.
+    Returns (keep bool[L * P], {output: F[L * P]}, flags int32[L], one
+    flag word a lane)."""
     count = cols["count"]
     total = count.shape[0]
     dtype = count.dtype
-    if n_lanes < 1 or total % n_lanes:
-        raise ValueError(f"release_epilogue_lanes: {total} partitions are "
-                         f"not {n_lanes} lanes")
-    p = total // n_lanes
+    p = _lanes_in(total, n_lanes, "release_epilogue_lanes")
     scalar_cols = {k: c for k, c in cols.items() if k != "vsum"}
     for name, col in scalar_cols.items():
         _check(col, dtype, total, name)
@@ -2685,17 +2865,22 @@ def release_epilogue_lanes(cols: Dict[str, torch.Tensor],
         n_lanes, len(stds), 2)
     key_sel = (np.zeros((n_lanes, 2), np.uint32) if key_sel is None else
                np.asarray(key_sel, dtype=np.uint32).reshape(n_lanes, 2))
-    if not _on_cuda(*scalar_cols.values()):
+    thr = None if tables is None else tables[0]
+    if thr is not None:
+        _check_table(thr, len(stds))
+    if not _on_cuda(*scalar_cols.values(), thr):
         return release_epilogue_lanes_plain(cols, plan, stds, slot_keys,
                                             noise_kind, degenerate, mid,
                                             min_v, selection, key_sel,
-                                            max_rows, n_lanes)
+                                            max_rows, n_lanes, tables)
     dev = count.device
     keep = torch.empty(total, dtype=torch.bool, device=dev)
     outputs = {o: torch.empty(total, dtype=dtype, device=dev) for o in names}
     flags = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
-    table = torch.from_numpy(np.ascontiguousarray(np.concatenate(
-        [key_sel, slot_keys.reshape(n_lanes, -1)], 1)).view(np.int32)).to(dev)
+    rows = [key_sel, slot_keys.reshape(n_lanes, -1)]
+    if thr is not None:
+        rows.append(_split_keys(slot_keys).reshape(n_lanes, -1))
+    table = _device_words(np.concatenate(rows, 1), dev)
     plan_c = (ctypes.c_int * max(1, 3 * len(plan)))(*[
         v for kind, outs, off in plan
         for v in (PLAN_KINDS[kind], sum(OUTPUT_BITS[o] for o in outs), off)
@@ -2707,6 +2892,9 @@ def release_epilogue_lanes(cols: Dict[str, torch.Tensor],
     misc_c = (ctypes.c_int * 3)(int(noise_kind == NoiseKind.GAUSSIAN),
                                 int(degenerate), int(selection is not None))
     scal_c = (ctypes.c_double * 3)(float(mid), float(min_v), float(max_rows))
+    gran_c = (ctypes.c_double * max(1, len(stds)))(
+        *([float(g) for g in tables[1]] if thr is not None else
+          [0.0] * len(stds)))
     status = cuda_build.library("release_epilogue").release_epilogue_lanes(
         plan_c, len(plan), stds_c, len(stds), sel_c, misc_c, scal_c, p,
         n_lanes, _ptr(table), _ptr(count), _ptr(cols["pid_count"]),
@@ -2714,15 +2902,18 @@ def release_epilogue_lanes(cols: Dict[str, torch.Tensor],
         _ptr(cols.get("nsum2")), _ptr(keep), _ptr(outputs.get("count")),
         _ptr(outputs.get("privacy_id_count")), _ptr(outputs.get("sum")),
         _ptr(outputs.get("mean")), _ptr(outputs.get("variance")),
-        _ptr(flags), _f64(dtype), _stream(dev))
-    _raise_on(status, "release_epilogue_lanes")
-    _count("release_epilogue_lanes")
+        _ptr(flags), _ptr(thr), 0 if thr is None else thr.shape[-1], gran_c,
+        _f64(dtype), _stream(dev))
+    name = ("release_epilogue_lanes" if thr is None else
+            "release_epilogue_secure_lanes")
+    _raise_on(status, name)
+    _count(name)
     return keep, outputs, flags
 
 
 def release_epilogue_lanes_plain(cols, plan, stds, slot_keys, noise_kind,
                                  degenerate, mid, min_v, selection, key_sel,
-                                 max_rows, n_lanes):
+                                 max_rows, n_lanes, tables=None):
     p = cols["count"].shape[0] // n_lanes
     parts = []
     for l in range(n_lanes):
@@ -2731,18 +2922,250 @@ def release_epilogue_lanes_plain(cols, plan, stds, slot_keys, noise_kind,
         parts.append(release_epilogue_plain(
             lane_cols, plan, stds, slot_keys[l], noise_kind, degenerate, mid,
             min_v, selection, None if selection is None else key_sel[l],
-            max_rows))
+            max_rows, tables))
     return (torch.cat([q[0] for q in parts]),
             {o: torch.cat([q[1][o] for q in parts]) for o in parts[0][1]},
             torch.cat([q[2] for q in parts]))
 
 
+def quantile_descend_dense_lanes(levels: Sequence[torch.Tensor],
+                                 quantiles: Sequence[float], *, std: float,
+                                 level_keys: np.ndarray, gaussian: bool,
+                                 min_v: float, max_v: float,
+                                 keep: torch.Tensor, flags: torch.Tensor,
+                                 dtype: torch.dtype, n_lanes: int,
+                                 tables=None) -> torch.Tensor:
+    """C8's dense lane entry (quantile_descend_lanes; with tables
+    quantile_descend_secure_lanes): levels are C7 (b)'s counts of L * P
+    partitions, lane l's at rows [l * P, (l + 1) * P); level_keys [L, h,
+    2] each lane's level keys. Partition p of lane l draws node j of level
+    l' at counter p * B^l' + j under level_keys[l][l' - 1], as its solo run
+    (quantile_descend_dense); with tables (the quantile slot's, shared)
+    the words of the split of that key. Returns dtype[n_q, L * P] and ORs
+    each lane's flag bits into flags[l] (int32[L])."""
+    tree_height = len(levels)
+    total = levels[0].shape[0]
+    branching = levels[0].shape[1]
+    p = _lanes_in(total, n_lanes, "quantile_descend_dense_lanes")
+    _check_descend(keep, flags, quantiles, tree_height, branching, n_lanes)
+    _check(keep, torch.bool, total, "keep")
+    _f64(dtype)
+    for l, t in enumerate(levels, 1):
+        if t.dtype != torch.int32 or \
+                tuple(t.shape) != (total, branching**l) or \
+                not t.is_contiguous():
+            raise ValueError(f"level {l}: expected int32[{total}, "
+                             f"{branching**l}], got {t.dtype}"
+                             f"{list(t.shape)}")
+    level_keys = np.asarray(level_keys, dtype=np.uint32).reshape(
+        n_lanes, tree_height, 2)
+    thr = None if tables is None else tables[0]
+    if thr is not None:
+        _check_table(thr, None)
+    if not _on_cuda(keep, flags, thr, *levels):
+        return quantile_descend_dense_lanes_plain(
+            levels, quantiles, std=std, level_keys=level_keys,
+            gaussian=gaussian, min_v=min_v, max_v=max_v, keep=keep,
+            flags=flags, dtype=dtype, n_lanes=n_lanes, tables=tables)
+    dev = keep.device
+    n_q = len(quantiles)
+    out = torch.empty(n_q, total, dtype=dtype, device=dev)
+    scratch = torch.empty(total, n_q, dtype=dtype, device=dev)
+    ptrs = (ctypes.c_void_p * tree_height)(*[t.data_ptr() for t in levels])
+    rows = [level_keys.reshape(n_lanes, -1)]
+    if thr is not None:
+        rows.append(_split_keys(level_keys).reshape(n_lanes, -1))
+    table = _device_words(np.concatenate(rows, 1), dev)
+    q_t, order_t, scal_c, dims_c = _descend_params(
+        quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
+        dev)
+    status = cuda_build.library(
+        "quantile_descend").quantile_descend_dense_lanes(
+            ptrs, p, n_lanes, _ptr(q_t), _ptr(order_t), scal_c, dims_c,
+            _ptr(table), _ptr(keep), _ptr(scratch), None, _ptr(out),
+            _ptr(flags), _ptr(thr), 0 if thr is None else thr.shape[0],
+            0.0 if thr is None else float(tables[1]), _f64(dtype),
+            _stream(dev))
+    name = ("quantile_descend_lanes" if thr is None else
+            "quantile_descend_secure_lanes")
+    _raise_on(status, name)
+    _count(name)
+    return out
+
+
+def quantile_descend_dense_lanes_plain(levels, quantiles, *, std, level_keys,
+                                       gaussian, min_v, max_v, keep, flags,
+                                       dtype, n_lanes, tables=None):
+    p = levels[0].shape[0] // n_lanes
+    outs = []
+    for l in range(n_lanes):
+        sl = slice(l * p, (l + 1) * p)
+        outs.append(quantile_descend_dense_plain(
+            [t[sl] for t in levels], quantiles, std=std,
+            level_keys=level_keys[l], gaussian=gaussian, min_v=min_v,
+            max_v=max_v, keep=keep[sl], flags=flags[l:l + 1], dtype=dtype,
+            tables=tables))
+    return torch.cat(outs, 1)
+
+
+def quantile_descend_step_lanes(counts: torch.Tensor, state: DescentState,
+                                quantiles: Sequence[float], *, level: int,
+                                tree_height: int, std: float,
+                                level_keys: np.ndarray, gaussian: bool,
+                                min_v: float, max_v: float,
+                                keep: torch.Tensor, flags: torch.Tensor,
+                                n_lanes: int,
+                                tables=None) -> Optional[torch.Tensor]:
+    """C8's lazy lane entry (quantile_descend_lanes; with tables
+    quantile_descend_secure_lanes): counts int32[L * P, n_q, B] and state
+    over L * P partitions; level_keys [L, 2], each lane's fold_in(qkey,
+    level). Partition p of lane l derives its node keys from
+    fold_in(level_keys[l], p), as its solo run (quantile_descend_step).
+    Returns dtype[n_q, L * P] at the last level (else None) and ORs each
+    lane's flag bits into flags[l]."""
+    total, n_q, branching = counts.shape
+    p = _lanes_in(total, n_lanes, "quantile_descend_step_lanes")
+    _check_descend(keep, flags, quantiles, tree_height, branching, n_lanes)
+    _check(keep, torch.bool, total, "keep")
+    if counts.dtype != torch.int32 or not counts.is_contiguous() or \
+            tuple(state.node.shape) != (total, n_q):
+        raise ValueError(f"counts: expected contiguous int32[{total}, {n_q}, "
+                         f"B] matching the state, got {counts.dtype}"
+                         f"{list(counts.shape)}")
+    level_keys = np.asarray(level_keys, dtype=np.uint32).reshape(n_lanes, 2)
+    dtype = state.target.dtype
+    thr = None if tables is None else tables[0]
+    if thr is not None:
+        _check_table(thr, None)
+    if not _on_cuda(counts, state.node, state.target, keep, flags, thr):
+        return quantile_descend_step_lanes_plain(
+            counts, state, quantiles, level=level, tree_height=tree_height,
+            std=std, level_keys=level_keys, gaussian=gaussian, min_v=min_v,
+            max_v=max_v, keep=keep, flags=flags, n_lanes=n_lanes,
+            tables=tables)
+    dev = counts.device
+    last = level == tree_height
+    out = torch.empty(n_q, total, dtype=dtype, device=dev) if last else None
+    scratch = (torch.empty(total, n_q, dtype=dtype, device=dev) if last
+               else None)
+    table = _device_words(level_keys, dev)
+    q_t, order_t, scal_c, dims_c = _descend_params(
+        quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
+        dev)
+    status = cuda_build.library(
+        "quantile_descend").quantile_descend_step_lanes(
+            _ptr(counts), p, n_lanes, level, _ptr(q_t), _ptr(order_t), scal_c,
+            dims_c, _ptr(table), _ptr(state.node), _ptr(state.target),
+            _ptr(state.total), _ptr(state.mass), _ptr(keep), _ptr(scratch),
+            _ptr(out), _ptr(flags), _ptr(thr),
+            0 if thr is None else thr.shape[0],
+            0.0 if thr is None else float(tables[1]), _f64(dtype),
+            _stream(dev))
+    name = ("quantile_descend_lanes" if thr is None else
+            "quantile_descend_secure_lanes")
+    _raise_on(status, name)
+    _count(name)
+    return out
+
+
+def quantile_descend_step_lanes_plain(counts, state, quantiles, *, level,
+                                      tree_height, std, level_keys, gaussian,
+                                      min_v, max_v, keep, flags, n_lanes,
+                                      tables=None):
+    p = counts.shape[0] // n_lanes
+    outs = []
+    for l in range(n_lanes):
+        sl = slice(l * p, (l + 1) * p)
+        lane = DescentState(0, len(quantiles), state.target.dtype,
+                            counts.device)
+        for name in ("node", "target", "total", "mass"):
+            setattr(lane, name, getattr(state, name)[sl].clone())
+        outs.append(quantile_descend_step_plain(
+            counts[sl], lane, quantiles, level=level,
+            tree_height=tree_height, std=std, level_key=level_keys[l],
+            gaussian=gaussian, min_v=min_v, max_v=max_v, keep=keep[sl],
+            flags=flags[l:l + 1], tables=tables))
+        for name in ("node", "target", "total", "mass"):
+            getattr(state, name)[sl] = getattr(lane, name)
+    return None if level < tree_height else torch.cat(outs, 1)
+
+
+def vector_release_lanes(vsum: torch.Tensor, keep: torch.Tensor,
+                         flags: torch.Tensor, *, max_norm: float,
+                         norm_kind: str, std: float, keys: np.ndarray,
+                         gaussian: bool, n_lanes: int,
+                         tables=None) -> torch.Tensor:
+    """C9's lane entry (vector_release_lanes; with tables
+    vector_release_secure_lanes): vsum [L * P, D], keep [L * P], flags
+    int32[L]; partition p of lane l draws coordinate d at counter p * D + d
+    under keys[l], its lane's slot key (with tables, the entry's shared
+    (thr, gran), the words of that key's split), and ORs its flag bits into
+    flags[l]. Returns dtype[L * P, D], each lane its solo vector_release."""
+    total = keep.shape[0]
+    p = _lanes_in(total, n_lanes, "vector_release_lanes")
+    _check(keep, torch.bool, total, "keep")
+    _check(flags, torch.int32, n_lanes, "flags")
+    if vsum.dim() != 2 or vsum.shape[0] != total or not vsum.is_contiguous():
+        raise ValueError(f"vsum: expected contiguous [{total}, D], got "
+                         f"{list(vsum.shape)}")
+    _f64(vsum.dtype)
+    if norm_kind not in NORM_KINDS:
+        raise NotImplementedError(
+            f"Vector Norm of kind '{norm_kind}' is not supported")
+    keys = np.asarray(keys, dtype=np.uint32).reshape(n_lanes, 2)
+    thr = None if tables is None else tables[0]
+    if thr is not None:
+        _check_table(thr, None)
+    if not _on_cuda(vsum, keep, flags, thr):
+        return vector_release_lanes_plain(
+            vsum, keep, flags, max_norm=max_norm, norm_kind=norm_kind,
+            std=std, keys=keys, gaussian=gaussian, n_lanes=n_lanes,
+            tables=tables)
+    dev = vsum.device
+    out = torch.empty_like(vsum)
+    rows = [keys] if thr is None else [keys, _split_keys(keys)]
+    table = _device_words(np.concatenate(rows, 1), dev)
+    status = cuda_build.library("vector_release").vector_release_lanes(
+        _ptr(vsum), p, n_lanes, vsum.shape[1], NORM_KINDS[norm_kind],
+        float(max_norm), float(std), int(gaussian), _ptr(table), _ptr(keep),
+        _ptr(out), _ptr(flags), _ptr(thr),
+        0 if thr is None else thr.shape[0],
+        0.0 if thr is None else float(tables[1]), _f64(vsum.dtype),
+        _stream(dev))
+    name = ("vector_release_lanes" if thr is None else
+            "vector_release_secure_lanes")
+    _raise_on(status, name)
+    _count(name)
+    return out
+
+
+def vector_release_lanes_plain(vsum, keep, flags, *, max_norm, norm_kind,
+                               std, keys, gaussian, n_lanes, tables=None):
+    p = keep.shape[0] // n_lanes
+    return torch.cat([vector_release_plain(
+        vsum[l * p:(l + 1) * p], keep[l * p:(l + 1) * p], flags[l:l + 1],
+        max_norm=max_norm, norm_kind=norm_kind, std=std, key=keys[l],
+        gaussian=gaussian, tables=tables) for l in range(n_lanes)])
+
+
+def _lane_shaped(col: torch.Tensor, n_lanes: int, p: int) -> torch.Tensor:
+    """A column of L lanes of P partitions as [L, P] or [L, P, D]: it may
+    come as [L * P], [L, P], [L * P, D] or [L, P, D]."""
+    if col.dim() == 1 or (col.dim() == 2 and tuple(col.shape) ==
+                          (n_lanes, p)):
+        return col.reshape(n_lanes, p)
+    if col.dim() == 2:
+        return col.reshape(n_lanes, p, col.shape[1])
+    return col.reshape(n_lanes, p, *col.shape[2:])
+
+
 def compact_kept_lanes(keep: torch.Tensor, columns: Dict[str, torch.Tensor],
                        n_lanes: int):
     """C6's lane entry: keep and every column hold L lanes of P partitions
-    ([L * P] or [L, P]); each lane is compacted kept-first on its own.
-    Returns (n_kept int64[L], order int64[L, P] of lane-local ids,
-    {name: [L, P] in each lane's order})."""
+    ([L * P] or [L, P]; a vector column [L * P, D] or [L, P, D], moved
+    whole); each lane is compacted kept-first on its own. Returns (n_kept
+    int64[L], order int64[L, P] of lane-local ids, {name: [L, P] (or [L,
+    P, D]) in each lane's order})."""
     total = keep.numel()
     if n_lanes < 1 or total % n_lanes:
         raise ValueError(f"compact_kept_lanes: {total} partitions are not "
@@ -2750,7 +3173,8 @@ def compact_kept_lanes(keep: torch.Tensor, columns: Dict[str, torch.Tensor],
     p = total // n_lanes
     keep = keep.reshape(-1)
     _check(keep, torch.bool, total, "keep")
-    columns = {name: col.reshape(n_lanes, p) for name, col in columns.items()}
+    columns = {name: _lane_shaped(col, n_lanes, p)
+               for name, col in columns.items()}
     elem = {c.element_size() for c in columns.values()}
     for name, col in columns.items():
         if not col.is_contiguous():
@@ -2776,7 +3200,8 @@ def compact_kept_lanes(keep: torch.Tensor, columns: Dict[str, torch.Tensor],
         *[c.data_ptr() for c in columns.values()])
     out_c = (ctypes.c_void_p * max(1, len(columns)))(
         *[out[name].data_ptr() for name in columns])
-    widths = (ctypes.c_int * max(1, len(columns)))(*([1] * len(columns)))
+    widths = (ctypes.c_int * max(1, len(columns)))(
+        *[1 if c.dim() == 2 else c.shape[2] for c in columns.values()])
     status = lib.compact_kept_lanes(_ptr(keep), p, n_lanes, in_c, out_c,
                                     widths, len(columns),
                                     elem.pop() if elem else 8, _ptr(scratch),
@@ -2789,7 +3214,7 @@ def compact_kept_lanes(keep: torch.Tensor, columns: Dict[str, torch.Tensor],
 def compact_kept_lanes_plain(keep, columns, n_lanes):
     p = keep.numel() // n_lanes
     keep = keep.reshape(n_lanes, p)
-    columns = {n: c.reshape(n_lanes, p) for n, c in columns.items()}
+    columns = {n: _lane_shaped(c, n_lanes, p) for n, c in columns.items()}
     parts = [compact_kept_plain(keep[l], {n: c[l] for n, c in
                                           columns.items()})
              for l in range(n_lanes)]

@@ -24,7 +24,7 @@ Standalone selection splits its key first (key_l0, key_sel), counts each
 shard's pairs under fold_in(key_l0, shard) and selects once on the summed
 counts. The lane-batched entries (K24c) do the same for L jobs, each lane
 staged by its own host LPT permutation, through the lane entries of
-C1-C4 and C6.
+C1-C4, C6, C8 and C9: every spec the solo meshed release runs.
 
 Only the fused release is ported: the port has no unfused dense release.
 """
@@ -234,30 +234,36 @@ def sharded_select_partitions(mesh: Mesh, pid, pk, valid, rng_key, l0: int,
 
 def sharded_batched_release(mesh: Mesh, shards: Sequence[ShardRows], min_v,
                             max_v, min_s, max_s, mid, stds: np.ndarray,
-                            rng_keys, cfg: executor.KernelConfig):
+                            rng_keys, cfg: executor.KernelConfig,
+                            secure_tables=None):
     """L dense releases over `mesh` in one launch a stage (the JAX
     package's _sharded_batched_release_kernel, :305): shards[s] holds shard
-    s's rows of every lane, [L, cap] (values [L, cap]), each lane staged
-    by its own host LPT permutation. Each shard runs C1-C3's lane entries
-    under the lanes' shard keys, C21 sums the [L * P] columns, C4's and
-    C6's lane entries run once. Lane l equals the meshed release of its
-    rows and key alone."""
-    executor._require_lanes(cfg)
-    n_lanes = shards[0][0].shape[0]
+    s's rows of every lane, [L, cap] (values [L, cap] or [L, cap, V]),
+    each lane staged by its own host LPT permutation. Each shard runs
+    C1-C3's lane entries under the lanes' shard keys, C21 sums the [L * P]
+    columns (vsum [L * P, V]; compensated in numeric_mode="safe"), C4's,
+    C9's and C6's lane entries run once, and the percentiles' counts of
+    every lane go through one C21 a level before C8's lane entries descend
+    once. secure_tables lie on the mesh's first device. Lane l equals the
+    meshed release of its rows and key alone."""
+    executor._require_tables(cfg, secure_tables)
+    n_lanes, lane_rows = shards[0][0].shape[0], shards[0][0].shape[1]
+    executor._check_lanes(cfg, n_lanes, lane_rows)
+    dtype = shards[0][2].dtype
     with _collective_launch(mesh), rt_trace.span("dispatch"), \
             on_device(mesh.device):
-        parts = []
+        parts, qrows = [], []
         for s, (pid_s, pk_s, values_s, valid_s) in enumerate(shards):
-            salts, keys_linf, _, _ = executor.lane_release_keys(
-                rng_keys, cfg.plan, shard=s)
             with on_device(mesh.devices[s]):
-                parts.append(executor.batched_partial_columns(
+                cols, q = executor.batched_partial_columns(
                     pid_s, pk_s, values_s, valid_s, min_v, max_v, min_s,
-                    max_s, mid, salts, keys_linf, cfg))
-        cols = _combine_partials(parts, mesh.device)
-        _, _, key_sel, slots = executor.lane_release_keys(rng_keys, cfg.plan)
-        return executor.batched_release_columns(cols, min_v, mid, stds,
-                                                key_sel, slots, cfg, n_lanes)
+                    max_s, mid, rng_keys, cfg, shard=s)
+            parts.append(cols)
+            qrows.append(q)
+        cols = _combine_partials(parts, mesh.device, cfg.numeric_mode)
+        return executor.batched_release_columns(
+            cols, qrows, min_v, max_v, mid, stds, rng_keys, cfg, n_lanes,
+            dtype, secure_tables, combine=_psum_counts(mesh))
 
 
 def sharded_batched_select_release(mesh: Mesh, shards: Sequence[ShardRows],

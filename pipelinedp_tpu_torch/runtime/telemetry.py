@@ -75,12 +75,6 @@ REGISTRY: Dict[str, Metric] = {
         _counter("service_jobs_batched",
                  "jobs whose release ran as one lane of a megabatched "
                  "launch (increments by the lane count per batch)"),
-        _counter("service_jobs_solo_unported",
-                 "release launches the coalescing tier declined because "
-                 "their spec has no lane-batched kernel entries yet "
-                 "(PERCENTILE, VECTOR_SUM, max_contributions, "
-                 "bounds already enforced, secure_noise, "
-                 "numeric_mode='safe'); each ran its solo path"),
         _counter("service_jobs_shed",
                  "service submissions refused by load shedding (memory "
                  "watermark at submit, queue_timeout_s on dequeue, a "

@@ -11,7 +11,9 @@ batched_select_partitions_release_kernel: one launch of each kernel stage
 for all lanes). Each lane keeps its job's own base key and its own rows,
 so its release equals its solo run's bit for bit; decode, the release
 sentinel, the odometer, the ledger charge and the handle then run on the
-job's own worker, as a solo run's do.
+job's own worker, as a solo run's do. Every spec the dense release runs
+coalesces: PERCENTILE, VECTOR_SUM, max_contributions, pre-bounded rows,
+secure noise and safe mode as well as the scalar metrics.
 
 The first offer of a fingerprint leads its group: it waits out the
 window (or until max_lanes joined, or the coalescer closes), then
@@ -29,13 +31,16 @@ Differences from the JAX coalescer:
   * The lane axis is not padded to a power of two (_lane_bucket there
     bounds XLA's executable cache; torch has none): a group of L jobs
     runs L lanes, and the batch_dispatch span's lane_bucket is L.
-  * A spec whose release has no lane entries yet (executor.lanes_unported:
-    PERCENTILE, VECTOR_SUM, max_contributions, contribution bounds
-    already enforced, secure_noise, numeric_mode="safe") never coalesces:
-    it runs its solo release, counted in service_jobs_solo_unported.
   * A group is capped below the lane entries' limits
-    (kernels.lane_capacity: int32 partition keys, the grid's y
+    (executor.batched_lane_capacity: int32 partition keys, the dense
+    quantile regime's leaf histograms and VECTOR_SUM's sums, the grid's y
     dimension) as well as by max_lanes.
+  * The group key holds what the secure tables are built from (the stds,
+    the noise kind, the slots' sensitivities and snap_grid_bits), where
+    the JAX key holds only their presence and its dispatch takes the first
+    lane's tables. snap_grid_bits is a backend option the key does not
+    otherwise hold: so a lane never draws from another job's tables,
+    whichever backends its group's jobs came from.
 
 On a meshed backend (_dispatch_meshed, K24c) every lane is staged by the
 same host LPT permutation its solo meshed run takes
@@ -72,30 +77,25 @@ _JOINER_TIMEOUT_S = 600.0
 
 def _group_key(launch: "executor.ReleaseLaunch"):
     """The coalescing fingerprint: two launches share one batched release
-    iff their keys are equal. Everything shared goes in; the per-lane base
-    key and the row values stay out (the lane axis carries them)."""
+    iff their keys are equal. Everything shared goes in, the secure tables
+    by what they are built from (launch.tables_key: no read of the device
+    tables); the per-lane base key and the row values stay out (the lane
+    axis carries them)."""
     if launch.kind == "aggregate":
         return ("aggregate", launch.cfg, launch.scalars,
                 np.asarray(launch.stds).tobytes(), launch.pid.shape,
                 launch.values.shape, str(launch.device), launch.dtype,
-                launch.mesh, launch.reshard)
+                launch.mesh, launch.reshard, launch.tables_key)
     return ("select", launch.l0, launch.n_partitions, launch.selection,
             launch.pid.shape, str(launch.device), launch.dtype, launch.mesh,
             launch.reshard)
 
 
-def _unported(launch: "executor.ReleaseLaunch") -> Optional[str]:
-    """Why this launch cannot run as a lane (None: it can)."""
-    if launch.kind == "aggregate":
-        return executor.lanes_unported(launch.cfg)
-    return None
-
-
 def _lane_cap(launch: "executor.ReleaseLaunch", max_lanes: int) -> int:
-    n_partitions = (launch.cfg.n_partitions if launch.kind == "aggregate"
-                    else launch.n_partitions)
-    return min(max_lanes,
-               kernels.lane_capacity(int(launch.pid.shape[0]), n_partitions))
+    rows = int(launch.pid.shape[0])
+    if launch.kind == "aggregate":
+        return min(max_lanes, executor.batched_lane_capacity(launch.cfg, rows))
+    return min(max_lanes, kernels.lane_capacity(rows, launch.n_partitions))
 
 
 class _Lane:
@@ -149,10 +149,6 @@ class BatchCoalescer:
         """Called from the executor's release site on the job's worker
         thread. Returns the lane's result, None to run solo, or raises the
         batched release's failure."""
-        reason = _unported(launch)
-        if reason is not None:
-            rt_telemetry.record("service_jobs_solo_unported", unported=reason)
-            return None
         cap = _lane_cap(launch, self._max_lanes)
         if cap < 2:
             return None
@@ -280,7 +276,7 @@ def _dispatch_aggregate(launches) -> List[Any]:
         n_kept, order, outputs, flags = \
             executor.batched_aggregate_release_kernel(
                 pid, pk, values, valid, min_v, max_v, min_s, max_s, mid,
-                first.stds, keys, first.cfg)
+                first.stds, keys, first.cfg, first.secure_tables)
         results = _split_lanes(n_lanes, n_kept, order, outputs, flags)
         _record_batch(n_lanes)
     return results
@@ -349,7 +345,7 @@ def _dispatch_meshed(launches) -> List[Any]:
                 n_kept, order, outputs, flags = \
                     sharded.sharded_batched_release(
                         mesh, shards, min_v, max_v, min_s, max_s, mid,
-                        first.stds, keys, first.cfg)
+                        first.stds, keys, first.cfg, first.secure_tables)
                 lane_results = _split_lanes(n_lanes, n_kept, order, outputs,
                                             flags)
             else:

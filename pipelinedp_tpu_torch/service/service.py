@@ -38,7 +38,7 @@ Declared service metrics: ``service_jobs_admitted`` /
 ``service_jobs_cancelled`` counters, ``service_active_jobs`` /
 ``service_queue_depth`` gauges, and the batching tier's
 ``service_batch_launches`` / ``service_jobs_batched`` /
-``service_jobs_solo_unported`` / ``service_batch_occupancy``.
+``service_batch_occupancy``.
 """
 
 import contextlib

@@ -13,15 +13,22 @@ Bounds stated here:
     privacy_id_count) within 256 ulp of max(1, |x|) under Laplace noise and
     64 ulp under Gaussian noise (tests/test_torch_threefry.py), the
     derived mean and variance within 1e-9 of max(1, |x|), the bound of
-    tests/test_torch_engine.py;
+    tests/test_torch_engine.py; the specs of tests/test_torch_batching_specs
+    .py within their solo tests' bounds: percentiles 1e-9 of max(1, |x|)
+    (test_torch_quantiles.py), vector sums 1e-12 (test_torch_vector.py),
+    secure count / privacy_id_count / sum / vector_sum exact and the rest
+    1e-9 (test_torch_secure.py), safe float32 sums and counts within one
+    float32 ulp at epsilon 1e7 (test_torch_safe.py, JAX with x64 off);
   * the service: every batched job equals its solo run (release, spent
     epsilon, ledger), and equals the JAX service's job with the same seed
     within the bounds of tests/test_torch_engine.py.
 """
 
+import dataclasses
 import threading
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +38,7 @@ import pipelinedp_tpu as pdp
 import pipelinedp_tpu_torch as tdp
 from pipelinedp_tpu import executor as jax_executor
 from pipelinedp_tpu import combiners as jax_combiners
+from pipelinedp_tpu.ops import secure_noise as jax_secure
 from pipelinedp_tpu.ops import selection_ops as jax_selection_ops
 from pipelinedp_tpu.runtime import telemetry as jax_telemetry
 from pipelinedp_tpu.service import DPAggregationService as JaxService
@@ -236,23 +244,101 @@ def test_lane_capacity_bounds_the_int32_keys():
 # The batched release against the solo release, and against the JAX
 # package's batched kernels.
 
+# name: (metrics, noise, private selection, options). The options are the
+# specs the lane entries of PERCENTILE, VECTOR_SUM, max_contributions,
+# pre-bounded rows, secure noise and safe mode carry, alone and together:
+# tree (a height-3, branching-4 quantile tree), chunk (quantile_chunk:
+# below P the lazy descent), vector (VECTOR_SUM's norm), max_contributions,
+# enforced (contribution bounds already enforced), secure (snap_grid_bits,
+# None: none), safe (float32, numeric_mode="safe"), eps. Their rows are
+# integer-valued and lane 2 keeps no row.
 SPECS = {
-    "count_sum_laplace_private": (("COUNT", "SUM"), "LAPLACE", True),
+    "count_sum_laplace_private": (("COUNT", "SUM"), "LAPLACE", True, {}),
     "pid_count_laplace_public": (("COUNT", "PRIVACY_ID_COUNT"), "LAPLACE",
-                                 False),
+                                 False, {}),
     "mean_variance_gaussian_public": (("VARIANCE", "MEAN", "COUNT", "SUM"),
-                                      "GAUSSIAN", False),
-    "mean_gaussian_private": (("MEAN",), "GAUSSIAN", True),
+                                      "GAUSSIAN", False, {}),
+    "mean_gaussian_private": (("MEAN",), "GAUSSIAN", True, {}),
+    "percentile_dense_laplace": (("PERCENTILE", "COUNT"), "LAPLACE", False,
+                                 {"tree": 3}),
+    "percentile_lazy_gaussian_private": (("PERCENTILE",), "GAUSSIAN", True,
+                                         {"tree": 3, "chunk": 4}),
+    "vector_sum_l2_gaussian": (("VECTOR_SUM", "COUNT"), "GAUSSIAN", False,
+                               {"vector": "L2"}),
+    "max_contributions_laplace": (("COUNT", "SUM", "MEAN"), "LAPLACE", False,
+                                  {"max_contributions": 4}),
+    "bounds_enforced_private": (("COUNT", "SUM"), "LAPLACE", True,
+                                {"enforced": True}),
+    "secure_laplace_private": (("COUNT", "PRIVACY_ID_COUNT", "SUM", "MEAN",
+                                "VARIANCE"), "LAPLACE", True,
+                               {"secure": None}),
+    "secure_snapped_gaussian": (("COUNT", "SUM"), "GAUSSIAN", False,
+                                {"secure": 2}),
+    "safe_count_sum": (("COUNT", "SUM"), "LAPLACE", False,
+                       {"safe": True, "eps": 1e7}),
+    "secure_percentile_lazy_private": (("PERCENTILE", "SUM"), "LAPLACE",
+                                       True, {"secure": None, "tree": 3,
+                                              "chunk": 4}),
+    "secure_max_contributions": (("COUNT", "SUM"), "GAUSSIAN", False,
+                                 {"secure": None, "max_contributions": 3}),
+    "secure_vector_enforced": (("VECTOR_SUM",), "LAPLACE", False,
+                               {"secure": None, "vector": "Linf",
+                                "enforced": True}),
+    "safe_vector_l1_private": (("VECTOR_SUM", "COUNT"), "GAUSSIAN", True,
+                               {"safe": True, "vector": "L1"}),
+    "safe_enforced_variance_private": (("COUNT", "SUM", "VARIANCE"),
+                                       "LAPLACE", True,
+                                       {"safe": True, "enforced": True,
+                                        "eps": 1e7}),
+    "safe_secure_percentile": (("PERCENTILE", "COUNT", "SUM"), "GAUSSIAN",
+                               False, {"safe": True, "secure": None,
+                                       "tree": 3}),
 }
+# The specs held against the JAX package's batched kernel: the first four
+# and one of each formerly solo-only spec.
+JAX_SPECS = sorted(list(SPECS)[:4] + [
+    "percentile_dense_laplace", "percentile_lazy_gaussian_private",
+    "vector_sum_l2_gaussian", "max_contributions_laplace",
+    "bounds_enforced_private", "secure_laplace_private",
+    "secure_snapped_gaussian", "safe_count_sum"])
+VECTOR_SIZE = 3
 
 
-def release_config(mod, comb, exe, sel_ops, metrics, noise, private, eps=50.0):
-    acc = mod.NaiveBudgetAccountant(total_epsilon=eps, total_delta=1e-3)
-    params = mod.AggregateParams(
-        metrics=[getattr(mod.Metrics, m) for m in metrics],
+def spec_metrics(mod, metrics):
+    out = []
+    for m in metrics:
+        out += ([mod.Metrics.PERCENTILE(q) for q in (10, 50, 90)]
+                if m == "PERCENTILE" else [getattr(mod.Metrics, m)])
+    return out
+
+
+def spec_params(mod, metrics, noise, opts):
+    bounds = dict(min_value=0.0, max_value=5.0)
+    if opts.get("max_contributions"):
+        bounds["max_contributions"] = opts["max_contributions"]
+    else:
+        bounds.update(max_partitions_contributed=3,
+                      max_contributions_per_partition=2)
+    if opts.get("vector"):
+        del bounds["min_value"], bounds["max_value"]
+        bounds.update(vector_size=VECTOR_SIZE, vector_max_norm=6.0,
+                      vector_norm_kind=getattr(mod.NormKind, opts["vector"]))
+    return mod.AggregateParams(
+        metrics=spec_metrics(mod, metrics),
         noise_kind=getattr(mod.NoiseKind, noise),
-        max_partitions_contributed=3, max_contributions_per_partition=2,
-        min_value=0.0, max_value=5.0)
+        contribution_bounds_already_enforced=bool(opts.get("enforced")),
+        **bounds)
+
+
+def release_config(mod, comb, exe, sel_ops, metrics, noise, private,
+                   opts=None, eps=50.0):
+    """(cfg, stds, scalars, secure tables or None) of a spec on one
+    package: the JAX tables as (thr_hi, thr_lo, gran), the port's as
+    executor.build_secure_tables'."""
+    opts = opts or {}
+    acc = mod.NaiveBudgetAccountant(total_epsilon=opts.get("eps", eps),
+                                    total_delta=1e-3)
+    params = spec_params(mod, metrics, noise, opts)
     compound = comb.create_compound_combiner(params, acc)
     budget = (acc.request_budget(mod.MechanismType.GENERIC) if private
               else None)
@@ -260,32 +346,73 @@ def release_config(mod, comb, exe, sel_ops, metrics, noise, private, eps=50.0):
     sel = (sel_ops.selection_params_from_host(
         params.partition_selection_strategy, budget.eps, budget.delta, 3,
         None) if private else None)
-    cfg = exe.make_kernel_config(params, compound, P, private, sel)
+    secure = "secure" in opts
+    cfg = exe.make_kernel_config(
+        params, compound, P, private, sel, secure=secure,
+        numeric_mode="safe" if opts.get("safe") else "fast")
+    if "tree" in opts:
+        cfg = dataclasses.replace(cfg, tree_height=opts["tree"], branching=4)
+    if "chunk" in opts:
+        cfg = dataclasses.replace(cfg, quantile_chunk=opts["chunk"])
     if mod is pdp:
         stds = exe.compute_noise_stds(compound, params)
+        sens = exe.compute_noise_sensitivities(compound, params)
     else:
         stds = exe.compute_noise_stds(compound)
-    return cfg, np.asarray(stds), exe.kernel_scalars(params)
+        sens = exe.compute_noise_sensitivities(compound, params)
+    tables = None
+    if secure:
+        floor = opts["secure"]
+        if mod is pdp:
+            hi, lo, gran = jax_secure.build_tables(
+                stds, params.noise_kind, sensitivities=sens,
+                grid_floor=None if floor is None else 2.0**floor)
+            tables = (jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(gran))
+        else:
+            tables = exe.build_secure_tables(stds, sens, params.noise_kind,
+                                             floor, "cpu")
+    return cfg, np.asarray(stds), exe.kernel_scalars(params), tables
+
+
+def spec_rows(name):
+    """The lanes' rows of a spec: lane_rows(5) for the first four specs;
+    for the others integer values (vectors [L, n, 3] for VECTOR_SUM,
+    float32 in safe mode) and a lane 2 that keeps no row."""
+    pid, pk, values, valid = lane_rows(5, users=400)
+    opts = SPECS[name][3]
+    if not opts:
+        return pid, pk, values, valid
+    r = np.random.default_rng(11)
+    if opts.get("vector"):
+        values = torch.as_tensor(
+            r.integers(-3, 4, (LANES, LANE_ROWS, VECTOR_SIZE)), dtype=F64)
+    else:
+        values = torch.floor(values)
+    valid[2] = False
+    return pid, pk, values.to(torch.float32 if opts.get("safe") else F64), \
+        valid
 
 
 def port_release(name):
-    cfg, stds, sc = release_config(tdp, combiners, executor, selection_ops,
-                                   *SPECS[name])
-    pid, pk, values, valid = lane_rows(5, users=400)
+    cfg, stds, sc, tables = release_config(tdp, combiners, executor,
+                                           selection_ops, *SPECS[name])
+    pid, pk, values, valid = spec_rows(name)
     keys = lane_keys()
-    return (pid, pk, values, valid, keys, cfg, stds, sc,
+    return (pid, pk, values, valid, keys, cfg, stds, sc, tables,
             executor.batched_aggregate_release_kernel(
-                pid, pk, values, valid, *sc, stds, keys, cfg))
+                pid, pk, values, valid, *sc, stds, keys, cfg, tables))
 
 
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_batched_lane_equals_its_solo_release(name):
-    pid, pk, values, valid, keys, cfg, stds, sc, got = port_release(name)
+    pid, pk, values, valid, keys, cfg, stds, sc, tables, got = \
+        port_release(name)
     n_kept, order, outputs, flags = got
     assert int(n_kept.sum()) > 0
     for l in range(LANES):
         want = executor.aggregate_release_kernel(
-            pid[l], pk[l], values[l], valid[l], *sc, stds, keys[l], cfg)
+            pid[l], pk[l], values[l], valid[l], *sc, stds, keys[l], cfg,
+            tables)
         assert int(n_kept[l]) == int(want[0])
         assert torch.equal(order[l], want[1])
         assert set(outputs) == set(want[2])
@@ -295,8 +422,9 @@ def test_batched_lane_equals_its_solo_release(name):
 
 
 def test_a_lane_without_rows_equals_its_solo_release():
-    cfg, stds, sc = release_config(tdp, combiners, executor, selection_ops,
-                                   *SPECS["count_sum_laplace_private"])
+    cfg, stds, sc, _ = release_config(tdp, combiners, executor,
+                                      selection_ops,
+                                      *SPECS["count_sum_laplace_private"])
     pid, pk, values, valid = lane_rows(6, users=400)
     valid[0] = False
     keys = lane_keys()
@@ -318,31 +446,61 @@ def ulp_bound(noise, name):
     return 256 if noise == "LAPLACE" else 64
 
 
-@pytest.mark.parametrize("name", sorted(SPECS))
-def test_batched_release_matches_the_jax_batched_kernel(name):
-    pid, pk, values, valid, keys, _, _, _, got = port_release(name)
-    cfg, stds, sc = release_config(pdp, jax_combiners, jax_executor,
-                                   jax_selection_ops, *SPECS[name])
+def assert_within_spec_bounds(name, col, a, b):
+    """The port's released column a against JAX's b (kept partitions)
+    within the bound the spec's solo tests state (module docstring)."""
+    metrics, noise, _, opts = SPECS[name]
+    scale = np.maximum(1.0, np.abs(b))
+    if opts.get("safe"):
+        ulp32 = np.spacing(np.abs(b).astype(np.float32)).astype(np.float64)
+        assert np.all(np.abs(a - b) <= ulp32), col
+    elif "secure" in opts and col in ("count", "privacy_id_count", "sum",
+                                      "vector_sum"):
+        np.testing.assert_array_equal(a, b, err_msg=col)
+    elif col == "vector_sum":
+        assert np.all(np.abs(a - b) <= 1e-12 * scale), col
+    elif "secure" in opts or col.startswith("percentile"):
+        assert np.all(np.abs(a - b) <= 1e-9 * scale), col
+    else:
+        bound = ulp_bound(noise, col)
+        if bound is None:
+            assert np.all(np.abs(a - b) <= 1e-9 * scale), col
+        else:
+            assert np.all(np.abs(a - b) <= bound * np.spacing(scale)), col
+
+
+@pytest.fixture
+def x64_off():
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", old)
+
+
+@pytest.mark.parametrize("name", JAX_SPECS)
+def test_batched_release_matches_the_jax_batched_kernel(name, request):
+    if SPECS[name][3].get("safe"):
+        request.getfixturevalue("x64_off")
+    pid, pk, values, valid, keys, _, _, _, _, got = port_release(name)
+    cfg, stds, sc, tables = release_config(pdp, jax_combiners, jax_executor,
+                                           jax_selection_ops, *SPECS[name])
     want = jax_executor.batched_aggregate_release_kernel(
         jnp.asarray(pid.numpy()), jnp.asarray(pk.numpy()),
         jnp.asarray(values.numpy()), jnp.asarray(valid.numpy()), *sc,
-        jnp.asarray(stds), jnp.asarray(keys), cfg)
+        jnp.asarray(stds), jnp.asarray(keys), cfg, secure_tables=tables)
     n_kept, order, outputs, _ = got
-    noise = SPECS[name][1]
     for l in range(LANES):
         k = int(want[0][l])
         assert int(n_kept[l]) == k
         assert np.array_equal(order[l][:k].numpy(),
                               np.asarray(want[1][l][:k]))
+        assert set(outputs) == set(want[2])
         for col, exp in want[2].items():
-            a = outputs[col][l][:k].numpy()
-            b = np.asarray(exp[l][:k], np.float64)
-            scale = np.maximum(1.0, np.abs(b))
-            bound = ulp_bound(noise, col)
-            if bound is None:
-                assert np.all(np.abs(a - b) <= 1e-9 * scale), col
-            else:
-                assert np.all(np.abs(a - b) <= bound * np.spacing(scale)), col
+            assert_within_spec_bounds(
+                name, col, outputs[col][l][:k].double().numpy(),
+                np.asarray(exp[l][:k], np.float64))
 
 
 @pytest.mark.parametrize("strategy", ["TRUNCATED_GEOMETRIC",
@@ -373,29 +531,30 @@ def test_batched_selection_matches_solo_and_jax(strategy):
 
 
 def test_unported_specs_are_named():
-    def cfg_of(**kw):
-        params = tdp.AggregateParams(
-            metrics=kw.pop("metrics", [tdp.Metrics.COUNT]), min_value=0.0,
-            max_value=1.0, max_partitions_contributed=1,
-            max_contributions_per_partition=1, **kw)
-        acc = tdp.NaiveBudgetAccountant(1.0, 1e-6)
-        compound = combiners.create_compound_combiner(params, acc)
-        return params, compound
-
-    params, compound = cfg_of()
-    assert executor.lanes_unported(executor.make_kernel_config(
-        params, compound, 4, False, None)) is None
-    assert executor.lanes_unported(executor.make_kernel_config(
-        params, compound, 4, False, None, secure=True)) == "secure_noise"
-    assert "safe" in executor.lanes_unported(executor.make_kernel_config(
-        params, compound, 4, False, None, numeric_mode="safe"))
-    params, compound = cfg_of(metrics=[tdp.Metrics.PERCENTILE(50)])
-    assert executor.lanes_unported(executor.make_kernel_config(
-        params, compound, 4, False, None)) == "PERCENTILE"
-    with pytest.raises(NotImplementedError, match="PERCENTILE"):
+    """The specs that ran solo before their lane entries (PERCENTILE,
+    VECTOR_SUM, max_contributions, pre-bounded rows, secure noise, safe
+    mode) all batch now: lanes_unported is gone, and what the batched
+    release still refuses it names. A secure spec without its tables and
+    more lanes than its tables allow raise before any launch."""
+    assert not hasattr(executor, "lanes_unported")
+    assert not hasattr(batching, "_unported")
+    cfg, stds, sc, tables = release_config(
+        tdp, combiners, executor, selection_ops,
+        *SPECS["secure_laplace_private"])
+    with pytest.raises(ValueError, match="secure_tables"):
         executor.batched_aggregate_release_kernel(
-            *lane_rows(1), 0.0, 1.0, 0.0, 0.0, 0.5, np.ones(1), lane_keys(),
-            executor.make_kernel_config(params, compound, P, False, None))
+            *spec_rows("secure_laplace_private"), *sc, stds, lane_keys(),
+            cfg)
+    cfg, stds, sc, _ = release_config(tdp, combiners, executor,
+                                      selection_ops,
+                                      *SPECS["percentile_dense_laplace"])
+    wide = dataclasses.replace(cfg, tree_height=8, branching=16,
+                               quantile_chunk=P)
+    assert executor.batched_lane_capacity(wide, LANE_ROWS) == 0
+    with pytest.raises(ValueError, match="lanes"):
+        executor.batched_aggregate_release_kernel(
+            *spec_rows("percentile_dense_laplace"), *sc, stds, lane_keys(),
+            wide)
 
 
 # ---------------------------------------------------------------------------
@@ -534,6 +693,9 @@ def test_lone_window_runs_solo():
 
 @pytest.mark.hard_timeout(120)
 def test_unported_specs_run_solo_and_are_counted():
+    """The percentile jobs that once ran solo (counted under a counter that
+    is gone) coalesce now: one batched launch of both jobs, each equal to
+    its solo run."""
     params = tdp.AggregateParams(
         metrics=[tdp.Metrics.PERCENTILE(50)], max_partitions_contributed=2,
         max_contributions_per_partition=3, min_value=0.0, max_value=5.0)
@@ -542,9 +704,9 @@ def test_unported_specs_run_solo_and_are_counted():
              rows(60 + i)) for i in range(2)]
     solo = run_service(jobs, batching=False)
     batched = run_service(jobs, batching=True)
-    assert batch_counters() == (0, 0)
-    assert telemetry.snapshot().get("service_jobs_solo_unported") == 2
-    assert solo[0] == batched[0]
+    assert batch_counters() == (1, 2)
+    assert "service_jobs_solo_unported" not in telemetry.snapshot()
+    assert solo[0] == batched[0] and all(solo[0])
 
 
 @pytest.mark.hard_timeout(120)

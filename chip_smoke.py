@@ -244,6 +244,25 @@ last of all, on the same mesh:
   2. kernels C21 at the block shape (D x [2^20] x 2 float32, int32 for
              selection) and C10 on one shard's pass-1 stream of (q), each
              == its plain version, beside stack.sum(0) / torch.searchsorted
+The single-process mesh ingest (ingest.encode_local_shard_to_mesh; K23b on
+C24 mesh_factorize) and the unfused release (fused_release=False) add,
+last of all, on the same mesh:
+  2. kernels C24's mesh_local_uniques, mesh_merge_ranks and
+             mesh_remap_rows on the 2^24-row hash rows of the Netflix
+             users, movies and (q)'s partitions over 4 slots, each == its
+             plain version, the whole mesh_factorize_codes == its run on
+             the plain versions == C12's codes == the host encoder's;
+             beside torch.unique(return_inverse) (not the same function)
+  4. ingest  (a), (b) and (q) through encode_local_shard_to_mesh of their
+             raw columns in both encode modes: valid codes == the host
+             encoder's, the two modes' releases on TorchBackend(mesh=)
+             ==, the ingest split (encode or hash, exchange, merges,
+             upload, mesh factorize) beside the same run through a
+             ChunkSource onto the mesh; (c) over the ingest within 16
+             noise stds of numpy; a simulated two-process exchange ==
+             the one-process ingest
+  4. unfused (a), (b) and a selection with fused_release=False == the
+             fused release, one launch fewer (no C6), walls side by side
 `python3 chip_smoke.py --mesh-all-cards` runs the build and the mesh
 phases alone on make_mesh(), one shard slot on every visible card.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
@@ -507,6 +526,17 @@ def main() -> int:
     report += mb_report
     for name, count in mb_launches.items():
         launches[name] += count
+    # The single-process mesh ingest (K23b) and the unfused release, last.
+    report += mesh_ingest_kernel_phase(
+        torch, dev, {"users": (users, encoded.pid),
+                     "movies": (movies, encoded.pk),
+                     "q partitions": (qraw[1], qenc.pk)},
+        kernels, device_encode, ingest, card)
+    for phase in (mesh_ingest_main_phase(torch, tdp, streamed, nmax, kernels,
+                                         ingest, device_encode, card),
+                  unfused_phase(torch, tdp, encoded, kernels, card)):
+        for name, count in phase.items():
+            launches[name] += count
     for entry in report:
         entry["launches"] = launches[entry["name"]]
         print(f"kernel {entry['name']}: max_abs_err={entry['max_abs_err']} "
@@ -7150,6 +7180,520 @@ def mesh_blocked_phase(torch, tdp, rng, qenc, netflix, nmax, kernels,
     report = mesh_blocked_kernels(torch, tdp, mesh, qenc, kernels, large_p,
                                   card)
     return report, total
+
+
+# ---------------------------------------------------------------------------
+# The single-process mesh ingest (K23b, C24) and the unfused release.
+
+MESH_FACTORIZE = ("mesh_local_uniques", "mesh_merge_ranks", "mesh_remap_rows")
+MESH_FACTORIZE_REPLACES = {
+    "mesh_local_uniques": "pipelinedp_tpu/device_encode.py:302",
+    "mesh_merge_ranks": "pipelinedp_tpu/device_encode.py:322",
+    "mesh_remap_rows": "pipelinedp_tpu/device_encode.py:322"}
+# (data, metrics, noise, public partitions, bounds) of the mesh-ingest runs.
+PER_MOVIE_RATING = dict(max_partitions_contributed=64,
+                        max_contributions_per_partition=1, min_value=1.0,
+                        max_value=5.0)
+MESH_INGEST_RUNS = {
+    "a": ("netflix", ("COUNT", "SUM", "MEAN", "VARIANCE"), "GAUSSIAN", True,
+          PER_MOVIE_RATING),
+    "b": ("netflix", ("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE", False,
+          PER_MOVIE_RATING),
+    "q": ("q", ("COUNT", "SUM"), "LAPLACE", False,
+          dict(max_partitions_contributed=4,
+               max_contributions_per_partition=8, min_value=0.0,
+               max_value=5.0)),
+}
+INGEST_MODES = ("host", "hash_device")
+
+
+class plain_mesh_factorize:
+    """Scope in which the mesh factorize takes C24's plain versions (torch
+    on the card): the twin the kernels are held against."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def __enter__(self):
+        k = self.kernels
+        self.saved = {name: getattr(k, name) for name in MESH_FACTORIZE}
+        for name in MESH_FACTORIZE:
+            setattr(k, name, getattr(k, name + "_plain"))
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.kernels, name, fn)
+
+
+def sharded_hash_rows(mesh, rows):
+    """(n, 3) hash rows on the card split evenly over the mesh's slots."""
+    from pipelinedp_tpu_torch.parallel.mesh import ShardedColumn
+    local = rows.shape[0] // mesh.size
+    return ShardedColumn([rows[s * local:(s + 1) * local].to(dev)
+                          for s, dev in enumerate(mesh.devices)], mesh)
+
+
+def mesh_ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode,
+                             ingest, card):
+    """C24 at full width on card_mesh(): the hash rows of the Netflix users
+    (480,189 distinct), movies (17,770) and (q)'s partitions (~4.7M), 2^24
+    rows split over 4 shard slots. mesh_factorize_codes == its run on C24's
+    plain versions == C12's codes == the host encoder's; each entry == its
+    plain version on the factorize's own inputs (shard 0's sort and table
+    for the per-shard entries, the gathered [4 x uniq_cap] table for the
+    merge), timed there, torch.unique(return_inverse) of shard 0's hashes
+    beside (not the same function: sorted-order codes). Returns the
+    report rows of the user hashes."""
+    from pipelinedp_tpu_torch.parallel.mesh import round_capacity
+    mesh = card_mesh(torch)
+    d = mesh.size
+    report = []
+    for label, (raw, host_codes) in key_sets.items():
+        h1, _ = ingest.hash_key_column_pair(raw)
+        rows = torch.from_numpy(
+            device_encode.pack_hash_rows(h1).view(np.int32)).to(dev)
+        n = rows.shape[0]
+        local = n // d
+        hashes = sharded_hash_rows(mesh, rows)
+        codes, n_unique = device_encode.mesh_factorize_codes(mesh, hashes)
+        got = codes.global_rows(dev)
+        c12, n12 = kernels.factorize_codes(rows)
+        err = check_equal(f"mesh_factorize_codes ({label}) vs C12", got, c12)
+        check_equal(f"mesh_factorize_codes ({label}) vs the host encoder",
+                    got, torch.from_numpy(host_codes).to(dev))
+        with plain_mesh_factorize(kernels):
+            plain_codes, plain_n = device_encode.mesh_factorize_codes(
+                mesh, hashes)
+        check_equal(f"mesh_factorize_codes ({label}) vs its plain versions",
+                    got, plain_codes.global_rows(dev))
+        if not n_unique == plain_n == int(n12):
+            raise AssertionError(f"mesh_factorize_codes ({label}): "
+                                 f"{n_unique} / {plain_n} distinct, C12 "
+                                 f"{int(n12)}")
+        perms = device_encode._sorted_shards(hashes)
+        cap = round_capacity(device_encode.mesh_unique_cap(mesh, hashes,
+                                                           perms))
+        s0, p0 = hashes.shards[0], perms[0]
+        local_out = kernels.mesh_local_uniques(s0, p0, 0, cap)
+        local_plain = kernels.mesh_local_uniques_plain(s0, p0, 0, cap)
+        errs = {"mesh_local_uniques": max(
+            check_equal(f"mesh_local_uniques ({label}) {part}", g, w)
+            for part, g, w in zip(
+                ("lseg", "n_new", "t_hi", "t_lo", "t_pos"),
+                (local_out[0], local_out[1], *local_out[2]),
+                (local_plain[0], local_plain[1], *local_plain[2])))}
+        tables = [kernels.mesh_local_uniques(sh, pm, s * local, cap)[2]
+                  for s, (sh, pm) in enumerate(zip(hashes.shards, perms))]
+        gathered = [torch.stack([t[j] for t in tables]).reshape(-1)
+                    for j in range(3)]
+        merged = kernels.mesh_merge_ranks(*gathered)
+        merged_plain = kernels.mesh_merge_ranks_plain(*gathered)
+        errs["mesh_merge_ranks"] = max(
+            check_equal(f"mesh_merge_ranks ({label}) {part}", g, w)
+            for part, g, w in zip(("remap", "n_unique"), merged,
+                                  merged_plain))
+        window = merged[0][:cap]
+        remapped = kernels.mesh_remap_rows(s0, p0, local_out[0], window)
+        errs["mesh_remap_rows"] = check_equal(
+            f"mesh_remap_rows ({label})", remapped,
+            kernels.mesh_remap_rows_plain(s0, p0, local_out[0], window))
+        check_equal(f"mesh_remap_rows ({label}) vs the factorize's shard 0",
+                    remapped, codes.shards[0])
+        m = gathered[0].shape[0]
+        entries = {
+            "mesh_local_uniques": (
+                lambda: kernels.mesh_local_uniques(s0, p0, 0, cap),
+                lambda: kernels.mesh_local_uniques_plain(s0, p0, 0, cap),
+                # Rows (12 B) and the sort's permutation (8 B) read once,
+                # lseg and the table written once; a compare a row.
+                bound(local * 24 + cap * 12 + 4, local)),
+            "mesh_merge_ranks": (
+                lambda: kernels.mesh_merge_ranks(*gathered),
+                lambda: kernels.mesh_merge_ranks_plain(*gathered),
+                # The gathered lanes and positions read once, the remap
+                # written once (its two sorts are part of the function).
+                bound(m * 16 + 4, m)),
+            "mesh_remap_rows": (
+                lambda: kernels.mesh_remap_rows(s0, p0, local_out[0],
+                                                window),
+                lambda: kernels.mesh_remap_rows_plain(s0, p0, local_out[0],
+                                                      window),
+                bound(local * 28 + cap * 4, local)),
+        }
+        ms = {name: (cuda_ms(fn, repeats=10),
+                     cuda_ms(plain, repeats=3, warmup=1))
+              for name, (fn, plain, _) in entries.items()}
+        key64 = kernels.joined_hash_order(s0[:, 0], s0[:, 1])
+        unique_ms = cuda_ms(lambda: torch.unique(key64, return_inverse=True),
+                            repeats=10)
+        whole_ms = cuda_ms(lambda: device_encode.mesh_factorize_codes(
+            mesh, hashes), repeats=3, warmup=1)
+        print(f"kernels[mesh ingest, {label}: {n} rows over {d} slots, "
+              f"{n_unique} distinct, uniq_cap {cap}]: " + "; ".join(
+                  f"C24 {name} ms={ms[name][0]:.4f} plain_ms="
+                  f"{ms[name][1]:.4f} bound_ms={entries[name][2][0]:.3g} "
+                  f"({entries[name][2][1]})" for name in MESH_FACTORIZE) +
+              f"; torch.unique(return_inverse) of shard 0 {unique_ms:.4f} ms"
+              f" (not the same function); mesh_factorize_codes whole "
+              f"{whole_ms:.4f} ms (its C5 sorts, the two fetches); every "
+              f"entry == its plain version, the codes == C12's == the host "
+              f"encoder's ({card})", flush=True)
+        if label == "users":
+            for name in MESH_FACTORIZE:
+                report.append({
+                    "name": name, "route": "cuda",
+                    "source": "pipelinedp_tpu_torch/csrc/mesh_factorize.cu",
+                    "replaces": MESH_FACTORIZE_REPLACES[name],
+                    "launches": 0, "max_abs_err": max(errs[name], err),
+                    "ms": ms[name][0], "plain_ms": ms[name][1],
+                    "bound_ms": entries[name][2][0],
+                    "bound_by": entries[name][2][1], "library_ms": None})
+        del rows, hashes, codes, got, c12, plain_codes, perms, tables
+        del gathered, merged, merged_plain, key64
+    return report
+
+
+class IngestSplit:
+    """Host seconds of the pod ingest's stages: the host encode or hash,
+    the byte exchange, the host merges, the upload to the mesh and the
+    mesh factorize (the last two end with a device synchronisation)."""
+
+    STAGES = {"encode": ("ingest", ("encode_shard", "_hash_encode_shard")),
+              "exchange": ("ingest", ("_exchanged_metas",)),
+              "merge": ("ingest", ("merge_shard_metas",)),
+              "merge_hash": ("device_encode", ("merge_hash_uniques",)),
+              "upload": ("ingest", ("_to_mesh",)),
+              "mesh_factorize": ("device_encode",
+                                 ("mesh_factorize_codes",))}
+
+    def __init__(self, torch, ingest, device_encode):
+        self.torch = torch
+        self.modules = {"ingest": ingest, "device_encode": device_encode}
+        self.ms = {}
+
+    def __enter__(self):
+        self.saved = []
+        for stage, (mod_name, names) in self.STAGES.items():
+            mod = self.modules[mod_name]
+            for name in names:
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
+                setattr(mod, name, self.timed(
+                    "merge" if stage == "merge_hash" else stage, fn,
+                    stage in ("upload", "mesh_factorize")))
+        return self
+
+    def timed(self, stage, fn, sync):
+        def call(*args, **kwargs):
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                self.torch.cuda.synchronize()
+            self.ms[stage] = self.ms.get(stage, 0.0) + (
+                time.perf_counter() - start) * 1e3
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+
+
+def mesh_ingest_release(torch, tdp, kernels, mesh, data, spec, seed,
+                        eps=1.0, backend=None):
+    """One aggregate over `data` (the pod ingest's EncodedData or a
+    ChunkSource) on TorchBackend(mesh=), spec = (metrics, noise, public
+    partitions or None, bounds): (the release, wall seconds, launch counts
+    since the last reset)."""
+    metrics, noise, public, bounds = spec
+    acc = tdp.NaiveBudgetAccountant(total_epsilon=eps, total_delta=1e-6)
+    engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=seed, mesh=mesh,
+                                                **(backend or {})))
+    res = engine.aggregate(
+        data, tdp.AggregateParams(
+            metrics=[getattr(tdp.Metrics, m) for m in metrics],
+            noise_kind=getattr(tdp.NoiseKind, noise), **bounds),
+        tdp.DataExtractors(), public)
+    acc.compute_budgets()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = dict(res)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start, dict(kernels.launch_counts)
+
+
+def check_ingested(label, torch, enc, encoded, full_vocab):
+    """The pod ingest's valid rows carry the host encoder's codes and
+    values, its vocabulary and privacy-id count are the encoder's."""
+    pk = enc.pk.global_rows("cpu").numpy()
+    valid = pk >= 0
+    if int(valid.sum()) != encoded.n_rows:
+        raise AssertionError(f"mesh ingest ({label}): {int(valid.sum())} "
+                             f"valid rows, {encoded.n_rows} encoded")
+    for name, want in (("pid", encoded.pid), ("pk", encoded.pk)):
+        got = getattr(enc, name).global_rows("cpu").numpy()[valid]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"mesh ingest ({label}): {name} codes "
+                                 f"differ from the host encoder's")
+    values = enc.values.global_rows("cpu").numpy()[valid]
+    if not np.array_equal(values, encoded.values.astype(np.float32)):
+        raise AssertionError(f"mesh ingest ({label}): values differ")
+    vocab = enc.partition_vocab
+    if len(vocab) != encoded.n_partitions or \
+            enc.n_privacy_ids != encoded.n_privacy_ids:
+        raise AssertionError(f"mesh ingest ({label}): {len(vocab)} "
+                             f"partitions, {enc.n_privacy_ids} ids")
+    want_vocab = list(encoded.partition_vocab)
+    probe = (range(len(want_vocab)) if full_vocab else
+             np.random.default_rng(0).choice(len(want_vocab), 4096,
+                                             replace=False))
+    if hasattr(vocab, "prefetch"):
+        vocab.prefetch(probe)
+    if any(vocab[int(i)] != want_vocab[int(i)] for i in probe):
+        raise AssertionError(f"mesh ingest ({label}): the vocabulary "
+                             f"differs from the host encoder's")
+
+
+def mesh_ingest_main_phase(torch, tdp, data, nmax, kernels, ingest,
+                           device_encode, card):
+    """The pod ingest in one process onto card_mesh(): for (a), (b) and
+    (q), encode_local_shard_to_mesh of their raw columns (16 chunks of
+    2^20 rows) in both encode modes, each ingest's valid rows == the host
+    encoder's codes, its wall split by IngestSplit, then DPEngine.aggregate
+    on TorchBackend(mesh=) over it: the host and hash_device releases ==
+    (the same global rows); beside each, the same run through a
+    ChunkSource onto the same mesh (wall only: another row layout, other
+    noise; (b)'s ingest being (a)'s, (a) and (q) only). (c) over (a)'s
+    host ingest: within 16 noise stds of the numpy group-by. A simulated
+    two-process exchange over the first 2^22 rows: process 0's ingest of
+    the first half == the one-process ingest's first half, with its
+    vocabulary and id count. Returns the launch counts summed over the
+    runs."""
+    import pickle
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    mesh = card_mesh(torch)
+    d = mesh.size
+    shard_paths = {"netflix": EXCHANGE_PATH, "q": MESH_BLOCKED_EXCHANGE}
+    kept = {}
+    for run, (which, metrics, noise, public, bounds) in \
+            MESH_INGEST_RUNS.items():
+        raw, encoded = data[which]
+        chunks = stream_chunks(*raw)
+        vocab = list(encoded.partition_vocab) if public else None
+        spec = (metrics, noise, vocab, bounds)
+        n_factorize = 1 if public else 2
+        releases = {}
+        for mode in INGEST_MODES:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            with IngestSplit(torch, ingest, device_encode) as split:
+                start = time.perf_counter()
+                enc = ingest.encode_local_shard_to_mesh(
+                    chunks, mesh, public_partitions=vocab, encode_mode=mode)
+                torch.cuda.synchronize()
+                ingest_s = time.perf_counter() - start
+            check_ingested(f"{run}, {mode}", torch, enc, encoded,
+                           which == "netflix")
+            out, seconds, counts = mesh_ingest_release(
+                torch, tdp, kernels, mesh, enc, spec, 0)
+            path = shard_paths[which] + (
+                MESH_FACTORIZE if mode == "hash_device" else ())
+            # A factorize: C24's count and full passes a shard, one merge,
+            # a remap a shard.
+            want = dict(mesh_local_uniques=2 * d * n_factorize,
+                        mesh_merge_ranks=n_factorize,
+                        mesh_remap_rows=d * n_factorize) \
+                if mode == "hash_device" else dict(mesh_local_uniques=0)
+            check_launches(f"mesh ingest ({run}, {mode})", counts, kernels,
+                           want, path)
+            for name, c in counts.items():
+                total[name] += c
+            if not out or not all(math.isfinite(x) for v in out.values()
+                                  for x in v):
+                raise AssertionError(f"mesh ingest ({run}, {mode}): "
+                                     f"{len(out)} partitions or a "
+                                     f"non-finite value")
+            releases[mode] = out
+            if run == "a" and mode == "host":
+                kept["a"] = enc
+            del enc
+            beside = ""
+            if run != "b":  # (b)'s ingest is (a)'s
+                stream_out, stream_s, _ = mesh_ingest_release(
+                    torch, tdp, kernels, mesh,
+                    tdp.ChunkSource(chunks, encode_mode=mode), spec, 0,
+                    backend=dict(encode_threads=INGEST_THREADS))
+                beside = (f"; the same run through a ChunkSource "
+                          f"(encode_threads {INGEST_THREADS}) onto the "
+                          f"mesh: {len(stream_out)} partitions, "
+                          f"{stream_s * 1e3:.1f} ms")
+            split_ms = {k: round(v, 1) for k, v in split.ms.items()}
+            print(f"mesh ingest ({run}) encode_mode={mode} D={d}: "
+                  f"{len(out)} partitions; ingest {ingest_s * 1e3:.1f} ms "
+                  f"(split, ms {json.dumps(split_ms)}), release "
+                  f"{seconds * 1e3:.1f} ms, wall "
+                  f"{(ingest_s + seconds) * 1e3:.1f} ms{beside} ({card}); "
+                  f"launches { {k: v for k, v in counts.items() if v} }",
+                  flush=True)
+        if releases["host"] != releases["hash_device"]:
+            diff = [k for k in releases["host"]
+                    if releases["hash_device"].get(k) != releases["host"][k]]
+            raise AssertionError(f"mesh ingest ({run}): the host and "
+                                 f"hash_device releases differ at "
+                                 f"{len(diff)} partitions")
+        print(f"mesh ingest ({run}): the host and hash_device ingests "
+              f"release == results ({len(releases['host'])} partitions)",
+              flush=True)
+
+    # (c) over (a)'s host ingest: epsilon 1e6 at the data's true maxima.
+    raw, encoded = data["netflix"]
+    l0_true, linf_true = nmax[0], nmax[1]
+    P = encoded.n_partitions
+    vocab = list(encoded.partition_vocab)
+    kernels.reset_launch_counts()
+    out, seconds, counts = mesh_ingest_release(
+        torch, tdp, kernels, mesh, kept.pop("a"),
+        (("COUNT", "SUM", "PRIVACY_ID_COUNT"), "LAPLACE", vocab,
+         dict(max_partitions_contributed=l0_true,
+              max_contributions_per_partition=linf_true, min_value=1.0,
+              max_value=5.0)), 9, eps=1e6)
+    for name, n in counts.items():
+        total[name] += n
+    pairs = nmax[2]
+    truths = {"count": np.bincount(encoded.pk, minlength=P),
+              "sum": np.bincount(encoded.pk, weights=encoded.values,
+                                 minlength=P),
+              "privacy_id_count": np.bincount(pairs % P, minlength=P)}
+    eps_each = 1e6 / 3
+    std = {"count": math.sqrt(2) * l0_true * linf_true / eps_each,
+           "sum": math.sqrt(2) * l0_true * linf_true * 5.0 / eps_each,
+           "privacy_id_count": math.sqrt(2) * l0_true / eps_each}
+    worst = {}
+    for name, truth in truths.items():
+        got = np.array([getattr(out[m], name) if m in out else np.nan
+                        for m in vocab])
+        err = np.abs(got - truth)
+        tol = 16 * std[name] + 1e-6 * np.abs(truth)
+        if not (err <= tol).all():
+            raise AssertionError(f"mesh ingest (c) {name}: not within 16 "
+                                 f"noise stds of the numpy group-by")
+        worst[name] = float((err / np.maximum(1.0, truth)).max())
+    print(f"mesh ingest (c) epsilon=1e6 over (a)'s ingest, l0={l0_true}, "
+          f"linf={linf_true}: all {P} partitions within 16 noise stds of "
+          f"the numpy group-by (max rel err {json.dumps(worst)}) in "
+          f"{seconds * 1e3:.1f} ms", flush=True)
+
+    # A simulated two-process exchange == the one-process ingest, on the
+    # first 2^22 rows.
+    chunks = stream_chunks(*raw)[:4]
+    half = len(chunks) // 2
+    n_half = sum(len(c[0]) for c in chunks[:half])
+    for mode in INGEST_MODES:
+        whole = ingest.encode_local_shard_to_mesh(chunks, mesh,
+                                                  encode_mode=mode)
+        payloads = []
+        for part in (chunks[:half], chunks[half:]):
+            if mode == "host":
+                shard = ingest.encode_shard(part)
+                meta = ingest._ShardMeta(len(shard.pid), shard.pid_vocab,
+                                         shard.pk_vocab)
+            else:
+                meta = ingest._hash_encode_shard(part, None, "error",
+                                                 np.float32).meta
+            payloads.append(pickle.dumps(meta))
+        kernels.reset_launch_counts()
+        enc0 = ingest.encode_local_shard_to_mesh(
+            chunks[:half], mesh, encode_mode=mode,
+            exchange=lambda payload: list(payloads))
+        for name, n in kernels.launch_counts.items():
+            total[name] += n
+        codes = {}
+        for label, enc in (("one process", whole), ("process 0", enc0)):
+            pk = enc.pk.global_rows("cpu").numpy()
+            valid = pk >= 0
+            codes[label] = (pk[valid][:n_half], enc.pid.global_rows(
+                "cpu").numpy()[valid][:n_half], int(valid.sum()))
+        if codes["process 0"][2] != n_half or any(
+                not np.array_equal(a, b) for a, b in zip(
+                    codes["process 0"][:2], codes["one process"][:2])):
+            raise AssertionError(f"mesh ingest, simulated two processes "
+                                 f"({mode}): process 0's codes differ from "
+                                 f"the one-process ingest's first half")
+        if enc0.n_privacy_ids != whole.n_privacy_ids or \
+                list(enc0.partition_vocab) != list(whole.partition_vocab):
+            raise AssertionError(f"mesh ingest, simulated two processes "
+                                 f"({mode}): not the global vocabulary")
+        print(f"mesh ingest, simulated two-process exchange ({mode}), "
+              f"{n_half} rows a process: process 0's rows carry the "
+              f"one-process ingest's codes, its vocabulary "
+              f"({len(whole.partition_vocab)} partitions) and id count "
+              f"({whole.n_privacy_ids})", flush=True)
+        del enc0, whole
+    return total
+
+
+UNFUSED_PATH = tuple(k for k in BASE_KERNELS if k != "compact_kept")
+
+
+def unfused_phase(torch, tdp, encoded, kernels, card, reps=3):
+    """(a), (b) and a selection on TorchBackend(fused_release=False) against
+    the fused release, alternating, `reps` seeds: the same release (==)
+    and the same launches but C6's (none). Returns the launch counts of
+    the unfused runs."""
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    vocab = list(encoded.partition_vocab)
+
+    def run(label, fused, seed):
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, tdp.TorchBackend(noise_seed=seed,
+                                                    fused_release=fused))
+        kernels.reset_launch_counts()
+        if label == "select":
+            res = engine.select_partitions(encoded, tdp.SelectPartitionsParams(
+                max_partitions_contributed=64), tdp.DataExtractors())
+        else:
+            _, metrics, noise, public, bounds = MESH_INGEST_RUNS[label]
+            res = engine.aggregate(encoded, tdp.AggregateParams(
+                metrics=[getattr(tdp.Metrics, m) for m in metrics],
+                noise_kind=getattr(tdp.NoiseKind, noise), **bounds),
+                tdp.DataExtractors(), vocab if public else None)
+        acc.compute_budgets()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = list(res) if label == "select" else dict(res)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start, dict(kernels.launch_counts)
+
+    for label in ("a", "b", "select"):
+        walls = {True: [], False: []}
+        for seed in range(reps):
+            fused_out, fused_s, fused_counts = run(label, True, seed)
+            out, seconds, counts = run(label, False, seed)
+            walls[True].append(fused_s)
+            walls[False].append(seconds)
+            if out != fused_out or not out:
+                raise AssertionError(f"unfused ({label}) seed {seed}: "
+                                     f"{len(out)} partitions, fused "
+                                     f"{len(fused_out)}; not ==")
+            # Every launch of the fused release but C6's.
+            check_launches(f"fused ({label})", fused_counts, kernels,
+                           dict(compact_kept=1))
+            check_launches(f"unfused ({label})", counts, kernels,
+                           dict(fused_counts, compact_kept=0),
+                           UNFUSED_PATH)
+            for name, c in counts.items():
+                total[name] += c
+        print(f"unfused ({label}) fused_release=False: {len(out)} "
+              f"partitions == the fused release's for seeds 0-{reps - 1}, "
+              f"one launch fewer (no compact_kept); wall "
+              f"{statistics.median(walls[False]) * 1e3:.1f} ms against "
+              f"fused {statistics.median(walls[True]) * 1e3:.1f} ms "
+              f"(medians of {reps}: "
+              f"{[round(t * 1e3, 1) for t in walls[False]]} / "
+              f"{[round(t * 1e3, 1) for t in walls[True]]} ms; {card})",
+              flush=True)
+    return total
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -28,7 +28,7 @@ SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "factorize_codes", "lookup_codes", "append_rows", "pld_fft",
            "log_spectrum", "group_stats", "log_bins", "sweep_stats",
            "sweep_report", "combine_shards", "reshard_count",
-           "reshard_exchange")
+           "reshard_exchange", "mesh_factorize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -180,6 +180,14 @@ _SIGNATURES = {
         "reshard_exchange": (_I, [_P, _P, _P, _I, _I, _P, _P, _LL, _I, _P,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
                                   _P]),
+    },
+    "mesh_factorize": {
+        "mesh_scan_scratch_bytes": (_LL, [_LL]),
+        "mesh_local_uniques": (_I, [_P, _P, _LL, _LL, _LL, _P, _P, _P, _P,
+                                    _P, _P, _P]),
+        "mesh_merge_heads": (_I, [_P, _P, _P, _P, _LL, _P, _P, _P, _P, _P]),
+        "mesh_merge_remap": (_I, [_P, _P, _P, _P, _P, _LL, _P, _P, _P]),
+        "mesh_remap_rows": (_I, [_P, _P, _P, _LL, _P, _LL, _P, _P]),
     },
 }
 

@@ -30,15 +30,25 @@ maps to two secondary hashes. A detected collision raises
 ``HashCollisionError`` and the ingest falls back to the exact host encoder
 when the chunk source can be read again.
 
-The meshed kernels of the JAX module (its unique-cap and mesh factorize,
-:302-418; K23b) run only in its multi-host ingest and come with it,
-ROADMAP.md Queue 1 step 9.
+The meshed form (the JAX module's unique-cap and mesh factorize,
+:302-418; K23b) is ``mesh_factorize_codes``: row-sharded hash rows
+(parallel/mesh.ShardedColumn) get the same first-occurrence codes, each
+shard's uniques going to the gathering device once, O(uniques), never
+rows (C24 with C5's sorts; kernels.mesh_local_uniques, mesh_merge_ranks,
+mesh_remap_rows). The single-process pod ingest
+(ingest.encode_local_shard_to_mesh, encode_mode="hash_device") runs it;
+its multi-process form is ROADMAP.md Queue 1 step 9.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from pipelinedp_tpu_torch import kernels
+from pipelinedp_tpu_torch.parallel import collectives
+from pipelinedp_tpu_torch.parallel import mesh as mesh_lib
+from pipelinedp_tpu_torch.parallel.mesh import ShardedColumn, on_device
 
 # Invalid/pad marker: both uint32 lanes at their maximum. The host hash
 # remaps a real key hashing to uint64-max down by one, so the sentinel is
@@ -186,6 +196,116 @@ def build_lookup_table(sorted_hashes: np.ndarray, first_pos: np.ndarray,
     codes[order] = np.arange(v, dtype=np.int32)
     return (torch.from_numpy(lanes.view(np.int32)).to(device),
             torch.from_numpy(codes).to(device))
+
+
+# ---------------------------------------------------------------------------
+# The mesh factorize (K23b)
+
+
+def _as_sharded(mesh: "mesh_lib.Mesh", hashes) -> ShardedColumn:
+    """Hash rows as a ShardedColumn over `mesh`: as given, or a tensor
+    split evenly (its length a multiple of the mesh size), as shard_map
+    splits a global array."""
+    if isinstance(hashes, ShardedColumn):
+        if hashes.mesh != mesh:
+            raise ValueError(f"mesh_factorize: hash rows sharded over "
+                             f"{hashes.mesh}, not {mesh}")
+        return hashes
+    n = hashes.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"mesh_factorize: {n} rows do not split evenly "
+                         f"over {mesh.size} shards")
+    local = n // mesh.size
+    return ShardedColumn([hashes[s * local:(s + 1) * local].to(dev)
+                          for s, dev in enumerate(mesh.devices)], mesh)
+
+
+def _sorted_shards(hashes: ShardedColumn) -> List[torch.Tensor]:
+    """Each shard's stable C5 order by (hash_hi, hash_lo), as int32 words
+    (grouping needs only adjacency): sorted once, read by both phases."""
+    perms = []
+    for rows, dev in zip(hashes.shards, hashes.mesh.devices):
+        with on_device(dev):
+            perms.append(kernels.radix_sort([rows[:, 0].contiguous(),
+                                             rows[:, 1].contiguous()]))
+    return perms
+
+
+def _check_positions(mesh: "mesh_lib.Mesh", local: int,
+                     uniq_cap: int = 0) -> None:
+    """Global positions and the gathered table index int32: raises past
+    2^31, never falls back."""
+    if mesh.size * local >= 1 << 31 or mesh.size * uniq_cap >= 1 << 31:
+        raise ValueError(
+            f"mesh_factorize: {mesh.size} shards x {local} rows (unique "
+            f"capacity {uniq_cap}) exceed the int32 positions of the "
+            f"factorize (2^31)")
+
+
+def mesh_unique_cap(mesh: "mesh_lib.Mesh", hashes, perms=None) -> int:
+    """The largest per-shard count of distinct non-sentinel hashes (the
+    JAX package's _mesh_unique_cap_kernel, a pmax over shards): C24's
+    count-only pass a shard, then one host_fetch of the D counts."""
+    hashes = _as_sharded(mesh, hashes)
+    _check_positions(mesh, hashes.shards[0].shape[0])
+    perms = _sorted_shards(hashes) if perms is None else perms
+    counts = []
+    for s, (rows, perm, dev) in enumerate(zip(hashes.shards, perms,
+                                              mesh.devices)):
+        with on_device(dev):
+            counts.append(kernels.mesh_local_uniques(rows, perm, 0)[1])
+    return int(mesh_lib.host_fetch(collectives.gather(counts,
+                                                      mesh.device)).max())
+
+
+def mesh_factorize_kernel(mesh: "mesh_lib.Mesh", hashes, uniq_cap: int,
+                          perms=None):
+    """Sharded first-occurrence factorize (the JAX package's
+    _mesh_factorize_kernel): each shard's uniques compacted with their
+    global first positions into [uniq_cap] (C24), the [D x uniq_cap]
+    tables gathered onto the gathering device and merged once (C24's
+    merge after C5 sorts), each shard's [uniq_cap] window of the remap
+    sent back and its rows remapped where they lie. uniq_cap must be at
+    least every shard's unique count (mesh_unique_cap). Returns (codes
+    int32 ShardedColumn like the rows, n_unique int32[] on the gathering
+    device)."""
+    hashes = _as_sharded(mesh, hashes)
+    local = hashes.shards[0].shape[0]
+    _check_positions(mesh, local, uniq_cap)
+    perms = _sorted_shards(hashes) if perms is None else perms
+    lsegs, tables = [], []
+    for s, (rows, perm, dev) in enumerate(zip(hashes.shards, perms,
+                                              mesh.devices)):
+        with on_device(dev):
+            lseg, _, table = kernels.mesh_local_uniques(
+                rows, perm, s * local, uniq_cap)
+        lsegs.append(lseg)
+        tables.append(table)
+    with on_device(mesh.device):
+        g_hi, g_lo, g_pos = (
+            collectives.gather([t[j] for t in tables], mesh.device)
+            .reshape(-1) for j in range(3))
+        remap, n_unique = kernels.mesh_merge_ranks(g_hi, g_lo, g_pos)
+    codes = []
+    for s, (rows, perm, lseg, dev) in enumerate(zip(
+            hashes.shards, perms, lsegs, mesh.devices)):
+        window = remap[s * uniq_cap:(s + 1) * uniq_cap].to(dev)
+        with on_device(dev):
+            codes.append(kernels.mesh_remap_rows(rows, perm, lseg, window))
+    return ShardedColumn(codes, mesh, len(hashes)), n_unique
+
+
+def mesh_factorize_codes(mesh: "mesh_lib.Mesh", hashes):
+    """Two-phase meshed factorize of row-sharded (n, 3) hash rows (the JAX
+    package's mesh_factorize_codes): the per-shard unique counts fix the
+    gather capacity, round_capacity of their maximum, then the factorize
+    runs on the phase-1 sorts. Returns (codes int32 ShardedColumn, n_unique
+    host int)."""
+    hashes = _as_sharded(mesh, hashes)
+    perms = _sorted_shards(hashes)
+    uniq_cap = mesh_lib.round_capacity(mesh_unique_cap(mesh, hashes, perms))
+    codes, n_unique = mesh_factorize_kernel(mesh, hashes, uniq_cap, perms)
+    return codes, int(mesh_lib.host_fetch(n_unique))
 
 
 class HashVocab:

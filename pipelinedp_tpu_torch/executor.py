@@ -42,10 +42,17 @@ threshold the blocked route runs over the mesh too
 pass 1 a shard, each block's windows a shard, C21, the block's release
 once.
 
+TorchBackend(fused_release=False) runs the unfused release
+(aggregate_kernel, select_partitions_kernel): the same kernels but C6, the
+dense [P] outputs and keep vector decoded on the host by np.nonzero
+(decode_results), as TPUBackend(fused_release=False).
+
 Input is rows (columnar.encode), a pre-encoded EncodedData, or a
 runtime.pipeline.ChunkSource of column chunks (stream_chunk_source: the
 streamed ingest of ingest.py, whose columns arrive on the device already
-padded, C12-C14).
+padded, C12-C14). An EncodedData of ShardedColumns (the pod ingest,
+ingest.encode_local_shard_to_mesh) goes to the mesh where it lies, or in
+its global row order to one device.
 
 The multi-tenant service (service/) offers each job's dense release to a
 per-thread launch interceptor (launch_interceptor, ReleaseLaunch): its
@@ -99,7 +106,8 @@ from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
-from pipelinedp_tpu_torch.parallel.mesh import on_device
+from pipelinedp_tpu_torch.parallel.mesh import (ShardedColumn, on_device,
+                                                resplit, rows_per_shard)
 from pipelinedp_tpu_torch.runtime import observability as rt_observability
 from pipelinedp_tpu_torch.runtime import pipeline as rt_pipeline
 
@@ -365,9 +373,15 @@ def pad_rows(encoded: columnar.EncodedData):
     invalid row changes no output; row i draws counter i either way).
 
     Tensor columns (the streamed ingest's) pad where they lie; the
-    accumulator already pads them to this bucket, so they pass through."""
+    accumulator already pads them to this bucket, so they pass through.
+    ShardedColumns (the pod ingest's) keep their global row order, padded
+    to the bucket and split evenly over their mesh again, row for row the
+    JAX package's padded global array in the layout its meshed release
+    stages (executor.py:1627-1650, reshard._pad_and_shard there)."""
     n = encoded.n_rows
     pad = row_bucket(n) - n
+    if isinstance(encoded.pid, ShardedColumn):
+        return _pad_sharded(encoded, row_bucket(n))
     if pad == 0:
         return encoded.pid, encoded.pk, encoded.values, encoded.valid
     if isinstance(encoded.pid, torch.Tensor):
@@ -383,6 +397,21 @@ def pad_rows(encoded: columnar.EncodedData):
     return (np.concatenate([encoded.pid, np.zeros(pad, np.int32)]),
             np.concatenate([encoded.pk, np.full(pad, -1, np.int32)]),
             values, np.concatenate([encoded.valid, np.zeros(pad, bool)]))
+
+
+def _pad_sharded(encoded: columnar.EncodedData, n_padded: int):
+    """pad_rows of ShardedColumns: n_padded global rows, split evenly over
+    the mesh at rows_per_shard(n_padded, D) a shard (the pads of the even
+    split past n_padded)."""
+    mesh = encoded.pid.mesh
+    per = rows_per_shard(n_padded, mesh.size)
+
+    def split(col, fill):
+        return None if col is None else resplit(col, mesh, per, fill,
+                                                n_padded)
+
+    return (split(encoded.pid, 0), split(encoded.pk, -1),
+            split(encoded.values, 0), split(encoded.valid, False))
 
 
 def reduce_column_names(cfg: KernelConfig) -> List[str]:
@@ -780,15 +809,17 @@ def partial_columns(pid, pk, values, valid, min_v, max_v, min_s, max_s,
     return cols, (sorted_rows, rows)
 
 
-def release_columns(cols, qrows, min_v, max_v, mid, stds: np.ndarray,
-                    rng_key, cfg: KernelConfig, dtype: torch.dtype,
-                    secure_tables=None, combine=None):
-    """Phase 2 of the dense release from the (combined) partition columns:
-    selection, noise, percentiles, compaction, under the replicated half
-    of rng_key's split (finalize) and fold_in(rng_key, 7919) (the
-    percentiles). qrows: partial_columns' (on the mesh a list, one a
-    shard, and combine the cross-shard sum of their quantile counts).
-    Returns (n_kept, order, outputs kept-first, flags)."""
+def release_dense(cols, qrows, min_v, max_v, mid, stds: np.ndarray,
+                  rng_key, cfg: KernelConfig, dtype: torch.dtype,
+                  secure_tables=None, combine=None):
+    """Phase 2 of the dense release from the (combined) partition columns,
+    without compaction: selection, noise, percentiles under the
+    replicated half of rng_key's split (finalize) and fold_in(rng_key,
+    7919) (the percentiles). qrows: partial_columns' (on the mesh a list,
+    one a shard, and combine the cross-shard sum of their quantile
+    counts). Returns (outputs [P], keep bool[P], flags): the JAX package's
+    unfused (outputs, keep) and the sentinel word over the kept
+    partitions."""
     _, final_key = release_key_halves(rng_key)
     outputs, keep, flags = finalize(cols, min_v, mid, stds, final_key, cfg,
                                     secure_tables)
@@ -799,6 +830,17 @@ def release_columns(cols, qrows, min_v, max_v, mid, stds: np.ndarray,
             sorted_rows, values_rows, min_v, max_v, stds,
             quantile_key(rng_key), keep, flags, cfg, dtype,
             secure_tables, combine=combine))
+    return outputs, keep, flags
+
+
+def release_columns(cols, qrows, min_v, max_v, mid, stds: np.ndarray,
+                    rng_key, cfg: KernelConfig, dtype: torch.dtype,
+                    secure_tables=None, combine=None):
+    """release_dense, then kept-first compaction (C6). Returns (n_kept,
+    order, outputs kept-first, flags)."""
+    outputs, keep, flags = release_dense(cols, qrows, min_v, max_v, mid,
+                                         stds, rng_key, cfg, dtype,
+                                         secure_tables, combine)
     n_kept, order, outputs_sorted = compact_release(outputs, keep)
     return n_kept, order, outputs_sorted, flags
 
@@ -814,6 +856,20 @@ def aggregate_release_kernel(pid, pk, values, valid, min_v, max_v, min_s,
                                   min_s, max_s, mid, rows_key, cfg)
     return release_columns(cols, qrows, min_v, max_v, mid, stds, rng_key,
                            cfg, values.dtype, secure_tables)
+
+
+def aggregate_kernel(pid, pk, values, valid, min_v, max_v, min_s, max_s,
+                     mid, stds: np.ndarray, rng_key, cfg: KernelConfig,
+                     secure_tables=None):
+    """The unfused dense release (the JAX package's aggregate_kernel,
+    :928): aggregate_release_kernel without the compaction (C1-C5, C4 and
+    the percentile and vector kernels; no C6). Returns (outputs [P], keep
+    bool[P], flags), decoded by decode_results."""
+    rows_key, _ = release_key_halves(rng_key)
+    cols, qrows = partial_columns(pid, pk, values, valid, min_v, max_v,
+                                  min_s, max_s, mid, rows_key, cfg)
+    return release_dense(cols, qrows, min_v, max_v, mid, stds, rng_key,
+                         cfg, values.dtype, secure_tables)
 
 
 def batched_lane_capacity(cfg: KernelConfig, lane_rows: int) -> int:
@@ -1037,12 +1093,14 @@ def launch_interceptor(fn):
 
 
 def _offerable(interceptor, pid, backend) -> bool:
-    """A release may join a batch when an interceptor is active, its rows
-    are host numpy (a streamed input's device columns run solo) and a
-    meshed backend is not forced onto the device exchange (the meshed
-    dispatcher stages lanes through the host LPT permutation, as a solo
-    host-row run does)."""
-    return (interceptor is not None and isinstance(pid, np.ndarray) and
+    """A release may join a batch when an interceptor is active, the fused
+    release is on (the unfused one stays the solo comparison baseline),
+    its rows are host numpy (a streamed input's device columns and the
+    pod ingest's ShardedColumns run solo) and a meshed backend is not
+    forced onto the device exchange (the meshed dispatcher stages lanes
+    through the host LPT permutation, as a solo host-row run does)."""
+    return (interceptor is not None and backend.fused_release and
+            isinstance(pid, np.ndarray) and
             (backend.mesh is None or backend.reshard != "device"))
 
 
@@ -1055,7 +1113,12 @@ def to_device(encoded: columnar.EncodedData, device: torch.device,
 
 def padded_to_device(pid, pk, values, valid, device: torch.device,
                      dtype: torch.dtype):
-    """One host-to-device copy per padded host column (pad_rows')."""
+    """One host-to-device copy per padded host column (pad_rows'). A
+    ShardedColumn runs on its global row order on `device`, as an
+    unmeshed TPUBackend runs a mesh-sharded global array."""
+    if isinstance(pid, ShardedColumn):
+        pid, pk, values, valid = (None if c is None else c.global_rows(device)
+                                  for c in (pid, pk, values, valid))
     return (torch.as_tensor(pid, dtype=torch.int32).to(device),
             torch.as_tensor(pk, dtype=torch.int32).to(device),
             None if values is None else
@@ -1185,17 +1248,22 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                 result = sharded.sharded_aggregate_arrays(
                     backend.mesh, *rows, min_v, max_v, min_s, max_s, mid,
                     stds, key, cfg, secure_tables, reshard=backend.reshard,
-                    dtype=backend.dtype)
+                    dtype=backend.dtype, fused=backend.fused_release)
             elif result is None:
                 pid, pk, values, valid = padded_to_device(
                     *rows, backend.device, backend.dtype)
-                result = aggregate_release_kernel(
-                    pid, pk, values, valid, min_v, max_v, min_s, max_s, mid,
-                    stds, key, cfg, secure_tables)
-        n_kept, order, outputs, flags = result
-        yield from decode_release_results(n_kept, order, outputs, flags,
-                                          encoded.partition_vocab, compound,
-                                          cfg.numeric_mode)
+                kernel = (aggregate_release_kernel if backend.fused_release
+                          else aggregate_kernel)
+                result = kernel(pid, pk, values, valid, min_v, max_v, min_s,
+                                max_s, mid, stds, key, cfg, secure_tables)
+        if backend.fused_release:
+            n_kept, order, outputs, flags = result
+            yield from decode_release_results(
+                n_kept, order, outputs, flags, encoded.partition_vocab,
+                compound, cfg.numeric_mode)
+        else:
+            yield from decode_results(*result, encoded.partition_vocab,
+                                      compound, cfg.numeric_mode)
 
     return generator()
 
@@ -1260,6 +1328,23 @@ def decode_release_results(n_kept, order, outputs, flags,
                           numeric_mode=numeric_mode)
     ids = order[:k].cpu().numpy()
     cols = {name: col[:k].cpu().numpy() for name, col in outputs.items()}
+    return _decode_rows(ids, cols, partition_vocab, compound)
+
+
+def decode_results(outputs, keep, flags, partition_vocab: Sequence[Any],
+                   compound: dp_combiners.CompoundCombiner,
+                   numeric_mode: str = "fast"):
+    """Unfused release (dense [P] outputs, keep bool[P], flags) ->
+    [(partition_key, MetricsTuple)] (the JAX package's decode_results,
+    :1905): the flag word gates the release as in decode_release_results,
+    then the dense columns come to the host and the kept partitions are
+    np.nonzero(keep), the order the fused release compacts them in."""
+    flag_word = int(flags.reshape(()).to(torch.int64).cpu()) & 0xFFFFFFFF
+    numeric.check_release(flag_word, outputs,
+                          context="dense release (unfused)",
+                          numeric_mode=numeric_mode)
+    ids = np.nonzero(keep.cpu().numpy())[0]
+    cols = {name: col.cpu().numpy()[ids] for name, col in outputs.items()}
     return _decode_rows(ids, cols, partition_vocab, compound)
 
 
@@ -1332,6 +1417,20 @@ def select_partitions_release_kernel(pid: torch.Tensor, pk: torch.Tensor,
     return select_release(cols, selection, key_sel)
 
 
+def select_partitions_kernel(pid: torch.Tensor, pk: torch.Tensor,
+                             valid: torch.Tensor, rng_key, l0: int,
+                             n_partitions: int,
+                             selection: selection_ops.SelectionParams,
+                             dtype: torch.dtype) -> torch.Tensor:
+    """The unfused standalone selection (the JAX package's
+    select_partitions_kernel, :1095): select_partitions_release_kernel
+    without the compaction. Returns keep bool[n_partitions]."""
+    key_l0, key_sel = select_key_schedule(rng_key)
+    cols = select_partition_counts(pid, pk, valid, key_l0, l0, n_partitions,
+                                   dtype)
+    return select_keep(cols, selection, key_sel)
+
+
 def select_partition_counts(pid: torch.Tensor, pk: torch.Tensor,
                             valid: torch.Tensor, key_l0, l0: int,
                             n_partitions: int, dtype: torch.dtype):
@@ -1365,14 +1464,22 @@ def select_bounded_pairs(pid: torch.Tensor, pk: torch.Tensor,
     return key2, pair_start
 
 
-def select_release(cols: Dict[str, torch.Tensor],
-                   selection: selection_ops.SelectionParams, key_sel):
+def select_keep(cols: Dict[str, torch.Tensor],
+                selection: selection_ops.SelectionParams,
+                key_sel) -> torch.Tensor:
     """Keep decisions from the partitions' privacy-id counts (C4 with an
-    empty metric plan) and their kept-first order (C6): (n_kept, order)."""
+    empty metric plan): bool[P]."""
     keep, _, _ = kernels.release_epilogue(
         cols, [], np.zeros(0), np.zeros((0, 2), np.uint32), NoiseKind.LAPLACE,
         False, 0.0, 0.0, selection, key_sel, 1)
-    n_kept, order, _ = kernels.compact_kept(keep, {})
+    return keep
+
+
+def select_release(cols: Dict[str, torch.Tensor],
+                   selection: selection_ops.SelectionParams, key_sel):
+    """select_keep and the kept-first order (C6): (n_kept, order)."""
+    n_kept, order, _ = kernels.compact_kept(
+        select_keep(cols, selection, key_sel), {})
     return n_kept, order
 
 
@@ -1509,16 +1616,24 @@ def lazy_select_partitions(backend, col, params, data_extractors,
                 result = sharded.sharded_select_partitions(
                     backend.mesh, rows[0], rows[1], rows[3], key,
                     params.max_partitions_contributed, n_partitions,
-                    selection, reshard=backend.reshard, dtype=backend.dtype)
+                    selection, reshard=backend.reshard, dtype=backend.dtype,
+                    fused=backend.fused_release)
             elif result is None:
                 pid, pk, _, valid = padded_to_device(*rows, backend.device,
                                                      backend.dtype)
-                result = select_partitions_release_kernel(
-                    pid, pk, valid, key, params.max_partitions_contributed,
-                    n_partitions, selection, backend.dtype)
-        n_kept, order = result
-        yield from decode_selected_partitions(n_kept, order,
-                                              encoded.partition_vocab)
+                kernel = (select_partitions_release_kernel
+                          if backend.fused_release else
+                          select_partitions_kernel)
+                result = kernel(pid, pk, valid, key,
+                                params.max_partitions_contributed,
+                                n_partitions, selection, backend.dtype)
+        if backend.fused_release:
+            yield from decode_selected_partitions(*result,
+                                                  encoded.partition_vocab)
+        else:
+            # The unfused drain: the dense keep vector, then np.nonzero.
+            yield from _decode_keys(np.nonzero(result.cpu().numpy())[0],
+                                    encoded.partition_vocab)
 
     return generator()
 

@@ -21,16 +21,23 @@ row bucket:
 Values are converted to the working float dtype on the host, before the
 copy, and non-finite values are rejected or dropped per chunk.
 
-The multi-host encoders of the JAX module (:982-1581) are ROADMAP.md Queue
-1 items 12 and 13.
+The shard encoders of the JAX module (:982-1581) follow: encode_shard and
+merge_shards (a host encodes its own shard, the coordinator merges the
+vocabularies), and encode_local_shard_to_mesh, the pod ingest, in one
+process: the rows land as ShardedColumns over a mesh (parallel/mesh.py),
+each shard's rows on its device, in both encode modes (hash_device codes
+from device_encode.mesh_factorize_codes, C24). An injected exchange=
+simulates the other processes of a pod; the collective byte exchange over
+torch.distributed is ROADMAP.md Queue 1 step 9.
 """
 
 import dataclasses
 import functools
+from collections import Counter as collections_counter
 import hashlib
 import logging
 import pickle
-from typing import Any, Iterable, Optional, Sequence, Tuple
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +45,11 @@ import torch
 from pipelinedp_tpu_torch import columnar
 from pipelinedp_tpu_torch import device_encode
 from pipelinedp_tpu_torch import kernels
+from pipelinedp_tpu_torch.parallel import mesh as mesh_lib
+from pipelinedp_tpu_torch.parallel.mesh import ShardedColumn
 from pipelinedp_tpu_torch.runtime import pipeline as rt_pipeline
+from pipelinedp_tpu_torch.runtime import telemetry as rt_telemetry
+from pipelinedp_tpu_torch.runtime import trace as rt_trace
 
 _NAN_KEY = columnar._NAN_KEY
 _dict_key = columnar._canonical_key
@@ -577,7 +588,7 @@ def stream_encode_columns(
         raise ValueError(f"encode_mode must be host|hash_device, "
                          f"got {encode_mode!r}")
     device = torch.device(device)
-    value_dtype = np.float64 if dtype == torch.float64 else np.float32
+    value_dtype = _value_dtype(dtype)
     window = dict(encode_threads=encode_threads,
                   pipeline_depth=pipeline_depth)
     if encode_mode == "hash_device":
@@ -759,3 +770,490 @@ def _finalize_hash_codes(pid_hash, pk_col, values, public: bool,
                                 values=values, partition_vocab=vocab,
                                 n_privacy_ids=int(counts[0]),
                                 public_encoded=public)
+
+
+# --- Shard encode and merge ------------------------------------------------
+#
+# Each host parses and vocab-encodes its contiguous shard of the input on
+# its own (encode_shard: numpy, no device), the per-host vocabularies are
+# merged with one pass of the same incremental encoder
+# (merge_host_vocabularies: the returned codes are each host's local ->
+# global remap), and each host remaps and uploads only its own rows. With
+# hosts owning contiguous shards in stream order, the merged codes are
+# those of one factorize of the whole stream.
+
+
+def _value_dtype(dtype: torch.dtype):
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+@dataclasses.dataclass
+class ShardEncoding:
+    """One host's locally encoded shard: int32 code columns and the local
+    vocabularies they index (numpy only, so it pickles)."""
+    pid: np.ndarray
+    pk: np.ndarray
+    values: np.ndarray
+    pid_vocab: np.ndarray
+    pk_vocab: Optional[np.ndarray]  # None when pk was publicly encoded
+
+
+def encode_shard(
+        chunks: Iterable[Tuple[Sequence[Any], Sequence[Any],
+                               Sequence[float]]],
+        public_partitions: Optional[Sequence[Any]] = None,
+        nonfinite: str = "error") -> ShardEncoding:
+    """Host-local chunked encoding of one input shard (no device work), the
+    JAX package's encode_shard: the parse and factorize of
+    stream_encode_columns, with the same per-chunk non-finite policy.
+    Values stay float64."""
+    pid_enc = ChunkedVocabEncoder()
+    pk_enc = ChunkedVocabEncoder()
+    partition_vocab = None
+    if public_partitions is not None:
+        partition_vocab = list(dict.fromkeys(public_partitions))
+    pids, pks, vals = [], [], []
+    for pid_raw, pk_raw, values in chunks:
+        pids.append(pid_enc.encode(pid_raw))
+        if partition_vocab is not None:
+            pks.append(
+                columnar.encode_with_vocab(columnar._as_key_array(pk_raw),
+                                           partition_vocab))
+        else:
+            pks.append(pk_enc.encode(pk_raw))
+        values = np.asarray(values, dtype=np.float64)
+        bad = columnar.nonfinite_value_rows(values, nonfinite)
+        if bad is not None:
+            pks[-1] = np.where(bad, np.int32(-1), pks[-1]).astype(np.int32)
+            values = _invalidate(bad, values, np.float64)
+        vals.append(values)
+    empty = np.zeros(0, np.int32)
+    return ShardEncoding(
+        pid=np.concatenate(pids) if pids else empty,
+        pk=np.concatenate(pks) if pks else empty,
+        values=(np.concatenate(vals) if vals else np.zeros(0)),
+        pid_vocab=np.asarray(pid_enc.vocabulary),
+        pk_vocab=(None if partition_vocab is not None else np.asarray(
+            pk_enc.vocabulary)))
+
+
+def merge_host_vocabularies(
+        vocabs: Sequence[Sequence[Any]]) -> Tuple[np.ndarray,
+                                                  List[np.ndarray]]:
+    """Per-host vocabularies merged into one global first-occurrence
+    vocabulary (host order = stream order): host h's vocabulary fed as one
+    chunk of the incremental encoder returns the global code of each of
+    its local codes, the remap global_code = remap[local_code]. Returns
+    (global_vocabulary, [remap int32 per host])."""
+    enc = ChunkedVocabEncoder()
+    remaps = []
+    for vocab in vocabs:
+        vocab = columnar._as_key_array(vocab)
+        remaps.append(
+            enc.encode(vocab) if len(vocab) else np.zeros(0, np.int32))
+    return np.asarray(enc.vocabulary), remaps
+
+
+def _remap_pk(remap: np.ndarray, pk: np.ndarray) -> np.ndarray:
+    """Local partition codes to global ones; a dropped row's -1 stays -1.
+    The JAX package indexes remap[pk] directly, which reads -1 as the
+    shard's last unique and puts a dropped row back in that partition
+    (ROADMAP.md Queue 3; its hash mode and the serial encode keep it
+    out)."""
+    if not len(pk):
+        return pk
+    return np.where(pk >= 0, remap[np.maximum(pk, 0)], -1).astype(np.int32)
+
+
+def _check_shard_publicity(shards, public: bool) -> None:
+    for s in shards:
+        if public and s.pk_vocab is not None:
+            raise ValueError(
+                "shard was encoded without public partitions but "
+                "merge_shards was called with them — the shard's pk codes "
+                "index its private vocabulary, not the public one")
+        if not public and s.pk_vocab is None:
+            raise ValueError(
+                "shard was encoded with public partitions but merge_shards "
+                "was called without them")
+
+
+def merge_shards(shards: Sequence[ShardEncoding],
+                 public_partitions: Optional[Sequence[Any]] = None, *,
+                 device, dtype: torch.dtype = torch.float32
+                 ) -> columnar.EncodedData:
+    """Coordinator step: per-host shard encodings merged into one
+    EncodedData on `device` (the caller's: there is no default), values in
+    `dtype`. Each shard's rows are remapped with its O(local uniques)
+    remap vector and copied shard by shard (the JAX package's
+    merge_shards)."""
+    device = torch.device(device)
+    public = public_partitions is not None
+    _check_shard_publicity(shards, public)
+    pid_vocab, pid_remaps = merge_host_vocabularies(
+        [s.pid_vocab for s in shards])
+    if public:
+        partition_vocab = list(dict.fromkeys(public_partitions))
+        pk_remaps = None
+    else:
+        partition_vocab, pk_remaps = merge_host_vocabularies(
+            [s.pk_vocab for s in shards])
+    value_dtype = _value_dtype(dtype)
+    dev_pid, dev_pk, dev_vals = [], [], []
+    for h, s in enumerate(shards):
+        dev_pid.append(torch.from_numpy(
+            pid_remaps[h][s.pid].astype(np.int32)).to(device))
+        pk = s.pk if public else _remap_pk(pk_remaps[h], s.pk)
+        dev_pk.append(torch.from_numpy(
+            np.asarray(pk, np.int32)).to(device))
+        dev_vals.append(torch.from_numpy(
+            np.asarray(s.values, value_dtype)).to(device))
+    if not dev_pid:
+        empty = torch.zeros(0, dtype=torch.int32, device=device)
+        dev_pid, dev_pk = [empty], [empty]
+        dev_vals = [torch.zeros(0, dtype=dtype, device=device)]
+    return columnar.EncodedData(
+        pid=torch.cat(dev_pid), pk=torch.cat(dev_pk),
+        values=torch.cat(dev_vals), partition_vocab=partition_vocab,
+        n_privacy_ids=len(pid_vocab), public_encoded=public)
+
+
+# --- The pod ingest ----------------------------------------------------------
+#
+# Each pod process runs encode_shard over its own chunks, the per-process
+# vocabularies (O(uniques)) are exchanged once, every process derives the
+# same global vocabulary and remaps (merge_host_vocabularies is
+# deterministic in process order), and each process uploads only its
+# remapped shard to its devices of the mesh. The port drives one process
+# (process_count() == 1): the exchange is the identity, or an injected
+# exchange= that simulates a pod.
+
+
+@dataclasses.dataclass
+class _ShardMeta:
+    """What the vocabulary exchange moves: local vocabularies (numpy,
+    picklable) and the process's row count."""
+    n_rows: int
+    pid_vocab: np.ndarray
+    pk_vocab: Optional[np.ndarray]
+
+
+def merge_shard_metas(metas: Sequence[_ShardMeta], public: bool
+                      ) -> Tuple[List[np.ndarray], Optional[List[np.ndarray]],
+                                 np.ndarray, Sequence[Any]]:
+    """The global merge every process runs alike: (pid remaps, pk remaps or
+    None, global pid vocabulary, partition vocabulary)."""
+    pid_vocab, pid_remaps = merge_host_vocabularies(
+        [m.pid_vocab for m in metas])
+    if public:
+        return pid_remaps, None, pid_vocab, []
+    pk_vocab, pk_remaps = merge_host_vocabularies(
+        [m.pk_vocab for m in metas])
+    return pid_remaps, pk_remaps, pid_vocab, pk_vocab
+
+
+def _padded_local_rows(shard: ShardEncoding, pid_remap: np.ndarray,
+                       pk_remap: Optional[np.ndarray], cap: int,
+                       value_dtype) -> Tuple[np.ndarray, np.ndarray,
+                                             np.ndarray]:
+    """One process's remapped rows padded to its device capacity with the
+    invalid marks (pid 0, pk -1: EncodedData.valid False). A row dropped
+    for a non-finite value keeps pk -1 through the remap (_remap_pk)."""
+    pid = (pid_remap[shard.pid] if len(shard.pid) else
+           shard.pid).astype(np.int32)
+    pk = shard.pk if pk_remap is None else _remap_pk(pk_remap, shard.pk)
+    pk = np.asarray(pk, np.int32)
+    values = np.asarray(shard.values, dtype=value_dtype)
+    pad = cap - len(pid)
+    if pad:
+        pid = np.concatenate([pid, np.zeros(pad, np.int32)])
+        pk = np.concatenate([pk, np.full(pad, -1, np.int32)])
+        values = np.concatenate(
+            [values, np.zeros((pad,) + values.shape[1:], values.dtype)])
+    return pid, pk, values
+
+
+def _pod_row_capacity(n_rows_by_process, mesh) -> Tuple[int, bool]:
+    """One per-device row capacity every pod process derives alike from the
+    exchanged row counts and the mesh: the largest per-device row load,
+    capacity-rounded. Returns (per_device_capacity, simulated); simulated
+    marks an injected exchange's pod inside one process, where the
+    simulated processes split the devices evenly."""
+    n_dev = mesh.size
+    devs_of = collections_counter(
+        mesh_lib.device_process(d) for d in mesh.devices)
+    simulated = (mesh_lib.process_count() == 1 and
+                 len(n_rows_by_process) > 1)
+    per_dev = 1
+    for p, n_rows in enumerate(n_rows_by_process):
+        if simulated:
+            n_p = max(n_dev // len(n_rows_by_process), 1)
+        else:
+            n_p = devs_of.get(p, 0)
+        if n_rows and not n_p:
+            raise ValueError(
+                f"process {p} encoded {n_rows} rows but owns no device of "
+                f"the mesh — every ingesting process must hold a mesh "
+                f"slice to upload to")
+        if n_p:
+            per_dev = max(per_dev, -(-n_rows // n_p))
+    return mesh_lib.round_capacity(per_dev), simulated
+
+
+def _exchanged_metas(meta, exchange, encode_mode: str):
+    """The exchange's metas in process order, this process's among them."""
+    if exchange is None:
+        if mesh_lib.process_count() != 1:
+            raise NotImplementedError(
+                "encode_local_shard_to_mesh: the collective byte exchange "
+                "of a multi-process pod (torch.distributed) is not ported; "
+                "one process runs the pod ingest, or an injected exchange= "
+                "simulates the others")
+        exchange = lambda payload: [payload]  # noqa: E731 - one process
+    with rt_trace.span("ingest.vocab_exchange", encode=encode_mode) as sp:
+        payload = pickle.dumps(meta)
+        sp.set(bytes=len(payload))
+        metas = [pickle.loads(p) for p in exchange(payload)]
+    my_p = mesh_lib.process_index()
+    if not 0 <= my_p < len(metas):
+        raise ValueError(
+            f"vocabulary exchange returned {len(metas)} shard metas but "
+            f"this is process {my_p} — every pod process must participate "
+            f"exactly once")
+    return metas, exchange
+
+
+def _to_mesh(col: np.ndarray, mesh, cap: int,
+             dtype: Optional[torch.dtype] = None) -> ShardedColumn:
+    """This process's padded rows (mesh.size * cap) as a ShardedColumn:
+    shard s's cap rows copied to mesh.devices[s]."""
+    t = torch.from_numpy(np.ascontiguousarray(col))
+    return ShardedColumn([t[s * cap:(s + 1) * cap].to(device=dev, dtype=dtype)
+                          for s, dev in enumerate(mesh.devices)], mesh)
+
+
+def encode_local_shard_to_mesh(
+        chunks: Iterable[Tuple[Sequence[Any], Sequence[Any],
+                               Sequence[float]]],
+        mesh,
+        public_partitions: Optional[Sequence[Any]] = None,
+        nonfinite: str = "error",
+        exchange=None,
+        encode_mode: str = "host",
+        dtype: torch.dtype = torch.float32) -> columnar.EncodedData:
+    """Pod-scale ingest: this process encodes only its own input shard (the
+    JAX package's encode_local_shard_to_mesh).
+
+    encode_shard runs over `chunks`; the per-process vocabularies and row
+    counts are exchanged (`exchange(payload_bytes) -> [payload_bytes per
+    process]`; default the identity of one process, injectable to simulate
+    a pod), merged into the global vocabulary every process derives alike,
+    and the local rows are remapped, padded to one per-device capacity
+    (pk -1: invalid) and copied to the mesh: the EncodedData's columns are
+    ShardedColumns, shard s's rows on mesh.devices[s], values in `dtype`.
+    Process order is stream order, so the codes equal a serial
+    stream_encode_columns over the whole stream.
+
+    encode_mode="hash_device" only hashes the shard: the exchange carries
+    O(uniques) collision and decode metadata, and the codes come from the
+    mesh factorize on the devices (device_encode.mesh_factorize_codes).
+    """
+    if encode_mode not in ("host", "hash_device"):
+        raise ValueError(f"encode_mode must be host|hash_device, "
+                         f"got {encode_mode!r}")
+    if encode_mode == "hash_device":
+        return _encode_local_shard_hash(chunks, mesh, public_partitions,
+                                        nonfinite, exchange, dtype)
+    public = public_partitions is not None
+    with rt_trace.span("ingest.local_shard") as sp:
+        shard = encode_shard(chunks, public_partitions, nonfinite)
+        sp.set(rows=int(len(shard.pid)))
+    meta = _ShardMeta(n_rows=int(len(shard.pid)),
+                      pid_vocab=np.asarray(shard.pid_vocab),
+                      pk_vocab=(None if shard.pk_vocab is None else
+                                np.asarray(shard.pk_vocab)))
+    metas, _ = _exchanged_metas(meta, exchange, "host")
+    my_p = mesh_lib.process_index()
+    pid_remaps, pk_remaps, pid_vocab, pk_vocab = merge_shard_metas(
+        metas, public)
+    partition_vocab = (list(dict.fromkeys(public_partitions)) if public
+                       else pk_vocab)
+    cap, _ = _pod_row_capacity([m.n_rows for m in metas], mesh)
+    local_rows = cap * len(mesh_lib.local_devices(mesh))
+    pid, pk, values = _padded_local_rows(
+        shard, pid_remaps[my_p],
+        None if pk_remaps is None else pk_remaps[my_p], local_rows,
+        _value_dtype(dtype))
+    return columnar.EncodedData(
+        pid=_to_mesh(pid, mesh, cap), pk=_to_mesh(pk, mesh, cap),
+        values=_to_mesh(values, mesh, cap), partition_vocab=partition_vocab,
+        n_privacy_ids=len(pid_vocab), public_encoded=public)
+
+
+# --- The pod ingest in encode_mode="hash_device" ---------------------------
+
+
+@dataclasses.dataclass
+class _HashShardMeta:
+    """What the hash-mode exchange moves: the row count and O(uniques) hash
+    metadata (both key columns' collision lanes, the partition uniques'
+    first positions and raw keys, from which every process derives the
+    decode table). Codes come from the device factorize."""
+    n_rows: int
+    pid_u1: np.ndarray
+    pid_u2: np.ndarray
+    pk_u1: Optional[np.ndarray]
+    pk_u2: Optional[np.ndarray]
+    pk_keys: Optional[np.ndarray]
+    pk_pos: Optional[np.ndarray]  # shard-local first positions
+
+
+@dataclasses.dataclass
+class _HashShardEncoding:
+    """One process's hash-encoded shard: (n, 3) uint32 hash rows (or int32
+    pk codes when publicly encoded), values and its exchange meta."""
+    pid_hash: np.ndarray
+    pk_col: np.ndarray
+    values: np.ndarray
+    meta: _HashShardMeta
+
+
+def _hash_encode_shard(chunks, public_partitions, nonfinite: str,
+                       value_dtype=np.float64) -> _HashShardEncoding:
+    """Host-local hash encode of one input shard (no device work): chunk
+    hashing, the chunk uniques with shard-local first positions, no merge
+    (the JAX package's _hash_encode_shard)."""
+    partition_vocab = None
+    if public_partitions is not None:
+        partition_vocab = list(dict.fromkeys(public_partitions))
+    pid_cols, pk_cols, vals = [], [], []
+    pid_u1, pid_u2 = [], []
+    pk_u1, pk_u2, pk_keys, pk_pos = [], [], [], []
+    offset = 0
+    for chunk in chunks:
+        prep = _prepare_hash_chunk(chunk, partition_vocab, nonfinite,
+                                   value_dtype)
+        pid_u1.append(prep.pid_u1)
+        pid_u2.append(prep.pid_u2)
+        if partition_vocab is None:
+            pk_u1.append(prep.pk_u1)
+            pk_u2.append(prep.pk_u2)
+            pk_keys.append(prep.pk_keys)
+            pk_pos.append(prep.pk_pos + offset)
+        pid_cols.append(prep.pid_hash)
+        pk_cols.append(prep.pk_col)
+        vals.append(prep.values)
+        offset += prep.n_rows
+    public = partition_vocab is not None
+    empty_hash = np.empty((0, 3), np.uint32)
+    pid_hash = np.concatenate(pid_cols) if pid_cols else empty_hash
+    if pk_cols:
+        pk_col = np.concatenate(pk_cols)
+    else:
+        pk_col = np.empty(0, np.int32) if public else empty_hash
+    values = np.concatenate(vals) if vals else np.zeros(0, value_dtype)
+    meta = _HashShardMeta(
+        n_rows=int(len(pid_hash)),
+        pid_u1=_concat_u64(pid_u1), pid_u2=_concat_u64(pid_u2),
+        pk_u1=None if public else _concat_u64(pk_u1),
+        pk_u2=None if public else _concat_u64(pk_u2),
+        pk_keys=None if public else (np.concatenate(pk_keys)
+                                     if pk_keys else np.empty(0, object)),
+        pk_pos=None if public else (np.concatenate(pk_pos)
+                                    if pk_pos else np.empty(0, np.int64)))
+    return _HashShardEncoding(pid_hash, pk_col, values, meta)
+
+
+def _concat_u64(arrays) -> np.ndarray:
+    arrays = [a for a in arrays if len(a)]
+    return np.concatenate(arrays) if arrays else np.empty(0, np.uint64)
+
+
+def _pad_rows_to(col: np.ndarray, cap: int, fill, dtype) -> np.ndarray:
+    out = np.full((cap,) + col.shape[1:], fill, dtype)
+    out[:len(col)] = col
+    return out
+
+
+def _encode_local_shard_hash(chunks, mesh, public_partitions, nonfinite,
+                             exchange, dtype) -> columnar.EncodedData:
+    """The encode_mode="hash_device" body of encode_local_shard_to_mesh (the
+    JAX package's _encode_local_shard_hash): this process only hashes its
+    shard, the exchange moves O(uniques) collision and decode metadata,
+    the padded hash rows go to the mesh and the codes come from the mesh
+    factorize (C24). A detected collision, derived alike by every process
+    from the same metas, falls back to the host encoder for a re-iterable
+    source and raises for a one-shot iterator."""
+    public = public_partitions is not None
+    reiterable = iter(chunks) is not chunks
+    value_dtype = _value_dtype(dtype)
+    with rt_trace.span("ingest.local_shard", encode="hash_device") as sp:
+        shard = _hash_encode_shard(chunks, public_partitions, nonfinite,
+                                   value_dtype)
+        sp.set(rows=shard.meta.n_rows)
+        rt_telemetry.record("pipeline_device_encode_chunks")
+    metas, exchange = _exchanged_metas(shard.meta, exchange, "hash_device")
+    # The collision gate: the same on every process (same metas), so the
+    # fallback decision cannot diverge across the pod.
+    try:
+        _, _, n_pid_global, _ = device_encode.merge_hash_uniques(
+            [m.pid_u1 for m in metas], [m.pid_u2 for m in metas],
+            what="privacy-id")
+        pk_table = None
+        if not public:
+            # Shard-local first positions become global by each process's
+            # stream offset.
+            offsets = np.cumsum([0] + [m.n_rows for m in metas[:-1]])
+            pk_table = device_encode.merge_hash_uniques(
+                [m.pk_u1 for m in metas], [m.pk_u2 for m in metas],
+                [m.pk_keys for m in metas],
+                [m.pk_pos + off for m, off in zip(metas, offsets)],
+                what="partition")
+    except device_encode.HashCollisionError as err:
+        rt_telemetry.record("ingest_hash_collisions")
+        logging.warning(
+            "hash-device pod ingest detected a 64-bit key-hash collision "
+            "(%s); every process falls back to the exact host encoder "
+            "together.", err)
+        if not reiterable:
+            raise device_encode.HashCollisionError(
+                f"{err} — and the chunk source is a one-shot iterator, so "
+                f"the exact host-encoder fallback cannot re-read it. Pass a "
+                f"re-iterable source or encode_mode='host'.") from err
+        return encode_local_shard_to_mesh(
+            chunks, mesh, public_partitions=public_partitions,
+            nonfinite=nonfinite, exchange=exchange, encode_mode="host",
+            dtype=dtype)
+    cap, simulated = _pod_row_capacity([m.n_rows for m in metas], mesh)
+    local_rows = cap * len(mesh_lib.local_devices(mesh))
+    sent32 = int(device_encode._U32_MAX)
+    pid_local = _pad_rows_to(shard.pid_hash, local_rows, sent32, np.uint32)
+    if public:
+        pk_local = _pad_rows_to(shard.pk_col, local_rows, -1, np.int32)
+    else:
+        pk_local = _pad_rows_to(shard.pk_col, local_rows, sent32, np.uint32)
+    values_local = _pad_rows_to(shard.values, local_rows, 0, value_dtype)
+    pid_codes, _ = device_encode.mesh_factorize_codes(
+        mesh, _to_mesh(_int32_lanes(pid_local), mesh, cap))
+    if public:
+        pk = _to_mesh(pk_local, mesh, cap)
+        vocab = list(dict.fromkeys(public_partitions))
+    else:
+        pk, n_pk_dev = device_encode.mesh_factorize_codes(
+            mesh, _to_mesh(_int32_lanes(pk_local), mesh, cap))
+        if not simulated and n_pk_dev != pk_table[2]:
+            raise RuntimeError(
+                f"device mesh factorize found {n_pk_dev} distinct partition "
+                f"hashes but the exchanged metas merge to {pk_table[2]} "
+                f"(internal invariant)")
+        # The code order (global first occurrence) follows from the
+        # exchanged positions, so the decode table covers codes whose rows
+        # live on other processes too.
+        s1, keys, n_pk, pos = pk_table
+        vocab = device_encode.HashVocab(
+            n_pk, s1, keys, hash_by_code_host=s1[np.argsort(pos,
+                                                            kind="stable")])
+    return columnar.EncodedData(
+        pid=pid_codes.map(lambda t: t.clamp(min=0)), pk=pk,
+        values=_to_mesh(values_local, mesh, cap), partition_vocab=vocab,
+        n_privacy_ids=int(n_pid_global), public_encoded=public)

@@ -420,3 +420,19 @@ def validate_tenant_accounting(tenant_accounting, obj_name: str) -> None:
             f"charges the PLD-composed spend rebuilt from the odometer "
             f"trail), but {tenant_accounting!r} given.")
 
+
+def validate_fused_release(fused_release, obj_name: str) -> None:
+    """Validates the fused-release switch: a plain bool (the JAX package's
+    validate_fused_release).
+
+    Raises:
+        ValueError: fused_release is not a bool (a truthy non-bool would
+        quietly flip the dense routes between the compacting release and
+        the unfused release with its host np.nonzero).
+    """
+    if not isinstance(fused_release, bool):
+        raise ValueError(
+            f"{obj_name}: fused_release must be a bool, but "
+            f"{fused_release!r} given (True compacts the kept partitions "
+            f"on the device, with an O(kept) drain; outputs are the same "
+            f"either way).")

@@ -1,4 +1,4 @@
-"""The twenty-three CUDA kernels of the dense and blocked release and
+"""The twenty-four CUDA kernels of the dense and blocked release and
 selection paths, the device mesh, the streamed ingest, the PLD composition,
 the dataset histograms and the utility-analysis sweep, their wrappers and
 their plain PyTorch versions.
@@ -53,6 +53,10 @@ their plain PyTorch versions.
                                                      every row
     C23 reshard_exchange  csrc/reshard_exchange.cu   every row written to its
                                                      slot on its destination
+    C24 mesh_factorize    csrc/mesh_factorize.cu     first-occurrence codes of
+                                                     row-sharded key hashes:
+                                                     a shard's uniques, their
+                                                     merge, a shard's remap
 
 The blocked route (parallel/large_p.py) runs C3 and C7 on windows of the
 partition-sorted stream: their windowed entries (base=) rebase each row's
@@ -132,7 +136,8 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "reduce_partitions_compensated_lanes",
            "reduce_partitions_vector_lanes", "release_epilogue_secure_lanes",
            "quantile_descend_lanes", "quantile_descend_secure_lanes",
-           "vector_release_lanes", "vector_release_secure_lanes")
+           "vector_release_lanes", "vector_release_secure_lanes",
+           "mesh_local_uniques", "mesh_merge_ranks", "mesh_remap_rows")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -3432,3 +3437,170 @@ def reshard_exchange_plain(pid, pk, values, dest, rank, targets, fill):
     f_valid[start:] = False
     if f_values is not None:
         f_values[start:] = 0
+
+
+# ---------------------------------------------------------------------------
+# C24 mesh_factorize
+
+
+def _check_mesh_sorted(rows: torch.Tensor, perm: torch.Tensor,
+                       what: str) -> int:
+    _check_hash_rows(rows, what)
+    n = rows.shape[0]
+    _check(perm, torch.int64, n, f"{what} perm")
+    return n
+
+
+def mesh_local_uniques(rows: torch.Tensor, perm: torch.Tensor,
+                       gpos_base: int, uniq_cap: Optional[int] = None):
+    """C24, one shard's uniques (K23b's per-shard phase): rows int32[n, 3]
+    hash rows and perm, their stable order by (hash_hi, hash_lo) (C5 over
+    the lanes as int32 words). A sorted position heads a run where its
+    hash differs from the previous one's and is not the sentinel.
+
+    Returns (lseg int32[n], each sorted position's run id; n_new int32[],
+    the head count; table). With uniq_cap None the table is None (the
+    unique-cap phase); else (t_hi, t_lo, t_pos) int32[uniq_cap]: head k's
+    lanes and global position gpos_base + row, the sentinel and INT32_MAX
+    past n_new. uniq_cap must be at least n_new."""
+    n = _check_mesh_sorted(rows, perm, "rows")
+    if gpos_base < 0 or gpos_base + n > _INT32_MAX:
+        raise ValueError(f"mesh_local_uniques: global positions "
+                         f"{gpos_base} + {n} exceed 2^31")
+    if uniq_cap is not None and not 0 <= uniq_cap <= _INT32_MAX:
+        raise ValueError(f"mesh_local_uniques: uniq_cap {uniq_cap}")
+    if not _on_cuda(rows, perm):
+        return mesh_local_uniques_plain(rows, perm, gpos_base, uniq_cap)
+    dev = rows.device
+    lib = cuda_build.library("mesh_factorize")
+    scratch = torch.empty(lib.mesh_scan_scratch_bytes(n), dtype=torch.uint8,
+                          device=dev)
+    lseg = torch.empty(n, dtype=torch.int32, device=dev)
+    n_new = torch.empty((), dtype=torch.int32, device=dev)
+    table = None
+    if uniq_cap is not None:
+        table = tuple(torch.empty(uniq_cap, dtype=torch.int32, device=dev)
+                      for _ in range(3))
+    t = table or (None, None, None)
+    status = lib.mesh_local_uniques(
+        _ptr(rows), _ptr(perm), n, gpos_base, uniq_cap or 0, _ptr(scratch),
+        _ptr(lseg), _ptr(n_new), _ptr(t[0]), _ptr(t[1]), _ptr(t[2]),
+        _stream(dev))
+    _raise_on(status, "mesh_local_uniques")
+    _count("mesh_local_uniques")
+    return lseg, n_new, table
+
+
+def _run_heads(hi: torch.Tensor, lo: torch.Tensor, perm: torch.Tensor):
+    """Plain versions' head mask over sorted positions (sentinel runs
+    excluded) and the run id of every position."""
+    shi, slo = hi[perm], lo[perm]
+    head = torch.ones(perm.shape[0], dtype=torch.bool, device=hi.device)
+    head[1:] = (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])
+    head &= ~((shi == -1) & (slo == -1))
+    return head, (torch.cumsum(head.to(torch.int64), 0) - 1).to(torch.int32)
+
+
+def mesh_local_uniques_plain(rows, perm, gpos_base, uniq_cap=None):
+    dev = rows.device
+    head, lseg = _run_heads(rows[:, 0], rows[:, 1], perm)
+    n_new = head.sum().to(torch.int32)
+    if uniq_cap is None:
+        return lseg, n_new, None
+    at = perm[head][:uniq_cap]
+    k = at.shape[0]
+    t_hi = torch.full((uniq_cap,), -1, dtype=torch.int32, device=dev)
+    t_lo = torch.full((uniq_cap,), -1, dtype=torch.int32, device=dev)
+    t_pos = torch.full((uniq_cap,), _INT32_MAX, dtype=torch.int32,
+                       device=dev)
+    t_hi[:k] = rows[at, 0]
+    t_lo[:k] = rows[at, 1]
+    t_pos[:k] = (gpos_base + at).to(torch.int32)
+    return lseg, n_new, (t_hi, t_lo, t_pos)
+
+
+def mesh_merge_ranks(g_hi: torch.Tensor, g_lo: torch.Tensor,
+                     g_pos: torch.Tensor):
+    """C24, the merge of the gathered [D x uniq_cap] unique tables (K23b's
+    replicated merge, run once on the gathering device): a C5 sort by
+    (hi, lo, pos), the run heads (sentinels excluded) with each run's
+    first position scattered to first_by_u[run], a C5 sort of first_by_u,
+    and the rank of every slot's unique in first-position order.
+
+    Returns (remap int32[m]: the code of each gathered slot, -1 for a
+    sentinel slot; n_unique int32[])."""
+    m = g_hi.shape[0]
+    for t, name in ((g_hi, "g_hi"), (g_lo, "g_lo"), (g_pos, "g_pos")):
+        _check(t, torch.int32, m, name)
+    if not _on_cuda(g_hi, g_lo, g_pos):
+        return mesh_merge_ranks_plain(g_hi, g_lo, g_pos)
+    dev = g_hi.device
+    lib = cuda_build.library("mesh_factorize")
+    perm1 = radix_sort([g_hi, g_lo, g_pos])
+    scratch = torch.empty(lib.mesh_scan_scratch_bytes(m), dtype=torch.uint8,
+                          device=dev)
+    gseg = torch.empty(m, dtype=torch.int32, device=dev)
+    first_by_u = torch.empty(m, dtype=torch.int32, device=dev)
+    n_unique = torch.empty((), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    _raise_on(lib.mesh_merge_heads(
+        _ptr(g_hi), _ptr(g_lo), _ptr(g_pos), _ptr(perm1), m, _ptr(scratch),
+        _ptr(gseg), _ptr(first_by_u), _ptr(n_unique), stream),
+        "mesh_merge_heads")
+    perm2 = radix_sort([first_by_u])
+    inv = torch.empty(m, dtype=torch.int32, device=dev)
+    remap = torch.empty(m, dtype=torch.int32, device=dev)
+    _raise_on(lib.mesh_merge_remap(
+        _ptr(g_hi), _ptr(g_lo), _ptr(perm1), _ptr(gseg), _ptr(perm2), m,
+        _ptr(inv), _ptr(remap), stream), "mesh_merge_remap")
+    _count("mesh_merge_ranks")
+    return remap, n_unique
+
+
+def mesh_merge_ranks_plain(g_hi, g_lo, g_pos):
+    m = g_hi.shape[0]
+    dev = g_hi.device
+    perm1 = radix_sort_plain([g_hi, g_lo, g_pos])
+    head, gseg = _run_heads(g_hi, g_lo, perm1)
+    first_by_u = torch.full((m,), _INT32_MAX, dtype=torch.int32, device=dev)
+    first_by_u[gseg[head].to(torch.int64)] = g_pos[perm1[head]]
+    perm2 = radix_sort_plain([first_by_u])
+    inv = torch.empty(m, dtype=torch.int32, device=dev)
+    inv[perm2] = torch.arange(m, dtype=torch.int32, device=dev)
+    sentinel = (g_hi == -1) & (g_lo == -1)
+    remap = torch.empty(m, dtype=torch.int32, device=dev)
+    remap[perm1] = inv[gseg.clamp(min=0).to(torch.int64)]
+    remap[sentinel] = -1
+    return remap, head.sum().to(torch.int32)
+
+
+def mesh_remap_rows(rows: torch.Tensor, perm: torch.Tensor,
+                    lseg: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
+    """C24, one shard's codes (K23b's per-shard remap): codes[perm[i]] =
+    remap[lseg[i]], or -1 for a sentinel or invalid row. remap is the
+    shard's [uniq_cap] window of mesh_merge_ranks' remap, on its device."""
+    n = _check_mesh_sorted(rows, perm, "rows")
+    _check(lseg, torch.int32, n, "lseg")
+    _check(remap, torch.int32, remap.shape[0], "remap")
+    if not _on_cuda(rows, perm, lseg, remap):
+        return mesh_remap_rows_plain(rows, perm, lseg, remap)
+    dev = rows.device
+    codes = torch.empty(n, dtype=torch.int32, device=dev)
+    status = cuda_build.library("mesh_factorize").mesh_remap_rows(
+        _ptr(rows), _ptr(perm), _ptr(lseg), n, _ptr(remap), remap.shape[0],
+        _ptr(codes), _stream(dev))
+    _raise_on(status, "mesh_remap_rows")
+    _count("mesh_remap_rows")
+    return codes
+
+
+def mesh_remap_rows_plain(rows, perm, lseg, remap):
+    cap = remap.shape[0]
+    seg = lseg.to(torch.int64)
+    ok = (seg >= 0) & (seg < cap)
+    sorted_codes = torch.where(ok, remap[seg.clamp(0, max(cap - 1, 0))]
+                               if cap else torch.full_like(lseg, -1), -1)
+    codes = torch.empty(rows.shape[0], dtype=torch.int32, device=rows.device)
+    codes[perm] = sorted_codes.to(torch.int32)
+    codes[_dropped_rows(rows)] = -1
+    return codes

@@ -80,7 +80,8 @@ from pipelinedp_tpu_torch.device_encode import round_capacity
 from pipelinedp_tpu_torch.ops import threefry
 from pipelinedp_tpu_torch.parallel import collectives
 from pipelinedp_tpu_torch.parallel import sharded
-from pipelinedp_tpu_torch.parallel.mesh import Mesh, host_fetch, on_device
+from pipelinedp_tpu_torch.parallel.mesh import (Mesh, ShardedColumn,
+                                                host_fetch, on_device)
 from pipelinedp_tpu_torch.parallel.reshard import stage_rows_to_mesh
 # Blocks in flight at once: each pins its O(C) outputs on the device until
 # the host has read its gate; the streamed ingest's staging window shares
@@ -244,13 +245,18 @@ def _working_dtype(values, dtype: Optional[torch.dtype]) -> torch.dtype:
 def _to_host(a) -> Optional[np.ndarray]:
     if a is None or isinstance(a, np.ndarray):
         return a
+    if isinstance(a, ShardedColumn):
+        return a.global_rows("cpu").numpy()
     if isinstance(a, torch.Tensor):
         return a.cpu().numpy()
     return np.asarray(a)
 
 
 def _padded(a, cap: int, fill, device, dtype) -> torch.Tensor:
-    """Column `a` on the device as dtype, padded to cap rows with fill."""
+    """Column `a` on the device as dtype, padded to cap rows with fill (a
+    ShardedColumn in its global row order)."""
+    if isinstance(a, ShardedColumn):
+        a = a.global_rows(device)
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
     t = t.to(device=device, dtype=dtype)
     if t.shape[0] < cap:

@@ -16,10 +16,16 @@ views. Eight slots on the CPU serve the tests, as the JAX tests' eight
 host-platform devices do. On a host with several cards, make_mesh() puts
 shard s on cuda:s and the slots' tensors move by peer copy.
 
+A ShardedColumn is the counterpart of a jax.Array row-sharded over the
+mesh (NamedSharding(mesh, P(SHARD_AXIS))): D equal-length tensors, shard s
+on devices[s], whose global row order is shard 0's rows, then shard 1's,
+and so on. The single-process pod ingest (ingest.encode_local_shard_to_mesh)
+makes such columns, and the meshed releases stage them where they lie.
+
 The multi-process form (one process per card, torch.distributed) is the
 counterpart of the JAX package's runtime/multihost.py and is not ported
-(ROADMAP.md Queue 1 item 13): here process_index() is 0, process_count()
-1, and every mesh is fully addressable.
+(ROADMAP.md Queue 1 step 9): here process_index() is 0, process_count()
+1, device_process() 0, and every mesh is fully addressable.
 
 host_fetch is the one sanctioned device-to-host fetch of the meshed
 paths: control tables of O(D^2) entries (the exchange's send counts),
@@ -115,6 +121,89 @@ def make_mesh(devices: Optional[Sequence[Device]] = None,
     return Mesh(devices)
 
 
+class ShardedColumn:
+    """A column of rows split over a mesh: shards[s] (one length, dtype and
+    row shape for all s) lies on mesh.devices[s], and the global row order
+    is the shards' concatenation. n (default: every row) is the global
+    length; rows past it are the invalid padding of the even split, as
+    the JAX package pads a global array to D equal shards."""
+
+    __slots__ = ("shards", "mesh", "n")
+
+    def __init__(self, shards: Sequence[torch.Tensor], mesh: "Mesh",
+                 n: Optional[int] = None):
+        shards = tuple(shards)
+        if len(shards) != mesh.size:
+            raise ValueError(f"ShardedColumn: {len(shards)} shards for a "
+                             f"mesh of {mesh.size}")
+        first = shards[0]
+        for s, (t, dev) in enumerate(zip(shards, mesh.devices)):
+            if t.device != dev or t.shape != first.shape or \
+                    t.dtype != first.dtype:
+                raise ValueError(
+                    f"ShardedColumn: shard {s} is {t.dtype}"
+                    f"{list(t.shape)} on {t.device}; expected "
+                    f"{first.dtype}{list(first.shape)} on {dev}")
+        total = mesh.size * first.shape[0]
+        n = total if n is None else int(n)
+        if not 0 <= n <= total:
+            raise ValueError(f"ShardedColumn: {n} rows do not fit {total}")
+        self.shards, self.mesh, self.n = shards, mesh, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.n,) + tuple(self.shards[0].shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def map(self, fn) -> "ShardedColumn":
+        """fn applied to every shard where it lies (row-wise functions)."""
+        return ShardedColumn([fn(t) for t in self.shards], self.mesh, self.n)
+
+    def __ge__(self, other) -> "ShardedColumn":
+        return self.map(lambda t: t >= other)
+
+    def global_rows(self, device) -> torch.Tensor:
+        """The n global rows as one tensor on `device`."""
+        return torch.cat([t.to(device) for t in self.shards])[:self.n]
+
+
+def resplit(col: ShardedColumn, mesh: "Mesh", per_shard: int, fill,
+            n: Optional[int] = None) -> ShardedColumn:
+    """col's global rows, padded with `fill` to mesh.size * per_shard and
+    split evenly over `mesh` (a global array padded and device_put to the
+    even row split, in the JAX package). A target shard that is exactly a
+    source shard on its device is that tensor, not a copy. n: the result's
+    global length (default len(col))."""
+    src_len = col.shards[0].shape[0]
+    rest = tuple(col.shards[0].shape[1:])
+    out = []
+    for t, dev in enumerate(mesh.devices):
+        lo, hi = t * per_shard, (t + 1) * per_shard
+        pieces, pos = [], lo
+        while pos < hi:
+            if pos < len(col):
+                s, off = divmod(pos, src_len)
+                take = min(hi, len(col), (s + 1) * src_len) - pos
+                part = col.shards[s]
+                if take < src_len:
+                    part = part[off:off + take]
+                pieces.append(part.to(dev))
+                pos += take
+            else:
+                pieces.append(torch.full((hi - pos,) + rest, fill,
+                                         dtype=col.dtype, device=dev))
+                pos = hi
+        out.append(pieces[0].contiguous() if len(pieces) == 1 else
+                   torch.cat(pieces))
+    return ShardedColumn(out, mesh, len(col) if n is None else n)
+
+
 def process_index() -> int:
     """This controller's process index: 0, the port's meshes being
     single-controller."""
@@ -124,6 +213,12 @@ def process_index() -> int:
 def process_count() -> int:
     """Number of controller processes: 1."""
     return 1
+
+
+def device_process(device) -> int:
+    """The process that owns a device: 0."""
+    del device
+    return 0
 
 
 def local_devices(mesh: Mesh):

@@ -54,8 +54,9 @@ from pipelinedp_tpu_torch import input_validators
 from pipelinedp_tpu_torch import kernels
 from pipelinedp_tpu_torch.parallel import collectives
 from pipelinedp_tpu_torch.parallel import mesh as mesh_lib
-from pipelinedp_tpu_torch.parallel.mesh import (Mesh, host_fetch,
-                                                on_device, round_capacity,
+from pipelinedp_tpu_torch.parallel.mesh import (Mesh, ShardedColumn,
+                                                host_fetch, on_device,
+                                                round_capacity,
                                                 rows_per_shard)
 from pipelinedp_tpu_torch.runtime import telemetry as rt_telemetry
 from pipelinedp_tpu_torch.runtime import trace as rt_trace
@@ -81,8 +82,18 @@ def _pad_and_shard(mesh: Mesh, per_shard_cap: int, pid, pk, values,
     """Pads the device columns to D * per_shard_cap with invalid rows (pid
     0, pk -1, values 0) and splits them evenly: shard s gets rows
     [s * cap, (s + 1) * cap), on its device (a view where it already
-    lies there)."""
+    lies there). ShardedColumns (the pod ingest's) are split again in
+    their global row order; a shard already at its place stays where it
+    lies, as the JAX package passes an array already in this layout
+    through."""
     n_shards = mesh.size
+    if isinstance(pid, ShardedColumn):
+        cols = [None if col is None else
+                mesh_lib.resplit(col, mesh, per_shard_cap, fill).shards
+                for col, fill in ((pid, 0), (pk, -1), (values, 0),
+                                  (valid, False))]
+        return [tuple(None if c is None else c[s] for c in cols)
+                for s in range(n_shards)]
     pad = n_shards * per_shard_cap - pid.shape[0]
 
     def padded(col, fill):
@@ -218,9 +229,11 @@ def device_reshard_rows_by_pid(mesh: Mesh, pid, pk, values, valid,
 
 
 def _host_rows(pid, pk, values, valid):
-    """Host numpy copies or views of row columns given as numpy or
-    tensors."""
+    """Host numpy copies or views of row columns given as numpy, tensors
+    or ShardedColumns (their global rows)."""
     def host(col):
+        if isinstance(col, ShardedColumn):
+            return col.global_rows("cpu").numpy()
         return col.cpu().numpy() if isinstance(col, torch.Tensor) else \
             np.asarray(col)
     return host(pid), host(pk), None if values is None else host(values), \
@@ -235,17 +248,20 @@ def stage_rows_to_mesh(mesh: Mesh, pid, pk, values, valid,
     numpy or device tensors), one pid-co-located ShardRows a shard out.
 
     reshard:
-      * "auto": device-resident tensors take the device exchange (C22,
-        C23; rows never touch the host), host numpy takes the exact LPT
-        host permutation (it pays one upload either way);
-      * "host": the host permutation (device tensors are fetched first);
+      * "auto": device-resident tensors and ShardedColumns take the
+        device exchange (C22, C23; rows never touch the host), each shard
+        of a ShardedColumn counted and sent from where it lies; host
+        numpy takes the exact LPT host permutation (it pays one upload
+        either way);
+      * "host": the host permutation (device rows are fetched first; every
+        port mesh is fully addressable);
       * "device": the device exchange (host rows are uploaded to the
         gathering device first, unbalanced).
     values may be None (selection); dtype is the values' working float.
     A failed exchange raises: there is no host fallback.
     """
     input_validators.validate_reshard(reshard, "stage_rows_to_mesh")
-    device_resident = isinstance(pid, torch.Tensor)
+    device_resident = isinstance(pid, (torch.Tensor, ShardedColumn))
     use_device = reshard == "device" or (reshard == "auto" and
                                          device_resident)
     if use_device:
@@ -257,7 +273,9 @@ def stage_rows_to_mesh(mesh: Mesh, pid, pk, values, valid,
             if values is not None:
                 values = torch.as_tensor(values).to(dev)
         if values is not None and dtype is not None:
-            values = values.to(dtype)
+            values = (values.map(lambda t: t.to(dtype))
+                      if isinstance(values, ShardedColumn) else
+                      values.to(dtype))
         with rt_trace.span("reshard.collective"):
             return device_reshard_rows_by_pid(mesh, pid, pk, values, valid)
     from pipelinedp_tpu_torch.parallel import sharded

@@ -26,7 +26,14 @@ counts. The lane-batched entries (K24c) do the same for L jobs, each lane
 staged by its own host LPT permutation, through the lane entries of
 C1-C4, C6, C8 and C9: every spec the solo meshed release runs.
 
-Only the fused release is ported: the port has no unfused dense release.
+fused=False runs the unfused forms (the JAX package's _sharded_kernel
+and _sharded_select_kernel, :409-443): phase 2 without the compaction
+(C6), returning the dense [P] outputs and keep vector that
+executor.decode_results and np.nonzero decode.
+
+Rows may come as host numpy, device tensors or ShardedColumns (the pod
+ingest's, parallel/mesh.py): stage_rows_to_mesh exchanges the last from
+the shards where they lie.
 """
 
 import contextlib
@@ -183,13 +190,15 @@ def sharded_aggregate_arrays(mesh: Mesh, pid, pk, values, valid, min_v,
                              max_v, min_s, max_s, mid, stds: np.ndarray,
                              rng_key, cfg: executor.KernelConfig,
                              secure_tables=None, reshard: str = "auto",
-                             dtype: torch.dtype = torch.float32):
-    """The dense release over `mesh` (the JAX package's fused
-    sharded_aggregate_arrays, :505): rows in (host numpy or device
-    tensors, any length), staged by stage_rows_to_mesh, phase 1 a shard,
-    C21, phase 2 on the gathering device. secure_tables lie there too.
-    Returns (n_kept, order, outputs kept-first, flags), as
-    executor.aggregate_release_kernel."""
+                             dtype: torch.dtype = torch.float32,
+                             fused: bool = True):
+    """The dense release over `mesh` (the JAX package's
+    sharded_aggregate_arrays, :505): rows in (host numpy, device tensors
+    or ShardedColumns, any length), staged by stage_rows_to_mesh, phase 1
+    a shard, C21, phase 2 on the gathering device. secure_tables lie there
+    too. Returns (n_kept, order, outputs kept-first, flags), as
+    executor.aggregate_release_kernel, or with fused=False (outputs, keep,
+    flags), as executor.aggregate_kernel."""
     shards = stage_rows_to_mesh(mesh, pid, pk, values, valid, reshard,
                                 dtype)
     with _collective_launch(mesh), rt_trace.span("dispatch"), \
@@ -204,20 +213,23 @@ def sharded_aggregate_arrays(mesh: Mesh, pid, pk, values, valid, min_v,
             parts.append(cols)
             qrows.append(q)
         cols = _combine_partials(parts, mesh.device, cfg.numeric_mode)
-        return executor.release_columns(cols, qrows, min_v, max_v, mid, stds,
-                                        rng_key, cfg, dtype, secure_tables,
-                                        combine=_psum_counts(mesh))
+        release = (executor.release_columns if fused else
+                   executor.release_dense)
+        return release(cols, qrows, min_v, max_v, mid, stds, rng_key, cfg,
+                       dtype, secure_tables, combine=_psum_counts(mesh))
 
 
 def sharded_select_partitions(mesh: Mesh, pid, pk, valid, rng_key, l0: int,
                               n_partitions: int,
                               selection: selection_ops.SelectionParams,
                               reshard: str = "auto",
-                              dtype: torch.dtype = torch.float32):
-    """Standalone partition selection over `mesh` (the JAX package's fused
+                              dtype: torch.dtype = torch.float32,
+                              fused: bool = True):
+    """Standalone partition selection over `mesh` (the JAX package's
     sharded_select_partitions, :459): each shard counts its pairs under
     fold_in(key_l0, shard), C21 sums the counts, the keep decisions and
-    their compaction run once under key_sel. Returns (n_kept, order)."""
+    their compaction run once under key_sel. Returns (n_kept, order), or
+    with fused=False the keep vector bool[P]."""
     shards = stage_rows_to_mesh(mesh, pid, pk, None, valid, reshard)
     with _collective_launch(mesh), rt_trace.span("dispatch"), \
             on_device(mesh.device):
@@ -229,7 +241,9 @@ def sharded_select_partitions(mesh: Mesh, pid, pk, valid, rng_key, l0: int,
                     pid_s, pk_s, valid_s, threefry.fold_in(key_l0, s), l0,
                     n_partitions, dtype))
         cols = _combine_partials(parts, mesh.device)
-        return executor.select_release(cols, selection, key_sel)
+        release = (executor.select_release if fused else
+                   executor.select_keep)
+        return release(cols, selection, key_sel)
 
 
 def sharded_batched_release(mesh: Mesh, shards: Sequence[ShardRows], min_v,

@@ -346,6 +346,13 @@ class TorchBackend(LocalBackend):
         host), host rows take the exact load-balanced host permutation.
         "host" / "device" force one path. Unlike the JAX package's, a
         failed device exchange raises: there is no host fallback.
+      fused_release: run the dense routes through the fused release
+        (default True): selection, noise and kept-first compaction (C6)
+        on the device, then a scalar gate and O(kept) columns to the
+        host. False runs the unfused release (no C6): the dense [P]
+        outputs and keep vector come to the host and np.nonzero picks the
+        kept partitions, as TPUBackend(fused_release=False); the release
+        is the same. The megabatched service runs unfused jobs solo.
 
     The generic operations are LocalBackend's, seeded by noise_seed, as
     TPUBackend's are.
@@ -365,7 +372,8 @@ class TorchBackend(LocalBackend):
                  encode_threads: Optional[int] = None,
                  encode_mode: str = "host",
                  mesh=None,
-                 reshard: str = "auto"):
+                 reshard: str = "auto",
+                 fused_release: bool = True):
         super().__init__(seed=noise_seed)
         if device is None:
             if not torch.cuda.is_available():
@@ -398,6 +406,8 @@ class TorchBackend(LocalBackend):
                                                      "TorchBackend")
         input_validators.validate_encode_mode(encode_mode, "TorchBackend")
         input_validators.validate_reshard(reshard, "TorchBackend")
+        input_validators.validate_fused_release(fused_release,
+                                                "TorchBackend")
         if mesh is not None and mesh.device.type != device.type:
             raise ValueError(f"TorchBackend: the mesh's devices "
                              f"({mesh.device.type}) are not of the backend's "
@@ -416,6 +426,7 @@ class TorchBackend(LocalBackend):
         self.encode_mode = encode_mode
         self.mesh = mesh
         self.reshard = reshard
+        self.fused_release = fused_release
 
     def for_job(self, job_id: Optional[str] = None,
                 noise_seed: Optional[int] = None) -> "TorchBackend":
@@ -424,10 +435,10 @@ class TorchBackend(LocalBackend):
         backend for its lifetime and runs many jobs on it at once, each
         with its own noise seed. The view shares the device, the working
         dtype and every knob of the parent; noise_seed overrides where
-        given; the mesh and reshard mode are shared. job_id is accepted
-        for the reference's signature and is unused: the reference keys
-        its blocked route's journal by it, and the port has no such
-        journal yet (ROADMAP item 13)."""
+        given; the mesh, reshard mode and fused_release are shared.
+        job_id is accepted for the reference's signature and is unused:
+        the reference keys its blocked route's journal by it, and the port
+        has no such journal yet (ROADMAP item 13)."""
         del job_id
         return TorchBackend(
             device=self.device,
@@ -444,4 +455,5 @@ class TorchBackend(LocalBackend):
             encode_threads=self.encode_threads,
             encode_mode=self.encode_mode,
             mesh=self.mesh,
-            reshard=self.reshard)
+            reshard=self.reshard,
+            fused_release=self.fused_release)

@@ -84,6 +84,14 @@ REGISTRY: Dict[str, Metric] = {
                  "jobs settled CANCELLED (JobHandle.cancel() or a "
                  "deadline_s expiry): reservation released, nothing "
                  "charged, result withheld"),
+        _counter("pipeline_device_encode_chunks",
+                 "pod shards encoded through the hash-device route (keys "
+                 "hashed on the host, codes assigned on the device by "
+                 "device_encode.mesh_factorize_codes)"),
+        _counter("ingest_hash_collisions",
+                 "64-bit key-hash collisions the hash-device pod ingest's "
+                 "detector caught (each fell back to the exact host "
+                 "encoder or raised HashCollisionError)"),
         _counter("reshard_capacity_reuse",
                  "device reshards whose measured loads fit the cached "
                  "exchange capacities of their geometry "

@@ -263,8 +263,30 @@ last of all, on the same mesh:
              the one-process ingest
   4. unfused (a), (b) and a selection with fused_release=False == the
              fused release, one launch fewer (no C6), walls side by side
+The failure semantics and elastic meshes of the meshed drivers
+(runtime/retry.py, faults.py, entry.py) and K23c (parallel/mesh.py
+collective_heartbeat on C21's int32 entry) add, last of all:
+  2. kernels K23c's sum (kernels.heartbeat_sum) over card_mesh()'s 4 slots
+             == its plain version, beside stack.sum(0), and the whole
+             collective_heartbeat on the host clock
+  4. elastic on card_mesh(), rows on the card: (a)-shaped COUNT + SUM +
+             PRIVACY_ID_COUNT, public partitions, at the data's true
+             maxima on the 2^24 Netflix rows (dense), the same with
+             private selection on (q) with integer values (blocked) and
+             (q)'s selection: a
+             device_loss (block 2 on the blocked route) under elastic,
+             two losses, a loss down to one slot (the unsharded driver),
+             a grow 2 -> 4 (announce_join), dispatch / consume retries,
+             each == its unfaulted twin, walls beside it; (q) with
+             min_devices=3 past two losses raises MeshDegradationError
+             (health FAILED); (q) grown onto slots naming process 1 (the
+             admit's heartbeat launches C21); probe_live_devices over
+             slots naming process 1 (the heartbeat's route); the OOM
+             re-plan at 2^16 rows, card float64 against the CPU
 `python3 chip_smoke.py --mesh-all-cards` runs the build and the mesh
-phases alone on make_mesh(), one shard slot on every visible card.
+phases alone on make_mesh(), one shard slot on every visible card, and
+K23c's kernel check and route there; `python3 chip_smoke.py --elastic`
+the build, the data and the failure-semantics phases alone.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -404,6 +426,9 @@ def main() -> int:
     if "--mesh-all-cards" in sys.argv[1:]:
         return mesh_all_cards(torch, tdp, cuda_build, columnar, kernels,
                               card, t0)
+    if "--elastic" in sys.argv[1:]:
+        return elastic_only(torch, tdp, cuda_build, columnar, kernels, card,
+                            t0)
 
     # 1. build -------------------------------------------------------------
     build_s = cuda_build.build_all()
@@ -537,6 +562,11 @@ def main() -> int:
                   unfused_phase(torch, tdp, encoded, kernels, card)):
         for name, count in phase.items():
             launches[name] += count
+    # The failure semantics and elastic meshes, with K23c, last of all.
+    report += heartbeat_kernel_phase(torch, kernels, card)
+    for name, count in elastic_phase(torch, tdp, encoded, nmax, qenc, qmax,
+                                     kernels, card).items():
+        launches[name] += count
     for entry in report:
         entry["launches"] = launches[entry["name"]]
         print(f"kernel {entry['name']}: max_abs_err={entry['max_abs_err']} "
@@ -6162,6 +6192,34 @@ def mesh_all_cards(torch, tdp, cuda_build, columnar, kernels, card, t0):
     report += mb_report
     for name, count in mb_launches.items():
         launches[name] += count
+    report += heartbeat_kernel_phase(torch, kernels, card)
+    for name, count in heartbeat_route(torch, kernels, card).items():
+        launches[name] += count
+    for entry in report:
+        entry["launches"] = launches[entry["name"]]
+    print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(card)
+    print(json.dumps({"kernels": report}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def elastic_only(torch, tdp, cuda_build, columnar, kernels, card, t0):
+    """python3 chip_smoke.py --elastic: the build, the Netflix and (q)
+    data, and the failure-semantics phases alone (K23c's kernel check,
+    elastic_phase) on card_mesh()."""
+    print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
+          f"{cuda_build.build_all():.1f} s ({card})", flush=True)
+    rng = np.random.default_rng(SEED)
+    encoded = columnar.encode_columns(*netflix_rows(rng))
+    nmax = data_maxima(encoded.pid, encoded.pk, encoded.n_partitions)
+    qenc = columnar.encode_columns(*zipfish_rows())
+    qmax = data_maxima(qenc.pid, qenc.pk, qenc.n_partitions)
+    report = heartbeat_kernel_phase(torch, kernels, card)
+    launches = elastic_phase(torch, tdp, encoded, nmax, qenc, qmax, kernels,
+                             card)
     for entry in report:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -7693,6 +7751,342 @@ def unfused_phase(torch, tdp, encoded, kernels, card, reps=3):
               f"{[round(t * 1e3, 1) for t in walls[True]]} ms; {card})",
               flush=True)
     return total
+
+
+
+# ---------------------------------------------------------------------------
+# Failure semantics and elastic meshes (runtime/retry.py, faults.py,
+# entry.py) with K23c, parallel/mesh.collective_heartbeat on C21's int32
+# entry.
+
+HEARTBEAT_REPLACES = "pipelinedp_tpu/parallel/mesh.py:150"
+# (q) with integer values (floor of U[0, 5)): every partial sum is exact, so
+# a run on any mesh geometry releases bit for bit what the fixed one does.
+ELASTIC_RUNS = ("a", "q", "select q")
+
+
+def remote_slots(torch, mesh):
+    """The mesh's slots with the upper half naming process 1: the
+    heartbeat's route (probe_live_devices learns another process's slots
+    through collective_heartbeat)."""
+    from pipelinedp_tpu_torch.parallel.mesh import Slot
+    half = (mesh.size + 1) // 2
+    return [Slot(s.id, s.device, 0 if i < half else 1)
+            for i, s in enumerate(mesh.slots)]
+
+
+def heartbeat_kernel_phase(torch, kernels, card):
+    """K23c on card_mesh(): kernels.heartbeat_sum (C21's int32 entry over
+    the [D, 1] stack of ones) == its plain version on the card, its time
+    beside stack.sum(0), and the whole collective_heartbeat (D one-element
+    tensors, the gather, the launch, one scalar fetch) on the host clock.
+    Returns its kernels entry."""
+    from pipelinedp_tpu_torch.parallel import mesh as mesh_lib
+    mesh = card_mesh(torch)
+    d, dev = mesh.size, mesh.device
+    stack = torch.ones(d, 1, dtype=torch.int32, device=dev)
+    got = kernels.heartbeat_sum(stack)
+    err = check_equal("heartbeat_sum", got,
+                      kernels.combine_shards_plain(stack))
+    if int(got[0]) != d:
+        raise AssertionError(f"heartbeat_sum: {int(got[0])}, expected {d}")
+    ms = cuda_ms(lambda: kernels.heartbeat_sum(stack), 50)
+    plain_ms = cuda_ms(lambda: kernels.combine_shards_plain(stack), 20)
+    lib_ms = cuda_ms(lambda: stack.sum(0), 50)
+    b_ms, b_by = bound((d + 1) * 4, d - 1)
+    walls = []
+    for _ in range(20):
+        start = time.perf_counter()
+        live = mesh_lib.collective_heartbeat(list(mesh.slots))
+        walls.append((time.perf_counter() - start) * 1e3)
+    if {s.id for s in live} != set(mesh.ids):
+        raise AssertionError("collective_heartbeat: not every slot")
+    print(f"kernel collective_heartbeat[D={d}, int32 [{d}, 1], C21's int32 "
+          f"entry]: == plain; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.3g} ({b_by}) library_ms(stack.sum(0))="
+          f"{lib_ms:.4f}; the whole heartbeat (tensors, gather, launch, "
+          f"fetch) {statistics.median(walls):.4f} ms host clock, median of "
+          f"20 ({card})", flush=True)
+    return [dict(
+        name="collective_heartbeat", shape=f"D={d}, int32 [{d}, 1]",
+        route="cuda", source="pipelinedp_tpu_torch/csrc/combine_shards.cu",
+        replaces=HEARTBEAT_REPLACES, launches=0, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
+
+
+def heartbeat_route(torch, kernels, card):
+    """The heartbeat's route through probe_live_devices: card_mesh()'s
+    slots, the upper half naming process 1, no fault schedule and no
+    override, so collective_heartbeat launches C21. Returns the launch
+    counts."""
+    from pipelinedp_tpu_torch.parallel import mesh as mesh_lib
+    slots = remote_slots(torch, card_mesh(torch))
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    live = mesh_lib.probe_live_devices(slots)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = dict(kernels.launch_counts)
+    check_launches("heartbeat route", counts, kernels,
+                   dict(collective_heartbeat=1), ("collective_heartbeat",))
+    if live != slots:
+        raise AssertionError(f"probe_live_devices: {live} of {slots}")
+    print(f"elastic: probe_live_devices over {len(slots)} slots "
+          f"({sum(s.process_index == 1 for s in slots)} naming process 1), "
+          f"no schedule: all live, collective_heartbeat launched once, "
+          f"{seconds * 1e3:.3f} ms ({card})", flush=True)
+    return counts
+
+
+def elastic_phase(torch, tdp, netflix, nmax, qenc, qmax, kernels, card):
+    """The meshed drivers' failure semantics at full width, device staging
+    on card_mesh(): (a)-shaped COUNT+SUM+PRIVACY_ID_COUNT over (a)'s
+    public partitions at the data's true per-user maxima (so pass 1 drops
+    no row and every geometry bounds alike) on the 2^24 Netflix rows
+    (dense), the same spec with private selection on (q) with integer
+    values (blocked) and (q)'s selection at l0 = its largest partitions
+    per id: a device_loss (block 2 on the
+    blocked route) under elastic=True, two losses, a loss down to one slot
+    (the unsharded driver on the card), min_devices=3 past two losses
+    (MeshDegradationError, health FAILED), an announce_join grow from 2
+    slots to 4 (and onto slots naming process 1: the admit's heartbeat),
+    dispatch / consume retries: each == its unfaulted twin (==), walls
+    side by side. Then the heartbeat's route and the OOM re-plan at a
+    small size against TorchBackend(device="cpu"). Returns the launch
+    counts summed over the runs."""
+    import dataclasses
+    from pipelinedp_tpu_torch.parallel.mesh import Slot
+    from pipelinedp_tpu_torch.runtime import faults, health, retry
+    from pipelinedp_tpu_torch.runtime import telemetry
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    mesh = card_mesh(torch)
+    dev, d = mesh.device, mesh.size
+    fast = retry.RetryPolicy(base_delay=0.0, max_delay=0.0)
+    M = tdp.Metrics
+
+    def on_card(enc, values=None):
+        return dataclasses.replace(
+            enc, pid=torch.as_tensor(enc.pid).to(dev),
+            pk=torch.as_tensor(enc.pk).to(dev),
+            values=torch.as_tensor(enc.values if values is None else
+                                   values).to(dev, torch.float32))
+
+    q_card = on_card(qenc, np.floor(qenc.values))
+    data = {"a": (on_card(netflix), nmax, False),
+            "q": (q_card, qmax, True),
+            "select q": (q_card, qmax, True)}
+
+    def run(label, mesh_, schedule=(), announce=None, want_error=None,
+            **backend):
+        enc, maxima, blocked = data[label]
+        kw = dict(large_partition_threshold=1 << 21, block_partitions=1 << 20)
+        acc = tdp.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        engine = tdp.DPEngine(acc, tdp.TorchBackend(
+            noise_seed=14, mesh=mesh_, reshard="device", **kw, **backend))
+        if label == "select q":
+            res = engine.select_partitions(enc, tdp.SelectPartitionsParams(
+                max_partitions_contributed=maxima[0]), tdp.DataExtractors())
+        else:
+            res = engine.aggregate(enc, tdp.AggregateParams(
+                metrics=[M.COUNT, M.SUM, M.PRIVACY_ID_COUNT],
+                noise_kind=tdp.NoiseKind.LAPLACE,
+                max_partitions_contributed=maxima[0],
+                max_contributions_per_partition=maxima[1], min_value=0.0,
+                max_value=5.0), tdp.DataExtractors(),
+                None if blocked else list(enc.partition_vocab))
+        acc.compute_budgets()
+        sched = faults.FaultSchedule([faults.Fault(**f) for f in schedule])
+        if announce is not None:
+            retry.announce_join(**announce)
+        kernels.reset_launch_counts()
+        before = telemetry.snapshot()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            # An active schedule, even an empty one, is the probe's oracle
+            # of other processes' slots: none without faults.
+            with (faults.inject(sched) if schedule else
+                  contextlib.nullcontext()):
+                out = sorted(res) if label == "select q" else dict(res)
+        except Exception as e:  # noqa: BLE001 - the check names the class
+            if want_error is None or not isinstance(e, want_error):
+                raise
+            out = e
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        if sched.pending() or (announce is not None and
+                               retry.pending_joins()):
+            raise AssertionError(f"elastic ({label}): a fault or a join "
+                                 f"ticket did not fire")
+        if want_error is not None and not isinstance(out, want_error):
+            raise AssertionError(f"elastic ({label}): no "
+                                 f"{want_error.__name__}")
+        counts = dict(kernels.launch_counts)
+        for name, c in counts.items():
+            total[name] += c
+        if want_error is None and (not out or (label != "select q" and not all(
+                np.all(np.isfinite(v)) for v in out.values()))):
+            raise AssertionError(f"elastic ({label}): {len(out)} partitions "
+                                 f"or a non-finite value")
+        return out, seconds, telemetry.delta(before), counts
+
+    retry.clear_joins()
+    for label in ELASTIC_RUNS:
+        blocked = data[label][2]
+        # Twice: the second, warm, run is the unfaulted wall.
+        base, _, _, counts = run(label, mesh)
+        again, base_s, _, _ = run(label, mesh)
+        if again != base:
+            raise AssertionError(f"elastic ({label}): two unfaulted runs "
+                                 f"differ")
+        check_launches(f"elastic ({label}) unfaulted", counts, kernels,
+                       None, MESH_BLOCKED_EXCHANGE if blocked else
+                       EXCHANGE_PATH)
+        loss_block = 2 if blocked else None
+        cases = [
+            ("device_loss", mesh, [dict(kind="device_loss", point="dispatch",
+                                        block=loss_block)],
+             dict(elastic=True, retry=fast, job_id=f"elastic-{label}"),
+             dict(device_losses=1, mesh_degradations=1), (d, d - 1)),
+            ("two losses", mesh, [dict(kind="device_loss", point="dispatch",
+                                       times=2)],
+             dict(elastic=True, retry=fast, job_id=f"elastic2-{label}"),
+             dict(device_losses=2, mesh_degradations=2), (d, d - 2)),
+            ("loss to one slot", card_mesh(torch, 2),
+             [dict(kind="device_loss", point="dispatch")],
+             dict(elastic=True, retry=fast, job_id=f"elastic1-{label}"),
+             dict(device_losses=1, mesh_degradations=1), (2, 1)),
+            ("grow 2 -> 4", card_mesh(torch, 2), [],
+             dict(elastic_grow=True, retry=fast, job_id=f"grow-{label}"),
+             dict(mesh_expansions=1), (4, 4)),
+            ("retries", mesh, [dict(kind="dispatch", block=1 if blocked
+                                    else None, times=2)] + (
+                [dict(kind="consume", block=3)] if blocked else []),
+             dict(retry=fast, job_id=f"retry-{label}"),
+             dict(block_retries=3 if blocked else 2), None),
+        ]
+        for name, mesh_, schedule, backend, want, devices in cases:
+            announce = (dict(n_devices=4, block=2 if blocked else 0)
+                        if name.startswith("grow") else None)
+            out, seconds, delta, _ = run(label, mesh_, schedule, announce,
+                                         **backend)
+            if out != base:
+                raise AssertionError(f"elastic ({label}, {name}): the "
+                                     f"release differs from the unfaulted "
+                                     f"run")
+            for key, n in want.items():
+                if delta.get(key, 0) != n:
+                    raise AssertionError(f"elastic ({label}, {name}): {key} "
+                                         f"{delta.get(key, 0)}, expected {n}")
+            snap = health.for_job(backend["job_id"]).snapshot()
+            if devices is not None and (snap["planned_devices"],
+                                        snap["live_devices"]) != devices:
+                raise AssertionError(f"elastic ({label}, {name}): health "
+                                     f"{snap}")
+            print(f"elastic ({label}) {name}: {len(out)} partitions == the "
+                  f"unfaulted run; wall {seconds * 1e3:.1f} ms against "
+                  f"{base_s * 1e3:.1f} ms unfaulted; health "
+                  f"{snap['state']}, planned {snap['planned_devices']}, "
+                  f"live {snap['live_devices']}; telemetry "
+                  f"{json.dumps({k: delta[k] for k in sorted(delta)})} "
+                  f"({card})", flush=True)
+        if label == "q":
+            job = "elastic-floor-q"
+            err, seconds, _, _ = run(
+                label, mesh, [dict(kind="device_loss", point="dispatch",
+                                   times=2)],
+                want_error=retry.MeshDegradationError, elastic=True,
+                min_devices=3, retry=fast, job_id=job)
+            snap = health.for_job(job).snapshot()
+            if job not in str(err) or snap["state"] != "FAILED":
+                raise AssertionError(f"elastic (q, min_devices=3): {err}; "
+                                     f"health {snap['state']}")
+            print(f"elastic (q) min_devices=3, two losses: "
+                  f"MeshDegradationError naming {job!r}, health FAILED "
+                  f"(live {snap['live_devices']}), in {seconds * 1e3:.1f} ms "
+                  f"({card})", flush=True)
+            two = card_mesh(torch, 2)
+            joiners = [Slot(2, dev, 1), Slot(3, dev, 1)]
+            out, seconds, delta, counts = run(
+                label, two, announce=dict(devices=joiners, block=2),
+                elastic_grow=True, retry=fast, job_id="grow-remote-q")
+            if out != base or counts["collective_heartbeat"] != 1 or \
+                    delta.get("mesh_expansions") != 1:
+                raise AssertionError(f"elastic (q) grow onto process-1 "
+                                     f"slots: == {out == base}, heartbeat "
+                                     f"{counts['collective_heartbeat']}")
+            print(f"elastic (q) grow 2 -> 4 onto slots naming process 1: "
+                  f"the admit's probe ran collective_heartbeat (C21 once); "
+                  f"== the unfaulted run; wall {seconds * 1e3:.1f} ms "
+                  f"({card})", flush=True)
+    for name, count in heartbeat_route(torch, kernels, card).items():
+        total[name] += count
+    elastic_oom_parity(torch, tdp, card)
+    return total
+
+
+def elastic_oom_parity(torch, tdp, card):
+    """The OOM re-plan at a small size: a blocked aggregation and a
+    selection (2^16 rows, P ~ 4000, blocks of 512) with Fault("oom",
+    block=2) on the card in float64 against TorchBackend(device="cpu")
+    with the same seed and schedule: the same partitions, values within
+    1e-9 of max(1, |x|), one block_oom_degradations each. (The re-planned
+    blocks draw fresh keys, so the faulted release is not the unfaulted
+    one.)"""
+    from pipelinedp_tpu_torch.runtime import faults, telemetry
+    rng = np.random.default_rng(SEED + 14)
+    n = 1 << 16
+    rows = list(zip(rng.integers(0, 3000, n).tolist(),
+                    (rng.random(n)**3 * 4000).astype(int).tolist(),
+                    rng.integers(0, 6, n).astype(float).tolist()))
+    ex = tdp.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                            partition_extractor=lambda r: r[1],
+                            value_extractor=lambda r: r[2])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        for kind in ("aggregate", "select"):
+            backend = tdp.TorchBackend(
+                device=device, dtype=torch.float64, noise_seed=3,
+                large_partition_threshold=1024, block_partitions=512)
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=4.0,
+                                            total_delta=1e-6)
+            engine = tdp.DPEngine(acc, backend)
+            if kind == "aggregate":
+                res = engine.aggregate(rows, tdp.AggregateParams(
+                    metrics=[tdp.Metrics.COUNT, tdp.Metrics.SUM],
+                    noise_kind=tdp.NoiseKind.LAPLACE,
+                    max_partitions_contributed=4,
+                    max_contributions_per_partition=2, min_value=0.0,
+                    max_value=5.0), ex)
+            else:
+                res = engine.select_partitions(
+                    rows, tdp.SelectPartitionsParams(
+                        max_partitions_contributed=4), ex)
+            acc.compute_budgets()
+            sched = faults.FaultSchedule([faults.Fault("oom", block=2)])
+            before = telemetry.snapshot()
+            with faults.inject(sched):
+                out = dict(res) if kind == "aggregate" else sorted(res)
+            got = telemetry.delta(before).get("block_oom_degradations",
+                                              0)
+            if got != 1 or sched.pending():
+                raise AssertionError(f"elastic OOM ({device}, {kind}): "
+                                     f"{got} degradations")
+            outs[device, kind] = out
+    for kind in ("aggregate", "select"):
+        card_out, cpu_out = outs["cuda", kind], outs["cpu", kind]
+        if kind == "select":
+            same = card_out == cpu_out
+        else:
+            same = set(card_out) == set(cpu_out) and all(
+                abs(a - b) <= 1e-9 * max(1.0, abs(b))
+                for k in card_out for a, b in zip(card_out[k], cpu_out[k]))
+        if not same or not card_out:
+            raise AssertionError(f"elastic OOM re-plan ({kind}): the card "
+                                 f"and the CPU differ")
+        print(f"elastic OOM re-plan ({kind}, 2^16 rows, blocks of 512 -> "
+              f"256 from block 2): card float64 == CPU within 1e-9, "
+              f"{len(card_out)} partitions ({card})", flush=True)
 
 
 if __name__ == "__main__":

@@ -1248,7 +1248,8 @@ def lazy_aggregate(backend, col, params: AggregateParams, data_extractors,
                 result = sharded.sharded_aggregate_arrays(
                     backend.mesh, *rows, min_v, max_v, min_s, max_s, mid,
                     stds, key, cfg, secure_tables, reshard=backend.reshard,
-                    dtype=backend.dtype, fused=backend.fused_release)
+                    dtype=backend.dtype, fused=backend.fused_release,
+                    **runtime_kwargs(backend))
             elif result is None:
                 pid, pk, values, valid = padded_to_device(
                     *rows, backend.device, backend.dtype)
@@ -1617,7 +1618,7 @@ def lazy_select_partitions(backend, col, params, data_extractors,
                     backend.mesh, rows[0], rows[1], rows[3], key,
                     params.max_partitions_contributed, n_partitions,
                     selection, reshard=backend.reshard, dtype=backend.dtype,
-                    fused=backend.fused_release)
+                    fused=backend.fused_release, **runtime_kwargs(backend))
             elif result is None:
                 pid, pk, _, valid = padded_to_device(*rows, backend.device,
                                                      backend.dtype)
@@ -1638,11 +1639,32 @@ def lazy_select_partitions(backend, col, params, data_extractors,
     return generator()
 
 
+def runtime_kwargs(backend) -> Dict[str, Any]:
+    """The runtime knobs a TorchBackend threads into the meshed and
+    blocked drivers (runtime/entry.py), as the JAX package's
+    _blocked_runtime_kwargs / _dense_runtime_kwargs do: retry and job_id,
+    and on a mesh elastic, elastic_grow and min_devices (the unsharded
+    drivers already run at the one-device floor)."""
+    kwargs = dict(retry=getattr(backend, "retry", None))
+    job_id = getattr(backend, "job_id", None)
+    if job_id is not None:
+        kwargs["job_id"] = job_id
+    if getattr(backend, "mesh", None) is not None:
+        if getattr(backend, "elastic", False):
+            kwargs["elastic"] = True
+        if getattr(backend, "elastic_grow", False):
+            kwargs["elastic_grow"] = True
+        min_devices = getattr(backend, "min_devices", 1)
+        if min_devices != 1:
+            kwargs["min_devices"] = min_devices
+    return kwargs
+
+
 def blocked_kwargs(backend) -> Dict[str, Any]:
     """The blocked entry points' keyword arguments from a TorchBackend: its
-    working dtype, its device (a meshed backend's devices are its mesh's)
-    and, where set, block_partitions."""
-    kwargs = dict(dtype=backend.dtype)
+    working dtype, its device (a meshed backend's devices are its mesh's),
+    block_partitions where set, and the runtime knobs (runtime_kwargs)."""
+    kwargs = dict(dtype=backend.dtype, **runtime_kwargs(backend))
     if backend.mesh is None:
         kwargs["device"] = backend.device
     if backend.block_partitions is not None:

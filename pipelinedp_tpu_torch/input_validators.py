@@ -1,6 +1,7 @@
 """Input validation helpers of the port (pipelinedp_tpu/input_validators.py:
 the validators the aggregation paths, the streamed ingest, TorchBackend,
-the watchdog and the multi-tenant service call)."""
+the runtime entry of the meshed and blocked drivers, the watchdog and the
+multi-tenant service call)."""
 
 import math
 import numbers
@@ -207,7 +208,7 @@ def validate_job_id(job_id, obj_name: str) -> None:
         raise ValueError(f"{obj_name}: job_id must be a string, but "
                          f"{type(job_id).__name__} given.")
     if not job_id.strip():
-        raise ValueError(f"{obj_name}: job_id must be non-empty - it keys "
+        raise ValueError(f"{obj_name}: job_id must be non-empty — it keys "
                          f"this job's journal records; pass a stable "
                          f"identifier (or None to derive one from the "
                          f"kernel config).")
@@ -436,3 +437,85 @@ def validate_fused_release(fused_release, obj_name: str) -> None:
             f"{fused_release!r} given (True compacts the kept partitions "
             f"on the device, with an O(kept) drain; outputs are the same "
             f"either way).")
+
+
+def validate_elastic(elastic, obj_name: str) -> None:
+    """Validates the elastic mesh-degradation switch: a plain bool.
+
+    Raises:
+        ValueError: elastic is not a bool (a truthy non-bool — say a
+        mesh or a device count passed by mistake — would silently enable
+        or disable device-loss tolerance).
+    """
+    if not isinstance(elastic, bool):
+        raise ValueError(f"{obj_name}: elastic must be a bool, but "
+                         f"{elastic!r} given (True enables device-loss "
+                         f"mesh degradation on the meshed drivers).")
+
+
+def validate_elastic_grow(elastic_grow, obj_name: str) -> None:
+    """Validates the elastic scale-UP switch: a plain bool.
+
+    Raises:
+        ValueError: elastic_grow is not a bool (a truthy non-bool — say
+        a device list passed by mistake — would silently enable or
+        disable join admission).
+    """
+    if not isinstance(elastic_grow, bool):
+        raise ValueError(
+            f"{obj_name}: elastic_grow must be a bool, but "
+            f"{elastic_grow!r} given (True lets the meshed drivers admit "
+            f"announced join candidates at block boundaries and grow the "
+            f"mesh — shrink tolerance included, so it implies elastic).")
+
+
+def validate_min_devices(min_devices, obj_name: str) -> None:
+    """Validates the elastic degradation floor: an integer >= 1.
+
+    Raises:
+        ValueError: min_devices is not a positive integer.
+    """
+    if (not isinstance(min_devices, numbers.Number) or
+            isinstance(min_devices, bool) or
+            min_devices != int(min_devices) or min_devices < 1):
+        raise ValueError(
+            f"{obj_name}: min_devices must be an integer >= 1, but "
+            f"{min_devices!r} given — it is the device count below which "
+            f"an elastic run refuses to degrade further and fails with a "
+            f"resume pointer instead.")
+
+
+def validate_retry_policy(retry, obj_name: str) -> None:
+    """Validates a runtime.RetryPolicy-shaped object's budgets.
+
+    Raises:
+        ValueError: negative max_retries, or negative/NaN delays.
+    """
+    max_retries = getattr(retry, "max_retries", None)
+    if (not isinstance(max_retries, numbers.Number) or
+            isinstance(max_retries, bool) or max_retries < 0 or
+            max_retries != int(max_retries)):
+        raise ValueError(
+            f"{obj_name}: retry.max_retries must be a non-negative "
+            f"integer, but {max_retries!r} given (0 disables retries; "
+            f"use None for the retry= knob itself to take the default "
+            f"policy).")
+    for field in ("base_delay", "max_delay"):
+        v = getattr(retry, field, 0.0)
+        if (not isinstance(v, numbers.Number) or isinstance(v, bool) or
+                math.isnan(v) or v < 0):
+            raise ValueError(f"{obj_name}: retry.{field} must be a "
+                             f"non-negative number of seconds, but "
+                             f"{v!r} given.")
+    budget = getattr(retry, "max_total_retries", None)
+    if budget is not None and (
+            not isinstance(budget, numbers.Number) or
+            isinstance(budget, bool) or budget < 0 or
+            budget != int(budget)):
+        raise ValueError(
+            f"{obj_name}: retry.max_total_retries must be None (no "
+            f"per-job budget) or a non-negative integer, but "
+            f"{budget!r} given — it caps the job's TOTAL transient "
+            f"retries across every seam (dispatch retry, reshard "
+            f"fallback, host fetch), so composed faults cannot spiral "
+            f"one job into a retry storm.")

@@ -47,7 +47,11 @@ their plain PyTorch versions.
                                                      rows, bucket sums
     C21 combine_shards    csrc/combine_shards.cu     the cross-shard sum of a
                                                      [D, M] stack of partials
-                                                     (plain; compensated)
+                                                     (plain; compensated); its
+                                                     int32 entry is K23c's
+                                                     heartbeat sum
+                                                     (heartbeat_sum, counted
+                                                     collective_heartbeat)
     C22 reshard_count     csrc/reshard_count.cu      destination shard, send
                                                      counts and stable rank of
                                                      every row
@@ -137,7 +141,8 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "reduce_partitions_vector_lanes", "release_epilogue_secure_lanes",
            "quantile_descend_lanes", "quantile_descend_secure_lanes",
            "vector_release_lanes", "vector_release_secure_lanes",
-           "mesh_local_uniques", "mesh_merge_ranks", "mesh_remap_rows")
+           "mesh_local_uniques", "mesh_merge_ranks", "mesh_remap_rows",
+           "collective_heartbeat")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -3261,6 +3266,29 @@ def combine_shards(stack: torch.Tensor,
                          f"{n_shards}")
     if not _on_cuda(stack):
         return combine_shards_plain(stack, compensated)
+    return _combine_launch(stack, compensated, "combine_shards_compensated"
+                           if compensated else "combine_shards")
+
+
+def heartbeat_sum(stack: torch.Tensor) -> torch.Tensor:
+    """K23c's sum (parallel/mesh.collective_heartbeat): C21's int32 entry
+    over the [D, 1] stack of the slots' ones, int32[1]. The same launch as
+    combine_shards(stack), counted as collective_heartbeat."""
+    if stack.dim() != 2 or stack.dtype != torch.int32 or \
+            stack.shape[1] != 1 or not 1 <= stack.shape[0] <= 64 or \
+            not stack.is_contiguous():
+        raise ValueError(f"heartbeat_sum: expected a contiguous int32 "
+                         f"[1 <= D <= 64, 1] stack, got "
+                         f"{stack.dtype}{list(stack.shape)}")
+    if not _on_cuda(stack):
+        return combine_shards_plain(stack)
+    return _combine_launch(stack, False, "collective_heartbeat")
+
+
+def _combine_launch(stack: torch.Tensor, compensated: bool,
+                    name: str) -> torch.Tensor:
+    """One C21 launch over a validated CUDA stack, counted as `name`."""
+    n_shards, m = stack.shape
     dev = stack.device
     out = torch.empty(m, dtype=stack.dtype, device=dev)
     lib = cuda_build.library("combine_shards")
@@ -3271,7 +3299,6 @@ def combine_shards(stack: torch.Tensor,
         status = lib.combine_shards(_ptr(stack), n_shards, m,
                                     _COMBINE_CODES[stack.dtype], _ptr(out),
                                     _stream(dev))
-    name = "combine_shards_compensated" if compensated else "combine_shards"
     _raise_on(status, name)
     _count(name)
     return out

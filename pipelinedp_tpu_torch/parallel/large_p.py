@@ -55,12 +55,21 @@ columns onto the mesh's first device, and the release (C4, C7 / C8 with
 each level's counts summed by C21, C9, C6) runs there once. A D = 1 mesh
 releases what the unmeshed route releases, bit for bit.
 
-Not ported yet: the failure-semantics knobs of the JAX functions (retry,
-journal, watchdog, the overlapped drainer; ROADMAP.md Queue 1 step 4 with
-the OOM re-plan of run_with_degradation) and their host fallbacks: a
-failed launch, copy or combine raises. Every driver keeps the
-run_range(base, capacity, generation, end) shape and _block_noise_key's
-generations, so a re-plan slots in.
+Failure semantics (runtime/retry.py, runtime/faults.py, runtime/entry.py;
+the JAX package's, for every driver here): each block's launches run
+under retry.retry_call (transient failures re-launch the same closure, so
+the same block key); a transient failure at the block's host sync
+re-dispatches the block under the same key; an OOM (after the earlier
+in-flight blocks are consumed) becomes BlockOOMError, and
+retry.run_with_degradation halves the block capacity and re-plans the
+rest of the range under the next generation of _block_noise_key. Every
+driver enters through runtime_entry (job health scope, retry budgets);
+with elastic=True or elastic_grow=True the meshed two run in the elastic
+loop, which re-enters them on a rebuilt mesh after a device loss or a
+join, and at one slot runs the unsharded driver on that slot's device.
+Not ported yet (ROADMAP.md Queue 1 step 4): the block journal (journal=,
+the replay of consumed blocks), the watchdog (timeout_s=, watchdog=) and
+the overlapped drainer (overlap=); they raise NotImplementedError.
 """
 
 import dataclasses
@@ -83,6 +92,10 @@ from pipelinedp_tpu_torch.parallel import sharded
 from pipelinedp_tpu_torch.parallel.mesh import (Mesh, ShardedColumn,
                                                 host_fetch, on_device)
 from pipelinedp_tpu_torch.parallel.reshard import stage_rows_to_mesh
+from pipelinedp_tpu_torch.runtime import entry as rt_entry
+from pipelinedp_tpu_torch.runtime import faults as rt_faults
+from pipelinedp_tpu_torch.runtime import retry as rt_retry
+from pipelinedp_tpu_torch.runtime import telemetry as rt_telemetry
 # Blocks in flight at once: each pins its O(C) outputs on the device until
 # the host has read its gate; the streamed ingest's staging window shares
 # the depth.
@@ -207,20 +220,90 @@ class _BlockResult:
 
 
 def _dispatch_blocks(block_iter, consume,
-                     max_in_flight: int = PIPELINE_DEPTH) -> int:
+                     max_in_flight: int = PIPELINE_DEPTH,
+                     retry_policy: Optional[rt_retry.RetryPolicy] = None
+                     ) -> int:
     """Issues every block of block_iter ((j, make) pairs, make() launching
-    block j) with at most max_in_flight dispatched and not yet consumed;
-    consume(j, result) reads block j's gate and stages its drain, oldest
-    first. Returns the number of blocks dispatched."""
+    block j and re-invokable: it derives its own block key) with at most
+    max_in_flight dispatched and not yet consumed; consume(j, result)
+    reads block j's gate and stages its drain, oldest first (the JAX
+    package's _dispatch_blocks, :299).
+
+    Each dispatch runs under retry.retry_call. Before consume, the block's
+    gate copy is waited on, the sync point where an asynchronous launch
+    failure surfaces; a transient failure there re-dispatches the block
+    under the same key. An OOM-classified failure (or an exhausted
+    deadline) at dispatch or at the sync becomes BlockOOMError(j) once
+    every earlier in-flight block is consumed, so the caller re-plans from
+    block j. Returns the number of blocks dispatched."""
+    policy = retry_policy or rt_retry.DEFAULT_POLICY
     pending = deque()
     n_dispatched = 0
+
+    def start(j, make):
+        result = rt_retry.retry_call(make, policy, block=j)
+        rt_telemetry.record("release_dispatches", block=j)
+        return result
+
+    def consume_one(j, result, make):
+        attempt = 0
+        while True:
+            try:
+                rt_faults.maybe_fail("consume", j)
+                result.gate.wait()
+                break
+            except Exception as e:  # noqa: BLE001 - classified below
+                if (not rt_retry.is_transient(e) or
+                        attempt >= policy.max_retries):
+                    raise
+                delay = policy.delay(attempt)
+                attempt += 1
+                if rt_retry.is_timeout(e):
+                    rt_telemetry.record("block_timeouts", block=j)
+                rt_telemetry.record("block_retries", block=j)
+                logging.warning(
+                    "block %d failed at its sync point (%s); re-dispatching "
+                    "under the same block key (retry %d/%d in %.2fs) — "
+                    "noise is bit-identical, no second release", j,
+                    type(e).__name__, attempt, policy.max_retries, delay)
+                time.sleep(delay)
+                result = start(j, make)
+        consume(j, result)
+
+    def degradable(err):
+        return rt_retry.is_oom(err) or rt_retry.is_timeout(err)
+
+    def consume_or_oom(j, result, make):
+        try:
+            consume_one(j, result, make)
+        except Exception as err:  # noqa: BLE001 - degradable -> BlockOOMError, the rest re-raise
+            if degradable(err):
+                raise rt_retry.BlockOOMError(j, err) from err
+            raise
+
     for j, make in block_iter:
-        pending.append((j, make()))
         n_dispatched += 1
+        try:
+            result = start(j, make)
+        except Exception as err:  # noqa: BLE001 - classified after the in-flight drain
+            # Consume the earlier in-flight blocks first, so a re-plan
+            # continues from this block. A secondary failure must not
+            # mask the original error.
+            try:
+                while pending:
+                    consume_one(*pending.popleft())
+            except Exception:  # noqa: BLE001 - the original error wins
+                logging.exception(
+                    "draining in-flight blocks after a dispatch failure "
+                    "itself failed; earlier results may be incomplete")
+            if degradable(err):
+                raise rt_retry.BlockOOMError(j, err) from err
+            raise
+        pending.append((j, result, make))
         if len(pending) >= max_in_flight:
-            consume(*pending.popleft())
+            consume_or_oom(*pending.popleft())
     while pending:
-        consume(*pending.popleft())
+        consume_or_oom(*pending.popleft())
     return n_dispatched
 
 
@@ -430,13 +513,16 @@ def _n_blocks(base: int, capacity: int, end: int) -> int:
 
 
 def _select_range(n_partitions: int, capacity0: int, offsets_of, launch,
-                  key_sel) -> np.ndarray:
-    """Pass 2 of a blocked selection over [0, n_partitions), as
-    run_range(0, capacity0, 0, n_partitions): offsets_of(base, capacity,
-    generation, n_blocks, end) gives the blocks' windows in the S streams
-    as int64[S, n_blocks + 1]; launch(lo[S], hi[S], b_base, c_actual, key)
-    dispatches one block with a kept pair in some window, under its block
-    key. Returns the kept ids, int64 ascending."""
+                  key_sel, retry: Optional[rt_retry.RetryPolicy] = None
+                  ) -> np.ndarray:
+    """Pass 2 of a blocked selection over [0, n_partitions), in
+    run_range(base, capacity, generation, end) ranges driven by
+    retry.run_with_degradation (first range (0, capacity0, 0, P)):
+    offsets_of(base, capacity, generation, n_blocks, end) gives the
+    blocks' windows in the S streams as int64[S, n_blocks + 1];
+    launch(lo[S], hi[S], b_base, c_actual, key) dispatches one block with
+    a kept pair in some window, under its block key. Returns the kept
+    ids, int64 ascending."""
     kept_ids: List[np.ndarray] = []
     drain = _StagedDrain()
 
@@ -463,9 +549,9 @@ def _select_range(n_partitions: int, capacity0: int, offsets_of, launch,
                     launch, lo, hi, b_base, min(capacity, end - b_base),
                     _block_noise_key(key_sel, generation, j))
 
-        _dispatch_blocks(block_iter(), consume)
+        _dispatch_blocks(block_iter(), consume, retry_policy=retry)
 
-    run_range(0, capacity0, 0, n_partitions)
+    rt_retry.run_with_degradation(run_range, n_partitions, capacity0)
     drain.materialize()
     # Blocks are consumed in order and each block's kept ids come
     # ascending (C6 is stable): the concatenation is ascending.
@@ -475,10 +561,12 @@ def _select_range(n_partitions: int, capacity0: int, offsets_of, launch,
 
 def _aggregate_range(cfg: executor.KernelConfig, capacity0: int, offsets_of,
                      launch, final_key, context: str,
-                     phase_times: Optional[dict]
+                     phase_times: Optional[dict],
+                     retry: Optional[rt_retry.RetryPolicy] = None
                      ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-    """Pass 2 of a blocked aggregation over [0, cfg.n_partitions), as
-    run_range(0, capacity0, 0, P): offsets_of as _select_range's;
+    """Pass 2 of a blocked aggregation over [0, cfg.n_partitions), in
+    run_range ranges driven by retry.run_with_degradation (first range
+    (0, capacity0, 0, P)): offsets_of as _select_range's;
     launch(lo[S], hi[S], b_base, key, cfg_block) dispatches one block.
     Each block's flag word is checked (numeric.check_release, context
     naming the block) before any of its values is kept. phase_times
@@ -536,10 +624,11 @@ def _aggregate_range(cfg: executor.KernelConfig, capacity0: int, offsets_of,
                 yield j, functools.partial(dispatch, j, b_base,
                                            min(capacity, end - b_base))
 
-        n_dispatched += _dispatch_blocks(block_iter(), consume)
+        n_dispatched += _dispatch_blocks(block_iter(), consume,
+                                         retry_policy=retry)
 
     t2 = time.perf_counter()
-    run_range(0, capacity0, 0, cfg.n_partitions)
+    rt_retry.run_with_degradation(run_range, cfg.n_partitions, capacity0)
     td = time.perf_counter()
     drain.materialize()
     if phase_times is not None:
@@ -556,11 +645,13 @@ def _aggregate_range(cfg: executor.KernelConfig, capacity0: int, offsets_of,
     }
 
 
+@rt_entry.runtime_entry("select_partitions_blocked")
 def select_partitions_blocked(pid, pk, valid, rng_key, l0: int,
                               n_partitions: int, selection, *,
                               block_partitions: int = 1 << 20,
                               device=None,
-                              dtype: Optional[torch.dtype] = None
+                              dtype: Optional[torch.dtype] = None,
+                              retry: Optional[rt_retry.RetryPolicy] = None
                               ) -> np.ndarray:
     """Standalone DP partition selection over a huge partition space.
 
@@ -570,7 +661,9 @@ def select_partitions_blocked(pid, pk, valid, rng_key, l0: int,
     block_partitions partitions with a kept pair draws its keep decisions
     and sends only its kept ids to the host. device / dtype: where the
     kernels run and the float width of the keep probabilities (defaults
-    as _placement). Returns kept_partition_ids int64[M], ascending.
+    as _placement). retry: the RetryPolicy of the block dispatches
+    (default retry.DEFAULT_POLICY); the runtime entry also takes job_id=.
+    Returns kept_partition_ids int64[M], ascending.
     """
     P = n_partitions
     key_l0, key_sel = executor.select_key_schedule(rng_key)
@@ -587,9 +680,10 @@ def select_partitions_blocked(pid, pk, valid, rng_key, l0: int,
         lambda lo, hi, b_base, c_actual, key: _selection_block(
             stream, int(lo[0]), int(hi[0]), b_base, c_actual, key,
             selection, dtype),
-        key_sel)
+        key_sel, retry)
 
 
+@rt_entry.runtime_entry("aggregate_blocked")
 def aggregate_blocked(pid, pk, values, valid, min_v, max_v, min_s, max_s,
                       mid, stds, rng_key, cfg: executor.KernelConfig, *,
                       block_partitions: int = 1 << 20,
@@ -597,7 +691,8 @@ def aggregate_blocked(pid, pk, values, valid, min_v, max_v, min_s, max_s,
                       secure_tables=None,
                       phase_times: Optional[dict] = None,
                       device=None,
-                      dtype: Optional[torch.dtype] = None
+                      dtype: Optional[torch.dtype] = None,
+                      retry: Optional[rt_retry.RetryPolicy] = None
                       ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
     """DP aggregation over an arbitrarily large partition space.
 
@@ -608,7 +703,8 @@ def aggregate_blocked(pid, pk, values, valid, min_v, max_v, min_s, max_s,
     more go through the host-staged regime. secure_tables: (thr, gran) of
     executor.build_secure_tables, required when cfg.secure. device /
     dtype: where the kernels run and the working float width (defaults as
-    _placement).
+    _placement). retry: the RetryPolicy of the block dispatches; the
+    runtime entry also takes job_id=.
 
     phase_times: optional dict filled with wall seconds by phase, as the
     JAX package's aggregate_blocked (p1_bound_compact, block_offsets,
@@ -649,7 +745,7 @@ def aggregate_blocked(pid, pk, values, valid, min_v, max_v, min_s, max_s,
         lambda lo, hi, b_base, key, cfg_block: _block(
             stream, int(lo[0]), int(hi[0]), b_base, key, min_v, max_v, mid,
             stds, cfg_block, secure_tables, dtype),
-        final_key, "blocked release", phase_times)
+        final_key, "blocked release", phase_times, retry)
     if phase_times is not None:
         phase_times["total"] = time.perf_counter() - t0
     return out
@@ -778,13 +874,34 @@ def _meshed_offsets(mesh: Mesh, streams: Sequence[_Stream], capacity0: int,
     return offsets_of
 
 
+def _fallback_blocked_aggregate(mesh: Mesh, args, kwargs, job):
+    """Elastic floor of aggregate_blocked_sharded: the unsharded blocked
+    driver on the surviving slot's device. Both split rng_key alike and
+    derive the same block keys, and a one-shard pass 1 runs under
+    fold_in(rows_key, 0) as the single-chunk unsharded one does."""
+    kw = {k: v for k, v in kwargs.items() if k != "reshard"}
+    return aggregate_blocked(*args[1:], job_id=job, device=mesh.device,
+                             **kw)
+
+
+def _fallback_blocked_select(mesh: Mesh, args, kwargs, job):
+    """Elastic floor of select_partitions_blocked_sharded (see
+    _fallback_blocked_aggregate)."""
+    kw = {k: v for k, v in kwargs.items() if k != "reshard"}
+    return select_partitions_blocked(*args[1:], job_id=job,
+                                     device=mesh.device, **kw)
+
+
+@rt_entry.runtime_entry("aggregate_blocked_sharded",
+                        fallback=_fallback_blocked_aggregate)
 def aggregate_blocked_sharded(mesh: Mesh, pid, pk, values, valid, min_v,
                               max_v, min_s, max_s, mid, stds, rng_key,
                               cfg: executor.KernelConfig, *,
                               block_partitions: int = 1 << 20,
                               secure_tables=None, reshard: str = "auto",
                               phase_times: Optional[dict] = None,
-                              dtype: Optional[torch.dtype] = None
+                              dtype: Optional[torch.dtype] = None,
+                              retry: Optional[rt_retry.RetryPolicy] = None
                               ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
     """aggregate_blocked over a device mesh (the JAX package's
     aggregate_blocked_sharded, :823).
@@ -796,7 +913,11 @@ def aggregate_blocked_sharded(mesh: Mesh, pid, pk, values, valid, min_v,
     block_partitions partitions reduces every shard's window, combines
     them with one C21 launch and releases on the mesh's first device
     (_sharded_block), where secure_tables lie. dtype: the working float
-    (default as _placement).
+    (default as _placement). retry: the RetryPolicy of the block
+    dispatches. The runtime entry adds job_id=, elastic=, elastic_grow=
+    and min_devices=: with elastic a device loss re-enters here on a mesh
+    of the surviving slots, and at one slot aggregate_blocked runs on its
+    device (the same release: block keys do not depend on the mesh).
 
     phase_times: as aggregate_blocked's, plus staging (the reshard) and
     p2_combine (the host's time issuing the per-block C21, inside
@@ -831,17 +952,21 @@ def aggregate_blocked_sharded(mesh: Mesh, pid, pk, values, valid, min_v,
             lambda lo, hi, b_base, key, cfg_block: _sharded_block(
                 mesh, streams, lo, hi, b_base, key, min_v, max_v, mid, stds,
                 cfg_block, secure_tables, dtype, phase_times),
-            final_key, "blocked meshed release", phase_times)
+            final_key, "blocked meshed release", phase_times, retry)
     if phase_times is not None:
         phase_times["total"] = time.perf_counter() - t0
     return out
 
 
+@rt_entry.runtime_entry("select_partitions_blocked_sharded",
+                        fallback=_fallback_blocked_select)
 def select_partitions_blocked_sharded(mesh: Mesh, pid, pk, valid, rng_key,
                                       l0: int, n_partitions: int, selection,
                                       *, block_partitions: int = 1 << 20,
                                       reshard: str = "auto",
-                                      dtype: Optional[torch.dtype] = None
+                                      dtype: Optional[torch.dtype] = None,
+                                      retry: Optional[
+                                          rt_retry.RetryPolicy] = None
                                       ) -> np.ndarray:
     """select_partitions_blocked over a device mesh (the JAX package's
     select_partitions_blocked_sharded, :1118): rows staged without values
@@ -849,7 +974,8 @@ def select_partitions_blocked_sharded(mesh: Mesh, pid, pk, valid, rng_key,
     (_sharded_select_compact), and for each block with a kept pair on
     some shard one int32 C21 launch and the keep decisions on the mesh's
     first device (_sharded_selection_block). dtype: the float width of
-    the keep probabilities (default float32). Returns
+    the keep probabilities (default float32). retry and the runtime
+    entry's knobs as aggregate_blocked_sharded's. Returns
     kept_partition_ids int64[M], ascending."""
     P = n_partitions
     dtype = dtype or torch.float32
@@ -866,4 +992,4 @@ def select_partitions_blocked_sharded(mesh: Mesh, pid, pk, valid, rng_key,
             lambda lo, hi, b_base, c_actual, key: _sharded_selection_block(
                 mesh, streams, lo, hi, b_base, c_actual, key, selection,
                 dtype),
-            key_sel)
+            key_sel, retry)

@@ -39,6 +39,10 @@ overlap with the fetch.
 Stated difference (ROADMAP.md Queue 3): the JAX package degrades a failed
 collective exchange to the host permutation (reshard.py:387-420 there).
 The port does not: a failed build, launch or copy of the exchange raises.
+The exchange is the device_loss fault's "collective" hook point
+(runtime/faults.py, the JAX package's :382): a slot lost there is
+device-fatal and raises to the elastic loop (runtime/retry.py), which
+rebuilds the mesh and stages the rows again for its geometry.
 """
 
 import collections
@@ -58,6 +62,7 @@ from pipelinedp_tpu_torch.parallel.mesh import (Mesh, ShardedColumn,
                                                 host_fetch, on_device,
                                                 round_capacity,
                                                 rows_per_shard)
+from pipelinedp_tpu_torch.runtime import faults as rt_faults
 from pipelinedp_tpu_torch.runtime import telemetry as rt_telemetry
 from pipelinedp_tpu_torch.runtime import trace as rt_trace
 from pipelinedp_tpu_torch.runtime.concurrency import guarded_by
@@ -277,6 +282,9 @@ def stage_rows_to_mesh(mesh: Mesh, pid, pk, values, valid,
                       if isinstance(values, ShardedColumn) else
                       values.to(dtype))
         with rt_trace.span("reshard.collective"):
+            # A slot lost during the exchange: device-fatal, raised to the
+            # elastic loop.
+            rt_faults.maybe_fail("device_loss", point="collective")
             return device_reshard_rows_by_pid(mesh, pid, pk, values, valid)
     from pipelinedp_tpu_torch.parallel import sharded
     with rt_trace.span("reshard.host"):

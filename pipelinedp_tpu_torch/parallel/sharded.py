@@ -34,6 +34,14 @@ executor.decode_results and np.nonzero decode.
 Rows may come as host numpy, device tensors or ShardedColumns (the pod
 ingest's, parallel/mesh.py): stage_rows_to_mesh exchanges the last from
 the shards where they lie.
+
+Both solo entry points run their launches (after the staging) under
+retry.retry_call, and enter through runtime/entry.runtime_entry: the
+job's health scope, job_id=, retry=, and with elastic= / elastic_grow=
+the elastic loop, which re-enters them on a mesh of the surviving slots
+after a device loss; at one slot the single-device release runs on that
+slot's device (the finalize and selection keys are the replicated halves
+of the same split, so it is the same release).
 """
 
 import contextlib
@@ -52,6 +60,8 @@ from pipelinedp_tpu_torch.parallel.mesh import (Mesh, on_device,
                                                 round_capacity)
 from pipelinedp_tpu_torch.parallel.reshard import (ShardRows,
                                                    stage_rows_to_mesh)
+from pipelinedp_tpu_torch.runtime import entry as rt_entry
+from pipelinedp_tpu_torch.runtime import retry as rt_retry
 from pipelinedp_tpu_torch.runtime import trace as rt_trace
 
 # Concurrent meshed launches from several host threads (the service's
@@ -186,23 +196,78 @@ def _psum_counts(mesh: Mesh):
     return lambda parts: collectives.psum(parts, mesh.device)
 
 
+def _fallback_aggregate_arrays(mesh: Mesh, args, kwargs, job):
+    """Elastic floor of sharded_aggregate_arrays: the single-device
+    release (executor.aggregate_release_kernel, or aggregate_kernel
+    unfused) on the surviving slot's device, under retry_call. Its
+    finalize key is the replicated half of the same split, so the noise
+    is the same release."""
+
+    def go(mesh_, pid, pk, values, valid, min_v, max_v, min_s, max_s, mid,
+           stds, rng_key, cfg, secure_tables=None, reshard="auto",
+           dtype=torch.float32, fused=True, retry=None):
+        del mesh_, reshard
+        from pipelinedp_tpu_torch.parallel.large_p import _device_rows
+        rows = _device_rows(pid, pk, values, valid, mesh.device, dtype)
+        kernel = (executor.aggregate_release_kernel if fused else
+                  executor.aggregate_kernel)
+        with on_device(mesh.device):
+            return rt_retry.retry_call(
+                lambda: kernel(*rows, min_v, max_v, min_s, max_s, mid, stds,
+                               rng_key, cfg, secure_tables),
+                retry, what="single-device aggregation dispatch")
+
+    del job
+    return go(*args, **kwargs)
+
+
+def _fallback_select_partitions(mesh: Mesh, args, kwargs, job):
+    """Elastic floor of sharded_select_partitions: the single-device
+    selection on the surviving slot's device (the selection key is the
+    replicated half of the split, so the decisions are the same
+    release)."""
+
+    def go(mesh_, pid, pk, valid, rng_key, l0, n_partitions, selection,
+           reshard="auto", dtype=torch.float32, fused=True, retry=None):
+        del mesh_, reshard
+        from pipelinedp_tpu_torch.parallel.large_p import _device_rows
+        pid_t, pk_t, _, valid_t = _device_rows(pid, pk, None, valid,
+                                               mesh.device, dtype)
+        kernel = (executor.select_partitions_release_kernel if fused else
+                  executor.select_partitions_kernel)
+        with on_device(mesh.device):
+            return rt_retry.retry_call(
+                lambda: kernel(pid_t, pk_t, valid_t, rng_key, l0,
+                               n_partitions, selection, dtype),
+                retry, what="single-device select_partitions dispatch")
+
+    del job
+    return go(*args, **kwargs)
+
+
+@rt_entry.runtime_entry("sharded_aggregate_arrays",
+                        fallback=_fallback_aggregate_arrays)
 def sharded_aggregate_arrays(mesh: Mesh, pid, pk, values, valid, min_v,
                              max_v, min_s, max_s, mid, stds: np.ndarray,
                              rng_key, cfg: executor.KernelConfig,
                              secure_tables=None, reshard: str = "auto",
                              dtype: torch.dtype = torch.float32,
-                             fused: bool = True):
+                             fused: bool = True,
+                             retry: rt_retry.RetryPolicy = None):
     """The dense release over `mesh` (the JAX package's
     sharded_aggregate_arrays, :505): rows in (host numpy, device tensors
     or ShardedColumns, any length), staged by stage_rows_to_mesh, phase 1
     a shard, C21, phase 2 on the gathering device. secure_tables lie there
     too. Returns (n_kept, order, outputs kept-first, flags), as
     executor.aggregate_release_kernel, or with fused=False (outputs, keep,
-    flags), as executor.aggregate_kernel."""
+    flags), as executor.aggregate_kernel. The launches after the staging
+    run under retry_call(retry): a retry reuses rng_key, so it replays
+    the same release. The runtime entry adds job_id=, elastic=,
+    elastic_grow= and min_devices=."""
     shards = stage_rows_to_mesh(mesh, pid, pk, values, valid, reshard,
                                 dtype)
-    with _collective_launch(mesh), rt_trace.span("dispatch"), \
-            on_device(mesh.device):
+
+    def launch():
         rows_key, _ = executor.release_key_halves(rng_key)
         parts, qrows = [], []
         for s, (pid_s, pk_s, values_s, valid_s) in enumerate(shards):
@@ -218,21 +283,30 @@ def sharded_aggregate_arrays(mesh: Mesh, pid, pk, values, valid, min_v,
         return release(cols, qrows, min_v, max_v, mid, stds, rng_key, cfg,
                        dtype, secure_tables, combine=_psum_counts(mesh))
 
+    with _collective_launch(mesh), rt_trace.span("dispatch"), \
+            on_device(mesh.device):
+        return rt_retry.retry_call(launch, retry,
+                                   what="sharded aggregation dispatch")
 
+
+@rt_entry.runtime_entry("sharded_select_partitions",
+                        fallback=_fallback_select_partitions)
 def sharded_select_partitions(mesh: Mesh, pid, pk, valid, rng_key, l0: int,
                               n_partitions: int,
                               selection: selection_ops.SelectionParams,
                               reshard: str = "auto",
                               dtype: torch.dtype = torch.float32,
-                              fused: bool = True):
+                              fused: bool = True,
+                              retry: rt_retry.RetryPolicy = None):
     """Standalone partition selection over `mesh` (the JAX package's
     sharded_select_partitions, :459): each shard counts its pairs under
     fold_in(key_l0, shard), C21 sums the counts, the keep decisions and
     their compaction run once under key_sel. Returns (n_kept, order), or
-    with fused=False the keep vector bool[P]."""
+    with fused=False the keep vector bool[P]. retry and the runtime
+    entry's knobs as sharded_aggregate_arrays'."""
     shards = stage_rows_to_mesh(mesh, pid, pk, None, valid, reshard)
-    with _collective_launch(mesh), rt_trace.span("dispatch"), \
-            on_device(mesh.device):
+
+    def launch():
         key_l0, key_sel = executor.select_key_schedule(rng_key)
         parts = []
         for s, (pid_s, pk_s, _, valid_s) in enumerate(shards):
@@ -244,6 +318,11 @@ def sharded_select_partitions(mesh: Mesh, pid, pk, valid, rng_key, l0: int,
         release = (executor.select_release if fused else
                    executor.select_keep)
         return release(cols, selection, key_sel)
+
+    with _collective_launch(mesh), rt_trace.span("dispatch"), \
+            on_device(mesh.device):
+        return rt_retry.retry_call(launch, retry,
+                                   what="sharded select_partitions dispatch")
 
 
 def sharded_batched_release(mesh: Mesh, shards: Sequence[ShardRows], min_v,

@@ -353,6 +353,28 @@ class TorchBackend(LocalBackend):
         outputs and keep vector come to the host and np.nonzero picks the
         kept partitions, as TPUBackend(fused_release=False); the release
         is the same. The megabatched service runs unfused jobs solo.
+      retry: optional runtime.RetryPolicy for transient launch failures
+        of the meshed and blocked drivers (None: the default policy). A
+        retried block re-derives the same key, so its noise is
+        bit-identical; its max_retries also bounds the control-table
+        fetches, its max_total_retries the job's retries in all.
+      job_id: the job id the drivers' health records (runtime/health.py)
+        and the elastic errors name (None: the driver's own name).
+        for_job(job_id=) overrides it per job.
+      elastic: device-loss tolerance of the meshed routes. With True, a
+        device-fatal failure (an injected device_loss; on the card a
+        sticky CUDA error is not one, runtime/retry.py) rebuilds a
+        smaller mesh from the slots that pass the liveness probe and
+        re-enters the driver; at one slot the unsharded driver runs on
+        that slot's device. Block keys do not depend on the mesh, so the
+        degraded run releases what the fixed-geometry run releases.
+        Meaningless without a mesh.
+      elastic_grow: elastic, plus scale-up: join candidates announced by
+        runtime.announce_join are admitted at the next block boundary and
+        the mesh rebuilds over the larger slot set (implies elastic).
+      min_devices: the elastic floor (default 1): losses that leave fewer
+        live slots raise runtime.MeshDegradationError naming the job_id,
+        and the job's health is FAILED.
 
     The generic operations are LocalBackend's, seeded by noise_seed, as
     TPUBackend's are.
@@ -373,7 +395,12 @@ class TorchBackend(LocalBackend):
                  encode_mode: str = "host",
                  mesh=None,
                  reshard: str = "auto",
-                 fused_release: bool = True):
+                 fused_release: bool = True,
+                 retry=None,
+                 job_id: Optional[str] = None,
+                 elastic: bool = False,
+                 elastic_grow: bool = False,
+                 min_devices: int = 1):
         super().__init__(seed=noise_seed)
         if device is None:
             if not torch.cuda.is_available():
@@ -408,6 +435,13 @@ class TorchBackend(LocalBackend):
         input_validators.validate_reshard(reshard, "TorchBackend")
         input_validators.validate_fused_release(fused_release,
                                                 "TorchBackend")
+        if job_id is not None:
+            input_validators.validate_job_id(job_id, "TorchBackend")
+        if retry is not None:
+            input_validators.validate_retry_policy(retry, "TorchBackend")
+        input_validators.validate_elastic(elastic, "TorchBackend")
+        input_validators.validate_elastic_grow(elastic_grow, "TorchBackend")
+        input_validators.validate_min_devices(min_devices, "TorchBackend")
         if mesh is not None and mesh.device.type != device.type:
             raise ValueError(f"TorchBackend: the mesh's devices "
                              f"({mesh.device.type}) are not of the backend's "
@@ -427,6 +461,11 @@ class TorchBackend(LocalBackend):
         self.mesh = mesh
         self.reshard = reshard
         self.fused_release = fused_release
+        self.retry = retry
+        self.job_id = job_id
+        self.elastic = elastic
+        self.elastic_grow = elastic_grow
+        self.min_devices = min_devices
 
     def for_job(self, job_id: Optional[str] = None,
                 noise_seed: Optional[int] = None) -> "TorchBackend":
@@ -435,11 +474,10 @@ class TorchBackend(LocalBackend):
         backend for its lifetime and runs many jobs on it at once, each
         with its own noise seed. The view shares the device, the working
         dtype and every knob of the parent; noise_seed overrides where
-        given; the mesh, reshard mode and fused_release are shared.
-        job_id is accepted for the reference's signature and is unused:
-        the reference keys its blocked route's journal by it, and the port
-        has no such journal yet (ROADMAP item 13)."""
-        del job_id
+        given; the mesh, reshard mode, fused_release and the runtime knobs
+        (retry, elastic, elastic_grow, min_devices) are shared, and job_id
+        overrides the parent's where given, as the reference's for_job
+        does."""
         return TorchBackend(
             device=self.device,
             noise_seed=(self.noise_seed if noise_seed is None
@@ -456,4 +494,9 @@ class TorchBackend(LocalBackend):
             encode_mode=self.encode_mode,
             mesh=self.mesh,
             reshard=self.reshard,
-            fused_release=self.fused_release)
+            fused_release=self.fused_release,
+            retry=self.retry,
+            job_id=self.job_id if job_id is None else job_id,
+            elastic=self.elastic,
+            elastic_grow=self.elastic_grow,
+            min_devices=self.min_devices)

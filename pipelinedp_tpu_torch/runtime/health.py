@@ -4,8 +4,11 @@ A JobHealth aggregates watchdog verdicts, the runtime's telemetry and
 per-phase wall time into four states:
 
     HEALTHY   no anomaly observed.
-    DEGRADED  the job recovered from adversity (a quarantined journal
-              record, a late completion).
+    DEGRADED  the job recovered from adversity (a retry, an OOM capacity
+              halving, a quarantined journal record, a late completion,
+              an elastic mesh shrink after a device loss). Meshed elastic
+              runs also report planned and live slot counts, and fleet
+              events (REJOINING) are notes beside the state.
     STALLED   a deadline expired on an operation that has not completed;
               demoted to DEGRADED when it completes.
     FAILED    the job raised. A later completed run of the same job
@@ -35,9 +38,18 @@ class HealthState(enum.IntEnum):
 
 
 _DEGRADING_COUNTERS = frozenset({"journal_quarantined",
-                                 "watchdog_late_completions"})
-_STALLING_COUNTERS = frozenset({"watchdog_timeouts"})
-_TRACKED_COUNTERS = _DEGRADING_COUNTERS | _STALLING_COUNTERS
+                                 "watchdog_late_completions",
+                                 "block_retries", "block_oom_degradations",
+                                 "host_fetch_retries", "device_losses",
+                                 "host_losses", "mesh_degradations"})
+_STALLING_COUNTERS = frozenset({"watchdog_timeouts", "block_timeouts"})
+# A scale-up admission is planned work with the same results, not
+# adversity: tracked, but it never moves the state.
+_TRACKED_COUNTERS = (_DEGRADING_COUNTERS | _STALLING_COUNTERS |
+                     frozenset({"mesh_expansions"}))
+
+# Bound on the per-job fleet-event notes: an audit trail, not a log.
+_MAX_FLEET_EVENTS = 32
 
 
 def _process_index() -> int:
@@ -52,7 +64,8 @@ class JobHealth:
 
     _GUARDED_BY = guarded_by("_lock", "_state", "_counters",
                              "_phase_seconds", "_last_error", "_last_beat",
-                             "_completed_runs")
+                             "_planned_devices", "_live_devices",
+                             "_completed_runs", "_fleet_events")
 
     def __init__(self, job_id: str):
         self.job_id = job_id
@@ -64,6 +77,11 @@ class JobHealth:
         self._last_error: Optional[str] = None
         self._last_beat: Optional[float] = None
         self._completed_runs = 0
+        # Elastic mesh state: the slot count the job entered on and the
+        # count still live (None until a meshed elastic run reports).
+        self._planned_devices: Optional[int] = None
+        self._live_devices: Optional[int] = None
+        self._fleet_events: list = []
 
     def _escalate(self, state: HealthState) -> None:  # caller holds _lock
         if self._state is not HealthState.FAILED and state > self._state:
@@ -76,7 +94,7 @@ class JobHealth:
             self._counters[name] = self._counters.get(name, 0) + n
             if name in _STALLING_COUNTERS:
                 self._escalate(HealthState.STALLED)
-            else:
+            elif name in _DEGRADING_COUNTERS:
                 self._escalate(HealthState.DEGRADED)
 
     def observe_duration(self, name: str, seconds: float) -> None:
@@ -92,6 +110,31 @@ class JobHealth:
                 self._counters.get("watchdog_timeouts", 0) + 1)
             self._escalate(HealthState.STALLED)
             self._last_error = f"deadline expired: {phase} block {block}"
+
+    def note_mesh(self, planned_devices: int, live_devices: int) -> None:
+        """Elastic mesh report (runtime/retry.py's elastic loop): the slot
+        count the job was planned on and the count still live. A shrink
+        is DEGRADED; losses past the floor fail the job through
+        note_failed."""
+        with self._lock:
+            self._planned_devices = int(planned_devices)
+            self._live_devices = int(live_devices)
+            if live_devices < planned_devices:
+                self._escalate(HealthState.DEGRADED)
+        # Outside the lock: set_gauge takes telemetry's lock.
+        from pipelinedp_tpu_torch.runtime import telemetry
+        telemetry.set_gauge("live_devices", int(live_devices),
+                            job_id=self.job_id)
+
+    def note_fleet_event(self, kind: str, detail: str) -> None:
+        """Notes a fleet operation on the job's record: REJOINING (a
+        scale-up admitted, or aborted admitting, joining slots) or
+        MIGRATING. Notes, not states: the health state is untouched."""
+        if kind not in ("REJOINING", "MIGRATING"):
+            raise ValueError(f"unknown fleet event kind {kind!r}")
+        with self._lock:
+            if len(self._fleet_events) < _MAX_FLEET_EVENTS:
+                self._fleet_events.append((kind, str(detail)))
 
     def note_recovered(self) -> None:
         with self._lock:
@@ -129,6 +172,11 @@ class JobHealth:
                 "counters": dict(self._counters),
                 "journal_quarantined":
                     self._counters.get("journal_quarantined", 0),
+                "planned_devices": self._planned_devices,
+                "live_devices": self._live_devices,
+                "fleet_events": [
+                    {"kind": k, "detail": d} for k, d in self._fleet_events
+                ],
                 "phase_seconds": {
                     k: round(v, 6) for k, v in self._phase_seconds.items()
                 },

@@ -12,8 +12,10 @@ and render_prometheus (runtime/observability.py) labels them with it.
 Counters are monotonic per process; callers snapshot() before a run and
 delta() after. Every record() also lands as an instant event on the trace
 timeline when tracing is on, and is forwarded to the current job's health
-record (runtime/health.py). The JAX package's jit, AOT, mesh, retry and
-chaos counters have no counterpart in the port yet (ROADMAP item 13).
+record (runtime/health.py). Since the failure semantics of the meshed
+drivers (runtime/retry.py) the retry, OOM re-plan and elastic-mesh
+counters are here too; the JAX package's jit, AOT and chaos counters have
+no counterpart in the port yet (ROADMAP.md Queue 1 steps 5 and 9).
 """
 
 import collections
@@ -96,6 +98,45 @@ REGISTRY: Dict[str, Metric] = {
                  "device reshards whose measured loads fit the cached "
                  "exchange capacities of their geometry "
                  "(parallel/reshard.py)"),
+        _counter("injected_faults",
+                 "faults raised by the injection harness "
+                 "(runtime/faults.py)"),
+        _counter("block_retries",
+                 "transient dispatch/sync failures retried"),
+        _counter("block_timeouts",
+                 "blocks whose deadline expired (a deadline error "
+                 "surfaced at dispatch or at the sync)"),
+        _counter("block_oom_degradations",
+                 "partition block capacity halvings after OOM (or after "
+                 "repeated deadline expiries)"),
+        _counter("release_dispatches",
+                 "blocks dispatched by the blocked drivers "
+                 "(large_p._dispatch_blocks), re-dispatches included"),
+        _counter("host_fetch_retries",
+                 "transient control-table fetch failures retried"),
+        _counter("retry_budget_exhausted",
+                 "jobs whose total transient-retry budget "
+                 "(RetryPolicy.max_total_retries) ran out"),
+        _counter("device_losses",
+                 "device-fatal failures observed (a slot dropped out of "
+                 "the mesh)"),
+        _counter("host_losses",
+                 "whole-host losses observed (a process lost every one of "
+                 "its slots at once)"),
+        _counter("mesh_degradations",
+                 "elastic mesh rebuilds onto fewer slots after a device "
+                 "loss"),
+        _counter("mesh_expansions",
+                 "elastic mesh rebuilds onto more slots after admitting "
+                 "joining slots at a block boundary "
+                 "(run_with_mesh_elasticity scale-up)"),
+        _gauge("live_devices",
+               "slots currently live in the elastic mesh of the gauge's "
+               "job (== planned until a device loss shrinks it)"),
+        _gauge("mesh_target_devices",
+               "slot count the elastic runtime currently targets for the "
+               "gauge's job (== planned at entry; grows on scale-up "
+               "admissions, shrinks on degradations)"),
         _gauge("job_health_state",
                "numeric health state of a job (0 HEALTHY, 1 DEGRADED, "
                "2 STALLED, 3 FAILED - runtime/health.HealthState)"),

@@ -79,7 +79,12 @@ large_p.py) adds to these phases:
              at the first chunk of (w), and the windowed entries of C3
              (three float columns, vector D = 5, compensated) and C7 (a
              16-leaf histogram, the default tree's level-1 child counts)
-             on block 1 of (q)'s stream, a full block of 2^20 partitions
+             on block 1 of (q)'s stream, a full block of 2^20 partitions;
+             then C3's edge windows (c3_edge_phase): a 300,000-row
+             partition (586 tiles), a single row, an empty window, windows outside [0, C),
+             runs at keys 0 and C - 1, the lane entries == their solo
+             runs; every C3 entry here and at the main path's shapes is
+             called twice and must give the same bits
   3. parity  blocked DPEngine.aggregate (public, private, PERCENTILE,
              VECTOR_SUM, secure, safe) and select_partitions on the card
              against the CPU, threshold 16, 8 partitions a block, P = 44
@@ -132,8 +137,11 @@ composition do not share their conditions):
              1e-4, coarsened to DEFAULT_MAX_GRID, L = 2^21), each within
              1e-9 of the host path (every probability and the epsilon at
              delta 1e-6); both kernels against their plain versions at the
-             trail's shapes; their times beside torch.fft.rfft / irfft and
-             _compose_pmfs_host
+             trail's shapes; C15 against its step-by-step model
+             (kernels.pld_rfft_four_step / pld_irfft_four_step on the
+             CPU) within 1e-13 at one-pass plans (L = 2^11, 2^12) and the
+             trail's two-pass plan; their times beside torch.fft.rfft /
+             irfft and _compose_pmfs_host
   3. parity  small PLD aggregations on the card in float64 against the CPU
   4. main    DPEngine.aggregate under PLDBudgetAccountant(1.0, 1e-6, 1e-4):
              (a) COUNT+SUM+MEAN, Gaussian, public and (b), each release's
@@ -404,6 +412,20 @@ def check_equal(name, got, want):
     return err
 
 
+def same_twice(label, fn, first=None):
+    """A second call of fn gives the same bits as the first (`first`, or a
+    call made here): C3's association is fixed by its inputs alone.
+    Returns the first call's dict of tensors."""
+    import torch
+    first = fn() if first is None else first
+    again = fn()
+    for name, value in first.items():
+        if not torch.equal(value, again[name]):
+            raise AssertionError(f"{label} {name}: two calls on the same "
+                                 f"inputs differ")
+    return first
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -469,6 +491,7 @@ def main() -> int:
                                        executor, threefry)
     report += large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p,
                                    threefry, tdp, card)
+    c3_edge_phase(torch, dev, kernels)
     report += ingest_kernel_phase(
         torch, dev, {"users": (users, encoded.pid),
                      "movies": (movies, encoded.pk),
@@ -718,7 +741,7 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                                                row_cols, P, f32)
         c3p = lambda: kernels.reduce_partitions_plain(  # noqa: E731
             skey2, perm2, pair_start, row_cols, P, f32)
-        dense = c3()
+        dense = same_twice("reduce_partitions", c3)
         q_dense = c3p()
         abs_cols = {c: row_cols[c].abs() for c in cols}
         scale = kernels.reduce_partitions_plain(skey2, perm2, pair_start,
@@ -1050,7 +1073,7 @@ def quantile_vector_kernel_phase(torch, dev, encoded, years, kernels,
             skey2, perm2, pair_start, {}, P, f32, (perm, onehot))
         c3v_plain = lambda: kernels.reduce_partitions_plain(  # noqa: E731
             skey2, perm2, pair_start, {}, P, f32, (perm, onehot))
-        vsum = c3v()["vsum"]
+        vsum = same_twice("reduce_partitions vector", c3v)["vsum"]
         # Integer-valued coordinates below 2^24: exact in any order.
         err3 = check_equal("reduce_partitions vsum", vsum,
                            c3v_plain()["vsum"])
@@ -1699,7 +1722,8 @@ def secure_safe_kernel_phase(torch, dev, encoded, years, kernels, executor,
             skey2, perm2, pair_start, row_cols, P, f32, compensated=True)
         c3c_plain = lambda: kernels.reduce_partitions_plain(  # noqa: E731
             skey2, perm2, pair_start, row_cols, P, f32, compensated=True)
-        comp, comp_p = c3c(), c3c_plain()
+        comp, comp_p = same_twice("reduce_partitions_compensated",
+                                  c3c), c3c_plain()
         fast = kernels.reduce_partitions(skey2, perm2, pair_start, row_cols,
                                          P, f32)
         fast_err, top, plain_off, nsum2_err = {}, 0, 0, 0.0
@@ -1725,7 +1749,9 @@ def secure_safe_kernel_phase(torch, dev, encoded, years, kernels, executor,
         onehot = (torch.nn.functional.one_hot(
             (values / 1000.0).long() - 1, 5) * 1000).to(f32).contiguous()
         vargs = (skey2, perm2, pair_start, {}, P, f32, (perm, onehot))
-        vcomp = kernels.reduce_partitions(*vargs, compensated=True)["vsum"]
+        vcomp = same_twice(
+            "reduce_partitions_compensated vector",
+            lambda: kernels.reduce_partitions(*vargs, compensated=True))["vsum"]
         record("reduce_partitions_compensated", check_equal(
             "reduce_partitions compensated vsum", vcomp,
             kernels.reduce_partitions_plain(*vargs, compensated=True)["vsum"]))
@@ -2411,9 +2437,11 @@ def release_spec(tdp, params, P, eps, private):
 
 
 def scan_tolerance(count, truth):
-    """float32 rounding of a partition sum from C3's tile scan: one ulp of
-    the sum for each sequential addition (the tiles of 2048 rows the
-    partition spans, plus 16 inside a tile)."""
+    """float32 rounding of a partition sum from C3's scan, an allowance of
+    one ulp of the sum for each 2048 rows of the partition, plus 16. (C3
+    adds in sequence about 12 levels inside a tile of 512 rows and, for a
+    partition crossing tiles, a 5-level warp scan and one fold per 32
+    tiles.)"""
     ulp = np.spacing(np.abs(truth).astype(np.float32)).astype(np.float64)
     return (count / 2048.0 + 16.0) * ulp
 
@@ -2499,7 +2527,7 @@ def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
         sk, pw, stream.pair_start, cols, C, f32, base=base)
     c3p = lambda: kernels.reduce_partitions_plain(  # noqa: E731
         sk, pw, stream.pair_start, cols, C, f32, base=base)
-    dense, q_dense = c3(), c3p()
+    dense, q_dense = same_twice("reduce_partitions_windowed", c3), c3p()
     scale = kernels.reduce_partitions_plain(
         sk, pw, stream.pair_start, {c: v.abs() for c, v in cols.items()}, C,
         f32, base=base)
@@ -2516,8 +2544,10 @@ def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
     onehot = torch.nn.functional.one_hot(
         stream.values.long().clamp(0, 4), 5).to(f32).contiguous()
     vrows = (stream.row_perm, onehot)
-    vec = kernels.reduce_partitions(sk, pw, stream.pair_start, {}, C, f32,
-                                    vrows, base=base)["vsum"]
+    vec = same_twice(
+        "reduce_partitions_windowed vector",
+        lambda: kernels.reduce_partitions(sk, pw, stream.pair_start, {}, C,
+                                          f32, vrows, base=base))["vsum"]
     err3 = max(err3, check_equal(
         "reduce windowed vsum", vec, kernels.reduce_partitions_plain(
             sk, pw, stream.pair_start, {}, C, f32, vrows, base=base)["vsum"]))
@@ -2551,7 +2581,7 @@ def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
         *s_args, compensated=True, base=base)
     c3c_plain = lambda: kernels.reduce_partitions_plain(  # noqa: E731
         *s_args, compensated=True, base=base)
-    comp = c3c()
+    comp = same_twice("reduce_partitions_compensated_windowed", c3c)
     err3c = check_equal("reduce windowed compensated sum", comp["sum"],
                         c3c_plain()["sum"])
     s_rel = (s_stream.skey2[slo:shi].long() - base).clamp(0, C)
@@ -2696,7 +2726,131 @@ def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
           f" library_ms="
           f"{cuda_ms(lambda: torch.bincount(leaf_slot, minlength=(C + 1) * B), 10):.4f}"
           f" bound_ms={lb_ms:.3g} ({lb_by}) ({card})", flush=True)
+    # The windowed C3's time split: the device's (its memset and kernel,
+    # torch.profiler) against the CUDA events around the whole wrapper.
+    print(f"kernel reduce_partitions_windowed[3 columns]: device_ms="
+          f"{device_ms(torch, c3, 20):.4f} (memset + kernel, "
+          f"torch.profiler) of ms={cuda_ms(c3, 10):.4f} (the wrapper, "
+          f"CUDA events) ({card})", flush=True)
     return report
+
+
+def device_ms(torch, fn, calls):
+    """Device time a call of fn (kernels and memsets, torch.profiler) over
+    `calls` calls, after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise AssertionError("device_ms: no device time traced")
+    return sum(e.self_device_time_total for e in device) / 1e3 / calls
+
+
+def c3_edge_phase(torch, dev, kernels):
+    """C3's edge windows, each entry equal to its plain version and called
+    twice with the same bits: a partition spanning >= 100 tiles of the
+    look-back (300,000 rows) between short runs, a single row, an empty
+    window, windows wholly above and below [0, C), runs at keys 0 and
+    C - 1; the solo, windowed, compensated and vector entries, and the
+    lane entries with each lane == its solo run. The sums are exact in
+    any order, so every output is held to ==: "sum" is on a grid of 1/64
+    (every partial sum below 2^18 is exact in float32), "nsum" holds
+    integers to 1000 (sums past 2^24, exact only compensated) and goes
+    to the compensated entry, the vectors are one-hot."""
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 15)
+
+    def on_card(a):
+        return torch.as_tensor(a).to(dev)
+
+    def rows(keys):
+        n = len(keys)
+        return (on_card(np.asarray(keys, dtype=np.int32)),
+                on_card(rng.permutation(n).astype(np.int64)),
+                on_card(rng.random(n) < 0.4),
+                {"sum": on_card(rng.integers(0, 64, n).astype(np.float32)
+                                / 64),
+                 "nsum": on_card(rng.integers(0, 1001, n).astype(
+                     np.float32))})
+
+    def agree(label, P, skey2, perm, pair_start, cols, base=None, vec=None,
+              compensated=False):
+        cols = {c: cols[c] for c in (("nsum",) if compensated else ("sum",))}
+        args = (skey2, perm, pair_start, cols, P, f32, vec)
+        got = same_twice(label, lambda: kernels.reduce_partitions(
+            *args, compensated=compensated, base=base))
+        want = kernels.reduce_partitions_plain(*args, compensated, base)
+        for name in want:
+            check_equal(f"{label} {name}", got[name], want[name])
+        return got
+
+    hot = rows([0] * 7 + [5] * 300_000 + [6] * 1000 + [9] * 5)
+    onehot = torch.nn.functional.one_hot(
+        on_card(rng.integers(0, 5, hot[0].shape[0])), 5).to(f32).contiguous()
+    agree("C3 one 300,000-row partition", 10, *hot)
+    agree("C3 one 300,000-row partition, compensated", 10, *hot,
+          compensated=True)
+    agree("C3 one 300,000-row partition, vector", 10, *hot,
+          vec=(None, onehot))
+    agree("C3 one 300,000-row partition, windowed", 4, *hot, base=4)
+    agree("C3 window above [0, C)", 4, *hot, base=100)
+    agree("C3 window below [0, C)", 4, *hot, base=-50)
+    single = rows([3])
+    agree("C3 single row", 8, *single)
+    agree("C3 single row, compensated", 8, *single, compensated=True)
+    agree("C3 empty window", 8, hot[0][:0], hot[1][:0], *hot[2:])
+    edges = rows([0] * 3000 + [7] * 2500)
+    got = agree("C3 runs at keys 0 and C - 1", 8, *edges)
+    if [int(c) for c in got["count"]] != [3000, 0, 0, 0, 0, 0, 0, 2500]:
+        raise AssertionError(f"C3 keys 0 and C - 1: counts "
+                             f"{got['count'].tolist()}")
+    agree("C3 runs at keys 0 and C - 1, windowed", 8, *edges, base=0)
+    # Lanes: 4 jobs of 2^16 rows over P = 1000, a tenth dropped.
+    L, lane_rows, P = 4, 1 << 16, 1000
+    lane = np.repeat(np.arange(L), lane_rows)
+    key2 = np.where(rng.random(L * lane_rows) < 0.1, L * P,
+                    lane * P + (rng.random(L * lane_rows) ** 3 * P).astype(
+                        np.int64))
+    order = np.argsort(key2, kind="stable")
+    skey2, perm = on_card(key2[order].astype(np.int32)), on_card(order)
+    pair_start = on_card(rng.random(L * lane_rows) < 0.4)
+    cols = {"sum": on_card(np.round(rng.random(L * lane_rows) * 1000)
+                           .astype(np.float32))}
+    onehot = torch.nn.functional.one_hot(
+        on_card(rng.integers(0, 5, L * lane_rows)), 5).to(f32).contiguous()
+    edges_l = torch.searchsorted(
+        skey2, torch.arange(L + 1, dtype=torch.int32, device=dev) * P
+    ).tolist()
+    for comp in (False, True):
+        label = f"C3 lanes (compensated={comp})"
+        got = same_twice(label, lambda: kernels.reduce_partitions_lanes(
+            skey2, perm, pair_start, cols, lane_rows, P, f32,
+            (None, onehot), compensated=comp))
+        want = kernels.reduce_partitions_lanes_plain(
+            skey2, perm, pair_start, cols, lane_rows, P, f32,
+            (None, onehot), comp)
+        for name in want:  # integer-valued: exact
+            check_equal(f"{label} {name}", got[name], want[name])
+        for l in range(L):
+            a, b = edges_l[l], edges_l[l + 1]
+            solo = kernels.reduce_partitions(
+                skey2[a:b] - l * P, perm[a:b], pair_start, cols, P, f32,
+                (None, onehot), compensated=comp)
+            for name in solo:
+                check_equal(f"{label} lane {l} {name} vs solo", solo[name],
+                            got[name][l * P:(l + 1) * P])
+    print("kernels[C3 edges]: a 300,000-row partition (586 tiles of 512 "
+          "rows; 293 of the vector entry's 1024), a single row, an "
+          "empty window, windows outside [0, C), keys 0 and C - 1, the "
+          "lane entries: each entry == its plain version (sums exact in "
+          "any order) and equal to itself run to run; each lane == its "
+          "solo run", flush=True)
 
 
 def large_p_parity_phase(torch, tdp, rng):
@@ -4052,6 +4206,30 @@ def pld_kernel_phase(torch, dev, kernels, card):
                                                   length)).abs().max())
     if not err15i <= 1e-12:
         raise AssertionError(f"pld_irfft: max |kernel - plain| {err15i}")
+    # The kernel against its step-by-step model (kernels.pld_rfft_four_step
+    # / pld_irfft_four_step, on the CPU) within 1e-13: one-pass plans (L =
+    # 2^11 and 2^12: one block pass of 1024 / 2048 points) on three pmf
+    # rows, and the trail's two-pass plan on three rows of chunk 0.
+    err_model = 0.0
+    mrng = np.random.default_rng(SEED + 7)
+    for m_len, m_block in ((1 << 11, None), (1 << 12, None),
+                           (length, block0[:3])):
+        if m_block is None:
+            m_rows = mrng.random((3, m_len))
+            m_block = torch.from_numpy(
+                m_rows / m_rows.sum(axis=1, keepdims=True)).to(dev)
+        m_block = m_block.contiguous()
+        m_spec = kernels.pld_rfft(m_block)
+        err_model = max(err_model, complex_diff(
+            m_spec.cpu(), kernels.pld_rfft_four_step(m_block.cpu()),
+            f"pld_rfft vs its model, L = {m_len}", 1e-13))
+        m_inv = kernels.pld_irfft(m_spec, m_len).cpu()
+        m_err = float((m_inv - kernels.pld_irfft_four_step(
+            m_spec.cpu(), m_len)).abs().max())
+        if not m_err <= 1e-13:
+            raise AssertionError(f"pld_irfft vs its model, L = {m_len}: "
+                                 f"max diff {m_err}")
+        err_model = max(err_model, m_err)
 
     r0 = block0.shape[0]
     scratch_acc = torch.zeros(m, dtype=c128, device=dev)
@@ -4090,7 +4268,10 @@ def pld_kernel_phase(torch, dev, kernels, card):
           f"C16 finalize ms={times['finalize'][0]:.4f} plain_ms="
           f"{times['finalize'][1]:.4f} bound_ms={b16f[0]:.3g} ({b16f[1]}); "
           f"max |kernel - plain| rfft {err15:.3g}, irfft {err15i:.3g}, "
-          f"log_spectrum {err16:.3g} ({card})", flush=True)
+          f"log_spectrum {err16:.3g}; C15 vs its four-step model (plans "
+          f"{kernels.pld_fft_plan(1 << 10)}, {kernels.pld_fft_plan(1 << 11)},"
+          f" {kernels.pld_fft_plan(length // 2)}) {err_model:.3g} ({card})",
+          flush=True)
     report = [
         {"name": "pld_fft", "route": "cuda",
          "source": "pipelinedp_tpu_torch/csrc/pld_fft.cu",
@@ -5161,7 +5342,7 @@ def service_kernel_phase(torch, dev, tdp, encoded, kernels, executor, card,
                    check_equal("radix_sort lane key2 sorted", skey2, qs2))
         c3 = lambda: kernels.reduce_partitions_lanes(  # noqa: E731
             skey2, perm2, pair_start, row_cols, lane_rows, P, f32)
-        dense = c3()
+        dense = same_twice("reduce_partitions_lanes", c3)
         q3 = kernels.reduce_partitions_lanes_plain(skey2, perm2, pair_start,
                                                    row_cols, lane_rows, P,
                                                    f32)
@@ -5526,7 +5707,8 @@ def spec_kernel_phase(torch, dev, tdp, encoded, kernels, executor, card,
         t4_plain = lambda: kernels.reduce_partitions_lanes_plain(  # noqa: E731
             skey2, perm2, pair_start, big, lane_rows, P, f32,
             compensated=True)
-        comp, q4 = t4(), t4_plain()
+        comp, q4 = same_twice("reduce_partitions_compensated_lanes",
+                              t4), t4_plain()
         exact = kernels.reduce_partitions_lanes_plain(
             skey2, perm2, pair_start, {c: big[c].double() for c in cols},
             lane_rows, P, torch.float64)
@@ -5547,7 +5729,7 @@ def spec_kernel_phase(torch, dev, tdp, encoded, kernels, executor, card,
             skey2, perm2, pair_start, {}, lane_rows, P, f32, (perm, onehot))
         t5_plain = lambda: kernels.reduce_partitions_lanes_plain(  # noqa: E731
             skey2, perm2, pair_start, {}, lane_rows, P, f32, (perm, onehot))
-        vcols = t5()
+        vcols = same_twice("reduce_partitions_vector_lanes", t5)
         # Integer-valued coordinates below 2^24: exact in any order.
         errors["reduce_partitions_vector_lanes"] = check_equal(
             "reduce_partitions_vector_lanes vsum", vcols["vsum"],

@@ -12,11 +12,11 @@
 //    release_epilogue.cu, quantile_descend.cu and vector_release.cu;
 //  * NaN-propagating max / min (jnp.maximum / jnp.minimum), the release
 //    sentinel's flag bits of a value and their block-wide OR;
-//  * a block-wide exclusive scan over an associative operator, and the
+//  * a block-wide exclusive scan over an associative operator (also the
+//    tile scan of reduce_partitions.cu's one-pass look-back), and the
 //    single-block kernel that scans per-tile aggregates (pass 2 of the
-//    three-pass tile scans in bound_rows.cu, reduce_partitions.cu,
-//    radix_sort.cu and compact_kept.cu), with integer-sum and max
-//    operators.
+//    three-pass tile scans in bound_rows.cu, radix_sort.cu and
+//    compact_kept.cu), with integer-sum and max operators.
 #pragma once
 
 #include <cstdint>

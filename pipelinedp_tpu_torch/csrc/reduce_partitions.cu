@@ -2,58 +2,98 @@
 //
 // Replaces the partition half of K5: pipelinedp_tpu/executor.py
 // reduce_rows_to_partitions (:455-514), which takes cumsum differences
-// (ops/segment_ops.py:78 chunked_cumsum) at searchsorted partition starts.
+// (ops/segment_ops.py:78 chunked_cumsum) at searchsorted partition starts;
+// the compensated sums of K14 (ops/segment_ops.py:122,138); the blocked
+// route's reduction, parallel/large_p.py:183 _block_trace; and a lane of
+// K24a, executor.py:984.
 //
 // Rows arrive sorted by key2 = keep ? partition : n_partitions
 // (executor.py:476-484): `skey2` is that sorted key and `perm` maps each
 // sorted position to its bounded row. The reduction is a segmented sum
-// over the sorted stream, as a three-pass tile scan: per-tile aggregates,
-// one block scanning them in order, then a pass that rescans each tile
-// from its prefix. The last row of each partition's run writes that
-// partition's count, pid_count, sum, nsum and nsum2; partitions with no
-// kept row keep the zeros the caller filled. The tiles, the order in which
-// a block combines its threads and the order of the tile prefixes are all
-// fixed, and no float atomics are used: the same inputs give the same bits
-// on every run. Work per tile is fixed too, so a hot partition spreads
-// over as many blocks as it has rows.
+// over the sorted stream; the last row of each partition's run writes that
+// partition's count, pid_count, sum, nsum and nsum2, and the entry zero-
+// fills the outputs first, so partitions with no kept row read 0.
+//
+// Bound on this card: bytes. skey2 (4 B a row) and perm (8 B) stream;
+// pair_start and up to three F columns are gathered through perm, a 32-byte
+// sector for 1-4 useful bytes each; the outputs are 5 F columns of
+// n_partitions. The gathers dominate on the dense route.
+//
+// Design: one pass, tiles of 512 rows (1024 for the vector entry), a
+// look-back over tile aggregates.
+//   * A block claims its tile from an atomic counter, so tiles start in
+//     order and no block waits on one that has not started. Each thread
+//     reads its 2 rows' keys and perm entries, then issues their column
+//     gathers together: every row is gathered once. Small tiles keep a
+//     few resident blocks an SM busy on a window of ~0.6M rows.
+//   * The block scans its tile (each thread's rows in order, then a warp
+//     and a block scan: a fixed association) and publishes the tile's
+//     aggregate with a ready flag (release / acquire, gpu scope).
+//   * A tile whose first row continues a run that ends inside it, at a
+//     kept partition, folds the earlier tiles' aggregates back to the tile
+//     where the run began: warp 0 takes them 32 at a time, nearest last,
+//     in a warp scan, and a tile in which a run starts (SegOp's f flag)
+//     ends the walk. Only aggregates are read, never inclusive prefixes,
+//     so the association depends on the data and the tiling alone: the
+//     same inputs give the same bits on every run, and no float atomics
+//     are used. Only tiles holding such a run end walk, each run's tiles
+//     once, so the walk stays linear when one partition holds every row.
+//   * One C call: it zero-fills the outputs and resets the counter and the
+//     flags with one cudaMemsetAsync (the wrapper allocates the scratch
+//     right after the outputs), then launches once (once per four
+//     coordinates of a vector sum).
+//   * What is left: the gathers are random 32-byte sectors, so the device
+//     time stays several times the bound of useful bytes; on a window of
+//     ~0.6M rows the wrapper's host time (checks, one allocation, the
+//     ctypes call) is as long as the kernel's.
 //
 // A second entry, reduce_vectors, sums VECTOR_SUM's D value coordinates
 // per partition (executor.py:408-411 and the vsum stack at :509-511): the
-// same tile scan over the same sorted stream, four coordinates a pass set,
-// with each sorted row's coordinates gathered through both permutations
-// (partition sort, then bounding sort) instead of a bounded n x D copy.
+// same scan, four coordinates a launch, with each sorted row's
+// coordinates gathered through both permutations (partition sort, then
+// bounding sort) instead of a bounded n x D copy.
 //
-// The compensated entry (numeric_mode="safe", K14: ops/segment_ops.py
-// compensated_cumsum / compensated_segment_diff, :100-157, used at
-// executor.py:488-494) carries each float32 sum as a TwoSum pair (hi, lo)
-// through the same scan: hi the rounded sum, lo the exact residues of its
-// additions, added in plain float. A partition's sum is emitted as hi + lo
-// rounded once: exact for integer-valued sums to ~2^48, where a float32
-// sum drops low bits past 2^24. Each run is summed directly, so no long
-// prefix is differenced; an overflowed hi is emitted as is (Inf, or NaN
-// where +Inf and -Inf met), never the NaN of its residues. The file is
-// built with --fmad=false and no fast-math: a contracted or reassociated
-// TwoSum loses the residue. float64 and the integer counts take the plain
-// entry, as in the JAX package (segment_ops.py:132-133).
+// The compensated entry (numeric_mode="safe") carries each float32 sum as
+// a TwoSum pair (hi, lo) through the same scan: hi the rounded sum, lo the
+// exact residues of its additions, added in plain float. A partition's sum
+// is emitted as hi + lo rounded once: exact for integer-valued sums to
+// ~2^48, where a float32 sum drops low bits past 2^24. Each run is summed
+// directly, so no long prefix is differenced; an overflowed hi is emitted
+// as is (Inf, or NaN where +Inf and -Inf met), never the NaN of its
+// residues. The file is built with --fmad=false and no fast-math: a
+// contracted or reassociated TwoSum loses the residue. float64 and the
+// integer counts take the plain entry, as in the JAX package
+// (segment_ops.py:132-133).
 //
-// The windowed entry (the blocked route, K15b: pipelinedp_tpu/parallel/
-// large_p.py _block_trace, :156-212, whose rows are a window [lo, lo + len)
-// of the partition-sorted stream rebased to spk - base) is the same scan
-// over a window: the caller passes skey2 + lo and perm + lo, row r's
-// partition is skey2[r] - base, and a result outside [0, n_partitions) is
-// dropped, so the rows of neighbouring blocks and the dropped rows'
+// The windowed entry (the blocked route, whose rows are a window [lo,
+// lo + len) of the partition-sorted stream rebased to spk - base) is the
+// same scan over a window: the caller passes skey2 + lo and perm + lo, row
+// r's partition is skey2[r] - base, and a result outside [0, n_partitions)
+// is dropped, so the rows of neighbouring blocks and the dropped rows'
 // sentinel write nothing. perm may be null: the rows are then in sorted
 // order already (the host-staged stream) and pair_start and the columns
 // are windows too. The dense route passes base 0 and a permutation.
 //
-// Bound: bytes. Each pass reads skey2 (4 B) and, in the last pass, perm
-// (8 B) and through it pair_start (1 B) and up to three F columns; the
-// outputs are 5 F columns of n_partitions. The reads through perm are
-// gathers. The vector entry reads perm and row_perm (8 B each) and D F
-// values a row, and writes D F values a partition.
+// The lane entries (L jobs' partitions as one range of L * P): lane l's
+// kept rows are the window [bounds[l], bounds[l + 1]) of the stream
+// (key2 = l * P + partition; the dropped rows' L * P sorts last), found by
+// lane_bounds. Each lane is tiled from its own first row and walks back
+// within itself, so a position of lane l is summed with the association of
+// the same position in the lane's solo run, whose kept rows start the
+// stream: the float sums are bit for bit the solo kernel's.
 #include "common.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;    // threads a tile
+constexpr int kScalarItems = 2;  // consecutive rows a thread: 512-row tiles
+constexpr int kVectorItems = 4;  // (the vector entry: 1024-row tiles)
+constexpr int kVec = 4;          // coordinates a vector launch
+
+long long tiles_of(long long n, int items) {
+  const long long rows = static_cast<long long>(kThreads) * items;
+  return (n + rows - 1) / rows;
+}
 
 // A float sum: plain (C false) or compensated (C true).
 template <typename F, bool C>
@@ -69,6 +109,9 @@ struct Acc<F, false> {
   __device__ __forceinline__ F value() const { return v; }
   __device__ __forceinline__ Acc shfl_up(int d) const {
     return Acc{__shfl_up_sync(pdp::kFullMask, v, d)};
+  }
+  __device__ __forceinline__ Acc shfl(int src) const {
+    return Acc{__shfl_sync(pdp::kFullMask, v, src)};
   }
 };
 
@@ -90,6 +133,10 @@ struct Acc<F, true> {
   __device__ __forceinline__ Acc shfl_up(int d) const {
     return Acc{__shfl_up_sync(pdp::kFullMask, hi, d),
                __shfl_up_sync(pdp::kFullMask, lo, d)};
+  }
+  __device__ __forceinline__ Acc shfl(int src) const {
+    return Acc{__shfl_sync(pdp::kFullMask, hi, src),
+               __shfl_sync(pdp::kFullMask, lo, src)};
   }
 };
 
@@ -121,268 +168,16 @@ struct SegOp {
     v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
     return v;
   }
-};
-
-template <typename F, bool C>
-struct Rows {
-  const int32_t* skey2;
-  const long long* perm;
-  const uint8_t* pair_start;
-  const F* sum;
-  const F* nsum;
-  const F* nsum2;
-  long long n;
-  long long base;  // partition of row i: skey2[i] - base
-
-  __device__ __forceinline__ Seg<F, C> element(long long i) const {
-    const long long r = perm ? perm[i] : i;
-    return Seg<F, C>{1,
-                     pair_start[r],
-                     Acc<F, C>::of(sum ? sum[r] : F(0)),
-                     Acc<F, C>::of(nsum ? nsum[r] : F(0)),
-                     Acc<F, C>::of(nsum2 ? nsum2[r] : F(0)),
-                     (i == 0 || skey2[i] != skey2[i - 1]) ? 1 : 0};
+  static __device__ __forceinline__ T shfl(T v, int src) {
+    v.cnt = __shfl_sync(pdp::kFullMask, v.cnt, src);
+    v.pc = __shfl_sync(pdp::kFullMask, v.pc, src);
+    v.s = v.s.shfl(src);
+    v.ns = v.ns.shfl(src);
+    v.ns2 = v.ns2.shfl(src);
+    v.f = __shfl_sync(pdp::kFullMask, v.f, src);
+    return v;
   }
 };
-
-// One tile's aggregate: the rows [tile * kTile, (tile + 1) * kTile) of
-// `rows` (identity past rows.n), written by thread 0 to *out.
-template <typename F, bool C>
-__device__ __forceinline__ void tile_aggregate(const Rows<F, C>& rows,
-                                               long long tile,
-                                               Seg<F, C>* out) {
-  using Op = SegOp<F, C>;
-  __shared__ Seg<F, C> smem[32];
-  const long long base = tile * pdp::kTile +
-                         static_cast<long long>(threadIdx.x) * pdp::kItems;
-  Seg<F, C> acc = Op::identity();
-#pragma unroll
-  for (int k = 0; k < pdp::kItems; ++k) {
-    if (base + k < rows.n) acc = Op::combine(acc, rows.element(base + k));
-  }
-  Seg<F, C> total;
-  pdp::block_exclusive_scan<Op>(acc, smem, &total);
-  if (threadIdx.x == 0) *out = total;
-}
-
-// Rescans one tile from its prefix; the last row of each partition's run
-// writes that partition's columns (partition = skey2 - rows.base, kept
-// when in [0, n_partitions)).
-template <typename F, bool C>
-__device__ __forceinline__ void write_tile(const Rows<F, C>& rows,
-                                           long long tile, Seg<F, C> prefix,
-                                           int n_partitions, F* count,
-                                           F* pid_count, F* sum, F* nsum,
-                                           F* nsum2) {
-  using Op = SegOp<F, C>;
-  __shared__ Seg<F, C> smem[32];
-  const long long base = tile * pdp::kTile +
-                         static_cast<long long>(threadIdx.x) * pdp::kItems;
-  Seg<F, C> elems[pdp::kItems];
-  Seg<F, C> acc = Op::identity();
-#pragma unroll
-  for (int k = 0; k < pdp::kItems; ++k) {
-    elems[k] = base + k < rows.n ? rows.element(base + k) : Op::identity();
-    acc = Op::combine(acc, elems[k]);
-  }
-  Seg<F, C> total;
-  const Seg<F, C> excl = pdp::block_exclusive_scan<Op>(acc, smem, &total);
-  Seg<F, C> state = Op::combine(prefix, excl);
-#pragma unroll
-  for (int k = 0; k < pdp::kItems; ++k) {
-    const long long i = base + k;
-    if (i >= rows.n) break;
-    state = Op::combine(state, elems[k]);
-    const int32_t sk = rows.skey2[i];
-    const bool last = i + 1 == rows.n || rows.skey2[i + 1] != sk;
-    const long long key = static_cast<long long>(sk) - rows.base;
-    if (last && key >= 0 && key < n_partitions) {
-      count[key] = static_cast<F>(state.cnt);
-      pid_count[key] = static_cast<F>(state.pc);
-      if (sum) sum[key] = state.s.value();
-      if (nsum) nsum[key] = state.ns.value();
-      if (nsum2) nsum2[key] = state.ns2.value();
-    }
-  }
-}
-
-template <typename F, bool C>
-__global__ void tile_aggregates(Rows<F, C> rows, Seg<F, C>* aggs) {
-  tile_aggregate(rows, blockIdx.x, aggs + blockIdx.x);
-}
-
-template <typename F, bool C>
-__global__ void write_partitions(Rows<F, C> rows, const Seg<F, C>* prefixes,
-                                 int n_partitions, F* __restrict__ count,
-                                 F* __restrict__ pid_count,
-                                 F* __restrict__ sum, F* __restrict__ nsum,
-                                 F* __restrict__ nsum2) {
-  write_tile(rows, blockIdx.x, prefixes[blockIdx.x], n_partitions, count,
-             pid_count, sum, nsum, nsum2);
-}
-
-// --- Lane entry: L jobs' partitions as one range of L * P. -------------
-//
-// Lane l's kept rows are the window [bounds[l], bounds[l + 1]) of the
-// partition-sorted stream (key2 = l * P + partition; the dropped rows'
-// L * P sorts last). Each lane scans its own window from its own first
-// row, in tiles of its own (blockIdx.y = lane, blockIdx.x = tile of the
-// lane), and its tile prefixes are scanned by a block of its own. A
-// position of lane l is thus summed with the association of the same
-// position in the lane's solo run, whose kept rows start the stream: the
-// float sums are bit for bit the solo kernel's, not only in the same row
-// order. The compensated lane entry (numeric_mode="safe") carries the
-// same TwoSum pairs a lane, and the vector lane entry scans each lane's
-// window for its D coordinates, four a pass set, as the solo entries do.
-
-// The lane entries' scratch: n_aggs tile aggregates of `each` bytes, then
-// the L + 1 lane bounds at the next 16-byte boundary (a float32
-// aggregate's size is not a multiple of 8).
-__host__ __device__ __forceinline__ long long lane_aggs_bytes(long long n_aggs,
-                                                              long long each) {
-  return (n_aggs * each + 15) / 16 * 16;
-}
-
-// bounds[l] = the first position with skey2 >= l * n_partitions, for l in
-// [0, n_lanes].
-__global__ void lane_bounds(const int32_t* __restrict__ skey2, long long n,
-                            int n_partitions, int n_lanes,
-                            long long* __restrict__ bounds) {
-  const long long l =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (l > n_lanes) return;
-  const long long target = l * n_partitions;
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = lo + (hi - lo) / 2;
-    if (static_cast<long long>(skey2[mid]) < target) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  bounds[l] = lo;
-}
-
-template <typename F, bool C>
-__device__ __forceinline__ Rows<F, C> lane_window(Rows<F, C> rows,
-                                                  const long long* bounds,
-                                                  int n_partitions) {
-  const long long lane = blockIdx.y;
-  const long long lo = bounds[lane];
-  rows.skey2 += lo;
-  rows.perm += lo;
-  rows.n = bounds[lane + 1] - lo;
-  rows.base = lane * n_partitions;
-  return rows;
-}
-
-template <typename F, bool C>
-__global__ void tile_aggregates_lanes(Rows<F, C> rows,
-                                      const long long* __restrict__ bounds,
-                                      int n_partitions, long long lane_tiles,
-                                      Seg<F, C>* aggs) {
-  const Rows<F, C> w = lane_window(rows, bounds, n_partitions);
-  tile_aggregate(w, blockIdx.x, aggs + blockIdx.y * lane_tiles + blockIdx.x);
-}
-
-template <class Op>
-__global__ void scan_lane_aggregates(typename Op::T* aggs,
-                                     long long lane_tiles) {
-  __shared__ typename Op::T smem[32];
-  pdp::block_scan_in_place<Op>(aggs + blockIdx.x * lane_tiles, lane_tiles,
-                               smem, nullptr);
-}
-
-template <typename F, bool C>
-__global__ void write_partitions_lanes(
-    Rows<F, C> rows, const long long* __restrict__ bounds,
-    const Seg<F, C>* prefixes, int n_partitions, long long lane_tiles,
-    F* __restrict__ count, F* __restrict__ pid_count, F* __restrict__ sum,
-    F* __restrict__ nsum, F* __restrict__ nsum2) {
-  const Rows<F, C> w = lane_window(rows, bounds, n_partitions);
-  if (static_cast<long long>(blockIdx.x) * pdp::kTile >= w.n) return;
-  const long long at = static_cast<long long>(blockIdx.y) * n_partitions;
-  write_tile(w, blockIdx.x, prefixes[blockIdx.y * lane_tiles + blockIdx.x],
-             n_partitions, count + at, pid_count + at,
-             sum ? sum + at : nullptr, nsum ? nsum + at : nullptr,
-             nsum2 ? nsum2 + at : nullptr);
-}
-
-template <typename F, bool C>
-int launch(const void* skey2, const void* perm, const void* pair_start,
-           const void* row_sum, const void* row_nsum, const void* row_nsum2,
-           long long n, int n_partitions, long long base, void* scratch,
-           void* count, void* pid_count, void* sum, void* nsum, void* nsum2,
-           void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long tiles = pdp::n_tiles(n);
-  Rows<F, C> rows{static_cast<const int32_t*>(skey2),
-               static_cast<const long long*>(perm),
-               static_cast<const uint8_t*>(pair_start),
-               static_cast<const F*>(row_sum),
-               static_cast<const F*>(row_nsum),
-               static_cast<const F*>(row_nsum2),
-               n,
-               base};
-  Seg<F, C>* aggs = static_cast<Seg<F, C>*>(scratch);
-  tile_aggregates<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
-                          s>>>(rows, aggs);
-  pdp::scan_tile_aggregates<SegOp<F, C>><<<1, 1024, 0, s>>>(aggs, tiles,
-                                                            nullptr);
-  write_partitions<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
-                           s>>>(
-      rows, aggs, n_partitions, static_cast<F*>(count),
-      static_cast<F*>(pid_count), static_cast<F*>(sum),
-      static_cast<F*>(nsum), static_cast<F*>(nsum2));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename F, bool C>
-int launch_lanes(const void* skey2, const void* perm, const void* pair_start,
-                 const void* row_sum, const void* row_nsum,
-                 const void* row_nsum2, long long n, long long lane_rows,
-                 int n_partitions, void* scratch, void* count,
-                 void* pid_count, void* sum, void* nsum, void* nsum2,
-                 void* stream) {
-  if (n <= 0) return 0;
-  if (lane_rows <= 0 || n % lane_rows != 0 || perm == nullptr) return -1;
-  const long long n_lanes = n / lane_rows;
-  if (n_lanes > 65535) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long lane_tiles = pdp::n_tiles(lane_rows);
-  Seg<F, C>* aggs = static_cast<Seg<F, C>*>(scratch);
-  long long* bounds = reinterpret_cast<long long*>(
-      static_cast<char*>(scratch) +
-      lane_aggs_bytes(n_lanes * lane_tiles, sizeof(Seg<F, C>)));
-  Rows<F, C> rows{static_cast<const int32_t*>(skey2),
-                  static_cast<const long long*>(perm),
-                  static_cast<const uint8_t*>(pair_start),
-                  static_cast<const F*>(row_sum),
-                  static_cast<const F*>(row_nsum),
-                  static_cast<const F*>(row_nsum2),
-                  n,
-                  0};
-  lane_bounds<<<static_cast<unsigned>((n_lanes + 1 + 255) / 256), 256, 0,
-                s>>>(static_cast<const int32_t*>(skey2), n, n_partitions,
-                     static_cast<int>(n_lanes), bounds);
-  const dim3 grid(static_cast<unsigned>(lane_tiles),
-                  static_cast<unsigned>(n_lanes));
-  tile_aggregates_lanes<F, C><<<grid, pdp::kThreads, 0, s>>>(
-      rows, bounds, n_partitions, lane_tiles, aggs);
-  scan_lane_aggregates<SegOp<F, C>><<<static_cast<unsigned>(n_lanes), 1024,
-                                      0, s>>>(aggs, lane_tiles);
-  write_partitions_lanes<F, C><<<grid, pdp::kThreads, 0, s>>>(
-      rows, bounds, aggs, n_partitions, lane_tiles, static_cast<F*>(count),
-      static_cast<F*>(pid_count), static_cast<F*>(sum),
-      static_cast<F*>(nsum), static_cast<F*>(nsum2));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// --- Vector entry: kVec coordinates per scan, one segment flag. ---------
-
-constexpr int kVec = 4;
 
 template <typename F, bool C>
 struct VSeg {
@@ -412,353 +207,526 @@ struct VSegOp {
     v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
     return v;
   }
+  static __device__ __forceinline__ T shfl(T v, int src) {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) v.v[c] = v.v[c].shfl(src);
+    v.f = __shfl_sync(pdp::kFullMask, v.f, src);
+    return v;
+  }
 };
 
+// The scalar columns: gathers through perm (null: position i is bounded
+// row i) and the run-end writes.
 template <typename F, bool C>
-struct VRows {
-  const int32_t* skey2;
-  const long long* perm;      // null: sorted position i is bounded row i
-  const long long* row_perm;  // null: the bounded rows are the value rows
-  const F* values;            // [n, dim]
-  long long n;
-  long long base;  // partition of row i: skey2[i] - base
+struct ScalarRows {
+  using Op = SegOp<F, C>;
+  using T = Seg<F, C>;
+  static constexpr int kItems = kScalarItems;
+  const long long* perm;
+  const uint8_t* pair_start;
+  const F* sum;
+  const F* nsum;
+  const F* nsum2;
+  F* count;
+  F* pid_count;
+  F* out_sum;
+  F* out_nsum;
+  F* out_nsum2;
+
+  __device__ __forceinline__ long long row(long long i) const {
+    return perm ? __ldg(perm + i) : i;
+  }
+  __device__ __forceinline__ T element(long long r, int f) const {
+    return T{1,
+             __ldg(pair_start + r),
+             Acc<F, C>::of(sum ? __ldg(sum + r) : F(0)),
+             Acc<F, C>::of(nsum ? __ldg(nsum + r) : F(0)),
+             Acc<F, C>::of(nsum2 ? __ldg(nsum2 + r) : F(0)),
+             f};
+  }
+  __device__ __forceinline__ void write(long long key, const T& s) const {
+    count[key] = static_cast<F>(s.cnt);
+    pid_count[key] = static_cast<F>(s.pc);
+    if (out_sum) out_sum[key] = s.s.value();
+    if (out_nsum) out_nsum[key] = s.ns.value();
+    if (out_nsum2) out_nsum2[key] = s.ns2.value();
+  }
+};
+
+// Coordinates [d0, d0 + kVec) of the vector values: sorted position i is
+// bounded row perm[i] (null: i), whose values are row row_perm[r] (null:
+// r) of values[*, dim]; vsum is partition-major, dim a partition.
+template <typename F, bool C>
+struct VectorRows {
+  using Op = VSegOp<F, C>;
+  using T = VSeg<F, C>;
+  static constexpr int kItems = kVectorItems;
+  const long long* perm;
+  const long long* row_perm;
+  const F* values;
+  F* vsum;
   int dim, d0;
 
-  __device__ __forceinline__ VSeg<F, C> element(long long i) const {
-    long long r = perm ? perm[i] : i;
-    if (row_perm) r = row_perm[r];
-    const F* row = values + r * dim;
-    VSeg<F, C> e;
+  __device__ __forceinline__ long long row(long long i) const {
+    const long long r = perm ? __ldg(perm + i) : i;
+    return row_perm ? __ldg(row_perm + r) : r;
+  }
+  __device__ __forceinline__ T element(long long r, int f) const {
+    const F* v = values + r * dim + d0;
+    T e;
 #pragma unroll
     for (int c = 0; c < kVec; ++c)
-      e.v[c] = Acc<F, C>::of(d0 + c < dim ? row[d0 + c] : F(0));
-    e.f = (i == 0 || skey2[i] != skey2[i - 1]) ? 1 : 0;
+      e.v[c] = Acc<F, C>::of(d0 + c < dim ? __ldg(v + c) : F(0));
+    e.f = f;
     return e;
+  }
+  __device__ __forceinline__ void write(long long key, const T& s) const {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      if (d0 + c < dim) vsum[key * dim + d0 + c] = s.v[c].value();
+    }
   }
 };
 
-template <typename F, bool C>
-__device__ __forceinline__ void vector_tile_aggregate(const VRows<F, C>& rows,
-                                                      long long tile,
-                                                      VSeg<F, C>* out) {
-  using Op = VSegOp<F, C>;
-  __shared__ VSeg<F, C> smem[32];
-  const long long base = tile * pdp::kTile +
-                         static_cast<long long>(threadIdx.x) * pdp::kItems;
-  VSeg<F, C> acc = Op::identity();
-#pragma unroll
-  for (int k = 0; k < pdp::kItems; ++k) {
-    if (base + k < rows.n) acc = Op::combine(acc, rows.element(base + k));
-  }
-  VSeg<F, C> total;
-  pdp::block_exclusive_scan<Op>(acc, smem, &total);
-  if (threadIdx.x == 0) *out = total;
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-template <typename F, bool C>
-__global__ void vector_tile_aggregates(VRows<F, C> rows, VSeg<F, C>* aggs) {
-  vector_tile_aggregate(rows, blockIdx.x, aggs + blockIdx.x);
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
 }
 
-// Rescans one tile from its prefix; the last row of each partition's run
-// writes its coordinates [d0, d0 + kVec) of vsum (partition-major, dim a
-// row; partition = skey2 - rows.base, kept when in [0, n_partitions)).
-template <typename F, bool C>
-__device__ __forceinline__ void write_vector_tile(const VRows<F, C>& rows,
-                                                  long long tile,
-                                                  VSeg<F, C> prefix,
-                                                  int n_partitions,
-                                                  F* vsum) {
-  using Op = VSegOp<F, C>;
-  __shared__ VSeg<F, C> smem[32];
-  const long long base = tile * pdp::kTile +
-                         static_cast<long long>(threadIdx.x) * pdp::kItems;
-  VSeg<F, C> elems[pdp::kItems];
-  VSeg<F, C> acc = Op::identity();
+// A published aggregate, read word by word from L2.
+template <class T>
+__device__ __forceinline__ T load_published(const T* p) {
+  static_assert(sizeof(T) % 4 == 0, "aggregates are whole words");
+  T out;
+  const unsigned* src = reinterpret_cast<const unsigned*>(p);
+  unsigned* dst = reinterpret_cast<unsigned*>(&out);
 #pragma unroll
-  for (int k = 0; k < pdp::kItems; ++k) {
-    elems[k] = base + k < rows.n ? rows.element(base + k) : Op::identity();
-    acc = Op::combine(acc, elems[k]);
-  }
-  VSeg<F, C> total;
-  const VSeg<F, C> excl = pdp::block_exclusive_scan<Op>(acc, smem, &total);
-  VSeg<F, C> state = Op::combine(prefix, excl);
-#pragma unroll
-  for (int k = 0; k < pdp::kItems; ++k) {
-    const long long i = base + k;
-    if (i >= rows.n) break;
-    state = Op::combine(state, elems[k]);
-    const int32_t sk = rows.skey2[i];
-    const bool last = i + 1 == rows.n || rows.skey2[i + 1] != sk;
-    const long long key = static_cast<long long>(sk) - rows.base;
-    if (last && key >= 0 && key < n_partitions) {
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        if (rows.d0 + c < rows.dim)
-          vsum[key * rows.dim + rows.d0 + c] =
-              state.v[c].value();
+  for (int w = 0; w < static_cast<int>(sizeof(T) / 4); ++w)
+    dst[w] = __ldcg(src + w);
+  return out;
+}
+
+// Warp 0's walk: the aggregate of tiles [start of the run, tile) of one
+// scan, whose tile t sits at slot `first_slot + t` of aggs / ready. Tiles
+// are taken 32 at a time, lane 31 the nearest, scanned in order, and
+// folded in front of what was gathered; a chunk in which a segment starts
+// ends the walk (tile 0 of a scan always starts one).
+template <class Op>
+__device__ typename Op::T look_back(const typename Op::T* aggs,
+                                    const int* ready, long long first_slot,
+                                    long long tile) {
+  using T = typename Op::T;
+  const int lane = threadIdx.x & 31;
+  T acc = Op::identity();
+  for (long long hi = tile;; hi -= 32) {
+    const long long j = hi - 32 + lane;
+    T a = Op::identity();
+    if (j >= 0) {
+      while (load_acquire(ready + first_slot + j) == 0) {
       }
+      a = load_published(aggs + first_slot + j);
+    }
+    __syncwarp();
+    const T chunk = Op::shfl(pdp::warp_inclusive_scan<Op>(a), 31);
+    acc = Op::combine(chunk, acc);
+    if (chunk.f || hi <= 32) break;
+  }
+  return acc;
+}
+
+// The scan of one tile. Solo (bounds null): the rows are [0, n) of skey2
+// / rows, partition skey2 - base, outputs at that partition. Lanes:
+// claimed tile v is tile v mod lane_tiles of lane v / lane_tiles, whose
+// rows are [bounds[l], bounds[l + 1]) and partitions skey2 - l * P, written
+// at skey2 itself (l * P + partition).
+template <class Rows>
+__global__ void __launch_bounds__(kThreads)
+    reduce_tiles(Rows rows, const int32_t* __restrict__ skey2, long long n,
+                 long long base, int n_partitions,
+                 const long long* __restrict__ bounds, long long lane_tiles,
+                 unsigned long long* counter, int* ready,
+                 typename Rows::T* aggs) {
+  using Op = typename Rows::Op;
+  using T = typename Rows::T;
+  constexpr int kItems = Rows::kItems;
+  __shared__ T smem[32];
+  __shared__ T s_prefix;
+  __shared__ long long s_claim;
+  if (threadIdx.x == 0)
+    s_claim = static_cast<long long>(atomicAdd(counter, 1ULL));
+  __syncthreads();
+  const long long v = s_claim;
+  long long tile = v, lo = 0, out_at = 0;
+  if (bounds != nullptr) {
+    const long long lane = v / lane_tiles;
+    tile = v - lane * lane_tiles;
+    lo = bounds[lane];
+    n = bounds[lane + 1] - lo;
+    base = lane * n_partitions;
+    out_at = base;
+  }
+  const long long t0 = tile * kThreads * kItems;
+  if (t0 >= n) return;  // a lane's tile past its rows: none reads it
+  const int32_t* key = skey2 + lo;
+  const long long first = t0 + static_cast<long long>(threadIdx.x) * kItems;
+
+  int32_t k_[kItems];
+  long long r_[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long i = first + k;
+    k_[k] = i < n ? key[i] : 0;
+    r_[k] = i < n ? rows.row(lo + i) : 0;
+  }
+  const int32_t prev = first > 0 && first < n ? key[first - 1] : 0;
+  const int32_t next = first + kItems < n ? key[first + kItems] : 0;
+  T e[kItems];
+  bool last[kItems];
+  bool any_last = false;
+  T acc = Op::identity();
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long i = first + k;
+    last[k] = false;
+    e[k] = Op::identity();
+    if (i < n) {
+      const int32_t before = k ? k_[k - 1] : prev;
+      const int32_t after = k + 1 < kItems ? k_[k + 1] : next;
+      e[k] = rows.element(r_[k], (i == 0 || k_[k] != before) ? 1 : 0);
+      last[k] = i + 1 == n || k_[k] != after;
+      any_last |= last[k];
+      acc = Op::combine(acc, e[k]);
     }
   }
-}
-
-template <typename F, bool C>
-__global__ void write_vectors(VRows<F, C> rows, const VSeg<F, C>* prefixes,
-                              int n_partitions, F* __restrict__ vsum) {
-  write_vector_tile(rows, blockIdx.x, prefixes[blockIdx.x], n_partitions,
-                    vsum);
-}
-
-// The vector lane entry: lane blockIdx.y scans its window [bounds[l],
-// bounds[l + 1]) of the stream in tiles of its own, as the scalar lane
-// entry does, and writes its partitions at [l * P, (l + 1) * P) of vsum.
-template <typename F, bool C>
-__device__ __forceinline__ VRows<F, C> vector_lane_window(
-    VRows<F, C> rows, const long long* bounds, int n_partitions) {
-  const long long lane = blockIdx.y;
-  const long long lo = bounds[lane];
-  rows.skey2 += lo;
-  rows.perm += lo;
-  rows.n = bounds[lane + 1] - lo;
-  rows.base = lane * n_partitions;
-  return rows;
-}
-
-template <typename F, bool C>
-__global__ void vector_tile_aggregates_lanes(
-    VRows<F, C> rows, const long long* __restrict__ bounds, int n_partitions,
-    long long lane_tiles, VSeg<F, C>* aggs) {
-  const VRows<F, C> w = vector_lane_window(rows, bounds, n_partitions);
-  vector_tile_aggregate(w, blockIdx.x,
-                        aggs + blockIdx.y * lane_tiles + blockIdx.x);
-}
-
-template <typename F, bool C>
-__global__ void write_vectors_lanes(VRows<F, C> rows,
-                                    const long long* __restrict__ bounds,
-                                    const VSeg<F, C>* prefixes,
-                                    int n_partitions, long long lane_tiles,
-                                    F* __restrict__ vsum) {
-  const VRows<F, C> w = vector_lane_window(rows, bounds, n_partitions);
-  if (static_cast<long long>(blockIdx.x) * pdp::kTile >= w.n) return;
-  write_vector_tile(w, blockIdx.x,
-                    prefixes[blockIdx.y * lane_tiles + blockIdx.x],
-                    n_partitions,
-                    vsum + static_cast<long long>(blockIdx.y) *
-                               n_partitions * rows.dim);
-}
-
-template <typename F, bool C>
-int launch_vectors(const void* skey2, const void* perm, const void* row_perm,
-                   const void* values, long long n, int dim,
-                   int n_partitions, long long base, void* scratch,
-                   void* vsum, void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long tiles = pdp::n_tiles(n);
-  VSeg<F, C>* aggs = static_cast<VSeg<F, C>*>(scratch);
-  for (int d0 = 0; d0 < dim; d0 += kVec) {
-    VRows<F, C> rows{static_cast<const int32_t*>(skey2),
-                  static_cast<const long long*>(perm),
-                  static_cast<const long long*>(row_perm),
-                  static_cast<const F*>(values),
-                  n,
-                  base,
-                  dim,
-                  d0};
-    vector_tile_aggregates<F, C><<<static_cast<unsigned>(tiles),
-                                   pdp::kThreads, 0, s>>>(rows, aggs);
-    // 512 threads: the float64 aggregate (and the compensated float32
-    // one, as wide) needs more than the 64 registers a thread of a
-    // 1024-thread block may have.
-    pdp::scan_tile_aggregates<VSegOp<F, C>><<<1, 512, 0, s>>>(aggs, tiles,
-                                                              nullptr);
-    write_vectors<F, C><<<static_cast<unsigned>(tiles), pdp::kThreads, 0,
-                          s>>>(rows, aggs, n_partitions,
-                               static_cast<F*>(vsum));
+  T total;
+  const T excl = pdp::block_exclusive_scan<Op>(acc, smem, &total);
+  const bool ends = __syncthreads_or(any_last);
+  if (threadIdx.x == 0) {
+    aggs[v] = total;
+    __threadfence();
+    store_release(ready + v, 1);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (threadIdx.x < 32) {
+    // The tile's first run needs the rows before the tile when it began
+    // earlier, ends here and is kept.
+    T prefix = Op::identity();
+    const long long key0 = static_cast<long long>(key[t0]) - base;
+    if (t0 > 0 && ends && key[t0 - 1] == key[t0] && key0 >= 0 &&
+        key0 < n_partitions)
+      prefix = look_back<Op>(aggs, ready, v - tile, tile);
+    if (threadIdx.x == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+  T state = Op::combine(s_prefix, excl);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long i = first + k;
+    if (i >= n) break;
+    state = Op::combine(state, e[k]);
+    const long long kk = static_cast<long long>(k_[k]) - base;
+    if (last[k] && kk >= 0 && kk < n_partitions) rows.write(out_at + kk, state);
+  }
 }
 
+// bounds[l] = the first position with skey2 >= l * n_partitions, for l in
+// [0, n_lanes].
+__global__ void lane_bounds(const int32_t* __restrict__ skey2, long long n,
+                            int n_partitions, int n_lanes,
+                            long long* __restrict__ bounds) {
+  const long long l =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (l > n_lanes) return;
+  const long long target = l * n_partitions;
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo) / 2;
+    if (static_cast<long long>(skey2[mid]) < target) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  bounds[l] = lo;
+}
+
+// The scratch of `groups` scans of `tiles` tiles (one group a launch):
+// their counters and ready flags (reset by one memset), the aggregates
+// (shared: the launches run in stream order) and, for lanes, the L + 1
+// lane bounds.
+struct Scratch {
+  long long flags_at, aggs_at, bounds_at, total;
+};
+
+long long round16(long long b) { return (b + 15) / 16 * 16; }
+
+Scratch scratch_layout(long long tiles, int groups, long long agg_bytes,
+                       long long n_lanes) {
+  Scratch s;
+  s.flags_at = round16(groups * 8LL);
+  s.aggs_at = s.flags_at + round16(groups * tiles * 4LL);
+  s.bounds_at = s.aggs_at + round16(tiles * agg_bytes);
+  s.total = s.bounds_at + (n_lanes > 0 ? (n_lanes + 1) * 8LL : 0);
+  return s;
+}
+
+int vector_groups(int dim) { return (dim + kVec - 1) / kVec; }
+
 template <typename F, bool C>
-int launch_vectors_lanes(const void* skey2, const void* perm,
-                         const void* row_perm, const void* values,
-                         long long n, long long lane_rows, int dim,
-                         int n_partitions, void* scratch, void* vsum,
-                         void* stream) {
-  if (n <= 0) return 0;
-  if (lane_rows <= 0 || n % lane_rows != 0 || perm == nullptr) return -1;
-  const long long n_lanes = n / lane_rows;
-  if (n_lanes > 65535) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long lane_tiles = pdp::n_tiles(lane_rows);
-  VSeg<F, C>* aggs = static_cast<VSeg<F, C>*>(scratch);
-  long long* bounds = reinterpret_cast<long long*>(
-      static_cast<char*>(scratch) +
-      lane_aggs_bytes(n_lanes * lane_tiles, sizeof(VSeg<F, C>)));
+long long agg_bytes(bool vec) {
+  return vec ? sizeof(VSeg<F, C>) : sizeof(Seg<F, C>);
+}
+
+long long agg_bytes_of(int f64, int comp, bool vec) {
+  if (f64) return agg_bytes<double, false>(vec);
+  return comp ? agg_bytes<float, true>(vec) : agg_bytes<float, false>(vec);
+}
+
+// One launch of reduce_tiles for group g of the scratch.
+template <class Rows>
+void launch_group(const Rows& rows, const void* skey2, long long n,
+                  long long base, int n_partitions, const long long* bounds,
+                  long long lane_tiles, long long tiles, int g, char* scratch,
+                  const Scratch& lay, cudaStream_t s) {
+  auto* counter = reinterpret_cast<unsigned long long*>(scratch) + g;
+  int* ready = reinterpret_cast<int*>(scratch + lay.flags_at) + g * tiles;
+  auto* aggs = reinterpret_cast<typename Rows::T*>(scratch + lay.aggs_at);
+  reduce_tiles<Rows><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+      rows, static_cast<const int32_t*>(skey2), n, base, n_partitions,
+      bounds, lane_tiles, counter, ready, aggs);
+}
+
+// The lane bounds, found before the scan (lanes), or null (a solo scan).
+const long long* find_bounds(const void* skey2, long long n, int n_partitions,
+                             long long n_lanes, char* scratch,
+                             const Scratch& lay, cudaStream_t s) {
+  if (n_lanes == 0) return nullptr;
+  auto* bounds = reinterpret_cast<long long*>(scratch + lay.bounds_at);
   lane_bounds<<<static_cast<unsigned>((n_lanes + 1 + 255) / 256), 256, 0,
                 s>>>(static_cast<const int32_t*>(skey2), n, n_partitions,
                      static_cast<int>(n_lanes), bounds);
-  const dim3 grid(static_cast<unsigned>(lane_tiles),
-                  static_cast<unsigned>(n_lanes));
-  for (int d0 = 0; d0 < dim; d0 += kVec) {
-    VRows<F, C> rows{static_cast<const int32_t*>(skey2),
-                     static_cast<const long long*>(perm),
-                     static_cast<const long long*>(row_perm),
-                     static_cast<const F*>(values),
-                     n,
-                     0,
-                     dim,
-                     d0};
-    vector_tile_aggregates_lanes<F, C><<<grid, pdp::kThreads, 0, s>>>(
-        rows, bounds, n_partitions, lane_tiles, aggs);
-    // 512 threads, as the solo entry's scan of its tile aggregates.
-    scan_lane_aggregates<VSegOp<F, C>><<<static_cast<unsigned>(n_lanes),
-                                         512, 0, s>>>(aggs, lane_tiles);
-    write_vectors_lanes<F, C><<<grid, pdp::kThreads, 0, s>>>(
-        rows, bounds, aggs, n_partitions, lane_tiles, static_cast<F*>(vsum));
+  return bounds;
+}
+
+bool lane_shape(long long n, long long lane_rows, const void* perm,
+                long long* n_lanes) {
+  if (lane_rows <= 0 || n % lane_rows != 0 || perm == nullptr) return false;
+  *n_lanes = n / lane_rows;
+  return *n_lanes <= 65535;
+}
+
+template <typename F, bool C>
+int run_scalar(const void* skey2, const void* perm, const void* pair_start,
+               const void* row_sum, const void* row_nsum,
+               const void* row_nsum2, long long n, long long lane_rows,
+               bool lanes, int n_partitions, long long base, void* scratch,
+               void* fill, long long fill_bytes, void* count, void* pid_count,
+               void* sum, void* nsum, void* nsum2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long n_lanes = 0;
+  if (lanes && n > 0 && !lane_shape(n, lane_rows, perm, &n_lanes)) return -1;
+  const long long lane_tiles = lanes ? tiles_of(lane_rows, kScalarItems) : 0;
+  const long long tiles =
+      lanes ? n_lanes * lane_tiles : tiles_of(n, kScalarItems);
+  const Scratch lay = scratch_layout(tiles, 1, sizeof(Seg<F, C>), n_lanes);
+  char* sc = static_cast<char*>(scratch);
+  // One memset where the caller placed the scratch right after the
+  // outputs (kernels._columns_and_scratch).
+  const bool joined = static_cast<char*>(fill) + fill_bytes == sc;
+  const long long head = n > 0 ? lay.aggs_at : 0;
+  if (fill_bytes + (joined ? head : 0) > 0)
+    cudaMemsetAsync(fill, 0, fill_bytes + (joined ? head : 0), s);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (!joined) cudaMemsetAsync(sc, 0, lay.aggs_at, s);
+  const long long* bounds =
+      find_bounds(skey2, n, n_partitions, n_lanes, sc, lay, s);
+  const ScalarRows<F, C> rows{static_cast<const long long*>(perm),
+                              static_cast<const uint8_t*>(pair_start),
+                              static_cast<const F*>(row_sum),
+                              static_cast<const F*>(row_nsum),
+                              static_cast<const F*>(row_nsum2),
+                              static_cast<F*>(count),
+                              static_cast<F*>(pid_count),
+                              static_cast<F*>(sum),
+                              static_cast<F*>(nsum),
+                              static_cast<F*>(nsum2)};
+  launch_group(rows, skey2, n, base, n_partitions, bounds, lane_tiles,
+               tiles, 0, sc, lay, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename F, bool C>
+int run_vectors(const void* skey2, const void* perm, const void* row_perm,
+                const void* values, long long n, long long lane_rows,
+                bool lanes, int dim, int n_partitions, long long base,
+                void* scratch, void* vsum, void* stream) {
+  if (dim < 1) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  long long n_lanes = 0;
+  if (lanes && n > 0 && !lane_shape(n, lane_rows, perm, &n_lanes)) return -1;
+  const long long out_bytes =
+      (lanes ? n_lanes : 1) * n_partitions * dim * sizeof(F);
+  if (out_bytes > 0) cudaMemsetAsync(vsum, 0, out_bytes, s);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int groups = vector_groups(dim);
+  const long long lane_tiles = lanes ? tiles_of(lane_rows, kVectorItems) : 0;
+  const long long tiles =
+      lanes ? n_lanes * lane_tiles : tiles_of(n, kVectorItems);
+  const Scratch lay =
+      scratch_layout(tiles, groups, sizeof(VSeg<F, C>), n_lanes);
+  char* sc = static_cast<char*>(scratch);
+  cudaMemsetAsync(sc, 0, lay.aggs_at, s);
+  const long long* bounds =
+      find_bounds(skey2, n, n_partitions, n_lanes, sc, lay, s);
+  for (int g = 0; g < groups; ++g) {
+    const VectorRows<F, C> rows{static_cast<const long long*>(perm),
+                                static_cast<const long long*>(row_perm),
+                                static_cast<const F*>(values),
+                                static_cast<F*>(vsum), dim, g * kVec};
+    launch_group(rows, skey2, n, base, n_partitions, bounds, lane_tiles,
+                 tiles, g, sc, lay, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+long long scratch_bytes(long long tiles, int groups, int f64, int comp,
+                        bool vec, long long n_lanes) {
+  return scratch_layout(tiles, groups, agg_bytes_of(f64, comp, vec), n_lanes)
+      .total;
 }
 
 }  // namespace
 
-extern "C" long long reduce_vectors_scratch_bytes(long long n, int f64,
-                                                  int comp) {
-  const long long each = f64 ? sizeof(VSeg<double, false>)
-                             : (comp ? sizeof(VSeg<float, true>)
-                                     : sizeof(VSeg<float, false>));
-  return pdp::n_tiles(n) * each;
+extern "C" long long reduce_partitions_scratch_bytes(long long n, int f64,
+                                                     int comp) {
+  return scratch_bytes(tiles_of(n, kScalarItems), 1, f64, comp, false, 0);
+}
+
+// Zero-fills fill[0, fill_bytes) (the caller's block of output columns:
+// count, pid_count and the present sums; scratch may follow it directly),
+// then writes every partition with a kept row. perm: nullable (rows already in sorted order); base: row i's
+// partition is skey2[i] - base (0 on the dense route). comp: compensated
+// float32 sums (ignored for float64).
+extern "C" int reduce_partitions(const void* skey2, const void* perm,
+                                 const void* pair_start, const void* row_sum,
+                                 const void* row_nsum, const void* row_nsum2,
+                                 long long n, int n_partitions,
+                                 long long base, void* scratch, void* fill,
+                                 long long fill_bytes, void* count,
+                                 void* pid_count, void* sum, void* nsum,
+                                 void* nsum2, int f64, int comp,
+                                 void* stream) {
+  if (f64)
+    return run_scalar<double, false>(
+        skey2, perm, pair_start, row_sum, row_nsum, row_nsum2, n, 0, false,
+        n_partitions, base, scratch, fill, fill_bytes, count, pid_count, sum,
+        nsum, nsum2, stream);
+  return comp ? run_scalar<float, true>(
+                    skey2, perm, pair_start, row_sum, row_nsum, row_nsum2, n,
+                    0, false, n_partitions, base, scratch, fill, fill_bytes,
+                    count, pid_count, sum, nsum, nsum2, stream)
+              : run_scalar<float, false>(
+                    skey2, perm, pair_start, row_sum, row_nsum, row_nsum2, n,
+                    0, false, n_partitions, base, scratch, fill, fill_bytes,
+                    count, pid_count, sum, nsum, nsum2, stream);
+}
+
+extern "C" long long reduce_vectors_scratch_bytes(long long n, int dim,
+                                                  int f64, int comp) {
+  return scratch_bytes(tiles_of(n, kVectorItems), vector_groups(dim), f64,
+                       comp, true, 0);
 }
 
 // Vector sums: skey2 / perm / base as for reduce_partitions; row_perm
 // (nullable) maps a bounded row to its row of values [*, dim]. vsum:
-// [n_partitions, dim], zero-filled by the caller. comp: compensated float32
-// sums (ignored for float64).
+// [n_partitions, dim], zero-filled here. comp: compensated float32 sums
+// (ignored for float64).
 extern "C" int reduce_vectors(const void* skey2, const void* perm,
                               const void* row_perm, const void* values,
                               long long n, int dim, int n_partitions,
                               long long base, void* scratch, void* vsum,
                               int f64, int comp, void* stream) {
   if (f64)
-    return launch_vectors<double, false>(skey2, perm, row_perm, values, n,
-                                         dim, n_partitions, base, scratch,
-                                         vsum, stream);
-  return comp ? launch_vectors<float, true>(skey2, perm, row_perm, values, n,
-                                            dim, n_partitions, base, scratch,
-                                            vsum, stream)
-              : launch_vectors<float, false>(skey2, perm, row_perm, values,
-                                             n, dim, n_partitions, base,
-                                             scratch, vsum, stream);
+    return run_vectors<double, false>(skey2, perm, row_perm, values, n, 0,
+                                      false, dim, n_partitions, base,
+                                      scratch, vsum, stream);
+  return comp ? run_vectors<float, true>(skey2, perm, row_perm, values, n, 0,
+                                         false, dim, n_partitions, base,
+                                         scratch, vsum, stream)
+              : run_vectors<float, false>(skey2, perm, row_perm, values, n,
+                                          0, false, dim, n_partitions, base,
+                                          scratch, vsum, stream);
 }
 
-extern "C" long long reduce_partitions_scratch_bytes(long long n, int f64,
-                                                     int comp) {
-  const long long each = f64 ? sizeof(Seg<double, false>)
-                             : (comp ? sizeof(Seg<float, true>)
-                                     : sizeof(Seg<float, false>));
-  return pdp::n_tiles(n) * each;
-}
-
-// Outputs must be zero-filled by the caller: partitions without a kept row
-// are not written. perm: nullable (rows already in sorted order); base:
-// row i's partition is skey2[i] - base (0 on the dense route). comp:
-// compensated float32 sums (ignored for float64).
-extern "C" int reduce_partitions(const void* skey2, const void* perm,
-                                 const void* pair_start, const void* row_sum,
-                                 const void* row_nsum, const void* row_nsum2,
-                                 long long n, int n_partitions,
-                                 long long base, void* scratch, void* count,
-                                 void* pid_count, void* sum, void* nsum,
-                                 void* nsum2, int f64, int comp,
-                                 void* stream) {
-  if (f64)
-    return launch<double, false>(skey2, perm, pair_start, row_sum, row_nsum,
-                                 row_nsum2, n, n_partitions, base, scratch,
-                                 count, pid_count, sum, nsum, nsum2, stream);
-  return comp ? launch<float, true>(skey2, perm, pair_start, row_sum,
-                                    row_nsum, row_nsum2, n, n_partitions,
-                                    base, scratch, count, pid_count, sum,
-                                    nsum, nsum2, stream)
-              : launch<float, false>(skey2, perm, pair_start, row_sum,
-                                     row_nsum, row_nsum2, n, n_partitions,
-                                     base, scratch, count, pid_count, sum,
-                                     nsum, nsum2, stream);
-}
-
-// Scratch of the lane entries: one aggregate per tile of a lane, per
-// lane, and the L + 1 lane bounds (vec: the vector entry's aggregates).
+// Scratch of the lane entries: dim 0 for reduce_partitions_lanes, D for
+// reduce_vectors_lanes.
 extern "C" long long reduce_partitions_lanes_scratch_bytes(long long lane_rows,
                                                            long long n_lanes,
                                                            int f64, int comp,
-                                                           int vec) {
-  long long each;
-  if (vec) {
-    each = f64 ? sizeof(VSeg<double, false>)
-               : (comp ? sizeof(VSeg<float, true>)
-                       : sizeof(VSeg<float, false>));
-  } else {
-    each = f64 ? sizeof(Seg<double, false>)
-               : (comp ? sizeof(Seg<float, true>)
-                       : sizeof(Seg<float, false>));
-  }
-  return lane_aggs_bytes(n_lanes * pdp::n_tiles(lane_rows), each) +
-         (n_lanes + 1) * static_cast<long long>(sizeof(long long));
+                                                           int dim) {
+  const bool vec = dim > 0;
+  return scratch_bytes(
+      n_lanes * tiles_of(lane_rows, vec ? kVectorItems : kScalarItems),
+      vec ? vector_groups(dim) : 1, f64, comp, vec, n_lanes);
 }
 
 // The lane entry: n = L * lane_rows rows sorted by key2 = lane *
 // n_partitions + partition (dropped rows L * n_partitions, last); outputs
-// are [L * n_partitions], zero-filled by the caller, lane l's partitions
-// at [l * n_partitions, (l + 1) * n_partitions). comp: compensated float32
-// sums (ignored for float64).
+// are [L * n_partitions], lane l's partitions at [l * n_partitions,
+// (l + 1) * n_partitions), in the block fill[0, fill_bytes) zero-filled
+// here. comp: compensated float32 sums (ignored for float64).
 extern "C" int reduce_partitions_lanes(const void* skey2, const void* perm,
                                        const void* pair_start,
                                        const void* row_sum,
                                        const void* row_nsum,
                                        const void* row_nsum2, long long n,
                                        long long lane_rows, int n_partitions,
-                                       void* scratch, void* count,
+                                       void* scratch, void* fill,
+                                       long long fill_bytes, void* count,
                                        void* pid_count, void* sum,
                                        void* nsum, void* nsum2, int f64,
                                        int comp, void* stream) {
   if (f64)
-    return launch_lanes<double, false>(skey2, perm, pair_start, row_sum,
-                                       row_nsum, row_nsum2, n, lane_rows,
-                                       n_partitions, scratch, count,
-                                       pid_count, sum, nsum, nsum2, stream);
-  return comp ? launch_lanes<float, true>(skey2, perm, pair_start, row_sum,
-                                          row_nsum, row_nsum2, n, lane_rows,
-                                          n_partitions, scratch, count,
-                                          pid_count, sum, nsum, nsum2, stream)
-              : launch_lanes<float, false>(skey2, perm, pair_start, row_sum,
-                                           row_nsum, row_nsum2, n, lane_rows,
-                                           n_partitions, scratch, count,
-                                           pid_count, sum, nsum, nsum2,
-                                           stream);
+    return run_scalar<double, false>(
+        skey2, perm, pair_start, row_sum, row_nsum, row_nsum2, n, lane_rows,
+        true, n_partitions, 0, scratch, fill, fill_bytes, count, pid_count,
+        sum, nsum, nsum2, stream);
+  return comp ? run_scalar<float, true>(
+                    skey2, perm, pair_start, row_sum, row_nsum, row_nsum2, n,
+                    lane_rows, true, n_partitions, 0, scratch, fill,
+                    fill_bytes, count, pid_count, sum, nsum, nsum2, stream)
+              : run_scalar<float, false>(
+                    skey2, perm, pair_start, row_sum, row_nsum, row_nsum2, n,
+                    lane_rows, true, n_partitions, 0, scratch, fill,
+                    fill_bytes, count, pid_count, sum, nsum, nsum2, stream);
 }
 
 // The vector lane entry: skey2 / perm as for reduce_partitions_lanes;
 // row_perm (nullable) maps a bounded row to its row of values [*, dim];
-// vsum: [L * n_partitions, dim], zero-filled by the caller. Scratch:
-// reduce_partitions_lanes_scratch_bytes(..., vec = 1).
+// vsum: [L * n_partitions, dim], zero-filled here. Scratch:
+// reduce_partitions_lanes_scratch_bytes(..., dim).
 extern "C" int reduce_vectors_lanes(const void* skey2, const void* perm,
                                     const void* row_perm, const void* values,
                                     long long n, long long lane_rows,
                                     int dim, int n_partitions, void* scratch,
                                     void* vsum, int f64, int comp,
                                     void* stream) {
-  if (dim < 1) return -1;
   if (f64)
-    return launch_vectors_lanes<double, false>(skey2, perm, row_perm, values,
-                                               n, lane_rows, dim,
-                                               n_partitions, scratch, vsum,
-                                               stream);
-  return comp ? launch_vectors_lanes<float, true>(skey2, perm, row_perm,
-                                                  values, n, lane_rows, dim,
-                                                  n_partitions, scratch,
-                                                  vsum, stream)
-              : launch_vectors_lanes<float, false>(skey2, perm, row_perm,
-                                                   values, n, lane_rows, dim,
-                                                   n_partitions, scratch,
-                                                   vsum, stream);
+    return run_vectors<double, false>(skey2, perm, row_perm, values, n,
+                                      lane_rows, true, dim, n_partitions, 0,
+                                      scratch, vsum, stream);
+  return comp ? run_vectors<float, true>(skey2, perm, row_perm, values, n,
+                                         lane_rows, true, dim, n_partitions,
+                                         0, scratch, vsum, stream)
+              : run_vectors<float, false>(skey2, perm, row_perm, values, n,
+                                          lane_rows, true, dim, n_partitions,
+                                          0, scratch, vsum, stream);
 }

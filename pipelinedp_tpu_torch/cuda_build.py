@@ -62,15 +62,15 @@ _SIGNATURES = {
     "reduce_partitions": {
         "reduce_partitions_scratch_bytes": (_LL, [_LL, _I, _I]),
         "reduce_partitions": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _P,
-                                   _P, _P, _P, _P, _P, _I, _I, _P]),
-        "reduce_vectors_scratch_bytes": (_LL, [_LL, _I, _I]),
+                                   _P, _LL, _P, _P, _P, _P, _P, _I, _I, _P]),
+        "reduce_vectors_scratch_bytes": (_LL, [_LL, _I, _I, _I]),
         "reduce_vectors": (_I, [_P, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _I,
                                 _I, _P]),
         "reduce_partitions_lanes_scratch_bytes": (_LL, [_LL, _LL, _I, _I,
                                                         _I]),
         "reduce_partitions_lanes": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL,
-                                         _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                         _P]),
+                                         _I, _P, _P, _LL, _P, _P, _P, _P, _P,
+                                         _I, _I, _P]),
         "reduce_vectors_lanes": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _I, _P,
                                       _P, _I, _I, _P]),
     },
@@ -140,8 +140,8 @@ _SIGNATURES = {
         "append_rows_grow": (_I, [_P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
     },
     "pld_fft": {
-        "pld_rfft": (_I, [_P, _LL, _LL, _P, _P, _P, _P]),
-        "pld_irfft": (_I, [_P, _LL, _LL, _P, _P, _P, _P]),
+        "pld_rfft": (_I, [_P, _LL, _LL, _I, _I, _I, _P, _P, _P]),
+        "pld_irfft": (_I, [_P, _LL, _LL, _I, _I, _I, _P, _P, _P]),
     },
     "log_spectrum": {
         "log_spectrum_accumulate": (_I, [_P, _LL, _LL, _P, _P, _P]),

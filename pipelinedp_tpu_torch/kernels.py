@@ -97,8 +97,10 @@ CPU (the tests' path). On a CUDA tensor it never falls back: a failed build
 or launch raises. Outputs and scratch are allocated here with torch; the
 kernels allocate nothing. `launch_counts` counts wrapper calls that
 launched a kernel, under the name of the kernel's source, or of its
-compensated / secure / lane entry (a tile scan issues three CUDA launches;
-a radix sort three a pass); its increments are thread-safe, as the
+compensated / secure / lane entry (C2's and C6's tile scans issue three
+CUDA launches, C3 one after its memsets (one per four coordinates of a
+vector sum), a radix sort three a pass, C15 one a pass of its plan and
+one for the split); its increments are thread-safe, as the
 service's workers launch concurrently. No wrapper or kernel keeps host or
 device scratch between calls.
 """
@@ -198,7 +200,12 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the device's current stream: what
+    torch.cuda.current_stream(device).cuda_stream gives, without building
+    a Stream object on every launch."""
+    index = (device.index if device.index is not None else
+             torch.cuda.current_device())
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _raise_on(status: int, name: str) -> None:
@@ -538,35 +545,60 @@ def reduce_partitions(skey2: torch.Tensor, perm: Optional[torch.Tensor],
                                        compensated, base)
     dev = skey2.device
     lib = cuda_build.library("reduce_partitions")
-    out = {name: torch.zeros(n_partitions, dtype=dtype, device=dev)
-           for name in ("count", "pid_count", *row_cols)}
-    scratch = torch.empty(
-        max(1, lib.reduce_partitions_scratch_bytes(n, _f64(dtype),
-                                                   int(compensated))),
-        dtype=torch.uint8, device=dev)
+    f64, comp = _f64(dtype), int(compensated)
+    dim = 0 if vec is None else vec.shape[1]
+    # The vector launches run after the scalar one: one scratch serves both.
+    scratch_bytes = max(
+        lib.reduce_partitions_scratch_bytes(n, f64, comp),
+        lib.reduce_vectors_scratch_bytes(n, dim, f64, comp) if dim else 0)
+    names = ("count", "pid_count", *row_cols)
+    buf, at, scratch, fill = _c3_buffer(names, n_partitions, dtype,
+                                        scratch_bytes, dev)
+    stream = _stream(dev)
     status = lib.reduce_partitions(
         _ptr(skey2), _ptr(perm), _ptr(pair_start), _ptr(row_cols.get("sum")),
         _ptr(row_cols.get("nsum")), _ptr(row_cols.get("nsum2")), n,
-        n_partitions, int(base or 0), _ptr(scratch), _ptr(out["count"]),
-        _ptr(out["pid_count"]), _ptr(out.get("sum")), _ptr(out.get("nsum")),
-        _ptr(out.get("nsum2")), _f64(dtype), int(compensated), _stream(dev))
+        n_partitions, int(base or 0), scratch, at["count"], fill,
+        at["count"], at["pid_count"], at.get("sum"), at.get("nsum"),
+        at.get("nsum2"), f64, comp, stream)
     _raise_on(status, "reduce_partitions")
+    out = _c3_columns(buf, names, n_partitions, dtype)
     if vec is not None:
-        dim = vec.shape[1]
-        out["vsum"] = torch.zeros(n_partitions, dim, dtype=dtype, device=dev)
-        vscratch = torch.empty(
-            max(1, lib.reduce_vectors_scratch_bytes(n, _f64(dtype),
-                                                    int(compensated))),
-            dtype=torch.uint8, device=dev)
+        out["vsum"] = torch.empty(n_partitions, dim, dtype=dtype, device=dev)
         status = lib.reduce_vectors(
             _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(vec), n, dim,
-            n_partitions, int(base or 0), _ptr(vscratch), _ptr(out["vsum"]),
-            _f64(dtype), int(compensated), _stream(dev))
+            n_partitions, int(base or 0), scratch, _ptr(out["vsum"]), f64,
+            comp, stream)
         _raise_on(status, "reduce_partitions")
     name = ("reduce_partitions_compensated" if compensated else
             "reduce_partitions")
     _count(name if base is None else f"{name}_windowed")
     return out
+
+
+def _c3_buffer(names: Sequence[str], n_partitions: int, dtype: torch.dtype,
+               scratch_bytes: int, dev: torch.device):
+    """C3's outputs and scratch in one allocation: a [len(names),
+    n_partitions] block of columns, then the scratch at the next 256-byte
+    boundary (the C entry zero-fills the block and the scratch's counters
+    and flags in one memset when they are adjacent, as here). Returns the
+    buffer, each column's address by name, the scratch's address and the
+    bytes to fill."""
+    step = n_partitions * dtype.itemsize
+    fill = -(-len(names) * step // 256) * 256
+    buf = torch.empty(fill + max(1, scratch_bytes), dtype=torch.uint8,
+                      device=dev)
+    first = buf.data_ptr()
+    return (buf, {name: first + i * step for i, name in enumerate(names)},
+            first + fill, fill)
+
+
+def _c3_columns(buf: torch.Tensor, names: Sequence[str], n_partitions: int,
+                dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The columns of a _c3_buffer as dtype[n_partitions] views by name,
+    made after the launch so that their cost overlaps the kernel."""
+    block = buf[:len(names) * n_partitions * dtype.itemsize].view(dtype)
+    return dict(zip(names, block.view(len(names), n_partitions).unbind(0)))
 
 
 def reduce_partitions_plain(skey2, perm, pair_start, row_cols, n_partitions,
@@ -1750,6 +1782,32 @@ def _check_fft_length(length: int) -> None:
                          f"two >= 2, got {length}")
 
 
+_FFT_MAX_LOG_FACTOR = 11  # C15's passes: factors of at most 2048
+_FFT_MAX_PASSES = 3
+
+
+def pld_fft_plan(n: int) -> Tuple[int, ...]:
+    """C15's plan for a complex transform of length n (a power of two):
+    its passes' factors, powers of two of at most 2048 whose product is n,
+    as even as they can be, the larger first. One pass up to n = 2048, two
+    up to 2^22, three up to 2^33; () for n = 1 (the split alone)."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"pld_fft_plan: n must be a power of two >= 1, "
+                         f"got {n}")
+    log_n = n.bit_length() - 1
+    passes = -(-log_n // _FFT_MAX_LOG_FACTOR)
+    if passes > _FFT_MAX_PASSES:
+        raise ValueError(f"pld_fft_plan: n = 2^{log_n} needs more than "
+                         f"{_FFT_MAX_PASSES} passes of <= 2048")
+    logs = [log_n // passes + (i < log_n % passes) for i in range(passes)]
+    return tuple(1 << lg for lg in logs)
+
+
+def _fft_plan_args(n: int) -> Tuple[Tuple[int, ...], List[int]]:
+    plan = pld_fft_plan(n)
+    return plan, list(plan) + [1] * (_FFT_MAX_PASSES - len(plan))
+
+
 def pld_rfft(x: torch.Tensor) -> torch.Tensor:
     """torch.fft.rfft(x, dim=1) of float64[rows, L], L a power of two >= 2:
     complex128[rows, L / 2 + 1] (C15's forward entry)."""
@@ -1759,12 +1817,14 @@ def pld_rfft(x: torch.Tensor) -> torch.Tensor:
     if not _on_cuda(x):
         return pld_rfft_plain(x)
     n = length // 2
+    plan, factors = _fft_plan_args(n)
     dev = x.device
     out = torch.empty((rows, n + 1), dtype=torch.complex128, device=dev)
-    work = torch.empty((rows, n), dtype=torch.complex128, device=dev)
-    table = torch.empty(n, dtype=torch.complex128, device=dev)
+    # Three passes need a buffer besides the output (kernel header).
+    work = (torch.empty((rows, n), dtype=torch.complex128, device=dev)
+            if len(plan) >= 3 else None)
     status = cuda_build.library("pld_fft").pld_rfft(
-        _ptr(x), rows, n, _ptr(out), _ptr(work), _ptr(table), _stream(dev))
+        _ptr(x), rows, n, *factors, _ptr(out), _ptr(work), _stream(dev))
     _raise_on(status, "pld_fft")
     _count("pld_fft")
     return out
@@ -1788,12 +1848,14 @@ def pld_irfft(spectrum: torch.Tensor, length: int) -> torch.Tensor:
                          f"{length}, expected {n + 1}")
     if not _on_cuda(spectrum):
         return pld_irfft_plain(spectrum, length)
+    plan, factors = _fft_plan_args(n)
     dev = spectrum.device
     out = torch.empty((rows, length), dtype=torch.float64, device=dev)
-    work = torch.empty((rows, n), dtype=torch.complex128, device=dev)
-    table = torch.empty(n, dtype=torch.complex128, device=dev)
+    # Two passes or more need a buffer besides the output.
+    work = (torch.empty((rows, n), dtype=torch.complex128, device=dev)
+            if len(plan) >= 2 else None)
     status = cuda_build.library("pld_fft").pld_irfft(
-        _ptr(spectrum), rows, n, _ptr(out), _ptr(work), _ptr(table),
+        _ptr(spectrum), rows, n, *factors, _ptr(out), _ptr(work),
         _stream(dev))
     _raise_on(status, "pld_fft")
     _count("pld_fft")
@@ -1802,6 +1864,168 @@ def pld_irfft(spectrum: torch.Tensor, length: int) -> torch.Tensor:
 
 def pld_irfft_plain(spectrum, length):
     return torch.fft.irfft(spectrum, n=length, dim=1)
+
+
+# C15's arithmetic step by step (csrc/pld_fft.cu): the same plan, the same
+# Stockham passes and in-block stages, twiddles of the same exact ratios
+# (cos / sin of pi times them here, sincospi there) and the same split.
+# Not the plain version: the tests hold it against numpy, chip_smoke.py
+# holds the kernel against it.
+
+
+def _twiddles(e: torch.Tensor, m: int, inverse: bool) -> torch.Tensor:
+    """exp(-+2 pi i e / m) of integer exponents e in [0, m)."""
+    t = math.pi * (2.0 * e.to(torch.float64) / m)
+    return torch.complex(torch.cos(t), torch.sin(t) if inverse else
+                         -torch.sin(t))
+
+
+def _rot(w: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """w times -i (forward) or +i (inverse)."""
+    return (torch.complex(-w.imag, w.real) if inverse else
+            torch.complex(w.imag, -w.real))
+
+
+def _tw_of(table: torch.Tensor, e, log_r: int, inverse: bool):
+    """W_R^e from the quarter table W_R^e', e' < R / 4, rotated by
+    (-+i)^(e / (R / 4)) (csrc/pld_fft.cu tw_of)."""
+    e = torch.as_tensor(e)
+    w = table[e & ((1 << (log_r - 2)) - 1)]
+    q = e >> (log_r - 2)
+    h = torch.where(q & 1 == 1, _rot(w, inverse), w)
+    return torch.where(q & 2 == 2, -h, h)
+
+
+def _dft4(a0, a1, a2, a3, inverse):
+    t0, t1 = a0 + a2, a0 - a2
+    t2, t3 = a1 + a3, _rot(a1 - a3, inverse)
+    return [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
+
+
+def _dft_q(u, log_q: int, table, log_r: int, inverse: bool):
+    """The Q-point DFT of u[t], t < Q (a list of tensors), as the kernel's
+    registers take it: Q = 8 as 4 x 2, Q = 16 as 4 x 4 (inner DFTs over
+    u[q2 n1 + n2], twiddles W_Q^(n2 k1), outer DFTs to X[k1 + 4 k2])."""
+    if log_q == 1:
+        return [u[0] + u[1], u[0] - u[1]]
+    if log_q == 2:
+        return _dft4(*u, inverse)
+    q2 = 1 << (log_q - 2)
+    y = [_dft4(*[u[q2 * n1 + n2] for n1 in range(4)], inverse)
+         for n2 in range(q2)]
+    for n2 in range(1, q2):
+        for k1 in range(1, 4):
+            y[n2][k1] = y[n2][k1] * _tw_of(
+                table, (n2 * k1) << (log_r - log_q), log_r, inverse)
+    if q2 == 2:
+        return ([y[0][k1] + y[1][k1] for k1 in range(4)] +
+                [y[0][k1] - y[1][k1] for k1 in range(4)])
+    outer = [_dft4(*[y[n2][k1] for n2 in range(4)], inverse)
+             for k1 in range(4)]
+    return [outer[k1][k2] for k2 in range(4) for k1 in range(4)]
+
+
+def _block_dft(s: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The R-point DFT along the last dimension as a block of C15 takes it:
+    Stockham stages of radix 16 while four bits remain, then one of radix
+    2, 4 or 8; stage twiddles W_{Q sub}^(t (jj mod sub)) from the quarter
+    table of W_R."""
+    r_len = s.shape[-1]
+    lead = s.shape[:-1]
+    log_r = r_len.bit_length() - 1
+    table = (_twiddles(torch.arange(max(1, r_len // 4)), r_len, inverse)
+             if log_r >= 2 else None)
+    log_s = 0
+    while log_s < log_r:
+        log_q = min(4, log_r - log_s)
+        q, span, sub = 1 << log_q, r_len >> log_q, 1 << log_s
+        v = s.reshape(*lead, q, span)  # v[t, jj] = s[jj + t span]
+        u = [v[..., t, :] for t in range(q)]
+        if log_s > 0:
+            k = torch.arange(span) % sub
+            for t in range(1, q):
+                u[t] = u[t] * _tw_of(table, (t * k) << (log_r - log_q - log_s),
+                                     log_r, inverse)
+        x = torch.stack(_dft_q(u, log_q, table, log_r, inverse), -2)
+        # Position (jj / sub) q sub + t sub + jj mod sub.
+        x = x.reshape(*lead, q, span // sub, sub).transpose(-3, -2)
+        s = x.reshape(*lead, r_len)
+        log_s += log_q
+    return s
+
+
+def _fft_passes(z: torch.Tensor, plan: Sequence[int],
+                inverse: bool) -> torch.Tensor:
+    """The complex FFT of z[rows, n] through plan's Stockham passes."""
+    rows, n = z.shape
+    ns = 1
+    for r_len in plan:
+        m = n // r_len
+        v = z.reshape(rows, r_len, m)  # v[:, r, j] = z[j + r m]
+        if ns > 1:
+            e = torch.arange(r_len)[:, None] * (torch.arange(m) % ns)[None, :]
+            v = v * _twiddles(e, ns * r_len, inverse)
+        v = _block_dft(v.transpose(1, 2), inverse)  # [rows, j, r]
+        # Line j = a ns + b writes r at a ns R + r ns + b.
+        v = v.reshape(rows, m // ns, ns, r_len).permute(0, 1, 3, 2)
+        z = v.reshape(rows, n)
+        ns *= r_len
+    return z
+
+
+def pld_rfft_four_step(x: torch.Tensor,
+                       plan: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """C15's forward entry modelled in PyTorch (float64[rows, L] ->
+    complex128[rows, L / 2 + 1]): packing, the plan's passes, the split."""
+    rows, length = x.shape
+    n = length // 2
+    plan = pld_fft_plan(n) if plan is None else tuple(plan)
+    if math.prod(plan) != n:
+        raise ValueError(f"plan {plan} is not a factorisation of {n}")
+    z = _fft_passes(torch.complex(x[:, 0::2], x[:, 1::2]), plan, False)
+    out = torch.empty((rows, n + 1), dtype=torch.complex128)
+    out[:, 0] = torch.complex(z[:, 0].real + z[:, 0].imag,
+                              torch.zeros(rows, dtype=torch.float64))
+    out[:, n] = torch.complex(z[:, 0].real - z[:, 0].imag,
+                              torch.zeros(rows, dtype=torch.float64))
+    k = torch.arange(1, n // 2 + 1)
+    if k.numel():
+        a, b = z[:, k], z[:, n - k].conj()
+        e, d = (a + b) * 0.5, (a - b) * 0.5
+        t = _twiddles(k, 2 * n, False) * torch.complex(d.imag, -d.real)
+        out[:, k] = e + t
+        inner = k < n - k
+        out[:, n - k[inner]] = (e - t)[:, inner].conj()
+    return out
+
+
+def pld_irfft_four_step(spectrum: torch.Tensor, length: int,
+                        plan: Optional[Sequence[int]] = None
+                        ) -> torch.Tensor:
+    """C15's inverse entry modelled in PyTorch (complex128[rows, L / 2 + 1]
+    -> float64[rows, L]): the pre-pass (scaled by 1 / n), the plan's
+    inverse passes, the packed words read back as reals."""
+    rows = spectrum.shape[0]
+    n = length // 2
+    plan = pld_fft_plan(n) if plan is None else tuple(plan)
+    if math.prod(plan) != n:
+        raise ValueError(f"plan {plan} is not a factorisation of {n}")
+    inv_n = 1.0 / n
+    z = torch.empty((rows, n), dtype=torch.complex128)
+    a0, an = spectrum[:, 0].real, spectrum[:, n].real
+    z[:, 0] = torch.complex((a0 + an) * 0.5 * inv_n, (a0 - an) * 0.5 * inv_n)
+    k = torch.arange(1, n // 2 + 1)
+    if k.numel():
+        a, b = spectrum[:, k], spectrum[:, n - k].conj()
+        e, d = (a + b) * 0.5, (a - b) * 0.5
+        o = d * _twiddles(k, 2 * n, True)
+        z[:, k] = torch.complex((e.real - o.imag) * inv_n,
+                                (e.imag + o.real) * inv_n)
+        inner = k < n - k
+        z[:, n - k[inner]] = torch.complex(
+            (e.real + o.imag) * inv_n, (o.real - e.imag) * inv_n)[:, inner]
+    z = _fft_passes(z, plan, True)
+    return torch.view_as_real(z).reshape(rows, length)
 
 
 # ---------------------------------------------------------------------------
@@ -2799,34 +3023,34 @@ def reduce_partitions_lanes(skey2: torch.Tensor, perm: torch.Tensor,
                                              vector_rows, compensated)
     dev = skey2.device
     lib = cuda_build.library("reduce_partitions")
-    out = {name: torch.zeros(n_lanes * n_partitions, dtype=dtype, device=dev)
-           for name in ("count", "pid_count", *row_cols)}
-    scratch = torch.empty(
-        max(1, lib.reduce_partitions_lanes_scratch_bytes(
-            lane_rows, n_lanes, _f64(dtype), int(compensated), 0)),
-        dtype=torch.uint8, device=dev)
+    f64, comp = _f64(dtype), int(compensated)
+    dim = 0 if vec is None else vec.shape[1]
+    scratch_bytes = max(
+        lib.reduce_partitions_lanes_scratch_bytes(lane_rows, n_lanes, f64,
+                                                  comp, 0),
+        lib.reduce_partitions_lanes_scratch_bytes(lane_rows, n_lanes, f64,
+                                                  comp, dim) if dim else 0)
+    names = ("count", "pid_count", *row_cols)
+    buf, at, scratch, fill = _c3_buffer(names, n_lanes * n_partitions, dtype,
+                                        scratch_bytes, dev)
+    stream = _stream(dev)
     status = lib.reduce_partitions_lanes(
         _ptr(skey2), _ptr(perm), _ptr(pair_start), _ptr(row_cols.get("sum")),
         _ptr(row_cols.get("nsum")), _ptr(row_cols.get("nsum2")), n,
-        lane_rows, n_partitions, _ptr(scratch), _ptr(out["count"]),
-        _ptr(out["pid_count"]), _ptr(out.get("sum")), _ptr(out.get("nsum")),
-        _ptr(out.get("nsum2")), _f64(dtype), int(compensated), _stream(dev))
+        lane_rows, n_partitions, scratch, at["count"], fill, at["count"],
+        at["pid_count"], at.get("sum"), at.get("nsum"), at.get("nsum2"), f64,
+        comp, stream)
     name = ("reduce_partitions_compensated_lanes" if compensated else
             "reduce_partitions_lanes")
     _raise_on(status, name)
     _count(name)
+    out = _c3_columns(buf, names, n_lanes * n_partitions, dtype)
     if vec is not None:
-        dim = vec.shape[1]
-        out["vsum"] = torch.zeros(n_lanes * n_partitions, dim, dtype=dtype,
+        out["vsum"] = torch.empty(n_lanes * n_partitions, dim, dtype=dtype,
                                   device=dev)
-        vscratch = torch.empty(
-            max(1, lib.reduce_partitions_lanes_scratch_bytes(
-                lane_rows, n_lanes, _f64(dtype), int(compensated), 1)),
-            dtype=torch.uint8, device=dev)
         status = lib.reduce_vectors_lanes(
             _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(vec), n, lane_rows,
-            dim, n_partitions, _ptr(vscratch), _ptr(out["vsum"]),
-            _f64(dtype), int(compensated), _stream(dev))
+            dim, n_partitions, scratch, _ptr(out["vsum"]), f64, comp, stream)
         _raise_on(status, "reduce_partitions_vector_lanes")
         _count("reduce_partitions_vector_lanes")
     return out

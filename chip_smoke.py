@@ -210,7 +210,8 @@ every earlier phase, on make_mesh([cuda:0] * 4) (four shard slots on the
 one card):
   2. kernels C21 combine_shards (plain: float32 and int32; compensated)
              at D = 4 over 17,770 x 6 columns, 2^21 and 16 x 17,770,
-             beside stack.sum(0); C22 reshard_count and C23
+             beside stack.sum(0), and combine_parts over the 6 columns
+             where they lie; C22 reshard_count and C23
              reshard_exchange over the 2^24 Netflix rows on 4 shards,
              values scalar and one-hot (V = 5), the whole exchange == its
              plain twin, beside torch.bincount and an argsort +
@@ -250,8 +251,9 @@ last of all, on the same mesh:
              split (staging, pass 1, offsets, dispatch, combine, waits,
              drains, decode)
   2. kernels C21 at the block shape (D x [2^20] x 2 float32, int32 for
-             selection) and C10 on one shard's pass-1 stream of (q), each
-             == its plain version, beside stack.sum(0) / torch.searchsorted
+             selection) and C10 on one shard's pass-1 stream of (q) and on
+             the D shards' streams in one launch, each == its plain
+             version, beside stack.sum(0) / torch.searchsorted
 The single-process mesh ingest (ingest.encode_local_shard_to_mesh; K23b on
 C24 mesh_factorize) and the unfused release (fused_release=False) add,
 last of all, on the same mesh:
@@ -271,6 +273,25 @@ last of all, on the same mesh:
              the one-process ingest
   4. unfused (a), (b) and a selection with fused_release=False == the
              fused release, one launch fewer (no C6), walls side by side
+The rebuilt C10 (a warp's 32-way search; block_window_offsets, the
+block boundaries of S streams made in one launch) and C21 (combine_parts,
+the shards' columns read where they lie, every column in one launch; the
+stack entries on the same kernel) add:
+  2. kernels after C3's edges (c10_c21_edge_phase): C10's edge windows
+             (streams of 0 to 2^20 + 7 rows, the sentinel, INT32_MAX,
+             end below the last boundary, 1 to 64 streams) and C21 at
+             D = 1-64 over every dtype, the compensated entry, parts at
+             every alignment and past the parameter table, each == its
+             plain version and giving the same bits twice; block_window_
+             offsets over (q)'s stream, over the 4 shards of meshed (q) in
+             one launch, block_offsets at the sweep's P + 1 starts, and
+             combine_parts over (a)'s meshed release columns (D = 4, 6 x
+             17,770 float32, plain and compensated), each == its plain
+             version; for C10 and C21 at their rows' shapes three figures
+             a call, in turns with torch.searchsorted / stack.sum(0):
+             wrapper ms (CUDA events around one call), device ms (the
+             kernels alone, torch.profiler) and host us (1000 enqueues
+             without a synchronise), printed as split[...] lines
 The failure semantics and elastic meshes of the meshed drivers
 (runtime/retry.py, faults.py, entry.py) and K23c (parallel/mesh.py
 collective_heartbeat on C21's int32 entry) add, last of all:
@@ -294,7 +315,10 @@ collective_heartbeat on C21's int32 entry) add, last of all:
 `python3 chip_smoke.py --mesh-all-cards` runs the build and the mesh
 phases alone on make_mesh(), one shard slot on every visible card, and
 K23c's kernel check and route there; `python3 chip_smoke.py --elastic`
-the build, the data and the failure-semantics phases alone.
+the build, the data and the failure-semantics phases alone;
+`python3 chip_smoke.py --walls` the build, the data and the walls of
+(a), (b), (q), (v) and meshed (q) alone (median of 5), through DPEngine
+only, so that one call can time two trees of the port in turns.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -451,6 +475,8 @@ def main() -> int:
     if "--elastic" in sys.argv[1:]:
         return elastic_only(torch, tdp, cuda_build, columnar, kernels, card,
                             t0)
+    if "--walls" in sys.argv[1:]:
+        return walls_only(torch, tdp, cuda_build, columnar, card, t0)
 
     # 1. build -------------------------------------------------------------
     build_s = cuda_build.build_all()
@@ -492,6 +518,7 @@ def main() -> int:
     report += large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p,
                                    threefry, tdp, card)
     c3_edge_phase(torch, dev, kernels)
+    c10_c21_edge_phase(torch, dev, kernels)
     report += ingest_kernel_phase(
         torch, dev, {"users": (users, encoded.pid),
                      "movies": (movies, encoded.pk),
@@ -2393,9 +2420,9 @@ LARGE_SPACE = 10_000_000
 LARGE_BLOCK = 1 << 20
 # The kernels of every blocked aggregation and selection: the dense
 # route's, with C3 through its windowed entry and C10 for the windows.
-BLOCKED_KERNELS = ("row_keys", "bound_rows", "radix_sort", "block_offsets",
-                   "reduce_partitions_windowed", "release_epilogue",
-                   "compact_kept")
+BLOCKED_KERNELS = ("row_keys", "bound_rows", "radix_sort",
+                   "block_window_offsets", "reduce_partitions_windowed",
+                   "release_epilogue", "compact_kept")
 
 
 def zipfish_rows():
@@ -2503,8 +2530,8 @@ def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
     stream = large_p._bound_compact(*rows, scalars, key, cfg)
     n = stream.skey2.shape[0]
     n_blocks = -(-P // LARGE_BLOCK)
-    bounds = torch.as_tensor(np.minimum(
-        large_p._block_boundaries(0, LARGE_BLOCK, n_blocks), P)).to(dev)
+    bounds = kernels.block_window_boundaries(0, LARGE_BLOCK, n_blocks, P,
+                                             dev)
     # C10 at the full stream.
     offsets = kernels.block_offsets(stream.skey2, bounds)
     err10 = check_equal("block_offsets", offsets,
@@ -2516,6 +2543,19 @@ def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
            lambda: torch.searchsorted(stream.skey2, bounds),
            # Each boundary's search reads ~log2(n) stream words.
            bound(m * depth * 4 + m * 4 + m * 8, m * depth * 3))
+    # The same windows with the boundaries made in the kernel (the
+    # drivers' entry, large_p._offsets): nothing uploaded.
+    window = ([stream.skey2], 0, LARGE_BLOCK, n_blocks, P)
+    got10w = same_twice("block_window_offsets", lambda: {
+        "offsets": kernels.block_window_offsets(*window)})["offsets"]
+    err10w = max(check_equal("block_window_offsets", got10w,
+                             kernels.block_window_offsets_plain(*window)),
+                 check_equal("block_window_offsets vs block_offsets",
+                             got10w[0], offsets))
+    c10w = (lambda: kernels.block_window_offsets(*window),  # noqa: E731
+            lambda: kernels.block_window_offsets_plain(*window),
+            lambda: torch.searchsorted(stream.skey2, bounds),
+            bound(m * depth * 4 + m * 8, m * depth * 3))
     # C3 windowed on block 1: three float columns, vector D = 5 (one-hot of
     # the value's integer part), compensated (values x 1000, integers).
     host_off = offsets.cpu().numpy()
@@ -2672,6 +2712,8 @@ def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
     entries = {
         "block_offsets": (c10, err10, "block_offsets.cu",
                           "pipelinedp_tpu/parallel/large_p.py:1519"),
+        "block_window_offsets": (c10w, err10w, "block_offsets.cu",
+                                 "pipelinedp_tpu/parallel/large_p.py:1519"),
         "gather_rows": (c11_entry, err11, "gather_rows.cu",
                         "pipelinedp_tpu/parallel/large_p.py:671"),
         "reduce_partitions_windowed": (
@@ -2726,6 +2768,11 @@ def large_p_kernel_phase(torch, dev, qenc, qmax, kernels, large_p, threefry,
           f" library_ms="
           f"{cuda_ms(lambda: torch.bincount(leaf_slot, minlength=(C + 1) * B), 10):.4f}"
           f" bound_ms={lb_ms:.3g} ({lb_by}) ({card})", flush=True)
+    # C10's time split beside its yardstick's, in turns (the searchsorted
+    # takes the boundaries uploaded before its timing starts).
+    print_three_way(f"C10, {m} boundaries over (q)'s {n} rows", three_way(
+        torch, {"block_offsets": c10[0], "block_window_offsets": c10w[0],
+                "torch.searchsorted": c10[2]}), card)
     # The windowed C3's time split: the device's (its memset and kernel,
     # torch.profiler) against the CUDA events around the whole wrapper.
     print(f"kernel reduce_partitions_windowed[3 columns]: device_ms="
@@ -2750,6 +2797,57 @@ def device_ms(torch, fn, calls):
     if not device:
         raise AssertionError("device_ms: no device time traced")
     return sum(e.self_device_time_total for e in device) / 1e3 / calls
+
+
+def host_us(torch, fn, calls=1000):
+    """Microseconds of host time a call of fn over `calls` enqueues
+    without a synchronise (the wrapper's host part), after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def launches_ms(torch, fn, calls=100):
+    """Milliseconds a call over `calls` back-to-back calls between two
+    CUDA events: the device's time where the host keeps ahead of it."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def three_way(torch, fns):
+    """{name: (wrapper ms, device ms, host us)} of each fn, measured in
+    turns (each figure over every fn before the next figure): wrapper ms
+    as cuda_ms (CUDA events around one call, median of 50); device ms the
+    kernels alone (torch.profiler, 100 calls), or where the trace shows no
+    device time CUDA events around 100 back-to-back calls; host us over
+    1000 enqueues (host_us)."""
+    out = {name: [cuda_ms(fn, 50)] for name, fn in fns.items()}
+    for name, fn in fns.items():
+        try:
+            out[name].append(device_ms(torch, fn, 100))
+        except AssertionError:
+            out[name].append(launches_ms(torch, fn, 100))
+    for name, fn in fns.items():
+        out[name].append(host_us(torch, fn))
+    return out
+
+
+def print_three_way(label, split, card):
+    print(f"split[{label}]: " + "; ".join(
+        f"{name} wrapper_ms={w:.4f} device_ms={d:.4f} host_us={h:.2f}"
+        for name, (w, d, h) in split.items()) + f" ({card})", flush=True)
 
 
 def c3_edge_phase(torch, dev, kernels):
@@ -2851,6 +2949,147 @@ def c3_edge_phase(torch, dev, kernels):
           "lane entries: each entry == its plain version (sums exact in "
           "any order) and equal to itself run to run; each lane == its "
           "solo run", flush=True)
+
+
+def c10_c21_edge_phase(torch, dev, kernels):
+    """C10's and C21's edge cases on the card, every entry == its plain
+    version and giving the same bits twice. C10: streams of 0, 1, 31, 32,
+    33, 1023 and 2^20 + 7 rows (duplicates, the sentinel, every row at the
+    sentinel), boundaries below every row, at INT32_MAX and `end` below
+    the last boundary, 1, 3 and 64 streams in one launch, and
+    block_offsets at P + 1 partition starts. C21: combine_parts at D in
+    {1, 2, 3, 5, 8, 32, 64} over int32 (wrapping), int64, float32,
+    float64 and compensated float32 columns of ragged lengths and [P, V]
+    shapes, parts at every alignment modulo 16 bytes (the head, vector and
+    tail slots and the all-scalar columns), 40 columns and D x C past the
+    parameter table (launches counted per group); combine_shards and
+    heartbeat_sum at small stacks."""
+    rng = np.random.default_rng(SEED + 16)
+    int32_max = np.iinfo(np.int32).max
+
+    def on_card(a):
+        return torch.as_tensor(a).to(dev)
+
+    def twice(label, fn):
+        return same_twice(label, lambda: {"out": fn()})["out"]
+
+    # C10.
+    P = 1000
+    streams = []
+    for n in (0, 1, 31, 32, 33, 1023, (1 << 20) + 7):
+        keys = np.sort(np.where(rng.random(n) < 0.1, P,
+                                (rng.random(n) ** 2 * P).astype(np.int64)))
+        streams.append(on_card(keys.astype(np.int32)))
+    streams.append(on_card(np.full(500, P, np.int32)))
+    streams.append(on_card(np.array([0, 5, int32_max - 1, int32_max],
+                                    np.int32)))
+    cases = [(0, 128, 7, P), (0, 300, 3, 700), (5, 1, 0, P), (-40, 64, 20, P),
+             (int32_max - 300, 128, 4, int32_max), (0, 1 << 20, 1, P)]
+    for base, capacity, n_blocks, end in cases:
+        label = (f"block_window_offsets[base={base}, capacity={capacity}, "
+                 f"{n_blocks} blocks, end={end}]")
+        for group in (streams[:1], streams[2:5], streams):
+            got = twice(label, lambda: kernels.block_window_offsets(
+                group, base, capacity, n_blocks, end))
+            check_equal(label, got, kernels.block_window_offsets_plain(
+                group, base, capacity, n_blocks, end))
+        for j, t in enumerate(streams):
+            bounds = kernels.block_window_boundaries(
+                base, capacity, n_blocks, end, dev)
+            check_equal(f"{label} stream {j} vs block_offsets", got[j],
+                        kernels.block_offsets(t, bounds))
+    many = [streams[j % len(streams)] for j in range(64)]
+    got = twice("block_window_offsets[64 streams]",
+                lambda: kernels.block_window_offsets(many, 0, 100, 11, P))
+    check_equal("block_window_offsets[64 streams]", got,
+                kernels.block_window_offsets_plain(many, 0, 100, 11, P))
+    for t in streams:
+        for bounds in (torch.arange(P + 1, dtype=torch.int32, device=dev),
+                       on_card(np.array([-5, 0, P, P + 1, int32_max],
+                                        np.int32))):
+            check_equal("block_offsets[edges]",
+                        twice("block_offsets[edges]",
+                              lambda: kernels.block_offsets(t, bounds)),
+                        kernels.block_offsets_plain(t, bounds))
+    # C21: parts cut from one buffer a shard at an element offset, so
+    # their addresses take every residue modulo 16 bytes.
+    shapes = ((17_770,), (1,), (0,), (3,), (5, 2), (1000, 5), (17_771,),
+              (4096,))
+    dtypes = ((torch.int32, False), (torch.int64, False),
+              (torch.float32, False), (torch.float64, False),
+              (torch.float32, True))
+
+    def values(dtype, n):
+        if dtype == torch.int32:
+            return on_card(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                           .astype(np.int32))
+        if dtype == torch.int64:
+            return on_card(rng.integers(-2**62, 2**62, n, dtype=np.int64))
+        return on_card((rng.standard_normal(n) *
+                        10.0**rng.integers(-3, 8, n))).to(dtype)
+
+    def parts_of(d, dtype, shapes_, shift):
+        out = []
+        for s in range(d):
+            sizes = [int(np.prod(sh)) for sh in shapes_]
+            skew = (shift + s) % 4 if shift >= 0 else 0
+            buf = values(dtype, sum(sizes) + skew)
+            cols, at = [], skew
+            for sh, size in zip(shapes_, sizes):
+                cols.append(buf[at:at + size].view(sh))
+                at += size
+            out.append(cols)
+        return out
+
+    for d in (1, 2, 3, 5, 8, 32, 64):
+        for dtype, comp in dtypes:
+            # shift -1: every shard aligned alike (vector slots); 0: each
+            # shard one element further (all-scalar columns).
+            for shift in (-1, 0):
+                parts = parts_of(d, dtype, shapes, shift)
+                label = (f"combine_parts[D={d}, {str(dtype)[6:]}, "
+                         f"compensated={comp}, shift={shift}]")
+                got = same_twice(label, lambda: dict(enumerate(
+                    kernels.combine_parts(parts, comp))))
+                want = kernels.combine_parts_plain(parts, comp)
+                for c, w in enumerate(want):
+                    check_equal(f"{label} column {c}", got[c], w)
+    # Alignment residues of shard 0's part against the output's, 40
+    # columns (two groups at D = 4) and D x C past 256 (groups of 4
+    # columns at D = 64).
+    for d, n_cols in ((4, 40), (64, 9)):
+        for skew in range(4):
+            parts = parts_of(d, torch.float32, [(skew + 7 * c,)
+                                                for c in range(n_cols)], -1)
+            kernels.reset_launch_counts()
+            got = kernels.combine_parts(parts)
+            check_launches(f"combine_parts[D={d}, {n_cols} columns]",
+                           dict(kernels.launch_counts), kernels,
+                           dict(combine_parts=-(-n_cols // min(32, 256 // d))),
+                           path=("combine_parts",))
+            for c, w in enumerate(kernels.combine_parts_plain(parts)):
+                check_equal(f"combine_parts[D={d}, {n_cols} columns] "
+                            f"column {c}", got[c], w)
+    for d in (1, 4, 64):
+        for dtype, comp in dtypes:
+            stack = values(dtype, d * 1001).view(d, 1001)
+            check_equal(f"combine_shards[D={d}, {str(dtype)[6:]}, "
+                        f"compensated={comp}]",
+                        twice("combine_shards",
+                              lambda: kernels.combine_shards(stack, comp)),
+                        kernels.combine_shards_plain(stack, comp))
+        ones = torch.ones(d, 1, dtype=torch.int32, device=dev)
+        check_equal(f"heartbeat_sum[D={d}]", kernels.heartbeat_sum(ones),
+                    kernels.combine_shards_plain(ones))
+    torch.cuda.synchronize()
+    print("kernels[C10 and C21 edges]: block_window_offsets over 1, 3, 9 "
+          "and 64 streams of 0 to 2^20 + 7 rows (the sentinel, INT32_MAX, "
+          "end below the last boundary, boundaries below every row), "
+          "block_offsets at P + 1 starts; combine_parts at D = 1-64 over "
+          "every dtype and the compensated entry, parts at every residue "
+          "modulo 16 bytes, 40 columns and D x C past the table in groups; "
+          "combine_shards and heartbeat_sum: each == its plain version and "
+          "equal to itself run to run", flush=True)
 
 
 def large_p_parity_phase(torch, tdp, rng):
@@ -3014,7 +3253,7 @@ def large_p_main_phase(torch, tdp, qenc, qmax, netflix, nmax, kernels,
     priv = dict(max_partitions_contributed=4,
                 max_contributions_per_partition=8, min_value=0.0,
                 max_value=5.0)
-    blocks = dict(block_offsets=1, reduce_partitions_windowed=n_blocks,
+    blocks = dict(block_window_offsets=1, reduce_partitions_windowed=n_blocks,
                   release_epilogue=n_blocks, compact_kept=n_blocks)
     # (q) COUNT+SUM, Laplace, private selection, eps 1.
     out_q, _, pt = aggregate("q", qenc, [M.COUNT, M.SUM], False, 1.0, 0,
@@ -3123,7 +3362,7 @@ def large_p_main_phase(torch, tdp, qenc, qmax, netflix, nmax, kernels,
         "v", netflix, [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT], True, 1e6, 9,
         BLOCKED_KERNELS, dict(large_partition_threshold=4096,
                               block_partitions=4096), v_bounds,
-        want=dict(block_offsets=1, reduce_partitions_windowed=v_blocks,
+        want=dict(block_window_offsets=1, reduce_partitions_windowed=v_blocks,
                   compact_kept=v_blocks))
     if pt["blocks_dispatched"] != v_blocks or len(out_v) != nP:
         raise AssertionError(f"run (v): {pt['blocks_dispatched']} blocks, "
@@ -3166,8 +3405,9 @@ def large_p_main_phase(torch, tdp, qenc, qmax, netflix, nmax, kernels,
     counts = dict(kernels.launch_counts)
     n_chunks = len(large_p._chunk_ends(np.sort(qenc.pid), 1 << 22))
     check_launches("run (w)", counts, kernels,
-                   dict(gather_rows=n_chunks, block_offsets=n_chunks + 1),
-                   BLOCKED_KERNELS + ("gather_rows",))
+                   dict(gather_rows=n_chunks, block_offsets=n_chunks,
+                        block_window_offsets=1),
+                   BLOCKED_KERNELS + ("gather_rows", "block_offsets"))
     for name, c in counts.items():
         total[name] += c
     if not np.array_equal(kept_w, np.sort(ids_r)):
@@ -3203,7 +3443,7 @@ def large_p_main_phase(torch, tdp, qenc, qmax, netflix, nmax, kernels,
             times.append(time.perf_counter() - start)
             counts = dict(kernels.launch_counts)
             check_launches(f"blocked select ({strategy})", counts, kernels,
-                           dict(block_offsets=1, reduce_partitions=0),
+                           dict(block_window_offsets=1, reduce_partitions=0),
                            BLOCKED_KERNELS)
             for name, c in counts.items():
                 total[name] += c
@@ -3227,7 +3467,7 @@ def large_p_stage_phase(torch, tdp, qenc, netflix, nmax, kernels, large_p,
     host clock around the host key derivation (threefry's fold_in, split
     and bits): pass 1 (C1, C5 bounding, C2, C5 partition, C10), the
     blocks' kernels, the host's key work, waits, drains and the decode."""
-    names = ("row_keys", "radix_sort", "bound_rows", "block_offsets",
+    names = ("row_keys", "radix_sort", "bound_rows", "block_window_offsets",
              "reduce_partitions", "release_epilogue", "compact_kept")
     M = tdp.Metrics
     runs = {
@@ -4847,8 +5087,21 @@ def sweep_kernel_phase(torch, dev, shapes, kernels, card):
                          for x in (counts, sums, contributed))
             pkt = torch.as_tensor(pk, device=dev)
             perm, spk = kernels.radix_sort([pkt], sorted_top=True)
-            offs = kernels.block_offsets(
-                spk, torch.arange(p + 1, dtype=torch.int32, device=dev))
+            starts = torch.arange(p + 1, dtype=torch.int32, device=dev)
+            offs = kernels.block_offsets(spk, starts)
+            if f == torch.float32:
+                # C10 at the sweep's P + 1 partition starts.
+                check_equal(f"block_offsets[sweep ({label})]", same_twice(
+                    "block_offsets[sweep]", lambda: {
+                        "o": kernels.block_offsets(spk, starts)})["o"],
+                    kernels.block_offsets_plain(spk, starts))
+                print_three_way(
+                    f"C10, sweep ({label}): {p + 1} boundaries over "
+                    f"{spk.shape[0]} rows", three_way(torch, {
+                        "block_offsets":
+                            lambda: kernels.block_offsets(spk, starts),
+                        "torch.searchsorted":
+                            lambda: torch.searchsorted(spk, starts)}), card)
             cf = [torch.as_tensor(np.asarray(x), dtype=f,
                                   device=dev).contiguous() for x in cfg]
             l0, lo, hi, ns = cf[:4]
@@ -6319,15 +6572,19 @@ def plain_release(release):
 MESH_SHARDS = 4  # four shard slots on the one card
 # The meshed dense path: C1-C6 a shard, C21 over the shards' columns; a
 # device-resident input adds the exchange (C22, C23).
-MESH_PATH = BASE_KERNELS + ("combine_shards",)
+MESH_PATH = BASE_KERNELS + ("combine_parts",)
 EXCHANGE_PATH = MESH_PATH + ("reshard_count", "reshard_exchange")
 SOURCES = {"combine_shards": "combine_shards.cu",
            "combine_shards_compensated": "combine_shards.cu",
+           "combine_parts": "combine_shards.cu",
+           "combine_parts_compensated": "combine_shards.cu",
            "reshard_count": "reshard_count.cu",
            "reshard_exchange": "reshard_exchange.cu"}
 REPLACES = {
     "combine_shards": "pipelinedp_tpu/parallel/sharded.py:161",
     "combine_shards_compensated": "pipelinedp_tpu/ops/segment_ops.py:160",
+    "combine_parts": "pipelinedp_tpu/parallel/sharded.py:161",
+    "combine_parts_compensated": "pipelinedp_tpu/ops/segment_ops.py:160",
     "reshard_count": "pipelinedp_tpu/parallel/reshard.py:106",
     "reshard_exchange": "pipelinedp_tpu/parallel/reshard.py:133"}
 
@@ -6407,6 +6664,77 @@ def elastic_only(torch, tdp, cuda_build, columnar, kernels, card, t0):
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": report}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def walls_only(torch, tdp, cuda_build, columnar, card, t0, reps=5):
+    """python3 chip_smoke.py --walls: the build, the data and the walls of
+    (a), (b), (q), (v) and meshed (q) (card_mesh(), rows on the card,
+    reshard="device"), each the median of `reps` releases timed as the
+    main phases time them, and nothing else. It drives DPEngine alone, so
+    the same script compares two trees of the port in one call: run it
+    from each tree's root in turns."""
+    print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
+          f"{cuda_build.build_all():.1f} s ({card})", flush=True)
+    rng = np.random.default_rng(SEED)
+    encoded = columnar.encode_columns(*netflix_rows(rng))
+    nmax = data_maxima(encoded.pid, encoded.pk, encoded.n_partitions)
+    qenc = columnar.encode_columns(*zipfish_rows())
+    mesh = card_mesh(torch)
+    q_card = dataclasses.replace(
+        qenc, pid=torch.as_tensor(qenc.pid).to(mesh.device),
+        pk=torch.as_tensor(qenc.pk).to(mesh.device),
+        values=torch.as_tensor(qenc.values).to(mesh.device, torch.float32))
+    M, N = tdp.Metrics, tdp.NoiseKind
+    netflix_bounds = dict(max_partitions_contributed=64,
+                          max_contributions_per_partition=1, min_value=1.0,
+                          max_value=5.0)
+    q_bounds = dict(max_partitions_contributed=4,
+                    max_contributions_per_partition=8, min_value=0.0,
+                    max_value=5.0)
+    v_bounds = dict(max_partitions_contributed=nmax[0],
+                    max_contributions_per_partition=nmax[1], min_value=1.0,
+                    max_value=5.0)
+    cells = {
+        "a": (encoded, [M.COUNT, M.SUM, M.MEAN, M.VARIANCE], N.GAUSSIAN,
+              True, 1.0, netflix_bounds, {}),
+        "b": (encoded, [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT], N.LAPLACE,
+              False, 1.0, netflix_bounds, {}),
+        "q": (qenc, [M.COUNT, M.SUM], N.LAPLACE, False, 1.0, q_bounds, {}),
+        "v": (encoded, [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT], N.LAPLACE, True,
+              1e6, v_bounds, dict(large_partition_threshold=4096,
+                                  block_partitions=4096)),
+        "meshed q": (q_card, [M.COUNT, M.SUM], N.LAPLACE, False, 1.0,
+                     q_bounds, dict(mesh=mesh, reshard="device")),
+    }
+    for label, (data, metrics, noise, public, eps, bounds, backend) in \
+            cells.items():
+        times = []
+        for rep in range(reps):
+            acc = tdp.NaiveBudgetAccountant(total_epsilon=eps,
+                                            total_delta=1e-6)
+            res = tdp.DPEngine(acc, tdp.TorchBackend(
+                noise_seed=rep, **backend)).aggregate(
+                    data, tdp.AggregateParams(metrics=metrics,
+                                              noise_kind=noise, **bounds),
+                    tdp.DataExtractors(),
+                    list(data.partition_vocab) if public else None)
+            acc.compute_budgets()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = dict(res)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            if not out:
+                raise AssertionError(f"wall ({label}): nothing released")
+        print(f"wall ({label}): {statistics.median(times) * 1e3:.1f} ms, "
+              f"median of {reps}: {[round(t * 1e3, 1) for t in times]} ms "
+              f"({card})", flush=True)
+    print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -6493,6 +6821,57 @@ def mesh_kernel_phase(torch, dev, encoded, onehot, kernels, card):
                     replaces=REPLACES[name], launches=0,
                     max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        for compensated in (False, True):
+            same_twice(f"combine_shards[{label}, compensated={compensated}]",
+                       lambda: {"sum": kernels.combine_shards(stack,
+                                                              compensated)})
+        print_three_way(f"C21 stack, D={d}, M={label} float32", three_way(
+            torch, {"combine_shards": lambda: kernels.combine_shards(stack),
+                    "combine_shards_compensated":
+                        lambda: kernels.combine_shards(stack, True),
+                    "stack.sum(0)": lambda: stack.sum(0)}), card)
+        if label != "17,770 x 6":
+            continue
+        # combine_parts over (a)'s meshed release columns: 6 columns of
+        # 17,770 a shard, laid out as C3 lays them (one [6, P] block a
+        # shard: every other column 8 bytes off a 16-byte boundary).
+        parts = [list(stack[s].view(6, N_MOVIES).unbind(0))
+                 for s in range(d)]
+        for name, compensated in (("combine_parts", False),
+                                  ("combine_parts_compensated", True)):
+            got = same_twice(name, lambda: dict(enumerate(
+                kernels.combine_parts(parts, compensated))))
+            err_p = max(check_equal(f"{name}[(a)'s columns] column {c}",
+                                    got[c], want)
+                        for c, want in enumerate(kernels.combine_parts_plain(
+                            parts, compensated)))
+            whole = kernels.combine_shards(stack, compensated).view(
+                6, N_MOVIES)
+            for c in range(6):
+                check_equal(f"{name} column {c} vs combine_shards", got[c],
+                            whole[c])
+            fn = lambda: kernels.combine_parts(  # noqa: E731
+                parts, compensated)
+            ms = cuda_ms(fn, 50)
+            plain_ms = cuda_ms(lambda: kernels.combine_parts_plain(
+                parts, compensated), 10)
+            split = three_way(torch, {
+                name: fn, "torch.stack(parts).sum(0), two calls":
+                    lambda: torch.stack([stack[s] for s in range(d)]).sum(0)})
+            print(f"kernel {name}[D={d}, 6 columns x 17,770 float32, (a)'s "
+                  f"meshed release]: == plain, == combine_shards of the "
+                  f"stack; ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+                  f"{b_ms:.3g} ({b_by}) library_ms=None (no one call "
+                  f"computes it: the yardstick stacks each shard's block, "
+                  f"then sums, two calls) ({card})", flush=True)
+            print_three_way(f"C21 parts, D={d}, 6 x 17,770 float32", split,
+                            card)
+            report.append(dict(
+                name=name, route="cuda",
+                source="pipelinedp_tpu_torch/csrc/combine_shards.cu",
+                replaces=REPLACES[name],
+                launches=0, max_abs_err=err_p, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None))
     # C22 and C23 over the Netflix rows on 4 shards.
     pid = torch.as_tensor(encoded.pid).to(dev)
     pk = torch.as_tensor(encoded.pk).to(dev)
@@ -6714,7 +7093,7 @@ def mesh_phase(torch, tdp, encoded, kernels, card):
         return out, seconds, counts
 
     shard_launches = dict(row_keys=d, bound_rows=d, radix_sort=2 * d,
-                          combine_shards=1)
+                          combine_parts=1)
     per_partition = dict(max_partitions_contributed=64,
                          max_contributions_per_partition=1)
     runs = {"a": (("COUNT", "SUM", "MEAN", "VARIANCE"), "GAUSSIAN", True),
@@ -6784,8 +7163,8 @@ def mesh_phase(torch, tdp, encoded, kernels, card):
     true_k = np.bincount(encoded.pk, weights=encoded.values * 1000,
                          minlength=P)
     safe_path = tuple(k for k in MESH_PATH if k not in (
-        "reduce_partitions", "combine_shards")) + (
-            "reduce_partitions_compensated", "combine_shards_compensated")
+        "reduce_partitions", "combine_parts")) + (
+            "reduce_partitions_compensated", "combine_parts_compensated")
     acc_p = tdp.NaiveBudgetAccountant(total_epsilon=1e12, total_delta=1e-6)
     from pipelinedp_tpu_torch import combiners, executor
     p_params = tdp.AggregateParams(
@@ -6980,7 +7359,7 @@ def mesh_service_phase(torch, tdp, kernels, card, users, movies, ratings,
     if not lanes:
         raise AssertionError("mesh S2b: no job ran as a meshed lane")
     check_launches("mesh S2b batched", batched[3], kernels,
-                   path=SERVICE_PATH + ("combine_shards",))
+                   path=SERVICE_PATH + ("combine_parts",))
     for name, n in batched[3].items():
         total[name] += n
     print(f"mesh service S2b D={mesh.size}: {s2_jobs} jobs of {s2_rows} rows: "
@@ -6989,7 +7368,7 @@ def mesh_service_phase(torch, tdp, kernels, card, users, movies, ratings,
           f"{batched[5].get('service_batch_launches', 0)} meshed launches; "
           f"wall solo {solo[4] * 1e3:.1f} ms, batched "
           f"{batched[4] * 1e3:.1f} ms; batched launches "
-          f"{dict((k, batched[3][k]) for k in SERVICE_PATH + ('combine_shards',))}"
+          f"{dict((k, batched[3][k]) for k in SERVICE_PATH + ('combine_parts',))}"
           f" ({card})", flush=True)
     mesh_batched_percentile(torch, tdp, kernels, card, mesh, users, movies,
                             ratings)
@@ -7026,7 +7405,7 @@ def mesh_batched_percentile(torch, tdp, kernels, card, mesh, users, movies,
     counts = dict(kernels.launch_counts)
     check_launches("mesh batched (f)", counts, kernels,
                    path=("row_keys_lanes", "bound_rows_lanes",
-                         "reduce_partitions_lanes", "combine_shards",
+                         "reduce_partitions_lanes", "combine_parts",
                          "quantile_counts", "quantile_descend_lanes",
                          "compact_kept_lanes"))
     lanes_equal_solo(torch, "mesh batched (f)", batched,
@@ -7044,7 +7423,7 @@ def mesh_batched_percentile(torch, tdp, kernels, card, mesh, users, movies,
 # The meshed blocked route (K23a): pass 1 a shard (C1, C5, C2, C5, C10),
 # each block's windows a shard (C3 windowed), C21, the block's release once
 # (C4, C6); device staging adds the exchange.
-MESH_BLOCKED_PATH = BLOCKED_KERNELS + ("combine_shards",)
+MESH_BLOCKED_PATH = BLOCKED_KERNELS + ("combine_parts",)
 MESH_BLOCKED_EXCHANGE = MESH_BLOCKED_PATH + ("reshard_count",
                                              "reshard_exchange")
 MESH_BLOCKED_SPLIT = ("staging", "p1_bound_compact", "block_offsets",
@@ -7173,6 +7552,9 @@ def mesh_blocked_kernels(torch, tdp, mesh, qenc, kernels, large_p, card):
             replaces="pipelinedp_tpu/parallel/large_p.py:743", launches=0,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms))
+        print_three_way(f"C21 stack, D={d}, {label}", three_way(
+            torch, {"combine_shards": lambda: kernels.combine_shards(st),
+                    "stack.sum(0)": lambda: st.sum(0)}), card)
     # C10 on shard 0's pass-1 stream of (q), its 5 blocks' boundaries.
     cfg, _, scalars = release_spec(tdp, tdp.AggregateParams(
         metrics=[tdp.Metrics.COUNT], min_value=0.0, max_value=5.0,
@@ -7185,13 +7567,15 @@ def mesh_blocked_kernels(torch, tdp, mesh, qenc, kernels, large_p, card):
         torch.as_tensor(qenc.valid).to(dev), "device", torch.float32)
     P = qenc.n_partitions
     n_blocks = -(-P // LARGE_BLOCK)
-    with on_device(mesh.devices[0]):
-        stream = large_p._bound_compact(
-            *shards[0], scalars, threefry.fold_in(np.array([0, 1], np.uint32),
-                                                  0), cfg)
-    bounds = torch.as_tensor(np.minimum(
-        large_p._block_boundaries(0, LARGE_BLOCK, n_blocks), P)).to(
-            stream.skey2.device)
+    streams = []
+    for s, rows in enumerate(shards):
+        with on_device(mesh.devices[s]):
+            streams.append(large_p._bound_compact(
+                *rows, scalars, threefry.fold_in(np.array([0, 1], np.uint32),
+                                                 s), cfg))
+    stream = streams[0]
+    bounds = kernels.block_window_boundaries(0, LARGE_BLOCK, n_blocks, P,
+                                             stream.skey2.device)
     got = kernels.block_offsets(stream.skey2, bounds)
     err = check_equal("block_offsets[one shard of (q)]", got,
                       kernels.block_offsets_plain(stream.skey2, bounds))
@@ -7207,12 +7591,39 @@ def mesh_blocked_kernels(torch, tdp, mesh, qenc, kernels, large_p, card):
           f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
           f"library_ms(torch.searchsorted)={lib_ms:.4f} ({card})",
           flush=True)
+    print_three_way(f"C10, one shard of (q): {n_rows} rows x {n_blocks + 1} "
+                    f"boundaries", three_way(torch, {
+                        "block_offsets":
+                            lambda: kernels.block_offsets(stream.skey2,
+                                                          bounds),
+                        "torch.searchsorted":
+                            lambda: torch.searchsorted(stream.skey2,
+                                                       bounds)}), card)
     report.append(dict(
         name="block_offsets", shape=f"one shard of (q), D={d}",
         route="cuda", source="pipelinedp_tpu_torch/csrc/block_offsets.cu",
         replaces="pipelinedp_tpu/parallel/large_p.py:696", launches=0,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms))
+    # The D shards' windows as the meshed drivers take them
+    # (_sharded_block_offsets): one launch a distinct device.
+    if len(set(mesh.devices)) == 1:
+        window = ([t.skey2 for t in streams], 0, LARGE_BLOCK, n_blocks, P)
+        got = same_twice("block_window_offsets[meshed (q)]", lambda: {
+            "offsets": kernels.block_window_offsets(*window)})["offsets"]
+        check_equal("block_window_offsets[meshed (q)]", got,
+                    kernels.block_window_offsets_plain(*window))
+        for s, t in enumerate(streams):
+            check_equal(f"block_window_offsets[meshed (q)] shard {s} vs "
+                        f"block_offsets", got[s], kernels.block_offsets(
+                            t.skey2, bounds.to(t.skey2.device)))
+        print_three_way(f"C10, {d} shards of (q) x {n_blocks + 1} "
+                        f"boundaries", three_way(torch, {
+                            "block_window_offsets, one launch":
+                                lambda: kernels.block_window_offsets(*window),
+                            f"torch.searchsorted x {d}": lambda: [
+                                torch.searchsorted(t.skey2, bounds)
+                                for t in streams]}), card)
     return report
 
 
@@ -7233,6 +7644,7 @@ def mesh_blocked_phase(torch, tdp, rng, qenc, netflix, nmax, kernels,
     total = dict.fromkeys(kernels.KERNELS, 0)
     mesh = card_mesh(torch)
     dev, d = mesh.device, mesh.size
+    cards = len(set(mesh.devices))  # C10's launches: one a distinct card
     mesh_blocked_parity(torch, tdp, rng, parity_devices)
     M = tdp.Metrics
 
@@ -7311,7 +7723,7 @@ def mesh_blocked_phase(torch, tdp, rng, qenc, netflix, nmax, kernels,
             f"v, {mode}", tdp.TorchBackend(noise_seed=9, mesh=mesh,
                                            reshard=mode, **v_backend),
             data, v_metrics, True, 1e6, v_bounds, path,
-            dict(combine_shards=v_blocks, block_offsets=d))
+            dict(combine_parts=v_blocks, block_window_offsets=cards))
         if out != solo_v:
             bad = [m for m in solo_v if out[m] != solo_v[m]]
             raise AssertionError(f"mesh blocked (v, {mode}): {len(bad)} "
@@ -7381,7 +7793,8 @@ def mesh_blocked_phase(torch, tdp, rng, qenc, netflix, nmax, kernels,
             out, seconds, pt = run(
                 f"q, {mode}", tdp.TorchBackend(noise_seed=rep, **backend),
                 data, [M.COUNT, M.SUM], False, 1.0, priv, path,
-                None if mode == "unmeshed" else dict(block_offsets=d),
+                None if mode == "unmeshed" else
+                dict(block_window_offsets=cards),
                 probe=probe, guard=guard)
             if pt["blocks_dispatched"] != n_blocks:
                 raise AssertionError(f"mesh blocked (q, {mode}): "
@@ -7407,7 +7820,8 @@ def mesh_blocked_phase(torch, tdp, rng, qenc, netflix, nmax, kernels,
             out, seconds, _ = run(
                 f"select q, {mode}", tdp.TorchBackend(
                     noise_seed=rep, mesh=mesh, reshard=mode), data, None,
-                False, 1.0, None, path, dict(block_offsets=d), select=True)
+                False, 1.0, None, path, dict(block_window_offsets=cards),
+                select=True)
             if len(out) >= P or len(set(out)) != len(out):
                 raise AssertionError(f"mesh blocked select (q, {mode}): "
                                      f"{len(out)} kept")
@@ -7989,6 +8403,9 @@ def heartbeat_kernel_phase(torch, kernels, card):
           f"{lib_ms:.4f}; the whole heartbeat (tensors, gather, launch, "
           f"fetch) {statistics.median(walls):.4f} ms host clock, median of "
           f"20 ({card})", flush=True)
+    print_three_way(f"C21 heartbeat, D={d}, int32 [{d}, 1]", three_way(
+        torch, {"heartbeat_sum": lambda: kernels.heartbeat_sum(stack),
+                "stack.sum(0)": lambda: stack.sum(0)}), card)
     return [dict(
         name="collective_heartbeat", shape=f"D={d}, int32 [{d}, 1]",
         route="cuda", source="pipelinedp_tpu_torch/csrc/combine_shards.cu",

@@ -539,7 +539,7 @@ int run_scalar(const void* skey2, const void* perm, const void* pair_start,
   const Scratch lay = scratch_layout(tiles, 1, sizeof(Seg<F, C>), n_lanes);
   char* sc = static_cast<char*>(scratch);
   // One memset where the caller placed the scratch right after the
-  // outputs (kernels._columns_and_scratch).
+  // outputs (kernels._c3_buffer).
   const bool joined = static_cast<char*>(fill) + fill_bytes == sc;
   const long long head = n > 0 ? lay.aggs_at : 0;
   if (fill_bytes + (joined ? head : 0) > 0)

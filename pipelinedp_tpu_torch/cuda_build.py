@@ -124,6 +124,7 @@ _SIGNATURES = {
     },
     "block_offsets": {
         "block_offsets": (_I, [_P, _LL, _P, _LL, _P, _P]),
+        "block_window_offsets": (_I, [_P, _I, _LL, _LL, _LL, _LL, _P, _P]),
     },
     "gather_rows": {
         "gather_rows": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P]),
@@ -169,8 +170,8 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     },
     "combine_shards": {
-        "combine_shards": (_I, [_P, _I, _LL, _I, _P, _P]),
-        "combine_shards_compensated": (_I, [_P, _I, _LL, _P, _P]),
+        "combine_parts": (_I, [_P, _I, _I, _I, _I, _P]),
+        "combine_stack": (_I, [_P, _I, _LL, _I, _I, _P, _P]),
     },
     "reshard_count": {
         "reshard_count_scratch_elements": (_LL, [_LL, _I]),

@@ -19,7 +19,12 @@ their plain PyTorch versions.
                                                      regimes), percentile flags
     C9 vector_release     csrc/vector_release.cu     norm-ball clip, noise, flags
     C10 block_offsets     csrc/block_offsets.cu      row window of every partition
-                                                     block (blocked route)
+                                                     block (blocked route): a
+                                                     warp's 32-way search a
+                                                     boundary; the block
+                                                     boundaries of S streams
+                                                     made in one launch
+                                                     (block_window_offsets)
     C11 gather_rows       csrc/gather_rows.cu        columns gathered through one
                                                      index (host-staged survivors)
     C12 factorize_codes   csrc/factorize_codes.cu    first-occurrence codes of key
@@ -45,13 +50,16 @@ their plain PyTorch versions.
                                                      the analysis sweep
     C20 sweep_report      csrc/sweep_report.cu       keep probabilities, report
                                                      rows, bucket sums
-    C21 combine_shards    csrc/combine_shards.cu     the cross-shard sum of a
-                                                     [D, M] stack of partials
-                                                     (plain; compensated); its
-                                                     int32 entry is K23c's
-                                                     heartbeat sum
-                                                     (heartbeat_sum, counted
-                                                     collective_heartbeat)
+    C21 combine_shards    csrc/combine_shards.cu     the cross-shard sum of the
+                                                     shards' columns read where
+                                                     they lie, every column in
+                                                     one launch (combine_parts;
+                                                     plain, compensated); the
+                                                     [D, M] stack entries
+                                                     (combine_shards) and K23c's
+                                                     heartbeat sum (heartbeat_sum,
+                                                     counted collective_heartbeat)
+                                                     launch the same kernel
     C22 reshard_count     csrc/reshard_count.cu      destination shard, send
                                                      counts and stable rank of
                                                      every row
@@ -105,6 +113,7 @@ service's workers launch concurrently. No wrapper or kernel keeps host or
 device scratch between calls.
 """
 
+import array
 import ctypes
 import math
 import threading
@@ -144,7 +153,8 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "quantile_descend_lanes", "quantile_descend_secure_lanes",
            "vector_release_lanes", "vector_release_secure_lanes",
            "mesh_local_uniques", "mesh_merge_ranks", "mesh_remap_rows",
-           "collective_heartbeat")
+           "collective_heartbeat", "block_window_offsets", "combine_parts",
+           "combine_parts_compensated")
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 PLAN_KINDS = {"count": 0, "privacy_id_count": 1, "sum": 2, "mean": 3,
@@ -206,6 +216,17 @@ def _stream(device: torch.device) -> int:
     index = (device.index if device.index is not None else
              torch.cuda.current_device())
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _launches(device: torch.device, name: str) -> bool:
+    """True on a CUDA device (the wrapper launches its kernel), False on
+    the CPU (its plain version); any other device raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: inputs on {device}; the kernel takes CUDA "
+                     f"tensors, the plain version CPU ones")
 
 
 def _raise_on(status: int, name: str) -> None:
@@ -1487,17 +1508,26 @@ def block_offsets(stream: torch.Tensor,
     position of the ascending int32 stream holding a value >= boundaries[j]
     (searchsorted, side "left"), as int64[m]. Block j's rows are
     [offsets[j], offsets[j + 1]); with the last boundary at the partition
-    count, offsets[-1] is the number of surviving rows."""
-    n = stream.shape[0]
-    m = boundaries.shape[0]
-    _check(stream, torch.int32, n, "stream")
-    _check(boundaries, torch.int32, m, "boundaries")
-    if not _on_cuda(stream, boundaries):
-        return block_offsets_plain(stream, boundaries)
+    count, offsets[-1] is the number of surviving rows. For boundaries of
+    the block arithmetic, block_window_offsets makes them in the kernel."""
+    if stream.dtype is not torch.int32 or boundaries.dtype is not \
+            torch.int32 or stream.dim() != 1 or boundaries.dim() != 1 or \
+            not stream.is_contiguous() or not boundaries.is_contiguous():
+        raise ValueError(f"block_offsets: expected contiguous int32[n] "
+                         f"stream and boundaries, got {stream.dtype}"
+                         f"{list(stream.shape)} and {boundaries.dtype}"
+                         f"{list(boundaries.shape)}")
     dev = stream.device
-    offsets = torch.empty(m, dtype=torch.int64, device=dev)
+    if boundaries.device != dev:
+        raise ValueError(f"kernel inputs must all lie on one device, got "
+                         f"{dev} and {boundaries.device}")
+    if not _launches(dev, "block_offsets"):
+        return block_offsets_plain(stream, boundaries)
+    m = boundaries.shape[0]
+    offsets = stream.new_empty(m, dtype=torch.int64)
     status = cuda_build.library("block_offsets").block_offsets(
-        _ptr(stream), n, _ptr(boundaries), m, _ptr(offsets), _stream(dev))
+        stream.data_ptr(), stream.shape[0], boundaries.data_ptr(), m,
+        offsets.data_ptr(), _stream(dev))
     _raise_on(status, "block_offsets")
     _count("block_offsets")
     return offsets
@@ -1505,6 +1535,64 @@ def block_offsets(stream: torch.Tensor,
 
 def block_offsets_plain(stream, boundaries):
     return torch.searchsorted(stream, boundaries, side="left")
+
+
+BLOCK_WINDOW_MAX_STREAMS = 64  # csrc/block_offsets.cu kMaxStreams
+
+
+def block_window_offsets(streams: Sequence[torch.Tensor], base: int,
+                         capacity: int, n_blocks: int,
+                         end: int) -> torch.Tensor:
+    """The row windows of n_blocks blocks of `capacity` partitions from
+    `base` in each of S ascending int32 streams of one device, in one
+    launch: out[s, b] = the first position of streams[s] holding a value
+    >= min(base + b * capacity, INT32_MAX, end), b in 0..n_blocks, as
+    int64[S, n_blocks + 1]. The boundaries are block_window_boundaries
+    (the sentinel partition `end` lies in no window); the kernel makes
+    them, so nothing is uploaded."""
+    n_streams = len(streams)
+    if not 1 <= n_streams <= BLOCK_WINDOW_MAX_STREAMS or n_blocks < 0:
+        raise ValueError(f"block_window_offsets: 1 to "
+                         f"{BLOCK_WINDOW_MAX_STREAMS} streams and n_blocks "
+                         f">= 0, got {n_streams} and {n_blocks}")
+    dev = streams[0].device
+    for t in streams:
+        if t.dtype is not torch.int32 or t.dim() != 1 or \
+                not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"block_window_offsets: expected contiguous "
+                             f"int32 streams on {dev}, got {t.dtype}"
+                             f"{list(t.shape)} on {t.device}")
+    if not _launches(dev, "block_window_offsets"):
+        return block_window_offsets_plain(streams, base, capacity, n_blocks,
+                                          end)
+    out = streams[0].new_empty((n_streams, n_blocks + 1), dtype=torch.int64)
+    table = array.array("q", [t.data_ptr() for t in streams] +
+                        [t.shape[0] for t in streams])
+    status = cuda_build.library("block_offsets").block_window_offsets(
+        table.buffer_info()[0], n_streams, int(base), int(capacity),
+        int(n_blocks), int(end), out.data_ptr(), _stream(dev))
+    _raise_on(status, "block_window_offsets")
+    _count("block_window_offsets")
+    return out
+
+
+def block_window_boundaries(base: int, capacity: int, n_blocks: int, end: int,
+                            device=None) -> torch.Tensor:
+    """The block boundaries over [base, base + n_blocks * capacity],
+    clamped into int32 range and to `end`: min(base + b * capacity,
+    INT32_MAX, end) for b in 0..n_blocks, as int32[n_blocks + 1]
+    (np.minimum(_block_boundaries(...), end) of the JAX package's
+    large_p.py:811-818)."""
+    b = int(base) + torch.arange(n_blocks + 1, dtype=torch.int64,
+                                 device=device) * int(capacity)
+    return b.clamp(max=min(_INT32_MAX, int(end))).to(torch.int32)
+
+
+def block_window_offsets_plain(streams, base, capacity, n_blocks, end):
+    bounds = block_window_boundaries(base, capacity, n_blocks, end,
+                                     streams[0].device)
+    return torch.stack([torch.searchsorted(t, bounds, side="left")
+                        for t in streams])
 
 
 # ---------------------------------------------------------------------------
@@ -3464,34 +3552,116 @@ _COMBINE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                   torch.float64: 3}
 
 
+COMBINE_MAX_SHARDS = 64
+# csrc/combine_shards.cu: output columns and input parts a launch
+# (kMaxColumns, kMaxParts).
+_COMBINE_MAX_COLUMNS = 32
+_COMBINE_MAX_PARTS = 256
+
+
+def combine_parts(parts: Sequence[Sequence[torch.Tensor]],
+                  compensated: bool = False) -> List[torch.Tensor]:
+    """C21: the shards' columns summed column by column, read where they
+    lie. parts[s][c] is shard s's column c: contiguous, column c's number
+    of elements on every shard, one dtype (int32, int64, float32 or
+    float64), all on one device; 1 <= D <= 64. Returns the C summed
+    columns in shard 0's shapes, from one launch (one per group of
+    min(32, 256 // D) whole columns).
+
+    Each element folds in shard order 0..D-1 (integers exact, int32
+    wrapping as XLA's psum does); compensated (float32 only,
+    numeric_mode="safe"): the shards' (hi, lo) pairs combined by TwoSum
+    in jax.lax.associative_scan's association, hi + lo of the last
+    element (the JAX package's segment_ops.compensated_psum), bit for
+    bit.
+    """
+    d = len(parts)
+    if not 1 <= d <= COMBINE_MAX_SHARDS:
+        raise ValueError(f"combine_parts: 1 to {COMBINE_MAX_SHARDS} shards, "
+                         f"got {d}")
+    first = parts[0]
+    n_cols = len(first)
+    if n_cols == 0:
+        if any(len(p) for p in parts):
+            raise ValueError("combine_parts: every shard has the same "
+                             "columns")
+        return []
+    dtype, dev = first[0].dtype, first[0].device
+    if dtype not in _COMBINE_CODES:
+        raise ValueError(f"combine_parts: int32, int64, float32 or float64, "
+                         f"got {dtype}")
+    if compensated and dtype is not torch.float32:
+        raise ValueError(f"combine_parts: the compensated entry takes "
+                         f"float32, got {dtype}")
+    sizes = [t.numel() for t in first]
+    ins = []
+    for s, p in enumerate(parts):
+        if len(p) != n_cols:
+            raise ValueError(f"combine_parts: shard {s} has {len(p)} "
+                             f"columns, shard 0 {n_cols}")
+        for c, t in enumerate(p):
+            if t.dtype is not dtype or t.device != dev or \
+                    not t.is_contiguous() or t.numel() != sizes[c]:
+                raise ValueError(
+                    f"combine_parts: part ({s}, {c}) is {t.dtype}"
+                    f"{list(t.shape)} on {t.device}, contiguous "
+                    f"{t.is_contiguous()}; expected contiguous {dtype} of "
+                    f"{sizes[c]} elements on {dev}")
+            ins.append(t.data_ptr())
+    if not _launches(dev, "combine_parts"):
+        return combine_parts_plain(parts, compensated)
+    es = dtype.itemsize
+    width = 16 // es
+    # One allocation; column c starts where its address agrees with shard
+    # 0's part modulo 16 bytes, so that its slots can be 16-byte vectors.
+    flat = first[0].new_empty(sum(sizes) + n_cols * width)
+    base = flat.data_ptr()
+    outs, out_ptrs, at = [], [], 0
+    for c, m in enumerate(sizes):
+        at += ((ins[c] - base) // es - at) % width
+        outs.append(flat.as_strided(first[c].shape, first[c].stride(), at))
+        out_ptrs.append(base + at * es)
+        at += m
+    table = array.array("q", ins + out_ptrs + sizes)
+    name = "combine_parts_compensated" if compensated else "combine_parts"
+    status = cuda_build.library("combine_shards").combine_parts(
+        table.buffer_info()[0], d, n_cols, _COMBINE_CODES[dtype],
+        int(compensated), _stream(dev))
+    _raise_on(status, name)
+    group = min(_COMBINE_MAX_COLUMNS, _COMBINE_MAX_PARTS // d)
+    for c0 in range(0, n_cols, group):
+        if any(sizes[c0:c0 + group]):
+            _count(name)
+    return outs
+
+
+def combine_parts_plain(parts, compensated=False):
+    return [combine_shards_plain(
+        torch.stack([p[c].reshape(-1) for p in parts]),
+        compensated).reshape(parts[0][c].shape)
+        for c in range(len(parts[0]))]
+
+
 def combine_shards(stack: torch.Tensor,
                    compensated: bool = False) -> torch.Tensor:
-    """C21: the sum over the shard axis of a [D, M] stack of per-shard
-    partials, [M].
-
-    The plain entry takes int32, int64, float32 or float64 and adds in
-    shard order 0..D-1 (integers exact, int32 wrapping as XLA's psum
-    does). compensated (float32 only, numeric_mode="safe"): the shards'
-    (hi, lo) pairs combined by TwoSum in jax.lax.associative_scan's
-    association, hi + lo of the last element (the JAX package's
-    segment_ops.compensated_psum), bit for bit.
-    """
+    """C21 over a [D, M] stack of per-shard partials: its D rows are the
+    parts of one column (combine_parts), [M]. Counted as combine_shards
+    or combine_shards_compensated."""
     if stack.dim() != 2 or stack.dtype not in _COMBINE_CODES or \
             not stack.is_contiguous() or stack.shape[0] < 1:
         raise ValueError(f"combine_shards: expected a contiguous [D >= 1, M] "
                          f"stack of int32, int64, float32 or float64, got "
                          f"{stack.dtype}{list(stack.shape)}")
-    n_shards, m = stack.shape
     if compensated and stack.dtype != torch.float32:
         raise ValueError(f"combine_shards: the compensated entry takes "
                          f"float32, got {stack.dtype}")
-    if n_shards > 64:
-        raise ValueError(f"combine_shards: at most 64 shards, got "
-                         f"{n_shards}")
-    if not _on_cuda(stack):
+    if stack.shape[0] > COMBINE_MAX_SHARDS:
+        raise ValueError(f"combine_shards: at most {COMBINE_MAX_SHARDS} "
+                         f"shards, got {stack.shape[0]}")
+    if not _launches(stack.device, "combine_shards"):
         return combine_shards_plain(stack, compensated)
-    return _combine_launch(stack, compensated, "combine_shards_compensated"
-                           if compensated else "combine_shards")
+    return _combine_stack(stack, compensated, "combine_shards_compensated"
+                          if compensated else "combine_shards")
 
 
 def heartbeat_sum(stack: torch.Tensor) -> torch.Tensor:
@@ -3504,27 +3674,23 @@ def heartbeat_sum(stack: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"heartbeat_sum: expected a contiguous int32 "
                          f"[1 <= D <= 64, 1] stack, got "
                          f"{stack.dtype}{list(stack.shape)}")
-    if not _on_cuda(stack):
+    if not _launches(stack.device, "heartbeat_sum"):
         return combine_shards_plain(stack)
-    return _combine_launch(stack, False, "collective_heartbeat")
+    return _combine_stack(stack, False, "collective_heartbeat")
 
 
-def _combine_launch(stack: torch.Tensor, compensated: bool,
-                    name: str) -> torch.Tensor:
-    """One C21 launch over a validated CUDA stack, counted as `name`."""
+def _combine_stack(stack: torch.Tensor, compensated: bool,
+                   name: str) -> torch.Tensor:
+    """C21 over a validated CUDA [D, M] stack, its rows the parts of one
+    column, counted as `name`."""
     n_shards, m = stack.shape
-    dev = stack.device
-    out = torch.empty(m, dtype=stack.dtype, device=dev)
-    lib = cuda_build.library("combine_shards")
-    if compensated:
-        status = lib.combine_shards_compensated(_ptr(stack), n_shards, m,
-                                                _ptr(out), _stream(dev))
-    else:
-        status = lib.combine_shards(_ptr(stack), n_shards, m,
-                                    _COMBINE_CODES[stack.dtype], _ptr(out),
-                                    _stream(dev))
+    out = stack.new_empty(m)
+    status = cuda_build.library("combine_shards").combine_stack(
+        stack.data_ptr(), n_shards, m, _COMBINE_CODES[stack.dtype],
+        int(compensated), out.data_ptr(), _stream(stack.device))
     _raise_on(status, name)
-    _count(name)
+    if m:
+        _count(name)
     return out
 
 

@@ -11,9 +11,10 @@ the release runs over the partition axis in blocks of C partitions:
      kept rows in ascending partition order and the dropped rows, whose
      key2 is the n_partitions sentinel, at its tail.
   2. **Bin by partition block**: block b owns partitions [b*C, (b+1)*C);
-     C10 (block_offsets) finds every block's row window in the stream.
-     The last boundary is clamped to the range's end, so the sentinel rows
-     fall in no window and the last offset is the survivor count.
+     C10 (block_window_offsets, the boundaries made in the kernel) finds
+     every block's row window in the stream. The last boundary is clamped
+     to the range's end, so the sentinel rows fall in no window and the
+     last offset is the survivor count.
   3. **Finalize per block**: C3's windowed entry reduces the block's rows
      to dense [C] columns (partition = skey2 - base), C4 selects and
      noises them under the block's own key, C7/C8 run its quantile trees
@@ -47,13 +48,14 @@ with the block key itself.
 Over a device mesh (aggregate_blocked_sharded,
 select_partitions_blocked_sharded; the JAX package's meshed variants,
 K23a): stage_rows_to_mesh puts every privacy id's rows on one shard, pass
-1 runs on each shard under fold_in(rows_key, shard) with C10 against the
-block boundaries there, and the [D, n_blocks + 1] offsets table is the
-one fetch that scales with the blocks. Each block reduces every shard's
-own window (C3's windowed entry), one C21 launch sums the D partial
-columns onto the mesh's first device, and the release (C4, C7 / C8 with
-each level's counts summed by C21, C9, C6) runs there once. A D = 1 mesh
-releases what the unmeshed route releases, bit for bit.
+1 runs on each shard under fold_in(rows_key, shard), one C10 launch a
+distinct device finds the block windows of its shards' streams, and the
+[D, n_blocks + 1] offsets table is the one fetch that scales with the
+blocks. Each block reduces every shard's own window (C3's windowed
+entry), one C21 launch sums the D partial columns onto the mesh's first
+device, and the release (C4, C7 / C8 with each level's counts summed by
+C21, C9, C6) runs there once. A D = 1 mesh releases what the unmeshed
+route releases, bit for bit.
 
 Failure semantics (runtime/retry.py, runtime/faults.py, runtime/entry.py;
 the JAX package's, for every driver here): each block's launches run
@@ -114,14 +116,6 @@ def _block_noise_key(final_key, generation: int, block: int) -> np.ndarray:
         return threefry.fold_in(final_key, block)
     return threefry.fold_in(
         threefry.fold_in(final_key, _REPLAN_KEY_LANE + generation), block)
-
-
-def _block_boundaries(base: int, capacity: int, n_blocks: int) -> np.ndarray:
-    """int32 block boundaries over [base, base + n_blocks * capacity],
-    clamped into int32 range (large_p.py:811-818 of the JAX package)."""
-    return np.minimum(
-        base + np.arange(n_blocks + 1, dtype=np.int64) * capacity,
-        np.iinfo(np.int32).max).astype(np.int32)
 
 
 def _chunk_ends(pid_sorted: np.ndarray, row_chunk: int) -> np.ndarray:
@@ -431,13 +425,12 @@ def _bound_and_compact_host_staged(pid, pk, values, valid, scalars,
 
 def _offsets(stream: _Stream, base: int, capacity: int, n_blocks: int,
              end: int) -> np.ndarray:
-    """The row windows of the range's blocks (C10), on the host. The last
-    boundary is clamped to `end`: the sentinel key2 = n_partitions lies in
-    no window, whatever P % capacity."""
-    bounds = np.minimum(_block_boundaries(base, capacity, n_blocks), end)
-    return kernels.block_offsets(
-        stream.skey2,
-        torch.as_tensor(bounds).to(stream.skey2.device)).cpu().numpy()
+    """The row windows of the range's blocks (C10's block_window_offsets:
+    the boundaries made on the device), on the host. The last boundary is
+    clamped to `end`: the sentinel key2 = n_partitions lies in no window,
+    whatever P % capacity."""
+    return kernels.block_window_offsets(
+        [stream.skey2], base, capacity, n_blocks, end)[0].cpu().numpy()
 
 
 def _block(stream: _Stream, lo: int, hi: int, b_base: int, key, min_v,
@@ -759,17 +752,28 @@ def _sharded_block_offsets(mesh: Mesh, streams: Sequence[_Stream], base: int,
                            capacity: int, n_blocks: int,
                            end: int) -> np.ndarray:
     """The row windows of the range's blocks on every shard (the JAX
-    package's _sharded_block_offsets, :785): C10 on each shard's stream
-    against the boundaries, the last clamped to `end` as _offsets clamps
-    it, gathered onto the mesh's first device and fetched as one
-    int64[D, n_blocks + 1] table (its all_gather and host_fetch)."""
-    bounds = np.minimum(_block_boundaries(base, capacity, n_blocks), end)
-    offsets = []
-    for dev, stream in zip(mesh.devices, streams):
+    package's _sharded_block_offsets, :785), the last boundary clamped to
+    `end` as _offsets clamps it: one C10 launch (block_window_offsets)
+    over the streams of each distinct device of the mesh, the tables
+    gathered onto the mesh's first device and fetched as one
+    int64[D, n_blocks + 1] table in shard order (its all_gather and
+    host_fetch). On a mesh whose slots share a card that is one launch
+    and nothing uploaded."""
+    by_device: Dict[torch.device, List[int]] = {}
+    for s, dev in enumerate(mesh.devices):
+        by_device.setdefault(dev, []).append(s)
+    tables, order = [], []
+    for dev, shards in by_device.items():
         with on_device(dev):
-            offsets.append(kernels.block_offsets(
-                stream.skey2, torch.as_tensor(bounds).to(dev)))
-    return host_fetch(collectives.gather(offsets, mesh.device))
+            tables.append(kernels.block_window_offsets(
+                [streams[s].skey2 for s in shards], base, capacity,
+                n_blocks, end).to(mesh.device, non_blocking=True))
+        order += shards
+    table = host_fetch(tables[0] if len(tables) == 1 else
+                       torch.cat(tables))
+    if order != sorted(order):
+        table = table[np.argsort(order)]
+    return table
 
 
 def _sharded_bound_compact(mesh: Mesh, shards, scalars, rows_key,
@@ -865,7 +869,7 @@ def _meshed_offsets(mesh: Mesh, streams: Sequence[_Stream], capacity0: int,
                     offsets0: np.ndarray):
     """offsets_of of a meshed driver: generation 0 starts at base 0 with
     capacity C0, so pass 1's table is the plan's; a re-plan (another
-    generation or capacity) runs C10 on every shard again."""
+    generation or capacity) runs C10 over the shards again."""
     def offsets_of(base, capacity, generation, n_blocks, end):
         if generation == 0 and capacity == capacity0:
             return offsets0

@@ -4,8 +4,8 @@ the same numpy-seeded rows and seeds through both, float64 (JAX under x64),
 with the partitions per block small and P % block_partitions != 0.
 
 Bounds stated here:
-  * host helpers (_block_noise_key, round_capacity, _block_boundaries,
-    _chunk_ends) and integer results (C10 offsets, C11 gathers, counts,
+  * host helpers (_block_noise_key, round_capacity, _chunk_ends, and
+    kernels.block_window_boundaries) and integer results (C10 offsets, C11 gathers, counts,
     leaf and child counts, kept ids): identical.
   * float sums of C3's windowed entry: within 1e-12 of the partition's
     sum of magnitudes (the port adds in another order than the JAX
@@ -90,7 +90,8 @@ def test_round_capacity_matches_jax():
                          [(0, 8, 6), (40, 8, 1), (0, 1 << 20, 5),
                           ((1 << 31) - 100, 64, 4)])
 def test_block_boundaries_match_jax(base, capacity, n_blocks):
-    got = large_p._block_boundaries(base, capacity, n_blocks)
+    got = kernels.block_window_boundaries(base, capacity, n_blocks,
+                                          np.iinfo(np.int32).max).numpy()
     want = jax_large_p._block_boundaries(base, capacity, n_blocks)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
@@ -121,7 +122,7 @@ def sorted_stream(seed, n=3000, P=N_PARTS):
 
 def test_block_offsets_plain_matches_searchsorted():
     skey2, _ = sorted_stream(0)
-    bounds = np.minimum(large_p._block_boundaries(0, BLOCK, 3), N_PARTS)
+    bounds = kernels.block_window_boundaries(0, BLOCK, 3, N_PARTS).numpy()
     got = kernels.block_offsets(torch.as_tensor(skey2), torch.as_tensor(bounds))
     want = jnp.searchsorted(jnp.asarray(skey2), jnp.asarray(bounds),
                             side="left")
@@ -626,8 +627,8 @@ def test_engine_blocked_route_runs_the_windowed_entries(monkeypatch):
     # Above the threshold the dense route's kernels run per block through
     # the windowed entries, and the block windows come from C10.
     called = []
-    for name in ("block_offsets", "reduce_partitions", "release_epilogue",
-                 "compact_kept", "gather_rows"):
+    for name in ("block_window_offsets", "reduce_partitions",
+                 "release_epilogue", "compact_kept", "gather_rows"):
         original = getattr(kernels, name)
 
         def spy(*args, _name=name, _original=original, **kwargs):
@@ -637,7 +638,7 @@ def test_engine_blocked_route_runs_the_windowed_entries(monkeypatch):
         monkeypatch.setattr(kernels, name, spy)
     release(tdp, ROWS, lambda M: [M.COUNT], list(range(N_PARTS)), 2.0, {})
     n_blocks = -(-N_PARTS // BLOCK)
-    assert called[0] == ("block_offsets", None)
+    assert called[0] == ("block_window_offsets", None)
     reduces = [base for name, base in called if name == "reduce_partitions"]
     assert reduces == [j * BLOCK for j in range(n_blocks)]
     assert sum(name == "compact_kept" for name, _ in called) == n_blocks

@@ -480,11 +480,12 @@ def test_noise_free_integer_rows_are_exact(n_shards):
 
 def test_driver_phase_times_and_launch_plan(monkeypatch):
     """The driver's phase_times keys, and what a block runs: C3's windowed
-    entry once a shard, one C21 launch, C4 and C6 once."""
+    entry once a shard, one C21 launch, C4 and C6 once; pass 1's windows
+    come from one C10 launch over the shards of the mesh's one device."""
     _, (cfg, stds, scalars) = kernel_specs(False)
     called = []
-    for name in ("block_offsets", "reduce_partitions", "combine_shards",
-                 "release_epilogue", "compact_kept"):
+    for name in ("block_window_offsets", "reduce_partitions",
+                 "combine_parts", "release_epilogue", "compact_kept"):
         original = getattr(kernels, name)
 
         def spy(*args, _name=name, _original=original, **kwargs):
@@ -502,9 +503,9 @@ def test_driver_phase_times_and_launch_plan(monkeypatch):
             "p2_combine", "p2_sync_wait", "p2_drain", "p2_blocks_total",
             "total"} <= set(phase_times)
     assert phase_times["blocks_dispatched"] == n_blocks
-    assert called.count("block_offsets") == 2  # one a shard, pass 1
+    assert called.count("block_window_offsets") == 1  # both shards, pass 1
     assert called.count("reduce_partitions") == 2 * n_blocks
-    for name in ("combine_shards", "release_epilogue", "compact_kept"):
+    for name in ("combine_parts", "release_epilogue", "compact_kept"):
         assert called.count(name) == n_blocks
 
 

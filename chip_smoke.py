@@ -292,6 +292,23 @@ stack entries on the same kernel) add:
              wrapper ms (CUDA events around one call), device ms (the
              kernels alone, torch.profiler) and host us (1000 enqueues
              without a synchronise), printed as split[...] lines
+The rebuilt C5 (Onesweep: one histogram launch, then one launch a digit
+pass with a look-back over per-digit tile counts) and C2 (one pass over
+tiles of 2048 rows with a decoupled look-back; sorted k1 from C5's
+sorted_top) add:
+  2. kernels after C10's and C21's edges (c5_c2_edge_phase): C5 at 1,
+             4095, 4097 and 2^16 + 7 rows, equal rows (no pass), a
+             constant word 0, a word of six runs, negative and 64-bit
+             keys, sorted / reversed / three-valued keys and four lanes;
+             C2 over pairs and pids across tile edges, a pair of 5000
+             rows (pair-sum clipping, linf off and at 3000), l0 cutting
+             300 pairs, 1 and 2049 rows, selection, lanes of 2047 and 3000
+             rows with two lanes alike, the keyless lanes, the total bound
+             and its lanes: each output == its plain version and equal to
+             itself over two calls; at the main path's shapes (kernel
+             phase) the device operations of each C5 sort and split[...]
+             lines for C5 (bounding, partition; beside the argsort chain)
+             and C2 (solo; lanes in the service kernel phase)
 The failure semantics and elastic meshes of the meshed drivers
 (runtime/retry.py, faults.py, entry.py) and K23c (parallel/mesh.py
 collective_heartbeat on C21's int32 entry) add, last of all:
@@ -510,7 +527,8 @@ def main() -> int:
           f"{time.perf_counter() - enc_start:.1f} s", flush=True)
 
     # 2. kernels -----------------------------------------------------------
-    report = kernel_phase(torch, dev, encoded, kernels, executor, threefry)
+    report = kernel_phase(torch, dev, encoded, kernels, executor, threefry,
+                          card)
     report += quantile_vector_kernel_phase(torch, dev, encoded, years,
                                            kernels, threefry)
     report += secure_safe_kernel_phase(torch, dev, encoded, years, kernels,
@@ -519,6 +537,7 @@ def main() -> int:
                                    threefry, tdp, card)
     c3_edge_phase(torch, dev, kernels)
     c10_c21_edge_phase(torch, dev, kernels)
+    c5_c2_edge_phase(torch, dev, kernels)
     report += ingest_kernel_phase(
         torch, dev, {"users": (users, encoded.pid),
                      "movies": (movies, encoded.pk),
@@ -672,8 +691,12 @@ def torch_sort_chain(torch, words):
     return perm
 
 
-def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
-    """C1-C6 against their plain versions on the card, small then full."""
+def kernel_phase(torch, dev, encoded, kernels, executor, threefry,
+                 card=None):
+    """C1-C6 against their plain versions on the card, small then full;
+    at full size the times, and for C5 and C2 the three_way splits and
+    the device operations a sort issues."""
+    card = card or card_line()
     f32 = torch.float32
     params_cfg = dict(linf=1, l0=64, clip_per_value=True,
                       clip_pair_sum=False)
@@ -710,12 +733,15 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                    check_equal("row_keys u", u, pu),
                    check_equal("total_bound_keys pid", pid_sent, q_sent),
                    check_equal("total_bound_keys u", u0, q_u0))
-        # C5 on the four key sets of the path: the same permutation.
-        perm = kernels.radix_sort([k1, k2, u])
+        # C5 on the four key sets of the path: the same permutation (and
+        # the bounding sort's sorted k1, which C2 reads on the main path).
+        perm, sorted_k1 = kernels.radix_sort([k1, k2, u], sorted_top=True)
         perm0, spid0 = kernels.radix_sort([pid_sent, u0], sorted_top=True)
         q_perm0, q_spid0 = kernels.radix_sort_plain([pid_sent, u0], True)
         err5 = max(check_equal("radix_sort bounding", perm,
                                kernels.radix_sort_plain([k1, k2, u])),
+                   check_equal("radix_sort bounding sorted k1", sorted_k1,
+                               k1[perm]),
                    check_equal("radix_sort selection",
                                kernels.radix_sort([k1, k2]),
                                kernels.radix_sort_plain([k1, k2])),
@@ -727,7 +753,7 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
         c2_args = dict(n_partitions=P, scalars=(1.0, 5.0, 0.0, 0.0, 3.0),
                        columns=cols, **params_cfg)
         c2 = lambda: kernels.bound_rows(perm, k1, k2, pk, values, valid,  # noqa: E731
-                                        **c2_args)
+                                        sorted_k1=sorted_k1, **c2_args)
         c2p = lambda: kernels.bound_rows_plain(perm, k1, k2, pk, values,  # noqa: E731
                                                valid, **c2_args)
         key2, pair_start, row_cols = c2()
@@ -735,7 +761,8 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
         sel_args = dict(n_partitions=P, linf=0, l0=64, clip_per_value=False,
                         clip_pair_sum=False, scalars=(0.0,) * 5, columns=())
         s_key2, s_start, _ = kernels.bound_rows(perm, k1, k2, pk, None,
-                                                valid, **sel_args)
+                                                valid, sorted_k1=sorted_k1,
+                                                **sel_args)
         qs_key2, qs_start, _ = kernels.bound_rows_plain(perm, k1, k2, pk,
                                                         None, valid,
                                                         **sel_args)
@@ -928,6 +955,25 @@ def kernel_phase(torch, dev, encoded, kernels, executor, threefry):
                   f" torch_chain_ms="
                   f"{cuda_ms(lambda: torch_sort_chain(torch, words), 10):.4f}",
                   flush=True)
+        # C5 and C2 split (wrapper / device / host), in turns with the
+        # argsort chain; the device operations of each sort (kernels,
+        # memsets, the masks' copy) from torch.profiler.
+        for kname, words in (("bounding", bounding), ("selection", [k1, k2]),
+                             ("total_bound", [pid_sent, u0]),
+                             ("partition", [key2])):
+            print(f"radix_sort[{kname}]: {sort_passes(words)} passes, "
+                  f"device operations a sort "
+                  f"{json.dumps(device_ops(torch, lambda: kernels.radix_sort(words)))}",
+                  flush=True)
+        for kname, words in (("bounding", bounding), ("partition", [key2])):
+            print_three_way(f"C5 {kname}, {n} rows", three_way(torch, {
+                "radix_sort": lambda: kernels.radix_sort(words),
+                "argsort chain": lambda: torch_sort_chain(torch, words)},
+                host_calls=200), card)
+        print_three_way(f"C2 solo, {n} rows, bound "
+                        f"{timing['bound_rows'][3][0]:.3g} ms",
+                        three_way(torch, {"bound_rows": c2}, host_calls=200),
+                        card)
         big_keep, big_cols = compact_args[1 << 21]
         b_ms, b_by = bound((1 << 21) * (1 + 5 * fsz) +
                            (1 << 21) * (8 + 5 * fsz) + 8, (1 << 21) * 10)
@@ -996,11 +1042,11 @@ def quantile_vector_kernel_phase(torch, dev, encoded, years, kernels,
         valid = torch.as_tensor(enc.valid[sl]).to(dev)
         P = enc.n_partitions
         k1, k2, u = kernels.row_keys(pid, pk, valid, salts, key_linf, P, f32)
-        perm = kernels.radix_sort([k1, k2, u])
+        perm, sk1 = kernels.radix_sort([k1, k2, u], sorted_top=True)
         key2, pair_start, _ = kernels.bound_rows(
             perm, k1, k2, pk, None, valid, n_partitions=P, linf=linf, l0=l0,
             clip_per_value=False, clip_pair_sum=False, scalars=(0.0,) * 5,
-            columns=())
+            columns=(), sorted_k1=sk1)
         perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
         return P, values, perm, perm2, skey2, pair_start
 
@@ -1726,12 +1772,12 @@ def secure_safe_kernel_phase(torch, dev, encoded, years, kernels, executor,
         valid = torch.as_tensor(enc.valid[sl]).to(dev)
         P = enc.n_partitions
         k1, k2, u = kernels.row_keys(pid, pk, valid, salts, key_linf, P, f32)
-        perm = kernels.radix_sort([k1, k2, u])
+        perm, sk1 = kernels.radix_sort([k1, k2, u], sorted_top=True)
         key2, pair_start, row_cols = kernels.bound_rows(
             perm, k1, k2, pk, values if columns else None, valid,
             n_partitions=P, linf=linf, l0=l0, clip_per_value=True,
             clip_pair_sum=False, scalars=(1000.0, 5000.0, 0.0, 0.0, 3000.0),
-            columns=columns)
+            columns=columns, sorted_k1=sk1)
         perm2, skey2 = kernels.radix_sort([key2], sorted_top=True)
         return P, values, perm, perm2, skey2, pair_start, row_cols
 
@@ -2826,13 +2872,36 @@ def launches_ms(torch, fn, calls=100):
     return start.elapsed_time(end) / calls
 
 
-def three_way(torch, fns):
+def device_ops(torch, fn, calls=3):
+    """{name: [count, device us]} of the device operations (kernels,
+    memsets, copies) one call of fn issues, and their total count, from
+    torch.profiler over `calls` calls after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "")[:40]
+            count, us = ops.get(name, (0, 0.0))
+            ops[name] = (count + e.count, us + e.self_device_time_total)
+    if not ops:
+        return "not traced"
+    ops = {k: (c / calls, round(us / calls, 1)) for k, (c, us) in ops.items()}
+    return dict(ops, total=sum(c for c, _ in ops.values()))
+
+
+def three_way(torch, fns, host_calls=1000):
     """{name: (wrapper ms, device ms, host us)} of each fn, measured in
     turns (each figure over every fn before the next figure): wrapper ms
     as cuda_ms (CUDA events around one call, median of 50); device ms the
     kernels alone (torch.profiler, 100 calls), or where the trace shows no
     device time CUDA events around 100 back-to-back calls; host us over
-    1000 enqueues (host_us)."""
+    host_calls enqueues (host_us)."""
     out = {name: [cuda_ms(fn, 50)] for name, fn in fns.items()}
     for name, fn in fns.items():
         try:
@@ -2840,7 +2909,7 @@ def three_way(torch, fns):
         except AssertionError:
             out[name].append(launches_ms(torch, fn, 100))
     for name, fn in fns.items():
-        out[name].append(host_us(torch, fn))
+        out[name].append(host_us(torch, fn, host_calls))
     return out
 
 
@@ -3090,6 +3159,245 @@ def c10_c21_edge_phase(torch, dev, kernels):
           "modulo 16 bytes, 40 columns and D x C past the table in groups; "
           "combine_shards and heartbeat_sum: each == its plain version and "
           "equal to itself run to run", flush=True)
+
+
+def c5_c2_edge_phase(torch, dev, kernels):
+    """C5's and C2's edge cases on the card, every output == its plain
+    version and equal to itself over two calls (same_twice). C5, tiles of
+    4096 rows: 1 row; 4095, 4097 and 2^16 + 7 rows; every row equal (no
+    pass: the identity, sorted_top the word); a constant word 0 above
+    varying words (sorted_top from row 0); a word whose varying bits make
+    six runs (the narrowest gaps merged to 4); negative int32, int64,
+    float32 and float64 keys over all their bits (sorted_top rebuilt from
+    the packed key); sorted, reversed and three-valued keys (runs of equal
+    digits in the histogram); four lanes under a lane word. C2, tiles of
+    2048 rows, over random pid / pair runs: 1 row and 2049 rows; pairs and
+    pids across tile edges; one pair of 5000 rows (past two tile edges)
+    with pair-sum clipping, linf off and at 3000; a pid of 300 pairs cut
+    by l0 = 64; selection (no columns); the lane entry at lanes of 2047
+    and 3000 rows (lane starts inside tiles), two lanes holding the same
+    keys side by side; the keyless lane entry; total_bound_rows and its
+    lane entry over pids across tile edges and one pid of 5000 rows. Values
+    are integers: every pair sum is exact in any order."""
+    rng = np.random.default_rng(SEED + 17)
+    m32 = 0xFFFFFFFF
+
+    def on_card(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    # C5.
+    passes = {}
+
+    def sort_case(label, words):
+        words = [on_card(w) for w in words]
+        got = same_twice(label, lambda: dict(zip(
+            ("perm", "top"), kernels.radix_sort(words, sorted_top=True))))
+        want = kernels.radix_sort_plain(words, True)
+        check_equal(f"{label} perm", got["perm"], want[0])
+        check_equal(f"{label} sorted_top", got["top"], want[1])
+        check_equal(f"{label} perm without sorted_top",
+                    kernels.radix_sort(words), want[0])
+        passes[label] = sort_passes(words)
+
+    def keys64(n, bits=51):
+        return rng.integers(0, 1 << bits, n, dtype=np.int64)
+
+    def uniforms(n):
+        return rng.random(n, dtype=np.float32)
+
+    sort_case("1 row", [np.array([7], np.int32)])
+    for n in (4095, 4097, (1 << 16) + 7):
+        sort_case(f"{n} rows", [keys64(n), keys64(n, 47), uniforms(n)])
+    sort_case("equal rows", [np.full(5000, 3, np.int32),
+                             np.full(5000, 0.25, np.float32)])
+    sort_case("constant word 0", [np.full(9000, -4, np.int64),
+                                  rng.integers(-2**31, 2**31, 9000,
+                                               dtype=np.int64).astype(
+                                                   np.int32)])
+    draw = rng.integers(0, 64, 20000)
+    six = np.zeros(20000, np.int64)
+    for j, b in enumerate((0, 3, 9, 20, 33, 50)):
+        six |= ((draw >> j) & 1).astype(np.int64) << b
+    sort_case("six runs", [six, uniforms(20000)])
+    n = 10000
+    signed = [rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32),
+              rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+              (rng.standard_normal(n) * 1e3).astype(np.float32),
+              rng.standard_normal(n)]
+    sort_case("negative keys, int32 first", signed)
+    sort_case("int64 first", signed[1:])
+    sort_case("float32 first", signed[2:])
+    sort_case("float64 first", signed[3:] + signed[:1])
+    ordered = np.sort(rng.integers(0, 1 << 20, 50_000)).astype(np.int32)
+    sort_case("sorted keys", [ordered])
+    sort_case("reversed keys", [ordered[::-1]])
+    sort_case("three values", [rng.integers(0, 3, 50_000).astype(np.int32),
+                               uniforms(50_000)])
+    lanes = np.repeat(np.arange(4, dtype=np.int32), 3000)
+    sort_case("4 lanes", [lanes, keys64(12000), keys64(12000, 47),
+                          uniforms(12000)])
+
+    # C2: sorted streams of random (pid, pair) runs.
+    P = 1000
+
+    def runs(n_pids, long_pair=False, many_pairs=False, first_pid=0):
+        pids, pks, lengths = [], [], []
+        for pid in range(first_pid, first_pid + n_pids):
+            n_pairs = int(rng.integers(1, 40))
+            if many_pairs and pid == first_pid + 3:
+                n_pairs = 300
+            for pk in np.sort(rng.choice(P, n_pairs, replace=False)):
+                pids.append(pid)
+                pks.append(pk)
+                lengths.append(int(rng.geometric(0.3)))
+            if long_pair and pid == first_pid + 5:
+                lengths[-1] = 5000
+        return (np.repeat(pids, lengths).astype(np.int64),
+                np.repeat(pks, lengths).astype(np.int64))
+
+    def keyed(spid, spk):
+        """(perm, k1, k2) whose rows in perm order carry the sorted keys;
+        hash words zero, so a pair is its (pid, pk)."""
+        n = len(spid)
+        perm = rng.permutation(n)
+        k1, k2 = np.empty(n, np.int64), np.empty(n, np.int64)
+        k1[perm] = spid << 32
+        k2[perm] = spk & m32
+        return perm, k1, k2
+
+    def row_data(n):
+        return (rng.integers(0, 8, n).astype(np.float32),
+                rng.random(n) < 0.9)
+
+    cols = ("sum", "nsum", "nsum2")
+    scal = (1.0, 6.0, 0.0, 9.0, 3.0)
+
+    def outputs(out):
+        key2, start, columns = out
+        return {"key2": key2, "pair_start": start, **columns}
+
+    def agree(label, fn, plain):
+        got = same_twice(label, lambda: outputs(fn()))
+        for name, want in outputs(plain()).items():
+            check_equal(f"{label} {name}", got[name], want)
+
+    def bound_case(label, keys, values, valid, **kw):
+        perm, k1, k2 = (on_card(a) for a in keys)
+        values, valid = on_card(values), on_card(valid)
+        args = {"n_partitions": P, "scalars": scal, "columns": cols,
+                "clip_per_value": True, **kw}
+        if not args["columns"]:
+            values = None
+        agree(label,
+              lambda: kernels.bound_rows(perm, k1, k2, None, values, valid,
+                                         sorted_k1=k1[perm], **args),
+              lambda: kernels.bound_rows_plain(perm, k1, k2, None, values,
+                                               valid, **args))
+
+    spid, spk = runs(600, long_pair=True, many_pairs=True)
+    n = len(spid)
+    keys = keyed(spid, spk)
+    values, valid = row_data(n)
+    for linf, l0, pair_sum in ((1, 64, False), (3, 64, True), (0, 0, True),
+                               (3000, 64, True), (0, 64, False)):
+        bound_case(f"bound_rows[{n} rows, linf={linf}, l0={l0}, "
+                   f"pair_sum={pair_sum}]", keys, values, valid, linf=linf,
+                   l0=l0, clip_pair_sum=pair_sum)
+    bound_case(f"bound_rows[{n} rows, selection]", keys, values, valid,
+               linf=0, l0=64, clip_pair_sum=False, columns=())
+    for rows in (1, 2049):
+        sub = keyed(spid[:rows], spk[:rows])
+        bound_case(f"bound_rows[{rows} rows]", sub, values[:rows],
+                   valid[:rows], linf=3, l0=4, clip_pair_sum=True)
+
+    def lane_stream(lane_rows, n_lanes):
+        """n_lanes lanes of lane_rows sorted rows; lane 1 repeats lane 0."""
+        per = []
+        while len(per) < n_lanes:
+            s_pid, s_pk = runs(lane_rows // 16 + 10)
+            lane = (s_pid[:lane_rows], s_pk[:lane_rows])
+            per.append(lane)
+            if len(per) == 1:
+                per.append(lane)
+        perm, k1, k2 = [], [], []
+        for l, (a, b) in enumerate(per[:n_lanes]):
+            p, x, y = keyed(a, b)
+            perm.append(p + l * lane_rows)
+            k1.append(x)
+            k2.append(y)
+        return tuple(np.concatenate(x) for x in (perm, k1, k2))
+
+    for lane_rows in (2047, 3000):
+        n_lanes = 4
+        perm, k1, k2 = (on_card(a) for a in lane_stream(lane_rows, n_lanes))
+        values, valid = (on_card(a) for a in row_data(lane_rows * n_lanes))
+        pk = on_card(rng.integers(0, P, lane_rows * n_lanes).astype(np.int32))
+        for keyless in (False, True):
+            label = (f"bound_rows_lanes[{n_lanes} x {lane_rows}, "
+                     f"keyless={keyless}]")
+            ins = (None, None, None) if keyless else (perm, k1, k2)
+            args = dict(lane_rows=lane_rows, n_partitions=P, linf=3, l0=4,
+                        clip_per_value=True, clip_pair_sum=True,
+                        scalars=scal, columns=cols,
+                        pk=pk if keyless else None)
+            agree(label,
+                  lambda: kernels.bound_rows_lanes(*ins, values, valid,
+                                                   **args),
+                  lambda: kernels.bound_rows_lanes_plain(*ins, values, valid,
+                                                         **args))
+
+    # Total bound: sorted pid runs (one of 5000 rows), rows gathered
+    # through a permutation.
+    def pid_runs(n):
+        lengths = rng.geometric(0.02, n // 40)
+        lengths[7] = 5000
+        spid = np.repeat(np.arange(len(lengths)), lengths)[:n]
+        return np.pad(spid, (0, n - len(spid)),
+                      constant_values=len(lengths)).astype(np.int32)
+
+    n = 20000
+    spid = on_card(pid_runs(n))
+    perm = on_card(rng.permutation(n))
+    pk = on_card(rng.integers(0, P, n).astype(np.int32))
+    values, valid = (on_card(a) for a in row_data(n))
+    for total_bound in (1, 64, 3000):
+        label = f"total_bound_rows[{n} rows, K={total_bound}]"
+        got = same_twice(label, lambda: dict(enumerate(
+            kernels.total_bound_rows(perm, spid, pk, values, valid,
+                                     total_bound=total_bound,
+                                     n_partitions=P))))
+        want = kernels.total_bound_rows_plain(perm, spid, pk, values, valid,
+                                              total_bound=total_bound,
+                                              n_partitions=P)
+        for j, w in enumerate(want):
+            check_equal(f"{label} output {j}", got[j], w)
+    lane_rows, n_lanes = 5000, 4
+    words = np.concatenate([(np.int64(l) << 32) | pid_runs(lane_rows)
+                            for l in range(n_lanes)])
+    words[lane_rows:2 * lane_rows] = words[:lane_rows] + (1 << 32)
+    lperm = on_card(np.concatenate([rng.permutation(lane_rows) + l * lane_rows
+                                    for l in range(n_lanes)]))
+    lpk = on_card(rng.integers(0, P, lane_rows * n_lanes).astype(np.int32))
+    lvalues, lvalid = (on_card(a) for a in row_data(lane_rows * n_lanes))
+    label = f"total_bound_rows_lanes[{n_lanes} x {lane_rows}, K=64]"
+    got = same_twice(label, lambda: dict(enumerate(
+        kernels.total_bound_rows_lanes(
+            lperm, on_card(words), lpk, lvalues, lvalid, lane_rows=lane_rows,
+            total_bound=64, n_partitions=P))))
+    want = kernels.total_bound_rows_lanes_plain(
+        lperm, on_card(words), lpk, lvalues, lvalid, lane_rows=lane_rows,
+        total_bound=64, n_partitions=P)
+    for j, w in enumerate(want):
+        check_equal(f"{label} output {j}", got[j], w)
+    torch.cuda.synchronize()
+    print("kernels[C5 and C2 edges]: C5 at 1, 4095, 4097 and 2^16 + 7 "
+          "rows, equal rows, a constant word 0, six runs, negative and "
+          "64-bit keys, sorted / reversed / three-valued keys, four lanes "
+          f"(passes {json.dumps(passes)}); C2 over pairs and pids across "
+          "tile edges, a pair of 5000 rows, l0 cutting 300 pairs, 1 and "
+          "2049 rows, selection, lanes of 2047 and 3000 rows with two lanes "
+          "alike, keyless lanes, the total bound and its lanes: each == its "
+          "plain version and equal to itself run to run", flush=True)
 
 
 def large_p_parity_phase(torch, tdp, rng):
@@ -5728,6 +6036,14 @@ def service_kernel_phase(torch, dev, tdp, encoded, kernels, executor, card,
                 "launches": 0, "max_abs_err": errors[name], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib_ms})
+        lane_ops = device_ops(torch, lambda: kernels.radix_sort(words),
+                              calls=1)
+        print(f"radix_sort[(lane, k1, k2, u), L={n_lanes}]: device "
+              f"operations a sort {json.dumps(lane_ops)}", flush=True)
+        print_three_way(f"C2 lanes, L={n_lanes} x {lane_rows} rows, bound "
+                        f"{timing['bound_rows_lanes'][3][0]:.3g} ms",
+                        three_way(torch, {"bound_rows_lanes": c2},
+                                  host_calls=200), card)
         b_ms, b_by = bound(total * (4 + 8 + 8 + fsz) + total * 8,
                            total * 12 * sort_passes(words))
         print(f"kernel radix_sort[(lane, k1, k2, u), L={n_lanes}]: ms="

@@ -12,11 +12,14 @@
 //    release_epilogue.cu, quantile_descend.cu and vector_release.cu;
 //  * NaN-propagating max / min (jnp.maximum / jnp.minimum), the release
 //    sentinel's flag bits of a value and their block-wide OR;
-//  * a block-wide exclusive scan over an associative operator (also the
-//    tile scan of reduce_partitions.cu's one-pass look-back), and the
+//  * a block-wide exclusive scan over an associative operator, the
 //    single-block kernel that scans per-tile aggregates (pass 2 of the
-//    three-pass tile scans in bound_rows.cu, radix_sort.cu and
-//    compact_kept.cu), with integer-sum and max operators.
+//    three-pass tile scans in compact_kept.cu, factorize_codes.cu,
+//    group_stats.cu and mesh_factorize.cu), with integer-sum and max
+//    operators;
+//  * the decoupled look-back of the one-pass tile scans (tile aggregates
+//    and inclusive prefixes published under release / acquire flags),
+//    shared by reduce_partitions.cu and bound_rows.cu.
 #pragma once
 
 #include <cstdint>
@@ -424,8 +427,94 @@ struct MaxPosOp {
   static __device__ __forceinline__ T shfl_up(T v, int d) {
     return __shfl_up_sync(kFullMask, v, d);
   }
+  static __device__ __forceinline__ T shfl(T v, int src) {
+    return __shfl_sync(kFullMask, v, src);
+  }
+  // A segment start inside: nothing earlier changes the maximum.
+  static __device__ __forceinline__ bool ends_walk(T v) { return v >= 0; }
 };
 
 inline long long n_tiles(long long n) { return (n + kTile - 1) / kTile; }
+
+// ---------------------------------------------------------------------------
+// Decoupled look-back (one-pass tile scans). A block claims its tile from
+// an atomic counter, so every earlier tile belongs to a block that is
+// already running and the walk below never waits on one that has not
+// started. Tile j's status word is 0 until it publishes, 1 once aggs[j]
+// holds its aggregate and 2 once incl[j] holds the inclusive prefix of
+// tiles [0, j]; each is written, fenced, then flagged with a release store.
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// A published aggregate, read word by word from L2.
+template <class T>
+__device__ __forceinline__ T load_published(const T* p) {
+  static_assert(sizeof(T) % 4 == 0, "aggregates are whole words");
+  T out;
+  const unsigned* src = reinterpret_cast<const unsigned*>(p);
+  unsigned* dst = reinterpret_cast<unsigned*>(&out);
+#pragma unroll
+  for (int w = 0; w < static_cast<int>(sizeof(T) / 4); ++w)
+    dst[w] = __ldcg(src + w);
+  return out;
+}
+
+// Writes a tile's aggregate (flag 1) or inclusive prefix (flag 2) and
+// flags it. One thread calls it.
+template <class T>
+__device__ __forceinline__ void publish(T* slot, int* status, const T& v,
+                                        int flag) {
+  *slot = v;
+  __threadfence();
+  store_release(status, flag);
+}
+
+// Warp 0's walk: the combined value of tiles [start, tile) of one scan,
+// whose tile t sits at slot `first_slot + t` of aggs / incl / status.
+// Tiles are taken 32 at a time, lane 31 the nearest, scanned in order and
+// folded in front of what was gathered. A chunk ends the walk where one of
+// its tiles has published an inclusive prefix (the lanes before the
+// nearest such tile drop out), where Op::ends_walk holds for the chunk (a
+// segment starts inside it) or at tile 0. incl may be null where no tile
+// publishes a prefix: the walk then reads aggregates alone, and its
+// association depends on the data and the tiling only.
+template <class Op>
+__device__ typename Op::T look_back(const typename Op::T* aggs,
+                                    const typename Op::T* incl,
+                                    const int* status, long long first_slot,
+                                    long long tile) {
+  using T = typename Op::T;
+  const int lane = threadIdx.x & 31;
+  T acc = Op::identity();
+  for (long long hi = tile;; hi -= 32) {
+    const long long j = hi - 32 + lane;
+    T a = Op::identity();
+    int s = 0;
+    if (j >= 0) {
+      while ((s = load_acquire(status + first_slot + j)) == 0) {
+      }
+      a = load_published(s == 2 ? incl + first_slot + j
+                                : aggs + first_slot + j);
+    }
+    const unsigned inclusive = __ballot_sync(kFullMask, s == 2);
+    if (inclusive != 0u && lane < 31 - __clz(inclusive)) a = Op::identity();
+    const T chunk = Op::shfl(warp_inclusive_scan<Op>(a), 31);
+    acc = Op::combine(chunk, acc);
+    if (inclusive != 0u || Op::ends_walk(chunk) || hi <= 32) break;
+  }
+  return acc;
+}
 
 }  // namespace pdp

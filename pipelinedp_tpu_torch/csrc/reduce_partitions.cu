@@ -168,6 +168,9 @@ struct SegOp {
     v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
     return v;
   }
+  static __device__ __forceinline__ bool ends_walk(const T& v) {
+    return v.f != 0;
+  }
   static __device__ __forceinline__ T shfl(T v, int src) {
     v.cnt = __shfl_sync(pdp::kFullMask, v.cnt, src);
     v.pc = __shfl_sync(pdp::kFullMask, v.pc, src);
@@ -206,6 +209,9 @@ struct VSegOp {
     for (int c = 0; c < kVec; ++c) v.v[c] = v.v[c].shfl_up(d);
     v.f = __shfl_up_sync(pdp::kFullMask, v.f, d);
     return v;
+  }
+  static __device__ __forceinline__ bool ends_walk(const T& v) {
+    return v.f != 0;
   }
   static __device__ __forceinline__ T shfl(T v, int src) {
 #pragma unroll
@@ -288,61 +294,6 @@ struct VectorRows {
   }
 };
 
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// A published aggregate, read word by word from L2.
-template <class T>
-__device__ __forceinline__ T load_published(const T* p) {
-  static_assert(sizeof(T) % 4 == 0, "aggregates are whole words");
-  T out;
-  const unsigned* src = reinterpret_cast<const unsigned*>(p);
-  unsigned* dst = reinterpret_cast<unsigned*>(&out);
-#pragma unroll
-  for (int w = 0; w < static_cast<int>(sizeof(T) / 4); ++w)
-    dst[w] = __ldcg(src + w);
-  return out;
-}
-
-// Warp 0's walk: the aggregate of tiles [start of the run, tile) of one
-// scan, whose tile t sits at slot `first_slot + t` of aggs / ready. Tiles
-// are taken 32 at a time, lane 31 the nearest, scanned in order, and
-// folded in front of what was gathered; a chunk in which a segment starts
-// ends the walk (tile 0 of a scan always starts one).
-template <class Op>
-__device__ typename Op::T look_back(const typename Op::T* aggs,
-                                    const int* ready, long long first_slot,
-                                    long long tile) {
-  using T = typename Op::T;
-  const int lane = threadIdx.x & 31;
-  T acc = Op::identity();
-  for (long long hi = tile;; hi -= 32) {
-    const long long j = hi - 32 + lane;
-    T a = Op::identity();
-    if (j >= 0) {
-      while (load_acquire(ready + first_slot + j) == 0) {
-      }
-      a = load_published(aggs + first_slot + j);
-    }
-    __syncwarp();
-    const T chunk = Op::shfl(pdp::warp_inclusive_scan<Op>(a), 31);
-    acc = Op::combine(chunk, acc);
-    if (chunk.f || hi <= 32) break;
-  }
-  return acc;
-}
-
 // The scan of one tile. Solo (bounds null): the rows are [0, n) of skey2
 // / rows, partition skey2 - base, outputs at that partition. Lanes:
 // claimed tile v is tile v mod lane_tiles of lane v / lane_tiles, whose
@@ -410,11 +361,7 @@ __global__ void __launch_bounds__(kThreads)
   T total;
   const T excl = pdp::block_exclusive_scan<Op>(acc, smem, &total);
   const bool ends = __syncthreads_or(any_last);
-  if (threadIdx.x == 0) {
-    aggs[v] = total;
-    __threadfence();
-    store_release(ready + v, 1);
-  }
+  if (threadIdx.x == 0) pdp::publish(aggs + v, ready + v, total, 1);
   if (threadIdx.x < 32) {
     // The tile's first run needs the rows before the tile when it began
     // earlier, ends here and is kept.
@@ -422,7 +369,7 @@ __global__ void __launch_bounds__(kThreads)
     const long long key0 = static_cast<long long>(key[t0]) - base;
     if (t0 > 0 && ends && key[t0 - 1] == key[t0] && key0 >= 0 &&
         key0 < n_partitions)
-      prefix = look_back<Op>(aggs, ready, v - tile, tile);
+      prefix = pdp::look_back<Op>(aggs, nullptr, ready, v - tile, tile);
     if (threadIdx.x == 0) s_prefix = prefix;
   }
   __syncthreads();

@@ -17,7 +17,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -31,6 +31,19 @@ SOURCES = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "reshard_exchange", "mesh_factorize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+# Constants a source shares with the Python side, named only here: nvcc
+# gets each as a -D macro of that source, kernels.py reads them from here.
+SORT_MAX_WORDS = 4   # C5: key words a sort takes
+SORT_MAX_RUNS = 4    # C5: runs of varying bits a word's packed key holds
+SORT_DIGIT_BITS = 8  # C5: bits a digit pass sorts
+SORT_TILE = 4096     # C5: rows a sweep pass's block ranks
+DEFINES = {
+    "radix_sort": {"PDP_SORT_MAX_WORDS": SORT_MAX_WORDS,
+                   "PDP_SORT_MAX_RUNS": SORT_MAX_RUNS,
+                   "PDP_SORT_DIGIT_BITS": SORT_DIGIT_BITS,
+                   "PDP_SORT_TILE": SORT_TILE},
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,7 +98,7 @@ _SIGNATURES = {
     },
     "radix_sort": {
         "radix_sort_scratch_bytes": (_LL, [_LL]),
-        "radix_sort_varying": (_I, [_P, _P, _I, _LL, _P, _P]),
+        "radix_sort_varying": (_I, [_P, _P, _I, _LL, _P, _P, _P]),
         "radix_sort": (_I, [_P, _P, _I, _LL, _P, _P, _P, _P, _P]),
     },
     "compact_kept": {
@@ -209,8 +222,13 @@ def nvcc_path() -> str:
         "(nvcc on PATH or /usr/local/cuda/bin/nvcc).")
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{macro}={value}" for macro, value in
+                              DEFINES.get(name, {}).items())
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -229,7 +247,7 @@ def _build_missing() -> None:
     procs = []
     for name in todo:
         tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

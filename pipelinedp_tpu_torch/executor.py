@@ -429,11 +429,11 @@ def reduce_column_names(cfg: KernelConfig) -> List[str]:
     return names
 
 
-def sort_rows(k1: torch.Tensor, k2: torch.Tensor,
-              u: torch.Tensor) -> torch.Tensor:
+def sort_rows(k1: torch.Tensor, k2: torch.Tensor, u: torch.Tensor):
     """Permutation sorting rows by (k1, k2, u), stable (C5; the JAX
-    package's lax.sort over 5 keys)."""
-    return kernels.radix_sort([k1, k2, u])
+    package's lax.sort over 5 keys), and k1 in that order (C5's
+    sorted_top, which C2 reads in place of a gather)."""
+    return kernels.radix_sort([k1, k2, u], sorted_top=True)
 
 
 def bound_total_contributions(pid: torch.Tensor, pk: torch.Tensor,
@@ -487,10 +487,11 @@ def bounded_row_columns(pid: torch.Tensor, pk: torch.Tensor,
         row_values = values
     k1, k2, u = kernels.row_keys(pid, pk, valid, salts, key_linf, P,
                                  values.dtype)
-    perm = sort_rows(k1, k2, u)
+    perm, sorted_k1 = sort_rows(k1, k2, u)
     linf = cfg.linf if cfg.sample_per_partition else 0
     key2, pair_start, cols = kernels.bound_rows(perm, k1, k2, pk, row_values,
-                                                valid, linf=linf, **common)
+                                                valid, linf=linf,
+                                                sorted_k1=sorted_k1, **common)
     return key2, pair_start, cols, (perm, values)
 
 
@@ -1457,11 +1458,11 @@ def select_bounded_pairs(pid: torch.Tensor, pk: torch.Tensor,
     pair_start marks the first row of each kept pair."""
     k1, k2, _ = kernels.row_keys(pid, pk, valid, row_salts(key_l0), None,
                                  n_partitions, None)
-    perm = kernels.radix_sort([k1, k2])
+    perm, sorted_k1 = kernels.radix_sort([k1, k2], sorted_top=True)
     key2, pair_start, _ = kernels.bound_rows(
         perm, k1, k2, pk, None, valid, n_partitions=n_partitions, linf=0,
         l0=l0, clip_per_value=False, clip_pair_sum=False,
-        scalars=(0.0,) * 5, columns=())
+        scalars=(0.0,) * 5, columns=(), sorted_k1=sorted_k1)
     return key2, pair_start
 
 

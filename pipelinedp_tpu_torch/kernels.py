@@ -6,11 +6,16 @@ their plain PyTorch versions.
     C1 row_keys           csrc/row_keys.cu           bounding-sort keys + row uniform;
                                                      total-bound keys (total_bound_keys)
     C2 bound_rows         csrc/bound_rows.cu         L0/Linf bounding, row columns;
-                                                     total bound (total_bound_rows)
+                                                     total bound (total_bound_rows):
+                                                     one pass, a look-back over
+                                                     tiles of 2048 rows
     C3 reduce_partitions  csrc/reduce_partitions.cu  dense partition columns;
                                                      vector sums (D columns)
     C4 release_epilogue   csrc/release_epilogue.cu   selection, noise, metrics, flags
-    C5 radix_sort         csrc/radix_sort.cu         stable multi-word LSD radix sort
+    C5 radix_sort         csrc/radix_sort.cu         stable multi-word LSD radix sort:
+                                                     Onesweep, one launch a digit
+                                                     pass after one digit-start
+                                                     launch (radix_sort_plan)
     C6 compact_kept       csrc/compact_kept.cu       kept-first compaction
     C7 quantile_counts    csrc/quantile_counts.cu    quantile-tree counts: leaf
                                                      histogram, level roll-ups,
@@ -105,9 +110,10 @@ CPU (the tests' path). On a CUDA tensor it never falls back: a failed build
 or launch raises. Outputs and scratch are allocated here with torch; the
 kernels allocate nothing. `launch_counts` counts wrapper calls that
 launched a kernel, under the name of the kernel's source, or of its
-compensated / secure / lane entry (C2's and C6's tile scans issue three
-CUDA launches, C3 one after its memsets (one per four coordinates of a
-vector sum), a radix sort three a pass, C15 one a pass of its plan and
+compensated / secure / lane entry (C6's tile scan issues three CUDA
+launches, C2 and C3 one after their memsets (C3 one per four coordinates
+of a vector sum), a radix sort one a digit pass after a memset, the masks'
+launch and copy and one digit-start launch, C15 one a pass of its plan and
 one for the split); its increments are thread-safe, as the
 service's workers launch concurrently. No wrapper or kernel keeps host or
 device scratch between calls.
@@ -360,7 +366,8 @@ def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
                values: Optional[torch.Tensor], valid: torch.Tensor, *,
                n_partitions: int, linf: int, l0: int, clip_per_value: bool,
                clip_pair_sum: bool, scalars: Sequence[float],
-               columns: Sequence[str]):
+               columns: Sequence[str],
+               sorted_k1: Optional[torch.Tensor] = None):
     """Contribution bounding over the row stream in (k1, k2, u) order.
 
     perm: the sorted order (row index per sorted position). With k1 = k2 =
@@ -369,7 +376,9 @@ def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
     none); l0: pairs kept per pid (0 = none). scalars = (min_v, max_v,
     min_s, max_s, mid) as Python floats. columns: the reduce columns to
     emit, a subset of ("sum", "nsum", "nsum2"); with values None (standalone
-    selection) there are none.
+    selection) there are none. sorted_k1: k1[perm], the bounding sort's
+    sorted_top, given with k1; the kernel reads it in place of a gather of
+    k1.
 
     Returns (key2 int32[n], pair_start bool[n], {column: F[n]}) in sorted
     order; key2 = partition of a kept row, n_partitions otherwise.
@@ -382,9 +391,13 @@ def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
     for t, dt, what in ((perm, torch.int64, "perm"), (k1, torch.int64, "k1"),
                         (k2, torch.int64, "k2"), (pk, torch.int32, "pk"),
                         (values, dtype, "values"),
-                        (valid, torch.bool, "valid")):
+                        (valid, torch.bool, "valid"),
+                        (sorted_k1, torch.int64, "sorted_k1")):
         _check(t, dt, n, what)
-    if not _on_cuda(perm, k1, k2, pk, values, valid):
+    if (sorted_k1 is None) != (k1 is None):
+        raise ValueError("bound_rows: k1 and sorted_k1 (k1[perm]) come "
+                         "together")
+    if not _on_cuda(perm, k1, k2, pk, values, valid, sorted_k1):
         return bound_rows_plain(perm, k1, k2, pk, values, valid,
                                 n_partitions=n_partitions, linf=linf, l0=l0,
                                 clip_per_value=clip_per_value,
@@ -399,7 +412,8 @@ def bound_rows(perm: Optional[torch.Tensor], k1: Optional[torch.Tensor],
                           dtype=torch.uint8, device=dev)
     scal = (ctypes.c_double * 5)(*[float(s) for s in scalars])
     status = lib.bound_rows(
-        _ptr(perm), _ptr(k1), _ptr(k2), _ptr(pk), _ptr(values), _ptr(valid),
+        _ptr(perm), _ptr(sorted_k1), _ptr(k2), _ptr(pk),
+        _ptr(values), _ptr(valid),
         n, n_partitions, linf, l0, int(clip_per_value), int(clip_pair_sum),
         scal, _ptr(scratch), _ptr(key2), _ptr(pair_start),
         _ptr(cols.get("sum")), _ptr(cols.get("nsum")),
@@ -825,6 +839,81 @@ def release_epilogue_plain(cols, plan, stds, slot_keys, noise_kind,
 
 _SORT_KINDS = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}
+SORT_MAX_WORDS = cuda_build.SORT_MAX_WORDS
+SORT_MAX_RUNS = cuda_build.SORT_MAX_RUNS
+SORT_DIGIT_BITS = cuda_build.SORT_DIGIT_BITS
+
+
+def radix_sort_runs(mask: int) -> Tuple[Tuple[int, int], ...]:
+    """The runs (first bit, width) of adjacent set bits of a word's
+    varying-bit mask, lowest first, at most 4: where there are more, the
+    narrowest constant gap (the lowest of equal ones) is sorted as if it
+    varied, until 4 are left. The runs are packed next to each other into
+    C5's sort key, so the bits between them cost no pass."""
+    mask &= (1 << 64) - 1
+    runs = []
+    while mask:
+        lo = (mask & -mask).bit_length() - 1
+        width = (~(mask >> lo) & ((mask >> lo) + 1)).bit_length() - 1
+        runs.append([lo, lo + width])
+        mask &= ~(((1 << width) - 1) << lo)
+    while len(runs) > SORT_MAX_RUNS:
+        j = min(range(1, len(runs)),
+                key=lambda r: runs[r][0] - runs[r - 1][1])
+        runs[j - 1][1] = runs.pop(j)[1]
+    return tuple((lo, hi - lo) for lo, hi in runs)
+
+
+def radix_sort_plan(masks: Sequence[int]) -> Tuple[Tuple[Tuple[int, int],
+                                                         ...], ...]:
+    """C5's plan: the runs of every word's varying bits (words[0] first;
+    no runs for a constant word)."""
+    return tuple(radix_sort_runs(int(m)) for m in masks)
+
+
+class _SortRuns(ctypes.Structure):
+    """csrc/radix_sort.cu's Runs: a word's runs and their places in the
+    packed key."""
+    _fields_ = [("n", ctypes.c_int), ("bits", ctypes.c_int),
+                ("lo", ctypes.c_int * SORT_MAX_RUNS),
+                ("at", ctypes.c_int * SORT_MAX_RUNS),
+                ("mask", ctypes.c_uint64 * SORT_MAX_RUNS),
+                ("varying", ctypes.c_uint64)]
+
+
+class _SortPlan(ctypes.Structure):
+    """csrc/radix_sort.cu's Plan: the varying words, least significant
+    first, and each word's passes."""
+    _fields_ = [("n_words", ctypes.c_int),
+                ("word", ctypes.c_int * SORT_MAX_WORDS),
+                ("first_pass", ctypes.c_int * SORT_MAX_WORDS),
+                ("passes", ctypes.c_int * SORT_MAX_WORDS),
+                ("runs", _SortRuns * SORT_MAX_WORDS),
+                ("total_passes", ctypes.c_int)]
+
+
+def _sort_plan(plan) -> _SortPlan:
+    """radix_sort_plan's runs laid out as the kernel takes them: each run
+    packed above the word's earlier ones, ceil(packed bits / 8) passes a
+    word, constant words left out."""
+    out = _SortPlan()
+    for k in reversed(range(len(plan))):
+        if not plan[k]:
+            continue
+        w = out.n_words
+        runs = out.runs[w]
+        runs.n = len(plan[k])
+        for j, (lo, width) in enumerate(plan[k]):
+            mask = (1 << width) - 1
+            runs.lo[j], runs.at[j], runs.mask[j] = lo, runs.bits, mask
+            runs.varying |= mask << lo
+            runs.bits += width
+        out.word[w] = k
+        out.first_pass[w] = out.total_passes
+        out.passes[w] = -(-runs.bits // SORT_DIGIT_BITS)
+        out.total_passes += out.passes[w]
+        out.n_words += 1
+    return out
 
 
 def radix_sort(words: Sequence[torch.Tensor], sorted_top: bool = False):
@@ -834,11 +923,13 @@ def radix_sort(words: Sequence[torch.Tensor], sorted_top: bool = False):
 
     Integers sort by value; floats by value with -0.0 before +0.0 (the
     sorts of the port see no negative zero or NaN). Returns perm int64[n],
-    or (perm, words[0][perm]) with sorted_top.
+    or (perm, words[0][perm]) with sorted_top. On the card: the masks of
+    varying bits (one small copy to the host), radix_sort_plan, then one
+    digit-start launch and one Onesweep launch a digit pass.
     """
-    if not 1 <= len(words) <= 4:
-        raise ValueError(f"radix_sort takes 1 to 4 key words, got "
-                         f"{len(words)}")
+    if not 1 <= len(words) <= SORT_MAX_WORDS:
+        raise ValueError(f"radix_sort takes 1 to {SORT_MAX_WORDS} key words, "
+                         f"got {len(words)}")
     n = words[0].shape[0]
     for j, word in enumerate(words):
         if word.dtype not in _SORT_KINDS:
@@ -854,18 +945,19 @@ def radix_sort(words: Sequence[torch.Tensor], sorted_top: bool = False):
     kinds = (ctypes.c_int * len(words))(*[_SORT_KINDS[w.dtype]
                                           for w in words])
     stream = _stream(dev)
-    masks = torch.zeros(len(words), dtype=torch.int64, device=dev)
-    _raise_on(lib.radix_sort_varying(ptrs, kinds, len(words), n, _ptr(masks),
-                                     stream), "radix_sort")
-    # One small copy: the number of passes follows the bits that vary.
-    host_masks = (ctypes.c_ulonglong * len(words))(
-        *[m & 0xFFFFFFFFFFFFFFFF for m in masks.cpu().tolist()])
     scratch = torch.empty(max(1, lib.radix_sort_scratch_bytes(n)),
                           dtype=torch.uint8, device=dev)
+    # One small copy: the number of passes follows the bits that vary.
+    masks = (ctypes.c_ulonglong * len(words))()
+    _raise_on(lib.radix_sort_varying(ptrs, kinds, len(words), n,
+                                     _ptr(scratch), masks, stream),
+              "radix_sort")
+    plan = radix_sort_plan(list(masks))
     perm = torch.empty(n, dtype=torch.int64, device=dev)
     top = torch.empty_like(words[0]) if sorted_top else None
-    _raise_on(lib.radix_sort(ptrs, kinds, len(words), n, host_masks,
-                             _ptr(scratch), _ptr(perm), _ptr(top), stream),
+    _raise_on(lib.radix_sort(ptrs, kinds, len(words), n,
+                             ctypes.byref(_sort_plan(plan)), _ptr(scratch),
+                             _ptr(perm), _ptr(top), stream),
               "radix_sort")
     _count("radix_sort")
     return (perm, top) if sorted_top else perm

@@ -107,7 +107,11 @@ large_p.py) adds to these phases:
              phase_times (waits, drains) and the decode
 The streamed ingest (DPEngine.aggregate / select_partitions of a
 ChunkSource; ingest.py, runtime/pipeline.py) adds:
-  2. kernels C12 factorize_codes and C13 lookup_codes on the hash rows of
+  2. kernels C12's and C17's edge cases (c12_c17_edge_phase: tile edges,
+             adversarial hashes, a count hint too small raising through
+             the ingest); C12 factorize_codes (its table sized by the
+             distinct count, no C5 launch) and C13 lookup_codes on the hash
+             rows of
              the Netflix users (2^24 rows, 480,189 distinct), movies
              (17,770) and (q)'s partitions (~4.7M): each equal to its
              plain version, to the other and to the host encoder's codes,
@@ -153,7 +157,8 @@ composition do not share their conditions):
              (q)'s rows: the integer histograms equal to the port's numpy
              host path, the float one's cumulative counts within the pair
              sums that lie within float32 rounding of each edge; C17
-             group_stats
+             group_stats (reading each sort's sorted key; pair sums bit for
+             bit the CPU's row-order fold and a numpy fold)
              and C18 log_bins against their plain versions at these shapes;
              the C5 sorts', each kernel's and the whole call's time
 Utility analysis and parameter tuning (analysis/, K19) add, after every
@@ -342,6 +347,7 @@ line describing every kernel, and the result line.
 
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -469,6 +475,8 @@ def same_twice(label, fn, first=None):
 
 def main() -> int:
     import torch
+    # A crash in native code prints every thread's Python stack.
+    faulthandler.enable()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke test "
               "needs one CUDA card.", file=sys.stderr)
@@ -538,6 +546,7 @@ def main() -> int:
     c3_edge_phase(torch, dev, kernels)
     c10_c21_edge_phase(torch, dev, kernels)
     c5_c2_edge_phase(torch, dev, kernels)
+    c12_c17_edge_phase(torch, dev, kernels, ingest)
     report += ingest_kernel_phase(
         torch, dev, {"users": (users, encoded.pid),
                      "movies": (movies, encoded.pk),
@@ -3400,6 +3409,212 @@ def c5_c2_edge_phase(torch, dev, kernels):
           "plain version and equal to itself run to run", flush=True)
 
 
+def c12_c17_edge_phase(torch, dev, kernels, ingest):
+    """C12's and C17's edge cases on the card, every output == its plain
+    version and equal to itself over two calls (same_twice). C12 (blocks
+    of 256 rows, scan tiles of 65,536 rows): 1 row (real, then the
+    sentinel), 255 / 257 and 65,535 / 65,537 rows; one hash in every row;
+    every row distinct, with the count hint exact, above it and absent; a
+    hi lane of 0xffffffff with lo not, and the hash one below the
+    sentinel, among sentinel rows; invalid rows claiming their slots;
+    sentinel rows interleaved. A count hint too small for the table: the
+    kernel's n_unique is -1, and ingest._finalize_hash_codes raises on it
+    and on a count the table holds but that differs from the host's. C17
+    (tiles of 2048 rows), from rows drawn in random order and sorted on the
+    card (C5 with sorted_top): 1 and 7 rows, 2047 / 2048 / 2049 rows, pairs
+    of 1-8 rows crossing tile edges, one pid of 12,000 rows over seven
+    tiles, every row invalid, a valid row keyed (INT32_MAX, INT32_MAX)
+    among the invalid ones; pair_sum bit for bit equal to the plain version
+    on the CPU copy (torch's index_add_ there folds in row order) and to a
+    numpy float32 fold in row order over every pair."""
+    rng = np.random.default_rng(SEED + 18)
+    m32, i32max = 0xFFFFFFFF, 2**31 - 1
+
+    def on_card(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    def hash_rows(keys, valid=None):
+        rows = np.empty((len(keys), 3), np.uint32)
+        rows[:, 0] = keys >> np.uint64(32)
+        rows[:, 1] = keys & np.uint64(m32)
+        rows[:, 2] = 1 if valid is None else valid
+        return rows
+
+    def distinct(n):
+        return rng.integers(0, 2**63, n, dtype=np.uint64) * np.uint64(2)
+
+    def factorize_case(label, rows, hints=(None,)):
+        rows = on_card(rows.view(np.int32))
+        want, want_n = kernels.factorize_codes_plain(rows)
+        for hint in hints:
+            got = same_twice(f"{label}, hint {hint}", lambda: dict(zip(
+                ("codes", "n_unique"),
+                kernels.factorize_codes(rows, n_distinct=hint))))
+            check_equal(f"factorize_codes ({label}, hint {hint})",
+                        got["codes"], want)
+            if int(got["n_unique"]) != int(want_n):
+                raise AssertionError(f"factorize_codes ({label}, hint "
+                                     f"{hint}): {int(got['n_unique'])} "
+                                     f"distinct, plain {int(want_n)}")
+        return int(want_n)
+
+    sentinel = np.uint64(2**64 - 1)
+    factorize_case("1 row", hash_rows(distinct(1)), (None, 1))
+    factorize_case("1 sentinel row", hash_rows(np.array([sentinel])),
+                   (None, 0))
+    for n in (255, 257, 65535, 65537):
+        keys = distinct(n // 3 + 1)[rng.integers(0, n // 3 + 1, n)]
+        count = len(np.unique(keys))
+        factorize_case(f"{n} rows", hash_rows(keys), (None, count))
+    factorize_case("one hash", hash_rows(np.full(100_000, distinct(1)[0])),
+                   (None, 1))
+    keys = distinct(100_000)
+    factorize_case("all distinct", hash_rows(keys), (None, 100_000, 150_000))
+    edge = np.array([(np.uint64(m32) << np.uint64(32)) | np.uint64(5),
+                     sentinel - np.uint64(1), sentinel, np.uint64(0)],
+                    np.uint64)
+    keys = edge[rng.integers(0, 4, 20_000)]
+    keys[:4] = edge
+    factorize_case("0xffffffff hi lane, sentinel - 1, 0", hash_rows(keys),
+                   (None, 3))
+    keys = distinct(5000)[rng.integers(0, 5000, 50_000)]
+    keys[::7] = sentinel
+    valid = (rng.random(50_000) < 0.7).astype(np.uint32)
+    valid[::11] = 2
+    count = factorize_case("invalid rows claim slots, sentinels interleaved",
+                           hash_rows(keys, valid), (None,))
+    factorize_case("invalid rows claim slots (hinted)",
+                   hash_rows(keys, valid), (count, count + 1))
+    # A count hint too small for the table: the kernel reports -1.
+    rows = on_card(hash_rows(distinct(100_000)).view(np.int32))
+    _, n_small = kernels.factorize_codes(rows, n_distinct=10)
+    if int(n_small) != -1:
+        raise AssertionError(f"factorize_codes with a hint of 10 for 100,000 "
+                             f"distinct hashes gave n_unique "
+                             f"{int(n_small)}, not -1")
+    values = torch.zeros(rows.shape[0], device=dev)
+    for host_count in (10, 100_001):
+        try:
+            ingest._finalize_hash_codes(rows, rows, values, True, [0],
+                                        (None, None, host_count, None), None)
+        except RuntimeError as err:
+            print(f"kernels[C12 edges]: host count {host_count} for 100,000 "
+                  f"distinct hashes raised: {err}", flush=True)
+        else:
+            raise AssertionError(f"_finalize_hash_codes with a host count "
+                                 f"of {host_count} did not raise")
+
+    # C17: rows in random order, sorted on the card.
+    def pair_rows(n_pids, max_pair=8, long_pid=None):
+        pids, pks, lengths = [], [], []
+        for pid in range(n_pids):
+            n_pairs = int(rng.integers(1, 12))
+            if pid == long_pid:
+                n_pairs = 2700
+            for pk in rng.choice(5000, n_pairs, replace=False):
+                pids.append(pid)
+                pks.append(pk)
+                lengths.append(int(rng.integers(1, max_pair + 1)))
+        pid = np.repeat(pids, lengths).astype(np.int32)
+        pk = np.repeat(pks, lengths).astype(np.int32)
+        order = rng.permutation(len(pid))
+        return pid[order], pk[order]
+
+    folds = {"pairs": 0}
+
+    def fold_check(label, pairs, perm, values):
+        """pair_sum against a numpy float32 fold of each pair's rows in
+        sorted order, from 0."""
+        starts = np.nonzero(pairs["new_pair"].cpu().numpy())[0]
+        lens = pairs["pair_len"].cpu().numpy()[starts]
+        v = values.cpu().numpy()[perm.cpu().numpy()]
+        got = pairs["pair_sum"].cpu().numpy()[starts]
+        want = np.zeros(len(starts), np.float32)
+        for k in range(int(lens.max(initial=0))):
+            live = lens > k
+            want[live] = want[live] + v[starts[live] + k]
+        if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+            raise AssertionError(f"group_stats_pairs ({label}) pair_sum: "
+                                 f"{int((got != want).sum())} pairs differ "
+                                 f"from a float32 fold in row order")
+        folds["pairs"] += len(starts)
+
+    def stats_case(label, pid, pk, valid):
+        n = len(pid)
+        values = (rng.standard_normal(n) * 100).astype(np.float32)
+        pid, pk, values, valid = (on_card(a) for a in (pid, pk, values,
+                                                        valid))
+        sp, sk = kernels.sunk_keys(pid, valid), kernels.sunk_keys(pk, valid)
+        perm, spid = kernels.radix_sort([sp, sk], sorted_top=True)
+        got = same_twice(label, lambda: kernels.group_stats_pairs(
+            pid, pk, values, valid, perm, sorted_pid=spid))
+        cpu = [t.cpu() for t in (pid, pk, values, valid, perm)]
+        want = kernels.group_stats_pairs_plain(*cpu)
+        for name in kernels.PAIR_STATS:
+            g, w = got[name].cpu(), want[name]
+            if name == "pair_sum":  # bit for bit
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            check_equal(f"group_stats_pairs ({label}) {name}", g, w)
+        fold_check(label, got, perm, values)
+        pair_pk, new_pair = got["pair_pk"], got["new_pair"]
+        for what, keys, kvalid in (("pk", sk, valid),
+                                   ("pair starts", pair_pk, new_pair)):
+            kperm, skeys = kernels.radix_sort([keys], sorted_top=True)
+            out = same_twice(f"{label} keys ({what})", lambda: dict(zip(
+                ("new_seg", "seg_len"), kernels.group_stats_keys(
+                    keys, kvalid, kperm, sorted_keys=skeys))))
+            for name, w in zip(("new_seg", "seg_len"),
+                               kernels.group_stats_keys_plain(
+                                   keys, kvalid, kperm)):
+                check_equal(f"group_stats_keys ({label}, {what}) {name}",
+                            out[name], w)
+
+    def some_invalid(n, p=0.1):
+        return rng.random(n) >= p
+
+    for n in (1, 7, 2047, 2048, 2049):
+        pid, pk = pair_rows(n // 4 + 1)
+        stats_case(f"{n} rows", pid[:n], pk[:n], some_invalid(n))
+    pid, pk = pair_rows(3000)
+    stats_case(f"{len(pid)} rows, pairs of 1-8 rows", pid, pk,
+               some_invalid(len(pid)))
+    pid, pk = pair_rows(40, long_pid=7)
+    stats_case(f"{len(pid)} rows, one pid over many tiles", pid, pk,
+               some_invalid(len(pid), 0.01))
+    stats_case("every row invalid", pid[:5000], pk[:5000],
+               np.zeros(5000, bool))
+    pid, pk = pair_rows(600)
+    pid[::97], pk[::97] = i32max, i32max
+    stats_case("valid rows keyed INT32_MAX among invalid ones", pid, pk,
+               some_invalid(len(pid), 0.2))
+    # The card requires the sorted key.
+    small = on_card(np.arange(8, dtype=np.int32))
+    ok = on_card(np.ones(8, bool))
+    sperm = on_card(np.arange(8))
+    for fn in (lambda: kernels.group_stats_pairs(small, small, None, ok,
+                                                 sperm),
+               lambda: kernels.group_stats_keys(small, ok, sperm)):
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError("a C17 entry on the card ran without its "
+                             "sorted key")
+    torch.cuda.synchronize()
+    print("kernels[C12 and C17 edges]: C12 at 1 row (real, sentinel), 255 / "
+          "257 and 65,535 / 65,537 rows, one hash, every row distinct "
+          "(hints exact, above, none), a 0xffffffff hi lane, the hash one "
+          "below the sentinel, invalid rows claiming slots among "
+          "sentinels; a too-small hint gives -1 and raises through "
+          "_finalize_hash_codes, as does a wrong host count; C17 at 1, 7, "
+          "2047, 2048, 2049 rows, pairs of 1-8 rows across tile edges, one "
+          "pid over seven tiles, every row invalid, valid rows keyed "
+          "INT32_MAX: each == its plain version and equal to itself run to "
+          f"run, pair_sum bit-equal to a float32 fold in row order over "
+          f"{folds['pairs']} pairs; both entries refuse the card without "
+          "their sorted key", flush=True)
+
+
 def large_p_parity_phase(torch, tdp, rng):
     """Small blocked releases and selections on the card (float64) against
     the same on the CPU, large_partition_threshold=16, block_partitions=8
@@ -4171,10 +4386,13 @@ def ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode, ingest,
     """C12 factorize_codes and C13 lookup_codes on the full-size hash rows
     of three key columns (Netflix users: 480,189 distinct; movies: 17,770;
     (q)'s partitions: ~4.7M), each equal to its plain version, C12 equal to
-    C13 and to the host encoder's first-occurrence codes; C14's grow and
-    fill_tail on 2^24-row buffers, equal to their plain versions. Returns
-    the report rows (C12 and C13 on the user hashes, C14 grow on the host
-    route's buffers)."""
+    C13 and to the host encoder's first-occurrence codes; C12 with the
+    distinct count as the ingest passes it (its table sized by it) and
+    without it, no C5 launch inside it (its device operations, by name),
+    beside torch.unique (not the same function) in turns (three_way);
+    C14's grow and fill_tail on 2^24-row buffers, equal to their plain
+    versions. Returns the report rows (C12 and C13 on the user hashes, C14
+    grow on the host route's buffers)."""
     report = []
     for label, (raw, host_codes) in key_sets.items():
         h1, h2 = ingest.hash_key_column_pair(raw)
@@ -4184,15 +4402,32 @@ def ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode, ingest,
         # first positions.
         s1, _, _, first = ingest._hash_uniques(h1, h2, None)
         n = rows.shape[0]
-        codes, n_unique = kernels.factorize_codes(rows)
+        hint = len(s1)
+        kernels.reset_launch_counts()
+        codes, n_unique = kernels.factorize_codes(rows, n_distinct=hint)
+        torch.cuda.synchronize()
+        if kernels.launch_counts["radix_sort"] != 0:
+            raise AssertionError(f"factorize_codes ({label}) launched C5")
         plain_codes, plain_n = kernels.factorize_codes_plain(rows)
         err12 = check_equal(f"factorize_codes ({label})", codes,
                             plain_codes)
         check_equal(f"factorize_codes ({label}) vs the host encoder", codes,
                     torch.from_numpy(host_codes).to(dev))
-        if not int(n_unique) == int(plain_n) == len(s1):
+        unhinted, n_unhinted = kernels.factorize_codes(rows)
+        check_equal(f"factorize_codes ({label}) without the count",
+                    unhinted, plain_codes)
+        if not int(n_unique) == int(n_unhinted) == int(plain_n) == len(s1):
             raise AssertionError(f"factorize_codes ({label}): {n_unique} / "
-                                 f"{plain_n} distinct, host {len(s1)}")
+                                 f"{n_unhinted} / {plain_n} distinct, host "
+                                 f"{len(s1)}")
+        ops = device_ops(torch, lambda: kernels.factorize_codes(
+            rows, n_distinct=hint))
+        sort_ops = [k for k in (ops if isinstance(ops, dict) else {})
+                    if any(s in k for s in ("sweep_pass", "digit_starts",
+                                            "varying_bits"))]
+        if sort_ops:
+            raise AssertionError(f"factorize_codes ({label}) ran C5's "
+                                 f"{sort_ops}")
         table, table_codes = device_encode.build_lookup_table(s1, first, dev)
         looked = kernels.lookup_codes(rows, table, table_codes)
         err13 = check_equal(f"lookup_codes ({label})", looked,
@@ -4203,7 +4438,8 @@ def ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode, ingest,
         key64 = kernels.joined_hash_order(rows[:, 0], rows[:, 1])
         table64 = kernels.joined_hash_order(table[:, 0], table[:, 1])
         v_cap = table.shape[0]
-        c12 = (lambda: kernels.factorize_codes(rows),  # noqa: E731
+        c12 = (lambda: kernels.factorize_codes(  # noqa: E731
+                   rows, n_distinct=hint),
                lambda: kernels.factorize_codes_plain(rows), None,
                # Rows read once, codes written once; one compare a row.
                bound(n * 12 + n * 4 + 4, n))
@@ -4221,12 +4457,26 @@ def ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode, ingest,
                         cuda_ms(lib, repeats=10) if lib else None)
         unique_ms = cuda_ms(lambda: torch.unique(key64, return_inverse=True),
                             repeats=10)
+        unhinted_ms = cuda_ms(lambda: kernels.factorize_codes(rows), 10)
+        split = three_way(torch, {
+            "C12": c12[0],
+            "torch.unique": lambda: torch.unique(key64,
+                                                 return_inverse=True)},
+            host_calls=200)
+        print_three_way(f"ingest, {label}", split, card)
+        if ms["factorize_codes"][0] >= unique_ms:
+            print(f"kernels[ingest, {label}]: C12 {ms['factorize_codes'][0]:.4f}"
+                  f" ms is not below torch.unique's {unique_ms:.4f}",
+                  flush=True)
         print(f"kernels[ingest, {label}: {n} rows, {len(s1)} distinct "
               f"hashes]: C12 factorize_codes ms={ms['factorize_codes'][0]:.4f}"
-              f" (its C5 sort included) plain_ms={ms['factorize_codes'][1]:.4f}"
-              f" bound_ms={c12[3][0]:.3g} ({c12[3][1]}); torch.unique("
-              f"return_inverse) {unique_ms:.4f} ms (not the same function: "
-              f"sorted-order codes); C13 lookup_codes ms="
+              f" (table of {kernels.factorize_table_plan(n, hint)[0]} slots "
+              f"from the count; {unhinted_ms:.4f} ms sized from the rows, "
+              f"{kernels.factorize_table_plan(n)[0]} slots) plain_ms="
+              f"{ms['factorize_codes'][1]:.4f} bound_ms={c12[3][0]:.3g} "
+              f"({c12[3][1]}); device operations {json.dumps(ops)}; "
+              f"torch.unique(return_inverse) {unique_ms:.4f} ms (not the same"
+              f" function: sorted-order codes); C13 lookup_codes ms="
               f"{ms['lookup_codes'][0]:.4f} plain_ms="
               f"{ms['lookup_codes'][1]:.4f} torch.searchsorted "
               f"{ms['lookup_codes'][2]:.4f} ms bound_ms={c13[3][0]:.3g} "
@@ -4245,7 +4495,7 @@ def ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode, ingest,
                     "ms": ms[name][0], "plain_ms": ms[name][1],
                     "bound_ms": entry[3][0], "bound_by": entry[3][1],
                     "library_ms": ms[name][2]})
-        del rows, codes, plain_codes, looked, key64
+        del rows, codes, plain_codes, unhinted, looked, key64
     # C14 on the host route's buffers (pid, pk int32; values float32) and
     # the hash route's (two int32[., 3] hash columns).
     n, half = N_ROWS, N_ROWS // 2
@@ -4489,8 +4739,8 @@ def ingest_main_phase(torch, tdp, data, kernels, executor, card):
 
 class StageClock:
     """CUDA events around kernel wrappers and host clocks around host
-    functions, by stage; a wrapper called inside another timed one (C12's
-    C5 sort) is part of the outer stage."""
+    functions, by stage; a wrapper called inside another timed one is part
+    of the outer stage."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -5145,29 +5395,43 @@ def histogram_phase(torch, dev, data, kernels, card):
         n = pid.shape[0]
         sp = kernels.sunk_keys(pid, valid)
         sk = kernels.sunk_keys(pk, valid)
-        perm = kernels.radix_sort([sp, sk])
-        pairs = kernels.group_stats_pairs(pid, pk, vals, valid, perm)
+        perm, spid = kernels.radix_sort([sp, sk], sorted_top=True)
+        pairs = kernels.group_stats_pairs(pid, pk, vals, valid, perm,
+                                          sorted_pid=spid)
         plain = kernels.group_stats_pairs_plain(pid, pk, vals, valid, perm)
-        err17 = 0.0
         for name in kernels.PAIR_STATS:
-            if name == "pair_sum":
-                # torch's index_add_ adds a pair's rows on the card by
-                # atomics, in another order than C17's walk.
-                d = (pairs[name] - plain[name]).abs()
-                if bool((d > 1e-5 * plain[name].abs()).any()):
-                    raise AssertionError(f"group_stats ({label}) pair_sum: "
-                                         f"max err {float(d.max())}")
-                err17 = max(err17, float(d.max()))
-            else:
+            if name != "pair_sum":
                 check_equal(f"group_stats ({label}) {name}", pairs[name],
                             plain[name])
-        perm2 = kernels.radix_sort([sk])
+        # torch's index_add_ adds a pair's rows on the card by atomics; on
+        # the CPU it folds them in row order, as C17 does: bit for bit.
+        cpu_sum = kernels.group_stats_pairs_plain(
+            *[t.cpu() for t in (pid, pk, vals, valid, perm)])["pair_sum"]
+        check_equal(f"group_stats ({label}) pair_sum bits",
+                    pairs["pair_sum"].cpu().view(torch.int32),
+                    cpu_sum.view(torch.int32))
+        err17 = abs_diff(pairs["pair_sum"].cpu(), cpu_sum)
+        atomics_err = abs_diff(pairs["pair_sum"], plain["pair_sum"])
+        # And a numpy float32 fold over the first 2^16 pairs.
+        starts = torch.nonzero(pairs["new_pair"])[:1 << 16, 0].cpu().numpy()
+        lens = pairs["pair_len"].cpu().numpy()[starts]
+        sv = vals[perm].cpu().numpy()
+        fold = np.zeros(len(starts), np.float32)
+        for k in range(int(lens.max(initial=0))):
+            live = lens > k
+            fold[live] = fold[live] + sv[starts[live] + k]
+        if not np.array_equal(
+                pairs["pair_sum"].cpu().numpy()[starts].view(np.int32),
+                fold.view(np.int32)):
+            raise AssertionError(f"group_stats ({label}) pair_sum: not a "
+                                 f"float32 fold in row order")
+        perm2, spk = kernels.radix_sort([sk], sorted_top=True)
         pair_pk = pairs["pair_pk"]
-        perm3 = kernels.radix_sort([pair_pk])
-        for what, args in (("pk", (sk, valid, perm2)),
-                           ("pair starts", (pair_pk, pairs["new_pair"],
-                                            perm3))):
-            for g, w in zip(kernels.group_stats_keys(*args),
+        perm3, spk3 = kernels.radix_sort([pair_pk], sorted_top=True)
+        for what, args, top in (("pk", (sk, valid, perm2), spk),
+                                ("pair starts", (pair_pk, pairs["new_pair"],
+                                                 perm3), spk3)):
+            for g, w in zip(kernels.group_stats_keys(*args, sorted_keys=top),
                             kernels.group_stats_keys_plain(*args)):
                 check_equal(f"group_stats keys ({label}, {what})", g, w)
         stats = dh.group_stats(pid, pk, vals, valid)
@@ -5191,13 +5455,18 @@ def histogram_phase(torch, dev, data, kernels, card):
             "C5 pair starts": (cuda_ms(lambda: kernels.radix_sort([pair_pk]),
                                        5), None),
             "C17 pairs": (cuda_ms(lambda: kernels.group_stats_pairs(
-                pid, pk, vals, valid, perm), 5), cuda_ms(
+                pid, pk, vals, valid, perm, sorted_pid=spid), 10), cuda_ms(
                 lambda: kernels.group_stats_pairs_plain(pid, pk, vals, valid,
                                                         perm), 3, 1)),
             "C17 keys (pk)": (cuda_ms(lambda: kernels.group_stats_keys(
-                sk, valid, perm2), 5), cuda_ms(
+                sk, valid, perm2, sorted_keys=spk), 10), cuda_ms(
                 lambda: kernels.group_stats_keys_plain(sk, valid, perm2), 3,
                 1)),
+            "C17 keys (pair starts)": (cuda_ms(
+                lambda: kernels.group_stats_keys(
+                    pair_pk, pairs["new_pair"], perm3, sorted_keys=spk3), 10),
+                cuda_ms(lambda: kernels.group_stats_keys_plain(
+                    pair_pk, pairs["new_pair"], perm3), 3, 1)),
             "C18 int (l1)": (cuda_ms(lambda: kernels.log_bins_int(
                 l1, new_pid), 5), cuda_ms(
                 lambda: kernels.log_bins_int_plain(l1, new_pid), 3, 1)),
@@ -5210,9 +5479,17 @@ def histogram_phase(torch, dev, data, kernels, card):
                     for k, v in ms.items()}
         histc_ms = cuda_ms(lambda: torch.histc(
             psum[new_pair], bins=10000), 5)
-        # Inputs read once (through the permutation), outputs written once.
+        split = three_way(torch, {
+            "C17 pairs": lambda: kernels.group_stats_pairs(
+                pid, pk, vals, valid, perm, sorted_pid=spid),
+            "C17 keys (pk)": lambda: kernels.group_stats_keys(
+                sk, valid, perm2, sorted_keys=spk)}, host_calls=200)
+        print_three_way(f"histograms, {label}", split, card)
+        # Inputs read once (perm, the sorted key, the gathered columns),
+        # outputs written once.
         b17 = bound(n * (4 + 4 + 4 + 1 + 8) + n * (1 + 1 + 4 + 4 + 4 + 4 + 4),
                     n * 8)
+        b17k = bound(n * (8 + 4 + 1) + n * (1 + 4), n * 4)
         b18 = bound(n * (4 + 1) + kernels.LOG_BIN_SLOTS * 28, n * 16)
         print(f"histograms ({label}: {len(pids)} rows padded to {n}): "
               f"compute_dataset_histograms_device "
@@ -5224,10 +5501,13 @@ def histogram_phase(torch, dev, data, kernels, card):
               f"{moved[0]} moved, {moved[1]} near one edge); "
               f"stage ms (kernel / plain): {json.dumps(stage_ms)}"
               f"; torch.histc of the pair sums (counts only, other edges) "
-              f"{histc_ms:.4f} ms; C17 bound_ms={b17[0]:.3g} ({b17[1]}), C18 "
+              f"{histc_ms:.4f} ms; C17 pairs bound_ms={b17[0]:.3g} "
+              f"({b17[1]}), keys bound_ms={b17k[0]:.3g} ({b17k[1]}), C18 "
               f"int bound_ms={b18[0]:.3g} ({b18[1]}); C17 and C18 equal "
-              f"their plain versions (pair sums within {err17:.3g}, float "
-              f"bucket sums within {err18f:.3g}) ({card})", flush=True)
+              f"their plain versions (pair sums bit for bit the CPU's row-"
+              f"order fold, within {atomics_err:.3g} of the card's "
+              f"index_add_; "
+              f"float bucket sums within {err18f:.3g}) ({card})", flush=True)
         if label == "netflix":
             report += [
                 {"name": "group_stats", "route": "cuda",
@@ -5245,7 +5525,7 @@ def histogram_phase(torch, dev, data, kernels, card):
                  "ms": ms["C18 int (l1)"][0],
                  "plain_ms": ms["C18 int (l1)"][1], "bound_ms": b18[0],
                  "bound_by": b18[1], "library_ms": None}]
-        del pid, pk, vals, valid, perm, pairs, plain, stats
+        del pid, pk, vals, valid, perm, pairs, plain, stats, cpu_sum, sv
     return report, total
 
 
@@ -6988,15 +7268,21 @@ def elastic_only(torch, tdp, cuda_build, columnar, kernels, card, t0):
 
 def walls_only(torch, tdp, cuda_build, columnar, card, t0, reps=5):
     """python3 chip_smoke.py --walls: the build, the data and the walls of
-    (a), (b), (q), (v) and meshed (q) (card_mesh(), rows on the card,
-    reshard="device"), each the median of `reps` releases timed as the
-    main phases time them, and nothing else. It drives DPEngine alone, so
-    the same script compares two trees of the port in one call: run it
-    from each tree's root in turns."""
+    (a), (b), (q), (v), meshed (q) (card_mesh(), rows on the card,
+    reshard="device"), the streamed (x) and (y) (16 chunks, encode_threads
+    4; (y) factorizes on the card, C12) and the histogram call on the
+    Netflix rows (C5, C17, C18), each the median of `reps` runs timed as
+    the main phases time them, and nothing else. It drives the public
+    entry points alone, so the same script compares two trees of the port
+    in one call: run it from each tree's root in turns."""
+    from pipelinedp_tpu_torch.dataset_histograms import (
+        device_histograms as dh)
     print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
           f"{cuda_build.build_all():.1f} s ({card})", flush=True)
     rng = np.random.default_rng(SEED)
-    encoded = columnar.encode_columns(*netflix_rows(rng))
+    raw = netflix_rows(rng)
+    encoded = columnar.encode_columns(*raw)
+    chunks = stream_chunks(*raw)
     nmax = data_maxima(encoded.pid, encoded.pk, encoded.n_partitions)
     qenc = columnar.encode_columns(*zipfish_rows())
     mesh = card_mesh(torch)
@@ -7025,19 +7311,28 @@ def walls_only(torch, tdp, cuda_build, columnar, card, t0, reps=5):
                                   block_partitions=4096)),
         "meshed q": (q_card, [M.COUNT, M.SUM], N.LAPLACE, False, 1.0,
                      q_bounds, dict(mesh=mesh, reshard="device")),
+        "x": ("host", [M.COUNT, M.SUM, M.MEAN, M.VARIANCE], N.GAUSSIAN,
+              True, 1.0, netflix_bounds, dict(encode_threads=INGEST_THREADS)),
+        "y": ("hash_device", [M.COUNT, M.SUM, M.PRIVACY_ID_COUNT],
+              N.LAPLACE, False, 1.0, netflix_bounds,
+              dict(encode_threads=INGEST_THREADS)),
     }
     for label, (data, metrics, noise, public, eps, bounds, backend) in \
             cells.items():
         times = []
         for rep in range(reps):
+            # A streamed run names its encode mode.
+            streamed = isinstance(data, str)
+            src = (tdp.ChunkSource(chunks, encode_mode=data) if streamed
+                   else data)
+            vocab = (encoded if streamed else data).partition_vocab
             acc = tdp.NaiveBudgetAccountant(total_epsilon=eps,
                                             total_delta=1e-6)
             res = tdp.DPEngine(acc, tdp.TorchBackend(
                 noise_seed=rep, **backend)).aggregate(
-                    data, tdp.AggregateParams(metrics=metrics,
+                    src, tdp.AggregateParams(metrics=metrics,
                                               noise_kind=noise, **bounds),
-                    tdp.DataExtractors(),
-                    list(data.partition_vocab) if public else None)
+                    tdp.DataExtractors(), list(vocab) if public else None)
             acc.compute_budgets()
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -7049,6 +7344,17 @@ def walls_only(torch, tdp, cuda_build, columnar, card, t0, reps=5):
         print(f"wall ({label}): {statistics.median(times) * 1e3:.1f} ms, "
               f"median of {reps}: {[round(t * 1e3, 1) for t in times]} ms "
               f"({card})", flush=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        dh.compute_dataset_histograms_device(encoded.pid, encoded.pk,
+                                             encoded.values)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    print(f"wall (histograms): {statistics.median(times) * 1e3:.1f} ms, "
+          f"median of {reps}: {[round(t * 1e3, 1) for t in times]} ms "
+          f"({card})", flush=True)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -156,77 +156,7 @@ __device__ __forceinline__ F clipped_value(const Params<F>& p, F v) {
   return p.clip_per_value ? clip(v, p.min_v, p.max_v) : v;
 }
 
-// The scan state of one call: the tile counter and one status word per
-// tile (reset by the call's memset), then the published values.
-template <class T>
-struct Scan {
-  unsigned long long* counter;
-  int* status;
-  T* aggs;
-  T* incl;
-};
-
-size_t align_up(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
-
 long long tiles_of(long long n) { return (n + kTile - 1) / kTile; }
-
-// Bytes the memset clears: the counter and the status words.
-size_t reset_bytes(long long tiles) {
-  return align_up(8) + align_up(static_cast<size_t>(tiles) * 4);
-}
-
-template <class T>
-Scan<T> carve(void* scratch, long long tiles) {
-  char* p = static_cast<char*>(scratch);
-  Scan<T> s;
-  s.counter = reinterpret_cast<unsigned long long*>(p);
-  s.status = reinterpret_cast<int*>(p + align_up(8));
-  p += reset_bytes(tiles);
-  s.aggs = reinterpret_cast<T*>(p);
-  s.incl = reinterpret_cast<T*>(p + align_up(tiles * sizeof(T)));
-  return s;
-}
-
-// Claims the block's tile; every thread gets its number.
-__device__ __forceinline__ long long claim_tile(unsigned long long* counter) {
-  __shared__ long long tile;
-  if (threadIdx.x == 0) tile = static_cast<long long>(atomicAdd(counter, 1ULL));
-  __syncthreads();
-  return tile;
-}
-
-// The tile's prefix (the combined value of all earlier tiles; identity
-// where the tile needs none) after publishing its aggregate, and its own
-// inclusive prefix published. self_contained: no row of the tile depends
-// on an earlier tile, so the aggregate is the inclusive prefix. Every
-// thread gets the prefix.
-template <class Op>
-__device__ typename Op::T tile_prefix(const Scan<typename Op::T>& s,
-                                      long long tile, bool self_contained,
-                                      const typename Op::T& total) {
-  using T = typename Op::T;
-  __shared__ T prefix;
-  if (threadIdx.x == 0) {
-    if (self_contained) {
-      pdp::publish(s.incl + tile, s.status + tile, total, 2);
-    } else {
-      pdp::publish(s.aggs + tile, s.status + tile, total, 1);
-    }
-  }
-  if (threadIdx.x < 32) {
-    T before = Op::identity();
-    if (!self_contained)
-      before = pdp::look_back<Op>(s.aggs, s.incl, s.status, 0, tile);
-    if (threadIdx.x == 0) {
-      prefix = before;
-      if (!self_contained)
-        pdp::publish(s.incl + tile, s.status + tile,
-                     Op::combine(before, total), 2);
-    }
-  }
-  __syncthreads();
-  return prefix;
-}
 
 // Shared memory of bound_tiles<F>: k1, k2 of the tile's rows and of the
 // row before it, then value, valid and the flags of the tile's rows.
@@ -241,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
                 const long long* __restrict__ k1, bool k1_sorted,
                 const long long* __restrict__ k2,
                 const F* __restrict__ values,
-                const uint8_t* __restrict__ valid, Scan<BoundAgg> scan,
+                const uint8_t* __restrict__ valid, pdp::Scan<BoundAgg> scan,
                 int32_t* __restrict__ key2, uint8_t* __restrict__ pair_start,
                 F* __restrict__ sum, F* __restrict__ nsum,
                 F* __restrict__ nsum2) {
@@ -252,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
   uint8_t* s_valid = reinterpret_cast<uint8_t*>(s_val + kTile);
   uint8_t* s_flag = s_valid + kTile;
   __shared__ BoundAgg scan_smem[32];
-  const long long tile = claim_tile(scan.counter);
+  const long long tile = pdp::claim_tile(scan.counter);
   const long long t0 = tile * kTile;
   const int tile_n = static_cast<int>(p.n - t0 < kTile ? p.n - t0 : kTile);
   const int tid = threadIdx.x;
@@ -316,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
   BoundAgg total;
   const BoundAgg excl =
       pdp::block_exclusive_scan<BoundOp>(acc, scan_smem, &total);
-  const BoundAgg before = tile_prefix<BoundOp>(
+  const BoundAgg before = pdp::tile_prefix<BoundOp>(
       scan, tile, tile == 0 || (s_flag[0] & kNewPid), total);
   BoundAgg state = BoundOp::combine(before, excl);
   uint64_t keep8 = flags8;
@@ -428,13 +358,13 @@ __global__ void __launch_bounds__(kThreads)
     total_tiles(const long long* __restrict__ perm, const K* __restrict__ spid,
                 long long n, long long total_bound, int n_partitions,
                 const int32_t* __restrict__ pk, const F* __restrict__ values,
-                const uint8_t* __restrict__ valid, Scan<long long> scan,
+                const uint8_t* __restrict__ valid, pdp::Scan<long long> scan,
                 int32_t* __restrict__ pid_out, int32_t* __restrict__ pk_out,
                 F* __restrict__ values_out, uint8_t* __restrict__ valid_out) {
   __shared__ K s_pid[kTile + 1];  // [0]: row t0 - 1
   __shared__ __align__(8) uint8_t s_flag[kTile];
   __shared__ long long scan_smem[32];
-  const long long tile = claim_tile(scan.counter);
+  const long long tile = pdp::claim_tile(scan.counter);
   const long long t0 = tile * kTile;
   const int tile_n = static_cast<int>(n - t0 < kTile ? n - t0 : kTile);
   const int tid = threadIdx.x;
@@ -475,7 +405,7 @@ __global__ void __launch_bounds__(kThreads)
   long long total;
   const long long excl =
       pdp::block_exclusive_scan<pdp::MaxPosOp>(acc, scan_smem, &total);
-  const long long before = tile_prefix<pdp::MaxPosOp>(
+  const long long before = pdp::tile_prefix<pdp::MaxPosOp>(
       scan, tile, tile == 0 || s_flag[0] != 0, total);
   long long state = pdp::MaxPosOp::combine(before, excl);
   uint64_t keep8 = 0;
@@ -509,12 +439,12 @@ int launch_total(const void* perm, const void* spid, const void* pk,
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = tiles_of(n);
-  cudaMemsetAsync(scratch, 0, reset_bytes(tiles), s);
+  cudaMemsetAsync(scratch, 0, pdp::scan_reset_bytes(tiles), s);
   total_tiles<F, K><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
       static_cast<const long long*>(perm), static_cast<const K*>(spid), n,
       total_bound, n_partitions, static_cast<const int32_t*>(pk),
       static_cast<const F*>(values), static_cast<const uint8_t*>(valid),
-      carve<long long>(scratch, tiles), static_cast<int32_t*>(pid_out),
+      pdp::carve_scan<long long>(scratch, tiles), static_cast<int32_t*>(pid_out),
       static_cast<int32_t*>(pk_out), static_cast<F*>(values_out),
       static_cast<uint8_t*>(valid_out));
   return static_cast<int>(cudaGetLastError());
@@ -563,13 +493,13 @@ int launch(const void* perm, const void* k1, bool k1_sorted,
   constexpr int kBytes = tile_bytes<F>();
   cudaFuncSetAttribute(bound_tiles<F>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  cudaMemsetAsync(scratch, 0, reset_bytes(tiles), s);
+  cudaMemsetAsync(scratch, 0, pdp::scan_reset_bytes(tiles), s);
   bound_tiles<F><<<static_cast<unsigned>(tiles), kThreads, kBytes, s>>>(
       p, static_cast<const long long*>(perm),
       static_cast<const long long*>(k1), k1_sorted,
       static_cast<const long long*>(k2),
       static_cast<const F*>(values), static_cast<const uint8_t*>(valid),
-      carve<BoundAgg>(scratch, tiles), static_cast<int32_t*>(key2),
+      pdp::carve_scan<BoundAgg>(scratch, tiles), static_cast<int32_t*>(key2),
       static_cast<uint8_t*>(pair_start), static_cast<F*>(sum),
       static_cast<F*>(nsum), static_cast<F*>(nsum2));
   return static_cast<int>(cudaGetLastError());
@@ -580,9 +510,7 @@ int launch(const void* perm, const void* k1, bool k1_sorted,
 // Scratch the caller allocates for n rows (either entry): the tile
 // counter, a status word and two published aggregates per tile of 2048.
 extern "C" long long bound_rows_scratch_bytes(long long n) {
-  const long long tiles = tiles_of(n);
-  return static_cast<long long>(reset_bytes(tiles) +
-                                2 * align_up(tiles * sizeof(BoundAgg)));
+  return static_cast<long long>(pdp::scan_bytes<BoundAgg>(tiles_of(n)));
 }
 
 // scalars = (min_v, max_v, min_s, max_s, mid). sk1 is k1 in sorted order

@@ -14,12 +14,13 @@
 //    sentinel's flag bits of a value and their block-wide OR;
 //  * a block-wide exclusive scan over an associative operator, the
 //    single-block kernel that scans per-tile aggregates (pass 2 of the
-//    three-pass tile scans in compact_kept.cu, factorize_codes.cu,
-//    group_stats.cu and mesh_factorize.cu), with integer-sum and max
-//    operators;
+//    three-pass tile scans in compact_kept.cu and mesh_factorize.cu), with
+//    integer-sum and max operators;
 //  * the decoupled look-back of the one-pass tile scans (tile aggregates
 //    and inclusive prefixes published under release / acquire flags),
-//    shared by reduce_partitions.cu and bound_rows.cu.
+//    shared by reduce_partitions.cu, bound_rows.cu, group_stats.cu and
+//    factorize_codes.cu, with the scan state the last three carve from
+//    their scratch (Scan, claim_tile, tile_prefix).
 #pragma once
 
 #include <cstdint>
@@ -415,6 +416,11 @@ struct SumOp {
   static __device__ __forceinline__ T shfl_up(T v, int d) {
     return __shfl_up_sync(kFullMask, v, d);
   }
+  static __device__ __forceinline__ T shfl(T v, int src) {
+    return __shfl_sync(kFullMask, v, src);
+  }
+  // A sum's walk goes back to the nearest inclusive prefix.
+  static __device__ __forceinline__ bool ends_walk(T) { return false; }
 };
 
 // Maximum, for the position of the last segment start (-1 = none).
@@ -515,6 +521,86 @@ __device__ typename Op::T look_back(const typename Op::T* aggs,
     if (inclusive != 0u || Op::ends_walk(chunk) || hi <= 32) break;
   }
   return acc;
+}
+
+// The state of one one-pass scan in a call's scratch: the tile counter and
+// one status word per tile (reset by the call's memset), then the
+// published aggregates and inclusive prefixes.
+template <class T>
+struct Scan {
+  unsigned long long* counter;
+  int* status;
+  T* aggs;
+  T* incl;
+};
+
+inline size_t align_up(size_t x) {
+  return (x + 255) & ~static_cast<size_t>(255);
+}
+
+// Bytes the call's memset clears: the counter and the status words.
+inline size_t scan_reset_bytes(long long tiles) {
+  return align_up(8) + align_up(static_cast<size_t>(tiles) * 4);
+}
+
+// All of a scan's scratch, the reset bytes first.
+template <class T>
+inline size_t scan_bytes(long long tiles) {
+  return scan_reset_bytes(tiles) +
+         2 * align_up(static_cast<size_t>(tiles) * sizeof(T));
+}
+
+template <class T>
+inline Scan<T> carve_scan(void* scratch, long long tiles) {
+  char* p = static_cast<char*>(scratch);
+  Scan<T> s;
+  s.counter = reinterpret_cast<unsigned long long*>(p);
+  s.status = reinterpret_cast<int*>(p + align_up(8));
+  p += scan_reset_bytes(tiles);
+  s.aggs = reinterpret_cast<T*>(p);
+  s.incl = reinterpret_cast<T*>(p + align_up(tiles * sizeof(T)));
+  return s;
+}
+
+// Claims the block's tile; every thread gets its number.
+__device__ __forceinline__ long long claim_tile(unsigned long long* counter) {
+  __shared__ long long tile;
+  if (threadIdx.x == 0) tile = static_cast<long long>(atomicAdd(counter, 1ULL));
+  __syncthreads();
+  return tile;
+}
+
+// The tile's prefix (the combined value of all earlier tiles; identity
+// where the tile needs none) after publishing its aggregate, and its own
+// inclusive prefix published. self_contained: no row of the tile depends
+// on an earlier tile, so the aggregate is the inclusive prefix. Every
+// thread gets the prefix.
+template <class Op>
+__device__ typename Op::T tile_prefix(const Scan<typename Op::T>& s,
+                                      long long tile, bool self_contained,
+                                      const typename Op::T& total) {
+  using T = typename Op::T;
+  __shared__ T prefix;
+  if (threadIdx.x == 0) {
+    if (self_contained) {
+      publish(s.incl + tile, s.status + tile, total, 2);
+    } else {
+      publish(s.aggs + tile, s.status + tile, total, 1);
+    }
+  }
+  if (threadIdx.x < 32) {
+    T before = Op::identity();
+    if (!self_contained)
+      before = look_back<Op>(s.aggs, s.incl, s.status, 0, tile);
+    if (threadIdx.x == 0) {
+      prefix = before;
+      if (!self_contained)
+        publish(s.incl + tile, s.status + tile, Op::combine(before, total),
+                2);
+    }
+  }
+  __syncthreads();
+  return prefix;
 }
 
 }  // namespace pdp

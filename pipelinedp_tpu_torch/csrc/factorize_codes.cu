@@ -10,222 +10,357 @@
 // distinct count goes to n_unique.
 //
 // The JAX kernel sorts twice (by hash and row, then by first occurrence)
-// and scatters once. Here the wrapper sorts once, with C5 radix_sort over
-// the two lanes as int32 words: stable, so a run of equal hashes keeps its
-// rows in order and its head is the hash's first row. The signed order of
-// the words is not the uint64 order, but grouping needs only adjacency;
-// the sentinel is recognised by its bit pattern. Then, over the sorted
-// positions and the rows:
-//   1. head_counts / head_ids (a three-pass tile scan): a position is a
-//      head where its hash differs from the previous position's and is
-//      not the sentinel; each position learns uid, the hash-order id of
-//      its run, and each head writes its row to first_row[uid] and flags
-//      that row in row order (unique rows: one head per hash);
-//   2. flag_counts / flag_ranks (a second tile scan, in row order): the
-//      exclusive count of flagged rows before a row is its first-
-//      occurrence rank, so rank[first_row[u]] is hash u's code;
-//   3. assign: codes[perm[i]] = rank[first_row[uid[i]]], or -1.
+// and scatters once. Here no row is sorted: an open-addressing hash table
+// on the card keeps each distinct hash with its smallest row.
+//   1. insert_rows (one coalesced read of the rows): a row's 64-bit key
+//      (the two lanes joined) picks its home slot by a multiplicative hash
+//      and probes linearly, reading a slot's key and row in one 16-byte
+//      load. An empty slot holds the sentinel pattern, which data never
+//      holds (the host hash remaps uint64-max); a slot is claimed by
+//      atomicCAS on its key and its row kept by atomicMin, which runs only
+//      where the slot's row is larger (a hot key's later rows read and
+//      leave). Lanes of a warp holding the same key merge first
+//      (__match_any_sync): the lowest lane, the smallest row of the 32
+//      consecutive rows, touches the slot for all of them. Each row's slot
+//      (or none: a dropped row) is kept for pass 5. Probing stops after
+//      max_probes slots: the table was sized for fewer distinct hashes
+//      than the rows hold, the overflow flag is set and n_unique reports
+//      -1.
+//   2. flag_slots (one pass over the table): each occupied slot sets its
+//      smallest row's bit in a row bitmap and counts one distinct hash.
+//   3. scan_words: the exclusive prefix of the bitmap words' popcounts, one
+//      pass with a decoupled look-back (pdp::look_back).
+//   4. code_slots (the table again), where the table fits in half the
+//      L2: a slot's code is the number of flagged rows before its
+//      smallest row.
+//   5. assign_codes (the kept slots read coalesced): codes[i] = the code
+//      of row i's slot (read from the slot, or taken from its row and the
+//      bitmap where pass 4 did not run), or -1.
+// A key's smallest row is unique, so the codes and n_unique do not depend
+// on the order of the atomics, nor on which slot a key lands in.
 //
-// Bound: bytes. The rows are read once through the sort's permutation
-// (12 B a row, gathered), the codes written once; the scans add ~13 B a
-// row of scratch traffic and the sort its own passes.
+// The table has a power-of-two number of 16-byte slots, at least twice the
+// distinct count the host planned with (kernels.factorize_table_plan: the
+// ingest passes the count its unique merge already holds, else the rows
+// bound it), so the load factor stays at or below 1/2. The Netflix users'
+// table (2^20 slots, 16 MB) sits in the 50 MB L2; (q)'s 4.7M partition
+// hashes (2^24 slots) do not and probe at device-memory speed.
+//
+// Bound: bytes. The rows are read once (12 B a row) and the codes written
+// once (4 B); the table's memset, the slot kept a row (4 B written, 4 B
+// read) and the probes' sectors add the rest. Measured slower on the card:
+// no slot kept a row, pass 5 probing the table again from a second read of
+// the rows; on an L2-sized table, pass 5 reading the slot's row and the
+// bitmap with no pass 4; on (q)'s 268 MB one, pass 4; the slot's key and
+// row read apart.
 #include "common.cuh"
 
 namespace {
 
-constexpr uint32_t kSentinel = 0xffffffffu;
+constexpr unsigned long long kEmpty = ~0ull;  // the sentinel hash
+constexpr uint32_t kNoSlot = 0xffffffffu;
+constexpr unsigned long long kGolden = 0x9E3779B97F4A7C15ull;
+constexpr int kThreads = 256;
+constexpr int kScanItems = 8;                         // words a thread
+constexpr int kScanTile = kThreads * kScanItems;      // words a tile
 
-// Thread t of tile b takes the kItems consecutive positions starting here.
-__device__ __forceinline__ long long first_item() {
-  return static_cast<long long>(blockIdx.x) * pdp::kTile +
-         static_cast<long long>(threadIdx.x) * pdp::kItems;
+struct __align__(16) Slot {
+  unsigned long long key;  // kEmpty: free
+  uint32_t row;            // smallest row holding the key
+  int32_t code;            // its code, once pass 4 has run
+};
+
+struct Table {
+  Slot* slots;
+  uint32_t mask;  // capacity - 1
+  int shift;      // 64 - log2(capacity)
+  int max_probes;
+};
+
+// The scratch of one call: a memset to 0xff covers the slots, one to 0
+// the control words, the scan's state and the row bitmap; the rest is
+// written before it is read.
+struct Control {
+  int overflow;
+  int n_unique;
+};
+
+struct Scratch {
+  Slot* slots;
+  Control* control;
+  pdp::Scan<int> scan;
+  uint32_t* bits;      // one bit a row: a hash's smallest row
+  int* word_prefix;    // flagged rows before each bitmap word
+  uint32_t* slot_of;   // each row's slot, kNoSlot for a dropped row
+  size_t fill_bytes;   // the 0xff region (slots)
+  size_t zero_bytes;   // the 0 region after it
+};
+
+long long words_of(long long n) { return (n + 31) / 32; }
+long long scan_tiles(long long n) {
+  return (words_of(n) + kScanTile - 1) / kScanTile;
 }
 
-__device__ __forceinline__ bool is_sentinel(const uint32_t* rows,
-                                            long long r) {
-  return rows[3 * r] == kSentinel && rows[3 * r + 1] == kSentinel;
+Scratch carve(void* scratch, long long n, long long capacity) {
+  using pdp::align_up;
+  Scratch s;
+  char* p = static_cast<char*>(scratch);
+  s.fill_bytes = align_up(static_cast<size_t>(capacity) * sizeof(Slot));
+  s.slots = reinterpret_cast<Slot*>(p);
+  p += s.fill_bytes;
+  char* zero = p;
+  s.control = reinterpret_cast<Control*>(p);
+  p += align_up(sizeof(Control));
+  const long long tiles = scan_tiles(n);
+  s.scan = pdp::carve_scan<int>(p, tiles);
+  p += pdp::scan_bytes<int>(tiles);
+  s.bits = reinterpret_cast<uint32_t*>(p);
+  p += align_up(static_cast<size_t>(words_of(n)) * 4);
+  // Zeroed: the control words, the scan's counter and status words (its
+  // published values between them and the bitmap along) and the bitmap.
+  s.zero_bytes = static_cast<size_t>(p - zero);
+  s.word_prefix = reinterpret_cast<int*>(p);
+  p += align_up(static_cast<size_t>(words_of(n)) * 4);
+  s.slot_of = reinterpret_cast<uint32_t*>(p);
+  return s;
 }
 
-// Sorted position i starts a run of a real (non-sentinel) hash.
-__device__ __forceinline__ bool is_head(const uint32_t* __restrict__ rows,
-                                        const long long* __restrict__ perm,
-                                        long long i) {
-  const long long r = perm[i];
-  const uint32_t h = rows[3 * r], l = rows[3 * r + 1];
-  if (h == kSentinel && l == kSentinel) return false;
-  if (i == 0) return true;
-  const long long q = perm[i - 1];
-  return rows[3 * q] != h || rows[3 * q + 1] != l;
+size_t scratch_bytes(long long n, long long capacity) {
+  using pdp::align_up;
+  return align_up(static_cast<size_t>(capacity) * sizeof(Slot)) +
+         align_up(sizeof(Control)) + pdp::scan_bytes<int>(scan_tiles(n)) +
+         2 * align_up(static_cast<size_t>(words_of(n)) * 4) +
+         align_up(static_cast<size_t>(n) * 4);
 }
 
-__global__ void head_counts(const uint32_t* __restrict__ rows,
-                            const long long* __restrict__ perm, long long n,
-                            long long* __restrict__ aggs) {
-  __shared__ long long smem[32];
-  const long long base = first_item();
-  long long c = 0;
-#pragma unroll
-  for (int j = 0; j < pdp::kItems; ++j) {
-    const long long i = base + j;
-    if (i < n && is_head(rows, perm, i)) ++c;
-  }
-  long long total;
-  pdp::block_exclusive_scan<pdp::SumOp<long long>>(c, smem, &total);
-  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
+__device__ __forceinline__ int load_volatile(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
 }
 
-__global__ void head_ids(const uint32_t* __restrict__ rows,
-                         const long long* __restrict__ perm, long long n,
-                         const long long* __restrict__ prefixes,
-                         int32_t* __restrict__ uid,
-                         int32_t* __restrict__ first_row,
-                         uint8_t* __restrict__ row_flag) {
-  __shared__ long long smem[32];
-  const long long base = first_item();
-  bool head[pdp::kItems];
-  long long c = 0;
-#pragma unroll
-  for (int j = 0; j < pdp::kItems; ++j) {
-    const long long i = base + j;
-    head[j] = i < n && is_head(rows, perm, i);
-    c += head[j];
-  }
-  long long total;
-  const long long excl =
-      pdp::block_exclusive_scan<pdp::SumOp<long long>>(c, smem, &total);
-  // The id of the last head before this thread's positions (-1: none).
-  long long u = prefixes[blockIdx.x] + excl - 1;
-#pragma unroll
-  for (int j = 0; j < pdp::kItems; ++j) {
-    const long long i = base + j;
-    if (i >= n) break;
-    if (head[j]) {
-      ++u;
-      const long long r = perm[i];
-      first_row[u] = static_cast<int32_t>(r);
-      row_flag[r] = 1;
+// The key's slot after claiming it or finding it, with `row` kept if it is
+// the smallest so far; kNoSlot after max_probes slots (overflow set).
+__device__ uint32_t insert(const Table& t, unsigned long long key,
+                           uint32_t row, int* overflow) {
+  uint32_t s = static_cast<uint32_t>((key * kGolden) >> t.shift);
+  for (int probe = 0; probe < t.max_probes; ++probe, s = (s + 1) & t.mask) {
+    Slot* slot = t.slots + s;
+    // Key and row in one 16-byte read from L2.
+    const ulonglong2 seen =
+        __ldcg(reinterpret_cast<const ulonglong2*>(slot));
+    unsigned long long k = seen.x;
+    uint32_t kept = static_cast<uint32_t>(seen.y);
+    if (k == kEmpty) {
+      k = atomicCAS(&slot->key, kEmpty, key);
+      if (k == kEmpty) {
+        atomicMin(&slot->row, row);
+        return s;
+      }
+      kept = 0xffffffffu;  // read before the key was claimed
     }
-    uid[i] = static_cast<int32_t>(u);
+    if (k == key) {
+      if (kept > row) atomicMin(&slot->row, row);
+      return s;
+    }
+    // A long probe stops once any thread has found the table too small.
+    if ((probe & 63) == 63 && load_volatile(overflow)) return kNoSlot;
   }
+  atomicExch(overflow, 1);
+  return kNoSlot;
 }
 
-__global__ void flag_counts(const uint8_t* __restrict__ row_flag, long long n,
-                            long long* __restrict__ aggs) {
-  __shared__ long long smem[32];
-  const long long base = first_item();
-  long long c = 0;
+__global__ void __launch_bounds__(kThreads)
+    insert_rows(const uint32_t* __restrict__ rows, long long n, Table t,
+                int* __restrict__ overflow, uint32_t* __restrict__ slot_of) {
+  __shared__ uint32_t staged[3 * kThreads];
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads;
+       base < n; base += stride) {
+    // The block's 256 rows (768 words) read coalesced.
+    const long long words = 3 * (n - base < kThreads ? n - base : kThreads);
+    __syncthreads();
 #pragma unroll
-  for (int j = 0; j < pdp::kItems; ++j) {
-    const long long i = base + j;
-    if (i < n) c += row_flag[i];
+    for (int k = 0; k < 3; ++k) {
+      const int w = threadIdx.x + k * kThreads;
+      if (w < words) staged[w] = __ldcs(rows + 3 * base + w);
+    }
+    __syncthreads();
+    const long long i = base + threadIdx.x;
+    const bool in = i < n;
+    const uint32_t hi = in ? staged[3 * threadIdx.x] : 0xffffffffu;
+    const uint32_t lo = in ? staged[3 * threadIdx.x + 1] : 0xffffffffu;
+    const bool valid = in && staged[3 * threadIdx.x + 2] == 1u;
+    const unsigned long long key =
+        (static_cast<unsigned long long>(hi) << 32) | lo;
+    const bool real = key != kEmpty;
+    const unsigned active = __ballot_sync(pdp::kFullMask, real);
+    uint32_t slot = kNoSlot;
+    int leader = lane;
+    if (real) {
+      // Lanes hold consecutive rows: the lowest lane of a key has its
+      // smallest row here.
+      const unsigned peers = __match_any_sync(active, key);
+      leader = __ffs(peers) - 1;
+      if (lane == leader)
+        slot = insert(t, key, static_cast<uint32_t>(i), overflow);
+    }
+    slot = __shfl_sync(pdp::kFullMask, slot, leader);
+    if (in) __stcs(slot_of + i, real && valid ? slot : kNoSlot);
   }
-  long long total;
-  pdp::block_exclusive_scan<pdp::SumOp<long long>>(c, smem, &total);
-  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
 }
 
-__global__ void flag_ranks(const uint8_t* __restrict__ row_flag, long long n,
-                           const long long* __restrict__ prefixes,
-                           int32_t* __restrict__ rank) {
-  __shared__ long long smem[32];
-  const long long base = first_item();
-  uint8_t f[pdp::kItems];
-  long long c = 0;
+__global__ void __launch_bounds__(kThreads)
+    flag_slots(const Slot* __restrict__ slots, long long capacity,
+               uint32_t* __restrict__ bits, Control* __restrict__ control) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  int count = 0;
+  for (long long s = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       s < capacity; s += stride) {
+    const Slot slot = slots[s];
+    if (slot.key == kEmpty) continue;
+    atomicOr(bits + (slot.row >> 5), 1u << (slot.row & 31));
+    ++count;
+  }
+  count = __reduce_add_sync(pdp::kFullMask, count);
+  if ((threadIdx.x & 31) == 0 && count) atomicAdd(&control->n_unique, count);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    scan_words(const uint32_t* __restrict__ bits, long long n_words,
+               pdp::Scan<int> scan, int* __restrict__ word_prefix) {
+  __shared__ int smem[32];
+  const long long tile = pdp::claim_tile(scan.counter);
+  const long long first = tile * kScanTile + threadIdx.x * kScanItems;
+  int c[kScanItems];
+  int acc = 0;
 #pragma unroll
-  for (int j = 0; j < pdp::kItems; ++j) {
-    const long long i = base + j;
-    f[j] = i < n ? row_flag[i] : 0;
-    c += f[j];
+  for (int k = 0; k < kScanItems; ++k) {
+    c[k] = first + k < n_words ? __popc(bits[first + k]) : 0;
+    acc += c[k];
   }
-  long long total;
-  long long before =
-      prefixes[blockIdx.x] +
-      pdp::block_exclusive_scan<pdp::SumOp<long long>>(c, smem, &total);
+  int total;
+  const int excl =
+      pdp::block_exclusive_scan<pdp::SumOp<int>>(acc, smem, &total);
+  int before =
+      pdp::tile_prefix<pdp::SumOp<int>>(scan, tile, tile == 0, total) + excl;
 #pragma unroll
-  for (int j = 0; j < pdp::kItems; ++j) {
-    const long long i = base + j;
-    if (i >= n) break;
-    rank[i] = static_cast<int32_t>(before);
-    before += f[j];
+  for (int k = 0; k < kScanItems; ++k) {
+    if (first + k < n_words) word_prefix[first + k] = before;
+    before += c[k];
   }
 }
 
-__global__ void assign(const uint32_t* __restrict__ rows,
-                       const long long* __restrict__ perm, long long n,
-                       const int32_t* __restrict__ uid,
-                       const int32_t* __restrict__ first_row,
-                       const int32_t* __restrict__ rank,
-                       const long long* __restrict__ n_heads,
-                       int32_t* __restrict__ codes,
-                       int32_t* __restrict__ n_unique) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i == 0) *n_unique = static_cast<int32_t>(*n_heads);
-  if (i >= n) return;
-  const long long r = perm[i];
-  if (is_sentinel(rows, r) || rows[3 * r + 2] != 1u) {
-    codes[r] = -1;
-    return;
+// Each occupied slot's code: the flagged rows before its smallest row.
+__global__ void __launch_bounds__(kThreads)
+    code_slots(Slot* __restrict__ slots, long long capacity,
+               const uint32_t* __restrict__ bits,
+               const int* __restrict__ word_prefix) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long s = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       s < capacity; s += stride) {
+    if (slots[s].key == kEmpty) continue;
+    const uint32_t r = slots[s].row, w = r >> 5;
+    slots[s].code =
+        word_prefix[w] + __popc(bits[w] & ((1u << (r & 31)) - 1u));
   }
-  codes[r] = rank[first_row[uid[i]]];
 }
 
-constexpr long long kAlign = 256;
+// kCoded: the slots hold their codes (pass 4 ran); else a row's code is
+// taken from its slot's row and the bitmap here.
+template <bool kCoded>
+__global__ void __launch_bounds__(kThreads)
+    assign_codes(const uint32_t* __restrict__ slot_of, long long n,
+                 const Slot* __restrict__ slots,
+                 const uint32_t* __restrict__ bits,
+                 const int* __restrict__ word_prefix,
+                 const Control* __restrict__ control,
+                 int32_t* __restrict__ codes, int32_t* __restrict__ n_unique) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (first == 0)
+    *n_unique = control->overflow ? -1 : control->n_unique;
+  for (long long i = first; i < n; i += stride) {
+    const uint32_t s = __ldcs(slot_of + i);
+    int32_t code = -1;
+    if (s != kNoSlot) {
+      if constexpr (kCoded) {
+        code = slots[s].code;
+      } else {
+        const uint32_t r = slots[s].row, w = r >> 5;
+        code = word_prefix[w] + __popc(bits[w] & ((1u << (r & 31)) - 1u));
+      }
+    }
+    __stcs(codes + i, code);
+  }
+}
 
-long long aligned(long long bytes) {
-  return (bytes + kAlign - 1) / kAlign * kAlign;
+// Pass 4 runs where the table fits in half the card's L2: there a row's
+// slot is an L2 hit and one read of its code replaces three dependent
+// ones. A larger table's slots come from device memory either way, and a
+// pass over all of it costs more than it saves.
+bool coded_table(size_t table_bytes) {
+  int device = 0, l2 = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device);
+  return table_bytes <= static_cast<size_t>(l2) / 2;
+}
+
+unsigned grid_for(long long count) {
+  const long long blocks = (count + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks < 8192 ? blocks : 8192);
 }
 
 }  // namespace
 
-// Scratch for n rows: two tile-aggregate arrays (each with its total),
-// uid / first_row / rank (int32[n] each) and row_flag (u8[n]).
-extern "C" long long factorize_codes_scratch_bytes(long long n) {
-  const long long aggs = aligned((pdp::n_tiles(n) + 1) * 8);
-  return 2 * aggs + 3 * aligned(4 * n) + aligned(n);
+// Scratch for n rows and a table of `capacity` slots.
+extern "C" long long factorize_codes_scratch_bytes(long long n,
+                                                   long long capacity) {
+  return static_cast<long long>(scratch_bytes(n, capacity));
 }
 
-// rows: uint32[n, 3] (hash_hi, hash_lo, valid); perm: int64[n], the stable
-// order of the rows by (hash_hi, hash_lo); codes: int32[n]; n_unique: one
-// int32. n < 2^31.
-extern "C" int factorize_codes(const void* rows, const void* perm, long long n,
+// rows: uint32[n, 3] (hash_hi, hash_lo, valid); capacity: the table's
+// slots, a power of two >= 2 (kernels.factorize_table_plan), max_probes:
+// the probes a key may take; codes: int32[n]; n_unique: one int32, -1
+// where the table overflowed (the codes are then undefined). n < 2^31.
+extern "C" int factorize_codes(const void* rows, long long n,
+                               long long capacity, int max_probes,
                                void* scratch, void* codes, void* n_unique,
                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0) {
-    cudaMemsetAsync(n_unique, 0, sizeof(int32_t), s);
+    cudaMemsetAsync(n_unique, 0, sizeof(int32_t), st);
     return static_cast<int>(cudaGetLastError());
   }
-  const long long tiles = pdp::n_tiles(n);
-  char* p = static_cast<char*>(scratch);
-  long long* head_aggs = reinterpret_cast<long long*>(p);
-  p += aligned((tiles + 1) * 8);
-  long long* flag_aggs = reinterpret_cast<long long*>(p);
-  p += aligned((tiles + 1) * 8);
-  int32_t* uid = reinterpret_cast<int32_t*>(p);
-  p += aligned(4 * n);
-  int32_t* first_row = reinterpret_cast<int32_t*>(p);
-  p += aligned(4 * n);
-  int32_t* rank = reinterpret_cast<int32_t*>(p);
-  p += aligned(4 * n);
-  uint8_t* row_flag = reinterpret_cast<uint8_t*>(p);
-
-  const uint32_t* r = static_cast<const uint32_t*>(rows);
-  const long long* pm = static_cast<const long long*>(perm);
-  const unsigned grid = static_cast<unsigned>(tiles);
-  cudaMemsetAsync(row_flag, 0, static_cast<size_t>(n), s);
-  head_counts<<<grid, pdp::kThreads, 0, s>>>(r, pm, n, head_aggs);
-  pdp::scan_tile_aggregates<pdp::SumOp<long long>><<<1, 1024, 0, s>>>(
-      head_aggs, tiles, head_aggs + tiles);
-  head_ids<<<grid, pdp::kThreads, 0, s>>>(r, pm, n, head_aggs, uid, first_row,
-                                          row_flag);
-  flag_counts<<<grid, pdp::kThreads, 0, s>>>(row_flag, n, flag_aggs);
-  pdp::scan_tile_aggregates<pdp::SumOp<long long>><<<1, 1024, 0, s>>>(
-      flag_aggs, tiles, flag_aggs + tiles);
-  flag_ranks<<<grid, pdp::kThreads, 0, s>>>(row_flag, n, flag_aggs, rank);
-  constexpr int kBlock = 256;
-  assign<<<static_cast<unsigned>((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
-      r, pm, n, uid, first_row, rank, head_aggs + tiles,
-      static_cast<int32_t*>(codes), static_cast<int32_t*>(n_unique));
+  if (capacity < 2 || (capacity & (capacity - 1)) != 0 || max_probes < 1 ||
+      capacity > (1ll << 32))
+    return -1;
+  Scratch s = carve(scratch, n, capacity);
+  Table t{s.slots, static_cast<uint32_t>(capacity - 1),
+          64 - (63 - __builtin_clzll(static_cast<unsigned long long>(
+                         capacity))),
+          max_probes};
+  cudaMemsetAsync(s.slots, 0xff, s.fill_bytes, st);
+  cudaMemsetAsync(s.control, 0, s.zero_bytes, st);
+  insert_rows<<<grid_for(n), kThreads, 0, st>>>(
+      static_cast<const uint32_t*>(rows), n, t, &s.control->overflow,
+      s.slot_of);
+  flag_slots<<<grid_for(capacity), kThreads, 0, st>>>(s.slots, capacity,
+                                                      s.bits, s.control);
+  scan_words<<<static_cast<unsigned>(scan_tiles(n)), kThreads, 0, st>>>(
+      s.bits, words_of(n), s.scan, s.word_prefix);
+  if (coded_table(s.fill_bytes)) {
+    code_slots<<<grid_for(capacity), kThreads, 0, st>>>(
+        s.slots, capacity, s.bits, s.word_prefix);
+    assign_codes<true><<<grid_for(n), kThreads, 0, st>>>(
+        s.slot_of, n, s.slots, s.bits, s.word_prefix, s.control,
+        static_cast<int32_t*>(codes), static_cast<int32_t*>(n_unique));
+  } else {
+    assign_codes<false><<<grid_for(n), kThreads, 0, st>>>(
+        s.slot_of, n, s.slots, s.bits, s.word_prefix, s.control,
+        static_cast<int32_t*>(codes), static_cast<int32_t*>(n_unique));
+  }
   return static_cast<int>(cudaGetLastError());
 }

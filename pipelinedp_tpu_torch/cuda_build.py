@@ -143,8 +143,8 @@ _SIGNATURES = {
         "gather_rows": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P]),
     },
     "factorize_codes": {
-        "factorize_codes_scratch_bytes": (_LL, [_LL]),
-        "factorize_codes": (_I, [_P, _P, _LL, _P, _P, _P, _P]),
+        "factorize_codes_scratch_bytes": (_LL, [_LL, _LL]),
+        "factorize_codes": (_I, [_P, _LL, _LL, _I, _P, _P, _P, _P]),
     },
     "lookup_codes": {
         "lookup_codes": (_I, [_P, _LL, _P, _LL, _P, _P, _P]),

@@ -5,7 +5,7 @@ six contribution histograms of integer-encoded (pid, pk, value) columns.
 Three C5 radix sorts order the rows by (pid, pk), by pk, and the pair
 starts by pk (invalid rows carry INT32_MAX keys and sink); C17 group_stats
 takes the per-pair, per-pid and per-partition statistics from the sorted
-streams; C18 log_bins bins them (five 3-leading-digit integer histograms
+streams, reading each sort's sorted first key; C18 log_bins bins them (five 3-leading-digit integer histograms
 and one float32 histogram of 10,000 equal-width buckets), so only O(bins)
 values come back to the host.
 
@@ -36,15 +36,20 @@ from pipelinedp_tpu_torch.dataset_histograms import histograms as hist
 def group_stats(pid: torch.Tensor, pk: torch.Tensor,
                 values: Optional[torch.Tensor], valid: torch.Tensor):
     """The six stat columns with their masks, {name: (stat, mask)}, each in
-    the order of its own sort: C5 three times, C17 three times."""
+    the order of its own sort: C5 three times, C17 three times, each C17
+    reading its sort's sorted first key (sorted_top)."""
     pk_sunk = kernels.sunk_keys(pk, valid)
-    perm = kernels.radix_sort([kernels.sunk_keys(pid, valid), pk_sunk])
-    pairs = kernels.group_stats_pairs(pid, pk, values, valid, perm)
-    new_pk, count_per_pk = kernels.group_stats_keys(
-        pk_sunk, valid, kernels.radix_sort([pk_sunk]))
+    perm, spid = kernels.radix_sort([kernels.sunk_keys(pid, valid), pk_sunk],
+                                    sorted_top=True)
+    pairs = kernels.group_stats_pairs(pid, pk, values, valid, perm,
+                                      sorted_pid=spid)
+    perm2, spk = kernels.radix_sort([pk_sunk], sorted_top=True)
+    new_pk, count_per_pk = kernels.group_stats_keys(pk_sunk, valid, perm2,
+                                                    sorted_keys=spk)
     pair_pk = pairs["pair_pk"]
+    perm3, spk3 = kernels.radix_sort([pair_pk], sorted_top=True)
     new_pk3, pids_per_pk = kernels.group_stats_keys(
-        pair_pk, pairs["new_pair"], kernels.radix_sort([pair_pk]))
+        pair_pk, pairs["new_pair"], perm3, sorted_keys=spk3)
     return {
         "l0": (pairs["l0"], pairs["new_pid"]),
         "l1": (pairs["l1"], pairs["new_pid"]),

@@ -7,11 +7,14 @@ encode_mode="hash_device" the chunk workers only hash raw keys to two
 the device through the row accumulator, and the dense integer codes are
 assigned there:
 
-  * ``kernels.factorize_codes`` (C12) sorts the hash rows once (C5) and
-    gives every row the first-occurrence rank of its hash: the codes the
-    host encoder assigns to the concatenated stream, so the hash-encoded
-    kernel inputs equal the host-encoded ones and release the same noise
-    (absent 128-bit collisions, which the detector below catches);
+  * ``kernels.factorize_codes`` (C12) gives every row the first-occurrence
+    rank of its hash without sorting: a hash table on the card keeps each
+    distinct hash's first row (sized by the distinct count the host merge
+    already holds), and a scan of those rows in row order ranks them.
+    These are the codes the host encoder assigns to the concatenated
+    stream, so the hash-encoded kernel inputs equal the host-encoded ones
+    and release the same noise (absent 128-bit collisions, which the
+    detector below catches);
   * ``kernels.lookup_codes`` (C13) gives the same codes by searching each
     row's hash in the table the host already merged from the chunks'
     uniques (build_lookup_table).

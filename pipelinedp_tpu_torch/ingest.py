@@ -728,19 +728,24 @@ def _finalize_hash_codes(pid_hash, pk_col, values, public: bool,
                          partition_vocab, pid_table,
                          pk_table) -> columnar.EncodedData:
     """The device codes and the deferred-decode vocabulary of the hash
-    route: C12 factorize on the card, C13 lookup against the host-merged
-    tables on the CPU (device_encode.prefers_lookup_codes); the same
-    codes either way."""
+    route: C12 factorize on the card (its table sized by the host-merged
+    distinct counts), C13 lookup against the host-merged tables on the CPU
+    (device_encode.prefers_lookup_codes); the same codes either way. The
+    device's distinct counts must equal the host merge's: a mismatch (or
+    C12's -1, a table too small for the count it was given) raises, with
+    no retry and no fallback."""
     device = pid_hash.device
     lookup = device_encode.prefers_lookup_codes(device)
+    n_pid = pid_table[2]
     if lookup:
         pid_codes = kernels.lookup_codes(
             pid_hash, *device_encode.build_lookup_table(
                 pid_table[0], pid_table[3], device))
-        counts = [pid_table[2]]
-    else:
-        pid_codes, n_pid = kernels.factorize_codes(pid_hash)
         counts = [n_pid]
+    else:
+        pid_codes, n_pid_dev = kernels.factorize_codes(pid_hash,
+                                                       n_distinct=n_pid)
+        counts = [n_pid_dev]
     if public:
         vocab = partition_vocab
         pk = pk_col
@@ -750,7 +755,7 @@ def _finalize_hash_codes(pid_hash, pk_col, values, public: bool,
             pk = kernels.lookup_codes(
                 pk_col, *device_encode.build_lookup_table(s1, pos, device))
         else:
-            pk, n_pk_dev = kernels.factorize_codes(pk_col)
+            pk, n_pk_dev = kernels.factorize_codes(pk_col, n_distinct=n_pk)
             counts.append(n_pk_dev)
         # The code order (global first occurrence) follows from the chunk
         # uniques' positions: decoding copies nothing from the device.
@@ -760,11 +765,19 @@ def _finalize_hash_codes(pid_hash, pk_col, values, public: bool,
     if not lookup:
         # One copy of the device counts.
         counts = torch.stack(counts).cpu().tolist()
-        if not public and counts[1] != n_pk:
-            raise RuntimeError(
-                f"device factorize found {counts[1]} distinct partition "
-                f"hashes but the host unique merge found {n_pk} (internal "
-                f"invariant)")
+        host = [("privacy-id", n_pid)] + ([] if public else
+                                          [("partition", n_pk)])
+        for (what, host_n), dev_n in zip(host, counts):
+            if dev_n == -1:
+                raise RuntimeError(
+                    f"device factorize of the {what} hashes overflowed its "
+                    f"table, sized for the {host_n} distinct hashes of the "
+                    f"host unique merge (internal invariant)")
+            if dev_n != host_n:
+                raise RuntimeError(
+                    f"device factorize found {dev_n} distinct {what} hashes "
+                    f"but the host unique merge found {host_n} (internal "
+                    f"invariant)")
     # Pad rows code to -1; the pad_rows convention is pid 0.
     return columnar.EncodedData(pid=pid_codes.clamp(min=0), pk=pk,
                                 values=values, partition_vocab=vocab,

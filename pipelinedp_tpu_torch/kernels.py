@@ -33,7 +33,9 @@ their plain PyTorch versions.
     C11 gather_rows       csrc/gather_rows.cu        columns gathered through one
                                                      index (host-staged survivors)
     C12 factorize_codes   csrc/factorize_codes.cu    first-occurrence codes of key
-                                                     hashes (after a C5 sort)
+                                                     hashes: a hash table of
+                                                     each hash's first row, no
+                                                     sort
     C13 lookup_codes      csrc/lookup_codes.cu       the same codes by a search of
                                                      the host-merged hash table
     C14 append_rows       csrc/append_rows.cu        the streamed row buffers: pad
@@ -45,8 +47,10 @@ their plain PyTorch versions.
     C16 log_spectrum      csrc/log_spectrum.cu       weighted sum of log spectra,
                                                      its exp (log_spectrum_*)
     C17 group_stats       csrc/group_stats.cu        pair / pid / key statistics
-                                                     of C5-sorted rows
-                                                     (group_stats_pairs, _keys)
+                                                     of C5-sorted rows, reading
+                                                     C5's sorted key (group_
+                                                     stats_pairs, _keys): one
+                                                     pass, a look-back
     C18 log_bins          csrc/log_bins.cu           log-binned int and equal-
                                                      width float histograms
                                                      (log_bins_int, _float)
@@ -111,10 +115,11 @@ or launch raises. Outputs and scratch are allocated here with torch; the
 kernels allocate nothing. `launch_counts` counts wrapper calls that
 launched a kernel, under the name of the kernel's source, or of its
 compensated / secure / lane entry (C6's tile scan issues three CUDA
-launches, C2 and C3 one after their memsets (C3 one per four coordinates
-of a vector sum), a radix sort one a digit pass after a memset, the masks'
-launch and copy and one digit-start launch, C15 one a pass of its plan and
-one for the split); its increments are thread-safe, as the
+launches, C2, C3 and C17 one after their memsets (C3 one per four
+coordinates of a vector sum), C12 four or five after two memsets, a radix
+sort one a digit pass after a memset, the masks' launch and copy and one
+digit-start launch, C15 one a pass of its plan and one for the split); its
+increments are thread-safe, as the
 service's workers launch concurrently. No wrapper or kernel keeps host or
 device scratch between calls.
 """
@@ -1756,27 +1761,59 @@ def _dropped_rows(rows: torch.Tensor) -> torch.Tensor:
 # C12 factorize_codes
 
 
-def factorize_codes(rows: torch.Tensor):
+FACTORIZE_MIN_SLOTS = 64
+# Slots a key probes before C12 reports its table too small. At a load of
+# 1/2 a linear-probe run that long has odds of about 0.82^1024 a row.
+FACTORIZE_MAX_PROBES = 1024
+
+
+def factorize_table_plan(n: int,
+                         n_distinct: Optional[int] = None) -> Tuple[int, int]:
+    """C12's hash table for n hash rows: (slots, probe bound). The slots are
+    the smallest power of two holding twice the distinct hashes (n_distinct,
+    the count the ingest's unique merge already holds, else n, which bounds
+    it; at least FACTORIZE_MIN_SLOTS), so the table is at most half full; a
+    key probes at most min(slots, FACTORIZE_MAX_PROBES) slots before the
+    kernel reports the table too small. n_distinct: a non-negative int."""
+    if n_distinct is not None and (
+            isinstance(n_distinct, bool) or
+            not isinstance(n_distinct, (int, np.integer)) or n_distinct < 0):
+        raise ValueError(f"factorize_codes: n_distinct must be a "
+                         f"non-negative int or None, got {n_distinct!r}")
+    keys = n if n_distinct is None else min(int(n_distinct), n)
+    slots = max(FACTORIZE_MIN_SLOTS, 1 << (2 * max(1, keys) - 1).bit_length())
+    return slots, min(slots, FACTORIZE_MAX_PROBES)
+
+
+def factorize_codes(rows: torch.Tensor, n_distinct: Optional[int] = None):
     """First-occurrence dense codes of the rows' 64-bit key hashes: a row's
     code is the rank of its hash among the distinct non-sentinel hashes
     ordered by first row, valid rows or not; sentinel and invalid rows
     code to -1 (the JAX package's device_encode.factorize_codes).
 
-    One C5 sort of the two hash lanes (as int32 words: grouping needs only
-    adjacency), then C12's scans. Returns (codes int32[n], n_unique int32[]
-    on the rows' device)."""
+    On the card: no sort; a hash table keeps each distinct hash with its
+    smallest row (factorize_table_plan sizes it from n_distinct, the
+    distinct count the caller already knows, else from the rows), then a
+    row bitmap of those smallest rows, its look-back scan and one pass
+    writing the codes. Returns (codes int32[n], n_unique int32[] on the
+    rows' device); on the card n_unique is -1 where n_distinct was too
+    small for the table to hold every distinct hash (the codes are then
+    undefined: the caller raises). The plain version validates n_distinct
+    and otherwise ignores it."""
     _check_hash_rows(rows)
+    n = rows.shape[0]
+    slots, probes = factorize_table_plan(n, n_distinct)
     if not _on_cuda(rows):
         return factorize_codes_plain(rows)
-    n = rows.shape[0]
+    if n >= 1 << 31:
+        raise ValueError(f"factorize_codes: {n} rows exceed 2^31")
     dev = rows.device
-    perm = radix_sort([rows[:, 0].contiguous(), rows[:, 1].contiguous()])
     lib = cuda_build.library("factorize_codes")
-    scratch = torch.empty(max(1, lib.factorize_codes_scratch_bytes(n)),
+    scratch = torch.empty(max(1, lib.factorize_codes_scratch_bytes(n, slots)),
                           dtype=torch.uint8, device=dev)
     codes = torch.empty(n, dtype=torch.int32, device=dev)
     n_unique = torch.empty((), dtype=torch.int32, device=dev)
-    status = lib.factorize_codes(_ptr(rows), _ptr(perm), n, _ptr(scratch),
+    status = lib.factorize_codes(_ptr(rows), n, slots, probes, _ptr(scratch),
                                  _ptr(codes), _ptr(n_unique), _stream(dev))
     _raise_on(status, "factorize_codes")
     _count("factorize_codes")
@@ -2274,22 +2311,32 @@ def sunk_keys(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def group_stats_pairs(pid: torch.Tensor, pk: torch.Tensor,
                       values: Optional[torch.Tensor], valid: torch.Tensor,
-                      perm: torch.Tensor) -> Dict[str, torch.Tensor]:
+                      perm: torch.Tensor,
+                      sorted_pid: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
     """The per-pair and per-pid statistics of rows sorted by (pid, pk)
     (perm: the stable order with invalid rows' keys at INT32_MAX), in
     sorted order, each at its group's first row and 0 elsewhere: new_pair,
     new_pid (bool), pair_len, l1, l0 (int32), pair_sum (float32, added in
     row order from 0), pair_pk (the pk of each pair start, INT32_MAX
     elsewhere) (C17's pairs entry). pid, pk int32[n]; values float32[n] or
-    None (sums 0); valid bool[n]; perm int64[n]."""
+    None (sums 0); valid bool[n]; perm int64[n]; sorted_pid:
+    sunk_keys(pid, valid)[perm], the sort's sorted_top, which the kernel
+    reads in place of a gather of pid (required on the card; the plain
+    version checks its shape only)."""
     n = pid.shape[0]
     _check(pid, torch.int32, n, "pid")
     _check(pk, torch.int32, n, "pk")
     _check(values, torch.float32, n, "values")
     _check(valid, torch.bool, n, "valid")
     _check(perm, torch.int64, n, "perm")
-    if not _on_cuda(pid, pk, values, valid, perm):
+    _check(sorted_pid, torch.int32, n, "sorted_pid")
+    if not _on_cuda(pid, pk, values, valid, perm, sorted_pid):
         return group_stats_pairs_plain(pid, pk, values, valid, perm)
+    if sorted_pid is None:
+        raise ValueError("group_stats_pairs: on the card sorted_pid "
+                         "(sunk_keys(pid, valid)[perm], the sort's "
+                         "sorted_top) is required")
     dev = pid.device
     lib = cuda_build.library("group_stats")
     scratch = torch.empty(max(1, lib.group_stats_scratch_bytes(n)),
@@ -2299,8 +2346,8 @@ def group_stats_pairs(pid: torch.Tensor, pk: torch.Tensor,
                torch.bool, torch.bool, torch.int32, torch.float32,
                torch.int32, torch.int32, torch.int32))}
     status = lib.group_stats_pairs(
-        _ptr(pid), _ptr(pk), _ptr(values), _ptr(valid), _ptr(perm), n,
-        _ptr(scratch), *[_ptr(out[name]) for name in PAIR_STATS],
+        _ptr(perm), _ptr(sorted_pid), _ptr(pk), _ptr(values), _ptr(valid),
+        n, _ptr(scratch), *[_ptr(out[name]) for name in PAIR_STATS],
         _stream(dev))
     _raise_on(status, "group_stats")
     _count("group_stats")
@@ -2345,25 +2392,32 @@ def group_stats_pairs_plain(pid, pk, values, valid, perm):
 
 
 def group_stats_keys(keys: torch.Tensor, valid: torch.Tensor,
-                     perm: torch.Tensor):
+                     perm: torch.Tensor,
+                     sorted_keys: Optional[torch.Tensor] = None):
     """The first valid row of each key of a stream sorted by `keys` (perm:
     the stable order) and that key's run length there, 0 elsewhere, in
     sorted order: (new_seg bool[n], seg_len int32[n]) (C17's keys entry).
-    Every invalid row is a run of its own."""
+    Every invalid row is a run of its own. sorted_keys: keys[perm], the
+    sort's sorted_top, which the kernel reads in place of a gather of keys
+    (required on the card; the plain version checks its shape only)."""
     n = keys.shape[0]
     _check(keys, torch.int32, n, "keys")
     _check(valid, torch.bool, n, "valid")
     _check(perm, torch.int64, n, "perm")
-    if not _on_cuda(keys, valid, perm):
+    _check(sorted_keys, torch.int32, n, "sorted_keys")
+    if not _on_cuda(keys, valid, perm, sorted_keys):
         return group_stats_keys_plain(keys, valid, perm)
+    if sorted_keys is None:
+        raise ValueError("group_stats_keys: on the card sorted_keys "
+                         "(keys[perm], the sort's sorted_top) is required")
     dev = keys.device
     lib = cuda_build.library("group_stats")
     scratch = torch.empty(max(1, lib.group_stats_scratch_bytes(n)),
                           dtype=torch.uint8, device=dev)
     new_seg = torch.empty(n, dtype=torch.bool, device=dev)
     seg_len = torch.empty(n, dtype=torch.int32, device=dev)
-    status = lib.group_stats_keys(_ptr(keys), _ptr(valid), _ptr(perm), n,
-                                  _ptr(scratch), _ptr(new_seg),
+    status = lib.group_stats_keys(_ptr(perm), _ptr(sorted_keys), _ptr(valid),
+                                  n, _ptr(scratch), _ptr(new_seg),
                                   _ptr(seg_len), _stream(dev))
     _raise_on(status, "group_stats")
     _count("group_stats")

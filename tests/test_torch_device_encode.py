@@ -312,3 +312,220 @@ def test_append_rows_rejects_bad_buffers():
         kernels.grow_rows([torch.zeros(4), torch.zeros(5)], 8, (0, 0))
     with pytest.raises(ValueError, match="new capacity"):
         kernels.grow_rows([torch.zeros(8)], 4, (0,))
+
+
+# C12's hash table (csrc/factorize_codes.cu) step by step in numpy.
+
+GOLDEN = 0x9E3779B97F4A7C15
+EMPTY = 2**64 - 1
+
+
+def model_factorize(rows: np.ndarray, slots: int, max_probes: int,
+                    order=None):
+    """The kernel's passes on uint32 (n, 3) rows, rows inserted in `order`
+    (default: row order; the atomics' order does not matter): insert with
+    the smallest row kept, each key probing linearly from its home slot
+    (the top bits of key * GOLDEN) at most max_probes slots; the row bitmap
+    of the slots' smallest rows; the exclusive prefix of its words'
+    popcounts; each slot's code; each row's code, -1 for a sentinel or
+    invalid row. Returns (codes, n_unique, or -1 where a key found no
+    slot)."""
+    n = len(rows)
+    keys = (rows[:, 0].astype(np.uint64) << np.uint64(32)) | \
+        rows[:, 1].astype(np.uint64)
+    shift = 64 - (slots.bit_length() - 1)
+    table_key = [EMPTY] * slots
+    table_row = [2**32 - 1] * slots
+    slot_of = np.full(n, -1)
+    overflow = False
+    for i in (range(n) if order is None else order):
+        key = int(keys[i])
+        if key == EMPTY:
+            continue
+        s = ((key * GOLDEN) % 2**64) >> shift
+        for _ in range(max_probes):
+            if table_key[s] == EMPTY:
+                table_key[s] = key
+            if table_key[s] == key:
+                table_row[s] = min(table_row[s], i)
+                slot_of[i] = s
+                break
+            s = (s + 1) % slots
+        else:
+            overflow = True
+    bits = np.zeros((n + 31) // 32, np.uint64)
+    occupied = [s for s in range(slots) if table_key[s] != EMPTY]
+    for s in occupied:
+        bits[table_row[s] >> 5] |= np.uint64(1 << (table_row[s] & 31))
+    popc = np.array([bin(int(w)).count("1") for w in bits], np.int64)
+    prefix = np.cumsum(popc) - popc
+    code = {s: int(prefix[table_row[s] >> 5]) + bin(
+        int(bits[table_row[s] >> 5]) & ((1 << (table_row[s] & 31)) - 1)
+    ).count("1") for s in occupied}
+    keep = (slot_of >= 0) & (rows[:, 2] == 1)
+    codes = np.array([code[s] if k else -1 for s, k in zip(slot_of, keep)],
+                     np.int32)
+    return codes, -1 if overflow else len(occupied)
+
+
+def adversarial_rows():
+    """Row sets the table must survive, as uint32 (n, 3) rows."""
+    rng = np.random.default_rng(18)
+    sentinel = np.uint64(EMPTY)
+
+    def packed(keys, valid=None):
+        return jax_device_encode.pack_hash_rows(
+            keys, np.ones(len(keys), bool) if valid is None else valid)
+
+    edge = np.array([(np.uint64(_U32) << np.uint64(32)) | np.uint64(5),
+                     sentinel - np.uint64(1), np.uint64(0),
+                     np.uint64(_U32)], np.uint64)
+    mixed = edge[rng.integers(0, 4, 600)]
+    mixed_rows = packed(mixed)
+    mixed_rows[::5] = _U32  # sentinel rows interleaved
+    claims = hash_rows(seed=19, n=900, n_keys=120, sentinel_every=4,
+                       invalid_every=3)
+    claims[1::7, 2] = 2  # a valid flag other than 0 / 1
+    return {
+        "one hash in every row": packed(np.full(700, np.uint64(12345))),
+        "every row distinct": packed(
+            rng.integers(0, 2**63, 800, dtype=np.uint64)),
+        "0xffffffff hi lane, sentinel - 1, sentinels interleaved":
+            mixed_rows,
+        "invalid rows claim slots": claims,
+    }
+
+
+ADVERSARIAL = adversarial_rows()
+
+
+@pytest.mark.parametrize("name", sorted(ADVERSARIAL))
+def test_factorize_plain_matches_jax_on_adversarial_rows(name):
+    rows = ADVERSARIAL[name]
+    want, want_n = jax_device_encode._factorize_kernel(jnp.asarray(rows))
+    real = ~((rows[:, 0] == _U32) & (rows[:, 1] == _U32))
+    n_distinct = len(np.unique(rows[real, :2], axis=0))
+    for hint in (None, n_distinct, n_distinct + 7):
+        codes, n_unique = kernels.factorize_codes(torch_rows(rows),
+                                                  n_distinct=hint)
+        np.testing.assert_array_equal(codes.numpy(), np.asarray(want))
+        assert int(n_unique) == int(want_n) == n_distinct
+        slots, probes = kernels.factorize_table_plan(len(rows), hint)
+        m_codes, m_n = model_factorize(rows, slots, probes)
+        np.testing.assert_array_equal(m_codes, np.asarray(want))
+        assert m_n == n_distinct
+
+
+@pytest.mark.parametrize("case", sorted(FACTORIZE_CASES))
+@pytest.mark.parametrize("hint", ["exact", "above", "none"])
+def test_hash_table_model_matches_jax(case, hint):
+    """The model in a table of at least twice the distinct count, as the
+    planner sizes it, and in a deliberately small one (the distinct count
+    rounded up to a power of two, at least 2: keys share home slots and
+    probe past each other), rows inserted in row order and shuffled."""
+    rows = hash_rows(**FACTORIZE_CASES[case])
+    want, want_n = jax_device_encode._factorize_kernel(jnp.asarray(rows))
+    want = np.asarray(want)
+    n_distinct = int(want_n)
+    given = {"exact": n_distinct, "above": 2 * n_distinct + 3,
+             "none": None}[hint]
+    planned = kernels.factorize_table_plan(len(rows), given)
+    small = max(2, 1 << max(0, (n_distinct - 1).bit_length()))
+    shuffled = np.random.default_rng(len(rows)).permutation(len(rows))
+    for slots, probes in (planned, (small, small)):
+        for order in (None, shuffled):
+            codes, n_unique = model_factorize(rows, slots, probes, order)
+            np.testing.assert_array_equal(codes, want)
+            assert n_unique == n_distinct
+
+
+def test_hash_table_model_overflows_a_table_too_small():
+    rows = hash_rows(seed=5, n=400, n_keys=200)
+    n_distinct = len(np.unique(rows[:, :2], axis=0))
+    slots = 1 << (n_distinct - 1).bit_length()
+    assert model_factorize(rows, slots, slots)[1] == n_distinct
+    assert model_factorize(rows, slots // 2, slots // 2)[1] == -1
+    # A bound shorter than the table: a key whose run is longer fails.
+    assert model_factorize(rows, slots, 1)[1] == -1
+
+
+@pytest.mark.parametrize("n, hint, want", [
+    (1 << 24, 480_189, (1 << 20, 1024)),
+    (1 << 24, 17_770, (1 << 16, 1024)),
+    (1 << 24, 4_725_413, (1 << 24, 1024)),
+    (1 << 24, None, (1 << 25, 1024)),
+    (100, None, (256, 256)),
+    (100, 32, (64, 64)),
+    (100, 33, (128, 128)),
+    (5, 1000, (64, 64)),
+    (0, None, (64, 64)),
+    (3000, np.int64(600), (2048, 1024)),
+])
+def test_factorize_table_plan(n, hint, want):
+    slots, probes = kernels.factorize_table_plan(n, hint)
+    assert (slots, probes) == want
+    keys = n if hint is None else min(int(hint), n)
+    assert slots >= 2 * keys and slots & (slots - 1) == 0
+
+
+@pytest.mark.parametrize("hint", [-1, True, 2.5, "3", [4]])
+def test_factorize_hint_is_validated_on_the_cpu(hint):
+    with pytest.raises(ValueError, match="n_distinct"):
+        kernels.factorize_table_plan(10, hint)
+    rows = torch_rows(hash_rows(seed=1, n=10, n_keys=3))
+    with pytest.raises(ValueError, match="n_distinct"):
+        kernels.factorize_codes(rows, n_distinct=hint)
+
+
+def finalize_inputs(pk_table_rows=None):
+    """Hash rows of a pid and a pk column with their host-merged tables (the
+    pk table merged from pk_table_rows where given)."""
+    pid_rows = hash_rows(seed=31, n=500, n_keys=90, invalid_every=6)
+    pk_rows = hash_rows(seed=32, n=500, n_keys=40, sentinel_every=9)
+    pk_rows[:, 2] = pid_rows[:, 2]
+    s1, _, n, pos = merged_table(pid_rows)
+    ps1, _, pn, ppos = merged_table(pk_rows if pk_table_rows is None
+                                    else pk_table_rows)
+    keys = np.array([f"k{i}" for i in range(pn)], object)
+    return (torch_rows(pid_rows), torch_rows(pk_rows),
+            torch.zeros(500, dtype=torch.float64), (s1, None, n, pos),
+            (ps1, keys, pn, ppos))
+
+
+@pytest.mark.parametrize("factorize", [False, True])
+def test_finalize_hash_codes_counts_agree(monkeypatch, factorize):
+    pid_rows, pk_rows, values, pid_table, pk_table = finalize_inputs()
+    want = ingest._finalize_hash_codes(pid_rows, pk_rows, values, False,
+                                       None, pid_table, pk_table)
+    monkeypatch.setattr(device_encode, "prefers_lookup_codes",
+                        lambda device: not factorize)
+    got = ingest._finalize_hash_codes(pid_rows, pk_rows, values, False,
+                                      None, pid_table, pk_table)
+    assert torch.equal(got.pid, want.pid) and torch.equal(got.pk, want.pk)
+    assert got.n_privacy_ids == want.n_privacy_ids == pid_table[2]
+
+
+@pytest.mark.parametrize("column", ["privacy-id", "partition"])
+def test_finalize_hash_codes_raises_on_a_device_count_unlike_the_host(
+        monkeypatch, column):
+    monkeypatch.setattr(device_encode, "prefers_lookup_codes",
+                        lambda device: False)
+    if column == "privacy-id":
+        pid_rows, pk_rows, values, pid_table, pk_table = finalize_inputs()
+        s1, keys, n, pos = pid_table
+        pid_table = (s1, keys, n + 1, pos)
+        public = True
+    else:
+        # The host merge saw one partition hash fewer than the rows hold.
+        pk_only = hash_rows(seed=32, n=500, n_keys=40, sentinel_every=9)
+        first = pk_only[0, :2].copy()
+        dropped = pk_only.copy()
+        dropped[(dropped[:, 0] == first[0]) & (dropped[:, 1] == first[1])] = \
+            _U32
+        pid_rows, pk_rows, values, pid_table, pk_table = finalize_inputs(
+            dropped)
+        public = False
+    with pytest.raises(RuntimeError, match=f"distinct {column} hashes"):
+        ingest._finalize_hash_codes(pid_rows, pk_rows, values, public,
+                                    [0] if public else None, pid_table,
+                                    pk_table)

@@ -327,3 +327,130 @@ def test_columnar_pair_grouping_equals_jax_for_any_keys(dtype, span):
         ch.compute_dataset_histograms_columnar(pids, pks, values)) == \
         convert.histograms_fields(
             jax_ch.compute_dataset_histograms_columnar(pids, pks, values))
+
+
+# C17's entries with the sort's sorted first key, across C17's 2048-row tiles
+# (csrc/group_stats.cu kTile). Every case is padded with invalid rows to one
+# length, so the JAX kernel compiles once.
+C17_TILE = 2048
+C17_ROWS = 1 << 15
+
+
+def pair_columns(seed, n_pids, max_pair=8, long_pid=None, p_invalid=0.1):
+    """Rows of n_pids pids in random order, each pid 1-11 pairs of 1 to
+    max_pair rows (long_pid: 2700 pairs, past several tiles), values not
+    integers, some rows invalid."""
+    rng = np.random.default_rng(seed)
+    pids, pks, lengths = [], [], []
+    for pid in range(n_pids):
+        n_pairs = 2700 if pid == long_pid else int(rng.integers(1, 12))
+        for pk in rng.choice(5000, n_pairs, replace=False):
+            pids.append(pid)
+            pks.append(pk)
+            lengths.append(int(rng.integers(1, max_pair + 1)))
+    pid = np.repeat(pids, lengths).astype(np.int32)
+    pk = np.repeat(pks, lengths).astype(np.int32)
+    order = rng.permutation(len(pid))
+    values = (rng.standard_normal(len(pid)) * 100).astype(np.float32)
+    valid = rng.random(len(pid)) >= p_invalid
+    return pid[order], pk[order], values, valid
+
+
+def sorted_stats(pid, pk, values, valid):
+    """dh.group_stats on torch columns, and the pairs entry's outputs with
+    its sort."""
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (pid, pk, values, valid)]
+    perm, spid = kernels.radix_sort(
+        [kernels.sunk_keys(t[0], t[3]), kernels.sunk_keys(t[1], t[3])],
+        sorted_top=True)
+    pairs = kernels.group_stats_pairs(*t, perm, sorted_pid=spid)
+    return dh.group_stats(*t), pairs, perm
+
+
+C17_CASES = {
+    "tile - 1": dict(seed=1, n=C17_TILE - 1),
+    "tile": dict(seed=2, n=C17_TILE),
+    "tile + 1": dict(seed=3, n=C17_TILE + 1),
+    "pairs of up to 8 rows": dict(seed=4, n_pids=600),
+    "one pid over many tiles": dict(seed=5, n_pids=30, long_pid=4,
+                                    p_invalid=0.01),
+    "every row invalid": dict(seed=6, n=3000, p_invalid=1.0),
+}
+
+
+def c17_case(name):
+    kw = dict(C17_CASES[name])
+    n = kw.pop("n", None)
+    pid, pk, values, valid = pair_columns(
+        kw.pop("seed"), kw.pop("n_pids", (n or 0) // 4 + 1), **kw)
+    if n is not None:
+        pid, pk, values, valid = pid[:n], pk[:n], values[:n], valid[:n]
+    pad = C17_ROWS - len(pid)
+    return (np.pad(pid, (0, pad)), np.pad(pk, (0, pad)),
+            np.pad(values, (0, pad)), np.pad(valid, (0, pad)))
+
+
+@pytest.mark.parametrize("name", sorted(C17_CASES))
+def test_group_stats_with_sorted_keys_match_jax(name):
+    pid, pk, values, valid = c17_case(name)
+    stats, pairs, perm = sorted_stats(pid, pk, values, valid)
+    want = jax_dh._group_stats_kernel(jnp.asarray(pid), jnp.asarray(pk),
+                                      jnp.asarray(values),
+                                      jnp.asarray(valid), has_values=True)
+    for key in ("l0", "l1", "linf", "count_per_pk", "pids_per_pk"):
+        got = kernels.log_bins_int(*stats[key])
+        k = int(want[key][5])
+        assert int(got[5]) == k, key
+        for g, w in zip(got[:5], want[key][:5]):
+            np.testing.assert_array_equal(g[:k].numpy(),
+                                          np.asarray(w[:k]).round())
+    lo_hi, _, counts, sums, maxes = kernels.log_bins_float(
+        *stats["linf_sum"], 10000)
+    jlo, jhi, jcounts, jsums, jmaxes = want["linf_sum"]
+    if valid.any():
+        assert lo_hi.tolist() == [float(jlo), float(jhi)]
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    np.testing.assert_array_equal(maxes.numpy(), np.asarray(jmaxes))
+    np.testing.assert_allclose(sums.numpy(), np.asarray(jsums), rtol=1e-5,
+                               atol=1e-4)
+    # Pair sums: a float32 fold of each pair's rows in sorted order, from 0
+    # (jax.ops.segment_sum on the CPU adds the same way), bit for bit.
+    starts = np.nonzero(pairs["new_pair"].numpy())[0]
+    lens = pairs["pair_len"].numpy()[starts]
+    sv = values[perm.numpy()]
+    fold = np.zeros(len(starts), np.float32)
+    for k in range(int(lens.max(initial=0))):
+        live = lens > k
+        fold[live] = fold[live] + sv[starts[live] + k]
+    np.testing.assert_array_equal(
+        pairs["pair_sum"].numpy()[starts].view(np.int32), fold.view(np.int32))
+    if name == "one pid over many tiles":
+        assert int(pairs["l1"].max()) > 4 * C17_TILE
+    if name.startswith("tile"):
+        assert len(starts) and int(valid.sum()) <= C17_TILE + 1
+
+
+def test_group_stats_sorted_key_is_checked(monkeypatch):
+    pid, pk, values, valid = (torch.from_numpy(a) for a in c17_case("tile"))
+    perm, spid = kernels.radix_sort([kernels.sunk_keys(pid, valid),
+                                     kernels.sunk_keys(pk, valid)],
+                                    sorted_top=True)
+    for bad in (spid[:-1], spid.to(torch.int64)):
+        with pytest.raises(ValueError, match="sorted_pid"):
+            kernels.group_stats_pairs(pid, pk, values, valid, perm,
+                                      sorted_pid=bad)
+        with pytest.raises(ValueError, match="sorted_keys"):
+            kernels.group_stats_keys(pk, valid, perm, sorted_keys=bad)
+    # The plain versions take it and are otherwise unchanged.
+    with_key = kernels.group_stats_pairs(pid, pk, values, valid, perm,
+                                         sorted_pid=spid)
+    without = kernels.group_stats_pairs(pid, pk, values, valid, perm)
+    assert all(torch.equal(with_key[k], without[k]) for k in with_key)
+    # On the card the sorted key is required: the check comes before any
+    # build or launch.
+    monkeypatch.setattr(kernels, "_on_cuda", lambda *tensors: True)
+    with pytest.raises(ValueError, match="sorted_pid .* is required"):
+        kernels.group_stats_pairs(pid, pk, values, valid, perm)
+    with pytest.raises(ValueError, match="sorted_keys .* is required"):
+        kernels.group_stats_keys(pk, valid, perm)

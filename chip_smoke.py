@@ -314,6 +314,23 @@ sorted_top) add:
              phase) the device operations of each C5 sort and split[...]
              lines for C5 (bounding, partition; beside the argsort chain)
              and C2 (solo; lanes in the service kernel phase)
+The rebuilt C4 (one launch a call: tiles of 64 partitions, the draws
+spread over the block's threads, the flag words folded by the last block)
+and C24 (no sort: C12 runs a shard and over the gathered uniques, then
+C24's remap) add:
+  2. kernels after C12's and C17's edges (c4_c24_edge_phase): C4 at P = 1,
+             63-65, 255-257, 17,770 and either side of its 64-thread
+             blocks, float32 and float64, 1-8 slots,
+             secure and not, selection keeping nothing and everything,
+             NaN / Inf / huge columns, lanes of 1, 3, 257 and 4000
+             partitions in 3 and 40 lanes (each == its solo run); C24 on a sentinel
+             and an invalid shard, one hash everywhere, hashes first on a
+             later shard, shards of 1 row, uniq_cap == n_new, with count
+             hints exact, above and none, and hints too small raising:
+             each == its plain version and equal to itself over two
+             calls; then c4_c24_split_phase: split[...] lines and the
+             device operations a call of C4's four entries and of the
+             mesh factorize's steps on the Netflix user hashes
 The failure semantics and elastic meshes of the meshed drivers
 (runtime/retry.py, faults.py, entry.py) and K23c (parallel/mesh.py
 collective_heartbeat on C21's int32 entry) add, last of all:
@@ -339,8 +356,11 @@ phases alone on make_mesh(), one shard slot on every visible card, and
 K23c's kernel check and route there; `python3 chip_smoke.py --elastic`
 the build, the data and the failure-semantics phases alone;
 `python3 chip_smoke.py --walls` the build, the data and the walls of
-(a), (b), (q), (v) and meshed (q) alone (median of 5), through DPEngine
-only, so that one call can time two trees of the port in turns.
+(a), (b), (q), (v), meshed (q), (x), (y), the histogram call, S2b's 16
+lanes and the hash_device pod ingest (with its mesh_factorize stage)
+alone, so that one call can time two trees of the port in turns;
+`python3 chip_smoke.py --splits` the build and c4_c24_split_phase alone,
+on this tree or, for the same comparison, its parent's.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -502,6 +522,9 @@ def main() -> int:
                             t0)
     if "--walls" in sys.argv[1:]:
         return walls_only(torch, tdp, cuda_build, columnar, card, t0)
+    if "--splits" in sys.argv[1:]:
+        return splits_only(torch, cuda_build, kernels, executor,
+                           device_encode, ingest, card, t0)
 
     # 1. build -------------------------------------------------------------
     build_s = cuda_build.build_all()
@@ -547,6 +570,10 @@ def main() -> int:
     c10_c21_edge_phase(torch, dev, kernels)
     c5_c2_edge_phase(torch, dev, kernels)
     c12_c17_edge_phase(torch, dev, kernels, ingest)
+    c4_c24_edge_phase(torch, dev, kernels, executor, device_encode,
+                      cuda_build)
+    c4_c24_split_phase(torch, dev, kernels, executor, device_encode, ingest,
+                       users, card)
     report += ingest_kernel_phase(
         torch, dev, {"users": (users, encoded.pid),
                      "movies": (movies, encoded.pk),
@@ -3613,6 +3640,466 @@ def c12_c17_edge_phase(torch, dev, kernels, ingest):
           f"run, pair_sum bit-equal to a float32 fold in row order over "
           f"{folds['pairs']} pairs; both entries refuse the card without "
           "their sorted key", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# C4 and C24: the three-way split of every entry, and their edge phase.
+
+C4_LANES = 16
+# (a)'s widest plan on the path: VARIANCE (count, sum, mean) on three slots
+# and PRIVACY_ID_COUNT on the fourth, private selection.
+C4_PLAN = [("variance", ("variance", "count", "sum", "mean"), 0),
+           ("privacy_id_count", ("privacy_id_count",), 3)]
+C4_STDS = (2.0, 5.0, 40.0, 1.5)
+C4_SENS = (1.0, 2000.0, 4e6, 1.0)
+
+
+def c4_columns(torch, dev, n, dtype, rng):
+    """C3-shaped partition columns of n partitions: counts to 20,000,
+    privacy-id counts at or below them, sums of ratings 1-5 on a grid of
+    1/64, their normalised sums and squares."""
+    count = rng.integers(0, 20000, n).astype(np.float64)
+    pid = np.floor(count * rng.uniform(0.3, 1.0, n))
+    total = np.round(count * rng.uniform(1.0, 5.0, n) * 64) / 64
+    cols = {"count": count, "pid_count": pid, "sum": total,
+            "nsum": total - 3.0 * count,
+            "nsum2": np.round(count * rng.uniform(0.0, 4.0, n) * 64) / 64}
+    out = {k: torch.as_tensor(v, dtype=dtype).to(dev)
+           for k, v in cols.items()}
+    out["row_count"] = out["pid_count"]
+    return out
+
+
+def c4_entries(torch, dev, kernels, executor, P=N_MOVIES, lanes=C4_LANES,
+               dtype=None, seed=SEED + 19):
+    """{entry: (kernel call, plain call, bytes, operations)} of C4's four
+    entries at the main path's shapes: solo ((a)'s plan above, P = 17,770),
+    secure (VARIANCE on three slots, public), lanes and secure lanes (the
+    plan above in `lanes` lanes of P partitions, four slots + selection).
+    Bytes: every column read once, keep and the outputs written once;
+    operations: ~100 integer operations a threefry, two a secure draw."""
+    from pipelinedp_tpu_torch.aggregate_params import (
+        NoiseKind, PartitionSelectionStrategy)
+    from pipelinedp_tpu_torch.ops import selection_ops
+    dtype = dtype or torch.float32
+    rng = np.random.default_rng(seed)
+    sel = selection_ops.selection_params_from_host(
+        PartitionSelectionStrategy.TRUNCATED_GEOMETRIC, 1.0, 1e-6, 64, None)
+    G = NoiseKind.GAUSSIAN
+    stds = np.array(C4_STDS)
+    keys = rng.integers(0, 2**32, (4, 2), dtype=np.uint32)
+    key_sel = rng.integers(0, 2**32, 2, dtype=np.uint32)
+    lane_keys = rng.integers(0, 2**32, (lanes, 4, 2), dtype=np.uint32)
+    lane_sel = rng.integers(0, 2**32, (lanes, 2), dtype=np.uint32)
+    solo = c4_columns(torch, dev, P, dtype, rng)
+    wide = c4_columns(torch, dev, lanes * P, dtype, rng)
+    plan3 = [C4_PLAN[0]]
+    stds3 = np.array([2.0, 900.0, 4.5e6])
+    t3 = executor.build_secure_tables(stds3, np.array([1.0, 2000.0, 4e6]), G,
+                                      None, dev)
+    t4 = executor.build_secure_tables(stds, np.array(C4_SENS), G, None, dev)
+    fsz = torch.tensor([], dtype=dtype).element_size()
+    args = {
+        "solo": ((solo, C4_PLAN, stds, keys, G, False, 3.0, 1.0, sel,
+                  key_sel, 1), {}, P, 5 + 1),
+        "secure": ((solo, plan3, stds3, keys[:3], G, False, 3000.0, 1000.0,
+                    None, key_sel, 1), {"tables": t3}, P, 3 * 2),
+        "lanes": ((wide, C4_PLAN, stds, lane_keys, G, False, 3.0, 1.0, sel,
+                   lane_sel, 1, lanes), {}, lanes * P, 5 + 1),
+        "secure lanes": ((wide, C4_PLAN, stds, lane_keys, G, False, 3.0,
+                          1.0, sel, lane_sel, 1, lanes), {"tables": t4},
+                         lanes * P, 4 * 2 + 1),
+    }
+    out = {}
+    for name, (a, kw, n, draws) in args.items():
+        fn = (kernels.release_epilogue if "lanes" not in name else
+              kernels.release_epilogue_lanes)
+        plain = (kernels.release_epilogue_plain if "lanes" not in name else
+                 kernels.release_epilogue_lanes_plain)
+        out[name] = (lambda f=fn, a=a, kw=kw: f(*a, **kw),
+                     lambda f=plain, a=a, kw=kw: f(*a, **kw),
+                     n * 5 * fsz + n * (1 + 5 * fsz), n * draws * 100)
+    return out
+
+
+def c24_inputs(torch, dev, users, device_encode, ingest):
+    """The Netflix users' hash rows (2^24) split over card_mesh()'s four
+    slots, their distinct count (the pod ingest's hint)."""
+    mesh = card_mesh(torch)
+    h1, _ = ingest.hash_key_column_pair(users)
+    rows = torch.from_numpy(
+        device_encode.pack_hash_rows(h1).view(np.int32)).to(dev)
+    return mesh, sharded_hash_rows(mesh, rows), int(np.unique(users).size)
+
+
+def c24_entries(torch, kernels, device_encode, mesh, hashes, hint):
+    """{step: call} of the mesh factorize on shard 0 of `hashes`, and the
+    whole mesh_factorize_codes call. This tree's steps: the local run
+    (C12's table, no sort), the merge (C12 over the gathered
+    [D x uniq_cap] slots) and the remap. A tree whose local phase sorts
+    each shard with C5 (device_encode._sorted_shards, the parent tree's
+    design) gives its steps instead: the shard's sort, the count-only and table runs of
+    mesh_local_uniques, the merge with its two sorts and the remap, so the
+    script compares the two trees in turns."""
+    from pipelinedp_tpu_torch.parallel.mesh import round_capacity
+    s0 = hashes.shards[0]
+    local = s0.shape[0]
+    if hasattr(device_encode, "_sorted_shards"):
+        perms = device_encode._sorted_shards(hashes)
+        cap = round_capacity(device_encode.mesh_unique_cap(mesh, hashes,
+                                                           perms))
+        p0 = perms[0]
+        lseg = kernels.mesh_local_uniques(s0, p0, 0, cap)[0]
+        tables = [kernels.mesh_local_uniques(sh, pm, s * local, cap)[2]
+                  for s, (sh, pm) in enumerate(zip(hashes.shards, perms))]
+        gathered = [torch.stack([t[j] for t in tables]).reshape(-1)
+                    for j in range(3)]
+        window = kernels.mesh_merge_ranks(*gathered)[0][:cap]
+        words = [s0[:, 0].contiguous(), s0[:, 1].contiguous()]
+        return cap, {
+            "C5 shard sort": lambda: kernels.radix_sort(words),
+            "mesh_local_uniques (count)":
+                lambda: kernels.mesh_local_uniques(s0, p0, 0),
+            "mesh_local_uniques (table)":
+                lambda: kernels.mesh_local_uniques(s0, p0, 0, cap),
+            "mesh_merge_ranks": lambda: kernels.mesh_merge_ranks(*gathered),
+            "mesh_remap_rows":
+                lambda: kernels.mesh_remap_rows(s0, p0, lseg, window),
+            "mesh_factorize_codes":
+                lambda: device_encode.mesh_factorize_codes(mesh, hashes)}
+    runs = [kernels.mesh_local_uniques(sh, n_distinct=hint)
+            for sh in hashes.shards]
+    cap = round_capacity(max(int(r[1]) for r in runs))
+    gathered = torch.cat([r[2][:cap] for r in runs])
+    window = kernels.mesh_merge_ranks(gathered, n_distinct=hint)[0][:cap]
+    lcode = runs[0][0]
+    return cap, {
+        "mesh_local_uniques":
+            lambda: kernels.mesh_local_uniques(s0, n_distinct=hint),
+        "mesh_merge_ranks":
+            lambda: kernels.mesh_merge_ranks(gathered, n_distinct=hint),
+        "mesh_remap_rows": lambda: kernels.mesh_remap_rows(lcode, window),
+        "mesh_factorize_codes": lambda: device_encode.mesh_factorize_codes(
+            mesh, hashes, n_distinct=hint)}
+
+
+def c4_c24_split_phase(torch, dev, kernels, executor, device_encode, ingest,
+                       users, card):
+    """The three-way split (wrapper ms / device ms / host us, three_way) and
+    the device operations a call (device_ops) of C4's four entries at the
+    main path's shapes (c4_entries) and of the mesh factorize's steps on
+    the Netflix user hashes over four slots (c24_entries; on a tree that
+    still sorts its shards, its sort and two local runs). Runs on this
+    tree and, for the comparison in turns, on its parent's package."""
+    c4 = c4_entries(torch, dev, kernels, executor)
+    for name, (fn, _, nbytes, ops) in c4.items():
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"c4[{name}]: device operations a call "
+              f"{json.dumps(device_ops(torch, fn))}, bound {b_ms:.3g} ms "
+              f"({b_by})", flush=True)
+    print_three_way("C4 entries at the main path's shapes", three_way(
+        torch, {name: fn for name, (fn, *_) in c4.items()}, host_calls=200),
+        card)
+    mesh, hashes, hint = c24_inputs(torch, dev, users, device_encode, ingest)
+    cap, steps = c24_entries(torch, kernels, device_encode, mesh, hashes,
+                             hint)
+    for name, fn in steps.items():
+        if name != "mesh_factorize_codes":
+            print(f"c24[{name}]: device operations a call "
+                  f"{json.dumps(device_ops(torch, fn))}", flush=True)
+    whole = steps.pop("mesh_factorize_codes")
+    print_three_way(f"C24 steps on shard 0 of the Netflix user hashes "
+                    f"(2^22 rows a slot, 4 slots, {hint} distinct, uniq_cap "
+                    f"{cap})", three_way(torch, steps, host_calls=20), card)
+    print(f"c24[mesh_factorize_codes]: {cuda_ms(whole, 5, 1):.4f} ms the "
+          f"whole call (CUDA events, median of 5; its host fetches "
+          f"included) ({card})", flush=True)
+    del hashes, steps
+
+
+def c4_edge_plan(n_slots):
+    """A C4 plan of n_slots noise slots (1-8) with distinct outputs."""
+    count = ("count", ("count",), 0)
+    sum_ = ("sum", ("sum",), 1)
+    pid = ("privacy_id_count", ("privacy_id_count",), 2)
+    templates = {
+        1: [count], 2: [count, sum_], 3: [("variance", ("variance",), 0)],
+        4: [("variance", ("variance", "mean"), 0), ("privacy_id_count",
+                                                    ("privacy_id_count",),
+                                                    3)],
+        5: [("mean", ("mean",), 0), ("variance", ("variance",), 2)],
+        6: [count, ("mean", ("mean",), 1), ("variance", ("variance",), 3)],
+        7: [count, sum_, ("mean", ("mean",), 2),
+            ("variance", ("variance",), 4)],
+        8: [count, sum_, pid, ("mean", ("mean",), 3),
+            ("variance", ("variance",), 5)],
+    }
+    return templates[n_slots]
+
+
+def c4_c24_edge_phase(torch, dev, kernels, executor, device_encode,
+                      cuda_build):
+    """C4's and C24's edge cases on the card, every output == its plain
+    version and equal to itself over two calls (NaN equal to NaN). C4
+    (tiles of 64 partitions): the Plan's size as the C entry states it; P
+    = 1, 63, 64, 65, 255, 256, 257, 17,770, 135,104 and 135,169 (either
+    side of the blocks of one thread a partition) in float32 and float64,
+    with 1 to 8 noise slots, secure and not, Gaussian and Laplace, a
+    degenerate variance, private selection that keeps nothing (no privacy
+    ids) and one that keeps every partition (counts far past the
+    threshold), NaN, Inf and huge columns (every flag bit); lanes of 1, 3,
+    257 and 4000 partitions, 3 lanes (keys in the launch) and 40 lanes of
+    8 slots (a key table past EPILOGUE_LANE_WORDS: one pinned copy), each
+    lane == its solo run.
+    C24 over card_mesh(): a shard of sentinel rows and one of invalid rows,
+    one hash on every row, hashes first on a later shard, shards of 1 row,
+    uniq_cap equal to every shard's n_new; each mesh_factorize_codes ==
+    its plain versions == C12's codes, with the hint exact, above and
+    absent, and a hint one too small raises."""
+    from pipelinedp_tpu_torch.aggregate_params import (
+        NoiseKind, PartitionSelectionStrategy)
+    from pipelinedp_tpu_torch.ops import selection_ops
+    from pipelinedp_tpu_torch.parallel.mesh import round_capacity
+    import ctypes
+    rng = np.random.default_rng(SEED + 19)
+    plan_bytes = cuda_build.library(
+        "release_epilogue").release_epilogue_plan_bytes()
+    if plan_bytes != ctypes.sizeof(kernels._EpiloguePlan):
+        raise AssertionError(f"release_epilogue: the C Plan has {plan_bytes} "
+                             f"bytes, _EpiloguePlan "
+                             f"{ctypes.sizeof(kernels._EpiloguePlan)}")
+    geometric = selection_ops.selection_params_from_host(
+        PartitionSelectionStrategy.TRUNCATED_GEOMETRIC, 1.0, 1e-6, 64, None)
+    laplace_t = selection_ops.selection_params_from_host(
+        PartitionSelectionStrategy.LAPLACE_THRESHOLDING, 1.0, 1e-6, 4, None)
+
+    def as_dict(out):
+        keep, outs, flags = out
+        return dict(outs, keep=keep, flags=flags)
+
+    def same(label, got, want):
+        # == with NaN equal to NaN (a released NaN's payload is the
+        # arithmetic's, not part of the function).
+        if got.is_floating_point():
+            if got.shape != want.shape or abs_diff(got, want) != 0.0 or \
+                    not torch.equal(got.isnan(), want.isnan()):
+                raise AssertionError(f"release_epilogue {label} differs")
+        else:
+            check_equal(f"release_epilogue {label}", got, want)
+
+    def agree(label, fn, plain):
+        got, again, want = as_dict(fn()), as_dict(fn()), as_dict(plain())
+        if not set(got) == set(again) == set(want):
+            raise AssertionError(f"release_epilogue {label}: outputs "
+                                 f"{sorted(got)} vs {sorted(want)}")
+        for name in want:
+            same(f"{label} {name} (twice)", again[name], got[name])
+            same(f"{label} {name}", got[name], want[name])
+        return got
+
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        # 135,104 / 135,169 partitions: 2111 / 2113 tiles, either side of
+        # the 64-thread blocks on a 132-SM card.
+        for P in (1, 63, 64, 65, 255, 256, 257, N_MOVIES, 135_104, 135_169):
+            for n_slots in range(1, 9):
+                secure = n_slots % 2 == 0
+                noise = (NoiseKind.GAUSSIAN if n_slots % 3 else
+                         NoiseKind.LAPLACE)
+                plan = c4_edge_plan(n_slots)
+                cols = c4_columns(torch, dev, P, dtype, rng)
+                stds = rng.uniform(0.5, 40.0, n_slots)
+                keys = rng.integers(0, 2**32, (n_slots, 2), dtype=np.uint32)
+                key_sel = rng.integers(0, 2**32, 2, dtype=np.uint32)
+                sel = (None, geometric, laplace_t)[n_slots % 3]
+                tables = (executor.build_secure_tables(
+                    stds, np.ones(n_slots), noise, None, dev)
+                    if secure else None)
+                args = (cols, plan, stds, keys, noise, n_slots == 3, 2.5,
+                        1.0, sel, key_sel, 1)
+                agree(f"{dtype}, P={P}, {n_slots} slots, secure={secure}",
+                      lambda: kernels.release_epilogue(*args, tables=tables),
+                      lambda: kernels.release_epilogue_plain(
+                          *args, tables=tables))
+                cases += 1
+        # Selection that keeps nothing, then every partition.
+        plan = c4_edge_plan(4)
+        stds = np.ones(4)
+        keys = rng.integers(0, 2**32, (4, 2), dtype=np.uint32)
+        for label, scale in (("keeps nothing", 0.0), ("keeps all", 1e7)):
+            cols = c4_columns(torch, dev, N_MOVIES, dtype, rng)
+            cols["pid_count"] = (cols["count"] + 1) * scale
+            cols["row_count"] = cols["pid_count"]
+            args = (cols, plan, stds, keys, NoiseKind.LAPLACE, False, 2.5,
+                    1.0, laplace_t, keys[0], 1)
+            keep = agree(f"{dtype} selection {label}",
+                         lambda: kernels.release_epilogue(*args),
+                         lambda: kernels.release_epilogue_plain(*args))["keep"]
+            if int(keep.sum()) != (0 if scale == 0 else N_MOVIES):
+                raise AssertionError(f"release_epilogue selection {label}: "
+                                     f"{int(keep.sum())} kept")
+        # NaN, Inf and huge columns: every flag bit, public partitions.
+        cols = c4_columns(torch, dev, 300, dtype, rng)
+        huge = torch.finfo(dtype).max / 1.5
+        cols["count"][7] = float("nan")
+        cols["pid_count"][100] = float("inf")
+        cols["sum"][250] = huge
+        args = (cols, c4_edge_plan(8), np.ones(8), rng.integers(
+            0, 2**32, (8, 2), dtype=np.uint32), NoiseKind.LAPLACE, False,
+            2.5, 1.0, None, None, 1)
+        flags = agree(f"{dtype} non-finite columns",
+                      lambda: kernels.release_epilogue(*args),
+                      lambda: kernels.release_epilogue_plain(*args))["flags"]
+        if int(flags[0]) != 7:
+            raise AssertionError(f"release_epilogue flags {int(flags[0])}, "
+                                 f"expected 7")
+        # Lanes: 1 and 3 partitions a lane, 3 lanes (keys in the launch)
+        # and 40 lanes of 8 slots (a pinned copy), secure and not.
+        for n_lanes, P, n_slots in ((3, 1, 4), (3, 3, 5), (40, 3, 8),
+                                    (40, 257, 8), (40, 4000, 8)):
+            plan = c4_edge_plan(n_slots)
+            stds = rng.uniform(0.5, 40.0, n_slots)
+            lane_keys = rng.integers(0, 2**32, (n_lanes, n_slots, 2),
+                                     dtype=np.uint32)
+            lane_sel = rng.integers(0, 2**32, (n_lanes, 2), dtype=np.uint32)
+            cols = c4_columns(torch, dev, n_lanes * P, dtype, rng)
+            for secure in (False, True):
+                tables = (executor.build_secure_tables(
+                    stds, np.ones(n_slots), NoiseKind.GAUSSIAN, None, dev)
+                    if secure else None)
+                args = (cols, plan, stds, lane_keys, NoiseKind.GAUSSIAN,
+                        False, 2.5, 1.0, geometric, lane_sel, 1, n_lanes)
+                got = agree(f"{dtype} lanes {n_lanes} x {P}, {n_slots} "
+                            f"slots, secure={secure}",
+                            lambda: kernels.release_epilogue_lanes(
+                                *args, tables=tables),
+                            lambda: kernels.release_epilogue_lanes_plain(
+                                *args, tables=tables))
+                for l in (0, n_lanes - 1):
+                    lane_cols = {k: c[l * P:(l + 1) * P]
+                                 for k, c in cols.items()}
+                    solo = as_dict(kernels.release_epilogue(
+                        lane_cols, plan, stds, lane_keys[l],
+                        NoiseKind.GAUSSIAN, False, 2.5, 1.0, geometric,
+                        lane_sel[l], 1, tables=tables))
+                    for name, value in solo.items():
+                        part = (got[name][l:l + 1] if name == "flags" else
+                                got[name][l * P:(l + 1) * P])
+                        check_equal(f"release_epilogue lane {l} {name} vs "
+                                    f"solo", part, value)
+                cases += 1
+    torch.cuda.synchronize()
+
+    # C24 over card_mesh().
+    mesh = card_mesh(torch)
+    d = mesh.size
+    m32 = 0xFFFFFFFF
+
+    def rows_of(keys, valid=None):
+        rows = np.empty((len(keys), 3), np.uint32)
+        rows[:, 0] = keys >> np.uint64(32)
+        rows[:, 1] = keys & np.uint64(m32)
+        rows[:, 2] = 1 if valid is None else valid
+        return rows
+
+    local = 4096
+    distinct = rng.integers(1, 2**63, 4 * local, dtype=np.uint64)
+    sent_shard = np.full((local, 3), m32, np.uint32)
+    mixed = rows_of(distinct[rng.integers(0, 900, 4 * local)])
+    mixed[local:2 * local] = sent_shard
+    mixed[2 * local:3 * local, 2] = 0
+    later = rows_of(np.concatenate([
+        distinct[rng.integers(0, 5, 2 * local)],
+        distinct[rng.integers(0, 3000, 2 * local)]]))
+    full_cap = rows_of(np.concatenate([distinct[s * 1000:s * 1000 + 24][
+        rng.integers(0, 24, local)] for s in range(4)]))
+    for s in range(4):  # every one of a shard's 24 hashes present
+        full_cap[s * local:s * local + 24] = rows_of(
+            distinct[s * 1000:s * 1000 + 24])
+    c24_cases = {
+        "a sentinel shard and an invalid shard": mixed,
+        "one hash on every row": rows_of(np.full(4 * local, distinct[0])),
+        "hashes first on a later shard": later,
+        "shards of 1 row": rows_of(distinct[:4]),
+        "uniq_cap equal to n_new": full_cap,
+    }
+    for label, rows in c24_cases.items():
+        t = torch.from_numpy(rows.view(np.int32)).to(dev)
+        hashes = sharded_hash_rows(mesh, t)
+        want, n_want = kernels.factorize_codes_plain(t.cpu())
+        n_want = int(n_want)
+        if label == "uniq_cap equal to n_new":
+            caps = [int(kernels.mesh_local_uniques(sh)[1])
+                    for sh in hashes.shards]
+            if caps != [24] * d or round_capacity(24) != 24:
+                raise AssertionError(f"mesh factorize ({label}): shard "
+                                     f"counts {caps}")
+        with plain_mesh_factorize(kernels):
+            plain, n_plain = device_encode.mesh_factorize_codes(
+                mesh, hashes, n_distinct=n_want)
+        def run(hint):
+            codes, n = device_encode.mesh_factorize_codes(mesh, hashes,
+                                                          n_distinct=hint)
+            return {"codes": codes.global_rows(dev), "n": torch.tensor(n)}
+
+        for hint in (n_want, n_want + 100, None):
+            got = same_twice(f"mesh_factorize_codes ({label}, hint {hint})",
+                             lambda h=hint: run(h))
+            check_equal(f"mesh_factorize_codes ({label}, hint {hint}) vs "
+                        f"its plain versions", got["codes"],
+                        plain.global_rows(dev))
+            check_equal(f"mesh_factorize_codes ({label}, hint {hint}) vs "
+                        f"C12's plain version", got["codes"].cpu(), want)
+            if int(got["n"]) != n_want or n_plain != n_want:
+                raise AssertionError(f"mesh factorize ({label}): "
+                                     f"{int(got['n'])} distinct, want "
+                                     f"{n_want}")
+        for sh in hashes.shards:
+            for part, g, w in zip(("lcode", "n_new", "heads"),
+                                  kernels.mesh_local_uniques(sh, n_want),
+                                  kernels.mesh_local_uniques_plain(
+                                      sh, n_want)):
+                check_equal(f"mesh_local_uniques ({label}) {part}", g, w)
+        # A hint one too small raises; so does one far too small, which
+        # overflows the tables (C12's -1).
+        for low in ({n_want - 1, n_want // 300} if n_want else ()):
+            try:
+                device_encode.mesh_factorize_codes(mesh, hashes,
+                                                   n_distinct=low)
+            except RuntimeError:
+                continue
+            raise AssertionError(f"mesh factorize ({label}): a hint of "
+                                 f"{low} for {n_want} hashes did not raise")
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"kernels[C4 and C24 edges]: the Plan's {plan_bytes} bytes agree; "
+          f"C4 at P = 1, 63, 64, 65, 255, 256, 257, 17,770, 135,104, 135,169 "
+          f"(float32, float64) with 1-8 slots, secure and not, selection keeping "
+          f"nothing and everything, NaN / Inf / huge columns (flags 7), "
+          f"lanes of 1, 3, 257 and 4000 partitions in 3 and 40 lanes (each lane "
+          f"== its solo run); C24 on {d} slots: a sentinel and an invalid "
+          f"shard, one hash everywhere, hashes first on a later shard, "
+          f"shards of 1 row, uniq_cap == n_new, hints exact / above / none, "
+          f"a hint one too small raising: {cases} cases, each == its plain "
+          f"version and equal to itself run to run", flush=True)
+
+
+def splits_only(torch, cuda_build, kernels, executor, device_encode, ingest,
+                card, t0):
+    """python3 chip_smoke.py --splits: the build, the Netflix users and
+    c4_c24_split_phase, nothing else (the same script on two trees in
+    turns compares them)."""
+    print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
+          f"{cuda_build.build_all():.1f} s ({card})", flush=True)
+    users, _, _ = netflix_rows(np.random.default_rng(SEED))
+    c4_c24_split_phase(torch, torch.device("cuda"), kernels, executor,
+                       device_encode, ingest, users, card)
+    print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def large_p_parity_phase(torch, tdp, rng):
@@ -7272,7 +7759,10 @@ def walls_only(torch, tdp, cuda_build, columnar, card, t0, reps=5):
     reshard="device"), the streamed (x) and (y) (16 chunks, encode_threads
     4; (y) factorizes on the card, C12) and the histogram call on the
     Netflix rows (C5, C17, C18), each the median of `reps` runs timed as
-    the main phases time them, and nothing else. It drives the public
+    the main phases time them; then S2b's 16 lanes of 2^20 rows in one
+    batched release (median of `reps`) and the pod ingest in hash_device
+    mode onto card_mesh() with its mesh_factorize stage (median of 3),
+    and nothing else. It drives the public
     entry points alone, so the same script compares two trees of the port
     in one call: run it from each tree's root in turns."""
     from pipelinedp_tpu_torch.dataset_histograms import (
@@ -7355,6 +7845,48 @@ def walls_only(torch, tdp, cuda_build, columnar, card, t0, reps=5):
     print(f"wall (histograms): {statistics.median(times) * 1e3:.1f} ms, "
           f"median of {reps}: {[round(t * 1e3, 1) for t in times]} ms "
           f"({card})", flush=True)
+    # The lane wall: S2b's 16 lanes of 2^20 Netflix rows in one batched
+    # release (the lane entries of C1-C6).
+    from pipelinedp_tpu_torch import device_encode, executor, ingest
+    n_lanes = 16
+    lanes = [torch.as_tensor(c).to(mesh.device).reshape(n_lanes, -1) for c in (
+        encoded.pid, encoded.pk, encoded.values.astype(np.float32),
+        encoded.valid)]
+    cfg, cstds, sc = release_cfg(tdp, executor, encoded.n_partitions,
+                                 ("COUNT", "SUM", "PRIVACY_ID_COUNT"),
+                                 "LAPLACE", True)
+    keys = lane_keys(n_lanes, 500)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        executor.batched_aggregate_release_kernel(*lanes, *sc, cstds, keys,
+                                                  cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    print(f"wall (lanes, S2b's 16 x 2^20 rows): "
+          f"{statistics.median(times) * 1e3:.1f} ms, median of {reps}: "
+          f"{[round(t * 1e3, 1) for t in times]} ms ({card})", flush=True)
+    del lanes
+    # The pod ingest of the Netflix rows onto card_mesh() in hash_device
+    # mode, and its mesh_factorize stage (two factorize calls: the
+    # privacy ids and the partitions).
+    walls, stages = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with IngestSplit(torch, ingest, device_encode) as split:
+            start = time.perf_counter()
+            enc = ingest.encode_local_shard_to_mesh(
+                chunks, mesh, encode_mode="hash_device")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+        stages.append(split.ms["mesh_factorize"])
+        del enc
+    print(f"wall (pod ingest, hash_device, {mesh.size} slots): "
+          f"{statistics.median(walls) * 1e3:.1f} ms, median of 3: "
+          f"{[round(t * 1e3, 1) for t in walls]} ms; its mesh_factorize "
+          f"stage {statistics.median(stages):.2f} ms, median of 3: "
+          f"{[round(t, 2) for t in stages]} ms ({card})", flush=True)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -8466,6 +8998,11 @@ MESH_FACTORIZE_REPLACES = {
     "mesh_local_uniques": "pipelinedp_tpu/device_encode.py:302",
     "mesh_merge_ranks": "pipelinedp_tpu/device_encode.py:322",
     "mesh_remap_rows": "pipelinedp_tpu/device_encode.py:322"}
+# The local phase and the merge are C12 runs (the local one with its heads
+# table); the remap is C24's own kernel.
+MESH_FACTORIZE_SOURCES = {"mesh_local_uniques": "factorize_codes.cu",
+                          "mesh_merge_ranks": "factorize_codes.cu",
+                          "mesh_remap_rows": "mesh_factorize.cu"}
 # (data, metrics, noise, public partitions, bounds) of the mesh-ingest runs.
 PER_MOVIE_RATING = dict(max_partitions_contributed=64,
                         max_contributions_per_partition=1, min_value=1.0,
@@ -8513,13 +9050,15 @@ def mesh_ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode,
                              ingest, card):
     """C24 at full width on card_mesh(): the hash rows of the Netflix users
     (480,189 distinct), movies (17,770) and (q)'s partitions (~4.7M), 2^24
-    rows split over 4 shard slots. mesh_factorize_codes == its run on C24's
-    plain versions == C12's codes == the host encoder's; each entry == its
-    plain version on the factorize's own inputs (shard 0's sort and table
-    for the per-shard entries, the gathered [4 x uniq_cap] table for the
-    merge), timed there, torch.unique(return_inverse) of shard 0's hashes
-    beside (not the same function: sorted-order codes). Returns the
-    report rows of the user hashes."""
+    rows split over 4 shard slots, with the distinct count as the hint (as
+    the pod ingest passes it). mesh_factorize_codes == its run on the
+    plain versions == its run without the hint == C12's codes == the host
+    encoder's, and launches no C5 sort; each step == its plain version on
+    the factorize's own inputs (shard 0's local run, the gathered
+    [4 x uniq_cap] slots for the merge, shard 0's window for the remap),
+    timed there, torch.unique(return_inverse) of shard 0's hashes beside
+    (not the same function: sorted-order codes). Returns the report rows
+    of the user hashes."""
     from pipelinedp_tpu_torch.parallel.mesh import round_capacity
     mesh = card_mesh(torch)
     d = mesh.size
@@ -8530,8 +9069,18 @@ def mesh_ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode,
             device_encode.pack_hash_rows(h1).view(np.int32)).to(dev)
         n = rows.shape[0]
         local = n // d
+        hint = int(host_codes.max()) + 1
         hashes = sharded_hash_rows(mesh, rows)
-        codes, n_unique = device_encode.mesh_factorize_codes(mesh, hashes)
+        kernels.reset_launch_counts()
+        codes, n_unique = device_encode.mesh_factorize_codes(
+            mesh, hashes, n_distinct=hint)
+        counts = dict(kernels.launch_counts)
+        want = dict(mesh_local_uniques=d, mesh_merge_ranks=1,
+                    mesh_remap_rows=d, radix_sort=0, factorize_codes=0)
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"mesh_factorize_codes ({label}): launches "
+                                 f"{ {k: counts[k] for k in want} }, "
+                                 f"expected {want}")
         got = codes.global_rows(dev)
         c12, n12 = kernels.factorize_codes(rows)
         err = check_equal(f"mesh_factorize_codes ({label}) vs C12", got, c12)
@@ -8539,62 +9088,56 @@ def mesh_ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode,
                     got, torch.from_numpy(host_codes).to(dev))
         with plain_mesh_factorize(kernels):
             plain_codes, plain_n = device_encode.mesh_factorize_codes(
-                mesh, hashes)
+                mesh, hashes, n_distinct=hint)
         check_equal(f"mesh_factorize_codes ({label}) vs its plain versions",
                     got, plain_codes.global_rows(dev))
-        if not n_unique == plain_n == int(n12):
+        no_hint, no_hint_n = device_encode.mesh_factorize_codes(mesh, hashes)
+        check_equal(f"mesh_factorize_codes ({label}) without the hint", got,
+                    no_hint.global_rows(dev))
+        if not n_unique == plain_n == int(n12) == no_hint_n == hint:
             raise AssertionError(f"mesh_factorize_codes ({label}): "
-                                 f"{n_unique} / {plain_n} distinct, C12 "
-                                 f"{int(n12)}")
-        perms = device_encode._sorted_shards(hashes)
-        cap = round_capacity(device_encode.mesh_unique_cap(mesh, hashes,
-                                                           perms))
-        s0, p0 = hashes.shards[0], perms[0]
-        local_out = kernels.mesh_local_uniques(s0, p0, 0, cap)
-        local_plain = kernels.mesh_local_uniques_plain(s0, p0, 0, cap)
+                                 f"{n_unique} / {plain_n} / {no_hint_n} "
+                                 f"distinct, C12 {int(n12)}, hint {hint}")
+        runs = [kernels.mesh_local_uniques(sh, hint) for sh in hashes.shards]
+        cap = round_capacity(max(int(r[1]) for r in runs))
+        s0 = hashes.shards[0]
+        local_plain = kernels.mesh_local_uniques_plain(s0, hint)
         errs = {"mesh_local_uniques": max(
             check_equal(f"mesh_local_uniques ({label}) {part}", g, w)
-            for part, g, w in zip(
-                ("lseg", "n_new", "t_hi", "t_lo", "t_pos"),
-                (local_out[0], local_out[1], *local_out[2]),
-                (local_plain[0], local_plain[1], *local_plain[2])))}
-        tables = [kernels.mesh_local_uniques(sh, pm, s * local, cap)[2]
-                  for s, (sh, pm) in enumerate(zip(hashes.shards, perms))]
-        gathered = [torch.stack([t[j] for t in tables]).reshape(-1)
-                    for j in range(3)]
-        merged = kernels.mesh_merge_ranks(*gathered)
-        merged_plain = kernels.mesh_merge_ranks_plain(*gathered)
+            for part, g, w in zip(("lcode", "n_new", "heads"), runs[0],
+                                  local_plain))}
+        gathered = torch.cat([r[2][:cap] for r in runs])
+        merged = kernels.mesh_merge_ranks(gathered, hint)
+        merged_plain = kernels.mesh_merge_ranks_plain(gathered)
         errs["mesh_merge_ranks"] = max(
             check_equal(f"mesh_merge_ranks ({label}) {part}", g, w)
             for part, g, w in zip(("remap", "n_unique"), merged,
                                   merged_plain))
-        window = merged[0][:cap]
-        remapped = kernels.mesh_remap_rows(s0, p0, local_out[0], window)
+        lcode, window = runs[0][0], merged[0][:cap]
+        remapped = kernels.mesh_remap_rows(lcode, window)
         errs["mesh_remap_rows"] = check_equal(
             f"mesh_remap_rows ({label})", remapped,
-            kernels.mesh_remap_rows_plain(s0, p0, local_out[0], window))
+            kernels.mesh_remap_rows_plain(lcode, window))
         check_equal(f"mesh_remap_rows ({label}) vs the factorize's shard 0",
                     remapped, codes.shards[0])
-        m = gathered[0].shape[0]
+        m = gathered.shape[0]
         entries = {
+            # The shard's rows read once (12 B), its local codes and heads
+            # table written once; a probe a row.
             "mesh_local_uniques": (
-                lambda: kernels.mesh_local_uniques(s0, p0, 0, cap),
-                lambda: kernels.mesh_local_uniques_plain(s0, p0, 0, cap),
-                # Rows (12 B) and the sort's permutation (8 B) read once,
-                # lseg and the table written once; a compare a row.
-                bound(local * 24 + cap * 12 + 4, local)),
+                lambda: kernels.mesh_local_uniques(s0, hint),
+                lambda: kernels.mesh_local_uniques_plain(s0, hint),
+                bound(local * 16 + runs[0][2].shape[0] * 12, local)),
+            # The gathered slots read once, their codes written once.
             "mesh_merge_ranks": (
-                lambda: kernels.mesh_merge_ranks(*gathered),
-                lambda: kernels.mesh_merge_ranks_plain(*gathered),
-                # The gathered lanes and positions read once, the remap
-                # written once (its two sorts are part of the function).
+                lambda: kernels.mesh_merge_ranks(gathered, hint),
+                lambda: kernels.mesh_merge_ranks_plain(gathered),
                 bound(m * 16 + 4, m)),
+            # A local code read and a code written a row, the window read.
             "mesh_remap_rows": (
-                lambda: kernels.mesh_remap_rows(s0, p0, local_out[0],
-                                                window),
-                lambda: kernels.mesh_remap_rows_plain(s0, p0, local_out[0],
-                                                      window),
-                bound(local * 28 + cap * 4, local)),
+                lambda: kernels.mesh_remap_rows(lcode, window),
+                lambda: kernels.mesh_remap_rows_plain(lcode, window),
+                bound(local * 8 + cap * 4, local)),
         }
         ms = {name: (cuda_ms(fn, repeats=10),
                      cuda_ms(plain, repeats=3, warmup=1))
@@ -8603,28 +9146,30 @@ def mesh_ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode,
         unique_ms = cuda_ms(lambda: torch.unique(key64, return_inverse=True),
                             repeats=10)
         whole_ms = cuda_ms(lambda: device_encode.mesh_factorize_codes(
-            mesh, hashes), repeats=3, warmup=1)
+            mesh, hashes, n_distinct=hint), repeats=3, warmup=1)
         print(f"kernels[mesh ingest, {label}: {n} rows over {d} slots, "
-              f"{n_unique} distinct, uniq_cap {cap}]: " + "; ".join(
+              f"{n_unique} distinct (the hint), uniq_cap {cap}]: " +
+              "; ".join(
                   f"C24 {name} ms={ms[name][0]:.4f} plain_ms="
                   f"{ms[name][1]:.4f} bound_ms={entries[name][2][0]:.3g} "
                   f"({entries[name][2][1]})" for name in MESH_FACTORIZE) +
               f"; torch.unique(return_inverse) of shard 0 {unique_ms:.4f} ms"
               f" (not the same function); mesh_factorize_codes whole "
-              f"{whole_ms:.4f} ms (its C5 sorts, the two fetches); every "
+              f"{whole_ms:.4f} ms (its two fetches; no C5 sort); every "
               f"entry == its plain version, the codes == C12's == the host "
-              f"encoder's ({card})", flush=True)
+              f"encoder's, with the hint and without ({card})", flush=True)
         if label == "users":
             for name in MESH_FACTORIZE:
                 report.append({
                     "name": name, "route": "cuda",
-                    "source": "pipelinedp_tpu_torch/csrc/mesh_factorize.cu",
+                    "source": "pipelinedp_tpu_torch/csrc/" +
+                              MESH_FACTORIZE_SOURCES[name],
                     "replaces": MESH_FACTORIZE_REPLACES[name],
                     "launches": 0, "max_abs_err": max(errs[name], err),
                     "ms": ms[name][0], "plain_ms": ms[name][1],
                     "bound_ms": entries[name][2][0],
                     "bound_by": entries[name][2][1], "library_ms": None})
-        del rows, hashes, codes, got, c12, plain_codes, perms, tables
+        del rows, hashes, codes, got, c12, plain_codes, no_hint, runs
         del gathered, merged, merged_plain, key64
     return report
 
@@ -8768,18 +9313,23 @@ def mesh_ingest_main_phase(torch, tdp, data, nmax, kernels, ingest,
                     chunks, mesh, public_partitions=vocab, encode_mode=mode)
                 torch.cuda.synchronize()
                 ingest_s = time.perf_counter() - start
+            ingest_counts = dict(kernels.launch_counts)
             check_ingested(f"{run}, {mode}", torch, enc, encoded,
                            which == "netflix")
             out, seconds, counts = mesh_ingest_release(
                 torch, tdp, kernels, mesh, enc, spec, 0)
             path = shard_paths[which] + (
                 MESH_FACTORIZE if mode == "hash_device" else ())
-            # A factorize: C24's count and full passes a shard, one merge,
-            # a remap a shard.
-            want = dict(mesh_local_uniques=2 * d * n_factorize,
+            # A factorize: one local run a shard, one merge, a remap a
+            # shard, and no C5 sort in the ingest.
+            want = dict(mesh_local_uniques=d * n_factorize,
                         mesh_merge_ranks=n_factorize,
                         mesh_remap_rows=d * n_factorize) \
                 if mode == "hash_device" else dict(mesh_local_uniques=0)
+            if ingest_counts["radix_sort"]:
+                raise AssertionError(f"mesh ingest ({run}, {mode}): "
+                                     f"{ingest_counts['radix_sort']} C5 "
+                                     f"sorts in the ingest")
             check_launches(f"mesh ingest ({run}, {mode})", counts, kernels,
                            want, path)
             for name, c in counts.items():

@@ -36,8 +36,15 @@
 //   5. assign_codes (the kept slots read coalesced): codes[i] = the code
 //      of row i's slot (read from the slot, or taken from its row and the
 //      bitmap where pass 4 did not run), or -1.
-// A key's smallest row is unique, so the codes and n_unique do not depend
-// on the order of the atomics, nor on which slot a key lands in.
+//   6. with a heads table (the mesh factorize's local phase, C24): the
+//      distinct hash of code k as the hash row (hi, lo, 1) at slot k of a
+//      [heads_cap] table, the distinct hashes in first-row order; slots
+//      past n_unique keep the sentinel row the table's memset wrote. Pass
+//      4 writes it from each slot's key where it runs; else write_heads,
+//      one pass over the bitmap, reads each flagged row's lanes.
+// A key's smallest row is unique, so the codes, n_unique and the heads do
+// not depend on the order of the atomics, nor on which slot a key lands
+// in.
 //
 // The table has a power-of-two number of 16-byte slots, at least twice the
 // distinct count the host planned with (kernels.factorize_table_plan: the
@@ -86,13 +93,15 @@ struct Control {
 };
 
 struct Scratch {
+  uint32_t* heads;     // [heads_cap, 3] hash rows, first in the 0xff region
   Slot* slots;
   Control* control;
   pdp::Scan<int> scan;
   uint32_t* bits;      // one bit a row: a hash's smallest row
   int* word_prefix;    // flagged rows before each bitmap word
   uint32_t* slot_of;   // each row's slot, kNoSlot for a dropped row
-  size_t fill_bytes;   // the 0xff region (slots)
+  size_t table_bytes;  // the slots
+  size_t fill_bytes;   // the 0xff region (heads and slots)
   size_t zero_bytes;   // the 0 region after it
 };
 
@@ -101,13 +110,21 @@ long long scan_tiles(long long n) {
   return (words_of(n) + kScanTile - 1) / kScanTile;
 }
 
-Scratch carve(void* scratch, long long n, long long capacity) {
+size_t heads_bytes(long long heads_cap) {
+  return pdp::align_up(static_cast<size_t>(heads_cap) * 12);
+}
+
+Scratch carve(void* scratch, long long n, long long capacity,
+              long long heads_cap) {
   using pdp::align_up;
   Scratch s;
   char* p = static_cast<char*>(scratch);
-  s.fill_bytes = align_up(static_cast<size_t>(capacity) * sizeof(Slot));
+  s.heads = reinterpret_cast<uint32_t*>(p);
+  p += heads_bytes(heads_cap);
+  s.table_bytes = align_up(static_cast<size_t>(capacity) * sizeof(Slot));
   s.slots = reinterpret_cast<Slot*>(p);
-  p += s.fill_bytes;
+  p += s.table_bytes;
+  s.fill_bytes = static_cast<size_t>(p - static_cast<char*>(scratch));
   char* zero = p;
   s.control = reinterpret_cast<Control*>(p);
   p += align_up(sizeof(Control));
@@ -125,9 +142,10 @@ Scratch carve(void* scratch, long long n, long long capacity) {
   return s;
 }
 
-size_t scratch_bytes(long long n, long long capacity) {
+size_t scratch_bytes(long long n, long long capacity, long long heads_cap) {
   using pdp::align_up;
-  return align_up(static_cast<size_t>(capacity) * sizeof(Slot)) +
+  return heads_bytes(heads_cap) +
+         align_up(static_cast<size_t>(capacity) * sizeof(Slot)) +
          align_up(sizeof(Control)) + pdp::scan_bytes<int>(scan_tiles(n)) +
          2 * align_up(static_cast<size_t>(words_of(n)) * 4) +
          align_up(static_cast<size_t>(n) * 4);
@@ -251,19 +269,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Each occupied slot's code: the flagged rows before its smallest row.
+// Each occupied slot's code: the flagged rows before its smallest row;
+// with a heads table, the slot's key as the hash row of its code there.
 __global__ void __launch_bounds__(kThreads)
     code_slots(Slot* __restrict__ slots, long long capacity,
                const uint32_t* __restrict__ bits,
-               const int* __restrict__ word_prefix) {
+               const int* __restrict__ word_prefix,
+               uint32_t* __restrict__ heads, long long heads_cap) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long s = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        s < capacity; s += stride) {
-    if (slots[s].key == kEmpty) continue;
-    const uint32_t r = slots[s].row, w = r >> 5;
-    slots[s].code =
+    const Slot slot = slots[s];
+    if (slot.key == kEmpty) continue;
+    const uint32_t r = slot.row, w = r >> 5;
+    const int code =
         word_prefix[w] + __popc(bits[w] & ((1u << (r & 31)) - 1u));
+    slots[s].code = code;
+    if (heads != nullptr && code < heads_cap) {
+      heads[3 * static_cast<long long>(code)] =
+          static_cast<uint32_t>(slot.key >> 32);
+      heads[3 * static_cast<long long>(code) + 1] =
+          static_cast<uint32_t>(slot.key);
+      heads[3 * static_cast<long long>(code) + 2] = 1u;
+    }
   }
 }
 
@@ -297,6 +326,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The k-th flagged row's lanes at slot k of the heads table (k below
+// heads_cap: a table too small for the distinct count is reported by the
+// caller's check of n_unique against it).
+__global__ void __launch_bounds__(kThreads)
+    write_heads(const uint32_t* __restrict__ rows, long long n_words,
+                const uint32_t* __restrict__ bits,
+                const int* __restrict__ word_prefix, long long heads_cap,
+                uint32_t* __restrict__ heads) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long w = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       w < n_words; w += stride) {
+    uint32_t b = bits[w];
+    long long k = word_prefix[w];
+    for (; b != 0u && k < heads_cap; b &= b - 1u, ++k) {
+      const long long r = 32 * w + (__ffs(b) - 1);
+      heads[3 * k] = rows[3 * r];
+      heads[3 * k + 1] = rows[3 * r + 1];
+      heads[3 * k + 2] = 1u;
+    }
+  }
+}
+
 // Pass 4 runs where the table fits in half the card's L2: there a row's
 // slot is an L2 hit and one read of its code replaces three dependent
 // ones. A larger table's slots come from device memory either way, and a
@@ -315,34 +367,40 @@ unsigned grid_for(long long count) {
 
 }  // namespace
 
-// Scratch for n rows and a table of `capacity` slots.
+// Scratch for n rows, a table of `capacity` slots and a heads table of
+// heads_cap rows (0: none).
 extern "C" long long factorize_codes_scratch_bytes(long long n,
-                                                   long long capacity) {
-  return static_cast<long long>(scratch_bytes(n, capacity));
+                                                   long long capacity,
+                                                   long long heads_cap) {
+  return static_cast<long long>(scratch_bytes(n, capacity, heads_cap));
 }
 
 // rows: uint32[n, 3] (hash_hi, hash_lo, valid); capacity: the table's
 // slots, a power of two >= 2 (kernels.factorize_table_plan), max_probes:
 // the probes a key may take; codes: int32[n]; n_unique: one int32, -1
 // where the table overflowed (the codes are then undefined). n < 2^31.
+// heads_cap > 0: the scratch starts with the heads table, uint32
+// [heads_cap, 3], written by pass 6 (sentinel rows past n_unique).
 extern "C" int factorize_codes(const void* rows, long long n,
                                long long capacity, int max_probes,
                                void* scratch, void* codes, void* n_unique,
-                               void* stream) {
+                               long long heads_cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (heads_cap < 0) return -1;
   if (n <= 0) {
     cudaMemsetAsync(n_unique, 0, sizeof(int32_t), st);
+    if (heads_cap > 0) cudaMemsetAsync(scratch, 0xff, heads_cap * 12, st);
     return static_cast<int>(cudaGetLastError());
   }
   if (capacity < 2 || (capacity & (capacity - 1)) != 0 || max_probes < 1 ||
       capacity > (1ll << 32))
     return -1;
-  Scratch s = carve(scratch, n, capacity);
+  Scratch s = carve(scratch, n, capacity, heads_cap);
   Table t{s.slots, static_cast<uint32_t>(capacity - 1),
           64 - (63 - __builtin_clzll(static_cast<unsigned long long>(
                          capacity))),
           max_probes};
-  cudaMemsetAsync(s.slots, 0xff, s.fill_bytes, st);
+  cudaMemsetAsync(scratch, 0xff, s.fill_bytes, st);
   cudaMemsetAsync(s.control, 0, s.zero_bytes, st);
   insert_rows<<<grid_for(n), kThreads, 0, st>>>(
       static_cast<const uint32_t*>(rows), n, t, &s.control->overflow,
@@ -351,13 +409,18 @@ extern "C" int factorize_codes(const void* rows, long long n,
                                                       s.bits, s.control);
   scan_words<<<static_cast<unsigned>(scan_tiles(n)), kThreads, 0, st>>>(
       s.bits, words_of(n), s.scan, s.word_prefix);
-  if (coded_table(s.fill_bytes)) {
+  if (coded_table(s.table_bytes)) {
     code_slots<<<grid_for(capacity), kThreads, 0, st>>>(
-        s.slots, capacity, s.bits, s.word_prefix);
+        s.slots, capacity, s.bits, s.word_prefix,
+        heads_cap > 0 ? s.heads : nullptr, heads_cap);
     assign_codes<true><<<grid_for(n), kThreads, 0, st>>>(
         s.slot_of, n, s.slots, s.bits, s.word_prefix, s.control,
         static_cast<int32_t*>(codes), static_cast<int32_t*>(n_unique));
   } else {
+    if (heads_cap > 0)
+      write_heads<<<grid_for(words_of(n)), kThreads, 0, st>>>(
+          static_cast<const uint32_t*>(rows), words_of(n), s.bits,
+          s.word_prefix, heads_cap, s.heads);
     assign_codes<false><<<grid_for(n), kThreads, 0, st>>>(
         s.slot_of, n, s.slots, s.bits, s.word_prefix, s.control,
         static_cast<int32_t*>(codes), static_cast<int32_t*>(n_unique));

@@ -88,13 +88,8 @@ _SIGNATURES = {
                                       _P, _I, _I, _P]),
     },
     "release_epilogue": {
-        "release_epilogue": (_I, [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I,
-                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _P, _I, _P, _I, _P]),
-        "release_epilogue_lanes": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I,
-                                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _P, _P, _P, _P, _P, _I, _P, _I,
-                                        _P]),
+        "release_epilogue_plan_bytes": (_LL, []),
+        "release_epilogue": (_I, [_P, _P, _LL, _I, _I, _I, _P]),
     },
     "radix_sort": {
         "radix_sort_scratch_bytes": (_LL, [_LL]),
@@ -143,8 +138,8 @@ _SIGNATURES = {
         "gather_rows": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P]),
     },
     "factorize_codes": {
-        "factorize_codes_scratch_bytes": (_LL, [_LL, _LL]),
-        "factorize_codes": (_I, [_P, _LL, _LL, _I, _P, _P, _P, _P]),
+        "factorize_codes_scratch_bytes": (_LL, [_LL, _LL, _LL]),
+        "factorize_codes": (_I, [_P, _LL, _LL, _I, _P, _P, _P, _LL, _P]),
     },
     "lookup_codes": {
         "lookup_codes": (_I, [_P, _LL, _P, _LL, _P, _P, _P]),
@@ -196,12 +191,7 @@ _SIGNATURES = {
                                   _P]),
     },
     "mesh_factorize": {
-        "mesh_scan_scratch_bytes": (_LL, [_LL]),
-        "mesh_local_uniques": (_I, [_P, _P, _LL, _LL, _LL, _P, _P, _P, _P,
-                                    _P, _P, _P]),
-        "mesh_merge_heads": (_I, [_P, _P, _P, _P, _LL, _P, _P, _P, _P, _P]),
-        "mesh_merge_remap": (_I, [_P, _P, _P, _P, _P, _LL, _P, _P, _P]),
-        "mesh_remap_rows": (_I, [_P, _P, _P, _LL, _P, _LL, _P, _P]),
+        "mesh_remap_codes": (_I, [_P, _LL, _P, _LL, _P, _P]),
     },
 }
 

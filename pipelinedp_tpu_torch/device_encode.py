@@ -37,13 +37,13 @@ The meshed form (the JAX module's unique-cap and mesh factorize,
 :302-418; K23b) is ``mesh_factorize_codes``: row-sharded hash rows
 (parallel/mesh.ShardedColumn) get the same first-occurrence codes, each
 shard's uniques going to the gathering device once, O(uniques), never
-rows (C24 with C5's sorts; kernels.mesh_local_uniques, mesh_merge_ranks,
-mesh_remap_rows). The single-process pod ingest
+rows (C12's hash table in place of any sort: kernels.mesh_local_uniques,
+mesh_merge_ranks, C24's mesh_remap_rows). The single-process pod ingest
 (ingest.encode_local_shard_to_mesh, encode_mode="hash_device") runs it;
 its multi-process form is ROADMAP.md Queue 1 step 9.
 """
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -223,15 +223,32 @@ def _as_sharded(mesh: "mesh_lib.Mesh", hashes) -> ShardedColumn:
                           for s, dev in enumerate(mesh.devices)], mesh)
 
 
-def _sorted_shards(hashes: ShardedColumn) -> List[torch.Tensor]:
-    """Each shard's stable C5 order by (hash_hi, hash_lo), as int32 words
-    (grouping needs only adjacency): sorted once, read by both phases."""
-    perms = []
-    for rows, dev in zip(hashes.shards, hashes.mesh.devices):
+def _local_runs(mesh: "mesh_lib.Mesh", hashes: ShardedColumn,
+                n_distinct: Optional[int]) -> list:
+    """The local phase on every shard where it lies: (lcode, n_new, heads)
+    a shard (kernels.mesh_local_uniques: C12's table, no sort), one run
+    serving both the unique-cap count and the factorize."""
+    runs = []
+    for rows, dev in zip(hashes.shards, mesh.devices):
         with on_device(dev):
-            perms.append(kernels.radix_sort([rows[:, 0].contiguous(),
-                                             rows[:, 1].contiguous()]))
-    return perms
+            runs.append(kernels.mesh_local_uniques(rows, n_distinct))
+    return runs
+
+
+def _check_count(what: str, count: int, n_distinct: Optional[int]) -> None:
+    """A distinct count of the factorize: -1 (a table sized by a hint too
+    small to hold the hashes) or a count above the hint raises, with no
+    retry and no fallback."""
+    if count < 0:
+        raise RuntimeError(
+            f"mesh_factorize: {what}'s table, sized for n_distinct="
+            f"{n_distinct}, cannot hold its distinct hashes; the count hint "
+            f"must be at least the number of distinct hashes")
+    if n_distinct is not None and count > n_distinct:
+        raise RuntimeError(
+            f"mesh_factorize: {what} holds {count} distinct hashes, more "
+            f"than n_distinct={n_distinct}; the count hint must be at least "
+            f"the number of distinct hashes")
 
 
 def _check_positions(mesh: "mesh_lib.Mesh", local: int,
@@ -245,70 +262,77 @@ def _check_positions(mesh: "mesh_lib.Mesh", local: int,
             f"factorize (2^31)")
 
 
-def mesh_unique_cap(mesh: "mesh_lib.Mesh", hashes, perms=None) -> int:
+def mesh_unique_cap(mesh: "mesh_lib.Mesh", hashes, runs=None,
+                    n_distinct: Optional[int] = None) -> int:
     """The largest per-shard count of distinct non-sentinel hashes (the
-    JAX package's _mesh_unique_cap_kernel, a pmax over shards): C24's
-    count-only pass a shard, then one host_fetch of the D counts."""
+    JAX package's _mesh_unique_cap_kernel, a pmax over shards): the local
+    phase's counts (runs, or a local run a shard here) in one host_fetch
+    of the D counts. n_distinct: the caller's global distinct count, which
+    sizes every table (kernels.factorize_table_plan)."""
     hashes = _as_sharded(mesh, hashes)
     _check_positions(mesh, hashes.shards[0].shape[0])
-    perms = _sorted_shards(hashes) if perms is None else perms
-    counts = []
-    for s, (rows, perm, dev) in enumerate(zip(hashes.shards, perms,
-                                              mesh.devices)):
-        with on_device(dev):
-            counts.append(kernels.mesh_local_uniques(rows, perm, 0)[1])
-    return int(mesh_lib.host_fetch(collectives.gather(counts,
-                                                      mesh.device)).max())
+    runs = _local_runs(mesh, hashes, n_distinct) if runs is None else runs
+    counts = mesh_lib.host_fetch(collectives.gather([r[1] for r in runs],
+                                                    mesh.device))
+    for s, count in enumerate(np.asarray(counts).reshape(-1).tolist()):
+        _check_count(f"shard {s}", int(count), n_distinct)
+    return int(np.asarray(counts).max())
 
 
 def mesh_factorize_kernel(mesh: "mesh_lib.Mesh", hashes, uniq_cap: int,
-                          perms=None):
+                          runs=None, n_distinct: Optional[int] = None):
     """Sharded first-occurrence factorize (the JAX package's
-    _mesh_factorize_kernel): each shard's uniques compacted with their
-    global first positions into [uniq_cap] (C24), the [D x uniq_cap]
-    tables gathered onto the gathering device and merged once (C24's
-    merge after C5 sorts), each shard's [uniq_cap] window of the remap
-    sent back and its rows remapped where they lie. uniq_cap must be at
-    least every shard's unique count (mesh_unique_cap). Returns (codes
-    int32 ShardedColumn like the rows, n_unique int32[] on the gathering
-    device)."""
+    _mesh_factorize_kernel): each shard's local run (runs, or one here)
+    holds its distinct hashes in first-row order (its heads table), the
+    [D x uniq_cap] slots are gathered onto the gathering device and given
+    their global codes there by one C12 run (kernels.mesh_merge_ranks:
+    slot order is global first-position order), and each shard's
+    [uniq_cap] window of those codes goes back to remap its rows' local
+    codes where they lie (C24). uniq_cap must be at least every shard's
+    unique count (mesh_unique_cap). Returns (codes int32 ShardedColumn
+    like the rows, n_unique int32[] on the gathering device: -1 where
+    n_distinct was too small for the merge's table)."""
     hashes = _as_sharded(mesh, hashes)
     local = hashes.shards[0].shape[0]
     _check_positions(mesh, local, uniq_cap)
-    perms = _sorted_shards(hashes) if perms is None else perms
-    lsegs, tables = [], []
-    for s, (rows, perm, dev) in enumerate(zip(hashes.shards, perms,
-                                              mesh.devices)):
-        with on_device(dev):
-            lseg, _, table = kernels.mesh_local_uniques(
-                rows, perm, s * local, uniq_cap)
-        lsegs.append(lseg)
-        tables.append(table)
+    runs = _local_runs(mesh, hashes, n_distinct) if runs is None else runs
+    tables = []
+    for _, _, heads in runs:
+        short = uniq_cap - heads.shape[0]
+        tables.append(heads[:uniq_cap] if short <= 0 else torch.cat(
+            [heads, heads.new_full((short, 3), -1)]))
     with on_device(mesh.device):
-        g_hi, g_lo, g_pos = (
-            collectives.gather([t[j] for t in tables], mesh.device)
-            .reshape(-1) for j in range(3))
-        remap, n_unique = kernels.mesh_merge_ranks(g_hi, g_lo, g_pos)
+        gathered = collectives.gather(tables, mesh.device).reshape(-1, 3)
+        remap, n_unique = kernels.mesh_merge_ranks(gathered, n_distinct)
     codes = []
-    for s, (rows, perm, lseg, dev) in enumerate(zip(
-            hashes.shards, perms, lsegs, mesh.devices)):
+    for s, ((lcode, _, _), dev) in enumerate(zip(runs, mesh.devices)):
         window = remap[s * uniq_cap:(s + 1) * uniq_cap].to(dev)
         with on_device(dev):
-            codes.append(kernels.mesh_remap_rows(rows, perm, lseg, window))
+            codes.append(kernels.mesh_remap_rows(lcode, window))
     return ShardedColumn(codes, mesh, len(hashes)), n_unique
 
 
-def mesh_factorize_codes(mesh: "mesh_lib.Mesh", hashes):
+def mesh_factorize_codes(mesh: "mesh_lib.Mesh", hashes,
+                         n_distinct: Optional[int] = None):
     """Two-phase meshed factorize of row-sharded (n, 3) hash rows (the JAX
-    package's mesh_factorize_codes): the per-shard unique counts fix the
-    gather capacity, round_capacity of their maximum, then the factorize
-    runs on the phase-1 sorts. Returns (codes int32 ShardedColumn, n_unique
-    host int)."""
+    package's mesh_factorize_codes): one local run a shard gives the
+    per-shard unique counts, whose maximum, round_capacity'd, fixes the
+    gather capacity, and the local codes and heads the factorize then
+    merges; nothing is sorted. n_distinct: the global distinct count the
+    caller already holds (the pod ingest's host merge), or an upper bound
+    of it; it sizes every C12 table, min(n_distinct, shard rows) for a
+    shard's. Without it the tables are sized from the rows. A count hint
+    below the distinct count raises (RuntimeError), never falls back.
+    Returns (codes int32 ShardedColumn, n_unique host int)."""
     hashes = _as_sharded(mesh, hashes)
-    perms = _sorted_shards(hashes)
-    uniq_cap = mesh_lib.round_capacity(mesh_unique_cap(mesh, hashes, perms))
-    codes, n_unique = mesh_factorize_kernel(mesh, hashes, uniq_cap, perms)
-    return codes, int(mesh_lib.host_fetch(n_unique))
+    runs = _local_runs(mesh, hashes, n_distinct)
+    uniq_cap = mesh_lib.round_capacity(mesh_unique_cap(mesh, hashes, runs,
+                                                       n_distinct))
+    codes, n_unique = mesh_factorize_kernel(mesh, hashes, uniq_cap, runs,
+                                            n_distinct)
+    n_unique = int(mesh_lib.host_fetch(n_unique))
+    _check_count("the merged table", n_unique, n_distinct)
+    return codes, n_unique
 
 
 class HashVocab:

@@ -1246,14 +1246,18 @@ def _encode_local_shard_hash(chunks, mesh, public_partitions, nonfinite,
     else:
         pk_local = _pad_rows_to(shard.pk_col, local_rows, sent32, np.uint32)
     values_local = _pad_rows_to(shard.values, local_rows, 0, value_dtype)
+    # The host merges' distinct counts size the factorize's tables (with
+    # a simulated exchange they count the whole pod: an upper bound).
     pid_codes, _ = device_encode.mesh_factorize_codes(
-        mesh, _to_mesh(_int32_lanes(pid_local), mesh, cap))
+        mesh, _to_mesh(_int32_lanes(pid_local), mesh, cap),
+        n_distinct=int(n_pid_global))
     if public:
         pk = _to_mesh(pk_local, mesh, cap)
         vocab = list(dict.fromkeys(public_partitions))
     else:
         pk, n_pk_dev = device_encode.mesh_factorize_codes(
-            mesh, _to_mesh(_int32_lanes(pk_local), mesh, cap))
+            mesh, _to_mesh(_int32_lanes(pk_local), mesh, cap),
+            n_distinct=int(pk_table[2]))
         if not simulated and n_pk_dev != pk_table[2]:
             raise RuntimeError(
                 f"device mesh factorize found {n_pk_dev} distinct partition "

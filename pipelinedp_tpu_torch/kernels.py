@@ -76,8 +76,10 @@ their plain PyTorch versions.
                                                      slot on its destination
     C24 mesh_factorize    csrc/mesh_factorize.cu     first-occurrence codes of
                                                      row-sharded key hashes:
-                                                     a shard's uniques, their
-                                                     merge, a shard's remap
+                                                     C12's table a shard and
+                                                     over the gathered uniques
+                                                     (no sort), a shard's
+                                                     remap
 
 The blocked route (parallel/large_p.py) runs C3 and C7 on windows of the
 partition-sorted stream: their windowed entries (base=) rebase each row's
@@ -114,18 +116,21 @@ CPU (the tests' path). On a CUDA tensor it never falls back: a failed build
 or launch raises. Outputs and scratch are allocated here with torch; the
 kernels allocate nothing. `launch_counts` counts wrapper calls that
 launched a kernel, under the name of the kernel's source, or of its
-compensated / secure / lane entry (C6's tile scan issues three CUDA
-launches, C2, C3 and C17 one after their memsets (C3 one per four
+compensated / secure / lane entry (C4 one launch, C6's tile scan three,
+C2, C3 and C17 one after their memsets (C3 one per four
 coordinates of a vector sum), C12 four or five after two memsets, a radix
 sort one a digit pass after a memset, the masks' launch and copy and one
 digit-start launch, C15 one a pass of its plan and one for the split); its
 increments are thread-safe, as the
 service's workers launch concurrently. No wrapper or kernel keeps host or
-device scratch between calls.
+device scratch between calls but C4's: its plan, cached under the exact
+values it is made of, and a per-stream accumulator of flag bits that
+every call leaves zeroed.
 """
 
 import array
 import ctypes
+import functools
 import math
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -142,7 +147,7 @@ from pipelinedp_tpu_torch.ops import secure_noise
 from pipelinedp_tpu_torch.ops import segment_ops
 from pipelinedp_tpu_torch.ops import selection_ops
 from pipelinedp_tpu_torch.ops import threefry
-from pipelinedp_tpu_torch.parallel.mesh import MAX_SHARDS
+from pipelinedp_tpu_torch.parallel.mesh import MAX_SHARDS, round_capacity
 
 KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "radix_sort", "compact_kept", "quantile_counts", "quantile_descend",
@@ -698,6 +703,162 @@ def sorted_rows(perm: Optional[torch.Tensor],
 # C4 release_epilogue
 
 
+EPILOGUE_MAX_ENTRIES = 8
+EPILOGUE_MAX_SLOTS = 8
+# Lane key words the C entry carries in the launch's parameters; a larger
+# lane table goes up in one pinned copy.
+EPILOGUE_LANE_WORDS = 512
+_EPILOGUE_COLUMNS = ("count", "pid_count", "sum", "nsum", "nsum2")
+_EPILOGUE_OUTPUTS = ("count", "privacy_id_count", "sum", "mean", "variance")
+
+
+class _EpiloguePlan(ctypes.Structure):
+    """C4's Plan (csrc/release_epilogue.cu), field for field: doubles, then
+    ints, so neither side pads between them."""
+    _fields_ = [("std", ctypes.c_double * EPILOGUE_MAX_SLOTS),
+                ("gran", ctypes.c_double * EPILOGUE_MAX_SLOTS),
+                ("sel", ctypes.c_double * 14),
+                ("mid", ctypes.c_double),
+                ("min_v", ctypes.c_double),
+                ("max_rows", ctypes.c_double),
+                ("n_entries", ctypes.c_int),
+                ("kind", ctypes.c_int * EPILOGUE_MAX_ENTRIES),
+                ("outputs", ctypes.c_int * EPILOGUE_MAX_ENTRIES),
+                ("offset", ctypes.c_int * EPILOGUE_MAX_ENTRIES),
+                ("n_slots", ctypes.c_int),
+                ("gaussian", ctypes.c_int),
+                ("degenerate", ctypes.c_int),
+                ("private_selection", ctypes.c_int)]
+
+
+def release_epilogue_plan(plan, stds, noise_kind: NoiseKind,
+                          degenerate: bool, mid: float, min_v: float,
+                          selection: Optional[selection_ops.SelectionParams],
+                          max_rows: int, gran=None) -> _EpiloguePlan:
+    """C4's host plan: the plan entries (kind, output mask, first slot),
+    every slot's std and, with secure noise, its grid (gran [S]), the 14
+    selection scalars (zeros for public partitions), the noise kind,
+    degenerate and private-selection flags, mid, min_v and max_rows; plan
+    excludes SKIPPED_KINDS. The keys go apart, in epilogue_lane_table's
+    table. Cached under the exact values it is made of, so a release's
+    calls share one; the caller must not change it."""
+    return _epilogue_plan(
+        tuple((kind, tuple(outs), off) for kind, outs, off in plan),
+        tuple(float(s) for s in stds), noise_kind, bool(degenerate),
+        float(mid), float(min_v), selection, float(max_rows),
+        None if gran is None else tuple(float(g) for g in gran))
+
+
+@functools.lru_cache(maxsize=256)
+def _epilogue_plan(plan, stds, noise_kind, degenerate, mid, min_v,
+                   selection, max_rows, gran) -> _EpiloguePlan:
+    n_slots = len(stds)
+    if len(plan) > EPILOGUE_MAX_ENTRIES or n_slots > EPILOGUE_MAX_SLOTS:
+        raise ValueError(f"release_epilogue: {len(plan)} entries over "
+                         f"{n_slots} noise slots exceed "
+                         f"{EPILOGUE_MAX_ENTRIES} / {EPILOGUE_MAX_SLOTS}")
+    out = _EpiloguePlan()
+    out.n_entries = len(plan)
+    out.kind[:len(plan)] = [PLAN_KINDS[kind] for kind, _, _ in plan]
+    out.outputs[:len(plan)] = [sum(OUTPUT_BITS[o] for o in outs)
+                               for _, outs, _ in plan]
+    out.offset[:len(plan)] = [off for _, _, off in plan]
+    out.n_slots = n_slots
+    out.std[:n_slots] = stds
+    if gran is not None:
+        out.gran[:n_slots] = gran
+    if selection is not None:
+        out.sel[:] = selection_ops.selection_scalars(selection)
+    out.mid, out.min_v, out.max_rows = mid, min_v, max_rows
+    out.gaussian = int(noise_kind == NoiseKind.GAUSSIAN)
+    out.degenerate = int(degenerate)
+    out.private_selection = int(selection is not None)
+    return out
+
+
+def epilogue_lane_table(slot_keys: np.ndarray,
+                        key_sel: Optional[np.ndarray]) -> np.ndarray:
+    """C4's key table, u32 [L, 2 + 2S]: each lane's key_sel (zeros without
+    selection), then its S slot keys (slot_keys [L, S, 2]); the solo entry
+    is one lane. The kernel splits a secure slot's key itself."""
+    slot_keys = np.asarray(slot_keys, dtype=np.uint32)
+    n_lanes = slot_keys.shape[0]
+    table = np.zeros((n_lanes, 2 + slot_keys[0].size), np.uint32)
+    if key_sel is not None:
+        table[:, :2] = np.asarray(key_sel, dtype=np.uint32).reshape(n_lanes,
+                                                                    2)
+    table[:, 2:] = slot_keys.reshape(n_lanes, -1)
+    return table
+
+
+_epilogue_lock = threading.Lock()
+_epilogue_acc: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _epilogue_accumulator(dev: torch.device, stream: int,
+                          n_lanes: int) -> torch.Tensor:
+    """The stream's C4 accumulator, u32 [1 + >= n_lanes] (block tickets,
+    then each lane's flag bits): zeroed when made, left zeroed by every
+    call, so calls on one stream (which run in order) share it."""
+    key = (dev.index if dev.index is not None else
+           torch.cuda.current_device(), stream)
+    with _epilogue_lock:
+        acc = _epilogue_acc.get(key)
+        if acc is None or acc.shape[0] < 1 + n_lanes:
+            acc = torch.zeros(1 + max(n_lanes, 64), dtype=torch.int32,
+                              device=dev)
+            _epilogue_acc[key] = acc
+    return acc
+
+
+def _epilogue_outputs(total: int, names: Sequence[str], dtype: torch.dtype,
+                      n_lanes: int, dev: torch.device):
+    """keep, the outputs and the flag words as views of one allocation:
+    rows of a [len(names) + 2, stride] block (each at a 256-byte
+    boundary), the outputs', then keep's bytes, then the flag words."""
+    size = dtype.itemsize
+    width = max(total, n_lanes)
+    stride = -(-width * size // 256) * 256 // size
+    n = len(names)
+    rows = torch.empty((n + 2, stride), dtype=dtype, device=dev)[
+        :, :width].unbind(0)
+    outputs = rows[:n] if width == total else [r[:total] for r in rows[:n]]
+    return (rows[n].view(torch.uint8)[:total].view(torch.bool),
+            dict(zip(names, outputs)),
+            rows[n + 1].view(torch.int32)[:n_lanes])
+
+
+def _launch_epilogue(cols, plan_c: _EpiloguePlan, names, total: int,
+                     n_lanes: int, dtype: torch.dtype, thr, lane_table):
+    """One C4 launch over total = n_lanes * P elements, lane_table
+    epilogue_lane_table's. Returns (status, keep, outputs, flags)."""
+    dev = cols["count"].device
+    stream = _stream(dev)
+    keep, outputs, flags = _epilogue_outputs(total, names, dtype, n_lanes,
+                                             dev)
+    lane_host = lane_dev = 0
+    if lane_table.size <= EPILOGUE_LANE_WORDS:
+        lane_host = lane_table.ctypes.data
+    else:
+        pinned = torch.empty(lane_table.shape, dtype=torch.int32,
+                             pin_memory=True)
+        pinned.numpy()[...] = lane_table.view(np.int32)
+        lane_table = pinned.to(dev, non_blocking=True)
+        lane_dev = lane_table.data_ptr()
+    io = array.array("q", [
+        *(cols[c].data_ptr() if c in cols else 0 for c in _EPILOGUE_COLUMNS),
+        keep.data_ptr(),
+        *(outputs[o].data_ptr() if o in outputs else 0
+          for o in _EPILOGUE_OUTPUTS),
+        flags.data_ptr(),
+        _epilogue_accumulator(dev, stream, n_lanes).data_ptr(),
+        0 if thr is None else thr.data_ptr(), lane_host, lane_dev])
+    status = cuda_build.library("release_epilogue").release_epilogue(
+        ctypes.addressof(plan_c), io.buffer_info()[0], total // n_lanes,
+        n_lanes, 0 if thr is None else thr.shape[-1], _f64(dtype), stream)
+    return status, keep, outputs, flags
+
+
 def release_epilogue(cols: Dict[str, torch.Tensor],
                      plan: Sequence[Tuple[str, Tuple[str, ...], int]],
                      stds: np.ndarray, slot_keys: np.ndarray,
@@ -717,6 +878,9 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
     every slot; slot s then releases snap(col) + atom * gran[s], the atom
     searched with the words of split(slot_keys[s]) at element p.
 
+    On the card one launch (release_epilogue_plan's Plan, the keys as
+    epilogue_lane_table's one row, the outputs as views of one
+    allocation, the flag word written whole by the kernel).
     Returns (keep bool[P], {output: F[P]}, flags int32[1]): the flag word
     (numeric.FLAG_*) over the kept partitions' outputs.
     """
@@ -735,38 +899,16 @@ def release_epilogue(cols: Dict[str, torch.Tensor],
         return release_epilogue_plain(cols, plan, stds, slot_keys,
                                       noise_kind, degenerate, mid, min_v,
                                       selection, key_sel, max_rows, tables)
-    dev = count.device
-    keep = torch.empty(p, dtype=torch.bool, device=dev)
-    outputs = {o: torch.empty(p, dtype=dtype, device=dev) for o in names}
-    flags = torch.zeros(1, dtype=torch.int32, device=dev)
-    plan_c = (ctypes.c_int * (3 * len(plan)))(*[
-        v for kind, outs, off in plan
-        for v in (PLAN_KINDS[kind], sum(OUTPUT_BITS[o] for o in outs), off)
-    ])
-    stds_c = (ctypes.c_double * len(stds))(*[float(s) for s in stds])
-    keys_c = (ctypes.c_uint * (2 * len(stds)))(
-        *[int(w) for w in np.asarray(slot_keys).reshape(-1)])
-    sel = (selection_ops.selection_scalars(selection)
-           if selection is not None else (0.0,) * 14)
-    sel_c = (ctypes.c_double * 14)(*sel)
-    ksel = key_sel if key_sel is not None else (0, 0)
-    key_sel_c = (ctypes.c_uint * 2)(int(ksel[0]), int(ksel[1]))
-    misc_c = (ctypes.c_int * 3)(int(noise_kind == NoiseKind.GAUSSIAN),
-                                int(degenerate), int(selection is not None))
-    scal_c = (ctypes.c_double * 3)(float(mid), float(min_v), float(max_rows))
     secure = tables is not None
-    gran_c = (ctypes.c_double * len(stds))(
-        *([float(g) for g in tables[1]] if secure else [0.0] * len(stds)))
-    status = cuda_build.library("release_epilogue").release_epilogue(
-        plan_c, len(plan), stds_c, keys_c, len(stds), sel_c, key_sel_c,
-        misc_c, scal_c, p, _ptr(count), _ptr(cols["pid_count"]),
-        _ptr(cols.get("sum")), _ptr(cols.get("nsum")),
-        _ptr(cols.get("nsum2")), _ptr(keep), _ptr(outputs.get("count")),
-        _ptr(outputs.get("privacy_id_count")), _ptr(outputs.get("sum")),
-        _ptr(outputs.get("mean")), _ptr(outputs.get("variance")),
-        _ptr(flags), _ptr(tables[0]) if secure else None,
-        tables[0].shape[-1] if secure else 0, gran_c, _f64(dtype),
-        _stream(dev))
+    plan_c = release_epilogue_plan(plan, stds, noise_kind, degenerate, mid,
+                                   min_v, selection, max_rows,
+                                   tables[1] if secure else None)
+    keys = epilogue_lane_table(
+        np.asarray(slot_keys, dtype=np.uint32).reshape(1, len(stds), 2),
+        None if selection is None else key_sel)
+    status, keep, outputs, flags = _launch_epilogue(
+        cols, plan_c, names, p, 1, dtype, tables[0] if secure else None,
+        keys)
     _raise_on(status, "release_epilogue")
     _count("release_epilogue_secure" if secure else "release_epilogue")
     return keep, outputs, flags
@@ -1801,23 +1943,36 @@ def factorize_codes(rows: torch.Tensor, n_distinct: Optional[int] = None):
     undefined: the caller raises). The plain version validates n_distinct
     and otherwise ignores it."""
     _check_hash_rows(rows)
-    n = rows.shape[0]
-    slots, probes = factorize_table_plan(n, n_distinct)
+    slots, probes = factorize_table_plan(rows.shape[0], n_distinct)
     if not _on_cuda(rows):
         return factorize_codes_plain(rows)
+    status, codes, n_unique, _ = _factorize_launch(rows, slots, probes)
+    _raise_on(status, "factorize_codes")
+    _count("factorize_codes")
+    return codes, n_unique
+
+
+def _factorize_launch(rows: torch.Tensor, slots: int, probes: int,
+                      heads_cap: int = 0):
+    """One C12 call on the card: (status, codes, n_unique, heads), heads
+    the int32 [heads_cap, 3] table at the front of the call's scratch
+    (None without one)."""
+    n = rows.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"factorize_codes: {n} rows exceed 2^31")
     dev = rows.device
     lib = cuda_build.library("factorize_codes")
-    scratch = torch.empty(max(1, lib.factorize_codes_scratch_bytes(n, slots)),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.empty(
+        max(1, lib.factorize_codes_scratch_bytes(n, slots, heads_cap)),
+        dtype=torch.uint8, device=dev)
     codes = torch.empty(n, dtype=torch.int32, device=dev)
     n_unique = torch.empty((), dtype=torch.int32, device=dev)
     status = lib.factorize_codes(_ptr(rows), n, slots, probes, _ptr(scratch),
-                                 _ptr(codes), _ptr(n_unique), _stream(dev))
-    _raise_on(status, "factorize_codes")
-    _count("factorize_codes")
-    return codes, n_unique
+                                 _ptr(codes), _ptr(n_unique), heads_cap,
+                                 _stream(dev))
+    heads = (scratch[:heads_cap * 12].view(torch.int32).view(heads_cap, 3)
+             if heads_cap else None)
+    return status, codes, n_unique, heads
 
 
 def factorize_codes_plain(rows):
@@ -2986,10 +3141,11 @@ def _device_words(words: np.ndarray, device) -> torch.Tensor:
 
 def _split_keys(keys: np.ndarray) -> np.ndarray:
     """The secure draw's split of every key of a [..., 2] stack: [..., 4],
-    (k1, k2) = split(key) (csrc/common.cuh secure_key, made on the host
-    once a launch)."""
+    (k1, k2) = (fold_in(key, 0), fold_in(key, 1)): the host twin of
+    csrc/common.cuh secure_key, equal to threefry.split(key, 2)."""
     keys = np.asarray(keys, dtype=np.uint32)
-    flat = [threefry.split(k, 2).reshape(4) for k in keys.reshape(-1, 2)]
+    flat = [np.concatenate([threefry.fold_in(k, 0), threefry.fold_in(k, 1)])
+            for k in keys.reshape(-1, 2)]
     return np.asarray(flat, dtype=np.uint32).reshape(keys.shape[:-1] + (4,))
 
 
@@ -3317,7 +3473,10 @@ def release_epilogue_lanes(cols: Dict[str, torch.Tensor],
     slot_keys[l] ([S, 2]) and key_sel[l], at counter p of partition l * P +
     p. tables (secure noise, release_epilogue_secure_lanes): the slots'
     (thr int64[S, 2K+1], gran float64[S]), shared by the lanes; lane l
-    searches with the words of split(slot_keys[l][s]) at element p.
+    searches with the words of split(slot_keys[l][s]) at element p, the
+    split made on the card. The keys go up as epilogue_lane_table's
+    [L, 2 + 2S] table: in the launch's parameters up to
+    EPILOGUE_LANE_WORDS words, else in one pinned copy.
     Returns (keep bool[L * P], {output: F[L * P]}, flags int32[L], one
     flag word a lane)."""
     count = cols["count"]
@@ -3341,37 +3500,12 @@ def release_epilogue_lanes(cols: Dict[str, torch.Tensor],
                                             noise_kind, degenerate, mid,
                                             min_v, selection, key_sel,
                                             max_rows, n_lanes, tables)
-    dev = count.device
-    keep = torch.empty(total, dtype=torch.bool, device=dev)
-    outputs = {o: torch.empty(total, dtype=dtype, device=dev) for o in names}
-    flags = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
-    rows = [key_sel, slot_keys.reshape(n_lanes, -1)]
-    if thr is not None:
-        rows.append(_split_keys(slot_keys).reshape(n_lanes, -1))
-    table = _device_words(np.concatenate(rows, 1), dev)
-    plan_c = (ctypes.c_int * max(1, 3 * len(plan)))(*[
-        v for kind, outs, off in plan
-        for v in (PLAN_KINDS[kind], sum(OUTPUT_BITS[o] for o in outs), off)
-    ])
-    stds_c = (ctypes.c_double * max(1, len(stds)))(*[float(s) for s in stds])
-    sel = (selection_ops.selection_scalars(selection)
-           if selection is not None else (0.0,) * 14)
-    sel_c = (ctypes.c_double * 14)(*sel)
-    misc_c = (ctypes.c_int * 3)(int(noise_kind == NoiseKind.GAUSSIAN),
-                                int(degenerate), int(selection is not None))
-    scal_c = (ctypes.c_double * 3)(float(mid), float(min_v), float(max_rows))
-    gran_c = (ctypes.c_double * max(1, len(stds)))(
-        *([float(g) for g in tables[1]] if thr is not None else
-          [0.0] * len(stds)))
-    status = cuda_build.library("release_epilogue").release_epilogue_lanes(
-        plan_c, len(plan), stds_c, len(stds), sel_c, misc_c, scal_c, p,
-        n_lanes, _ptr(table), _ptr(count), _ptr(cols["pid_count"]),
-        _ptr(cols.get("sum")), _ptr(cols.get("nsum")),
-        _ptr(cols.get("nsum2")), _ptr(keep), _ptr(outputs.get("count")),
-        _ptr(outputs.get("privacy_id_count")), _ptr(outputs.get("sum")),
-        _ptr(outputs.get("mean")), _ptr(outputs.get("variance")),
-        _ptr(flags), _ptr(thr), 0 if thr is None else thr.shape[-1], gran_c,
-        _f64(dtype), _stream(dev))
+    plan_c = release_epilogue_plan(plan, stds, noise_kind, degenerate, mid,
+                                   min_v, selection, max_rows,
+                                   None if thr is None else tables[1])
+    status, keep, outputs, flags = _launch_epilogue(
+        cols, plan_c, names, total, n_lanes, dtype, thr,
+        epilogue_lane_table(slot_keys, key_sel))
     name = ("release_epilogue_lanes" if thr is None else
             "release_epilogue_secure_lanes")
     _raise_on(status, name)
@@ -4006,164 +4140,107 @@ def reshard_exchange_plain(pid, pk, values, dest, rank, targets, fill):
 # C24 mesh_factorize
 
 
-def _check_mesh_sorted(rows: torch.Tensor, perm: torch.Tensor,
-                       what: str) -> int:
-    _check_hash_rows(rows, what)
+def mesh_heads_capacity(n: int, n_distinct: Optional[int] = None) -> int:
+    """Rows of mesh_local_uniques' heads table for a shard of n rows:
+    round_capacity of the most distinct hashes the shard can hold (n, or
+    the caller's global count n_distinct where smaller), so it holds the
+    uniq_cap (round_capacity of the largest shard count) of every shard
+    count within the hint."""
+    return round_capacity(n if n_distinct is None else min(int(n_distinct),
+                                                            n))
+
+
+def mesh_local_uniques(rows: torch.Tensor,
+                       n_distinct: Optional[int] = None):
+    """C24's local phase on one shard (K23b's per-shard sort and unique):
+    C12 over the shard's hash rows, its table sized by
+    factorize_table_plan(n, n_distinct), with its heads table. No sort.
+
+    Returns (lcode int32[n]: each row's local code, the rank of its hash
+    among the shard's distinct non-sentinel hashes by first row, -1 for a
+    sentinel or invalid row; n_new int32[]: that distinct count, -1 on the
+    card where n_distinct was too small for the table; heads int32[H, 3],
+    H = mesh_heads_capacity(n, n_distinct): slot k the shard's k-th
+    distinct hash by first row as a hash row (hi, lo, 1), the sentinel row
+    past n_new). The plain version validates n_distinct and otherwise
+    ignores it."""
+    _check_hash_rows(rows)
     n = rows.shape[0]
-    _check(perm, torch.int64, n, f"{what} perm")
-    return n
-
-
-def mesh_local_uniques(rows: torch.Tensor, perm: torch.Tensor,
-                       gpos_base: int, uniq_cap: Optional[int] = None):
-    """C24, one shard's uniques (K23b's per-shard phase): rows int32[n, 3]
-    hash rows and perm, their stable order by (hash_hi, hash_lo) (C5 over
-    the lanes as int32 words). A sorted position heads a run where its
-    hash differs from the previous one's and is not the sentinel.
-
-    Returns (lseg int32[n], each sorted position's run id; n_new int32[],
-    the head count; table). With uniq_cap None the table is None (the
-    unique-cap phase); else (t_hi, t_lo, t_pos) int32[uniq_cap]: head k's
-    lanes and global position gpos_base + row, the sentinel and INT32_MAX
-    past n_new. uniq_cap must be at least n_new."""
-    n = _check_mesh_sorted(rows, perm, "rows")
-    if gpos_base < 0 or gpos_base + n > _INT32_MAX:
-        raise ValueError(f"mesh_local_uniques: global positions "
-                         f"{gpos_base} + {n} exceed 2^31")
-    if uniq_cap is not None and not 0 <= uniq_cap <= _INT32_MAX:
-        raise ValueError(f"mesh_local_uniques: uniq_cap {uniq_cap}")
-    if not _on_cuda(rows, perm):
-        return mesh_local_uniques_plain(rows, perm, gpos_base, uniq_cap)
-    dev = rows.device
-    lib = cuda_build.library("mesh_factorize")
-    scratch = torch.empty(lib.mesh_scan_scratch_bytes(n), dtype=torch.uint8,
-                          device=dev)
-    lseg = torch.empty(n, dtype=torch.int32, device=dev)
-    n_new = torch.empty((), dtype=torch.int32, device=dev)
-    table = None
-    if uniq_cap is not None:
-        table = tuple(torch.empty(uniq_cap, dtype=torch.int32, device=dev)
-                      for _ in range(3))
-    t = table or (None, None, None)
-    status = lib.mesh_local_uniques(
-        _ptr(rows), _ptr(perm), n, gpos_base, uniq_cap or 0, _ptr(scratch),
-        _ptr(lseg), _ptr(n_new), _ptr(t[0]), _ptr(t[1]), _ptr(t[2]),
-        _stream(dev))
+    slots, probes = factorize_table_plan(n, n_distinct)
+    cap = mesh_heads_capacity(n, n_distinct)
+    if not _on_cuda(rows):
+        return mesh_local_uniques_plain(rows, n_distinct)
+    status, lcode, n_new, heads = _factorize_launch(rows, slots, probes, cap)
     _raise_on(status, "mesh_local_uniques")
     _count("mesh_local_uniques")
-    return lseg, n_new, table
+    return lcode, n_new, heads
 
 
-def _run_heads(hi: torch.Tensor, lo: torch.Tensor, perm: torch.Tensor):
-    """Plain versions' head mask over sorted positions (sentinel runs
-    excluded) and the run id of every position."""
-    shi, slo = hi[perm], lo[perm]
-    head = torch.ones(perm.shape[0], dtype=torch.bool, device=hi.device)
-    head[1:] = (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])
-    head &= ~((shi == -1) & (slo == -1))
-    return head, (torch.cumsum(head.to(torch.int64), 0) - 1).to(torch.int32)
-
-
-def mesh_local_uniques_plain(rows, perm, gpos_base, uniq_cap=None):
+def mesh_local_uniques_plain(rows, n_distinct=None):
+    n = rows.shape[0]
     dev = rows.device
-    head, lseg = _run_heads(rows[:, 0], rows[:, 1], perm)
-    n_new = head.sum().to(torch.int32)
-    if uniq_cap is None:
-        return lseg, n_new, None
-    at = perm[head][:uniq_cap]
-    k = at.shape[0]
-    t_hi = torch.full((uniq_cap,), -1, dtype=torch.int32, device=dev)
-    t_lo = torch.full((uniq_cap,), -1, dtype=torch.int32, device=dev)
-    t_pos = torch.full((uniq_cap,), _INT32_MAX, dtype=torch.int32,
-                       device=dev)
-    t_hi[:k] = rows[at, 0]
-    t_lo[:k] = rows[at, 1]
-    t_pos[:k] = (gpos_base + at).to(torch.int32)
-    return lseg, n_new, (t_hi, t_lo, t_pos)
+    lcode, n_new = factorize_codes_plain(rows)
+    real = torch.nonzero(~((rows[:, 0] == -1) & (rows[:, 1] == -1)))[:, 0]
+    _, inv = torch.unique(joined_hash_order(rows[real, 0], rows[real, 1]),
+                          return_inverse=True)
+    first = torch.full((int(n_new),), n, dtype=torch.int64, device=dev)
+    first = torch.sort(first.scatter_reduce_(0, inv, real, "amin")).values
+    heads = torch.full((mesh_heads_capacity(n, n_distinct), 3), -1,
+                       dtype=torch.int32, device=dev)
+    k = min(first.shape[0], heads.shape[0])
+    heads[:k, :2] = rows[first[:k], :2]
+    heads[:k, 2] = 1
+    return lcode, n_new, heads
 
 
-def mesh_merge_ranks(g_hi: torch.Tensor, g_lo: torch.Tensor,
-                     g_pos: torch.Tensor):
-    """C24, the merge of the gathered [D x uniq_cap] unique tables (K23b's
-    replicated merge, run once on the gathering device): a C5 sort by
-    (hi, lo, pos), the run heads (sentinels excluded) with each run's
-    first position scattered to first_by_u[run], a C5 sort of first_by_u,
-    and the rank of every slot's unique in first-position order.
-
-    Returns (remap int32[m]: the code of each gathered slot, -1 for a
-    sentinel slot; n_unique int32[])."""
-    m = g_hi.shape[0]
-    for t, name in ((g_hi, "g_hi"), (g_lo, "g_lo"), (g_pos, "g_pos")):
-        _check(t, torch.int32, m, name)
-    if not _on_cuda(g_hi, g_lo, g_pos):
-        return mesh_merge_ranks_plain(g_hi, g_lo, g_pos)
-    dev = g_hi.device
-    lib = cuda_build.library("mesh_factorize")
-    perm1 = radix_sort([g_hi, g_lo, g_pos])
-    scratch = torch.empty(lib.mesh_scan_scratch_bytes(m), dtype=torch.uint8,
-                          device=dev)
-    gseg = torch.empty(m, dtype=torch.int32, device=dev)
-    first_by_u = torch.empty(m, dtype=torch.int32, device=dev)
-    n_unique = torch.empty((), dtype=torch.int32, device=dev)
-    stream = _stream(dev)
-    _raise_on(lib.mesh_merge_heads(
-        _ptr(g_hi), _ptr(g_lo), _ptr(g_pos), _ptr(perm1), m, _ptr(scratch),
-        _ptr(gseg), _ptr(first_by_u), _ptr(n_unique), stream),
-        "mesh_merge_heads")
-    perm2 = radix_sort([first_by_u])
-    inv = torch.empty(m, dtype=torch.int32, device=dev)
-    remap = torch.empty(m, dtype=torch.int32, device=dev)
-    _raise_on(lib.mesh_merge_remap(
-        _ptr(g_hi), _ptr(g_lo), _ptr(perm1), _ptr(gseg), _ptr(perm2), m,
-        _ptr(inv), _ptr(remap), stream), "mesh_merge_remap")
+def mesh_merge_ranks(gathered: torch.Tensor,
+                     n_distinct: Optional[int] = None):
+    """C24's merge (K23b's replicated merge, run once on the gathering
+    device): C12 over the gathered [m = D x uniq_cap, 3] heads tables,
+    shard s's at rows [s * uniq_cap, (s + 1) * uniq_cap). A gathered slot's
+    index orders the distinct hashes as their global first positions do
+    (csrc/mesh_factorize.cu), so C12's first-row codes are the global
+    codes. Returns (remap int32[m]: the code of each gathered slot, -1 for
+    a sentinel slot; n_unique int32[], -1 on the card where n_distinct was
+    too small for the table)."""
+    _check_hash_rows(gathered, "gathered")
+    slots, probes = factorize_table_plan(gathered.shape[0], n_distinct)
+    if not _on_cuda(gathered):
+        return mesh_merge_ranks_plain(gathered, n_distinct)
+    status, remap, n_unique, _ = _factorize_launch(gathered, slots, probes)
+    _raise_on(status, "mesh_merge_ranks")
     _count("mesh_merge_ranks")
     return remap, n_unique
 
 
-def mesh_merge_ranks_plain(g_hi, g_lo, g_pos):
-    m = g_hi.shape[0]
-    dev = g_hi.device
-    perm1 = radix_sort_plain([g_hi, g_lo, g_pos])
-    head, gseg = _run_heads(g_hi, g_lo, perm1)
-    first_by_u = torch.full((m,), _INT32_MAX, dtype=torch.int32, device=dev)
-    first_by_u[gseg[head].to(torch.int64)] = g_pos[perm1[head]]
-    perm2 = radix_sort_plain([first_by_u])
-    inv = torch.empty(m, dtype=torch.int32, device=dev)
-    inv[perm2] = torch.arange(m, dtype=torch.int32, device=dev)
-    sentinel = (g_hi == -1) & (g_lo == -1)
-    remap = torch.empty(m, dtype=torch.int32, device=dev)
-    remap[perm1] = inv[gseg.clamp(min=0).to(torch.int64)]
-    remap[sentinel] = -1
-    return remap, head.sum().to(torch.int32)
+def mesh_merge_ranks_plain(gathered, n_distinct=None):
+    return factorize_codes_plain(gathered)
 
 
-def mesh_remap_rows(rows: torch.Tensor, perm: torch.Tensor,
-                    lseg: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
-    """C24, one shard's codes (K23b's per-shard remap): codes[perm[i]] =
-    remap[lseg[i]], or -1 for a sentinel or invalid row. remap is the
-    shard's [uniq_cap] window of mesh_merge_ranks' remap, on its device."""
-    n = _check_mesh_sorted(rows, perm, "rows")
-    _check(lseg, torch.int32, n, "lseg")
-    _check(remap, torch.int32, remap.shape[0], "remap")
-    if not _on_cuda(rows, perm, lseg, remap):
-        return mesh_remap_rows_plain(rows, perm, lseg, remap)
-    dev = rows.device
+def mesh_remap_rows(lcode: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
+    """C24's remap on one shard (K23b's per-shard remap): codes[r] =
+    window[lcode[r]], or -1 where lcode[r] is -1 (a sentinel or invalid
+    row). window is the shard's [uniq_cap] slice of mesh_merge_ranks'
+    remap, on its device."""
+    n = lcode.shape[0]
+    _check(lcode, torch.int32, n, "lcode")
+    _check(window, torch.int32, window.shape[0], "window")
+    if not _on_cuda(lcode, window):
+        return mesh_remap_rows_plain(lcode, window)
+    dev = lcode.device
     codes = torch.empty(n, dtype=torch.int32, device=dev)
-    status = cuda_build.library("mesh_factorize").mesh_remap_rows(
-        _ptr(rows), _ptr(perm), _ptr(lseg), n, _ptr(remap), remap.shape[0],
-        _ptr(codes), _stream(dev))
+    status = cuda_build.library("mesh_factorize").mesh_remap_codes(
+        _ptr(lcode), n, _ptr(window), window.shape[0], _ptr(codes),
+        _stream(dev))
     _raise_on(status, "mesh_remap_rows")
     _count("mesh_remap_rows")
     return codes
 
 
-def mesh_remap_rows_plain(rows, perm, lseg, remap):
-    cap = remap.shape[0]
-    seg = lseg.to(torch.int64)
-    ok = (seg >= 0) & (seg < cap)
-    sorted_codes = torch.where(ok, remap[seg.clamp(0, max(cap - 1, 0))]
-                               if cap else torch.full_like(lseg, -1), -1)
-    codes = torch.empty(rows.shape[0], dtype=torch.int32, device=rows.device)
-    codes[perm] = sorted_codes.to(torch.int32)
-    codes[_dropped_rows(rows)] = -1
-    return codes
+def mesh_remap_rows_plain(lcode, window):
+    cap = window.shape[0]
+    if cap == 0:
+        return torch.full_like(lcode, -1)
+    code = lcode.to(torch.int64)
+    return torch.where((code >= 0) & (code < cap),
+                       window[code.clamp(0, cap - 1)], -1).to(torch.int32)

@@ -139,27 +139,32 @@ def test_unique_cap_is_the_jax_pmax(d):
 
 
 def test_local_uniques_table_and_remap_entries():
-    """C24's per-shard entries on one shard: the compacted table holds each
-    hash's first row (sorted signed, sentinel excluded by value, padded
-    past n_new), and the remap writes -1 for sentinel and invalid rows."""
+    """C24's per-shard entries on one shard: the heads table holds each
+    hash's lanes in first-row order (sentinel excluded by value, padded
+    with the sentinel row past n_new), the local codes rank the hashes by
+    first row, a count hint sizes the table to round_capacity of it, and
+    the remap writes -1 for sentinel and invalid rows."""
     rows = FACTORIZE["invalid_and_pads"][:200]
     t = torch.from_numpy(np.ascontiguousarray(rows).view(np.int32))
-    perm = kernels.radix_sort([t[:, 0].contiguous(), t[:, 1].contiguous()])
-    lseg, n_new, table = kernels.mesh_local_uniques(t, perm, 1000, 64)
+    lcode, n_new, heads = kernels.mesh_local_uniques(t)
     sent = (rows[:, 0] == SENT) & (rows[:, 1] == SENT)
     assert int(n_new) == len({(a, b) for a, b in rows[~sent, :2]})
-    t_hi, t_lo, t_pos = (x.numpy() for x in table)
+    h = heads.numpy()
     k = int(n_new)
-    assert (t_hi[k:] == -1).all() and (t_lo[k:] == -1).all()
-    assert (t_pos[k:] == np.iinfo(np.int32).max).all()
-    for hi, lo, pos in zip(t_hi[:k], t_lo[:k], t_pos[:k]):
-        first = np.nonzero((rows[:, 0].view(np.int32) == hi) &
-                           (rows[:, 1].view(np.int32) == lo))[0][0]
-        assert pos == 1000 + first
-    assert kernels.mesh_local_uniques(t, perm, 0)[2] is None
-    codes = kernels.mesh_remap_rows(
-        t, perm, lseg, torch.arange(64, dtype=torch.int32))
+    assert h.shape == (kernels.mesh_heads_capacity(200), 3)
+    assert (h[k:] == -1).all() and (h[:k, 2] == 1).all()
+    firsts = [np.nonzero((rows[:, 0].view(np.int32) == hi) &
+                         (rows[:, 1].view(np.int32) == lo))[0][0]
+              for hi, lo in h[:k, :2]]
+    assert firsts == sorted(firsts)
     dropped = sent | (rows[:, 2] != 1)
+    want = np.array([firsts.index(np.nonzero(
+        (rows[:, 0] == a) & (rows[:, 1] == b))[0][0]) if not d else -1
+        for (a, b, _), d in zip(rows, dropped)])
+    np.testing.assert_array_equal(lcode.numpy(), want)
+    assert kernels.mesh_local_uniques(t, n_distinct=k)[2].shape == (
+        kernels.mesh_heads_capacity(200, k), 3)
+    codes = kernels.mesh_remap_rows(lcode, torch.arange(64, dtype=torch.int32))
     assert (codes.numpy()[dropped] == -1).all()
     assert (codes.numpy()[~dropped] >= 0).all()
 
@@ -169,10 +174,8 @@ def test_mesh_factorize_refuses_int32_overflow():
     rows = torch.from_numpy(FACTORIZE["ints"].view(np.int32))
     with pytest.raises(ValueError, match="2\\^31"):
         device_encode.mesh_factorize_kernel(mesh, rows, 1 << 29)
-    t = rows[:8].contiguous()
-    perm = kernels.radix_sort([t[:, 0].contiguous(), t[:, 1].contiguous()])
     with pytest.raises(ValueError, match="2\\^31"):
-        kernels.mesh_local_uniques(t, perm, (1 << 31) - 4, 8)
+        device_encode._check_positions(mesh, 1 << 29)
     with pytest.raises(ValueError, match="split evenly"):
         device_encode.mesh_factorize_codes(mesh, rows[:510])
 

@@ -12,10 +12,9 @@
 //    release_epilogue.cu, quantile_descend.cu and vector_release.cu;
 //  * NaN-propagating max / min (jnp.maximum / jnp.minimum), the release
 //    sentinel's flag bits of a value and their block-wide OR;
-//  * a block-wide exclusive scan over an associative operator, the
-//    single-block kernel that scans per-tile aggregates (pass 2 of the
-//    three-pass tile scans in compact_kept.cu and mesh_factorize.cu), with
-//    integer-sum and max operators;
+//  * a block-wide exclusive scan over an associative operator and a
+//    block's in-place scan of many values (reshard_count.cu's send
+//    counts), with integer-sum and max operators;
 //  * the decoupled look-back of the one-pass tile scans (tile aggregates
 //    and inclusive prefixes published under release / acquire flags),
 //    shared by reduce_partitions.cu, bound_rows.cu, group_stats.cu and
@@ -395,16 +394,6 @@ __device__ __forceinline__ void block_scan_in_place(typename Op::T* aggs,
     carry = Op::combine(carry, chunk);
   }
   if (total != nullptr && threadIdx.x == 0) *total = carry;
-}
-
-// Pass 2 of a tile scan: one block turns the per-tile aggregates into
-// exclusive per-tile prefixes, in place. With `total` not null it also
-// writes the aggregate of all tiles there.
-template <class Op>
-__global__ void scan_tile_aggregates(typename Op::T* aggs, long long n_tiles,
-                                     typename Op::T* total) {
-  __shared__ typename Op::T smem[32];
-  block_scan_in_place<Op>(aggs, n_tiles, smem, total);
 }
 
 // Integer sum, for counting scans.

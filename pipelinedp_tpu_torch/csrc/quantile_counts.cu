@@ -29,16 +29,28 @@
 //   quantile_child_counts  for every (partition, quantile) the counts of
 //                          the B children at one level of the node
 //                          node[p, q], over the rows below it: all
-//                          quantiles in one pass over the rows
+//                          quantiles in one pass over the rows. The lazy
+//                          descent's h passes share a leaf buffer
+//                          (int32, one a sorted row): the level-1 pass
+//                          gathers each row's value and writes its leaf
+//                          (-1 outside [0, P)), levels 2..h read skey2
+//                          and the buffer in order, 8 B a row, where the
+//                          gather reads two random 8-byte indices and a
+//                          random value (the JAX package computes
+//                          row_leaf once too, executor.py:403-405, :800)
 // Counts are integers, so atomics give the same result in any order. The
 // sorted order puts a warp's 32 rows in one or two partitions, where a
-// rating-like value falls on a few leaves: __match_any_sync groups the
-// lanes of equal counters and one lane adds the group's size, one atomic
-// per (warp, counter) instead of one a row.
+// rating-like value falls on a few leaves: the leaf histogram's
+// __match_any_sync groups the lanes of equal counters and one lane adds
+// the group's size, one atomic per (warp, counter) instead of one a row.
+// The child counts count a tile of 2048 rows in shared memory, a few
+// partitions' (quantile, child) counts, and flush each with one atomic:
+// the match cost a pass more than its reads from the leaf buffer.
 //
 // Bound: bytes. Each row reads skey2 (4 B), perm and row_perm (8 B each)
 // and its value (F), gathered; the histogram is P * L * 4 B, zero-filled
-// by the caller. The roll-ups read every level once.
+// by the caller. The roll-ups read every level once. A child-count pass
+// from the leaf buffer reads skey2 and the buffer (8 B a row).
 #include "common.cuh"
 
 namespace {
@@ -127,31 +139,107 @@ __global__ void rollup_kernel(const int* __restrict__ finer,
   coarser[i] = s;
 }
 
-template <typename F>
-__global__ void child_counts_kernel(Rows<F> rows, int shift, int branching,
-                                    const int* __restrict__ node, int n_q,
-                                    int* __restrict__ counts) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long key = -1;
-  long long p = 0;
-  int row_node = 0;
-  if (i < rows.n) {
-    p = rows.partition(i);
-    if (p >= 0) {
-      row_node = leaf_of(rows, rows.value(i)) / shift;
-      key = (p << 32) | row_node;
+// Where the child counts find a row's leaf: computed from its gathered
+// value and written to the leaf buffer, -1 for a row outside
+// [0, n_partitions) (kFill), or read from that buffer (kRead: no
+// permutation, no value, no float arithmetic).
+enum LeafMode { kFill = 1, kRead = 2 };
+
+// A block of the child counts takes kChildTile sorted rows, kChildRows a
+// thread (striped), and counts them in shared memory: the sorted rows of a
+// tile fall in a few partitions, [lo, hi] of the tile's rows (a block
+// reduction, no extra read), whose (quantile, child) counts the block
+// flushes with one atomic each. A tile whose partitions' counts exceed
+// kHistInts (rows out of order, or many quantiles) adds to the output
+// directly. (4 or 16 rows a thread, and a resident grid that loads the
+// next tile while it counts this one, each measured slower on the card.)
+constexpr int kChildThreads = 256;
+constexpr int kChildRows = 8;
+constexpr int kChildTile = kChildThreads * kChildRows;
+constexpr int kHistInts = 4096;
+
+template <typename F, int kMode>
+__global__ void __launch_bounds__(kChildThreads)
+    child_counts_kernel(Rows<F> rows, int shift, int branching,
+                        const int* __restrict__ node, int n_q,
+                        int* __restrict__ leaf_buf,
+                        int* __restrict__ counts) {
+  __shared__ int hist[kHistInts];
+  __shared__ int warp_lo[kChildThreads / 32], warp_hi[kChildThreads / 32];
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kChildTile;
+  const int group = n_q * branching;  // counts a partition
+  // Every row's partition (-1 outside [0, P)) and leaf first, so that
+  // their loads (and the gather's chains) are in flight together.
+  int p[kChildRows], leaf[kChildRows];
+  int lo = 0x7fffffff, hi = -1;
+#pragma unroll
+  for (int k = 0; k < kChildRows; ++k) {
+    const long long i = tile0 + k * kChildThreads + threadIdx.x;
+    p[k] = -1;
+    leaf[k] = -1;
+    if (i < rows.n) {
+      p[k] = static_cast<int>(rows.partition(i));
+      if constexpr (kMode == kRead) {
+        leaf[k] = leaf_buf[i];
+      } else if (p[k] >= 0) {
+        leaf[k] = leaf_of(rows, rows.value(i));
+      }
+    }
+    if (p[k] >= 0) {
+      lo = p[k] < lo ? p[k] : lo;
+      hi = p[k] > hi ? p[k] : hi;
     }
   }
-  const unsigned peers =
-      __match_any_sync(pdp::kFullMask, static_cast<unsigned long long>(key));
-  if (key < 0 || (threadIdx.x & 31) != __ffs(peers) - 1) return;
-  const int parent = row_node / branching, child = row_node % branching;
-  const int size = __popc(peers);
-  const long long base = p * n_q;
-  for (int q = 0; q < n_q; ++q) {
-    if (node[base + q] == parent)
-      atomicAdd(counts + (base + q) * branching + child, size);
+  if constexpr (kMode == kFill) {
+#pragma unroll
+    for (int k = 0; k < kChildRows; ++k) {
+      const long long i = tile0 + k * kChildThreads + threadIdx.x;
+      if (i < rows.n) leaf_buf[i] = p[k] >= 0 ? leaf[k] : -1;
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    lo = min(lo, __shfl_xor_sync(pdp::kFullMask, lo, d));
+    hi = max(hi, __shfl_xor_sync(pdp::kFullMask, hi, d));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    warp_lo[threadIdx.x >> 5] = lo;
+    warp_hi[threadIdx.x >> 5] = hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kChildThreads / 32; ++w) {
+    lo = min(lo, warp_lo[w]);
+    hi = max(hi, warp_hi[w]);
+  }
+  const long long width = static_cast<long long>(hi) - lo + 1;
+  const int span = width >= 1 && width * group <= kHistInts
+                       ? static_cast<int>(width) : 0;
+  const int cover = span * group;
+  for (int j = threadIdx.x; j < cover; j += kChildThreads) hist[j] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kChildRows; ++k) {
+    if (p[k] < 0 || leaf[k] < 0) continue;
+    const int row_node = leaf[k] / shift;
+    const int parent = row_node / branching, child = row_node % branching;
+    const int* nodes = node + static_cast<long long>(p[k]) * n_q;
+    const int slot = p[k] - lo;
+    const bool local = slot < span;
+    for (int q = 0; q < n_q; ++q) {
+      if (nodes[q] != parent) continue;
+      if (local) {
+        atomicAdd(hist + slot * group + q * branching + child, 1);
+      } else {
+        atomicAdd(counts + static_cast<long long>(p[k]) * group +
+                      q * branching + child, 1);
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < cover; j += kChildThreads) {
+    const int v = hist[j];
+    if (v != 0) atomicAdd(counts + static_cast<long long>(lo) * group + j, v);
   }
 }
 
@@ -177,13 +265,20 @@ int launch_child(const void* skey2, const void* perm, const void* row_perm,
                  const void* values, long long n, long long base,
                  int n_partitions, int n_leaves, int shift, int branching,
                  const void* node, int n_q, double min_v, double max_v,
-                 void* counts, cudaStream_t s) {
-  if (n <= 0) return 0;
+                 void* counts, void* leaf_buf, int mode, cudaStream_t s) {
   const Rows<F> rows = make_rows<F>(skey2, perm, row_perm, values, n, base,
                                     n_partitions, n_leaves, min_v, max_v);
-  child_counts_kernel<F><<<blocks_for(n, 256), 256, 0, s>>>(
-      rows, shift, branching, static_cast<const int*>(node), n_q,
-      static_cast<int*>(counts));
+  const unsigned blocks = blocks_for(n, kChildTile);
+  const int* nodes = static_cast<const int*>(node);
+  int* leaf = static_cast<int*>(leaf_buf);
+  int* out = static_cast<int*>(counts);
+  if (mode == kRead) {
+    child_counts_kernel<F, kRead><<<blocks, kChildThreads, 0, s>>>(
+        rows, shift, branching, nodes, n_q, leaf, out);
+  } else {
+    child_counts_kernel<F, kFill><<<blocks, kChildThreads, 0, s>>>(
+        rows, shift, branching, nodes, n_q, leaf, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -229,20 +324,27 @@ extern "C" int quantile_level_counts(void* const* levels, int n_partitions,
 
 // node: int32[n_partitions, n_q], nodes of level (level - 1); shift =
 // B^(h - level); counts: int32[n_partitions, n_q, B], zero-filled by the
-// caller. perm / base as for quantile_leaf_counts.
+// caller. perm / base as for quantile_leaf_counts. leaf_buf: int32[n];
+// leaf_mode a LeafMode (kRead reads skey2 and the buffer alone).
 extern "C" int quantile_child_counts(const void* skey2, const void* perm,
                                      const void* row_perm, const void* values,
                                      long long n, long long base,
                                      int n_partitions, int n_leaves,
                                      int shift, int branching,
                                      const void* node, int n_q, double min_v,
-                                     double max_v, void* counts, int f64,
+                                     double max_v, void* counts,
+                                     void* leaf_buf, int leaf_mode, int f64,
                                      void* stream) {
+  if (n <= 0) return 0;
+  if ((leaf_mode != kFill && leaf_mode != kRead) || leaf_buf == nullptr)
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? launch_child<double>(skey2, perm, row_perm, values, n, base,
                                     n_partitions, n_leaves, shift, branching,
-                                    node, n_q, min_v, max_v, counts, s)
+                                    node, n_q, min_v, max_v, counts, leaf_buf,
+                                    leaf_mode, s)
              : launch_child<float>(skey2, perm, row_perm, values, n, base,
                                    n_partitions, n_leaves, shift, branching,
-                                   node, n_q, min_v, max_v, counts, s);
+                                   node, n_q, min_v, max_v, counts, leaf_buf,
+                                   leaf_mode, s);
 }

@@ -97,19 +97,16 @@ _SIGNATURES = {
         "radix_sort": (_I, [_P, _P, _I, _LL, _P, _P, _P, _P, _P]),
     },
     "compact_kept": {
-        "compact_kept_scratch_bytes": (_LL, [_LL]),
-        "compact_kept": (_I, [_P, _LL, _P, _P, _P, _I, _I, _P, _P, _P,
-                              _P]),
-        "compact_kept_lanes_scratch_bytes": (_LL, [_LL, _LL]),
-        "compact_kept_lanes": (_I, [_P, _LL, _I, _P, _P, _P, _I, _I, _P, _P,
-                                    _P, _P]),
+        "compact_kept_blocks_per_sm": (_I, [_I]),
+        "compact_kept": (_I, [_P, _P, _P, _P, _P]),
     },
     "quantile_counts": {
         "quantile_leaf_counts": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _I, _D,
                                       _D, _P, _I, _P]),
         "quantile_level_counts": (_I, [_P, _I, _I, _I, _P]),
         "quantile_child_counts": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _I, _I,
-                                       _I, _P, _I, _D, _D, _P, _I, _P]),
+                                       _I, _P, _I, _D, _D, _P, _P, _I, _I,
+                                       _P]),
     },
     "quantile_descend": {
         "quantile_descend_dense": (_I, [_P, _LL, _P, _P, _P, _P, _P, _P, _P,

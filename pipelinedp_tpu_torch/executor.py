@@ -700,7 +700,8 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
     every level in one launch, noising node j of level l at counter
     p * B^l + j under fold_in(fold_in(qkey, 0), l - 1). Above that, each
     level's child counts (C7) and one descent step (C8) alternate: h
-    passes over the rows for every quantile together. With cfg.secure the
+    passes over the rows for every quantile together, the first gathering
+    each row's leaf into a buffer the other h - 1 read. With cfg.secure the
     nodes take the quantile slot's secure table (secure_tables).
 
     combine (the mesh): sorted_rows and values_rows are sequences, one
@@ -737,13 +738,14 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
     if n_lanes is not None:
         descent["n_lanes"] = n_lanes
 
-    def counted(count):
-        """count(skey2, perm, row_perm, values) of every shard, each under
-        its own device, summed by total."""
+    def counted(count, per_shard=None):
+        """count(skey2, perm, row_perm, values[, per_shard[s]]) of every
+        shard s, each under its own device, summed by total."""
         parts = []
-        for (perm, skey2), (row_perm, values) in shards:
+        for s, ((perm, skey2), (row_perm, values)) in enumerate(shards):
+            extra = () if per_shard is None else (per_shard[s],)
             with on_device(skey2.device):
-                parts.append(count(skey2, perm, row_perm, values))
+                parts.append(count(skey2, perm, row_perm, values, *extra))
         return total(parts)
 
     if dense_quantiles(cfg):
@@ -766,13 +768,19 @@ def quantile_outputs(sorted_rows, values_rows, min_v, max_v,
     else:
         state = kernels.DescentState(rows_p, len(cfg.quantiles), dtype,
                                      keep.device)
+        # Each shard's sorted rows get their leaf once (the level-1 pass
+        # fills the buffer, levels 2..h read it), as the JAX package's
+        # row_leaf (:403-405) serves every level (:800).
+        leaves = [torch.empty(skey2.shape[0], dtype=torch.int32,
+                              device=skey2.device)
+                  for (_, skey2), _ in shards]
         for level in range(1, h + 1):
             counts = counted(
-                lambda skey2, perm, row_perm, values, level=level:
+                lambda skey2, perm, row_perm, values, leaf, level=level:
                 kernels.quantile_child_counts(
                     skey2, perm, row_perm, values,
                     state.node.to(skey2.device), level=level, base=base,
-                    **tree))
+                    leaf=leaf, **tree), leaves)
             if n_lanes is None:
                 per_quantile = kernels.quantile_descend_step(
                     counts, state, cfg.quantiles, level=level, tree_height=h,

@@ -16,10 +16,18 @@ their plain PyTorch versions.
                                                      Onesweep, one launch a digit
                                                      pass after one digit-start
                                                      launch (radix_sort_plan)
-    C6 compact_kept       csrc/compact_kept.cu       kept-first compaction
+    C6 compact_kept       csrc/compact_kept.cu       kept-first compaction:
+                                                     one cooperative launch,
+                                                     a grid barrier between
+                                                     the tile counts and the
+                                                     scatter
     C7 quantile_counts    csrc/quantile_counts.cu    quantile-tree counts: leaf
                                                      histogram, level roll-ups,
                                                      child counts of a level
+                                                     (the leaf gathered once
+                                                     into a buffer the later
+                                                     levels read; counted as
+                                                     quantile_child_counts)
     C8 quantile_descend   csrc/quantile_descend.cu   node noise + descent (both
                                                      regimes), percentile flags
     C9 vector_release     csrc/vector_release.cu     norm-ball clip, noise, flags
@@ -116,16 +124,17 @@ CPU (the tests' path). On a CUDA tensor it never falls back: a failed build
 or launch raises. Outputs and scratch are allocated here with torch; the
 kernels allocate nothing. `launch_counts` counts wrapper calls that
 launched a kernel, under the name of the kernel's source, or of its
-compensated / secure / lane entry (C4 one launch, C6's tile scan three,
-C2, C3 and C17 one after their memsets (C3 one per four
+compensated / secure / lane entry (C4 one launch, C6 one a group of 32
+columns, C2, C3 and C17 one after their memsets (C3 one per four
 coordinates of a vector sum), C12 four or five after two memsets, a radix
 sort one a digit pass after a memset, the masks' launch and copy and one
 digit-start launch, C15 one a pass of its plan and one for the split); its
 increments are thread-safe, as the
 service's workers launch concurrently. No wrapper or kernel keeps host or
-device scratch between calls but C4's: its plan, cached under the exact
+device scratch between calls but C4's (its plan, cached under the exact
 values it is made of, and a per-stream accumulator of flag bits that
-every call leaves zeroed.
+every call leaves zeroed) and C6's (its plan, cached per layout, with the
+grid sized once a device from the kernel's occupancy).
 """
 
 import array
@@ -156,7 +165,9 @@ KERNELS = ("row_keys", "bound_rows", "reduce_partitions", "release_epilogue",
            "vector_release_secure", "block_offsets", "gather_rows",
            "reduce_partitions_windowed",
            "reduce_partitions_compensated_windowed",
-           "quantile_counts_windowed", "factorize_codes", "lookup_codes",
+           "quantile_counts_windowed", "quantile_child_counts",
+           "quantile_child_counts_windowed", "factorize_codes",
+           "lookup_codes",
            "append_rows", "pld_fft", "log_spectrum", "group_stats",
            "log_bins", "sweep_stats", "sweep_report", "row_keys_lanes",
            "bound_rows_lanes", "reduce_partitions_lanes",
@@ -202,9 +213,10 @@ def _count(name: str) -> None:
 
 
 def _on_cuda(*tensors: Optional[torch.Tensor]) -> bool:
-    devices = {t.device.type for t in tensors if t is not None}
-    if devices == {"cuda"}:
+    cuda = [t.is_cuda for t in tensors if t is not None]
+    if cuda and all(cuda):
         return True
+    devices = {t.device.type for t in tensors if t is not None}
     if devices == {"cpu"}:
         return False
     raise ValueError(f"kernel inputs must all lie on one device type, got "
@@ -1120,6 +1132,123 @@ def radix_sort_plain(words, sorted_top=False):
 # ---------------------------------------------------------------------------
 # C6 compact_kept
 
+# Partitions a C6 tile holds (pdp::kTile of csrc/common.cuh) and output
+# columns one launch carries (kMaxColumns of csrc/compact_kept.cu).
+COMPACT_TILE = 2048
+COMPACT_MAX_COLUMNS = 32
+_COMPACT_ALIGN = 256
+
+
+def compact_kept_grid(items: int, max_blocks: int) -> Tuple[int, int]:
+    """C6's grid over `items` tiles when the card holds max_blocks blocks
+    at once: (blocks, tiles a block), every block but the last taking the
+    same contiguous run."""
+    if max_blocks < 1:
+        raise ValueError(f"compact_kept: the card holds {max_blocks} blocks")
+    run = -(-items // max_blocks)
+    return -(-items // run), run
+
+
+@functools.lru_cache(maxsize=None)
+def _compact_max_blocks(device_index: int, elem: int) -> int:
+    """The blocks of C6's kernel (elem-byte columns) the card holds at once:
+    blocks an SM holds x SMs, asked once a device."""
+    with torch.cuda.device(device_index):
+        per_sm = cuda_build.library("compact_kept").compact_kept_blocks_per_sm(
+            elem)
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    if per_sm < 1:
+        raise RuntimeError(f"compact_kept: occupancy query failed "
+                           f"({per_sm})")
+    return per_sm * sms
+
+
+class _CompactPlan:
+    """C6's host plan for one layout: the C entry's words (PlanWord of
+    csrc/compact_kept.cu), the size of the call's one allocation, and each
+    output's (offset, shape, strides) in elements of its type."""
+
+    def __init__(self, p: int, n_lanes: int, shapes, elem: int,
+                 max_blocks: int, solo: bool):
+        tiles = max(1, -(-p // COMPACT_TILE))
+        grid, run = compact_kept_grid(n_lanes * tiles, max_blocks)
+        at = 0
+
+        def region(nbytes):
+            nonlocal at
+            start = at
+            at += -(-nbytes // _COMPACT_ALIGN) * _COMPACT_ALIGN
+            return start
+
+        order_at = region(n_lanes * p * 8)
+        n_kept_at = region(n_lanes * 8)
+        counts_at = region(n_lanes * tiles * 4)
+        cols = []
+        for shape in shapes:
+            width = int(np.prod(shape[1 if solo else 2:], dtype=np.int64))
+            cols.append((width, region(n_lanes * p * width * elem), shape))
+        self.nbytes = max(at, _COMPACT_ALIGN)
+        self.words = array.array("q", [
+            p, n_lanes, tiles, run, grid, elem, len(cols), order_at,
+            n_kept_at, counts_at] + [v for w, off, _ in cols
+                                     for v in (w, off)])
+        order_shape = (p,) if solo else (n_lanes, p)
+        self.order = (order_at // 8, order_shape, (p, 1)[-len(order_shape):])
+        self.n_kept = (n_kept_at // 8, () if solo else (n_lanes,),
+                       () if solo else (1,))
+        self.columns = [(off // elem, shape,
+                         tuple(int(np.prod(shape[d + 1:], dtype=np.int64))
+                               for d in range(len(shape))))
+                        for _, off, shape in cols]
+
+
+@functools.lru_cache(maxsize=256)
+def _compact_plan(p: int, n_lanes: int, shapes, elem: int, device_index: int,
+                  solo: bool) -> _CompactPlan:
+    return _CompactPlan(p, n_lanes, shapes, elem,
+                        _compact_max_blocks(device_index, elem), solo)
+
+
+def _compact_outputs(plan: _CompactPlan, columns: Dict[str, torch.Tensor],
+                     dev):
+    """The call's one allocation (plan.nbytes) and its views: n_kept,
+    order and every output column, in the inputs' dtypes and shapes."""
+    buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+    words = buf.view(torch.int64)
+    typed = {torch.int64: words}
+    out = {}
+    for (name, col), (off, shape, stride) in zip(columns.items(),
+                                                  plan.columns):
+        base = typed.get(col.dtype)
+        if base is None:
+            base = typed[col.dtype] = buf.view(col.dtype)
+        out[name] = base.as_strided(shape, stride, off)
+    return (buf, words.as_strided(plan.n_kept[1], plan.n_kept[2],
+                                  plan.n_kept[0]),
+            words.as_strided(plan.order[1], plan.order[2], plan.order[0]),
+            out)
+
+
+def _launch_compact(keep: torch.Tensor, columns: Dict[str, torch.Tensor],
+                    shapes, p: int, n_lanes: int, elem: int, solo: bool,
+                    name: str):
+    """One C6 call: the cached plan, one allocation holding order, n_kept,
+    the tile counts and every output column, one ctypes call."""
+    dev = keep.device
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    plan = _compact_plan(p, n_lanes, shapes, elem, index, solo)
+    buf, n_kept, order, out = _compact_outputs(plan, columns, dev)
+    in_ptrs = array.array("q", [c.data_ptr() for c in columns.values()] or
+                          [0])
+    status = cuda_build.library("compact_kept").compact_kept(
+        keep.data_ptr(), plan.words.buffer_info()[0],
+        in_ptrs.buffer_info()[0], buf.data_ptr(), _stream(dev))
+    _raise_on(status, name)
+    _count(name)
+    return n_kept, order, out
+
 
 def compact_kept(keep: torch.Tensor, columns: Dict[str, torch.Tensor]):
     """Kept-first compaction: order holds the kept ids ascending, then the
@@ -1127,41 +1256,27 @@ def compact_kept(keep: torch.Tensor, columns: Dict[str, torch.Tensor]):
     nonzero(keep)), and every column is gathered into that order. A column
     is [P] or [P, D] (a vector per partition, gathered whole).
 
+    On the card one cooperative launch a group of 32 columns (a plan
+    cached per layout; order, n_kept and the columns views of one
+    allocation).
     Returns (n_kept int64[], order int64[P], {name: column in order}).
     """
     p = keep.shape[0]
     _check(keep, torch.bool, p, "keep")
-    elem = {c.element_size() for c in columns.values()}
-    for name, col in columns.items():
-        if col.dim() not in (1, 2) or col.shape[0] != p or \
+    shapes = tuple(tuple(c.shape) for c in columns.values())
+    for (name, col), shape in zip(columns.items(), shapes):
+        if len(shape) not in (1, 2) or shape[0] != p or \
                 not col.is_contiguous():
             raise ValueError(f"{name}: expected contiguous [{p}] or "
-                             f"[{p}, D], got {list(col.shape)}")
+                             f"[{p}, D], got {list(shape)}")
+    elem = {c.element_size() for c in columns.values()}
     if len(elem) > 1 or not elem <= {4, 8}:
         raise ValueError(f"compact_kept: columns must share a 4- or 8-byte "
                          f"dtype, got {[c.dtype for c in columns.values()]}")
     if not _on_cuda(keep, *columns.values()):
         return compact_kept_plain(keep, columns)
-    dev = keep.device
-    lib = cuda_build.library("compact_kept")
-    out = {name: torch.empty_like(col) for name, col in columns.items()}
-    order = torch.empty(p, dtype=torch.int64, device=dev)
-    n_kept = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = torch.empty(max(1, lib.compact_kept_scratch_bytes(p)),
-                          dtype=torch.uint8, device=dev)
-    in_c = (ctypes.c_void_p * len(columns))(
-        *[c.data_ptr() for c in columns.values()])
-    out_c = (ctypes.c_void_p * len(columns))(
-        *[out[name].data_ptr() for name in columns])
-    widths = (ctypes.c_int * len(columns))(
-        *[1 if c.dim() == 1 else c.shape[1] for c in columns.values()])
-    status = lib.compact_kept(_ptr(keep), p, in_c, out_c, widths,
-                              len(columns), elem.pop() if elem else 8,
-                              _ptr(scratch), _ptr(order), _ptr(n_kept),
-                              _stream(dev))
-    _raise_on(status, "compact_kept")
-    _count("compact_kept")
-    return n_kept, order, out
+    return _launch_compact(keep, columns, shapes, p, 1,
+                           elem.pop() if elem else 8, True, "compact_kept")
 
 
 def compact_kept_plain(keep, columns):
@@ -1304,46 +1419,71 @@ def quantile_child_counts(skey2: torch.Tensor, perm: Optional[torch.Tensor],
                           values: torch.Tensor, node: torch.Tensor, *,
                           level: int, tree_height: int, branching: int,
                           min_v: float, max_v: float,
-                          base: Optional[int] = None) -> torch.Tensor:
+                          base: Optional[int] = None,
+                          leaf: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """C7 (c): for every partition p and quantile q, the counts of the B
     children at `level` (1..h) of node[p, q] (a node of level - 1), over
     the kept rows whose level-`level` node lies under it: int32[P, n_q, B].
     One pass over the rows serves every quantile; the counts equal the JAX
     package's per-quantile segment sums (_lazy_quantile_outputs, :796).
     base: the windowed entry, as for quantile_leaf_counts.
+
+    leaf (the lazy descent's h passes over the same rows): an int32[n]
+    buffer, one a sorted row, that the level-1 pass fills with each row's
+    leaf (-1 for a row outside [0, P)) and levels 2..h read in place of
+    the gather (skey2 and the buffer alone: no permutation, no value).
+    None: the level gathers (on the card into a buffer of the call's
+    own). Counted as quantile_child_counts (or
+    quantile_child_counts_windowed).
     """
     _check_rows(skey2, perm, row_perm, values)
+    _check(leaf, torch.int32, skey2.shape[0], "leaf")
     p, n_q = node.shape
     if node.dtype != torch.int32 or not node.is_contiguous():
         raise ValueError(f"node: expected contiguous int32[P, n_q], got "
                          f"{node.dtype}{list(node.shape)}")
     if not 1 <= level <= tree_height:
         raise ValueError(f"level {level} outside 1..{tree_height}")
-    if not _on_cuda(skey2, perm, row_perm, values, node):
+    if not _on_cuda(skey2, perm, row_perm, values, node, leaf):
         return quantile_child_counts_plain(
             skey2, perm, row_perm, values, node, level=level,
             tree_height=tree_height, branching=branching, min_v=min_v,
-            max_v=max_v, base=base)
+            max_v=max_v, base=base, leaf=leaf)
     dev = skey2.device
     counts = torch.zeros(p, n_q, branching, dtype=torch.int32, device=dev)
+    mode = 2 if leaf is not None and level > 1 else 1  # read, or fill
+    if leaf is None:
+        leaf = torch.empty(skey2.shape[0], dtype=torch.int32, device=dev)
     status = cuda_build.library("quantile_counts").quantile_child_counts(
         _ptr(skey2), _ptr(perm), _ptr(row_perm), _ptr(values),
         skey2.shape[0], int(base or 0), p, branching**tree_height,
         branching**(tree_height - level), branching, _ptr(node), n_q,
-        float(min_v), float(max_v), _ptr(counts), _f64(values.dtype),
-        _stream(dev))
-    _raise_on(status, "quantile_counts")
-    _count(_quantile_counts_name(base))
+        float(min_v), float(max_v), _ptr(counts), _ptr(leaf), mode,
+        _f64(values.dtype), _stream(dev))
+    name = ("quantile_child_counts" if base is None else
+            "quantile_child_counts_windowed")
+    _raise_on(status, name)
+    _count(name)
     return counts
 
 
 def quantile_child_counts_plain(skey2, perm, row_perm, values, node, *,
                                 level, tree_height, branching, min_v, max_v,
-                                base=None):
+                                base=None, leaf=None):
     p_all, n_q = node.shape
-    p, leaf = _kept_leaves(skey2, perm, row_perm, values, p_all,
-                           branching**tree_height, min_v, max_v, base)
-    row_node = leaf // branching**(tree_height - level)
+    n_leaves = branching**tree_height
+    rel = skey2.to(torch.int64) - (base or 0)
+    kept = (rel >= 0) & (rel < p_all)
+    if leaf is not None and level > 1:
+        row_leaf = leaf.to(torch.int64)
+    else:
+        row_leaf = leaf_indices(sorted_rows(perm, row_perm, values), min_v,
+                                max_v, n_leaves)
+        if leaf is not None:
+            leaf.copy_(torch.where(kept, row_leaf, -1))
+    p, row_leaf = rel[kept], row_leaf[kept]
+    row_node = row_leaf // branching**(tree_height - level)
     match = node.to(torch.int64)[p] == (row_node // branching)[:, None]
     slot = ((p[:, None] * n_q + torch.arange(n_q, device=p.device)) *
             branching + (row_node % branching)[:, None])
@@ -3765,9 +3905,10 @@ def compact_kept_lanes(keep: torch.Tensor, columns: Dict[str, torch.Tensor],
                        n_lanes: int):
     """C6's lane entry: keep and every column hold L lanes of P partitions
     ([L * P] or [L, P]; a vector column [L * P, D] or [L, P, D], moved
-    whole); each lane is compacted kept-first on its own. Returns (n_kept
-    int64[L], order int64[L, P] of lane-local ids, {name: [L, P] (or [L,
-    P, D]) in each lane's order})."""
+    whole); each lane is compacted kept-first on its own, the L x tiles
+    as one flat range of C6's launch. Returns (n_kept int64[L], order
+    int64[L, P] of lane-local ids, {name: [L, P] (or [L, P, D]) in each
+    lane's order})."""
     total = keep.numel()
     if n_lanes < 1 or total % n_lanes:
         raise ValueError(f"compact_kept_lanes: {total} partitions are not "
@@ -3785,32 +3926,12 @@ def compact_kept_lanes(keep: torch.Tensor, columns: Dict[str, torch.Tensor],
         raise ValueError(f"compact_kept_lanes: columns must share a 4- or "
                          f"8-byte dtype, got "
                          f"{[c.dtype for c in columns.values()]}")
-    if n_lanes > _MAX_GRID_Y:
-        raise ValueError(f"compact_kept_lanes: {n_lanes} lanes exceed "
-                         f"{_MAX_GRID_Y}")
     if not _on_cuda(keep, *columns.values()):
         return compact_kept_lanes_plain(keep, columns, n_lanes)
-    dev = keep.device
-    lib = cuda_build.library("compact_kept")
-    out = {name: torch.empty_like(col) for name, col in columns.items()}
-    order = torch.empty(n_lanes, p, dtype=torch.int64, device=dev)
-    n_kept = torch.empty(n_lanes, dtype=torch.int64, device=dev)
-    scratch = torch.empty(
-        max(1, lib.compact_kept_lanes_scratch_bytes(p, n_lanes)),
-        dtype=torch.uint8, device=dev)
-    in_c = (ctypes.c_void_p * max(1, len(columns)))(
-        *[c.data_ptr() for c in columns.values()])
-    out_c = (ctypes.c_void_p * max(1, len(columns)))(
-        *[out[name].data_ptr() for name in columns])
-    widths = (ctypes.c_int * max(1, len(columns)))(
-        *[1 if c.dim() == 2 else c.shape[2] for c in columns.values()])
-    status = lib.compact_kept_lanes(_ptr(keep), p, n_lanes, in_c, out_c,
-                                    widths, len(columns),
-                                    elem.pop() if elem else 8, _ptr(scratch),
-                                    _ptr(order), _ptr(n_kept), _stream(dev))
-    _raise_on(status, "compact_kept_lanes")
-    _count("compact_kept_lanes")
-    return n_kept, order, out
+    return _launch_compact(keep, columns,
+                           tuple(tuple(c.shape) for c in columns.values()),
+                           p, n_lanes, elem.pop() if elem else 8, False,
+                           "compact_kept_lanes")
 
 
 def compact_kept_lanes_plain(keep, columns, n_lanes):

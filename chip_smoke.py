@@ -352,6 +352,22 @@ counts in shared memory) add:
              (quantile_child_counts, counted apart from the histogram and
              roll-ups) and each level's time, and the profile checks that
              every C6 call is one device operation
+The rebuilt C22 (one pass over tiles of 4096 rows, a look-back a bucket,
+the tile's totals published as soon as its rows are loaded) and C23 (one
+launch: a tile's rows laid out in shared memory bucket by bucket and
+written as runs, the padding from blocks past the tiles) add:
+  2. kernels after C6's and C7's edges (c22_c23_edge_phase): C22 at D = 1,
+             2, 3, 4, 8, 32 and 64 on 0, 1, 4095-4097 and 614,477 rows
+             (150 tiles), ids at random, no row valid, one destination,
+             pid and valid views out of phase; C23 at D = 1-32 on C22's
+             and its own tile edges, no values, float32 / float64 [n],
+             [n, 5] and [n, 7], own columns and staged slices, the fill
+             from 0, from the received rows and none: each == its plain
+             version and equal to itself over two calls
+             (c22_c23_split_phase, under --splits: split[...] lines and
+             the device operations a call of C22 and C23 at one shard of
+             2^24 rows on 4 slots, V = 1 and 5; C23 one operation a
+             call, C22 at most two)
 The failure semantics and elastic meshes of the meshed drivers
 (runtime/retry.py, faults.py, entry.py) and K23c (parallel/mesh.py
 collective_heartbeat on C21's int32 entry) add, last of all:
@@ -380,9 +396,9 @@ the build, the data and the failure-semantics phases alone;
 (a), (b), (f), (h), (q), (v), meshed (q), (x), (y), the histogram call,
 S2b's 16 lanes and the hash_device pod ingest (with its mesh_factorize
 stage) alone, so that one call can time two trees of the port in turns;
-`python3 chip_smoke.py --splits` the build, c4_c24_split_phase and
-c6_c7_split_phase alone, on this tree or, for the same comparison, its
-parent's.
+`python3 chip_smoke.py --splits` the build, c4_c24_split_phase,
+c6_c7_split_phase and c22_c23_split_phase alone, on this tree or, for
+the same comparison, its parent's.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -608,6 +624,7 @@ def main() -> int:
     c4_c24_split_phase(torch, dev, kernels, executor, device_encode, ingest,
                        users, card)
     c6_c7_edge_phase(torch, dev, kernels)
+    c22_c23_edge_phase(torch, dev, kernels)
     report += ingest_kernel_phase(
         torch, dev, {"users": (users, encoded.pid),
                      "movies": (movies, encoded.pk),
@@ -4469,17 +4486,278 @@ def c6_c7_split_phase(torch, dev, kernels, card):
         del stream, nodes, leaf
 
 
+def c22_one_destination_pids(torch, dev, kernels, n, d, gen):
+    """n pids that C22 sends to destination 0 of d (salt 0)."""
+    out = [torch.empty(0, dtype=torch.int32, device=dev)]
+    while sum(t.shape[0] for t in out) < n:
+        cand = torch.randint(0, 1 << 31, (4 * n + 64,), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+        out.append(cand[kernels.dest_shard(cand, d, 0) == 0])
+    return torch.cat(out)[:n]
+
+
+def c22_c23_rows(torch, dev, kernels, n, d, pattern, gen, pid_at=0,
+                 valid_at=None):
+    """pid and valid of n rows as views `pid_at` / `valid_at` elements into
+    larger buffers: pattern "random" (ids over 2n + 1, 9 in 10 valid),
+    "invalid" (no row valid) or "one" (every row valid, every id to
+    destination 0)."""
+    valid_at = pid_at if valid_at is None else valid_at
+    if pattern == "one":
+        pid = c22_one_destination_pids(torch, dev, kernels, n, d, gen)
+    else:
+        pid = torch.randint(0, 2 * n + 1, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    if pattern == "invalid":
+        valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    elif pattern == "one":
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+    else:
+        valid = torch.rand(n, generator=gen, device=dev) < 0.9
+    pid_buf = torch.empty(n + pid_at, dtype=torch.int32, device=dev)
+    valid_buf = torch.empty(n + valid_at, dtype=torch.bool, device=dev)
+    pid_buf[pid_at:] = pid
+    valid_buf[valid_at:] = valid
+    return pid_buf[pid_at:], valid_buf[valid_at:]
+
+
+def c23_buffers(torch, dev, cap, values, at):
+    """(pid, pk, values, valid) receive columns of cap rows, views `at`
+    elements into their buffers, filled with a pattern the exchange must
+    leave where it writes nothing."""
+    def view(t):
+        return t[at:]
+    pid = view(torch.full((cap + at,), -7, dtype=torch.int32, device=dev))
+    pk = view(torch.full((cap + at,), -9, dtype=torch.int32, device=dev))
+    valid = view(torch.arange(cap + at, device=dev) % 3 == 0)
+    vals = None
+    if values is not None:
+        vals = view(torch.full((cap + at,) + tuple(values.shape[1:]), -3.5,
+                               dtype=values.dtype, device=dev))
+    return pid, pk, vals, valid
+
+
+def c23_case(torch, dev, kernels, pid, valid, d, values, kind, fill_at,
+             target_at, gen, rng):
+    """C23 on one source against its plain version, twice: the targets are
+    the destinations' own columns (kind "own": rng offsets before the run,
+    slack after it, the source's own receive buffer also its fill) or
+    staged slices of count rows at offset 0 (kind "staged", a separate
+    fill buffer); fill_at "start" fills from 0 (a buffer that receives
+    nothing), "end" fills nothing, "recv" from the received rows on."""
+    n = pid.shape[0]
+    dest, rank, counts = kernels.reshard_count(pid, valid, d)
+    counts = counts.cpu().numpy()
+    pk = torch.randint(-5, 1 << 20, (n + 1,), generator=gen, device=dev,
+                       dtype=torch.int32)[1:]
+    before = rng.integers(0, 6, d) if kind == "own" else np.zeros(d, int)
+    after = rng.integers(0, 9, d) if kind == "own" else np.zeros(d, int)
+    caps = before + counts[:d] + after
+    recv = int(before[0] + counts[0] + after[0])
+    out_cap = recv + int(rng.integers(0, 7000))
+
+    def build():
+        outs = [c23_buffers(torch, dev, int(caps[t]) if (t or kind !=
+                                                        "own") else out_cap,
+                            values, target_at) for t in range(d)]
+        if kind == "own":
+            start = {"start": 0, "end": out_cap, "recv": recv}[fill_at]
+            if fill_at == "start":
+                fill = c23_buffers(torch, dev, out_cap, values, target_at)
+            else:
+                fill = outs[0]
+        else:
+            fill = c23_buffers(torch, dev, out_cap, values, target_at)
+            start = {"start": 0, "end": out_cap, "recv": recv}[fill_at]
+        targets = [outs[t] + (int(before[t]),) for t in range(d)]
+        return targets, fill + (start,)
+
+    runs = []
+    for exchange in (kernels.reshard_exchange, kernels.reshard_exchange_plain,
+                     kernels.reshard_exchange):
+        targets, fill = build()
+        exchange(pid, pk, values, dest, rank, targets, fill)
+        runs.append([c for t in targets for c in t[:4]] + list(fill[:4]))
+    torch.cuda.synchronize()
+    for j, (got, want, again) in enumerate(zip(*runs)):
+        if got is None:
+            continue
+        check_equal(f"reshard_exchange column {j}", got, want)
+        check_equal(f"reshard_exchange column {j} twice", again, got)
+
+
+def c22_c23_edge_phase(torch, dev, kernels):
+    """C22's and C23's edge cases on the card, every output == its plain
+    version and equal to itself over two calls. C22 (one pass over tiles
+    of RESHARD_TILE rows, a look-back a bucket) at D = 1, 2, 3, 4, 8
+    (ballots), 32 and 64 (__match_any_sync): 0 rows, 1, a tile less one,
+    a tile, a tile and one and 150 tiles and 77 rows (a look-back over
+    more than 100 tiles); ids at random, no row valid, every row to one
+    destination; pid views 1, 2 and 3 rows into their buffers, and valid
+    out of pid's phase. C23 (one launch: tiles of EXCHANGE_TILE rows staged
+    in shared memory, the padding from blocks past them) at D = 1, 2, 3,
+    4, 8 and 32 on the same sizes (but the long run: C23 has no
+    look-back) and C23's own tile edges: no values,
+    float32 and float64 [n] and [n, 5] (staged in shared memory) and
+    float64 [n, 7] (read in place), the destinations' own columns and
+    staged slices, views 1-3 elements into their buffers, the fill from
+    0, from the received rows and none."""
+    from pipelinedp_tpu_torch import cuda_build
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    rng = np.random.default_rng(SEED + 22)
+    t22, t23 = cuda_build.RESHARD_TILE, cuda_build.EXCHANGE_TILE
+    long_run = 150 * t22 + 77
+    sizes = (0, 1, t22 - 1, t22, t22 + 1, long_run)
+    c22 = c23 = 0
+
+    def count_agrees(label, pid, valid, d):
+        got, again = (kernels.reshard_count(pid, valid, d) for _ in
+                      range(2))
+        want = kernels.reshard_count_plain(pid, valid, d)
+        for what, a, b, c in zip(("dest", "rank", "counts"), got, again,
+                                 want):
+            check_equal(f"reshard_count {label} {what}", a, c)
+            check_equal(f"reshard_count {label} {what} twice", b, a)
+
+    for d in (1, 2, 3, 4, 8, 32, 64):
+        for n in sizes:
+            views = [("random", 0, None), ("invalid", 0, None),
+                     ("one", 0, None)]
+            if n:
+                views += [("random", 1, None), ("random", 2, None),
+                          ("random", 3, None), ("random", 1, 2)]
+            for pattern, pid_at, valid_at in views:
+                pid, valid = c22_c23_rows(torch, dev, kernels, n, d, pattern,
+                                          gen, pid_at, valid_at)
+                count_agrees(f"D={d} n={n} {pattern} pid+{pid_at} valid+"
+                             f"{pid_at if valid_at is None else valid_at}",
+                             pid, valid, d)
+                c22 += 1
+    torch.cuda.synchronize()
+    f32, f64 = torch.float32, torch.float64
+    # [n, 7] float64 rows (56 B) are wider than C23 stages: read in place.
+    value_kinds = (None, (f32, ()), (f64, ()), (f32, (5,)), (f64, (5,)),
+                   (f64, (7,)))
+    # C23 has no look-back: its own tile edges and C22's, no long run.
+    for d in (1, 2, 3, 4, 8, 32):
+        for n in sorted(set(sizes[:-1] + (t23 - 1, t23, t23 + 1))):
+            for j, spec in enumerate(value_kinds):
+                pattern = ("random", "random", "one", "invalid",
+                           "random", "random")[j] if n else "random"
+                pid, valid = c22_c23_rows(torch, dev, kernels, n, d, pattern,
+                                          gen, j % 4)
+                values = None
+                if spec is not None:
+                    values = torch.randn((n + 1,) + spec[1], generator=gen,
+                                         device=dev, dtype=spec[0])[1:] \
+                        if j % 2 else torch.randn(
+                            (n,) + spec[1], generator=gen, device=dev,
+                            dtype=spec[0])
+                c23_case(torch, dev, kernels, pid, valid, d, values,
+                         ("own", "staged")[j % 2],
+                         ("recv", "start", "end")[(j + d) % 3], (j * 3) % 4,
+                         gen, rng)
+                c23 += 1
+    torch.cuda.synchronize()
+    print(f"kernels[C22 and C23 edges]: C22 at D = 1, 2, 3, 4, 8, 32 and "
+          f"64, n = {', '.join(str(n) for n in sizes)} (tiles of {t22}), "
+          f"ids at random / no row valid / one destination, views 1-3 "
+          f"rows in and valid out of pid's phase: {c22} cases; C23 at D = "
+          f"1, 2, 3, 4, 8 and 32 on those sizes but the last and "
+          f"{t23 - 1}, {t23}, "
+          f"{t23 + 1} (tiles of {t23}), no values / float32 / float64, "
+          f"[n], [n, 5] and [n, 7], own columns and staged slices, views 0-3 "
+          f"elements in, fill from 0 / from the received rows / none: "
+          f"{c23} cases; each == its plain version and equal to itself run "
+          f"to run", flush=True)
+
+
+def c22_c23_split_phase(torch, dev, kernels, users, card):
+    """The three-way split (three_way) and the device operations a call
+    (device_ops) of C22 and C23 on one shard of the 2^24 Netflix rows on 4
+    slots (2^22 rows, the users as pids, every row valid), V = 1 and 5
+    float32, each held == its plain version first. On this tree C23 is one
+    device operation a call and C22 at most two (the status words' memset
+    and the kernel). Run by --splits."""
+    n, d = N_ROWS // 4, 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    pid = torch.as_tensor(users[:n].astype(np.int32)).to(dev)
+    pk = torch.randint(0, N_MOVIES, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    dest, rank, counts = kernels.reshard_count(pid, valid, d)
+    for got, want in zip((dest, rank, counts),
+                         kernels.reshard_count_plain(pid, valid, d)):
+        check_equal("reshard_count split shard", got, want)
+    counts = counts.cpu().numpy()
+    out_cap = round_up(int(counts[:d].max()), 1 << 12)
+    fns = {"C22 reshard_count": lambda: kernels.reshard_count(pid, valid,
+                                                              d)}
+    bounds = {"C22 reshard_count": bound(n * (4 + 1 + 4 + 4), n * 40)}
+    for width in (1, 5):
+        vals = torch.rand((n,) if width == 1 else (n, width), generator=gen,
+                          device=dev)
+        made = []
+        for _ in range(2):
+            outs = [reshard_rows(torch, dev, out_cap, vals) for _ in
+                    range(d)]
+            made.append(([o + (0,) for o in outs],
+                         outs[0] + (int(counts[0]),)))
+        kernels.reshard_exchange(pid, pk, vals, dest, rank, *made[0])
+        kernels.reshard_exchange_plain(pid, pk, vals, dest, rank, *made[1])
+        for j in range(d):
+            for c in range(4):
+                check_equal(f"reshard_exchange split V={width}",
+                            made[0][0][j][c], made[1][0][j][c])
+        pad = out_cap - int(counts[0])
+        name = f"C23 reshard_exchange V={width}"
+        fns[name] = (lambda v=vals, m=made[0]:
+                     kernels.reshard_exchange(pid, pk, v, dest, rank, *m))
+        bounds[name] = bound(n * 8 + n * (4 + 4 + 4 * width) * 2 + n +
+                             pad * (4 + 4 + 4 * width + 1), n)
+    rebuilt = hasattr(kernels, "reshard_count_plan")
+    for name, fn in fns.items():
+        for _ in range(3):
+            ops = device_ops(torch, fn)
+            if ops != "not traced":
+                break
+        most = 2 if name.startswith("C22") else 1
+        if rebuilt and ops != "not traced" and ops["total"] > most:
+            raise AssertionError(f"{name}: {ops}")
+        b_ms, b_by = bounds[name]
+        print(f"c22_c23[{name}, {n} rows, D={d}]: device operations a call "
+              f"{json.dumps(ops)}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    fns["torch.bincount (C22's yardstick)"] = lambda: torch.bincount(
+        dest.long(), minlength=d + 1)
+    print_three_way(f"C22 and C23, one shard of 2^24 rows on {d} slots",
+                    three_way(torch, fns, host_calls=200), card)
+
+
+def round_up(x, multiple):
+    return -(-x // multiple) * multiple
+
+
+def reshard_rows(torch, dev, cap, values):
+    """Receive columns (pid, pk, values, valid) of cap rows, zeroed."""
+    return (torch.zeros(cap, dtype=torch.int32, device=dev),
+            torch.zeros(cap, dtype=torch.int32, device=dev),
+            torch.zeros((cap,) + tuple(values.shape[1:]), dtype=values.dtype,
+                        device=dev),
+            torch.zeros(cap, dtype=torch.bool, device=dev))
+
+
 def splits_only(torch, cuda_build, kernels, executor, device_encode, ingest,
                 card, t0):
     """python3 chip_smoke.py --splits: the build, the Netflix users,
-    c4_c24_split_phase and c6_c7_split_phase, nothing else (the same
-    script on two trees in turns compares them)."""
+    c4_c24_split_phase, c6_c7_split_phase and c22_c23_split_phase,
+    nothing else (the same script on two trees in turns compares them)."""
     print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
           f"{cuda_build.build_all():.1f} s ({card})", flush=True)
     users, _, _ = netflix_rows(np.random.default_rng(SEED))
     c4_c24_split_phase(torch, torch.device("cuda"), kernels, executor,
                        device_encode, ingest, users, card)
     c6_c7_split_phase(torch, torch.device("cuda"), kernels, card)
+    c22_c23_split_phase(torch, torch.device("cuda"), kernels, users, card)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,11 +38,15 @@ SORT_MAX_WORDS = 4   # C5: key words a sort takes
 SORT_MAX_RUNS = 4    # C5: runs of varying bits a word's packed key holds
 SORT_DIGIT_BITS = 8  # C5: bits a digit pass sorts
 SORT_TILE = 4096     # C5: rows a sweep pass's block ranks
+RESHARD_TILE = 4096  # C22: rows a block counts and ranks
+EXCHANGE_TILE = 1024  # C23: rows a block stages
 DEFINES = {
     "radix_sort": {"PDP_SORT_MAX_WORDS": SORT_MAX_WORDS,
                    "PDP_SORT_MAX_RUNS": SORT_MAX_RUNS,
                    "PDP_SORT_DIGIT_BITS": SORT_DIGIT_BITS,
                    "PDP_SORT_TILE": SORT_TILE},
+    "reshard_count": {"PDP_RESHARD_TILE": RESHARD_TILE},
+    "reshard_exchange": {"PDP_EXCHANGE_TILE": EXCHANGE_TILE},
 }
 
 _P = ctypes.c_void_p
@@ -179,12 +183,11 @@ _SIGNATURES = {
         "combine_stack": (_I, [_P, _I, _LL, _I, _I, _P, _P]),
     },
     "reshard_count": {
-        "reshard_count_scratch_elements": (_LL, [_LL, _I]),
-        "reshard_count": (_I, [_P, _P, _LL, _I, _U, _P, _P, _P, _P, _P]),
+        "reshard_count": (_I, [_P, _P, _LL, _I, _U, _P, _P, _P, _P, _LL,
+                               _P]),
     },
     "reshard_exchange": {
         "reshard_exchange": (_I, [_P, _P, _P, _I, _I, _P, _P, _LL, _I, _P,
-                                  _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
                                   _P]),
     },
     "mesh_factorize": {

@@ -79,9 +79,14 @@ their plain PyTorch versions.
                                                      launch the same kernel
     C22 reshard_count     csrc/reshard_count.cu      destination shard, send
                                                      counts and stable rank of
-                                                     every row
+                                                     every row: one pass, a
+                                                     look-back a bucket
     C23 reshard_exchange  csrc/reshard_exchange.cu   every row written to its
-                                                     slot on its destination
+                                                     slot on its destination:
+                                                     tiles staged in shared
+                                                     memory bucket by bucket,
+                                                     the padding in the same
+                                                     launch
     C24 mesh_factorize    csrc/mesh_factorize.cu     first-occurrence codes of
                                                      row-sharded key hashes:
                                                      C12's table a shard and
@@ -2563,10 +2568,33 @@ def log_spectrum_accumulate(spectra: torch.Tensor, weights: torch.Tensor,
     _count("log_spectrum")
 
 
+# torch's intra-op grain: a CPU elementwise call over at most this many
+# elements runs on the calling thread, in one piece.
+_INLINE_ELEMENTS = 32768
+
+
+def _inline(op, x: torch.Tensor) -> torch.Tensor:
+    """op(x) of an elementwise torch op; on the CPU in pieces of
+    _INLINE_ELEMENTS, each run on the calling thread. A call over the
+    whole tensor is split over the intra-op thread team, and on a loaded
+    machine the process's first such calls of torch.log gave a few
+    elements other bits than every later call did, enough to move an
+    epsilon bisection by a step (tests/test_torch_pld.py's composition
+    of counts [2, 3, 1, 2]); in pieces, every call gives the bits the
+    later whole-tensor calls give."""
+    if x.is_cuda:
+        return op(x)
+    flat = x.reshape(-1)
+    out = torch.empty(flat.shape, dtype=op(flat[:1]).dtype)
+    for at in range(0, flat.shape[0], _INLINE_ELEMENTS):
+        out[at:at + _INLINE_ELEMENTS] = op(flat[at:at + _INLINE_ELEMENTS])
+    return out.view(x.shape)
+
+
 def log_spectrum_accumulate_plain(spectra, weights, acc):
     w = weights[:, None]
-    re = (w * torch.log(torch.abs(spectra))).sum(0)
-    im = (w * torch.angle(spectra)).sum(0)
+    re = (w * _inline(torch.log, torch.abs(spectra))).sum(0)
+    im = (w * _inline(torch.angle, spectra)).sum(0)
     acc += torch.complex(re, im)
 
 
@@ -4117,15 +4145,44 @@ def dest_shard(pid: torch.Tensor, n_shards: int, salt: int) -> torch.Tensor:
     return (_hash_mix(x) % n_shards).to(torch.int32)
 
 
+RESHARD_TILE = cuda_build.RESHARD_TILE
+
+
+def reshard_count_plan(n: int, n_shards: int) -> Tuple[int, int]:
+    """(tiles, scratch bytes) of C22 over n rows: tiles of RESHARD_TILE
+    rows laid in pid's 16-byte phase (up to 3 rows before the first tile's
+    first row), and the scratch the call clears: the tile counter (256 B)
+    and one 8-byte status word a (tile, bucket), n_shards + 1 buckets."""
+    tiles = -(-(n + 3) // RESHARD_TILE) if n > 0 else 0
+    return tiles, 256 + tiles * (n_shards + 1) * 8
+
+
+@functools.lru_cache(maxsize=1024)
+def reshard_count_layout(n: int, n_shards: int, phase: int,
+                         lead: int) -> Tuple[int, int, int, int, int]:
+    """Where C22's outputs lie in one int32 allocation whose element `lead`
+    (< 64) is its first on a 256-byte boundary: (scratch, dest, rank,
+    counts) element offsets and the length the allocation needs. dest and
+    rank start `phase` elements past a 16-byte boundary, pid's phase, so
+    the kernel stores them four rows at a time."""
+    _, scratch_bytes = reshard_count_plan(n, n_shards)
+    dest_at = lead + -(-scratch_bytes // 256) * 64 + phase
+    rank_at = dest_at + -(-n // 4) * 4
+    counts_at = rank_at + n
+    return lead, dest_at, rank_at, counts_at, counts_at + n_shards + 1
+
+
 def reshard_count(pid: torch.Tensor, valid: torch.Tensor, n_shards: int,
                   salt: int = 0):
     """C22: every row's destination shard, the per-destination counts and
-    every row's stable rank within its destination.
+    every row's stable rank within its destination, in one pass (one
+    launch after the memset of its status words).
 
     Returns (dest int32[n]: dest_shard of a valid row, n_shards of an
     invalid one; rank int32[n]: the number of earlier rows with the same
     dest; counts int32[n_shards + 1]: rows a destination, the invalid
-    last)."""
+    last). On the card the three are views of one allocation with the
+    call's scratch (reshard_count_layout)."""
     n = pid.shape[0]
     _check(pid, torch.int32, n, "pid")
     _check(valid, torch.bool, n, "valid")
@@ -4134,16 +4191,18 @@ def reshard_count(pid: torch.Tensor, valid: torch.Tensor, n_shards: int,
     if not _on_cuda(pid, valid):
         return reshard_count_plain(pid, valid, n_shards, salt)
     dev = pid.device
-    lib = cuda_build.library("reshard_count")
-    scratch = torch.empty(
-        max(1, lib.reshard_count_scratch_elements(n, n_shards)),
-        dtype=torch.int32, device=dev)
-    dest = torch.empty(n, dtype=torch.int32, device=dev)
-    rank = torch.empty_like(dest)
-    counts = torch.empty(n_shards + 1, dtype=torch.int32, device=dev)
-    status = lib.reshard_count(_ptr(pid), _ptr(valid), n, n_shards,
-                               int(salt) & _M32, _ptr(dest), _ptr(rank),
-                               _ptr(counts), _ptr(scratch), _stream(dev))
+    phase = (pid.data_ptr() >> 2) & 3
+    buf = torch.empty(reshard_count_layout(n, n_shards, phase, 63)[-1],
+                      dtype=torch.int32, device=dev)
+    at, dest_at, rank_at, counts_at, _ = reshard_count_layout(
+        n, n_shards, phase, (-(buf.data_ptr() >> 2)) & 63)
+    dest = buf[dest_at:dest_at + n]
+    rank = buf[rank_at:rank_at + n]
+    counts = buf[counts_at:counts_at + n_shards + 1]
+    status = cuda_build.library("reshard_count").reshard_count(
+        _ptr(pid), _ptr(valid), n, n_shards, int(salt) & _M32, _ptr(dest),
+        _ptr(rank), _ptr(counts), buf.data_ptr() + 4 * at,
+        4 * (dest_at - phase - at), _stream(dev))
     _raise_on(status, "reshard_count")
     _count("reshard_count")
     return dest, rank, counts
@@ -4224,20 +4283,25 @@ def reshard_exchange(pid: torch.Tensor, pk: torch.Tensor,
         raise ValueError("reshard_exchange: every target must lie on the "
                          "source shard's device (stage a slice for a shard "
                          "elsewhere)")
-
-    def ptrs(k):
-        return (ctypes.c_void_p * n_shards)(*[_ptr(t[k]) for t in targets])
-
-    offsets = (ctypes.c_longlong * n_shards)(*[int(t[4]) for t in targets])
-    f_pid, f_pk, f_values, f_valid, f_start = fill
+    table = reshard_exchange_table(targets, fill)
     status = cuda_build.library("reshard_exchange").reshard_exchange(
         _ptr(pid), _ptr(pk), _ptr(values), width,
         0 if values is None else values.element_size(), _ptr(dest),
-        _ptr(rank), n, n_shards, ptrs(0), ptrs(1), ptrs(2), ptrs(3), offsets,
-        _ptr(f_pid), _ptr(f_pk), _ptr(f_values), _ptr(f_valid),
-        int(f_start), f_pid.shape[0], _stream(dev))
+        _ptr(rank), n, n_shards, table.buffer_info()[0], _stream(dev))
     _raise_on(status, "reshard_exchange")
     _count("reshard_exchange")
+
+
+def reshard_exchange_table(targets, fill) -> array.array:
+    """C23's packed parameter words (int64): the targets' pid, pk, values
+    and valid pointers and their offsets, one run of D each, then the
+    fill's pid, pk, values and valid pointers, its start and its end (the
+    buffer's rows). A missing values column is 0."""
+    words = [_ptr(t[k]) or 0 for k in range(4) for t in targets]
+    words += [int(t[4]) for t in targets]
+    words += [_ptr(c) or 0 for c in fill[:4]] + [int(fill[4]),
+                                                 fill[0].shape[0]]
+    return array.array("q", words)
 
 
 def reshard_exchange_plain(pid, pk, values, dest, rank, targets, fill):

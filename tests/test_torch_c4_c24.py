@@ -30,7 +30,7 @@ import torch
 from pipelinedp_tpu import device_encode as jax_device_encode
 from pipelinedp_tpu import ingest as jax_ingest
 from pipelinedp_tpu.parallel import make_mesh as jax_make_mesh
-from pipelinedp_tpu_torch import device_encode, ingest, kernels
+from pipelinedp_tpu_torch import columnar, device_encode, ingest, kernels
 from pipelinedp_tpu_torch.aggregate_params import (NoiseKind,
                                                    PartitionSelectionStrategy)
 from pipelinedp_tpu_torch.ops import selection_ops, threefry
@@ -263,6 +263,27 @@ def test_sortless_factorize_matches_jax(case, d):
         with pytest.raises(RuntimeError, match="n_distinct"):
             device_encode.mesh_factorize_codes(mesh, t,
                                                n_distinct=n_want - 1)
+
+
+def test_reference_mesh_factorize_short_shard_raises():
+    # A fault of the reference (ROADMAP.md Queue 3): the JAX kernel slices
+    # chi[:uniq_cap] (pipelinedp_tpu/device_encode.py:356), and uniq_cap,
+    # round_capacity of the largest shard's distinct count, can exceed a
+    # shard's rows: here D = 2, 29 distinct hashes a shard, uniq_cap 32.
+    # The port's factorize of the same rows gives the first-occurrence
+    # codes columnar.factorize gives.
+    keys = np.random.default_rng(21).permutation(58)
+    rows = hash_rows(keys)
+    assert round_capacity(29) == 32
+    with pytest.raises(ValueError):
+        jax_device_encode.mesh_factorize_codes(jax_make_mesh(n_devices=2),
+                                               jnp.asarray(rows))
+    codes, n = device_encode.mesh_factorize_codes(
+        make_mesh(["cpu"] * 2), torch.from_numpy(rows.view(np.int32)))
+    pairs = (rows[:, 0].astype(np.uint64) << np.uint64(32)) | rows[:, 1]
+    want, vocab = columnar.factorize(pairs)
+    np.testing.assert_array_equal(host(codes), want)
+    assert n == len(vocab) == 58
 
 
 @pytest.mark.parametrize("d", [2, 3, 4, 8])

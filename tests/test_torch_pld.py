@@ -195,6 +195,27 @@ def test_pld_fft_plain_matches_numpy(rows, length):
     np.testing.assert_allclose(back.numpy(), x, rtol=0, atol=1e-14)
 
 
+@pytest.mark.parametrize("op", [torch.log, torch.angle],
+                         ids=["log", "angle"])
+def test_log_spectrum_plain_ops_run_inline_with_the_whole_tensors_bits(op):
+    # C16's plain accumulate takes log and angle in pieces of at most the
+    # intra-op grain, each on the calling thread: a whole-tensor call,
+    # split over the thread team, gave a few elements other bits in a
+    # loaded process's first calls (counts0 of
+    # test_compose_plain_device_path_within_1e9). In pieces the bits are
+    # the whole-tensor call's: the composed PLDs do not move.
+    rng = np.random.default_rng(11)
+    n = 5 * (kernels._INLINE_ELEMENTS // 2 + 3)
+    x = torch.complex(torch.from_numpy(rng.normal(size=n)),
+                      torch.from_numpy(rng.normal(size=n))).reshape(5, -1)
+    x[1, 7] = 0
+    arg = torch.abs(x) if op is torch.log else x
+    got = kernels._inline(op, arg)
+    assert got.shape == arg.shape and got.dtype == torch.float64
+    assert torch.equal(got, op(arg))
+    assert kernels._inline(op, arg[:0]).shape == (0, arg.shape[1])
+
+
 def test_log_spectrum_plain_matches_host_math():
     rng = np.random.default_rng(3)
     spec = rng.normal(size=(4, 33)) + 1j * rng.normal(size=(4, 33))

@@ -368,6 +368,30 @@ written as runs, the padding from blocks past the tiles) add:
              the device operations a call of C22 and C23 at one shard of
              2^24 rows on 4 slots, V = 1 and 5; C23 one operation a
              call, C22 at most two)
+The rebuilt C20 (two launches: a tile's bucket sums in one pass over
+(configuration, partition), each bucket's lanes in lane order and the
+block's warps in warp order, then the tiles' sums in tile order) and C8
+(one launch a call: a warp's lanes draw each distinct node's children
+once, in parallel, and each walk descends on its own lane; the cummax,
+columns and flags in the same launch; quantiles and lane keys in the
+launch's parameters) add:
+  2. kernels after C22's and C23's edges (c20_c8_edge_phase): C20 at P =
+             0, 1, 255-257, 2^14 in one bucket and 3000 over every bucket
+             but five, K = 1 and 64 (every selector kind), M = 1 and 2,
+             public and private, float64 within SWEEP_F64_RTOL and
+             float32 within SWEEP_F32_BOUND of the plain version, and K =
+             1 over 2^20 + 300 partitions; C8 at 1, 3, 32, 33 and 49
+             quantiles and unsorted ones with ties, heights 1-8, B = 2, 16
+             and 64, both regimes, secure and not, lanes 1 x 17,770, 16 x
+             17,770 and 40 x 4000, two releases in a row with other
+             quantile tuples: every walk at the plain version's node,
+             values within 1e-5, flags equal, the same bits twice, each
+             case's first C8 call under torch.cuda.set_sync_debug_mode(
+             "error") (c20_c8_split_phase, under --splits: split[...] lines
+             and the device operations a call of C20 at (A) and (B),
+             float32 and float64, and of C8's lazy step, four steps, dense
+             entry and lane steps at the main path's shapes; C8 one
+             operation a call, C20 at most two)
 The failure semantics and elastic meshes of the meshed drivers
 (runtime/retry.py, faults.py, entry.py) and K23c (parallel/mesh.py
 collective_heartbeat on C21's int32 entry) add, last of all:
@@ -397,8 +421,8 @@ the build, the data and the failure-semantics phases alone;
 S2b's 16 lanes and the hash_device pod ingest (with its mesh_factorize
 stage) alone, so that one call can time two trees of the port in turns;
 `python3 chip_smoke.py --splits` the build, c4_c24_split_phase,
-c6_c7_split_phase and c22_c23_split_phase alone, on this tree or, for
-the same comparison, its parent's.
+c6_c7_split_phase, c22_c23_split_phase and c20_c8_split_phase alone, on
+this tree or, for the same comparison, its parent's.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
 """
@@ -565,8 +589,8 @@ def main() -> int:
     if "--walls" in sys.argv[1:]:
         return walls_only(torch, tdp, cuda_build, columnar, card, t0)
     if "--splits" in sys.argv[1:]:
-        return splits_only(torch, cuda_build, kernels, executor,
-                           device_encode, ingest, card, t0)
+        return splits_only(torch, tdp, cuda_build, columnar, kernels,
+                           executor, device_encode, ingest, card, t0)
 
     # 1. build -------------------------------------------------------------
     build_s = cuda_build.build_all()
@@ -625,6 +649,7 @@ def main() -> int:
                        users, card)
     c6_c7_edge_phase(torch, dev, kernels)
     c22_c23_edge_phase(torch, dev, kernels)
+    c20_c8_edge_phase(torch, dev, tdp, kernels, executor)
     report += ingest_kernel_phase(
         torch, dev, {"users": (users, encoded.pid),
                      "movies": (movies, encoded.pk),
@@ -4733,6 +4758,495 @@ def c22_c23_split_phase(torch, dev, kernels, users, card):
                     three_way(torch, fns, host_calls=200), card)
 
 
+def c20_edge_inputs(torch, dev, f, K, P, M, public, sizes, rng, sel_rows):
+    """C20's arguments for one edge case (seeded numpy draws): n_users 1 to
+    3000 privacy ids, sizes as given, statistics whose raw sums are at
+    least 1, Poisson-binomial moments mu = n_users x a keep fraction (one
+    partition in eight with var 0 and a half-integer mu: rint), noise stds
+    1-50 and the selector rows sel_rows [8, >= K]."""
+    from pipelinedp_tpu_torch.analysis import kernels as ak
+    users = rng.integers(1, 3001, P).astype(np.float64)
+    raw = users[None, :, None] * rng.uniform(1.0, 5.0, (K, P, M))
+    stats = np.stack([np.round(raw), -0.1 * raw * rng.random((K, P, M)),
+                      -0.1 * raw * rng.random((K, P, M)),
+                      -0.2 * raw * rng.random((K, P, M)),
+                      raw * rng.random((K, P, M))], -1)
+    frac = rng.uniform(0.05, 1.0, (K, P))
+    mu = users[None, :] * frac
+    var = mu * (1.0 - frac) * rng.uniform(0.2, 1.0, (K, P))
+    third = var * rng.uniform(-0.5, 0.5, (K, P))
+    degenerate = rng.random((K, P)) < 0.125
+    mu = np.where(degenerate, np.floor(mu) + 0.5, mu)
+    var = np.where(degenerate, 0.0, var)
+    sel = np.stack([mu, var, third], -1)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=f, device=dev)
+
+    return (t(stats), None if public else t(sel), t(users),
+            t(sizes), t(rng.uniform(1.0, 50.0, (K, M))),
+            t(sel_rows[:, :K]),
+            torch.tensor(ak.BUCKET_BOUNDS, dtype=f, device=dev))
+
+
+def c20_selectors(tdp, K):
+    """Selector rows [8, K] of the sweep's 64 configurations (truncated
+    geometric at (1, 1e-6)), every third configuration from the second
+    switched to Laplace thresholding and every third from the third to
+    Gaussian thresholding (threshold 5-50, scale 1-10)."""
+    cfg, _ = sweep_config(tdp, [tdp.Metrics.COUNT])
+    rows = np.stack([np.asarray(x, np.float64) for x in cfg[4:]])[:, :K]
+    rows = rows.copy()
+    for k in range(K):
+        if k % 3:
+            rows[0, k] = float(k % 3)
+            rows[6, k] = 5.0 + 45.0 * ((k * 7) % 11) / 10.0
+            rows[7, k] = 1.0 + 9.0 * ((k * 5) % 7) / 6.0
+    return rows
+
+
+def c8_counts(torch, node, B, level, salt):
+    """Child counts int32[rows, n_q, B] of the lazy regime that depend only
+    on (row, node, child): walks at one node read the same counts, as C7
+    gives them. 0-96, about one in ten 0."""
+    rows = node.shape[0]
+    r = torch.arange(rows, device=node.device, dtype=torch.int64)[:, None,
+                                                                  None]
+    b = torch.arange(B, device=node.device, dtype=torch.int64)
+    x = (r * 1000003 + node.long()[..., None] * 7919 + b * 104729 +
+         level * 31 + salt) % 2147483647
+    x = (x * 48271) % 2147483647
+    x = x % 107
+    return torch.where(x < 10, 0, x - 10).to(torch.int32).contiguous()
+
+
+def without_sync(torch, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): a call that
+    synchronizes the stream raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def c20_c8_edge_phase(torch, dev, tdp, kernels, executor):
+    """C20's and C8's edge cases on the card. C20 (a tile's sums in one
+    pass, the tiles' in order): P = 0, 1, a round less one, a round, a
+    round and one (255-257), 2^14 in one bucket, 3000 spread over every
+    bucket but five (empty), K = 1 and 64 (selectors of every kind), M = 1
+    and 2, public and private, float64 within SWEEP_F64_RTOL of the plain
+    version and float32 within SWEEP_F32_BOUND of the float32 plain version
+    on the reports' scales (sweep_f32_errors), buckets and the dataset
+    partition counts equal, each call equal to itself over two calls; and
+    K = 1 over 2^20 + 300 partitions (tiles of two rounds). C8: 1, 3, 32
+    (the by-value limit), 33 and 49 quantiles and unsorted ones with ties,
+    heights 1-8 and B = 2, 16 and 64, secure and not, the lazy regime over
+    17,770 movies and 1000 partitions, the dense one over 116 years, the
+    lane entries at 1 x 17,770, 16 x 17,770 and 40 x 4000 (their key table
+    by value and, 40 secure dense lanes, past it), two releases in a row
+    with different tuples of 49 quantiles; every walk ends at the plain
+    version's node (each lazy level; the dense solo entry's leaves),
+    values within 1e-5, flags equal, each call equal to itself over two
+    calls, and each wrapper's first call of a case under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from pipelinedp_tpu_torch.analysis import error_model as em
+    from pipelinedp_tpu_torch.analysis import kernels as ak
+    from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+    from pipelinedp_tpu_torch.ops import threefry
+    rng = np.random.default_rng(SEED + 20)
+    nb = len(ak.BUCKET_BOUNDS)
+    bounds = np.asarray(ak.BUCKET_BOUNDS, np.float64)
+    selectors = c20_selectors(tdp, 64)
+    empty = {3, 7, 12, 20, nb - 1}
+    spread = np.array([bounds[i] + (bounds[i + 1] - bounds[i]) * 0.5
+                       if i + 1 < nb else bounds[i] * 2.0
+                       for i in range(nb) if i not in empty])
+    sizes = {0: np.zeros(0), 1: np.array([37.0]),
+             255: rng.integers(1, 60, 255).astype(np.float64),
+             256: rng.integers(1, 60, 256).astype(np.float64),
+             257: rng.integers(1, 60, 257).astype(np.float64),
+             1 << 14: np.full(1 << 14, 1024.0),
+             3000: spread[rng.integers(0, len(spread), 3000)]}
+    c20 = 0
+
+    def c20_case(f, K, P, M, public, size):
+        args = c20_edge_inputs(torch, dev, f, K, P, M, public, size, rng,
+                               selectors)
+        got, again = (kernels.sweep_report(*args, public=public)
+                      for _ in range(2))
+        want = kernels.sweep_report_plain(*args, public=public)
+        tag = (f"sweep_report edge ({str(f)[6:]}, K={K}, P={P}, M={M}, "
+               f"{'public' if public else 'private'})")
+        for name, a, b in zip(("bucket", "keep_prob", "bucket_rows",
+                               "bucket_info"), got, again):
+            check_equal(f"{tag} {name} twice", a, b)
+        check_equal(f"{tag} bucket", got[0], want[0])
+        check_equal(f"{tag} dataset partitions", got[3][..., em.N_DATASET],
+                    want[3][..., em.N_DATASET])
+        if f == torch.float64:
+            for name, g, w in zip(("keep_prob", "bucket_rows",
+                                   "bucket_info"), got[1:], want[1:]):
+                check_close(f"{tag} {name}", g.reshape(-1), w.reshape(-1),
+                            SWEEP_F64_RTOL, SWEEP_F64_RTOL)
+        else:
+            same = (args[0], args[0] if args[1] is None else args[1])
+            errs = sweep_f32_errors(em, same, got, same, want)
+            bad = {k: v for k, v in errs.items() if not v <= SWEEP_F32_BOUND}
+            if bad:
+                raise AssertionError(f"{tag}: beyond {SWEEP_F32_BOUND} of "
+                                     f"the plain version: {bad}")
+        return 1
+
+    for f in (torch.float64, torch.float32):
+        for K, M, public in ((1, 1, False), (1, 2, True), (64, 1, False),
+                             (64, 2, False), (64, 1, True), (64, 2, True)):
+            for P, size in sizes.items():
+                c20 += c20_case(f, K, P, M, public, size)
+    c20 += c20_case(torch.float64, 1, (1 << 20) + 300, 1, False,
+                    rng.integers(1, 5000, (1 << 20) + 300).astype(float))
+    print(f"c20_c8_edge_phase: {c20} C20 cases == / within the gates of "
+          f"their plain versions, the same bits twice", flush=True)
+
+    # C8 ------------------------------------------------------------------
+    f32 = torch.float32
+    std = 4.5
+    qkey = executor.quantile_key(np.array([3, 17], np.uint32))
+    limit = kernels.DESCEND_VALUE_QUANTILES
+    tuples = {
+        "1 quantile": (0.5,),
+        "3 quantiles": QUANTILES,
+        f"{limit} quantiles": tuple((j + 1) / (limit + 1)
+                                    for j in range(limit)),
+        f"{limit + 1} quantiles": tuple((j + 1) / (limit + 2)
+                                        for j in range(limit + 1)),
+        "49 quantiles": tuple((j + 1) / 50 for j in range(49)),
+        "unsorted with ties": (0.9, 0.1, 0.5, 0.5, 0.1, 0.99, 0.0, 1.0),
+    }
+    table_of = {}
+
+    def table(secure):
+        if not secure:
+            return None
+        if not table_of:
+            thr, gran = executor.build_secure_tables(
+                np.array([std]), np.array([64.0]), NoiseKind.GAUSSIAN, None,
+                dev)
+            table_of[True] = (thr[0], float(gran[0]))
+        return table_of[True]
+
+    c8 = 0
+
+    def lazy_case(label, quantiles, rows, n_lanes, h, B, secure, salt):
+        n_q = len(quantiles)
+        keep = torch.rand(rows, device=dev) < 0.7
+        states = [kernels.DescentState(rows, n_q, f32, dev) for _ in range(3)]
+        flags = [torch.zeros(max(n_lanes, 1), dtype=torch.int32, device=dev)
+                 for _ in range(3)]
+        keys = [threefry.fold_in(qkey, level) for level in range(1, h + 1)]
+        lane_keys = [np.stack([threefry.fold_in(np.array(
+            [l + 1, salt], np.uint32), level) for l in range(n_lanes)])
+            for level in range(1, h + 1)] if n_lanes else None
+        common = dict(tree_height=h, std=std, gaussian=True, min_v=1.0,
+                      max_v=5.0, keep=keep, tables=table(secure))
+        outs = [None] * 3
+        for level in range(1, h + 1):
+            counts = c8_counts(torch, states[0].node, B, level, salt)
+            for i in range(3):
+                if n_lanes:
+                    call = (kernels.quantile_descend_step_lanes_plain
+                            if i == 2 else kernels.quantile_descend_step_lanes)
+                    fn = (lambda call=call, i=i: call(
+                        counts, states[i], quantiles, level=level,
+                        level_keys=lane_keys[level - 1], flags=flags[i],
+                        n_lanes=n_lanes, **common))
+                else:
+                    call = (kernels.quantile_descend_step_plain if i == 2
+                            else kernels.quantile_descend_step)
+                    fn = (lambda call=call, i=i: call(
+                        counts, states[i], quantiles, level=level,
+                        level_key=keys[level - 1], flags=flags[i], **common))
+                outs[i] = without_sync(torch, fn) if i == 0 else fn()
+            tag = f"quantile_descend lazy edge ({label}) level {level}"
+            for name in ("node", "target", "total", "mass"):
+                check_equal(f"{tag} {name} twice", getattr(states[1], name),
+                            getattr(states[0], name))
+            check_equal(f"{tag} node", states[0].node, states[2].node)
+            check_close(f"{tag} target", states[0].target.reshape(-1),
+                        states[2].target.reshape(-1), 1e-5, 1e-3)
+        tag = f"quantile_descend lazy edge ({label})"
+        check_equal(f"{tag} twice", outs[1], outs[0])
+        check_equal(f"{tag} flags twice", flags[1], flags[0])
+        check_close(tag, outs[0].reshape(-1), outs[2].reshape(-1), 1e-5)
+        check_equal(f"{tag} flags", flags[0], flags[2])
+        return 1
+
+    def dense_case(label, quantiles, rows, n_lanes, h, B, secure, salt):
+        n_q = len(quantiles)
+        gen = torch.Generator(device=dev).manual_seed(SEED + salt)
+        leaf = torch.randint(0, 30, (rows, B**h), generator=gen, device=dev,
+                             dtype=torch.int32)
+        leaf[torch.rand(leaf.shape, generator=gen, device=dev) < 0.3] = 0
+        levels = kernels.quantile_level_counts_plain(leaf, tree_height=h,
+                                                     branching=B)
+        del leaf
+        keep = torch.rand(rows, generator=gen, device=dev) < 0.7
+        common = dict(std=std, gaussian=False, min_v=0.0, max_v=10.0,
+                      keep=keep, dtype=f32, tables=table(secure))
+        flags = [torch.zeros(max(n_lanes, 1), dtype=torch.int32, device=dev)
+                 for _ in range(3)]
+        leaves = [torch.full((rows, n_q), -1, dtype=torch.int32, device=dev)
+                  for _ in range(3)]
+        if n_lanes:
+            keys = np.stack([executor._dense_level_keys(np.array(
+                [l + 1, salt], np.uint32), h) for l in range(n_lanes)])
+            outs = [(kernels.quantile_descend_dense_lanes_plain if i == 2 else
+                     kernels.quantile_descend_dense_lanes)
+                    for i in range(3)]
+            fns = [lambda i=i: outs[i](levels, quantiles, level_keys=keys,
+                                       flags=flags[i], n_lanes=n_lanes,
+                                       **common) for i in range(3)]
+        else:
+            keys = executor._dense_level_keys(qkey, h)
+            outs = [(kernels.quantile_descend_dense_plain if i == 2 else
+                     kernels.quantile_descend_dense) for i in range(3)]
+            fns = [lambda i=i: outs[i](levels, quantiles, level_keys=keys,
+                                       flags=flags[i], leaves=leaves[i],
+                                       **common) for i in range(3)]
+        got = [without_sync(torch, fns[0]), fns[1](), fns[2]()]
+        tag = f"quantile_descend dense edge ({label})"
+        check_equal(f"{tag} twice", got[1], got[0])
+        check_equal(f"{tag} flags twice", flags[1], flags[0])
+        check_equal(f"{tag} leaves", leaves[0], leaves[2])
+        check_equal(f"{tag} leaves twice", leaves[1], leaves[0])
+        check_close(tag, got[0].reshape(-1), got[2].reshape(-1), 1e-5)
+        check_equal(f"{tag} flags", flags[0], flags[2])
+        return 1
+
+    salt = 0
+    for name, qs in tuples.items():
+        for secure in ((False, True) if name in ("3 quantiles",
+                                                 "49 quantiles")
+                       else (False,)):
+            salt += 1
+            label = f"{name}{', secure' if secure else ''}"
+            c8 += lazy_case(f"{label}, 17,770 x h=4 B=16", qs, N_MOVIES, 0,
+                            4, 16, secure, salt)
+            c8 += dense_case(f"{label}, 116 x h=4 B=16", qs, 116, 0, 4, 16,
+                             secure, salt)
+    for h, B in ((1, 16), (8, 16), (4, 2), (3, 64)):
+        salt += 1
+        c8 += lazy_case(f"3 quantiles, 1000 x h={h} B={B}", QUANTILES, 1000,
+                        0, h, B, False, salt)
+    for h, B in ((1, 2), (1, 64), (8, 2), (2, 64)):
+        salt += 1
+        c8 += dense_case(f"3 quantiles, 116 x h={h} B={B}", QUANTILES, 116,
+                         0, h, B, salt % 2 == 0, salt)
+    for n_lanes, per_lane in ((1, N_MOVIES), (16, N_MOVIES), (40, 4000)):
+        for secure in (False, True):
+            salt += 1
+            label = (f"{n_lanes} x {per_lane} lanes"
+                     f"{', secure' if secure else ''}")
+            c8 += lazy_case(label, QUANTILES, n_lanes * per_lane, n_lanes, 4,
+                            16, secure, salt)
+            c8 += dense_case(label + ", h=3 B=8", QUANTILES,
+                             n_lanes * per_lane, n_lanes, 3, 8, secure, salt)
+    # Two releases in a row with other tuples of 49 quantiles: the device
+    # arrays of each tuple are its own.
+    for k, first in enumerate((0.0, 0.005)):
+        qs = tuple(first + (j + 1) / 51 for j in range(49))
+        c8 += lazy_case(f"49 quantiles, release {k + 1}", qs, N_MOVIES, 0, 4,
+                        16, False, 100 + k)
+        c8 += dense_case(f"49 quantiles, release {k + 1}", qs, 116, 0, 4, 16,
+                         False, 100 + k)
+    print(f"c20_c8_edge_phase: {c8} C8 cases agree with their plain "
+          f"versions (every walk at the plain version's node, values within "
+          f"1e-5, flags equal), the same bits twice, no call synchronizing",
+          flush=True)
+
+
+def c8_entries(torch, dev, kernels, executor, P=N_MOVIES, PD=116,
+               n_lanes=16, seed=SEED + 22):
+    """C8's entries at the main path's shapes, {name: (fn, bytes, ops)}:
+    a lazy step at (f)'s shape (P = 17,770 movies x 3 quantiles, B = 16,
+    h = 4; level 1, and the last level with its columns and flag word),
+    (f)'s four steps from a fresh state (the `kernels` line's figure), the
+    dense entry over (h)'s PD = 116 release years, and one lane step over
+    16 x 17,770 partitions, plain and secure. Child counts follow the
+    walks' nodes (c8_counts: walks at one node read the same counts, as
+    C7 gives them), from a descent made once here; the level-1 steps start
+    from a fresh state each call (four fills beside the launch), the last
+    level's step advances its state in place."""
+    from pipelinedp_tpu_torch.aggregate_params import NoiseKind
+    from pipelinedp_tpu_torch.ops import quantile_tree, threefry
+    f32 = torch.float32
+    h, B = quantile_tree.DEFAULT_TREE_HEIGHT, \
+        quantile_tree.DEFAULT_BRANCHING_FACTOR
+    quantiles, n_q = QUANTILES, len(QUANTILES)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    std = quantile_tree.per_level_noise_std(0.5, 5e-7, 64, 1, h,
+                                            NoiseKind.GAUSSIAN)
+    qkey = executor.quantile_key(np.array([7, 11], np.uint32))
+    thr, gran = executor.build_secure_tables(
+        np.array([std]), np.array([64.0]), NoiseKind.GAUSSIAN, None, dev)
+    table = (thr[0], float(gran[0]))
+    common = dict(std=std, gaussian=True, min_v=1.0, max_v=5.0)
+
+    keep = torch.ones(P, dtype=torch.bool, device=dev)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    lkeys = [threefry.fold_in(qkey, level) for level in range(1, h + 1)]
+    level_counts = []
+    walk = kernels.DescentState(P, n_q, f32, dev)
+    for level in range(1, h + 1):
+        if level == h:
+            last = kernels.DescentState(P, n_q, f32, dev)
+            for name in ("node", "target", "total", "mass"):
+                getattr(last, name).copy_(getattr(walk, name))
+        level_counts.append(c8_counts(torch, walk.node, B, level, seed))
+        kernels.quantile_descend_step(
+            level_counts[-1], walk, quantiles, level=level, tree_height=h,
+            level_key=lkeys[level - 1], keep=keep,
+            flags=torch.zeros(1, dtype=torch.int32, device=dev), **common)
+    del walk
+
+    def step(level, tables=None):
+        # Level 1 from a fresh state each call (its walks share the root,
+        # as in a release); the last level on the state it advances.
+        return lambda: kernels.quantile_descend_step(
+            level_counts[level - 1],
+            kernels.DescentState(P, n_q, f32, dev) if level == 1 else
+            last, quantiles, level=level, tree_height=h,
+            level_key=lkeys[level - 1], keep=keep, flags=flags,
+            tables=tables, **common)
+
+    def four_steps():
+        st = kernels.DescentState(P, n_q, f32, dev)
+        fl = torch.zeros(1, dtype=torch.int32, device=dev)
+        for level in range(1, h + 1):
+            out = kernels.quantile_descend_step(
+                level_counts[level - 1], st, quantiles, level=level,
+                tree_height=h, level_key=lkeys[level - 1], keep=keep,
+                flags=fl, **common)
+        return out
+
+    leaf = torch.randint(0, 40, (PD, B**h), generator=gen, device=dev,
+                         dtype=torch.int32)
+    levels = kernels.quantile_level_counts(leaf, tree_height=h, branching=B)
+    keep_d = torch.ones(PD, dtype=torch.bool, device=dev)
+    dense_keys = executor._dense_level_keys(qkey, h)
+
+    def dense(tables=None):
+        return lambda: kernels.quantile_descend_dense(
+            levels, quantiles, level_keys=dense_keys, keep=keep_d,
+            flags=flags, dtype=f32, tables=tables, **common)
+
+    total = n_lanes * P
+    lane_counts = c8_counts(torch, torch.zeros(
+        (total, n_q), dtype=torch.int32, device=dev), B, 1, seed)
+    lane_keep = torch.ones(total, dtype=torch.bool, device=dev)
+    lane_flags = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    lane_keys = np.stack([threefry.fold_in(
+        executor.quantile_key(np.array([l, 5], np.uint32)), 1)
+        for l in range(n_lanes)])
+
+    def lane_step(tables=None):
+        return lambda: kernels.quantile_descend_step_lanes(
+            lane_counts, kernels.DescentState(total, n_q, f32, dev),
+            quantiles, level=1, tree_height=h,
+            level_keys=lane_keys, keep=lane_keep, flags=lane_flags,
+            n_lanes=n_lanes, tables=tables, **common)
+
+    walks, lanes = P * n_q, total * n_q
+    # A walk a step: its B counts read, its state read and written, B
+    # nodes drawn (three threefry and an erf_inv, ~350 operations; a
+    # secure node two more threefry and a table search, ~550).
+    state = 4 + 3 * 4
+    return {
+        "lazy step, level 1": (step(1), walks * (B * 4 + 2 * state),
+                               walks * B * 350),
+        f"lazy step, level {h}": (step(h), walks * (B * 4 + 2 * state) +
+                                  walks * 4, walks * B * 350),
+        f"lazy, {h} steps": (four_steps, h * walks * (B * 4 + 2 * state),
+                             h * walks * B * 350),
+        f"dense, P={PD}": (dense(), PD * n_q * (h * B * 4 + 4),
+                           PD * n_q * h * B * 350),
+        f"dense secure, P={PD}": (dense(table), PD * n_q * (h * B * 4 + 4),
+                                  PD * n_q * h * B * 550),
+        f"lane step, {n_lanes} x {P}": (lane_step(), lanes * (B * 4 +
+                                                              2 * state),
+                                        lanes * B * 350),
+        f"secure lane step, {n_lanes} x {P}": (
+            lane_step(table), lanes * (B * 4 + 2 * state), lanes * B * 550),
+    }
+
+
+def c20_c8_split_phase(torch, dev, tdp, encoded, kernels, executor, card):
+    """The three-way split (three_way) and the device operations a call
+    (device_ops, each launch by name) of C20 at (A) and (B) (sweep_shapes;
+    the statistics from C19 on the card), float32 and float64, and of C8's
+    entries at the main path's shapes (c8_entries). On this tree C8 is one
+    device operation a call and C20 at most two; a parent's C20 shows its
+    four launches, its C8 the finish launch and the uploads. Run by
+    --splits."""
+    from pipelinedp_tpu_torch.analysis import kernels as ak
+    rebuilt = hasattr(kernels, "DESCEND_VALUE_QUANTILES")
+
+    def ops_of(fn):
+        for _ in range(3):
+            ops = device_ops(torch, fn)
+            if ops != "not traced":
+                return ops
+        return ops
+
+    for label, (counts, sums, contributed, pk, p, (cfg, codes)) in \
+            sweep_shapes(tdp, encoded).items():
+        k, m = len(cfg.l0), len(codes)
+        fns = {}
+        for f in (torch.float32, torch.float64):
+            c, s, con = (torch.as_tensor(np.asarray(x), dtype=f, device=dev)
+                         for x in (counts, sums, contributed))
+            pkt = torch.as_tensor(pk, device=dev)
+            perm, spk = kernels.radix_sort([pkt], sorted_top=True)
+            offs = kernels.block_offsets(
+                spk, torch.arange(p + 1, dtype=torch.int32, device=dev))
+            cf = [torch.as_tensor(np.asarray(x), dtype=f,
+                                  device=dev).contiguous() for x in cfg]
+            sel_cfg = torch.stack(cf[4:]).contiguous()
+            st = kernels.sweep_stats(c, s, con, perm, offs, *cf[:3],
+                                     metric_codes=codes, private=True)
+            args = (st[0], st[1], st[2], st[4], cf[3], sel_cfg,
+                    torch.tensor(ak.BUCKET_BOUNDS, dtype=f, device=dev))
+            name = f"C20 ({label}, {str(f)[6:]})"
+            fns[name] = (lambda a=args: kernels.sweep_report(
+                *a, public=False))
+            del c, s, con, perm, spk, offs
+            ops = ops_of(fns[name])
+            if rebuilt and ops != "not traced" and ops["total"] > 2:
+                raise AssertionError(f"{name}: {ops}")
+            print(f"c20_c8[{name}, P={p} K={k} M={m}]: device operations a "
+                  f"call {json.dumps(ops)}", flush=True)
+        print_three_way(f"C20 sweep_report at ({label})",
+                        three_way(torch, fns, host_calls=50), card)
+        del fns
+    entries = c8_entries(torch, dev, kernels, executor)
+    for name, (fn, nbytes, ops_n) in entries.items():
+        ops = ops_of(fn)
+        # One operation a wrapper call; the four steps also make a fresh
+        # state and flag word (five fills), a level-1 step its fresh state
+        # (four); a trace may miss some.
+        most = (4 + 5 if name.startswith("lazy, ") else
+                1 + 4 if "level 1" in name or "lane step" in name else 1)
+        if rebuilt and ops != "not traced" and ops["total"] > most:
+            raise AssertionError(f"C8 {name}: {ops}")
+        b_ms, b_by = bound(nbytes, ops_n)
+        print(f"c20_c8[C8 {name}]: device operations a call "
+              f"{json.dumps(ops)}, bound {b_ms:.4g} ms ({b_by})", flush=True)
+    print_three_way("C8 entries at the main path's shapes", three_way(
+        torch, {name: fn for name, (fn, *_) in entries.items()},
+        host_calls=200), card)
+    del entries
+
+
 def round_up(x, multiple):
     return -(-x // multiple) * multiple
 
@@ -4746,18 +5260,22 @@ def reshard_rows(torch, dev, cap, values):
             torch.zeros(cap, dtype=torch.bool, device=dev))
 
 
-def splits_only(torch, cuda_build, kernels, executor, device_encode, ingest,
-                card, t0):
-    """python3 chip_smoke.py --splits: the build, the Netflix users,
-    c4_c24_split_phase, c6_c7_split_phase and c22_c23_split_phase,
-    nothing else (the same script on two trees in turns compares them)."""
+def splits_only(torch, tdp, cuda_build, columnar, kernels, executor,
+                device_encode, ingest, card, t0):
+    """python3 chip_smoke.py --splits: the build, the Netflix rows,
+    c4_c24_split_phase, c6_c7_split_phase, c22_c23_split_phase and
+    c20_c8_split_phase, nothing else (the same script on two trees in
+    turns compares them)."""
     print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
           f"{cuda_build.build_all():.1f} s ({card})", flush=True)
-    users, _, _ = netflix_rows(np.random.default_rng(SEED))
-    c4_c24_split_phase(torch, torch.device("cuda"), kernels, executor,
-                       device_encode, ingest, users, card)
-    c6_c7_split_phase(torch, torch.device("cuda"), kernels, card)
-    c22_c23_split_phase(torch, torch.device("cuda"), kernels, users, card)
+    users, movies, ratings = netflix_rows(np.random.default_rng(SEED))
+    dev = torch.device("cuda")
+    c4_c24_split_phase(torch, dev, kernels, executor, device_encode, ingest,
+                       users, card)
+    c6_c7_split_phase(torch, dev, kernels, card)
+    c22_c23_split_phase(torch, dev, kernels, users, card)
+    c20_c8_split_phase(torch, dev, tdp, columnar.encode_columns(
+        users, movies, ratings), kernels, executor, card)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,8 @@ SORT_DIGIT_BITS = 8  # C5: bits a digit pass sorts
 SORT_TILE = 4096     # C5: rows a sweep pass's block ranks
 RESHARD_TILE = 4096  # C22: rows a block counts and ranks
 EXCHANGE_TILE = 1024  # C23: rows a block stages
+DESCEND_VALUE_QUANTILES = 32  # C8: quantiles the launch's parameters carry
+DESCEND_LANE_WORDS = 512  # C8: lane key words the parameters carry
 DEFINES = {
     "radix_sort": {"PDP_SORT_MAX_WORDS": SORT_MAX_WORDS,
                    "PDP_SORT_MAX_RUNS": SORT_MAX_RUNS,
@@ -47,6 +49,8 @@ DEFINES = {
                    "PDP_SORT_TILE": SORT_TILE},
     "reshard_count": {"PDP_RESHARD_TILE": RESHARD_TILE},
     "reshard_exchange": {"PDP_EXCHANGE_TILE": EXCHANGE_TILE},
+    "quantile_descend": {"PDP_DESCEND_VALUE_QUANTILES": DESCEND_VALUE_QUANTILES,
+                         "PDP_DESCEND_LANE_WORDS": DESCEND_LANE_WORDS},
 }
 
 _P = ctypes.c_void_p
@@ -114,16 +118,17 @@ _SIGNATURES = {
     },
     "quantile_descend": {
         "quantile_descend_dense": (_I, [_P, _LL, _P, _P, _P, _P, _P, _P, _P,
-                                        _P, _P, _P, _P, _I, _D, _I, _P]),
-        "quantile_descend_step": (_I, [_P, _LL, _I, _P, _P, _P, _P, _U, _U,
-                                       _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _I, _D, _I, _P]),
+                                        _P, _P, _P, _P, _P, _I, _D, _I, _P]),
+        "quantile_descend_step": (_I, [_P, _LL, _I, _P, _P, _P, _P, _P, _P,
+                                       _U, _U, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _D, _I, _P]),
         "quantile_descend_dense_lanes": (_I, [_P, _LL, _I, _P, _P, _P, _P,
-                                              _P, _P, _P, _P, _P, _P, _P, _I,
-                                              _D, _I, _P]),
+                                              _P, _P, _P, _P, _P, _P, _P, _P,
+                                              _I, _D, _I, _P]),
         "quantile_descend_step_lanes": (_I, [_P, _LL, _I, _I, _P, _P, _P, _P,
                                              _P, _P, _P, _P, _P, _P, _P, _P,
-                                             _P, _P, _I, _D, _I, _P]),
+                                             _P, _P, _P, _P, _I, _D, _I,
+                                             _P]),
     },
     "vector_release": {
         "vector_release": (_I, [_P, _LL, _I, _I, _D, _D, _U, _U, _I, _P, _P,
@@ -175,6 +180,7 @@ _SIGNATURES = {
                              _P]),
     },
     "sweep_report": {
+        "sweep_report_scratch_bytes": (_LL, [_I, _LL, _I, _I, _I]),
         "sweep_report": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                               _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     },

@@ -29,7 +29,11 @@ their plain PyTorch versions.
                                                      levels read; counted as
                                                      quantile_child_counts)
     C8 quantile_descend   csrc/quantile_descend.cu   node noise + descent (both
-                                                     regimes), percentile flags
+                                                     regimes), percentile flags:
+                                                     one launch; a warp's
+                                                     lanes draw each distinct
+                                                     node's children once,
+                                                     each walk on its lane
     C9 vector_release     csrc/vector_release.cu     norm-ball clip, noise, flags
     C10 block_offsets     csrc/block_offsets.cu      row window of every partition
                                                      block (blocked route): a
@@ -66,7 +70,9 @@ their plain PyTorch versions.
                                                      sufficient statistics of
                                                      the analysis sweep
     C20 sweep_report      csrc/sweep_report.cu       keep probabilities, report
-                                                     rows, bucket sums
+                                                     rows, bucket sums: a
+                                                     tile's in one pass, the
+                                                     tiles' in tile order
     C21 combine_shards    csrc/combine_shards.cu     the cross-shard sum of the
                                                      shards' columns read where
                                                      they lie, every column in
@@ -138,8 +144,10 @@ increments are thread-safe, as the
 service's workers launch concurrently. No wrapper or kernel keeps host or
 device scratch between calls but C4's (its plan, cached under the exact
 values it is made of, and a per-stream accumulator of flag bits that
-every call leaves zeroed) and C6's (its plan, cached per layout, with the
-grid sized once a device from the kernel's occupancy).
+every call leaves zeroed), C6's (its plan, cached per layout, with the
+grid sized once a device from the kernel's occupancy) and C8's (above
+DESCEND_VALUE_QUANTILES quantiles, their values and order as device
+arrays, cached per quantile tuple and device).
 """
 
 import array
@@ -1618,16 +1626,81 @@ def _check_descend(keep, flags, quantiles, tree_height, branching,
     _check(keep, torch.bool, keep.shape[0], "keep")
 
 
-def _descend_params(quantiles, std, gaussian, min_v, max_v, tree_height,
-                    branching, n_q, device):
-    """C8's parameters: the quantiles and their stable ascending order as
-    device arrays (any number of quantiles), the scalars on the host."""
+# Quantiles (and lane key words) that C8's launch parameters carry by
+# value; more go up once as device arrays (quantiles: cached per tuple and
+# device) or, for the keys, in one pinned copy.
+DESCEND_VALUE_QUANTILES = cuda_build.DESCEND_VALUE_QUANTILES
+DESCEND_LANE_WORDS = cuda_build.DESCEND_LANE_WORDS
+
+
+@functools.lru_cache(maxsize=256)
+def _descend_host_quantiles(quantiles: Tuple[float, ...]):
+    """The quantiles and their stable ascending order as ctypes arrays."""
     order = np.argsort(np.asarray(quantiles), kind="stable")
-    return (torch.tensor([float(q) for q in quantiles], dtype=torch.float64,
-                         device=device),
-            torch.tensor(order, dtype=torch.int32, device=device),
+    return ((ctypes.c_double * len(quantiles))(*quantiles),
+            (ctypes.c_int * len(quantiles))(*[int(j) for j in order]))
+
+
+def _pinned_upload(values: np.ndarray, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """values on device, through pinned memory and a copy that does not
+    synchronize (the host allocator keeps the pinned block until the copy
+    has run)."""
+    pinned = torch.empty(values.shape, dtype=dtype, pin_memory=True)
+    pinned.numpy()[...] = values
+    return pinned.to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _descend_device_quantiles(quantiles: Tuple[float, ...],
+                              device: torch.device):
+    """(q float64, order int32) on device for a tuple above
+    DESCEND_VALUE_QUANTILES, uploaded once, and the event after the copy
+    that a call on another stream waits for."""
+    order = np.argsort(np.asarray(quantiles), kind="stable")
+    q = _pinned_upload(np.asarray(quantiles, np.float64), torch.float64,
+                       device)
+    order_t = _pinned_upload(order.astype(np.int32), torch.int32, device)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(device))
+    return q, order_t, ready
+
+
+def _descend_device_arrays(quantiles: Tuple[float, ...],
+                           device: torch.device) -> Tuple[int, int]:
+    """The device pointers of _descend_device_quantiles' arrays, the
+    current stream made to wait for their upload."""
+    q, order, ready = _descend_device_quantiles(quantiles, device)
+    torch.cuda.current_stream(device).wait_event(ready)
+    return q.data_ptr(), order.data_ptr()
+
+
+def _descend_params(quantiles, std, gaussian, min_v, max_v, tree_height,
+                    branching, device):
+    """C8's parameters: the quantiles and their order as host arrays (the
+    launch's parameters carry up to DESCEND_VALUE_QUANTILES of them) and,
+    above that, device arrays (0 below it); the scalars on the host."""
+    quantiles = tuple(float(q) for q in quantiles)
+    q_host, order_host = _descend_host_quantiles(quantiles)
+    q_dev = order_dev = 0
+    if len(quantiles) > DESCEND_VALUE_QUANTILES:
+        q_dev, order_dev = _descend_device_arrays(quantiles, device)
+    return (q_host, order_host, q_dev, order_dev,
             (ctypes.c_double * 3)(float(std), float(min_v), float(max_v)),
-            (ctypes.c_int * 4)(n_q, tree_height, branching, int(gaussian)))
+            (ctypes.c_int * 4)(len(quantiles), tree_height, branching,
+                               int(gaussian)))
+
+
+def _descend_lane_keys(table: np.ndarray, device: torch.device):
+    """C8's lane key table, u32 [L, words]: (host pointer, 0, the array) by
+    value up to DESCEND_LANE_WORDS words, else (0, device pointer, the
+    device copy) through one pinned copy. Keep the third item alive until
+    the launch."""
+    table = np.ascontiguousarray(table, dtype=np.uint32)
+    if table.size <= DESCEND_LANE_WORDS:
+        return table.ctypes.data, 0, table
+    dev_table = _pinned_upload(table.view(np.int32), torch.int32, device)
+    return 0, dev_table.data_ptr(), dev_table
 
 
 def quantile_descend_dense(levels: Sequence[torch.Tensor],
@@ -1675,19 +1748,16 @@ def quantile_descend_dense(levels: Sequence[torch.Tensor],
             flags=flags, dtype=dtype, leaves=leaves, tables=tables)
     dev = keep.device
     out = torch.empty(n_q, p, dtype=dtype, device=dev)
-    scratch = torch.empty(p, n_q, dtype=dtype, device=dev)
     ptrs = (ctypes.c_void_p * tree_height)(*[t.data_ptr() for t in levels])
     keys = (ctypes.c_uint * (2 * tree_height))(
         *[int(w) for w in np.asarray(level_keys).reshape(-1)])
-    q_t, order_t, scal_c, dims_c = _descend_params(
-        quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
-        dev)
+    params = _descend_params(quantiles, std, gaussian, min_v, max_v,
+                             tree_height, branching, dev)
     secure = thr is not None
     status = cuda_build.library("quantile_descend").quantile_descend_dense(
-        ptrs, p, _ptr(q_t), _ptr(order_t), scal_c, dims_c, keys, _ptr(keep),
-        _ptr(scratch), _ptr(leaves), _ptr(out), _ptr(flags), _ptr(thr),
-        thr.shape[0] if secure else 0, float(tables[1]) if secure else 0.0,
-        _f64(dtype), _stream(dev))
+        ptrs, p, *params, keys, _ptr(keep), _ptr(leaves), _ptr(out),
+        _ptr(flags), _ptr(thr), thr.shape[0] if secure else 0,
+        float(tables[1]) if secure else 0.0, _f64(dtype), _stream(dev))
     _raise_on(status, "quantile_descend")
     _count("quantile_descend_secure" if secure else "quantile_descend")
     return out
@@ -1766,16 +1836,13 @@ def quantile_descend_step(counts: torch.Tensor, state: DescentState,
     dev = counts.device
     last = level == tree_height
     out = torch.empty(n_q, p, dtype=dtype, device=dev) if last else None
-    scratch = torch.empty(p, n_q, dtype=dtype, device=dev) if last else None
-    q_t, order_t, scal_c, dims_c = _descend_params(
-        quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
-        dev)
+    params = _descend_params(quantiles, std, gaussian, min_v, max_v,
+                             tree_height, branching, dev)
     status = cuda_build.library("quantile_descend").quantile_descend_step(
-        _ptr(counts), p, level, _ptr(q_t), _ptr(order_t), scal_c, dims_c,
-        int(level_key[0]), int(level_key[1]), _ptr(state.node),
-        _ptr(state.target), _ptr(state.total), _ptr(state.mass), _ptr(keep),
-        _ptr(scratch), _ptr(out), _ptr(flags), _ptr(thr),
-        0 if thr is None else thr.shape[0],
+        _ptr(counts), p, level, *params, int(level_key[0]),
+        int(level_key[1]), _ptr(state.node), _ptr(state.target),
+        _ptr(state.total), _ptr(state.mass), _ptr(keep), _ptr(out),
+        _ptr(flags), _ptr(thr), 0 if thr is None else thr.shape[0],
         0.0 if thr is None else float(tables[1]), _f64(dtype), _stream(dev))
     _raise_on(status, "quantile_descend")
     _count("quantile_descend" if thr is None else "quantile_descend_secure")
@@ -3087,9 +3154,11 @@ def sweep_report(stats: torch.Tensor, sel: Optional[torch.Tensor],
     (1 when public; else the selector's keep probability integrated over
     `window` support points of the skew-corrected normal PMF of the
     privacy-id count, or at rint(mu) when sigma is 0), and the sums over
-    each bucket's partitions, in partition order from 0, of
-    error_model.metric_report_terms, bucket_rows T[K, NB, M, 24], and of
-    error_model.info_terms, bucket_info T[K, NB, 5]. partition_chunk
+    each bucket's partitions of error_model.metric_report_terms,
+    bucket_rows T[K, NB, M, 24], and of error_model.info_terms, bucket_info
+    T[K, NB, 5]: the plain version adds in partition order from 0, the
+    card in a fixed order within a tile of partitions, then the tiles in
+    order (two launches, the same bits every call). partition_chunk
     bounds the plain version's [K, chunk, window] windows.
     """
     f = stats.dtype
@@ -3121,15 +3190,20 @@ def sweep_report(stats: torch.Tensor, sel: Optional[torch.Tensor],
                                   window=window,
                                   partition_chunk=partition_chunk)
     dev = stats.device
+    lib = cuda_build.library("sweep_report")
+    nbytes = lib.sweep_report_scratch_bytes(k, p, m, nb, _f64(f))
+    if nbytes < 0:
+        raise ValueError(f"sweep_report: {nb} buckets (at most 32) or {m} "
+                         f"metrics (at most 3) out of range")
     bucket = torch.empty(p, dtype=torch.int32, device=dev)
     keep_prob = torch.empty((k, p), dtype=f, device=dev)
     bucket_rows = torch.empty((k, nb, m, em.REPORT_WIDTH), dtype=f, device=dev)
     bucket_info = torch.empty((k, nb, em.INFO_WIDTH), dtype=f, device=dev)
-    order = torch.empty(p + nb + 1, dtype=torch.int32, device=dev)
-    status = cuda_build.library("sweep_report").sweep_report(
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    status = lib.sweep_report(
         _ptr(stats), _ptr(sel), _ptr(n_users), _ptr(size), _ptr(noise_std),
         _ptr(sel_cfg), _ptr(bounds), k, p, m, ms, nb, int(public), window,
-        _f64(f), _ptr(order), _ptr(bucket), _ptr(keep_prob),
+        _f64(f), _ptr(scratch), _ptr(bucket), _ptr(keep_prob),
         _ptr(bucket_rows), _ptr(bucket_info), _stream(dev))
     _raise_on(status, "sweep_report")
     _count("sweep_report")
@@ -3740,20 +3814,19 @@ def quantile_descend_dense_lanes(levels: Sequence[torch.Tensor],
     dev = keep.device
     n_q = len(quantiles)
     out = torch.empty(n_q, total, dtype=dtype, device=dev)
-    scratch = torch.empty(total, n_q, dtype=dtype, device=dev)
     ptrs = (ctypes.c_void_p * tree_height)(*[t.data_ptr() for t in levels])
     rows = [level_keys.reshape(n_lanes, -1)]
     if thr is not None:
         rows.append(_split_keys(level_keys).reshape(n_lanes, -1))
-    table = _device_words(np.concatenate(rows, 1), dev)
-    q_t, order_t, scal_c, dims_c = _descend_params(
-        quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
-        dev)
+    lane_host, lane_dev, _held = _descend_lane_keys(
+        np.concatenate(rows, 1), dev)
+    params = _descend_params(quantiles, std, gaussian, min_v, max_v,
+                             tree_height, branching, dev)
     status = cuda_build.library(
         "quantile_descend").quantile_descend_dense_lanes(
-            ptrs, p, n_lanes, _ptr(q_t), _ptr(order_t), scal_c, dims_c,
-            _ptr(table), _ptr(keep), _ptr(scratch), None, _ptr(out),
-            _ptr(flags), _ptr(thr), 0 if thr is None else thr.shape[0],
+            ptrs, p, n_lanes, *params, lane_host, lane_dev, _ptr(keep),
+            _ptr(out), _ptr(flags), _ptr(thr),
+            0 if thr is None else thr.shape[0],
             0.0 if thr is None else float(tables[1]), _f64(dtype),
             _stream(dev))
     name = ("quantile_descend_lanes" if thr is None else
@@ -3816,18 +3889,14 @@ def quantile_descend_step_lanes(counts: torch.Tensor, state: DescentState,
     dev = counts.device
     last = level == tree_height
     out = torch.empty(n_q, total, dtype=dtype, device=dev) if last else None
-    scratch = (torch.empty(total, n_q, dtype=dtype, device=dev) if last
-               else None)
-    table = _device_words(level_keys, dev)
-    q_t, order_t, scal_c, dims_c = _descend_params(
-        quantiles, std, gaussian, min_v, max_v, tree_height, branching, n_q,
-        dev)
+    lane_host, lane_dev, _held = _descend_lane_keys(level_keys, dev)
+    params = _descend_params(quantiles, std, gaussian, min_v, max_v,
+                             tree_height, branching, dev)
     status = cuda_build.library(
         "quantile_descend").quantile_descend_step_lanes(
-            _ptr(counts), p, n_lanes, level, _ptr(q_t), _ptr(order_t), scal_c,
-            dims_c, _ptr(table), _ptr(state.node), _ptr(state.target),
-            _ptr(state.total), _ptr(state.mass), _ptr(keep), _ptr(scratch),
-            _ptr(out), _ptr(flags), _ptr(thr),
+            _ptr(counts), p, n_lanes, level, *params, lane_host, lane_dev,
+            _ptr(state.node), _ptr(state.target), _ptr(state.total),
+            _ptr(state.mass), _ptr(keep), _ptr(out), _ptr(flags), _ptr(thr),
             0 if thr is None else thr.shape[0],
             0.0 if thr is None else float(tables[1]), _f64(dtype),
             _stream(dev))

@@ -392,6 +392,30 @@ launch's parameters) add:
              float32 and float64, and of C8's lazy step, four steps, dense
              entry and lane steps at the main path's shapes; C8 one
              operation a call, C20 at most two)
+The rebuilt C18 (one cooperative launch a call: the five integer
+histograms of a histogram call in one launch, a lane's run and cache of
+slots in registers, the float bucket guessed and corrected against the
+exact edges) and C14 (one launch: 16-byte copies and fills over one flat
+grid of every column's regions) add:
+  2. kernels after C20's and C8's edges (c18_c14_edge_phase): C18's
+             integer entry on one slot, five values dense and sparse,
+             every decade with the int32 extremes, negatives, an empty
+             mask, 0, 1 and 16 rows and views one row in, alone and all in
+             one batched launch; its float entry on five values, lo ==
+             hi (and -0.0), -FLT_MAX to FLT_MAX, values on every edge, a
+             range of a few ulps, negatives and -0.0, an empty mask and
+             views one row in; C14 fill_tail and grow at unaligned
+             starts and capacities, widths 1, 3 and 5, 4- and 8-byte
+             columns, the hash sentinel and -0.0 pads and buffers one row
+             into their allocation, each call one launch: each == its
+             plain version (C18's float sums within check_float_hist's
+             bound) (c18_c14_split_phase, under --splits: split[...]
+             lines and the device operations a call of C18's entries on
+             the histogram call's Netflix and (q) stats and of C14's grow
+             and fill_tail on 2^24-row buffers, beside three fill_ calls;
+             one operation a call; the histogram call's wall)
+  4. main    the histogram call launches log_bins twice (the five
+             integer histograms, the float one)
 The failure semantics and elastic meshes of the meshed drivers
 (runtime/retry.py, faults.py, entry.py) and K23c (parallel/mesh.py
 collective_heartbeat on C21's int32 entry) add, last of all:
@@ -421,7 +445,8 @@ the build, the data and the failure-semantics phases alone;
 S2b's 16 lanes and the hash_device pod ingest (with its mesh_factorize
 stage) alone, so that one call can time two trees of the port in turns;
 `python3 chip_smoke.py --splits` the build, c4_c24_split_phase,
-c6_c7_split_phase, c22_c23_split_phase and c20_c8_split_phase alone, on
+c6_c7_split_phase, c22_c23_split_phase, c20_c8_split_phase and
+c18_c14_split_phase alone (`--splits=c18_c14` that one), on
 this tree or, for the same comparison, its parent's.
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line describing every kernel, and the result line.
@@ -588,7 +613,8 @@ def main() -> int:
                             t0)
     if "--walls" in sys.argv[1:]:
         return walls_only(torch, tdp, cuda_build, columnar, card, t0)
-    if "--splits" in sys.argv[1:]:
+    if any(a == "--splits" or a.startswith("--splits=")
+           for a in sys.argv[1:]):
         return splits_only(torch, tdp, cuda_build, columnar, kernels,
                            executor, device_encode, ingest, card, t0)
 
@@ -650,6 +676,7 @@ def main() -> int:
     c6_c7_edge_phase(torch, dev, kernels)
     c22_c23_edge_phase(torch, dev, kernels)
     c20_c8_edge_phase(torch, dev, tdp, kernels, executor)
+    c18_c14_edge_phase(torch, dev, kernels)
     report += ingest_kernel_phase(
         torch, dev, {"users": (users, encoded.pid),
                      "movies": (movies, encoded.pk),
@@ -5247,6 +5274,264 @@ def c20_c8_split_phase(torch, dev, tdp, encoded, kernels, executor, card):
     del entries
 
 
+INT_STATS = ("l0", "l1", "linf", "count_per_pk", "pids_per_pk")
+HIST_BUCKETS = 10000
+
+
+def c14_buffers(torch, dev, rows, gen):
+    """C14's row buffers of `rows` rows, random contents: ((the host
+    route's pid, pk int32 and values float32), pads (0, -1, 0.0)) and
+    ((the hash route's two int32[., 3] hash columns and the same values),
+    pads (-1, -1, 0.0))."""
+    host = [torch.randint(0, 1 << 30, (rows,), dtype=torch.int32,
+                          device=dev, generator=gen),
+            torch.randint(-1, N_MOVIES, (rows,), dtype=torch.int32,
+                          device=dev, generator=gen),
+            torch.rand(rows, device=dev, generator=gen)]
+    hashed = [torch.randint(-(1 << 31), 1 << 31, (rows, 3), dtype=torch.int32,
+                            device=dev, generator=gen)
+              for _ in range(2)] + [host[2]]
+    return (host, (0, -1, 0.0)), (hashed, (-1, -1, 0.0))
+
+
+def c18_int_cases(torch, dev, rng, n=4099):
+    """C18's integer edge inputs, {label: (values int32, mask bool)} on the
+    card, n rows (not a multiple of 16) unless named."""
+    pow10 = 10**np.arange(10, dtype=np.int64)
+    edges = np.concatenate([pow10 - 1, pow10, pow10 + 1, [999, 1001, 0, -1,
+                                                          -7, -(1 << 31),
+                                                          (1 << 31) - 1]])
+    decades = np.clip(np.concatenate([
+        edges, (10.0**rng.uniform(0, 9.33, n - len(edges))).astype(np.int64)]),
+        -(1 << 31), (1 << 31) - 1)
+    dense, sparse = np.ones(n, bool), rng.random(n) < 0.03
+    cases = {
+        "one slot (Netflix pair lengths)": (np.ones(n), dense),
+        "five values": (rng.integers(1, 6, n), dense),
+        "five values, sparse mask": (rng.integers(1, 6, n), sparse),
+        "every decade, edges, negatives, int32 extremes": (decades, dense),
+        "every decade, half masked": (rng.permutation(decades),
+                                      rng.random(n) < 0.5),
+        "skew over 40 slots": (np.minimum(rng.zipf(1.3, n), 40), dense),
+        "empty mask": (rng.integers(1, 5000, n), np.zeros(n, bool)),
+        "no rows": (np.zeros(0), np.zeros(0, bool)),
+        "one row": (np.array([123456]), np.ones(1, bool)),
+        "16 rows": (rng.integers(0, 3000, 16), rng.random(16) < 0.7)}
+    out = {k: (torch.as_tensor(v.astype(np.int32), device=dev),
+               torch.as_tensor(m, device=dev)) for k, (v, m) in cases.items()}
+    # Views one row in: 4-byte and 1-byte aligned, read row by row.
+    v, m = out["every decade, half masked"]
+    pad_v = torch.cat([v[:1], v])
+    pad_m = torch.cat([m[:1], m])
+    out["unaligned views"] = (pad_v[1:], pad_m[1:])
+    return out
+
+
+def c18_float_cases(torch, dev, rng, n=4099):
+    """C18's float edge inputs, {label: (values float32, mask bool)}."""
+    from pipelinedp_tpu_torch import kernels
+    f32 = np.float32
+    big = np.finfo(f32).max
+    dense = np.ones(n, bool)
+    lo, hi = f32(-3.7), f32(12.9)
+    on_edges = kernels.linspace_edges_f32(
+        torch.tensor(lo), torch.tensor(hi), HIST_BUCKETS).numpy()
+    on_edges = np.concatenate([on_edges, rng.choice(on_edges, n)])
+    mixed = np.concatenate([[-0.0, 0.0, -0.0], rng.normal(size=n - 3) * 40])
+    cases = {
+        "five values (Netflix pair sums)": (rng.integers(1, 6, n), dense),
+        "lo == hi": (np.full(n, 0.1), dense),
+        "lo == hi == -0.0": (np.full(n, -0.0), dense),
+        "lo == hi, half masked": (np.where(rng.random(n) < 0.5, 7.25, -3.0),
+                                  rng.random(n) < 0.5),
+        "-FLT_MAX to FLT_MAX": (np.concatenate([[-big, big], rng.normal(
+            size=n - 2) * 1e37]), dense),
+        "values on every edge": (on_edges, np.ones(len(on_edges), bool)),
+        "a range of a few ulps": (f32(1e6) + f32(0.0625) * rng.integers(
+            0, 17, n), dense),
+        "negatives and -0.0": (mixed, dense),
+        "wide skew": (rng.standard_cauchy(n), rng.random(n) < 0.8),
+        "empty mask": (rng.normal(size=n), np.zeros(n, bool)),
+        "one row": (np.array([2.5]), np.ones(1, bool))}
+    out = {k: (torch.as_tensor(v.astype(f32), device=dev),
+               torch.as_tensor(m, device=dev)) for k, (v, m) in cases.items()}
+    v, m = out["negatives and -0.0"]
+    out["unaligned views"] = (torch.cat([v[:1], v])[1:],
+                              torch.cat([m[:1], m])[1:])
+    return out
+
+
+def c14_cases(torch, dev, gen):
+    """C14's edge layouts: (label, buffers of cap rows, pads), with widths
+    1, 3 and 5, 4- and 8-byte columns, the hash route's sentinel and -0.0
+    pads, and buffers that start one row into their allocation."""
+    def col(cap, dtype, width=1, offset=0):
+        shape = (cap + offset,) + ((width,) if width > 1 else ())
+        if dtype.is_floating_point:
+            t = torch.rand(shape, device=dev, generator=gen).to(dtype)
+        else:
+            t = torch.randint(-(1 << 30), 1 << 30, shape, device=dev,
+                              generator=gen).to(dtype)
+        return t[offset:]
+
+    i32, i64, f32, f64 = torch.int32, torch.int64, torch.float32, \
+        torch.float64
+    out = []
+    for cap in (64, 1000, 4099):
+        out += [
+            (f"host route, cap {cap}", [col(cap, i32), col(cap, i32),
+                                        col(cap, f32)], (0, -1, 0.0)),
+            (f"hash route, cap {cap}", [col(cap, i32, 3), col(cap, i32, 3),
+                                        col(cap, f32)], (-1, -1, 0.0)),
+            (f"8-byte, widths 1 and 5, cap {cap}",
+             [col(cap, i64), col(cap, f64, 5), col(cap, i32, 5)],
+             (-7, -0.0, 3)),
+            (f"one row in, cap {cap}",
+             [col(cap, i32, 1, 1), col(cap, f64, 5, 1), col(cap, i64, 1, 1)],
+             (5, -0.0, -1))]
+    return out
+
+
+def c18_c14_edge_phase(torch, dev, kernels):
+    """C18 and C14 at their edge inputs, each entry == its plain version:
+    C18's integer entry (c18_int_cases, alone and all in one batched
+    launch), its float entry (c18_float_cases; lo, hi, edges, counts and
+    maxes ==, sums within check_float_hist's bound), C14's fill_tail at
+    starts 0-3, 5, 7, 13, cap - 1 and cap (no launch) and grow to the same
+    capacity, +1 row, the next power of two and 3 x + 5, on c14_cases'
+    layouts; each C14 call one launch."""
+    rng = np.random.default_rng(SEED + 18)
+    ints = c18_int_cases(torch, dev, rng)
+    for label, (v, m) in ints.items():
+        for j, (g, w) in enumerate(zip(kernels.log_bins_int(v, m),
+                                       kernels.log_bins_int_plain(v, m))):
+            check_equal(f"log_bins_int ({label}) {j}", g, w)
+    stats = list(ints.values())
+    check_equal("log_bins_int_many (every case in one launch)",
+                kernels.log_bins_int_many(stats),
+                kernels.log_bins_int_many_plain(stats))
+    floats = c18_float_cases(torch, dev, rng)
+    for label, (v, m) in floats.items():
+        check_float_hist(f"log_bins_float ({label})",
+                         kernels.log_bins_float(v, m, HIST_BUCKETS),
+                         kernels.log_bins_float_plain(v, m, HIST_BUCKETS),
+                         v, m)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    layouts = c14_cases(torch, dev, gen)
+    for label, bufs, fills in layouts:
+        cap = bufs[0].shape[0]
+        for start in sorted({0, 1, 2, 3, 5, 7, 13, cap - 1, cap}):
+            got = [b.clone() for b in bufs]
+            want = [b.clone() for b in bufs]
+            before = kernels.launch_counts["append_rows"]
+            kernels.fill_tail(got, start, fills)
+            if kernels.launch_counts["append_rows"] - before != \
+                    (start < cap):
+                raise AssertionError(f"fill_tail ({label}, start {start}): "
+                                     f"not one launch")
+            kernels.fill_tail_plain(want, start, fills)
+            for j, (g, w) in enumerate(zip(got, want)):
+                check_equal(f"fill_tail ({label}, start {start}) column {j}",
+                            g, w)
+        for new_cap in sorted({cap, cap + 1, 1 << cap.bit_length(),
+                               3 * cap + 5}):
+            before = kernels.launch_counts["append_rows"]
+            grown = kernels.grow_rows(bufs, new_cap, fills)
+            if kernels.launch_counts["append_rows"] - before != 1:
+                raise AssertionError(f"grow_rows ({label}, {new_cap}): not "
+                                     f"one launch")
+            for j, (g, w) in enumerate(zip(
+                    grown, kernels.grow_rows_plain(bufs, new_cap, fills))):
+                check_equal(f"grow_rows ({label}, {cap} -> {new_cap}) "
+                            f"column {j}", g, w)
+    torch.cuda.synchronize()
+    print(f"c18_c14 edges: C18 integer entry on {len(ints)} cases (each "
+          f"alone and all in one launch), float entry on {len(floats)}, "
+          f"C14 fill_tail and grow on {len(layouts)} layouts: all equal "
+          f"their plain versions", flush=True)
+
+
+def c18_c14_split_phase(torch, dev, encoded, qenc, kernels, card):
+    """The three-way split (three_way) and the device operations a call
+    (device_ops) of C18's entries on the histogram call's stats (the five
+    integer histograms of the 2^24 Netflix rows, the integer l1 alone, the
+    float histogram of the Netflix and (q) pair sums) and of C14's grow
+    (2^23 -> 2^24 rows) and fill_tail (2^24 - 1 rows) on the host route's
+    buffers, beside three Tensor.fill_ calls and torch.cat + torch.full;
+    and the wall of compute_dataset_histograms_device on the Netflix rows
+    (median of 5). On this tree a C18 or C14 call is one device operation
+    and the five integer histograms one launch (log_bins_int_many); a
+    parent's five are five calls. Run by --splits."""
+    from pipelinedp_tpu_torch.dataset_histograms import device_histograms \
+        as dh
+    batched = hasattr(kernels, "log_bins_int_many")
+    stats = {}
+    for label, enc in (("netflix", encoded), ("q", qenc)):
+        stats[label] = dh.group_stats(*dh.device_columns(
+            enc.pid, enc.pk, enc.values, dev))
+    net = stats["netflix"]
+    ints = [net[k] for k in INT_STATS]
+    n = net["l1"][0].shape[0]
+    fns = {
+        "C18 int (l1)": lambda: kernels.log_bins_int(*net["l1"]),
+        "C18 five ints": (
+            (lambda: kernels.log_bins_int_many(ints)) if batched else
+            (lambda: [kernels.log_bins_int(*s) for s in ints])),
+        "C18 float (netflix)": lambda: kernels.log_bins_float(
+            *net["linf_sum"], HIST_BUCKETS),
+        "C18 float (q)": lambda: kernels.log_bins_float(
+            *stats["q"]["linf_sum"], HIST_BUCKETS)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    (bufs, fills), _ = c14_buffers(torch, dev, N_ROWS // 2, gen)
+    tail = kernels.grow_rows(bufs, N_ROWS, fills)
+
+    def library_grow():
+        return [torch.cat([b, torch.full((N_ROWS - b.shape[0],), f,
+                                         dtype=b.dtype, device=dev)])
+                for b, f in zip(bufs, fills)]
+
+    fns14 = {
+        "C14 grow": lambda: kernels.grow_rows(bufs, N_ROWS, fills),
+        "C14 fill_tail": lambda: kernels.fill_tail(tail, 1, fills),
+        "three fill_": lambda: kernels.fill_tail_plain(tail, 1, fills),
+        "torch.cat + torch.full": library_grow}
+    for name, fn in list(fns.items()) + list(fns14.items()):
+        for _ in range(3):
+            ops = device_ops(torch, fn)
+            if ops != "not traced":
+                break
+        most = 5 if name == "C18 five ints" and not batched else 1
+        if batched and name.startswith(("C18", "C14")) and \
+                ops != "not traced" and ops["total"] > most:
+            raise AssertionError(f"{name}: {ops}")
+        print(f"c18_c14[{name}]: device operations a call "
+              f"{json.dumps(ops)}", flush=True)
+    b_int = bound(n * 5, 0)[0]
+    b_float = bound(2 * n * 5, 0)[0]
+    b_grow = bound(N_ROWS // 2 * 12 + N_ROWS * 12, 0)[0]
+    b_fill = bound((N_ROWS - 1) * 12, 0)[0]
+    print(f"c18_c14[bounds]: C18 int {b_int:.4g} ms a stat, five "
+          f"{5 * b_int:.4g}, float {b_float:.4g} (values and mask read "
+          f"twice); C14 grow {b_grow:.4g}, fill_tail {b_fill:.4g} (bytes)",
+          flush=True)
+    print_three_way("C18 log_bins at the histogram call's shapes",
+                    three_way(torch, fns, host_calls=200), card)
+    print_three_way("C14 append_rows, host route, 12 B a row",
+                    three_way(torch, fns14, host_calls=200), card)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        dh.compute_dataset_histograms_device(encoded.pid, encoded.pk,
+                                             encoded.values, device=dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - start) * 1e3)
+    print(f"c18_c14[histogram call, netflix]: compute_dataset_histograms_"
+          f"device {statistics.median(walls):.4f} ms (median of 5: "
+          f"{[round(w, 4) for w in walls]}) ({card})", flush=True)
+    del stats, net, ints, bufs, tail, fns, fns14
+
+
 def round_up(x, multiple):
     return -(-x // multiple) * multiple
 
@@ -5263,19 +5548,35 @@ def reshard_rows(torch, dev, cap, values):
 def splits_only(torch, tdp, cuda_build, columnar, kernels, executor,
                 device_encode, ingest, card, t0):
     """python3 chip_smoke.py --splits: the build, the Netflix rows,
-    c4_c24_split_phase, c6_c7_split_phase, c22_c23_split_phase and
-    c20_c8_split_phase, nothing else (the same script on two trees in
-    turns compares them)."""
+    c4_c24_split_phase, c6_c7_split_phase, c22_c23_split_phase,
+    c20_c8_split_phase and c18_c14_split_phase, nothing else (the same
+    script on two trees in turns compares them); --splits=c18_c14 (names
+    joined by commas) runs only the named ones."""
     print(f"build: {len(cuda_build.SOURCES)} kernel sources in "
           f"{cuda_build.build_all():.1f} s ({card})", flush=True)
+    names = [a.split("=", 1)[1] for a in sys.argv[1:]
+             if a.startswith("--splits=")]
+    chosen = set(",".join(names).split(",")) if names else None
     users, movies, ratings = netflix_rows(np.random.default_rng(SEED))
     dev = torch.device("cuda")
-    c4_c24_split_phase(torch, dev, kernels, executor, device_encode, ingest,
-                       users, card)
-    c6_c7_split_phase(torch, dev, kernels, card)
-    c22_c23_split_phase(torch, dev, kernels, users, card)
-    c20_c8_split_phase(torch, dev, tdp, columnar.encode_columns(
-        users, movies, ratings), kernels, executor, card)
+
+    def wanted(name):
+        return chosen is None or name in chosen
+
+    if wanted("c4_c24"):
+        c4_c24_split_phase(torch, dev, kernels, executor, device_encode,
+                           ingest, users, card)
+    if wanted("c6_c7"):
+        c6_c7_split_phase(torch, dev, kernels, card)
+    if wanted("c22_c23"):
+        c22_c23_split_phase(torch, dev, kernels, users, card)
+    encoded = (columnar.encode_columns(users, movies, ratings)
+               if wanted("c20_c8") or wanted("c18_c14") else None)
+    if wanted("c20_c8"):
+        c20_c8_split_phase(torch, dev, tdp, encoded, kernels, executor, card)
+    if wanted("c18_c14"):
+        c18_c14_split_phase(torch, dev, encoded, columnar.encode_columns(
+            *zipfish_rows()), kernels, card)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6190,17 +6491,9 @@ def ingest_kernel_phase(torch, dev, key_sets, kernels, device_encode, ingest,
     # the hash route's (two int32[., 3] hash columns).
     n, half = N_ROWS, N_ROWS // 2
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    host_bufs = [torch.randint(0, 1 << 30, (half,), dtype=torch.int32,
-                               device=dev, generator=gen),
-                 torch.randint(-1, 17770, (half,), dtype=torch.int32,
-                               device=dev, generator=gen),
-                 torch.rand(half, device=dev, generator=gen)]
-    hash_bufs = [torch.randint(-(1 << 31), 1 << 31, (half, 3),
-                               dtype=torch.int32, device=dev, generator=gen)
-                 for _ in range(2)] + [host_bufs[2]]
     out = {}
-    for label, bufs, fills in (("host route", host_bufs, (0, -1, 0.0)),
-                               ("hash route", hash_bufs, (-1, -1, 0.0))):
+    for label, (bufs, fills) in zip(("host route", "hash route"),
+                                    c14_buffers(torch, dev, half, gen)):
         row_bytes = sum(b[0].numel() * b.element_size() for b in bufs)
         grown = kernels.grow_rows(bufs, n, fills)
         err_g = max(check_equal(f"grow_rows ({label}) column {j}", g, p)
@@ -6978,12 +7271,12 @@ def check_float_hist(label, got, want, values, mask):
     in another order on the card) within 1e-5 of the sum of its |v|.
     Returns the largest |kernel - plain| of the sums."""
     import torch
+    from pipelinedp_tpu_torch import kernels
     for j, name in ((0, "lo_hi"), (1, "edges"), (2, "counts"), (4, "maxes")):
         check_equal(f"{label} {name}", got[j], want[j])
     edges, counts = want[1], want[2]
     v = values[mask]
-    idx = (torch.searchsorted(edges, v, right=True) - 1).clamp(
-        0, counts.shape[0] - 1)
+    idx = kernels.float_buckets(edges, v)
     mag = torch.zeros(counts.shape[0], dtype=torch.float64,
                       device=v.device).index_add_(0, idx, v.abs().double())
     err = (got[3].double() - want[3].double()).abs()
@@ -7053,8 +7346,9 @@ def histogram_phase(torch, dev, data, kernels, card):
     rows (pid user, pk movie, value rating) and (q)'s rows (4,725,413
     partitions): the result against the port's numpy host path
     (histogram_fields_agree); C17 and
-    C18 against their plain versions on the card at these shapes; each
-    stage's time. Returns the report rows (on the Netflix rows) and the
+    C18 against their plain versions on the card at these shapes (C18's
+    five integer histograms in one launch and one by one); each stage's
+    time. Returns the report rows (on the Netflix rows) and the
     launch counts of the two calls."""
     from pipelinedp_tpu_torch.dataset_histograms import (
         computing_histograms as ch, device_histograms as dh)
@@ -7073,7 +7367,9 @@ def histogram_phase(torch, dev, data, kernels, card):
             walls.append(time.perf_counter() - start)
             counts = dict(kernels.launch_counts)
             check_launches(f"histograms ({label})", counts, kernels,
-                           dict(radix_sort=3, group_stats=3, log_bins=6),
+                           # One launch for the five integer histograms,
+                           # one for the float histogram.
+                           dict(radix_sort=3, group_stats=3, log_bins=2),
                            path=("radix_sort", "group_stats", "log_bins"))
             for name, c in counts.items():
                 total[name] += c
@@ -7125,8 +7421,11 @@ def histogram_phase(torch, dev, data, kernels, card):
                             kernels.group_stats_keys_plain(*args)):
                 check_equal(f"group_stats keys ({label}, {what})", g, w)
         stats = dh.group_stats(pid, pk, vals, valid)
-        err18 = 0.0
-        for key in ("l0", "l1", "linf", "count_per_pk", "pids_per_pk"):
+        ints = [stats[key] for key in INT_STATS]
+        err18 = check_equal(f"log_bins_int_many ({label})",
+                            kernels.log_bins_int_many(ints),
+                            kernels.log_bins_int_many_plain(ints))
+        for key in INT_STATS:
             for j, (g, w) in enumerate(zip(
                     kernels.log_bins_int(*stats[key]),
                     kernels.log_bins_int_plain(*stats[key]))):
@@ -7160,6 +7459,9 @@ def histogram_phase(torch, dev, data, kernels, card):
             "C18 int (l1)": (cuda_ms(lambda: kernels.log_bins_int(
                 l1, new_pid), 5), cuda_ms(
                 lambda: kernels.log_bins_int_plain(l1, new_pid), 3, 1)),
+            "C18 five ints": (cuda_ms(lambda: kernels.log_bins_int_many(
+                ints), 5), cuda_ms(
+                lambda: kernels.log_bins_int_many_plain(ints), 3, 1)),
             "C18 float": (cuda_ms(lambda: kernels.log_bins_float(
                 psum, new_pair, 10000), 5), cuda_ms(
                 lambda: kernels.log_bins_float_plain(psum, new_pair, 10000),
@@ -7215,7 +7517,7 @@ def histogram_phase(torch, dev, data, kernels, card):
                  "ms": ms["C18 int (l1)"][0],
                  "plain_ms": ms["C18 int (l1)"][1], "bound_ms": b18[0],
                  "bound_by": b18[1], "library_ms": None}]
-        del pid, pk, vals, valid, perm, pairs, plain, stats, cpu_sum, sv
+        del pid, pk, vals, valid, perm, pairs, plain, stats, ints, cpu_sum, sv
     return report, total
 
 

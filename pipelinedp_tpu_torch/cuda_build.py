@@ -42,6 +42,7 @@ RESHARD_TILE = 4096  # C22: rows a block counts and ranks
 EXCHANGE_TILE = 1024  # C23: rows a block stages
 DESCEND_VALUE_QUANTILES = 32  # C8: quantiles the launch's parameters carry
 DESCEND_LANE_WORDS = 512  # C8: lane key words the parameters carry
+LOG_BINS_MAX_STATS = 16  # C18: integer stats one launch bins
 DEFINES = {
     "radix_sort": {"PDP_SORT_MAX_WORDS": SORT_MAX_WORDS,
                    "PDP_SORT_MAX_RUNS": SORT_MAX_RUNS,
@@ -51,6 +52,7 @@ DEFINES = {
     "reshard_exchange": {"PDP_EXCHANGE_TILE": EXCHANGE_TILE},
     "quantile_descend": {"PDP_DESCEND_VALUE_QUANTILES": DESCEND_VALUE_QUANTILES,
                          "PDP_DESCEND_LANE_WORDS": DESCEND_LANE_WORDS},
+    "log_bins": {"PDP_LOG_BINS_MAX_STATS": LOG_BINS_MAX_STATS},
 }
 
 _P = ctypes.c_void_p
@@ -151,8 +153,7 @@ _SIGNATURES = {
         "lookup_codes": (_I, [_P, _LL, _P, _LL, _P, _P, _P]),
     },
     "append_rows": {
-        "append_rows_fill_tail": (_I, [_P, _P, _P, _P, _I, _LL, _LL, _P]),
-        "append_rows_grow": (_I, [_P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
+        "append_rows": (_I, [_P, _I, _LL, _LL, _LL, _P]),
     },
     "pld_fft": {
         "pld_rfft": (_I, [_P, _LL, _LL, _I, _I, _I, _P, _P, _P]),
@@ -169,9 +170,12 @@ _SIGNATURES = {
         "group_stats_keys": (_I, [_P, _P, _P, _LL, _P, _P, _P, _P]),
     },
     "log_bins": {
+        "log_bins_int_record_bytes": (_LL, []),
         "log_bins_int_scratch_bytes": (_LL, []),
-        "log_bins_int": (_I, [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P]),
-        "log_bins_float": (_I, [_P, _P, _LL, _I, _F, _P, _P, _P, _P, _P,
+        "log_bins_int_blocks_per_sm": (_I, []),
+        "log_bins_float_blocks_per_sm": (_I, [_I]),
+        "log_bins_int": (_I, [_P, _I, _I, _P, _P]),
+        "log_bins_float": (_I, [_P, _P, _LL, _I, _F, _I, _P, _P, _P, _P, _P,
                                 _P, _P]),
     },
     "sweep_stats": {

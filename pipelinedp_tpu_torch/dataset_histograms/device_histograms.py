@@ -5,9 +5,10 @@ six contribution histograms of integer-encoded (pid, pk, value) columns.
 Three C5 radix sorts order the rows by (pid, pk), by pk, and the pair
 starts by pk (invalid rows carry INT32_MAX keys and sink); C17 group_stats
 takes the per-pair, per-pid and per-partition statistics from the sorted
-streams, reading each sort's sorted first key; C18 log_bins bins them (five 3-leading-digit integer histograms
-and one float32 histogram of 10,000 equal-width buckets), so only O(bins)
-values come back to the host.
+streams, reading each sort's sorted first key; C18 log_bins bins them (the
+five 3-leading-digit integer histograms in one launch, whose records come
+back to the host in one copy, and one float32 histogram of 10,000
+equal-width buckets), so only O(bins) values come back to the host.
 
 Semantics are those of the JAX package's device path: the integer
 histograms equal the host path (computing_histograms.
@@ -138,14 +139,15 @@ def compute_dataset_histograms_device(
     pid, pk, vals, valid = device_columns(pids, pks, values, dev)
     stats = group_stats(pid, pk, vals, valid)
     T = hist.HistogramType
-    ints = {key: _int_bins_to_histogram(kernels.log_bins_int(*stats[key]),
-                                        name)
-            for key, name in (("l0", T.L0_CONTRIBUTIONS),
-                              ("l1", T.L1_CONTRIBUTIONS),
-                              ("linf", T.LINF_CONTRIBUTIONS),
-                              ("count_per_pk", T.COUNT_PER_PARTITION),
-                              ("pids_per_pk",
-                               T.COUNT_PRIVACY_ID_PER_PARTITION))}
+    names = (("l0", T.L0_CONTRIBUTIONS), ("l1", T.L1_CONTRIBUTIONS),
+             ("linf", T.LINF_CONTRIBUTIONS),
+             ("count_per_pk", T.COUNT_PER_PARTITION),
+             ("pids_per_pk", T.COUNT_PRIVACY_ID_PER_PARTITION))
+    # The five integer histograms: one C18 launch, one copy to the host.
+    binned = kernels.log_bins_int_unpack(kernels.log_bins_int_many(
+        [stats[key] for key, _ in names]).cpu())
+    ints = {key: _int_bins_to_histogram(b, name)
+            for (key, name), b in zip(names, binned)}
     linf_sum = None
     if values is not None:
         linf_sum = _float_bins_to_histogram(

@@ -2282,19 +2282,43 @@ def _check_buffers(bufs: Sequence[torch.Tensor], fills: Sequence) -> int:
     return cap
 
 
-def _column_args(bufs, fills):
-    k = len(bufs)
-    return ((ctypes.c_int * k)(*[1 if b.dim() == 1 else b.shape[1]
-                                 for b in bufs]),
-            (ctypes.c_int * k)(*[b.element_size() for b in bufs]),
-            (ctypes.c_ulonglong * k)(*[_fill_bits(f, b.dtype)
-                                       for b, f in zip(bufs, fills)]))
+@functools.lru_cache(maxsize=256)
+def _column_words(layout) -> Tuple[int, ...]:
+    """(width, element bytes, the pad's bit pattern as a signed word) of
+    each column of `layout`, ((dtype, width, pad, sign of the pad), ...):
+    built once a layout."""
+    words = []
+    for dtype, width, fill, _ in layout:
+        bits = _fill_bits(fill, dtype)
+        words += [width, dtype.itemsize,
+                  bits - (1 << 64) if bits >= 1 << 63 else bits]
+    return tuple(words)
+
+
+def _launch_rows(bufs, srcs, fills, copy_rows: int, fill_begin: int,
+                 fill_end: int) -> None:
+    """One C14 launch: rows [0, copy_rows) of each source into its buffer,
+    rows [fill_begin, fill_end) the pad."""
+    dev = bufs[0].device
+    # The sign tells 0.0 from -0.0, which compare (and hash) equal.
+    static = _column_words(tuple(
+        (b.dtype, 1 if b.dim() == 1 else b.shape[1], f,
+         math.copysign(1.0, float(f))) for b, f in zip(bufs, fills)))
+    table = array.array("q")
+    for j, b in enumerate(bufs):
+        table.extend((b.data_ptr(), srcs[j].data_ptr() if srcs else 0) +
+                     static[3 * j:3 * j + 3])
+    status = cuda_build.library("append_rows").append_rows(
+        table.buffer_info()[0], len(bufs), copy_rows, fill_begin, fill_end,
+        _stream(dev))
+    _raise_on(status, "append_rows")
+    _count("append_rows")
 
 
 def fill_tail(bufs: Sequence[torch.Tensor], start: int,
               fills: Sequence) -> None:
     """Writes each buffer's pad value over its rows [start, cap), in place
-    (C14's fill_tail entry, one launch for all buffers)."""
+    (C14, one launch for all buffers)."""
     cap = _check_buffers(bufs, fills)
     if not 0 <= start <= cap:
         raise ValueError(f"fill_tail: start {start} outside [0, {cap}]")
@@ -2302,14 +2326,7 @@ def fill_tail(bufs: Sequence[torch.Tensor], start: int,
         return fill_tail_plain(bufs, start, fills)
     if start == cap:
         return  # no tail: nothing to launch
-    dev = bufs[0].device
-    k = len(bufs)
-    widths, elems, bits = _column_args(bufs, fills)
-    status = cuda_build.library("append_rows").append_rows_fill_tail(
-        (ctypes.c_void_p * k)(*[_ptr(b) for b in bufs]), widths, elems, bits,
-        k, start, cap, _stream(dev))
-    _raise_on(status, "append_rows")
-    _count("append_rows")
+    _launch_rows(bufs, None, fills, 0, start, cap)
 
 
 def fill_tail_plain(bufs, start, fills):
@@ -2320,24 +2337,16 @@ def fill_tail_plain(bufs, start, fills):
 def grow_rows(bufs: Sequence[torch.Tensor], new_cap: int,
               fills: Sequence) -> List[torch.Tensor]:
     """New buffers of new_cap rows holding each old buffer's rows, their
-    rows past the old capacity at the pad value (C14's grow entry, one
-    launch for all buffers)."""
+    rows past the old capacity at the pad value (C14, one launch for all
+    buffers)."""
     cap = _check_buffers(bufs, fills)
     if new_cap < cap:
         raise ValueError(f"grow_rows: new capacity {new_cap} < {cap}")
     if not _on_cuda(*bufs):
         return grow_rows_plain(bufs, new_cap, fills)
-    dev = bufs[0].device
-    k = len(bufs)
     out = [torch.empty((new_cap,) + tuple(b.shape[1:]), dtype=b.dtype,
-                       device=dev) for b in bufs]
-    widths, elems, bits = _column_args(bufs, fills)
-    status = cuda_build.library("append_rows").append_rows_grow(
-        (ctypes.c_void_p * k)(*[_ptr(b) for b in bufs]),
-        (ctypes.c_void_p * k)(*[_ptr(o) for o in out]), widths, elems, bits,
-        k, cap, new_cap, _stream(dev))
-    _raise_on(status, "append_rows")
-    _count("append_rows")
+                       device=b.device) for b in bufs]
+    _launch_rows(out, bufs, fills, cap, cap, new_cap)
     return out
 
 
@@ -2871,32 +2880,128 @@ def log_bin_lower(slot: torch.Tensor) -> torch.Tensor:
                        m * _pow10(slot.device)[(e - 2).clamp(0, 9)])
 
 
+# An integer stat's packed output (csrc/log_bins.cu): counts, sums
+# int64[LOG_BIN_SLOTS], n_bins int64, lowers, uppers, maxes
+# int32[LOG_BIN_SLOTS].
+LOG_BINS_RECORD = 28 * LOG_BIN_SLOTS + 8
+LOG_BINS_MAX_STATS = cuda_build.LOG_BINS_MAX_STATS
+
+
+def log_bins_int_unpack(packed: torch.Tensor):
+    """The (lowers, uppers, counts, sums, maxes, n_bins) of each record of
+    packed uint8 [S, LOG_BINS_RECORD] (log_bins_int_many's result, on any
+    device), as views of it."""
+    if packed.dtype != torch.uint8 or packed.dim() != 2 or \
+            packed.shape[1] != LOG_BINS_RECORD or not packed.is_contiguous():
+        raise ValueError(f"log_bins_int_unpack: expected contiguous uint8"
+                         f"[S, {LOG_BINS_RECORD}], got {packed.dtype}"
+                         f"{list(packed.shape)}")
+    k = LOG_BIN_SLOTS
+    w64, w32 = packed.view(torch.int64), packed.view(torch.int32)
+    at = (16 * k + 8) // 4
+    return [(w32[s, at:at + k], w32[s, at + k:at + 2 * k], w64[s, :k],
+             w64[s, k:2 * k], w32[s, at + 2 * k:at + 3 * k], w64[s, 2 * k])
+            for s in range(packed.shape[0])]
+
+
+def log_bins_int_pack(binned) -> torch.Tensor:
+    """The packed records (log_bins_int_unpack's layout) of single
+    integer histograms, each a (lowers, uppers, counts, sums, maxes,
+    n_bins)."""
+    packed = torch.zeros((len(binned), LOG_BINS_RECORD), dtype=torch.uint8,
+                         device=binned[0][0].device)
+    for views, one in zip(log_bins_int_unpack(packed), binned):
+        for dst, src in zip(views, one):
+            dst.copy_(src)
+    return packed
+
+
+def _check_stats(stats) -> list:
+    stats = [tuple(s) for s in stats]
+    if not 1 <= len(stats) <= LOG_BINS_MAX_STATS:
+        raise ValueError(f"log_bins_int_many takes 1 to {LOG_BINS_MAX_STATS} "
+                         f"(values, mask) stats, got {len(stats)}")
+    for j, (values, mask) in enumerate(stats):
+        n = values.shape[0] if values.dim() == 1 else -1
+        _check(values, torch.int32, n, f"stat {j} values")
+        _check(mask, torch.bool, n, f"stat {j} mask")
+    if len({t.device for s in stats for t in s}) != 1:
+        raise ValueError("log_bins_int_many: every stat on one device")
+    return stats
+
+
+@functools.lru_cache(maxsize=None)
+def _log_bins_blocks(device_index: int, n_buckets: int) -> int:
+    """Blocks of C18's integer kernel (n_buckets 0) or float kernel the card
+    holds at once: blocks an SM holds x SMs, asked once a device (which
+    also raises the kernel's shared-memory limit)."""
+    with torch.cuda.device(device_index):
+        lib = cuda_build.library("log_bins")
+        if lib.log_bins_int_record_bytes() != LOG_BINS_RECORD:
+            raise RuntimeError("log_bins: csrc/log_bins.cu's record layout "
+                               "differs from LOG_BINS_RECORD")
+        per_sm = (lib.log_bins_int_blocks_per_sm() if n_buckets == 0 else
+                  lib.log_bins_float_blocks_per_sm(n_buckets))
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    if per_sm < 1:
+        raise RuntimeError(f"log_bins: occupancy query failed ({per_sm})")
+    return per_sm * sms
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _launch_log_bins_int(stats) -> torch.Tensor:
+    """One C18 launch over every stat: the packed records, uint8 [S,
+    LOG_BINS_RECORD], views of one allocation that also holds the
+    kernel's accumulators."""
+    dev = stats[0][0].device
+    lib = cuda_build.library("log_bins")
+    n_stats = len(stats)
+    grid = _log_bins_blocks(_device_index(dev), 0)
+    buf = torch.empty(n_stats * (LOG_BINS_RECORD +
+                                 lib.log_bins_int_scratch_bytes()),
+                      dtype=torch.uint8, device=dev)
+    table = array.array("q", [t.data_ptr() for s in stats for t in s] +
+                        [s[0].shape[0] for s in stats])
+    status = lib.log_bins_int(table.buffer_info()[0], n_stats, grid,
+                              buf.data_ptr(), _stream(dev))
+    _raise_on(status, "log_bins")
+    _count("log_bins")
+    return buf[:n_stats * LOG_BINS_RECORD].view(n_stats, LOG_BINS_RECORD)
+
+
+def log_bins_int_many(stats) -> torch.Tensor:
+    """The integer histograms (log_bins_int) of up to LOG_BINS_MAX_STATS
+    (values, mask) stats in one launch (C18's integer entry, every block
+    binning its chunk of every stat): their packed records, uint8 [S,
+    LOG_BINS_RECORD], which one copy brings to the host and
+    log_bins_int_unpack reads."""
+    stats = _check_stats(stats)
+    if not _on_cuda(*[t for s in stats for t in s]):
+        return log_bins_int_many_plain(stats)
+    return _launch_log_bins_int(stats)
+
+
+def log_bins_int_many_plain(stats):
+    return log_bins_int_pack([log_bins_int_plain(v, m) for v, m in stats])
+
+
 def log_bins_int(values: torch.Tensor, mask: torch.Tensor):
     """The 3-leading-digit log histogram of the int32 values the bool mask
     selects: (lowers, uppers, counts, sums, maxes, n_bins), LOG_BIN_SLOTS
     entries each, the first n_bins the bins in ascending lower and zeros
     after; lowers, uppers, maxes int32, counts and sums int64 (exact),
-    n_bins an int64 scalar (C18's integer entry). Values below 1 bin as 1
-    and add their own value to sum and max."""
+    n_bins an int64 scalar (C18's integer entry for one stat). Values below
+    1 bin as 1 and add their own value to sum and max."""
     n = values.shape[0]
     _check(values, torch.int32, n, "values")
     _check(mask, torch.bool, n, "mask")
     if not _on_cuda(values, mask):
         return log_bins_int_plain(values, mask)
-    dev = values.device
-    lib = cuda_build.library("log_bins")
-    scratch = torch.empty(lib.log_bins_int_scratch_bytes(), dtype=torch.uint8,
-                          device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    i64 = dict(dtype=torch.int64, device=dev)
-    out = tuple(torch.empty(LOG_BIN_SLOTS, **kind)
-                for kind in (i32, i32, i64, i64, i32)) + (
-        torch.empty((), **i64),)
-    status = lib.log_bins_int(_ptr(values), _ptr(mask), n, _ptr(scratch),
-                              *[_ptr(t) for t in out], _stream(dev))
-    _raise_on(status, "log_bins")
-    _count("log_bins")
-    return out
+    return log_bins_int_unpack(_launch_log_bins_int([(values, mask)]))[0]
 
 
 def log_bins_int_plain(values, mask):
@@ -2951,34 +3056,68 @@ def linspace_edges_f32(lo: torch.Tensor, hi: torch.Tensor,
     return torch.cat([edges, hi.reshape(1)])
 
 
+def _carved(parts, device) -> list:
+    """Views of one uint8 allocation on device: parts ((dtype, elements),
+    ...), each at a 16-byte-aligned offset."""
+    offsets, at = [], 0
+    for dtype, count in parts:
+        offsets.append(at)
+        at += -(-count * dtype.itemsize // 16) * 16
+    buf = torch.empty(max(at, 16), dtype=torch.uint8, device=device)
+    return [buf[o:o + count * dtype.itemsize].view(dtype)
+            for o, (dtype, count) in zip(offsets, parts)]
+
+
 def log_bins_float(values: torch.Tensor, mask: torch.Tensor,
                    n_buckets: int):
     """The equal-width histogram of n_buckets buckets between the min and
     max of the float32 values the bool mask selects: (lo_hi float32[2],
     edges float32[n_buckets + 1], counts int32, sums float32, maxes
-    float32 [n_buckets]); a value's bucket is searchsorted(edges, v,
-    side="right") - 1, clipped, and its sum the float32 of the bucket's
-    float64 sum (C18's float entry). With no value selected lo_hi is
-    (float32 max, -float32 max)."""
+    float32 [n_buckets]); a value's bucket is float_buckets(edges, v)
+    (searchsorted(edges, v, side="right") - 1, clipped), and its sum the
+    float32 of the bucket's float64 sum (C18's float entry, one launch).
+    With no value selected lo_hi is (float32 max, -float32 max)."""
     n = values.shape[0]
     _check(values, torch.float32, n, "values")
     _check(mask, torch.bool, n, "mask")
     if not _on_cuda(values, mask):
         return log_bins_float_plain(values, mask, n_buckets)
     dev = values.device
-    lo_hi = torch.empty(2, dtype=torch.float32, device=dev)
-    edges = torch.empty(n_buckets + 1, dtype=torch.float32, device=dev)
-    counts = torch.empty(n_buckets, dtype=torch.int32, device=dev)
-    sums = torch.empty(n_buckets, dtype=torch.float32, device=dev)
-    maxes = torch.empty(n_buckets, dtype=torch.float32, device=dev)
-    scratch = torch.empty(n_buckets, dtype=torch.float64, device=dev)
+    grid = _log_bins_blocks(_device_index(dev), n_buckets)
+    lo_hi, edges, counts, sums, maxes, scratch = _carved((
+        (torch.float32, 2), (torch.float32, n_buckets + 1),
+        (torch.int32, n_buckets), (torch.float32, n_buckets),
+        (torch.float32, n_buckets),
+        # float64 sums, each block's min and max
+        (torch.uint8, 8 * n_buckets + 8 * grid)), dev)
     status = cuda_build.library("log_bins").log_bins_float(
         _ptr(values), _ptr(mask), n, n_buckets,
-        float(np.float32(1.0 / n_buckets)), _ptr(scratch), _ptr(lo_hi),
+        float(np.float32(1.0 / n_buckets)), grid, _ptr(scratch), _ptr(lo_hi),
         _ptr(edges), _ptr(counts), _ptr(sums), _ptr(maxes), _stream(dev))
     _raise_on(status, "log_bins")
     _count("log_bins")
     return lo_hi, edges, counts, sums, maxes
+
+
+def float_buckets(edges: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Each value's bucket, jnp.searchsorted(edges, v, side="right") - 1
+    clipped to [0, len(edges) - 2], as the JAX package's default (scan)
+    search runs it: ceil(log2(len(edges) + 1)) halvings of [low, high) =
+    [0, len(edges)), high to mid where v sorts below edges[mid] (a NaN
+    edge above every value that is not NaN), else low to mid. Where the
+    edges do not decrease this is torch.searchsorted's bucket; where they
+    decrease somewhere (a range of a few ulps) it is the JAX package's.
+    int64, on values' device."""
+    n = edges.shape[0]
+    low = torch.zeros(values.shape, dtype=torch.int64, device=values.device)
+    high = torch.full_like(low, n)
+    for _ in range(n.bit_length()):
+        mid = (low + high) // 2
+        e = edges[mid]
+        left = (values < e) | (torch.isnan(e) & ~torch.isnan(values))
+        low = torch.where(left, low, mid)
+        high = torch.where(left, mid, high)
+    return (high - 1).clamp(0, n - 2)
 
 
 def log_bins_float_plain(values, mask, n_buckets):
@@ -2986,9 +3125,8 @@ def log_bins_float_plain(values, mask, n_buckets):
     lo = torch.where(mask, values, big).min()
     hi = torch.where(mask, values, -big).max()
     edges = linspace_edges_f32(lo, hi, n_buckets)
-    idx = torch.searchsorted(edges, values, right=True) - 1
-    idx = torch.where(mask, idx.clamp(0, n_buckets - 1),
-                      torch.full_like(idx, n_buckets))
+    idx = float_buckets(edges, values)
+    idx = torch.where(mask, idx, torch.full_like(idx, n_buckets))
     counts = torch.zeros(n_buckets + 1, dtype=torch.int32,
                          device=values.device)
     counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
